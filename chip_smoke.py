@@ -1,22 +1,29 @@
 #!/usr/bin/env python3
-"""Smoke test of the tpu_qg_torch main path on one NVIDIA GPU.
+"""Smoke test of the tpu_qg_torch kernel routes on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, one card
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
 
-1. device — the card's name and power limit (nvidia-smi); no CUDA -> error.
-2. build  — compiles the CUDA kernels of tpu_qg_torch/csrc at first use.
-3. kernels — K1 (step), K2 (y-DFT, forward and inverse) and K3 (mirror-pair
-   x-kernel) against their plain torch versions at the slice's shapes,
-   (2, 2048, 2048) float32, inputs made from a numpy seed.
-4. slice  — run_model(preset("turbulence-2048"), 200 steps, device="cuda")
-   through the normal entry point, with the kernels' launch counts read
-   around that run, a finite state with CFL < 1, and the same 200 steps on
-   the plain route (fft_impl="xla", use_pallas=False) from the same psi.
-5. timing — CUDA-event ms per step for both routes (in turns: plain,
-   kernels, kernels, plain) and per kernel beside its plain version; then
-   the device's busy share over a 200-step kernel-route window traced with
+1. device  — the card's name and power limit (nvidia-smi); no CUDA -> error.
+2. build   — compiles the CUDA kernels of tpu_qg_torch/csrc at first use.
+3. kernels — each kernel against its plain torch version on the card, on
+   inputs made from a numpy seed: K1 (step), K2 (y-DFT), K3 (mirror-pair
+   x-kernel) at (2, 2048, 2048); K8 (step + modes) at (2, 2048, 2048) with
+   the pin gauge and (1, 2048, 2048) single layer; K2, K4 (x-DFT, both
+   ways) and K5 (symbols + inverse x-DFT) at (2, 4096, 4096) and
+   (2, 8192, 8192); K1 at (2, 8192, 8192). On the real zeta of a grid-noise psi the inversions
+   (K3; K5; the four-pass K2 -> K4 -> K5 -> K2^-1) are held against float64.
+4. slices  — through the normal entry point run_model, each with the
+   kernels' launch counts set to 0 just before and read just after, a
+   finite state with CFL < 1, and the same steps on the plain route
+   (fft_impl="xla", use_pallas=False) from the same psi:
+   turbulence-2048 (100 steps: K1, K2, K3), turbulence-2048 with the pin
+   gauge (100 steps: K8) and pod-8192 (50 steps: K1, K2, K4, K5).
+5. timing  — CUDA-event ms per step for both routes in turns (plain,
+   kernels, kernels, plain) and per kernel beside its plain version, at
+   2048^2 and 8192^2 (and K8 at 2048^2); host enqueue ms per step; the
+   device's busy share over a kernel-route window traced with
    torch.profiler (CUDA activity only).
 
 The line before the last is {"kernels": [...]}; the last is
@@ -35,17 +42,23 @@ import torch
 import tpu_qg_torch
 from tpu_qg_torch import preset
 from tpu_qg_torch.models.core import QGModel, init_state
-from tpu_qg_torch.ops import _build
+from tpu_qg_torch.ops import _build, dft_kernels
 from tpu_qg_torch.ops.dft_kernels import (pair_x_symbols, pair_x_symbols_plain,
-                                          y_dft, y_dft_plain)
+                                          x_dft, x_dft_plain, x_symbols_inverse,
+                                          x_symbols_inverse_plain, y_dft,
+                                          y_dft_plain)
 from tpu_qg_torch.ops.spectral import PackedModalInverterKernels
-from tpu_qg_torch.ops.step_kernel import fused_step, fused_step_plain
+from tpu_qg_torch.ops.step_kernel import (fused_pre_inversion,
+                                          fused_pre_inversion_plain,
+                                          fused_step, fused_step_plain)
 from tpu_qg_torch.run import run_model
 from tpu_qg_torch.utils.diagnostics import diagnostics
 
 SEED = 1234
-N_STEPS = 200
-TOL = {"K1": 1e-6, "K2": 1e-5, "K3": 1e-4, "slice_zeta": 1e-4}
+# Relative to max|plain|: the 1/lambda symbol amplifies low-k float32
+# rounding in K3/K5; the slices' zeta after many steps on two routes.
+TOL = {"K1": 1e-6, "K2": 1e-5, "K3": 1e-4, "K4": 1e-5, "K5": 1e-4,
+       "K8": 1e-6, "slice_zeta": 1e-4}
 KERNELS = {
     "K1": ("fused_step", "tpu_qg_torch/csrc/step_kernel.cu",
            "tpu_qg/ops/pallas_tendency.py:555"),
@@ -53,8 +66,21 @@ KERNELS = {
            "tpu_qg/ops/pallas_fft.py:1100"),
     "K3": ("pair_x_symbols", "tpu_qg_torch/csrc/dft_kernels.cu",
            "tpu_qg/ops/pallas_fft.py:1270"),
+    "K4": ("x_dft", "tpu_qg_torch/csrc/dft_kernels.cu",
+           "tpu_qg/ops/pallas_fft.py:1153"),
+    "K5": ("x_symbols_inverse", "tpu_qg_torch/csrc/dft_kernels.cu",
+           "tpu_qg/ops/pallas_fft.py:1176"),
+    "K8": ("fused_pre_inversion", "tpu_qg_torch/csrc/step_kernel.cu",
+           "tpu_qg/ops/pallas_tendency.py:1059"),
 }
-COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols}
+COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
+            "K4": x_dft, "K5": x_symbols_inverse, "K8": fused_pre_inversion}
+# Kernel names in a profiler trace, K8 before K1: a mangled K8 name holds
+# the source file's name, step_kernel.
+TRACE_NAMES = (("K8", "pre_inversion_kernel"),
+               ("K5", "x_symbols_inverse_kernel"), ("K4", "x_dft_kernel"),
+               ("K3", "pair_x_kernel"), ("K2", "y_dft_kernel"),
+               ("K1", "step_kernel"))
 
 
 def emit(phase: str, **fields) -> None:
@@ -80,6 +106,20 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def free_memory() -> None:
+    """Drop the plain versions' cached tables and the allocator's cache."""
+    dft_kernels._symbols.cache_clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def inverter(cfg) -> PackedModalInverterKernels:
+    return PackedModalInverterKernels(cfg.M, cfg.P, cfg.dx, cfg.S_eig,
+                                      cfg.P_inv_matrix(),
+                                      cfg.back_projection_matrix(),
+                                      pair_x=cfg.fft_pairx != "off")
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this smoke "
@@ -101,123 +141,216 @@ def phase_build() -> None:
     _build.load()
     info = _build.build_info()
     regs = [ln.strip() for ln in info["ptxas"].splitlines()
-            if "registers" in ln]
+            if "registers" in ln or "spill" in ln]
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=info["seconds"], library=info["path"], ptxas=regs)
 
 
-def phase_kernels(cfg, dev) -> dict:
-    """Each kernel against its plain version at (2, M, P); returns
-    {kernel: max (abs, rel) error}."""
-    rng = np.random.default_rng(SEED)
-    state = init_state(cfg, dev)
-    zeta, psi = state.zeta, state.psi
-    tend0, _ = fused_step_plain(cfg, zeta, psi, state.f1, state.f2, 0)
-    scale = float(tend0.abs().max())
-    shape = tuple(zeta.shape)
+class Errors:
+    """Each kernel's largest (abs, rel) error against its plain version."""
 
-    def noise(s):
-        return torch.as_tensor(s * rng.standard_normal(shape),
-                               dtype=torch.float32, device=dev)
+    def __init__(self):
+        self.by_kernel = {}
 
-    f1 = tend0 + noise(0.1 * scale)
-    f2 = tend0 + noise(0.1 * scale)
-    errs = {}
-
-    def record(name, case, got, want):
+    def record(self, name, case, got, want):
         a, r = rel_err(got, want)
-        emit("kernels", kernel=name, case=case, max_abs_err=a, rel_err=r,
-             tol=TOL[name])
+        emit("kernels", kernel=name, case=case, shape=list(got.shape),
+             max_abs_err=a, rel_err=r, tol=TOL[name])
         if not r <= TOL[name]:
             raise AssertionError(f"{name} {case}: rel err {r} > {TOL[name]}")
-        prev = errs.get(name, (0.0, 0.0))
-        errs[name] = (max(prev[0], a), max(prev[1], r))
+        prev = self.by_kernel.get(name, (0.0, 0.0))
+        self.by_kernel[name] = (max(prev[0], a), max(prev[1], r))
 
-    leap = cfg.replace(time_scheme="leapfrog_ra", wind_tau0=0.1)
-    for case, c, step in (("euler_ab3 step 0", cfg, 0),
-                          ("euler_ab3 step 5", cfg, 5),
-                          ("leapfrog_ra+wind step 0", leap, 0),
-                          ("leapfrog_ra+wind step 3", leap, 3)):
+
+def vs_float64(name, case, kern, plain, arg) -> None:
+    """On a blue-spectrum input, hold the kernel and the plain version each
+    against a float64 evaluation of the plain version: the kernel may not be
+    less accurate by more than a factor 2 (1/lambda amplifies the float32
+    rounding of weak low-k modes in ANY float32 transform)."""
+    ref = plain(arg.double())
+    _, e_kern = rel_err(kern(arg).double(), ref)
+    _, e_plain = rel_err(plain(arg).double(), ref)
+    del ref
+    emit("kernels", kernel=name, case=case + " vs float64",
+         shape=list(arg.shape), rel_err_kernel=e_kern, rel_err_plain=e_plain,
+         rule="kernel <= 2 x plain")
+    if not e_kern <= 2.0 * e_plain:
+        raise AssertionError(f"{name} {case}: kernel error {e_kern} vs "
+                             f"float64 exceeds twice the plain version's "
+                             f"{e_plain}")
+
+
+def step_inputs(cfg, dev, rng):
+    """zeta, psi of the model's initial state and history fields near the
+    tendency's scale."""
+    state = init_state(cfg, dev)
+    tend0, _ = fused_step_plain(cfg, state.zeta, state.psi, state.f1,
+                                state.f2, 0)
+    scale = float(tend0.abs().max())
+
+    def noisy():
+        return tend0 + torch.as_tensor(
+            0.1 * scale * rng.standard_normal(tuple(tend0.shape)),
+            dtype=torch.float32, device=dev)
+
+    return state.zeta, state.psi, noisy(), noisy()
+
+
+STEP_CASES = (("euler_ab3 step 0", {}, 0), ("euler_ab3 step 5", {}, 5),
+              ("leapfrog_ra+wind step 0",
+               dict(time_scheme="leapfrog_ra", wind_tau0=0.1), 0),
+              ("leapfrog_ra+wind step 3",
+               dict(time_scheme="leapfrog_ra", wind_tau0=0.1), 3))
+
+
+def check_step_kernel(errs, cfg, dev, rng, tag="") -> None:
+    zeta, psi, f1, f2 = step_inputs(cfg, dev, rng)
+    for case, over, step in STEP_CASES:
+        c = cfg.replace(**over)
         got = fused_step(c, zeta, psi, f1, f2, step)
         want = fused_step_plain(c, zeta, psi, f1, f2, step)
-        record("K1", case + " zeta_new", got[0], want[0])
-        record("K1", case + " carry", got[1], want[1])
+        errs.record("K1", tag + case + " zeta_new", got[0], want[0])
+        errs.record("K1", tag + case + " carry", got[1], want[1])
 
-    x = noise(1.0)
+
+def phase_kernels(errs, cfg, dev) -> None:
+    """K1, K2, K3 and K8 at the 2048^2 slices' shapes."""
+    rng = np.random.default_rng(SEED)
+    check_step_kernel(errs, cfg, dev, rng)
+
+    x = torch.as_tensor(rng.standard_normal((2, cfg.M, cfg.P)),
+                        dtype=torch.float32, device=dev)
     for inverse in (False, True):
-        record("K2", "inverse" if inverse else "forward",
-               y_dft(x, inverse), y_dft_plain(x, inverse))
+        errs.record("K2", "inverse" if inverse else "forward",
+                    y_dft(x, inverse), y_dft_plain(x, inverse))
+    consts = inverter(cfg)._sym_consts
+    errs.record("K3", "random y-spectrum", pair_x_symbols(x, consts),
+                pair_x_symbols_plain(x, consts))
+    zeta = init_state(cfg, dev).zeta
+    vs_float64("K3", "zeta y-spectrum", lambda z: pair_x_symbols(z, consts),
+               lambda z: pair_x_symbols_plain(z, consts),
+               y_dft_plain(zeta, False))
+    vs_float64("K3", "zeta -> psi (K2, K3, K2^-1)", inverter(cfg),
+               lambda z: y_dft_plain(pair_x_symbols_plain(
+                   y_dft_plain(z, False), consts), True), zeta)
 
-    inv = PackedModalInverterKernels(cfg.M, cfg.P, cfg.dx, cfg.S_eig,
-                                     cfg.P_inv_matrix(),
-                                     cfg.back_projection_matrix())
-    consts = inv._sym_consts
-    record("K3", "random y-spectrum", pair_x_symbols(x, consts),
-           pair_x_symbols_plain(x, consts))
-    # The slice's own input: zeta of a grid-noise psi has a blue spectrum,
-    # and 1/lambda amplifies the float32 rounding of its weak low-k modes in
-    # ANY float32 transform (kernel and plain differ by ~1e-4 there), so on
-    # it the kernel and the plain version are each held against a float64
-    # evaluation, and the kernel may not be less accurate than the plain
-    # version by more than a factor 2 — for K3 alone and for the whole
-    # inversion back to natural psi.
-    Zy = y_dft_plain(zeta, False)
-    cases = (
-        ("zeta y-spectrum", lambda z: pair_x_symbols(z, consts),
-         lambda z: pair_x_symbols_plain(z, consts), Zy),
-        ("zeta -> psi (K2, K3, K2^-1)", inv,
-         lambda z: y_dft_plain(pair_x_symbols_plain(
-             y_dft_plain(z, False), consts), True), zeta),
-    )
-    for case, kern, plain, arg in cases:
-        ref = plain(arg.double())
-        _, e_kern = rel_err(kern(arg).double(), ref)
-        _, e_plain = rel_err(plain(arg).double(), ref)
-        emit("kernels", kernel="K3", case=case + " vs float64",
-             rel_err_kernel=e_kern, rel_err_plain=e_plain,
-             rule="kernel <= 2 x plain")
-        if not e_kern <= 2.0 * e_plain:
-            raise AssertionError(f"K3 {case}: kernel error {e_kern} vs "
-                                 f"float64 exceeds twice the plain "
-                                 f"version's {e_plain}")
+    # K8: the pin-gauge (two layers, modes P^-1 zeta_new) and single-layer
+    # steps.
+    for layers, over in ((2, dict(poisson_gauge="pin")), (1, dict(n_layers=1))):
+        kcfg = cfg.replace(**over)
+        zeta, psi, f1, f2 = step_inputs(kcfg, dev, rng)
+        for case, o, step in STEP_CASES[1::2]:
+            c = kcfg.replace(**o)
+            got = fused_pre_inversion(c, zeta, psi, f1, f2, step)
+            want = fused_pre_inversion_plain(c, zeta, psi, f1, f2, step)
+            for part, g, w in zip(("zeta_new", "carry", "modes"), got, want):
+                errs.record("K8", f"L={layers} {case} {part}", g, w)
     torch.cuda.synchronize()
-    return errs
 
 
-def phase_slice(cfg, dev) -> dict:
+def phase_x_kernels(errs, pod, dev, sizes=(4096, 8192)) -> None:
+    """K2, K4 and K5 at each n^2 of ``sizes`` on random input; K5 and the
+    whole four-pass inversion on pod-8192's zeta against float64; K1 at
+    pod's grid."""
+    rng = np.random.default_rng(SEED + 2)
+    for n in sizes:
+        cfg = pod.replace(M=n, P=n)
+        x = torch.as_tensor(rng.standard_normal((2, n, n)),
+                            dtype=torch.float32, device=dev)
+        for inverse in (False, True):
+            errs.record("K2", "inverse" if inverse else "forward",
+                        y_dft(x, inverse), y_dft_plain(x, inverse))
+            errs.record("K4", "inverse" if inverse else "forward",
+                        x_dft(x, inverse), x_dft_plain(x, inverse))
+        consts = inverter(cfg)._sym_consts
+        errs.record("K5", "random spectrum", x_symbols_inverse(x, consts),
+                    x_symbols_inverse_plain(x, consts))
+        del x
+        free_memory()
+
+    inv = inverter(pod)
+    if inv.route != "four-pass":
+        raise AssertionError(f"pod-8192 takes the {inv.route} route")
+    consts = inv._sym_consts
+    zeta = init_state(pod, dev).zeta
+    W = x_dft_plain(y_dft_plain(zeta, False), False)
+    vs_float64("K5", "zeta spectrum", lambda w: x_symbols_inverse(w, consts),
+               lambda w: x_symbols_inverse_plain(w, consts), W)
+    del W
+    free_memory()
+    vs_float64("K5", "zeta -> psi (K2, K4, K5, K2^-1)", inv,
+               lambda z: y_dft_plain(x_symbols_inverse_plain(
+                   x_dft_plain(y_dft_plain(z, False), False), consts), True),
+               zeta)
+    del zeta
+    free_memory()
+    check_step_kernel(errs, pod, dev, rng, tag=f"{pod.M}x{pod.P} ")
+    free_memory()
+
+
+def run_slice(name, cfg, dev, steps, expect) -> dict:
+    """``steps`` steps through run_model with every launch count set to 0
+    just before and read just after; then the plain route from the same
+    psi. Returns the launch counts."""
     plain_cfg = cfg.replace(fft_impl="xla", use_pallas=False)
     state0 = init_state(cfg, dev)
     for counter in COUNTERS.values():
         counter.launches = 0
-    out = run_model(cfg, save_results=False, n_steps=N_STEPS, device=dev,
-                    state=state0)
+    out = run_model(cfg, save_results=False, n_steps=steps, device=dev,
+                    state=state0, verbose=False)
     launches = {k: c.launches for k, c in COUNTERS.items()}
-    expect = {"K1": N_STEPS, "K2": 2 * N_STEPS, "K3": N_STEPS}
-    if launches != expect:
-        raise AssertionError(f"launch counts {launches} != {expect}")
-    ref = run_model(plain_cfg, save_results=False, n_steps=N_STEPS,
-                    device=dev, state=state0, verbose=False)
+    want = {k: expect.get(k, 0) for k in COUNTERS}
+    if launches != want:
+        raise AssertionError(f"{name}: launch counts {launches} != {want}")
     d = diagnostics(cfg, out)
     finite = all(bool(torch.isfinite(t).all())
                  for t in (out.zeta, out.psi, out.f1, out.f2))
+    if not finite or not d["cfl"] < 1.0:
+        raise AssertionError(f"{name}: bad final state: finite={finite} "
+                             f"cfl={d['cfl']}")
+    if (tuple(out.zeta.shape) != (cfg.n_layers, cfg.M, cfg.P)
+            or out.step != steps):
+        raise AssertionError(f"{name}: final state has the wrong shape or "
+                             "step")
+    ref = run_model(plain_cfg, save_results=False, n_steps=steps, device=dev,
+                    state=state0, verbose=False)
     _, dz = rel_err(out.zeta, ref.zeta)
     _, dp = rel_err(out.psi, ref.psi)
-    emit("slice", preset="turbulence-2048", steps=out.step,
-         shape=list(out.zeta.shape), launches=launches, finite=finite,
-         cfl=d["cfl"], ke_1=d["ke_1"], max_abs_zeta=d["max_abs_zeta"],
-         zeta_rel_diff_vs_plain=dz, psi_rel_diff_vs_plain=dp,
-         tol_zeta=TOL["slice_zeta"])
-    if not finite or not d["cfl"] < 1.0:
-        raise AssertionError(f"bad final state: finite={finite} cfl={d['cfl']}")
-    if tuple(out.zeta.shape) != (2, cfg.M, cfg.P) or out.step != N_STEPS:
-        raise AssertionError("final state has the wrong shape or step")
-    if not dz <= TOL["slice_zeta"]:
-        raise AssertionError(f"kernel vs plain route zeta diff {dz}")
+    fields = dict(preset=name, steps=out.step, shape=list(out.zeta.shape),
+                  launches=launches, finite=finite, cfl=d["cfl"],
+                  ke_1=d["ke_1"], max_abs_zeta=d["max_abs_zeta"],
+                  zeta_rel_diff_vs_plain=dz, psi_rel_diff_vs_plain=dp,
+                  psi_gauge=cfg.poisson_gauge, tol_zeta=TOL["slice_zeta"])
+    if dz <= TOL["slice_zeta"]:
+        emit("slice", **fields)
+        return launches
+    # The gate failed: hold both routes against a float64 plain run of the
+    # same steps instead, and say so.
+    del ref
+    free_memory()
+    f64 = run_model(plain_cfg.replace(dtype="float64"), save_results=False,
+                    n_steps=steps, device=dev,
+                    state=state0._replace(**{
+                        k: getattr(state0, k).double()
+                        for k in ("zeta", "psi", "f1", "f2")}),
+                    verbose=False)
+    ref = run_model(plain_cfg, save_results=False, n_steps=steps, device=dev,
+                    state=state0, verbose=False)
+    _, e_kern = rel_err(out.zeta.double(), f64.zeta)
+    _, e_plain = rel_err(ref.zeta.double(), f64.zeta)
+    emit("slice", **fields, float64_adjudication=dict(
+        zeta_rel_err_kernel=e_kern, zeta_rel_err_plain=e_plain,
+        rule="kernel <= 2 x plain"))
+    if not e_kern <= 2.0 * e_plain:
+        raise AssertionError(f"{name}: kernel route zeta diff {dz} from the "
+                             f"plain route, and its float64 error {e_kern} "
+                             f"exceeds twice the plain route's {e_plain}")
     return launches
 
 
-def phase_timing(cfg, dev, card: str) -> dict:
-    """ms per step for both routes in turns, and per-kernel ms."""
+def time_routes(cfg, dev, steps) -> tuple[dict, dict, QGModel]:
+    """ms per step of both routes in turns (plain, kernels, kernels,
+    plain), from the state after 3 steps (past the Euler start)."""
     routes = {"kernels": QGModel(cfg, dev),
               "plain": QGModel(cfg.replace(fft_impl="xla", use_pallas=False),
                                dev)}
@@ -225,60 +358,93 @@ def phase_timing(cfg, dev, card: str) -> dict:
     step_ms = {"kernels": [], "plain": []}
     for name in ("plain", "kernels", "kernels", "plain"):
         model = routes[name]
-        s = model.run(state0, 3)          # Euler start, then AB3 steps
-        box = [s]
+        box = [model.run(state0, 3)]
 
         def one(model=model, box=box):
             box[0] = model.step(box[0])
-        step_ms[name].append(time_ms(one, N_STEPS))
+        step_ms[name].append(time_ms(one, steps))
+        del box
+    mean = {k: sum(v) / len(v) for k, v in step_ms.items()}
+    return ({"step_ms": mean, "step_ms_runs": step_ms,
+             "gridpoint_steps_per_s": {k: cfg.M * cfg.P / (v * 1e-3)
+                                       for k, v in mean.items()}},
+            state0, routes["kernels"])
 
+
+def time_kernels(calls: dict, reps: int, plain_reps: int) -> dict:
+    """Per-kernel ms beside the plain version's, in turns."""
+    out = {}
+    for name, (kern, plain, per) in calls.items():
+        plain_a = time_ms(plain, plain_reps) / per
+        kern_a = time_ms(kern, reps) / per
+        kern_b = time_ms(kern, reps) / per
+        plain_b = time_ms(plain, plain_reps) / per
+        out[name] = {"ms": (kern_a + kern_b) / 2,
+                     "plain_ms": (plain_a + plain_b) / 2,
+                     "runs_ms": [kern_a, kern_b],
+                     "plain_runs_ms": [plain_a, plain_b]}
+    return out
+
+
+def host_enqueue_ms(model, state, steps) -> float:
+    """Host time to enqueue a step while the launch queue absorbs the run
+    (the host returns before the device finishes)."""
+    state = model.run(state, 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = model.run(state, steps)
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    torch.cuda.synchronize()
+    return ms
+
+
+def phase_timing(cfg, dev, card, steps, reps, plain_reps, kernels) -> dict:
+    """Both routes' ms per step, per-kernel ms, host enqueue ms and the
+    traced busy share at cfg's grid. ``kernels`` selects the per-kernel
+    timings among K1, K2, K3, K4 (forward and inverse), K5."""
+    routes, state0, model = time_routes(cfg, dev, steps)
     rng = np.random.default_rng(SEED + 1)
     x = torch.as_tensor(rng.standard_normal((2, cfg.M, cfg.P)),
                         dtype=torch.float32, device=dev)
-    inv = PackedModalInverterKernels(cfg.M, cfg.P, cfg.dx, cfg.S_eig,
-                                     cfg.P_inv_matrix(),
-                                     cfg.back_projection_matrix())
-    consts = inv._sym_consts
+    consts = inverter(cfg)._sym_consts
     s = state0
     calls = {
         "K1": (lambda: fused_step(cfg, s.zeta, s.psi, s.f1, s.f2, 5),
-               lambda: fused_step_plain(cfg, s.zeta, s.psi, s.f1, s.f2, 5)),
+               lambda: fused_step_plain(cfg, s.zeta, s.psi, s.f1, s.f2, 5), 1),
         "K2": (lambda: (y_dft(x, False), y_dft(x, True)),
-               lambda: (y_dft_plain(x, False), y_dft_plain(x, True))),
+               lambda: (y_dft_plain(x, False), y_dft_plain(x, True)), 2),
         "K3": (lambda: pair_x_symbols(x, consts),
-               lambda: pair_x_symbols_plain(x, consts)),
+               lambda: pair_x_symbols_plain(x, consts), 1),
+        "K4": (lambda: x_dft(x, False), lambda: x_dft_plain(x, False), 1),
+        "K4 inverse": (lambda: x_dft(x, True),
+                       lambda: x_dft_plain(x, True), 1),
+        "K5": (lambda: x_symbols_inverse(x, consts),
+               lambda: x_symbols_inverse_plain(x, consts), 1),
     }
-    kernel_ms = {}
-    for name, (kern, plain) in calls.items():
-        per = 2 if name == "K2" else 1          # K2: forward + inverse
-        plain_a = time_ms(plain, 20) / per
-        kern_a = time_ms(kern, 50) / per
-        kern_b = time_ms(kern, 50) / per
-        plain_b = time_ms(plain, 20) / per
-        kernel_ms[name] = {"ms": (kern_a + kern_b) / 2,
-                           "plain_ms": (plain_a + plain_b) / 2,
-                           "runs_ms": [kern_a, kern_b],
-                           "plain_runs_ms": [plain_a, plain_b]}
-    # Host time to enqueue a step (the launch queue holds a 200-step run, so
-    # the host returns before the device finishes).
-    model = routes["kernels"]
-    s = model.run(state0, 3)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    s = model.run(s, N_STEPS)
-    host_ms = (time.perf_counter() - t0) * 1e3 / N_STEPS
-    torch.cuda.synchronize()
-    mean = {k: sum(v) / len(v) for k, v in step_ms.items()}
-    emit("timing", card=card, grid=[cfg.M, cfg.P], steps_per_run=N_STEPS,
-         step_ms=mean, step_ms_runs=step_ms, host_enqueue_ms_per_step=host_ms,
-         gridpoint_steps_per_s={k: cfg.M * cfg.P / (v * 1e-3)
-                                for k, v in mean.items()},
-         kernel_ms=kernel_ms)
-    phase_trace(routes["kernels"], state0, card)
+    kernel_ms = time_kernels({k: calls[k] for k in kernels}, reps, plain_reps)
+    del x
+    host = host_enqueue_ms(model, state0, steps)
+    emit("timing", card=card, grid=[cfg.M, cfg.P], steps_per_run=steps,
+         **routes, host_enqueue_ms_per_step=host, kernel_ms=kernel_ms)
+    phase_trace(model, state0, card, steps)
+    del routes, state0, model, s
+    free_memory()
     return kernel_ms
 
 
-def phase_trace(model, state, card: str, steps: int = N_STEPS) -> None:
+def time_pre_inversion(cfg, dev, card) -> dict:
+    """K8 ms per launch beside its plain version at cfg's grid."""
+    zeta, psi, f1, f2 = step_inputs(cfg, dev, np.random.default_rng(SEED + 3))
+    ms = time_kernels({"K8": (
+        lambda: fused_pre_inversion(cfg, zeta, psi, f1, f2, 5),
+        lambda: fused_pre_inversion_plain(cfg, zeta, psi, f1, f2, 5), 1)},
+        50, 20)
+    emit("timing", card=card, grid=[cfg.M, cfg.P], layers=cfg.n_layers,
+         gauge=cfg.poisson_gauge, kernel_ms=ms)
+    return ms["K8"]
+
+
+def phase_trace(model, state, card: str, steps: int) -> None:
     """Device time by kernel and the device's busy share over a traced
     window of kernel-route steps, after a warm-up that settles the caching
     allocator. Only CUDA activity is traced (no host-op recording), so the
@@ -293,10 +459,7 @@ def phase_trace(model, state, card: str, steps: int = N_STEPS) -> None:
               if e.device_type == torch.autograd.DeviceType.CUDA]
     by_kernel = {}
     for e in events:
-        name = next((k for k, fn in (("K1", "step_kernel"),
-                                     ("K2", "y_dft_kernel"),
-                                     ("K3", "pair_x_kernel"))
-                     if fn in e.name), "other")
+        name = next((k for k, fn in TRACE_NAMES if fn in e.name), "other")
         by_kernel[name] = by_kernel.get(name, 0.0) + (
             e.time_range.end - e.time_range.start) / 1e3 / steps
     busy = span = None
@@ -304,10 +467,49 @@ def phase_trace(model, state, card: str, steps: int = N_STEPS) -> None:
         span = (max(e.time_range.end for e in events)
                 - min(e.time_range.start for e in events)) / 1e3 / steps
         busy = sum(by_kernel.values()) / span
-    emit("trace", card=card, steps=steps, activities="cuda",
-         device_events=len(events), device_ms_per_step_by_kernel=by_kernel,
-         span_ms_per_step=span, busy_share=busy,
-         idle_share=None if busy is None else 1.0 - busy)
+    emit("trace", card=card, grid=[model.cfg.M, model.cfg.P], steps=steps,
+         activities="cuda", device_events=len(events),
+         device_ms_per_step_by_kernel=by_kernel, span_ms_per_step=span,
+         busy_share=busy, idle_share=None if busy is None else 1.0 - busy)
+
+
+def kernel_rows(errs, launches, ms_2048, ms_8192) -> list:
+    """The {"kernels": [...]} entries: launches summed over the slices
+    (each counted from 0), errors and ms per launch beside the plain
+    version's, at 2048^2 for K1/K2/K3/K8 and 8192^2 for K4/K5."""
+    rows = []
+    for name, (fn, source, replaces) in KERNELS.items():
+        at = ms_2048 if name in ms_2048 else ms_8192
+        row = {"name": f"{name} {fn}", "route": "cuda", "source": source,
+               "replaces": replaces,
+               "launches": sum(run[name] for run in launches.values()),
+               "launches_by_path": {p: run[name]
+                                    for p, run in launches.items()
+                                    if run[name]},
+               "max_abs_err": errs.by_kernel[name][0],
+               "rel_err": errs.by_kernel[name][1],
+               "ms": at[name]["ms"], "plain_ms": at[name]["plain_ms"],
+               "grid": [2048, 2048] if at is ms_2048 else [8192, 8192]}
+        if name in ("K1", "K2"):
+            row.update(ms_8192=ms_8192[name]["ms"],
+                       plain_ms_8192=ms_8192[name]["plain_ms"])
+        if name == "K4":
+            row.update(ms_inverse=ms_8192["K4 inverse"]["ms"],
+                       plain_ms_inverse=ms_8192["K4 inverse"]["plain_ms"])
+        rows.append(row)
+    # tpu_qg's streaming x-kernel computes K4 (forward) and K5 (fused
+    # inverse) where its strips outgrow VMEM; K4 and K5 run in its place.
+    k4, k5 = rows[3], rows[4]
+    rows.append({"name": "K6 _call_x_stream (covered by K4/K5)",
+                 "route": "cuda", "source": "tpu_qg_torch/csrc/dft_kernels.cu",
+                 "replaces": "tpu_qg/ops/pallas_fft.py:1122",
+                 "covered_by": ["K4", "K5"],
+                 "launches": k4["launches"] + k5["launches"],
+                 "max_abs_err": max(k4["max_abs_err"], k5["max_abs_err"]),
+                 "ms": k4["ms"] + k5["ms"],
+                 "plain_ms": k4["plain_ms"] + k5["plain_ms"],
+                 "grid": [8192, 8192]})
+    return rows
 
 
 def main() -> None:
@@ -316,18 +518,30 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    cfg = preset("turbulence-2048")
-    errs = phase_kernels(cfg, dev)
-    launches = phase_slice(cfg, dev)
-    kernel_ms = phase_timing(cfg, dev, card)
-    rows = []
-    for name, (fn, source, replaces) in KERNELS.items():
-        rows.append({"name": f"{name} {fn}", "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": errs[name][0], "rel_err": errs[name][1],
-                     "ms": kernel_ms[name]["ms"],
-                     "plain_ms": kernel_ms[name]["plain_ms"]})
-    print(json.dumps({"kernels": rows}), flush=True)
+    turb = preset("turbulence-2048")
+    pin = turb.replace(poisson_gauge="pin")
+    pod = preset("pod-8192")
+    errs = Errors()
+    phase_kernels(errs, turb, dev)
+    phase_x_kernels(errs, pod, dev)
+
+    launches = {
+        "turbulence-2048": run_slice("turbulence-2048", turb, dev, 100,
+                                     {"K1": 100, "K2": 200, "K3": 100}),
+        "turbulence-2048 pin": run_slice("turbulence-2048 pin", pin, dev, 100,
+                                         {"K8": 100}),
+        "pod-8192": run_slice("pod-8192", pod, dev, 50,
+                              {"K1": 50, "K2": 100, "K4": 50, "K5": 50}),
+    }
+    free_memory()
+
+    ms_2048 = phase_timing(turb, dev, card, 100, 50, 20, ("K1", "K2", "K3"))
+    ms_2048["K8"] = time_pre_inversion(pin, dev, card)
+    ms_8192 = phase_timing(pod, dev, card, 20, 10, 3,
+                           ("K1", "K2", "K4", "K4 inverse", "K5"))
+
+    print(json.dumps({"kernels": kernel_rows(errs, launches, ms_2048,
+                                             ms_8192)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,8 +4,8 @@ Marked ``cuda``; without a card every test skips. On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances relative to max|plain|: K1 1e-6, K2 1e-5, K3 1e-4 (the
-1/lambda symbol amplifies low-k float32 rounding).
+Tolerances relative to max|plain|: K1 and K8 1e-6, K2 and K4 1e-5, K3 and
+K5 1e-4 (the 1/lambda symbol amplifies low-k float32 rounding).
 """
 
 import numpy as np
@@ -15,9 +15,13 @@ import torch
 from tpu_qg_torch import preset
 from tpu_qg_torch.models.core import QGModel, init_state
 from tpu_qg_torch.ops.dft_kernels import (pair_x_symbols, pair_x_symbols_plain,
-                                          y_dft, y_dft_plain)
+                                          x_dft, x_dft_plain, x_symbols_inverse,
+                                          x_symbols_inverse_plain, y_dft,
+                                          y_dft_plain)
 from tpu_qg_torch.ops.spectral import PackedModalInverterKernels
-from tpu_qg_torch.ops.step_kernel import fused_step, fused_step_plain
+from tpu_qg_torch.ops.step_kernel import (fused_pre_inversion,
+                                          fused_pre_inversion_plain,
+                                          fused_step, fused_step_plain)
 
 pytestmark = pytest.mark.cuda
 # Powers of two, and 128 * n extents that the kernels take in mixed radix.
@@ -73,6 +77,50 @@ def test_dft_kernels(dev, M, P):
                 pair_x_symbols_plain(x, consts)) <= 1e-4
 
 
+# Four-pass extents: powers of two, and the mixed radix 2560 = 512 * 5,
+# 4224 = 128 * 33 (the unfused route), 6144 = 2048 * 3, 8064 = 128 * 63.
+X_SHAPES = [(256, 384), (2560, 256), (4224, 256), (6144, 384), (8064, 256),
+            (8192, 128)]
+
+
+def _consts(M, P):
+    cfg = preset("turbulence-2048").replace(M=M, P=P)
+    return PackedModalInverterKernels(
+        M, P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
+        cfg.back_projection_matrix())._sym_consts
+
+
+@pytest.mark.parametrize("M,P", X_SHAPES)
+def test_x_dft_kernels(dev, M, P):
+    x = _fields(M, P, dev, seed=2)[1]
+    n = (x_dft.launches, x_symbols_inverse.launches)
+    for inverse in (False, True):
+        assert _rel(x_dft(x, inverse), x_dft_plain(x, inverse)) <= 1e-5
+    consts = _consts(M, P)
+    assert _rel(x_symbols_inverse(x, consts),
+                x_symbols_inverse_plain(x, consts)) <= 1e-4
+    torch.cuda.synchronize()
+    assert (x_dft.launches, x_symbols_inverse.launches) == (n[0] + 2, n[1] + 1)
+
+
+@pytest.mark.parametrize("layers,gauge", [(1, "zero_mean"), (2, "pin")])
+@pytest.mark.parametrize("scheme,tau0,step", [
+    ("euler_ab3", 0.0, 5), ("leapfrog_ra", 0.1, 3)])
+def test_pre_inversion_kernel(dev, layers, gauge, scheme, tau0, step):
+    cfg = preset("turbulence-2048").replace(
+        M=256, P=256, n_layers=layers, poisson_gauge=gauge,
+        time_scheme=scheme, wind_tau0=tau0)
+    z, p, f1, f2 = (t[:layers].contiguous() for t in _fields(256, 256, dev))
+    n = fused_pre_inversion.launches
+    got = fused_pre_inversion(cfg, z, p, f1, f2, step)
+    want = fused_pre_inversion_plain(cfg, z, p, f1, f2, step)
+    torch.cuda.synchronize()
+    assert fused_pre_inversion.launches == n + 1
+    for g, w in zip(got, want):
+        assert g.shape == (layers, 256, 256)
+        assert _rel(g, w) <= 1e-6
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         y_dft(torch.zeros((2, 8, 256), dtype=torch.float64, device=dev), False)
@@ -80,15 +128,27 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         y_dft(torch.zeros((2, 8, 130), device=dev), False)
 
 
-@pytest.mark.parametrize("M,P", [(256, 256), (256, 384)])
-def test_model_on_card_matches_cpu(dev, M, P):
-    cfg = preset("turbulence-2048").replace(M=M, P=P)
+COUNTED = (fused_step, y_dft, pair_x_symbols, x_dft, x_symbols_inverse,
+           fused_pre_inversion)
+
+
+# Launches per step of (K1, K2, K3, K4, K5, K8) on each route.
+@pytest.mark.parametrize("overrides,per_step", [
+    (dict(M=256, P=256), (1, 2, 1, 0, 0, 0)),
+    (dict(M=256, P=384), (1, 2, 1, 0, 0, 0)),
+    (dict(M=256, P=384, fft_pairx="off"), (1, 2, 0, 1, 1, 0)),
+    (dict(M=4224, P=256), (1, 2, 0, 2, 0, 0)),
+    (dict(M=256, P=256, poisson_gauge="pin"), (0, 0, 0, 0, 0, 1)),
+    (dict(M=256, P=256, n_layers=1), (0, 0, 0, 0, 0, 1)),
+])
+def test_model_on_card_matches_cpu(dev, overrides, per_step):
+    cfg = preset("turbulence-2048").replace(**overrides)
     psi0 = init_state(cfg, "cpu").psi
     gpu = QGModel(cfg, dev)
     cpu = QGModel(cfg, "cpu")
-    counts = [f.launches for f in (fused_step, y_dft, pair_x_symbols)]
+    counts = [f.launches for f in COUNTED]
     a = gpu.run(gpu.init_state(psi_init=psi0), 10)
     b = cpu.run(cpu.init_state(psi_init=psi0), 10)
-    assert [f.launches for f in (fused_step, y_dft, pair_x_symbols)] == [
-        counts[0] + 10, counts[1] + 20, counts[2] + 10]
+    assert [f.launches - c for f, c in zip(COUNTED, counts)] == [
+        10 * k for k in per_step]
     assert _rel(a.zeta.cpu(), b.zeta) <= 1e-5

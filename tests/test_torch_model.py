@@ -20,10 +20,13 @@ from tpu_qg_torch import io as tio
 from tpu_qg_torch import run as trun
 from tpu_qg_torch.interop import config_from_jax, state_from_numpy, state_to_numpy
 from tpu_qg_torch.models import core
-from tpu_qg_torch.ops.dft_kernels import kernels_take, pair_x_symbols, y_dft
+from tpu_qg_torch.ops.dft_kernels import (kernels_take, pair_x_symbols,
+                                          x_dft, x_kernels_take,
+                                          x_symbols_inverse, y_dft)
+from tpu_qg_torch.ops import spectral
 from tpu_qg_torch.ops.spectral import (PackedModalInverter,
                                        PackedModalInverterKernels)
-from tpu_qg_torch.ops.step_kernel import fused_step
+from tpu_qg_torch.ops.step_kernel import fused_pre_inversion, fused_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -98,6 +101,34 @@ def test_kernel_structure_on_cpu_float32():
             pair_x_symbols.launches) == before
     want = tpu_qg.QGModel(jcfg).run(
         tpu_qg.QGModel(jcfg).init_state(psi_init=psi0), 10)
+    assert _rel(got.zeta, want.zeta) <= 1e-5
+    assert _rel(got.psi, want.psi) <= 2e-4
+
+
+@pytest.mark.parametrize("overrides,P", [
+    (dict(fft_pairx="off"), 384), (dict(poisson_gauge="pin"), 256),
+    (dict(n_layers=1), 256)], ids=["four-pass", "pin", "single-layer"])
+def test_kernel_routes_on_cpu_match_tpu_qg_pallas_float32(overrides, P):
+    """10 float32 steps on the four-pass route (K1 -> K2 -> K4 -> K5 ->
+    K2^-1) and on the K8 route (K8 -> BatchedModalSolver) against
+    tpu_qg.QGModel with fft_impl="pallas" (its Pallas inversion in
+    interpret mode) and the same overrides: zeta 1e-5, psi 2e-4, the pin
+    gauge's psi compared as is. On CPU tensors the kernels' plain versions
+    run and no launch is counted."""
+    jcfg = tpu_qg.preset("turbulence-2048").replace(
+        M=256, P=P, fft_impl="pallas", **overrides)
+    cfg = config_from_jax(jcfg)
+    assert core.use_step_kernel(cfg)
+    psi0 = _psi_init(jcfg, seed=7)
+    counters = (fused_step, y_dft, x_dft, x_symbols_inverse,
+                fused_pre_inversion)
+    before = [c.launches for c in counters]
+    model = tpu_qg_torch.QGModel(cfg, device="cpu")
+    got = model.run(model.init_state(psi_init=psi0), 10)
+    assert [c.launches for c in counters] == before
+    want = tpu_qg.QGModel(jcfg).run(
+        tpu_qg.QGModel(jcfg).init_state(psi_init=psi0), 10)
+    assert got.zeta.dtype == torch.float32
     assert _rel(got.zeta, want.zeta) <= 1e-5
     assert _rel(got.psi, want.psi) <= 2e-4
 
@@ -184,6 +215,17 @@ def test_cli_no_save_and_sharded_flags():
             trun.main(["--device", "cpu", "--steps", "1"] + flags)
 
 
+@pytest.mark.parametrize("preset,sets", [
+    ("pod-8192", ["fft_pairx=off"]), ("pod-8192-mg", ["fft_pairx=off"]),
+    ("turbulence-2048", ["poisson_gauge=pin"])])
+def test_cli_runs_the_large_grid_and_pin_routes_on_cpu(preset, sets, capsys):
+    """The presets of the four-pass and K8 routes, cut to 256^2, run through
+    the CLI on the CPU (the kernels' plain versions, same routing)."""
+    trun.main(["--device", "cpu", "--preset", preset, "--steps", "3",
+               "--no-save", "--set", "M=256", "P=256", *sets])
+    assert "step 3/3" in capsys.readouterr().out
+
+
 def test_default_device_raises_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
@@ -216,10 +258,8 @@ def test_import_pulls_in_no_jax():
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (dict(n_layers=1), "K8"), (dict(poisson_gauge="pin"), "K8"),
     (dict(fft_mono="on"), "K16"), (dict(step_full="on"), "K17"),
-    (dict(step_chain="on"), "K15"), (dict(fft_pairx="off"), "K4/K5"),
-    (dict(M=4096, P=4096), "K4/K5/K6"), (dict(fft_impl="matmul"), "matmul"),
+    (dict(step_chain="on"), "K15"), (dict(fft_impl="matmul"), "matmul"),
     (dict(fft_mxu="bf16x3"), "bf16x3"),
 ])
 def test_unported_kernels_raise(overrides, match):
@@ -228,43 +268,84 @@ def test_unported_kernels_raise(overrides, match):
         core.make_step_fn(cfg.replace(**overrides))
 
 
-@pytest.mark.parametrize("overrides,step_kernel,fft", [
-    (dict(), True, "kernels"),
-    (dict(M=128, P=128), False, "kernels"),        # below the step floor
-    (dict(dtype="float64"), False, "xla"),
-    (dict(use_pallas=False), False, "xla"),
-    (dict(fft_impl="xla"), True, "xla"),
-    (dict(M=256, P=384), True, "kernels"),         # 128 * 3: mixed radix
-    (dict(M=64, P=64), False, "xla"),              # below 128 * n
+def test_pinned_pair_x_that_cannot_engage_raises():
+    """fft_pairx="on" where the pair-x route does not engage fails, as in
+    the reference (tpu_qg/models/core.py:367-372)."""
+    cfg = tpu_qg_torch.preset("turbulence-2048").replace(
+        M=4096, P=4096, fft_pairx="on")
+    with pytest.raises(ValueError, match="mirror-pair kernel cannot engage"):
+        core.make_step_fn(cfg)
+    core.make_step_fn(cfg.replace(M=2432, P=256))
+
+
+K8 = "K8 + BatchedModalSolver"
+
+
+def _route(cfg) -> str:
+    """The step's inversion route label."""
+    solver = core._build_solvers(cfg)
+    if isinstance(solver, PackedModalInverterKernels):
+        return solver.route
+    if isinstance(solver, PackedModalInverter):
+        return "torch.fft"
+    return K8 if core.use_step_kernel(cfg) else "BatchedModalSolver"
+
+
+@pytest.mark.parametrize("overrides,step_kernel,fft,route", [
+    (dict(), True, "kernels", "pair-x"),
+    (dict(M=128, P=128), False, "kernels", "pair-x"),   # below the step floor
+    (dict(dtype="float64"), False, "xla", "torch.fft"),
+    (dict(use_pallas=False), False, "xla", "torch.fft"),
+    (dict(fft_impl="xla"), True, "xla", "torch.fft"),
+    (dict(M=256, P=384), True, "kernels", "pair-x"),   # 128 * 3: mixed radix
+    (dict(M=64, P=64), False, "xla", "torch.fft"),     # below 128 * n
+    pytest.param(dict(n_layers=1), True, "kernels", K8, id="n_layers=1"),
+    pytest.param(dict(poisson_gauge="pin"), True, "kernels", K8, id="pin"),
+    pytest.param(dict(fft_pairx="off"), True, "kernels", "four-pass",
+                 id="fft_pairx=off"),
+    pytest.param(dict(M=4096, P=4096), True, "kernels", "four-pass",
+                 id="4096"),
+    pytest.param(dict(M=4224), True, "kernels", "four-pass-unfused",
+                 id="4224"),
+    pytest.param(dict(M=8192, P=8192), True, "kernels", "four-pass",
+                 id="8192"),
+    pytest.param(dict(M=128, P=128, poisson_gauge="pin"), False, "kernels",
+                 "BatchedModalSolver", id="pin-below-floor"),
 ])
-def test_routing(overrides, step_kernel, fft):
+def test_routing(overrides, step_kernel, fft, route):
     cfg = tpu_qg_torch.preset("turbulence-2048").replace(
         **{"M": 256, "P": 256, **overrides})
     assert core.use_step_kernel(cfg) == step_kernel
     assert core.resolve_fft_impl(cfg) == fft
-    solver = core._build_solvers(cfg)
-    assert isinstance(solver, PackedModalInverter)
-    assert isinstance(solver, PackedModalInverterKernels) == (fft == "kernels")
+    assert _route(cfg) == route
 
 
 def test_pair_x_route_matches_the_reference_bounds():
-    sizes = [128 * n for n in (1, 2, 3, 8, 16, 19, 20, 24, 32, 64)]
+    sizes = [128 * n for n in (1, 2, 3, 8, 16, 19, 20, 24, 32, 33, 35, 36,
+                               64)]
     for M in sizes:
         for P in sizes:
             ref_pair = (planar_fft2_fits(M, P) and symbol_inverse_fits(M, P)
                         and pair_x_fits(M, P))
-            assert core.reference_pair_x(M, P) == ref_pair, (M, P)
-            assert core.reference_dft_kernels(M, P) == planar_fft2_fits(M, P)
+            assert spectral.reference_pair_x(M, P) == ref_pair, (M, P)
+            assert spectral.reference_dft_kernels(M, P) == planar_fft2_fits(
+                M, P)
+            assert spectral.reference_symbol_inverse(M, P) == (
+                planar_fft2_fits(M, P) and symbol_inverse_fits(M, P)), (M, P)
 
 
 def test_kernels_take_every_shape_of_the_pair_x_route():
     """K2 and K3 cover every extent on which the reference runs its pair-x
-    inversion, so the kernel route never needs to give way to torch.fft."""
+    inversion, and K2, K4 and K5 every extent of its four-pass inversion
+    (all its DFT-kernel shapes, fft_pairx="off" included), so the kernel
+    routes never need to give way to torch.fft."""
     sizes = range(128, 128 * 64 + 1, 128)
     for M in sizes:
         for P in sizes:
-            if core.reference_pair_x(M, P):
+            if spectral.reference_pair_x(M, P):
                 assert kernels_take(M, P), (M, P)
+            if spectral.reference_dft_kernels(M, P):
+                assert x_kernels_take(M, P), (M, P)
 
 
 def test_random_initial_condition_is_seeded():

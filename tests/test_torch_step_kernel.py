@@ -1,5 +1,6 @@
-"""K1's plain version (tpu_qg_torch.ops.step_kernel.fused_step_plain) against
-the Pallas step kernels of tpu_qg in interpret mode, float32 at (256, 256).
+"""K1's and K8's plain versions (tpu_qg_torch.ops.step_kernel
+fused_step_plain, fused_pre_inversion_plain) against the Pallas step kernels
+of tpu_qg in interpret mode, float32 at (256, 256).
 
 Tolerance 1e-6 relative to max|ref|: the Pallas body groups the stencil
 terms differently from the plain stencils (~5e-8 reassociation,
@@ -12,11 +13,13 @@ import pytest
 import torch
 
 import tpu_qg
-from tpu_qg.ops.pallas_tendency import fused_step_pre_fft, fused_step_streamed
+from tpu_qg.ops.pallas_tendency import (fused_pre_inversion, fused_step_pre_fft,
+                                        fused_step_streamed)
 from tpu_qg_torch.interop import config_from_jax
 from tpu_qg_torch.models.core import _tendencies
 from tpu_qg_torch.ops import step_kernel
-from tpu_qg_torch.ops.step_kernel import fused_step, fused_step_plain
+from tpu_qg_torch.ops.step_kernel import (fused_pre_inversion_plain, fused_step,
+                                          fused_step_plain)
 
 TOL = 1e-6
 M = P = 256
@@ -35,7 +38,7 @@ def _inputs(jcfg, seed=0):
     near the tendency's scale; float32 numpy."""
     rng = np.random.default_rng(seed)
     amp = jcfg.initial_kick * jcfg.U * jcfg.Ly
-    psi = amp * rng.random((2, M, P))
+    psi = amp * rng.random((jcfg.n_layers, M, P))
     zeta = np.array(tpu_qg.init_state(jcfg, psi_init=psi).zeta)
     tend = _tendencies(config_from_jax(jcfg), torch.from_numpy(zeta),
                        torch.from_numpy(psi))
@@ -75,6 +78,40 @@ def test_plain_matches_pre_fft_kernel_v3(scheme, tau0, step):
     _compare(lambda *a: fused_step_pre_fft(*a, 0), scheme, tau0, step)
 
 
+@pytest.mark.parametrize("layers,gauge", [(1, "zero_mean"), (2, "pin")])
+@pytest.mark.parametrize("scheme,tau0,step", CASES)
+def test_pre_inversion_plain_matches_kernel_v2(layers, gauge, scheme, tau0,
+                                               step):
+    """(zeta_new, carry, modes); tile=128 gives a grid of 2."""
+    jcfg = tpu_qg.preset("turbulence-2048").replace(
+        M=M, P=P, n_layers=layers, poisson_gauge=gauge, time_scheme=scheme,
+        wind_tau0=tau0, dtype="float32")
+    arrays = _inputs(jcfg, seed=layers)
+    want = fused_pre_inversion(jcfg, *(jnp.asarray(a) for a in arrays),
+                               jnp.int32(step), True, 128)
+    got = fused_pre_inversion_plain(config_from_jax(jcfg),
+                                    *(torch.from_numpy(a) for a in arrays),
+                                    step)
+    for name, g, w in zip(("zeta_new", "carry", "modes"), got, want):
+        w = np.asarray(w)
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=TOL * np.abs(w).max(), err_msg=name)
+
+
+def test_pre_inversion_wrapper_runs_plain_on_cpu_without_counting():
+    jcfg = tpu_qg.preset("turbulence-2048").replace(
+        M=M, P=P, poisson_gauge="pin", dtype="float32")
+    cfg = config_from_jax(jcfg)
+    z, p, f1, f2 = (torch.from_numpy(a) for a in _inputs(jcfg))
+    before = step_kernel.fused_pre_inversion.launches
+    got = step_kernel.fused_pre_inversion(cfg, z, p, f1, f2, 4)
+    want = fused_pre_inversion_plain(cfg, z, p, f1, f2, 4)
+    assert step_kernel.fused_pre_inversion.launches == before
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 def test_wrapper_runs_plain_on_cpu_without_counting():
     cfg = config_from_jax(tpu_qg.preset("two-layer-256").replace(
         dtype="float32"))
@@ -94,3 +131,13 @@ def test_kernel_constants_round_once_from_float64():
     assert consts[0] == np.float32(1.0 / cfg.dx ** 2)
     assert consts[4:6] == [np.float32(cfg.beta_1), np.float32(cfg.beta_2)]
     assert len(consts) == 14
+
+
+def test_pre_inversion_constants_are_the_layers_own():
+    """One layer steps with beta itself; P^-1 rounds once per entry."""
+    cfg = config_from_jax(tpu_qg.preset("turbulence-2048"))
+    one = list(step_kernel._consts(cfg.replace(n_layers=1)))
+    assert one[4:6] == [np.float32(cfg.beta), 0.0]
+    (q11, q12), (q21, q22) = cfg.P_inv_matrix()
+    assert list(step_kernel._modal_consts(cfg)) == [
+        np.float32(v) for v in (q11, q12, q21, q22)]

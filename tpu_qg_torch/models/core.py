@@ -6,18 +6,30 @@ psi and two history fields per layer. ``State.step`` is a host-side Python
 int, so the Euler start of each scheme is a host branch and the step loop
 never reads a device value.
 
-Routing mirrors ``tpu_qg``'s ``_use_pallas`` and ``_resolve_fft_impl``
-(tpu_qg/models/core.py:304-408), with the hand-written CUDA kernels in the
-place of its Pallas kernels:
+Routing mirrors ``tpu_qg``'s ``_use_pallas``, ``_resolve_fft_impl`` and
+``make_step_fn`` (tpu_qg/models/core.py:304-408, 547-608), with the
+hand-written CUDA kernels in the place of its Pallas kernels. The step
+kernels run under ``use_pallas``, float32, M*P >= 256^2, P % 128 == 0 and
+M % 8 == 0 (``ops/step_kernel.py``):
 
-  * two layers, zero-mean gauge, float32, ``use_pallas``, M*P >= 256^2,
-    P % 128 == 0, M % 8 == 0: the step kernel K1 (``ops/step_kernel.py``);
-  * float32 and ``use_pallas`` (or ``fft_impl="pallas"``) where the reference
-    takes its pair-x inversion: K2 -> K3 -> K2^-1 (``ops/dft_kernels.py``);
-  * elsewhere the plain torch route, where the reference takes XLA;
-  * a configuration on which the reference would run a kernel this package
-    has not ported raises ``NotImplementedError`` naming the kernel (the
-    K-numbers of ROADMAP.md queue 2), instead of running something else.
+  * two layers, zero-mean gauge: K1, then the packed inversion;
+  * one layer, or the pin gauge: K8 (the step and the modes P^-1 zeta), then
+    ``BatchedModalSolver`` on torch.fft and, for two layers, the
+    back-projection.
+
+The packed inversion runs its DFT kernels (``ops/dft_kernels.py``) for
+float32 and ``use_pallas`` (or ``fft_impl="pallas"``) on 128 * n extents, by
+the reference's route for the shape (``spectral.inversion_route``):
+
+  * M <= 2432 (and fft_pairx != "off"): K2 -> K3 -> K2^-1;
+  * otherwise K2 -> K4 -> K5 -> K2^-1 (the reference's streaming
+    x-kernels K6, M >= 4608, compute what K4 and K5 compute), except
+  * 4224 <= M <= 4480: K2 -> K4 -> torch symbol stage -> K4^-1 -> K2^-1.
+
+Elsewhere the plain torch route runs, where the reference takes XLA. A
+configuration on which the reference would run a kernel this package has
+not ported raises ``NotImplementedError`` naming the kernel (the K-numbers
+of ROADMAP.md queue 2), instead of running something else.
 
 The route depends on the configuration only; on CPU tensors each kernel
 wrapper runs its plain version, so a CPU run has the card's structure.
@@ -36,8 +48,10 @@ import torch
 
 from ..config import ModelConfig
 from ..ops.spectral import (BatchedModalSolver, HelmholtzSolver,
-                            PackedModalInverter, PackedModalInverterKernels)
-from ..ops.step_kernel import fused_step, fused_step_plain
+                            PackedModalInverter, PackedModalInverterKernels,
+                            reference_dft_kernels)
+from ..ops.step_kernel import (fused_pre_inversion, fused_step,
+                               fused_step_plain)
 from ..ops.stencils import arakawa_J, centered_diff_x, laplace_5p
 
 
@@ -128,35 +142,22 @@ def _invert_psi(cfg: ModelConfig, solvers, zeta: torch.Tensor) -> torch.Tensor:
     zt2 = pi21 * zeta[0] + pi22 * zeta[1]   # baroclinic mode
     if isinstance(solvers, tuple):
         poisson, helmholtz = solvers
-        pt0, pt1_ = poisson(zt1), helmholtz(zt2)
-    else:
-        pt = solvers(torch.stack([zt1, zt2]))
-        pt0, pt1_ = pt[0], pt[1]
+        return _back_project(cfg, poisson(zt1), helmholtz(zt2))
+    pt = solvers(torch.stack([zt1, zt2]))
+    return _back_project(cfg, pt[0], pt[1])
+
+
+def _back_project(cfg: ModelConfig, pt0: torch.Tensor,
+                  pt1: torch.Tensor) -> torch.Tensor:
+    """psi from the two modal streamfunctions (back-projection P)."""
     (p11, p12), (p21, p22) = cfg.back_projection_matrix()
-    return torch.stack([p11 * pt0 + p12 * pt1_, p21 * pt0 + p22 * pt1_])
+    return torch.stack([p11 * pt0 + p12 * pt1, p21 * pt0 + p22 * pt1])
 
 
 # --- Routing -----------------------------------------------------------------
 
 # Step-kernel size floor, the reference's (tpu_qg/models/core.py:397-408).
 _KERNEL_FLOOR = 256 * 256
-
-# The reference runs its DFT kernels where both extents are 128 * n with
-# n <= 64 (pallas_fft.planar_fft2_fits), and its pair-x kernel only up to
-# M = 2432 (pallas_fft.pair_x_fits: a bound of the TPU's on-chip memory);
-# above that it takes its four-pass x-kernels.
-_REF_MAX_N2 = 64
-_REF_PAIR_X_MAX_M = 2432
-
-
-def reference_dft_kernels(M: int, P: int) -> bool:
-    """Shapes on which the reference runs its Pallas DFT kernels."""
-    return all(n % 128 == 0 and 1 <= n // 128 <= _REF_MAX_N2 for n in (M, P))
-
-
-def reference_pair_x(M: int, P: int) -> bool:
-    """Shapes on which the reference's inversion takes the pair-x route."""
-    return reference_dft_kernels(M, P) and M <= _REF_PAIR_X_MAX_M
 
 
 def _not_ported(what: str, kernel: str) -> NotImplementedError:
@@ -174,9 +175,10 @@ def use_step_kernel(cfg: ModelConfig) -> bool:
 
 
 def resolve_fft_impl(cfg: ModelConfig) -> str:
-    """The packed inversion's transform route: "kernels" (K2 -> K3 -> K2^-1)
-    or "xla" (torch.fft, the oracle tier). Raises NotImplementedError where
-    the reference would run a transform this package has not ported."""
+    """The packed inversion's transform tier: "kernels" (the DFT kernels, by
+    the route of ``spectral.inversion_route``) or "xla" (torch.fft, the
+    oracle tier). Raises NotImplementedError where the reference would run a
+    transform this package has not ported."""
     if cfg.fft_impl == "matmul":
         raise NotImplementedError(
             "fft_impl='matmul' (the FactoredFFT einsum transforms) is not "
@@ -196,20 +198,29 @@ def resolve_fft_impl(cfg: ModelConfig) -> str:
             "yet; it waits for the float64 adjudication on the card")
     if cfg.fft_mono == "on":
         raise _not_ported("fft_mono='on'", "K16")
-    if cfg.fft_pairx == "off":
-        raise _not_ported("fft_pairx='off'", "K4/K5")
-    if not reference_pair_x(cfg.M, cfg.P):
-        raise _not_ported(f"the ({cfg.M}, {cfg.P}) inversion", "K4/K5/K6")
     return "kernels"
+
+
+def _build_packed_inverter(cfg: ModelConfig) -> PackedModalInverter:
+    args = (cfg.M, cfg.P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
+            cfg.back_projection_matrix())
+    if resolve_fft_impl(cfg) != "kernels":
+        return PackedModalInverter(*args)
+    inv = PackedModalInverterKernels(*args, pair_x=cfg.fft_pairx != "off")
+    # A pinned kernel form that cannot engage fails, as in the reference
+    # (tpu_qg/models/core.py:367-372).
+    if cfg.fft_pairx == "on" and inv.route != "pair-x":
+        raise ValueError(
+            f"fft_pairx='on' requested but the mirror-pair kernel cannot "
+            f"engage at ({cfg.M}, {cfg.P}) (pair_x_fits/fuse rejected); "
+            "use fft_pairx='auto' to allow fallback")
+    return inv
 
 
 def _build_solvers(cfg: ModelConfig, batched_fft: bool = True):
     if (batched_fft and cfg.n_layers == 2
             and cfg.poisson_gauge == "zero_mean"):
-        cls = (PackedModalInverterKernels
-               if resolve_fft_impl(cfg) == "kernels" else PackedModalInverter)
-        return cls(cfg.M, cfg.P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
-                   cfg.back_projection_matrix())
+        return _build_packed_inverter(cfg)
     if batched_fft:
         alphas = (0.0,) if cfg.n_layers == 1 else (0.0, cfg.S_eig)
         return BatchedModalSolver(cfg.M, cfg.P, cfg.dx, alphas,
@@ -238,14 +249,23 @@ def make_step_fn(cfg: ModelConfig, batched_fft: bool = True):
     psi. ``batched_fft=False`` uses per-mode solvers."""
     solvers = _build_solvers(cfg, batched_fft)
     step_kernel = use_step_kernel(cfg) and batched_fft
-    if step_kernel:
-        if not isinstance(solvers, PackedModalInverter):
-            raise _not_ported("the single-layer / pin-gauge step", "K8")
-        if isinstance(solvers, PackedModalInverterKernels):
-            if cfg.step_full == "on":
-                raise _not_ported("step_full='on'", "K17")
-            if cfg.step_chain == "on":
-                raise _not_ported("step_chain='on'", "K15")
+    if step_kernel and not isinstance(solvers, PackedModalInverter):
+        # Single layer or pin gauge: K8, the batched spectral solves of the
+        # modes, then the back-projection (tpu_qg/models/core.py:592-608).
+        def step(state: State) -> State:
+            zeta_new, carry, modes = fused_pre_inversion(
+                cfg, state.zeta, state.psi, state.f1, state.f2, state.step)
+            pt = solvers(modes)
+            psi_new = pt if cfg.n_layers == 1 else _back_project(cfg, pt[0],
+                                                                 pt[1])
+            return _next_state(cfg, state, zeta_new, psi_new, carry)
+
+        return step
+    if step_kernel and isinstance(solvers, PackedModalInverterKernels):
+        if cfg.step_full == "on":
+            raise _not_ported("step_full='on'", "K17")
+        if cfg.step_chain == "on":
+            raise _not_ported("step_chain='on'", "K15")
     advance = fused_step if step_kernel else fused_step_plain
 
     def step(state: State) -> State:

@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels of ``tpu_qg_torch/csrc``.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` into one shared library
-with a plain C interface, ``tpu_qg_torch/_build/libtpu_qg_torch-<hash>.so``,
-at first use; the hash covers the sources and the flags, so an edited source
-rebuilds and an unchanged one loads the library already built. The library
-is loaded with ``ctypes``; each kernel module declares its entry points'
-``argtypes`` (every pointer and the stream as ``c_void_p``).
+All ``csrc/*.cu`` files are compiled into one shared library with a plain C
+interface, ``tpu_qg_torch/_build/libtpu_qg_torch-<hash>.so``, at first use:
+one ``nvcc -c`` per source, all started together, then one link. The hash
+covers the sources and the flags, so an edited source rebuilds and an
+unchanged one loads the library already built. The library is loaded with
+``ctypes``; each kernel module declares its entry points' ``argtypes``
+(every pointer and the stream as ``c_void_p``).
 
 Each C entry point returns ``cudaGetLastError()`` after its launch, and
 ``check`` raises on a non-zero code, so a launch the device refuses (too
@@ -30,7 +31,7 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class _Library:
@@ -77,21 +78,46 @@ def load() -> ctypes.CDLL:
     out = BUILD_DIR / f"libtpu_qg_torch-{_source_hash()}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in _sources() if s.suffix == ".cu")]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _LIB.log = _compile(out)
         _LIB.build_seconds = time.perf_counter() - t0
-        _LIB.log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{_LIB.log}")
         (BUILD_DIR / f"{out.stem}.log").write_text(_LIB.log)
-        os.replace(tmp, out)
     _LIB.lib = ctypes.CDLL(str(out))
     _LIB.path = out
     return _LIB.lib
+
+
+def _compile(out: pathlib.Path) -> str:
+    """Compile every .cu source in parallel and link them into ``out``
+    (written atomically); returns the compiler's output."""
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in _sources():
+        if src.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f".{src.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    log = "".join(p.communicate()[0] for p in procs)
+    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+    try:
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *(str(o) for o in objs)],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+        os.replace(tmp, out)
+    finally:
+        tmp.unlink(missing_ok=True)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return log
 
 
 def build_info() -> dict:

@@ -1,18 +1,23 @@
-"""K2 (the y-DFT) and K3 (the mirror-pair x-kernel) of the packed inversion.
+"""K2 (the y-DFT), K3 (the mirror-pair x-kernel), K4 (the x-DFT) and K5
+(symbols + inverse x-DFT) of the packed inversion.
 
-Replace ``tpu_qg/ops/pallas_fft.py`` ``PlanarFFT2._call_y`` and
-``PlanarFFT2.pair_x_symbols`` with hand-written CUDA kernels,
-``csrc/dft_kernels.cu`` (design and bounds in its comments: both are
-bandwidth-bound passes that keep each transform in shared memory).
+Replace ``tpu_qg/ops/pallas_fft.py`` ``PlanarFFT2._call_y``,
+``PlanarFFT2.pair_x_symbols``, ``PlanarFFT2._call_x`` and
+``PlanarFFT2._call_x_symbols`` — and the streaming ``_call_x_stream``, which
+computes what the last two compute where a TPU core's VMEM runs short — with
+hand-written CUDA kernels, ``csrc/dft_kernels.cu`` (design and bounds in its
+comments: all are bandwidth-bound passes that keep each transform in shared
+memory).
 
 Fields are planar: ``(2, rows, N)`` float, plane 0 = real, plane 1 = imag.
-The y-spectrum is in the permuted order of ``matmul_fft.freq_order``.
+Spectra are in the permuted order of ``matmul_fft.freq_order``: the
+y-spectrum everywhere, the x-spectrum between K4 and K5.
 
-``y_dft``/``pair_x_symbols`` launch the kernels for CUDA tensors and use
-``y_dft_plain``/``pair_x_symbols_plain`` only for CPU tensors. The plain
-versions are ``torch.fft`` along one axis plus ``freq_order`` indexing, with
-the symbols built in float64 and cast, and return exactly the permuted-order
-arrays the JAX kernels return.
+Each wrapper launches its kernel for CUDA tensors and uses its ``*_plain``
+version only for CPU tensors. The plain versions are ``torch.fft`` along one
+axis plus ``freq_order``/``negate_index`` indexing, with the symbols built
+in float64 and cast, and return exactly the permuted-order arrays the JAX
+kernels return.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from .matmul_fft import freq_order, negate_index, split_factor
 # Whatever a kernel holds in shared memory must fit one block's limit.
 MAX_ODD = 63
 SMEM_LIMIT = 227 * 1024          # bytes of dynamic shared memory per block
+SM_SMEM = 228 * 1024             # bytes of shared memory per SM
+SMEM_RESERVED = 1024             # bytes the runtime reserves per block
 _PAIR_X_SMEM_TARGET = 160 * 1024  # K3 takes the most columns that fit this
 
 
@@ -57,11 +64,30 @@ def y_dft_smem(P: int) -> int:
     return 4 * (2 * m * _pad(R) + R + (2 * _pad(P) if m > 1 else 0))
 
 
+def y_dft_threads(P: int) -> int:
+    """K2's block size: ~one 16-value group a thread, at most 128 (which
+    with 128 registers a thread lets four blocks share an SM); 256 where a
+    row's shared memory leaves room for fewer than four blocks an SM, so
+    that an SM still holds ~512 threads (P = 8192: 1.28 ms against 1.81 ms
+    a forward pass on an H100, PERF.md)."""
+    if 4 * (y_dft_smem(P) + SMEM_RESERVED) > SM_SMEM:
+        return 256
+    return min(128, max(32, P // 16))
+
+
 def kernels_take(M: int, P: int) -> bool:
     """True iff K2 and K3 take an (M, P) field: each extent R * m with
     m <= MAX_ODD, and K2's row and K3's two columns fit in shared memory."""
     return (_radix_ok(M) and _radix_ok(P) and y_dft_smem(P) <= SMEM_LIMIT
             and pair_x_layout(M)[3] <= SMEM_LIMIT)
+
+
+def x_kernels_take(M: int, P: int) -> bool:
+    """True iff K2, K4 (both directions) and K5 take an (M, P) field: the
+    kernels of the four-pass inversion."""
+    return (_radix_ok(M) and _radix_ok(P) and y_dft_smem(P) <= SMEM_LIMIT
+            and max(x_dft_layout(M, False)[3], x_dft_layout(M, True)[3],
+                    x_symbols_layout(M)[3]) <= SMEM_LIMIT)
 
 
 def _complex_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -94,24 +120,33 @@ def _index(fn, N: int, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=2)
-def _symbols(M: int, P: int, consts, dtype: torch.dtype,
+def _symbols(M: int, P: int, consts, x_permuted: bool, dtype: torch.dtype,
              device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The packed-inversion symbols A, B on the (natural x, permuted y)
-    grid, built in float64 in the cancellation-free eigenvalue form
-    lambda = -4/dx^2 (sin^2(pi kx/M) + sin^2(pi ky/P)), then cast to the
-    complex type of ``dtype``."""
+    """The packed-inversion symbols A, B on the (natural or permuted x,
+    permuted y) grid, in the cancellation-free eigenvalue form
+    lambda = -4/dx^2 (sin^2(pi kx/M) + sin^2(pi ky/P)): the 1-D factors in
+    float64 numpy, the (M, P) tables in float64 on ``device``, then cast to
+    the complex type of ``dtype``."""
     _, _, inv_dx2, alpha2, a1, a2, b1, b2 = consts
-    fx = np.arange(M)
+    fx = freq_order(M) if x_permuted else np.arange(M)
     fy = freq_order(P)
-    sx = np.sin(np.pi * np.minimum(fx, M - fx) / M)
-    sy = np.sin(np.pi * np.minimum(fy, P - fy) / P)
-    lam = (-4.0 * inv_dx2) * (sx[:, None] ** 2 + sy[None, :] ** 2)
-    is_zero = (fx[:, None] + fy[None, :]) == 0
-    inv1 = np.where(is_zero, 0.0, 1.0 / np.where(is_zero, 1.0, lam))
+
+    def on_device(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=device)
+
+    sx2 = on_device(np.sin(np.pi * np.minimum(fx, M - fx) / M) ** 2)
+    sy2 = on_device(np.sin(np.pi * np.minimum(fy, P - fy) / P) ** 2)
+    lam = (-4.0 * inv_dx2) * (sx2[:, None] + sy2[None, :])
+    is_zero = (on_device(fx)[:, None] + on_device(fy)[None, :]) == 0
+    inv1 = torch.where(is_zero, 0.0, 1.0 / torch.where(is_zero, 1.0, lam))
     inv2 = 1.0 / (lam + alpha2)
     cdtype = _complex_dtype(dtype)
-    return (torch.as_tensor(a1 * inv1 + a2 * inv2, dtype=cdtype, device=device),
-            torch.as_tensor(b1 * inv1 + b2 * inv2, dtype=cdtype, device=device))
+
+    def table(c1: complex, c2: complex) -> torch.Tensor:
+        return torch.complex(c1.real * inv1 + c2.real * inv2,
+                             c1.imag * inv1 + c2.imag * inv2).to(cdtype)
+
+    return table(a1, a2), table(b1, b2)
 
 
 def _negate_natural(N: int) -> np.ndarray:
@@ -124,13 +159,44 @@ def pair_x_symbols_plain(Zy: torch.Tensor, consts) -> torch.Tensor:
     ``consts`` = (n2x, n2y, inv_dx2, alpha2, a1, a2, b1, b2) as built by
     spectral.PackedModalInverterKernels."""
     _, M, P = Zy.shape
-    A, B = _symbols(M, P, consts, Zy.dtype, Zy.device)
+    A, B = _symbols(M, P, consts, False, Zy.dtype, Zy.device)
     W = torch.fft.fft(torch.complex(Zy[0], Zy[1]), dim=0)
     neg_x = _index(_negate_natural, M, Zy.device)
     neg_y = _index(negate_index, P, Zy.device)
     Wn = W[neg_x][:, neg_y]
     v = torch.fft.ifft(A * W + B * torch.conj(Wn), dim=0)
     return torch.stack([v.real, v.imag]).to(Zy.dtype)
+
+
+def x_dft_plain(z: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """Planar (2, M, cols), DFT along x (dim 1): forward natural -> permuted
+    x-spectrum; inverse permuted -> natural, scaled 1/M."""
+    M = z.shape[1]
+    order = _index(freq_order, M, z.device)
+    c = torch.complex(z[0], z[1])
+    if not inverse:
+        out = torch.fft.fft(c, dim=0)[order]
+    else:
+        natural = torch.empty_like(c)
+        natural[order] = c
+        out = torch.fft.ifft(natural, dim=0)
+    return torch.stack([out.real, out.imag]).to(z.dtype)
+
+
+def x_symbols_inverse_plain(W: torch.Tensor, consts) -> torch.Tensor:
+    """Spectrum W, permuted on both axes -> ifft_x(A W + B conj(W(-k))) in
+    natural x order, the y-spectrum still permuted. ``consts`` as for
+    ``pair_x_symbols_plain``."""
+    _, M, P = W.shape
+    A, B = _symbols(M, P, consts, True, W.dtype, W.device)
+    Wc = torch.complex(W[0], W[1])
+    neg_x = _index(negate_index, M, W.device)
+    neg_y = _index(negate_index, P, W.device)
+    V = A * Wc + B * torch.conj(Wc[neg_x][:, neg_y])
+    natural = torch.empty_like(V)
+    natural[_index(freq_order, M, W.device)] = V
+    v = torch.fft.ifft(natural, dim=0)
+    return torch.stack([v.real, v.imag]).to(W.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -145,6 +211,11 @@ def _lib():
                        [p, p, i, i, i, i, i, i, p, p, i, p])
         _build.declare(lib.qg_pair_x_launch,
                        [p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, i, p])
+        _build.declare(lib.qg_x_dft_launch,
+                       [p, p, i, i, i, i, i, i, i, i, i, p, p, i, p])
+        _build.declare(lib.qg_x_symbols_launch,
+                       [p, p, p, p, i, i, i, i, i, i, i, i, i, i, p, p, p, i,
+                        p])
         lib.qg_pair_x_num_consts.restype = ctypes.c_int
     return lib
 
@@ -211,10 +282,9 @@ def y_dft(z: torch.Tensor, inverse: bool) -> torch.Tensor:
     lib = _lib()
     out = torch.empty_like(z)
     logr, m, tw, twn = _tables(P, z.device)
-    threads = min(128, max(32, P // 16))    # ~one 16-value group each
     code = lib.qg_y_dft_launch(
         z.data_ptr(), out.data_ptr(), rows, P, logr, m, split_factor(P)[0],
-        int(inverse), tw, twn, threads,
+        int(inverse), tw, twn, y_dft_threads(P),
         torch.cuda.current_stream(z.device).cuda_stream)
     _build.check(code, "y_dft (K2)")
     y_dft.launches += 1
@@ -232,53 +302,95 @@ def pair_x_stride(n: int) -> int:
     return -(-_pad(n) // 32) * 32 + 8
 
 
-def pair_x_layout(M: int) -> tuple[int, int, int, int]:
-    """K3's shared-memory layout for columns of M = R * m values:
-    (C slot pairs per block, sub-column stride, joined-spectrum stride or 0,
-    bytes). C is the most (a power of two <= 8, at least 1) whose 2C
-    columns fit _PAIR_X_SMEM_TARGET (csrc qg_pair_x_launch)."""
+def _columns_layout(M: int, columns, target: int = _PAIR_X_SMEM_TARGET
+                    ) -> tuple[int, int, int, int]:
+    """(C, sub-column stride, spectrum stride, bytes) of an x-kernel whose
+    shared memory holds ``columns(C, m * sub, bstride)`` floats beside the
+    radix-2 table: C the most (a power of two <= 8, at least 1) that fit
+    ``target``. bstride is the stride of a natural-order spectrum of a mixed
+    extent (0 for m = 1)."""
     R, m = radix_split(M)
     sub = pair_x_stride(R)
     bstride = pair_x_stride(M) if m > 1 else 0
     C = 8
     while True:
-        smem = 4 * (4 * C * (m * sub + bstride) + R)
-        if C == 1 or smem <= _PAIR_X_SMEM_TARGET:
+        smem = 4 * (columns(C, m * sub, bstride) + R)
+        if C == 1 or smem <= target:
             return C, sub, bstride, smem
         C //= 2
+
+
+def pair_x_layout(M: int) -> tuple[int, int, int, int]:
+    """K3's shared-memory layout for columns of M = R * m values:
+    (C slot pairs per block, sub-column stride, joined-spectrum stride or 0,
+    bytes): 2C columns and, for m > 1, 2C joined spectra (csrc
+    qg_pair_x_launch)."""
+    return _columns_layout(M, lambda C, cs, b: 4 * C * (cs + b))
+
+
+# K4 and K5 take the most columns that fit one block: at 128 registers a
+# thread, one 512-thread block fills an SM's registers anyway, and more
+# columns per block mean longer runs per row (K4 forward at 8192^2: 2.77 ms
+# with C = 2 against 3.57 ms with C = 1 on an H100, PERF.md).
+def x_dft_layout(M: int, inverse: bool) -> tuple[int, int, int, int]:
+    """K4's layout: C adjacent y slots per block; C columns and, for the
+    inverse of m > 1, C natural-order spectra (csrc qg_x_dft_launch)."""
+    return _columns_layout(
+        M, lambda C, cs, b: 2 * C * (cs + (b if inverse else 0)), SMEM_LIMIT)
+
+
+def x_symbols_layout(M: int) -> tuple[int, int, int, int]:
+    """K5's layout: C slot pairs per block; 2C columns for m = 1, else 2C
+    natural-order spectra and C columns of sub-columns (csrc
+    qg_x_symbols_launch)."""
+    return _columns_layout(
+        M, lambda C, cs, b: 2 * (2 * C * b + C * cs) if b else 4 * C * cs,
+        SMEM_LIMIT)
+
+
+def _threads(C: int, M: int) -> int:
+    """Block size of K3/K4/K5: a multiple of C, 512 for long columns."""
+    return 512 if C * M >= 1024 else 128
+
+
+def _check_consts(what: str, consts, M: int, P: int) -> ctypes.Array:
+    """The symbol constants as the kernels' SymConsts float table."""
+    n2x, n2y, inv_dx2, alpha2, a1, a2, b1, b2 = consts
+    if (n2x, n2y) != (split_factor(M)[1], split_factor(P)[1]):
+        raise ValueError(f"{what}: consts were built for another shape than "
+                         f"({M}, {P})")
+    vals = [inv_dx2, alpha2, a1.real, a1.imag, a2.real, a2.imag,
+            b1.real, b1.imag, b2.real, b2.imag]
+    if len(vals) != _lib().qg_pair_x_num_consts():
+        raise RuntimeError(f"{what}: constant table does not match the "
+                           "compiled kernel")
+    return (ctypes.c_float * len(vals))(*vals)
+
+
+def _cuda_field(what: str, z: torch.Tensor, takes, M: int, P: int) -> None:
+    if z.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {z.device}")
+    _check_field(what, z)
+    if not takes(M, P):
+        raise ValueError(f"{what}: ({M}, {P}) must each be R * m (R a power "
+                         f"of two, m odd <= {MAX_ODD}) within shared memory")
 
 
 def pair_x_symbols(Zy: torch.Tensor, consts) -> torch.Tensor:
     """K3 on CUDA tensors (one launch), the plain version on CPU tensors."""
     if Zy.device.type == "cpu":
         return pair_x_symbols_plain(Zy, consts)
-    if Zy.device.type != "cuda":
-        raise ValueError(f"pair_x_symbols: unsupported device {Zy.device}")
-    _check_field("pair_x_symbols", Zy)
     _, M, P = Zy.shape
-    if not kernels_take(M, P):
-        raise ValueError(f"pair_x_symbols: ({M}, {P}) must each be R * m (R "
-                         f"a power of two, m odd <= {MAX_ODD}) within shared "
-                         "memory")
-    n2x, n2y, inv_dx2, alpha2, a1, a2, b1, b2 = consts
-    if (n2x, n2y) != (split_factor(M)[1], split_factor(P)[1]):
-        raise ValueError(f"pair_x_symbols: consts were built for another "
-                         f"shape than ({M}, {P})")
-    lib = _lib()
-    vals = [inv_dx2, alpha2, a1.real, a1.imag, a2.real, a2.imag,
-            b1.real, b1.imag, b2.real, b2.imag]
-    if len(vals) != lib.qg_pair_x_num_consts():
-        raise RuntimeError("pair_x_symbols: constant table does not match "
-                           "the compiled kernel")
+    _cuda_field("pair_x_symbols", Zy, kernels_take, M, P)
+    vals = _check_consts("pair_x_symbols", consts, M, P)
     C, sub, bstride, _ = pair_x_layout(M)
     own, mirror = _device_tasks(P, C, Zy.device)
     out = torch.empty_like(Zy)
     logr, m, tw, twn = _tables(M, Zy.device)
-    threads = 512 if C * M >= 1024 else 128
-    code = lib.qg_pair_x_launch(
+    code = _lib().qg_pair_x_launch(
         Zy.data_ptr(), out.data_ptr(), own.data_ptr(), mirror.data_ptr(),
         own.shape[0], M, P, logr, m, split_factor(P)[0], C, sub, bstride,
-        (ctypes.c_float * len(vals))(*vals), tw, twn, threads,
+        vals, tw, twn, _threads(C, M),
         torch.cuda.current_stream(Zy.device).cuda_stream)
     _build.check(code, "pair_x_symbols (K3)")
     pair_x_symbols.launches += 1
@@ -286,3 +398,48 @@ def pair_x_symbols(Zy: torch.Tensor, consts) -> torch.Tensor:
 
 
 pair_x_symbols.launches = 0
+
+
+def x_dft(z: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """K4 on CUDA tensors (one launch), the plain version on CPU tensors."""
+    if z.device.type == "cpu":
+        return x_dft_plain(z, inverse)
+    _, M, P = z.shape
+    _cuda_field("x_dft", z, x_kernels_take, M, P)
+    C, sub, bstride, _ = x_dft_layout(M, inverse)
+    out = torch.empty_like(z)
+    logr, m, tw, twn = _tables(M, z.device)
+    code = _lib().qg_x_dft_launch(
+        z.data_ptr(), out.data_ptr(), M, P, logr, m, split_factor(M)[0],
+        int(inverse), C, sub, bstride, tw, twn, _threads(C, M),
+        torch.cuda.current_stream(z.device).cuda_stream)
+    _build.check(code, "x_dft (K4)")
+    x_dft.launches += 1
+    return out
+
+
+x_dft.launches = 0
+
+
+def x_symbols_inverse(W: torch.Tensor, consts) -> torch.Tensor:
+    """K5 on CUDA tensors (one launch), the plain version on CPU tensors."""
+    if W.device.type == "cpu":
+        return x_symbols_inverse_plain(W, consts)
+    _, M, P = W.shape
+    _cuda_field("x_symbols_inverse", W, x_kernels_take, M, P)
+    vals = _check_consts("x_symbols_inverse", consts, M, P)
+    C, sub, bstride, _ = x_symbols_layout(M)
+    own, mirror = _device_tasks(P, C, W.device)
+    out = torch.empty_like(W)
+    logr, m, tw, twn = _tables(M, W.device)
+    code = _lib().qg_x_symbols_launch(
+        W.data_ptr(), out.data_ptr(), own.data_ptr(), mirror.data_ptr(),
+        own.shape[0], M, P, logr, m, split_factor(M)[0], split_factor(P)[0],
+        C, sub, bstride, vals, tw, twn, _threads(C, M),
+        torch.cuda.current_stream(W.device).cuda_stream)
+    _build.check(code, "x_symbols_inverse (K5)")
+    x_symbols_inverse.launches += 1
+    return out
+
+
+x_symbols_inverse.launches = 0

@@ -11,9 +11,12 @@ and one irfft2 (the reference's sparse Cholesky backsolves solve the same
 matrix). Gauge: zero-mean by default (the (0, 0) mode is zeroed);
 ``gauge="pin"`` subtracts u[0, 0] to emulate the reference's pinned point.
 
-``PackedModalInverterKernels`` runs the two-layer packed inversion as three
-kernel passes — K2 forward, K3, K2 inverse (``ops/dft_kernels.py``) — as
-``tpu_qg``'s ``PackedModalInverterPallasFFT`` does on its pair-x route.
+``PackedModalInverterKernels`` runs the two-layer packed inversion on the
+DFT kernels of ``ops/dft_kernels.py`` by the route ``tpu_qg``'s
+``PackedModalInverterPallasFFT`` takes for the shape (``inversion_route``):
+three passes (K2, K3, K2^-1) up to M = 2432, else four (K2, K4, K5, K2^-1),
+with the symbol stage in torch ops between K4 and K4^-1 where the
+reference's fused symbol kernel does not fit (4224 <= M <= 4480).
 
 Symbol tables are built on the host once per solver and moved to a field's
 device and dtype at first use there.
@@ -27,8 +30,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .dft_kernels import pair_x_symbols, y_dft
-from .matmul_fft import split_factor
+from .dft_kernels import pair_x_symbols, x_dft, x_symbols_inverse, y_dft
+from .matmul_fft import freq_order, negate_spectrum, split_factor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,19 +201,84 @@ class PackedModalInverter:
         return torch.stack([v.real, v.imag]).to(zeta.dtype)
 
 
+# The reference runs its DFT kernels where both extents are 128 * n with
+# n <= 64 (pallas_fft.planar_fft2_fits). Its pair-x kernel fits a TPU core's
+# VMEM only up to M = 2432 (pallas_fft.pair_x_fits), and its fused
+# symbol + inverse-x kernel not for 4224 <= M <= 4480
+# (pallas_fft.symbol_inverse_fits: the BlockSpec form runs out at 4224 and
+# the streaming form takes over at 4608). Each bound depends on M alone.
+_REF_MAX_N2 = 64
+_REF_PAIR_X_MAX_M = 2432
+_REF_UNFUSED_M = (4224, 4480)
+
+
+def reference_dft_kernels(M: int, P: int) -> bool:
+    """Shapes on which the reference runs its Pallas DFT kernels."""
+    return all(n % 128 == 0 and 1 <= n // 128 <= _REF_MAX_N2 for n in (M, P))
+
+
+def reference_pair_x(M: int, P: int) -> bool:
+    """Shapes on which the reference's inversion takes the pair-x route."""
+    return reference_dft_kernels(M, P) and M <= _REF_PAIR_X_MAX_M
+
+
+def reference_symbol_inverse(M: int, P: int) -> bool:
+    """Shapes on which the reference fuses the symbol stage into its
+    inverse-x kernel."""
+    lo, hi = _REF_UNFUSED_M
+    return reference_dft_kernels(M, P) and not lo <= M <= hi
+
+
+def inversion_route(M: int, P: int, pair_x: bool) -> str:
+    """The reference's kernel route for the (M, P) packed inversion
+    (tpu_qg/ops/spectral.py:263-266, 289-315): "pair-x" (K2, K3, K2^-1),
+    "four-pass" (K2, K4, K5, K2^-1) or "four-pass-unfused" (K2, K4, torch
+    symbol stage, K4^-1, K2^-1). ``pair_x=False`` is fft_pairx="off"."""
+    if not reference_dft_kernels(M, P):
+        raise ValueError(f"no kernel route for ({M}, {P}): each extent must "
+                         "be 128 * n with n <= 64")
+    if pair_x and reference_pair_x(M, P):
+        return "pair-x"
+    return ("four-pass" if reference_symbol_inverse(M, P)
+            else "four-pass-unfused")
+
+
+def fft2_forward(z: torch.Tensor) -> torch.Tensor:
+    """Planar (2, M, P) natural order -> planar spectrum, permuted on both
+    axes: K2 then K4 (PlanarFFT2.forward)."""
+    return x_dft(y_dft(z, False), False)
+
+
+def fft2_inverse(Z: torch.Tensor) -> torch.Tensor:
+    """Planar spectrum, permuted on both axes -> natural order, scaled
+    1/(M P): K4^-1 then K2^-1 (PlanarFFT2.inverse)."""
+    return y_dft(x_dft(Z, True), True)
+
+
+def fft2_inverse_with_symbols(Z: torch.Tensor, consts) -> torch.Tensor:
+    """Planar spectrum W -> ifft2(A W + B conj(W(-k))) in natural order: K5
+    then K2^-1 (PlanarFFT2.inverse_with_symbols)."""
+    return y_dft(x_symbols_inverse(Z, consts), True)
+
+
 class PackedModalInverterKernels(PackedModalInverter):
-    """The packed inversion as three kernel passes on a planar field:
-    K2 forward (natural -> permuted y-spectrum), K3 (forward-x, symbols,
-    inverse-x per mirror slot pair), K2 inverse. The counterpart of
-    ``tpu_qg``'s ``PackedModalInverterPallasFFT`` on its pair-x route
-    (tpu_qg/ops/spectral.py:240-297); the packed (zeta_1, zeta_2) stack IS
-    the planar field, so no complex dtype appears. On CPU tensors the
-    kernels' plain versions run in the same structure."""
+    """The packed inversion as kernel passes on a planar field, by the route
+    ``inversion_route(M, P, pair_x)`` chosen once here: the counterpart of
+    ``tpu_qg``'s ``PackedModalInverterPallasFFT`` (tpu_qg/ops/spectral.py:
+    240-315). The packed (zeta_1, zeta_2) stack IS the planar field, so no
+    complex dtype appears on the kernel routes. On CPU tensors the kernels'
+    plain versions run in the same structure.
+
+    As in the reference's matmul-DFT parent, the symbols of the unfused
+    route's torch symbol stage are evaluated at the permuted frequencies."""
 
     def __init__(self, M: int, P: int, dx: float, alpha2: float,
-                 P_inv, P_back):
+                 P_inv, P_back, pair_x: bool = True):
         super().__init__(M, P, dx, alpha2, P_inv, P_back)
-        # Scalar constants from which K3 rebuilds the symbols, built in
+        self.route = inversion_route(M, P, pair_x)
+        self.lam_x = self.lam_x[freq_order(M)]
+        self.lam_y = self.lam_y[freq_order(P)]
+        # Scalar constants from which K3 and K5 rebuild the symbols, built in
         # float64 on the host (tpu_qg/ops/spectral.py:283-287).
         self._sym_consts = (
             split_factor(M)[1], split_factor(P)[1],
@@ -218,8 +286,23 @@ class PackedModalInverterKernels(PackedModalInverter):
             self.a1, self.a2, self.b1, self.b2)
 
     def __call__(self, zeta: torch.Tensor) -> torch.Tensor:
-        Zy = y_dft(zeta, False)
-        return y_dft(pair_x_symbols(Zy, self._sym_consts), True)
+        if self.route == "pair-x":
+            Zy = y_dft(zeta, False)
+            return y_dft(pair_x_symbols(Zy, self._sym_consts), True)
+        W = fft2_forward(zeta)
+        if self.route == "four-pass":
+            return fft2_inverse_with_symbols(W, self._sym_consts)
+        return fft2_inverse(self._symbol_stage(W))
+
+    def _symbol_stage(self, W: torch.Tensor) -> torch.Tensor:
+        """V = A W + B conj(W(-k)) expanded on the planes of a spectrum in
+        permuted order, in torch ops (tpu_qg/ops/spectral.py:307-313)."""
+        A, B = self._sym.get(W.dtype, W.device)
+        Wn = negate_spectrum(negate_spectrum(W, 1), 2)     # W(-k), per plane
+        Wr, Wi, Wr2, Wi2 = W[0], W[1], Wn[0], Wn[1]
+        Vr = A.real * Wr - A.imag * Wi + B.real * Wr2 + B.imag * Wi2
+        Vi = A.imag * Wr + A.real * Wi + B.imag * Wr2 - B.real * Wi2
+        return torch.stack([Vr, Vi])
 
 
 def solve_helmholtz(f: torch.Tensor, dx: float, alpha: float) -> torch.Tensor:

@@ -1,14 +1,17 @@
-"""K1: the fused two-layer step (tendency + Euler/AB3 or leapfrog-RA update).
+"""K1, the fused two-layer step (tendency + Euler/AB3 or leapfrog-RA update),
+and K8, the same step for one or two layers with the modal projection.
 
-Replaces ``tpu_qg/ops/pallas_tendency.py`` ``fused_step_streamed`` (v4) and
-its single-tile form ``fused_step_pre_fft`` (v3) with one hand-written CUDA
-kernel, ``csrc/step_kernel.cu`` (design and bound in its header: it is
-bandwidth-bound, 6 x 33.5 MB per step at 2048^2, and keeps every stencil
+K1 replaces ``tpu_qg/ops/pallas_tendency.py`` ``fused_step_streamed`` (v4)
+and its single-tile form ``fused_step_pre_fft`` (v3); K8 replaces its
+``fused_pre_inversion`` (v2), the step of the single-layer and pin-gauge
+configurations. Both are one hand-written CUDA kernel each on a shared tile
+body, ``csrc/step_kernel.cu`` (design and bound in its header: they are
+bandwidth-bound, 6 x 33.5 MB per step at 2048^2, and keep every stencil
 neighbour in shared memory).
 
-``fused_step`` launches the kernel for CUDA tensors and uses
-``fused_step_plain`` — the same arithmetic in plain torch — only for CPU
-tensors. Both return ``(zeta_new, carry)`` with the carry convention of
+``fused_step``/``fused_pre_inversion`` launch their kernels for CUDA
+tensors and use ``fused_step_plain``/``fused_pre_inversion_plain`` — the same
+arithmetic in plain torch — only for CPU tensors. The carry follows
 ``tpu_qg.models.core.make_step_fn``: the tendency under ``euler_ab3``, the
 Robert-Asselin-filtered current level under ``leapfrog_ra``.
 """
@@ -57,12 +60,29 @@ def fused_step_plain(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
     return update_plain(cfg, step, _tendencies(cfg, zeta, psi), zeta, f1, f2)
 
 
+def fused_pre_inversion_plain(cfg: ModelConfig, zeta: torch.Tensor,
+                              psi: torch.Tensor, f1: torch.Tensor,
+                              f2: torch.Tensor, step: int):
+    """Plain-torch K8: (zeta_new, carry, modes) with modes = P^-1 zeta_new
+    for two layers and zeta_new itself for one."""
+    zeta_new, carry = fused_step_plain(cfg, zeta, psi, f1, f2, step)
+    if cfg.n_layers == 1:
+        return zeta_new, carry, zeta_new
+    (q11, q12), (q21, q22) = cfg.P_inv_matrix()
+    modes = torch.stack([q11 * zeta_new[0] + q12 * zeta_new[1],
+                         q21 * zeta_new[0] + q22 * zeta_new[1]])
+    return zeta_new, carry, modes
+
+
 def _consts(cfg: ModelConfig) -> ctypes.Array:
-    """The kernel's float constants in StepConsts order, each rounded once
-    from its float64 value."""
+    """The kernels' float constants in StepConsts order, each rounded once
+    from its float64 value; the per-layer betas are (beta_1, beta_2), or
+    (beta, 0) for one layer."""
     dx = cfg.dx
+    betas = ((cfg.beta, 0.0) if cfg.n_layers == 1
+             else (cfg.beta_1, cfg.beta_2))
     vals = [1.0 / (dx * dx), 0.5 / dx, 12.0 * dx * dx, cfg.visc,
-            cfg.beta_1, cfg.beta_2, cfg.U, cfg.r, cfg.dt, 2.0 * cfg.dt,
+            *betas, cfg.U, cfg.r, cfg.dt, 2.0 * cfg.dt,
             cfg.ra_filter, 23.0 / 12.0, 16.0 / 12.0, 5.0 / 12.0]
     return (ctypes.c_float * len(vals))(*vals)
 
@@ -77,24 +97,46 @@ def _wind_row(cfg: ModelConfig, device: torch.device):
     return _wind_forcing(cfg, torch.float32, device)[0].contiguous()
 
 
+def _modal_consts(cfg: ModelConfig) -> ctypes.Array:
+    """K8's P^-1 entries in ModalConsts order, rounded once."""
+    (q11, q12), (q21, q22) = cfg.P_inv_matrix()
+    return (ctypes.c_float * 4)(q11, q12, q21, q22)
+
+
 def _lib():
     lib = _build.load()
-    fn = lib.qg_step_launch
-    if fn.argtypes is None:
+    if lib.qg_step_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        _build.declare(fn, [p, p, p, p, p, p, p, i, i, p, i, i, p])
+        _build.declare(lib.qg_step_launch,
+                       [p, p, p, p, p, p, p, i, i, p, i, i, p])
+        _build.declare(lib.qg_pre_inversion_launch,
+                       [p, p, p, p, p, p, p, p, i, i, i, p, p, i, i, p])
         lib.qg_step_num_consts.restype = ctypes.c_int
+        lib.qg_modal_num_consts.restype = ctypes.c_int
     return lib
 
 
-def _check_operand(name: str, t: torch.Tensor, shape) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"fused_step: {name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"fused_step: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"fused_step: {name} must be contiguous")
+def _check_operands(what: str, zeta: torch.Tensor, operands, shape) -> None:
+    """float32, contiguous, of ``shape``, on zeta's device."""
+    for name, t in operands:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if t.device != zeta.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, "
+                             f"zeta on {zeta.device}")
+
+
+def _checked_consts(cfg: ModelConfig, lib, what: str) -> ctypes.Array:
+    consts = _consts(cfg)
+    if len(consts) != lib.qg_step_num_consts():
+        raise RuntimeError(f"{what}: constant table does not match the "
+                           "compiled kernel")
+    return consts
 
 
 def fused_step(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
@@ -108,17 +150,11 @@ def fused_step(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
     if cfg.n_layers != 2 or zeta.dim() != 3 or zeta.shape[0] != 2:
         raise ValueError("fused_step: the kernel takes two-layer (2, M, P) "
                          f"fields, got {tuple(zeta.shape)}")
-    shape = (2, cfg.M, cfg.P)
-    for name, t in (("zeta", zeta), ("psi", psi), ("f1", f1), ("f2", f2)):
-        _check_operand(name, t, shape)
-        if t.device != zeta.device:
-            raise ValueError(f"fused_step: {name} is on {t.device}, "
-                             f"zeta on {zeta.device}")
+    _check_operands("fused_step", zeta, (("zeta", zeta), ("psi", psi),
+                                         ("f1", f1), ("f2", f2)),
+                    (2, cfg.M, cfg.P))
     lib = _lib()
-    consts = _consts(cfg)
-    if len(consts) != lib.qg_step_num_consts():
-        raise RuntimeError("fused_step: constant table does not match the "
-                           "compiled kernel")
+    consts = _checked_consts(cfg, lib, "fused_step")
     wind = _wind_row(cfg, zeta.device)
     zeta_new = torch.empty_like(zeta)
     carry = torch.empty_like(zeta)
@@ -134,3 +170,44 @@ def fused_step(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
 
 
 fused_step.launches = 0
+
+
+def fused_pre_inversion(cfg: ModelConfig, zeta: torch.Tensor,
+                        psi: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
+                        step: int):
+    """K8: every layer's tendency + time update, and the modes for the
+    spectral solves, in one kernel pass on CUDA tensors; the plain version on
+    CPU tensors. Returns (zeta_new, carry, modes); for one layer the modes
+    are zeta_new itself."""
+    if zeta.device.type == "cpu":
+        return fused_pre_inversion_plain(cfg, zeta, psi, f1, f2, step)
+    if zeta.device.type != "cuda":
+        raise ValueError(f"fused_pre_inversion: unsupported device "
+                         f"{zeta.device}")
+    L = cfg.n_layers
+    _check_operands("fused_pre_inversion", zeta,
+                    (("zeta", zeta), ("psi", psi), ("f1", f1), ("f2", f2)),
+                    (L, cfg.M, cfg.P))
+    lib = _lib()
+    consts = _checked_consts(cfg, lib, "fused_pre_inversion")
+    modal = _modal_consts(cfg)
+    if len(modal) != lib.qg_modal_num_consts():
+        raise RuntimeError("fused_pre_inversion: modal constant table does "
+                           "not match the compiled kernel")
+    wind = _wind_row(cfg, zeta.device)
+    zeta_new = torch.empty_like(zeta)
+    carry = torch.empty_like(zeta)
+    modes = torch.empty_like(zeta) if L == 2 else zeta_new
+    stream = torch.cuda.current_stream(zeta.device).cuda_stream
+    code = lib.qg_pre_inversion_launch(
+        zeta.data_ptr(), psi.data_ptr(), f1.data_ptr(), f2.data_ptr(),
+        None if wind is None else wind.data_ptr(), zeta_new.data_ptr(),
+        carry.data_ptr(), modes.data_ptr() if L == 2 else None, L, cfg.M,
+        cfg.P, consts, modal, int(cfg.time_scheme == "leapfrog_ra"),
+        int(step), stream)
+    _build.check(code, "fused_pre_inversion (K8)")
+    fused_pre_inversion.launches += 1
+    return zeta_new, carry, modes
+
+
+fused_pre_inversion.launches = 0

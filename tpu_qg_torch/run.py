@@ -11,6 +11,11 @@ The sharded paths (``--mesh``, ``--distributed``, ``--parallel``) are not
 ported yet.
 
     python -m tpu_qg_torch.run --preset turbulence-2048 --steps 200 --no-save
+    python -m tpu_qg_torch.run --preset pod-8192 --steps 50 --no-save
+
+On one device ``elliptic_impl`` does not change the route (``pod-8192-mg``
+runs the spectral inversion, as in ``tpu_qg``): it selects the sharded
+stepper's elliptic solver only.
 """
 
 from __future__ import annotations
