@@ -226,14 +226,31 @@ def test_cli_runs_the_large_grid_and_pin_routes_on_cpu(preset, sets, capsys):
     assert "step 3/3" in capsys.readouterr().out
 
 
-def test_default_device_raises_without_gpu():
+def _default_device_calls(tmp_path):
+    """Each entry point called with its default device."""
+    cfg = tpu_qg_torch.preset("turbulence-2048").replace(M=64, P=64)
+    tio.RunWriter(tmp_path, cfg).write_checkpoint(core.init_state(cfg, "cpu"))
+    domain = spectral.RectangularDomain(0.0, 1.0, 0.0, 1.0)
+    return {
+        "run_model": lambda: trun.run_model(cfg, save_results=False,
+                                            n_steps=1, verbose=False),
+        "cli": lambda: trun.main(["--preset", "turbulence-2048", "--steps",
+                                  "1", "--no-save"]),
+        "QGModel": lambda: tpu_qg_torch.QGModel(cfg),
+        "load_checkpoint": lambda: tio.RunReader(tmp_path).load_checkpoint(),
+        "solve_helmholtz_fn": lambda: spectral.solve_helmholtz_fn(
+            8, 8, 0.125, lambda x, y: x * y, 1.0, domain),
+    }
+
+
+@pytest.mark.parametrize("entry", ["run_model", "cli", "QGModel",
+                                   "load_checkpoint", "solve_helmholtz_fn"])
+def test_default_device_raises_without_gpu(entry, tmp_path):
+    """Every entry point runs on the card unless the CPU is asked for."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
-    cfg = tpu_qg_torch.preset("turbulence-2048").replace(M=64, P=64)
     with pytest.raises(RuntimeError, match="no GPU"):
-        trun.run_model(cfg, save_results=False, n_steps=1, verbose=False)
-    with pytest.raises(RuntimeError, match="no GPU"):
-        trun.main(["--preset", "turbulence-2048", "--steps", "1", "--no-save"])
+        _default_device_calls(tmp_path)[entry]()
 
 
 def test_nan_state_raises_and_writes_emergency_checkpoint(tmp_path):

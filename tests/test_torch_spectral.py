@@ -90,7 +90,8 @@ def test_solve_helmholtz_fn_matches():
         return np.sin(2 * np.pi * x / L) * np.cos(4 * np.pi * y / (P * DX))
 
     got = ours.solve_helmholtz_fn(M, P, DX, rhs, S_EIG,
-                                  ours.RectangularDomain(0.0, L, 0.0, P * DX))
+                                  ours.RectangularDomain(0.0, L, 0.0, P * DX),
+                                  device="cpu")
     want = ref.solve_helmholtz_fn(M, P, DX, rhs, S_EIG,
                                   ref.RectangularDomain(0.0, L, 0.0, P * DX))
     _close(got, want)

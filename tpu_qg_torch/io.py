@@ -24,6 +24,7 @@ import torch
 
 from .config import ModelConfig
 from .constants import DAY
+from .device import resolve_device
 from .models.core import State
 
 PathLike = Union[str, pathlib.Path]
@@ -117,8 +118,10 @@ class RunReader:
             return z[f"zeta_{step}"], z[f"psi_{step}"]
 
     def load_checkpoint(self, step: Optional[int] = None,
-                        device: torch.device | str = "cpu") -> State:
-        """Load a full-state checkpoint (latest by default) onto ``device``."""
+                        device: torch.device | str = "cuda") -> State:
+        """Load a full-state checkpoint (latest by default) onto ``device``
+        (the GPU unless the CPU is asked for)."""
+        device = resolve_device(device)
         steps = self.checkpoint_steps()
         if not steps:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")

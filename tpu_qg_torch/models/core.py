@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
+from ..device import resolve_device
 from ..ops.spectral import (BatchedModalSolver, HelmholtzSolver,
                             PackedModalInverter, PackedModalInverterKernels,
                             reference_dft_kernels)
@@ -330,11 +331,12 @@ def _init_finish(cfg: ModelConfig, psi: torch.Tensor) -> State:
 
 
 class QGModel:
-    """Config, step function and multi-step runs on one device."""
+    """Config, step function and multi-step runs on one device (the GPU
+    unless the CPU is asked for)."""
 
-    def __init__(self, cfg: ModelConfig, device: torch.device | str = "cpu"):
+    def __init__(self, cfg: ModelConfig, device: torch.device | str = "cuda"):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.step = make_step_fn(cfg)
 
     def init_state(self, psi_init=None, seed: Optional[int] = None) -> State:

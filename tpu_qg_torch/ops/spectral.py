@@ -30,6 +30,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .dft_kernels import pair_x_symbols, x_dft, x_symbols_inverse, y_dft
 from .matmul_fft import freq_order, negate_spectrum, split_factor
 
@@ -323,10 +324,12 @@ def solve_poisson(f: torch.Tensor, dx: float,
 def solve_helmholtz_fn(M: int, P: int, dx: float,
                        f_rhs: Callable[[float, float], float], alpha: float,
                        domain: RectangularDomain,
-                       device: torch.device | str = "cpu") -> torch.Tensor:
+                       device: torch.device | str = "cuda") -> torch.Tensor:
     """Function-RHS modified-Helmholtz solve: sample f(x, y) at the periodic
-    interior points x_i = x1 + i*dx, y_j = y1 + j*dx, then solve
-    (reference: src/schemes/laplacian.jl:89-98)."""
+    interior points x_i = x1 + i*dx, y_j = y1 + j*dx, then solve on
+    ``device`` (the GPU unless the CPU is asked for) (reference:
+    src/schemes/laplacian.jl:89-98)."""
+    device = resolve_device(device)
     xs = domain.x1 + dx * np.arange(M)
     ys = domain.y1 + dx * np.arange(P)
     b = np.asarray([[f_rhs(x, y) for y in ys] for x in xs])

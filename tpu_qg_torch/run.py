@@ -30,6 +30,7 @@ import torch
 
 from .config import ModelConfig, preset
 from .constants import DAY
+from .device import resolve_device
 from .io import RunReader, RunWriter
 from .models.core import QGModel, State
 from .utils.diagnostics import diagnostics
@@ -55,15 +56,6 @@ def log_model_params(cfg: ModelConfig) -> None:
     print(f"U = {cfg.U}")
     print(f"Initial kick = {cfg.initial_kick}")
     print(f"Total steps = {cfg.total_steps}\n")
-
-
-def resolve_device(device) -> torch.device:
-    """The run's device; a CUDA device that is not there is an error."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but no GPU is available; "
-                           "pass device='cpu' (--device cpu) to run on the CPU")
-    return device
 
 
 def run_model(
