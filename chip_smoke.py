@@ -9,30 +9,40 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 2. build   — compiles the CUDA kernels of tpu_qg_torch/csrc at first use.
 3. kernels — each kernel against its plain torch version on the card, on
    inputs made from a numpy seed: K1 (step), K2 (y-DFT), K3 (mirror-pair
-   x-kernel) at (2, 2048, 2048); K8 (step + modes) at (2, 2048, 2048) with
-   the pin gauge and (1, 2048, 2048) single layer; K2, K4 (x-DFT, both
-   ways) and K5 (symbols + inverse x-DFT) at (2, 4096, 4096) and
-   (2, 8192, 8192); K1 at (2, 8192, 8192). On the real zeta of a grid-noise psi the inversions
-   (K3; K5; the four-pass K2 -> K4 -> K5 -> K2^-1) are held against float64.
+   x-kernel), K16 (the inversion in one launch), K17 (the step in one
+   launch) and K15 (the y-fused chain's step) at (2, 2048, 2048); K8 (step +
+   modes) at (2, 2048, 2048) with the pin gauge and (1, 2048, 2048) single
+   layer; K2, K4 (x-DFT, both ways) and K5 (symbols + inverse x-DFT) at
+   (2, 4096, 4096) and (2, 8192, 8192); K1 and K15 at (2, 8192, 8192). On
+   the real zeta of a grid-noise psi the inversions (K3; K16; K5; the
+   four-pass K2 -> K4 -> K5 -> K2^-1) are held against float64.
 4. slices  — through the normal entry point run_model, each with the
-   kernels' launch counts set to 0 just before and read just after, a
-   finite state with CFL < 1, and the same steps on the plain route
-   (fft_impl="xla", use_pallas=False) from the same psi:
-   turbulence-2048 (100 steps: K1, K2, K3), turbulence-2048 with the pin
-   gauge (100 steps: K8) and pod-8192 (50 steps: K1, K2, K4, K5).
-5. timing  — CUDA-event ms per step for both routes in turns (plain,
-   kernels, kernels, plain) and per kernel beside its plain version, at
-   2048^2 and 8192^2 (and K8 at 2048^2); host enqueue ms per step; the
-   device's busy share over a kernel-route window traced with
-   torch.profiler (CUDA activity only).
+   kernels' launch counts set to 0 just before and read just after, the
+   route QGModel resolves, a finite state with CFL < 1, and the same steps
+   on the plain route (fft_impl="xla", use_pallas=False) from the same psi:
+   turbulence-2048 (100 steps: K1, K2, K3), with the pin gauge (100: K8),
+   with fft_mono="on" (100: K1, K16), step_full="on" (100: K17) and
+   step_chain="on" (100: K15, K3, K2 at the ends of each run call);
+   pod-8192 (50 steps: K1, K2, K4, K5) and with step_chain="on" (20: K15,
+   K4, K5, K2).
+5. timing  — CUDA-event ms per step of each route by QGModel.run, in turns
+   (the routes, then again in reverse), per kernel beside its plain version
+   and, for K2 and K4, beside one torch.fft call on the same complex64
+   field, at 2048^2 (every route; K8 too) and 8192^2 (default and plain);
+   host enqueue ms per step; the device's busy share over CUDA-only traces
+   of the default route (both grids) and the fullstep route (2048^2).
 
-The line before the last is {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}. Imports nothing of JAX or tpu_qg.
+The line before the last is {"kernels": [...]}, every kernel with its
+launches in phase 4, its largest error, its ms, its plain version's ms,
+its bound (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
+the larger) and its library call's ms; the last is {"ok": true, "device":
+{...}}. Imports nothing of JAX or tpu_qg.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import time
 
@@ -41,24 +51,32 @@ import torch
 
 import tpu_qg_torch
 from tpu_qg_torch import preset
+from tpu_qg_torch.constants import DAY
 from tpu_qg_torch.models.core import QGModel, init_state
 from tpu_qg_torch.ops import _build, dft_kernels
-from tpu_qg_torch.ops.dft_kernels import (pair_x_symbols, pair_x_symbols_plain,
+from tpu_qg_torch.ops.dft_kernels import (mono_invert, mono_invert_plain,
+                                          pair_x_symbols, pair_x_symbols_plain,
                                           x_dft, x_dft_plain, x_symbols_inverse,
                                           x_symbols_inverse_plain, y_dft,
                                           y_dft_plain)
 from tpu_qg_torch.ops.spectral import PackedModalInverterKernels
 from tpu_qg_torch.ops.step_kernel import (fused_pre_inversion,
                                           fused_pre_inversion_plain,
-                                          fused_step, fused_step_plain)
+                                          fused_step, fused_step_full,
+                                          fused_step_full_plain,
+                                          fused_step_plain, fused_step_yspec,
+                                          fused_step_yspec_plain)
 from tpu_qg_torch.run import run_model
 from tpu_qg_torch.utils.diagnostics import diagnostics
 
 SEED = 1234
 # Relative to max|plain|: the 1/lambda symbol amplifies low-k float32
-# rounding in K3/K5; the slices' zeta after many steps on two routes.
+# rounding in K3/K5/K16 and K17's psi; K15's zeta_ys is a y-DFT (K2's
+# gate); the slices' zeta after many steps on two routes.
 TOL = {"K1": 1e-6, "K2": 1e-5, "K3": 1e-4, "K4": 1e-5, "K5": 1e-4,
-       "K8": 1e-6, "slice_zeta": 1e-4}
+       "K8": 1e-6, "K15": 1e-6, "K15 zeta_ys": 1e-5, "K16": 1e-4,
+       "K17": 1e-6, "K17 psi_new": 1e-4, "slice_zeta": 1e-4}
+FUSED = "tpu_qg_torch/csrc/fused_kernels.cu"
 KERNELS = {
     "K1": ("fused_step", "tpu_qg_torch/csrc/step_kernel.cu",
            "tpu_qg/ops/pallas_tendency.py:555"),
@@ -72,15 +90,30 @@ KERNELS = {
            "tpu_qg/ops/pallas_fft.py:1176"),
     "K8": ("fused_pre_inversion", "tpu_qg_torch/csrc/step_kernel.cu",
            "tpu_qg/ops/pallas_tendency.py:1059"),
+    "K15": ("fused_step_yspec", FUSED, "tpu_qg/ops/pallas_tendency.py:839"),
+    "K16": ("mono_invert", FUSED, "tpu_qg/ops/pallas_fft.py:1342"),
+    "K17": ("fused_step_full", FUSED, "tpu_qg/ops/pallas_fullstep.py:308"),
 }
 COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
-            "K4": x_dft, "K5": x_symbols_inverse, "K8": fused_pre_inversion}
-# Kernel names in a profiler trace, K8 before K1: a mangled K8 name holds
-# the source file's name, step_kernel.
-TRACE_NAMES = (("K8", "pre_inversion_kernel"),
+            "K4": x_dft, "K5": x_symbols_inverse, "K8": fused_pre_inversion,
+            "K15": fused_step_yspec, "K16": mono_invert,
+            "K17": fused_step_full}
+# Kernel names in a profiler trace, the one-launch kernels and K8 before K1:
+# a mangled K8 name holds the source file's name, step_kernel.
+TRACE_NAMES = (("K17", "coop_fullstep_kernel"), ("K16", "coop_mono_kernel"),
+               ("K15", "coop_yspec_kernel"), ("K8", "pre_inversion_kernel"),
                ("K5", "x_symbols_inverse_kernel"), ("K4", "x_dft_kernel"),
                ("K3", "pair_x_kernel"), ("K2", "y_dft_kernel"),
                ("K1", "step_kernel"))
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): device
+# memory bandwidth and the float32 rate without tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# Operations of the step per point and layer (step_tile: lap(psi) 6,
+# del^4 7, the Arakawa Jacobian 32, d/dx terms and drag ~9, the AB3
+# update ~9).
+STEP_OPS = 63
 
 
 def emit(phase: str, **fields) -> None:
@@ -120,6 +153,29 @@ def inverter(cfg) -> PackedModalInverterKernels:
                                       pair_x=cfg.fft_pairx != "off")
 
 
+def bound(name: str, M: int, P: int) -> tuple[float, str, float]:
+    """(bound ms, "bytes" or "operations", bytes) of one launch of kernel
+    ``name`` on a two-layer (M, P) grid: each input field read once and
+    each output written once, against 5 N log2 N operations per complex
+    transform of length N and STEP_OPS per point and layer."""
+    field = 2 * M * P * 4
+
+    def ffts(n: int, count: int) -> float:
+        return 5.0 * n * math.log2(n) * count
+
+    step = 2 * STEP_OPS * M * P
+    mono = 2 * ffts(P, M) + ffts(M, 2 * P)
+    fields, ops = {
+        "K1": (6, step), "K2": (2, ffts(P, M)), "K3": (2, ffts(M, 2 * P)),
+        "K4": (2, ffts(M, P)), "K5": (2, ffts(M, P)), "K8": (7, step),
+        "K15": (7, step + 2 * ffts(P, M)), "K16": (2, mono),
+        "K17": (7, step + mono)}[name]
+    t_bytes = fields * field / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", fields * field)
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this smoke "
@@ -152,28 +208,29 @@ class Errors:
     def __init__(self):
         self.by_kernel = {}
 
-    def record(self, name, case, got, want):
+    def record(self, name, case, got, want, tol=None):
+        tol = TOL[name] if tol is None else tol
         a, r = rel_err(got, want)
         emit("kernels", kernel=name, case=case, shape=list(got.shape),
-             max_abs_err=a, rel_err=r, tol=TOL[name])
-        if not r <= TOL[name]:
-            raise AssertionError(f"{name} {case}: rel err {r} > {TOL[name]}")
+             max_abs_err=a, rel_err=r, tol=tol)
+        if not r <= tol:
+            raise AssertionError(f"{name} {case}: rel err {r} > {tol}")
         prev = self.by_kernel.get(name, (0.0, 0.0))
         self.by_kernel[name] = (max(prev[0], a), max(prev[1], r))
 
 
-def vs_float64(name, case, kern, plain, arg) -> None:
+def vs_float64(name, case, kern, plain, *args) -> None:
     """On a blue-spectrum input, hold the kernel and the plain version each
     against a float64 evaluation of the plain version: the kernel may not be
     less accurate by more than a factor 2 (1/lambda amplifies the float32
     rounding of weak low-k modes in ANY float32 transform)."""
-    ref = plain(arg.double())
-    _, e_kern = rel_err(kern(arg).double(), ref)
-    _, e_plain = rel_err(plain(arg).double(), ref)
+    ref = plain(*(a.double() for a in args))
+    _, e_kern = rel_err(kern(*args).double(), ref)
+    _, e_plain = rel_err(plain(*args).double(), ref)
     del ref
     emit("kernels", kernel=name, case=case + " vs float64",
-         shape=list(arg.shape), rel_err_kernel=e_kern, rel_err_plain=e_plain,
-         rule="kernel <= 2 x plain")
+         shape=list(args[0].shape), rel_err_kernel=e_kern,
+         rel_err_plain=e_plain, rule="kernel <= 2 x plain")
     if not e_kern <= 2.0 * e_plain:
         raise AssertionError(f"{name} {case}: kernel error {e_kern} vs "
                              f"float64 exceeds twice the plain version's "
@@ -213,8 +270,22 @@ def check_step_kernel(errs, cfg, dev, rng, tag="") -> None:
         errs.record("K1", tag + case + " carry", got[1], want[1])
 
 
+def check_yspec_kernel(errs, cfg, operands, step_cases, tag="") -> None:
+    """K15 against its plain version: zeta_new and carry 1e-6, zeta_ys
+    1e-5."""
+    zeta, psi, f1, f2 = operands
+    psi_ys = y_dft_plain(psi, False)
+    for case, over, step in step_cases:
+        c = cfg.replace(**over)
+        got = fused_step_yspec(c, zeta, psi_ys, f1, f2, step)
+        want = fused_step_yspec_plain(c, zeta, psi_ys, f1, f2, step)
+        for part, g, w in zip(("zeta_new", "carry", "zeta_ys"), got, want):
+            errs.record("K15", f"{tag}{case} {part}", g, w,
+                        TOL["K15 zeta_ys"] if part == "zeta_ys" else None)
+
+
 def phase_kernels(errs, cfg, dev) -> None:
-    """K1, K2, K3 and K8 at the 2048^2 slices' shapes."""
+    """K1, K2, K3, K8, K16, K17 and K15 at the 2048^2 slices' shapes."""
     rng = np.random.default_rng(SEED)
     check_step_kernel(errs, cfg, dev, rng)
 
@@ -226,6 +297,8 @@ def phase_kernels(errs, cfg, dev) -> None:
     consts = inverter(cfg)._sym_consts
     errs.record("K3", "random y-spectrum", pair_x_symbols(x, consts),
                 pair_x_symbols_plain(x, consts))
+    errs.record("K16", "random field", mono_invert(x, consts),
+                mono_invert_plain(x, consts))
     zeta = init_state(cfg, dev).zeta
     vs_float64("K3", "zeta y-spectrum", lambda z: pair_x_symbols(z, consts),
                lambda z: pair_x_symbols_plain(z, consts),
@@ -233,6 +306,29 @@ def phase_kernels(errs, cfg, dev) -> None:
     vs_float64("K3", "zeta -> psi (K2, K3, K2^-1)", inverter(cfg),
                lambda z: y_dft_plain(pair_x_symbols_plain(
                    y_dft_plain(z, False), consts), True), zeta)
+    vs_float64("K16", "zeta -> psi", lambda z: mono_invert(z, consts),
+               lambda z: mono_invert_plain(z, consts), zeta)
+
+    # K17 and K15 on the step cases of K1.
+    operands = step_inputs(cfg, dev, rng)
+    for case, over, step in STEP_CASES:
+        c = cfg.replace(**over)
+        got = fused_step_full(c, *operands, step)
+        want = fused_step_full_plain(c, *operands, step)
+        errs.record("K17", case + " zeta_new", got[0], want[0])
+        errs.record("K17", case + " carry", got[1], want[1])
+        # psi_new against the inversion of the kernel's own zeta_new (K16's
+        # gate): the plain step's zeta_new differs by float32 rounding whose
+        # mean 1/alpha2 amplifies in the (0, 0) baroclinic mode of psi.
+        inverse = mono_invert_plain(got[0], consts)
+        if rel_err(got[2], inverse)[1] <= TOL["K17 psi_new"]:
+            errs.record("K17", case + " psi_new", got[2], inverse,
+                        TOL["K17 psi_new"])
+        else:
+            vs_float64("K17", case + " psi_new", lambda z, p=got[2]: p,
+                       lambda z: mono_invert_plain(z, consts), got[0])
+    check_yspec_kernel(errs, cfg, operands, STEP_CASES)
+    del operands
 
     # K8: the pin-gauge (two layers, modes P^-1 zeta_new) and single-layer
     # steps.
@@ -245,13 +341,17 @@ def phase_kernels(errs, cfg, dev) -> None:
             want = fused_pre_inversion_plain(c, zeta, psi, f1, f2, step)
             for part, g, w in zip(("zeta_new", "carry", "modes"), got, want):
                 errs.record("K8", f"L={layers} {case} {part}", g, w)
+    emit("kernels", grids={"K15": fused_step_yspec.grid,
+                           "K16": mono_invert.grid,
+                           "K17": fused_step_full.grid},
+         grid_is="(blocks, blocks per SM) of the cooperative launches")
     torch.cuda.synchronize()
 
 
 def phase_x_kernels(errs, pod, dev, sizes=(4096, 8192)) -> None:
     """K2, K4 and K5 at each n^2 of ``sizes`` on random input; K5 and the
-    whole four-pass inversion on pod-8192's zeta against float64; K1 at
-    pod's grid."""
+    whole four-pass inversion on pod-8192's zeta against float64; K1 and
+    K15 at pod's grid."""
     rng = np.random.default_rng(SEED + 2)
     for n in sizes:
         cfg = pod.replace(M=n, P=n)
@@ -284,14 +384,27 @@ def phase_x_kernels(errs, pod, dev, sizes=(4096, 8192)) -> None:
                zeta)
     del zeta
     free_memory()
-    check_step_kernel(errs, pod, dev, rng, tag=f"{pod.M}x{pod.P} ")
+    tag = f"{pod.M}x{pod.P} "
+    check_step_kernel(errs, pod, dev, rng, tag=tag)
+    free_memory()
+    check_yspec_kernel(errs, pod, step_inputs(pod, dev, rng),
+                       STEP_CASES[1:2], tag=tag)
     free_memory()
 
 
-def run_slice(name, cfg, dev, steps, expect) -> dict:
+def run_chunks(cfg, steps: int) -> int:
+    """QGModel.run calls that run_model makes for ``steps`` steps (one per
+    one-day sample interval)."""
+    return math.ceil(steps / max(int(DAY // cfg.dt), 1))
+
+
+def run_slice(name, cfg, dev, steps, expect, route) -> dict:
     """``steps`` steps through run_model with every launch count set to 0
     just before and read just after; then the plain route from the same
     psi. Returns the launch counts."""
+    got_route = QGModel(cfg, dev).route
+    if got_route != route:
+        raise AssertionError(f"{name}: route {got_route} != {route}")
     plain_cfg = cfg.replace(fft_impl="xla", use_pallas=False)
     state0 = init_state(cfg, dev)
     for counter in COUNTERS.values():
@@ -316,11 +429,12 @@ def run_slice(name, cfg, dev, steps, expect) -> dict:
                     state=state0, verbose=False)
     _, dz = rel_err(out.zeta, ref.zeta)
     _, dp = rel_err(out.psi, ref.psi)
-    fields = dict(preset=name, steps=out.step, shape=list(out.zeta.shape),
-                  launches=launches, finite=finite, cfl=d["cfl"],
-                  ke_1=d["ke_1"], max_abs_zeta=d["max_abs_zeta"],
-                  zeta_rel_diff_vs_plain=dz, psi_rel_diff_vs_plain=dp,
-                  psi_gauge=cfg.poisson_gauge, tol_zeta=TOL["slice_zeta"])
+    fields = dict(preset=name, route=route, steps=out.step,
+                  shape=list(out.zeta.shape), launches=launches,
+                  finite=finite, cfl=d["cfl"], ke_1=d["ke_1"],
+                  max_abs_zeta=d["max_abs_zeta"], zeta_rel_diff_vs_plain=dz,
+                  psi_rel_diff_vs_plain=dp, psi_gauge=cfg.poisson_gauge,
+                  tol_zeta=TOL["slice_zeta"])
     if dz <= TOL["slice_zeta"]:
         emit("slice", **fields)
         return launches
@@ -348,27 +462,25 @@ def run_slice(name, cfg, dev, steps, expect) -> dict:
     return launches
 
 
-def time_routes(cfg, dev, steps) -> tuple[dict, dict, QGModel]:
-    """ms per step of both routes in turns (plain, kernels, kernels,
-    plain), from the state after 3 steps (past the Euler start)."""
-    routes = {"kernels": QGModel(cfg, dev),
-              "plain": QGModel(cfg.replace(fft_impl="xla", use_pallas=False),
-                               dev)}
-    state0 = routes["kernels"].init_state()
-    step_ms = {"kernels": [], "plain": []}
-    for name in ("plain", "kernels", "kernels", "plain"):
-        model = routes[name]
-        box = [model.run(state0, 3)]
-
-        def one(model=model, box=box):
-            box[0] = model.step(box[0])
-        step_ms[name].append(time_ms(one, steps))
-        del box
+def time_routes(cfgs: dict, dev, steps) -> tuple[dict, object, dict]:
+    """ms per step of each route by CUDA events around one QGModel.run of
+    ``steps`` steps from the state after 3 steps (past the Euler start),
+    the routes in turns: in order, then in reverse. The chain's run
+    includes its two K2 conversions."""
+    models = {name: QGModel(c, dev) for name, c in cfgs.items()}
+    state0 = models["default"].run(models["default"].init_state(), 3)
+    names = list(models)
+    step_ms = {name: [] for name in names}
+    for name in names + names[::-1]:
+        step_ms[name].append(time_ms(
+            lambda m=models[name]: m.run(state0, steps), 1, warmup=1) / steps)
     mean = {k: sum(v) / len(v) for k, v in step_ms.items()}
+    cfg = cfgs["default"]
     return ({"step_ms": mean, "step_ms_runs": step_ms,
+             "routes": {n: m.route for n, m in models.items()},
              "gridpoint_steps_per_s": {k: cfg.M * cfg.P / (v * 1e-3)
                                        for k, v in mean.items()}},
-            state0, routes["kernels"])
+            state0, models)
 
 
 def time_kernels(calls: dict, reps: int, plain_reps: int) -> dict:
@@ -398,16 +510,20 @@ def host_enqueue_ms(model, state, steps) -> float:
     return ms
 
 
-def phase_timing(cfg, dev, card, steps, reps, plain_reps, kernels) -> dict:
-    """Both routes' ms per step, per-kernel ms, host enqueue ms and the
-    traced busy share at cfg's grid. ``kernels`` selects the per-kernel
-    timings among K1, K2, K3, K4 (forward and inverse), K5."""
-    routes, state0, model = time_routes(cfg, dev, steps)
+def phase_timing(cfgs, dev, card, steps, reps, plain_reps, kernels) -> dict:
+    """Every route's ms per step, per-kernel ms (``kernels`` among K1, K2,
+    K3, K4 (forward and inverse), K5, K15, K16, K17) with the library
+    calls of K2 and K4, host enqueue ms and traced busy shares at the
+    default route's grid."""
+    routes, state0, models = time_routes(cfgs, dev, steps)
+    cfg = cfgs["default"]
     rng = np.random.default_rng(SEED + 1)
     x = torch.as_tensor(rng.standard_normal((2, cfg.M, cfg.P)),
                         dtype=torch.float32, device=dev)
+    c64 = torch.complex(x[0], x[1])      # the same field as complex64
     consts = inverter(cfg)._sym_consts
     s = state0
+    s_ys = y_dft_plain(s.psi, False)
     calls = {
         "K1": (lambda: fused_step(cfg, s.zeta, s.psi, s.f1, s.f2, 5),
                lambda: fused_step_plain(cfg, s.zeta, s.psi, s.f1, s.f2, 5), 1),
@@ -420,14 +536,40 @@ def phase_timing(cfg, dev, card, steps, reps, plain_reps, kernels) -> dict:
                        lambda: x_dft_plain(x, True), 1),
         "K5": (lambda: x_symbols_inverse(x, consts),
                lambda: x_symbols_inverse_plain(x, consts), 1),
+        "K15": (lambda: fused_step_yspec(cfg, s.zeta, s_ys, s.f1, s.f2, 5),
+                lambda: fused_step_yspec_plain(cfg, s.zeta, s_ys, s.f1,
+                                               s.f2, 5), 1),
+        "K16": (lambda: mono_invert(x, consts),
+                lambda: mono_invert_plain(x, consts), 1),
+        "K17": (lambda: fused_step_full(cfg, s.zeta, s.psi, s.f1, s.f2, 5),
+                lambda: fused_step_full_plain(cfg, s.zeta, s.psi, s.f1,
+                                              s.f2, 5), 1),
     }
     kernel_ms = time_kernels({k: calls[k] for k in kernels}, reps, plain_reps)
-    del x
-    host = host_enqueue_ms(model, state0, steps)
+    # One PyTorch call computing the same transform (used nowhere in the
+    # port): K2 along y, K4 along x.
+    library = {"K2": lambda: torch.fft.fft(c64, dim=1),
+               "K4": lambda: torch.fft.fft(c64, dim=0)}
+    for k, fn in library.items():
+        if k in kernel_ms:
+            kernel_ms[k]["library_ms"] = (time_ms(fn, reps) + time_ms(fn, reps)) / 2
+    del x, c64, s_ys
+    compare = {}
+    if {"K2", "K3", "K16"} <= kernel_ms.keys():
+        compare["K16_vs_2xK2_plus_K3_ms"] = [
+            kernel_ms["K16"]["ms"],
+            2 * kernel_ms["K2"]["ms"] + kernel_ms["K3"]["ms"]]
+    if "K17" in kernel_ms:
+        compare["K17_vs_default_step_ms"] = [kernel_ms["K17"]["ms"],
+                                             routes["step_ms"]["default"]]
+    host = host_enqueue_ms(models["default"], state0, steps)
     emit("timing", card=card, grid=[cfg.M, cfg.P], steps_per_run=steps,
-         **routes, host_enqueue_ms_per_step=host, kernel_ms=kernel_ms)
-    phase_trace(model, state0, card, steps)
-    del routes, state0, model, s
+         **routes, host_enqueue_ms_per_step=host, kernel_ms=kernel_ms,
+         compare=compare)
+    for name in ("default", "fullstep"):
+        if name in models:
+            phase_trace(models[name], name, state0, card, steps)
+    del routes, state0, models, s
     free_memory()
     return kernel_ms
 
@@ -444,9 +586,9 @@ def time_pre_inversion(cfg, dev, card) -> dict:
     return ms["K8"]
 
 
-def phase_trace(model, state, card: str, steps: int) -> None:
+def phase_trace(model, route, state, card: str, steps: int) -> None:
     """Device time by kernel and the device's busy share over a traced
-    window of kernel-route steps, after a warm-up that settles the caching
+    window of ``route`` steps, after a warm-up that settles the caching
     allocator. Only CUDA activity is traced (no host-op recording), so the
     host launches at close to its untraced rate."""
     from torch.profiler import ProfilerActivity, profile
@@ -467,19 +609,22 @@ def phase_trace(model, state, card: str, steps: int) -> None:
         span = (max(e.time_range.end for e in events)
                 - min(e.time_range.start for e in events)) / 1e3 / steps
         busy = sum(by_kernel.values()) / span
-    emit("trace", card=card, grid=[model.cfg.M, model.cfg.P], steps=steps,
-         activities="cuda", device_events=len(events),
+    emit("trace", card=card, route=route, grid=[model.cfg.M, model.cfg.P],
+         steps=steps, activities="cuda", device_events=len(events),
          device_ms_per_step_by_kernel=by_kernel, span_ms_per_step=span,
          busy_share=busy, idle_share=None if busy is None else 1.0 - busy)
 
 
 def kernel_rows(errs, launches, ms_2048, ms_8192) -> list:
     """The {"kernels": [...]} entries: launches summed over the slices
-    (each counted from 0), errors and ms per launch beside the plain
-    version's, at 2048^2 for K1/K2/K3/K8 and 8192^2 for K4/K5."""
+    (each counted from 0), errors, ms per launch beside the plain version's
+    and the library call's, and the bound, at 2048^2 for K1-K3, K8 and
+    K15-K17 and 8192^2 for K4/K5."""
     rows = []
     for name, (fn, source, replaces) in KERNELS.items():
         at = ms_2048 if name in ms_2048 else ms_8192
+        n = 2048 if at is ms_2048 else 8192
+        bound_ms, bound_by, nbytes = bound(name, n, n)
         row = {"name": f"{name} {fn}", "route": "cuda", "source": source,
                "replaces": replaces,
                "launches": sum(run[name] for run in launches.values()),
@@ -489,10 +634,14 @@ def kernel_rows(errs, launches, ms_2048, ms_8192) -> list:
                "max_abs_err": errs.by_kernel[name][0],
                "rel_err": errs.by_kernel[name][1],
                "ms": at[name]["ms"], "plain_ms": at[name]["plain_ms"],
-               "grid": [2048, 2048] if at is ms_2048 else [8192, 8192]}
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "library_ms": at[name].get("library_ms"), "grid": [n, n]}
         if name in ("K1", "K2"):
             row.update(ms_8192=ms_8192[name]["ms"],
-                       plain_ms_8192=ms_8192[name]["plain_ms"])
+                       plain_ms_8192=ms_8192[name]["plain_ms"],
+                       bound_ms_8192=bound(name, 8192, 8192)[0])
+            if name == "K2":
+                row.update(library_ms_8192=ms_8192[name]["library_ms"])
         if name == "K4":
             row.update(ms_inverse=ms_8192["K4 inverse"]["ms"],
                        plain_ms_inverse=ms_8192["K4 inverse"]["plain_ms"])
@@ -508,6 +657,8 @@ def kernel_rows(errs, launches, ms_2048, ms_8192) -> list:
                  "max_abs_err": max(k4["max_abs_err"], k5["max_abs_err"]),
                  "ms": k4["ms"] + k5["ms"],
                  "plain_ms": k4["plain_ms"] + k5["plain_ms"],
+                 "bound_ms": k4["bound_ms"] + k5["bound_ms"],
+                 "bound_by": "bytes", "library_ms": None,
                  "grid": [8192, 8192]})
     return rows
 
@@ -519,25 +670,50 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     turb = preset("turbulence-2048")
-    pin = turb.replace(poisson_gauge="pin")
     pod = preset("pod-8192")
+    forms = {"mono": turb.replace(fft_mono="on"),
+             "fullstep": turb.replace(step_full="on"),
+             "chain": turb.replace(step_chain="on")}
+    pod_chain = pod.replace(step_chain="on")
     errs = Errors()
     phase_kernels(errs, turb, dev)
     phase_x_kernels(errs, pod, dev)
 
     launches = {
         "turbulence-2048": run_slice("turbulence-2048", turb, dev, 100,
-                                     {"K1": 100, "K2": 200, "K3": 100}),
-        "turbulence-2048 pin": run_slice("turbulence-2048 pin", pin, dev, 100,
-                                         {"K8": 100}),
+                                     {"K1": 100, "K2": 200, "K3": 100},
+                                     "default"),
+        "turbulence-2048 pin": run_slice(
+            "turbulence-2048 pin", turb.replace(poisson_gauge="pin"), dev,
+            100, {"K8": 100}, "default"),
+        "turbulence-2048 fft_mono=on": run_slice(
+            "turbulence-2048 fft_mono=on", forms["mono"], dev, 100,
+            {"K1": 100, "K16": 100}, "mono"),
+        "turbulence-2048 step_full=on": run_slice(
+            "turbulence-2048 step_full=on", forms["fullstep"], dev, 100,
+            {"K17": 100}, "fullstep"),
+        "turbulence-2048 step_chain=on": run_slice(
+            "turbulence-2048 step_chain=on", forms["chain"], dev, 100,
+            {"K15": 100, "K3": 100,
+             "K2": 2 * run_chunks(forms["chain"], 100)}, "chain"),
         "pod-8192": run_slice("pod-8192", pod, dev, 50,
-                              {"K1": 50, "K2": 100, "K4": 50, "K5": 50}),
+                              {"K1": 50, "K2": 100, "K4": 50, "K5": 50},
+                              "default"),
+        "pod-8192 step_chain=on": run_slice(
+            "pod-8192 step_chain=on", pod_chain, dev, 20,
+            {"K15": 20, "K4": 20, "K5": 20,
+             "K2": 2 * run_chunks(pod_chain, 20)}, "chain"),
     }
     free_memory()
 
-    ms_2048 = phase_timing(turb, dev, card, 100, 50, 20, ("K1", "K2", "K3"))
-    ms_2048["K8"] = time_pre_inversion(pin, dev, card)
-    ms_8192 = phase_timing(pod, dev, card, 20, 10, 3,
+    plain = dict(fft_impl="xla", use_pallas=False)
+    ms_2048 = phase_timing(
+        {"default": turb, **forms, "plain": turb.replace(**plain)}, dev, card,
+        100, 50, 20, ("K1", "K2", "K3", "K15", "K16", "K17"))
+    ms_2048["K8"] = time_pre_inversion(turb.replace(poisson_gauge="pin"), dev,
+                                       card)
+    ms_8192 = phase_timing({"default": pod, "plain": pod.replace(**plain)},
+                           dev, card, 20, 10, 3,
                            ("K1", "K2", "K4", "K4 inverse", "K5"))
 
     print(json.dumps({"kernels": kernel_rows(errs, launches, ms_2048,

@@ -5,7 +5,9 @@ Marked ``cuda``; without a card every test skips. On a machine with one:
     python -m pytest tests/test_torch_cuda.py -q
 
 Tolerances relative to max|plain|: K1 and K8 1e-6, K2 and K4 1e-5, K3 and
-K5 1e-4 (the 1/lambda symbol amplifies low-k float32 rounding).
+K5 1e-4 (the 1/lambda symbol amplifies low-k float32 rounding); the
+one-launch kernels as the kernels they fuse: K16 1e-4, K17 1e-6 (zeta_new,
+carry) and 1e-4 (psi_new), K15 1e-6 (zeta_new, carry) and 1e-5 (zeta_ys).
 """
 
 import numpy as np
@@ -14,14 +16,18 @@ import torch
 
 from tpu_qg_torch import preset
 from tpu_qg_torch.models.core import QGModel, init_state
-from tpu_qg_torch.ops.dft_kernels import (pair_x_symbols, pair_x_symbols_plain,
+from tpu_qg_torch.ops.dft_kernels import (mono_invert, mono_invert_plain,
+                                          pair_x_symbols, pair_x_symbols_plain,
                                           x_dft, x_dft_plain, x_symbols_inverse,
                                           x_symbols_inverse_plain, y_dft,
                                           y_dft_plain)
 from tpu_qg_torch.ops.spectral import PackedModalInverterKernels
 from tpu_qg_torch.ops.step_kernel import (fused_pre_inversion,
                                           fused_pre_inversion_plain,
-                                          fused_step, fused_step_plain)
+                                          fused_step, fused_step_full,
+                                          fused_step_full_plain,
+                                          fused_step_plain, fused_step_yspec,
+                                          fused_step_yspec_plain)
 
 pytestmark = pytest.mark.cuda
 # Powers of two, and 128 * n extents that the kernels take in mixed radix.
@@ -151,4 +157,93 @@ def test_model_on_card_matches_cpu(dev, overrides, per_step):
     b = cpu.run(cpu.init_state(psi_init=psi0), 10)
     assert [f.launches - c for f, c in zip(COUNTED, counts)] == [
         10 * k for k in per_step]
+    assert _rel(a.zeta.cpu(), b.zeta) <= 1e-5
+
+
+# The one-launch kernels. K16 at a mixed-radix P, the largest M of the mono
+# gate and P = 8192; K17 at the gate's squares and rectangles, including
+# M = 2560 and 4096 (K3's device code past the pair-x route's 2432) and
+# M = 6272 = 128 * 49 (the own and mirror groups in turn); K15 at P = 8192
+# and M = 8192.
+@pytest.mark.parametrize("M,P", [(256, 384), (2432, 256), (256, 8192)])
+def test_mono_kernel(dev, M, P):
+    x = _fields(M, P, dev, seed=3)[1]
+    consts = _consts(M, P)
+    n = mono_invert.launches
+    got = mono_invert(x, consts)
+    want = mono_invert_plain(x, consts)
+    torch.cuda.synchronize()
+    assert mono_invert.launches == n + 1
+    assert _rel(got, want) <= 1e-4
+
+
+ONE_LAUNCH_STEPS = [("euler_ab3", 0.0, 0), ("euler_ab3", 0.0, 5),
+                    ("leapfrog_ra", 0.1, 3)]
+
+
+@pytest.mark.parametrize("M,P", [(256, 256), (2560, 2560), (4096, 256),
+                                 (6272, 128)])
+@pytest.mark.parametrize("scheme,tau0,step", ONE_LAUNCH_STEPS)
+def test_fullstep_kernel(dev, M, P, scheme, tau0, step):
+    cfg = preset("turbulence-2048").replace(M=M, P=P, time_scheme=scheme,
+                                            wind_tau0=tau0)
+    z, p, f1, f2 = _fields(M, P, dev)
+    n = fused_step_full.launches
+    got = fused_step_full(cfg, z, p, f1, f2, step)
+    want = fused_step_full_plain(cfg, z, p, f1, f2, step)
+    torch.cuda.synchronize()
+    assert fused_step_full.launches == n + 1
+    for g, w in zip(got[:2], want[:2]):
+        assert _rel(g, w) <= 1e-6
+    # psi_new is the inversion of the kernel's own zeta_new (K16's gate):
+    # the plain step's zeta_new differs by float32 rounding whose mean the
+    # 1/alpha2 of the (0, 0) baroclinic mode amplifies past 1e-4 of psi at
+    # fine grids (6272 x 128).
+    assert _rel(got[2], mono_invert_plain(got[0], _consts(M, P))) <= 1e-4
+
+
+@pytest.mark.parametrize("M,P", [(256, 384), (2560, 256), (256, 8192),
+                                 (8192, 256)])
+@pytest.mark.parametrize("scheme,tau0,step", ONE_LAUNCH_STEPS)
+def test_yspec_kernel(dev, M, P, scheme, tau0, step):
+    cfg = preset("turbulence-2048").replace(M=M, P=P, time_scheme=scheme,
+                                            wind_tau0=tau0)
+    z, p, f1, f2 = _fields(M, P, dev)
+    p_ys = y_dft_plain(p, False)
+    n = fused_step_yspec.launches
+    got = fused_step_yspec(cfg, z, p_ys, f1, f2, step)
+    want = fused_step_yspec_plain(cfg, z, p_ys, f1, f2, step)
+    torch.cuda.synchronize()
+    assert fused_step_yspec.launches == n + 1
+    for g, w, tol in zip(got, want, (1e-6, 1e-6, 1e-5)):
+        assert _rel(g, w) <= tol
+
+
+ALL_COUNTED = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
+               "K4": x_dft, "K5": x_symbols_inverse, "K8": fused_pre_inversion,
+               "K15": fused_step_yspec, "K16": mono_invert,
+               "K17": fused_step_full}
+
+
+# Launches of 10 steps in one QGModel.run: the chain's K2 runs once at each
+# end of the run.
+@pytest.mark.parametrize("overrides,launches", [
+    (dict(fft_mono="on"), {"K1": 10, "K16": 10}),
+    (dict(step_full="on"), {"K17": 10}),
+    (dict(step_chain="on"), {"K15": 10, "K3": 10, "K2": 2}),
+    (dict(step_chain="on", M=4096), {"K15": 10, "K4": 10, "K5": 10, "K2": 2}),
+], ids=["mono", "fullstep", "chain", "chain-four-pass"])
+def test_one_launch_routes_on_card_match_cpu(dev, overrides, launches):
+    cfg = preset("turbulence-2048").replace(**{"M": 256, "P": 256,
+                                               **overrides})
+    psi0 = init_state(cfg, "cpu").psi
+    gpu = QGModel(cfg, dev)
+    cpu = QGModel(cfg, "cpu")
+    assert gpu.route == cpu.route != "default"
+    counts = {k: f.launches for k, f in ALL_COUNTED.items()}
+    a = gpu.run(gpu.init_state(psi_init=psi0), 10)
+    b = cpu.run(cpu.init_state(psi_init=psi0), 10)
+    torch.cuda.synchronize()
+    assert {k: f.launches - counts[k] for k, f in ALL_COUNTED.items()} == {
+        k: launches.get(k, 0) for k in ALL_COUNTED}
     assert _rel(a.zeta.cpu(), b.zeta) <= 1e-5

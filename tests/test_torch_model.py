@@ -20,13 +20,15 @@ from tpu_qg_torch import io as tio
 from tpu_qg_torch import run as trun
 from tpu_qg_torch.interop import config_from_jax, state_from_numpy, state_to_numpy
 from tpu_qg_torch.models import core
-from tpu_qg_torch.ops.dft_kernels import (kernels_take, pair_x_symbols,
-                                          x_dft, x_kernels_take,
-                                          x_symbols_inverse, y_dft)
+from tpu_qg_torch.ops.dft_kernels import (kernels_take, mono_invert,
+                                          pair_x_symbols, x_dft,
+                                          x_kernels_take, x_symbols_inverse,
+                                          y_dft)
 from tpu_qg_torch.ops import spectral
 from tpu_qg_torch.ops.spectral import (PackedModalInverter,
                                        PackedModalInverterKernels)
-from tpu_qg_torch.ops.step_kernel import fused_pre_inversion, fused_step
+from tpu_qg_torch.ops.step_kernel import (fused_pre_inversion, fused_step,
+                                          fused_step_full, fused_step_yspec)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -105,25 +107,36 @@ def test_kernel_structure_on_cpu_float32():
     assert _rel(got.psi, want.psi) <= 2e-4
 
 
-@pytest.mark.parametrize("overrides,P", [
-    (dict(fft_pairx="off"), 384), (dict(poisson_gauge="pin"), 256),
-    (dict(n_layers=1), 256)], ids=["four-pass", "pin", "single-layer"])
-def test_kernel_routes_on_cpu_match_tpu_qg_pallas_float32(overrides, P):
+@pytest.mark.parametrize("overrides,P,route", [
+    (dict(fft_pairx="off"), 384, "default"),
+    (dict(poisson_gauge="pin"), 256, "default"),
+    (dict(n_layers=1), 256, "default"), (dict(fft_mono="on"), 256, "mono"),
+    (dict(step_full="on"), 256, "fullstep"),
+    (dict(step_chain="on"), 256, "chain")],
+    ids=["four-pass", "pin", "single-layer", "mono", "fullstep", "chain"])
+def test_kernel_routes_on_cpu_match_tpu_qg_pallas_float32(overrides, P,
+                                                          route):
     """10 float32 steps on the four-pass route (K1 -> K2 -> K4 -> K5 ->
-    K2^-1) and on the K8 route (K8 -> BatchedModalSolver) against
-    tpu_qg.QGModel with fft_impl="pallas" (its Pallas inversion in
-    interpret mode) and the same overrides: zeta 1e-5, psi 2e-4, the pin
-    gauge's psi compared as is. On CPU tensors the kernels' plain versions
+    K2^-1), the K8 route (K8 -> BatchedModalSolver) and the one-launch
+    routes (K1 -> K16; K17; the chain of K15 and K3) against tpu_qg.QGModel
+    with fft_impl="pallas" (its Pallas inversion in interpret mode) and the
+    same overrides: zeta 1e-5, psi 2e-4, the pin gauge's psi compared as
+    is. Off the TPU, tpu_qg engages only the mono form; for step_full and
+    step_chain it runs its default route, the same mathematics (the forms
+    themselves are held against tpu_qg's kernels in
+    test_torch_fused_forms.py). On CPU tensors the kernels' plain versions
     run and no launch is counted."""
     jcfg = tpu_qg.preset("turbulence-2048").replace(
         M=256, P=P, fft_impl="pallas", **overrides)
     cfg = config_from_jax(jcfg)
     assert core.use_step_kernel(cfg)
     psi0 = _psi_init(jcfg, seed=7)
-    counters = (fused_step, y_dft, x_dft, x_symbols_inverse,
-                fused_pre_inversion)
+    counters = (fused_step, y_dft, pair_x_symbols, x_dft, x_symbols_inverse,
+                fused_pre_inversion, mono_invert, fused_step_full,
+                fused_step_yspec)
     before = [c.launches for c in counters]
     model = tpu_qg_torch.QGModel(cfg, device="cpu")
+    assert model.route == route
     got = model.run(model.init_state(psi_init=psi0), 10)
     assert [c.launches for c in counters] == before
     want = tpu_qg.QGModel(jcfg).run(
@@ -217,10 +230,13 @@ def test_cli_no_save_and_sharded_flags():
 
 @pytest.mark.parametrize("preset,sets", [
     ("pod-8192", ["fft_pairx=off"]), ("pod-8192-mg", ["fft_pairx=off"]),
-    ("turbulence-2048", ["poisson_gauge=pin"])])
+    ("turbulence-2048", ["poisson_gauge=pin"]),
+    ("turbulence-2048", ["fft_mono=on"]), ("turbulence-2048", ["step_full=on"]),
+    ("turbulence-2048", ["step_chain=on"])])
 def test_cli_runs_the_large_grid_and_pin_routes_on_cpu(preset, sets, capsys):
-    """The presets of the four-pass and K8 routes, cut to 256^2, run through
-    the CLI on the CPU (the kernels' plain versions, same routing)."""
+    """The presets of the four-pass, K8 and one-launch routes, cut to 256^2,
+    run through the CLI on the CPU (the kernels' plain versions, same
+    routing)."""
     trun.main(["--device", "cpu", "--preset", preset, "--steps", "3",
                "--no-save", "--set", "M=256", "P=256", *sets])
     assert "step 3/3" in capsys.readouterr().out
@@ -275,9 +291,7 @@ def test_import_pulls_in_no_jax():
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (dict(fft_mono="on"), "K16"), (dict(step_full="on"), "K17"),
-    (dict(step_chain="on"), "K15"), (dict(fft_impl="matmul"), "matmul"),
-    (dict(fft_mxu="bf16x3"), "bf16x3"),
+    (dict(fft_impl="matmul"), "matmul"), (dict(fft_mxu="bf16x3"), "bf16x3"),
 ])
 def test_unported_kernels_raise(overrides, match):
     cfg = tpu_qg_torch.preset("turbulence-2048").replace(M=256, P=256)
@@ -295,11 +309,29 @@ def test_pinned_pair_x_that_cannot_engage_raises():
     core.make_step_fn(cfg.replace(M=2432, P=256))
 
 
+@pytest.mark.parametrize("overrides,match", [
+    (dict(fft_mono="on"), "monolithic kernel cannot engage"),
+    (dict(step_full="on"), "one-launch kernel cannot engage")],
+    ids=["fft_mono=on", "step_full=on"])
+def test_pinned_one_launch_form_that_cannot_engage_raises(overrides, match):
+    """A one-launch form pinned "on" where the reference's gate rejects the
+    shape fails with the reference's wording (tpu_qg/models/core.py:362-366,
+    558-563)."""
+    cfg = tpu_qg_torch.preset("turbulence-2048").replace(M=4096, P=4096,
+                                                         **overrides)
+    with pytest.raises(ValueError, match=match):
+        core.make_step_fn(cfg)
+
+
 K8 = "K8 + BatchedModalSolver"
 
 
 def _route(cfg) -> str:
-    """The step's inversion route label."""
+    """The route label: the one-launch step or the chain where they engage,
+    else the step's inversion route ("mono" for K16)."""
+    route = tpu_qg_torch.QGModel(cfg, device="cpu").route
+    if route in ("fullstep", "chain"):
+        return route
     solver = core._build_solvers(cfg)
     if isinstance(solver, PackedModalInverterKernels):
         return solver.route
@@ -328,6 +360,20 @@ def _route(cfg) -> str:
                  id="8192"),
     pytest.param(dict(M=128, P=128, poisson_gauge="pin"), False, "kernels",
                  "BatchedModalSolver", id="pin-below-floor"),
+    pytest.param(dict(fft_mono="on"), True, "kernels", "mono", id="K16"),
+    pytest.param(dict(step_full="on"), True, "kernels", "fullstep",
+                 id="K17"),
+    pytest.param(dict(step_chain="on"), True, "kernels", "chain", id="K15"),
+    pytest.param(dict(M=128, P=128, step_full="on"), False, "kernels",
+                 "pair-x", id="K17-below-floor"),
+    pytest.param(dict(step_chain="on", poisson_gauge="pin"), True, "kernels",
+                 K8, id="K15-not-pin"),
+    pytest.param(dict(step_chain="on", n_layers=1), True, "kernels", K8,
+                 id="K15-not-one-layer"),
+    pytest.param(dict(step_chain="on", M=4224), True, "kernels",
+                 "four-pass-unfused", id="K15-not-4224"),
+    pytest.param(dict(step_chain="on", step_full="on"), True, "kernels",
+                 "fullstep", id="K17-over-K15"),
 ])
 def test_routing(overrides, step_kernel, fft, route):
     cfg = tpu_qg_torch.preset("turbulence-2048").replace(

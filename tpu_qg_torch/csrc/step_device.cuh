@@ -1,0 +1,181 @@
+// The step's tile body, shared by K1 and K8 (step_kernel.cu) and the
+// one-launch kernels K15 and K17 (fused_kernels.cu). Design notes in
+// step_kernel.cu.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int TX = 32;    // tile rows (x, strided axis)
+constexpr int TY = 64;    // tile columns (y, contiguous axis)
+
+// Float constants, each rounded once on the host from its float64 value
+// (the plain version's Python-scalar constants round the same way).
+struct StepConsts {
+  float inv_dx2;      // 1/dx^2
+  float half_inv_dx;  // 0.5/dx
+  float jac_den;      // 12 dx^2
+  float visc;
+  float beta[2];      // per layer (one layer: beta)
+  float U;
+  float r;
+  float dt;
+  float two_dt;
+  float ra;
+  float c23;          // 23/12
+  float c16;          // 16/12
+  float c5;           // 5/12
+};
+constexpr int kNumConsts = sizeof(StepConsts) / sizeof(float);
+
+// K8's modal projection P^-1 = [[q11, q12], [q21, q22]].
+struct ModalConsts {
+  float q11, q12, q21, q22;
+};
+constexpr int kNumModalConsts = sizeof(ModalConsts) / sizeof(float);
+
+// step_tile's shared memory: psi with a halo of 2, zeta and lap(psi) with a
+// halo of 1, and (kModes) layer 0's zeta_new.
+struct StepTiles {
+  float (*ps)[TY + 4];
+  float (*zs)[TY + 2];
+  float (*lp)[TY + 2];
+  float (*zn0)[TY];
+};
+constexpr int kStepTileFloats =
+    (TX + 4) * (TY + 4) + 2 * (TX + 2) * (TY + 2) + TX * TY;
+
+// The tiles carved from `smem` (kStepTileFloats floats).
+__device__ __forceinline__ StepTiles step_tiles(float* smem) {
+  float* zs = smem + (TX + 4) * (TY + 4);
+  float* lp = zs + (TX + 2) * (TY + 2);
+  return StepTiles{reinterpret_cast<float (*)[TY + 4]>(smem),
+                   reinterpret_cast<float (*)[TY + 2]>(zs),
+                   reinterpret_cast<float (*)[TY + 2]>(lp),
+                   reinterpret_cast<float (*)[TY]>(lp + (TX + 2) * (TY + 2))};
+}
+
+// The step over the TX x TY tile at (x0, y0) for L layers, with NT threads a
+// block, in the shared memory `t`. kModes (L = 2) also writes the modes
+// P^-1 zeta_new: a thread visits the same tile points in both layers, so
+// it keeps layer 0's zeta_new in shared memory until layer 1's is formed.
+// kL2: see ld(). Ends with a barrier: the caller may run the next tile.
+template <int L, bool kModes, int NT, bool kL2>
+__device__ __forceinline__ void step_tile(
+    const float* __restrict__ zeta, const float* __restrict__ psi,
+    const float* __restrict__ f1, const float* __restrict__ f2,
+    const float* __restrict__ wind, float* __restrict__ zeta_new,
+    float* __restrict__ carry, float* __restrict__ modes, int M, int P,
+    const StepConsts& c, const ModalConsts& q, int leapfrog, int step, int x0,
+    int y0, const StepTiles& t) {
+  float (*ps)[TY + 4] = t.ps;
+  float (*zs)[TY + 2] = t.zs;
+  float (*lp)[TY + 2] = t.lp;
+  float (*zn0)[TY] = t.zn0;
+  const size_t plane = (size_t)M * P;
+
+  for (int l = 0; l < L; ++l) {
+    const float* pl = psi + l * plane;
+    const float* zl = zeta + l * plane;
+    for (int idx = threadIdx.x; idx < (TX + 4) * (TY + 4); idx += NT) {
+      const int i = idx / (TY + 4), j = idx % (TY + 4);
+      const int gx = (x0 - 2 + i + M) % M, gy = (y0 - 2 + j + P) % P;
+      ps[i][j] = ld<kL2>(pl + (size_t)gx * P + gy);
+    }
+    for (int idx = threadIdx.x; idx < (TX + 2) * (TY + 2); idx += NT) {
+      const int i = idx / (TY + 2), j = idx % (TY + 2);
+      const int gx = (x0 - 1 + i + M) % M, gy = (y0 - 1 + j + P) % P;
+      zs[i][j] = ld<kL2>(zl + (size_t)gx * P + gy);
+    }
+    __syncthreads();
+
+    // lap(psi) on the tile plus a ring of 1: lp[i][j] sits at ps[i+1][j+1].
+    for (int idx = threadIdx.x; idx < (TX + 2) * (TY + 2); idx += NT) {
+      const int i = idx / (TY + 2), j = idx % (TY + 2);
+      lp[i][j] = ((((ps[i][j + 1] + ps[i + 2][j + 1]) - 4.0f * ps[i + 1][j + 1])
+                   + ps[i + 1][j]) + ps[i + 1][j + 2]) * c.inv_dx2;
+    }
+    __syncthreads();
+
+    for (int idx = threadIdx.x; idx < TX * TY; idx += NT) {
+      const int i = idx / TY, j = idx % TY;
+      const int gx = x0 + i, gy = y0 + j;
+      if (gx >= M || gy >= P) continue;
+      // Centres: psi at ps[i+2][j+2], zeta and lap at [i+1][j+1].
+      const int pi = i + 2, pj = j + 2, zi = i + 1, zj = j + 1;
+      const float lap_c = lp[zi][zj];
+      const float visc_term =
+          c.visc * (((((lp[zi - 1][zj] + lp[zi + 1][zj]) - 4.0f * lap_c)
+                      + lp[zi][zj - 1]) + lp[zi][zj + 1]) * c.inv_dx2);
+
+      const float z_xp = zs[zi + 1][zj], z_xm = zs[zi - 1][zj];
+      const float z_yp = zs[zi][zj + 1], z_ym = zs[zi][zj - 1];
+      const float z_xpyp = zs[zi + 1][zj + 1], z_xpym = zs[zi + 1][zj - 1];
+      const float z_xmyp = zs[zi - 1][zj + 1], z_xmym = zs[zi - 1][zj - 1];
+      const float p_xp = ps[pi + 1][pj], p_xm = ps[pi - 1][pj];
+      const float p_yp = ps[pi][pj + 1], p_ym = ps[pi][pj - 1];
+      const float p_xpyp = ps[pi + 1][pj + 1], p_xpym = ps[pi + 1][pj - 1];
+      const float p_xmyp = ps[pi - 1][pj + 1], p_xmym = ps[pi - 1][pj - 1];
+
+      const float j_pp = (z_xp - z_xm) * (p_yp - p_ym)
+                         - (z_yp - z_ym) * (p_xp - p_xm);
+      const float j_pt = ((z_xp * (p_xpyp - p_xpym) - z_xm * (p_xmyp - p_xmym))
+                          - z_yp * (p_xpyp - p_xmyp))
+                         + z_ym * (p_xpym - p_xmym);
+      const float j_tp = ((z_xpyp * (p_yp - p_xp) - z_xmym * (p_xm - p_ym))
+                          - z_xmyp * (p_yp - p_xm))
+                         + z_xpym * (p_xp - p_ym);
+      const float jac = ((j_pp + j_pt) + j_tp) / c.jac_den;
+      const float dpsi_dx = c.half_inv_dx * (p_xp - p_xm);
+
+      float tend = (visc_term - jac) - c.beta[l] * dpsi_dx;
+      if (l == 0) {
+        tend = tend - c.U * (c.half_inv_dx * (z_xp - z_xm));
+        if (L == 1) tend = tend - c.r * lap_c;
+        if (wind != nullptr) tend = tend + wind[gy];
+      } else {
+        tend = tend - c.r * lap_c;
+      }
+
+      const size_t at = (size_t)gx * P + gy;
+      const size_t off = l * plane + at;
+      const float zc = zs[zi][zj];
+      float zn, out;
+      if (leapfrog) {
+        const float zpf = (step == 0) ? zc : ld<kL2>(f1 + off);
+        zn = (step == 0) ? zc + c.dt * tend : zpf + c.two_dt * tend;
+        out = zc + c.ra * ((zpf - 2.0f * zc) + zn);
+      } else {
+        if (step < 2) {
+          zn = zc + c.dt * tend;
+        } else {
+          zn = zc + c.dt * ((c.c23 * tend - c.c16 * ld<kL2>(f1 + off)) + c.c5 * ld<kL2>(f2 + off));
+        }
+        out = tend;
+      }
+      zeta_new[off] = zn;
+      carry[off] = out;
+      if constexpr (kModes) {
+        if (l == 0) {
+          zn0[i][j] = zn;
+        } else {
+          modes[at] = q.q11 * zn0[i][j] + q.q12 * zn;
+          modes[at + plane] = q.q21 * zn0[i][j] + q.q22 * zn;
+        }
+      }
+    }
+    __syncthreads();   // the next layer reuses the tiles
+  }
+}
+
+inline StepConsts step_consts(const float* consts) {
+  StepConsts c;
+  float* dst = reinterpret_cast<float*>(&c);
+  for (int k = 0; k < kNumConsts; ++k) dst[k] = consts[k];
+  return c;
+}
+
+}  // namespace

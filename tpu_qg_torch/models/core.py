@@ -28,8 +28,22 @@ the reference's route for the shape (``spectral.inversion_route``):
 
 Elsewhere the plain torch route runs, where the reference takes XLA. A
 configuration on which the reference would run a kernel this package has
-not ported raises ``NotImplementedError`` naming the kernel (the K-numbers
-of ROADMAP.md queue 2), instead of running something else.
+not ported raises ``NotImplementedError`` naming it, instead of running
+something else.
+
+The opt-in one-launch forms take over where they are pinned "on" and the
+reference's shape gates admit them (``QGModel.route`` names the route):
+
+  * ``fft_mono``: the inversion is one launch of K16 ("mono");
+  * ``step_full``: the whole step is one launch of K17 ("fullstep"), which
+    then excludes the chain;
+  * ``step_chain``: ``QGModel.run`` and ``run_trajectory`` keep psi as its
+    permuted y-spectrum between steps, one step being K15 then the
+    inversion's x-stage, K3 or K4 + K5 ("chain"; ``make_chain_fns``).
+
+Under "auto" each stays off: ``tpu_qg``'s own gates rest on TPU evidence,
+and no H100 measurement admits them yet. A pinned form that cannot engage
+raises ``ValueError`` with the reference's wording.
 
 The route depends on the configuration only; on CPU tensors each kernel
 wrapper runs its plain version, so a CPU run has the card's structure.
@@ -48,11 +62,14 @@ import torch
 
 from ..config import ModelConfig
 from ..device import resolve_device
+from ..ops.dft_kernels import y_dft
 from ..ops.spectral import (BatchedModalSolver, HelmholtzSolver,
                             PackedModalInverter, PackedModalInverterKernels,
-                            reference_dft_kernels)
+                            reference_dft_kernels, reference_fullstep,
+                            reference_yfused)
 from ..ops.step_kernel import (fused_pre_inversion, fused_step,
-                               fused_step_plain)
+                               fused_step_full, fused_step_plain,
+                               fused_step_yspec)
 from ..ops.stencils import arakawa_J, centered_diff_x, laplace_5p
 
 
@@ -160,11 +177,31 @@ def _back_project(cfg: ModelConfig, pt0: torch.Tensor,
 # Step-kernel size floor, the reference's (tpu_qg/models/core.py:397-408).
 _KERNEL_FLOOR = 256 * 256
 
+# What "auto" resolves to for fft_mono, step_full and step_chain: off, as no
+# H100 measurement admits the one-launch forms yet (tpu_qg's own gates rest
+# on TPU evidence).
+_MONO_IN_AUTO = False
+_FULLSTEP_IN_AUTO = False
+_YFUSED_IN_AUTO = False
 
-def _not_ported(what: str, kernel: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} runs kernel {kernel} in tpu_qg, which tpu_qg_torch has not "
-        "ported yet (ROADMAP.md queue 2)")
+
+def _resolve(knob: str, in_auto: bool) -> bool:
+    """An "on"/"off"/"auto" config knob as a bool."""
+    return in_auto if knob == "auto" else knob == "on"
+
+
+def fullstep_supported(cfg: ModelConfig) -> bool:
+    """The reference's fullstep_supported: two float32 layers in the
+    zero-mean gauge, on a shape its one-launch step takes."""
+    return (cfg.n_layers == 2 and cfg.poisson_gauge == "zero_mean"
+            and cfg.dtype == "float32" and reference_fullstep(cfg.M, cfg.P))
+
+
+def yfused_supported(cfg: ModelConfig) -> bool:
+    """The reference's yfused_supported: two float32 layers on a shape its
+    y-fused step kernel takes."""
+    return (cfg.n_layers == 2 and cfg.dtype == "float32"
+            and reference_yfused(cfg.M, cfg.P))
 
 
 def use_step_kernel(cfg: ModelConfig) -> bool:
@@ -197,8 +234,6 @@ def resolve_fft_impl(cfg: ModelConfig) -> str:
         raise NotImplementedError(
             "fft_mxu='bf16x3' (reduced-precision DFT stage) is not ported "
             "yet; it waits for the float64 adjudication on the card")
-    if cfg.fft_mono == "on":
-        raise _not_ported("fft_mono='on'", "K16")
     return "kernels"
 
 
@@ -207,10 +242,18 @@ def _build_packed_inverter(cfg: ModelConfig) -> PackedModalInverter:
             cfg.back_projection_matrix())
     if resolve_fft_impl(cfg) != "kernels":
         return PackedModalInverter(*args)
-    inv = PackedModalInverterKernels(*args, pair_x=cfg.fft_pairx != "off")
+    inv = PackedModalInverterKernels(
+        *args, pair_x=cfg.fft_pairx != "off",
+        mono=_resolve(cfg.fft_mono, _MONO_IN_AUTO))
     # A pinned kernel form that cannot engage fails, as in the reference
-    # (tpu_qg/models/core.py:367-372).
-    if cfg.fft_pairx == "on" and inv.route != "pair-x":
+    # (tpu_qg/models/core.py:362-372).
+    if cfg.fft_mono == "on" and inv.route != "mono":
+        raise ValueError(
+            f"fft_mono='on' requested but the monolithic kernel cannot "
+            f"engage at ({cfg.M}, {cfg.P}) (mono_fits/fuse rejected); "
+            "use fft_mono='auto' to allow fallback")
+    if cfg.fft_pairx == "on" and "pair-x" not in (inv.route, inv.x_route) \
+            and inv.route != "mono":
         raise ValueError(
             f"fft_pairx='on' requested but the mirror-pair kernel cannot "
             f"engage at ({cfg.M}, {cfg.P}) (pair_x_fits/fuse rejected); "
@@ -237,8 +280,9 @@ def _build_solvers(cfg: ModelConfig, batched_fft: bool = True):
 
 def _next_state(cfg: ModelConfig, state: State, zeta_new, psi_new,
                 carry) -> State:
-    """History convention: euler_ab3 shifts (f1, f2) <- (tend, f1);
-    leapfrog_ra keeps the filtered level in f1 and carries f2 unchanged."""
+    """History convention (the chain's too): euler_ab3 shifts (f1, f2) <-
+    (tend, f1); leapfrog_ra keeps the filtered level in f1 and carries f2
+    unchanged."""
     if cfg.time_scheme == "leapfrog_ra":
         return State(zeta_new, psi_new, carry, state.f2, state.step + 1)
     return State(zeta_new, psi_new, carry, state.f1, state.step + 1)
@@ -247,7 +291,8 @@ def _next_state(cfg: ModelConfig, state: State, zeta_new, psi_new,
 def make_step_fn(cfg: ModelConfig, batched_fft: bool = True):
     """Build the single-step transition ``state -> state``: evolve zeta
     (Euler for the first steps, then AB3 or leapfrog-RA), then invert for
-    psi. ``batched_fft=False`` uses per-mode solvers."""
+    psi. ``batched_fft=False`` uses per-mode solvers. The function's
+    ``route`` is "fullstep" (K17), "mono" (K16 inverts) or "default"."""
     solvers = _build_solvers(cfg, batched_fft)
     step_kernel = use_step_kernel(cfg) and batched_fft
     if step_kernel and not isinstance(solvers, PackedModalInverter):
@@ -261,12 +306,26 @@ def make_step_fn(cfg: ModelConfig, batched_fft: bool = True):
                                                                  pt[1])
             return _next_state(cfg, state, zeta_new, psi_new, carry)
 
+        step.route = "default"
         return step
     if step_kernel and isinstance(solvers, PackedModalInverterKernels):
-        if cfg.step_full == "on":
-            raise _not_ported("step_full='on'", "K17")
-        if cfg.step_chain == "on":
-            raise _not_ported("step_chain='on'", "K15")
+        # The one-launch step (tpu_qg/models/core.py:550-573).
+        full_ok = fullstep_supported(cfg)
+        if cfg.step_full == "on" and not full_ok:
+            raise ValueError(
+                f"step_full='on' requested but the one-launch kernel "
+                f"cannot engage at ({cfg.M}, {cfg.P}) "
+                "(fullstep_supported rejected); use step_full='auto' "
+                "to allow fallback")
+        if _resolve(cfg.step_full, _FULLSTEP_IN_AUTO) and full_ok:
+            def step(state: State) -> State:
+                zeta_new, carry, psi_new = fused_step_full(
+                    cfg, state.zeta, state.psi, state.f1, state.f2,
+                    state.step)
+                return _next_state(cfg, state, zeta_new, psi_new, carry)
+
+            step.route = "fullstep"
+            return step
     advance = fused_step if step_kernel else fused_step_plain
 
     def step(state: State) -> State:
@@ -275,7 +334,49 @@ def make_step_fn(cfg: ModelConfig, batched_fft: bool = True):
         psi_new = _invert_psi(cfg, solvers, zeta_new)
         return _next_state(cfg, state, zeta_new, psi_new, carry)
 
+    step.route = ("mono" if isinstance(solvers, PackedModalInverterKernels)
+                  and solvers.route == "mono" else "default")
     return step
+
+
+def make_chain_fns(cfg: ModelConfig):
+    """The y-fused step chain (tpu_qg/models/core.py:458-516):
+    ``(to_internal, step, to_external)``, or None where it does not engage.
+
+    Inside the chain ``State.psi`` holds the permuted y-spectrum of the
+    packed psi_1 + i psi_2, the inversion's x-stage output before its final
+    inverse-y: one step is K15 (which inverse-transforms it, steps, and
+    forward-transforms the packed zeta_new) then the x-stage, K3 or K4 + K5.
+    ``to_internal`` and ``to_external`` are one K2 launch each, so states
+    seen outside the chain always hold natural psi. The chain does not
+    engage for one layer, the pin gauge, where the one-launch step engages,
+    off the step kernels' shapes, or on the unfused four-pass route
+    (4224 <= M <= 4480); the default step then runs, as in the reference."""
+    if cfg.n_layers != 2 or cfg.poisson_gauge != "zero_mean":
+        return None
+    if _resolve(cfg.step_full, _FULLSTEP_IN_AUTO) and fullstep_supported(cfg):
+        return None
+    if not yfused_supported(cfg):
+        return None
+    if not use_step_kernel(cfg) or resolve_fft_impl(cfg) != "kernels":
+        return None
+    inverter = _build_packed_inverter(cfg)
+    if inverter.x_route == "four-pass-unfused":
+        return None
+
+    def to_internal(state: State) -> State:
+        return state._replace(psi=y_dft(state.psi, False))
+
+    def to_external(state: State) -> State:
+        return state._replace(psi=y_dft(state.psi, True))
+
+    def step(state: State) -> State:
+        zeta_new, carry, zeta_ys = fused_step_yspec(
+            cfg, state.zeta, state.psi, state.f1, state.f2, state.step)
+        return _next_state(cfg, state, zeta_new, inverter.x_stage(zeta_ys),
+                           carry)
+
+    return to_internal, step, to_external
 
 
 def init_state(cfg: ModelConfig, device: torch.device | str,
@@ -332,12 +433,18 @@ def _init_finish(cfg: ModelConfig, psi: torch.Tensor) -> State:
 
 class QGModel:
     """Config, step function and multi-step runs on one device (the GPU
-    unless the CPU is asked for)."""
+    unless the CPU is asked for). ``route`` is "default", "mono",
+    "fullstep" or "chain" (see the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device | str = "cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.step = make_step_fn(cfg)
+        # Multi-step runs take the chain where it resolves on and engages; a
+        # single step stays on the step function, as in the reference.
+        self._chain = (make_chain_fns(cfg)
+                       if _resolve(cfg.step_chain, _YFUSED_IN_AUTO) else None)
+        self.route = "chain" if self._chain is not None else self.step.route
 
     def init_state(self, psi_init=None, seed: Optional[int] = None) -> State:
         return init_state(self.cfg, self.device, psi_init=psi_init, seed=seed)
@@ -345,6 +452,12 @@ class QGModel:
     def run(self, state: State, n_steps: int) -> State:
         """Advance ``n_steps`` steps (a host loop; each step launches its
         kernels on the current stream without synchronising)."""
+        if self._chain is not None:
+            to_internal, step, to_external = self._chain
+            state = to_internal(state)
+            for _ in range(n_steps):
+                state = step(state)
+            return to_external(state)
         for _ in range(n_steps):
             state = self.step(state)
         return state
@@ -357,6 +470,17 @@ class QGModel:
             raise ValueError(f"n_steps={n_steps} is not a multiple of "
                              f"sample_every={sample_every}")
         zs, ps = [], []
+        if self._chain is not None:
+            # Inside the chain between samples; each sample converted back.
+            to_internal, step, to_external = self._chain
+            inner = to_internal(state)
+            for _ in range(n_steps // sample_every):
+                for _ in range(sample_every):
+                    inner = step(inner)
+                state = to_external(inner)
+                zs.append(state.zeta)
+                ps.append(state.psi)
+            return state, torch.stack(zs), torch.stack(ps)
         for _ in range(n_steps // sample_every):
             state = self.run(state, sample_every)
             zs.append(state.zeta)

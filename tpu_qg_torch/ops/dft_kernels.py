@@ -1,5 +1,6 @@
 """K2 (the y-DFT), K3 (the mirror-pair x-kernel), K4 (the x-DFT) and K5
-(symbols + inverse x-DFT) of the packed inversion.
+(symbols + inverse x-DFT) of the packed inversion, and K16 (the whole
+inversion in one launch).
 
 Replace ``tpu_qg/ops/pallas_fft.py`` ``PlanarFFT2._call_y``,
 ``PlanarFFT2.pair_x_symbols``, ``PlanarFFT2._call_x`` and
@@ -7,7 +8,8 @@ Replace ``tpu_qg/ops/pallas_fft.py`` ``PlanarFFT2._call_y``,
 computes what the last two compute where a TPU core's VMEM runs short — with
 hand-written CUDA kernels, ``csrc/dft_kernels.cu`` (design and bounds in its
 comments: all are bandwidth-bound passes that keep each transform in shared
-memory).
+memory). ``PlanarFFT2.mono_invert`` becomes the cooperative kernel K16 of
+``csrc/fused_kernels.cu``: K2, K3 and K2^-1 as stages of one launch.
 
 Fields are planar: ``(2, rows, N)`` float, plane 0 = real, plane 1 = imag.
 Spectra are in the permuted order of ``matmul_fft.freq_order``: the
@@ -199,6 +201,13 @@ def x_symbols_inverse_plain(W: torch.Tensor, consts) -> torch.Tensor:
     return torch.stack([v.real, v.imag]).to(W.dtype)
 
 
+def mono_invert_plain(z: torch.Tensor, consts) -> torch.Tensor:
+    """Packed natural-order (2, M, P) field -> psi: the plain versions of K2,
+    K3 and K2^-1 in turn. ``consts`` as for ``pair_x_symbols_plain``."""
+    return y_dft_plain(pair_x_symbols_plain(y_dft_plain(z, False), consts),
+                       True)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
@@ -216,7 +225,11 @@ def _lib():
         _build.declare(lib.qg_x_symbols_launch,
                        [p, p, p, p, i, i, i, i, i, i, i, i, i, i, p, p, p, i,
                         p])
+        _build.declare(lib.qg_mono_launch,
+                       [p, p, p, p, p, p, p, p, p, p, i, p, p])
         lib.qg_pair_x_num_consts.restype = ctypes.c_int
+        lib.qg_coop_plan_size.restype = ctypes.c_int
+        lib.qg_coop_threads.restype = ctypes.c_int
     return lib
 
 
@@ -353,7 +366,7 @@ def _threads(C: int, M: int) -> int:
     return 512 if C * M >= 1024 else 128
 
 
-def _check_consts(what: str, consts, M: int, P: int) -> ctypes.Array:
+def check_consts(what: str, consts, M: int, P: int) -> ctypes.Array:
     """The symbol constants as the kernels' SymConsts float table."""
     n2x, n2y, inv_dx2, alpha2, a1, a2, b1, b2 = consts
     if (n2x, n2y) != (split_factor(M)[1], split_factor(P)[1]):
@@ -382,7 +395,7 @@ def pair_x_symbols(Zy: torch.Tensor, consts) -> torch.Tensor:
         return pair_x_symbols_plain(Zy, consts)
     _, M, P = Zy.shape
     _cuda_field("pair_x_symbols", Zy, kernels_take, M, P)
-    vals = _check_consts("pair_x_symbols", consts, M, P)
+    vals = check_consts("pair_x_symbols", consts, M, P)
     C, sub, bstride, _ = pair_x_layout(M)
     own, mirror = _device_tasks(P, C, Zy.device)
     out = torch.empty_like(Zy)
@@ -427,7 +440,7 @@ def x_symbols_inverse(W: torch.Tensor, consts) -> torch.Tensor:
         return x_symbols_inverse_plain(W, consts)
     _, M, P = W.shape
     _cuda_field("x_symbols_inverse", W, x_kernels_take, M, P)
-    vals = _check_consts("x_symbols_inverse", consts, M, P)
+    vals = check_consts("x_symbols_inverse", consts, M, P)
     C, sub, bstride, _ = x_symbols_layout(M)
     own, mirror = _device_tasks(P, C, W.device)
     out = torch.empty_like(W)
@@ -443,3 +456,115 @@ def x_symbols_inverse(W: torch.Tensor, consts) -> torch.Tensor:
 
 
 x_symbols_inverse.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The one-launch kernels K15-K17 (csrc/fused_kernels.cu): cooperative
+# launches of 512-thread blocks whose stages reuse K2's row task, K3's
+# mirror-pair task and K1's tile.
+# ---------------------------------------------------------------------------
+
+COOP_THREADS = 512
+# Floats of step_tile's buffers (csrc kStepTileFloats) in K15 and K17: psi
+# with a halo of 2, zeta and lap(psi) with a halo of 1 on a 32 x 64 tile,
+# and a tile of layer-0 zeta_new.
+STEP_TILE_FLOATS = (32 + 4) * (64 + 4) + 2 * (32 + 2) * (64 + 2) + 32 * 64
+# A y task takes the most rows (a power of two <= 8) whose buffers fit the
+# larger of this and the x-stage's buffers: 8 rows of 2048 points (135 KB).
+_COOP_Y_TARGET = 136 * 1024
+
+
+def y_rows_floats(P: int) -> int:
+    """Floats of shared memory a row takes in a y task (csrc y_rows)."""
+    R, m = radix_split(P)
+    return 2 * m * _pad(R) + (2 * _pad(P) if m > 1 else 0)
+
+
+def coop_plan(M: int, P: int, x_stage: bool) -> tuple[tuple[int, ...], int]:
+    """A one-launch kernel's CoopPlan (csrc/fused_kernels.cu) and its bytes
+    of dynamic shared memory: one buffer for the largest of a y task's rows,
+    an x-stage task's columns (K3's layout) and the step's tiles, then the
+    larger radix-2 table."""
+    Ry, my = radix_split(P)
+    Rx, mx = radix_split(M) if x_stage else (2, 1)
+    row = y_rows_floats(P)
+    table = max(Ry, Rx)                  # R/2 float2 of the larger table
+    C, sub, bstride, seq, xdata, xtasks = 1, 0, 0, 0, 0, 0
+    if x_stage:
+        C, sub, bstride, _ = pair_x_layout(M)
+        xdata = 4 * C * mx * sub + (4 * C * bstride if mx > 1 else 0)
+        if mx > 1 and 4 * (xdata + table) > SMEM_LIMIT:
+            # K5's layout: the own and the mirror group in turn.
+            C, sub, bstride, _ = x_symbols_layout(M)
+            seq, xdata = 1, 2 * C * mx * sub + 4 * C * bstride
+        xtasks = pair_tasks(P, C)[0].shape[0]
+
+    def data(rows: int) -> int:
+        d = max(rows * row, xdata, STEP_TILE_FLOATS)
+        return d + d % 2                  # the table is float2-aligned
+
+    yrows = 8
+    while yrows > 1 and (
+            4 * yrows * row > max(4 * xdata, _COOP_Y_TARGET)
+            or 4 * (data(yrows) + table) > SMEM_LIMIT):
+        yrows //= 2
+    plan = (M, P, Ry.bit_length() - 1, my, split_factor(P)[0], yrows,
+            Rx.bit_length() - 1, mx, C, sub, bstride, seq, xtasks,
+            data(yrows))
+    return plan, 4 * (data(yrows) + table)
+
+
+def coop_takes(M: int, P: int, x_stage: bool) -> bool:
+    """True iff the one-launch kernels take an (M, P) field: P (and, with
+    the x-stage, M) R * m with m <= MAX_ODD, and every stage's shared memory
+    within one block's limit."""
+    if not _radix_ok(P) or (x_stage and not _radix_ok(M)):
+        return False
+    return coop_plan(M, P, x_stage)[1] <= SMEM_LIMIT
+
+
+def coop_launch_args(what: str, M: int, P: int, x_stage: bool,
+                     device: torch.device) -> tuple:
+    """(plan, smem, twiddle pointers y/y-join/x/x-join, task tensors own and
+    mirror or None, info) for a one-launch kernel on ``device``; raises on
+    a shape the kernels do not take."""
+    if not coop_takes(M, P, x_stage):
+        raise ValueError(f"{what}: ({M}, {P}) must each be R * m (R a power "
+                         f"of two, m odd <= {MAX_ODD}) within shared memory")
+    lib = _lib()
+    plan, smem = coop_plan(M, P, x_stage)
+    if len(plan) != lib.qg_coop_plan_size():
+        raise RuntimeError(f"{what}: plan does not match the compiled kernel")
+    _, _, twy, twny = _tables(P, device)
+    twx = twnx = None
+    tasks = (None, None)
+    if x_stage:
+        _, _, twx, twnx = _tables(M, device)
+        tasks = _device_tasks(P, plan[8], device)
+    return ((ctypes.c_int * len(plan))(*plan), smem, (twy, twny, twx, twnx),
+            tasks, (ctypes.c_int * 2)())
+
+
+def mono_invert(z: torch.Tensor, consts) -> torch.Tensor:
+    """K16 on CUDA tensors (one cooperative launch), the plain version on
+    CPU tensors: packed natural-order (2, M, P) field -> psi."""
+    if z.device.type == "cpu":
+        return mono_invert_plain(z, consts)
+    _, M, P = z.shape
+    _cuda_field("mono_invert", z, lambda m, p: coop_takes(m, p, True), M, P)
+    vals = check_consts("mono_invert", consts, M, P)
+    plan, smem, tw, (own, mirror), info = coop_launch_args(
+        "mono_invert", M, P, True, z.device)
+    out = torch.empty_like(z)
+    code = _lib().qg_mono_launch(
+        z.data_ptr(), out.data_ptr(), plan, vals, *tw, own.data_ptr(),
+        mirror.data_ptr(), smem, info,
+        torch.cuda.current_stream(z.device).cuda_stream)
+    _build.check(code, "mono_invert (K16)")
+    mono_invert.launches += 1
+    mono_invert.grid = tuple(info)
+    return out
+
+
+mono_invert.launches = 0
+mono_invert.grid = None

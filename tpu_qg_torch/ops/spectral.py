@@ -16,7 +16,11 @@ DFT kernels of ``ops/dft_kernels.py`` by the route ``tpu_qg``'s
 ``PackedModalInverterPallasFFT`` takes for the shape (``inversion_route``):
 three passes (K2, K3, K2^-1) up to M = 2432, else four (K2, K4, K5, K2^-1),
 with the symbol stage in torch ops between K4 and K4^-1 where the
-reference's fused symbol kernel does not fit (4224 <= M <= 4480).
+reference's fused symbol kernel does not fit (4224 <= M <= 4480); or, with
+``fft_mono="on"`` where the reference's one-launch inversion engages, one
+launch of K16. The reference's shape gates of its one-launch forms
+(``reference_mono``, ``reference_fullstep``, ``reference_yfused``) are
+copied here.
 
 Symbol tables are built on the host once per solver and moved to a field's
 device and dtype at first use there.
@@ -31,7 +35,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .dft_kernels import pair_x_symbols, x_dft, x_symbols_inverse, y_dft
+from .dft_kernels import (mono_invert, pair_x_symbols, x_dft,
+                          x_symbols_inverse, y_dft)
 from .matmul_fft import freq_order, negate_spectrum, split_factor
 
 
@@ -141,6 +146,28 @@ class BatchedModalSolver:
         return u
 
 
+def packed_coefficients(P_inv, P_back) -> tuple[complex, ...]:
+    """(a1, a2, b1, b2): A = a1 inv1 + a2 inv2 and B = b1 inv1 + b2 inv2
+    (see PackedModalInverter)."""
+    (q11, q12), (q21, q22) = P_inv
+    (p11, p12), (p21, p22) = P_back
+    u = p11 + 1j * p21
+    v = p12 + 1j * p22
+    return (complex(u * (q11 - 1j * q12) / 2.0),
+            complex(v * (q21 - 1j * q22) / 2.0),
+            complex(u * (q11 + 1j * q12) / 2.0),
+            complex(v * (q21 + 1j * q22) / 2.0))
+
+
+def symbol_consts(M: int, P: int, dx: float, alpha2: float, P_inv,
+                  P_back) -> tuple:
+    """The scalar constants from which K3, K5, K16 and K17 rebuild the packed
+    symbols, built in float64 on the host (tpu_qg/ops/spectral.py:283-287):
+    (n2x, n2y, 1/dx^2, alpha2, a1, a2, b1, b2)."""
+    return (split_factor(M)[1], split_factor(P)[1], 1.0 / (dx * dx),
+            float(alpha2), *packed_coefficients(P_inv, P_back))
+
+
 class PackedModalInverter:
     """Full two-layer inversion (zeta -> psi) in ONE complex fft2/ifft2 pair.
 
@@ -164,14 +191,8 @@ class PackedModalInverter:
         l = np.arange(P)
         self.lam_x = (2.0 * np.cos(2.0 * np.pi * k / M) - 2.0) / (dx * dx)
         self.lam_y = (2.0 * np.cos(2.0 * np.pi * l / P) - 2.0) / (dx * dx)
-        (q11, q12), (q21, q22) = P_inv
-        (p11, p12), (p21, p22) = P_back
-        u = p11 + 1j * p21
-        v = p12 + 1j * p22
-        self.a1 = complex(u * (q11 - 1j * q12) / 2.0)
-        self.a2 = complex(v * (q21 - 1j * q22) / 2.0)
-        self.b1 = complex(u * (q11 + 1j * q12) / 2.0)
-        self.b2 = complex(v * (q21 + 1j * q22) / 2.0)
+        self.a1, self.a2, self.b1, self.b2 = packed_coefficients(P_inv,
+                                                                 P_back)
         self._sym = _SymbolCache(self._symbols)
 
     def _symbols(self, real_dtype: torch.dtype, device: torch.device):
@@ -244,6 +265,99 @@ def inversion_route(M: int, P: int, pair_x: bool) -> str:
             else "four-pass-unfused")
 
 
+# The reference's shape gates of its one-launch forms, copied from its VMEM
+# models (tpu_qg/ops/pallas_fft.py:61-134, 595-617, 1038-1046;
+# pallas_fullstep.py:56-112; pallas_tendency.py:674-835). They size a TPU
+# core's VMEM, not the card's shared memory: the port runs a form exactly
+# where the reference does, and its kernels take every shape these admit.
+_MIB = 1024 * 1024
+_N1 = 128
+_VMEM_TARGET = int(0.70 * 64 * _MIB)
+_VMEM_TARGET_STREAM = int(0.70 * 96 * _MIB)
+_VMEM_TARGET_FULL = int(0.80 * 112 * _MIB)
+_VMEM_TARGET_YF = int(0.70 * 96 * _MIB)
+_H = 8          # the reference step kernels' row halo
+
+
+def _footprint(block_bytes: int, n2: int) -> int:
+    return 8 * block_bytes + 4 * n2 * _N1 * _N1 * 4
+
+
+def _x_blockspec_fits(M: int) -> bool:
+    return _footprint(8 * M * _N1, M // _N1) <= _VMEM_TARGET
+
+
+def _pick_rows(M: int, P: int) -> int:
+    r = 8
+    for cand in range(8, min(M, 256) + 1, 8):
+        if M % cand == 0 and _footprint(8 * cand * P, P // _N1) <= _VMEM_TARGET:
+            r = cand
+    return r
+
+
+def reference_mono(M: int, P: int) -> bool:
+    """The reference's mono_fits: shapes on which its one-launch inversion
+    fits (it engages where its fused symbol stage fits too)."""
+    if not (reference_dft_kernels(M, P) and _x_blockspec_fits(M)):
+        return False
+    field = 2 * M * P * 4
+    g_ops = 2 * ((M // _N1) + (P // _N1)) * 2 * _N1 * _N1 * 4
+    strip = 2 * M * _N1 * 4
+    ytile = 8 * _pick_rows(M, P) * P * 4
+    return field + g_ops + max(8 * strip, ytile) <= _VMEM_TARGET_STREAM
+
+
+def _footprint_full(M: int, P: int, T: int) -> int:
+    field = 2 * M * P * 4
+    in_bufs = 2 * 2 * (2 * (T + 2 * _H) + 2 * T) * P * 4
+    out_bufs = 2 * 2 * 2 * T * P * 4
+    g = 2 * 2 * ((M // _N1) + (P // _N1)) * _N1 * _N1 * 4
+    strip = 2 * M * _N1 * 4
+    ylive = 8 * max(_pick_rows(M, P), T) * P * 4
+    stencil_tmp = 16 * T * P * 4
+    return (field + in_bufs + out_bufs + g + max(8 * strip, ylive)
+            + stencil_tmp)
+
+
+def _pick_tile_full(M: int, P: int) -> int:
+    T = M // 2
+    while T > 8:
+        if _footprint_full(M, P, T) <= _VMEM_TARGET_FULL and M % T == 0:
+            return T
+        T //= 2
+    return T
+
+
+def reference_fullstep(M: int, P: int) -> bool:
+    """The reference's fullstep_fits: shapes of its one-launch step."""
+    if not reference_dft_kernels(M, P) or P % _N1 != 0 or M % 8 != 0:
+        return False
+    T = _pick_tile_full(M, P)
+    return (T >= 8 and M // T >= 2
+            and _footprint_full(M, P, T) <= _VMEM_TARGET_FULL)
+
+
+def _pick_tile_yfused(M: int, P: int) -> int:
+    budget = _VMEM_TARGET_YF - 4 * (P // _N1) * _N1 * _N1 * 4
+    T = M
+    while T > 8:
+        rows = (2 * (4 * (T + 2 * _H) + 4 * T + 6 * T)
+                + 16 * T + 8 * (T + 2 * _H) + 8 * T)
+        if P * 4 * rows <= budget and M % T == 0 and M // T >= 2:
+            return T
+        T //= 2
+    return T
+
+
+def reference_yfused(M: int, P: int) -> bool:
+    """The reference's yfused_supported for two float32 layers: shapes of
+    its y-fused step kernel."""
+    if P % _N1 != 0 or M % 8 != 0 or not 1 <= P // _N1 <= 64:
+        return False
+    T = _pick_tile_yfused(M, P)
+    return T >= 8 and M // T >= 2
+
+
 def fft2_forward(z: torch.Tensor) -> torch.Tensor:
     """Planar (2, M, P) natural order -> planar spectrum, permuted on both
     axes: K2 then K4 (PlanarFFT2.forward)."""
@@ -256,44 +370,48 @@ def fft2_inverse(Z: torch.Tensor) -> torch.Tensor:
     return y_dft(x_dft(Z, True), True)
 
 
-def fft2_inverse_with_symbols(Z: torch.Tensor, consts) -> torch.Tensor:
-    """Planar spectrum W -> ifft2(A W + B conj(W(-k))) in natural order: K5
-    then K2^-1 (PlanarFFT2.inverse_with_symbols)."""
-    return y_dft(x_symbols_inverse(Z, consts), True)
-
-
 class PackedModalInverterKernels(PackedModalInverter):
     """The packed inversion as kernel passes on a planar field, by the route
-    ``inversion_route(M, P, pair_x)`` chosen once here: the counterpart of
-    ``tpu_qg``'s ``PackedModalInverterPallasFFT`` (tpu_qg/ops/spectral.py:
-    240-315). The packed (zeta_1, zeta_2) stack IS the planar field, so no
-    complex dtype appears on the kernel routes. On CPU tensors the kernels'
-    plain versions run in the same structure.
+    chosen once here: the counterpart of ``tpu_qg``'s
+    ``PackedModalInverterPallasFFT`` (tpu_qg/ops/spectral.py:240-315). The
+    packed (zeta_1, zeta_2) stack IS the planar field, so no complex dtype
+    appears on the kernel routes. On CPU tensors the kernels' plain versions
+    run in the same structure.
+
+    ``route`` is "mono" (K16, one launch) where ``mono`` is asked for and
+    the reference's one-launch inversion engages (its fused symbol stage
+    and ``reference_mono``), else ``x_route = inversion_route(M, P,
+    pair_x)``. ``x_stage`` runs the x-stage of ``x_route`` alone: the
+    y-fused chain's step takes it, never the mono form.
 
     As in the reference's matmul-DFT parent, the symbols of the unfused
     route's torch symbol stage are evaluated at the permuted frequencies."""
 
     def __init__(self, M: int, P: int, dx: float, alpha2: float,
-                 P_inv, P_back, pair_x: bool = True):
+                 P_inv, P_back, pair_x: bool = True, mono: bool = False):
         super().__init__(M, P, dx, alpha2, P_inv, P_back)
-        self.route = inversion_route(M, P, pair_x)
+        self.x_route = inversion_route(M, P, pair_x)
+        self.route = ("mono" if mono and reference_symbol_inverse(M, P)
+                      and reference_mono(M, P) else self.x_route)
         self.lam_x = self.lam_x[freq_order(M)]
         self.lam_y = self.lam_y[freq_order(P)]
-        # Scalar constants from which K3 and K5 rebuild the symbols, built in
-        # float64 on the host (tpu_qg/ops/spectral.py:283-287).
-        self._sym_consts = (
-            split_factor(M)[1], split_factor(P)[1],
-            1.0 / (dx * dx), float(alpha2),
-            self.a1, self.a2, self.b1, self.b2)
+        self._sym_consts = symbol_consts(M, P, dx, alpha2, P_inv, P_back)
 
     def __call__(self, zeta: torch.Tensor) -> torch.Tensor:
-        if self.route == "pair-x":
-            Zy = y_dft(zeta, False)
-            return y_dft(pair_x_symbols(Zy, self._sym_consts), True)
-        W = fft2_forward(zeta)
-        if self.route == "four-pass":
-            return fft2_inverse_with_symbols(W, self._sym_consts)
-        return fft2_inverse(self._symbol_stage(W))
+        if self.route == "mono":
+            return mono_invert(zeta, self._sym_consts)
+        if self.route == "four-pass-unfused":
+            return fft2_inverse(self._symbol_stage(fft2_forward(zeta)))
+        return y_dft(self.x_stage(y_dft(zeta, False)), True)
+
+    def x_stage(self, Zy: torch.Tensor) -> torch.Tensor:
+        """A y-spectrum's inversion up to its final inverse-y: K3 on the
+        pair-x route, K4 then K5 on the four-pass one."""
+        if self.x_route == "pair-x":
+            return pair_x_symbols(Zy, self._sym_consts)
+        if self.x_route == "four-pass":
+            return x_symbols_inverse(x_dft(Zy, False), self._sym_consts)
+        raise ValueError("the unfused four-pass route has no fused x-stage")
 
     def _symbol_stage(self, W: torch.Tensor) -> torch.Tensor:
         """V = A W + B conj(W(-k)) expanded on the planes of a spectrum in

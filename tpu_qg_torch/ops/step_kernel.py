@@ -1,5 +1,6 @@
 """K1, the fused two-layer step (tendency + Euler/AB3 or leapfrog-RA update),
-and K8, the same step for one or two layers with the modal projection.
+K8, the same step for one or two layers with the modal projection, K15, the
+step of the y-fused chain, and K17, the whole step in one launch.
 
 K1 replaces ``tpu_qg/ops/pallas_tendency.py`` ``fused_step_streamed`` (v4)
 and its single-tile form ``fused_step_pre_fft`` (v3); K8 replaces its
@@ -7,10 +8,17 @@ and its single-tile form ``fused_step_pre_fft`` (v3); K8 replaces its
 configurations. Both are one hand-written CUDA kernel each on a shared tile
 body, ``csrc/step_kernel.cu`` (design and bound in its header: they are
 bandwidth-bound, 6 x 33.5 MB per step at 2048^2, and keep every stencil
-neighbour in shared memory).
+neighbour in shared memory). K15 replaces ``fused_step_streamed_yspec``
+(v5): K1 with psi in, and zeta_new also out, as permuted y-spectra — one
+cooperative launch of ``csrc/fused_kernels.cu`` (inverse-y, the step, and
+forward-y as stages; design there). K17 replaces
+``tpu_qg/ops/pallas_fullstep.py`` ``fused_step_full``: the step, then the
+whole packed inversion of zeta_new (K16's stages), in one cooperative launch
+of the same source.
 
-``fused_step``/``fused_pre_inversion`` launch their kernels for CUDA
-tensors and use ``fused_step_plain``/``fused_pre_inversion_plain`` — the same
+``fused_step``/``fused_pre_inversion``/``fused_step_yspec``/
+``fused_step_full`` launch their
+kernels for CUDA tensors and use their ``*_plain`` versions — the same
 arithmetic in plain torch — only for CPU tensors. The carry follows
 ``tpu_qg.models.core.make_step_fn``: the tendency under ``euler_ab3``, the
 Robert-Asselin-filtered current level under ``leapfrog_ra``.
@@ -25,6 +33,9 @@ import torch
 
 from ..config import ModelConfig
 from . import _build
+from .dft_kernels import (check_consts, coop_launch_args,
+                          mono_invert_plain, y_dft_plain)
+from .spectral import symbol_consts
 
 
 def update_plain(cfg: ModelConfig, step: int, tend: torch.Tensor,
@@ -74,6 +85,17 @@ def fused_pre_inversion_plain(cfg: ModelConfig, zeta: torch.Tensor,
     return zeta_new, carry, modes
 
 
+def fused_step_yspec_plain(cfg: ModelConfig, zeta: torch.Tensor,
+                           psi_ys: torch.Tensor, f1: torch.Tensor,
+                           f2: torch.Tensor, step: int):
+    """Plain-torch K15: psi from its permuted y-spectrum (the plain K2^-1),
+    K1's step, and the permuted y-spectrum of the packed zeta_new (the plain
+    K2). Returns (zeta_new, carry, zeta_ys)."""
+    psi = y_dft_plain(psi_ys, True)
+    zeta_new, carry = fused_step_plain(cfg, zeta, psi, f1, f2, step)
+    return zeta_new, carry, y_dft_plain(zeta_new, False)
+
+
 def _consts(cfg: ModelConfig) -> ctypes.Array:
     """The kernels' float constants in StepConsts order, each rounded once
     from its float64 value; the per-layer betas are (beta_1, beta_2), or
@@ -111,6 +133,10 @@ def _lib():
                        [p, p, p, p, p, p, p, i, i, p, i, i, p])
         _build.declare(lib.qg_pre_inversion_launch,
                        [p, p, p, p, p, p, p, p, i, i, i, p, p, i, i, p])
+        _build.declare(lib.qg_yspec_launch,
+                       [p] * 9 + [i, i, p, p, p, i, p, p])
+        _build.declare(lib.qg_fullstep_launch,
+                       [p] * 9 + [i, i] + [p] * 8 + [i, p, p])
         lib.qg_step_num_consts.restype = ctypes.c_int
         lib.qg_modal_num_consts.restype = ctypes.c_int
     return lib
@@ -131,6 +157,20 @@ def _check_operands(what: str, zeta: torch.Tensor, operands, shape) -> None:
                              f"zeta on {zeta.device}")
 
 
+def _check_two_layer_step(what: str, cfg: ModelConfig, zeta: torch.Tensor,
+                         psi: torch.Tensor, f1: torch.Tensor,
+                         f2: torch.Tensor) -> None:
+    """The operands of a two-layer step kernel (K1, K15, K17): CUDA,
+    float32, contiguous (2, M, P) fields."""
+    if zeta.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {zeta.device}")
+    if cfg.n_layers != 2 or zeta.dim() != 3 or zeta.shape[0] != 2:
+        raise ValueError(f"{what}: the kernel takes two-layer (2, M, P) "
+                         f"fields, got {tuple(zeta.shape)}")
+    _check_operands(what, zeta, (("zeta", zeta), ("psi", psi), ("f1", f1),
+                                 ("f2", f2)), (2, cfg.M, cfg.P))
+
+
 def _checked_consts(cfg: ModelConfig, lib, what: str) -> ctypes.Array:
     consts = _consts(cfg)
     if len(consts) != lib.qg_step_num_consts():
@@ -145,14 +185,7 @@ def fused_step(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
     tensors; the plain version on CPU tensors. Returns (zeta_new, carry)."""
     if zeta.device.type == "cpu":
         return fused_step_plain(cfg, zeta, psi, f1, f2, step)
-    if zeta.device.type != "cuda":
-        raise ValueError(f"fused_step: unsupported device {zeta.device}")
-    if cfg.n_layers != 2 or zeta.dim() != 3 or zeta.shape[0] != 2:
-        raise ValueError("fused_step: the kernel takes two-layer (2, M, P) "
-                         f"fields, got {tuple(zeta.shape)}")
-    _check_operands("fused_step", zeta, (("zeta", zeta), ("psi", psi),
-                                         ("f1", f1), ("f2", f2)),
-                    (2, cfg.M, cfg.P))
+    _check_two_layer_step("fused_step", cfg, zeta, psi, f1, f2)
     lib = _lib()
     consts = _checked_consts(cfg, lib, "fused_step")
     wind = _wind_row(cfg, zeta.device)
@@ -211,3 +244,92 @@ def fused_pre_inversion(cfg: ModelConfig, zeta: torch.Tensor,
 
 
 fused_pre_inversion.launches = 0
+
+
+def fused_step_yspec(cfg: ModelConfig, zeta: torch.Tensor,
+                     psi_ys: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
+                     step: int):
+    """K15 on CUDA tensors (one cooperative launch), the plain version on
+    CPU tensors. ``psi_ys`` is the permuted y-spectrum of the packed
+    psi_1 + i psi_2 (what K3 or K5 writes). Returns (zeta_new, carry,
+    zeta_ys), zeta_ys the permuted y-spectrum of the packed zeta_new (what
+    K2 forward writes)."""
+    if zeta.device.type == "cpu":
+        return fused_step_yspec_plain(cfg, zeta, psi_ys, f1, f2, step)
+    _check_two_layer_step("fused_step_yspec", cfg, zeta, psi_ys, f1, f2)
+    lib = _lib()
+    consts = _checked_consts(cfg, lib, "fused_step_yspec")
+    plan, smem, (twy, twny, _, _), _, info = coop_launch_args(
+        "fused_step_yspec", cfg.M, cfg.P, False, zeta.device)
+    wind = _wind_row(cfg, zeta.device)
+    zeta_new, carry, zeta_ys = (torch.empty_like(zeta) for _ in range(3))
+    code = lib.qg_yspec_launch(
+        zeta.data_ptr(), psi_ys.data_ptr(), f1.data_ptr(), f2.data_ptr(),
+        None if wind is None else wind.data_ptr(), zeta_new.data_ptr(),
+        carry.data_ptr(), zeta_ys.data_ptr(), consts,
+        int(cfg.time_scheme == "leapfrog_ra"), int(step), plan, twy, twny,
+        smem, info, torch.cuda.current_stream(zeta.device).cuda_stream)
+    _build.check(code, "fused_step_yspec (K15)")
+    fused_step_yspec.launches += 1
+    fused_step_yspec.grid = tuple(info)
+    return zeta_new, carry, zeta_ys
+
+
+fused_step_yspec.launches = 0
+fused_step_yspec.grid = None
+
+
+# ---------------------------------------------------------------------------
+# K17: the whole step in one launch.
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=8)
+def packed_symbol_consts(cfg: ModelConfig) -> tuple:
+    """The packed inversion's symbol constants for cfg's grid (as
+    PackedModalInverterKernels builds them)."""
+    return symbol_consts(cfg.M, cfg.P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
+                         cfg.back_projection_matrix())
+
+
+def fused_step_full_plain(cfg: ModelConfig, zeta: torch.Tensor,
+                          psi: torch.Tensor, f1: torch.Tensor,
+                          f2: torch.Tensor, step: int):
+    """Plain-torch K17: K1's plain version, then K16's on zeta_new.
+    Returns (zeta_new, carry, psi_new)."""
+    zeta_new, carry = fused_step_plain(cfg, zeta, psi, f1, f2, step)
+    return zeta_new, carry, mono_invert_plain(zeta_new,
+                                              packed_symbol_consts(cfg))
+
+
+def fused_step_full(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
+                    f1: torch.Tensor, f2: torch.Tensor, step: int):
+    """K17 on CUDA tensors (one cooperative launch: K1's tendency and update
+    on every tile, then K16's three stages on the packed zeta_new), the plain
+    version on CPU tensors. Replaces ``tpu_qg/ops/pallas_fullstep.py``
+    ``fused_step_full``. Returns (zeta_new, carry, psi_new)."""
+    if zeta.device.type == "cpu":
+        return fused_step_full_plain(cfg, zeta, psi, f1, f2, step)
+    _check_two_layer_step("fused_step_full", cfg, zeta, psi, f1, f2)
+    lib = _lib()
+    consts = _checked_consts(cfg, lib, "fused_step_full")
+    sym = check_consts("fused_step_full", packed_symbol_consts(cfg), cfg.M,
+                        cfg.P)
+    plan, smem, tw, (own, mirror), info = coop_launch_args(
+        "fused_step_full", cfg.M, cfg.P, True, zeta.device)
+    wind = _wind_row(cfg, zeta.device)
+    zeta_new, carry, psi_new = (torch.empty_like(zeta) for _ in range(3))
+    code = lib.qg_fullstep_launch(
+        zeta.data_ptr(), psi.data_ptr(), f1.data_ptr(), f2.data_ptr(),
+        None if wind is None else wind.data_ptr(), zeta_new.data_ptr(),
+        carry.data_ptr(), psi_new.data_ptr(), consts,
+        int(cfg.time_scheme == "leapfrog_ra"), int(step), plan, sym, *tw,
+        own.data_ptr(), mirror.data_ptr(), smem, info,
+        torch.cuda.current_stream(zeta.device).cuda_stream)
+    _build.check(code, "fused_step_full (K17)")
+    fused_step_full.launches += 1
+    fused_step_full.grid = tuple(info)
+    return zeta_new, carry, psi_new
+
+
+fused_step_full.launches = 0
+fused_step_full.grid = None
