@@ -13,7 +13,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    launch) and K15 (the y-fused chain's step) at (2, 2048, 2048); K8 (step +
    modes) at (2, 2048, 2048) with the pin gauge and (1, 2048, 2048) single
    layer; K2, K4 (x-DFT, both ways) and K5 (symbols + inverse x-DFT) at
-   (2, 4096, 4096) and (2, 8192, 8192); K1 and K15 at (2, 8192, 8192). On
+   (2, 4096, 4096) and (2, 8192, 8192); K1 and K15 at (2, 8192, 8192), K17
+   at (2, 6272, 128) (the x-stage's sequential groups). On
    the real zeta of a grid-noise psi the inversions (K3; K16; K5; the
    four-pass K2 -> K4 -> K5 -> K2^-1) are held against float64.
 4. slices  — through the normal entry point run_model, each with the
@@ -270,6 +271,26 @@ def check_step_kernel(errs, cfg, dev, rng, tag="") -> None:
         errs.record("K1", tag + case + " carry", got[1], want[1])
 
 
+def check_fullstep_kernel(errs, cfg, operands, consts, tag="") -> None:
+    """K17 against its plain version on the step cases: zeta_new and carry
+    1e-6; psi_new 1e-4 against the inversion of the kernel's own zeta_new
+    (K16's gate: the step stage is gated on zeta_new), or, where 1/lambda
+    lifts float32 rounding past that, held against float64."""
+    for case, over, step in STEP_CASES:
+        c = cfg.replace(**over)
+        got = fused_step_full(c, *operands, step)
+        want = fused_step_full_plain(c, *operands, step)
+        errs.record("K17", tag + case + " zeta_new", got[0], want[0])
+        errs.record("K17", tag + case + " carry", got[1], want[1])
+        inverse = mono_invert_plain(got[0], consts)
+        if rel_err(got[2], inverse)[1] <= TOL["K17 psi_new"]:
+            errs.record("K17", tag + case + " psi_new", got[2], inverse,
+                        TOL["K17 psi_new"])
+        else:
+            vs_float64("K17", tag + case + " psi_new", lambda z, p=got[2]: p,
+                       lambda z: mono_invert_plain(z, consts), got[0])
+
+
 def check_yspec_kernel(errs, cfg, operands, step_cases, tag="") -> None:
     """K15 against its plain version: zeta_new and carry 1e-6, zeta_ys
     1e-5."""
@@ -311,22 +332,7 @@ def phase_kernels(errs, cfg, dev) -> None:
 
     # K17 and K15 on the step cases of K1.
     operands = step_inputs(cfg, dev, rng)
-    for case, over, step in STEP_CASES:
-        c = cfg.replace(**over)
-        got = fused_step_full(c, *operands, step)
-        want = fused_step_full_plain(c, *operands, step)
-        errs.record("K17", case + " zeta_new", got[0], want[0])
-        errs.record("K17", case + " carry", got[1], want[1])
-        # psi_new against the inversion of the kernel's own zeta_new (K16's
-        # gate): the plain step's zeta_new differs by float32 rounding whose
-        # mean 1/alpha2 amplifies in the (0, 0) baroclinic mode of psi.
-        inverse = mono_invert_plain(got[0], consts)
-        if rel_err(got[2], inverse)[1] <= TOL["K17 psi_new"]:
-            errs.record("K17", case + " psi_new", got[2], inverse,
-                        TOL["K17 psi_new"])
-        else:
-            vs_float64("K17", case + " psi_new", lambda z, p=got[2]: p,
-                       lambda z: mono_invert_plain(z, consts), got[0])
+    check_fullstep_kernel(errs, cfg, operands, consts)
     check_yspec_kernel(errs, cfg, operands, STEP_CASES)
     del operands
 
@@ -351,7 +357,7 @@ def phase_kernels(errs, cfg, dev) -> None:
 def phase_x_kernels(errs, pod, dev, sizes=(4096, 8192)) -> None:
     """K2, K4 and K5 at each n^2 of ``sizes`` on random input; K5 and the
     whole four-pass inversion on pod-8192's zeta against float64; K1 and
-    K15 at pod's grid."""
+    K15 at pod's grid; K17 at 6272 x 128."""
     rng = np.random.default_rng(SEED + 2)
     for n in sizes:
         cfg = pod.replace(M=n, P=n)
@@ -389,6 +395,16 @@ def phase_x_kernels(errs, pod, dev, sizes=(4096, 8192)) -> None:
     free_memory()
     check_yspec_kernel(errs, pod, step_inputs(pod, dev, rng),
                        STEP_CASES[1:2], tag=tag)
+    free_memory()
+    # K17 where the pair task takes the own and the mirror group in turn
+    # (mixed M = 128 * 49 at small P, which the reference's gate admits),
+    # on white fields as in tests/test_torch_cuda.py.
+    cfg = preset("turbulence-2048").replace(M=6272, P=128)
+    operands = [torch.as_tensor(s * rng.standard_normal((2, cfg.M, cfg.P)),
+                                dtype=torch.float32, device=dev)
+                for s in (1e-5, 1e3, 1e-9, 1e-9)]
+    check_fullstep_kernel(errs, cfg, operands, inverter(cfg)._sym_consts,
+                          tag="6272x128 white ")
     free_memory()
 
 

@@ -195,11 +195,15 @@ def test_fullstep_kernel(dev, M, P, scheme, tau0, step):
     assert fused_step_full.launches == n + 1
     for g, w in zip(got[:2], want[:2]):
         assert _rel(g, w) <= 1e-6
-    # psi_new is the inversion of the kernel's own zeta_new (K16's gate):
-    # the plain step's zeta_new differs by float32 rounding whose mean the
-    # 1/alpha2 of the (0, 0) baroclinic mode amplifies past 1e-4 of psi at
-    # fine grids (6272 x 128).
-    assert _rel(got[2], mono_invert_plain(got[0], _consts(M, P))) <= 1e-4
+    # psi_new against the inversion of the kernel's own zeta_new, K16's
+    # gate; where 1/lambda lifts float32 rounding of this white input past
+    # 1e-4 (6272 x 128), both are held against float64 and the kernel may
+    # err no more than twice the plain version.
+    consts = _consts(M, P)
+    plain_psi = mono_invert_plain(got[0], consts)
+    if _rel(got[2], plain_psi) > 1e-4:
+        ref = mono_invert_plain(got[0].double(), consts)
+        assert _rel(got[2].double(), ref) <= 2 * _rel(plain_psi.double(), ref)
 
 
 @pytest.mark.parametrize("M,P", [(256, 384), (2560, 256), (256, 8192),

@@ -124,8 +124,8 @@ def test_fused_step_yspec_plain_matches_pallas(M, P, scheme):
         want = fused_step_streamed_yspec(
             jcfg, jnp.asarray(zeta), jnp.asarray(psi_ys), jnp.asarray(f1),
             jnp.asarray(f2), step, "highest", True)
-        got = fused_step_yspec_plain(cfg, *(torch.from_numpy(a) for a in
-                                            (zeta, psi_ys, f1, f2)), step)
+        got = fused_step_yspec_plain(cfg, *(torch.from_numpy(a.copy()) for a
+                                            in (zeta, psi_ys, f1, f2)), step)
         for name, g, w, tol in zip(("zeta_new", "carry", "zeta_ys"), got,
                                    want, (2e-6, 2e-6, 1e-5)):
             _close(g, w, tol, f"{name} step {step}")

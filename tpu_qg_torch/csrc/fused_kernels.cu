@@ -233,7 +233,6 @@ int coop_launch(void (*kernel)(Params...), int smem, int* info, void* stream,
 }  // namespace
 
 extern "C" int qg_coop_plan_size() { return kNumPlan; }
-extern "C" int qg_coop_threads() { return kCoopThreads; }
 
 // K16. plan: kNumPlan ints (CoopPlan); consts: kNumSymConsts floats.
 extern "C" int qg_mono_launch(const float* z, float* out, const int* plan,

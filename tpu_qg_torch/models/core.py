@@ -177,18 +177,6 @@ def _back_project(cfg: ModelConfig, pt0: torch.Tensor,
 # Step-kernel size floor, the reference's (tpu_qg/models/core.py:397-408).
 _KERNEL_FLOOR = 256 * 256
 
-# What "auto" resolves to for fft_mono, step_full and step_chain: off, as no
-# H100 measurement admits the one-launch forms yet (tpu_qg's own gates rest
-# on TPU evidence).
-_MONO_IN_AUTO = False
-_FULLSTEP_IN_AUTO = False
-_YFUSED_IN_AUTO = False
-
-
-def _resolve(knob: str, in_auto: bool) -> bool:
-    """An "on"/"off"/"auto" config knob as a bool."""
-    return in_auto if knob == "auto" else knob == "on"
-
 
 def fullstep_supported(cfg: ModelConfig) -> bool:
     """The reference's fullstep_supported: two float32 layers in the
@@ -244,7 +232,7 @@ def _build_packed_inverter(cfg: ModelConfig) -> PackedModalInverter:
         return PackedModalInverter(*args)
     inv = PackedModalInverterKernels(
         *args, pair_x=cfg.fft_pairx != "off",
-        mono=_resolve(cfg.fft_mono, _MONO_IN_AUTO))
+        mono=cfg.fft_mono == "on")
     # A pinned kernel form that cannot engage fails, as in the reference
     # (tpu_qg/models/core.py:362-372).
     if cfg.fft_mono == "on" and inv.route != "mono":
@@ -252,8 +240,8 @@ def _build_packed_inverter(cfg: ModelConfig) -> PackedModalInverter:
             f"fft_mono='on' requested but the monolithic kernel cannot "
             f"engage at ({cfg.M}, {cfg.P}) (mono_fits/fuse rejected); "
             "use fft_mono='auto' to allow fallback")
-    if cfg.fft_pairx == "on" and "pair-x" not in (inv.route, inv.x_route) \
-            and inv.route != "mono":
+    if cfg.fft_pairx == "on" and inv.x_route != "pair-x" and (
+            inv.route != "mono"):
         raise ValueError(
             f"fft_pairx='on' requested but the mirror-pair kernel cannot "
             f"engage at ({cfg.M}, {cfg.P}) (pair_x_fits/fuse rejected); "
@@ -308,24 +296,23 @@ def make_step_fn(cfg: ModelConfig, batched_fft: bool = True):
 
         step.route = "default"
         return step
-    if step_kernel and isinstance(solvers, PackedModalInverterKernels):
+    if (step_kernel and isinstance(solvers, PackedModalInverterKernels)
+            and cfg.step_full == "on"):
         # The one-launch step (tpu_qg/models/core.py:550-573).
-        full_ok = fullstep_supported(cfg)
-        if cfg.step_full == "on" and not full_ok:
+        if not fullstep_supported(cfg):
             raise ValueError(
                 f"step_full='on' requested but the one-launch kernel "
                 f"cannot engage at ({cfg.M}, {cfg.P}) "
                 "(fullstep_supported rejected); use step_full='auto' "
                 "to allow fallback")
-        if _resolve(cfg.step_full, _FULLSTEP_IN_AUTO) and full_ok:
-            def step(state: State) -> State:
-                zeta_new, carry, psi_new = fused_step_full(
-                    cfg, state.zeta, state.psi, state.f1, state.f2,
-                    state.step)
-                return _next_state(cfg, state, zeta_new, psi_new, carry)
 
-            step.route = "fullstep"
-            return step
+        def step(state: State) -> State:
+            zeta_new, carry, psi_new = fused_step_full(
+                cfg, state.zeta, state.psi, state.f1, state.f2, state.step)
+            return _next_state(cfg, state, zeta_new, psi_new, carry)
+
+        step.route = "fullstep"
+        return step
     advance = fused_step if step_kernel else fused_step_plain
 
     def step(state: State) -> State:
@@ -354,7 +341,7 @@ def make_chain_fns(cfg: ModelConfig):
     (4224 <= M <= 4480); the default step then runs, as in the reference."""
     if cfg.n_layers != 2 or cfg.poisson_gauge != "zero_mean":
         return None
-    if _resolve(cfg.step_full, _FULLSTEP_IN_AUTO) and fullstep_supported(cfg):
+    if cfg.step_full == "on" and fullstep_supported(cfg):
         return None
     if not yfused_supported(cfg):
         return None
@@ -443,7 +430,7 @@ class QGModel:
         # Multi-step runs take the chain where it resolves on and engages; a
         # single step stays on the step function, as in the reference.
         self._chain = (make_chain_fns(cfg)
-                       if _resolve(cfg.step_chain, _YFUSED_IN_AUTO) else None)
+                       if cfg.step_chain == "on" else None)
         self.route = "chain" if self._chain is not None else self.step.route
 
     def init_state(self, psi_init=None, seed: Optional[int] = None) -> State:

@@ -229,7 +229,6 @@ def _lib():
                        [p, p, p, p, p, p, p, p, p, p, i, p, p])
         lib.qg_pair_x_num_consts.restype = ctypes.c_int
         lib.qg_coop_plan_size.restype = ctypes.c_int
-        lib.qg_coop_threads.restype = ctypes.c_int
     return lib
 
 
@@ -464,7 +463,6 @@ x_symbols_inverse.launches = 0
 # mirror-pair task and K1's tile.
 # ---------------------------------------------------------------------------
 
-COOP_THREADS = 512
 # Floats of step_tile's buffers (csrc kStepTileFloats) in K15 and K17: psi
 # with a halo of 2, zeta and lap(psi) with a halo of 1 on a 32 x 64 tile,
 # and a tile of layer-0 zeta_new.

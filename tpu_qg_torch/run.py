@@ -13,6 +13,9 @@ ported yet.
     python -m tpu_qg_torch.run --preset turbulence-2048 --steps 200 --no-save
     python -m tpu_qg_torch.run --preset pod-8192 --steps 50 --no-save
 
+The opt-in one-launch forms run where pinned: add ``--set fft_mono=on``,
+``--set step_full=on`` or ``--set step_chain=on``.
+
 On one device ``elliptic_impl`` does not change the route (``pod-8192-mg``
 runs the spectral inversion, as in ``tpu_qg``): it selects the sharded
 stepper's elliptic solver only.
