@@ -49,10 +49,10 @@ def _close(got, want, rel, what=""):
 def _close_inversion(got, want, f64, what=""):
     """A float32 inversion held against tpu_qg's kernel and against float64.
     The plain version (torch.fft) and tpu_qg's matmul DFT in interpret mode
-    are two float32 algorithms whose rounding 1/lambda amplifies at low k:
-    they differ by up to 7.1e-6 of max|psi| at these shapes, nearly all of
-    it the interpret-mode kernel's own float64 error. So the plain version
-    must agree with tpu_qg to 1e-5 and with float64 to 1e-6."""
+    are two float32 algorithms whose rounding 1/lambda amplifies at low k,
+    and the interpret-mode kernel is the less accurate of the two against
+    float64. So the plain version must agree with tpu_qg to 1e-5 and with
+    float64 to 1e-6."""
     _close(got, want, 1e-5, what + " vs tpu_qg")
     _close(got, f64, 1e-6, what + " vs float64")
 
