@@ -16,7 +16,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    (2, 4096, 4096) and (2, 8192, 8192); K1 and K15 at (2, 8192, 8192), K17
    at (2, 6272, 128) (the x-stage's sequential groups). On
    the real zeta of a grid-noise psi the inversions (K3; K16; K5; the
-   four-pass K2 -> K4 -> K5 -> K2^-1) are held against float64.
+   four-pass K2 -> K4 -> K5 -> K2^-1) are held against float64. K10 (the
+   multigrid smoother: restrict, residual and smooth-only forms) and K11
+   (prolongation + smoother) at (2, n, n), n = 2048 and 8192, with alpha =
+   (0, S_eig) and nu = 2; K9 (the tendency) at (2, 2048, 2048),
+   (1, 2048, 2048) with the wind and (2, 8192, 8192).
 4. slices  — through the normal entry point run_model, each with the
    kernels' launch counts set to 0 just before and read just after, the
    route QGModel resolves, a finite state with CFL < 1, and the same steps
@@ -25,16 +29,26 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    with fft_mono="on" (100: K1, K16), step_full="on" (100: K17) and
    step_chain="on" (100: K15, K3, K2 at the ends of each run call);
    pod-8192 (50 steps: K1, K2, K4, K5) and with step_chain="on" (20: K15,
-   K4, K5, K2).
+   K4, K5, K2). Then, with the counts set to 0 again each time, two
+   multigrid paths: 20 warm-started MultigridModalInverter calls on the zeta
+   one default step after the pod-8192 slice (pod-8192-mg: 2 cycles a call,
+   K10 = K11 = 120) and after the turbulence-2048 slice (4 cycles, 240),
+   each against the plain MG route and a float64 spectral solve; and the
+   tendency path (20 K9 calls on the turbulence-2048 state).
 5. timing  — CUDA-event ms per step of each route by QGModel.run, in turns
    (the routes, then again in reverse), per kernel beside its plain version
    and, for K2 and K4, beside one torch.fft call on the same complex64
    field, at 2048^2 (every route; K8 too) and 8192^2 (default and plain);
    host enqueue ms per step; the device's busy share over CUDA-only traces
-   of the default route (both grids) and the fullstep route (2048^2).
+   of the default route (both grids) and the fullstep route (2048^2). For
+   each multigrid path: ms per MG call on the kernel and plain routes
+   beside the spectral inversion of the same zeta, K10/K11 per launch at
+   each kernel level and K9 beside their plain versions, host enqueue ms per
+   call, and (8192^2) the busy share over one traced MG call.
 
 The line before the last is {"kernels": [...]}, every kernel with its
-launches in phase 4, its largest error, its ms, its plain version's ms,
+launches in phase 4, its largest error, its ms, its plain version's ms
+(K10/K11: at the 8192 level, with every level of both solvers beside),
 its bound (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
 the larger) and its library call's ms; the last is {"ok": true, "device":
 {...}}. Imports nothing of JAX or tpu_qg.
@@ -60,13 +74,20 @@ from tpu_qg_torch.ops.dft_kernels import (mono_invert, mono_invert_plain,
                                           x_dft, x_dft_plain, x_symbols_inverse,
                                           x_symbols_inverse_plain, y_dft,
                                           y_dft_plain)
-from tpu_qg_torch.ops.spectral import PackedModalInverterKernels
+from tpu_qg_torch.ops.mg_kernels import (mg_prolong_smooth,
+                                         mg_prolong_smooth_plain, mg_smooth,
+                                         mg_smooth_plain)
+from tpu_qg_torch.ops.multigrid import MultigridModalInverter
+from tpu_qg_torch.ops.spectral import (PackedModalInverter,
+                                       PackedModalInverterKernels)
 from tpu_qg_torch.ops.step_kernel import (fused_pre_inversion,
                                           fused_pre_inversion_plain,
                                           fused_step, fused_step_full,
                                           fused_step_full_plain,
                                           fused_step_plain, fused_step_yspec,
-                                          fused_step_yspec_plain)
+                                          fused_step_yspec_plain,
+                                          fused_tendency,
+                                          fused_tendency_plain)
 from tpu_qg_torch.run import run_model
 from tpu_qg_torch.utils.diagnostics import diagnostics
 
@@ -74,10 +95,15 @@ SEED = 1234
 # Relative to max|plain|: the 1/lambda symbol amplifies low-k float32
 # rounding in K3/K5/K16 and K17's psi; K15's zeta_ys is a y-DFT (K2's
 # gate); the slices' zeta after many steps on two routes.
+# K9 is K1's tile; K10/K11 carry tests/test_multigrid.py's kernel gate; an
+# MG path's psi the dryrun multigrid gate (commit 26d1ffc) against the
+# plain MG route.
 TOL = {"K1": 1e-6, "K2": 1e-5, "K3": 1e-4, "K4": 1e-5, "K5": 1e-4,
-       "K8": 1e-6, "K15": 1e-6, "K15 zeta_ys": 1e-5, "K16": 1e-4,
-       "K17": 1e-6, "K17 psi_new": 1e-4, "slice_zeta": 1e-4}
+       "K8": 1e-6, "K9": 1e-6, "K10": 1e-6, "K11": 1e-6, "K15": 1e-6,
+       "K15 zeta_ys": 1e-5, "K16": 1e-4, "K17": 1e-6, "K17 psi_new": 1e-4,
+       "slice_zeta": 1e-4, "mg_psi": 1e-5}
 FUSED = "tpu_qg_torch/csrc/fused_kernels.cu"
+MG = "tpu_qg_torch/csrc/mg_kernels.cu"
 KERNELS = {
     "K1": ("fused_step", "tpu_qg_torch/csrc/step_kernel.cu",
            "tpu_qg/ops/pallas_tendency.py:555"),
@@ -91,18 +117,25 @@ KERNELS = {
            "tpu_qg/ops/pallas_fft.py:1176"),
     "K8": ("fused_pre_inversion", "tpu_qg_torch/csrc/step_kernel.cu",
            "tpu_qg/ops/pallas_tendency.py:1059"),
+    "K9": ("fused_tendency", "tpu_qg_torch/csrc/step_kernel.cu",
+           "tpu_qg/ops/pallas_tendency.py:181"),
+    "K10": ("mg_smooth", MG, "tpu_qg/ops/pallas_mg.py:340"),
+    "K11": ("mg_prolong_smooth", MG, "tpu_qg/ops/pallas_mg.py:298"),
     "K15": ("fused_step_yspec", FUSED, "tpu_qg/ops/pallas_tendency.py:839"),
     "K16": ("mono_invert", FUSED, "tpu_qg/ops/pallas_fft.py:1342"),
     "K17": ("fused_step_full", FUSED, "tpu_qg/ops/pallas_fullstep.py:308"),
 }
 COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
             "K4": x_dft, "K5": x_symbols_inverse, "K8": fused_pre_inversion,
-            "K15": fused_step_yspec, "K16": mono_invert,
-            "K17": fused_step_full}
-# Kernel names in a profiler trace, the one-launch kernels and K8 before K1:
-# a mangled K8 name holds the source file's name, step_kernel.
+            "K9": fused_tendency, "K10": mg_smooth,
+            "K11": mg_prolong_smooth, "K15": fused_step_yspec,
+            "K16": mono_invert, "K17": fused_step_full}
+# Kernel names in a profiler trace, the one-launch kernels, K8 and K9 before
+# K1: a mangled K8 or K9 name holds the source file's name, step_kernel.
 TRACE_NAMES = (("K17", "coop_fullstep_kernel"), ("K16", "coop_mono_kernel"),
-               ("K15", "coop_yspec_kernel"), ("K8", "pre_inversion_kernel"),
+               ("K15", "coop_yspec_kernel"), ("K11", "mg_prolong_kernel"),
+               ("K10", "mg_smooth_kernel"), ("K9", "tendency_kernel"),
+               ("K8", "pre_inversion_kernel"),
                ("K5", "x_symbols_inverse_kernel"), ("K4", "x_dft_kernel"),
                ("K3", "pair_x_kernel"), ("K2", "y_dft_kernel"),
                ("K1", "step_kernel"))
@@ -115,10 +148,20 @@ PEAK_F32_PER_S = 67e12
 # del^4 7, the Arakawa Jacobian 32, d/dx terms and drag ~9, the AB3
 # update ~9).
 STEP_OPS = 63
+# Operations of the multigrid kernels per fine point and mode: a sweep 13
+# ((lap + alpha) w 10, f - that, the scaled update 2), the residual 11, the
+# restriction 20 per coarse point, the prolongation ~3.
+MG_SWEEP_OPS, MG_RESIDUAL_OPS, MG_RESTRICT_OPS, MG_PROLONG_OPS = 13, 11, 20, 3
+MG_NU = 2
+
+
+T0 = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - T0}), flush=True)
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
@@ -166,9 +209,15 @@ def bound(name: str, M: int, P: int) -> tuple[float, str, float]:
 
     step = 2 * STEP_OPS * M * P
     mono = 2 * ffts(P, M) + ffts(M, 2 * P)
+    sweeps = 2 * MG_NU * MG_SWEEP_OPS * M * P
+    residual = 2 * MG_RESIDUAL_OPS * M * P
     fields, ops = {
         "K1": (6, step), "K2": (2, ffts(P, M)), "K3": (2, ffts(M, 2 * P)),
         "K4": (2, ffts(M, P)), "K5": (2, ffts(M, P)), "K8": (7, step),
+        "K9": (3, 2 * (STEP_OPS - 9) * M * P),
+        "K10": (3.25, sweeps + residual + 2 * MG_RESTRICT_OPS * M * P / 4),
+        "K10 residual": (4, sweeps + residual), "K10 smooth": (3, sweeps),
+        "K11": (3.25, sweeps + 2 * MG_PROLONG_OPS * M * P),
         "K15": (7, step + 2 * ffts(P, M)), "K16": (2, mono),
         "K17": (7, step + mono)}[name]
     t_bytes = fields * field / PEAK_BYTES_PER_S * 1e3
@@ -408,6 +457,156 @@ def phase_x_kernels(errs, pod, dev, sizes=(4096, 8192)) -> None:
     free_memory()
 
 
+def mg_inputs(n: int, dev, seed: int):
+    """u, f (2, n, n) and ec (2, n/2, n/2) float32, white, at a solution's,
+    a right-hand side's and a coarse correction's scale (uniform draws:
+    four times quicker than normal ones at 8192^2)."""
+    g = np.random.default_rng(seed)
+    return [torch.as_tensor(g.random(shape, dtype=np.float32) - 0.5,
+                            device=dev) * scale
+            for scale, shape in ((1e-2, (2, n, n)), (1e-5, (2, n, n)),
+                                 (1e-3, (2, n // 2, n // 2)))]
+
+
+MG_FORMS = (("K10", "restrict", True, True), ("K10", "residual", True, False),
+            ("K10", "smooth only", False, False))
+
+
+def phase_mg_kernels(errs, turb, pod_mg, dev) -> None:
+    """K10 in its three forms and K11 at (2, n, n), n = 2048 and 8192, with
+    alpha = (0, S_eig) and nu = 2 on random inputs; K9 on the model's
+    initial state at (2, 2048, 2048), (1, 2048, 2048) with the wind, and
+    (2, 8192, 8192)."""
+    for cfg in (turb, pod_mg):
+        n, alphas = cfg.M, (0.0, cfg.S_eig)
+        u, f, ec = mg_inputs(n, dev, SEED + n)
+        for name, form, residual, restrict in MG_FORMS:
+            got = mg_smooth(u, f, cfg.dx, alphas, MG_NU, residual, 0.8,
+                            restrict)
+            want = mg_smooth_plain(u, f, cfg.dx, alphas, MG_NU, residual,
+                                   0.8, restrict)
+            errs.record(name, f"{n}^2 {form} u", got[0], want[0])
+            if residual:
+                errs.record(name, f"{n}^2 {form} r", got[1], want[1])
+        errs.record("K11", f"{n}^2", mg_prolong_smooth(
+            u, ec, f, cfg.dx, alphas, MG_NU), mg_prolong_smooth_plain(
+                u, ec, f, cfg.dx, alphas, MG_NU))
+        del u, f, ec
+        free_memory()
+    for case, cfg in (("two layers", turb),
+                      ("one layer + wind",
+                       turb.replace(n_layers=1, wind_tau0=0.1)),
+                      ("two layers", pod_mg)):
+        state = init_state(cfg, dev)
+        errs.record("K9", f"{cfg.M}^2 {case}",
+                    fused_tendency(cfg, state.zeta, state.psi),
+                    fused_tendency_plain(cfg, state.zeta, state.psi))
+        del state
+        free_memory()
+    torch.cuda.synchronize()
+
+
+def mg_inverter(cfg, cycles: int, use_pallas: str = "auto"):
+    return MultigridModalInverter(cfg.M, cfg.P, cfg.dx, cfg.S_eig,
+                                  cfg.P_inv_matrix(),
+                                  cfg.back_projection_matrix(),
+                                  n_cycles=cycles, use_pallas=use_pallas)
+
+
+def mg_problem(cfg, state, dev):
+    """(zeta, first seed): the zeta of one more default-route step from
+    ``state``, seeded with ``state``'s psi, as the model's stepping would
+    seed it."""
+    nxt = QGModel(cfg, dev).step(state)
+    return nxt.zeta, state.psi
+
+
+def run_mg_path(name, cfg, dev, zeta, seed, cycles, calls) -> dict:
+    """``calls`` warm-started MultigridModalInverter calls on the same zeta,
+    each seeded with the previous call's psi (scripts/decomp_r4.py's mg@C
+    job), with every launch count set to 0 just before and read just after;
+    then the plain MG route (use_pallas="off") the same way, and a float64
+    spectral inversion of zeta. Gates: exact K10/K11 counts (3 kernel
+    levels a cycle); the kernel route's float64 error no more than twice
+    the plain route's or 1e-6 of max|psi|; and psi within TOL["mg_psi"] of
+    the plain route, unless both routes sit at the float32 floor of this
+    zeta: on a grid-noise state the low-k part of the residual's rounding
+    (eps |f| per point) comes back through 1/lambda as ~eps n / 5 of
+    max|psi| in ANY float32 inversion, 2e-5 at 2048^2, so two converged
+    float32 routes differ by about that and only the float64 rule can tell
+    them apart (as for K3 and the slices)."""
+    kern = mg_inverter(cfg, cycles)
+    levels = sum(kern.solver._pallas_level(i)
+                 for i in range(len(kern.solver.levels)))
+    for counter in COUNTERS.values():
+        counter.launches = 0
+    psi = seed
+    for _ in range(calls):
+        psi = kern(zeta, psi_prev=psi)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in COUNTERS.items()}
+    want = {k: 0 for k in COUNTERS}
+    want.update(K10=calls * cycles * 3, K11=calls * cycles * 3)
+    if levels != 3 or launches != want:
+        raise AssertionError(f"{name}: {levels} kernel levels, launch "
+                             f"counts {launches} != {want}")
+    plain = mg_inverter(cfg, cycles, "off")
+    ref = seed
+    for _ in range(calls):
+        ref = plain(zeta, psi_prev=ref)
+    finite = bool(torch.isfinite(psi).all())
+    if not finite or tuple(psi.shape) != (2, cfg.M, cfg.P):
+        raise AssertionError(f"{name}: psi finite={finite}, shape "
+                             f"{tuple(psi.shape)}")
+    _, d_plain = rel_err(psi, ref)
+    psi64 = PackedModalInverter(cfg.M, cfg.P, cfg.dx, cfg.S_eig,
+                                cfg.P_inv_matrix(),
+                                cfg.back_projection_matrix())(zeta.double())
+    _, e_kern = rel_err(psi.double(), psi64)
+    _, e_plain = rel_err(ref.double(), psi64)
+    _, e_seed = rel_err(seed.double(), psi64)
+    del psi64, ref, plain
+    free_memory()
+    floor = 0.5 * cfg.M * float(torch.finfo(torch.float32).eps) / 5.0
+    emit("mg_path", path=name, grid=[cfg.M, cfg.P], calls=calls,
+         cycles_per_call=cycles, kernel_levels=levels, launches=launches,
+         psi_rel_diff_vs_plain_mg=d_plain, tol=TOL["mg_psi"],
+         float32_floor_estimate=floor,
+         psi_rel_err_vs_float64={"kernel": e_kern, "plain": e_plain,
+                                 "seed": e_seed},
+         rule="kernel <= max(2 x plain, 1e-6)")
+    if not e_kern <= max(2.0 * e_plain, 1e-6):
+        raise AssertionError(f"{name}: kernel route's float64 error {e_kern} "
+                             f"exceeds max(2 x plain {e_plain}, 1e-6)")
+    if not (d_plain <= TOL["mg_psi"] or min(e_kern, e_plain) > TOL["mg_psi"]):
+        raise AssertionError(f"{name}: psi differs from the plain MG route "
+                             f"by {d_plain} > {TOL['mg_psi']} while a route "
+                             "is within it of float64")
+    return launches
+
+
+def run_tendency_path(cfg, state, calls) -> dict:
+    """``calls`` K9 calls on ``state`` with the counts set to 0 just before;
+    the last held against _tendencies."""
+    for counter in COUNTERS.values():
+        counter.launches = 0
+    for _ in range(calls):
+        tend = fused_tendency(cfg, state.zeta, state.psi)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in COUNTERS.items()}
+    want = {k: 0 for k in COUNTERS}
+    want["K9"] = calls
+    if launches != want:
+        raise AssertionError(f"tendency path: launch counts {launches} != "
+                             f"{want}")
+    a, r = rel_err(tend, fused_tendency_plain(cfg, state.zeta, state.psi))
+    emit("tendency_path", grid=[cfg.M, cfg.P], calls=calls,
+         launches=launches, max_abs_err=a, rel_err=r, tol=TOL["K9"])
+    if not r <= TOL["K9"]:
+        raise AssertionError(f"tendency path: rel err {r} > {TOL['K9']}")
+    return launches
+
+
 def run_chunks(cfg, steps: int) -> int:
     """QGModel.run calls that run_model makes for ``steps`` steps (one per
     one-day sample interval)."""
@@ -417,7 +616,7 @@ def run_chunks(cfg, steps: int) -> int:
 def run_slice(name, cfg, dev, steps, expect, route) -> dict:
     """``steps`` steps through run_model with every launch count set to 0
     just before and read just after; then the plain route from the same
-    psi. Returns the launch counts."""
+    psi. Returns the launch counts and the final state."""
     got_route = QGModel(cfg, dev).route
     if got_route != route:
         raise AssertionError(f"{name}: route {got_route} != {route}")
@@ -453,7 +652,7 @@ def run_slice(name, cfg, dev, steps, expect, route) -> dict:
                   tol_zeta=TOL["slice_zeta"])
     if dz <= TOL["slice_zeta"]:
         emit("slice", **fields)
-        return launches
+        return launches, out
     # The gate failed: hold both routes against a float64 plain run of the
     # same steps instead, and say so.
     del ref
@@ -475,7 +674,7 @@ def run_slice(name, cfg, dev, steps, expect, route) -> dict:
         raise AssertionError(f"{name}: kernel route zeta diff {dz} from the "
                              f"plain route, and its float64 error {e_kern} "
                              f"exceeds twice the plain route's {e_plain}")
-    return launches
+    return launches, out
 
 
 def time_routes(cfgs: dict, dev, steps) -> tuple[dict, object, dict]:
@@ -602,16 +801,15 @@ def time_pre_inversion(cfg, dev, card) -> dict:
     return ms["K8"]
 
 
-def phase_trace(model, route, state, card: str, steps: int) -> None:
-    """Device time by kernel and the device's busy share over a traced
-    window of ``route`` steps, after a warm-up that settles the caching
-    allocator. Only CUDA activity is traced (no host-op recording), so the
-    host launches at close to its untraced rate."""
+def trace_device(fn, per: int) -> dict:
+    """Device ms by kernel (per ``per`` units of work) and the device's busy
+    share over one traced call of ``fn``. Only CUDA activity is traced (no
+    host-op recording), so the host launches at close to its untraced
+    rate."""
     from torch.profiler import ProfilerActivity, profile
-    state = model.run(state, 30)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        state = model.run(state, steps)
+        fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -619,23 +817,94 @@ def phase_trace(model, route, state, card: str, steps: int) -> None:
     for e in events:
         name = next((k for k, fn in TRACE_NAMES if fn in e.name), "other")
         by_kernel[name] = by_kernel.get(name, 0.0) + (
-            e.time_range.end - e.time_range.start) / 1e3 / steps
+            e.time_range.end - e.time_range.start) / 1e3 / per
     busy = span = None
     if events:
         span = (max(e.time_range.end for e in events)
-                - min(e.time_range.start for e in events)) / 1e3 / steps
+                - min(e.time_range.start for e in events)) / 1e3 / per
         busy = sum(by_kernel.values()) / span
+    return dict(activities="cuda", device_events=len(events),
+                device_ms_by_kernel=by_kernel, span_ms=span, busy_share=busy,
+                idle_share=None if busy is None else 1.0 - busy)
+
+
+def phase_trace(model, route, state, card: str, steps: int) -> None:
+    """Device time by kernel and the device's busy share over a traced
+    window of ``route`` steps, after a warm-up that settles the caching
+    allocator."""
+    state = model.run(state, 30)
     emit("trace", card=card, route=route, grid=[model.cfg.M, model.cfg.P],
-         steps=steps, activities="cuda", device_events=len(events),
-         device_ms_per_step_by_kernel=by_kernel, span_ms_per_step=span,
-         busy_share=busy, idle_share=None if busy is None else 1.0 - busy)
+         steps=steps, per="step",
+         **trace_device(lambda: model.run(state, steps), steps))
 
 
-def kernel_rows(errs, launches, ms_2048, ms_8192) -> list:
-    """The {"kernels": [...]} entries: launches summed over the slices
+def time_mg(name, cfg, dev, card, zeta, seed, state, cycles, reps,
+            plain_reps, trace) -> dict:
+    """At cfg's grid: ms per MG inversion call (warm-started from ``seed``)
+    on the kernel route and the plain route beside the spectral inversion
+    of the same zeta (PackedModalInverterKernels, the model's route), in
+    turns; K10 (restrict form) and K11 per launch at each kernel level
+    beside their plain versions; K9 on ``state`` beside its plain version;
+    host enqueue ms per MG call; with ``trace``, the busy share over one
+    traced MG call. Returns the per-kernel times at the top level, with the
+    levels' times under "levels"."""
+    kern, plain = mg_inverter(cfg, cycles), mg_inverter(cfg, cycles, "off")
+    spectral = inverter(cfg)
+    calls = {"mg_kernels": (lambda: kern(zeta, psi_prev=seed), reps),
+             "mg_plain": (lambda: plain(zeta, psi_prev=seed), plain_reps),
+             "spectral": (lambda: spectral(zeta), 5 * reps)}
+    runs = {k: [] for k in calls}
+    for k in list(calls) + list(calls)[::-1]:
+        fn, n = calls[k]
+        runs[k].append(time_ms(fn, n, warmup=1))
+    call_ms = {k: sum(v) / len(v) for k, v in runs.items()}
+    # Host time to enqueue one call into an idle queue (best of 3).
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kern(zeta, psi_prev=seed)
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    alphas = kern.solver.alphas
+    levels = {}
+    for m, p, h in kern.solver.levels[:3]:
+        u, f, ec = mg_inputs(m, dev, SEED + m + 1)
+        levels[m] = time_kernels({
+            "K10": (lambda: mg_smooth(u, f, h, alphas, MG_NU, True, 0.8,
+                                      True),
+                    lambda: mg_smooth_plain(u, f, h, alphas, MG_NU, True,
+                                            0.8, True), 1),
+            "K11": (lambda: mg_prolong_smooth(u, ec, f, h, alphas, MG_NU),
+                    lambda: mg_prolong_smooth_plain(u, ec, f, h, alphas,
+                                                    MG_NU), 1)},
+            5 * reps, plain_reps)
+        for k in ("K10", "K11"):
+            levels[m][k]["bound_ms"] = bound(k, m, p)[0]
+        del u, f, ec
+    tend = time_kernels({"K9": (
+        lambda: fused_tendency(cfg, state.zeta, state.psi),
+        lambda: fused_tendency_plain(cfg, state.zeta, state.psi), 1)},
+        5 * reps, plain_reps)
+    traced = (trace_device(lambda: kern(zeta, psi_prev=seed), 1)
+              if trace else None)
+    emit("timing", card=card, path=name, grid=[cfg.M, cfg.P],
+         cycles_per_call=cycles, call_ms=call_ms, call_ms_runs=runs,
+         mg_kernels_vs_spectral=call_ms["mg_kernels"] / call_ms["spectral"],
+         host_enqueue_ms_per_call=min(host), host_enqueue_runs_ms=host,
+         kernel_ms_by_level=levels, kernel_ms=tend, trace_per_call=traced)
+    free_memory()
+    top = levels[cfg.M]
+    return {"K9": tend["K9"], "K10": top["K10"], "K11": top["K11"],
+            "levels": levels, "call_ms": call_ms}
+
+
+def kernel_rows(errs, launches, ms_2048, ms_8192, extra) -> list:
+    """The {"kernels": [...]} entries: launches summed over the paths
     (each counted from 0), errors, ms per launch beside the plain version's
-    and the library call's, and the bound, at 2048^2 for K1-K3, K8 and
-    K15-K17 and 8192^2 for K4/K5."""
+    and the library call's, and the bound, at 2048^2 for K1-K3, K8, K9 and
+    K15-K17 and 8192^2 for K4/K5 and K10/K11 (the top level of the 8192^2
+    solver); ``extra`` adds fields to a kernel's entry."""
     rows = []
     for name, (fn, source, replaces) in KERNELS.items():
         at = ms_2048 if name in ms_2048 else ms_8192
@@ -652,7 +921,7 @@ def kernel_rows(errs, launches, ms_2048, ms_8192) -> list:
                "ms": at[name]["ms"], "plain_ms": at[name]["plain_ms"],
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                "library_ms": at[name].get("library_ms"), "grid": [n, n]}
-        if name in ("K1", "K2"):
+        if name in ("K1", "K2", "K9"):
             row.update(ms_8192=ms_8192[name]["ms"],
                        plain_ms_8192=ms_8192[name]["plain_ms"],
                        bound_ms_8192=bound(name, 8192, 8192)[0])
@@ -661,10 +930,12 @@ def kernel_rows(errs, launches, ms_2048, ms_8192) -> list:
         if name == "K4":
             row.update(ms_inverse=ms_8192["K4 inverse"]["ms"],
                        plain_ms_inverse=ms_8192["K4 inverse"]["plain_ms"])
+        row.update(extra.get(name, {}))
         rows.append(row)
     # tpu_qg's streaming x-kernel computes K4 (forward) and K5 (fused
     # inverse) where its strips outgrow VMEM; K4 and K5 run in its place.
-    k4, k5 = rows[3], rows[4]
+    by_name = {r["name"].split()[0]: r for r in rows}
+    k4, k5 = by_name["K4"], by_name["K5"]
     rows.append({"name": "K6 _call_x_stream (covered by K4/K5)",
                  "route": "cuda", "source": "tpu_qg_torch/csrc/dft_kernels.cu",
                  "replaces": "tpu_qg/ops/pallas_fft.py:1122",
@@ -679,6 +950,14 @@ def kernel_rows(errs, launches, ms_2048, ms_8192) -> list:
     return rows
 
 
+def mg_level_fields(times: dict) -> dict:
+    """K10's and K11's per-level ms, plain ms and bound ms of one solver, by
+    level extent."""
+    return {name: {key: {m: t[name][key] for m, t in times["levels"].items()}
+                   for key in ("ms", "plain_ms", "bound_ms")}
+            for name in ("K10", "K11")}
+
+
 def main() -> None:
     card = phase_device()
     dev = torch.device("cuda", 0)
@@ -687,6 +966,7 @@ def main() -> None:
     phase_build()
     turb = preset("turbulence-2048")
     pod = preset("pod-8192")
+    pod_mg = preset("pod-8192-mg")
     forms = {"mono": turb.replace(fft_mono="on"),
              "fullstep": turb.replace(step_full="on"),
              "chain": turb.replace(step_chain="on")}
@@ -694,32 +974,47 @@ def main() -> None:
     errs = Errors()
     phase_kernels(errs, turb, dev)
     phase_x_kernels(errs, pod, dev)
+    phase_mg_kernels(errs, turb, pod_mg, dev)
 
-    launches = {
-        "turbulence-2048": run_slice("turbulence-2048", turb, dev, 100,
-                                     {"K1": 100, "K2": 200, "K3": 100},
-                                     "default"),
-        "turbulence-2048 pin": run_slice(
-            "turbulence-2048 pin", turb.replace(poisson_gauge="pin"), dev,
-            100, {"K8": 100}, "default"),
-        "turbulence-2048 fft_mono=on": run_slice(
-            "turbulence-2048 fft_mono=on", forms["mono"], dev, 100,
-            {"K1": 100, "K16": 100}, "mono"),
-        "turbulence-2048 step_full=on": run_slice(
-            "turbulence-2048 step_full=on", forms["fullstep"], dev, 100,
-            {"K17": 100}, "fullstep"),
-        "turbulence-2048 step_chain=on": run_slice(
-            "turbulence-2048 step_chain=on", forms["chain"], dev, 100,
-            {"K15": 100, "K3": 100,
-             "K2": 2 * run_chunks(forms["chain"], 100)}, "chain"),
-        "pod-8192": run_slice("pod-8192", pod, dev, 50,
-                              {"K1": 50, "K2": 100, "K4": 50, "K5": 50},
-                              "default"),
-        "pod-8192 step_chain=on": run_slice(
-            "pod-8192 step_chain=on", pod_chain, dev, 20,
-            {"K15": 20, "K4": 20, "K5": 20,
-             "K2": 2 * run_chunks(pod_chain, 20)}, "chain"),
-    }
+    slices = (
+        ("turbulence-2048", turb, 100, {"K1": 100, "K2": 200, "K3": 100},
+         "default"),
+        ("turbulence-2048 pin", turb.replace(poisson_gauge="pin"), 100,
+         {"K8": 100}, "default"),
+        ("turbulence-2048 fft_mono=on", forms["mono"], 100,
+         {"K1": 100, "K16": 100}, "mono"),
+        ("turbulence-2048 step_full=on", forms["fullstep"], 100,
+         {"K17": 100}, "fullstep"),
+        ("turbulence-2048 step_chain=on", forms["chain"], 100,
+         {"K15": 100, "K3": 100, "K2": 2 * run_chunks(forms["chain"], 100)},
+         "chain"),
+        ("pod-8192", pod, 50, {"K1": 50, "K2": 100, "K4": 50, "K5": 50},
+         "default"),
+        ("pod-8192 step_chain=on", pod_chain, 20,
+         {"K15": 20, "K4": 20, "K5": 20, "K2": 2 * run_chunks(pod_chain, 20)},
+         "chain"),
+    )
+    launches, finals = {}, {}
+    for name, cfg, steps, expect, route in slices:
+        launches[name], out = run_slice(name, cfg, dev, steps, expect, route)
+        if name in ("turbulence-2048", "pod-8192"):
+            finals[name] = out
+        del out
+        free_memory()
+
+    # The multigrid inversion on the state of each grid's default-route
+    # run (pod-8192-mg runs that route on one device), and the tendency.
+    mg_paths = (("pod-8192-mg MG inversion", pod_mg, finals["pod-8192"],
+                 pod_mg.mg_cycles),
+                ("turbulence-2048 MG inversion", turb,
+                 finals["turbulence-2048"], 4))
+    problems = {}
+    for name, cfg, state, cycles in mg_paths:
+        problems[name] = mg_problem(cfg, state, dev)
+        launches[name] = run_mg_path(name, cfg, dev, *problems[name], cycles,
+                                     20)
+    launches["turbulence-2048 tendency"] = run_tendency_path(
+        turb, finals["turbulence-2048"], 20)
     free_memory()
 
     plain = dict(fft_impl="xla", use_pallas=False)
@@ -731,9 +1026,20 @@ def main() -> None:
     ms_8192 = phase_timing({"default": pod, "plain": pod.replace(**plain)},
                            dev, card, 20, 10, 3,
                            ("K1", "K2", "K4", "K4 inverse", "K5"))
+    mg_ms = {}
+    for (name, cfg, state, cycles), (reps, plain_reps, trace) in zip(
+            mg_paths, ((10, 2, True), (20, 3, False))):
+        mg_ms[cfg.M] = time_mg(name, cfg, dev, card, *problems[name], state,
+                               cycles, reps, plain_reps, trace)
+    ms_2048["K9"], ms_8192["K9"] = mg_ms[2048]["K9"], mg_ms[8192]["K9"]
+    ms_8192["K10"], ms_8192["K11"] = mg_ms[8192]["K10"], mg_ms[8192]["K11"]
+    levels = {n: mg_level_fields(t) for n, t in mg_ms.items()}
+    extra = {k: {"by_level_8192_solver": levels[8192][k],
+                 "by_level_2048_solver": levels[2048][k]}
+             for k in ("K10", "K11")}
 
     print(json.dumps({"kernels": kernel_rows(errs, launches, ms_2048,
-                                             ms_8192)}), flush=True)
+                                             ms_8192, extra)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

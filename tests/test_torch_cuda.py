@@ -7,7 +7,9 @@ Marked ``cuda``; without a card every test skips. On a machine with one:
 Tolerances relative to max|plain|: K1 and K8 1e-6, K2 and K4 1e-5, K3 and
 K5 1e-4 (the 1/lambda symbol amplifies low-k float32 rounding); the
 one-launch kernels as the kernels they fuse: K16 1e-4, K17 1e-6 (zeta_new,
-carry) and 1e-4 (psi_new), K15 1e-6 (zeta_new, carry) and 1e-5 (zeta_ys).
+carry) and 1e-4 (psi_new), K15 1e-6 (zeta_new, carry) and 1e-5 (zeta_ys);
+K9 1e-6 (K1's tile); K10 and K11 1e-6 (tests/test_multigrid.py's kernel
+tolerance), and the multigrid solves on the card 1e-5 from the CPU's.
 """
 
 import numpy as np
@@ -21,13 +23,20 @@ from tpu_qg_torch.ops.dft_kernels import (mono_invert, mono_invert_plain,
                                           x_dft, x_dft_plain, x_symbols_inverse,
                                           x_symbols_inverse_plain, y_dft,
                                           y_dft_plain)
+from tpu_qg_torch.ops import mg_kernels
+from tpu_qg_torch.ops.mg_kernels import (mg_prolong_smooth,
+                                         mg_prolong_smooth_plain, mg_smooth,
+                                         mg_smooth_plain)
+from tpu_qg_torch.ops.multigrid import MultigridModalInverter
 from tpu_qg_torch.ops.spectral import PackedModalInverterKernels
 from tpu_qg_torch.ops.step_kernel import (fused_pre_inversion,
                                           fused_pre_inversion_plain,
                                           fused_step, fused_step_full,
                                           fused_step_full_plain,
                                           fused_step_plain, fused_step_yspec,
-                                          fused_step_yspec_plain)
+                                          fused_step_yspec_plain,
+                                          fused_tendency,
+                                          fused_tendency_plain)
 
 pytestmark = pytest.mark.cuda
 # Powers of two, and 128 * n extents that the kernels take in mixed radix.
@@ -251,3 +260,84 @@ def test_one_launch_routes_on_card_match_cpu(dev, overrides, launches):
     assert {k: f.launches - counts[k] for k, f in ALL_COUNTED.items()} == {
         k: launches.get(k, 0) for k in ALL_COUNTED}
     assert _rel(a.zeta.cpu(), b.zeta) <= 1e-5
+
+
+@pytest.mark.parametrize("M,P", [(256, 384), (136, 384), (8192, 8192)])
+@pytest.mark.parametrize("layers,tau0", [(2, 0.0), (2, 0.1), (1, 0.1)])
+def test_tendency_kernel(dev, M, P, layers, tau0):
+    cfg = preset("turbulence-2048").replace(M=M, P=P, n_layers=layers,
+                                            wind_tau0=tau0)
+    z, p = (t[:layers].contiguous() for t in _fields(M, P, dev)[:2])
+    n = fused_tendency.launches
+    got = fused_tendency(cfg, z, p)
+    want = fused_tendency_plain(cfg, z, p)
+    torch.cuda.synchronize()
+    assert fused_tendency.launches == n + 1
+    assert got.shape == (layers, M, P)
+    assert _rel(got, want) <= 1e-6
+
+
+def _mg_fields(M, P, dev, seed):
+    g = np.random.default_rng(seed)
+    return [torch.as_tensor(s * g.standard_normal(shape), dtype=torch.float32,
+                            device=dev)
+            for s, shape in ((1e-2, (2, M, P)), (1e-5, (2, M, P)),
+                             (1e-3, (2, M // 2, P // 2)))]
+
+
+def _mg_alphas(M):
+    cfg = preset("pod-8192-mg").replace(M=M, P=M)
+    return cfg.dx, (0.0, cfg.S_eig)
+
+
+# Shapes the reference's gates admit: (2048, 1152) and (136, 384) only the
+# residual and smooth-only forms (P % 256, tile), (136, 384) and
+# (2064, 512) with a ragged last row of tiles, the rest every form.
+@pytest.mark.parametrize("M,P", [(2048, 1152), (136, 384), (2064, 512),
+                                 (512, 512), (8192, 8192)])
+@pytest.mark.parametrize("nu", [2, 5])
+def test_mg_kernels(dev, M, P, nu):
+    dx, alphas = _mg_alphas(M)
+    u, f, ec = _mg_fields(M, P, dev, nu)
+    forms = [(True, False), (False, False)]
+    if mg_kernels.mg_smooth_supported(2, M, P, nu, True, restrict=True):
+        forms.append((True, True))
+    n = (mg_smooth.launches, mg_prolong_smooth.launches)
+    for residual, restrict in forms:
+        assert mg_kernels.mg_smooth_supported(2, M, P, nu, residual)
+        got = mg_smooth(u, f, dx, alphas, nu, residual, 0.8, restrict)
+        want = mg_smooth_plain(u, f, dx, alphas, nu, residual, 0.8, restrict)
+        assert _rel(got[0], want[0]) <= 1e-6
+        if residual:
+            assert got[1].shape == want[1].shape
+            assert _rel(got[1], want[1]) <= 1e-6
+    prolong = mg_kernels.mg_prolong_supported(2, M, P, nu)
+    if prolong:
+        got = mg_prolong_smooth(u, ec, f, dx, alphas, nu)
+        assert _rel(got, mg_prolong_smooth_plain(u, ec, f, dx, alphas,
+                                                 nu)) <= 1e-6
+    torch.cuda.synchronize()
+    assert (mg_smooth.launches, mg_prolong_smooth.launches) == (
+        n[0] + len(forms), n[1] + int(prolong))
+
+
+@pytest.mark.parametrize("M,cycles", [(512, 2), (1024, 3)])
+def test_multigrid_inverter_on_card_matches_cpu(dev, M, cycles):
+    """Warm-started MG inversions on the card (K10, K11 on the kernel
+    levels: 1 at 512^2, 2 at 1024^2) against the CPU's plain route, on the
+    smooth vortex state: on grid noise two float32 routes differ by the
+    float32 floor of the inversion (~eps M / 5 of max|psi|, 2e-5 here)."""
+    cfg = preset("pod-8192-mg").replace(M=M, P=M, ic_type="vortex")
+    args = (M, M, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
+            cfg.back_projection_matrix())
+    state = init_state(cfg, "cpu")
+    levels = 1 if M == 512 else 2
+    n = (mg_smooth.launches, mg_prolong_smooth.launches)
+    got = MultigridModalInverter(*args, n_cycles=cycles)(
+        state.zeta.to(dev), psi_prev=state.psi.to(dev) * 0.99)
+    want = MultigridModalInverter(*args, n_cycles=cycles, use_pallas="off")(
+        state.zeta, psi_prev=state.psi * 0.99)
+    torch.cuda.synchronize()
+    assert (mg_smooth.launches, mg_prolong_smooth.launches) == (
+        n[0] + cycles * levels, n[1] + cycles * levels)
+    assert _rel(got.cpu(), want) <= 1e-5

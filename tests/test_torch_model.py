@@ -282,7 +282,8 @@ def test_nan_state_raises_and_writes_emergency_checkpoint(tmp_path):
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, tpu_qg_torch, tpu_qg_torch.run, tpu_qg_torch.io, "
-            "tpu_qg_torch.interop, tpu_qg_torch.utils.diagnostics; "
+            "tpu_qg_torch.interop, tpu_qg_torch.utils.diagnostics, "
+            "tpu_qg_torch.ops.multigrid, tpu_qg_torch.ops.mg_kernels; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'tpu_qg.')) or m == 'tpu_qg']; "
             "assert not bad, bad")

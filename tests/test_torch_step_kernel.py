@@ -1,10 +1,12 @@
-"""K1's and K8's plain versions (tpu_qg_torch.ops.step_kernel
-fused_step_plain, fused_pre_inversion_plain) against the Pallas step kernels
-of tpu_qg in interpret mode, float32 at (256, 256).
+"""K1's, K8's and K9's plain versions (tpu_qg_torch.ops.step_kernel
+fused_step_plain, fused_pre_inversion_plain, fused_tendency_plain) against
+the Pallas step kernels of tpu_qg in interpret mode, float32 at (256, 256)
+(K9 also float64 at (128, 128)).
 
-Tolerance 1e-6 relative to max|ref|: the Pallas body groups the stencil
-terms differently from the plain stencils (~5e-8 reassociation,
-tpu_qg/ops/pallas_tendency.py:276-279), on top of float32 rounding.
+Tolerance 1e-6 relative to max|ref| in float32: the Pallas body groups the
+stencil terms differently from the plain stencils (~5e-8 reassociation,
+tpu_qg/ops/pallas_tendency.py:276-279), on top of float32 rounding; 1e-12
+in float64.
 """
 
 import jax.numpy as jnp
@@ -13,13 +15,16 @@ import pytest
 import torch
 
 import tpu_qg
-from tpu_qg.ops.pallas_tendency import (fused_pre_inversion, fused_step_pre_fft,
+from tpu_qg.ops.pallas_tendency import (_wind_rows, fused_pre_inversion,
+                                        fused_step_pre_fft,
                                         fused_step_streamed)
+from tpu_qg.ops.pallas_tendency import fused_tendency as j_fused_tendency
 from tpu_qg_torch.interop import config_from_jax
-from tpu_qg_torch.models.core import _tendencies
+from tpu_qg_torch.models.core import _tendencies, _wind_forcing
 from tpu_qg_torch.ops import step_kernel
 from tpu_qg_torch.ops.step_kernel import (fused_pre_inversion_plain, fused_step,
-                                          fused_step_plain)
+                                          fused_step_plain, fused_tendency,
+                                          fused_tendency_plain)
 
 TOL = 1e-6
 M = P = 256
@@ -97,6 +102,45 @@ def test_pre_inversion_plain_matches_kernel_v2(layers, gauge, scheme, tau0,
         assert g.dtype == torch.float32 and g.shape == w.shape
         np.testing.assert_allclose(g.numpy(), w, rtol=0,
                                    atol=TOL * np.abs(w).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("layers,tau0", [(2, 0.0), (1, 0.1)])
+def test_tendency_plain_matches_kernel_v1(dtype, layers, tau0):
+    """K9 at (L, 128, 128): two layers, and one layer with the wind.
+    tpu_qg's kernel builds the wind row in float32 whatever the field type
+    (``_wind_rows``: f32 sin of the lane index, ~1e-7 relative to the row),
+    so in float64 its row is swapped for the float64 one the plain version
+    adds before the 1e-12 comparison."""
+    jcfg = tpu_qg.preset("turbulence-2048").replace(
+        M=128, P=128, n_layers=layers, wind_tau0=tau0, dtype=dtype)
+    rng = np.random.default_rng(layers)
+    psi = (jcfg.initial_kick * jcfg.U * jcfg.Ly
+           * rng.random((layers, 128, 128))).astype(dtype)
+    zeta = np.array(tpu_qg.init_state(jcfg, psi_init=psi).zeta)
+    want = np.asarray(j_fused_tendency(jcfg, jnp.asarray(zeta),
+                                       jnp.asarray(psi), True))
+    got = fused_tendency_plain(config_from_jax(jcfg), torch.from_numpy(zeta),
+                               torch.from_numpy(psi))
+    assert got.dtype == torch.from_numpy(psi).dtype
+    if dtype == "float64" and tau0:
+        want = (want - np.asarray(_wind_rows(jcfg, 128, 128))
+                + _wind_forcing(config_from_jax(jcfg), torch.float64,
+                                "cpu").numpy())
+    tol = 1e-12 if dtype == "float64" else TOL
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=tol * np.abs(want).max())
+
+
+def test_tendency_wrapper_runs_plain_on_cpu_without_counting():
+    jcfg = tpu_qg.preset("turbulence-2048").replace(M=M, P=P,
+                                                    dtype="float32")
+    cfg = config_from_jax(jcfg)
+    z, p, _, _ = (torch.from_numpy(a) for a in _inputs(jcfg))
+    before = fused_tendency.launches
+    got = fused_tendency(cfg, z, p)
+    assert fused_tendency.launches == before
+    torch.testing.assert_close(got, _tendencies(cfg, z, p), rtol=0, atol=0)
 
 
 def test_pre_inversion_wrapper_runs_plain_on_cpu_without_counting():

@@ -1,4 +1,4 @@
-// The step's tile body, shared by K1 and K8 (step_kernel.cu) and the
+// The step's tile body, shared by K1, K8 and K9 (step_kernel.cu) and the
 // one-launch kernels K15 and K17 (fused_kernels.cu). Design notes in
 // step_kernel.cu.
 #pragma once
@@ -62,8 +62,10 @@ __device__ __forceinline__ StepTiles step_tiles(float* smem) {
 // block, in the shared memory `t`. kModes (L = 2) also writes the modes
 // P^-1 zeta_new: a thread visits the same tile points in both layers, so
 // it keeps layer 0's zeta_new in shared memory until layer 1's is formed.
-// kL2: see ld(). Ends with a barrier: the caller may run the next tile.
-template <int L, bool kModes, int NT, bool kL2>
+// kL2: see ld(). kTendOnly (K9) writes the tendency to zeta_new and stops
+// there: no f1/f2 reads, no update, no carry. Ends with a barrier: the
+// caller may run the next tile.
+template <int L, bool kModes, int NT, bool kL2, bool kTendOnly = false>
 __device__ __forceinline__ void step_tile(
     const float* __restrict__ zeta, const float* __restrict__ psi,
     const float* __restrict__ f1, const float* __restrict__ f2,
@@ -142,6 +144,10 @@ __device__ __forceinline__ void step_tile(
 
       const size_t at = (size_t)gx * P + gy;
       const size_t off = l * plane + at;
+      if constexpr (kTendOnly) {
+        zeta_new[off] = tend;
+        continue;
+      }
       const float zc = zs[zi][zj];
       float zn, out;
       if (leapfrog) {

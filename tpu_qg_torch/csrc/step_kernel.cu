@@ -1,6 +1,6 @@
 // K1: the fused two-layer step kernel (tendency + time update in one pass),
-// and K8: the same step for one or two layers with the modal projection as a
-// third output.
+// K8: the same step for one or two layers with the modal projection as a
+// third output, and K9: the tendency alone.
 //
 // K1 replaces tpu_qg/ops/pallas_tendency.py fused_step_streamed (v4,
 // _streamed_kernel) and its single-tile form fused_step_pre_fft (v3,
@@ -76,6 +76,23 @@ pre_inversion_kernel(const float* __restrict__ zeta, const float* __restrict__ p
                                        blockIdx.y * TX, blockIdx.x * TY, tiles);
 }
 
+// K9: replaces tpu_qg/ops/pallas_tendency.py fused_tendency (:181, v1,
+// _tendency_kernel), the tendency alone, a drop-in for models.core's
+// _tendencies. K1's tile body with the update cut off (kTendOnly): it reads
+// zeta and psi and writes the tendency, three (L, M, P) fields, 101 MB at
+// 2048^2 and 1611 MB at 8192^2 for two layers; the same tile and halos as
+// K1, so the same bandwidth bound.
+template <int L>
+__global__ void __launch_bounds__(THREADS)
+tendency_kernel(const float* __restrict__ zeta, const float* __restrict__ psi,
+                const float* __restrict__ wind, float* __restrict__ tend, int M,
+                int P, StepConsts c) {
+  STATIC_STEP_TILES(false);
+  step_tile<L, false, THREADS, false, true>(
+      zeta, psi, nullptr, nullptr, wind, tend, nullptr, nullptr, M, P, c,
+      ModalConsts{}, 0, 0, blockIdx.y * TX, blockIdx.x * TY, tiles);
+}
+
 }  // namespace
 
 extern "C" int qg_step_num_consts() { return kNumConsts; }
@@ -112,5 +129,18 @@ extern "C" int qg_pre_inversion_launch(const float* zeta, const float* psi,
   kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       zeta, psi, f1, f2, wind, zeta_new, carry, modes, M, P,
       step_consts(consts), q, leapfrog, step);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K9. wind: a (P,) device row, or null when the wind forcing is off; tend:
+// an (L, M, P) device field.
+extern "C" int qg_tendency_launch(const float* zeta, const float* psi,
+                                  const float* wind, float* tend, int L, int M,
+                                  int P, const float* consts, void* stream) {
+  if (L != 1 && L != 2) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((P + TY - 1) / TY, (M + TX - 1) / TX);
+  auto kernel = L == 2 ? tendency_kernel<2> : tendency_kernel<1>;
+  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      zeta, psi, wind, tend, M, P, step_consts(consts));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
 """K1, the fused two-layer step (tendency + Euler/AB3 or leapfrog-RA update),
-K8, the same step for one or two layers with the modal projection, K15, the
-step of the y-fused chain, and K17, the whole step in one launch.
+K8, the same step for one or two layers with the modal projection, K9, the
+tendency alone, K15, the step of the y-fused chain, and K17, the whole step
+in one launch.
 
 K1 replaces ``tpu_qg/ops/pallas_tendency.py`` ``fused_step_streamed`` (v4)
 and its single-tile form ``fused_step_pre_fft`` (v3); K8 replaces its
@@ -16,8 +17,8 @@ forward-y as stages; design there). K17 replaces
 whole packed inversion of zeta_new (K16's stages), in one cooperative launch
 of the same source.
 
-``fused_step``/``fused_pre_inversion``/``fused_step_yspec``/
-``fused_step_full`` launch their
+``fused_step``/``fused_pre_inversion``/``fused_tendency``/
+``fused_step_yspec``/``fused_step_full`` launch their
 kernels for CUDA tensors and use their ``*_plain`` versions — the same
 arithmetic in plain torch — only for CPU tensors. The carry follows
 ``tpu_qg.models.core.make_step_fn``: the tendency under ``euler_ab3``, the
@@ -137,6 +138,7 @@ def _lib():
                        [p] * 9 + [i, i, p, p, p, i, p, p])
         _build.declare(lib.qg_fullstep_launch,
                        [p] * 9 + [i, i] + [p] * 8 + [i, p, p])
+        _build.declare(lib.qg_tendency_launch, [p, p, p, p, i, i, i, p, p])
         lib.qg_step_num_consts.restype = ctypes.c_int
         lib.qg_modal_num_consts.restype = ctypes.c_int
     return lib
@@ -203,6 +205,49 @@ def fused_step(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
 
 
 fused_step.launches = 0
+
+
+def fused_tendency_plain(cfg: ModelConfig, zeta: torch.Tensor,
+                         psi: torch.Tensor) -> torch.Tensor:
+    """Plain-torch K9: ``models.core._tendencies``."""
+    from ..models.core import _tendencies
+    return _tendencies(cfg, zeta, psi)
+
+
+def fused_tendency(cfg: ModelConfig, zeta: torch.Tensor,
+                   psi: torch.Tensor) -> torch.Tensor:
+    """K9: every layer's tendency (with the wind forcing) in one kernel pass
+    on CUDA tensors, the plain version on CPU tensors; a drop-in for
+    ``_tendencies``. Replaces ``tpu_qg/ops/pallas_tendency.py:181``
+    ``fused_tendency``; no step route runs it (the reference's tests and
+    ``scripts/bench_variants.py`` call it). Bound: device-memory bandwidth;
+    it reads zeta and psi and writes the tendency, three (L, M, P) fields,
+    101 MB at 2048^2 and 1611 MB at 8192^2 for two layers. Design: K1's
+    32 x 64 tile (``tendency_kernel<L>`` in ``csrc/step_kernel.cu``) with
+    psi (halo 2) and zeta (halo 1) in shared memory, the periodic wrap in
+    the load index, and the update cut off, so each field crosses device
+    memory once."""
+    if zeta.device.type == "cpu":
+        return fused_tendency_plain(cfg, zeta, psi)
+    if zeta.device.type != "cuda":
+        raise ValueError(f"fused_tendency: unsupported device {zeta.device}")
+    _check_operands("fused_tendency", zeta, (("zeta", zeta), ("psi", psi)),
+                    (cfg.n_layers, cfg.M, cfg.P))
+    lib = _lib()
+    consts = _checked_consts(cfg, lib, "fused_tendency")
+    wind = _wind_row(cfg, zeta.device)
+    tend = torch.empty_like(zeta)
+    code = lib.qg_tendency_launch(
+        zeta.data_ptr(), psi.data_ptr(),
+        None if wind is None else wind.data_ptr(), tend.data_ptr(),
+        cfg.n_layers, cfg.M, cfg.P, consts,
+        torch.cuda.current_stream(zeta.device).cuda_stream)
+    _build.check(code, "fused_tendency (K9)")
+    fused_tendency.launches += 1
+    return tend
+
+
+fused_tendency.launches = 0
 
 
 def fused_pre_inversion(cfg: ModelConfig, zeta: torch.Tensor,
