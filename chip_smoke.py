@@ -35,6 +35,32 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    K10 = K11 = 120) and after the turbulence-2048 slice (4 cycles, 240),
    each against the plain MG route and a float64 spectral solve; and the
    tendency path (20 K9 calls on the turbulence-2048 state).
+   The sharded kernels against their plain versions, inputs from numpy
+   seeds, relative to max|plain|: K12 on the row block (2, 512, 2048) of a
+   2048^2 state with its 2-row slabs sliced from the global field (and
+   against K1's rows of the whole field) and on (2, 2048, 8192) of an
+   8192^2 state; K15's sharded form on the 2048^2 block; K13 on
+   (2, 2048, 512) at strip offsets 0 and 12 and on (2, 8192, 2048) at 32;
+   K14 on (2, 2048, 512) with the group indices of ranks 0 and 3 of
+   strip_pair_order(16); K7 on (2, 4096, 4096) and (2, 8192, 8192), and on
+   the real zeta of pod-8192's grid-noise psi against float64 (no worse
+   than 2 x plain).
+4b. mesh   — the halo stepper (tpu_qg_torch.parallel) through run_model
+   (..., mesh=...), the launch counts set to 0 just before each slice and
+   read just after, zeta against the single-device route of the same
+   config from the same psi: a one-rank NCCL mesh on cuda:0,
+   turbulence-2048 (100 steps: K12, K2, K3), pod-8192 (20: K12, K2, K4,
+   K5) and turbulence-2048 with step_chain="on" (20: K15 sharded, K3, K2
+   at the ends), zeta within 1e-6; then four spawned ranks sharing cuda:0
+   on gloo (the kernels built once, here, before they start): (4, 1)
+   turbulence-2048 (10 steps: K12, K2, K14), its chain (10: K15 sharded,
+   K14), (2, 2) turbulence-2048 (10: K12, K2, K13) and (4, 1) pod-8192 (5:
+   K12, K2, K13), the counts checked on every rank, zeta and psi gathered
+   to rank 0 and zeta held within 1e-4 of the single-device route (else
+   the float64 rule); K7's path: 20 pod-8192 inversions with the
+   inverter's pair_stream pinned on (K2, K7), psi against float64. Each
+   rank's process group and the parent's join have time limits; a rank
+   that fails fails the script.
 5. timing  — CUDA-event ms per step of each route by QGModel.run, in turns
    (the routes, then again in reverse), per kernel beside its plain version
    and, for K2 and K4, beside one torch.fft call on the same complex64
@@ -44,7 +70,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    each multigrid path: ms per MG call on the kernel and plain routes
    beside the spectral inversion of the same zeta, K10/K11 per launch at
    each kernel level and K9 beside their plain versions, host enqueue ms per
-   call, and (8192^2) the busy share over one traced MG call.
+   call, and (8192^2) the busy share over one traced MG call. The mesh: ms per step of the one-rank mesh against the
+   single-device route at 2048^2 and 8192^2, in turns; K12, K13, K14, K15's
+   sharded form and K7 per launch beside their plain versions at the
+   mesh slices' shapes; ms per step of each four-rank slice (host-staged
+   gloo transport on one card: not a scaling result).
 
 The line before the last is {"kernels": [...]}, every kernel with its
 launches in phase 4, its largest error, its ms, its plain version's ms
@@ -56,38 +86,54 @@ the larger) and its library call's ms; the last is {"ok": true, "device":
 
 from __future__ import annotations
 
+import datetime
 import json
 import math
+import os
+import shutil
+import socket
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 import tpu_qg_torch
 from tpu_qg_torch import preset
 from tpu_qg_torch.constants import DAY
 from tpu_qg_torch.models.core import QGModel, init_state
 from tpu_qg_torch.ops import _build, dft_kernels
-from tpu_qg_torch.ops.dft_kernels import (mono_invert, mono_invert_plain,
-                                          pair_x_symbols, pair_x_symbols_plain,
-                                          x_dft, x_dft_plain, x_symbols_inverse,
-                                          x_symbols_inverse_plain, y_dft,
-                                          y_dft_plain)
+from tpu_qg_torch.ops.dft_kernels import (
+    mirror_companion, mono_invert, mono_invert_plain, pair_x_symbols,
+    pair_x_symbols_plain, paired_x_symbols, paired_x_symbols_plain,
+    stream_pair_symbols, stream_pair_symbols_plain, x_dft, x_dft_plain,
+    x_fwd_symbols_offset, x_fwd_symbols_offset_plain, x_symbols_inverse,
+    x_symbols_inverse_plain, y_dft, y_dft_plain)
 from tpu_qg_torch.ops.mg_kernels import (mg_prolong_smooth,
                                          mg_prolong_smooth_plain, mg_smooth,
                                          mg_smooth_plain)
 from tpu_qg_torch.ops.multigrid import MultigridModalInverter
 from tpu_qg_torch.ops.spectral import (PackedModalInverter,
                                        PackedModalInverterKernels)
-from tpu_qg_torch.ops.step_kernel import (fused_pre_inversion,
+from tpu_qg_torch.ops.step_kernel import (HALO_ROWS, fused_pre_inversion,
                                           fused_pre_inversion_plain,
                                           fused_step, fused_step_full,
                                           fused_step_full_plain,
-                                          fused_step_plain, fused_step_yspec,
+                                          fused_step_plain,
+                                          fused_step_sharded,
+                                          fused_step_sharded_plain,
+                                          fused_step_yspec,
                                           fused_step_yspec_plain,
+                                          fused_step_yspec_sharded,
+                                          fused_step_yspec_sharded_plain,
                                           fused_tendency,
                                           fused_tendency_plain)
+from tpu_qg_torch.parallel import (gather_state, make_halo_run_fn, make_mesh,
+                                   shard_state)
+from tpu_qg_torch.parallel.paired import strip_pair_order
 from tpu_qg_torch.run import run_model
 from tpu_qg_torch.utils.diagnostics import diagnostics
 
@@ -99,9 +145,11 @@ SEED = 1234
 # MG path's psi the dryrun multigrid gate (commit 26d1ffc) against the
 # plain MG route.
 TOL = {"K1": 1e-6, "K2": 1e-5, "K3": 1e-4, "K4": 1e-5, "K5": 1e-4,
-       "K8": 1e-6, "K9": 1e-6, "K10": 1e-6, "K11": 1e-6, "K15": 1e-6,
-       "K15 zeta_ys": 1e-5, "K16": 1e-4, "K17": 1e-6, "K17 psi_new": 1e-4,
-       "slice_zeta": 1e-4, "mg_psi": 1e-5}
+       "K7": 1e-4, "K8": 1e-6, "K9": 1e-6, "K10": 1e-6, "K11": 1e-6,
+       "K12": 1e-6, "K13": 1e-4, "K14": 1e-4, "K15": 1e-6,
+       "K15 zeta_ys": 1e-5, "K15s": 1e-6, "K16": 1e-4, "K17": 1e-6,
+       "K17 psi_new": 1e-4, "slice_zeta": 1e-4, "mesh1_zeta": 1e-6,
+       "mg_psi": 1e-5}
 FUSED = "tpu_qg_torch/csrc/fused_kernels.cu"
 MG = "tpu_qg_torch/csrc/mg_kernels.cu"
 KERNELS = {
@@ -124,16 +172,33 @@ KERNELS = {
     "K15": ("fused_step_yspec", FUSED, "tpu_qg/ops/pallas_tendency.py:839"),
     "K16": ("mono_invert", FUSED, "tpu_qg/ops/pallas_fft.py:1342"),
     "K17": ("fused_step_full", FUSED, "tpu_qg/ops/pallas_fullstep.py:308"),
+    "K7": ("stream_pair_symbols", "tpu_qg_torch/csrc/dft_kernels.cu",
+           "tpu_qg/ops/pallas_fft.py:1304"),
+    "K12": ("fused_step_sharded", "tpu_qg_torch/csrc/step_kernel.cu",
+            "tpu_qg/ops/pallas_tendency.py:608"),
+    "K13": ("x_fwd_symbols_offset", "tpu_qg_torch/csrc/dft_kernels.cu",
+            "tpu_qg/ops/pallas_fft.py:1204"),
+    "K14": ("paired_x_symbols", "tpu_qg_torch/csrc/dft_kernels.cu",
+            "tpu_qg/parallel/paired.py:226"),
+    "K15s": ("fused_step_yspec_sharded (K15's sharded form)", FUSED,
+             "tpu_qg/ops/pallas_tendency.py:913"),
 }
 COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
             "K4": x_dft, "K5": x_symbols_inverse, "K8": fused_pre_inversion,
             "K9": fused_tendency, "K10": mg_smooth,
             "K11": mg_prolong_smooth, "K15": fused_step_yspec,
-            "K16": mono_invert, "K17": fused_step_full}
-# Kernel names in a profiler trace, the one-launch kernels, K8 and K9 before
-# K1: a mangled K8 or K9 name holds the source file's name, step_kernel.
+            "K16": mono_invert, "K17": fused_step_full,
+            "K7": stream_pair_symbols, "K12": fused_step_sharded,
+            "K13": x_fwd_symbols_offset, "K14": paired_x_symbols,
+            "K15s": fused_step_yspec_sharded}
+# Kernel names in a profiler trace, the one-launch kernels, K8, K9 and K12
+# before K1: a mangled K8, K9 or K12 name holds the source file's name,
+# step_kernel. K7, K13 and K14 are one kernel, pair_cols_kernel.
 TRACE_NAMES = (("K17", "coop_fullstep_kernel"), ("K16", "coop_mono_kernel"),
-               ("K15", "coop_yspec_kernel"), ("K11", "mg_prolong_kernel"),
+               ("K15s", "coop_yspec_sharded_kernel"),
+               ("K15", "coop_yspec_kernel"), ("K12", "step_sharded_kernel"),
+               ("K7/K13/K14", "pair_cols_kernel"),
+               ("K11", "mg_prolong_kernel"),
                ("K10", "mg_smooth_kernel"), ("K9", "tendency_kernel"),
                ("K8", "pre_inversion_kernel"),
                ("K5", "x_symbols_inverse_kernel"), ("K4", "x_dft_kernel"),
@@ -186,6 +251,7 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
 def free_memory() -> None:
     """Drop the plain versions' cached tables and the allocator's cache."""
     dft_kernels._symbols.cache_clear()
+    dft_kernels._strip_symbols.cache_clear()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -199,9 +265,10 @@ def inverter(cfg) -> PackedModalInverterKernels:
 
 def bound(name: str, M: int, P: int) -> tuple[float, str, float]:
     """(bound ms, "bytes" or "operations", bytes) of one launch of kernel
-    ``name`` on a two-layer (M, P) grid: each input field read once and
-    each output written once, against 5 N log2 N operations per complex
-    transform of length N and STEP_OPS per point and layer."""
+    ``name`` on a two-layer (M, P) grid or block: each input field read once
+    and each output written once, against 5 N log2 N operations per complex
+    transform of length N and STEP_OPS per point and layer (K7 and K13
+    transform two columns forward and one back per output column)."""
     field = 2 * M * P * 4
 
     def ffts(n: int, count: int) -> float:
@@ -219,7 +286,9 @@ def bound(name: str, M: int, P: int) -> tuple[float, str, float]:
         "K10 residual": (4, sweeps + residual), "K10 smooth": (3, sweeps),
         "K11": (3.25, sweeps + 2 * MG_PROLONG_OPS * M * P),
         "K15": (7, step + 2 * ffts(P, M)), "K16": (2, mono),
-        "K17": (7, step + mono)}[name]
+        "K17": (7, step + mono), "K7": (2, ffts(M, 3 * P)),
+        "K12": (6, step), "K13": (3, ffts(M, 3 * P)),
+        "K14": (2, ffts(M, 2 * P)), "K15s": (7, step + 2 * ffts(P, M))}[name]
     t_bytes = fields * field / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
@@ -506,6 +575,118 @@ def phase_mg_kernels(errs, turb, pod_mg, dev) -> None:
     torch.cuda.synchronize()
 
 
+def slabs(fields, r0: int, m: int, h: int = HALO_ROWS):
+    """(top, bottom) h-row slabs of whole fields around rows [r0, r0 + m),
+    wrapped periodically: what the block's x-neighbours send."""
+    M = fields[0].shape[1]
+    top = torch.tensor([(r0 - h + i) % M for i in range(h)], device=fields[0].device)
+    bot = torch.tensor([(r0 + m + i) % M for i in range(h)], device=fields[0].device)
+    return [(a[:, top].contiguous(), a[:, bot].contiguous()) for a in fields]
+
+
+def sharded_inputs(cfg, dev, rng, nx: int, k: int):
+    """Rank k of nx's row block of step_inputs' fields and its slabs, and
+    the whole fields."""
+    whole = step_inputs(cfg, dev, rng)
+    m = cfg.M // nx
+    rows = slice(k * m, (k + 1) * m)
+    block = [a[:, rows].contiguous() for a in whole]
+    return block, slabs(whole[:2], k * m, m), whole, rows
+
+
+def check_sharded_step(errs, cfg, dev, rng, nx, k, cases, tag="") -> None:
+    """K12 on rank k's block against its plain version and against K1's
+    rows of the whole field, 1e-6."""
+    block, ((zt, zb), (pt, pb)), whole, rows = sharded_inputs(cfg, dev, rng,
+                                                              nx, k)
+    for case, over, step in cases:
+        c = cfg.replace(**over)
+        got = fused_step_sharded(c, *block, step, zt, zb, pt, pb)
+        want = fused_step_sharded_plain(c, *block, step, zt, zb, pt, pb)
+        k1 = fused_step(c, *whole, step)
+        for part, g, w, w1 in zip(("zeta_new", "carry"), got, want, k1):
+            errs.record("K12", f"{tag}{case} {part}", g, w)
+            errs.record("K12", f"{tag}{case} {part} vs K1's rows", g,
+                        w1[:, rows])
+
+
+def phase_sharded_kernels(errs, turb, pod, dev) -> None:
+    """K12, K15's sharded form, K13, K14 and K7 against their plain
+    versions at the mesh slices' shapes (see the module docstring)."""
+    rng = np.random.default_rng(SEED + 5)
+    check_sharded_step(errs, turb, dev, rng, 4, 1, STEP_CASES,
+                       "(2, 512, 2048) of 2048^2 ")
+    block, ((zt, zb), (pt, pb)), _, _ = sharded_inputs(turb, dev, rng, 4, 1)
+    z, p, f1, f2 = block
+    whole_ys = [y_dft_plain(a, False) for a in (pt, pb)]
+    p_ys = y_dft_plain(p, False)
+    for case, over, step in STEP_CASES:
+        c = turb.replace(**over)
+        got = fused_step_yspec_sharded(c, z, p_ys, f1, f2, step, zt, zb,
+                                       *whole_ys)
+        want = fused_step_yspec_sharded_plain(c, z, p_ys, f1, f2, step, zt,
+                                              zb, *whole_ys)
+        for part, g, w in zip(("zeta_new", "carry", "zeta_ys"), got, want):
+            errs.record("K15s", f"(2, 512, 2048) {case} {part}", g, w,
+                        TOL["K15 zeta_ys"] if part == "zeta_ys" else None)
+    del block, z, p, f1, f2, whole_ys, p_ys
+    free_memory()
+    check_sharded_step(errs, pod, dev, rng, 4, 2, STEP_CASES[1:2],
+                       "(2, 2048, 8192) of 8192^2 ")
+    free_memory()
+
+    # K13 on random y-spectra: a rank's column block and its companion.
+    for cfg, nx, offs in ((turb, 4, (0, 3)), (pod, 4, (2,))):
+        consts = inverter(cfg)._sym_consts
+        x = torch.as_tensor(rng.standard_normal((2, cfg.M, cfg.P)),
+                            dtype=torch.float32, device=dev)
+        xm = mirror_companion(x)
+        w = cfg.P // nx
+        for k in offs:
+            cols = slice(k * w, (k + 1) * w)
+            a, b = x[..., cols].contiguous(), xm[..., cols].contiguous()
+            off = k * w // 128
+            errs.record("K13", f"({cfg.M}, {w}) strip offset {off}",
+                        x_fwd_symbols_offset(a, b, consts, off),
+                        x_fwd_symbols_offset_plain(a, b, consts, off))
+        del x, xm
+        free_memory()
+
+    # K14: ranks 0 (the self-mirror group) and 3 of 4 at 2048^2.
+    consts = inverter(turb)._sym_consts
+    order = strip_pair_order(turb.P // 128)
+    x = torch.as_tensor(rng.standard_normal((2, turb.M, turb.P)),
+                        dtype=torch.float32, device=dev)
+    w, strips = turb.P // 4, turb.P // 4 // 128
+    for k in (0, 3):
+        blk = x[..., k * w:(k + 1) * w].contiguous()
+        idx = order[k * strips:(k + 1) * strips]
+        errs.record("K14", f"(2048, 512) rank {k} of 4, groups {list(idx)}",
+                    paired_x_symbols(blk, idx, consts),
+                    paired_x_symbols_plain(blk, idx, consts))
+
+    # K7 on random y-spectra, then on pod-8192's zeta against float64.
+    for n in (4096, 8192):
+        cfg = pod.replace(M=n, P=n)
+        consts = inverter(cfg)._sym_consts
+        x = torch.as_tensor(rng.standard_normal((2, n, n)),
+                            dtype=torch.float32, device=dev)
+        errs.record("K7", f"random y-spectrum {n}^2",
+                    stream_pair_symbols(x, consts),
+                    stream_pair_symbols_plain(x, consts))
+        del x
+        free_memory()
+    consts = inverter(pod)._sym_consts
+    zy = y_dft_plain(init_state(pod, dev).zeta, False)
+    vs_float64("K7", "pod-8192 zeta y-spectrum",
+               lambda z: stream_pair_symbols(z, consts),
+               lambda z: stream_pair_symbols_plain(z, consts), zy)
+    del zy
+    emit("kernels", grids={"K15s": fused_step_yspec_sharded.grid},
+         grid_is="(blocks, blocks per SM) of the cooperative launch")
+    free_memory()
+
+
 def mg_inverter(cfg, cycles: int, use_pallas: str = "auto"):
     return MultigridModalInverter(cfg.M, cfg.P, cfg.dx, cfg.S_eig,
                                   cfg.P_inv_matrix(),
@@ -605,6 +786,344 @@ def run_tendency_path(cfg, state, calls) -> dict:
     if not r <= TOL["K9"]:
         raise AssertionError(f"tendency path: rel err {r} > {TOL['K9']}")
     return launches
+
+
+# --- The mesh: the halo stepper on a one-rank NCCL mesh and on four gloo
+# ranks sharing the card.
+
+PG_TIMEOUT_S = 300         # a collective that waits longer has lost a rank
+SPAWN_TIMEOUT_S = 420      # the four-rank phase as a whole
+
+
+def counts() -> dict:
+    return {k: c.launches for k, c in COUNTERS.items()}
+
+
+def reset_counts() -> None:
+    for counter in COUNTERS.values():
+        counter.launches = 0
+
+
+def zeta_vs_single_device(name, cfg, dev, out_zeta, state0, steps, tol):
+    """Relative difference of a mesh run's gathered zeta from the
+    single-device route of the same config from the same state; past
+    ``tol``, both held against a float64 single-device run (the mesh run no
+    worse than 2 x the single-device route). Returns the emitted fields."""
+    ref = run_model(cfg, save_results=False, n_steps=steps, device=dev,
+                    state=state0, verbose=False)
+    _, dz = rel_err(out_zeta, ref.zeta)
+    fields = dict(zeta_rel_diff_vs_single_device=dz, tol_zeta=tol)
+    if dz <= tol:
+        return fields
+    del ref
+    free_memory()
+    f64 = run_model(cfg.replace(dtype="float64", fft_impl="xla",
+                                use_pallas=False),
+                    save_results=False, n_steps=steps, device=dev,
+                    state=state0._replace(**{
+                        k: getattr(state0, k).double()
+                        for k in ("zeta", "psi", "f1", "f2")}),
+                    verbose=False)
+    ref = run_model(cfg, save_results=False, n_steps=steps, device=dev,
+                    state=state0, verbose=False)
+    _, e_mesh = rel_err(out_zeta.double(), f64.zeta)
+    _, e_single = rel_err(ref.zeta.double(), f64.zeta)
+    fields["float64_adjudication"] = dict(
+        zeta_rel_err_mesh=e_mesh, zeta_rel_err_single_device=e_single,
+        rule="mesh <= 2 x single device")
+    if not e_mesh <= 2.0 * e_single:
+        raise AssertionError(f"{name}: zeta differs from the single-device "
+                             f"route by {dz} and its float64 error {e_mesh} "
+                             f"exceeds twice the route's {e_single}")
+    return fields
+
+
+def run_mesh_slice(name, cfg, mesh, dev, steps, expect, route) -> dict:
+    """``steps`` steps through run_model on ``mesh`` with the launch counts
+    set to 0 just before and read just after; zeta against the single-device
+    route (TOL["mesh1_zeta"], the same arithmetic). Returns the counts."""
+    got_route = make_halo_run_fn(cfg, mesh).route
+    if got_route != route:
+        raise AssertionError(f"{name}: route {got_route} != {route}")
+    state0 = init_state(cfg, dev)
+    reset_counts()
+    out = run_model(cfg, save_results=False, n_steps=steps, state=state0,
+                    verbose=False, mesh=mesh)
+    torch.cuda.synchronize()
+    launches = counts()
+    want = {k: expect.get(k, 0) for k in COUNTERS}
+    if launches != want:
+        raise AssertionError(f"{name}: launch counts {launches} != {want}")
+    out = gather_state(out, mesh, ("zeta", "psi"))
+    finite = bool(torch.isfinite(out.zeta).all() and
+                  torch.isfinite(out.psi).all())
+    if not finite or tuple(out.zeta.shape) != (2, cfg.M, cfg.P):
+        raise AssertionError(f"{name}: final state finite={finite} shape "
+                             f"{tuple(out.zeta.shape)}")
+    fields = zeta_vs_single_device(name, cfg, dev, out.zeta, state0, steps,
+                                   TOL["mesh1_zeta"])
+    emit("mesh_slice", preset=name, mesh=list(mesh.shape), ranks=mesh.size,
+         backend=mesh.backend, route=route, steps=steps, launches=launches,
+         **fields)
+    return launches
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_mesh_one_rank(turb, pod, dev, card) -> tuple[dict, dict]:
+    """The one-rank NCCL mesh on ``dev``: the three slices, then ms per step
+    of the mesh against the single-device route in turns, at 2048^2 and
+    8192^2. Returns (launches by path, ms by grid)."""
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    try:
+        mesh = make_mesh((1, 1), device=dev)
+        chain = turb.replace(step_chain="on")
+        launches = {}
+        for name, cfg, steps, expect, route in (
+                ("turbulence-2048 mesh (1, 1)", turb, 100,
+                 {"K12": 100, "K2": 200, "K3": 100}, "fused"),
+                ("pod-8192 mesh (1, 1)", pod, 20,
+                 {"K12": 20, "K2": 40, "K4": 20, "K5": 20}, "fused"),
+                ("turbulence-2048 step_chain=on mesh (1, 1)", chain, 20,
+                 {"K15s": 20, "K3": 20, "K2": 2 * run_chunks(chain, 20)},
+                 "chain")):
+            launches[name] = run_mesh_slice(name, cfg, mesh, dev, steps,
+                                            expect, route)
+            free_memory()
+        ms = {}
+        for cfg, steps in ((turb, 100), (pod, 20)):
+            model = QGModel(cfg, dev)
+            run = make_halo_run_fn(cfg, mesh)
+            state0 = model.run(model.init_state(), 3)
+            local = shard_state(state0, mesh)
+            calls = {"single_device": lambda: model.run(state0, steps),
+                     "mesh_1x1": lambda: run(local, steps)}
+            runs = {k: [] for k in calls}
+            for k in list(calls) + list(calls)[::-1]:
+                runs[k].append(time_ms(calls[k], 1, warmup=1) / steps)
+            ms[cfg.M] = {k: sum(v) / len(v) for k, v in runs.items()}
+            emit("timing", card=card, grid=[cfg.M, cfg.P], mesh=[1, 1],
+                 backend="nccl", steps_per_run=steps, step_ms=ms[cfg.M],
+                 step_ms_runs=runs, routes={"single_device": model.route,
+                                            "mesh_1x1": run.route},
+                 mesh_over_single_device=ms[cfg.M]["mesh_1x1"]
+                 / ms[cfg.M]["single_device"])
+            del model, run, state0, local, calls
+            free_memory()
+        return launches, ms
+    finally:
+        dist.destroy_process_group()
+
+
+def run_k7_path(pod, dev, calls: int) -> dict:
+    """``calls`` pod-8192 inversions through PackedModalInverterKernels with
+    pair_stream pinned on, the counts set to 0 just before and read just
+    after (K2 = 2 calls, K7 = calls); psi against a float64 inversion, no
+    worse than 2 x the plain versions' route."""
+    inv = inverter(pod)
+    inv.pair_stream = True
+    zeta = init_state(pod, dev).zeta
+    reset_counts()
+    for _ in range(calls):
+        psi = inv(zeta)
+    torch.cuda.synchronize()
+    launches = counts()
+    want = {k: 0 for k in COUNTERS}
+    want.update(K2=2 * calls, K7=calls)
+    if launches != want:
+        raise AssertionError(f"K7 path: launch counts {launches} != {want}")
+    consts = inv._sym_consts
+    plain = y_dft_plain(stream_pair_symbols_plain(y_dft_plain(zeta, False),
+                                                  consts), True)
+    psi64 = PackedModalInverter(pod.M, pod.P, pod.dx, pod.S_eig,
+                                pod.P_inv_matrix(),
+                                pod.back_projection_matrix())(zeta.double())
+    _, e_kern = rel_err(psi.double(), psi64)
+    _, e_plain = rel_err(plain.double(), psi64)
+    emit("k7_path", grid=[pod.M, pod.P], calls=calls, launches=launches,
+         psi_rel_err_vs_float64={"kernel": e_kern, "plain": e_plain},
+         rule="kernel <= 2 x plain")
+    del psi64, plain, psi, zeta
+    free_memory()
+    if not e_kern <= 2.0 * e_plain:
+        raise AssertionError(f"K7 path: psi float64 error {e_kern} exceeds "
+                             f"twice the plain route's {e_plain}")
+    return launches
+
+
+FOUR_RANK_SLICES = (
+    # name, preset, step_chain, mesh, steps, expected counts on every rank
+    ("turbulence-2048 mesh (4, 1)", "turbulence-2048", "auto", (4, 1), 10,
+     {"K12": 10, "K2": 20, "K14": 10}, "fused"),
+    ("turbulence-2048 step_chain=on mesh (4, 1)", "turbulence-2048", "on",
+     (4, 1), 10, {"K15s": 10, "K14": 10, "K2": 2}, "chain"),
+    ("turbulence-2048 mesh (2, 2)", "turbulence-2048", "auto", (2, 2), 10,
+     {"K12": 10, "K2": 20, "K13": 10}, "fused-2d"),
+    ("pod-8192 mesh (4, 1)", "pod-8192", "auto", (4, 1), 5,
+     {"K12": 5, "K2": 10, "K13": 5}, "fused"),
+)
+
+
+def mesh_rank(rank: int, world: int, rendezvous: str, out: str) -> None:
+    """One of the four ranks sharing cuda:0 on gloo: every slice of
+    FOUR_RANK_SLICES through run_model with the counts set to 0 just before
+    and checked just after on this rank, zeta and psi gathered; rank 0
+    holds zeta against the single-device route; then ms per step of the
+    same steps by the halo run function (host clock, both ends behind a
+    barrier). Rank 0 writes its report to ``out``."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.set_num_threads(2)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{rendezvous}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    try:
+        _build.load()
+        report = []
+        for name, preset_name, chain, shape, steps, expect, route in \
+                FOUR_RANK_SLICES:
+            cfg = preset(preset_name).replace(step_chain=chain)
+            mesh = make_mesh(shape, device=dev, backend="gloo")
+            got_route = make_halo_run_fn(cfg, mesh).route
+            if got_route != route:
+                raise AssertionError(f"{name}: route {got_route} != {route}")
+            state0 = init_state(cfg, dev)
+            reset_counts()
+            out_state = run_model(cfg, save_results=False, n_steps=steps,
+                                  state=state0, verbose=False, mesh=mesh)
+            torch.cuda.synchronize()
+            launches = counts()
+            want = {k: expect.get(k, 0) for k in COUNTERS}
+            if launches != want:
+                raise AssertionError(f"{name}: rank {rank} launch counts "
+                                     f"{launches} != {want}")
+            full = gather_state(out_state, mesh, ("zeta", "psi"))
+            run = make_halo_run_fn(cfg, mesh)
+            local = shard_state(state0, mesh)
+            run(local, 1)                          # allocations warm
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            run(local, steps)
+            torch.cuda.synchronize()
+            dist.barrier()
+            step_ms = (time.perf_counter() - t0) * 1e3 / steps
+            if rank == 0:
+                finite = bool(torch.isfinite(full.zeta).all()
+                              and torch.isfinite(full.psi).all())
+                if not finite:
+                    raise AssertionError(f"{name}: non-finite state")
+                fields = zeta_vs_single_device(name, cfg, dev, full.zeta,
+                                               state0, steps,
+                                               TOL["slice_zeta"])
+                report.append(dict(preset=name, mesh=list(shape), ranks=world,
+                                   backend="gloo (host-staged, one card)",
+                                   route=route, steps=steps,
+                                   launches_per_rank=launches,
+                                   step_ms=step_ms, **fields))
+            del state0, out_state, full, local, run
+            free_memory()
+            dist.barrier()
+        if rank == 0:
+            with open(out, "w") as fh:
+                json.dump(report, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_four_ranks(card) -> list:
+    """Spawn the four ranks (the kernels are already built: each loads the
+    library), join them within SPAWN_TIMEOUT_S, kill any left; a rank that
+    fails raises here. Returns rank 0's report."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        out = os.path.join(tmp, "report.json")
+        ctx = mp.spawn(mesh_rank, args=(4, os.path.join(tmp, "rendezvous"),
+                                        out), nprocs=4, join=False)
+        deadline = time.monotonic() + SPAWN_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 1)):
+                if time.monotonic() >= deadline:
+                    raise TimeoutError(f"four-rank mesh phase still running "
+                                       f"after {SPAWN_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(10)
+        with open(out) as fh:
+            report = json.load(fh)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for row in report:
+        emit("mesh_slice", card=card, **row,
+             timing_is="host-staged gloo transport between 4 processes on "
+                       "one card: not a scaling result")
+    return report
+
+
+def time_sharded_kernels(turb, pod, dev, card) -> dict:
+    """K12, K13, K14, K15's sharded form and K7 per launch beside their plain
+    versions, in turns, at the mesh slices' shapes: K12 and K15s on the
+    one-rank 2048^2 block (2, 2048, 2048), K13 on the (4, 1) pod-8192
+    block (2, 8192, 2048), K14 on the (4, 1) turbulence-2048 block
+    (2, 2048, 512), K7 on (2, 8192, 8192). Each entry carries its shape."""
+    rng = np.random.default_rng(SEED + 6)
+    out = {}
+    zeta, psi, f1, f2 = step_inputs(turb, dev, rng)
+    (zt, zb), (pt, pb) = slabs((zeta, psi), 0, turb.M)
+    psi_ys = y_dft_plain(psi, False)
+    pt_ys, pb_ys = y_dft_plain(pt, False), y_dft_plain(pb, False)
+    out.update(time_kernels({
+        "K12": (lambda: fused_step_sharded(turb, zeta, psi, f1, f2, 5, zt, zb,
+                                           pt, pb),
+                lambda: fused_step_sharded_plain(turb, zeta, psi, f1, f2, 5,
+                                                 zt, zb, pt, pb), 1),
+        "K15s": (lambda: fused_step_yspec_sharded(turb, zeta, psi_ys, f1, f2,
+                                                  5, zt, zb, pt_ys, pb_ys),
+                 lambda: fused_step_yspec_sharded_plain(
+                     turb, zeta, psi_ys, f1, f2, 5, zt, zb, pt_ys, pb_ys), 1)},
+        50, 10))
+    for k in ("K12", "K15s"):
+        out[k]["shape"] = [2, turb.M, turb.P]
+    del zeta, psi, f1, f2, psi_ys
+    consts = inverter(turb)._sym_consts
+    x = torch.as_tensor(rng.standard_normal((2, turb.M, turb.P // 4)),
+                        dtype=torch.float32, device=dev)
+    idx = strip_pair_order(turb.P // 128)[:4]
+    out.update(time_kernels({"K14": (
+        lambda: paired_x_symbols(x, idx, consts),
+        lambda: paired_x_symbols_plain(x, idx, consts), 1)}, 100, 20))
+    out["K14"]["shape"] = list(x.shape)
+    consts = inverter(pod)._sym_consts
+    x = torch.as_tensor(rng.standard_normal((2, pod.M, pod.P // 4)),
+                        dtype=torch.float32, device=dev)
+    xm = torch.as_tensor(rng.standard_normal((2, pod.M, pod.P // 4)),
+                         dtype=torch.float32, device=dev)
+    out.update(time_kernels({"K13": (
+        lambda: x_fwd_symbols_offset(x, xm, consts, 16),
+        lambda: x_fwd_symbols_offset_plain(x, xm, consts, 16), 1)}, 20, 5))
+    out["K13"]["shape"] = list(x.shape)
+    del x, xm
+    free_memory()
+    x = torch.as_tensor(rng.standard_normal((2, pod.M, pod.P)),
+                        dtype=torch.float32, device=dev)
+    out.update(time_kernels({"K7": (
+        lambda: stream_pair_symbols(x, consts),
+        lambda: stream_pair_symbols_plain(x, consts), 1)}, 10, 3))
+    out["K7"]["shape"] = list(x.shape)
+    del x
+    free_memory()
+    for name, t in out.items():
+        t["bound_ms"] = bound(name, t["shape"][1], t["shape"][2])[0]
+    emit("timing", card=card, kernel_ms=out, at="the mesh slices' shapes")
+    return out
 
 
 def run_chunks(cfg, steps: int) -> int:
@@ -899,17 +1418,22 @@ def time_mg(name, cfg, dev, card, zeta, seed, state, cycles, reps,
             "levels": levels, "call_ms": call_ms}
 
 
-def kernel_rows(errs, launches, ms_2048, ms_8192, extra) -> list:
+def kernel_rows(errs, launches, ms_2048, ms_8192, extra, sharded) -> list:
     """The {"kernels": [...]} entries: launches summed over the paths
     (each counted from 0), errors, ms per launch beside the plain version's
     and the library call's, and the bound, at 2048^2 for K1-K3, K8, K9 and
-    K15-K17 and 8192^2 for K4/K5 and K10/K11 (the top level of the 8192^2
-    solver); ``extra`` adds fields to a kernel's entry."""
+    K15-K17, 8192^2 for K4/K5 and K10/K11 (the top level of the 8192^2
+    solver), and at the mesh slices' shapes in ``sharded`` for K7, K12-K14
+    and K15's sharded form; ``extra`` adds fields to a kernel's entry."""
     rows = []
     for name, (fn, source, replaces) in KERNELS.items():
-        at = ms_2048 if name in ms_2048 else ms_8192
-        n = 2048 if at is ms_2048 else 8192
-        bound_ms, bound_by, nbytes = bound(name, n, n)
+        if name in sharded:
+            at, (_, rows_, cols) = sharded, sharded[name]["shape"]
+        else:
+            at = ms_2048 if name in ms_2048 else ms_8192
+            rows_ = cols = 2048 if at is ms_2048 else 8192
+        n = [rows_, cols]
+        bound_ms, bound_by, nbytes = bound(name, rows_, cols)
         row = {"name": f"{name} {fn}", "route": "cuda", "source": source,
                "replaces": replaces,
                "launches": sum(run[name] for run in launches.values()),
@@ -920,7 +1444,7 @@ def kernel_rows(errs, launches, ms_2048, ms_8192, extra) -> list:
                "rel_err": errs.by_kernel[name][1],
                "ms": at[name]["ms"], "plain_ms": at[name]["plain_ms"],
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-               "library_ms": at[name].get("library_ms"), "grid": [n, n]}
+               "library_ms": at[name].get("library_ms"), "grid": n}
         if name in ("K1", "K2", "K9"):
             row.update(ms_8192=ms_8192[name]["ms"],
                        plain_ms_8192=ms_8192[name]["plain_ms"],
@@ -975,6 +1499,7 @@ def main() -> None:
     phase_kernels(errs, turb, dev)
     phase_x_kernels(errs, pod, dev)
     phase_mg_kernels(errs, turb, pod_mg, dev)
+    phase_sharded_kernels(errs, turb, pod, dev)
 
     slices = (
         ("turbulence-2048", turb, 100, {"K1": 100, "K2": 200, "K3": 100},
@@ -1017,6 +1542,15 @@ def main() -> None:
         turb, finals["turbulence-2048"], 20)
     free_memory()
 
+    # The mesh: one rank on NCCL, K7's path, then four ranks on gloo.
+    mesh_launches, mesh_ms = phase_mesh_one_rank(turb, pod, dev, card)
+    launches.update(mesh_launches)
+    launches["pod-8192 K7 path (pair_stream on)"] = run_k7_path(pod, dev, 20)
+    free_memory()
+    for row in phase_mesh_four_ranks(card):
+        launches[f"{row['preset']} (rank 0 of 4)"] = {
+            k: row["launches_per_rank"].get(k, 0) for k in COUNTERS}
+
     plain = dict(fft_impl="xla", use_pallas=False)
     ms_2048 = phase_timing(
         {"default": turb, **forms, "plain": turb.replace(**plain)}, dev, card,
@@ -1038,8 +1572,12 @@ def main() -> None:
                  "by_level_2048_solver": levels[2048][k]}
              for k in ("K10", "K11")}
 
+    sharded_ms = time_sharded_kernels(turb, pod, dev, card)
+    extra["K12"] = {"mesh_step_ms": mesh_ms}
+
     print(json.dumps({"kernels": kernel_rows(errs, launches, ms_2048,
-                                             ms_8192, extra)}), flush=True)
+                                             ms_8192, extra, sharded_ms)}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

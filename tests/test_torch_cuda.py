@@ -9,7 +9,9 @@ K5 1e-4 (the 1/lambda symbol amplifies low-k float32 rounding); the
 one-launch kernels as the kernels they fuse: K16 1e-4, K17 1e-6 (zeta_new,
 carry) and 1e-4 (psi_new), K15 1e-6 (zeta_new, carry) and 1e-5 (zeta_ys);
 K9 1e-6 (K1's tile); K10 and K11 1e-6 (tests/test_multigrid.py's kernel
-tolerance), and the multigrid solves on the card 1e-5 from the CPU's.
+tolerance), and the multigrid solves on the card 1e-5 from the CPU's. The
+sharded kernels as the kernels they extend: K12 1e-6, K15's sharded form
+1e-6 (zeta_new, carry) and 1e-5 (zeta_ys), K13, K14 and K7 1e-4.
 """
 
 import numpy as np
@@ -18,11 +20,12 @@ import torch
 
 from tpu_qg_torch import preset
 from tpu_qg_torch.models.core import QGModel, init_state
-from tpu_qg_torch.ops.dft_kernels import (mono_invert, mono_invert_plain,
-                                          pair_x_symbols, pair_x_symbols_plain,
-                                          x_dft, x_dft_plain, x_symbols_inverse,
-                                          x_symbols_inverse_plain, y_dft,
-                                          y_dft_plain)
+from tpu_qg_torch.ops.dft_kernels import (
+    mirror_companion, mono_invert, mono_invert_plain, pair_x_symbols,
+    pair_x_symbols_plain, paired_x_symbols, paired_x_symbols_plain,
+    stream_pair_symbols, stream_pair_symbols_plain, x_dft, x_dft_plain,
+    x_fwd_symbols_offset, x_fwd_symbols_offset_plain, x_symbols_inverse,
+    x_symbols_inverse_plain, y_dft, y_dft_plain)
 from tpu_qg_torch.ops import mg_kernels
 from tpu_qg_torch.ops.mg_kernels import (mg_prolong_smooth,
                                          mg_prolong_smooth_plain, mg_smooth,
@@ -33,8 +36,13 @@ from tpu_qg_torch.ops.step_kernel import (fused_pre_inversion,
                                           fused_pre_inversion_plain,
                                           fused_step, fused_step_full,
                                           fused_step_full_plain,
-                                          fused_step_plain, fused_step_yspec,
+                                          fused_step_plain,
+                                          fused_step_sharded,
+                                          fused_step_sharded_plain,
+                                          fused_step_yspec,
                                           fused_step_yspec_plain,
+                                          fused_step_yspec_sharded,
+                                          fused_step_yspec_sharded_plain,
                                           fused_tendency,
                                           fused_tendency_plain)
 
@@ -341,3 +349,127 @@ def test_multigrid_inverter_on_card_matches_cpu(dev, M, cycles):
     assert (mg_smooth.launches, mg_prolong_smooth.launches) == (
         n[0] + cycles * levels, n[1] + cycles * levels)
     assert _rel(got.cpu(), want) <= 1e-5
+
+
+def _slabs(fields, r0, m, H):
+    """(top, bottom) H-row slabs of the global fields around rows
+    [r0, r0 + m), with the periodic wrap."""
+    M = fields[0].shape[1]
+    rows_top = [(r0 - H + i) % M for i in range(H)]
+    rows_bot = [(r0 + m + i) % M for i in range(H)]
+    return [(a[:, rows_top].contiguous(), a[:, rows_bot].contiguous())
+            for a in fields]
+
+
+@pytest.mark.parametrize("M,P,nx,H", [(512, 256, 4, 8), (384, 384, 8, 2),
+                                      (2048, 2048, 4, 2)])
+@pytest.mark.parametrize("scheme,tau0,step", [
+    ("euler_ab3", 0.0, 5), ("leapfrog_ra", 0.1, 3)])
+def test_sharded_step_kernel(dev, M, P, nx, H, scheme, tau0, step):
+    """K12 on each rank's row block (48-row blocks at 384: a partial tile
+    that reaches past the bottom slab) against its plain version and K1's
+    rows of the whole field."""
+    cfg = preset("turbulence-2048").replace(M=M, P=P, time_scheme=scheme,
+                                            wind_tau0=tau0)
+    z, p, f1, f2 = _fields(M, P, dev)
+    whole = fused_step_plain(cfg, z, p, f1, f2, step)
+    m = M // nx
+    n = fused_step_sharded.launches
+    for k in (0, nx - 1):
+        rows = slice(k * m, (k + 1) * m)
+        (zt, zb), (pt, pb) = _slabs((z, p), k * m, m, H)
+        block = [a[:, rows].contiguous() for a in (z, p, f1, f2)]
+        got = fused_step_sharded(cfg, *block, step, zt, zb, pt, pb)
+        want = fused_step_sharded_plain(cfg, *block, step, zt, zb, pt, pb)
+        for g, w, w_all in zip(got, want, whole):
+            assert _rel(g, w) <= 1e-6
+            assert _rel(g, w_all[:, rows]) <= 1e-6
+    torch.cuda.synchronize()
+    assert fused_step_sharded.launches == n + 2
+
+
+@pytest.mark.parametrize("M,P,nx", [(1024, 384, 4), (2048, 2048, 4)])
+def test_sharded_yspec_kernel(dev, M, P, nx):
+    """K15's sharded form on two ranks' row blocks against its plain
+    version."""
+    cfg = preset("turbulence-2048").replace(M=M, P=P)
+    z, p, f1, f2 = _fields(M, P, dev)
+    p_ys = y_dft_plain(p, False)
+    m = M // nx
+    n = fused_step_yspec_sharded.launches
+    for k in (0, nx - 1):
+        rows = slice(k * m, (k + 1) * m)
+        (zt, zb), (pt, pb) = _slabs((z, p_ys), k * m, m, 2)
+        block = [a[:, rows].contiguous() for a in (z, p_ys, f1, f2)]
+        got = fused_step_yspec_sharded(cfg, *block, 5, zt, zb, pt, pb)
+        want = fused_step_yspec_sharded_plain(cfg, *block, 5, zt, zb, pt, pb)
+        for part, g, w in zip(("zeta_new", "carry", "zeta_ys"), got, want):
+            assert _rel(g, w) <= (1e-5 if part == "zeta_ys" else 1e-6), part
+    torch.cuda.synchronize()
+    assert fused_step_yspec_sharded.launches == n + 2
+
+
+def _spectrum(M, P, dev, seed=0):
+    return torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (2, M, P)), dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("M,P,nx", [(256, 512, 2), (384, 1024, 4),
+                                    (8192, 1024, 2)])
+def test_offset_x_stage_kernel(dev, M, P, nx):
+    """K13 on every rank's column block and its companion."""
+    consts = _consts(M, P)
+    Zy = _spectrum(M, P, dev)
+    Zm = mirror_companion(Zy)
+    w = P // nx
+    n = x_fwd_symbols_offset.launches
+    for k in range(nx):
+        cols = slice(k * w, (k + 1) * w)
+        a, b = Zy[..., cols].contiguous(), Zm[..., cols].contiguous()
+        off = k * w // 128
+        assert _rel(x_fwd_symbols_offset(a, b, consts, off),
+                    x_fwd_symbols_offset_plain(a, b, consts, off)) <= 1e-4
+    torch.cuda.synchronize()
+    assert x_fwd_symbols_offset.launches == n + nx
+
+
+@pytest.mark.parametrize("M,P,nx", [(256, 1024, 4), (384, 2048, 2)])
+def test_paired_x_stage_kernel(dev, M, P, nx):
+    """K14 on every rank's block in mirror-pair order (the self-mirror
+    group on rank 0)."""
+    from tpu_qg_torch.parallel.paired import strip_pair_order
+    consts = _consts(M, P)
+    order = strip_pair_order(P // 128)
+    X = _spectrum(M, P, dev, 1).unflatten(-1, (P // 128, 128))[..., order, :] \
+        .flatten(-2)
+    w, s = P // nx, P // nx // 128
+    n = paired_x_symbols.launches
+    for k in range(nx):
+        blk = X[..., k * w:(k + 1) * w].contiguous()
+        idx = order[k * s:(k + 1) * s]
+        assert _rel(paired_x_symbols(blk, idx, consts),
+                    paired_x_symbols_plain(blk, idx, consts)) <= 1e-4
+    torch.cuda.synchronize()
+    assert paired_x_symbols.launches == n + nx
+
+
+@pytest.mark.parametrize("M,P", [(256, 512), (384, 256), (4096, 4096)])
+def test_stream_pair_kernel(dev, M, P):
+    """K7 against its plain version and K3's plain version (the same
+    function), and K2, K7, K2^-1 through the inverter's pair_stream."""
+    consts = _consts(M, P)
+    Zy = _spectrum(M, P, dev, 2)
+    n = stream_pair_symbols.launches
+    got = stream_pair_symbols(Zy, consts)
+    assert _rel(got, stream_pair_symbols_plain(Zy, consts)) <= 1e-4
+    assert _rel(got, pair_x_symbols_plain(Zy, consts)) <= 1e-4
+    cfg = preset("turbulence-2048").replace(M=M, P=P, ic_type="vortex")
+    inv = PackedModalInverterKernels(M, P, cfg.dx, cfg.S_eig,
+                                     cfg.P_inv_matrix(),
+                                     cfg.back_projection_matrix())
+    zeta = init_state(cfg, dev).zeta
+    want = inv(zeta)
+    inv.pair_stream = True
+    assert _rel(inv(zeta), want) <= 1e-5
+    torch.cuda.synchronize()
+    assert stream_pair_symbols.launches == n + 2

@@ -220,12 +220,28 @@ def test_cli_runs_on_cpu_with_checkpoints_and_resume(tmp_path, capsys):
     assert z.shape == (2, 32, 32) and np.isfinite(p).all()
 
 
-def test_cli_no_save_and_sharded_flags():
+def test_cli_no_save_and_sharded_flags(monkeypatch, capsys):
+    """--no-save on one device; then the sharded flags in a one-rank gloo
+    group from torchrun's environment (a free port): --mesh 1,1 runs the
+    halo stepper, while the forms not ported yet (--parallel gspmd,
+    --checkpoint-mode sharded) raise."""
+    import socket
     trun.main(["--device", "cpu", "--preset", "turbulence-2048", "--steps",
                "2", "--no-save", "--set", "M=64", "P=64"])
-    for flags in (["--mesh", "2,1"], ["--distributed"], ["--parallel", "halo"]):
-        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-            trun.main(["--device", "cpu", "--steps", "1"] + flags)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+                     WORLD_SIZE="1", LOCAL_RANK="0").items():
+        monkeypatch.setenv(k, v)
+    small = ["--device", "cpu", "--preset", "turbulence-2048", "--steps", "2",
+             "--no-save", "--set", "M=64", "P=64"]
+    trun.main(small + ["--mesh", "1,1"])
+    assert "step 2/2" in capsys.readouterr().out
+    for flags in (["--mesh", "1,1", "--parallel", "gspmd"],
+                  ["--distributed", "--checkpoint-mode", "sharded"]):
+        with pytest.raises(NotImplementedError, match="item 14"):
+            trun.main(small + flags)
 
 
 @pytest.mark.parametrize("preset,sets", [
@@ -283,7 +299,8 @@ def test_nan_state_raises_and_writes_emergency_checkpoint(tmp_path):
 def test_import_pulls_in_no_jax():
     code = ("import sys, tpu_qg_torch, tpu_qg_torch.run, tpu_qg_torch.io, "
             "tpu_qg_torch.interop, tpu_qg_torch.utils.diagnostics, "
-            "tpu_qg_torch.ops.multigrid, tpu_qg_torch.ops.mg_kernels; "
+            "tpu_qg_torch.ops.multigrid, tpu_qg_torch.ops.mg_kernels, "
+            "tpu_qg_torch.parallel, tpu_qg_torch.parallel.stepper; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'tpu_qg.')) or m == 'tpu_qg']; "
             "assert not bad, bad")

@@ -1,0 +1,175 @@
+"""Rank-side code of the tpu_qg_torch mesh tests: spawned gloo ranks on the
+CPU, a ``file://`` rendezvous in a test's temporary directory (no fixed
+port), a bounded process-group timeout and a parent join with a deadline.
+
+Imports neither JAX nor tpu_qg, so that each spawned rank starts quickly;
+the test modules hold the JAX references. Each rank runs every case it is
+given; rank 0 saves the gathered results, which the parent loads."""
+
+from __future__ import annotations
+
+import datetime
+import os
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+PG_TIMEOUT = datetime.timedelta(seconds=90)
+
+
+def spawn(world: int, workdir, cases, timeout: float = 240.0) -> dict:
+    """Run ``cases`` on ``world`` spawned gloo ranks; returns rank 0's
+    results by case name. A rank that fails, or a run past ``timeout``
+    seconds, fails the caller (the ranks are killed)."""
+    workdir = str(workdir)
+    out = os.path.join(workdir, "results.npy")
+    ctx = mp.spawn(_rank_main, args=(world, workdir, cases, out),
+                   nprocs=world, join=False)
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{world} ranks still running after "
+                                   f"{timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    return np.load(out, allow_pickle=True).item()
+
+
+def _rank_main(rank: int, world: int, workdir: str, cases, out: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(workdir, 'rendezvous')}",
+        rank=rank, world_size=world, timeout=PG_TIMEOUT)
+    try:
+        results = {case["name"]: RUNNERS[case["kind"]](case, workdir)
+                   for case in cases}
+        if rank == 0:
+            np.save(out, results, allow_pickle=True)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh(case):
+    from tpu_qg_torch.parallel import make_mesh
+    return make_mesh(case["shape"], device="cpu")
+
+
+def _numpy(state, fields=("zeta", "psi", "f1")) -> dict:
+    out = {f: getattr(state, f).numpy() for f in fields}
+    out["step"] = state.step
+    return out
+
+
+def run_steps(case, workdir):
+    """``case["steps"]`` steps of the halo stepper from ``psi0`` (one
+    make_halo_step_fn call a step, or make_halo_run_fn with ``chain``);
+    returns the gathered state and the route."""
+    from tpu_qg_torch.models.core import init_state
+    from tpu_qg_torch.parallel import (gather_state, make_halo_run_fn,
+                                       make_halo_step_fn, shard_state)
+    mesh = _mesh(case)
+    cfg = case["cfg"]
+    state = shard_state(init_state(cfg, "cpu", psi_init=case["psi0"]), mesh)
+    opts = case.get("opts", {})
+    if "chain" in opts:
+        run = make_halo_run_fn(cfg, mesh, **opts)
+        state, route = run(state, case["steps"]), run.route
+    else:
+        step = make_halo_step_fn(cfg, mesh, **opts)
+        for _ in range(case["steps"]):
+            state = step(state)
+        route = step.route
+    out = _numpy(gather_state(state, mesh))
+    out["route"] = route
+    return out
+
+
+def halo(case, workdir):
+    """exchange_halo of a (M, P) field's blocks, every rank's padded block
+    gathered by mesh rank."""
+    from tpu_qg_torch.parallel.collectives import all_gather_blocks
+    from tpu_qg_torch.parallel.halo import exchange_halo
+    mesh = _mesh(case)
+    u = torch.as_tensor(case["field"])
+    nx, ny = mesh.shape
+    m, p = u.shape[0] // nx, u.shape[1] // ny
+    block = u[mesh.ix * m:(mesh.ix + 1) * m, mesh.iy * p:(mesh.iy + 1) * p]
+    padded = exchange_halo(block[None].contiguous(), case["h"], mesh)
+    # Gather the padded blocks as the tiles of one (nx (m+2h), ny (p+2h))
+    # field.
+    return all_gather_blocks(padded, mesh)[0].numpy()
+
+
+def solver(case, workdir):
+    """DistributedHelmholtzSolver on a (K, M, P) right-hand side."""
+    from tpu_qg_torch.parallel.collectives import all_gather_blocks
+    from tpu_qg_torch.parallel.distributed_fft import \
+        DistributedHelmholtzSolver
+    mesh = _mesh(case)
+    f = torch.as_tensor(case["rhs"])
+    K, M, P = f.shape
+    nx, ny = mesh.shape
+    m, p = M // nx, P // ny
+    solve = DistributedHelmholtzSolver(M, P, case["dx"], case["alphas"], mesh)
+    u = solve(f[:, mesh.ix * m:(mesh.ix + 1) * m,
+                mesh.iy * p:(mesh.iy + 1) * p].contiguous())
+    return all_gather_blocks(u, mesh).numpy()
+
+
+def inverter(case, workdir):
+    """A distributed packed inverter (``case["cls"]``: "packed", "paired"
+    or "packed2d", with ``opts``) on zeta's blocks; psi gathered."""
+    from tpu_qg_torch.parallel.collectives import all_gather_blocks
+    from tpu_qg_torch.parallel.packed import (DistributedPackedInverter,
+                                              DistributedPackedInverter2D)
+    from tpu_qg_torch.parallel.paired import PairedDistributedInverter
+    mesh = _mesh(case)
+    cfg = case["cfg"]
+    cls = {"packed": DistributedPackedInverter,
+           "paired": PairedDistributedInverter,
+           "packed2d": DistributedPackedInverter2D}[case["cls"]]
+    inv = cls(cfg.M, cfg.P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
+              cfg.back_projection_matrix(), mesh, **case.get("opts", {}))
+    z = torch.as_tensor(case["zeta"])
+    nx, ny = mesh.shape
+    m, p = cfg.M // nx, cfg.P // ny
+    psi = inv(z[:, mesh.ix * m:(mesh.ix + 1) * m,
+                mesh.iy * p:(mesh.iy + 1) * p].contiguous())
+    return all_gather_blocks(psi, mesh).numpy()
+
+
+def run_model_case(case, workdir):
+    """run_model on the mesh with gathered checkpoints every 2 steps, then a
+    resume to ``steps + 2``; returns rank 0's checkpoint steps and the final
+    gathered state."""
+    from tpu_qg_torch.io import RunReader
+    from tpu_qg_torch.models.core import init_state
+    from tpu_qg_torch.parallel import gather_state
+    from tpu_qg_torch.run import run_model
+    mesh = _mesh(case)
+    cfg = case["cfg"]
+    run_dir = os.path.join(workdir, case["name"])
+    state0 = init_state(cfg, "cpu", psi_init=case["psi0"])
+    run_model(cfg, run_dir=run_dir, n_steps=case["steps"], checkpoint_every=2,
+              verbose=False, state=state0, mesh=mesh, sample_interval=cfg.dt)
+    out = run_model(cfg, run_dir=run_dir, n_steps=case["steps"] + 2,
+                    resume=True, verbose=False, mesh=mesh,
+                    sample_interval=cfg.dt)
+    result = _numpy(gather_state(out, mesh))
+    dist.barrier()
+    reader = RunReader(run_dir)
+    result["checkpoints"] = reader.checkpoint_steps()
+    result["snapshots"] = reader.snapshot_steps()
+    return result
+
+
+RUNNERS = {"run": run_steps, "halo": halo, "solver": solver,
+           "inverter": inverter, "run_model": run_model_case}

@@ -1,5 +1,7 @@
 // K2 (the y-DFT), K3 (the mirror-pair x-kernel), K4 (the x-DFT) and K5
-// (symbols + inverse x-DFT) of the packed modal inversion. Two routes:
+// (symbols + inverse x-DFT) of the packed modal inversion, and K7, K13 and
+// K14, the x-stages of the sharded inversions (K3's task on local columns,
+// pair_cols_kernel below). Two routes:
 // psi = K2^-1(K3(K2(zeta))), three passes over device memory, and the
 // four-pass psi = K2^-1(K5(K4(K2(zeta)))) that tpu_qg takes for M > 2432.
 //
@@ -286,6 +288,59 @@ x_symbols_inverse_kernel(const float* __restrict__ in, float* __restrict__ out,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K13, K7 and K14: K3's mirror-pair task (pair_cols_task) on the columns of a
+// planar (2, M, W) block, W <= P, with the symbols at each column's global
+// permuted y slot `gsl` in the y extent P. One kernel, three task tables
+// (built by tpu_qg_torch/ops/dft_kernels.py):
+//
+//   * K13 replaces tpu_qg/ops/pallas_fft.py
+//     PlanarFFT2._call_x_fwd_symbols_offset (:1204): its BlockSpec kernel
+//     (_build_fwd_symbol_inv_x_kernel_offset, :739) and its manual-DMA
+//     streaming form (_build_streaming_fwd_sym_inv_x_pair, :819), which
+//     exists only because (2, M, 128) strips at M = 8192 outgrow a TPU
+//     core's VMEM; on Hopper one column of M = 8192 is 64 KB of shared
+//     memory, so one kernel covers both. The block holds global strips
+//     offset .. offset + W/128 - 1 of the y-spectrum (in) and, column by
+//     column, their mirror strips (inm, the companion); own_only: only the
+//     own columns are inverted and written.
+//   * K7 replaces PlanarFFT2.stream_pair_symbols (:1304), the same builder
+//     with mirror_from_self=True: K13 at offset 0 on the whole field with
+//     the mirror read from the same operand (inm = in).
+//   * K14 replaces tpu_qg/parallel/paired.py
+//     PairedDistributedInverter._call_paired_kernel (:226; BlockSpec form
+//     _build_paired_kernel :131, streaming form :154): the block's strips in
+//     mirror-pair order with their global indices `groups_idx`; each task
+//     pairs columns of one group (the self-mirror group 0 pairs each strip
+//     with itself), both groups written (inm = in).
+//
+// Bound: device-memory bandwidth, as K3: K13 reads two blocks and writes
+// one (3 x 8 M W bytes), K7 and K14 read one and write one. Design: K3's
+// (see above); K13 and K7 forward-transform each mirror column once per own
+// column, as the TPU kernels do, because the mirror lives in another array
+// (K13) or that is what K7 computes.
+// ---------------------------------------------------------------------------
+template <bool kMixed>
+__global__ void __launch_bounds__(512)
+pair_cols_kernel(const float* __restrict__ in, const float* __restrict__ inm,
+                 float* __restrict__ out, const int* __restrict__ own_cols,
+                 const int* __restrict__ mirror_cols,
+                 const int* __restrict__ global_slots, int M, int W, int P,
+                 int logr, int m, int n1y, int ncols, int sub, int bstride,
+                 int own_only, SymConsts c, const float2* __restrict__ tw,
+                 const float2* __restrict__ twn) {
+  extern __shared__ float smem[];
+  const int C = ncols;
+  float2* stw = reinterpret_cast<float2*>(
+      smem + pair_x_floats(C, m, sub, bstride, false));
+  for (int k = threadIdx.x; k < (1 << logr) / 2; k += blockDim.x) stw[k] = tw[k];
+  const int t = blockIdx.x * C;
+  pair_cols_task<kMixed, false>(in, inm, out, own_cols + t, mirror_cols + t,
+                                global_slots + t, M, W, P, logr, m, n1y, C,
+                                sub, bstride, false, own_only != 0, c, stw,
+                                twn, smem);
+}
+
 }  // namespace
 
 extern "C" int qg_pair_x_num_consts() { return kNumSymConsts; }
@@ -369,5 +424,30 @@ extern "C" int qg_x_symbols_launch(const float* in, float* out,
       in, out, own_slots, mirror_slots, M, P, logr, m, n1x, n1y, ncols, sub,
       bstride, sym_consts(consts), static_cast<const float2*>(tw),
       static_cast<const float2*>(twn));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K13, K7, K14. in, inm, out: planar (2, M, W) fields (inm may be in); the
+// task tables are (ntasks, ncols) device ints, -1 padding; consts: host
+// array of kNumSymConsts floats in SymConsts order.
+extern "C" int qg_pair_cols_launch(const float* in, const float* inm,
+                                   float* out, const int* own_cols,
+                                   const int* mirror_cols,
+                                   const int* global_slots, int ntasks, int M,
+                                   int W, int P, int logr, int m, int n1y,
+                                   int ncols, int sub, int bstride,
+                                   int own_only, const float* consts,
+                                   const void* tw, const void* twn,
+                                   int threads, void* stream) {
+  const int smem = (4 * ncols * m * sub + (1 << logr) +
+                    (m > 1 ? 4 * ncols * bstride : 0)) *
+                   static_cast<int>(sizeof(float));
+  if (threads % ncols != 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = m > 1 ? pair_cols_kernel<true> : pair_cols_kernel<false>;
+  if (int err = set_smem(reinterpret_cast<const void*>(kernel), smem)) return err;
+  kernel<<<ntasks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      in, inm, out, own_cols, mirror_cols, global_slots, M, W, P, logr, m,
+      n1y, ncols, sub, bstride, own_only, sym_consts(consts),
+      static_cast<const float2*>(tw), static_cast<const float2*>(twn));
   return static_cast<int>(cudaGetLastError());
 }

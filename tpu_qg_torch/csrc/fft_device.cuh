@@ -404,31 +404,38 @@ __device__ void y_rows(const float* src, float* dst, size_t plane, int row0,
   __syncthreads();
 }
 
-// One mirror-pair x-stage task (K3's body): the C own y slots `own` and
-// their C mirror slots `mir` of a y-spectral planar (2, M, P) field, M =
-// R * m, from src to dst: forward x-DFT, V = A W + B conj(W(-k)), inverse
-// x-DFT. src may be dst: the task loads all 2C columns before it writes
-// them, and distinct tasks own disjoint columns. Shared memory at smem:
-// nsub columns of m sub-columns (re, then im; cs = m * sub floats each) and,
-// for m > 1, 2C natural-order spectra (re, then im; bstride floats each);
-// the radix-2 table at stw. nsub is 2C, or C for a mixed extent with `seq`:
-// then the own and the mirror group pass through the sub-columns in turn,
-// as in K5, so that a pair fits shared memory up to M = 128 * 63.
-// blockDim.x must be a multiple of C. Ends with a barrier.
+// One mirror-pair x-stage task (K3's body), on local columns:
+// `own` holds C columns of src and `mir` the C columns of srcm that hold
+// their mirrors (y-frequency negated), each a column of a planar (2, M, W)
+// field, M = R * m; gsl holds each own column's global permuted y slot in
+// the y extent P, from which the symbols are built. Forward x-DFT of all
+// 2C columns, V = A W + B conj(W(-k)), inverse x-DFT, written to the same
+// columns of dst: both groups, or (own_only) the own group alone. K3 is
+// srcm = src, gsl = own, W = P; K7, K13 and K14 are the other instances
+// (dft_kernels.cu). src may be dst: the task loads all 2C columns before it
+// writes them, and distinct tasks own disjoint columns. Shared memory at
+// smem: nsub columns of m sub-columns (re, then im; cs = m * sub floats
+// each) and, for m > 1, 2C natural-order spectra (re, then im; bstride
+// floats each); the radix-2 table at stw. nsub is 2C, or C for a mixed
+// extent with `seq`: then the own and the mirror group pass through the
+// sub-columns in turn, as in K5, so that a pair fits shared memory up to
+// M = 128 * 63. blockDim.x must be a multiple of C. Ends with a barrier.
 template <bool kL2>
-__device__ void pair_x_task_seq(const float* src, float* dst, const int* own,
-                                const int* mir, int M, int P, int logr, int m,
-                                int n1y, int C, int sub, int bstride,
-                                const SymConsts& c, const float2* stw,
-                                const float2* __restrict__ twn, float* re,
-                                float* im, float* bre, float* bim) {
+__device__ void pair_cols_task_seq(const float* src, const float* srcm,
+                                   float* dst, const int* own, const int* mir,
+                                   const int* gsl, int M, int W, int P,
+                                   int logr, int m, int n1y, int C, int sub,
+                                   int bstride, bool own_only,
+                                   const SymConsts& c, const float2* stw,
+                                   const float2* __restrict__ twn, float* re,
+                                   float* im, float* bre, float* bim) {
   const int cs = m * sub;
-  const size_t plane = (size_t)M * P;
+  const size_t plane = (size_t)M * W;
   const int col = threadIdx.x % C;
   for (int g = 0; g < 2; ++g) {          // forward, group by group
     const int a = (g == 0 ? own : mir)[col];
-    load_planar<kL2>(src, plane, re + col * cs, C * cs, C * M,
-                     [=](int idx) { return a < 0 ? -1LL : (long long)(idx / C) * P + a; },
+    load_planar<kL2>(g == 0 ? src : srcm, plane, re + col * cs, C * cs, C * M,
+                     [=](int idx) { return a < 0 ? -1LL : (long long)(idx / C) * W + a; },
                      [=](int idx) { return sub_slot(idx / C, m, sub); });
     __syncthreads();
     fft_dif(re, im, C * m, sub, logr, stw);
@@ -440,12 +447,12 @@ __device__ void pair_x_task_seq(const float* src, float* dst, const int* own,
     }
     __syncthreads();
   }
-  symbol_stage<true>(bre, bim, bstride, C, own, M, P, logr, n1y, c);
+  symbol_stage<true>(bre, bim, bstride, C, gsl, M, P, logr, n1y, c);
   const float scale = 1.0f / static_cast<float>(M);
-  for (int g = 0; g < 2; ++g) {          // inverse and write, group by group
+  for (int g = 0; g < (own_only ? 1 : 2); ++g) {   // inverse and write
     split_cols(bre, bim, bstride, g * C, C, re, im, cs, sub, m, M, logr, twn);
     ifft_dit(re, im, C * m, sub, logr, stw);
-    write_group<true>(dst, plane, re, im, cs, 0, g, own, mir, C, M, P, m, sub,
+    write_group<true>(dst, plane, re, im, cs, 0, g, own, mir, C, M, W, m, sub,
                       scale);
     __syncthreads();
   }
@@ -458,34 +465,38 @@ __host__ __device__ __forceinline__ int pair_x_floats(int C, int m, int sub,
 }
 
 template <bool kMixed, bool kL2>
-__device__ void pair_x_task(const float* src, float* dst, const int* own,
-                            const int* mir, int M, int P, int logr, int m,
-                            int n1y, int C, int sub, int bstride, bool seq,
-                            const SymConsts& c, const float2* stw,
-                            const float2* __restrict__ twn, float* smem) {
+__device__ void pair_cols_task(const float* src, const float* srcm, float* dst,
+                               const int* own, const int* mir, const int* gsl,
+                               int M, int W, int P, int logr, int m, int n1y,
+                               int C, int sub, int bstride, bool seq,
+                               bool own_only, const SymConsts& c,
+                               const float2* stw,
+                               const float2* __restrict__ twn, float* smem) {
   const int cs = m * sub;                 // column: m sub-columns of R rows
   const int nsub = kMixed && seq ? C : 2 * C;
   float* re = smem;                       // own 0..C-1, then mirror C..2C-1
   float* im = smem + nsub * cs;
   float* bre = smem + 2 * nsub * cs;      // mixed: 2C natural-order spectra
   float* bim = bre + 2 * C * bstride;
-  const size_t plane = (size_t)M * P;
+  const size_t plane = (size_t)M * W;
+  const int nout = own_only ? 1 : 2;      // groups inverted and written
 
   // Each thread keeps one column: element idx is row idx / C of column
   // threadIdx.x % C.
   const int col = threadIdx.x % C;
   if constexpr (kMixed) {
     if (seq) {
-      pair_x_task_seq<kL2>(src, dst, own, mir, M, P, logr, m, n1y, C, sub,
-                           bstride, c, stw, twn, re, im, bre, bim);
+      pair_cols_task_seq<kL2>(src, srcm, dst, own, mir, gsl, M, W, P, logr, m,
+                              n1y, C, sub, bstride, own_only, c, stw, twn, re,
+                              im, bre, bim);
       return;
     }
   }
   for (int g = 0; g < 2; ++g) {
     const int a = (g == 0 ? own : mir)[col];
     float* to = re + (g * C + col) * cs;
-    load_planar<kL2>(src, plane, to, nsub * cs, C * M,
-                     [=](int idx) { return a < 0 ? -1LL : (long long)(idx / C) * P + a; },
+    load_planar<kL2>(g == 0 ? src : srcm, plane, to, nsub * cs, C * M,
+                     [=](int idx) { return a < 0 ? -1LL : (long long)(idx / C) * W + a; },
                      [=](int idx) {
                        return kMixed ? sub_slot(idx / C, m, sub) : pad(idx / C);
                      });
@@ -502,18 +513,32 @@ __device__ void pair_x_task(const float* src, float* dst, const int* own,
       bim[cc * bstride + pad(k)] = v.y;
     }
     __syncthreads();
-    symbol_stage<true>(bre, bim, bstride, C, own, M, P, logr, n1y, c);
-    split_cols(bre, bim, bstride, 0, 2 * C, re, im, cs, sub, m, M, logr, twn);
+    symbol_stage<true>(bre, bim, bstride, C, gsl, M, P, logr, n1y, c);
+    split_cols(bre, bim, bstride, 0, nout * C, re, im, cs, sub, m, M, logr,
+               twn);
   } else {
-    symbol_stage<false>(re, im, cs, C, own, M, P, logr, n1y, c);
+    symbol_stage<false>(re, im, cs, C, gsl, M, P, logr, n1y, c);
   }
-  ifft_dit(re, im, 2 * C * m, sub, logr, stw);
+  ifft_dit(re, im, nout * C * m, sub, logr, stw);
 
   const float scale = 1.0f / static_cast<float>(M);   // exact when m = 1
-  for (int g = 0; g < 2; ++g)
-    write_group<kMixed>(dst, plane, re, im, cs, g * C, g, own, mir, C, M, P,
+  for (int g = 0; g < nout; ++g)
+    write_group<kMixed>(dst, plane, re, im, cs, g * C, g, own, mir, C, M, W,
                         m, sub, scale);
   __syncthreads();
+}
+
+// K3's task: the C own y slots `own` and their C mirror slots `mir` of a
+// y-spectral planar (2, M, P) field, both groups written.
+template <bool kMixed, bool kL2>
+__device__ void pair_x_task(const float* src, float* dst, const int* own,
+                            const int* mir, int M, int P, int logr, int m,
+                            int n1y, int C, int sub, int bstride, bool seq,
+                            const SymConsts& c, const float2* stw,
+                            const float2* __restrict__ twn, float* smem) {
+  pair_cols_task<kMixed, kL2>(src, src, dst, own, mir, own, M, P, P, logr, m,
+                              n1y, C, sub, bstride, seq, false, c, stw, twn,
+                              smem);
 }
 
 }  // namespace

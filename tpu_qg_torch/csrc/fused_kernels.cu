@@ -30,6 +30,15 @@
 // columns (x), so no scratch field is needed. Fields written earlier in the
 // launch are read through L2 (ld<true>).
 //
+// K15's sharded form replaces tpu_qg/ops/pallas_tendency.py
+// fused_step_streamed_yspec_sharded (:913, _yfused_kernel with
+// sharded=True): K15 on one rank's (2, M, P) row block, with the rows above
+// and below it from the (2, H, P) slabs its x-neighbours sent, psi's slabs as
+// rows of its y-spectrum. The slab rows the stencil reads (2 of each psi
+// slab) join the inverse-y stage, into two scratch slabs the wrapper
+// allocates; the step stage reads them as K12 reads its slabs. Bound as
+// K15: 7 (2, M, P) fields (235 MB at 2048^2 on one rank).
+//
 // K15's design: the TPU kernel inverse-transforms the psi rows of each row
 // tile, halo rows included, in VMEM. A Hopper block that kept the five
 // natural psi rows of the del^4 stencil in shared memory would need 320 KB
@@ -124,17 +133,40 @@ __device__ void x_stage(float* field, const SymConsts& c, const CoopPlan& p,
 
 // K1's tendency and update on every tile, psi read (natural) from `psi`;
 // the tiles' shared memory is the start of the stages' common buffer.
+// kSharded: the rows outside the block come from the slabs `sl`.
+template <bool kSharded = false>
 __device__ void step_stage(const StepOperands& s, const float* psi,
                            const StepConsts& c, const CoopPlan& p,
-                           float* smem) {
+                           float* smem, Slabs sl = Slabs{}) {
   const StepTiles tiles = step_tiles(smem);
   const int nty = (p.P + TY - 1) / TY;
   const int ntiles = ((p.M + TX - 1) / TX) * nty;
   for (int k = blockIdx.x; k < ntiles; k += gridDim.x)
-    step_tile<2, false, kCoopThreads, true>(
+    step_tile<2, false, kCoopThreads, true, false, kSharded>(
         s.zeta, psi, s.f1, s.f2, s.wind, s.zeta_new, s.carry, nullptr, p.M,
         p.P, c, ModalConsts{}, s.leapfrog, s.step, (k / nty) * TX,
-        (k % nty) * TY, tiles);
+        (k % nty) * TY, tiles, sl);
+}
+
+// The inverse-y of the psi slab rows the stencil reads (the last 2 rows of
+// the top slab, the first 2 of the bottom one) into the same rows of
+// top_nat and bot_nat, in tasks of at most p.yrows rows. Runs after
+// y_stage, whose radix-2 table it reuses.
+template <bool kMixed>
+__device__ void slab_y_stage(const Slabs& sl, float* top_nat, float* bot_nat,
+                             const CoopPlan& p, const CoopTables& t,
+                             float* smem) {
+  const float2* stw = reinterpret_cast<const float2*>(smem + p.table);
+  const size_t plane = (size_t)sl.H * p.P;
+  const int per = (2 + p.yrows - 1) / p.yrows;      // tasks per slab
+  for (int k = blockIdx.x; k < 2 * per; k += gridDim.x) {
+    const bool top = k < per;
+    const int r0 = (k % per) * p.yrows;
+    y_rows<kMixed, true>(top ? sl.psi_top : sl.psi_bot, top ? top_nat : bot_nat,
+                         plane, (top ? sl.H - 2 : 0) + r0,
+                         min(p.yrows, 2 - r0), p.P, p.logry, p.my, p.n1y, true,
+                         stw, t.twny, smem);
+  }
 }
 
 // K16: out = psi of the packed field z.
@@ -177,6 +209,24 @@ coop_yspec_kernel(StepOperands s, StepConsts sc, float* zeta_ys, CoopPlan p,
   y_stage<kMixedY>(s.psi, zeta_ys, true, p, t, smem);   // natural psi
   grid.sync();
   step_stage(s, zeta_ys, sc, p, smem);
+  grid.sync();
+  y_stage<kMixedY>(s.zeta_new, zeta_ys, false, p, t, smem);
+}
+
+// K15's sharded form: as K15, with the slabs `sl` (psi's as y-spectra);
+// the natural psi slab rows go to top_nat and bot_nat, (2, H, P) each.
+template <bool kMixedY>
+__global__ void __launch_bounds__(kCoopThreads, 1)
+coop_yspec_sharded_kernel(StepOperands s, StepConsts sc, float* zeta_ys,
+                          CoopPlan p, CoopTables t, Slabs sl, float* top_nat,
+                          float* bot_nat) {
+  extern __shared__ float smem[];
+  cg::grid_group grid = cg::this_grid();
+  y_stage<kMixedY>(s.psi, zeta_ys, true, p, t, smem);   // natural psi
+  slab_y_stage<kMixedY>(sl, top_nat, bot_nat, p, t, smem);
+  grid.sync();
+  step_stage<true>(s, zeta_ys, sc, p, smem,
+                   Slabs{sl.zeta_top, sl.zeta_bot, top_nat, bot_nat, sl.H});
   grid.sync();
   y_stage<kMixedY>(s.zeta_new, zeta_ys, false, p, t, smem);
 }
@@ -288,4 +338,26 @@ extern "C" int qg_yspec_launch(const float* zeta, const float* psi_ys,
   return coop_launch(kernel, smem, info, stream, s, step_consts(step_c),
                      zeta_ys, p,
                      coop_tables(twy, twny, nullptr, nullptr, nullptr, nullptr));
+}
+
+// K15's sharded form. zeta_top, zeta_bot: natural (2, H, P) slabs; psi_top,
+// psi_bot: y-spectral (2, H, P) slabs; top_nat, bot_nat: (2, H, P) scratch.
+extern "C" int qg_yspec_sharded_launch(
+    const float* zeta, const float* psi_ys, const float* f1, const float* f2,
+    const float* wind, float* zeta_new, float* carry, float* zeta_ys,
+    const float* step_c, int leapfrog, int step, const int* plan,
+    const void* twy, const void* twny, const float* zeta_top,
+    const float* zeta_bot, const float* psi_top, const float* psi_bot, int H,
+    float* top_nat, float* bot_nat, int smem, int* info, void* stream) {
+  if (H < 2) return static_cast<int>(cudaErrorInvalidValue);
+  const CoopPlan p = coop_plan(plan);
+  auto kernel = p.my > 1 ? coop_yspec_sharded_kernel<true>
+                         : coop_yspec_sharded_kernel<false>;
+  const StepOperands s{zeta, psi_ys, f1, f2, wind, zeta_new, carry, leapfrog,
+                       step};
+  return coop_launch(kernel, smem, info, stream, s, step_consts(step_c),
+                     zeta_ys, p,
+                     coop_tables(twy, twny, nullptr, nullptr, nullptr, nullptr),
+                     Slabs{zeta_top, zeta_bot, psi_top, psi_bot, H}, top_nat,
+                     bot_nat);
 }

@@ -1,6 +1,6 @@
-// The step's tile body, shared by K1, K8 and K9 (step_kernel.cu) and the
-// one-launch kernels K15 and K17 (fused_kernels.cu). Design notes in
-// step_kernel.cu.
+// The step's tile body, shared by K1, K8, K9 and K12 (step_kernel.cu) and the
+// one-launch kernels K15, K15's sharded form and K17 (fused_kernels.cu).
+// Design notes in step_kernel.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,6 +48,34 @@ struct StepTiles {
 constexpr int kStepTileFloats =
     (TX + 4) * (TY + 4) + 2 * (TX + 2) * (TY + 2) + TX * TY;
 
+// The exchanged row slabs of a sharded step (K12, K15's sharded form), each
+// an (L, H, P) field, H >= 2: the block owns rows 0 .. M-1, row -k (k <= H)
+// is row H - k of the top slab and row M + k (k < H) row k of the bottom
+// slab. The y wrap stays local to the block.
+struct Slabs {
+  const float* zeta_top;
+  const float* zeta_bot;
+  const float* psi_top;
+  const float* psi_bot;
+  int H;
+};
+
+// Row gx (-2 <= gx < M + 2 + TX), column gy of layer l of a sharded block
+// (`layer` = the block's layer l): rows above the block from the top slab,
+// rows at M and below from the bottom slab; rows past the bottom slab feed
+// no output row of the tile (the stencil reaches 2 rows) and load as 0.
+template <bool kL2>
+__device__ __forceinline__ float slab_ld(const float* layer, const float* top,
+                                         const float* bot, int l, int gx,
+                                         int gy, int M, int P, int H) {
+  if (gx < 0) return ld<kL2>(top + ((size_t)l * H + H + gx) * P + gy);
+  if (gx >= M) {
+    return gx - M < H ? ld<kL2>(bot + ((size_t)l * H + gx - M) * P + gy)
+                      : 0.0f;
+  }
+  return ld<kL2>(layer + (size_t)gx * P + gy);
+}
+
 // The tiles carved from `smem` (kStepTileFloats floats).
 __device__ __forceinline__ StepTiles step_tiles(float* smem) {
   float* zs = smem + (TX + 4) * (TY + 4);
@@ -63,16 +91,18 @@ __device__ __forceinline__ StepTiles step_tiles(float* smem) {
 // P^-1 zeta_new: a thread visits the same tile points in both layers, so
 // it keeps layer 0's zeta_new in shared memory until layer 1's is formed.
 // kL2: see ld(). kTendOnly (K9) writes the tendency to zeta_new and stops
-// there: no f1/f2 reads, no update, no carry. Ends with a barrier: the
-// caller may run the next tile.
-template <int L, bool kModes, int NT, bool kL2, bool kTendOnly = false>
+// there: no f1/f2 reads, no update, no carry. kSharded (K12, K15's sharded
+// form) reads the rows outside [0, M) from the slabs `sl` instead of
+// wrapping. Ends with a barrier: the caller may run the next tile.
+template <int L, bool kModes, int NT, bool kL2, bool kTendOnly = false,
+          bool kSharded = false>
 __device__ __forceinline__ void step_tile(
     const float* __restrict__ zeta, const float* __restrict__ psi,
     const float* __restrict__ f1, const float* __restrict__ f2,
     const float* __restrict__ wind, float* __restrict__ zeta_new,
     float* __restrict__ carry, float* __restrict__ modes, int M, int P,
     const StepConsts& c, const ModalConsts& q, int leapfrog, int step, int x0,
-    int y0, const StepTiles& t) {
+    int y0, const StepTiles& t, Slabs sl = Slabs{}) {
   float (*ps)[TY + 4] = t.ps;
   float (*zs)[TY + 2] = t.zs;
   float (*lp)[TY + 2] = t.lp;
@@ -84,13 +114,23 @@ __device__ __forceinline__ void step_tile(
     const float* zl = zeta + l * plane;
     for (int idx = threadIdx.x; idx < (TX + 4) * (TY + 4); idx += NT) {
       const int i = idx / (TY + 4), j = idx % (TY + 4);
-      const int gx = (x0 - 2 + i + M) % M, gy = (y0 - 2 + j + P) % P;
-      ps[i][j] = ld<kL2>(pl + (size_t)gx * P + gy);
+      if constexpr (kSharded) {
+        ps[i][j] = slab_ld<kL2>(pl, sl.psi_top, sl.psi_bot, l, x0 - 2 + i,
+                                (y0 - 2 + j + P) % P, M, P, sl.H);
+      } else {
+        const int gx = (x0 - 2 + i + M) % M, gy = (y0 - 2 + j + P) % P;
+        ps[i][j] = ld<kL2>(pl + (size_t)gx * P + gy);
+      }
     }
     for (int idx = threadIdx.x; idx < (TX + 2) * (TY + 2); idx += NT) {
       const int i = idx / (TY + 2), j = idx % (TY + 2);
-      const int gx = (x0 - 1 + i + M) % M, gy = (y0 - 1 + j + P) % P;
-      zs[i][j] = ld<kL2>(zl + (size_t)gx * P + gy);
+      if constexpr (kSharded) {
+        zs[i][j] = slab_ld<kL2>(zl, sl.zeta_top, sl.zeta_bot, l, x0 - 1 + i,
+                                (y0 - 1 + j + P) % P, M, P, sl.H);
+      } else {
+        const int gx = (x0 - 1 + i + M) % M, gy = (y0 - 1 + j + P) % P;
+        zs[i][j] = ld<kL2>(zl + (size_t)gx * P + gy);
+      }
     }
     __syncthreads();
 

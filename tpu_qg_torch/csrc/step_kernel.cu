@@ -1,6 +1,7 @@
 // K1: the fused two-layer step kernel (tendency + time update in one pass),
 // K8: the same step for one or two layers with the modal projection as a
-// third output, and K9: the tendency alone.
+// third output, K9: the tendency alone, and K12: K1 on one rank's row block
+// of a sharded grid.
 //
 // K1 replaces tpu_qg/ops/pallas_tendency.py fused_step_streamed (v4,
 // _streamed_kernel) and its single-tile form fused_step_pre_fft (v3,
@@ -93,6 +94,29 @@ tendency_kernel(const float* __restrict__ zeta, const float* __restrict__ psi,
       ModalConsts{}, 0, 0, blockIdx.y * TX, blockIdx.x * TY, tiles);
 }
 
+// K12: replaces tpu_qg/ops/pallas_tendency.py fused_step_streamed_sharded
+// (:608, _streamed_kernel with sharded=True): K1 on one rank's (2, M, P) row
+// block, the rows above and below the block read from the (2, H, P) slabs
+// its x-neighbours sent (the TPU kernel's wrap fetches become slab reads;
+// the y wrap stays local). The TPU kernel takes H = 8 rows, its sublane
+// alignment; the stencil needs 2 rows of psi and 1 of zeta, and this
+// kernel takes any H >= 2. Bound as K1: six (2, M, P) fields, the slabs
+// negligible (201 MB at 2048^2 on one rank, 403 MB for a 2048-row block of
+// 8192^2). Same tile and design as K1.
+__global__ void __launch_bounds__(THREADS)
+step_sharded_kernel(const float* __restrict__ zeta,
+                    const float* __restrict__ psi, const float* __restrict__ f1,
+                    const float* __restrict__ f2,
+                    const float* __restrict__ wind, float* __restrict__ zeta_new,
+                    float* __restrict__ carry, int M, int P, StepConsts c,
+                    int leapfrog, int step, Slabs sl) {
+  STATIC_STEP_TILES(false);
+  step_tile<2, false, THREADS, false, false, true>(
+      zeta, psi, f1, f2, wind, zeta_new, carry, nullptr, M, P, c,
+      ModalConsts{}, leapfrog, step, blockIdx.y * TX, blockIdx.x * TY, tiles,
+      sl);
+}
+
 }  // namespace
 
 extern "C" int qg_step_num_consts() { return kNumConsts; }
@@ -142,5 +166,24 @@ extern "C" int qg_tendency_launch(const float* zeta, const float* psi,
   auto kernel = L == 2 ? tendency_kernel<2> : tendency_kernel<1>;
   kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       zeta, psi, wind, tend, M, P, step_consts(consts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K12. zeta_top .. psi_bot: (2, H, P) device slabs, H >= 2.
+extern "C" int qg_step_sharded_launch(const float* zeta, const float* psi,
+                                      const float* f1, const float* f2,
+                                      const float* wind, float* zeta_new,
+                                      float* carry, int M, int P,
+                                      const float* consts, int leapfrog,
+                                      int step, const float* zeta_top,
+                                      const float* zeta_bot,
+                                      const float* psi_top,
+                                      const float* psi_bot, int H,
+                                      void* stream) {
+  if (H < 2) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((P + TY - 1) / TY, (M + TX - 1) / TX);
+  step_sharded_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      zeta, psi, f1, f2, wind, zeta_new, carry, M, P, step_consts(consts),
+      leapfrog, step, Slabs{zeta_top, zeta_bot, psi_top, psi_bot, H});
   return static_cast<int>(cudaGetLastError());
 }

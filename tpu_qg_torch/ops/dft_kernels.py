@@ -1,6 +1,9 @@
 """K2 (the y-DFT), K3 (the mirror-pair x-kernel), K4 (the x-DFT) and K5
-(symbols + inverse x-DFT) of the packed inversion, and K16 (the whole
-inversion in one launch).
+(symbols + inverse x-DFT) of the packed inversion, K16 (the whole
+inversion in one launch), and the x-stages of the sharded inversions: K13
+(a column block and its mirror companion at a global strip offset), K7
+(K13's self-mirror instance on the whole field) and K14 (local mirror-pair
+groups).
 
 Replace ``tpu_qg/ops/pallas_fft.py`` ``PlanarFFT2._call_y``,
 ``PlanarFFT2.pair_x_symbols``, ``PlanarFFT2._call_x`` and
@@ -10,6 +13,14 @@ hand-written CUDA kernels, ``csrc/dft_kernels.cu`` (design and bounds in its
 comments: all are bandwidth-bound passes that keep each transform in shared
 memory). ``PlanarFFT2.mono_invert`` becomes the cooperative kernel K16 of
 ``csrc/fused_kernels.cu``: K2, K3 and K2^-1 as stages of one launch.
+``PlanarFFT2._call_x_fwd_symbols_offset`` (K13), ``stream_pair_symbols``
+(K7) and ``tpu_qg.parallel.paired``'s ``_call_paired_kernel`` (K14) are one
+kernel of ``csrc/dft_kernels.cu``, K3's mirror-pair task on local columns,
+with three task tables built here.
+
+The y-spectrum is cut into 128-slot strips (``STRIP``): slot j * 128 + l
+holds frequency j + (P/128) l, so the mirror (negated frequency) of strip j
+is strip (P/128 - j) mod P/128, lane by lane through ``mirror_lanes``.
 
 Fields are planar: ``(2, rows, N)`` float, plane 0 = real, plane 1 = imag.
 Spectra are in the permuted order of ``matmul_fft.freq_order``: the
@@ -129,9 +140,25 @@ def _symbols(M: int, P: int, consts, x_permuted: bool, dtype: torch.dtype,
     lambda = -4/dx^2 (sin^2(pi kx/M) + sin^2(pi ky/P)): the 1-D factors in
     float64 numpy, the (M, P) tables in float64 on ``device``, then cast to
     the complex type of ``dtype``."""
-    _, _, inv_dx2, alpha2, a1, a2, b1, b2 = consts
     fx = freq_order(M) if x_permuted else np.arange(M)
-    fy = freq_order(P)
+    return _symbol_tables(M, P, consts, fx, freq_order(P), dtype, device)
+
+
+@functools.lru_cache(maxsize=2)
+def _strip_symbols(M: int, P: int, consts, strips: tuple, dtype: torch.dtype,
+                   device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_symbols`` (natural x) on the columns of the given global y strips,
+    in that order: the symbols of a sharded block."""
+    slots = (STRIP * np.asarray(strips)[:, None]
+             + np.arange(STRIP)[None, :]).reshape(-1)
+    return _symbol_tables(M, P, consts, np.arange(M), freq_order(P)[slots],
+                          dtype, device)
+
+
+def _symbol_tables(M: int, P: int, consts, fx, fy, dtype: torch.dtype,
+                   device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """A, B at x-frequencies ``fx`` and y-frequencies ``fy``."""
+    _, _, inv_dx2, alpha2, a1, a2, b1, b2 = consts
 
     def on_device(a):
         return torch.as_tensor(a, dtype=torch.float64, device=device)
@@ -168,6 +195,100 @@ def pair_x_symbols_plain(Zy: torch.Tensor, consts) -> torch.Tensor:
     Wn = W[neg_x][:, neg_y]
     v = torch.fft.ifft(A * W + B * torch.conj(Wn), dim=0)
     return torch.stack([v.real, v.imag]).to(Zy.dtype)
+
+
+STRIP = 128      # slots of a y strip (the TPU kernels' lane width)
+
+
+def mirror_lanes(strip: int) -> np.ndarray:
+    """Lane l of strip ``strip`` mirrors lane mirror_lanes(strip)[l] of the
+    mirror strip: a roll for strip 0, a flip for the others."""
+    lanes = np.arange(STRIP)
+    return (-lanes) % STRIP if strip == 0 else STRIP - 1 - lanes
+
+
+def companion_columns(strips) -> np.ndarray:
+    """For a block of the given global strips, the column of each slot's
+    mirror in the block's companion (strip s of the companion holding the
+    mirror strip of strip s)."""
+    return np.concatenate([s_local * STRIP + mirror_lanes(int(g))
+                           for s_local, g in enumerate(strips)])
+
+
+def pair_columns(groups_idx, n2y: int) -> np.ndarray:
+    """For a block of strips in mirror-pair order (``groups_idx``: the
+    global index of each local strip, group g at strips 2g and 2g + 1, of
+    n2y strips in all), the local column of each slot's mirror. A group
+    whose first strip is its own mirror (group 0: strips 0 and n2y/2) pairs
+    each strip with itself (tpu_qg/parallel/paired.py:89-110, ``is_self``);
+    any other group must hold a strip and its mirror."""
+    idx = [int(i) for i in np.asarray(groups_idx)]
+    if len(idx) % 2:
+        raise ValueError(f"groups_idx has an odd length {len(idx)}")
+    cols = []
+    for g in range(0, len(idx), 2):
+        a, b = idx[g], idx[g + 1]
+        is_self = (n2y - a) % n2y == a
+        if not is_self and b != (n2y - a) % n2y:
+            raise ValueError(f"strips {a} and {b} are not mirrors of each "
+                             f"other in {n2y} strips")
+        for s_local, strip in ((g, a), (g + 1, b)):
+            partner = s_local if is_self else s_local ^ 1
+            cols.append(partner * STRIP + mirror_lanes(strip))
+    return np.concatenate(cols)
+
+
+def _pair_cols_plain(X: torch.Tensor, Xm: torch.Tensor, mirror_cols,
+                     strips, consts) -> torch.Tensor:
+    """ifft_x(A W + B conj(Wm(-k))) on the columns of a block of the given
+    global strips, W = fft_x(X) and Wm = fft_x(Xm) read at ``mirror_cols``
+    (the global y extent is 128 * consts[1])."""
+    _, M, _ = X.shape
+    P = STRIP * consts[1]
+    A, B = _strip_symbols(M, P, consts, tuple(int(s) for s in strips),
+                          X.dtype, X.device)
+    W = torch.fft.fft(torch.complex(X[0], X[1]), dim=0)
+    Wm = W if Xm is X else torch.fft.fft(torch.complex(Xm[0], Xm[1]), dim=0)
+    neg_x = _index(_negate_natural, M, X.device)
+    cols = torch.as_tensor(np.asarray(mirror_cols), device=X.device)
+    v = torch.fft.ifft(A * W + B * torch.conj(Wm[neg_x][:, cols]), dim=0)
+    return torch.stack([v.real, v.imag]).to(X.dtype)
+
+
+def block_strips(width: int, strip_offset: int) -> range:
+    """Global strips of a block of ``width`` columns at ``strip_offset``."""
+    return range(strip_offset, strip_offset + width // STRIP)
+
+
+def x_fwd_symbols_offset_plain(Zy: torch.Tensor, Zm: torch.Tensor, consts,
+                               strip_offset: int) -> torch.Tensor:
+    """Plain K13: the x-stage of a (2, M, w) column block of the y-spectrum
+    holding global strips strip_offset .. strip_offset + w/128 - 1, with
+    its mirror companion Zm (strip s of Zm = the mirror strip of strip s)."""
+    strips = block_strips(Zy.shape[2], strip_offset)
+    return _pair_cols_plain(Zy, Zm, companion_columns(strips), strips, consts)
+
+
+def mirror_companion(Zy: torch.Tensor) -> torch.Tensor:
+    """The companion of a whole y-spectrum: strip j holds strip
+    (n2y - j) mod n2y (the mirror at strip granularity)."""
+    n2y = Zy.shape[-1] // STRIP
+    perm = torch.as_tensor((-np.arange(n2y)) % n2y, device=Zy.device)
+    return Zy.unflatten(-1, (n2y, STRIP))[..., perm, :].flatten(-2)
+
+
+def stream_pair_symbols_plain(Zy: torch.Tensor, consts) -> torch.Tensor:
+    """Plain K7: K13 at offset 0 on the whole field with its companion (the
+    same function as ``pair_x_symbols_plain``)."""
+    return x_fwd_symbols_offset_plain(Zy, mirror_companion(Zy), consts, 0)
+
+
+def paired_x_symbols_plain(X: torch.Tensor, groups_idx, consts
+                           ) -> torch.Tensor:
+    """Plain K14: the x-stage of a (2, M, w) block of strips in mirror-pair
+    order, ``groups_idx`` their global indices."""
+    return _pair_cols_plain(X, X, pair_columns(groups_idx, consts[1]),
+                            groups_idx, consts)
 
 
 def x_dft_plain(z: torch.Tensor, inverse: bool) -> torch.Tensor:
@@ -227,6 +348,8 @@ def _lib():
                         p])
         _build.declare(lib.qg_mono_launch,
                        [p, p, p, p, p, p, p, p, p, p, i, p, p])
+        _build.declare(lib.qg_pair_cols_launch,
+                       [p] * 6 + [i] * 11 + [p] * 3 + [i, p])
         lib.qg_pair_x_num_consts.restype = ctypes.c_int
         lib.qg_coop_plan_size.restype = ctypes.c_int
     return lib
@@ -455,6 +578,138 @@ def x_symbols_inverse(W: torch.Tensor, consts) -> torch.Tensor:
 
 
 x_symbols_inverse.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K13, K7 and K14: K3's task on the columns of a block (csrc pair_cols_kernel),
+# each with its task table: (own column, its mirror's column, own column's
+# global slot), C pairs a task, -1 padding.
+# ---------------------------------------------------------------------------
+
+def _chunk_tasks(own, mirror, slots, C: int) -> tuple[np.ndarray, ...]:
+    n = -(-len(own) // C) * C
+    out = []
+    for a in (own, mirror, slots):
+        t = np.full(n, -1, np.int32)
+        t[:len(a)] = a
+        out.append(t.reshape(-1, C))
+    return tuple(out)
+
+
+def offset_tasks(width: int, strip_offset: int, C: int):
+    """K13's table: every column of a block at ``strip_offset``, its mirror
+    in the companion."""
+    cols = np.arange(width)
+    return _chunk_tasks(cols, companion_columns(block_strips(width,
+                                                             strip_offset)),
+                        STRIP * strip_offset + cols, C)
+
+
+def self_tasks(P: int, C: int):
+    """K7's table: every slot of the whole field, its mirror in the same
+    field."""
+    cols = np.arange(P)
+    return _chunk_tasks(cols, negate_index(P), cols, C)
+
+
+def paired_tasks(groups_idx, n2y: int, C: int):
+    """K14's table: every unordered pair {c, mirror(c)} of the block's
+    columns once, in ascending order of the smaller column (as K3's)."""
+    idx = np.asarray(groups_idx)
+    mirror = pair_columns(idx, n2y)
+    cols = np.arange(len(mirror))
+    own = cols[cols <= mirror]
+    slots = STRIP * idx[own // STRIP] + own % STRIP
+    return _chunk_tasks(own, mirror[own], slots, C)
+
+
+@functools.lru_cache(maxsize=16)
+def _device_col_tasks(kind: str, key: tuple, C: int, device: torch.device):
+    build = {"offset": offset_tasks, "self": self_tasks,
+             "paired": paired_tasks}[kind]
+    return tuple(torch.as_tensor(t, device=device) for t in build(*key, C))
+
+
+def _pair_cols(what: str, X: torch.Tensor, Xm: torch.Tensor, kind: str,
+               key: tuple, consts, own_only: bool) -> torch.Tensor:
+    """Launch pair_cols_kernel on the (2, M, W) block X (mirrors read from
+    Xm) with the task table ``kind``/``key``."""
+    if X.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {X.device}")
+    _check_field(what, X)
+    _check_field(what, Xm)
+    _, M, W = X.shape
+    P = STRIP * consts[1]
+    if Xm.shape != X.shape or Xm.device != X.device:
+        raise ValueError(f"{what}: the mirror operand has shape "
+                         f"{tuple(Xm.shape)} on {Xm.device}, the block "
+                         f"{tuple(X.shape)} on {X.device}")
+    if not (_radix_ok(M) and pair_x_layout(M)[3] <= SMEM_LIMIT
+            and W % STRIP == 0 and W <= P):
+        raise ValueError(f"{what}: M = {M} must be R * m (R a power of two, "
+                         f"m odd <= {MAX_ODD}) within shared memory and the "
+                         f"width {W} whole 128-column strips of P = {P}")
+    vals = check_consts(what, consts, M, P)
+    C, sub, bstride, _ = pair_x_layout(M)
+    own, mirror, slots = _device_col_tasks(kind, key, C, X.device)
+    out = torch.empty_like(X)
+    logr, m, tw, twn = _tables(M, X.device)
+    code = _lib().qg_pair_cols_launch(
+        X.data_ptr(), Xm.data_ptr(), out.data_ptr(), own.data_ptr(),
+        mirror.data_ptr(), slots.data_ptr(), own.shape[0], M, W, P, logr, m,
+        split_factor(P)[0], C, sub, bstride, int(own_only), vals, tw, twn,
+        _threads(C, M), torch.cuda.current_stream(X.device).cuda_stream)
+    _build.check(code, what)
+    return out
+
+
+def x_fwd_symbols_offset(Zy: torch.Tensor, Zm: torch.Tensor, consts,
+                         strip_offset: int) -> torch.Tensor:
+    """K13 on CUDA tensors (one launch), the plain version on CPU tensors:
+    the sharded inversion's x-stage on a (2, M, w) column block of the
+    y-spectrum at global ``strip_offset`` and its mirror companion Zm."""
+    if Zy.device.type == "cpu":
+        return x_fwd_symbols_offset_plain(Zy, Zm, consts, strip_offset)
+    out = _pair_cols("x_fwd_symbols_offset (K13)", Zy, Zm, "offset",
+                     (Zy.shape[2], int(strip_offset)), consts, True)
+    x_fwd_symbols_offset.launches += 1
+    return out
+
+
+x_fwd_symbols_offset.launches = 0
+
+
+def stream_pair_symbols(Zy: torch.Tensor, consts) -> torch.Tensor:
+    """K7 on CUDA tensors (one launch of K13's kernel on the whole field,
+    the mirror from the same operand), the plain version on CPU tensors."""
+    if Zy.device.type == "cpu":
+        return stream_pair_symbols_plain(Zy, consts)
+    out = _pair_cols("stream_pair_symbols (K7)", Zy, Zy, "self",
+                     (Zy.shape[2],), consts, True)
+    stream_pair_symbols.launches += 1
+    return out
+
+
+stream_pair_symbols.launches = 0
+
+
+def paired_x_symbols(X: torch.Tensor, groups_idx, consts) -> torch.Tensor:
+    """K14 on CUDA tensors (one launch), the plain version on CPU tensors:
+    the x-stage of a (2, M, w) block of strips in mirror-pair order whose
+    global indices are ``groups_idx``."""
+    if X.device.type == "cpu":
+        return paired_x_symbols_plain(X, groups_idx, consts)
+    key = (tuple(int(i) for i in np.asarray(groups_idx)), consts[1])
+    if len(key[0]) * STRIP != X.shape[2]:
+        raise ValueError(f"paired_x_symbols: {len(key[0])} strip indices "
+                         f"for a block of {X.shape[2]} columns")
+    out = _pair_cols("paired_x_symbols (K14)", X, X, "paired", key, consts,
+                     False)
+    paired_x_symbols.launches += 1
+    return out
+
+
+paired_x_symbols.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -35,8 +35,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .dft_kernels import (mono_invert, pair_x_symbols, x_dft,
-                          x_symbols_inverse, y_dft)
+from .dft_kernels import (mono_invert, pair_x_symbols, stream_pair_symbols,
+                          x_dft, x_symbols_inverse, y_dft)
 from .matmul_fft import freq_order, negate_spectrum, split_factor
 
 
@@ -358,6 +358,79 @@ def reference_yfused(M: int, P: int) -> bool:
     return T >= 8 and M // T >= 2
 
 
+# The reference's gates of its sharded kernels (the sharded step kernels,
+# tpu_qg/ops/pallas_tendency.py:541-553, 600-605, 902-909; the x-stage
+# kernels, tpu_qg/ops/pallas_fft.py:95-134, 796-817). As above, they size a
+# TPU core's VMEM: the sharded stepper (tpu_qg_torch.parallel) copies them
+# to choose the reference's route, and the port's kernels take every shape
+# they admit.
+_VMEM_BUDGET_STEP = int(0.70 * 64 * _MIB)
+_VMEM_TARGET_STREAM_PAIR = int(0.80 * 124 * _MIB)
+
+
+def _stream_x_footprint(M: int) -> int:
+    strip = 2 * M * _N1 * 4
+    return 7 * strip + 2 * (M // _N1) * _N1 * _N1 * 4
+
+
+def reference_planar_fft2(M: int, P: int) -> bool:
+    """The reference's planar_fft2_fits: its DFT kernels take both extents,
+    the y-kernel at its smallest row tile and the x-kernel in its BlockSpec
+    or streaming form."""
+    return (reference_dft_kernels(M, P)
+            and _footprint(8 * 8 * P, P // _N1) <= _VMEM_TARGET
+            and (_x_blockspec_fits(M)
+                 or _stream_x_footprint(M) <= _VMEM_TARGET_STREAM))
+
+
+def reference_symbol_inverse_fits(M: int) -> bool:
+    """The reference's symbol_inverse_fits (its fused symbol + inverse-x
+    kernel, BlockSpec or streaming)."""
+    if _x_blockspec_fits(M):
+        return (18 * M * _N1 * 4 + 4 * (M // _N1) * _N1 * _N1 * 4
+                <= _VMEM_TARGET)
+    return _stream_x_footprint(M) <= _VMEM_TARGET_STREAM
+
+
+def reference_x_blockspec(M: int) -> bool:
+    """The reference's _x_blockspec_fits: (2, M, 128) x-blocks fit its
+    BlockSpec pipeline (else its x-kernels stream, M >= 4608)."""
+    return _x_blockspec_fits(M)
+
+
+def reference_stream_pair(M: int) -> bool:
+    """The reference's streaming pair x-kernel (K7, K13's streaming form)
+    fits: stream_pair_x_footprint(M) within its budget."""
+    strip = 2 * M * _N1 * 4
+    g = 2 * 2 * (M // _N1) * _N1 * _N1 * 4
+    return 7 * strip + g <= _VMEM_TARGET_STREAM_PAIR
+
+
+def _pick_tile_step(m: int, P: int, L: int) -> int:
+    T = m
+    while T > 8:
+        foot = P * 4 * (L * (4 * (T + 2 * _H) + 4 * T + 4 * T) + 16 * T)
+        if foot <= _VMEM_BUDGET_STEP and m % T == 0:
+            return T
+        T //= 2
+    return T
+
+
+def reference_sharded_step(L: int, m: int, P: int, itemsize: int) -> bool:
+    """The reference's sharded_pallas_supported: its sharded step kernel
+    (K12) takes an (L, m, P) row block."""
+    return (P % 128 == 0 and m % 8 == 0 and itemsize == 4
+            and _pick_tile_step(m, P, L) >= 8)
+
+
+def reference_sharded_yfused(L: int, m: int, P: int, itemsize: int) -> bool:
+    """The reference's sharded_yfused_supported: its sharded y-fused step
+    kernel (K15's sharded form) takes an (L, m, P) row block."""
+    return (L == 2 and itemsize == 4 and P % 128 == 0 and m % 8 == 0
+            and 1 <= P // _N1 <= _REF_MAX_N2
+            and _pick_tile_yfused(m, P) >= 8)
+
+
 def fft2_forward(z: torch.Tensor) -> torch.Tensor:
     """Planar (2, M, P) natural order -> planar spectrum, permuted on both
     axes: K2 then K4 (PlanarFFT2.forward)."""
@@ -385,7 +458,12 @@ class PackedModalInverterKernels(PackedModalInverter):
     y-fused chain's step takes it, never the mono form.
 
     As in the reference's matmul-DFT parent, the symbols of the unfused
-    route's torch symbol stage are evaluated at the permuted frequencies."""
+    route's torch symbol stage are evaluated at the permuted frequencies.
+
+    ``pair_stream`` (off, as the reference's ``_pair_stream``,
+    tpu_qg/ops/spectral.py:276) pins the inversion to K2, K7, K2^-1 on any
+    route but the one-launch one: the reference keeps that kernel for the
+    sharded x-stage and its tests force it on one device."""
 
     def __init__(self, M: int, P: int, dx: float, alpha2: float,
                  P_inv, P_back, pair_x: bool = True, mono: bool = False):
@@ -396,10 +474,14 @@ class PackedModalInverterKernels(PackedModalInverter):
         self.lam_x = self.lam_x[freq_order(M)]
         self.lam_y = self.lam_y[freq_order(P)]
         self._sym_consts = symbol_consts(M, P, dx, alpha2, P_inv, P_back)
+        self.pair_stream = False
 
     def __call__(self, zeta: torch.Tensor) -> torch.Tensor:
         if self.route == "mono":
             return mono_invert(zeta, self._sym_consts)
+        if self.pair_stream:
+            return y_dft(stream_pair_symbols(y_dft(zeta, False),
+                                             self._sym_consts), True)
         if self.route == "four-pass-unfused":
             return fft2_inverse(self._symbol_stage(fft2_forward(zeta)))
         return y_dft(self.x_stage(y_dft(zeta, False)), True)

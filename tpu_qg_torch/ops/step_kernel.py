@@ -1,7 +1,8 @@
 """K1, the fused two-layer step (tendency + Euler/AB3 or leapfrog-RA update),
 K8, the same step for one or two layers with the modal projection, K9, the
-tendency alone, K15, the step of the y-fused chain, and K17, the whole step
-in one launch.
+tendency alone, K15, the step of the y-fused chain, K17, the whole step
+in one launch, and the sharded forms of K1 (K12) and K15 on one rank's row
+block.
 
 K1 replaces ``tpu_qg/ops/pallas_tendency.py`` ``fused_step_streamed`` (v4)
 and its single-tile form ``fused_step_pre_fft`` (v3); K8 replaces its
@@ -17,8 +18,17 @@ forward-y as stages; design there). K17 replaces
 whole packed inversion of zeta_new (K16's stages), in one cooperative launch
 of the same source.
 
+K12 (``fused_step_sharded``) replaces ``fused_step_streamed_sharded``
+and K15's sharded form (``fused_step_yspec_sharded``)
+``fused_step_streamed_yspec_sharded``: the same kernels on a (2, m, P) row
+block with the rows above and below it from (2, H, P) slabs the caller
+exchanged with its x-neighbours (top = the previous rank's last H rows,
+bottom = the next rank's first H rows). The TPU kernels take H = 8, their
+sublane alignment; the stencil reads 2 rows of psi and 1 of zeta, and
+these take any H >= 2.
+
 ``fused_step``/``fused_pre_inversion``/``fused_tendency``/
-``fused_step_yspec``/``fused_step_full`` launch their
+``fused_step_yspec``/``fused_step_full`` and the sharded forms launch their
 kernels for CUDA tensors and use their ``*_plain`` versions — the same
 arithmetic in plain torch — only for CPU tensors. The carry follows
 ``tpu_qg.models.core.make_step_fn``: the tendency under ``euler_ab3``, the
@@ -97,6 +107,49 @@ def fused_step_yspec_plain(cfg: ModelConfig, zeta: torch.Tensor,
     return zeta_new, carry, y_dft_plain(zeta_new, False)
 
 
+HALO_ROWS = 2   # rows of the slabs the stencil reads (psi; zeta reads 1)
+
+
+def _pad_rows(a: torch.Tensor, top: torch.Tensor,
+              bot: torch.Tensor) -> torch.Tensor:
+    """(L, m, P) block -> (L, m + 4, P) with 2 slab rows above and below."""
+    return torch.cat([top[:, -HALO_ROWS:], a, bot[:, :HALO_ROWS]], dim=1)
+
+
+def fused_step_sharded_plain(cfg: ModelConfig, zeta: torch.Tensor,
+                             psi: torch.Tensor, f1: torch.Tensor,
+                             f2: torch.Tensor, step: int,
+                             zeta_top: torch.Tensor, zeta_bot: torch.Tensor,
+                             psi_top: torch.Tensor, psi_bot: torch.Tensor):
+    """Plain-torch K12: K1's plain version on the block padded with 2 slab
+    rows on each side (the history fields with zeros), then the block's
+    rows. Returns (zeta_new, carry)."""
+    pad = (0, 0, HALO_ROWS, HALO_ROWS)
+    zn, carry = fused_step_plain(
+        cfg, _pad_rows(zeta, zeta_top, zeta_bot),
+        _pad_rows(psi, psi_top, psi_bot), torch.nn.functional.pad(f1, pad),
+        torch.nn.functional.pad(f2, pad), step)
+    return (zn[:, HALO_ROWS:-HALO_ROWS].contiguous(),
+            carry[:, HALO_ROWS:-HALO_ROWS].contiguous())
+
+
+def fused_step_yspec_sharded_plain(cfg: ModelConfig, zeta: torch.Tensor,
+                                   psi_ys: torch.Tensor, f1: torch.Tensor,
+                                   f2: torch.Tensor, step: int,
+                                   zeta_top: torch.Tensor,
+                                   zeta_bot: torch.Tensor,
+                                   psi_top: torch.Tensor,
+                                   psi_bot: torch.Tensor):
+    """Plain-torch K15 sharded: psi and its slab rows from their permuted
+    y-spectra (the plain K2^-1), K12's plain step, and the permuted
+    y-spectrum of the packed zeta_new. Returns (zeta_new, carry, zeta_ys)."""
+    zeta_new, carry = fused_step_sharded_plain(
+        cfg, zeta, y_dft_plain(psi_ys, True), f1, f2, step, zeta_top,
+        zeta_bot, y_dft_plain(psi_top[:, -HALO_ROWS:], True),
+        y_dft_plain(psi_bot[:, :HALO_ROWS], True))
+    return zeta_new, carry, y_dft_plain(zeta_new, False)
+
+
 def _consts(cfg: ModelConfig) -> ctypes.Array:
     """The kernels' float constants in StepConsts order, each rounded once
     from its float64 value; the per-layer betas are (beta_1, beta_2), or
@@ -139,6 +192,11 @@ def _lib():
         _build.declare(lib.qg_fullstep_launch,
                        [p] * 9 + [i, i] + [p] * 8 + [i, p, p])
         _build.declare(lib.qg_tendency_launch, [p, p, p, p, i, i, i, p, p])
+        _build.declare(lib.qg_step_sharded_launch,
+                       [p] * 7 + [i, i, p, i, i] + [p] * 4 + [i, p])
+        _build.declare(lib.qg_yspec_sharded_launch,
+                       [p] * 9 + [i, i, p, p, p] + [p] * 4
+                       + [i, p, p, i, p, p])
         lib.qg_step_num_consts.restype = ctypes.c_int
         lib.qg_modal_num_consts.restype = ctypes.c_int
     return lib
@@ -322,6 +380,111 @@ def fused_step_yspec(cfg: ModelConfig, zeta: torch.Tensor,
 
 fused_step_yspec.launches = 0
 fused_step_yspec.grid = None
+
+
+def _check_sharded(what: str, cfg: ModelConfig, fields, slabs):
+    """The operands of a sharded step kernel: CUDA, float32, contiguous
+    two-layer (2, m, P) fields and (2, H, P) slabs, H >= 2, and the wind
+    row (if any) as wide as the block. Returns the wind row or None."""
+    zeta = fields[0][1]
+    if zeta.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {zeta.device}")
+    if cfg.n_layers != 2 or zeta.dim() != 3 or zeta.shape[0] != 2:
+        raise ValueError(f"{what}: the kernel takes two-layer (2, m, P) "
+                         f"blocks, got {tuple(zeta.shape)}")
+    _, m, P = zeta.shape
+    _check_operands(what, zeta, fields, (2, m, P))
+    H = slabs[0][1].shape[1] if slabs[0][1].dim() == 3 else 0
+    if H < HALO_ROWS:
+        raise ValueError(f"{what}: slabs need at least {HALO_ROWS} rows, got "
+                         f"{tuple(slabs[0][1].shape)}")
+    _check_operands(what, zeta, slabs, (2, H, P))
+    if cfg.wind_tau0 != 0.0 and P != cfg.P:
+        raise ValueError(f"{what}: the wind forcing needs whole rows "
+                         f"(P = {cfg.P}), got a block {P} wide")
+    return _wind_row(cfg, zeta.device)
+
+
+def fused_step_sharded(cfg: ModelConfig, zeta: torch.Tensor,
+                       psi: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
+                       step: int, zeta_top: torch.Tensor,
+                       zeta_bot: torch.Tensor, psi_top: torch.Tensor,
+                       psi_bot: torch.Tensor):
+    """K12: K1 on one rank's (2, m, P) row block with its (2, H, P) slabs,
+    one kernel pass on CUDA tensors; the plain version on CPU tensors.
+    Replaces ``tpu_qg/ops/pallas_tendency.py:608``. Returns (zeta_new,
+    carry)."""
+    if zeta.device.type == "cpu":
+        return fused_step_sharded_plain(cfg, zeta, psi, f1, f2, step,
+                                        zeta_top, zeta_bot, psi_top, psi_bot)
+    what = "fused_step_sharded (K12)"
+    wind = _check_sharded(what, cfg, (("zeta", zeta), ("psi", psi),
+                                      ("f1", f1), ("f2", f2)),
+                          (("zeta_top", zeta_top), ("zeta_bot", zeta_bot),
+                           ("psi_top", psi_top), ("psi_bot", psi_bot)))
+    lib = _lib()
+    consts = _checked_consts(cfg, lib, what)
+    zeta_new = torch.empty_like(zeta)
+    carry = torch.empty_like(zeta)
+    _, m, P = zeta.shape
+    code = lib.qg_step_sharded_launch(
+        zeta.data_ptr(), psi.data_ptr(), f1.data_ptr(), f2.data_ptr(),
+        None if wind is None else wind.data_ptr(), zeta_new.data_ptr(),
+        carry.data_ptr(), m, P, consts, int(cfg.time_scheme == "leapfrog_ra"),
+        int(step), zeta_top.data_ptr(), zeta_bot.data_ptr(),
+        psi_top.data_ptr(), psi_bot.data_ptr(), zeta_top.shape[1],
+        torch.cuda.current_stream(zeta.device).cuda_stream)
+    _build.check(code, what)
+    fused_step_sharded.launches += 1
+    return zeta_new, carry
+
+
+fused_step_sharded.launches = 0
+
+
+def fused_step_yspec_sharded(cfg: ModelConfig, zeta: torch.Tensor,
+                             psi_ys: torch.Tensor, f1: torch.Tensor,
+                             f2: torch.Tensor, step: int,
+                             zeta_top: torch.Tensor, zeta_bot: torch.Tensor,
+                             psi_top: torch.Tensor, psi_bot: torch.Tensor):
+    """K15's sharded form on CUDA tensors (one cooperative launch), the
+    plain version on CPU tensors: K15 on one rank's (2, m, P) row block,
+    zeta's slabs natural and psi's rows of its permuted y-spectrum.
+    Replaces ``tpu_qg/ops/pallas_tendency.py:913``. Returns (zeta_new,
+    carry, zeta_ys)."""
+    if zeta.device.type == "cpu":
+        return fused_step_yspec_sharded_plain(cfg, zeta, psi_ys, f1, f2,
+                                              step, zeta_top, zeta_bot,
+                                              psi_top, psi_bot)
+    what = "fused_step_yspec_sharded (K15 sharded)"
+    wind = _check_sharded(what, cfg, (("zeta", zeta), ("psi_ys", psi_ys),
+                                      ("f1", f1), ("f2", f2)),
+                          (("zeta_top", zeta_top), ("zeta_bot", zeta_bot),
+                           ("psi_top", psi_top), ("psi_bot", psi_bot)))
+    lib = _lib()
+    consts = _checked_consts(cfg, lib, what)
+    _, m, P = zeta.shape
+    plan, smem, (twy, twny, _, _), _, info = coop_launch_args(
+        what, m, P, False, zeta.device)
+    zeta_new, carry, zeta_ys = (torch.empty_like(zeta) for _ in range(3))
+    top_nat, bot_nat = torch.empty_like(psi_top), torch.empty_like(psi_bot)
+    code = lib.qg_yspec_sharded_launch(
+        zeta.data_ptr(), psi_ys.data_ptr(), f1.data_ptr(), f2.data_ptr(),
+        None if wind is None else wind.data_ptr(), zeta_new.data_ptr(),
+        carry.data_ptr(), zeta_ys.data_ptr(), consts,
+        int(cfg.time_scheme == "leapfrog_ra"), int(step), plan, twy, twny,
+        zeta_top.data_ptr(), zeta_bot.data_ptr(), psi_top.data_ptr(),
+        psi_bot.data_ptr(), zeta_top.shape[1], top_nat.data_ptr(),
+        bot_nat.data_ptr(), smem, info,
+        torch.cuda.current_stream(zeta.device).cuda_stream)
+    _build.check(code, what)
+    fused_step_yspec_sharded.launches += 1
+    fused_step_yspec_sharded.grid = tuple(info)
+    return zeta_new, carry, zeta_ys
+
+
+fused_step_yspec_sharded.launches = 0
+fused_step_yspec_sharded.grid = None
 
 
 # ---------------------------------------------------------------------------

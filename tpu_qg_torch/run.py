@@ -1,17 +1,28 @@
-"""Run loop and command line (single device).
+"""Run loop and command line.
 
-Counterpart of the single-device part of ``tpu_qg.run`` (reference:
-src/run_model.jl:55-95): named presets, snapshots every ``sample_interval``
-of model time, checkpoints, resume, and a NaN check that writes an
-emergency checkpoint before it raises.
+Counterpart of ``tpu_qg.run`` (reference: src/run_model.jl:55-95): named
+presets, snapshots every ``sample_interval`` of model time, checkpoints,
+resume, and a NaN check that writes an emergency checkpoint before it
+raises.
 
 The device is explicit: ``device="cuda"`` (the default) raises when no GPU
 is present instead of running on the CPU; ``--device cpu`` is the CPU route.
-The sharded paths (``--mesh``, ``--distributed``, ``--parallel``) are not
-ported yet.
 
     python -m tpu_qg_torch.run --preset turbulence-2048 --steps 200 --no-save
     python -m tpu_qg_torch.run --preset pod-8192 --steps 50 --no-save
+
+With ``mesh`` (``--mesh nx,ny`` under ``torchrun``, one rank per mesh
+point) the grid is domain-decomposed over the ranks by the halo stepper
+(``tpu_qg_torch.parallel``); every rank runs this driver, and rank 0 writes
+snapshots and checkpoints gathered from every rank (``tpu_qg``'s
+"gathered" mode; the sharded files and ``parallel_impl="gspmd"`` are not
+ported):
+
+    python3 -m torch.distributed.run --nproc-per-node 1 -m tpu_qg_torch.run \
+        --preset pod-8192 --mesh 1,1 --steps 20 --no-save
+    python3 -m torch.distributed.run --nproc-per-node 4 -m tpu_qg_torch.run \
+        --preset turbulence-2048 --mesh 4,1 --backend gloo --device cuda:0 \
+        --steps 10 --no-save     # four ranks sharing one card (gloo)
 
 The opt-in one-launch forms run where pinned: add ``--set fft_mono=on``,
 ``--set step_full=on`` or ``--set step_chain=on``.
@@ -30,16 +41,18 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from .config import ModelConfig, preset
 from .constants import DAY
 from .device import resolve_device
 from .io import RunReader, RunWriter
-from .models.core import QGModel, State
-from .utils.diagnostics import diagnostics
+from .models.core import QGModel, State, init_state
+from .parallel import gather_state, make_halo_run_fn, make_mesh, shard_state
+from .parallel.collectives import all_gather_scalars
+from .utils.diagnostics import diagnostics, sharded_diagnostics
 
-_SHARDED = ("the sharded paths (--mesh, --distributed, --parallel) are not "
-            "ported yet (ROADMAP.md queue 1 item 14)")
+_NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item 14's remainder)"
 
 
 def log_model_params(cfg: ModelConfig) -> None:
@@ -73,19 +86,45 @@ def run_model(
     state: Optional[State] = None,
     mesh=None,
     device: torch.device | str = "cuda",
+    parallel_impl: str = "halo",
+    checkpoint_mode: str = "auto",
 ) -> State:
-    """Run the simulation on one device, optionally streaming snapshots and
-    checkpoints to ``run_dir``. Snapshots go every ``sample_interval``
-    seconds of model time, as the metadata says."""
-    if mesh is not None:
-        raise NotImplementedError(_SHARDED)
-    device = resolve_device(device)
+    """Run the simulation on one device, or on ``mesh`` (a
+    ``parallel.Mesh``: the device is the mesh's; every rank calls this),
+    optionally streaming snapshots and checkpoints to ``run_dir``.
+    Snapshots go every ``sample_interval`` seconds of model time, as the
+    metadata says.
+
+    On a mesh, ``state`` (if given) is the full state, and the result is
+    this rank's blocks of the final state (``parallel.gather_state`` joins
+    them); ``checkpoint_mode`` "auto" and "gathered" write through rank 0."""
+    if mesh is None:
+        device = resolve_device(device)
+    else:
+        if parallel_impl == "gspmd":
+            raise NotImplementedError(
+                f"parallel_impl='gspmd' is {_NOT_PORTED}")
+        if parallel_impl != "halo":
+            raise ValueError(f"unknown parallel_impl {parallel_impl!r}")
+        if checkpoint_mode == "sharded":
+            raise NotImplementedError(f"checkpoint_mode='sharded' is "
+                                      f"{_NOT_PORTED}")
+        if checkpoint_mode not in ("auto", "gathered"):
+            raise ValueError(f"unknown checkpoint_mode {checkpoint_mode!r}")
+        device = mesh.device
+    primary = mesh is None or mesh.rank == 0
+    verbose = verbose and primary
     if verbose:
         log_model_params(cfg)
 
     total = cfg.total_steps if n_steps is None else n_steps
     sample_steps = max(int(sample_interval // cfg.dt), 1)
-    model = QGModel(cfg, device=device)
+    if mesh is None:
+        advance = QGModel(cfg, device=device).run
+        where = str(device)
+    else:
+        advance = make_halo_run_fn(cfg, mesh)
+        where = f"mesh {mesh.shape} ({advance.route}, {mesh.backend})"
 
     writer = None
     if save_results:
@@ -95,12 +134,30 @@ def run_model(
             state = RunReader(run_dir).load_checkpoint(device=device)
             if verbose:
                 print(f"Resumed from step {state.step}")
-        writer = RunWriter(run_dir, cfg, sample_interval)
+        if primary:
+            writer = RunWriter(run_dir, cfg, sample_interval)
 
     if state is None:
-        state = model.init_state()
+        state = init_state(cfg, device)
         if writer is not None:
             writer.write_snapshot(0, state.zeta, state.psi)
+    if mesh is not None:
+        state = shard_state(state, mesh)
+
+    def save(s: State, snapshot: bool) -> None:
+        """Write a snapshot or checkpoint; on a mesh, gathered and written
+        through rank 0, every rank returning once the file is in place."""
+        full = s
+        if mesh is not None:
+            full = gather_state(s, mesh, ("zeta", "psi") if snapshot
+                                else ("zeta", "psi", "f1", "f2"))
+        if writer is not None:
+            if snapshot:
+                writer.write_snapshot(s.step, full.zeta, full.psi)
+            else:
+                writer.write_checkpoint(full)
+        if mesh is not None:
+            all_gather_scalars(torch.zeros(1, device=device), mesh)
 
     start_step = state.step
     if verbose:
@@ -109,31 +166,34 @@ def run_model(
     done = start_step
     while done < total:
         chunk = min(sample_steps, total - done)
-        state = model.run(state, chunk)
+        state = advance(state, chunk)
         done += chunk
-        if writer is not None and done % sample_steps == 0:
-            writer.write_snapshot(done, state.zeta, state.psi)
-        if writer is not None and checkpoint_every and done % checkpoint_every == 0:
-            writer.write_checkpoint(state)
-        d = diagnostics(cfg, state)      # copies to the host: waits for the device
+        if save_results and done % sample_steps == 0:
+            save(state, True)
+        if save_results and checkpoint_every and done % checkpoint_every == 0:
+            save(state, False)
+        # Copies to the host, so waits for the device (a collective on a
+        # mesh).
+        d = (diagnostics(cfg, state) if mesh is None
+             else sharded_diagnostics(cfg, state, mesh))
         if not math.isfinite(d["max_abs_zeta"]):
             # NaN/Inf in the state: save it for post-mortem and restart.
-            if writer is not None:
-                writer.write_checkpoint(state)
+            if save_results:
+                save(state, False)
             raise FloatingPointError(
                 f"non-finite state at step {done} (max|zeta|="
                 f"{d['max_abs_zeta']}); diagnostics: {d}"
-                + (" — emergency checkpoint written" if writer else ""))
+                + (" — emergency checkpoint written" if save_results else ""))
         if verbose:
             rate = (done - start_step) * cfg.M * cfg.P / (time.perf_counter() - t0)
             print(f"step {done}/{total}  cfl={d['cfl']:.3f}  "
                   f"ke1={d.get('ke_1', float('nan')):.3e}  "
                   f"max|zeta|={d['max_abs_zeta']:.3e}  "
-                  f"[{rate:.3e} gridpoint-steps/s on {device}]")
+                  f"[{rate:.3e} gridpoint-steps/s on {where}]")
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    if writer is not None:
-        writer.write_checkpoint(state)
+    if save_results:
+        save(state, False)
     return state
 
 
@@ -149,7 +209,8 @@ def parse_overrides(cfg: ModelConfig, items) -> ModelConfig:
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
-        description="Two-layer QG solver on one device (PyTorch/CUDA)")
+        description="Two-layer QG solver (PyTorch/CUDA), on one device or a "
+                    "mesh of torchrun ranks")
     parser.add_argument("--preset", default="production",
                         help="named config preset (see tpu_qg_torch.config.preset)")
     parser.add_argument("--run-dir", default=None, help="output directory")
@@ -164,26 +225,50 @@ def main(argv=None) -> None:
                              "kernels' plain versions)")
     parser.add_argument("--set", nargs="*", default=[],
                         metavar="KEY=VALUE", help="config field overrides")
-    parser.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--mesh", default=None, metavar="NX,NY",
+                        help="mesh shape over the torchrun ranks (NX * NY "
+                             "ranks; rank = ix * NY + iy)")
     parser.add_argument("--distributed", action="store_true",
-                        help=argparse.SUPPRESS)
-    parser.add_argument("--parallel", default=None, help=argparse.SUPPRESS)
+                        help="shard over every torchrun rank, the mesh "
+                             "shape from the config")
+    parser.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                        help="process-group backend (default: nccl on cuda, "
+                             "gloo on cpu; gloo for ranks sharing a card)")
+    parser.add_argument("--parallel", default="halo",
+                        choices=["halo", "gspmd"],
+                        help="sharded implementation (gspmd is not ported)")
+    parser.add_argument("--checkpoint-mode", default="auto",
+                        choices=["auto", "gathered", "sharded"],
+                        help="mesh runs: gathered through rank 0 (auto); "
+                             "sharded is not ported")
     args = parser.parse_args(argv)
-    if args.mesh is not None or args.distributed or args.parallel is not None:
-        raise NotImplementedError(_SHARDED)
 
     cfg = parse_overrides(preset(args.preset), args.set)
+    mesh = None
+    if args.mesh is not None or args.distributed:
+        shape = (tuple(int(v) for v in args.mesh.split(","))
+                 if args.mesh else None)
+        mesh = make_mesh(shape, cfg=cfg, device=args.device,
+                         backend=args.backend)
     t0 = time.perf_counter()
-    run_model(
-        cfg,
-        run_dir=args.run_dir,
-        save_results=not args.no_save and args.run_dir is not None,
-        n_steps=args.steps,
-        checkpoint_every=args.checkpoint_every,
-        resume=args.resume,
-        device=args.device,
-    )
-    print(f"\n Total runtime: {time.perf_counter() - t0:.2f} s")
+    try:
+        run_model(
+            cfg,
+            run_dir=args.run_dir,
+            save_results=not args.no_save and args.run_dir is not None,
+            n_steps=args.steps,
+            checkpoint_every=args.checkpoint_every,
+            resume=args.resume,
+            mesh=mesh,
+            device=args.device,
+            parallel_impl=args.parallel,
+            checkpoint_mode=args.checkpoint_mode,
+        )
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+    if mesh is None or mesh.rank == 0:
+        print(f"\n Total runtime: {time.perf_counter() - t0:.2f} s")
 
 
 if __name__ == "__main__":

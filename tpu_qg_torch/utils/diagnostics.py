@@ -12,7 +12,9 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
-from ..ops.stencils import centered_diff_x
+from ..ops.stencils import centered_diff_x, centered_diff_x_generic
+from ..parallel.collectives import all_gather_scalars
+from ..parallel.halo import exchange_halo, make_padded_shift
 
 
 def _grad_sq(psi: torch.Tensor, dx: float) -> torch.Tensor:
@@ -86,4 +88,33 @@ def diagnostics(cfg: ModelConfig, state) -> Dict[str, float]:
     for i in range(L):
         out[f"ke_{i + 1}"] = host[i]
         out[f"enstrophy_{i + 1}"] = host[L + i]
+    return out
+
+
+def sharded_diagnostics(cfg: ModelConfig, state, mesh) -> Dict[str, float]:
+    """``diagnostics`` of a state held as a mesh's blocks (a collective: call
+    on every rank): the gradients on each block padded with a halo of 1,
+    the sums and maxima exchanged between the ranks."""
+    shift = make_padded_shift(1)
+    pad = exchange_halo(state.psi, 1, mesh)
+    dpx = centered_diff_x_generic(shift, pad, cfg.dx)
+    dpy = torch.swapaxes(centered_diff_x_generic(
+        shift, torch.swapaxes(pad, -1, -2), cfg.dx), -1, -2)
+    g2 = dpx * dpx + dpy * dpy
+    local = torch.cat([g2.sum(dim=(-2, -1)),
+                       (state.zeta * state.zeta).sum(dim=(-2, -1)),
+                       g2.max().reshape(1),
+                       state.zeta.abs().max().reshape(1)]).double()
+    every = all_gather_scalars(local, mesh)
+    L = state.psi.shape[0]
+    n = float(cfg.M * cfg.P)
+    sums = every[:, :2 * L].sum(dim=0)
+    speed = float(torch.sqrt(every[:, 2 * L].max()))
+    host = sums.cpu().tolist()
+    out = {"step": int(state.step),
+           "cfl": (speed + abs(cfg.U)) * cfg.dt / cfg.dx,
+           "max_abs_zeta": float(every[:, 2 * L + 1].max())}
+    for i in range(L):
+        out[f"ke_{i + 1}"] = 0.5 * host[i] / n
+        out[f"enstrophy_{i + 1}"] = 0.5 * host[L + i] / n
     return out
