@@ -20,7 +20,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    multigrid smoother: restrict, residual and smooth-only forms) and K11
    (prolongation + smoother) at (2, n, n), n = 2048 and 8192, with alpha =
    (0, S_eig) and nu = 2; K9 (the tendency) at (2, 2048, 2048),
-   (1, 2048, 2048) with the wind and (2, 8192, 8192).
+   (1, 2048, 2048) with the wind and (2, 8192, 8192). K18 (the stencil
+   lab's step) in each of its six variants on the step cases at the lab's
+   (2, 2048, 2048), and base, legacy and aligned bitwise K1.
 4. slices  — through the normal entry point run_model, each with the
    kernels' launch counts set to 0 just before and read just after, the
    route QGModel resolves, a finite state with CFL < 1, and the same steps
@@ -34,7 +36,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    one default step after the pod-8192 slice (pod-8192-mg: 2 cycles a call,
    K10 = K11 = 120) and after the turbulence-2048 slice (4 cycles, 240),
    each against the plain MG route and a float64 spectral solve; and the
-   tendency path (20 K9 calls on the turbulence-2048 state).
+   tendency path (20 K9 calls on the turbulence-2048 state). The stencil
+   lab's path through its own function (tpu_qg_torch.scripts.stencil_lab
+   run_lab) at 2048^2, chunk 50, reps 4, all six variants: K18 = 6 x 50 x 5
+   = 1500, every other count 0; each variant's final zeta against a loop of
+   its plain version from the same state.
    The sharded kernels against their plain versions, inputs from numpy
    seeds, relative to max|plain|: K12 on the row block (2, 512, 2048) of a
    2048^2 state with its 2-row slabs sliced from the global field (and
@@ -74,7 +80,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    single-device route at 2048^2 and 8192^2, in turns; K12, K13, K14, K15's
    sharded form and K7 per launch beside their plain versions at the
    mesh slices' shapes; ms per step of each four-rank slice (host-staged
-   gloo transport on one card: not a scaling result).
+   gloo transport on one card: not a scaling result). The lab: ms per
+   launch of each K18 variant beside K1 in turns, each beside its plain
+   version, and the lab path's own ms per step.
 
 The line before the last is {"kernels": [...]}, every kernel with its
 launches in phase 4, its largest error, its ms, its plain version's ms
@@ -104,7 +112,7 @@ import torch.multiprocessing as mp
 import tpu_qg_torch
 from tpu_qg_torch import preset
 from tpu_qg_torch.constants import DAY
-from tpu_qg_torch.models.core import QGModel, init_state
+from tpu_qg_torch.models.core import QGModel, State, init_state
 from tpu_qg_torch.ops import _build, dft_kernels
 from tpu_qg_torch.ops.dft_kernels import (
     mirror_companion, mono_invert, mono_invert_plain, pair_x_symbols,
@@ -115,6 +123,7 @@ from tpu_qg_torch.ops.dft_kernels import (
 from tpu_qg_torch.ops.mg_kernels import (mg_prolong_smooth,
                                          mg_prolong_smooth_plain, mg_smooth,
                                          mg_smooth_plain)
+from tpu_qg_torch.ops._stencil_lab import lab_step, lab_step_plain
 from tpu_qg_torch.ops.multigrid import MultigridModalInverter
 from tpu_qg_torch.ops.spectral import (PackedModalInverter,
                                        PackedModalInverterKernels)
@@ -135,6 +144,7 @@ from tpu_qg_torch.parallel import (gather_state, make_halo_run_fn, make_mesh,
                                    shard_state)
 from tpu_qg_torch.parallel.paired import strip_pair_order
 from tpu_qg_torch.run import run_model
+from tpu_qg_torch.scripts import stencil_lab
 from tpu_qg_torch.utils.diagnostics import diagnostics
 
 SEED = 1234
@@ -148,6 +158,7 @@ TOL = {"K1": 1e-6, "K2": 1e-5, "K3": 1e-4, "K4": 1e-5, "K5": 1e-4,
        "K7": 1e-4, "K8": 1e-6, "K9": 1e-6, "K10": 1e-6, "K11": 1e-6,
        "K12": 1e-6, "K13": 1e-4, "K14": 1e-4, "K15": 1e-6,
        "K15 zeta_ys": 1e-5, "K15s": 1e-6, "K16": 1e-4, "K17": 1e-6,
+       "K18": 1e-6,
        "K17 psi_new": 1e-4, "slice_zeta": 1e-4, "mesh1_zeta": 1e-6,
        "mg_psi": 1e-5}
 FUSED = "tpu_qg_torch/csrc/fused_kernels.cu"
@@ -182,6 +193,8 @@ KERNELS = {
             "tpu_qg/parallel/paired.py:226"),
     "K15s": ("fused_step_yspec_sharded (K15's sharded form)", FUSED,
              "tpu_qg/ops/pallas_tendency.py:913"),
+    "K18": ("lab_step", "tpu_qg_torch/csrc/lab_kernel.cu",
+            "tpu_qg/ops/_stencil_lab.py:325"),
 }
 COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
             "K4": x_dft, "K5": x_symbols_inverse, "K8": fused_pre_inversion,
@@ -190,10 +203,11 @@ COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
             "K16": mono_invert, "K17": fused_step_full,
             "K7": stream_pair_symbols, "K12": fused_step_sharded,
             "K13": x_fwd_symbols_offset, "K14": paired_x_symbols,
-            "K15s": fused_step_yspec_sharded}
-# Kernel names in a profiler trace, the one-launch kernels, K8, K9 and K12
-# before K1: a mangled K8, K9 or K12 name holds the source file's name,
-# step_kernel. K7, K13 and K14 are one kernel, pair_cols_kernel.
+            "K15s": fused_step_yspec_sharded, "K18": lab_step}
+# Kernel names in a profiler trace, the one-launch kernels, K8, K9, K12 and
+# K18 before K1: a mangled K8, K9 or K12 name holds the source file's name,
+# step_kernel, and K18's lab_step_kernel holds it too. K7, K13 and K14 are
+# one kernel, pair_cols_kernel.
 TRACE_NAMES = (("K17", "coop_fullstep_kernel"), ("K16", "coop_mono_kernel"),
                ("K15s", "coop_yspec_sharded_kernel"),
                ("K15", "coop_yspec_kernel"), ("K12", "step_sharded_kernel"),
@@ -203,7 +217,7 @@ TRACE_NAMES = (("K17", "coop_fullstep_kernel"), ("K16", "coop_mono_kernel"),
                ("K8", "pre_inversion_kernel"),
                ("K5", "x_symbols_inverse_kernel"), ("K4", "x_dft_kernel"),
                ("K3", "pair_x_kernel"), ("K2", "y_dft_kernel"),
-               ("K1", "step_kernel"))
+               ("K18", "lab_step_kernel"), ("K1", "step_kernel"))
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): device
 # memory bandwidth and the float32 rate without tensor cores.
@@ -288,7 +302,8 @@ def bound(name: str, M: int, P: int) -> tuple[float, str, float]:
         "K15": (7, step + 2 * ffts(P, M)), "K16": (2, mono),
         "K17": (7, step + mono), "K7": (2, ffts(M, 3 * P)),
         "K12": (6, step), "K13": (3, ffts(M, 3 * P)),
-        "K14": (2, ffts(M, 2 * P)), "K15s": (7, step + 2 * ffts(P, M))}[name]
+        "K14": (2, ffts(M, 2 * P)), "K15s": (7, step + 2 * ffts(P, M)),
+        "K18": (6, step)}[name]
     t_bytes = fields * field / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
@@ -327,9 +342,12 @@ class Errors:
     def __init__(self):
         self.by_kernel = {}
 
-    def record(self, name, case, got, want, tol=None):
+    def record(self, name, case, got, want, tol=None, scale=0.0):
+        """``scale`` floors max|want| where the plain output is zero by
+        construction (K18's norot tendency)."""
         tol = TOL[name] if tol is None else tol
-        a, r = rel_err(got, want)
+        a = float((got - want).abs().max())
+        r = a / max(float(want.abs().max()), scale)
         emit("kernels", kernel=name, case=case, shape=list(got.shape),
              max_abs_err=a, rel_err=r, tol=tol)
         if not r <= tol:
@@ -786,6 +804,137 @@ def run_tendency_path(cfg, state, calls) -> dict:
     if not r <= TOL["K9"]:
         raise AssertionError(f"tendency path: rel err {r} > {TOL['K9']}")
     return launches
+
+
+# --- The stencil lab (K18): tpu_qg_torch.scripts.stencil_lab's protocol.
+
+LAB_VARIANTS = ("base", "legacy", "aligned", "norot", "noslice", "nojac")
+LAB_K1_BITS = ("base", "legacy", "aligned")    # K1's instance
+LAB_M, LAB_CHUNK, LAB_REPS = 2048, 50, 4
+
+
+def phase_lab_kernels(errs, dev) -> None:
+    """K18 in every variant against its plain version on the step cases at
+    the lab's (2, 2048, 2048), relative to max|plain| (norot's euler_ab3
+    carry, its tendency, is zero apart from the wind: held against base's
+    carry scale); base, legacy and aligned bitwise K1."""
+    cfg = stencil_lab.lab_config(LAB_M)
+    zeta, psi, f1, f2 = step_inputs(cfg, dev, np.random.default_rng(SEED + 7))
+    for case, over, step in STEP_CASES:
+        c = cfg.replace(**over)
+        k1 = fused_step(c, zeta, psi, f1, f2, step)
+        scale = float(lab_step_plain(c, zeta, psi, f1, f2, step)[1].abs().max())
+        for variant in LAB_VARIANTS:
+            got = lab_step(c, zeta, psi, f1, f2, step, variant)
+            want = lab_step_plain(c, zeta, psi, f1, f2, step, variant)
+            for part, g, w, w1 in zip(("zeta_new", "carry"), got, want, k1):
+                errs.record("K18", f"{variant} {case} {part}", g, w,
+                            scale=scale if (variant, part) == ("norot",
+                                                               "carry")
+                            else 0.0)
+                if variant in LAB_K1_BITS and not torch.equal(g, w1):
+                    raise AssertionError(f"K18 {variant} {case} {part}: not "
+                                         "bitwise K1")
+    emit("kernels", kernel="K18", bitwise_k1=list(LAB_K1_BITS),
+         cases=[case for case, _, _ in STEP_CASES])
+    del zeta, psi, f1, f2
+    free_memory()
+
+
+def lab_plain_run(cfg, state, steps: int, variant: str) -> State:
+    """``steps`` plain lab steps from ``state`` with psi held fixed (the
+    lab's chunk, tpu_qg_torch.scripts.stencil_lab.run_chunk)."""
+    for _ in range(steps):
+        zeta_new, carry = lab_step_plain(cfg, state.zeta, state.psi, state.f1,
+                                         state.f2, state.step, variant)
+        state = State(zeta_new, state.psi, carry, state.f1, state.step + 1)
+    return state
+
+
+def run_lab_path(dev) -> tuple[dict, dict]:
+    """The lab's protocol through its own function (run_lab) at 2048^2,
+    chunk 50, reps 4, all six variants, the counts set to 0 just before and
+    read just after: K18 = 6 x 50 x 5, every other count 0. Each variant's
+    final zeta (250 steps, psi fixed) against a loop of its plain version
+    from the same state within TOL["slice_zeta"], else both against a
+    float64 loop (kernel <= 2 x plain). Returns (counts, the lab's jobs)."""
+    steps = LAB_CHUNK * (1 + LAB_REPS)
+    reset_counts()
+    jobs, finals = stencil_lab.run_lab(LAB_M, LAB_CHUNK, LAB_REPS,
+                                       LAB_VARIANTS, dev)
+    torch.cuda.synchronize()
+    launches = counts()
+    want = {k: 0 for k in COUNTERS}
+    want["K18"] = len(LAB_VARIANTS) * steps
+    if launches != want:
+        raise AssertionError(f"stencil lab: launch counts {launches} != "
+                             f"{want}")
+    cfg = stencil_lab.lab_config(LAB_M)
+    state0 = init_state(cfg, dev, seed=stencil_lab.SEED)
+    checks = {}
+    for variant in LAB_VARIANTS:
+        out = finals.pop(variant)
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (out.zeta, out.f1, out.f2))
+        if (not finite or out.step != steps
+                or tuple(out.zeta.shape) != (2, LAB_M, LAB_M)):
+            raise AssertionError(f"stencil lab {variant}: finite={finite}, "
+                                 f"step {out.step}, shape "
+                                 f"{tuple(out.zeta.shape)}")
+        ref = lab_plain_run(cfg, state0, steps, variant)
+        _, dz = rel_err(out.zeta, ref.zeta)
+        checks[variant] = {"zeta_rel_diff_vs_plain": dz}
+        if dz > TOL["slice_zeta"]:
+            f64 = lab_plain_run(cfg, state0._replace(**{
+                k: getattr(state0, k).double()
+                for k in ("zeta", "psi", "f1", "f2")}), steps, variant)
+            _, e_kern = rel_err(out.zeta.double(), f64.zeta)
+            _, e_plain = rel_err(ref.zeta.double(), f64.zeta)
+            checks[variant]["float64_adjudication"] = dict(
+                zeta_rel_err_kernel=e_kern, zeta_rel_err_plain=e_plain,
+                rule="kernel <= 2 x plain")
+            if not e_kern <= 2.0 * e_plain:
+                raise AssertionError(f"stencil lab {variant}: zeta differs "
+                                     f"from the plain loop by {dz} and its "
+                                     f"float64 error {e_kern} exceeds twice "
+                                     f"the plain loop's {e_plain}")
+        del out, ref
+    emit("lab_path", grid=[LAB_M, LAB_M], chunk=LAB_CHUNK, reps=LAB_REPS,
+         steps_per_variant=steps, launches=launches,
+         tol_zeta=TOL["slice_zeta"], checks=checks, jobs=jobs)
+    free_memory()
+    return launches, jobs
+
+
+def time_lab(dev, card, jobs) -> dict:
+    """CUDA-event ms per launch of K1 and each K18 variant on the lab's
+    (2, 2048, 2048) inputs, in turns (in order, then in reverse), each
+    variant beside its plain version; the lab path's own ms per step (host
+    clock, best of its reps) beside. Returns K18's row fields."""
+    cfg = stencil_lab.lab_config(LAB_M)
+    zeta, psi, f1, f2 = step_inputs(cfg, dev, np.random.default_rng(SEED + 8))
+    calls = {"K1": lambda: fused_step(cfg, zeta, psi, f1, f2, 5)}
+    for variant in LAB_VARIANTS:
+        calls[variant] = lambda v=variant: lab_step(cfg, zeta, psi, f1, f2, 5,
+                                                    v)
+    runs = {k: [] for k in calls}
+    for k in list(calls) + list(calls)[::-1]:
+        runs[k].append(time_ms(calls[k], 50, warmup=5))
+    ms = {k: sum(v) / len(v) for k, v in runs.items()}
+    plain = {v: time_ms(lambda v=v: lab_step_plain(cfg, zeta, psi, f1, f2, 5,
+                                                   v), 10)
+             for v in LAB_VARIANTS}
+    lab_ms = {v: jobs[v]["ms_per_iter"] for v in LAB_VARIANTS}
+    emit("timing", card=card, path="stencil lab", grid=[LAB_M, LAB_M],
+         launch_ms=ms, launch_ms_runs=runs, plain_ms=plain,
+         bound_ms=bound("K18", LAB_M, LAB_M)[0], lab_ms_per_iter=lab_ms,
+         first_call_s={v: jobs[v]["first_call_s"] for v in LAB_VARIANTS})
+    del zeta, psi, f1, f2
+    free_memory()
+    return {"ms": ms["base"], "plain_ms": plain["base"],
+            "variants_ms": {v: ms[v] for v in LAB_VARIANTS},
+            "variants_plain_ms": plain, "k1_ms_same_turns": ms["K1"],
+            "lab_ms_per_iter": lab_ms}
 
 
 # --- The mesh: the halo stepper on a one-rank NCCL mesh and on four gloo
@@ -1500,6 +1649,7 @@ def main() -> None:
     phase_x_kernels(errs, pod, dev)
     phase_mg_kernels(errs, turb, pod_mg, dev)
     phase_sharded_kernels(errs, turb, pod, dev)
+    phase_lab_kernels(errs, dev)
 
     slices = (
         ("turbulence-2048", turb, 100, {"K1": 100, "K2": 200, "K3": 100},
@@ -1541,6 +1691,7 @@ def main() -> None:
     launches["turbulence-2048 tendency"] = run_tendency_path(
         turb, finals["turbulence-2048"], 20)
     free_memory()
+    launches["stencil lab (6 variants)"], lab_jobs = run_lab_path(dev)
 
     # The mesh: one rank on NCCL, K7's path, then four ranks on gloo.
     mesh_launches, mesh_ms = phase_mesh_one_rank(turb, pod, dev, card)
@@ -1574,6 +1725,9 @@ def main() -> None:
 
     sharded_ms = time_sharded_kernels(turb, pod, dev, card)
     extra["K12"] = {"mesh_step_ms": mesh_ms}
+    lab = time_lab(dev, card, lab_jobs)
+    ms_2048["K18"] = {"ms": lab.pop("ms"), "plain_ms": lab.pop("plain_ms")}
+    extra["K18"] = lab
 
     print(json.dumps({"kernels": kernel_rows(errs, launches, ms_2048,
                                              ms_8192, extra, sharded_ms)}),

@@ -11,7 +11,8 @@ carry) and 1e-4 (psi_new), K15 1e-6 (zeta_new, carry) and 1e-5 (zeta_ys);
 K9 1e-6 (K1's tile); K10 and K11 1e-6 (tests/test_multigrid.py's kernel
 tolerance), and the multigrid solves on the card 1e-5 from the CPU's. The
 sharded kernels as the kernels they extend: K12 1e-6, K15's sharded form
-1e-6 (zeta_new, carry) and 1e-5 (zeta_ys), K13, K14 and K7 1e-4.
+1e-6 (zeta_new, carry) and 1e-5 (zeta_ys), K13, K14 and K7 1e-4. K18 (the
+stencil lab's step) 1e-6, its base instance bitwise K1.
 """
 
 import numpy as np
@@ -27,6 +28,7 @@ from tpu_qg_torch.ops.dft_kernels import (
     x_fwd_symbols_offset, x_fwd_symbols_offset_plain, x_symbols_inverse,
     x_symbols_inverse_plain, y_dft, y_dft_plain)
 from tpu_qg_torch.ops import mg_kernels
+from tpu_qg_torch.ops._stencil_lab import lab_step, lab_step_plain
 from tpu_qg_torch.ops.mg_kernels import (mg_prolong_smooth,
                                          mg_prolong_smooth_plain, mg_smooth,
                                          mg_smooth_plain)
@@ -473,3 +475,41 @@ def test_stream_pair_kernel(dev, M, P):
     assert _rel(inv(zeta), want) <= 1e-5
     torch.cuda.synchronize()
     assert stream_pair_symbols.launches == n + 2
+
+
+LAB_VARIANTS = ("base", "legacy", "aligned", "norot", "noslice", "nojac")
+
+
+# K18 at 1e-6 of max|plain|; norot's carry (its tendency) is zero apart from
+# the wind, so it is held against base's carry scale instead. base, legacy
+# and aligned run K1's code: bitwise K1 for two layers.
+@pytest.mark.parametrize("L,M,P", [(2, 2048, 2048), (1, 256, 256)])
+@pytest.mark.parametrize("scheme,tau0,step", [
+    ("euler_ab3", 0.0, 0), ("euler_ab3", 0.0, 5), ("leapfrog_ra", 0.1, 3)])
+def test_lab_kernel(dev, L, M, P, scheme, tau0, step):
+    cfg = preset("turbulence-2048").replace(M=M, P=P, n_layers=L,
+                                            time_scheme=scheme,
+                                            wind_tau0=tau0)
+    z, p, f1, f2 = (t[:L].contiguous() for t in _fields(M, P, dev))
+    n = lab_step.launches
+    scale = float(lab_step_plain(cfg, z, p, f1, f2, step)[1].abs().max())
+    k1 = fused_step(cfg, z, p, f1, f2, step) if L == 2 else None
+    for variant in LAB_VARIANTS:
+        got = lab_step(cfg, z, p, f1, f2, step, variant)
+        want = lab_step_plain(cfg, z, p, f1, f2, step, variant)
+        for part, g, w in zip(("zeta_new", "carry"), got, want):
+            floor = scale if (variant, part) == ("norot", "carry") else 0.0
+            err = float((g - w).abs().max())
+            assert err <= 1e-6 * max(float(w.abs().max()), floor), (variant,
+                                                                    part)
+        if k1 is not None and variant in ("base", "legacy", "aligned"):
+            assert all(torch.equal(g, w) for g, w in zip(got, k1)), variant
+    torch.cuda.synchronize()
+    assert lab_step.launches == n + len(LAB_VARIANTS)
+
+
+def test_lab_wrapper_refuses_an_unknown_variant(dev):
+    cfg = preset("turbulence-2048").replace(M=256, P=256)
+    z, p, f1, f2 = _fields(256, 256, dev)
+    with pytest.raises(KeyError):
+        lab_step(cfg, z, p, f1, f2, 0, "nosuch")

@@ -300,7 +300,9 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, tpu_qg_torch, tpu_qg_torch.run, tpu_qg_torch.io, "
             "tpu_qg_torch.interop, tpu_qg_torch.utils.diagnostics, "
             "tpu_qg_torch.ops.multigrid, tpu_qg_torch.ops.mg_kernels, "
-            "tpu_qg_torch.parallel, tpu_qg_torch.parallel.stepper; "
+            "tpu_qg_torch.parallel, tpu_qg_torch.parallel.stepper, "
+            "tpu_qg_torch.ops._stencil_lab, "
+            "tpu_qg_torch.scripts.stencil_lab; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'tpu_qg.')) or m == 'tpu_qg']; "
             "assert not bad, bad")

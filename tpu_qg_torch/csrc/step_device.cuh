@@ -76,6 +76,23 @@ __device__ __forceinline__ float slab_ld(const float* layer, const float* top,
   return ld<kL2>(layer + (size_t)gx * P + gy);
 }
 
+// K18's tendency bodies (lab_kernel.cu; tpu_qg/ops/_stencil_lab.py BODIES):
+// K1's body (also the lab's legacy and aligned variants), every neighbour
+// read as the centre, the x neighbours read as the centre, no Jacobian.
+constexpr int kBodyBase = 0;
+constexpr int kBodyNorot = 1;
+constexpr int kBodyNoslice = 2;
+constexpr int kBodyNojac = 3;
+
+// K1's and K8's tiles in static shared memory (zn0 only where the modes need
+// it).
+#define STATIC_STEP_TILES(kModes)                      \
+  __shared__ float ps[TX + 4][TY + 4];                 \
+  __shared__ float zs[TX + 2][TY + 2];                 \
+  __shared__ float lp[TX + 2][TY + 2];                 \
+  __shared__ float zn0[(kModes) ? TX : 1][TY];         \
+  const StepTiles tiles{ps, zs, lp, zn0}
+
 // The tiles carved from `smem` (kStepTileFloats floats).
 __device__ __forceinline__ StepTiles step_tiles(float* smem) {
   float* zs = smem + (TX + 4) * (TY + 4);
@@ -93,9 +110,12 @@ __device__ __forceinline__ StepTiles step_tiles(float* smem) {
 // kL2: see ld(). kTendOnly (K9) writes the tendency to zeta_new and stops
 // there: no f1/f2 reads, no update, no carry. kSharded (K12, K15's sharded
 // form) reads the rows outside [0, M) from the slabs `sl` instead of
-// wrapping. Ends with a barrier: the caller may run the next tile.
+// wrapping. kBody (K18) swaps the tendency body: DX and DY are the x and y
+// neighbour offsets, 0 where the body reads the centre in their place, and
+// nojac and noslice drop one layer's U term, as tpu_qg's bodies do. Ends
+// with a barrier: the caller may run the next tile.
 template <int L, bool kModes, int NT, bool kL2, bool kTendOnly = false,
-          bool kSharded = false>
+          bool kSharded = false, int kBody = kBodyBase>
 __device__ __forceinline__ void step_tile(
     const float* __restrict__ zeta, const float* __restrict__ psi,
     const float* __restrict__ f1, const float* __restrict__ f2,
@@ -103,6 +123,9 @@ __device__ __forceinline__ void step_tile(
     float* __restrict__ carry, float* __restrict__ modes, int M, int P,
     const StepConsts& c, const ModalConsts& q, int leapfrog, int step, int x0,
     int y0, const StepTiles& t, Slabs sl = Slabs{}) {
+  constexpr int DX = kBody == kBodyNorot || kBody == kBodyNoslice ? 0 : 1;
+  constexpr int DY = kBody == kBodyNorot ? 0 : 1;
+  constexpr bool kOneLayerU = kBody == kBodyBase || kBody == kBodyNorot;
   float (*ps)[TY + 4] = t.ps;
   float (*zs)[TY + 2] = t.zs;
   float (*lp)[TY + 2] = t.lp;
@@ -137,8 +160,9 @@ __device__ __forceinline__ void step_tile(
     // lap(psi) on the tile plus a ring of 1: lp[i][j] sits at ps[i+1][j+1].
     for (int idx = threadIdx.x; idx < (TX + 2) * (TY + 2); idx += NT) {
       const int i = idx / (TY + 2), j = idx % (TY + 2);
-      lp[i][j] = ((((ps[i][j + 1] + ps[i + 2][j + 1]) - 4.0f * ps[i + 1][j + 1])
-                   + ps[i + 1][j]) + ps[i + 1][j + 2]) * c.inv_dx2;
+      lp[i][j] = ((((ps[i + 1 - DX][j + 1] + ps[i + 1 + DX][j + 1])
+                    - 4.0f * ps[i + 1][j + 1])
+                   + ps[i + 1][j + 1 - DY]) + ps[i + 1][j + 1 + DY]) * c.inv_dx2;
     }
     __syncthreads();
 
@@ -150,32 +174,37 @@ __device__ __forceinline__ void step_tile(
       const int pi = i + 2, pj = j + 2, zi = i + 1, zj = j + 1;
       const float lap_c = lp[zi][zj];
       const float visc_term =
-          c.visc * (((((lp[zi - 1][zj] + lp[zi + 1][zj]) - 4.0f * lap_c)
-                      + lp[zi][zj - 1]) + lp[zi][zj + 1]) * c.inv_dx2);
+          c.visc * (((((lp[zi - DX][zj] + lp[zi + DX][zj]) - 4.0f * lap_c)
+                      + lp[zi][zj - DY]) + lp[zi][zj + DY]) * c.inv_dx2);
 
-      const float z_xp = zs[zi + 1][zj], z_xm = zs[zi - 1][zj];
-      const float z_yp = zs[zi][zj + 1], z_ym = zs[zi][zj - 1];
-      const float z_xpyp = zs[zi + 1][zj + 1], z_xpym = zs[zi + 1][zj - 1];
-      const float z_xmyp = zs[zi - 1][zj + 1], z_xmym = zs[zi - 1][zj - 1];
-      const float p_xp = ps[pi + 1][pj], p_xm = ps[pi - 1][pj];
-      const float p_yp = ps[pi][pj + 1], p_ym = ps[pi][pj - 1];
-      const float p_xpyp = ps[pi + 1][pj + 1], p_xpym = ps[pi + 1][pj - 1];
-      const float p_xmyp = ps[pi - 1][pj + 1], p_xmym = ps[pi - 1][pj - 1];
+      const float z_xp = zs[zi + DX][zj], z_xm = zs[zi - DX][zj];
+      const float z_yp = zs[zi][zj + DY], z_ym = zs[zi][zj - DY];
+      const float z_xpyp = zs[zi + DX][zj + DY], z_xpym = zs[zi + DX][zj - DY];
+      const float z_xmyp = zs[zi - DX][zj + DY], z_xmym = zs[zi - DX][zj - DY];
+      const float p_xp = ps[pi + DX][pj], p_xm = ps[pi - DX][pj];
+      const float p_yp = ps[pi][pj + DY], p_ym = ps[pi][pj - DY];
+      const float p_xpyp = ps[pi + DX][pj + DY], p_xpym = ps[pi + DX][pj - DY];
+      const float p_xmyp = ps[pi - DX][pj + DY], p_xmym = ps[pi - DX][pj - DY];
 
-      const float j_pp = (z_xp - z_xm) * (p_yp - p_ym)
-                         - (z_yp - z_ym) * (p_xp - p_xm);
-      const float j_pt = ((z_xp * (p_xpyp - p_xpym) - z_xm * (p_xmyp - p_xmym))
-                          - z_yp * (p_xpyp - p_xmyp))
-                         + z_ym * (p_xpym - p_xmym);
-      const float j_tp = ((z_xpyp * (p_yp - p_xp) - z_xmym * (p_xm - p_ym))
-                          - z_xmyp * (p_yp - p_xm))
-                         + z_xpym * (p_xp - p_ym);
-      const float jac = ((j_pp + j_pt) + j_tp) / c.jac_den;
+      float tend = visc_term;
+      if constexpr (kBody != kBodyNojac) {
+        const float j_pp = (z_xp - z_xm) * (p_yp - p_ym)
+                           - (z_yp - z_ym) * (p_xp - p_xm);
+        const float j_pt = ((z_xp * (p_xpyp - p_xpym) - z_xm * (p_xmyp - p_xmym))
+                            - z_yp * (p_xpyp - p_xmyp))
+                           + z_ym * (p_xpym - p_xmym);
+        const float j_tp = ((z_xpyp * (p_yp - p_xp) - z_xmym * (p_xm - p_ym))
+                            - z_xmyp * (p_yp - p_xm))
+                           + z_xpym * (p_xp - p_ym);
+        tend = tend - ((j_pp + j_pt) + j_tp) / c.jac_den;
+      }
       const float dpsi_dx = c.half_inv_dx * (p_xp - p_xm);
 
-      float tend = (visc_term - jac) - c.beta[l] * dpsi_dx;
+      tend = tend - c.beta[l] * dpsi_dx;
       if (l == 0) {
-        tend = tend - c.U * (c.half_inv_dx * (z_xp - z_xm));
+        if (L == 2 || kOneLayerU) {
+          tend = tend - c.U * (c.half_inv_dx * (z_xp - z_xm));
+        }
         if (L == 1) tend = tend - c.r * lap_c;
         if (wind != nullptr) tend = tend + wind[gy];
       } else {

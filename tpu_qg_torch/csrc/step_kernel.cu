@@ -36,15 +36,6 @@ namespace {
 
 constexpr int THREADS = 256;
 
-// K1's and K8's tiles in static shared memory (zn0 only where the modes need
-// it).
-#define STATIC_STEP_TILES(kModes)                      \
-  __shared__ float ps[TX + 4][TY + 4];                 \
-  __shared__ float zs[TX + 2][TY + 2];                 \
-  __shared__ float lp[TX + 2][TY + 2];                 \
-  __shared__ float zn0[(kModes) ? TX : 1][TY];         \
-  const StepTiles tiles{ps, zs, lp, zn0}
-
 __global__ void __launch_bounds__(THREADS)
 step_kernel(const float* __restrict__ zeta, const float* __restrict__ psi,
             const float* __restrict__ f1, const float* __restrict__ f2,

@@ -97,7 +97,12 @@ def run_model(
 
     On a mesh, ``state`` (if given) is the full state, and the result is
     this rank's blocks of the final state (``parallel.gather_state`` joins
-    them); ``checkpoint_mode`` "auto" and "gathered" write through rank 0."""
+    them); ``checkpoint_mode`` "auto" and "gathered" write through rank 0
+    (one device: one file); "sharded" is not ported and raises."""
+    if checkpoint_mode == "sharded":
+        raise NotImplementedError(f"checkpoint_mode='sharded' is {_NOT_PORTED}")
+    if checkpoint_mode not in ("auto", "gathered"):
+        raise ValueError(f"unknown checkpoint_mode {checkpoint_mode!r}")
     if mesh is None:
         device = resolve_device(device)
     else:
@@ -106,11 +111,6 @@ def run_model(
                 f"parallel_impl='gspmd' is {_NOT_PORTED}")
         if parallel_impl != "halo":
             raise ValueError(f"unknown parallel_impl {parallel_impl!r}")
-        if checkpoint_mode == "sharded":
-            raise NotImplementedError(f"checkpoint_mode='sharded' is "
-                                      f"{_NOT_PORTED}")
-        if checkpoint_mode not in ("auto", "gathered"):
-            raise ValueError(f"unknown checkpoint_mode {checkpoint_mode!r}")
         device = mesh.device
     primary = mesh is None or mesh.rank == 0
     verbose = verbose and primary
