@@ -12,8 +12,13 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    x-kernel), K16 (the inversion in one launch), K17 (the step in one
    launch) and K15 (the y-fused chain's step) at (2, 2048, 2048); K8 (step +
    modes) at (2, 2048, 2048) with the pin gauge and (1, 2048, 2048) single
-   layer; K2, K4 (x-DFT, both ways) and K5 (symbols + inverse x-DFT) at
-   (2, 4096, 4096) and (2, 8192, 8192); K1 and K15 at (2, 8192, 8192), K17
+   layer; K2, K4 (x-DFT, both ways, and its cluster kernel's first half,
+   stage A) and K5 (symbols + inverse x-DFT) at (2, 4096, 4096) and
+   (2, 8192, 8192), K4 also at (2, 8192, 252) (a ragged last cluster tile)
+   and (2, 6144, 2048) (x_dft_kernel's mixed extent); K4's cluster kernel
+   in every layout (G, Cw) that fits at 4096^2 and 8192^2, with
+   the clusters the card holds at once and ms each way in turns beside
+   torch.fft.fft; K1 and K15 at (2, 8192, 8192), K17
    at (2, 6272, 128) (the x-stage's sequential groups). On
    the real zeta of a grid-noise psi the inversions (K3; K16; K5; the
    four-pass K2 -> K4 -> K5 -> K2^-1) are held against float64. K10 (the
@@ -30,8 +35,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    turbulence-2048 (100 steps: K1, K2, K3), with the pin gauge (100: K8),
    with fft_mono="on" (100: K1, K16), step_full="on" (100: K17) and
    step_chain="on" (100: K15, K3, K2 at the ends of each run call);
-   pod-8192 (50 steps: K1, K2, K4, K5) and with step_chain="on" (20: K15,
-   K4, K5, K2). Then, with the counts set to 0 again each time, two
+   pod-8192 (50 steps: K1, K2, K4, K5, every K4 launch by its cluster
+   kernel) and with step_chain="on" (20: K15, K4, K5, K2). Then, with the counts set to 0 again each time, two
    multigrid paths: 20 warm-started MultigridModalInverter calls on the zeta
    one default step after the pod-8192 slice (pod-8192-mg: 2 cycles a call,
    K10 = K11 = 120) and after the turbulence-2048 slice (4 cycles, 240),
@@ -117,9 +122,11 @@ from tpu_qg_torch.ops import _build, dft_kernels
 from tpu_qg_torch.ops.dft_kernels import (
     mirror_companion, mono_invert, mono_invert_plain, pair_x_symbols,
     pair_x_symbols_plain, paired_x_symbols, paired_x_symbols_plain,
-    stream_pair_symbols, stream_pair_symbols_plain, x_dft, x_dft_plain,
-    x_fwd_symbols_offset, x_fwd_symbols_offset_plain, x_symbols_inverse,
-    x_symbols_inverse_plain, y_dft, y_dft_plain)
+    stream_pair_symbols, stream_pair_symbols_plain, x_dft, x_dft_cluster,
+    x_dft_cluster_layout, x_dft_cluster_occupancy, x_dft_cluster_takes,
+    x_dft_plain, x_dft_stage_a, x_dft_stage_a_plain, x_fwd_symbols_offset,
+    x_fwd_symbols_offset_plain, x_symbols_inverse, x_symbols_inverse_plain,
+    y_dft, y_dft_plain)
 from tpu_qg_torch.ops.mg_kernels import (mg_prolong_smooth,
                                          mg_prolong_smooth_plain, mg_smooth,
                                          mg_smooth_plain)
@@ -196,6 +203,21 @@ KERNELS = {
     "K18": ("lab_step", "tpu_qg_torch/csrc/lab_kernel.cu",
             "tpu_qg/ops/_stencil_lab.py:325"),
 }
+
+
+class ClusterCount:
+    """x_dft's count of the launches that took K4's cluster kernel
+    (x_dft.cluster_launches), as a counter with a ``launches`` field."""
+
+    @property
+    def launches(self) -> int:
+        return x_dft.cluster_launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        x_dft.cluster_launches = n
+
+
 COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
             "K4": x_dft, "K5": x_symbols_inverse, "K8": fused_pre_inversion,
             "K9": fused_tendency, "K10": mg_smooth,
@@ -203,7 +225,8 @@ COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
             "K16": mono_invert, "K17": fused_step_full,
             "K7": stream_pair_symbols, "K12": fused_step_sharded,
             "K13": x_fwd_symbols_offset, "K14": paired_x_symbols,
-            "K15s": fused_step_yspec_sharded, "K18": lab_step}
+            "K15s": fused_step_yspec_sharded, "K18": lab_step,
+            "K4 cluster": ClusterCount()}
 # Kernel names in a profiler trace, the one-launch kernels, K8, K9, K12 and
 # K18 before K1: a mangled K8, K9 or K12 name holds the source file's name,
 # step_kernel, and K18's lab_step_kernel holds it too. K7, K13 and K14 are
@@ -215,7 +238,8 @@ TRACE_NAMES = (("K17", "coop_fullstep_kernel"), ("K16", "coop_mono_kernel"),
                ("K11", "mg_prolong_kernel"),
                ("K10", "mg_smooth_kernel"), ("K9", "tendency_kernel"),
                ("K8", "pre_inversion_kernel"),
-               ("K5", "x_symbols_inverse_kernel"), ("K4", "x_dft_kernel"),
+               ("K5", "x_symbols_inverse_kernel"),
+               ("K4", "x_dft_cluster_kernel"), ("K4", "x_dft_kernel"),
                ("K3", "pair_x_kernel"), ("K2", "y_dft_kernel"),
                ("K18", "lab_step_kernel"), ("K1", "step_kernel"))
 
@@ -330,10 +354,18 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     _build.load()
     info = _build.build_info()
-    regs = [ln.strip() for ln in info["ptxas"].splitlines()
-            if "registers" in ln or "spill" in ln]
+    lines = info["ptxas"].splitlines()
+    regs = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
+    # K4's cluster kernel: each instance's registers, shared memory, spills.
+    cluster, entry = {}, None
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "x_dft_cluster_kernel" in ln else None
+        elif entry and ("registers" in ln or "spill" in ln):
+            cluster.setdefault(entry, []).append(ln.split(":", 1)[-1].strip())
     emit("build", seconds=time.perf_counter() - t0,
-         nvcc_seconds=info["seconds"], library=info["path"], ptxas=regs)
+         nvcc_seconds=info["seconds"], library=info["path"], ptxas=regs,
+         k4_cluster_ptxas=cluster)
 
 
 class Errors:
@@ -500,13 +532,25 @@ def phase_x_kernels(errs, pod, dev, sizes=(4096, 8192)) -> None:
         x = torch.as_tensor(rng.standard_normal((2, n, n)),
                             dtype=torch.float32, device=dev)
         for inverse in (False, True):
-            errs.record("K2", "inverse" if inverse else "forward",
-                        y_dft(x, inverse), y_dft_plain(x, inverse))
-            errs.record("K4", "inverse" if inverse else "forward",
-                        x_dft(x, inverse), x_dft_plain(x, inverse))
+            way = "inverse" if inverse else "forward"
+            errs.record("K2", way, y_dft(x, inverse), y_dft_plain(x, inverse))
+            errs.record("K4", way, x_dft(x, inverse), x_dft_plain(x, inverse))
+            errs.record("K4", f"{way} stage A (cluster kernel's first half)",
+                        x_dft_stage_a(x, inverse),
+                        x_dft_stage_a_plain(x, inverse))
         consts = inverter(cfg)._sym_consts
         errs.record("K5", "random spectrum", x_symbols_inverse(x, consts),
                     x_symbols_inverse_plain(x, consts))
+        del x
+        free_memory()
+    # K4 on a ragged last cluster tile, and x_dft_kernel on a mixed extent.
+    for M, P in ((8192, 252), (6144, 2048)):
+        x = torch.as_tensor(rng.standard_normal((2, M, P)),
+                            dtype=torch.float32, device=dev)
+        for inverse in (False, True):
+            errs.record("K4", f"{M}x{P} " + ("inverse" if inverse else
+                                              "forward"),
+                        x_dft(x, inverse), x_dft_plain(x, inverse))
         del x
         free_memory()
 
@@ -542,6 +586,79 @@ def phase_x_kernels(errs, pod, dev, sizes=(4096, 8192)) -> None:
     check_fullstep_kernel(errs, cfg, operands, inverter(cfg)._sym_consts,
                           tag="6272x128 white ")
     free_memory()
+
+
+def phase_k4_sweep(dev, card, sizes=(4096, 8192), reps=20) -> dict:
+    """K4's cluster kernel in every layout (G blocks a cluster, Cw y slots a
+    cluster) that fits shared memory, at n^2: its bytes of
+    shared memory, the clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters), its largest error against the plain
+    version both ways, and CUDA-event ms a launch each way, the layouts in
+    turns (in order, then in reverse), beside one torch.fft.fft along x of
+    the same complex64 field, the launched layout's stage A alone, and
+    torch copies of the field (plain, and reading 32- and 64-byte row
+    runs). Returns the entries by grid."""
+    rng = np.random.default_rng(SEED + 9)
+    out = {}
+    for n in sizes:
+        x = torch.as_tensor(rng.standard_normal((2, n, n)),
+                            dtype=torch.float32, device=dev)
+        want = [x_dft_plain(x, inverse) for inverse in (False, True)]
+        rows, calls = {}, {}
+        for lay in ((g, c) for g in dft_kernels.CLUSTER_SIZES
+                    for c in dft_kernels.CLUSTER_WIDTHS):
+            if not x_dft_cluster_takes(n, *lay):
+                continue
+            key = "G={} Cw={}".format(*lay)
+            occ = x_dft_cluster_occupancy(n, lay, dev.index)
+            rows[key] = dict(smem=x_dft_cluster_layout(n, *lay).smem,
+                             max_active_clusters=occ)
+            if occ == 0:                 # the card cannot schedule it
+                continue
+            err = max(rel_err(x_dft_cluster(x, inverse, lay), w)[1]
+                      for inverse, w in enumerate(want))
+            rows[key]["rel_err"] = err
+            if not err <= TOL["K4"]:
+                raise AssertionError(f"K4 cluster {key} at {n}^2: rel err "
+                                     f"{err} > {TOL['K4']}")
+            for inverse in (False, True):
+                calls[(key, inverse)] = (
+                    lambda lay=lay, inverse=inverse:
+                    x_dft_cluster(x, inverse, lay))
+        del want
+        # Beside them: the launched layout's first half alone (stage A: the
+        # same reads and writes, no pull), a copy of the field, and copies
+        # that read it in the tiles' 32- and 64-byte row runs.
+        launched = dft_kernels.x_dft_cluster_launched(n)
+        for inverse in (False, True):
+            calls[("stage A alone", inverse)] = (
+                lambda inverse=inverse:
+                x_dft_cluster(x, inverse, launched, stage_a=True))
+        c64 = torch.complex(x[0], x[1])
+        calls[("library", False)] = lambda: torch.fft.fft(c64, dim=0)
+        calls[("copy", False)] = lambda: x.clone()
+        for w in (8, 16):
+            calls[(f"copy reading {4 * w}-byte row runs", False)] = (
+                lambda w=w: x.view(2, n, n // w, w).transpose(1, 2)
+                .contiguous())
+        runs = {k: [] for k in calls}
+        for k in list(calls) + list(calls)[::-1]:
+            runs[k].append(time_ms(calls[k], reps))
+        refs = {}
+        for (key, inverse), r in runs.items():
+            if key in rows:
+                rows[key]["inverse_ms" if inverse else "ms"] = sum(r) / 2
+                rows[key]["inverse_runs_ms" if inverse else "runs_ms"] = r
+            else:
+                refs[key + (" inverse" if inverse else "")] = sum(r) / 2
+        emit("k4_sweep", card=card, grid=[n, n],
+             launched="G={} Cw={}".format(*launched), layouts=rows,
+             library_ms=refs["library"], reference_ms=refs,
+             bound_ms=bound("K4", n, n)[0])
+        out[n] = rows
+        del x, c64, calls
+        free_memory()
+    return out
 
 
 def mg_inputs(n: int, dev, seed: int):
@@ -1038,7 +1155,8 @@ def phase_mesh_one_rank(turb, pod, dev, card) -> tuple[dict, dict]:
                 ("turbulence-2048 mesh (1, 1)", turb, 100,
                  {"K12": 100, "K2": 200, "K3": 100}, "fused"),
                 ("pod-8192 mesh (1, 1)", pod, 20,
-                 {"K12": 20, "K2": 40, "K4": 20, "K5": 20}, "fused"),
+                 {"K12": 20, "K2": 40, "K4": 20, "K5": 20, "K4 cluster": 20},
+                 "fused"),
                 ("turbulence-2048 step_chain=on mesh (1, 1)", chain, 20,
                  {"K15s": 20, "K3": 20, "K2": 2 * run_chunks(chain, 20)},
                  "chain")):
@@ -1647,6 +1765,7 @@ def main() -> None:
     errs = Errors()
     phase_kernels(errs, turb, dev)
     phase_x_kernels(errs, pod, dev)
+    k4_sweep = phase_k4_sweep(dev, card)
     phase_mg_kernels(errs, turb, pod_mg, dev)
     phase_sharded_kernels(errs, turb, pod, dev)
     phase_lab_kernels(errs, dev)
@@ -1663,11 +1782,11 @@ def main() -> None:
         ("turbulence-2048 step_chain=on", forms["chain"], 100,
          {"K15": 100, "K3": 100, "K2": 2 * run_chunks(forms["chain"], 100)},
          "chain"),
-        ("pod-8192", pod, 50, {"K1": 50, "K2": 100, "K4": 50, "K5": 50},
-         "default"),
+        ("pod-8192", pod, 50, {"K1": 50, "K2": 100, "K4": 50, "K5": 50,
+                               "K4 cluster": 50}, "default"),
         ("pod-8192 step_chain=on", pod_chain, 20,
-         {"K15": 20, "K4": 20, "K5": 20, "K2": 2 * run_chunks(pod_chain, 20)},
-         "chain"),
+         {"K15": 20, "K4": 20, "K5": 20, "K2": 2 * run_chunks(pod_chain, 20),
+          "K4 cluster": 20}, "chain"),
     )
     launches, finals = {}, {}
     for name, cfg, steps, expect, route in slices:
@@ -1723,6 +1842,13 @@ def main() -> None:
                  "by_level_2048_solver": levels[2048][k]}
              for k in ("K10", "K11")}
 
+    extra["K4"] = {
+        "cluster_launches": sum(run["K4 cluster"] for run in launches.values()),
+        "kernels": {"x_dft_cluster_kernel": "M = 128 * 2^a, M >= 128 G "
+                    "(layout at 8192: G={} Cw={})".format(
+                        *dft_kernels.x_dft_cluster_launched(8192)),
+                    "x_dft_kernel": "mixed extents, M < 128 G"},
+        "sweep_8192": k4_sweep[8192]}
     sharded_ms = time_sharded_kernels(turb, pod, dev, card)
     extra["K12"] = {"mesh_step_ms": mesh_ms}
     lab = time_lab(dev, card, lab_jobs)

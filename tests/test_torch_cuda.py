@@ -4,7 +4,8 @@ Marked ``cuda``; without a card every test skips. On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances relative to max|plain|: K1 and K8 1e-6, K2 and K4 1e-5, K3 and
+Tolerances relative to max|plain|: K1 and K8 1e-6, K2 and K4 1e-5 (K4's
+cluster kernel's first half, stage A, too), K3 and
 K5 1e-4 (the 1/lambda symbol amplifies low-k float32 rounding); the
 one-launch kernels as the kernels they fuse: K16 1e-4, K17 1e-6 (zeta_new,
 carry) and 1e-4 (psi_new), K15 1e-6 (zeta_new, carry) and 1e-5 (zeta_ys);
@@ -24,7 +25,8 @@ from tpu_qg_torch.models.core import QGModel, init_state
 from tpu_qg_torch.ops.dft_kernels import (
     mirror_companion, mono_invert, mono_invert_plain, pair_x_symbols,
     pair_x_symbols_plain, paired_x_symbols, paired_x_symbols_plain,
-    stream_pair_symbols, stream_pair_symbols_plain, x_dft, x_dft_plain,
+    stream_pair_symbols, stream_pair_symbols_plain, x_dft,
+    x_dft_cluster_takes, x_dft_plain, x_dft_stage_a, x_dft_stage_a_plain,
     x_fwd_symbols_offset, x_fwd_symbols_offset_plain, x_symbols_inverse,
     x_symbols_inverse_plain, y_dft, y_dft_plain)
 from tpu_qg_torch.ops import mg_kernels
@@ -104,8 +106,11 @@ def test_dft_kernels(dev, M, P):
 
 # Four-pass extents: powers of two, and the mixed radix 2560 = 512 * 5,
 # 4224 = 128 * 33 (the unfused route), 6144 = 2048 * 3, 8064 = 128 * 63.
+# K4's cluster kernel takes the powers of two from 128 G (ragged last tiles
+# at P = 252 and 100), the older kernel the rest.
 X_SHAPES = [(256, 384), (2560, 256), (4224, 256), (6144, 384), (8064, 256),
-            (8192, 128)]
+            (8192, 128), (4096, 4096), (8192, 8192), (8192, 252),
+            (2048, 100)]
 
 
 def _consts(M, P):
@@ -118,14 +123,22 @@ def _consts(M, P):
 @pytest.mark.parametrize("M,P", X_SHAPES)
 def test_x_dft_kernels(dev, M, P):
     x = _fields(M, P, dev, seed=2)[1]
-    n = (x_dft.launches, x_symbols_inverse.launches)
+    n = (x_dft.launches, x_symbols_inverse.launches, x_dft.cluster_launches)
+    cluster = x_dft_cluster_takes(M)
     for inverse in (False, True):
         assert _rel(x_dft(x, inverse), x_dft_plain(x, inverse)) <= 1e-5
-    consts = _consts(M, P)
-    assert _rel(x_symbols_inverse(x, consts),
-                x_symbols_inverse_plain(x, consts)) <= 1e-4
+        if cluster:
+            assert _rel(x_dft_stage_a(x, inverse),
+                        x_dft_stage_a_plain(x, inverse)) <= 1e-5
+    k5 = P % 128 == 0            # K5 (and its symbols) take P = 128 n
+    if k5:
+        consts = _consts(M, P)
+        assert _rel(x_symbols_inverse(x, consts),
+                    x_symbols_inverse_plain(x, consts)) <= 1e-4
     torch.cuda.synchronize()
-    assert (x_dft.launches, x_symbols_inverse.launches) == (n[0] + 2, n[1] + 1)
+    assert (x_dft.launches, x_symbols_inverse.launches,
+            x_dft.cluster_launches) == (n[0] + 2, n[1] + k5,
+                                        n[2] + 2 * cluster)
 
 
 @pytest.mark.parametrize("layers,gauge", [(1, "zero_mean"), (2, "pin")])

@@ -11,6 +11,10 @@
 //     largest divisor <= 128), slot k2*N1 + k1 holds frequency k2 + N2*k1;
 //     so is the x-spectrum between K4 and K5.
 //
+// K4 has two kernels chosen by shape: x_dft_cluster_kernel, a thread-block
+// cluster that runs the factored transform in one pass over the field, for
+// M = 128 * 2^a, and x_dft_kernel for the rest.
+//
 // Every kernel transforms with an in-place radix-2 FFT in shared memory:
 // the forward pass is decimation in frequency (natural order in, bit-reversed
 // out), the inverse pass decimation in time (bit-reversed in, natural out),
@@ -30,6 +34,7 @@
 // live in fft_device.cuh, which the one-launch kernels of fused_kernels.cu
 // share.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "fft_device.cuh"
@@ -125,7 +130,9 @@ pair_x_kernel(const float* __restrict__ in, float* __restrict__ out,
 // (_build_streaming_x, consts=None). The streaming form exists only because
 // (2, M, 128) strips at M >= 4608 outgrow a TPU core's scoped VMEM; it
 // computes what the BlockSpec form computes, and on Hopper one kernel serves
-// every M: a column of M = 8192 values is 64 KB of shared memory.
+// every M: a column of M = 8192 values is 64 KB of shared memory. Since the
+// cluster kernel below took the power-of-two extents M >= 128 * G, this one
+// runs the mixed extents M = 128 * n (n not a power of two) and M < 128 * G.
 //
 // Bound: device-memory bandwidth (one read and one write of the field,
 // 2 x 537 MB at 8192^2, against ~5 M log2 M flops per column), with the
@@ -208,6 +215,288 @@ x_dft_kernel(const float* __restrict__ in, float* __restrict__ out, int M,
     out[off] = re[p] * scale;
     out[off + plane] = im[p] * scale;
   }
+}
+
+// ---------------------------------------------------------------------------
+// K4 on power-of-two extents, M = 128 * 2^a (N2 = M / 128 >= G): the one-pass
+// cluster kernel. It computes what x_dft_kernel computes, and so replaces the
+// same TPU functions, tpu_qg/ops/pallas_fft.py PlanarFFT2._call_x (:1153)
+// and _call_x_stream(z, inverse) with no consts (:1122); x_dft_kernel keeps
+// the mixed extents M = 128 * n (n not a power of two) and M < 128 * G.
+//
+// Bound: device-memory bandwidth, one read and one write of the field (2 x
+// 537 MB at 8192^2: 0.321 ms at 3.35 TB/s). x_dft_kernel reaches 11% of it:
+// a block holds whole columns of M values (64 KB each at M = 8192), so at
+// most C = 2 fit and a warp reads and writes runs of 8 bytes a row, a
+// quarter of a 32-byte sector. A tile wide enough to fill sectors (Cw >= 8
+// columns) of whole columns would need 512 KB; a cluster of G blocks on
+// neighbouring SMs holds it, each block 1/G of it, and the blocks trade
+// their halves of the transform through distributed shared memory (the
+// SM-to-SM network, not device memory).
+//
+// The transform is factored as tpu_qg/ops/matmul_fft.py FactoredFFT (N1 =
+// 128, N2 = M / 128; x = N1 n2 + n1, permuted slot k2 N1 + k1 holding
+// frequency k2 + N2 k1):
+//   X[k2 N1 + k1] = sum_n1 W_N1^(n1 k1) W_M^(n1 k2) sum_n2 W_N2^(n2 k2) x[N1 n2 + n1]
+// so the permuted spectrum comes out of stage B as whole rows, no gather.
+// A cluster takes a tile of Cw adjacent y slots (all M rows of them) at a
+// time; block r:
+//   forward  1. loads rows N1 n2 + n1 for its n1 in [r L1, (r+1) L1), L1 =
+//               N1 / G: runs of Cw floats, natural n2 at row n2 of buffer A;
+//            2. stage A: N2-point DIF along n2 (row p then holds k2 =
+//               bitrev(p));
+//            3. cluster barrier; pulls rows p in [r L2, (r+1) L2), L2 = N2 /
+//               G, of every block's A, times W_M^(n1 k2), into buffer B (row
+//               n1, natural): block r owns k2 = bitrev(p) for its p, so it
+//               reads the same rows [r L2, (r+1) L2) of every peer's A;
+//            4. stage B: 128-point DIF along n1 (row p' holds k1 =
+//               bitrev(p')), then writes rows k2 N1 + bitrev(p');
+//   inverse  the mirror image: loads rows k2 N1 + k1 of its k2 into B at row
+//            bitrev(k1), 128-point inverse DIT, cluster barrier, pulls its
+//            n1 rows of every block's B times conj(W_M^(n1 k2)) into A at the
+//            bit-reversed position of k2, N2-point inverse DIT, scales 1/M
+//            and writes rows N1 n2 + n1.
+// The bit reversal of each DIF output is absorbed into the indices of the
+// pull and of the store, never a reorder pass. Buffers hold float2, element
+// (row, column) at row * columns + column, and a warp's loads, pulls and
+// butterfly passes touch consecutive words. Radix-2 passes of up to 4
+// stages run in registers, with group_pass's butterflies and twiddle
+// tables (N2/2 and 64 entries, read from the M-entry float32 table of W_M^j
+// built in float64 on the host, which also gives the inter-stage twiddle,
+// n1 k2 < M). The first pass of a stage reads straight from device memory
+// or the peers' buffers, the last pass of stage 2 writes device memory, so
+// a stage of two passes makes one round trip through shared memory and a
+// thread has up to 16 loads in flight.
+// Cluster barriers: one after stage 1 (the peers' buffers are ready), one
+// split around stage 2 (arrive after the pull, wait before exit), so no
+// block leaves while a peer may still read its buffer. stage_a: writes the
+// twiddled intermediate Y[k2, n1] (forward) or conj(W_M^(n1 k2)) sum_k1
+// W_N1^(-n1 k1) X[k2 N1 + k1] (inverse, unscaled) at row k2 N1 + n1 and
+// stops, so that the first half can be checked alone
+// (dft_kernels.x_dft_stage_a_plain). Shared memory: A and B, M Cw / G
+// float2 each, and the tables, 64.75 KB at M = 8192, G = 16, Cw = 8
+// (dft_kernels.x_dft_cluster_layout). The grid is G ceil(P / Cw) blocks.
+//
+// Measured (chip_smoke.py, PERF.md): stage A alone takes most of the
+// kernel's time, against a plain copy of the field at 0.36 ms; nor did
+// persistent clusters loading the next tile by cp.async beside the
+// transforms (tried) speed it up: the narrow column tiles' device-memory
+// access, 32-byte runs over all M rows, is what holds it.
+// ---------------------------------------------------------------------------
+
+// The cluster kernel's block: 256 threads of at most 128 registers, so that
+// two blocks share an SM where their shared memory fits.
+constexpr int kClusterThreads = 256;
+
+// a * b, or a * conj(b).
+__device__ __forceinline__ float2 cmul(float2 a, float2 b, bool conj_b) {
+  return conj_b ? make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y)
+                : make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// One radix-2^K pass (K consecutive radix-2 stages, spans 2^(lo+K-1) ..
+// 2^lo) over 2^lognc columns of length 2^logn: thread t takes column t mod
+// 2^lognc and a group of 2^K elements, read through in(pos, col) into
+// registers and written through out(pos, col, value), so that a pass can
+// read device memory or a peer's shared memory and write either. A warp
+// takes consecutive columns of a row. The butterflies and twiddles are
+// group_pass's (fft_device.cuh).
+template <int K, bool kInverse, class In, class Out>
+__device__ __forceinline__ void il_pass(int lognc, int logn, int lo,
+                                        const float2* tw, In in, Out out) {
+  constexpr int GS = 1 << K;
+  const int s = 1 << lo;
+  const int count = (1 << (logn - K)) << lognc;   // groups x columns
+  for (int t = threadIdx.x; t < count; t += kClusterThreads) {
+    const int g = t >> lognc, col = t & ((1 << lognc) - 1);
+    const int base = ((g >> lo) << (lo + K)) + (g & (s - 1));
+    float2 x[GS];
+#pragma unroll
+    for (int j = 0; j < GS; ++j) x[j] = in(base + j * s, col);
+#pragma unroll
+    for (int step = 0; step < K; ++step) {
+      const int q = kInverse ? step : K - 1 - step;
+      const int lh = lo + q;
+      const int tws = logn - 1 - lh;
+#pragma unroll
+      for (int j = 0; j < GS; ++j) {
+        if (j & (1 << q)) continue;
+        const int k = j + (1 << q);
+        const int pos = (base + j * s) & ((1 << lh) - 1);
+        const float2 w = tw[pos << tws];
+        const float2 u = x[j], v = x[k];
+        if (!kInverse) {
+          x[j] = make_float2(u.x + v.x, u.y + v.y);
+          x[k] = cmul(make_float2(u.x - v.x, u.y - v.y), w, false);
+        } else {
+          const float2 tv = cmul(v, w, true);
+          x[j] = make_float2(u.x + tv.x, u.y + tv.y);
+          x[k] = make_float2(u.x - tv.x, u.y - tv.y);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < GS; ++j) out(base + j * s, col, x[j]);
+  }
+}
+
+template <bool kInverse, class In, class Out>
+__device__ __forceinline__ void il_pass_k(int k, int lognc, int logn, int lo,
+                                          const float2* tw, In in, Out out) {
+  switch (k) {
+    case 4: return il_pass<4, kInverse>(lognc, logn, lo, tw, in, out);
+    case 3: return il_pass<3, kInverse>(lognc, logn, lo, tw, in, out);
+    case 2: return il_pass<2, kInverse>(lognc, logn, lo, tw, in, out);
+    default: return il_pass<1, kInverse>(lognc, logn, lo, tw, in, out);
+  }
+}
+
+// Radix-2 DIF (forward: natural in, bit-reversed out) or inverse DIT
+// (bit-reversed in, natural out, unscaled) of 2^lognc columns of length
+// 2^logn, in passes of at most kGroupStages stages: the first as long as
+// leaves the rest at least 2 each (64 points: 4 + 2, 128: 4 + 3, 32: 3 + 2),
+// so its loads are few, long batches. The first pass reads through
+// in(pos, col), the last writes through out(pos, col, value); between
+// passes the columns sit interleaved in buf (element (pos, col) at
+// buf[pos * stride + col]) with a barrier after each write. after_first()
+// runs after the first pass. No barrier after the last pass.
+template <bool kInverse, class In, class Out, class Mid>
+__device__ void il_fft(float2* buf, int lognc, int stride, int logn,
+                       const float2* tw, In in, Out out, Mid after_first) {
+  auto rd = [=](int pos, int col) { return buf[pos * stride + col]; };
+  auto wr = [=](int pos, int col, float2 v) { buf[pos * stride + col] = v; };
+  const int npass = (logn + kGroupStages - 1) / kGroupStages;
+  for (int p = 0, done = 0; p < npass; ++p) {
+    const int left = npass - p;
+    const int k = p == 0 ? min(kGroupStages, logn - 2 * (left - 1))
+                         : (logn - done + left - 1) / left;
+    const int lo = kInverse ? done : logn - done - k;
+    if (p == 0 && left == 1) {
+      il_pass_k<kInverse>(k, lognc, logn, lo, tw, in, out);
+    } else if (p == 0) {
+      il_pass_k<kInverse>(k, lognc, logn, lo, tw, in, wr);
+    } else if (left == 1) {
+      il_pass_k<kInverse>(k, lognc, logn, lo, tw, rd, out);
+    } else {
+      il_pass_k<kInverse>(k, lognc, logn, lo, tw, rd, wr);
+    }
+    if (p == 0) after_first();
+    if (left > 1) __syncthreads();
+    done += k;
+  }
+}
+
+__global__ void __launch_bounds__(kClusterThreads, 2)
+x_dft_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
+                     int P, int logn2, int logg, int logcw, int inverse,
+                     int stage_a, const float2* __restrict__ wm) {
+  namespace cg = cooperative_groups;
+  extern __shared__ float smem[];
+  const int r = static_cast<int>(cg::this_cluster().block_rank());
+  const int n2 = 1 << logn2, cw = 1 << logcw, M = n2 << 7;
+  const int logl1 = 7 - logg, logl2 = logn2 - logg;
+  const int logna = logl1 + logcw, lognb = logl2 + logcw;
+  const int na = 1 << logna, nb = 1 << lognb;
+  float2* A = reinterpret_cast<float2*>(smem);      // n2 rows of na columns
+  float2* B = A + (n2 << logna);                    // 128 rows of nb columns
+  float2* twa = B + (128 << lognb);                 // W_N2^k, k < n2 / 2
+  float2* twb = twa + n2 / 2;                       // W_128^k, k < 64
+  for (int k = threadIdx.x; k < n2 / 2; k += kClusterThreads) twa[k] = wm[k << 7];
+  for (int k = threadIdx.x; k < 64; k += kClusterThreads) twb[k] = wm[k << logn2];
+  __syncthreads();
+  const size_t plane = (size_t)M * P;
+  const int c0 = (blockIdx.x >> logg) << logcw;     // the cluster's y slots
+  const int ncol = min(cw, P - c0);                 // ragged last tile
+  const int r1 = r << logl1, r2 = r << logl2;       // first n1, first k2 row
+  // Element (row, y slot c0 + col) of a planar field: a zero (read) or
+  // nothing (write) for a slot past P.
+  auto get = [=](int row, int col) {
+    const size_t off = (size_t)row * P + c0 + min(col, ncol - 1);
+    return col < ncol ? make_float2(__ldg(in + off), __ldg(in + off + plane))
+                      : make_float2(0.f, 0.f);
+  };
+  auto put = [=](int row, int col, float2 v) {
+    if (col >= ncol) return;
+    const size_t off = (size_t)row * P + c0 + col;
+    out[off] = v.x;
+    out[off + plane] = v.y;
+  };
+  auto none = [] {};
+  auto arrive = [] { asm volatile("barrier.cluster.arrive.aligned;" ::: "memory"); };
+  // Column a of A is (n1 - r1) cw + col, column b of B is (p - r2) cw + col,
+  // p the DIF position of k2 (k2 = bitrev(p)).
+  auto wr_a = [=](int row, int a, float2 v) { A[(row << logna) + a] = v; };
+  auto wr_b = [=](int row, int b, float2 v) { B[(row << lognb) + b] = v; };
+
+  if (!inverse) {
+    // Stage A: A row n2 <- x[N1 n2 + n1]; DIF leaves k2 = bitrev(row).
+    il_fft<false>(A, logna, na, logn2, twa,
+        [=](int row, int a) {
+          return get((row << 7) + r1 + (a >> logcw), a & (cw - 1));
+        }, wr_a, none);
+    if (stage_a) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < n2 << logna; i += kClusterThreads) {
+        const int a = i & (na - 1);
+        const int n1 = r1 + (a >> logcw), k2 = bitrev(i >> logna, logn2);
+        put((k2 << 7) + n1, a & (cw - 1), cmul(A[i], wm[n1 * k2], false));
+      }
+      return;
+    }
+    cg::this_cluster().sync();
+    // Stage B: row n1 <- block n1 / L1's A at row p (k2 = bitrev(p)),
+    // times W_M^(n1 k2); DIF, then row p' (k1 = bitrev(p')) -> slot row
+    // k2 N1 + k1.
+    il_fft<false>(B, lognb, nb, 7, twb,
+        [=](int n1, int b) {
+          const int p = r2 + (b >> logcw);
+          const float2 v = cg::this_cluster().map_shared_rank(
+              static_cast<const float2*>(A), n1 >> logl1)[
+                  (p << logna) + ((n1 & ((1 << logl1) - 1)) << logcw) +
+                  (b & (cw - 1))];
+          return cmul(v, __ldg(wm + n1 * bitrev(p, logn2)), false);
+        },
+        [=](int pp, int b, float2 v) {
+          put((bitrev(r2 + (b >> logcw), logn2) << 7) + bitrev(pp, 7),
+              b & (cw - 1), v);
+        }, arrive);
+  } else {
+    // Stage B^-1: B row p' <- X[k2 N1 + k1], k1 = bitrev(p'); DIT leaves
+    // n1 = row.
+    il_fft<true>(B, lognb, nb, 7, twb,
+        [=](int pp, int b) {
+          return get((bitrev(r2 + (b >> logcw), logn2) << 7) + bitrev(pp, 7),
+                     b & (cw - 1));
+        }, wr_b, none);
+    if (stage_a) {
+      __syncthreads();
+      for (int e = threadIdx.x; e < 128 << lognb; e += kClusterThreads) {
+        const int n1 = e >> lognb, b = e & (nb - 1);
+        const int k2 = bitrev(r2 + (b >> logcw), logn2);
+        put((k2 << 7) + n1, b & (cw - 1), cmul(B[e], wm[n1 * k2], true));
+      }
+      return;
+    }
+    cg::this_cluster().sync();
+    // Stage A^-1: row p <- block p / L2's B at row n1, times
+    // conj(W_M^(n1 k2)); DIT, then row n2 -> x row N1 n2 + n1, scaled 1/M.
+    const float scale = 1.0f / static_cast<float>(M);    // exact: M = 2^k
+    il_fft<true>(A, logna, na, logn2, twa,
+        [=](int p, int a) {
+          const int n1 = r1 + (a >> logcw);
+          const float2 v = cg::this_cluster().map_shared_rank(
+              static_cast<const float2*>(B), p >> logl2)[
+                  (n1 << lognb) + ((p & ((1 << logl2) - 1)) << logcw) +
+                  (a & (cw - 1))];
+          return cmul(v, __ldg(wm + n1 * bitrev(p, logn2)), true);
+        },
+        [=](int row, int a, float2 v) {
+          put((row << 7) + r1 + (a >> logcw), a & (cw - 1),
+              make_float2(v.x * scale, v.y * scale));
+        }, arrive);
+  }
+  // No block leaves while a peer may still read its buffer.
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -399,6 +688,77 @@ extern "C" int qg_x_dft_launch(const float* in, float* out, int M, int P,
            static_cast<cudaStream_t>(stream)>>>(
       in, out, M, P, logr, m, n1x, inverse, ncols, sub, bstride,
       static_cast<const float2*>(tw), static_cast<const float2*>(twn));
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// Buffers A and B, M Cw / G float2 each, and the N2/2- and 64-entry tables.
+int cluster_smem(int logn2, int logg, int logcw) {
+  const int tile = 1 << (logn2 + 7 - logg + logcw);
+  return (2 * tile + (1 << logn2) / 2 + 64) * static_cast<int>(sizeof(float2));
+}
+
+// Sets the instance's attributes (shared memory; a cluster of 16 is
+// non-portable) and fills a launch of `clusters` clusters of 2^logg blocks.
+int cluster_config(int logn2, int logg, int logcw, int clusters,
+                   cudaStream_t stream, cudaLaunchConfig_t& cfg,
+                   cudaLaunchAttribute& attr) {
+  if (logg < 3 || logg > 4 || logn2 < logg)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn = reinterpret_cast<const void*>(x_dft_cluster_kernel);
+  const int smem = cluster_smem(logn2, logg, logcw);
+  if (int err = set_smem(fn, smem)) return err;
+  if (logg > 3) {
+    if (int err = static_cast<int>(cudaFuncSetAttribute(
+            fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)))
+      return err;
+  }
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(clusters << logg);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1 << logg;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return 0;
+}
+
+}  // namespace
+
+// The most clusters of the cluster kernel's layout that the card holds at
+// once (cudaOccupancyMaxActiveClusters): 0 means the layout cannot run.
+extern "C" int qg_x_dft_cluster_occupancy(int logn2, int logg, int logcw,
+                                          int* max_clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (int err = cluster_config(logn2, logg, logcw, 1, nullptr, cfg, attr))
+    return err;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      max_clusters, reinterpret_cast<const void*>(x_dft_cluster_kernel),
+      &cfg));
+}
+
+// K4's cluster kernel on a planar (2, 128 * 2^logn2, P) field: a cluster of
+// 2^logg blocks a tile of 2^logcw y slots; wm: the M-entry float2 table.
+extern "C" int qg_x_dft_cluster_launch(const float* in, float* out, int P,
+                                       int logn2, int logg, int logcw,
+                                       int inverse, int stage_a,
+                                       const void* wm, void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const int clusters = (P + (1 << logcw) - 1) >> logcw;
+  if (int err = cluster_config(logn2, logg, logcw, clusters,
+                               static_cast<cudaStream_t>(stream), cfg, attr))
+    return err;
+  if (cudaError_t err = cudaLaunchKernelEx(
+          &cfg, x_dft_cluster_kernel, in, out, P, logn2, logg, logcw, inverse,
+          stage_a, static_cast<const float2*>(wm)))
+    return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -291,19 +292,58 @@ def paired_x_symbols_plain(X: torch.Tensor, groups_idx, consts
                             groups_idx, consts)
 
 
+@functools.lru_cache(maxsize=8)
+def _stage_twiddle(M: int, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """(N2, N1, 1) table of W_M^(n1 k2), M = N1 N2 (split_factor), built in
+    float64 and cast to the complex type of ``dtype``."""
+    N1, N2 = split_factor(M)
+    w = np.exp(-2j * np.pi * np.outer(np.arange(N2), np.arange(N1)) / M)
+    return torch.as_tensor(w, device=device).to(_complex_dtype(dtype))[..., None]
+
+
+def _x_stage_a(z: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """x_dft_stage_a_plain as a complex (N2, N1, cols) tensor."""
+    _, M, cols = z.shape
+    N1, N2 = split_factor(M)
+    c = torch.complex(z[0], z[1]).reshape(N2, N1, cols)
+    tw = _stage_twiddle(M, z.dtype, z.device)
+    if not inverse:
+        return torch.fft.fft(c, dim=0) * tw
+    return torch.fft.ifft(c, dim=1, norm="forward") * tw.conj()
+
+
+def _planar(c: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return torch.stack([c.real, c.imag]).to(dtype)
+
+
+def x_dft_stage_a_plain(z: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The first half of K4's factored x-DFT (matmul_fft.FactoredFFT's
+    factoring, M = N1 N2 with N1 = split_factor(M)[0]) on a planar (2, M,
+    cols) field, row k2 N1 + n1 of the result holding
+    forward  Y[k2, n1] = W_M^(n1 k2) sum_n2 W_N2^(n2 k2) x[N1 n2 + n1];
+    inverse  Y[k2, n1] = conj(W_M^(n1 k2)) sum_k1 W_N1^(-n1 k1)
+             X[k2 N1 + k1], unscaled.
+    What the cluster kernel writes with ``stage_a`` (csrc
+    x_dft_cluster_kernel)."""
+    _, M, cols = z.shape
+    return _planar(_x_stage_a(z, inverse).reshape(M, cols), z.dtype)
+
+
 def x_dft_plain(z: torch.Tensor, inverse: bool) -> torch.Tensor:
     """Planar (2, M, cols), DFT along x (dim 1): forward natural -> permuted
-    x-spectrum; inverse permuted -> natural, scaled 1/M."""
-    M = z.shape[1]
-    order = _index(freq_order, M, z.device)
-    c = torch.complex(z[0], z[1])
+    x-spectrum; inverse permuted -> natural, scaled 1/M. The factored form
+    K4's cluster kernel computes: stage A (x_dft_stage_a_plain), then
+    forward the N1-point DFT along n1, whose (k2, k1) rows are the permuted
+    slots k2 N1 + k1 (no index array); inverse the N2-point inverse DFT
+    along k2 into rows N1 n2 + n1."""
+    _, M, cols = z.shape
+    y = _x_stage_a(z, inverse)
     if not inverse:
-        out = torch.fft.fft(c, dim=0)[order]
+        out = torch.fft.fft(y, dim=1)
     else:
-        natural = torch.empty_like(c)
-        natural[order] = c
-        out = torch.fft.ifft(natural, dim=0)
-    return torch.stack([out.real, out.imag]).to(z.dtype)
+        out = torch.fft.ifft(y, dim=0, norm="forward") / M
+    return _planar(out.reshape(M, cols), z.dtype)
 
 
 def x_symbols_inverse_plain(W: torch.Tensor, consts) -> torch.Tensor:
@@ -350,6 +390,10 @@ def _lib():
                        [p, p, p, p, p, p, p, p, p, p, i, p, p])
         _build.declare(lib.qg_pair_cols_launch,
                        [p] * 6 + [i] * 11 + [p] * 3 + [i, p])
+        _build.declare(lib.qg_x_dft_cluster_launch,
+                       [p, p, i, i, i, i, i, i, p, p])
+        _build.declare(lib.qg_x_dft_cluster_occupancy,
+                       [i, i, i, ctypes.POINTER(ctypes.c_int)])
         lib.qg_pair_x_num_consts.restype = ctypes.c_int
         lib.qg_coop_plan_size.restype = ctypes.c_int
     return lib
@@ -474,6 +518,162 @@ def x_dft_layout(M: int, inverse: bool) -> tuple[int, int, int, int]:
         M, lambda C, cs, b: 2 * C * (cs + (b if inverse else 0)), SMEM_LIMIT)
 
 
+# K4's cluster kernel (csrc x_dft_cluster_kernel) on M = 128 * 2^a: a cluster
+# of G blocks takes Cw adjacent y slots, block r stage A of n1 in [r L1,
+# (r+1) L1), L1 = 128 / G, then stage B of the k2 at DIF positions [r L2,
+# (r+1) L2), L2 = N2 / G (k2 = bitrev(position)). The layout x_dft launches,
+# (G, Cw), is the fastest at each extent of the sweep that chip_smoke.py
+# prints (PERF.md): X_CLUSTER_BY_M, else X_CLUSTER.
+CLUSTER_SIZES = (8, 16)
+CLUSTER_WIDTHS = (8, 16)
+X_CLUSTER = (8, 8)
+X_CLUSTER_BY_M = {8192: (16, 8)}
+_CLUSTER_N1 = 128
+
+
+def x_dft_cluster_launched(M: int) -> tuple[int, int]:
+    """The layout (G, Cw) x_dft launches at extent M."""
+    return X_CLUSTER_BY_M.get(M, X_CLUSTER)
+
+
+class ClusterLayout(NamedTuple):
+    """The cluster kernel's shared memory for M = 128 * N2 (csrc
+    cluster_smem): buffer A (N2 rows of L1 Cw float2) and buffer B (128
+    rows of L2 Cw), a tile of M Cw / G float2 each, then the N2/2- and
+    64-entry radix-2 tables."""
+    n2: int
+    l1: int
+    l2: int
+    tile: int
+    smem: int
+
+
+def x_dft_cluster_layout(M: int, G: int, Cw: int) -> ClusterLayout:
+    n2 = M // _CLUSTER_N1
+    tile = M * Cw // G
+    smem = 8 * (2 * tile + n2 // 2 + _CLUSTER_N1 // 2)
+    return ClusterLayout(n2, _CLUSTER_N1 // G, n2 // G, tile, smem)
+
+
+def x_dft_cluster_takes(M: int, G: int | None = None,
+                        Cw: int | None = None) -> bool:
+    """True iff the cluster kernel takes extent M at (G, Cw) (by default
+    the launched layout's): M = 128 * 2^a with N2 = M / 128 >= G, within
+    one block's shared memory."""
+    if G is None or Cw is None:
+        G, Cw = x_dft_cluster_launched(M)
+    n2 = M // _CLUSTER_N1
+    return (G in CLUSTER_SIZES and Cw in CLUSTER_WIDTHS
+            and M == _CLUSTER_N1 * n2 and n2 >= G and n2 & (n2 - 1) == 0
+            and x_dft_cluster_layout(M, G, Cw).smem <= SMEM_LIMIT)
+
+
+def _bitrev(bits: int) -> torch.Tensor:
+    """bitrev(i, bits) for i < 2^bits (csrc bitrev)."""
+    i = np.arange(1 << bits)
+    r = np.zeros_like(i)
+    for b in range(bits):
+        r |= ((i >> b) & 1) << (bits - 1 - b)
+    return torch.as_tensor(r)
+
+
+def x_dft_cluster_emulated(z: torch.Tensor, inverse: bool, G: int, Cw: int,
+                           stage_a: bool = False):
+    """What the cluster kernel does at (G, Cw), tile by tile and block by
+    block, in plain torch: each block's loads into its first-stage buffer,
+    its radix-2 transform (torch.fft, then rows in the DIF output's
+    bit-reversed order, or from the DIT input's), its pulls from every
+    block's buffer with the inter-stage twiddle and its stores, with the
+    CUDA source's index arithmetic. Returns (out, loads, stores): the
+    planar result (x_dft_plain's, or with ``stage_a`` x_dft_stage_a_plain's)
+    and how many times each (row, slot) of the input was loaded and of the
+    output stored."""
+    _, M, P = z.shape
+    if not x_dft_cluster_takes(M, G, Cw):
+        raise ValueError(f"the cluster kernel does not take M = {M} at "
+                         f"G = {G}, Cw = {Cw}")
+    n2, l1, l2, _, _ = x_dft_cluster_layout(M, G, Cw)
+    na, nb = l1 * Cw, l2 * Cw
+    c = torch.complex(z[0], z[1])
+    wm = torch.as_tensor(np.exp(-2j * np.pi * np.arange(M) / M)).to(c.dtype)
+    bra, brb = _bitrev(n2.bit_length() - 1), _bitrev(7)
+    out = torch.zeros_like(c)
+    loads = torch.zeros((M, P), dtype=torch.int64)
+    stores = torch.zeros((M, P), dtype=torch.int64)
+    ia, ib = torch.arange(n2 * na), torch.arange(_CLUSTER_N1 * nb)
+
+    def load(buf, brow, bcol, grow, col, c0):
+        ok = c0 + col < P
+        buf[brow[ok], bcol[ok]] = c[grow[ok], c0 + col[ok]]
+        loads.index_put_((grow[ok], c0 + col[ok]),
+                         torch.ones(int(ok.sum()), dtype=torch.int64),
+                         accumulate=True)
+
+    def store(v, grow, col, c0):
+        ok = c0 + col < P
+        out[grow[ok], c0 + col[ok]] = v[ok]
+        stores.index_put_((grow[ok], c0 + col[ok]),
+                          torch.ones(int(ok.sum()), dtype=torch.int64),
+                          accumulate=True)
+
+    def dif(buf, br):              # natural in, row p holds bitrev(p)
+        buf[:] = torch.fft.fft(buf, dim=0)[br]
+
+    def dit(buf, br):              # row p holds bitrev(p) in, natural out
+        buf[:] = torch.fft.ifft(buf[br], dim=0, norm="forward")
+
+    for c0 in range(0, P, Cw):
+        first = []
+        for r in range(G):
+            r1, r2 = r * l1, r * l2
+            if not inverse:
+                buf = torch.zeros((n2, na), dtype=c.dtype)
+                p, a = ia // na, ia % na
+                load(buf, p, a, _CLUSTER_N1 * p + r1 + a // Cw, a % Cw, c0)
+                dif(buf, bra)
+                if stage_a:
+                    n1, k2 = r1 + a // Cw, bra[p]
+                    store(buf[p, a] * wm[n1 * k2], _CLUSTER_N1 * k2 + n1,
+                          a % Cw, c0)
+            else:
+                buf = torch.zeros((_CLUSTER_N1, nb), dtype=c.dtype)
+                pp, b = ib // nb, ib % nb
+                k2 = bra[r2 + b // Cw]
+                load(buf, pp, b, _CLUSTER_N1 * k2 + brb[pp], b % Cw, c0)
+                dit(buf, brb)
+                if stage_a:
+                    store(buf[pp, b] * wm[pp * k2].conj(),
+                          _CLUSTER_N1 * k2 + pp, b % Cw, c0)
+            first.append(buf)
+        if stage_a:
+            continue
+        first = torch.stack(first)
+        for r in range(G):
+            r1, r2 = r * l1, r * l2
+            j = ia                 # the pull: n2 * na elements either way
+            if not inverse:
+                rank, pl, a = j // (l2 * na), (j // na) % l2, j % na
+                n1 = rank * l1 + a // Cw
+                v = first[rank, r2 + pl, a] * wm[n1 * bra[r2 + pl]]
+                buf = torch.zeros((_CLUSTER_N1, nb), dtype=c.dtype)
+                buf[n1, pl * Cw + a % Cw] = v
+                dif(buf, brb)
+                pp, b = ib // nb, ib % nb
+                store(buf[pp, b], _CLUSTER_N1 * bra[r2 + b // Cw] + brb[pp],
+                      b % Cw, c0)
+            else:
+                rank, nl, b = j // (l1 * nb), (j // nb) % l1, j % nb
+                p = rank * l2 + b // Cw
+                v = first[rank, r1 + nl, b] * wm[(r1 + nl) * bra[p]].conj()
+                buf = torch.zeros((n2, na), dtype=c.dtype)
+                buf[p, nl * Cw + b % Cw] = v
+                dit(buf, bra)
+                p, a = ia // na, ia % na
+                store(buf[p, a] / M, _CLUSTER_N1 * p + r1 + a // Cw, a % Cw,
+                      c0)
+    return _planar(out, z.dtype), loads, stores
+
+
 def x_symbols_layout(M: int) -> tuple[int, int, int, int]:
     """K5's layout: C slot pairs per block; 2C columns for m = 1, else 2C
     natural-order spectra and C columns of sub-columns (csrc
@@ -535,12 +735,75 @@ def pair_x_symbols(Zy: torch.Tensor, consts) -> torch.Tensor:
 pair_x_symbols.launches = 0
 
 
+@functools.lru_cache(maxsize=32)
+def x_dft_cluster_occupancy(M: int, layout: tuple, device: int) -> int:
+    """The most clusters of ``layout`` = (G, Cw) at extent M that card
+    ``device`` holds at once (cudaOccupancyMaxActiveClusters); 0: the
+    layout cannot be scheduled."""
+    G, Cw = layout
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = _lib().qg_x_dft_cluster_occupancy(
+            (M // _CLUSTER_N1).bit_length() - 1, G.bit_length() - 1,
+            Cw.bit_length() - 1, ctypes.byref(count))
+    _build.check(code, f"x_dft cluster occupancy {layout} at M = {M}")
+    return count.value
+
+
+def x_dft_cluster(z: torch.Tensor, inverse: bool, layout: tuple | None = None,
+                  stage_a: bool = False) -> torch.Tensor:
+    """One launch of K4's cluster kernel (csrc x_dft_cluster_kernel) on a
+    CUDA (2, M, P) float32 field, M = 128 * 2^a, with ``layout`` = (G, Cw),
+    by default x_dft_cluster_launched(M): x_dft's result, or with
+    ``stage_a`` x_dft_stage_a_plain's.
+    Raises on a shape or layout the kernel does not take, a layout the card
+    cannot schedule and a launch error. Counts nothing: the counting
+    wrappers are x_dft and x_dft_stage_a.
+
+    Replaces, as x_dft_kernel does, tpu_qg/ops/pallas_fft.py
+    PlanarFFT2._call_x (:1153) and _call_x_stream(z, inverse) without
+    consts (:1122). Bound: one read and one write of the field (1074 MB at
+    8192^2, 0.321 ms at 3.35 TB/s). Why a cluster: x_dft_kernel's blocks
+    hold whole columns (64 KB each at M = 8192), so two fit and a warp
+    moves 8-byte runs a row, a quarter of a sector; a tile of whole columns
+    wide enough for full sectors (8) would need 512 KB. The cluster's G
+    blocks share it: each runs 1/G of stage A, then pulls its part of stage
+    B from its peers' shared memory (design in the source)."""
+    _, M, P = z.shape
+    G, Cw = layout or x_dft_cluster_launched(M)
+    _cuda_field("x_dft_cluster", z,
+                lambda m, p: x_dft_cluster_takes(m, G, Cw), M, P)
+    device = z.device.index if z.device.index is not None else \
+        torch.cuda.current_device()
+    if x_dft_cluster_occupancy(M, (G, Cw), device) == 0:
+        raise RuntimeError(f"x_dft_cluster: the card cannot schedule a "
+                           f"cluster of layout {(G, Cw)} at M = {M}")
+    out = torch.empty_like(z)
+    code = _lib().qg_x_dft_cluster_launch(
+        z.data_ptr(), out.data_ptr(), P, (M // _CLUSTER_N1).bit_length() - 1,
+        G.bit_length() - 1, Cw.bit_length() - 1, int(inverse), int(stage_a),
+        _twiddles(M, M, z.device).data_ptr(),
+        torch.cuda.current_stream(z.device).cuda_stream)
+    _build.check(code, f"x_dft_cluster (K4) {(G, Cw)}")
+    return out
+
+
 def x_dft(z: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """K4 on CUDA tensors (one launch), the plain version on CPU tensors."""
+    """K4 on CUDA tensors (one launch), the plain version on CPU tensors.
+    Two hand-written kernels chosen by shape: the cluster kernel
+    (x_dft_cluster, layout x_dft_cluster_launched(M)) on M = 128 * 2^a with
+    M / 128 >= G, counted
+    also in ``x_dft.cluster_launches``; x_dft_kernel on the rest (mixed
+    extents M = 128 * n, and M < 128 * G)."""
     if z.device.type == "cpu":
         return x_dft_plain(z, inverse)
     _, M, P = z.shape
     _cuda_field("x_dft", z, x_kernels_take, M, P)
+    if x_dft_cluster_takes(M):
+        out = x_dft_cluster(z, inverse)
+        x_dft.cluster_launches += 1
+        x_dft.launches += 1
+        return out
     C, sub, bstride, _ = x_dft_layout(M, inverse)
     out = torch.empty_like(z)
     logr, m, tw, twn = _tables(M, z.device)
@@ -554,6 +817,21 @@ def x_dft(z: torch.Tensor, inverse: bool) -> torch.Tensor:
 
 
 x_dft.launches = 0
+x_dft.cluster_launches = 0
+
+
+def x_dft_stage_a(z: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The cluster kernel's first half alone (one launch with ``stage_a``)
+    on CUDA tensors, x_dft_stage_a_plain on CPU tensors: for checking stage
+    A against its plain version on the card."""
+    if z.device.type == "cpu":
+        return x_dft_stage_a_plain(z, inverse)
+    out = x_dft_cluster(z, inverse, stage_a=True)
+    x_dft_stage_a.launches += 1
+    return out
+
+
+x_dft_stage_a.launches = 0
 
 
 def x_symbols_inverse(W: torch.Tensor, consts) -> torch.Tensor:
