@@ -12,8 +12,14 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    x-kernel), K16 (the inversion in one launch), K17 (the step in one
    launch) and K15 (the y-fused chain's step) at (2, 2048, 2048); K8 (step +
    modes) at (2, 2048, 2048) with the pin gauge and (1, 2048, 2048) single
-   layer; K2, K4 (x-DFT, both ways, and its cluster kernel's first half,
-   stage A) and K5 (symbols + inverse x-DFT) at (2, 4096, 4096) and
+   layer; K2 on (2, 333, P) at P = 256 ... 8192 (its factored kernel, a
+   ragged last block in every layout with Rb > 1, the factored count
+   checked) and P = 384, 2432 (y_dft_kernel); K2's factored kernel in each
+   layout (Rb rows, threads) of K2_SWEEP at 2048^2, 4096^2 and 8192^2, with
+   the blocks an SM holds and ms each way in turns beside torch.fft.fft
+   along y and a copy of the field; K2, K4 (x-DFT, both ways, and its
+   cluster kernel's first half, stage A) and K5 (symbols + inverse x-DFT)
+   at (2, 4096, 4096) and
    (2, 8192, 8192), K4 also at (2, 8192, 252) (a ragged last cluster tile)
    and (2, 6144, 2048) (x_dft_kernel's mixed extent); K4's cluster kernel
    in every layout (G, Cw) that fits at 4096^2 and 8192^2, with
@@ -32,7 +38,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    kernels' launch counts set to 0 just before and read just after, the
    route QGModel resolves, a finite state with CFL < 1, and the same steps
    on the plain route (fft_impl="xla", use_pallas=False) from the same psi:
-   turbulence-2048 (100 steps: K1, K2, K3), with the pin gauge (100: K8),
+   turbulence-2048 (100 steps: K1, K2, K3; every K2 launch, here and on
+   every path below, by its factored kernel), with the pin gauge (100: K8),
    with fft_mono="on" (100: K1, K16), step_full="on" (100: K17) and
    step_chain="on" (100: K15, K3, K2 at the ends of each run call);
    pod-8192 (50 steps: K1, K2, K4, K5, every K4 launch by its cluster
@@ -126,7 +133,8 @@ from tpu_qg_torch.ops.dft_kernels import (
     x_dft_cluster_layout, x_dft_cluster_occupancy, x_dft_cluster_takes,
     x_dft_plain, x_dft_stage_a, x_dft_stage_a_plain, x_fwd_symbols_offset,
     x_fwd_symbols_offset_plain, x_symbols_inverse, x_symbols_inverse_plain,
-    y_dft, y_dft_plain)
+    y_dft, y_dft_factored, y_dft_factored_layout, y_dft_factored_occupancy,
+    y_dft_factored_takes, y_dft_plain)
 from tpu_qg_torch.ops.mg_kernels import (mg_prolong_smooth,
                                          mg_prolong_smooth_plain, mg_smooth,
                                          mg_smooth_plain)
@@ -205,17 +213,21 @@ KERNELS = {
 }
 
 
-class ClusterCount:
-    """x_dft's count of the launches that took K4's cluster kernel
-    (x_dft.cluster_launches), as a counter with a ``launches`` field."""
+class KernelCount:
+    """A wrapper's count of the launches that took one of its two kernels
+    (x_dft.cluster_launches: K4's cluster kernel; y_dft.factored_launches:
+    K2's factored kernel), as a counter with a ``launches`` field."""
+
+    def __init__(self, wrapper, attr: str):
+        self.wrapper, self.attr = wrapper, attr
 
     @property
     def launches(self) -> int:
-        return x_dft.cluster_launches
+        return getattr(self.wrapper, self.attr)
 
     @launches.setter
     def launches(self, n: int) -> None:
-        x_dft.cluster_launches = n
+        setattr(self.wrapper, self.attr, n)
 
 
 COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
@@ -226,7 +238,8 @@ COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
             "K7": stream_pair_symbols, "K12": fused_step_sharded,
             "K13": x_fwd_symbols_offset, "K14": paired_x_symbols,
             "K15s": fused_step_yspec_sharded, "K18": lab_step,
-            "K4 cluster": ClusterCount()}
+            "K4 cluster": KernelCount(x_dft, "cluster_launches"),
+            "K2 factored": KernelCount(y_dft, "factored_launches")}
 # Kernel names in a profiler trace, the one-launch kernels, K8, K9, K12 and
 # K18 before K1: a mangled K8, K9 or K12 name holds the source file's name,
 # step_kernel, and K18's lab_step_kernel holds it too. K7, K13 and K14 are
@@ -240,7 +253,8 @@ TRACE_NAMES = (("K17", "coop_fullstep_kernel"), ("K16", "coop_mono_kernel"),
                ("K8", "pre_inversion_kernel"),
                ("K5", "x_symbols_inverse_kernel"),
                ("K4", "x_dft_cluster_kernel"), ("K4", "x_dft_kernel"),
-               ("K3", "pair_x_kernel"), ("K2", "y_dft_kernel"),
+               ("K3", "pair_x_kernel"), ("K2", "y_dft_factored_kernel"),
+               ("K2", "y_dft_kernel"),
                ("K18", "lab_step_kernel"), ("K1", "step_kernel"))
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): device
@@ -522,11 +536,36 @@ def phase_kernels(errs, cfg, dev) -> None:
     torch.cuda.synchronize()
 
 
+# K2's extents beside the slices' grids: the factored kernel's powers of two
+# on a row count that leaves every launched Rb a ragged last block, and
+# y_dft_kernel's mixed extents 384 = 128 * 3 and 2432 = 128 * 19.
+K2_EXTENTS = (256, 512, 1024, 2048, 4096, 8192, 384, 2432)
+K2_RAGGED_ROWS = 333
+
+
+def check_k2_extents(errs, dev, rng) -> None:
+    """K2 against its plain version both ways at each of K2_EXTENTS, with
+    the factored kernel's count rising by 2 exactly where it takes P."""
+    for P in K2_EXTENTS:
+        x = torch.as_tensor(rng.standard_normal((2, K2_RAGGED_ROWS, P)),
+                            dtype=torch.float32, device=dev)
+        n = y_dft.factored_launches
+        for inverse in (False, True):
+            errs.record("K2", f"{K2_RAGGED_ROWS}x{P} " + (
+                "inverse" if inverse else "forward"),
+                y_dft(x, inverse), y_dft_plain(x, inverse))
+        torch.cuda.synchronize()
+        if y_dft.factored_launches - n != 2 * y_dft_factored_takes(P):
+            raise AssertionError(f"K2 at P = {P}: {y_dft.factored_launches - n}"
+                                 f" factored launches")
+
+
 def phase_x_kernels(errs, pod, dev, sizes=(4096, 8192)) -> None:
-    """K2, K4 and K5 at each n^2 of ``sizes`` on random input; K5 and the
-    whole four-pass inversion on pod-8192's zeta against float64; K1 and
-    K15 at pod's grid; K17 at 6272 x 128."""
+    """K2 at K2_EXTENTS; K2, K4 and K5 at each n^2 of ``sizes`` on random
+    input; K5 and the whole four-pass inversion on pod-8192's zeta against
+    float64; K1 and K15 at pod's grid; K17 at 6272 x 128."""
     rng = np.random.default_rng(SEED + 2)
+    check_k2_extents(errs, dev, rng)
     for n in sizes:
         cfg = pod.replace(M=n, P=n)
         x = torch.as_tensor(rng.standard_normal((2, n, n)),
@@ -655,6 +694,70 @@ def phase_k4_sweep(dev, card, sizes=(4096, 8192), reps=20) -> dict:
              launched="G={} Cw={}".format(*launched), layouts=rows,
              library_ms=refs["library"], reference_ms=refs,
              bound_ms=bound("K4", n, n)[0])
+        out[n] = rows
+        del x, c64, calls
+        free_memory()
+    return out
+
+
+# K2's factored kernel: the layouts (Rb rows a block, threads) timed at each
+# n^2, the launched one (dft_kernels.Y_FACTORED_RB_BY_P) among them.
+K2_SWEEP = {2048: ((2, 256), (4, 256), (4, 512)),
+            4096: ((1, 256), (2, 256), (2, 512)),
+            8192: ((1, 256), (1, 512), (2, 512))}
+
+
+def phase_k2_sweep(dev, card, reps=20) -> dict:
+    """K2's factored kernel in each layout of K2_SWEEP at n^2: its bytes of
+    shared memory, the blocks an SM holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), its largest error
+    against the plain version both ways, and CUDA-event ms a launch each
+    way, the layouts in turns (in order, then in reverse), beside one
+    torch.fft.fft along y of the same complex64 field and a torch copy of
+    the field. Returns the entries by grid."""
+    rng = np.random.default_rng(SEED + 10)
+    out = {}
+    for n, layouts in K2_SWEEP.items():
+        x = torch.as_tensor(rng.standard_normal((2, n, n)),
+                            dtype=torch.float32, device=dev)
+        want = [y_dft_plain(x, inverse) for inverse in (False, True)]
+        rows, calls = {}, {}
+        for lay in layouts:
+            key = "Rb={} threads={}".format(*lay)
+            occ = y_dft_factored_occupancy(n, lay, dev.index)
+            rows[key] = dict(smem=y_dft_factored_layout(n, *lay).smem,
+                             blocks_per_sm=occ)
+            if occ == 0:                 # the card cannot schedule it
+                continue
+            err = max(rel_err(y_dft_factored(x, inverse, lay), w)[1]
+                      for inverse, w in enumerate(want))
+            rows[key]["rel_err"] = err
+            if not err <= TOL["K2"]:
+                raise AssertionError(f"K2 factored {key} at {n}^2: rel err "
+                                     f"{err} > {TOL['K2']}")
+            for inverse in (False, True):
+                calls[(key, inverse)] = (
+                    lambda lay=lay, inverse=inverse:
+                    y_dft_factored(x, inverse, lay))
+        del want
+        c64 = torch.complex(x[0], x[1])
+        calls[("library", False)] = lambda: torch.fft.fft(c64, dim=1)
+        calls[("copy", False)] = lambda: x.clone()
+        runs = {k: [] for k in calls}
+        for k in list(calls) + list(calls)[::-1]:
+            runs[k].append(time_ms(calls[k], reps))
+        refs = {}
+        for (key, inverse), r in runs.items():
+            if key in rows:
+                rows[key]["inverse_ms" if inverse else "ms"] = sum(r) / 2
+                rows[key]["inverse_runs_ms" if inverse else "runs_ms"] = r
+            else:
+                refs[key] = sum(r) / 2
+        emit("k2_sweep", card=card, grid=[n, n],
+             launched="Rb={} threads={}".format(
+                 *dft_kernels.Y_FACTORED_RB_BY_P[n]),
+             layouts=rows, library_ms=refs["library"], reference_ms=refs,
+             bound_ms=bound("K2", n, n)[0])
         out[n] = rows
         del x, c64, calls
         free_memory()
@@ -1153,13 +1256,14 @@ def phase_mesh_one_rank(turb, pod, dev, card) -> tuple[dict, dict]:
         launches = {}
         for name, cfg, steps, expect, route in (
                 ("turbulence-2048 mesh (1, 1)", turb, 100,
-                 {"K12": 100, "K2": 200, "K3": 100}, "fused"),
-                ("pod-8192 mesh (1, 1)", pod, 20,
-                 {"K12": 20, "K2": 40, "K4": 20, "K5": 20, "K4 cluster": 20},
+                 {"K12": 100, "K2": 200, "K2 factored": 200, "K3": 100},
                  "fused"),
+                ("pod-8192 mesh (1, 1)", pod, 20,
+                 {"K12": 20, "K2": 40, "K2 factored": 40, "K4": 20, "K5": 20,
+                  "K4 cluster": 20}, "fused"),
                 ("turbulence-2048 step_chain=on mesh (1, 1)", chain, 20,
-                 {"K15s": 20, "K3": 20, "K2": 2 * run_chunks(chain, 20)},
-                 "chain")):
+                 {"K15s": 20, "K3": 20, "K2": 2 * run_chunks(chain, 20),
+                  "K2 factored": 2 * run_chunks(chain, 20)}, "chain")):
             launches[name] = run_mesh_slice(name, cfg, mesh, dev, steps,
                                             expect, route)
             free_memory()
@@ -1202,7 +1306,7 @@ def run_k7_path(pod, dev, calls: int) -> dict:
     torch.cuda.synchronize()
     launches = counts()
     want = {k: 0 for k in COUNTERS}
-    want.update(K2=2 * calls, K7=calls)
+    want.update({"K2": 2 * calls, "K2 factored": 2 * calls, "K7": calls})
     if launches != want:
         raise AssertionError(f"K7 path: launch counts {launches} != {want}")
     consts = inv._sym_consts
@@ -1227,13 +1331,14 @@ def run_k7_path(pod, dev, calls: int) -> dict:
 FOUR_RANK_SLICES = (
     # name, preset, step_chain, mesh, steps, expected counts on every rank
     ("turbulence-2048 mesh (4, 1)", "turbulence-2048", "auto", (4, 1), 10,
-     {"K12": 10, "K2": 20, "K14": 10}, "fused"),
+     {"K12": 10, "K2": 20, "K2 factored": 20, "K14": 10}, "fused"),
     ("turbulence-2048 step_chain=on mesh (4, 1)", "turbulence-2048", "on",
-     (4, 1), 10, {"K15s": 10, "K14": 10, "K2": 2}, "chain"),
+     (4, 1), 10, {"K15s": 10, "K14": 10, "K2": 2, "K2 factored": 2},
+     "chain"),
     ("turbulence-2048 mesh (2, 2)", "turbulence-2048", "auto", (2, 2), 10,
-     {"K12": 10, "K2": 20, "K13": 10}, "fused-2d"),
+     {"K12": 10, "K2": 20, "K2 factored": 20, "K13": 10}, "fused-2d"),
     ("pod-8192 mesh (4, 1)", "pod-8192", "auto", (4, 1), 5,
-     {"K12": 5, "K2": 10, "K13": 5}, "fused"),
+     {"K12": 5, "K2": 10, "K2 factored": 10, "K13": 5}, "fused"),
 )
 
 
@@ -1766,13 +1871,14 @@ def main() -> None:
     phase_kernels(errs, turb, dev)
     phase_x_kernels(errs, pod, dev)
     k4_sweep = phase_k4_sweep(dev, card)
+    k2_sweep = phase_k2_sweep(dev, card)
     phase_mg_kernels(errs, turb, pod_mg, dev)
     phase_sharded_kernels(errs, turb, pod, dev)
     phase_lab_kernels(errs, dev)
 
     slices = (
-        ("turbulence-2048", turb, 100, {"K1": 100, "K2": 200, "K3": 100},
-         "default"),
+        ("turbulence-2048", turb, 100,
+         {"K1": 100, "K2": 200, "K2 factored": 200, "K3": 100}, "default"),
         ("turbulence-2048 pin", turb.replace(poisson_gauge="pin"), 100,
          {"K8": 100}, "default"),
         ("turbulence-2048 fft_mono=on", forms["mono"], 100,
@@ -1780,13 +1886,15 @@ def main() -> None:
         ("turbulence-2048 step_full=on", forms["fullstep"], 100,
          {"K17": 100}, "fullstep"),
         ("turbulence-2048 step_chain=on", forms["chain"], 100,
-         {"K15": 100, "K3": 100, "K2": 2 * run_chunks(forms["chain"], 100)},
-         "chain"),
-        ("pod-8192", pod, 50, {"K1": 50, "K2": 100, "K4": 50, "K5": 50,
-                               "K4 cluster": 50}, "default"),
+         {"K15": 100, "K3": 100, "K2": 2 * run_chunks(forms["chain"], 100),
+          "K2 factored": 2 * run_chunks(forms["chain"], 100)}, "chain"),
+        ("pod-8192", pod, 50, {"K1": 50, "K2": 100, "K2 factored": 100,
+                               "K4": 50, "K5": 50, "K4 cluster": 50},
+         "default"),
         ("pod-8192 step_chain=on", pod_chain, 20,
          {"K15": 20, "K4": 20, "K5": 20, "K2": 2 * run_chunks(pod_chain, 20),
-          "K4 cluster": 20}, "chain"),
+          "K2 factored": 2 * run_chunks(pod_chain, 20), "K4 cluster": 20},
+         "chain"),
     )
     launches, finals = {}, {}
     for name, cfg, steps, expect, route in slices:
@@ -1849,6 +1957,14 @@ def main() -> None:
                         *dft_kernels.x_dft_cluster_launched(8192)),
                     "x_dft_kernel": "mixed extents, M < 128 G"},
         "sweep_8192": k4_sweep[8192]}
+    extra["K2"] = {
+        "factored_launches": sum(run["K2 factored"]
+                                 for run in launches.values()),
+        "kernels": {"y_dft_factored_kernel": "P = 128 * 2^b, 256 <= P <= "
+                    "8192 (layouts (Rb, threads): {})".format(
+                        dft_kernels.Y_FACTORED_RB_BY_P),
+                    "y_dft_kernel": "mixed extents, P <= 128"},
+        "sweep_8192": k2_sweep[8192]}
     sharded_ms = time_sharded_kernels(turb, pod, dev, card)
     extra["K12"] = {"mesh_step_ms": mesh_ms}
     lab = time_lab(dev, card, lab_jobs)

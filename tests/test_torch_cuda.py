@@ -4,8 +4,9 @@ Marked ``cuda``; without a card every test skips. On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances relative to max|plain|: K1 and K8 1e-6, K2 and K4 1e-5 (K4's
-cluster kernel's first half, stage A, too), K3 and
+Tolerances relative to max|plain|: K1 and K8 1e-6, K2 and K4 1e-5 (K2's
+factored kernel in every layout, K4's cluster kernel's first half, stage
+A, too), K3 and
 K5 1e-4 (the 1/lambda symbol amplifies low-k float32 rounding); the
 one-launch kernels as the kernels they fuse: K16 1e-4, K17 1e-6 (zeta_new,
 carry) and 1e-4 (psi_new), K15 1e-6 (zeta_new, carry) and 1e-5 (zeta_ys);
@@ -28,8 +29,9 @@ from tpu_qg_torch.ops.dft_kernels import (
     stream_pair_symbols, stream_pair_symbols_plain, x_dft,
     x_dft_cluster_takes, x_dft_plain, x_dft_stage_a, x_dft_stage_a_plain,
     x_fwd_symbols_offset, x_fwd_symbols_offset_plain, x_symbols_inverse,
-    x_symbols_inverse_plain, y_dft, y_dft_plain)
-from tpu_qg_torch.ops import mg_kernels
+    x_symbols_inverse_plain, y_dft, y_dft_factored, y_dft_factored_takes,
+    y_dft_plain)
+from tpu_qg_torch.ops import dft_kernels, mg_kernels
 from tpu_qg_torch.ops._stencil_lab import lab_step, lab_step_plain
 from tpu_qg_torch.ops.mg_kernels import (mg_prolong_smooth,
                                          mg_prolong_smooth_plain, mg_smooth,
@@ -164,6 +166,46 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         y_dft(torch.zeros((2, 8, 256), dtype=torch.float64, device=dev), False)
     with pytest.raises(ValueError):     # odd factor 65 > MAX_ODD
         y_dft(torch.zeros((2, 8, 130), device=dev), False)
+
+
+# K2's factored kernel on P = 128 * 2^b, on 37 rows (a ragged last block
+# for every Rb > 1) and 64; y_dft_kernel keeps 384 = 128 * 3 and 2432 =
+# 128 * 19.
+@pytest.mark.parametrize("P", [256, 512, 1024, 2048, 4096, 8192, 384, 2432])
+@pytest.mark.parametrize("rows", [37, 64])
+def test_y_dft_routes_and_factored_kernel(dev, P, rows):
+    x = _fields(rows, P, dev, seed=P + rows)[1]
+    factored = y_dft_factored_takes(P)
+    n = (y_dft.launches, y_dft.factored_launches)
+    for inverse in (False, True):
+        assert _rel(y_dft(x, inverse), y_dft_plain(x, inverse)) <= 1e-5
+    torch.cuda.synchronize()
+    assert (y_dft.launches, y_dft.factored_launches) == (
+        n[0] + 2, n[1] + 2 * factored)
+    if not factored:
+        return
+    for layout in {(1, 256), (2, 512), (4, 256),
+                   dft_kernels.Y_FACTORED_RB_BY_P[P]}:
+        if y_dft_factored_takes(P, layout):
+            for inverse in (False, True):
+                assert _rel(y_dft_factored(x, inverse, layout),
+                            y_dft_plain(x, inverse)) <= 1e-5
+    torch.cuda.synchronize()
+    assert y_dft.factored_launches == n[1] + 2      # y_dft_factored counts none
+
+
+def test_factored_wrapper_refuses_what_it_does_not_take(dev):
+    x = torch.zeros((2, 8, 512), device=dev)
+    with pytest.raises(TypeError):
+        y_dft_factored(x.double(), False)
+    with pytest.raises(ValueError):                 # not contiguous
+        y_dft_factored(x[:, :, ::2], False)
+    with pytest.raises(ValueError):
+        y_dft(x[:, :, ::2], False)
+    with pytest.raises(ValueError):                 # a mixed extent
+        y_dft_factored(torch.zeros((2, 8, 384), device=dev), False)
+    with pytest.raises(ValueError):                 # Rb not a power of two
+        y_dft_factored(x, False, (3, 256))
 
 
 COUNTED = (fused_step, y_dft, pair_x_symbols, x_dft, x_symbols_inverse,

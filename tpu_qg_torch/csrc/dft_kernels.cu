@@ -13,7 +13,9 @@
 //
 // K4 has two kernels chosen by shape: x_dft_cluster_kernel, a thread-block
 // cluster that runs the factored transform in one pass over the field, for
-// M = 128 * 2^a, and x_dft_kernel for the rest.
+// M = 128 * 2^a, and x_dft_kernel for the rest. So has K2:
+// y_dft_factored_kernel, the same factoring along the rows, for P = 128 *
+// 2^b (256 <= P <= 8192), and y_dft_kernel for the rest.
 //
 // Every kernel transforms with an in-place radix-2 FFT in shared memory:
 // the forward pass is decimation in frequency (natural order in, bit-reversed
@@ -295,19 +297,19 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b, bool conj_b) {
 }
 
 // One radix-2^K pass (K consecutive radix-2 stages, spans 2^(lo+K-1) ..
-// 2^lo) over 2^lognc columns of length 2^logn: thread t takes column t mod
-// 2^lognc and a group of 2^K elements, read through in(pos, col) into
-// registers and written through out(pos, col, value), so that a pass can
-// read device memory or a peer's shared memory and write either. A warp
-// takes consecutive columns of a row. The butterflies and twiddles are
-// group_pass's (fft_device.cuh).
-template <int K, bool kInverse, class In, class Out>
+// 2^lo) over 2^lognc columns of length 2^logn by a block of kThreads
+// threads: thread t takes column t mod 2^lognc and a group of 2^K
+// elements, read through in(pos, col) into registers and written through
+// out(pos, col, value), so that a pass can read device memory or a peer's
+// shared memory and write either. A warp takes consecutive columns of a
+// row. The butterflies and twiddles are group_pass's (fft_device.cuh).
+template <int K, bool kInverse, int kThreads, class In, class Out>
 __device__ __forceinline__ void il_pass(int lognc, int logn, int lo,
                                         const float2* tw, In in, Out out) {
   constexpr int GS = 1 << K;
   const int s = 1 << lo;
   const int count = (1 << (logn - K)) << lognc;   // groups x columns
-  for (int t = threadIdx.x; t < count; t += kClusterThreads) {
+  for (int t = threadIdx.x; t < count; t += kThreads) {
     const int g = t >> lognc, col = t & ((1 << lognc) - 1);
     const int base = ((g >> lo) << (lo + K)) + (g & (s - 1));
     float2 x[GS];
@@ -340,31 +342,32 @@ __device__ __forceinline__ void il_pass(int lognc, int logn, int lo,
   }
 }
 
-template <bool kInverse, class In, class Out>
+template <bool kInverse, int kThreads = kClusterThreads, class In, class Out>
 __device__ __forceinline__ void il_pass_k(int k, int lognc, int logn, int lo,
                                           const float2* tw, In in, Out out) {
   switch (k) {
-    case 4: return il_pass<4, kInverse>(lognc, logn, lo, tw, in, out);
-    case 3: return il_pass<3, kInverse>(lognc, logn, lo, tw, in, out);
-    case 2: return il_pass<2, kInverse>(lognc, logn, lo, tw, in, out);
-    default: return il_pass<1, kInverse>(lognc, logn, lo, tw, in, out);
+    case 4: return il_pass<4, kInverse, kThreads>(lognc, logn, lo, tw, in, out);
+    case 3: return il_pass<3, kInverse, kThreads>(lognc, logn, lo, tw, in, out);
+    case 2: return il_pass<2, kInverse, kThreads>(lognc, logn, lo, tw, in, out);
+    default: return il_pass<1, kInverse, kThreads>(lognc, logn, lo, tw, in, out);
   }
 }
 
 // Radix-2 DIF (forward: natural in, bit-reversed out) or inverse DIT
 // (bit-reversed in, natural out, unscaled) of 2^lognc columns of length
-// 2^logn, in passes of at most kGroupStages stages: the first as long as
-// leaves the rest at least 2 each (64 points: 4 + 2, 128: 4 + 3, 32: 3 + 2),
-// so its loads are few, long batches. The first pass reads through
-// in(pos, col), the last writes through out(pos, col, value); between
-// passes the columns sit interleaved in buf (element (pos, col) at
-// buf[pos * stride + col]) with a barrier after each write. after_first()
-// runs after the first pass. No barrier after the last pass.
-template <bool kInverse, class In, class Out, class Mid>
-__device__ void il_fft(float2* buf, int lognc, int stride, int logn,
-                       const float2* tw, In in, Out out, Mid after_first) {
-  auto rd = [=](int pos, int col) { return buf[pos * stride + col]; };
-  auto wr = [=](int pos, int col, float2 v) { buf[pos * stride + col] = v; };
+// 2^logn by a block of kThreads threads, in passes of at most kGroupStages
+// stages: the first as long as leaves the rest at least 2 each (64 points:
+// 4 + 2, 128: 4 + 3, 32: 3 + 2), so its loads are few, long batches. The
+// first pass reads through in(pos, col), the last writes through out(pos,
+// col, value); between passes element (pos, col) sits in shared memory at
+// at(pos, col), with a barrier after each write. after_first() runs after
+// the first pass. No barrier after the last pass.
+template <int kThreads, bool kInverse, class In, class Out, class At,
+          class Mid>
+__device__ void il_fft_at(int lognc, int logn, const float2* tw, In in,
+                          Out out, At at, Mid after_first) {
+  auto rd = [=](int pos, int col) { return *at(pos, col); };
+  auto wr = [=](int pos, int col, float2 v) { *at(pos, col) = v; };
   const int npass = (logn + kGroupStages - 1) / kGroupStages;
   for (int p = 0, done = 0; p < npass; ++p) {
     const int left = npass - p;
@@ -372,18 +375,28 @@ __device__ void il_fft(float2* buf, int lognc, int stride, int logn,
                          : (logn - done + left - 1) / left;
     const int lo = kInverse ? done : logn - done - k;
     if (p == 0 && left == 1) {
-      il_pass_k<kInverse>(k, lognc, logn, lo, tw, in, out);
+      il_pass_k<kInverse, kThreads>(k, lognc, logn, lo, tw, in, out);
     } else if (p == 0) {
-      il_pass_k<kInverse>(k, lognc, logn, lo, tw, in, wr);
+      il_pass_k<kInverse, kThreads>(k, lognc, logn, lo, tw, in, wr);
     } else if (left == 1) {
-      il_pass_k<kInverse>(k, lognc, logn, lo, tw, rd, out);
+      il_pass_k<kInverse, kThreads>(k, lognc, logn, lo, tw, rd, out);
     } else {
-      il_pass_k<kInverse>(k, lognc, logn, lo, tw, rd, wr);
+      il_pass_k<kInverse, kThreads>(k, lognc, logn, lo, tw, rd, wr);
     }
     if (p == 0) after_first();
     if (left > 1) __syncthreads();
     done += k;
   }
+}
+
+// il_fft_at for the cluster kernel's block, the columns interleaved in buf:
+// element (pos, col) at buf[pos * stride + col].
+template <bool kInverse, class In, class Out, class Mid>
+__device__ void il_fft(float2* buf, int lognc, int stride, int logn,
+                       const float2* tw, In in, Out out, Mid after_first) {
+  il_fft_at<kClusterThreads, kInverse>(
+      lognc, logn, tw, in, out,
+      [=](int pos, int col) { return buf + pos * stride + col; }, after_first);
 }
 
 __global__ void __launch_bounds__(kClusterThreads, 2)
@@ -497,6 +510,159 @@ x_dft_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
   }
   // No block leaves while a peer may still read its buffer.
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// K2 on power-of-two extents, P = 128 * 2^b (1 <= b <= 6): the factored row
+// kernel. It computes what y_dft_kernel computes, and so replaces the same
+// TPU function, tpu_qg/ops/pallas_fft.py PlanarFFT2._call_y (:1100);
+// y_dft_kernel keeps the mixed extents P = R * m (m odd > 1) and P <= 128,
+// and y_rows stays the one-launch kernels' row task.
+//
+// Bound: device-memory bandwidth, one read and one write of the field (2 x
+// 537 MB at 8192^2: 0.321 ms at 3.35 TB/s). y_dft_kernel holds a whole row
+// in shared memory beside its own copy of the R/2-entry twiddle table (98 KB
+// a block at P = 8192: two 256-thread blocks, 16 warps, an SM), loads the
+// row, runs its 13 radix-2 stages in four barrier-separated passes and then
+// gathers the permuted order, one phase after another.
+//
+// The transform is factored as K4's cluster kernel's, along y (N1 = 128,
+// N2 = P / 128; n = N1 n2 + n1, slot k2 N1 + k1 holding frequency k2 + N2 k1):
+//   X[k2 N1 + k1] = sum_n1 W_N1^(n1 k1) W_P^(n1 k2) sum_n2 W_N2^(n2 k2) x[N1 n2 + n1]
+// A block takes Rb rows; row r sits in shared memory as N2 p-rows of 128
+// float2, element (p, q) at y_fac_at(r N2 + p, q): an odd stride between
+// p-rows (stage B's warps take consecutive p) and a pad word every 16 q
+// (the bit-reversed sweeps), so every pass and sweep is free of bank
+// conflicts for N2 Rb >= 16.
+//   forward  stage A: N2-point DIF along n2 for each column n1, its first
+//            pass reading device memory straight into registers (a warp
+//            reads 128-byte runs of each plane, up to 32 loads a thread in
+//            flight), its last pass writing (p, n1) times W_P^(n1 k2), k2 =
+//            bitrev(p); stage B: 128-point DIF along n1 for each p, after
+//            which (p, q) holds slot bitrev(p) N1 + bitrev7(q); a sweep
+//            stores the slots in order, 128-byte runs of each plane a warp.
+//   inverse  the mirror image: a sweep loads slot k2 N1 + k1 to (bitrev(k2),
+//            bitrev7(k1)) (kBatch loads a thread in flight); 128-point
+//            inverse DIT along q, its last pass times conj(W_P^(n1 k2));
+//            N2-point inverse DIT along p, its last pass writing
+//            x[N1 n2 + n1] / P to device memory.
+// Radix-2 passes of up to 4 stages run in registers (il_pass): 8192 takes
+// 4 + 2 stages in stage A and 4 + 3 in stage B. The stage tables (W_N2^k,
+// N2/2 entries; W_128^k, 64) and the inter-stage twiddle's two factors
+// (W_P^(j mod 64), 64 entries, and W_P^(64 floor(j / 64)), P/64; j = n1 k2 <
+// P) are read once a block from the P-entry table of W_P^j built in float64
+// on the host: 2.25 KB at P = 8192, against y_dft_kernel's 32 KB a row.
+// Shared memory: Rb N2 kYRowStride float2 and the tables, 69.75 KB at
+// P = 8192, Rb = 1 (dft_kernels.y_dft_factored_layout): three blocks an SM.
+// The register budget (y_min_blocks) lets 256-thread blocks fit three to an
+// SM and 512-thread blocks two. The grid is ceil(rows / Rb) blocks;
+// rows past the field (a ragged last block) are read from the last row and
+// not written.
+// ---------------------------------------------------------------------------
+constexpr int kYRowStride = 135;   // float2 a p-row: y_fac_at(0, 127) = 134
+
+// Blocks an SM that the register budget admits: 256-thread blocks three
+// (80 registers a thread), 512-thread blocks two (64).
+constexpr int y_min_blocks(int threads) { return threads == 256 ? 3 : 2; }
+
+__device__ __forceinline__ int y_fac_at(int prow, int q) {
+  return prow * kYRowStride + q + (q >> 4);
+}
+
+template <int kThreads, bool kInverse>
+__global__ void __launch_bounds__(kThreads, y_min_blocks(kThreads))
+y_dft_factored_kernel(const float* __restrict__ in, float* __restrict__ out,
+                      int rows, int logn2, int logrb,
+                      const float2* __restrict__ wm) {
+  extern __shared__ float smem[];
+  const int n2 = 1 << logn2, logp = logn2 + 7, P = 1 << logp;
+  float2* S = reinterpret_cast<float2*>(smem);       // Rb N2 p-rows
+  float2* twa = S + (n2 << logrb) * kYRowStride;     // W_N2^k, k < N2 / 2
+  float2* twb = twa + n2 / 2;                        // W_128^k, k < 64
+  float2* tlo = twb + 64;                            // W_P^j, j < 64
+  float2* thi = tlo + 64;                            // W_P^(64 j), j < P / 64
+  for (int k = threadIdx.x; k < n2 / 2; k += kThreads) twa[k] = wm[k << 7];
+  for (int k = threadIdx.x; k < 64; k += kThreads) {
+    twb[k] = wm[k << logn2];
+    tlo[k] = wm[k];
+  }
+  for (int k = threadIdx.x; k < 2 * n2; k += kThreads) thi[k] = wm[k << 6];
+  __syncthreads();
+  const size_t plane = (size_t)rows * P;
+  const size_t first = (size_t)blockIdx.x << (logrb + logp);   // row0 * P
+  const int nrow = min(1 << logrb, rows - (int)(blockIdx.x << logrb));
+  auto twiddle = [=](int n1, int k2) {
+    const int j = n1 * k2;
+    return cmul(thi[j >> 6], tlo[j & 63], false);
+  };
+  // Stage A's column r N1 + n1, position p along n2; stage B's column
+  // r N2 + p, position q along n1; the sweeps' element i, slot s of row r.
+  auto at_a = [=](int p, int col) {
+    return S + y_fac_at(((col >> 7) << logn2) + p, col & 127);
+  };
+  auto at_b = [=](int q, int col) { return S + y_fac_at(col, q); };
+  auto at_slot = [=](int i) {
+    const int s = i & (P - 1);
+    return S + y_fac_at(((i >> logp) << logn2) + bitrev(s >> 7, logn2),
+                        bitrev(s & 127, 7));
+  };
+  auto rd_b = [=](int q, int col) { return *at_b(q, col); };
+  auto goff = [=](int n, int col) {             // row r's y = n
+    return first + ((size_t)(col >> 7) << logp) + (n << 7) + (col & 127);
+  };
+  auto none = [] {};
+  const int lognc_a = logrb + 7, lognc_b = logrb + logn2;
+  const int count = nrow << logp;
+
+  if constexpr (!kInverse) {
+    il_fft_at<kThreads, false>(lognc_a, logn2, twa,
+        [=](int n, int col) {     // a row past the field reads the last
+          const int r = min(col >> 7, nrow - 1);
+          const size_t off = goff(n, (r << 7) | (col & 127));
+          return make_float2(__ldg(in + off), __ldg(in + off + plane));
+        },
+        [=](int p, int col, float2 v) {
+          *at_a(p, col) = cmul(v, twiddle(col & 127, bitrev(p, logn2)), false);
+        }, at_a, none);
+    __syncthreads();
+    il_fft_at<kThreads, false>(lognc_b, 7, twb, rd_b,
+        [=](int q, int col, float2 v) { *at_b(q, col) = v; }, at_b, none);
+    __syncthreads();
+    for (int i = threadIdx.x; i < count; i += kThreads) {
+      const float2 v = *at_slot(i);
+      out[first + i] = v.x;
+      out[first + i + plane] = v.y;
+    }
+  } else {
+    for (int i0 = threadIdx.x; i0 < count; i0 += kBatch * kThreads) {
+      float2 v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const size_t off = first + min(i0 + u * kThreads, count - 1);
+        v[u] = make_float2(__ldg(in + off), __ldg(in + off + plane));
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (i0 + u * kThreads < count) *at_slot(i0 + u * kThreads) = v[u];
+      }
+    }
+    __syncthreads();
+    il_fft_at<kThreads, true>(lognc_b, 7, twb, rd_b,
+        [=](int q, int col, float2 v) {
+          *at_b(q, col) = cmul(v, twiddle(q, bitrev(col & (n2 - 1), logn2)),
+                               true);
+        }, at_b, none);
+    __syncthreads();
+    const float scale = 1.0f / static_cast<float>(P);    // exact: P = 2^k
+    il_fft_at<kThreads, true>(lognc_a, logn2, twa,
+        [=](int p, int col) { return *at_a(p, col); },
+        [=](int n, int col, float2 v) {
+          if ((col >> 7) >= nrow) return;
+          const size_t off = goff(n, col);
+          out[off] = v.x * scale;
+          out[off + plane] = v.y * scale;
+        }, at_a, none);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -759,6 +925,69 @@ extern "C" int qg_x_dft_cluster_launch(const float* in, float* out, int P,
           &cfg, x_dft_cluster_kernel, in, out, P, logn2, logg, logcw, inverse,
           stage_a, static_cast<const float2*>(wm)))
     return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// Rb N2 p-rows and the four tables (N2/2, 64, 64 and 2 N2 float2).
+int y_factored_smem(int logn2, int logrb) {
+  const int n2 = 1 << logn2;
+  return ((n2 << logrb) * kYRowStride + n2 / 2 + 128 + 2 * n2) *
+         static_cast<int>(sizeof(float2));
+}
+
+using YFactoredFn = void (*)(const float*, float*, int, int, int,
+                             const float2*);
+
+// The instance of a block size and direction (nullptr: no such instance),
+// its shared memory attribute set.
+YFactoredFn y_factored_fn(int logn2, int logrb, int threads, int inverse,
+                          int* err) {
+  YFactoredFn fn = nullptr;
+  if (threads == 256) {
+    fn = inverse ? y_dft_factored_kernel<256, true>
+                 : y_dft_factored_kernel<256, false>;
+  } else if (threads == 512) {
+    fn = inverse ? y_dft_factored_kernel<512, true>
+                 : y_dft_factored_kernel<512, false>;
+  }
+  *err = fn == nullptr || logn2 < 1 || logn2 > 6 || logrb < 0
+             ? static_cast<int>(cudaErrorInvalidValue)
+             : set_smem(reinterpret_cast<const void*>(fn),
+                        y_factored_smem(logn2, logrb));
+  return fn;
+}
+
+}  // namespace
+
+// The most blocks of the factored K2's layout (P = 128 * 2^logn2, 2^logrb
+// rows a block, `threads` threads) that one SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, the forward instance):
+// 0 means the layout cannot run.
+extern "C" int qg_y_dft_factored_occupancy(int logn2, int logrb, int threads,
+                                           int* blocks) {
+  int err = 0;
+  YFactoredFn fn = y_factored_fn(logn2, logrb, threads, 0, &err);
+  if (err) return err;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, reinterpret_cast<const void*>(fn), threads,
+      y_factored_smem(logn2, logrb)));
+}
+
+// The factored K2 on a planar (2, rows, 128 * 2^logn2) field; wm: the
+// P-entry float2 table of W_P^j.
+extern "C" int qg_y_dft_factored_launch(const float* in, float* out, int rows,
+                                        int logn2, int logrb, int threads,
+                                        int inverse, const void* wm,
+                                        void* stream) {
+  int err = 0;
+  YFactoredFn fn = y_factored_fn(logn2, logrb, threads, inverse, &err);
+  if (err) return err;
+  const int blocks = (rows + (1 << logrb) - 1) >> logrb;
+  fn<<<blocks, threads, y_factored_smem(logn2, logrb),
+       static_cast<cudaStream_t>(stream)>>>(
+      in, out, rows, logn2, logrb, static_cast<const float2*>(wm));
   return static_cast<int>(cudaGetLastError());
 }
 

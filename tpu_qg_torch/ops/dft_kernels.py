@@ -127,6 +127,26 @@ def y_dft_plain(z: torch.Tensor, inverse: bool) -> torch.Tensor:
     return torch.stack([out.real, out.imag]).to(z.dtype)
 
 
+def y_dft_factored_plain(z: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """y_dft_plain's function in the factored form K2's factored kernel
+    computes (csrc y_dft_factored_kernel; x_dft_plain's with the axes
+    swapped): P = N1 N2 (split_factor), y = N1 n2 + n1, row (n2, n1).
+    Forward: the N2-point DFT along n2, times W_P^(n1 k2), then the N1-point
+    DFT along n1, whose (k2, k1) entries are the permuted slots k2 N1 + k1
+    (no index array). Inverse: the inverse N1-point DFT along k1, times
+    conj(W_P^(n1 k2)), then the inverse N2-point DFT along k2, scaled 1/P."""
+    _, rows, P = z.shape
+    N1, N2 = split_factor(P)
+    c = torch.complex(z[0], z[1]).reshape(rows, N2, N1)
+    tw = _stage_twiddle(P, z.dtype, z.device)[..., 0]          # (N2, N1)
+    if not inverse:
+        out = torch.fft.fft(torch.fft.fft(c, dim=1) * tw, dim=2)
+    else:
+        y = torch.fft.ifft(c, dim=2, norm="forward") * tw.conj()
+        out = torch.fft.ifft(y, dim=1, norm="forward") / P
+    return _planar(out.reshape(rows, P), z.dtype)
+
+
 @functools.lru_cache(maxsize=16)
 def _index(fn, N: int, device: torch.device) -> torch.Tensor:
     """An index map of ``matmul_fft`` (freq_order, negate_index) on device."""
@@ -394,6 +414,10 @@ def _lib():
                        [p, p, i, i, i, i, i, i, p, p])
         _build.declare(lib.qg_x_dft_cluster_occupancy,
                        [i, i, i, ctypes.POINTER(ctypes.c_int)])
+        _build.declare(lib.qg_y_dft_factored_launch,
+                       [p, p, i, i, i, i, i, p, p])
+        _build.declare(lib.qg_y_dft_factored_occupancy,
+                       [i, i, i, ctypes.POINTER(ctypes.c_int)])
         lib.qg_pair_x_num_consts.restype = ctypes.c_int
         lib.qg_coop_plan_size.restype = ctypes.c_int
     return lib
@@ -447,8 +471,111 @@ def _check_field(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name}: field must be contiguous")
 
 
+# K2's factored kernel (csrc y_dft_factored_kernel) on P = 128 * 2^b, 1 <= b
+# <= 6: a block of `threads` threads takes Rb rows, each as N2 = P / 128
+# p-rows of 128 float2 at a stride of Y_ROW_STRIDE (csrc kYRowStride). The
+# layout y_dft launches, (Rb, threads), is the fastest at each extent of the
+# sweep that chip_smoke.py prints (PERF.md): Y_FACTORED_RB_BY_P.
+Y_FACTORED_THREADS = (256, 512)
+Y_ROW_STRIDE = 135
+Y_FACTORED_RB_BY_P = {256: (8, 256), 512: (4, 256), 1024: (2, 256),
+                      2048: (2, 256), 4096: (1, 256), 8192: (1, 256)}
+
+
+class YFactoredLayout(NamedTuple):
+    """The factored K2's block (csrc y_factored_smem): N2, Rb rows,
+    threads, and bytes of shared memory: Rb N2 p-rows of Y_ROW_STRIDE
+    float2, then the N2/2-, 64-, 64- and 2 N2-entry tables."""
+    n2: int
+    rb: int
+    threads: int
+    smem: int
+
+
+def y_dft_factored_layout(P: int, rb: int, threads: int = 256
+                          ) -> YFactoredLayout:
+    n2 = P // _N1
+    smem = 8 * (rb * n2 * Y_ROW_STRIDE + n2 // 2 + 2 * 64 + 2 * n2)
+    return YFactoredLayout(n2, rb, threads, smem)
+
+
+def y_dft_factored_takes(P: int, layout: tuple | None = None) -> bool:
+    """True iff the factored kernel takes extent P at ``layout`` = (Rb,
+    threads) (by default the launched one): P = 128 * 2^b, 1 <= b <= 6, Rb
+    a power of two, within one block's shared memory."""
+    n2 = P // _N1
+    if P != _N1 * n2 or not 2 <= n2 <= 64 or n2 & (n2 - 1):
+        return False
+    rb, threads = layout or Y_FACTORED_RB_BY_P[P]
+    return (rb >= 1 and rb & (rb - 1) == 0 and threads in Y_FACTORED_THREADS
+            and y_dft_factored_layout(P, rb, threads).smem <= SMEM_LIMIT)
+
+
+@functools.lru_cache(maxsize=32)
+def y_dft_factored_occupancy(P: int, layout: tuple, device: int) -> int:
+    """The most blocks of ``layout`` = (Rb, threads) at extent P that one SM
+    of card ``device`` holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
+    0: the layout cannot run."""
+    rb, threads = layout
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = _lib().qg_y_dft_factored_occupancy(
+            (P // _N1).bit_length() - 1, rb.bit_length() - 1, threads,
+            ctypes.byref(count))
+    _build.check(code, f"y_dft factored occupancy {layout} at P = {P}")
+    return count.value
+
+
+def y_dft_factored(z: torch.Tensor, inverse: bool,
+                   layout: tuple | None = None) -> torch.Tensor:
+    """One launch of K2's factored kernel (csrc y_dft_factored_kernel) on a
+    CUDA (2, rows, P) float32 field, P = 128 * 2^b (1 <= b <= 6), with
+    ``layout`` = (Rb rows a block, threads), by default
+    Y_FACTORED_RB_BY_P[P]: y_dft's result. Raises on a shape or layout the
+    kernel does not take, a layout the card cannot schedule and a launch
+    error. Counts nothing: the counting wrapper is y_dft.
+
+    Replaces, as y_dft_kernel does, tpu_qg/ops/pallas_fft.py
+    PlanarFFT2._call_y (:1100). Bound: one read and one write of the field
+    (1074 MB at 8192^2, 0.321 ms at 3.35 TB/s). Why factored: y_dft_kernel
+    holds a row and its own copy of the twiddle table (98 KB a block at P =
+    8192, 16 warps an SM) and loads, transforms in four barrier-separated
+    passes and gathers one after another. This kernel runs
+    matmul_fft.FactoredFFT's factoring (y_dft_factored_plain): stage A's
+    first pass reads device memory straight into registers, stage B leaves
+    whole 128-slot runs of the permuted spectrum, and its tables are 2.25 KB
+    a block (design in the source)."""
+    _, rows, P = z.shape
+    layout = tuple(layout or Y_FACTORED_RB_BY_P.get(P, (1, 256)))
+    if z.device.type != "cuda":
+        raise ValueError(f"y_dft_factored: unsupported device {z.device}")
+    _check_field("y_dft_factored", z)
+    if not y_dft_factored_takes(P, layout):
+        raise ValueError(f"y_dft_factored: P = {P} must be 128 * 2^b "
+                         f"(1 <= b <= 6) and the layout {layout} (Rb, "
+                         f"threads) fit shared memory")
+    device = z.device.index if z.device.index is not None else \
+        torch.cuda.current_device()
+    if y_dft_factored_occupancy(P, layout, device) == 0:
+        raise RuntimeError(f"y_dft_factored: the card cannot schedule "
+                           f"layout {layout} at P = {P}")
+    rb, threads = layout
+    out = torch.empty_like(z)
+    code = _lib().qg_y_dft_factored_launch(
+        z.data_ptr(), out.data_ptr(), rows, (P // _N1).bit_length() - 1,
+        rb.bit_length() - 1, threads, int(inverse),
+        _twiddles(P, P, z.device).data_ptr(),
+        torch.cuda.current_stream(z.device).cuda_stream)
+    _build.check(code, f"y_dft_factored (K2) {layout}")
+    return out
+
+
 def y_dft(z: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """K2 on CUDA tensors (one launch), the plain version on CPU tensors."""
+    """K2 on CUDA tensors (one launch), the plain version on CPU tensors.
+    Two hand-written kernels chosen by shape: the factored kernel
+    (y_dft_factored, layout Y_FACTORED_RB_BY_P[P]) on P = 128 * 2^b, 1 <= b
+    <= 6, counted also in ``y_dft.factored_launches``; y_dft_kernel on the
+    rest (mixed extents P = R * m, m odd > 1, and P <= 128)."""
     if z.device.type == "cpu":
         return y_dft_plain(z, inverse)
     if z.device.type != "cuda":
@@ -458,6 +585,11 @@ def y_dft(z: torch.Tensor, inverse: bool) -> torch.Tensor:
     if not (_radix_ok(P) and y_dft_smem(P) <= SMEM_LIMIT):
         raise ValueError(f"y_dft: P = {P} must be R * m (R a power of two, "
                          f"m odd <= {MAX_ODD}) within shared memory")
+    if y_dft_factored_takes(P):
+        out = y_dft_factored(z, inverse)
+        y_dft.factored_launches += 1
+        y_dft.launches += 1
+        return out
     lib = _lib()
     out = torch.empty_like(z)
     logr, m, tw, twn = _tables(P, z.device)
@@ -471,6 +603,7 @@ def y_dft(z: torch.Tensor, inverse: bool) -> torch.Tensor:
 
 
 y_dft.launches = 0
+y_dft.factored_launches = 0
 
 
 def pair_x_stride(n: int) -> int:
@@ -528,7 +661,7 @@ CLUSTER_SIZES = (8, 16)
 CLUSTER_WIDTHS = (8, 16)
 X_CLUSTER = (8, 8)
 X_CLUSTER_BY_M = {8192: (16, 8)}
-_CLUSTER_N1 = 128
+_N1 = 128        # N1 of the factored kernels (split_factor on 128 * 2^a)
 
 
 def x_dft_cluster_launched(M: int) -> tuple[int, int]:
@@ -549,10 +682,10 @@ class ClusterLayout(NamedTuple):
 
 
 def x_dft_cluster_layout(M: int, G: int, Cw: int) -> ClusterLayout:
-    n2 = M // _CLUSTER_N1
+    n2 = M // _N1
     tile = M * Cw // G
-    smem = 8 * (2 * tile + n2 // 2 + _CLUSTER_N1 // 2)
-    return ClusterLayout(n2, _CLUSTER_N1 // G, n2 // G, tile, smem)
+    smem = 8 * (2 * tile + n2 // 2 + _N1 // 2)
+    return ClusterLayout(n2, _N1 // G, n2 // G, tile, smem)
 
 
 def x_dft_cluster_takes(M: int, G: int | None = None,
@@ -562,9 +695,9 @@ def x_dft_cluster_takes(M: int, G: int | None = None,
     one block's shared memory."""
     if G is None or Cw is None:
         G, Cw = x_dft_cluster_launched(M)
-    n2 = M // _CLUSTER_N1
+    n2 = M // _N1
     return (G in CLUSTER_SIZES and Cw in CLUSTER_WIDTHS
-            and M == _CLUSTER_N1 * n2 and n2 >= G and n2 & (n2 - 1) == 0
+            and M == _N1 * n2 and n2 >= G and n2 & (n2 - 1) == 0
             and x_dft_cluster_layout(M, G, Cw).smem <= SMEM_LIMIT)
 
 
@@ -600,7 +733,7 @@ def x_dft_cluster_emulated(z: torch.Tensor, inverse: bool, G: int, Cw: int,
     out = torch.zeros_like(c)
     loads = torch.zeros((M, P), dtype=torch.int64)
     stores = torch.zeros((M, P), dtype=torch.int64)
-    ia, ib = torch.arange(n2 * na), torch.arange(_CLUSTER_N1 * nb)
+    ia, ib = torch.arange(n2 * na), torch.arange(_N1 * nb)
 
     def load(buf, brow, bcol, grow, col, c0):
         ok = c0 + col < P
@@ -629,21 +762,21 @@ def x_dft_cluster_emulated(z: torch.Tensor, inverse: bool, G: int, Cw: int,
             if not inverse:
                 buf = torch.zeros((n2, na), dtype=c.dtype)
                 p, a = ia // na, ia % na
-                load(buf, p, a, _CLUSTER_N1 * p + r1 + a // Cw, a % Cw, c0)
+                load(buf, p, a, _N1 * p + r1 + a // Cw, a % Cw, c0)
                 dif(buf, bra)
                 if stage_a:
                     n1, k2 = r1 + a // Cw, bra[p]
-                    store(buf[p, a] * wm[n1 * k2], _CLUSTER_N1 * k2 + n1,
+                    store(buf[p, a] * wm[n1 * k2], _N1 * k2 + n1,
                           a % Cw, c0)
             else:
-                buf = torch.zeros((_CLUSTER_N1, nb), dtype=c.dtype)
+                buf = torch.zeros((_N1, nb), dtype=c.dtype)
                 pp, b = ib // nb, ib % nb
                 k2 = bra[r2 + b // Cw]
-                load(buf, pp, b, _CLUSTER_N1 * k2 + brb[pp], b % Cw, c0)
+                load(buf, pp, b, _N1 * k2 + brb[pp], b % Cw, c0)
                 dit(buf, brb)
                 if stage_a:
                     store(buf[pp, b] * wm[pp * k2].conj(),
-                          _CLUSTER_N1 * k2 + pp, b % Cw, c0)
+                          _N1 * k2 + pp, b % Cw, c0)
             first.append(buf)
         if stage_a:
             continue
@@ -655,11 +788,11 @@ def x_dft_cluster_emulated(z: torch.Tensor, inverse: bool, G: int, Cw: int,
                 rank, pl, a = j // (l2 * na), (j // na) % l2, j % na
                 n1 = rank * l1 + a // Cw
                 v = first[rank, r2 + pl, a] * wm[n1 * bra[r2 + pl]]
-                buf = torch.zeros((_CLUSTER_N1, nb), dtype=c.dtype)
+                buf = torch.zeros((_N1, nb), dtype=c.dtype)
                 buf[n1, pl * Cw + a % Cw] = v
                 dif(buf, brb)
                 pp, b = ib // nb, ib % nb
-                store(buf[pp, b], _CLUSTER_N1 * bra[r2 + b // Cw] + brb[pp],
+                store(buf[pp, b], _N1 * bra[r2 + b // Cw] + brb[pp],
                       b % Cw, c0)
             else:
                 rank, nl, b = j // (l1 * nb), (j // nb) % l1, j % nb
@@ -669,7 +802,7 @@ def x_dft_cluster_emulated(z: torch.Tensor, inverse: bool, G: int, Cw: int,
                 buf[p, nl * Cw + b % Cw] = v
                 dit(buf, bra)
                 p, a = ia // na, ia % na
-                store(buf[p, a] / M, _CLUSTER_N1 * p + r1 + a // Cw, a % Cw,
+                store(buf[p, a] / M, _N1 * p + r1 + a // Cw, a % Cw,
                       c0)
     return _planar(out, z.dtype), loads, stores
 
@@ -744,7 +877,7 @@ def x_dft_cluster_occupancy(M: int, layout: tuple, device: int) -> int:
     count = ctypes.c_int(0)
     with torch.cuda.device(device):
         code = _lib().qg_x_dft_cluster_occupancy(
-            (M // _CLUSTER_N1).bit_length() - 1, G.bit_length() - 1,
+            (M // _N1).bit_length() - 1, G.bit_length() - 1,
             Cw.bit_length() - 1, ctypes.byref(count))
     _build.check(code, f"x_dft cluster occupancy {layout} at M = {M}")
     return count.value
@@ -780,7 +913,7 @@ def x_dft_cluster(z: torch.Tensor, inverse: bool, layout: tuple | None = None,
                            f"cluster of layout {(G, Cw)} at M = {M}")
     out = torch.empty_like(z)
     code = _lib().qg_x_dft_cluster_launch(
-        z.data_ptr(), out.data_ptr(), P, (M // _CLUSTER_N1).bit_length() - 1,
+        z.data_ptr(), out.data_ptr(), P, (M // _N1).bit_length() - 1,
         G.bit_length() - 1, Cw.bit_length() - 1, int(inverse), int(stage_a),
         _twiddles(M, M, z.device).data_ptr(),
         torch.cuda.current_stream(z.device).cuda_stream)
