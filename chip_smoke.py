@@ -15,11 +15,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    layer; K2 on (2, 333, P) at P = 256 ... 8192 (its factored kernel, a
    ragged last block in every layout with Rb > 1, the factored count
    checked) and P = 384, 2432 (y_dft_kernel); K2's factored kernel in each
-   layout (Rb rows, threads) of K2_SWEEP at 2048^2, 4096^2 and 8192^2, with
-   the blocks an SM holds and ms each way in turns beside torch.fft.fft
-   along y and a copy of the field; K2, K4 (x-DFT, both ways, and its
-   cluster kernel's first half, stage A) and K5 (symbols + inverse x-DFT)
-   at (2, 4096, 4096) and
+   layout (Rb rows, threads, streaming form) of K2_SWEEP at 2048^2, 4096^2
+   and 8192^2, with the blocks an SM holds and ms each way in turns beside
+   torch.fft.fft along y and a copy of the field; K2, K4 (x-DFT, both ways,
+   and its cluster kernel's first half, stage A) and K5 (symbols + inverse
+   x-DFT) at (2, 4096, 4096) and
    (2, 8192, 8192), K4 also at (2, 8192, 252) (a ragged last cluster tile)
    and (2, 6144, 2048) (x_dft_kernel's mixed extent); K4's cluster kernel
    in every layout (G, Cw) that fits at 4096^2 and 8192^2, with
@@ -700,11 +700,17 @@ def phase_k4_sweep(dev, card, sizes=(4096, 8192), reps=20) -> dict:
     return out
 
 
-# K2's factored kernel: the layouts (Rb rows a block, threads) timed at each
-# n^2, the launched one (dft_kernels.Y_FACTORED_RB_BY_P) among them.
-K2_SWEEP = {2048: ((2, 256), (4, 256), (4, 512)),
-            4096: ((1, 256), (2, 256), (2, 512)),
-            8192: ((1, 256), (1, 512), (2, 512))}
+# K2's factored kernel: the layouts (Rb rows a block, threads, streaming
+# form) timed at each n^2, the launched one (dft_kernels.Y_FACTORED_RB_BY_P)
+# among them.
+K2_SWEEP = {2048: ((2, 256, False), (4, 256, False), (1, 256, True)),
+            4096: ((1, 256, False), (2, 256, False), (1, 256, True)),
+            8192: ((1, 256, False), (1, 256, True), (1, 512, True))}
+
+
+def k2_layout_name(layout) -> str:
+    rb, threads, stream = layout
+    return f"Rb={rb} threads={threads}" + (" streaming" if stream else "")
 
 
 def phase_k2_sweep(dev, card, reps=20) -> dict:
@@ -723,7 +729,7 @@ def phase_k2_sweep(dev, card, reps=20) -> dict:
         want = [y_dft_plain(x, inverse) for inverse in (False, True)]
         rows, calls = {}, {}
         for lay in layouts:
-            key = "Rb={} threads={}".format(*lay)
+            key = k2_layout_name(lay)
             occ = y_dft_factored_occupancy(n, lay, dev.index)
             rows[key] = dict(smem=y_dft_factored_layout(n, *lay).smem,
                              blocks_per_sm=occ)
@@ -754,8 +760,7 @@ def phase_k2_sweep(dev, card, reps=20) -> dict:
             else:
                 refs[key] = sum(r) / 2
         emit("k2_sweep", card=card, grid=[n, n],
-             launched="Rb={} threads={}".format(
-                 *dft_kernels.Y_FACTORED_RB_BY_P[n]),
+             launched=k2_layout_name(dft_kernels.Y_FACTORED_RB_BY_P[n]),
              layouts=rows, library_ms=refs["library"], reference_ms=refs,
              bound_ms=bound("K2", n, n)[0])
         out[n] = rows
@@ -1961,7 +1966,7 @@ def main() -> None:
         "factored_launches": sum(run["K2 factored"]
                                  for run in launches.values()),
         "kernels": {"y_dft_factored_kernel": "P = 128 * 2^b, 256 <= P <= "
-                    "8192 (layouts (Rb, threads): {})".format(
+                    "8192 (layouts (Rb, threads, streaming): {})".format(
                         dft_kernels.Y_FACTORED_RB_BY_P),
                     "y_dft_kernel": "mixed extents, P <= 128"},
         "sweep_8192": k2_sweep[8192]}

@@ -184,7 +184,8 @@ def test_y_dft_routes_and_factored_kernel(dev, P, rows):
         n[0] + 2, n[1] + 2 * factored)
     if not factored:
         return
-    for layout in {(1, 256), (2, 512), (4, 256),
+    for layout in {(1, 256, False), (2, 512, False), (4, 256, False),
+                   (1, 256, True), (1, 512, True),
                    dft_kernels.Y_FACTORED_RB_BY_P[P]}:
         if y_dft_factored_takes(P, layout):
             for inverse in (False, True):
@@ -205,7 +206,10 @@ def test_factored_wrapper_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):                 # a mixed extent
         y_dft_factored(torch.zeros((2, 8, 384), device=dev), False)
     with pytest.raises(ValueError):                 # Rb not a power of two
-        y_dft_factored(x, False, (3, 256))
+        y_dft_factored(x, False, (3, 256, False))
+    with pytest.raises(ValueError):                 # not 16-byte aligned
+        y_dft_factored(torch.zeros(2 * 8 * 512 + 1, device=dev)[1:].view(
+            2, 8, 512), False, (1, 256, True))
 
 
 COUNTED = (fused_step, y_dft, pair_x_symbols, x_dft, x_symbols_inverse,
