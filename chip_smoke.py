@@ -15,9 +15,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    layer; K2 on (2, 333, P) at P = 256 ... 8192 (its factored kernel, a
    ragged last block in every layout with Rb > 1, the factored count
    checked) and P = 384, 2432 (y_dft_kernel); K2's factored kernel in each
-   layout (Rb rows, threads, streaming form) of K2_SWEEP at 2048^2, 4096^2
-   and 8192^2, with the blocks an SM holds and ms each way in turns beside
-   torch.fft.fft along y and a copy of the field; K2, K4 (x-DFT, both ways,
+   layout (Rb rows, threads) of K2_SWEEP at n^2, n = 256 ... 8192, with the
+   blocks an SM holds and ms each way in turns beside y_dft_kernel (the
+   kernel it replaces there), torch.fft.fft along y and a copy of the
+   field, host-launched and replayed from a CUDA graph; K2, K4 (x-DFT, both ways,
    and its cluster kernel's first half, stage A) and K5 (symbols + inverse
    x-DFT) at (2, 4096, 4096) and
    (2, 8192, 8192), K4 also at (2, 8192, 252) (a ragged last cluster tile)
@@ -134,7 +135,7 @@ from tpu_qg_torch.ops.dft_kernels import (
     x_dft_plain, x_dft_stage_a, x_dft_stage_a_plain, x_fwd_symbols_offset,
     x_fwd_symbols_offset_plain, x_symbols_inverse, x_symbols_inverse_plain,
     y_dft, y_dft_factored, y_dft_factored_layout, y_dft_factored_occupancy,
-    y_dft_factored_takes, y_dft_plain)
+    y_dft_plain, y_dft_whole_row)
 from tpu_qg_torch.ops.mg_kernels import (mg_prolong_smooth,
                                          mg_prolong_smooth_plain, mg_smooth,
                                          mg_smooth_plain)
@@ -300,6 +301,27 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Mean device ms per call over ``reps`` calls captured in one CUDA
+    graph and replayed, by CUDA events: the device's time without the
+    host's cost of each launch, which bounds time_ms on a small field."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
 def free_memory() -> None:
     """Drop the plain versions' cached tables and the allocator's cache."""
     dft_kernels._symbols.cache_clear()
@@ -370,16 +392,21 @@ def phase_build() -> None:
     info = _build.build_info()
     lines = info["ptxas"].splitlines()
     regs = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
-    # K4's cluster kernel: each instance's registers, shared memory, spills.
-    cluster, entry = {}, None
+    # K4's cluster kernel and K2's factored kernel: each instance's
+    # registers, shared memory, spills.
+    named = {"x_dft_cluster_kernel": {}, "y_dft_factored_kernel": {}}
+    entry = None
     for ln in lines:
         if "Compiling entry function" in ln:
-            entry = ln.split("'")[1] if "x_dft_cluster_kernel" in ln else None
+            entry = next((k for k in named if k in ln), None)
+            name = ln.split("'")[1] if entry else None
         elif entry and ("registers" in ln or "spill" in ln):
-            cluster.setdefault(entry, []).append(ln.split(":", 1)[-1].strip())
+            named[entry].setdefault(name, []).append(
+                ln.split(":", 1)[-1].strip())
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=info["seconds"], library=info["path"], ptxas=regs,
-         k4_cluster_ptxas=cluster)
+         k4_cluster_ptxas=named["x_dft_cluster_kernel"],
+         k2_factored_ptxas=named["y_dft_factored_kernel"])
 
 
 class Errors:
@@ -545,7 +572,8 @@ K2_RAGGED_ROWS = 333
 
 def check_k2_extents(errs, dev, rng) -> None:
     """K2 against its plain version both ways at each of K2_EXTENTS, with
-    the factored kernel's count rising by 2 exactly where it takes P."""
+    the factored kernel's count rising by 2 exactly where y_dft launches
+    it (dft_kernels.Y_FACTORED_RB_BY_P)."""
     for P in K2_EXTENTS:
         x = torch.as_tensor(rng.standard_normal((2, K2_RAGGED_ROWS, P)),
                             dtype=torch.float32, device=dev)
@@ -555,7 +583,8 @@ def check_k2_extents(errs, dev, rng) -> None:
                 "inverse" if inverse else "forward"),
                 y_dft(x, inverse), y_dft_plain(x, inverse))
         torch.cuda.synchronize()
-        if y_dft.factored_launches - n != 2 * y_dft_factored_takes(P):
+        if y_dft.factored_launches - n != 2 * (
+                P in dft_kernels.Y_FACTORED_RB_BY_P):
             raise AssertionError(f"K2 at P = {P}: {y_dft.factored_launches - n}"
                                  f" factored launches")
 
@@ -700,27 +729,30 @@ def phase_k4_sweep(dev, card, sizes=(4096, 8192), reps=20) -> dict:
     return out
 
 
-# K2's factored kernel: the layouts (Rb rows a block, threads, streaming
-# form) timed at each n^2, the launched one (dft_kernels.Y_FACTORED_RB_BY_P)
-# among them.
-K2_SWEEP = {2048: ((2, 256, False), (4, 256, False), (1, 256, True)),
-            4096: ((1, 256, False), (2, 256, False), (1, 256, True)),
-            8192: ((1, 256, False), (1, 256, True), (1, 512, True))}
+# K2's factored kernel: the layouts (Rb rows a block, threads) timed at
+# each n^2, the launched one (dft_kernels.Y_FACTORED_RB_BY_P) among them.
+K2_SWEEP = {256: ((1, 256), (2, 256), (4, 256)),
+            512: ((1, 256), (2, 256), (4, 256)),
+            1024: ((1, 256), (2, 256), (4, 256)),
+            2048: ((2, 256), (4, 256), (2, 512)),
+            4096: ((1, 256), (2, 256), (2, 512)),
+            8192: ((1, 256), (1, 512))}
 
 
 def k2_layout_name(layout) -> str:
-    rb, threads, stream = layout
-    return f"Rb={rb} threads={threads}" + (" streaming" if stream else "")
+    return "Rb={} threads={}".format(*layout)
 
 
 def phase_k2_sweep(dev, card, reps=20) -> dict:
     """K2's factored kernel in each layout of K2_SWEEP at n^2: its bytes of
     shared memory, the blocks an SM holds at once
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), its largest error
-    against the plain version both ways, and CUDA-event ms a launch each
-    way, the layouts in turns (in order, then in reverse), beside one
-    torch.fft.fft along y of the same complex64 field and a torch copy of
-    the field. Returns the entries by grid."""
+    against the plain version both ways, and ms a launch each way, the
+    layouts in turns (in order, then in reverse), beside y_dft_kernel (a
+    block a whole row, the kernel it replaces), one torch.fft.fft along y
+    of the same complex64 field and a torch copy of the field: host-launched
+    (time_ms) and replayed from a CUDA graph (graph_ms). Returns the entries
+    by grid."""
     rng = np.random.default_rng(SEED + 10)
     out = {}
     for n, layouts in K2_SWEEP.items():
@@ -745,25 +777,36 @@ def phase_k2_sweep(dev, card, reps=20) -> dict:
                 calls[(key, inverse)] = (
                     lambda lay=lay, inverse=inverse:
                     y_dft_factored(x, inverse, lay))
+        for inverse in (False, True):
+            calls[("y_dft_kernel", inverse)] = (
+                lambda inverse=inverse: y_dft_whole_row(x, inverse))
         del want
         c64 = torch.complex(x[0], x[1])
         calls[("library", False)] = lambda: torch.fft.fft(c64, dim=1)
         calls[("copy", False)] = lambda: x.clone()
-        runs = {k: [] for k in calls}
+        runs = {k: ([], []) for k in calls}
         for k in list(calls) + list(calls)[::-1]:
-            runs[k].append(time_ms(calls[k], reps))
+            runs[k][0].append(time_ms(calls[k], reps))
+            runs[k][1].append(graph_ms(calls[k], reps))
         refs = {}
-        for (key, inverse), r in runs.items():
+        for (key, inverse), (r, g) in runs.items():
+            way = "inverse_" if inverse else ""
             if key in rows:
-                rows[key]["inverse_ms" if inverse else "ms"] = sum(r) / 2
-                rows[key]["inverse_runs_ms" if inverse else "runs_ms"] = r
+                rows[key].update({f"{way}ms": sum(r) / 2,
+                                  f"{way}graph_ms": sum(g) / 2,
+                                  f"{way}runs_ms": r,
+                                  f"{way}graph_runs_ms": g})
             else:
-                refs[key] = sum(r) / 2
+                name = key + (" inverse" if inverse else "")
+                refs[name] = sum(r) / 2
+                refs[name + " graph"] = sum(g) / 2
         emit("k2_sweep", card=card, grid=[n, n],
-             launched=k2_layout_name(dft_kernels.Y_FACTORED_RB_BY_P[n]),
+             launched=(k2_layout_name(dft_kernels.Y_FACTORED_RB_BY_P[n])
+                       if n in dft_kernels.Y_FACTORED_RB_BY_P else
+                       "y_dft_kernel"),
              layouts=rows, library_ms=refs["library"], reference_ms=refs,
              bound_ms=bound("K2", n, n)[0])
-        out[n] = rows
+        out[n] = dict(layouts=rows, reference_ms=refs)
         del x, c64, calls
         free_memory()
     return out
@@ -1965,10 +2008,11 @@ def main() -> None:
     extra["K2"] = {
         "factored_launches": sum(run["K2 factored"]
                                  for run in launches.values()),
-        "kernels": {"y_dft_factored_kernel": "P = 128 * 2^b, 256 <= P <= "
-                    "8192 (layouts (Rb, threads, streaming): {})".format(
+        "kernels": {"y_dft_factored_kernel": "P in {} (layouts (Rb, "
+                    "threads): {})".format(
+                        sorted(dft_kernels.Y_FACTORED_RB_BY_P),
                         dft_kernels.Y_FACTORED_RB_BY_P),
-                    "y_dft_kernel": "mixed extents, P <= 128"},
+                    "y_dft_kernel": "every other extent"},
         "sweep_8192": k2_sweep[8192]}
     sharded_ms = time_sharded_kernels(turb, pod, dev, card)
     extra["K12"] = {"mesh_step_ms": mesh_ms}

@@ -175,7 +175,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 @pytest.mark.parametrize("rows", [37, 64])
 def test_y_dft_routes_and_factored_kernel(dev, P, rows):
     x = _fields(rows, P, dev, seed=P + rows)[1]
-    factored = y_dft_factored_takes(P)
+    factored = P in dft_kernels.Y_FACTORED_RB_BY_P
     n = (y_dft.launches, y_dft.factored_launches)
     for inverse in (False, True):
         assert _rel(y_dft(x, inverse), y_dft_plain(x, inverse)) <= 1e-5
@@ -184,9 +184,8 @@ def test_y_dft_routes_and_factored_kernel(dev, P, rows):
         n[0] + 2, n[1] + 2 * factored)
     if not factored:
         return
-    for layout in {(1, 256, False), (2, 512, False), (4, 256, False),
-                   (1, 256, True), (1, 512, True),
-                   dft_kernels.Y_FACTORED_RB_BY_P[P]}:
+    for layout in {(1, 256), (2, 256), (4, 256), (8, 256), (1, 512),
+                   (2, 512), dft_kernels.Y_FACTORED_RB_BY_P[P]}:
         if y_dft_factored_takes(P, layout):
             for inverse in (False, True):
                 assert _rel(y_dft_factored(x, inverse, layout),
@@ -206,10 +205,9 @@ def test_factored_wrapper_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):                 # a mixed extent
         y_dft_factored(torch.zeros((2, 8, 384), device=dev), False)
     with pytest.raises(ValueError):                 # Rb not a power of two
-        y_dft_factored(x, False, (3, 256, False))
-    with pytest.raises(ValueError):                 # not 16-byte aligned
-        y_dft_factored(torch.zeros(2 * 8 * 512 + 1, device=dev)[1:].view(
-            2, 8, 512), False, (1, 256, True))
+        y_dft_factored(x, False, (3, 256))
+    with pytest.raises(ValueError):                 # no such block size
+        y_dft_factored(x, False, (2, 128))
 
 
 COUNTED = (fused_step, y_dft, pair_x_symbols, x_dft, x_symbols_inverse,

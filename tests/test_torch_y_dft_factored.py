@@ -65,35 +65,29 @@ def test_takes_the_powers_of_two_from_256_to_8192():
 
 
 def test_layouts_fit_shared_memory():
-    """Every launched layout (Rb, threads, stream) fits one block's shared
-    memory, the streaming form on every extent too; a layout outside the
-    block sizes, with Rb not a power of two, or streaming more than one row
-    a block, is refused."""
-    assert set(Y_FACTORED_RB_BY_P) == set(POWERS)
-    for P, (rb, threads, stream) in Y_FACTORED_RB_BY_P.items():
-        lay = y_dft_factored_layout(P, rb, threads, stream)
-        assert lay == (P // 128, rb, threads, stream, lay.smem)
+    """Every launched layout (Rb, threads) fits one block's shared memory;
+    a layout outside the block sizes, with Rb not a power of two, or too
+    large for a block, is refused."""
+    assert set(Y_FACTORED_RB_BY_P) <= set(POWERS)
+    for P, (rb, threads) in Y_FACTORED_RB_BY_P.items():
+        lay = y_dft_factored_layout(P, rb, threads)
+        assert lay == (P // 128, rb, threads, lay.smem)
         assert threads in Y_FACTORED_THREADS
         assert lay.smem <= SMEM_LIMIT
-        assert y_dft_factored_takes(P, (rb, threads, stream))
-        assert y_dft_factored_takes(P, (1, threads, True))
-    assert not y_dft_factored_takes(2048, (3, 256, False))
-    assert not y_dft_factored_takes(2048, (2, 128, False))
-    assert not y_dft_factored_takes(2048, (2, 256, True))
-    assert not y_dft_factored_takes(8192, (4, 256, False))   # 278 KB
+        assert y_dft_factored_takes(P, (rb, threads))
+    assert not y_dft_factored_takes(2048, (3, 256))
+    assert not y_dft_factored_takes(2048, (2, 128))
+    assert not y_dft_factored_takes(8192, (4, 256))   # 278 KB
 
 
 def test_layout_matches_the_kernel_at_8192():
     """P = 8192, Rb = 1: 64 p-rows of 135 float2 and the 32-, 64-, 64- and
     128-entry tables, 69.75 KB, the figure the kernel's source note gives:
-    three blocks an SM; the streaming form adds a 64 KB staged row and its
-    8-byte mbarrier: one block an SM."""
+    three blocks an SM."""
     lay = y_dft_factored_layout(8192, 1)
     assert lay.smem == 8 * (64 * 135 + 32 + 64 + 64 + 128) == 71424
     assert 3 * (lay.smem + SMEM_RESERVED) <= SM_SMEM
-    stream = y_dft_factored_layout(8192, 1, 256, True)
-    assert stream.smem == 71424 + 65536 + 8
-    assert 2 * (stream.smem + SMEM_RESERVED) > SM_SMEM
+    assert 4 * (lay.smem + SMEM_RESERVED) > SM_SMEM
 
 
 @pytest.mark.parametrize("P", [384, 2048])

@@ -302,14 +302,11 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b, bool conj_b) {
 // elements, read through in(pos, col) into registers and written through
 // out(pos, col, value), so that a pass can read device memory or a peer's
 // shared memory and write either. A warp takes consecutive columns of a
-// row. The butterflies and twiddles are group_pass's (fft_device.cuh).
-// kShareTw: the twiddle index of element j at stage q written as
-// (g mod 2^lo) + (j mod 2^q) 2^lo (the same value), so that the compiler
-// loads each of a group's 2^K - 1 distinct twiddles once, not once a
-// butterfly (the factored K2 turns it on; K4's cluster kernel leaves it
-// off, untried there).
-template <int K, bool kInverse, int kThreads, bool kShareTw, class In,
-          class Out>
+// row. The butterflies and twiddles are group_pass's (fft_device.cuh);
+// element j's twiddle index at stage q is written as (g mod 2^lo) +
+// (j mod 2^q) 2^lo, so that the compiler loads each of a group's 2^K - 1
+// distinct twiddles once, not once a butterfly.
+template <int K, bool kInverse, int kThreads, class In, class Out>
 __device__ __forceinline__ void il_pass(int lognc, int logn, int lo,
                                         const float2* tw, In in, Out out) {
   constexpr int GS = 1 << K;
@@ -330,8 +327,7 @@ __device__ __forceinline__ void il_pass(int lognc, int logn, int lo,
       for (int j = 0; j < GS; ++j) {
         if (j & (1 << q)) continue;
         const int k = j + (1 << q);
-        const int pos = kShareTw ? (g & (s - 1)) + ((j & ((1 << q) - 1)) << lo)
-                                 : (base + j * s) & ((1 << lh) - 1);
+        const int pos = (g & (s - 1)) + ((j & ((1 << q) - 1)) << lo);
         const float2 w = tw[pos << tws];
         const float2 u = x[j], v = x[k];
         if (!kInverse) {
@@ -349,36 +345,29 @@ __device__ __forceinline__ void il_pass(int lognc, int logn, int lo,
   }
 }
 
-template <bool kInverse, int kThreads, bool kShareTw, class In, class Out>
+template <bool kInverse, int kThreads, class In, class Out>
 __device__ __forceinline__ void il_pass_k(int k, int lognc, int logn, int lo,
                                           const float2* tw, In in, Out out) {
   switch (k) {
-    case 4:
-      return il_pass<4, kInverse, kThreads, kShareTw>(lognc, logn, lo, tw, in,
-                                                      out);
-    case 3:
-      return il_pass<3, kInverse, kThreads, kShareTw>(lognc, logn, lo, tw, in,
-                                                      out);
-    case 2:
-      return il_pass<2, kInverse, kThreads, kShareTw>(lognc, logn, lo, tw, in,
-                                                      out);
+    case 4: return il_pass<4, kInverse, kThreads>(lognc, logn, lo, tw, in, out);
+    case 3: return il_pass<3, kInverse, kThreads>(lognc, logn, lo, tw, in, out);
+    case 2: return il_pass<2, kInverse, kThreads>(lognc, logn, lo, tw, in, out);
     default:
-      return il_pass<1, kInverse, kThreads, kShareTw>(lognc, logn, lo, tw, in,
-                                                      out);
+      return il_pass<1, kInverse, kThreads>(lognc, logn, lo, tw, in, out);
   }
 }
 
 // Radix-2 DIF (forward: natural in, bit-reversed out) or inverse DIT
 // (bit-reversed in, natural out, unscaled) of 2^lognc columns of length
-// 2^logn by a block of kThreads threads (il_pass, kShareTw), in passes of at
-// most kGroupStages stages: the first as long as leaves the rest at least 2
+// 2^logn by a block of kThreads threads (il_pass), in passes of at most
+// kGroupStages stages: the first as long as leaves the rest at least 2
 // each (64 points: 4 + 2, 128: 4 + 3, 32: 3 + 2), so its loads are few,
 // long batches. The first pass reads through in(pos, col), the last writes
 // through out(pos, col, value); between passes element (pos, col) sits in
 // shared memory at at(pos, col), with a barrier after each write.
 // after_first() runs after the first pass. No barrier after the last pass.
-template <int kThreads, bool kInverse, bool kShareTw, class In, class Out,
-          class At, class Mid>
+template <int kThreads, bool kInverse, class In, class Out, class At,
+          class Mid>
 __device__ void il_fft_at(int lognc, int logn, const float2* tw, In in,
                           Out out, At at, Mid after_first) {
   auto rd = [=](int pos, int col) { return *at(pos, col); };
@@ -390,13 +379,13 @@ __device__ void il_fft_at(int lognc, int logn, const float2* tw, In in,
                          : (logn - done + left - 1) / left;
     const int lo = kInverse ? done : logn - done - k;
     if (p == 0 && left == 1) {
-      il_pass_k<kInverse, kThreads, kShareTw>(k, lognc, logn, lo, tw, in, out);
+      il_pass_k<kInverse, kThreads>(k, lognc, logn, lo, tw, in, out);
     } else if (p == 0) {
-      il_pass_k<kInverse, kThreads, kShareTw>(k, lognc, logn, lo, tw, in, wr);
+      il_pass_k<kInverse, kThreads>(k, lognc, logn, lo, tw, in, wr);
     } else if (left == 1) {
-      il_pass_k<kInverse, kThreads, kShareTw>(k, lognc, logn, lo, tw, rd, out);
+      il_pass_k<kInverse, kThreads>(k, lognc, logn, lo, tw, rd, out);
     } else {
-      il_pass_k<kInverse, kThreads, kShareTw>(k, lognc, logn, lo, tw, rd, wr);
+      il_pass_k<kInverse, kThreads>(k, lognc, logn, lo, tw, rd, wr);
     }
     if (p == 0) after_first();
     if (left > 1) __syncthreads();
@@ -409,7 +398,7 @@ __device__ void il_fft_at(int lognc, int logn, const float2* tw, In in,
 template <bool kInverse, class In, class Out, class Mid>
 __device__ void il_fft(float2* buf, int lognc, int stride, int logn,
                        const float2* tw, In in, Out out, Mid after_first) {
-  il_fft_at<kClusterThreads, kInverse, false>(
+  il_fft_at<kClusterThreads, kInverse>(
       lognc, logn, tw, in, out,
       [=](int pos, int col) { return buf + pos * stride + col; }, after_first);
 }
@@ -561,9 +550,8 @@ x_dft_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
 //            inverse DIT along q, its last pass times conj(W_P^(n1 k2));
 //            N2-point inverse DIT along p, its last pass writing
 //            x[N1 n2 + n1] / P to device memory.
-// Radix-2 passes of up to 4 stages run in registers (il_pass, each group's
-// 2^K - 1 distinct twiddles loaded once: kShareTw): 8192 takes 4 + 2
-// stages in stage A and 4 + 3 in stage B. The stage tables (W_N2^k,
+// Radix-2 passes of up to 4 stages run in registers (il_pass): 8192 takes
+// 4 + 2 stages in stage A and 4 + 3 in stage B. The stage tables (W_N2^k,
 // N2/2 entries; W_128^k, 64) and the inter-stage twiddle's two factors
 // (W_P^(j mod 64), 64 entries, and W_P^(64 floor(j / 64)), P/64; j = n1 k2 <
 // P) are read once a block from the P-entry table of W_P^j built in float64
@@ -574,84 +562,44 @@ x_dft_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
 // SM and 512-thread blocks two. The grid is ceil(rows / Rb) blocks;
 // rows past the field (a ragged last block) are read from the last row and
 // not written.
-//
-// The streaming form (kStream, Rb = 1): a persistent block (as many as the
-// card holds) walks over rows blockIdx.x, + gridDim.x, ...; one thread
-// issues a 1-D bulk copy (cp.async.bulk, completion on an mbarrier) of the
-// next row's two planes into a staging buffer as soon as the block has read
-// the current row out of it, so that the load overlaps the transform. The
-// staged row (8 P bytes) comes on top: one block an SM at P = 8192.
-// Measured (chip_smoke.py k2_sweep, PERF.md): faster than the plain form
-// both ways only at 4096^2, where y_dft launches it.
 // ---------------------------------------------------------------------------
 constexpr int kYRowStride = 135;   // float2 a p-row: y_fac_at(0, 127) = 134
 
 // Blocks an SM that the register budget admits: 256-thread blocks three
-// (80 registers a thread), 512-thread blocks two (64); the streaming form
-// 128 registers a thread.
-constexpr int y_min_blocks(int threads, bool stream) {
-  return stream ? 512 / threads : threads == 256 ? 3 : 2;
-}
+// (80 registers a thread), 512-thread blocks two (64).
+constexpr int y_min_blocks(int threads) { return threads == 256 ? 3 : 2; }
 
 __device__ __forceinline__ int y_fac_at(int prow, int q) {
   return prow * kYRowStride + q + (q >> 4);
 }
 
-// The streaming form's bulk copies: an mbarrier in shared memory counts the
-// bytes of a 1-D cp.async.bulk from device memory (the TMA engine; no
-// tensor map, the rows are contiguous).
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n\t"
-               "fence.mbarrier_init.release.cluster;"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-// Thread 0 only: the two planes of row `row` of a planar field into dst
-// (P floats each), completing on bar; the caller has made every earlier
-// read of dst happen before (a block barrier).
-__device__ __forceinline__ void bulk_row(float* dst, const float* src,
-                                         size_t plane, int row, int P,
-                                         unsigned long long* bar) {
-  const unsigned bytes = static_cast<unsigned>(P) * 4u;
-  unsigned long long state;
-  asm volatile("fence.proxy.async.shared::cta;\n\t"
-               "mbarrier.arrive.expect_tx.shared::cta.b64 %0, [%1], %2;"
-               : "=l"(state) : "r"(smem_addr(bar)), "r"(2u * bytes)
-               : "memory");
-  for (int k = 0; k < 2; ++k) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];"
-        :: "r"(smem_addr(dst + k * P)),
-           "l"(src + k * plane + (size_t)row * P), "r"(bytes),
-           "r"(smem_addr(bar)) : "memory");
-  }
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  asm volatile("{\n\t.reg .pred done;\n\t"
-               "WAIT_%=:\n\t"
-               "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n\t"
-               "@!done bra WAIT_%=;\n\t}"
-               :: "r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-
-// One task of the factored K2: rows row0 .. row0 + nrow - 1 (nrow <= 2^logrb)
-// of the planar field, element y of row r of the task read through
-// ld(r P + y), written to out. loaded() runs after a barrier that follows
-// the task's last ld(); no barrier after the task's last read of S.
-template <int kThreads, bool kInverse, class Ld, class Loaded>
-__device__ __forceinline__ void y_fac_task(
-    Ld ld, float* __restrict__ out, size_t plane, int row0, int nrow,
-    int logn2, int logrb, float2* S, const float2* twa, const float2* twb,
-    const float2* tlo, const float2* thi, Loaded loaded) {
+template <int kThreads, bool kInverse>
+__global__ void __launch_bounds__(kThreads, y_min_blocks(kThreads))
+y_dft_factored_kernel(const float* __restrict__ in, float* __restrict__ out,
+                      int rows, int logn2, int logrb,
+                      const float2* __restrict__ wm) {
+  extern __shared__ float smem[];
+  float2* S = reinterpret_cast<float2*>(smem);
   const int n2 = 1 << logn2, logp = logn2 + 7, P = 1 << logp;
+  float2* twa = S + (n2 << logrb) * kYRowStride;     // W_N2^k, k < N2 / 2
+  float2* twb = twa + n2 / 2;                        // W_128^k, k < 64
+  float2* tlo = twb + 64;                            // W_P^j, j < 64
+  float2* thi = tlo + 64;                            // W_P^(64 j), j < P / 64
+  for (int k = threadIdx.x; k < n2 / 2; k += kThreads) twa[k] = wm[k << 7];
+  for (int k = threadIdx.x; k < 64; k += kThreads) {
+    twb[k] = wm[k << logn2];
+    tlo[k] = wm[k];
+  }
+  for (int k = threadIdx.x; k < 2 * n2; k += kThreads) thi[k] = wm[k << 6];
+  __syncthreads();
+
+  const size_t plane = (size_t)rows * P;
+  const int row0 = blockIdx.x << logrb;
+  const int nrow = min(1 << logrb, rows - row0);
   const size_t first = (size_t)row0 << logp;
+  auto ld = [=](int e) {                   // element e of the block's rows
+    return make_float2(__ldg(in + first + e), __ldg(in + first + e + plane));
+  };
   auto twiddle = [=](int n1, int k2) {
     const int j = n1 * k2;
     return cmul(thi[j >> 6], tlo[j & 63], false);
@@ -673,7 +621,7 @@ __device__ __forceinline__ void y_fac_task(
   const int count = nrow << logp;
 
   if constexpr (!kInverse) {
-    il_fft_at<kThreads, false, true>(lognc_a, logn2, twa,
+    il_fft_at<kThreads, false>(lognc_a, logn2, twa,
         [=](int n, int col) {     // a row past the field reads the last
           return ld((min(col >> 7, nrow - 1) << logp) | (n << 7) |
                     (col & 127));
@@ -682,8 +630,7 @@ __device__ __forceinline__ void y_fac_task(
           *at_a(p, col) = cmul(v, twiddle(col & 127, bitrev(p, logn2)), false);
         }, at_a, none);
     __syncthreads();
-    loaded();
-    il_fft_at<kThreads, false, true>(lognc_b, 7, twb, rd_b,
+    il_fft_at<kThreads, false>(lognc_b, 7, twb, rd_b,
         [=](int q, int col, float2 v) { *at_b(q, col) = v; }, at_b, none);
     __syncthreads();
     for (int i = threadIdx.x; i < count; i += kThreads) {
@@ -703,15 +650,14 @@ __device__ __forceinline__ void y_fac_task(
       }
     }
     __syncthreads();
-    loaded();
-    il_fft_at<kThreads, true, true>(lognc_b, 7, twb, rd_b,
+    il_fft_at<kThreads, true>(lognc_b, 7, twb, rd_b,
         [=](int q, int col, float2 v) {
           *at_b(q, col) = cmul(v, twiddle(q, bitrev(col & (n2 - 1), logn2)),
                                true);
         }, at_b, none);
     __syncthreads();
     const float scale = 1.0f / static_cast<float>(P);    // exact: P = 2^k
-    il_fft_at<kThreads, true, true>(lognc_a, logn2, twa,
+    il_fft_at<kThreads, true>(lognc_a, logn2, twa,
         [=](int p, int col) { return *at_a(p, col); },
         [=](int n, int col, float2 v) {
           if ((col >> 7) >= nrow) return;
@@ -720,60 +666,6 @@ __device__ __forceinline__ void y_fac_task(
           out[off] = v.x * scale;
           out[off + plane] = v.y * scale;
         }, at_a, none);
-  }
-}
-
-template <int kThreads, bool kInverse, bool kStream>
-__global__ void __launch_bounds__(kThreads, y_min_blocks(kThreads, kStream))
-y_dft_factored_kernel(const float* __restrict__ in, float* __restrict__ out,
-                      int rows, int logn2, int logrb,
-                      const float2* __restrict__ wm) {
-  extern __shared__ float smem[];
-  const int n2 = 1 << logn2, P = n2 << 7;
-  float* T = smem;                                   // streaming: a row staged
-  float2* S = reinterpret_cast<float2*>(smem + (kStream ? 2 * P : 0));
-  float2* twa = S + (n2 << logrb) * kYRowStride;     // W_N2^k, k < N2 / 2
-  float2* twb = twa + n2 / 2;                        // W_128^k, k < 64
-  float2* tlo = twb + 64;                            // W_P^j, j < 64
-  float2* thi = tlo + 64;                            // W_P^(64 j), j < P / 64
-  for (int k = threadIdx.x; k < n2 / 2; k += kThreads) twa[k] = wm[k << 7];
-  for (int k = threadIdx.x; k < 64; k += kThreads) {
-    twb[k] = wm[k << logn2];
-    tlo[k] = wm[k];
-  }
-  for (int k = threadIdx.x; k < 2 * n2; k += kThreads) thi[k] = wm[k << 6];
-  const size_t plane = (size_t)rows * P;
-  if constexpr (!kStream) {
-    __syncthreads();
-    const int row0 = blockIdx.x << logrb;
-    y_fac_task<kThreads, kInverse>(
-        [=](int e) {
-          const size_t off = ((size_t)row0 << (logn2 + 7)) + e;
-          return make_float2(__ldg(in + off), __ldg(in + off + plane));
-        },
-        out, plane, row0, min(1 << logrb, rows - row0), logn2, logrb, S, twa,
-        twb, tlo, thi, [] {});
-  } else {
-    // One row at a time (logrb = 0), rows blockIdx.x, + gridDim.x, ...: the
-    // next row's bulk copy into T runs while this row is transformed.
-    auto* bar = reinterpret_cast<unsigned long long*>(thi + 2 * n2);
-    if (threadIdx.x == 0) {
-      mbar_init(bar);
-      bulk_row(T, in, plane, blockIdx.x, P, bar);
-    }
-    __syncthreads();
-    unsigned parity = 0;
-    for (int row = blockIdx.x; row < rows; row += gridDim.x, parity ^= 1) {
-      mbar_wait(bar, parity);
-      const int next = row + gridDim.x;
-      y_fac_task<kThreads, kInverse>(
-          [=](int e) { return make_float2(T[e], T[P + e]); }, out, plane,
-          row, 1, logn2, 0, S, twa, twb, tlo, thi, [=] {
-            if (threadIdx.x == 0 && next < rows)
-              bulk_row(T, in, plane, next, P, bar);
-          });
-      __syncthreads();                      // the next row overwrites S
-    }
   }
 }
 
@@ -1042,84 +934,64 @@ extern "C" int qg_x_dft_cluster_launch(const float* in, float* out, int P,
 
 namespace {
 
-// Rb N2 p-rows and the four tables (N2/2, 64, 64 and 2 N2 float2); the
-// streaming form also a staged row (2 P floats) and its mbarrier.
-int y_factored_smem(int logn2, int logrb, int stream) {
+// Rb N2 p-rows and the four tables (N2/2, 64, 64 and 2 N2 float2).
+int y_factored_smem(int logn2, int logrb) {
   const int n2 = 1 << logn2;
-  return ((n2 << logrb) * kYRowStride + n2 / 2 + 128 + 2 * n2 +
-          (stream ? (n2 << 7) + 1 : 0)) * static_cast<int>(sizeof(float2));
+  return ((n2 << logrb) * kYRowStride + n2 / 2 + 128 + 2 * n2) *
+         static_cast<int>(sizeof(float2));
 }
 
 using YFactoredFn = void (*)(const float*, float*, int, int, int,
                              const float2*);
 
-template <int kThreads, bool kStream>
+template <int kThreads>
 YFactoredFn y_factored_instance(int inverse) {
-  return inverse ? y_dft_factored_kernel<kThreads, true, kStream>
-                 : y_dft_factored_kernel<kThreads, false, kStream>;
+  return inverse ? y_dft_factored_kernel<kThreads, true>
+                 : y_dft_factored_kernel<kThreads, false>;
 }
 
-// The instance of a block size, form and direction (nullptr: no such
-// instance), its shared memory attribute set.
-YFactoredFn y_factored_fn(int logn2, int logrb, int threads, int stream,
-                          int inverse, int* err) {
-  YFactoredFn fn = nullptr;
-  if (threads == 256) {
-    fn = stream ? y_factored_instance<256, true>(inverse)
-                : y_factored_instance<256, false>(inverse);
-  } else if (threads == 512) {
-    fn = stream ? y_factored_instance<512, true>(inverse)
-                : y_factored_instance<512, false>(inverse);
-  }
-  *err = fn == nullptr || logn2 < 1 || logn2 > 6 || logrb < 0 ||
-                 (stream && logrb != 0)
+// The instance of a block size and direction (nullptr: no such instance),
+// its shared memory attribute set.
+YFactoredFn y_factored_fn(int logn2, int logrb, int threads, int inverse,
+                          int* err) {
+  YFactoredFn fn = threads == 256   ? y_factored_instance<256>(inverse)
+                   : threads == 512 ? y_factored_instance<512>(inverse)
+                                    : nullptr;
+  *err = fn == nullptr || logn2 < 1 || logn2 > 6 || logrb < 0
              ? static_cast<int>(cudaErrorInvalidValue)
              : set_smem(reinterpret_cast<const void*>(fn),
-                        y_factored_smem(logn2, logrb, stream));
+                        y_factored_smem(logn2, logrb));
   return fn;
 }
 
 }  // namespace
 
 // The most blocks of the factored K2's layout (P = 128 * 2^logn2, 2^logrb
-// rows a block, `threads` threads, the streaming form or not) that one SM
-// holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor, the instance of
-// direction `inverse`): 0 means the layout cannot run.
+// rows a block, `threads` threads) that one SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, the instance of direction
+// `inverse`): 0 means the layout cannot run.
 extern "C" int qg_y_dft_factored_occupancy(int logn2, int logrb, int threads,
-                                           int stream, int inverse,
-                                           int* blocks) {
+                                           int inverse, int* blocks) {
   int err = 0;
-  YFactoredFn fn = y_factored_fn(logn2, logrb, threads, stream, inverse, &err);
+  YFactoredFn fn = y_factored_fn(logn2, logrb, threads, inverse, &err);
   if (err) return err;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, reinterpret_cast<const void*>(fn), threads,
-      y_factored_smem(logn2, logrb, stream)));
+      y_factored_smem(logn2, logrb)));
 }
 
 // The factored K2 on a planar (2, rows, 128 * 2^logn2) field; wm: the
-// P-entry float2 table of W_P^j. The streaming form runs as many blocks as
-// the card holds at once (at most one a row).
+// P-entry float2 table of W_P^j.
 extern "C" int qg_y_dft_factored_launch(const float* in, float* out, int rows,
                                         int logn2, int logrb, int threads,
-                                        int stream, int inverse,
-                                        const void* wm, void* cuda_stream) {
+                                        int inverse, const void* wm,
+                                        void* cuda_stream) {
   int err = 0;
-  YFactoredFn fn = y_factored_fn(logn2, logrb, threads, stream, inverse, &err);
+  YFactoredFn fn = y_factored_fn(logn2, logrb, threads, inverse, &err);
   if (err) return err;
-  const int smem = y_factored_smem(logn2, logrb, stream);
-  int blocks = (rows + (1 << logrb) - 1) >> logrb;
-  if (stream) {
-    int device = 0, sms = 0, per_sm = 0;
-    if ((err = static_cast<int>(cudaGetDevice(&device))) ||
-        (err = static_cast<int>(cudaDeviceGetAttribute(
-             &sms, cudaDevAttrMultiProcessorCount, device))) ||
-        (err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, reinterpret_cast<const void*>(fn), threads, smem))))
-      return err;
-    blocks = blocks < sms * per_sm ? blocks : sms * per_sm;
-    if (blocks == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
-  fn<<<blocks, threads, smem, static_cast<cudaStream_t>(cuda_stream)>>>(
+  fn<<<(rows + (1 << logrb) - 1) >> logrb, threads,
+       y_factored_smem(logn2, logrb),
+       static_cast<cudaStream_t>(cuda_stream)>>>(
       in, out, rows, logn2, logrb, static_cast<const float2*>(wm));
   return static_cast<int>(cudaGetLastError());
 }

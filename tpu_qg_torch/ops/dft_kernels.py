@@ -415,9 +415,9 @@ def _lib():
         _build.declare(lib.qg_x_dft_cluster_occupancy,
                        [i, i, i, ctypes.POINTER(ctypes.c_int)])
         _build.declare(lib.qg_y_dft_factored_launch,
-                       [p, p, i, i, i, i, i, i, p, p])
+                       [p, p, i, i, i, i, i, p, p])
         _build.declare(lib.qg_y_dft_factored_occupancy,
-                       [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)])
+                       [i, i, i, i, ctypes.POINTER(ctypes.c_int)])
         lib.qg_pair_x_num_consts.restype = ctypes.c_int
         lib.qg_coop_plan_size.restype = ctypes.c_int
     return lib
@@ -472,70 +472,62 @@ def _check_field(name: str, t: torch.Tensor) -> None:
 
 
 # K2's factored kernel (csrc y_dft_factored_kernel) on P = 128 * 2^b, 1 <= b
-# <= 6, in a layout (Rb, threads, stream): a block of `threads` threads takes
-# Rb rows, each as N2 = P / 128 p-rows of 128 float2 at a stride of
-# Y_ROW_STRIDE (csrc kYRowStride); the streaming form (stream, Rb = 1) is a
-# persistent block that bulk-copies the next row into a second buffer while
-# it transforms the current one. The layout y_dft launches is the fastest
-# at each extent of the sweep that chip_smoke.py prints (PERF.md):
-# Y_FACTORED_RB_BY_P.
+# <= 6, in a layout (Rb, threads): a block of `threads` threads takes Rb
+# rows, each as N2 = P / 128 p-rows of 128 float2 at a stride of
+# Y_ROW_STRIDE (csrc kYRowStride). y_dft launches it at the extents of
+# Y_FACTORED_RB_BY_P, in the layout given there: at each, the layout of
+# chip_smoke.py's k2_sweep with the least device time both ways (graph_ms),
+# which was also less than y_dft_kernel's both ways in the same run
+# (PERF.md).
 Y_FACTORED_THREADS = (256, 512)
 Y_ROW_STRIDE = 135
-Y_FACTORED_RB_BY_P = {256: (8, 256, False), 512: (4, 256, False),
-                      1024: (2, 256, False), 2048: (2, 256, False),
-                      4096: (1, 256, True), 8192: (1, 256, False)}
+Y_FACTORED_RB_BY_P = {256: (1, 256), 512: (2, 256), 1024: (4, 256),
+                      2048: (2, 256), 4096: (2, 256), 8192: (1, 256)}
 
 
 class YFactoredLayout(NamedTuple):
     """The factored K2's block (csrc y_factored_smem): N2, Rb rows,
-    threads, the streaming form or not, and bytes of shared memory: Rb N2
-    p-rows of Y_ROW_STRIDE float2, the N2/2-, 64-, 64- and 2 N2-entry
-    tables, and for the streaming form a staged row (P float2) and its
-    mbarrier (8 bytes)."""
+    threads, and bytes of shared memory: Rb N2 p-rows of Y_ROW_STRIDE
+    float2 and the N2/2-, 64-, 64- and 2 N2-entry tables."""
     n2: int
     rb: int
     threads: int
-    stream: bool
     smem: int
 
 
-def y_dft_factored_layout(P: int, rb: int, threads: int = 256,
-                          stream: bool = False) -> YFactoredLayout:
+def y_dft_factored_layout(P: int, rb: int,
+                          threads: int = 256) -> YFactoredLayout:
     n2 = P // _N1
-    smem = 8 * (rb * n2 * Y_ROW_STRIDE + n2 // 2 + 2 * 64 + 2 * n2
-                + (P + 1 if stream else 0))
-    return YFactoredLayout(n2, rb, threads, bool(stream), smem)
+    smem = 8 * (rb * n2 * Y_ROW_STRIDE + n2 // 2 + 2 * 64 + 2 * n2)
+    return YFactoredLayout(n2, rb, threads, smem)
 
 
 def y_dft_factored_takes(P: int, layout: tuple | None = None) -> bool:
     """True iff the factored kernel takes extent P at ``layout`` = (Rb,
-    threads, stream) (by default the launched one): P = 128 * 2^b, 1 <= b
-    <= 6, Rb a power of two (1 for the streaming form), within one block's
-    shared memory."""
+    threads) (by default the launched one, else (1, 256)): P = 128 * 2^b,
+    1 <= b <= 6, Rb a power of two, within one block's shared memory."""
     n2 = P // _N1
     if P != _N1 * n2 or not 2 <= n2 <= 64 or n2 & (n2 - 1):
         return False
-    layout = layout or Y_FACTORED_RB_BY_P[P]
-    rb, threads, stream = layout
+    rb, threads = layout or Y_FACTORED_RB_BY_P.get(P, (1, 256))
     return (rb >= 1 and rb & (rb - 1) == 0 and threads in Y_FACTORED_THREADS
-            and (rb == 1 or not stream)
-            and y_dft_factored_layout(P, *layout).smem <= SMEM_LIMIT)
+            and y_dft_factored_layout(P, rb, threads).smem <= SMEM_LIMIT)
 
 
 @functools.lru_cache(maxsize=32)
 def y_dft_factored_occupancy(P: int, layout: tuple, device: int) -> int:
-    """The most blocks of ``layout`` = (Rb, threads, stream) at extent P
-    that one SM of card ``device`` holds, in both directions
+    """The most blocks of ``layout`` = (Rb, threads) at extent P that one
+    SM of card ``device`` holds, in both directions
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor); 0: the layout cannot
     run."""
-    rb, threads, stream = layout
+    rb, threads = layout
     counts = []
     with torch.cuda.device(device):
         for inverse in (0, 1):
             count = ctypes.c_int(0)
             code = _lib().qg_y_dft_factored_occupancy(
                 (P // _N1).bit_length() - 1, rb.bit_length() - 1, threads,
-                int(stream), inverse, ctypes.byref(count))
+                inverse, ctypes.byref(count))
             _build.check(code, f"y_dft factored occupancy {layout} at P = {P}")
             counts.append(count.value)
     return min(counts)
@@ -545,11 +537,10 @@ def y_dft_factored(z: torch.Tensor, inverse: bool,
                    layout: tuple | None = None) -> torch.Tensor:
     """One launch of K2's factored kernel (csrc y_dft_factored_kernel) on a
     CUDA (2, rows, P) float32 field, P = 128 * 2^b (1 <= b <= 6), with
-    ``layout`` = (Rb rows a block, threads, stream), by default
+    ``layout`` = (Rb rows a block, threads), by default
     Y_FACTORED_RB_BY_P[P]: y_dft's result. Raises on a shape or layout the
-    kernel does not take, a layout the card cannot schedule, a field the
-    streaming form's bulk copies cannot read (not 16-byte aligned) and a
-    launch error. Counts nothing: the counting wrapper is y_dft.
+    kernel does not take, a layout the card cannot schedule and a launch
+    error. Counts nothing: the counting wrapper is y_dft.
 
     Replaces, as y_dft_kernel does, tpu_qg/ops/pallas_fft.py
     PlanarFFT2._call_y (:1100). Bound: one read and one write of the field
@@ -560,21 +551,17 @@ def y_dft_factored(z: torch.Tensor, inverse: bool,
     matmul_fft.FactoredFFT's factoring (y_dft_factored_plain): stage A's
     first pass reads the row straight into registers, stage B leaves whole
     128-slot runs of the permuted spectrum, and its tables are 2.25 KB a
-    block; the streaming form overlaps the next row's load with the
-    transform (design in the source)."""
+    block (design in the source)."""
     _, rows, P = z.shape
-    layout = tuple(layout or Y_FACTORED_RB_BY_P.get(P, (1, 256, False)))
+    layout = tuple(layout or Y_FACTORED_RB_BY_P.get(P, (1, 256)))
     if z.device.type != "cuda":
         raise ValueError(f"y_dft_factored: unsupported device {z.device}")
     _check_field("y_dft_factored", z)
     if not y_dft_factored_takes(P, layout):
         raise ValueError(f"y_dft_factored: P = {P} must be 128 * 2^b "
                          f"(1 <= b <= 6) and the layout {layout} (Rb, "
-                         f"threads, stream) fit shared memory")
-    rb, threads, stream = layout
-    if stream and z.data_ptr() % 16:
-        raise ValueError("y_dft_factored: the streaming form needs a 16-byte "
-                         "aligned field")
+                         f"threads) fit shared memory")
+    rb, threads = layout
     device = z.device.index if z.device.index is not None else \
         torch.cuda.current_device()
     if y_dft_factored_occupancy(P, layout, device) == 0:
@@ -583,26 +570,18 @@ def y_dft_factored(z: torch.Tensor, inverse: bool,
     out = torch.empty_like(z)
     code = _lib().qg_y_dft_factored_launch(
         z.data_ptr(), out.data_ptr(), rows, (P // _N1).bit_length() - 1,
-        rb.bit_length() - 1, threads, int(stream), int(inverse),
+        rb.bit_length() - 1, threads, int(inverse),
         _twiddles(P, P, z.device).data_ptr(),
         torch.cuda.current_stream(z.device).cuda_stream)
     _build.check(code, f"y_dft_factored (K2) {layout}")
     return out
 
 
-def y_dft(z: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """K2 on CUDA tensors (one launch), the plain version on CPU tensors.
-    Two hand-written kernels chosen by shape: the factored kernel
-    (y_dft_factored, layout Y_FACTORED_RB_BY_P[P]) on P = 128 * 2^b, 1 <= b
-    <= 6, counted also in ``y_dft.factored_launches``; y_dft_kernel on the
-    rest (mixed extents P = R * m, m odd > 1, and P <= 128)."""
-    if z.device.type == "cpu":
-        return y_dft_plain(z, inverse)
-    if y_dft_factored_takes(z.shape[-1]):
-        out = y_dft_factored(z, inverse)
-        y_dft.factored_launches += 1
-        y_dft.launches += 1
-        return out
+def y_dft_whole_row(z: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """One launch of y_dft_kernel (a block a whole row) on a CUDA (2, rows,
+    P) float32 field at any extent P = R * m it takes: y_dft's result.
+    Raises on a shape it does not take and a launch error. Counts nothing:
+    the counting wrapper is y_dft."""
     if z.device.type != "cuda":
         raise ValueError(f"y_dft: unsupported device {z.device}")
     _check_field("y_dft", z)
@@ -610,14 +589,29 @@ def y_dft(z: torch.Tensor, inverse: bool) -> torch.Tensor:
     if not (_radix_ok(P) and y_dft_smem(P) <= SMEM_LIMIT):
         raise ValueError(f"y_dft: P = {P} must be R * m (R a power of two, "
                          f"m odd <= {MAX_ODD}) within shared memory")
-    lib = _lib()
     out = torch.empty_like(z)
     logr, m, tw, twn = _tables(P, z.device)
-    code = lib.qg_y_dft_launch(
+    code = _lib().qg_y_dft_launch(
         z.data_ptr(), out.data_ptr(), rows, P, logr, m, split_factor(P)[0],
         int(inverse), tw, twn, y_dft_threads(P),
         torch.cuda.current_stream(z.device).cuda_stream)
     _build.check(code, "y_dft (K2)")
+    return out
+
+
+def y_dft(z: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """K2 on CUDA tensors (one launch), the plain version on CPU tensors.
+    Two hand-written kernels chosen by shape: the factored kernel
+    (y_dft_factored) at the extents of Y_FACTORED_RB_BY_P, counted also in
+    ``y_dft.factored_launches``; y_dft_kernel (y_dft_whole_row) on the rest
+    (mixed extents P = R * m, m odd > 1, and P <= 128)."""
+    if z.device.type == "cpu":
+        return y_dft_plain(z, inverse)
+    if z.shape[-1] in Y_FACTORED_RB_BY_P:
+        out = y_dft_factored(z, inverse)
+        y_dft.factored_launches += 1
+    else:
+        out = y_dft_whole_row(z, inverse)
     y_dft.launches += 1
     return out
 
