@@ -18,14 +18,24 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    layout (Rb rows, threads) of K2_SWEEP at n^2, n = 256 ... 8192, with the
    blocks an SM holds and ms each way in turns beside y_dft_kernel (the
    kernel it replaces there), torch.fft.fft along y and a copy of the
-   field, host-launched and replayed from a CUDA graph; K2, K4 (x-DFT, both ways,
+   field, host-launched and replayed from a CUDA graph; K2's mixed extents
+   (y_dft_kernel) on (2, 333, 384), (2, 333, 2432) and (2, 2432, 2432),
+   ms each way beside torch.fft.fft along y and a copy, both ways of timing;
+   K2, K4 (x-DFT, both ways,
    and its cluster kernel's first half, stage A) and K5 (symbols + inverse
    x-DFT) at (2, 4096, 4096) and
    (2, 8192, 8192), K4 also at (2, 8192, 252) (a ragged last cluster tile)
-   and (2, 6144, 2048) (x_dft_kernel's mixed extent); K4's cluster kernel
+   and (2, 6144, 2048) (x_dft_kernel's mixed extent), K5 also at
+   (2, 8192, 384) (strip 0's ragged tile, an odd strip count; K5 by its
+   cluster kernel at each of these, counted) and (2, 6144, 384)
+   (x_symbols_inverse_kernel's mixed extent); K4's cluster kernel
    in every layout (G, Cw) that fits at 4096^2 and 8192^2, with
    the clusters the card holds at once and ms each way in turns beside
-   torch.fft.fft; K1 and K15 at (2, 8192, 8192), K17
+   torch.fft.fft; K5's cluster kernel in every layout (G, Cw, At) that
+   fits at 4096^2 and 8192^2, with the clusters the card holds and ms in
+   turns beside x_symbols_inverse_kernel, torch.fft.ifft along x (a
+   yardstick: not K5's function) and a copy, host-launched and replayed
+   from a CUDA graph; K1 and K15 at (2, 8192, 8192), K17
    at (2, 6272, 128) (the x-stage's sequential groups). On
    the real zeta of a grid-noise psi the inversions (K3; K16; K5; the
    four-pass K2 -> K4 -> K5 -> K2^-1) are held against float64. K10 (the
@@ -43,8 +53,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    every path below, by its factored kernel), with the pin gauge (100: K8),
    with fft_mono="on" (100: K1, K16), step_full="on" (100: K17) and
    step_chain="on" (100: K15, K3, K2 at the ends of each run call);
-   pod-8192 (50 steps: K1, K2, K4, K5, every K4 launch by its cluster
-   kernel) and with step_chain="on" (20: K15, K4, K5, K2). Then, with the counts set to 0 again each time, two
+   pod-8192 (50 steps: K1, K2, K4, K5, every K4 and K5 launch by its
+   cluster kernel) and with step_chain="on" (20: K15, K4, K5, K2; the same).
+   Then, with the counts set to 0 again each time, two
    multigrid paths: 20 warm-started MultigridModalInverter calls on the zeta
    one default step after the pod-8192 slice (pod-8192-mg: 2 cycles a call,
    K10 = K11 = 120) and after the turbulence-2048 slice (4 cycles, 240),
@@ -69,7 +80,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    read just after, zeta against the single-device route of the same
    config from the same psi: a one-rank NCCL mesh on cuda:0,
    turbulence-2048 (100 steps: K12, K2, K3), pod-8192 (20: K12, K2, K4,
-   K5) and turbulence-2048 with step_chain="on" (20: K15 sharded, K3, K2
+   K5, every K4 and K5 launch by its cluster kernel) and turbulence-2048
+   with step_chain="on" (20: K15 sharded, K3, K2
    at the ends), zeta within 1e-6; then four spawned ranks sharing cuda:0
    on gloo (the kernels built once, here, before they start): (4, 1)
    turbulence-2048 (10 steps: K12, K2, K14), its chain (10: K15 sharded,
@@ -133,9 +145,11 @@ from tpu_qg_torch.ops.dft_kernels import (
     stream_pair_symbols, stream_pair_symbols_plain, x_dft, x_dft_cluster,
     x_dft_cluster_layout, x_dft_cluster_occupancy, x_dft_cluster_takes,
     x_dft_plain, x_dft_stage_a, x_dft_stage_a_plain, x_fwd_symbols_offset,
-    x_fwd_symbols_offset_plain, x_symbols_inverse, x_symbols_inverse_plain,
-    y_dft, y_dft_factored, y_dft_factored_layout, y_dft_factored_occupancy,
-    y_dft_plain, y_dft_whole_row)
+    x_fwd_symbols_offset_plain, x_symbols_cluster, x_symbols_cluster_layout,
+    x_symbols_cluster_occupancy, x_symbols_cluster_takes, x_symbols_inverse,
+    x_symbols_inverse_plain, x_symbols_whole_columns, y_dft, y_dft_factored,
+    y_dft_factored_layout, y_dft_factored_occupancy, y_dft_plain,
+    y_dft_whole_row)
 from tpu_qg_torch.ops.mg_kernels import (mg_prolong_smooth,
                                          mg_prolong_smooth_plain, mg_smooth,
                                          mg_smooth_plain)
@@ -216,8 +230,9 @@ KERNELS = {
 
 class KernelCount:
     """A wrapper's count of the launches that took one of its two kernels
-    (x_dft.cluster_launches: K4's cluster kernel; y_dft.factored_launches:
-    K2's factored kernel), as a counter with a ``launches`` field."""
+    (x_dft.cluster_launches: K4's cluster kernel;
+    x_symbols_inverse.cluster_launches: K5's; y_dft.factored_launches: K2's
+    factored kernel), as a counter with a ``launches`` field."""
 
     def __init__(self, wrapper, attr: str):
         self.wrapper, self.attr = wrapper, attr
@@ -240,6 +255,7 @@ COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
             "K13": x_fwd_symbols_offset, "K14": paired_x_symbols,
             "K15s": fused_step_yspec_sharded, "K18": lab_step,
             "K4 cluster": KernelCount(x_dft, "cluster_launches"),
+            "K5 cluster": KernelCount(x_symbols_inverse, "cluster_launches"),
             "K2 factored": KernelCount(y_dft, "factored_launches")}
 # Kernel names in a profiler trace, the one-launch kernels, K8, K9, K12 and
 # K18 before K1: a mangled K8, K9 or K12 name holds the source file's name,
@@ -252,6 +268,7 @@ TRACE_NAMES = (("K17", "coop_fullstep_kernel"), ("K16", "coop_mono_kernel"),
                ("K11", "mg_prolong_kernel"),
                ("K10", "mg_smooth_kernel"), ("K9", "tendency_kernel"),
                ("K8", "pre_inversion_kernel"),
+               ("K5", "x_symbols_cluster_kernel"),
                ("K5", "x_symbols_inverse_kernel"),
                ("K4", "x_dft_cluster_kernel"), ("K4", "x_dft_kernel"),
                ("K3", "pair_x_kernel"), ("K2", "y_dft_factored_kernel"),
@@ -392,9 +409,10 @@ def phase_build() -> None:
     info = _build.build_info()
     lines = info["ptxas"].splitlines()
     regs = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
-    # K4's cluster kernel and K2's factored kernel: each instance's
-    # registers, shared memory, spills.
-    named = {"x_dft_cluster_kernel": {}, "y_dft_factored_kernel": {}}
+    # K4's and K5's cluster kernels and K2's factored kernel: each
+    # instance's registers, shared memory, spills.
+    named = {"x_dft_cluster_kernel": {}, "x_symbols_cluster_kernel": {},
+             "y_dft_factored_kernel": {}}
     entry = None
     for ln in lines:
         if "Compiling entry function" in ln:
@@ -406,6 +424,7 @@ def phase_build() -> None:
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=info["seconds"], library=info["path"], ptxas=regs,
          k4_cluster_ptxas=named["x_dft_cluster_kernel"],
+         k5_cluster_ptxas=named["x_symbols_cluster_kernel"],
          k2_factored_ptxas=named["y_dft_factored_kernel"])
 
 
@@ -589,14 +608,63 @@ def check_k2_extents(errs, dev, rng) -> None:
                                  f" factored launches")
 
 
+# K2's mixed extents timed: the fields check_k2_extents checks, and the
+# largest grid of the pair-x route, 2432^2 (2432 = 128 * 19).
+K2_MIXED_SHAPES = ((K2_RAGGED_ROWS, 384), (K2_RAGGED_ROWS, 2432), (2432, 2432))
+
+
+def time_k2_mixed(dev, card, reps=20) -> dict:
+    """y_dft_kernel (K2 on a mixed extent) on (2, rows, P) of
+    K2_MIXED_SHAPES, ms a launch each way beside one torch.fft.fft along y
+    of the same complex64 field and a torch copy, in turns, host-launched
+    (time_ms) and replayed from a CUDA graph (graph_ms); the bound of each
+    shape. Returns the entries by shape."""
+    rng = np.random.default_rng(SEED + 12)
+    out = {}
+    for rows, P in K2_MIXED_SHAPES:
+        x = torch.as_tensor(rng.standard_normal((2, rows, P)),
+                            dtype=torch.float32, device=dev)
+        c64 = torch.complex(x[0], x[1])
+        calls = {"forward": lambda: y_dft_whole_row(x, False),
+                 "inverse": lambda: y_dft_whole_row(x, True),
+                 "library": lambda: torch.fft.fft(c64, dim=1),
+                 "copy": lambda: x.clone()}
+        runs = {k: ([], []) for k in calls}
+        for k in list(calls) + list(calls)[::-1]:
+            runs[k][0].append(time_ms(calls[k], reps))
+            runs[k][1].append(graph_ms(calls[k], reps))
+        entry = {k: {"ms": sum(r) / 2, "graph_ms": sum(g) / 2, "runs_ms": r,
+                     "graph_runs_ms": g} for k, (r, g) in runs.items()}
+        entry["bound_ms"] = bound("K2", rows, P)[0]
+        emit("k2_mixed", card=card, shape=[2, rows, P], **entry)
+        out[f"{rows}x{P}"] = entry
+        del x, c64, calls
+        free_memory()
+    return out
+
+
+def check_k5(errs, cfg, x, case) -> None:
+    """K5 against its plain version on ``x``, with the cluster count rising
+    by 1 exactly where x_symbols_inverse launches the cluster kernel."""
+    consts = inverter(cfg.replace(M=x.shape[1], P=x.shape[2]))._sym_consts
+    n = x_symbols_inverse.cluster_launches
+    errs.record("K5", case, x_symbols_inverse(x, consts),
+                x_symbols_inverse_plain(x, consts))
+    torch.cuda.synchronize()
+    n = x_symbols_inverse.cluster_launches - n
+    if n != int(x_symbols_cluster_takes(x.shape[1])):
+        raise AssertionError(f"K5 {case}: {n} cluster launches")
+
+
 def phase_x_kernels(errs, pod, dev, sizes=(4096, 8192)) -> None:
     """K2 at K2_EXTENTS; K2, K4 and K5 at each n^2 of ``sizes`` on random
-    input; K5 and the whole four-pass inversion on pod-8192's zeta against
-    float64; K1 and K15 at pod's grid; K17 at 6272 x 128."""
+    input, K5 also on a ragged P (8192 x 384: strip 0's ragged tile, an odd
+    strip count) and at a mixed extent (6144 x 384, x_symbols_inverse_kernel);
+    K5 and the whole four-pass inversion on pod-8192's zeta against float64;
+    K1 and K15 at pod's grid; K17 at 6272 x 128."""
     rng = np.random.default_rng(SEED + 2)
     check_k2_extents(errs, dev, rng)
     for n in sizes:
-        cfg = pod.replace(M=n, P=n)
         x = torch.as_tensor(rng.standard_normal((2, n, n)),
                             dtype=torch.float32, device=dev)
         for inverse in (False, True):
@@ -606,9 +674,13 @@ def phase_x_kernels(errs, pod, dev, sizes=(4096, 8192)) -> None:
             errs.record("K4", f"{way} stage A (cluster kernel's first half)",
                         x_dft_stage_a(x, inverse),
                         x_dft_stage_a_plain(x, inverse))
-        consts = inverter(cfg)._sym_consts
-        errs.record("K5", "random spectrum", x_symbols_inverse(x, consts),
-                    x_symbols_inverse_plain(x, consts))
+        check_k5(errs, pod, x, f"{n}x{n} random spectrum")
+        del x
+        free_memory()
+    for M, P in ((8192, 384), (6144, 384)):
+        x = torch.as_tensor(rng.standard_normal((2, M, P)),
+                            dtype=torch.float32, device=dev)
+        check_k5(errs, pod, x, f"{M}x{P} random spectrum")
         del x
         free_memory()
     # K4 on a ragged last cluster tile, and x_dft_kernel on a mixed extent.
@@ -724,6 +796,74 @@ def phase_k4_sweep(dev, card, sizes=(4096, 8192), reps=20) -> dict:
              library_ms=refs["library"], reference_ms=refs,
              bound_ms=bound("K4", n, n)[0])
         out[n] = rows
+        del x, c64, calls
+        free_memory()
+    return out
+
+
+def k5_layout_name(layout) -> str:
+    return "G={} Cw={} At={}".format(*layout)
+
+
+def phase_k5_sweep(dev, pod, card, sizes=(4096, 8192), reps=20) -> dict:
+    """K5's cluster kernel in every layout (G blocks a cluster, Cw y slots a
+    tile, At tiles in buffer A at a time) that fits shared memory, at n^2:
+    its bytes of shared memory, the clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters), its largest error against the plain
+    version, and ms a launch, the layouts in turns (in order, then in
+    reverse), beside x_symbols_inverse_kernel (whole columns, the kernel it
+    replaces there), one torch.fft.ifft along x of the same complex64 field
+    (a yardstick only: it does not compute K5's function) and a torch copy
+    of the field: host-launched (time_ms) and replayed from a CUDA graph
+    (graph_ms). Returns the entries by grid."""
+    rng = np.random.default_rng(SEED + 11)
+    out = {}
+    for n in sizes:
+        x = torch.as_tensor(rng.standard_normal((2, n, n)),
+                            dtype=torch.float32, device=dev)
+        consts = inverter(pod.replace(M=n, P=n))._sym_consts
+        want = x_symbols_inverse_plain(x, consts)
+        rows, calls = {}, {}
+        for lay in ((g, c, a) for g in dft_kernels.X_SYMBOLS_CLUSTER_SIZES
+                    for c in dft_kernels.X_SYMBOLS_CLUSTER_WIDTHS
+                    for a in (1, 2)):
+            if not x_symbols_cluster_takes(n, lay):
+                continue
+            key = k5_layout_name(lay)
+            occ = x_symbols_cluster_occupancy(n, lay, dev.index)
+            rows[key] = dict(smem=x_symbols_cluster_layout(n, *lay).smem,
+                             max_active_clusters=occ)
+            if occ == 0:                 # the card cannot schedule it
+                continue
+            err = rel_err(x_symbols_cluster(x, consts, lay), want)[1]
+            rows[key]["rel_err"] = err
+            if not err <= TOL["K5"]:
+                raise AssertionError(f"K5 cluster {key} at {n}^2: rel err "
+                                     f"{err} > {TOL['K5']}")
+            calls[key] = lambda lay=lay: x_symbols_cluster(x, consts, lay)
+        del want
+        c64 = torch.complex(x[0], x[1])
+        calls["x_symbols_inverse_kernel"] = (
+            lambda: x_symbols_whole_columns(x, consts))
+        calls["library ifft along x"] = lambda: torch.fft.ifft(c64, dim=0)
+        calls["copy"] = lambda: x.clone()
+        runs = {k: ([], []) for k in calls}
+        for k in list(calls) + list(calls)[::-1]:
+            runs[k][0].append(time_ms(calls[k], reps))
+            runs[k][1].append(graph_ms(calls[k], reps))
+        refs = {}
+        for key, (r, g) in runs.items():
+            if key in rows:
+                rows[key].update(ms=sum(r) / 2, graph_ms=sum(g) / 2,
+                                 runs_ms=r, graph_runs_ms=g)
+            else:
+                refs[key] = sum(r) / 2
+                refs[key + " graph"] = sum(g) / 2
+        emit("k5_sweep", card=card, grid=[n, n],
+             launched=k5_layout_name(
+                 dft_kernels.x_symbols_cluster_launched(n)),
+             layouts=rows, reference_ms=refs, bound_ms=bound("K5", n, n)[0])
+        out[n] = dict(layouts=rows, reference_ms=refs)
         del x, c64, calls
         free_memory()
     return out
@@ -1308,7 +1448,7 @@ def phase_mesh_one_rank(turb, pod, dev, card) -> tuple[dict, dict]:
                  "fused"),
                 ("pod-8192 mesh (1, 1)", pod, 20,
                  {"K12": 20, "K2": 40, "K2 factored": 40, "K4": 20, "K5": 20,
-                  "K4 cluster": 20}, "fused"),
+                  "K4 cluster": 20, "K5 cluster": 20}, "fused"),
                 ("turbulence-2048 step_chain=on mesh (1, 1)", chain, 20,
                  {"K15s": 20, "K3": 20, "K2": 2 * run_chunks(chain, 20),
                   "K2 factored": 2 * run_chunks(chain, 20)}, "chain")):
@@ -1919,7 +2059,9 @@ def main() -> None:
     phase_kernels(errs, turb, dev)
     phase_x_kernels(errs, pod, dev)
     k4_sweep = phase_k4_sweep(dev, card)
+    k5_sweep = phase_k5_sweep(dev, pod, card)
     k2_sweep = phase_k2_sweep(dev, card)
+    k2_mixed = time_k2_mixed(dev, card)
     phase_mg_kernels(errs, turb, pod_mg, dev)
     phase_sharded_kernels(errs, turb, pod, dev)
     phase_lab_kernels(errs, dev)
@@ -1937,12 +2079,12 @@ def main() -> None:
          {"K15": 100, "K3": 100, "K2": 2 * run_chunks(forms["chain"], 100),
           "K2 factored": 2 * run_chunks(forms["chain"], 100)}, "chain"),
         ("pod-8192", pod, 50, {"K1": 50, "K2": 100, "K2 factored": 100,
-                               "K4": 50, "K5": 50, "K4 cluster": 50},
-         "default"),
+                               "K4": 50, "K5": 50, "K4 cluster": 50,
+                               "K5 cluster": 50}, "default"),
         ("pod-8192 step_chain=on", pod_chain, 20,
          {"K15": 20, "K4": 20, "K5": 20, "K2": 2 * run_chunks(pod_chain, 20),
-          "K2 factored": 2 * run_chunks(pod_chain, 20), "K4 cluster": 20},
-         "chain"),
+          "K2 factored": 2 * run_chunks(pod_chain, 20), "K4 cluster": 20,
+          "K5 cluster": 20}, "chain"),
     )
     launches, finals = {}, {}
     for name, cfg, steps, expect, route in slices:
@@ -2005,6 +2147,14 @@ def main() -> None:
                         *dft_kernels.x_dft_cluster_launched(8192)),
                     "x_dft_kernel": "mixed extents, M < 128 G"},
         "sweep_8192": k4_sweep[8192]}
+    extra["K5"] = {
+        "cluster_launches": sum(run["K5 cluster"]
+                                for run in launches.values()),
+        "kernels": {"x_symbols_cluster_kernel": "M = 128 * 2^a, M >= 256 G "
+                    "(layout at 8192: G={} Cw={} At={})".format(
+                        *dft_kernels.x_symbols_cluster_launched(8192)),
+                    "x_symbols_inverse_kernel": "mixed extents, M < 256 G"},
+        "sweep_8192": k5_sweep[8192]}
     extra["K2"] = {
         "factored_launches": sum(run["K2 factored"]
                                  for run in launches.values()),
@@ -2013,7 +2163,7 @@ def main() -> None:
                         sorted(dft_kernels.Y_FACTORED_RB_BY_P),
                         dft_kernels.Y_FACTORED_RB_BY_P),
                     "y_dft_kernel": "every other extent"},
-        "sweep_8192": k2_sweep[8192]}
+        "sweep_8192": k2_sweep[8192], "mixed": k2_mixed}
     sharded_ms = time_sharded_kernels(turb, pod, dev, card)
     extra["K12"] = {"mesh_step_ms": mesh_ms}
     lab = time_lab(dev, card, lab_jobs)

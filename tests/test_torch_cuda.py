@@ -7,7 +7,9 @@ Marked ``cuda``; without a card every test skips. On a machine with one:
 Tolerances relative to max|plain|: K1 and K8 1e-6, K2 and K4 1e-5 (K2's
 factored kernel in every layout, K4's cluster kernel's first half, stage
 A, too), K3 and
-K5 1e-4 (the 1/lambda symbol amplifies low-k float32 rounding); the
+K5 1e-4 (the 1/lambda symbol amplifies low-k float32 rounding; K5's
+cluster kernel in every layout too), a four-pass inversion on a smooth
+zeta no less accurate against float64 than twice the plain versions'; the
 one-launch kernels as the kernels they fuse: K16 1e-4, K17 1e-6 (zeta_new,
 carry) and 1e-4 (psi_new), K15 1e-6 (zeta_new, carry) and 1e-5 (zeta_ys);
 K9 1e-6 (K1's tile); K10 and K11 1e-6 (tests/test_multigrid.py's kernel
@@ -28,16 +30,17 @@ from tpu_qg_torch.ops.dft_kernels import (
     pair_x_symbols_plain, paired_x_symbols, paired_x_symbols_plain,
     stream_pair_symbols, stream_pair_symbols_plain, x_dft,
     x_dft_cluster_takes, x_dft_plain, x_dft_stage_a, x_dft_stage_a_plain,
-    x_fwd_symbols_offset, x_fwd_symbols_offset_plain, x_symbols_inverse,
-    x_symbols_inverse_plain, y_dft, y_dft_factored, y_dft_factored_takes,
-    y_dft_plain)
+    x_fwd_symbols_offset, x_fwd_symbols_offset_plain, x_symbols_cluster,
+    x_symbols_cluster_takes, x_symbols_inverse, x_symbols_inverse_plain,
+    y_dft, y_dft_factored, y_dft_factored_takes, y_dft_plain)
 from tpu_qg_torch.ops import dft_kernels, mg_kernels
 from tpu_qg_torch.ops._stencil_lab import lab_step, lab_step_plain
 from tpu_qg_torch.ops.mg_kernels import (mg_prolong_smooth,
                                          mg_prolong_smooth_plain, mg_smooth,
                                          mg_smooth_plain)
 from tpu_qg_torch.ops.multigrid import MultigridModalInverter
-from tpu_qg_torch.ops.spectral import PackedModalInverterKernels
+from tpu_qg_torch.ops.spectral import (PackedModalInverter,
+                                       PackedModalInverterKernels)
 from tpu_qg_torch.ops.step_kernel import (fused_pre_inversion,
                                           fused_pre_inversion_plain,
                                           fused_step, fused_step_full,
@@ -125,7 +128,8 @@ def _consts(M, P):
 @pytest.mark.parametrize("M,P", X_SHAPES)
 def test_x_dft_kernels(dev, M, P):
     x = _fields(M, P, dev, seed=2)[1]
-    n = (x_dft.launches, x_symbols_inverse.launches, x_dft.cluster_launches)
+    n = (x_dft.launches, x_symbols_inverse.launches, x_dft.cluster_launches,
+         x_symbols_inverse.cluster_launches)
     cluster = x_dft_cluster_takes(M)
     for inverse in (False, True):
         assert _rel(x_dft(x, inverse), x_dft_plain(x, inverse)) <= 1e-5
@@ -139,8 +143,74 @@ def test_x_dft_kernels(dev, M, P):
                     x_symbols_inverse_plain(x, consts)) <= 1e-4
     torch.cuda.synchronize()
     assert (x_dft.launches, x_symbols_inverse.launches,
-            x_dft.cluster_launches) == (n[0] + 2, n[1] + k5,
-                                        n[2] + 2 * cluster)
+            x_dft.cluster_launches, x_symbols_inverse.cluster_launches) == (
+                n[0] + 2, n[1] + k5, n[2] + 2 * cluster,
+                n[3] + (k5 and x_symbols_cluster_takes(M)))
+
+
+# K5's cluster kernel: 4096^2 and 8192^2, a ragged P (strip 0's last tile,
+# an odd strip count) and the smallest M of the launched default layout.
+@pytest.mark.parametrize("M,P", [(4096, 4096), (8192, 8192), (8192, 384),
+                                 (2048, 640)])
+def test_x_symbols_cluster_kernel(dev, M, P):
+    x = _fields(M, P, dev, seed=M + P)[1]
+    consts = _consts(M, P)
+    want = x_symbols_inverse_plain(x, consts)
+    n = (x_symbols_inverse.launches, x_symbols_inverse.cluster_launches)
+    assert _rel(x_symbols_inverse(x, consts), want) <= 1e-4
+    torch.cuda.synchronize()
+    assert (x_symbols_inverse.launches,
+            x_symbols_inverse.cluster_launches) == (n[0] + 1, n[1] + 1)
+    if M != 4096:
+        return
+    for layout in ((G, Cw, At) for G in dft_kernels.X_SYMBOLS_CLUSTER_SIZES
+                   for Cw in dft_kernels.X_SYMBOLS_CLUSTER_WIDTHS
+                   for At in (1, 2)):
+        if (x_symbols_cluster_takes(M, layout) and
+                dft_kernels.x_symbols_cluster_occupancy(M, layout, 0)):
+            assert _rel(x_symbols_cluster(x, consts, layout), want) <= 1e-4
+    torch.cuda.synchronize()
+    assert x_symbols_inverse.cluster_launches == n[1] + 1   # counts none
+
+
+def test_four_pass_inversion_takes_the_cluster_k5(dev):
+    """pod-8192's inversion at 4096^2 (K2, K4, K5, K2^-1): every K4 and K5
+    launch by its cluster kernel; psi against float64 no worse than twice
+    the plain versions' route."""
+    cfg = preset("pod-8192").replace(M=4096, P=4096)
+    args = (cfg.M, cfg.P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
+            cfg.back_projection_matrix())
+    inv = PackedModalInverterKernels(*args)
+    assert inv.route == "four-pass"
+    zeta = init_state(cfg, dev).zeta
+    n = (x_symbols_inverse.launches, x_symbols_inverse.cluster_launches,
+         x_dft.cluster_launches)
+    for _ in range(3):
+        psi = inv(zeta)
+    torch.cuda.synchronize()
+    assert (x_symbols_inverse.launches, x_symbols_inverse.cluster_launches,
+            x_dft.cluster_launches) == (n[0] + 3, n[1] + 3, n[2] + 3)
+    consts = inv._sym_consts
+    plain = y_dft_plain(x_symbols_inverse_plain(
+        x_dft_plain(y_dft_plain(zeta, False), False), consts), True)
+    psi64 = PackedModalInverter(*args)(zeta.double())
+    assert _rel(psi.double(), psi64) <= max(2 * _rel(plain.double(), psi64),
+                                            1e-6)
+
+
+def test_x_symbols_cluster_refuses_what_it_does_not_take(dev):
+    x = torch.zeros((2, 8192, 256), device=dev)
+    consts = _consts(8192, 256)
+    with pytest.raises(ValueError):                 # 260 KB of shared memory
+        x_symbols_cluster(x, consts, (16, 16, 2))
+    with pytest.raises(ValueError):                 # N2 = 8 < 2 G
+        x_symbols_cluster(torch.zeros((2, 1024, 256), device=dev),
+                          _consts(1024, 256), (8, 8, 1))
+    with pytest.raises(ValueError):                 # a mixed extent
+        x_symbols_cluster(torch.zeros((2, 6144, 256), device=dev),
+                          _consts(6144, 256))
+    with pytest.raises(TypeError):
+        x_symbols_cluster(x.double(), consts)
 
 
 @pytest.mark.parametrize("layers,gauge", [(1, "zero_mean"), (2, "pin")])

@@ -15,7 +15,9 @@
 // cluster that runs the factored transform in one pass over the field, for
 // M = 128 * 2^a, and x_dft_kernel for the rest. So has K2:
 // y_dft_factored_kernel, the same factoring along the rows, for P = 128 *
-// 2^b (256 <= P <= 8192), and y_dft_kernel for the rest.
+// 2^b (256 <= P <= 8192), and y_dft_kernel for the rest. So has K5:
+// x_symbols_cluster_kernel, K4's cluster inverse behind the symbol stage,
+// for M = 128 * 2^a, and x_symbols_inverse_kernel for the rest.
 //
 // Every kernel transforms with an in-place radix-2 FFT in shared memory:
 // the forward pass is decimation in frequency (natural order in, bit-reversed
@@ -689,7 +691,9 @@ y_dft_factored_kernel(const float* __restrict__ in, float* __restrict__ out,
 // it after its forward pass, so the symbol stage is K3's. A mixed extent
 // splits and inverts the own group and then the mirror group through one
 // set of sub-column buffers, so that 2C spectra and C sub-column columns fit
-// shared memory up to M = 128 * 63.
+// shared memory up to M = 128 * 63. Since the cluster kernel below took the
+// power-of-two extents M >= 256 G, this one runs the mixed extents M = 128 *
+// n (n not a power of two) and smaller M.
 // ---------------------------------------------------------------------------
 template <bool kMixed>
 __global__ void __launch_bounds__(512)
@@ -745,6 +749,228 @@ x_symbols_inverse_kernel(const float* __restrict__ in, float* __restrict__ out,
       write_group<false>(out, plane, re, im, cs, g * C, g, own, mir, C, M, P,
                          m, sub, scale);
   }
+}
+
+// ---------------------------------------------------------------------------
+// K5 on power-of-two extents, M = 128 * 2^a (N2 = M / 128 >= 2 G): the
+// one-pass cluster kernel. It computes what x_symbols_inverse_kernel
+// computes, and so replaces the same TPU functions,
+// tpu_qg/ops/pallas_fft.py PlanarFFT2._call_x_symbols (:1176; builder
+// _build_symbol_inv_x_kernel, :429) and _call_x_stream(Z, True, consts)
+// (:1122; _build_streaming_x, :922); x_symbols_inverse_kernel keeps the
+// mixed extents M = 128 * n (n not a power of two) and M < 256 G.
+//
+// Bound: device-memory bandwidth, one read and one write of the field (2 x
+// 537 MB at 8192^2: 0.321 ms at 3.35 TB/s). x_symbols_inverse_kernel holds
+// whole columns (64 KB each at M = 8192), so one slot pair fits a block and
+// a warp moves 4-byte runs a row, an eighth of a sector. This kernel is K4's
+// cluster inverse (x_dft_cluster_kernel) with the symbol stage in front: a
+// cluster of G blocks takes an own tile of Cw y slots and its mirror tile
+// (the y-negated slots), all M rows of both, from a host-built table
+// (dft_kernels.x_symbols_cluster_tiles: every unordered pair {a, sigma(a)}
+// once, strip by strip, so that own tiles are Cw adjacent slots and mirror
+// tiles Cw adjacent slots in reverse; strip 0's are off by one slot and
+// hold the self-mirror slots 0 and 64, and its last tile is ragged, -1
+// padding). Block r:
+//   1. loads its L2 = N2 / G k2 rows (rows k2 N1 + k1) of both tiles straight
+//      from device memory, Cw floats a row and plane a tile (32 bytes at Cw =
+//      8), and applies the symbol stage, V = A W + B conj(W(-k)), on the way
+//      into buffer B (k1 at row bitrev7(k1));
+//   2. stage B^-1: 128-point inverse DIT along k1 (row n1 natural);
+//   3. cluster barrier; stage A^-1: pulls its n1 rows [r L1, (r+1) L1) of
+//      every peer's B times conj(W_M^(n1 k2)) into A at the DIT position of
+//      k2, N2-point inverse DIT, scales 1/M and stores rows N1 n2 + n1 of
+//      both tiles (A holds one tile or both at a time: the layout's At);
+//      a split cluster barrier (arrive after the last pull, wait before
+//      exit), as in K4.
+// The mirror row. W(-k) at permuted x slot k2 N1 + k1 sits at slot
+// ((N2 - k2) mod N2) N1 + k1', k1' = 127 - k1 (k1' = (128 - k1) mod 128 for
+// k2 = 0), in the mirror tile. K4 gives block r the k2 at its DIF positions
+// [r L2, (r+1) L2), so the mirror row would live in another block for all r
+// but two. Here block r owns the k2 = sym_k2(i) of the rows i in [r L2,
+// (r+1) L2) of an ordering that lists 0, N2/2 and then each pair m, N2 - m
+// side by side: a block holds every pair whole (L2 >= 2, even), each thread
+// of step 1 loads one own value and its partner in the mirror tile and
+// writes both results, and no value crosses the cluster before stage A^-1,
+// whose pull looks the owner up through sym_row. The other way, reading the
+// mirror from the peer through distributed shared memory after a cluster
+// barrier, costs a barrier and a second copy of the tile. A self-mirror
+// slot (own = mirror, y-frequency 0 or P/2) pairs rows within its own
+// column: the thread of the lower row of each pair loads and writes both, the
+// mirror column stays zero, and only the own column is stored, so each
+// input value is loaded once and each output value stored once (what
+// write_group does for the other kernels). The symbols are symbol_stage's:
+// the same SymConsts, the cancellation-free lambda = -4/dx^2 (sin^2(pi
+// kx'/M) + sin^2(pi ky'/P)), inv1 = 0 at (0, 0).
+// Shared memory: B, 2 M Cw / G float2 (both tiles), A, At M Cw / G, the
+// N2/2- and 64-entry tables (0.75 KB at M = 8192) and the tile's 2 Cw
+// slots (dft_kernels.x_symbols_cluster_layout). The grid is G blocks a
+// tile of the table.
+// ---------------------------------------------------------------------------
+
+// Rows i of a cluster's ordering and their k2: 0, N2/2, then 1, N2 - 1, 2,
+// N2 - 2, ...; the partner of row i (k2 -> (N2 - k2) mod N2) is i ^ 1 for
+// i >= 2 and i itself for i < 2.
+__device__ __forceinline__ int sym_k2(int i, int n2) {
+  return i < 2 ? i * (n2 >> 1) : (i & 1) ? n2 - (i >> 1) : i >> 1;
+}
+
+__device__ __forceinline__ int sym_row(int k2, int n2) {
+  const int h = n2 >> 1;
+  return k2 == 0 ? 0 : k2 == h ? 1 : k2 < h ? 2 * k2 : 2 * (n2 - k2) + 1;
+}
+
+// sin(pi k'/N), k' = min(k, N - k): symbol_stage's factor of lambda.
+__device__ __forceinline__ float sym_sin(int k, int N) {
+  return sinpif(static_cast<float>(min(k, N - k)) / static_cast<float>(N));
+}
+
+// V = A W + B conj(Wn) at x-frequency kx of M and y-frequency fy (sy =
+// sym_sin(fy, P)), with symbol_stage's symbols (fft_device.cuh).
+__device__ __forceinline__ void sym_apply(int kx, int fy, float sy, int M,
+                                          const SymConsts& c, float2 w,
+                                          float2 wn, float2* v, float2* vn) {
+  const float sx = sym_sin(kx, M);
+  const float lam = (-4.0f * c.inv_dx2) * (sx * sx + sy * sy);
+  const float inv1 = (kx == 0 && fy == 0) ? 0.0f : 1.0f / lam;
+  const float inv2 = 1.0f / (lam + c.alpha2);
+  const float ar = c.a1r * inv1 + c.a2r * inv2, ai = c.a1i * inv1 + c.a2i * inv2;
+  const float br = c.b1r * inv1 + c.b2r * inv2, bi = c.b1i * inv1 + c.b2i * inv2;
+  auto sym = [&](float2 x, float2 n) {
+    return make_float2(ar * x.x - ai * x.y + br * n.x + bi * n.y,
+                       ai * x.x + ar * x.y + bi * n.x - br * n.y);
+  };
+  *v = sym(w, wn);          // at (kx, fy)
+  *vn = sym(wn, w);         // at (-kx, -fy): the same symbols
+}
+
+// Items of step 1 a thread loads before it computes any: 2 kSymBatch
+// complex loads in flight.
+constexpr int kSymBatch = 8;
+
+__global__ void __launch_bounds__(kClusterThreads, 2)
+x_symbols_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
+                         const int* __restrict__ own_slots,
+                         const int* __restrict__ mirror_slots, int P,
+                         int logn2, int logg, int logcw, int logat, int n1y,
+                         SymConsts c, const float2* __restrict__ wm) {
+  namespace cg = cooperative_groups;
+  extern __shared__ float smem[];
+  const int r = static_cast<int>(cg::this_cluster().block_rank());
+  const int n2 = 1 << logn2, cw = 1 << logcw, M = n2 << 7;
+  const int logl1 = 7 - logg, logl2 = logn2 - logg;
+  const int logtb = logl2 + logcw, lognb = logtb + 1;    // B: one tile, both
+  const int logta = logl1 + logcw, logna = logta + logat;
+  float2* B = reinterpret_cast<float2*>(smem);      // 128 rows of 2^lognb
+  float2* A = B + (128 << lognb);                   // n2 rows of 2^logna
+  float2* twa = A + (n2 << logna);                  // W_N2^k, k < n2 / 2
+  float2* twb = twa + n2 / 2;                       // W_128^k, k < 64
+  int* slot = reinterpret_cast<int*>(twb + 64);     // own cw, then mirror cw
+  const int tile = blockIdx.x >> logg;
+  for (int k = threadIdx.x; k < n2 / 2; k += kClusterThreads) twa[k] = wm[k << 7];
+  for (int k = threadIdx.x; k < 64; k += kClusterThreads) twb[k] = wm[k << logn2];
+  for (int k = threadIdx.x; k < 2 * cw; k += kClusterThreads)
+    slot[k] = (k < cw ? own_slots : mirror_slots)[(tile << logcw) + (k & (cw - 1))];
+  __syncthreads();
+  const size_t plane = (size_t)M * P;
+  const int n2y = P / n1y;
+  const int r1 = r << logl1, r2 = r << logl2;
+  auto ld2 = [=](int row, int a) {
+    const size_t off = (size_t)row * P + a;
+    return make_float2(__ldg(in + off), __ldg(in + off + plane));
+  };
+
+  // 1. Item e: column cc, row i = r2 + il of the ordering, k1; its partner
+  // row i' (k2' = (N2 - k2) mod N2) and k1' in the mirror tile. A thread's
+  // items share their column (cw divides kClusterThreads).
+  const int count = 128 << logtb;
+  const int cc = threadIdx.x & (cw - 1), a = slot[cc], b = slot[cw + cc];
+  const int fy = a >= 0 ? slot_freq(a, n1y, n2y) : 0;
+  const float sy = sym_sin(fy, P);
+  for (int e0 = threadIdx.x; e0 < count; e0 += kSymBatch * kClusterThreads) {
+    float2 w[kSymBatch], wn[kSymBatch];
+#pragma unroll
+    for (int u = 0; u < kSymBatch; ++u) {
+      const int e = e0 + u * kClusterThreads;
+      w[u] = wn[u] = make_float2(0.f, 0.f);
+      if (e >= count) continue;
+      const int i = r2 + ((e >> logcw) & ((1 << logl2) - 1));
+      const int k1 = e >> logtb, k2 = sym_k2(i, n2);
+      const int k2p = sym_k2(i < 2 ? i : i ^ 1, n2);
+      const int k1p = k2 == 0 ? (128 - k1) & 127 : 127 - k1;
+      const int s = (k2 << 7) + k1, sp = (k2p << 7) + k1p;
+      if (a == b && s > sp) continue;     // self-mirror: the lower row's item
+      if (a >= 0) w[u] = ld2(s, a);
+      if (b >= 0) wn[u] = a == b && s == sp ? w[u] : ld2(sp, b);
+    }
+#pragma unroll
+    for (int u = 0; u < kSymBatch; ++u) {
+      const int e = e0 + u * kClusterThreads;
+      if (e >= count) continue;
+      const int il = (e >> logcw) & ((1 << logl2) - 1);
+      const int i = r2 + il, ip = i < 2 ? i : i ^ 1;
+      const int k1 = e >> logtb, k2 = sym_k2(i, n2);
+      const int k1p = k2 == 0 ? (128 - k1) & 127 : 127 - k1;
+      const int s = (k2 << 7) + k1, sp = (sym_k2(ip, n2) << 7) + k1p;
+      const int q = bitrev(k1, 7) << lognb, qp = bitrev(k1p, 7) << lognb;
+      const int own_i = (il << logcw) + cc, own_ip = ((ip - r2) << logcw) + cc;
+      float2 v, vn;
+      sym_apply(k2 + (k1 << logn2), fy, sy, M, c, w[u], wn[u], &v, &vn);
+      if (a != b) {
+        B[q + own_i] = v;
+        B[qp + (1 << logtb) + own_ip] = vn;
+      } else {                            // self-mirror or padding
+        B[qp + (1 << logtb) + own_ip] = make_float2(0.f, 0.f);
+        if (s <= sp) {
+          B[q + own_i] = v;
+          B[qp + own_ip] = vn;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // 2. Stage B^-1 in place: row q (k1 = bitrev7(q)) -> row n1.
+  auto rd_b = [=](int q, int b) { return B[(q << lognb) + b]; };
+  auto wr_b = [=](int q, int b, float2 v) { B[(q << lognb) + b] = v; };
+  il_fft<true>(B, lognb, 1 << lognb, 7, twb, rd_b, wr_b, [] {});
+  cg::this_cluster().sync();
+
+  // 3. Stage A^-1, 2^logat tiles at a time: column a of A is tile g0 + (a >>
+  // logta), n1 = r1 + ((a >> logcw) mod L1), column (a mod cw) of the tile;
+  // row p <- the owner of k2 = bitrev(p) (row i = sym_row(k2) of the
+  // ordering), times conj(W_M^(n1 k2)); DIT, then row n2 -> x row N1 n2 + n1,
+  // scaled 1/M.
+  const float scale = 1.0f / static_cast<float>(M);    // exact: M = 2^k
+  for (int g0 = 0; g0 < 2; g0 += 1 << logat) {
+    const bool last = g0 + (1 << logat) == 2;
+    il_fft<true>(A, logna, 1 << logna, logn2, twa,
+        [=](int p, int a) {
+          const int n1 = r1 + ((a >> logcw) & ((1 << logl1) - 1));
+          const int k2 = bitrev(p, logn2), i = sym_row(k2, n2);
+          const int b = ((g0 + (a >> logta)) << logtb) +
+                        ((i & ((1 << logl2) - 1)) << logcw) + (a & (cw - 1));
+          const float2 v = cg::this_cluster().map_shared_rank(
+              static_cast<const float2*>(B), i >> logl2)[(n1 << lognb) + b];
+          return cmul(v, __ldg(wm + n1 * k2), true);
+        },
+        [=](int row, int a, float2 v) {
+          const int g = g0 + (a >> logta), cc = a & (cw - 1);
+          const int s = slot[(g << logcw) + cc];
+          if (s < 0 || (g == 1 && s == slot[cc])) return;
+          const size_t off = (size_t)((row << 7) + r1 +
+                                      ((a >> logcw) & ((1 << logl1) - 1))) *
+                                 P + s;
+          out[off] = v.x * scale;
+          out[off + plane] = v.y * scale;
+        },
+        [=] {
+          if (last) asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+        });
+    if (!last) __syncthreads();             // the next tile reuses A
+  }
+  // No block leaves while a peer may still read its buffer.
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -869,15 +1095,12 @@ int cluster_smem(int logn2, int logg, int logcw) {
   return (2 * tile + (1 << logn2) / 2 + 64) * static_cast<int>(sizeof(float2));
 }
 
-// Sets the instance's attributes (shared memory; a cluster of 16 is
-// non-portable) and fills a launch of `clusters` clusters of 2^logg blocks.
-int cluster_config(int logn2, int logg, int logcw, int clusters,
-                   cudaStream_t stream, cudaLaunchConfig_t& cfg,
-                   cudaLaunchAttribute& attr) {
-  if (logg < 3 || logg > 4 || logn2 < logg)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const void* fn = reinterpret_cast<const void*>(x_dft_cluster_kernel);
-  const int smem = cluster_smem(logn2, logg, logcw);
+// Sets a cluster kernel's attributes (shared memory; a cluster of more
+// than 8 is non-portable) and fills a launch of `clusters` clusters of
+// 2^logg blocks of kClusterThreads.
+int fill_cluster_launch(const void* fn, int smem, int logg, int clusters,
+                        cudaStream_t stream, cudaLaunchConfig_t& cfg,
+                        cudaLaunchAttribute& attr) {
   if (int err = set_smem(fn, smem)) return err;
   if (logg > 3) {
     if (int err = static_cast<int>(cudaFuncSetAttribute(
@@ -896,6 +1119,17 @@ int cluster_config(int logn2, int logg, int logcw, int clusters,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   return 0;
+}
+
+// K4's cluster kernel's launch.
+int cluster_config(int logn2, int logg, int logcw, int clusters,
+                   cudaStream_t stream, cudaLaunchConfig_t& cfg,
+                   cudaLaunchAttribute& attr) {
+  if (logg < 3 || logg > 4 || logn2 < logg)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return fill_cluster_launch(
+      reinterpret_cast<const void*>(x_dft_cluster_kernel),
+      cluster_smem(logn2, logg, logcw), logg, clusters, stream, cfg, attr);
 }
 
 }  // namespace
@@ -1018,6 +1252,72 @@ extern "C" int qg_x_symbols_launch(const float* in, float* out,
       in, out, own_slots, mirror_slots, M, P, logr, m, n1x, n1y, ncols, sub,
       bstride, sym_consts(consts), static_cast<const float2*>(tw),
       static_cast<const float2*>(twn));
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// B (both tiles, 2 M Cw / G float2), A (2^logat tiles, M Cw / G each), the
+// N2/2- and 64-entry tables and the tile's 2 Cw slots.
+int x_symbols_cluster_smem(int logn2, int logg, int logcw, int logat) {
+  const int tile = 1 << (logn2 + 7 - logg + logcw);
+  return (2 * tile + (tile << logat) + (1 << logn2) / 2 + 64) *
+             static_cast<int>(sizeof(float2)) +
+         (2 << logcw) * static_cast<int>(sizeof(int));
+}
+
+// K5's cluster kernel's launch: G = 2^logg in {4, 8, 16}, L2 = N2 / G >= 2.
+int x_symbols_cluster_config(int logn2, int logg, int logcw, int logat,
+                             int tiles, cudaStream_t stream,
+                             cudaLaunchConfig_t& cfg,
+                             cudaLaunchAttribute& attr) {
+  if (logg < 2 || logg > 4 || logn2 < logg + 1 || logat < 0 || logat > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return fill_cluster_launch(
+      reinterpret_cast<const void*>(x_symbols_cluster_kernel),
+      x_symbols_cluster_smem(logn2, logg, logcw, logat), logg, tiles, stream,
+      cfg, attr);
+}
+
+}  // namespace
+
+// The most clusters of K5's cluster kernel's layout that the card holds at
+// once (cudaOccupancyMaxActiveClusters): 0 means the layout cannot run.
+extern "C" int qg_x_symbols_cluster_occupancy(int logn2, int logg, int logcw,
+                                              int logat, int* max_clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (int err = x_symbols_cluster_config(logn2, logg, logcw, logat, 1,
+                                         nullptr, cfg, attr))
+    return err;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      max_clusters, reinterpret_cast<const void*>(x_symbols_cluster_kernel),
+      &cfg));
+}
+
+// K5's cluster kernel on a planar (2, 128 * 2^logn2, P) spectrum: a cluster
+// of 2^logg blocks a tile of the (tiles, 2^logcw) device tables own_slots
+// and mirror_slots (-1 padding), A holding 2^logat tiles at a time; consts:
+// host array of kNumSymConsts floats in SymConsts order; wm: the M-entry
+// float2 table of W_M^j.
+extern "C" int qg_x_symbols_cluster_launch(const float* in, float* out,
+                                           const int* own_slots,
+                                           const int* mirror_slots, int tiles,
+                                           int P, int logn2, int logg,
+                                           int logcw, int logat, int n1y,
+                                           const float* consts, const void* wm,
+                                           void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (int err = x_symbols_cluster_config(logn2, logg, logcw, logat, tiles,
+                                         static_cast<cudaStream_t>(stream),
+                                         cfg, attr))
+    return err;
+  if (cudaError_t err = cudaLaunchKernelEx(
+          &cfg, x_symbols_cluster_kernel, in, out, own_slots, mirror_slots, P,
+          logn2, logg, logcw, logat, n1y, sym_consts(consts),
+          static_cast<const float2*>(wm)))
+    return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

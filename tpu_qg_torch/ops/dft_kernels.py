@@ -418,6 +418,10 @@ def _lib():
                        [p, p, i, i, i, i, i, p, p])
         _build.declare(lib.qg_y_dft_factored_occupancy,
                        [i, i, i, i, ctypes.POINTER(ctypes.c_int)])
+        _build.declare(lib.qg_x_symbols_cluster_launch,
+                       [p] * 4 + [i] * 7 + [p, p, p])
+        _build.declare(lib.qg_x_symbols_cluster_occupancy,
+                       [i, i, i, i, ctypes.POINTER(ctypes.c_int)])
         lib.qg_pair_x_num_consts.restype = ctypes.c_int
         lib.qg_coop_plan_size.restype = ctypes.c_int
     return lib
@@ -981,10 +985,289 @@ def x_dft_stage_a(z: torch.Tensor, inverse: bool) -> torch.Tensor:
 x_dft_stage_a.launches = 0
 
 
-def x_symbols_inverse(W: torch.Tensor, consts) -> torch.Tensor:
-    """K5 on CUDA tensors (one launch), the plain version on CPU tensors."""
-    if W.device.type == "cpu":
-        return x_symbols_inverse_plain(W, consts)
+# K5's cluster kernel (csrc x_symbols_cluster_kernel) on M = 128 * 2^a with
+# N2 = M / 128 >= 2 G: a cluster of G blocks takes an own tile of Cw y slots
+# and its mirror tile (x_symbols_cluster_tiles), block r the k2 rows
+# sym_k2(i), i in [r L2, (r+1) L2), L2 = N2 / G, of both tiles, each k2 row
+# beside its mirror row; buffer A holds At of the two tiles at a time. The
+# layout x_symbols_inverse launches, (G, Cw, At), is at each extent of
+# X_SYMBOLS_CLUSTER_BY_M the one of chip_smoke.py's k5_sweep with the least
+# device time (PERF.md), else X_SYMBOLS_CLUSTER.
+X_SYMBOLS_CLUSTER_SIZES = (4, 8, 16)
+X_SYMBOLS_CLUSTER_WIDTHS = (4, 8, 16)
+X_SYMBOLS_CLUSTER = (8, 8, 1)
+X_SYMBOLS_CLUSTER_BY_M = {4096: (8, 8, 1), 8192: (16, 8, 1)}
+
+
+class SymbolsClusterLayout(NamedTuple):
+    """K5's cluster kernel's shared memory for M = 128 * N2 (csrc
+    x_symbols_cluster_smem): buffer B (128 rows of 2 L2 Cw float2: both
+    tiles) and buffer A (N2 rows of At L1 Cw), a tile's share being M Cw / G
+    float2, then the N2/2- and 64-entry radix-2 tables and the tile's 2 Cw
+    int slots."""
+    n2: int
+    l1: int
+    l2: int
+    tile: int
+    smem: int
+
+
+def x_symbols_cluster_layout(M: int, G: int, Cw: int,
+                             At: int) -> SymbolsClusterLayout:
+    n2 = M // _N1
+    tile = M * Cw // G
+    smem = 8 * ((2 + At) * tile + n2 // 2 + _N1 // 2) + 4 * 2 * Cw
+    return SymbolsClusterLayout(n2, _N1 // G, n2 // G, tile, smem)
+
+
+def x_symbols_cluster_launched(M: int) -> tuple[int, int, int]:
+    """The layout (G, Cw, At) x_symbols_inverse launches at extent M."""
+    return X_SYMBOLS_CLUSTER_BY_M.get(M, X_SYMBOLS_CLUSTER)
+
+
+def x_symbols_cluster_takes(M: int, layout: tuple | None = None) -> bool:
+    """True iff K5's cluster kernel takes extent M at ``layout`` = (G, Cw,
+    At) (by default the launched one): M = 128 * 2^a with N2 = M / 128 >=
+    2 G (every block holds whole pairs of k2 rows), within one block's
+    shared memory. The y extent does not matter: the tile table takes any."""
+    G, Cw, At = layout or x_symbols_cluster_launched(M)
+    n2 = M // _N1
+    return (G in X_SYMBOLS_CLUSTER_SIZES and Cw in X_SYMBOLS_CLUSTER_WIDTHS
+            and At in (1, 2) and M == _N1 * n2 and n2 & (n2 - 1) == 0
+            and n2 >= 2 * G
+            and x_symbols_cluster_layout(M, G, Cw, At).smem <= SMEM_LIMIT)
+
+
+def x_symbols_cluster_tiles(P: int, Cw: int) -> tuple[np.ndarray, np.ndarray]:
+    """K5's cluster tile table for a y extent P = N1y N2y (split_factor):
+    every unordered pair {a, sigma(a)} of permuted y slots (sigma =
+    negate_index(P)) once, strip by strip (strip j: slots j N1y .. j N1y +
+    N1y - 1, its mirror strip (N2y - j) mod N2y), the canonical slots of
+    each strip (a <= sigma(a): all of strip j < its mirror, the lower half of
+    a strip that is its own mirror) cut into tiles of Cw adjacent slots, -1
+    padding a strip's last tile. Returns (own, mirror), each (tiles, Cw)
+    int32, mirror = sigma(own): Cw adjacent slots in reverse, or, in strip 0
+    (lanes l <-> (N1y - l) mod N1y), off by one slot. A self-mirror slot
+    (y-frequency 0 or P/2) is its own mirror."""
+    n1y, n2y = split_factor(P)
+    neg = negate_index(P)
+    tiles = []
+    for j in range(n2y):
+        if j > (n2y - j) % n2y:
+            continue
+        slots = j * n1y + np.arange(n1y)
+        slots = slots[slots <= neg[slots]]
+        for k in range(0, len(slots), Cw):
+            t = np.full(Cw, -1, np.int64)
+            t[:len(slots[k:k + Cw])] = slots[k:k + Cw]
+            tiles.append(t)
+    own = np.stack(tiles)
+    mirror = np.where(own >= 0, neg[np.maximum(own, 0)], -1)
+    return own.astype(np.int32), mirror.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def _device_cluster_tiles(P: int, Cw: int, device: torch.device):
+    return tuple(torch.as_tensor(t, device=device)
+                 for t in x_symbols_cluster_tiles(P, Cw))
+
+
+def _sym_rows(n2: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(k2 of each row i of a cluster's ordering, row of each k2): csrc
+    sym_k2 and sym_row. Rows 0 and 1 hold k2 = 0 and N2/2, rows 2m and 2m + 1
+    the pair m, N2 - m."""
+    i = torch.arange(n2)
+    k2 = torch.where(i < 2, i * (n2 // 2),
+                     torch.where(i % 2 == 1, n2 - i // 2, i // 2))
+    row = torch.empty_like(k2)
+    row[k2] = i
+    return k2, row
+
+
+def x_symbols_cluster_emulated(W: torch.Tensor, consts, G: int, Cw: int):
+    """What K5's cluster kernel does at (G, Cw), for all tiles and blocks at
+    once, in plain torch: each block's loads of its k2 rows and their
+    mirror rows with the symbol stage into buffer B (k1 at row bitrev7(k1);
+    a self-mirror slot's lower rows load and write both rows of a pair),
+    the 128-point inverse DIT (torch.fft from the bit-reversed rows), the
+    pull of its n1 rows from every block's B through sym_row with
+    conj(W_M^(n1 k2)), the N2-point inverse DIT and the stores, with the CUDA
+    source's index arithmetic. The symbols are symbol_stage's formula in W's
+    precision. Returns (out, loads, stores): x_symbols_inverse_plain's
+    result and how many times each (row, slot) of the input was loaded and
+    of the output stored."""
+    _, M, P = W.shape
+    if not x_symbols_cluster_takes(M, (G, Cw, 1)):
+        raise ValueError(f"K5's cluster kernel does not take M = {M} at "
+                         f"G = {G}, Cw = {Cw}")
+    n2, l1, l2, _, _ = x_symbols_cluster_layout(M, G, Cw, 1)
+    c = torch.complex(W[0], W[1])
+    real = W.dtype
+    wm = torch.as_tensor(np.exp(-2j * np.pi * np.arange(M) / M)).to(c.dtype)
+    bra, brb = _bitrev(n2.bit_length() - 1), _bitrev(7)
+    own, mir = (torch.as_tensor(t, dtype=torch.int64)
+                for t in x_symbols_cluster_tiles(P, Cw))
+    T, nb = own.shape[0], 2 * l2 * Cw
+    n1y, n2y = split_factor(P)
+    k2_of, row_of = _sym_rows(n2)
+    _, _, inv_dx2, alpha2, a1, a2, b1, b2 = consts
+    loads = torch.zeros((M, P), dtype=torch.int64)
+    stores = torch.zeros((M, P), dtype=torch.int64)
+
+    def count(counter, mask, row, col):
+        row, col = (torch.broadcast_to(x, mask.shape)[mask] for x in (row, col))
+        counter.index_put_((row, col), torch.ones_like(row), accumulate=True)
+
+    # 1. Item e of block r (dim 1) of tile t (dim 0): column cc, row i of
+    # the ordering, k1; the partner row ip and k1p.
+    e = torch.arange(_N1 * l2 * Cw)
+    cc, il, k1 = e % Cw, (e // Cw) % l2, e // (Cw * l2)
+    r = torch.arange(G)[:, None]
+    i = r * l2 + il
+    ip = torch.where(i < 2, i, i ^ 1)
+    k2, k2p = k2_of[i], k2_of[ip]
+    k1p = torch.where(k2 == 0, (_N1 - k1) % _N1, _N1 - 1 - k1)
+    s, sp = _N1 * k2 + k1, _N1 * k2p + k1p                   # (G, E)
+    a, b = own[:, None, cc], mir[:, None, cc]                # (T, 1, E)
+    self_ = a == b
+    skip = self_ & (s > sp)
+    load_w = (a >= 0) & ~skip
+    load_wn = (b >= 0) & ~skip & ~(self_ & (s == sp))
+    zero = torch.zeros((), dtype=c.dtype)
+    w = torch.where(load_w, c[s, a.clamp(min=0)], zero)
+    wn = torch.where(load_wn, c[sp, b.clamp(min=0)],
+                     torch.where(self_ & (s == sp), w, zero))
+    count(loads, load_w, s, a)
+    count(loads, load_wn, sp, b)
+    kx = k2 + n2 * k1
+    fy = torch.where(a >= 0, a // n1y + n2y * (a % n1y), 0)
+    sx = torch.sin(np.pi * torch.minimum(kx, M - kx).to(real) / M)
+    sy = torch.sin(np.pi * torch.minimum(fy, P - fy).to(real) / P)
+    lam = (-4.0 * inv_dx2) * (sx * sx + sy * sy)
+    at_zero = (kx == 0) & (fy == 0)
+    inv1 = torch.where(at_zero, 0.0, 1.0 / torch.where(at_zero, 1.0, lam))
+    inv2 = 1.0 / (lam + alpha2)
+
+    def symbol(c1: complex, c2: complex) -> torch.Tensor:
+        return torch.complex(c1.real * inv1 + c2.real * inv2,
+                             c1.imag * inv1 + c2.imag * inv2)
+
+    sa, sb = symbol(a1, a2), symbol(b1, b2)
+    v = sa * w + sb * wn.conj()
+    vn = sa * wn + sb * w.conj()
+    q, qp = brb[k1], brb[k1p]
+    own_i = il * Cw + cc
+    own_ip = (ip - r * l2) * Cw + cc
+    buf = torch.zeros((T, G, _N1 * nb), dtype=c.dtype)
+    tt = torch.arange(T)[:, None, None]
+    rr = r[None]
+
+    def put(mask, pos, val):
+        mask = torch.broadcast_to(mask, (T, G, len(e)))
+        idx = [torch.broadcast_to(x, mask.shape)[mask] for x in (tt, rr, pos)]
+        buf[idx[0], idx[1], idx[2]] = torch.broadcast_to(val, mask.shape)[mask]
+
+    put(~self_, q * nb + own_i, v)
+    put(~self_, qp * nb + l2 * Cw + own_ip, vn)
+    put(self_, qp * nb + l2 * Cw + own_ip, zero)
+    put(self_ & (s <= sp), q * nb + own_i, v)
+    put(self_ & (s <= sp), qp * nb + own_ip, vn)
+
+    # 2. Stage B^-1: row p holds k1 = bitrev7(p) in, row n1 natural out.
+    buf = buf.reshape(T, G, _N1, nb)
+    first = torch.fft.ifft(buf[:, :, brb], dim=2, norm="forward")
+
+    # 3. Stage A^-1: block r's column a (tile g, n1, column col) at DIT
+    # position p (k2 = bitrev(p)) from the owner of row sym_row(k2).
+    pa = torch.arange(n2)[:, None]
+    fa = torch.arange(2 * l1 * Cw)[None, :]
+    g, col = fa // (l1 * Cw), fa % Cw
+    n1 = r[:, :, None] * l1 + (fa // Cw) % l1                # (G, 1, NA)
+    kk = bra[pa]
+    ii = row_of[kk]                                          # (n2, 1)
+    bcol = g * l2 * Cw + (ii % l2) * Cw + col                # (n2, NA)
+    pulled = first[:, ii // l2, n1, bcol] * wm[n1 * kk].conj()
+    nat = torch.fft.ifft(pulled[:, :, bra], dim=2, norm="forward") / M
+    # nat[t, r, n2, a]: x row N1 n2 + n1, the slot of tile g's column col.
+    slot = torch.where(g == 0, own[:, None, None, col[0]],
+                       mir[:, None, None, col[0]])          # (T, 1, 1, NA)
+    dup = (g == 1) & (slot == own[:, None, None, col[0]])
+    ok = (slot >= 0) & ~dup
+    xrow = _N1 * torch.arange(n2)[None, None, :, None] + n1[None]
+    ok, xrow, slot = (torch.broadcast_to(x, nat.shape)
+                      for x in (ok, xrow, slot))
+    out = torch.zeros_like(c)
+    out[xrow[ok], slot[ok]] = nat[ok]
+    count(stores, ok, xrow, slot)
+    return _planar(out, W.dtype), loads, stores
+
+
+@functools.lru_cache(maxsize=32)
+def x_symbols_cluster_occupancy(M: int, layout: tuple, device: int) -> int:
+    """The most clusters of K5's cluster layout = (G, Cw, At) at extent M
+    that card ``device`` holds at once (cudaOccupancyMaxActiveClusters); 0:
+    the layout cannot be scheduled."""
+    G, Cw, At = layout
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = _lib().qg_x_symbols_cluster_occupancy(
+            (M // _N1).bit_length() - 1, G.bit_length() - 1,
+            Cw.bit_length() - 1, At - 1, ctypes.byref(count))
+    _build.check(code, f"x_symbols cluster occupancy {layout} at M = {M}")
+    return count.value
+
+
+def x_symbols_cluster(W: torch.Tensor, consts,
+                      layout: tuple | None = None) -> torch.Tensor:
+    """One launch of K5's cluster kernel (csrc x_symbols_cluster_kernel) on a
+    CUDA (2, M, P) float32 spectrum, M = 128 * 2^a, with ``layout`` = (G,
+    Cw, At), by default x_symbols_cluster_launched(M): x_symbols_inverse's
+    result. Raises on a shape or layout the kernel does not take, a layout
+    the card cannot schedule and a launch error. Counts nothing: the
+    counting wrapper is x_symbols_inverse.
+
+    Replaces, as x_symbols_inverse_kernel does, tpu_qg/ops/pallas_fft.py
+    PlanarFFT2._call_x_symbols (:1176) and _call_x_stream(Z, True, consts)
+    (:1122). Bound: one read and one write of the field (1074 MB at
+    8192^2, 0.321 ms at 3.35 TB/s). Why a cluster: x_symbols_inverse_kernel
+    holds whole columns (64 KB each at M = 8192), so one slot pair fits a
+    block and a warp moves 4-byte runs a row. Here the G blocks of a
+    cluster share an own tile of Cw slots and its mirror tile, each block
+    the symbol stage and stage B^-1 on its k2 rows (each beside its mirror
+    row), then its part of stage A^-1 pulled from its peers' shared memory
+    (design in the source)."""
+    _, M, P = W.shape
+    layout = tuple(layout or x_symbols_cluster_launched(M))
+    _cuda_field("x_symbols_cluster", W, x_kernels_take, M, P)
+    if not x_symbols_cluster_takes(M, layout):
+        raise ValueError(f"x_symbols_cluster: M = {M} must be 128 * 2^a with "
+                         f"M / 128 >= 2 G and the layout {layout} (G, Cw, At) "
+                         f"fit shared memory")
+    vals = check_consts("x_symbols_cluster", consts, M, P)
+    G, Cw, At = layout
+    device = W.device.index if W.device.index is not None else \
+        torch.cuda.current_device()
+    if x_symbols_cluster_occupancy(M, layout, device) == 0:
+        raise RuntimeError(f"x_symbols_cluster: the card cannot schedule a "
+                           f"cluster of layout {layout} at M = {M}")
+    own, mirror = _device_cluster_tiles(P, Cw, W.device)
+    out = torch.empty_like(W)
+    code = _lib().qg_x_symbols_cluster_launch(
+        W.data_ptr(), out.data_ptr(), own.data_ptr(), mirror.data_ptr(),
+        own.shape[0], P, (M // _N1).bit_length() - 1, G.bit_length() - 1,
+        Cw.bit_length() - 1, At - 1, split_factor(P)[0], vals,
+        _twiddles(M, M, W.device).data_ptr(),
+        torch.cuda.current_stream(W.device).cuda_stream)
+    _build.check(code, f"x_symbols_cluster (K5) {layout}")
+    return out
+
+
+def x_symbols_whole_columns(W: torch.Tensor, consts) -> torch.Tensor:
+    """One launch of x_symbols_inverse_kernel (a block whole columns of C
+    slot pairs) on a CUDA (2, M, P) float32 spectrum at any extent it takes:
+    x_symbols_inverse's result. Raises on a shape it does not take and a
+    launch error. Counts nothing: the counting wrapper is
+    x_symbols_inverse."""
     _, M, P = W.shape
     _cuda_field("x_symbols_inverse", W, x_kernels_take, M, P)
     vals = check_consts("x_symbols_inverse", consts, M, P)
@@ -998,11 +1281,30 @@ def x_symbols_inverse(W: torch.Tensor, consts) -> torch.Tensor:
         C, sub, bstride, vals, tw, twn, _threads(C, M),
         torch.cuda.current_stream(W.device).cuda_stream)
     _build.check(code, "x_symbols_inverse (K5)")
+    return out
+
+
+def x_symbols_inverse(W: torch.Tensor, consts) -> torch.Tensor:
+    """K5 on CUDA tensors (one launch), the plain version on CPU tensors.
+    Two hand-written kernels chosen by shape: the cluster kernel
+    (x_symbols_cluster, layout x_symbols_cluster_launched(M)) where
+    x_symbols_cluster_takes(M), counted also in
+    ``x_symbols_inverse.cluster_launches``; x_symbols_inverse_kernel
+    (x_symbols_whole_columns) on the rest (mixed extents M = 128 * n, and
+    M < 256 G)."""
+    if W.device.type == "cpu":
+        return x_symbols_inverse_plain(W, consts)
+    if x_symbols_cluster_takes(W.shape[1]):
+        out = x_symbols_cluster(W, consts)
+        x_symbols_inverse.cluster_launches += 1
+    else:
+        out = x_symbols_whole_columns(W, consts)
     x_symbols_inverse.launches += 1
     return out
 
 
 x_symbols_inverse.launches = 0
+x_symbols_inverse.cluster_launches = 0
 
 
 # ---------------------------------------------------------------------------
