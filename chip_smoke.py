@@ -31,7 +31,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    (x_symbols_inverse_kernel's mixed extent); K4's cluster kernel
    in every layout (G, Cw) that fits at 4096^2 and 8192^2, with
    the clusters the card holds at once and ms each way in turns beside
-   torch.fft.fft; K5's cluster kernel in every layout (G, Cw, At) that
+   torch.fft.fft; K5's cluster kernel in every layout (G, Cw) that
    fits at 4096^2 and 8192^2, with the clusters the card holds and ms in
    turns beside x_symbols_inverse_kernel, torch.fft.ifft along x (a
    yardstick: not K5's function) and a copy, host-launched and replayed
@@ -802,12 +802,12 @@ def phase_k4_sweep(dev, card, sizes=(4096, 8192), reps=20) -> dict:
 
 
 def k5_layout_name(layout) -> str:
-    return "G={} Cw={} At={}".format(*layout)
+    return "G={} Cw={}".format(*layout)
 
 
 def phase_k5_sweep(dev, pod, card, sizes=(4096, 8192), reps=20) -> dict:
     """K5's cluster kernel in every layout (G blocks a cluster, Cw y slots a
-    tile, At tiles in buffer A at a time) that fits shared memory, at n^2:
+    tile) that fits shared memory, at n^2:
     its bytes of shared memory, the clusters the card holds at once
     (cudaOccupancyMaxActiveClusters), its largest error against the plain
     version, and ms a launch, the layouts in turns (in order, then in
@@ -824,9 +824,8 @@ def phase_k5_sweep(dev, pod, card, sizes=(4096, 8192), reps=20) -> dict:
         consts = inverter(pod.replace(M=n, P=n))._sym_consts
         want = x_symbols_inverse_plain(x, consts)
         rows, calls = {}, {}
-        for lay in ((g, c, a) for g in dft_kernels.X_SYMBOLS_CLUSTER_SIZES
-                    for c in dft_kernels.X_SYMBOLS_CLUSTER_WIDTHS
-                    for a in (1, 2)):
+        for lay in ((g, c) for g in dft_kernels.X_SYMBOLS_CLUSTER_SIZES
+                    for c in dft_kernels.X_SYMBOLS_CLUSTER_WIDTHS):
             if not x_symbols_cluster_takes(n, lay):
                 continue
             key = k5_layout_name(lay)
@@ -2151,7 +2150,7 @@ def main() -> None:
         "cluster_launches": sum(run["K5 cluster"]
                                 for run in launches.values()),
         "kernels": {"x_symbols_cluster_kernel": "M = 128 * 2^a, M >= 256 G "
-                    "(layout at 8192: G={} Cw={} At={})".format(
+                    "(layout at 8192: G={} Cw={})".format(
                         *dft_kernels.x_symbols_cluster_launched(8192)),
                     "x_symbols_inverse_kernel": "mixed extents, M < 256 G"},
         "sweep_8192": k5_sweep[8192]}

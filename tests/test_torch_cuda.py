@@ -163,9 +163,8 @@ def test_x_symbols_cluster_kernel(dev, M, P):
             x_symbols_inverse.cluster_launches) == (n[0] + 1, n[1] + 1)
     if M != 4096:
         return
-    for layout in ((G, Cw, At) for G in dft_kernels.X_SYMBOLS_CLUSTER_SIZES
-                   for Cw in dft_kernels.X_SYMBOLS_CLUSTER_WIDTHS
-                   for At in (1, 2)):
+    for layout in ((G, Cw) for G in dft_kernels.X_SYMBOLS_CLUSTER_SIZES
+                   for Cw in dft_kernels.X_SYMBOLS_CLUSTER_WIDTHS):
         if (x_symbols_cluster_takes(M, layout) and
                 dft_kernels.x_symbols_cluster_occupancy(M, layout, 0)):
             assert _rel(x_symbols_cluster(x, consts, layout), want) <= 1e-4
@@ -201,11 +200,11 @@ def test_four_pass_inversion_takes_the_cluster_k5(dev):
 def test_x_symbols_cluster_refuses_what_it_does_not_take(dev):
     x = torch.zeros((2, 8192, 256), device=dev)
     consts = _consts(8192, 256)
-    with pytest.raises(ValueError):                 # 260 KB of shared memory
-        x_symbols_cluster(x, consts, (16, 16, 2))
+    with pytest.raises(ValueError):                 # 385 KB of shared memory
+        x_symbols_cluster(x, consts, (4, 8))
     with pytest.raises(ValueError):                 # N2 = 8 < 2 G
         x_symbols_cluster(torch.zeros((2, 1024, 256), device=dev),
-                          _consts(1024, 256), (8, 8, 1))
+                          _consts(1024, 256), (8, 8))
     with pytest.raises(ValueError):                 # a mixed extent
         x_symbols_cluster(torch.zeros((2, 6144, 256), device=dev),
                           _consts(6144, 256))

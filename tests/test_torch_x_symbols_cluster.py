@@ -46,7 +46,7 @@ def _layouts():
     for M in (1024, 2048, 4096):
         taken = [(G, Cw) for G in X_SYMBOLS_CLUSTER_SIZES
                  for Cw in X_SYMBOLS_CLUSTER_WIDTHS
-                 if x_symbols_cluster_takes(M, (G, Cw, 1))]
+                 if x_symbols_cluster_takes(M, (G, Cw))]
         out += [(M, PS[k % len(PS)], G, Cw)
                 for k, (G, Cw) in enumerate(taken)]
     return out
@@ -151,28 +151,27 @@ def test_layouts_fit_shared_memory_and_the_table_is_taken():
         M = 128 << a
         for G in X_SYMBOLS_CLUSTER_SIZES:
             for Cw in X_SYMBOLS_CLUSTER_WIDTHS:
-                for At in (1, 2):
-                    if x_symbols_cluster_takes(M, (G, Cw, At)):
-                        assert (x_symbols_cluster_layout(M, G, Cw, At).smem
-                                <= SMEM_LIMIT)
-                        assert M // 128 >= 2 * G
+                if x_symbols_cluster_takes(M, (G, Cw)):
+                    assert x_symbols_cluster_layout(M, G, Cw).smem <= SMEM_LIMIT
+                    assert M // 128 >= 2 * G
     for M, layout in X_SYMBOLS_CLUSTER_BY_M.items():
         assert x_symbols_cluster_launched(M) == layout
         assert x_symbols_cluster_takes(M) and x_kernels_take(M, M)
     assert x_symbols_cluster_launched(2048) == X_SYMBOLS_CLUSTER
     assert not x_symbols_cluster_takes(6144)           # mixed: 2048 * 3
-    assert not x_symbols_cluster_takes(1024, (8, 8, 1))   # N2 = 8 < 2 G
-    assert not x_symbols_cluster_takes(8192, (16, 16, 2))  # 260 KB
+    assert not x_symbols_cluster_takes(1024, (8, 8))      # N2 = 8 < 2 G
+    assert not x_symbols_cluster_takes(8192, (4, 8))      # 385 KB
 
 
 def test_layout_at_8192():
-    """The launched layout at M = 8192 is the table's; (16, 8, 1) there: B
-    64 KB (both tiles), A 32 KB (one tile), the 0.75 KB of tables and 16
-    slots."""
-    assert x_symbols_cluster_launched(8192) == X_SYMBOLS_CLUSTER_BY_M[8192]
-    lay = x_symbols_cluster_layout(8192, 16, 8, 1)
+    """The launched layout at M = 8192 is (16, 8): B 64 KB (both tiles), A
+    32 KB (one tile), the 0.75 KB of radix-2 tables and 16 slots; two
+    blocks fit an SM."""
+    assert x_symbols_cluster_launched(8192) == (16, 8)
+    lay = x_symbols_cluster_layout(8192, 16, 8)
     assert (lay.n2, lay.l1, lay.l2, lay.tile) == (64, 8, 4, 4096)
     assert lay.smem == 8 * (3 * 4096 + 32 + 64) + 4 * 16 == 99136
+    assert 2 * (lay.smem + 1024) <= 228 * 1024
 
 
 def test_wrapper_takes_the_plain_version_on_cpu():

@@ -777,12 +777,14 @@ x_symbols_inverse_kernel(const float* __restrict__ in, float* __restrict__ out,
 //      8), and applies the symbol stage, V = A W + B conj(W(-k)), on the way
 //      into buffer B (k1 at row bitrev7(k1));
 //   2. stage B^-1: 128-point inverse DIT along k1 (row n1 natural);
-//   3. cluster barrier; stage A^-1: pulls its n1 rows [r L1, (r+1) L1) of
-//      every peer's B times conj(W_M^(n1 k2)) into A at the DIT position of
-//      k2, N2-point inverse DIT, scales 1/M and stores rows N1 n2 + n1 of
-//      both tiles (A holds one tile or both at a time: the layout's At);
-//      a split cluster barrier (arrive after the last pull, wait before
-//      exit), as in K4.
+//   3. cluster barrier; stage A^-1, the own tile and then the mirror tile
+//      through buffer A: pulls its n1 rows [r L1, (r+1) L1) of every peer's
+//      B times conj(W_M^(n1 k2)) into A at the DIT position of k2, N2-point
+//      inverse DIT, scales 1/M and stores rows N1 n2 + n1; a split cluster
+//      barrier (arrive after the last pull, wait before exit), as in K4.
+//      Holding both tiles in A at once (tried) needs a third more shared
+//      memory, leaves one block an SM at (G, Cw) = (16, 8) at M = 8192, and
+//      was the fastest layout at neither 4096 nor 8192 (PERF.md).
 // The mirror row. W(-k) at permuted x slot k2 N1 + k1 sits at slot
 // ((N2 - k2) mod N2) N1 + k1', k1' = 127 - k1 (k1' = (128 - k1) mod 128 for
 // k2 = 0), in the mirror tile. K4 gives block r the k2 at its DIF positions
@@ -802,10 +804,13 @@ x_symbols_inverse_kernel(const float* __restrict__ in, float* __restrict__ out,
 // write_group does for the other kernels). The symbols are symbol_stage's:
 // the same SymConsts, the cancellation-free lambda = -4/dx^2 (sin^2(pi
 // kx'/M) + sin^2(pi ky'/P)), inv1 = 0 at (0, 0).
-// Shared memory: B, 2 M Cw / G float2 (both tiles), A, At M Cw / G, the
+// Shared memory: B, 2 M Cw / G float2 (both tiles), A, M Cw / G, the
 // N2/2- and 64-entry tables (0.75 KB at M = 8192) and the tile's 2 Cw
-// slots (dft_kernels.x_symbols_cluster_layout). The grid is G blocks a
-// tile of the table.
+// slots: 96.8 KB at M = 8192, G = 16, Cw = 8, two blocks an SM
+// (dft_kernels.x_symbols_cluster_layout). The symbol stage's per-column
+// terms are computed once a thread; a per-block table of the rows'
+// sin^2(pi kx'/M) (tried) was slower. The grid is G blocks a tile of the
+// table.
 // ---------------------------------------------------------------------------
 
 // Rows i of a cluster's ordering and their k2: 0, N2/2, then 1, N2 - 1, 2,
@@ -852,7 +857,7 @@ __global__ void __launch_bounds__(kClusterThreads, 2)
 x_symbols_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
                          const int* __restrict__ own_slots,
                          const int* __restrict__ mirror_slots, int P,
-                         int logn2, int logg, int logcw, int logat, int n1y,
+                         int logn2, int logg, int logcw, int n1y,
                          SymConsts c, const float2* __restrict__ wm) {
   namespace cg = cooperative_groups;
   extern __shared__ float smem[];
@@ -860,7 +865,7 @@ x_symbols_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
   const int n2 = 1 << logn2, cw = 1 << logcw, M = n2 << 7;
   const int logl1 = 7 - logg, logl2 = logn2 - logg;
   const int logtb = logl2 + logcw, lognb = logtb + 1;    // B: one tile, both
-  const int logta = logl1 + logcw, logna = logta + logat;
+  const int logna = logl1 + logcw;                       // A: one tile
   float2* B = reinterpret_cast<float2*>(smem);      // 128 rows of 2^lognb
   float2* A = B + (128 << lognb);                   // n2 rows of 2^logna
   float2* twa = A + (n2 << logna);                  // W_N2^k, k < n2 / 2
@@ -936,38 +941,33 @@ x_symbols_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
   il_fft<true>(B, lognb, 1 << lognb, 7, twb, rd_b, wr_b, [] {});
   cg::this_cluster().sync();
 
-  // 3. Stage A^-1, 2^logat tiles at a time: column a of A is tile g0 + (a >>
-  // logta), n1 = r1 + ((a >> logcw) mod L1), column (a mod cw) of the tile;
-  // row p <- the owner of k2 = bitrev(p) (row i = sym_row(k2) of the
-  // ordering), times conj(W_M^(n1 k2)); DIT, then row n2 -> x row N1 n2 + n1,
-  // scaled 1/M.
+  // 3. Stage A^-1, tile g (0 own, 1 mirror) in turn: column a of A is n1 =
+  // r1 + (a >> logcw), column (a mod cw) of the tile; row p <- the owner of
+  // k2 = bitrev(p) (row i = sym_row(k2) of the ordering), times
+  // conj(W_M^(n1 k2)); DIT, then row n2 -> x row N1 n2 + n1, scaled 1/M.
   const float scale = 1.0f / static_cast<float>(M);    // exact: M = 2^k
-  for (int g0 = 0; g0 < 2; g0 += 1 << logat) {
-    const bool last = g0 + (1 << logat) == 2;
+  for (int g = 0; g < 2; ++g) {
     il_fft<true>(A, logna, 1 << logna, logn2, twa,
         [=](int p, int a) {
-          const int n1 = r1 + ((a >> logcw) & ((1 << logl1) - 1));
+          const int n1 = r1 + (a >> logcw);
           const int k2 = bitrev(p, logn2), i = sym_row(k2, n2);
-          const int b = ((g0 + (a >> logta)) << logtb) +
-                        ((i & ((1 << logl2) - 1)) << logcw) + (a & (cw - 1));
+          const int b = (g << logtb) + ((i & ((1 << logl2) - 1)) << logcw) +
+                        (a & (cw - 1));
           const float2 v = cg::this_cluster().map_shared_rank(
               static_cast<const float2*>(B), i >> logl2)[(n1 << lognb) + b];
           return cmul(v, __ldg(wm + n1 * k2), true);
         },
         [=](int row, int a, float2 v) {
-          const int g = g0 + (a >> logta), cc = a & (cw - 1);
-          const int s = slot[(g << logcw) + cc];
-          if (s < 0 || (g == 1 && s == slot[cc])) return;
-          const size_t off = (size_t)((row << 7) + r1 +
-                                      ((a >> logcw) & ((1 << logl1) - 1))) *
-                                 P + s;
+          const int s = slot[(g << logcw) + (a & (cw - 1))];
+          if (s < 0 || (g == 1 && s == slot[a & (cw - 1)])) return;
+          const size_t off = (size_t)((row << 7) + r1 + (a >> logcw)) * P + s;
           out[off] = v.x * scale;
           out[off + plane] = v.y * scale;
         },
         [=] {
-          if (last) asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+          if (g == 1) asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
         });
-    if (!last) __syncthreads();             // the next tile reuses A
+    if (g == 0) __syncthreads();            // the mirror tile reuses A
   }
   // No block leaves while a peer may still read its buffer.
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
@@ -1257,26 +1257,25 @@ extern "C" int qg_x_symbols_launch(const float* in, float* out,
 
 namespace {
 
-// B (both tiles, 2 M Cw / G float2), A (2^logat tiles, M Cw / G each), the
-// N2/2- and 64-entry tables and the tile's 2 Cw slots.
-int x_symbols_cluster_smem(int logn2, int logg, int logcw, int logat) {
+// B (both tiles, 2 M Cw / G float2), A (one tile, M Cw / G), the N2/2- and
+// 64-entry tables and the tile's 2 Cw slots.
+int x_symbols_cluster_smem(int logn2, int logg, int logcw) {
   const int tile = 1 << (logn2 + 7 - logg + logcw);
-  return (2 * tile + (tile << logat) + (1 << logn2) / 2 + 64) *
+  return (3 * tile + (1 << logn2) / 2 + 64) *
              static_cast<int>(sizeof(float2)) +
          (2 << logcw) * static_cast<int>(sizeof(int));
 }
 
 // K5's cluster kernel's launch: G = 2^logg in {4, 8, 16}, L2 = N2 / G >= 2.
-int x_symbols_cluster_config(int logn2, int logg, int logcw, int logat,
-                             int tiles, cudaStream_t stream,
-                             cudaLaunchConfig_t& cfg,
+int x_symbols_cluster_config(int logn2, int logg, int logcw, int tiles,
+                             cudaStream_t stream, cudaLaunchConfig_t& cfg,
                              cudaLaunchAttribute& attr) {
-  if (logg < 2 || logg > 4 || logn2 < logg + 1 || logat < 0 || logat > 1)
+  if (logg < 2 || logg > 4 || logn2 < logg + 1)
     return static_cast<int>(cudaErrorInvalidValue);
   return fill_cluster_launch(
       reinterpret_cast<const void*>(x_symbols_cluster_kernel),
-      x_symbols_cluster_smem(logn2, logg, logcw, logat), logg, tiles, stream,
-      cfg, attr);
+      x_symbols_cluster_smem(logn2, logg, logcw), logg, tiles, stream, cfg,
+      attr);
 }
 
 }  // namespace
@@ -1284,11 +1283,11 @@ int x_symbols_cluster_config(int logn2, int logg, int logcw, int logat,
 // The most clusters of K5's cluster kernel's layout that the card holds at
 // once (cudaOccupancyMaxActiveClusters): 0 means the layout cannot run.
 extern "C" int qg_x_symbols_cluster_occupancy(int logn2, int logg, int logcw,
-                                              int logat, int* max_clusters) {
+                                              int* max_clusters) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  if (int err = x_symbols_cluster_config(logn2, logg, logcw, logat, 1,
-                                         nullptr, cfg, attr))
+  if (int err = x_symbols_cluster_config(logn2, logg, logcw, 1, nullptr, cfg,
+                                         attr))
     return err;
   return static_cast<int>(cudaOccupancyMaxActiveClusters(
       max_clusters, reinterpret_cast<const void*>(x_symbols_cluster_kernel),
@@ -1297,25 +1296,24 @@ extern "C" int qg_x_symbols_cluster_occupancy(int logn2, int logg, int logcw,
 
 // K5's cluster kernel on a planar (2, 128 * 2^logn2, P) spectrum: a cluster
 // of 2^logg blocks a tile of the (tiles, 2^logcw) device tables own_slots
-// and mirror_slots (-1 padding), A holding 2^logat tiles at a time; consts:
-// host array of kNumSymConsts floats in SymConsts order; wm: the M-entry
-// float2 table of W_M^j.
+// and mirror_slots (-1 padding); consts: host array of kNumSymConsts floats
+// in SymConsts order; wm: the M-entry float2 table of W_M^j.
 extern "C" int qg_x_symbols_cluster_launch(const float* in, float* out,
                                            const int* own_slots,
                                            const int* mirror_slots, int tiles,
                                            int P, int logn2, int logg,
-                                           int logcw, int logat, int n1y,
+                                           int logcw, int n1y,
                                            const float* consts, const void* wm,
                                            void* stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  if (int err = x_symbols_cluster_config(logn2, logg, logcw, logat, tiles,
+  if (int err = x_symbols_cluster_config(logn2, logg, logcw, tiles,
                                          static_cast<cudaStream_t>(stream),
                                          cfg, attr))
     return err;
   if (cudaError_t err = cudaLaunchKernelEx(
           &cfg, x_symbols_cluster_kernel, in, out, own_slots, mirror_slots, P,
-          logn2, logg, logcw, logat, n1y, sym_consts(consts),
+          logn2, logg, logcw, n1y, sym_consts(consts),
           static_cast<const float2*>(wm)))
     return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -419,9 +419,9 @@ def _lib():
         _build.declare(lib.qg_y_dft_factored_occupancy,
                        [i, i, i, i, ctypes.POINTER(ctypes.c_int)])
         _build.declare(lib.qg_x_symbols_cluster_launch,
-                       [p] * 4 + [i] * 7 + [p, p, p])
+                       [p] * 4 + [i] * 6 + [p, p, p])
         _build.declare(lib.qg_x_symbols_cluster_occupancy,
-                       [i, i, i, i, ctypes.POINTER(ctypes.c_int)])
+                       [i, i, i, ctypes.POINTER(ctypes.c_int)])
         lib.qg_pair_x_num_consts.restype = ctypes.c_int
         lib.qg_coop_plan_size.restype = ctypes.c_int
     return lib
@@ -989,22 +989,22 @@ x_dft_stage_a.launches = 0
 # N2 = M / 128 >= 2 G: a cluster of G blocks takes an own tile of Cw y slots
 # and its mirror tile (x_symbols_cluster_tiles), block r the k2 rows
 # sym_k2(i), i in [r L2, (r+1) L2), L2 = N2 / G, of both tiles, each k2 row
-# beside its mirror row; buffer A holds At of the two tiles at a time. The
-# layout x_symbols_inverse launches, (G, Cw, At), is at each extent of
-# X_SYMBOLS_CLUSTER_BY_M the one of chip_smoke.py's k5_sweep with the least
-# device time (PERF.md), else X_SYMBOLS_CLUSTER.
+# beside its mirror row. The layout x_symbols_inverse launches, (G, Cw), is
+# at each extent of X_SYMBOLS_CLUSTER_BY_M the one of chip_smoke.py's
+# k5_sweep with the least device time (PERF.md), else X_SYMBOLS_CLUSTER
+# (4096's).
 X_SYMBOLS_CLUSTER_SIZES = (4, 8, 16)
 X_SYMBOLS_CLUSTER_WIDTHS = (4, 8, 16)
-X_SYMBOLS_CLUSTER = (8, 8, 1)
-X_SYMBOLS_CLUSTER_BY_M = {4096: (8, 8, 1), 8192: (16, 8, 1)}
+X_SYMBOLS_CLUSTER = (8, 8)
+X_SYMBOLS_CLUSTER_BY_M = {4096: (8, 8), 8192: (16, 8)}
 
 
 class SymbolsClusterLayout(NamedTuple):
     """K5's cluster kernel's shared memory for M = 128 * N2 (csrc
     x_symbols_cluster_smem): buffer B (128 rows of 2 L2 Cw float2: both
-    tiles) and buffer A (N2 rows of At L1 Cw), a tile's share being M Cw / G
-    float2, then the N2/2- and 64-entry radix-2 tables and the tile's 2 Cw
-    int slots."""
+    tiles) and buffer A (N2 rows of L1 Cw: one tile), a tile's share being
+    M Cw / G float2, then the N2/2- and 64-entry radix-2 tables and the
+    tile's 2 Cw int slots."""
     n2: int
     l1: int
     l2: int
@@ -1012,30 +1012,28 @@ class SymbolsClusterLayout(NamedTuple):
     smem: int
 
 
-def x_symbols_cluster_layout(M: int, G: int, Cw: int,
-                             At: int) -> SymbolsClusterLayout:
+def x_symbols_cluster_layout(M: int, G: int, Cw: int) -> SymbolsClusterLayout:
     n2 = M // _N1
     tile = M * Cw // G
-    smem = 8 * ((2 + At) * tile + n2 // 2 + _N1 // 2) + 4 * 2 * Cw
+    smem = 8 * (3 * tile + n2 // 2 + _N1 // 2) + 4 * 2 * Cw
     return SymbolsClusterLayout(n2, _N1 // G, n2 // G, tile, smem)
 
 
-def x_symbols_cluster_launched(M: int) -> tuple[int, int, int]:
-    """The layout (G, Cw, At) x_symbols_inverse launches at extent M."""
+def x_symbols_cluster_launched(M: int) -> tuple[int, int]:
+    """The layout (G, Cw) x_symbols_inverse launches at extent M."""
     return X_SYMBOLS_CLUSTER_BY_M.get(M, X_SYMBOLS_CLUSTER)
 
 
 def x_symbols_cluster_takes(M: int, layout: tuple | None = None) -> bool:
-    """True iff K5's cluster kernel takes extent M at ``layout`` = (G, Cw,
-    At) (by default the launched one): M = 128 * 2^a with N2 = M / 128 >=
-    2 G (every block holds whole pairs of k2 rows), within one block's
-    shared memory. The y extent does not matter: the tile table takes any."""
-    G, Cw, At = layout or x_symbols_cluster_launched(M)
+    """True iff K5's cluster kernel takes extent M at ``layout`` = (G, Cw)
+    (by default the launched one): M = 128 * 2^a with N2 = M / 128 >= 2 G
+    (every block holds whole pairs of k2 rows), within one block's shared
+    memory. The y extent does not matter: the tile table takes any."""
+    G, Cw = layout or x_symbols_cluster_launched(M)
     n2 = M // _N1
     return (G in X_SYMBOLS_CLUSTER_SIZES and Cw in X_SYMBOLS_CLUSTER_WIDTHS
-            and At in (1, 2) and M == _N1 * n2 and n2 & (n2 - 1) == 0
-            and n2 >= 2 * G
-            and x_symbols_cluster_layout(M, G, Cw, At).smem <= SMEM_LIMIT)
+            and M == _N1 * n2 and n2 & (n2 - 1) == 0 and n2 >= 2 * G
+            and x_symbols_cluster_layout(M, G, Cw).smem <= SMEM_LIMIT)
 
 
 def x_symbols_cluster_tiles(P: int, Cw: int) -> tuple[np.ndarray, np.ndarray]:
@@ -1097,10 +1095,10 @@ def x_symbols_cluster_emulated(W: torch.Tensor, consts, G: int, Cw: int):
     result and how many times each (row, slot) of the input was loaded and
     of the output stored."""
     _, M, P = W.shape
-    if not x_symbols_cluster_takes(M, (G, Cw, 1)):
+    if not x_symbols_cluster_takes(M, (G, Cw)):
         raise ValueError(f"K5's cluster kernel does not take M = {M} at "
                          f"G = {G}, Cw = {Cw}")
-    n2, l1, l2, _, _ = x_symbols_cluster_layout(M, G, Cw, 1)
+    n2, l1, l2, _, _ = x_symbols_cluster_layout(M, G, Cw)
     c = torch.complex(W[0], W[1])
     real = W.dtype
     wm = torch.as_tensor(np.exp(-2j * np.pi * np.arange(M) / M)).to(c.dtype)
@@ -1204,15 +1202,15 @@ def x_symbols_cluster_emulated(W: torch.Tensor, consts, G: int, Cw: int):
 
 @functools.lru_cache(maxsize=32)
 def x_symbols_cluster_occupancy(M: int, layout: tuple, device: int) -> int:
-    """The most clusters of K5's cluster layout = (G, Cw, At) at extent M
-    that card ``device`` holds at once (cudaOccupancyMaxActiveClusters); 0:
-    the layout cannot be scheduled."""
-    G, Cw, At = layout
+    """The most clusters of K5's cluster layout = (G, Cw) at extent M that
+    card ``device`` holds at once (cudaOccupancyMaxActiveClusters); 0: the
+    layout cannot be scheduled."""
+    G, Cw = layout
     count = ctypes.c_int(0)
     with torch.cuda.device(device):
         code = _lib().qg_x_symbols_cluster_occupancy(
             (M // _N1).bit_length() - 1, G.bit_length() - 1,
-            Cw.bit_length() - 1, At - 1, ctypes.byref(count))
+            Cw.bit_length() - 1, ctypes.byref(count))
     _build.check(code, f"x_symbols cluster occupancy {layout} at M = {M}")
     return count.value
 
@@ -1221,7 +1219,7 @@ def x_symbols_cluster(W: torch.Tensor, consts,
                       layout: tuple | None = None) -> torch.Tensor:
     """One launch of K5's cluster kernel (csrc x_symbols_cluster_kernel) on a
     CUDA (2, M, P) float32 spectrum, M = 128 * 2^a, with ``layout`` = (G,
-    Cw, At), by default x_symbols_cluster_launched(M): x_symbols_inverse's
+    Cw), by default x_symbols_cluster_launched(M): x_symbols_inverse's
     result. Raises on a shape or layout the kernel does not take, a layout
     the card cannot schedule and a launch error. Counts nothing: the
     counting wrapper is x_symbols_inverse.
@@ -1241,10 +1239,10 @@ def x_symbols_cluster(W: torch.Tensor, consts,
     _cuda_field("x_symbols_cluster", W, x_kernels_take, M, P)
     if not x_symbols_cluster_takes(M, layout):
         raise ValueError(f"x_symbols_cluster: M = {M} must be 128 * 2^a with "
-                         f"M / 128 >= 2 G and the layout {layout} (G, Cw, At) "
+                         f"M / 128 >= 2 G and the layout {layout} (G, Cw) "
                          f"fit shared memory")
     vals = check_consts("x_symbols_cluster", consts, M, P)
-    G, Cw, At = layout
+    G, Cw = layout
     device = W.device.index if W.device.index is not None else \
         torch.cuda.current_device()
     if x_symbols_cluster_occupancy(M, layout, device) == 0:
@@ -1255,7 +1253,7 @@ def x_symbols_cluster(W: torch.Tensor, consts,
     code = _lib().qg_x_symbols_cluster_launch(
         W.data_ptr(), out.data_ptr(), own.data_ptr(), mirror.data_ptr(),
         own.shape[0], P, (M // _N1).bit_length() - 1, G.bit_length() - 1,
-        Cw.bit_length() - 1, At - 1, split_factor(P)[0], vals,
+        Cw.bit_length() - 1, split_factor(P)[0], vals,
         _twiddles(M, M, W.device).data_ptr(),
         torch.cuda.current_stream(W.device).cuda_stream)
     _build.check(code, f"x_symbols_cluster (K5) {layout}")
