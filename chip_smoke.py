@@ -617,7 +617,8 @@ def time_k2_mixed(dev, card, reps=20) -> dict:
     """y_dft_kernel (K2 on a mixed extent) on (2, rows, P) of
     K2_MIXED_SHAPES, ms a launch each way beside one torch.fft.fft along y
     of the same complex64 field and a torch copy, in turns, host-launched
-    (time_ms) and replayed from a CUDA graph (graph_ms); the bound of each
+    (time_ms) and replayed from a CUDA graph (graph_ms); the plain version
+    host-launched, ms a launch over both ways, twice; the bound of each
     shape. Returns the entries by shape."""
     rng = np.random.default_rng(SEED + 12)
     out = {}
@@ -635,6 +636,9 @@ def time_k2_mixed(dev, card, reps=20) -> dict:
             runs[k][1].append(graph_ms(calls[k], reps))
         entry = {k: {"ms": sum(r) / 2, "graph_ms": sum(g) / 2, "runs_ms": r,
                      "graph_runs_ms": g} for k, (r, g) in runs.items()}
+        entry["plain_runs_ms"] = [time_ms(lambda: (
+            y_dft_plain(x, False), y_dft_plain(x, True)), reps) / 2
+            for _ in range(2)]
         entry["bound_ms"] = bound("K2", rows, P)[0]
         emit("k2_mixed", card=card, shape=[2, rows, P], **entry)
         out[f"{rows}x{P}"] = entry

@@ -831,7 +831,9 @@ __device__ __forceinline__ float sym_sin(int k, int N) {
 }
 
 // V = A W + B conj(Wn) at x-frequency kx of M and y-frequency fy (sy =
-// sym_sin(fy, P)), with symbol_stage's symbols (fft_device.cuh).
+// sym_sin(fy, P)), with symbol_stage's symbols (fft_device.cuh), written
+// out for one element here so that the kernels built on symbol_stage (K3,
+// K7, K13, K14, K16, K17) keep their code as it is.
 __device__ __forceinline__ void sym_apply(int kx, int fy, float sy, int M,
                                           const SymConsts& c, float2 w,
                                           float2 wn, float2* v, float2* vn) {

@@ -658,10 +658,11 @@ def pair_x_layout(M: int) -> tuple[int, int, int, int]:
     return _columns_layout(M, lambda C, cs, b: 4 * C * (cs + b))
 
 
-# K4 and K5 take the most columns that fit one block: at 128 registers a
-# thread, one 512-thread block fills an SM's registers anyway, and more
-# columns per block mean longer runs per row (K4 forward at 8192^2: 2.77 ms
-# with C = 2 against 3.57 ms with C = 1 on an H100, PERF.md).
+# K4's and K5's whole-column kernels take the most columns that fit one
+# block: at 128 registers a thread, one 512-thread block fills an SM's
+# registers anyway, and more columns per block mean longer runs per row (K4
+# forward at 8192^2: 2.77 ms with C = 2 against 3.57 ms with C = 1 on an
+# H100, PERF.md).
 def x_dft_layout(M: int, inverse: bool) -> tuple[int, int, int, int]:
     """K4's layout: C adjacent y slots per block; C columns and, for the
     inverse of m > 1, C natural-order spectra (csrc qg_x_dft_launch)."""
@@ -826,9 +827,9 @@ def x_dft_cluster_emulated(z: torch.Tensor, inverse: bool, G: int, Cw: int,
 
 
 def x_symbols_layout(M: int) -> tuple[int, int, int, int]:
-    """K5's layout: C slot pairs per block; 2C columns for m = 1, else 2C
-    natural-order spectra and C columns of sub-columns (csrc
-    qg_x_symbols_launch)."""
+    """The layout of K5's whole-column kernel (x_symbols_inverse_kernel): C
+    slot pairs per block; 2C columns for m = 1, else 2C natural-order
+    spectra and C columns of sub-columns (csrc qg_x_symbols_launch)."""
     return _columns_layout(
         M, lambda C, cs, b: 2 * (2 * C * b + C * cs) if b else 4 * C * cs,
         SMEM_LIMIT)
