@@ -140,8 +140,10 @@ from tpu_qg_torch.constants import DAY
 from tpu_qg_torch.models.core import QGModel, State, init_state
 from tpu_qg_torch.ops import _build, dft_kernels
 from tpu_qg_torch.ops.dft_kernels import (
-    mirror_companion, mono_invert, mono_invert_plain, pair_x_symbols,
-    pair_x_symbols_plain, paired_x_symbols, paired_x_symbols_plain,
+    mirror_companion, mono_invert, mono_invert_plain, pair_x_cluster,
+    pair_x_cluster_layout, pair_x_cluster_occupancy, pair_x_cluster_takes,
+    pair_x_symbols, pair_x_symbols_plain, pair_x_whole_columns,
+    paired_x_symbols, paired_x_symbols_plain,
     stream_pair_symbols, stream_pair_symbols_plain, x_dft, x_dft_cluster,
     x_dft_cluster_layout, x_dft_cluster_occupancy, x_dft_cluster_takes,
     x_dft_plain, x_dft_stage_a, x_dft_stage_a_plain, x_fwd_symbols_offset,
@@ -231,7 +233,8 @@ KERNELS = {
 class KernelCount:
     """A wrapper's count of the launches that took one of its two kernels
     (x_dft.cluster_launches: K4's cluster kernel;
-    x_symbols_inverse.cluster_launches: K5's; y_dft.factored_launches: K2's
+    x_symbols_inverse.cluster_launches: K5's;
+    pair_x_symbols.cluster_launches: K3's; y_dft.factored_launches: K2's
     factored kernel), as a counter with a ``launches`` field."""
 
     def __init__(self, wrapper, attr: str):
@@ -256,6 +259,7 @@ COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
             "K15s": fused_step_yspec_sharded, "K18": lab_step,
             "K4 cluster": KernelCount(x_dft, "cluster_launches"),
             "K5 cluster": KernelCount(x_symbols_inverse, "cluster_launches"),
+            "K3 cluster": KernelCount(pair_x_symbols, "cluster_launches"),
             "K2 factored": KernelCount(y_dft, "factored_launches")}
 # Kernel names in a profiler trace, the one-launch kernels, K8, K9, K12 and
 # K18 before K1: a mangled K8, K9 or K12 name holds the source file's name,
@@ -271,7 +275,8 @@ TRACE_NAMES = (("K17", "coop_fullstep_kernel"), ("K16", "coop_mono_kernel"),
                ("K5", "x_symbols_cluster_kernel"),
                ("K5", "x_symbols_inverse_kernel"),
                ("K4", "x_dft_cluster_kernel"), ("K4", "x_dft_kernel"),
-               ("K3", "pair_x_kernel"), ("K2", "y_dft_factored_kernel"),
+               ("K3", "pair_x_cluster_kernel"), ("K3", "pair_x_kernel"),
+               ("K2", "y_dft_factored_kernel"),
                ("K2", "y_dft_kernel"),
                ("K18", "lab_step_kernel"), ("K1", "step_kernel"))
 
@@ -409,10 +414,10 @@ def phase_build() -> None:
     info = _build.build_info()
     lines = info["ptxas"].splitlines()
     regs = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
-    # K4's and K5's cluster kernels and K2's factored kernel: each
+    # K4's, K5's and K3's cluster kernels and K2's factored kernel: each
     # instance's registers, shared memory, spills.
     named = {"x_dft_cluster_kernel": {}, "x_symbols_cluster_kernel": {},
-             "y_dft_factored_kernel": {}}
+             "pair_x_cluster_kernel": {}, "y_dft_factored_kernel": {}}
     entry = None
     for ln in lines:
         if "Compiling entry function" in ln:
@@ -425,6 +430,7 @@ def phase_build() -> None:
          nvcc_seconds=info["seconds"], library=info["path"], ptxas=regs,
          k4_cluster_ptxas=named["x_dft_cluster_kernel"],
          k5_cluster_ptxas=named["x_symbols_cluster_kernel"],
+         k3_cluster_ptxas=named["pair_x_cluster_kernel"],
          k2_factored_ptxas=named["y_dft_factored_kernel"])
 
 
@@ -533,8 +539,28 @@ def check_yspec_kernel(errs, cfg, operands, step_cases, tag="") -> None:
                         TOL["K15 zeta_ys"] if part == "zeta_ys" else None)
 
 
+def check_k3(errs, cfg, x, case) -> None:
+    """K3 against its plain version on ``x``, with the cluster count rising
+    by 1 exactly where pair_x_symbols launches the cluster kernel."""
+    consts = inverter(cfg.replace(M=x.shape[1], P=x.shape[2]))._sym_consts
+    n = pair_x_symbols.cluster_launches
+    errs.record("K3", case, pair_x_symbols(x, consts),
+                pair_x_symbols_plain(x, consts))
+    torch.cuda.synchronize()
+    n = pair_x_symbols.cluster_launches - n
+    if n != int(pair_x_cluster_takes(x.shape[1])):
+        raise AssertionError(f"K3 {case}: {n} cluster launches")
+
+
+# K3 beside the 2048^2 slices' field: the cluster kernel at 1024^2 and on a
+# P with strip 0's ragged tile and an odd strip count, pair_x_kernel at a
+# mixed extent (2432 = 128 * 19) and below M = 256 G.
+K3_SHAPES = ((1024, 1024), (2048, 384), (2432, 2048), (384, 256))
+
+
 def phase_kernels(errs, cfg, dev) -> None:
-    """K1, K2, K3, K8, K16, K17 and K15 at the 2048^2 slices' shapes."""
+    """K1, K2, K3, K8, K16, K17 and K15 at the 2048^2 slices' shapes; K3
+    also at K3_SHAPES."""
     rng = np.random.default_rng(SEED)
     check_step_kernel(errs, cfg, dev, rng)
 
@@ -544,8 +570,12 @@ def phase_kernels(errs, cfg, dev) -> None:
         errs.record("K2", "inverse" if inverse else "forward",
                     y_dft(x, inverse), y_dft_plain(x, inverse))
     consts = inverter(cfg)._sym_consts
-    errs.record("K3", "random y-spectrum", pair_x_symbols(x, consts),
-                pair_x_symbols_plain(x, consts))
+    check_k3(errs, cfg, x, "random y-spectrum")
+    rng3 = np.random.default_rng(SEED + 13)
+    for M, P in K3_SHAPES:
+        check_k3(errs, cfg, torch.as_tensor(
+            rng3.standard_normal((2, M, P)), dtype=torch.float32, device=dev),
+            f"{M}x{P} random y-spectrum")
     errs.record("K16", "random field", mono_invert(x, consts),
                 mono_invert_plain(x, consts))
     zeta = init_state(cfg, dev).zeta
@@ -868,6 +898,82 @@ def phase_k5_sweep(dev, pod, card, sizes=(4096, 8192), reps=20) -> dict:
              layouts=rows, reference_ms=refs, bound_ms=bound("K5", n, n)[0])
         out[n] = dict(layouts=rows, reference_ms=refs)
         del x, c64, calls
+        free_memory()
+    return out
+
+
+def phase_k3_sweep(dev, turb, card, sizes=(1024, 2048), timed=(2048,),
+                   reps=20) -> dict:
+    """K3's cluster kernel in every layout (G blocks a cluster, Cw y slots a
+    tile; buffer A holding one tile or both) that fits shared memory, at
+    n^2: its bytes of shared memory, the clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters) and its largest error against the
+    plain version; at the sizes in ``timed`` also ms a launch, the layouts
+    in turns (in order, then in reverse), beside pair_x_kernel (whole
+    columns, the kernel it replaces there), K4's cluster kernel then K5's
+    (the four-pass route's x-stage, two launches, the spectrum through
+    device memory), one torch.fft.fft and one torch.fft.ifft along x of the
+    same complex64 field (a yardstick only: not K3's function) and a torch
+    copy of the field: host-launched (time_ms) and replayed from a CUDA
+    graph (graph_ms). Returns the entries by grid."""
+    rng = np.random.default_rng(SEED + 14)
+    out = {}
+    for n in sizes:
+        x = torch.as_tensor(rng.standard_normal((2, n, n)),
+                            dtype=torch.float32, device=dev)
+        consts = inverter(turb.replace(M=n, P=n))._sym_consts
+        want = pair_x_symbols_plain(x, consts)
+        rows, calls = {}, {}
+        for lay in ((g, c) for g in dft_kernels.PAIR_X_CLUSTER_SIZES
+                    for c in dft_kernels.PAIR_X_CLUSTER_WIDTHS):
+            for a_tiles in (1, 2):
+                if not pair_x_cluster_takes(n, lay, a_tiles):
+                    continue
+                key = "G={} Cw={} A={}".format(*lay, a_tiles)
+                occ = pair_x_cluster_occupancy(n, lay, dev.index, a_tiles)
+                rows[key] = dict(
+                    smem=pair_x_cluster_layout(n, *lay, a_tiles).smem,
+                    max_active_clusters=occ)
+                if occ == 0:             # the card cannot schedule it
+                    continue
+                err = rel_err(pair_x_cluster(x, consts, lay, a_tiles),
+                              want)[1]
+                rows[key]["rel_err"] = err
+                if not err <= TOL["K3"]:
+                    raise AssertionError(f"K3 cluster {key} at {n}^2: rel "
+                                         f"err {err} > {TOL['K3']}")
+                calls[key] = (lambda lay=lay, a_tiles=a_tiles:
+                              pair_x_cluster(x, consts, lay, a_tiles))
+        refs = {}
+        if n in timed:
+            pair = lambda: x_symbols_cluster(x_dft_cluster(x, False), consts)
+            refs["K4 cluster + K5 cluster rel_err"] = rel_err(pair(), want)[1]
+            c64 = torch.complex(x[0], x[1])
+            calls["pair_x_kernel"] = lambda: pair_x_whole_columns(x, consts)
+            calls["K4 cluster + K5 cluster"] = pair
+            calls["library fft + ifft along x"] = (
+                lambda: torch.fft.ifft(torch.fft.fft(c64, dim=0), dim=0))
+            calls["copy"] = lambda: x.clone()
+            runs = {k: ([], []) for k in calls}
+            for k in list(calls) + list(calls)[::-1]:
+                runs[k][0].append(time_ms(calls[k], reps))
+                runs[k][1].append(graph_ms(calls[k], reps))
+            for key, (r, g) in runs.items():
+                if key in rows:
+                    rows[key].update(ms=sum(r) / 2, graph_ms=sum(g) / 2,
+                                     runs_ms=r, graph_runs_ms=g)
+                else:
+                    refs[key] = sum(r) / 2
+                    refs[key + " graph"] = sum(g) / 2
+            del c64
+        del want
+        emit("k3_sweep", card=card, grid=[n, n],
+             launched="G={} Cw={} A={}".format(
+                 *dft_kernels.pair_x_cluster_launched(n),
+                 dft_kernels.PAIR_X_CLUSTER_A_TILES),
+             layouts=rows, reference_ms=refs, bound_ms=bound("K3", n, n)[0])
+        out[n] = dict(layouts=rows, reference_ms=refs)
+        del x, calls
         free_memory()
     return out
 
@@ -1447,13 +1553,14 @@ def phase_mesh_one_rank(turb, pod, dev, card) -> tuple[dict, dict]:
         launches = {}
         for name, cfg, steps, expect, route in (
                 ("turbulence-2048 mesh (1, 1)", turb, 100,
-                 {"K12": 100, "K2": 200, "K2 factored": 200, "K3": 100},
-                 "fused"),
+                 {"K12": 100, "K2": 200, "K2 factored": 200, "K3": 100,
+                  "K3 cluster": 100}, "fused"),
                 ("pod-8192 mesh (1, 1)", pod, 20,
                  {"K12": 20, "K2": 40, "K2 factored": 40, "K4": 20, "K5": 20,
                   "K4 cluster": 20, "K5 cluster": 20}, "fused"),
                 ("turbulence-2048 step_chain=on mesh (1, 1)", chain, 20,
-                 {"K15s": 20, "K3": 20, "K2": 2 * run_chunks(chain, 20),
+                 {"K15s": 20, "K3": 20, "K3 cluster": 20,
+                  "K2": 2 * run_chunks(chain, 20),
                   "K2 factored": 2 * run_chunks(chain, 20)}, "chain")):
             launches[name] = run_mesh_slice(name, cfg, mesh, dev, steps,
                                             expect, route)
@@ -2063,6 +2170,7 @@ def main() -> None:
     phase_x_kernels(errs, pod, dev)
     k4_sweep = phase_k4_sweep(dev, card)
     k5_sweep = phase_k5_sweep(dev, pod, card)
+    k3_sweep = phase_k3_sweep(dev, turb, card)
     k2_sweep = phase_k2_sweep(dev, card)
     k2_mixed = time_k2_mixed(dev, card)
     phase_mg_kernels(errs, turb, pod_mg, dev)
@@ -2071,7 +2179,8 @@ def main() -> None:
 
     slices = (
         ("turbulence-2048", turb, 100,
-         {"K1": 100, "K2": 200, "K2 factored": 200, "K3": 100}, "default"),
+         {"K1": 100, "K2": 200, "K2 factored": 200, "K3": 100,
+          "K3 cluster": 100}, "default"),
         ("turbulence-2048 pin", turb.replace(poisson_gauge="pin"), 100,
          {"K8": 100}, "default"),
         ("turbulence-2048 fft_mono=on", forms["mono"], 100,
@@ -2079,7 +2188,8 @@ def main() -> None:
         ("turbulence-2048 step_full=on", forms["fullstep"], 100,
          {"K17": 100}, "fullstep"),
         ("turbulence-2048 step_chain=on", forms["chain"], 100,
-         {"K15": 100, "K3": 100, "K2": 2 * run_chunks(forms["chain"], 100),
+         {"K15": 100, "K3": 100, "K3 cluster": 100,
+          "K2": 2 * run_chunks(forms["chain"], 100),
           "K2 factored": 2 * run_chunks(forms["chain"], 100)}, "chain"),
         ("pod-8192", pod, 50, {"K1": 50, "K2": 100, "K2 factored": 100,
                                "K4": 50, "K5": 50, "K4 cluster": 50,
@@ -2158,6 +2268,15 @@ def main() -> None:
                         *dft_kernels.x_symbols_cluster_launched(8192)),
                     "x_symbols_inverse_kernel": "mixed extents, M < 256 G"},
         "sweep_8192": k5_sweep[8192]}
+    extra["K3"] = {
+        "cluster_launches": sum(run["K3 cluster"]
+                                for run in launches.values()),
+        "kernels": {"pair_x_cluster_kernel": "M = 128 * 2^a, M >= 256 G "
+                    "(layouts: {}, else {})".format(
+                        dft_kernels.PAIR_X_CLUSTER_BY_M,
+                        dft_kernels.PAIR_X_CLUSTER),
+                    "pair_x_kernel": "mixed extents, M < 256 G"},
+        "sweep_2048": k3_sweep[2048]}
     extra["K2"] = {
         "factored_launches": sum(run["K2 factored"]
                                  for run in launches.values()),

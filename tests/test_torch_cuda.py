@@ -7,8 +7,8 @@ Marked ``cuda``; without a card every test skips. On a machine with one:
 Tolerances relative to max|plain|: K1 and K8 1e-6, K2 and K4 1e-5 (K2's
 factored kernel in every layout, K4's cluster kernel's first half, stage
 A, too), K3 and
-K5 1e-4 (the 1/lambda symbol amplifies low-k float32 rounding; K5's
-cluster kernel in every layout too), a four-pass inversion on a smooth
+K5 1e-4 (the 1/lambda symbol amplifies low-k float32 rounding; K3's and
+K5's cluster kernels in every layout too), a four-pass inversion on a smooth
 zeta no less accurate against float64 than twice the plain versions'; the
 one-launch kernels as the kernels they fuse: K16 1e-4, K17 1e-6 (zeta_new,
 carry) and 1e-4 (psi_new), K15 1e-6 (zeta_new, carry) and 1e-5 (zeta_ys);
@@ -26,8 +26,9 @@ import torch
 from tpu_qg_torch import preset
 from tpu_qg_torch.models.core import QGModel, init_state
 from tpu_qg_torch.ops.dft_kernels import (
-    mirror_companion, mono_invert, mono_invert_plain, pair_x_symbols,
-    pair_x_symbols_plain, paired_x_symbols, paired_x_symbols_plain,
+    mirror_companion, mono_invert, mono_invert_plain, pair_x_cluster,
+    pair_x_cluster_takes, pair_x_symbols, pair_x_symbols_plain,
+    paired_x_symbols, paired_x_symbols_plain,
     stream_pair_symbols, stream_pair_symbols_plain, x_dft,
     x_dft_cluster_takes, x_dft_plain, x_dft_stage_a, x_dft_stage_a_plain,
     x_fwd_symbols_offset, x_fwd_symbols_offset_plain, x_symbols_cluster,
@@ -107,6 +108,56 @@ def test_dft_kernels(dev, M, P):
         cfg.back_projection_matrix())._sym_consts
     assert _rel(pair_x_symbols(x, consts),
                 pair_x_symbols_plain(x, consts)) <= 1e-4
+
+
+# K3's cluster kernel: 1024^2 and 2048^2, and ragged P (strip 0's last
+# tile, an odd strip count), every layout at each.
+@pytest.mark.parametrize("M,P", [(1024, 1024), (2048, 2048), (2048, 384),
+                                 (1024, 640)])
+def test_pair_x_cluster_kernel(dev, M, P):
+    x = _fields(M, P, dev, seed=M + P)[1]
+    consts = _consts(M, P)
+    want = pair_x_symbols_plain(x, consts)
+    n = (pair_x_symbols.launches, pair_x_symbols.cluster_launches)
+    assert _rel(pair_x_symbols(x, consts), want) <= 1e-4
+    torch.cuda.synchronize()
+    assert (pair_x_symbols.launches,
+            pair_x_symbols.cluster_launches) == (n[0] + 1, n[1] + 1)
+    for layout in ((G, Cw) for G in dft_kernels.PAIR_X_CLUSTER_SIZES
+                   for Cw in dft_kernels.PAIR_X_CLUSTER_WIDTHS):
+        for a_tiles in (1, 2):
+            if (pair_x_cluster_takes(M, layout, a_tiles) and
+                    dft_kernels.pair_x_cluster_occupancy(M, layout, 0,
+                                                         a_tiles)):
+                assert _rel(pair_x_cluster(x, consts, layout, a_tiles),
+                            want) <= 1e-4
+    torch.cuda.synchronize()
+    assert pair_x_symbols.cluster_launches == n[1] + 1   # counts none
+
+
+# pair_x_kernel keeps the mixed extents (2432 = 128 * 19) and M < 256 G.
+@pytest.mark.parametrize("M,P", [(2432, 2048), (384, 256), (512, 512)])
+def test_pair_x_kernel_keeps_the_other_extents(dev, M, P):
+    x = _fields(M, P, dev, seed=M + P)[1]
+    consts = _consts(M, P)
+    n = (pair_x_symbols.launches, pair_x_symbols.cluster_launches)
+    assert _rel(pair_x_symbols(x, consts),
+                pair_x_symbols_plain(x, consts)) <= 1e-4
+    torch.cuda.synchronize()
+    assert (pair_x_symbols.launches,
+            pair_x_symbols.cluster_launches) == (n[0] + 1, n[1])
+
+
+def test_pair_x_cluster_refuses_what_it_does_not_take(dev):
+    x = torch.zeros((2, 1024, 256), device=dev)
+    consts = _consts(1024, 256)
+    with pytest.raises(ValueError):                 # N2 = 8 < 2 G
+        pair_x_cluster(x, consts, (8, 8))
+    with pytest.raises(ValueError):                 # a mixed extent
+        pair_x_cluster(torch.zeros((2, 1536, 256), device=dev),
+                       _consts(1536, 256))
+    with pytest.raises(TypeError):
+        pair_x_cluster(x.double(), consts)
 
 
 # Four-pass extents: powers of two, and the mixed radix 2560 = 512 * 5,

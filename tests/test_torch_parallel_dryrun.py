@@ -18,7 +18,7 @@ inverters against tpu_qg's single-device fused inversion.
   * the fused 2-D step on (4, 2): zeta 1e-5, psi 5e-5.
 
 The dry run's distributed multigrid check has no counterpart yet (not
-ported: ROADMAP.md queue 1, item 14's remainder)."""
+ported: ROADMAP.md queue 1, item 2, the distributed multigrid)."""
 
 import jax
 import numpy as np

@@ -422,6 +422,10 @@ def _lib():
                        [p] * 4 + [i] * 6 + [p, p, p])
         _build.declare(lib.qg_x_symbols_cluster_occupancy,
                        [i, i, i, ctypes.POINTER(ctypes.c_int)])
+        _build.declare(lib.qg_pair_x_cluster_launch,
+                       [p] * 4 + [i] * 7 + [p, p, p])
+        _build.declare(lib.qg_pair_x_cluster_occupancy,
+                       [i, i, i, i, ctypes.POINTER(ctypes.c_int)])
         lib.qg_pair_x_num_consts.restype = ctypes.c_int
         lib.qg_coop_plan_size.restype = ctypes.c_int
     return lib
@@ -863,10 +867,11 @@ def _cuda_field(what: str, z: torch.Tensor, takes, M: int, P: int) -> None:
                          f"of two, m odd <= {MAX_ODD}) within shared memory")
 
 
-def pair_x_symbols(Zy: torch.Tensor, consts) -> torch.Tensor:
-    """K3 on CUDA tensors (one launch), the plain version on CPU tensors."""
-    if Zy.device.type == "cpu":
-        return pair_x_symbols_plain(Zy, consts)
+def pair_x_whole_columns(Zy: torch.Tensor, consts) -> torch.Tensor:
+    """One launch of pair_x_kernel (a block whole columns of C slot pairs)
+    on a CUDA (2, M, P) float32 y-spectral field at any extent it takes:
+    pair_x_symbols's result. Raises on a shape it does not take and a
+    launch error. Counts nothing: the counting wrapper is pair_x_symbols."""
     _, M, P = Zy.shape
     _cuda_field("pair_x_symbols", Zy, kernels_take, M, P)
     vals = check_consts("pair_x_symbols", consts, M, P)
@@ -880,11 +885,7 @@ def pair_x_symbols(Zy: torch.Tensor, consts) -> torch.Tensor:
         vals, tw, twn, _threads(C, M),
         torch.cuda.current_stream(Zy.device).cuda_stream)
     _build.check(code, "pair_x_symbols (K3)")
-    pair_x_symbols.launches += 1
     return out
-
-
-pair_x_symbols.launches = 0
 
 
 @functools.lru_cache(maxsize=32)
@@ -1083,42 +1084,25 @@ def _sym_rows(n2: int) -> tuple[torch.Tensor, torch.Tensor]:
     return k2, row
 
 
-def x_symbols_cluster_emulated(W: torch.Tensor, consts, G: int, Cw: int):
-    """What K5's cluster kernel does at (G, Cw), for all tiles and blocks at
-    once, in plain torch: each block's loads of its k2 rows and their
-    mirror rows with the symbol stage into buffer B (k1 at row bitrev7(k1);
-    a self-mirror slot's lower rows load and write both rows of a pair),
-    the 128-point inverse DIT (torch.fft from the bit-reversed rows), the
-    pull of its n1 rows from every block's B through sym_row with
-    conj(W_M^(n1 k2)), the N2-point inverse DIT and the stores, with the CUDA
-    source's index arithmetic. The symbols are symbol_stage's formula in W's
-    precision. Returns (out, loads, stores): x_symbols_inverse_plain's
-    result and how many times each (row, slot) of the input was loaded and
-    of the output stored."""
-    _, M, P = W.shape
-    if not x_symbols_cluster_takes(M, (G, Cw)):
-        raise ValueError(f"K5's cluster kernel does not take M = {M} at "
-                         f"G = {G}, Cw = {Cw}")
-    n2, l1, l2, _, _ = x_symbols_cluster_layout(M, G, Cw)
-    c = torch.complex(W[0], W[1])
-    real = W.dtype
-    wm = torch.as_tensor(np.exp(-2j * np.pi * np.arange(M) / M)).to(c.dtype)
-    bra, brb = _bitrev(n2.bit_length() - 1), _bitrev(7)
-    own, mir = (torch.as_tensor(t, dtype=torch.int64)
-                for t in x_symbols_cluster_tiles(P, Cw))
+def _sym_stage_emulated(M: int, P: int, consts, G: int, Cw: int, own, mir,
+                        real: torch.dtype, read, buf: torch.Tensor,
+                        zero_mirror: bool) -> torch.Tensor:
+    """The symbol stage of K5's and K3's cluster kernels, for all tiles
+    (dim 0) and blocks (dim 1) at once: item e of block r is column cc, row
+    i of the ordering, k1; its partner row ip (k2 -> (N2 - k2) mod N2), k1p
+    in the mirror tile, or in the own column for a self-mirror slot (or
+    padding), whose lower row's item (s <= sp) takes both. ``read(s, sp, a,
+    b, own_pos, mir_pos, self_, skip)`` gives each item's (w, wn); V = A w +
+    B conj(wn) goes to own_pos and Vn = A wn + B conj(w) to mir_pos of
+    ``buf`` ((T, G, 128 nb), k1 at row bitrev7(k1)), with symbol_stage's
+    symbols in ``real`` precision; ``zero_mirror``: a self-mirror slot's
+    mirror column is written zero (K5; K3's holds zeros already)."""
+    n2, l2 = M // _N1, M // _N1 // G
     T, nb = own.shape[0], 2 * l2 * Cw
     n1y, n2y = split_factor(P)
-    k2_of, row_of = _sym_rows(n2)
+    k2_of, _ = _sym_rows(n2)
+    brb = _bitrev(7)
     _, _, inv_dx2, alpha2, a1, a2, b1, b2 = consts
-    loads = torch.zeros((M, P), dtype=torch.int64)
-    stores = torch.zeros((M, P), dtype=torch.int64)
-
-    def count(counter, mask, row, col):
-        row, col = (torch.broadcast_to(x, mask.shape)[mask] for x in (row, col))
-        counter.index_put_((row, col), torch.ones_like(row), accumulate=True)
-
-    # 1. Item e of block r (dim 1) of tile t (dim 0): column cc, row i of
-    # the ordering, k1; the partner row ip and k1p.
     e = torch.arange(_N1 * l2 * Cw)
     cc, il, k1 = e % Cw, (e // Cw) % l2, e // (Cw * l2)
     r = torch.arange(G)[:, None]
@@ -1130,14 +1114,10 @@ def x_symbols_cluster_emulated(W: torch.Tensor, consts, G: int, Cw: int):
     a, b = own[:, None, cc], mir[:, None, cc]                # (T, 1, E)
     self_ = a == b
     skip = self_ & (s > sp)
-    load_w = (a >= 0) & ~skip
-    load_wn = (b >= 0) & ~skip & ~(self_ & (s == sp))
-    zero = torch.zeros((), dtype=c.dtype)
-    w = torch.where(load_w, c[s, a.clamp(min=0)], zero)
-    wn = torch.where(load_wn, c[sp, b.clamp(min=0)],
-                     torch.where(self_ & (s == sp), w, zero))
-    count(loads, load_w, s, a)
-    count(loads, load_wn, sp, b)
+    own_pos = brb[k1] * nb + il * Cw + cc
+    mir_pos = (brb[k1p] * nb + torch.where(self_, 0, l2 * Cw)
+               + (ip - r * l2) * Cw + cc)
+    w, wn = read(s, sp, a, b, own_pos, mir_pos, self_, skip)
     kx = k2 + n2 * k1
     fy = torch.where(a >= 0, a // n1y + n2y * (a % n1y), 0)
     sx = torch.sin(np.pi * torch.minimum(kx, M - kx).to(real) / M)
@@ -1154,28 +1134,38 @@ def x_symbols_cluster_emulated(W: torch.Tensor, consts, G: int, Cw: int):
     sa, sb = symbol(a1, a2), symbol(b1, b2)
     v = sa * w + sb * wn.conj()
     vn = sa * wn + sb * w.conj()
-    q, qp = brb[k1], brb[k1p]
-    own_i = il * Cw + cc
-    own_ip = (ip - r * l2) * Cw + cc
-    buf = torch.zeros((T, G, _N1 * nb), dtype=c.dtype)
     tt = torch.arange(T)[:, None, None]
-    rr = r[None]
 
     def put(mask, pos, val):
         mask = torch.broadcast_to(mask, (T, G, len(e)))
-        idx = [torch.broadcast_to(x, mask.shape)[mask] for x in (tt, rr, pos)]
+        idx = [torch.broadcast_to(x, mask.shape)[mask] for x in (tt, r, pos)]
         buf[idx[0], idx[1], idx[2]] = torch.broadcast_to(val, mask.shape)[mask]
 
-    put(~self_, q * nb + own_i, v)
-    put(~self_, qp * nb + l2 * Cw + own_ip, vn)
-    put(self_, qp * nb + l2 * Cw + own_ip, zero)
-    put(self_ & (s <= sp), q * nb + own_i, v)
-    put(self_ & (s <= sp), qp * nb + own_ip, vn)
+    if zero_mirror:
+        put(self_, brb[k1p] * nb + l2 * Cw + (ip - r * l2) * Cw + cc,
+            torch.zeros((), dtype=buf.dtype))
+    put(~skip, own_pos, v)
+    put(~skip, mir_pos, vn)
+    return buf
 
+
+def _sym_inverse_emulated(buf: torch.Tensor, own, mir, M: int, P: int,
+                          G: int, Cw: int):
+    """K5's steps 2 and 3 (csrc sym_inverse_half) on ``buf`` ((T, G, 128
+    nb)) for all tiles and blocks at once: the 128-point inverse DIT
+    (torch.fft from the bit-reversed rows), the pull of each block's n1 rows
+    from every block's B through sym_row with conj(W_M^(n1 k2)), the N2-point
+    inverse DIT and the stores. Returns (out, stores): the complex (M, P)
+    result and how many times each (row, slot) was stored."""
+    n2, l1, l2 = M // _N1, _N1 // G, M // _N1 // G
+    T, nb = own.shape[0], 2 * l2 * Cw
+    wm = torch.as_tensor(np.exp(-2j * np.pi * np.arange(M) / M)).to(buf.dtype)
+    bra, brb = _bitrev(n2.bit_length() - 1), _bitrev(7)
+    _, row_of = _sym_rows(n2)
+    r = torch.arange(G)[:, None]
     # 2. Stage B^-1: row p holds k1 = bitrev7(p) in, row n1 natural out.
     buf = buf.reshape(T, G, _N1, nb)
     first = torch.fft.ifft(buf[:, :, brb], dim=2, norm="forward")
-
     # 3. Stage A^-1: block r's column a (tile g, n1, column col) at DIT
     # position p (k2 = bitrev(p)) from the owner of row sym_row(k2).
     pa = torch.arange(n2)[:, None]
@@ -1195,9 +1185,62 @@ def x_symbols_cluster_emulated(W: torch.Tensor, consts, G: int, Cw: int):
     xrow = _N1 * torch.arange(n2)[None, None, :, None] + n1[None]
     ok, xrow, slot = (torch.broadcast_to(x, nat.shape)
                       for x in (ok, xrow, slot))
-    out = torch.zeros_like(c)
+    out = torch.zeros((M, P), dtype=buf.dtype)
     out[xrow[ok], slot[ok]] = nat[ok]
-    count(stores, ok, xrow, slot)
+    stores = torch.zeros((M, P), dtype=torch.int64)
+    _count(stores, ok, xrow, slot)
+    return out, stores
+
+
+def _count(counter: torch.Tensor, mask, row, col) -> None:
+    """Adds 1 to counter[row, col] wherever ``mask`` holds (broadcast)."""
+    shape = torch.broadcast_shapes(mask.shape, row.shape, col.shape)
+    mask = torch.broadcast_to(mask, shape)
+    row, col = (torch.broadcast_to(x, shape)[mask] for x in (row, col))
+    counter.index_put_((row, col), torch.ones_like(row), accumulate=True)
+
+
+def _cluster_tiles(P: int, Cw: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return tuple(torch.as_tensor(t, dtype=torch.int64)
+                 for t in x_symbols_cluster_tiles(P, Cw))
+
+
+def x_symbols_cluster_emulated(W: torch.Tensor, consts, G: int, Cw: int):
+    """What K5's cluster kernel does at (G, Cw), for all tiles and blocks at
+    once, in plain torch: each block's loads of its k2 rows and their
+    mirror rows with the symbol stage into buffer B (k1 at row bitrev7(k1);
+    a self-mirror slot's lower rows load and write both rows of a pair),
+    the 128-point inverse DIT (torch.fft from the bit-reversed rows), the
+    pull of its n1 rows from every block's B through sym_row with
+    conj(W_M^(n1 k2)), the N2-point inverse DIT and the stores, with the CUDA
+    source's index arithmetic. The symbols are symbol_stage's formula in W's
+    precision. Returns (out, loads, stores): x_symbols_inverse_plain's
+    result and how many times each (row, slot) of the input was loaded and
+    of the output stored."""
+    _, M, P = W.shape
+    if not x_symbols_cluster_takes(M, (G, Cw)):
+        raise ValueError(f"K5's cluster kernel does not take M = {M} at "
+                         f"G = {G}, Cw = {Cw}")
+    c = torch.complex(W[0], W[1])
+    own, mir = _cluster_tiles(P, Cw)
+    loads = torch.zeros((M, P), dtype=torch.int64)
+
+    def read(s, sp, a, b, own_pos, mir_pos, self_, skip):
+        load_w = (a >= 0) & ~skip
+        load_wn = (b >= 0) & ~skip & ~(self_ & (s == sp))
+        zero = torch.zeros((), dtype=c.dtype)
+        w = torch.where(load_w, c[s, a.clamp(min=0)], zero)
+        wn = torch.where(load_wn, c[sp, b.clamp(min=0)],
+                         torch.where(self_ & (s == sp), w, zero))
+        _count(loads, load_w, s, a)
+        _count(loads, load_wn, sp, b)
+        return w, wn
+
+    l2 = M // _N1 // G
+    buf = torch.zeros((own.shape[0], G, _N1 * 2 * l2 * Cw), dtype=c.dtype)
+    buf = _sym_stage_emulated(M, P, consts, G, Cw, own, mir, W.dtype, read,
+                              buf, zero_mirror=True)
+    out, stores = _sym_inverse_emulated(buf, own, mir, M, P, G, Cw)
     return _planar(out, W.dtype), loads, stores
 
 
@@ -1304,6 +1347,207 @@ def x_symbols_inverse(W: torch.Tensor, consts) -> torch.Tensor:
 
 x_symbols_inverse.launches = 0
 x_symbols_inverse.cluster_launches = 0
+
+
+# K3's cluster kernel (csrc pair_x_cluster_kernel) on M = 128 * 2^a with
+# N2 = M / 128 >= 2 G: K4's cluster forward half in front of K5's cluster
+# kernel, on K5's tile table (x_symbols_cluster_tiles) and K5's k2 rows a
+# block (sym_k2), the spectrum kept in shared memory between them; buffer A
+# holds one tile (the own tile, then the mirror tile) or both
+# (PAIR_X_CLUSTER_A_TILES). The layout pair_x_symbols launches, (G, Cw), is
+# at each extent of PAIR_X_CLUSTER_BY_M the one of chip_smoke.py's k3_sweep
+# with the least device time (PERF.md), else PAIR_X_CLUSTER.
+PAIR_X_CLUSTER_SIZES = X_SYMBOLS_CLUSTER_SIZES
+PAIR_X_CLUSTER_WIDTHS = X_SYMBOLS_CLUSTER_WIDTHS
+PAIR_X_CLUSTER_A_TILES = 1
+PAIR_X_CLUSTER = (8, 8)
+PAIR_X_CLUSTER_BY_M = {1024: (4, 8), 2048: (8, 8)}
+
+
+class PairXClusterLayout(NamedTuple):
+    """K3's cluster kernel's shared memory for M = 128 * N2 (csrc
+    pair_x_cluster_smem): buffer B (128 rows of 2 L2 Cw float2: both
+    tiles), buffer A (N2 rows of L1 Cw float2 a tile, a_tiles tiles), a
+    tile's share being M Cw / G float2, then the N2/2- and 64-entry radix-2
+    tables and the tile's 2 Cw int slots."""
+    n2: int
+    l1: int
+    l2: int
+    tile: int
+    smem: int
+
+
+def pair_x_cluster_layout(M: int, G: int, Cw: int,
+                          a_tiles: int = PAIR_X_CLUSTER_A_TILES
+                          ) -> PairXClusterLayout:
+    n2 = M // _N1
+    tile = M * Cw // G
+    smem = 8 * ((2 + a_tiles) * tile + n2 // 2 + _N1 // 2) + 4 * 2 * Cw
+    return PairXClusterLayout(n2, _N1 // G, n2 // G, tile, smem)
+
+
+def pair_x_cluster_launched(M: int) -> tuple[int, int]:
+    """The layout (G, Cw) pair_x_symbols launches at extent M."""
+    return PAIR_X_CLUSTER_BY_M.get(M, PAIR_X_CLUSTER)
+
+
+def pair_x_cluster_takes(M: int, layout: tuple | None = None,
+                         a_tiles: int = PAIR_X_CLUSTER_A_TILES) -> bool:
+    """True iff K3's cluster kernel takes extent M at ``layout`` = (G, Cw)
+    (by default the launched one): M = 128 * 2^a with N2 = M / 128 >= 2 G
+    (every block holds whole pairs of k2 rows, as in K5's), within one
+    block's shared memory. The y extent does not matter: the tile table
+    takes any."""
+    G, Cw = layout or pair_x_cluster_launched(M)
+    n2 = M // _N1
+    return (G in PAIR_X_CLUSTER_SIZES and Cw in PAIR_X_CLUSTER_WIDTHS
+            and a_tiles in (1, 2)
+            and M == _N1 * n2 and n2 & (n2 - 1) == 0 and n2 >= 2 * G
+            and pair_x_cluster_layout(M, G, Cw, a_tiles).smem <= SMEM_LIMIT)
+
+
+def pair_x_cluster_emulated(Zy: torch.Tensor, consts, G: int, Cw: int):
+    """What K3's cluster kernel does at (G, Cw), for all tiles and blocks at
+    once, in plain torch: K4's cluster forward half on K5's tiles and rows
+    (each block's loads of rows N1 n2 + n1 of its n1 into buffer A, a
+    padding slot and a self-mirror slot's mirror column reading zeros; the
+    N2-point DIF, torch.fft then rows in bit-reversed order; the pull of
+    its k2 = sym_k2(i) rows from every block's A at DIF position
+    bitrev(k2) times W_M^(n1 k2); the 128-point DIF into buffer B, k1 at
+    row bitrev7(k1)), then K5's symbol stage in place on B and K5's steps 2
+    and 3 (x_symbols_cluster_emulated's), with the CUDA source's index
+    arithmetic. Returns (out, loads, stores): pair_x_symbols_plain's result
+    and how many times each (row, slot) of the input was loaded and of the
+    output stored."""
+    _, M, P = Zy.shape
+    if not pair_x_cluster_takes(M, (G, Cw)):
+        raise ValueError(f"K3's cluster kernel does not take M = {M} at "
+                         f"G = {G}, Cw = {Cw}")
+    n2, l1, l2 = M // _N1, _N1 // G, M // _N1 // G
+    na = l1 * Cw
+    c = torch.complex(Zy[0], Zy[1])
+    wm = torch.as_tensor(np.exp(-2j * np.pi * np.arange(M) / M)).to(c.dtype)
+    bra, brb = _bitrev(n2.bit_length() - 1), _bitrev(7)
+    k2_of, _ = _sym_rows(n2)
+    own, mir = _cluster_tiles(P, Cw)
+    T = own.shape[0]
+    loads = torch.zeros((M, P), dtype=torch.int64)
+    halves = []
+    for g, slots in enumerate((own, mir)):
+        # 1. Stage A: block r's A row n2, column a = (n1 - r1) Cw + col.
+        col = torch.arange(na) % Cw
+        n1 = torch.arange(G)[:, None] * l1 + torch.arange(na) // Cw  # (G, na)
+        s = slots[:, col]                                            # (T, na)
+        ok = s >= 0
+        if g == 1:
+            ok &= s != own[:, col]
+        rows = _N1 * torch.arange(n2)[:, None, None] + n1            # (n2, G, na)
+        A = torch.where(ok[:, None, None, :],
+                        c[rows[None], s.clamp(min=0)[:, None, None, :]],
+                        torch.zeros((), dtype=c.dtype))              # (T, n2, G, na)
+        _count(loads, ok[:, None, None, :], rows[None], s[:, None, None, :])
+        A = torch.fft.fft(A, dim=1)[:, bra]          # row p: k2 = bitrev(p)
+        # 2. Stage B: block r's B column il Cw + cc of this tile, row n1.
+        b = torch.arange(l2 * Cw)
+        k2 = k2_of[torch.arange(G)[:, None] * l2 + b // Cw]          # (G, nbt)
+        n1 = torch.arange(_N1)[:, None, None]                        # (128, 1, 1)
+        v = A[:, bra[k2], n1 // l1, (n1 % l1) * Cw + b % Cw] * wm[n1 * k2]
+        v = v.permute(0, 2, 1, 3)                                    # (T, G, 128, nbt)
+        halves.append(torch.fft.fft(v, dim=2)[:, :, brb])   # row p': bitrev7
+    fwd = torch.cat(halves, dim=3).reshape(T, G, -1)
+
+    # 3. The symbol stage in place: each item reads and writes its own two
+    # words of B.
+    def read(s, sp, a, b, own_pos, mir_pos, self_, skip):
+        tt, rr = torch.arange(T)[:, None, None], torch.arange(G)[:, None]
+        return fwd[tt, rr, own_pos], fwd[tt, rr, mir_pos]
+
+    buf = _sym_stage_emulated(M, P, consts, G, Cw, own, mir, Zy.dtype, read,
+                              fwd.clone(), zero_mirror=False)
+    out, stores = _sym_inverse_emulated(buf, own, mir, M, P, G, Cw)
+    return _planar(out, Zy.dtype), loads, stores
+
+
+@functools.lru_cache(maxsize=32)
+def pair_x_cluster_occupancy(M: int, layout: tuple, device: int,
+                             a_tiles: int = PAIR_X_CLUSTER_A_TILES) -> int:
+    """The most clusters of K3's cluster layout = (G, Cw) at extent M that
+    card ``device`` holds at once (cudaOccupancyMaxActiveClusters); 0: the
+    layout cannot be scheduled."""
+    G, Cw = layout
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = _lib().qg_pair_x_cluster_occupancy(
+            (M // _N1).bit_length() - 1, G.bit_length() - 1,
+            Cw.bit_length() - 1, a_tiles, ctypes.byref(count))
+    _build.check(code, f"pair_x cluster occupancy {layout} at M = {M}")
+    return count.value
+
+
+def pair_x_cluster(Zy: torch.Tensor, consts, layout: tuple | None = None,
+                   a_tiles: int = PAIR_X_CLUSTER_A_TILES) -> torch.Tensor:
+    """One launch of K3's cluster kernel (csrc pair_x_cluster_kernel) on a
+    CUDA (2, M, P) float32 y-spectral field, M = 128 * 2^a, with ``layout``
+    = (G, Cw), by default pair_x_cluster_launched(M): pair_x_symbols's
+    result. Raises on a shape or layout the kernel does not take, a layout
+    the card cannot schedule and a launch error. Counts nothing: the
+    counting wrapper is pair_x_symbols.
+
+    Replaces, as pair_x_kernel does, tpu_qg/ops/pallas_fft.py
+    PlanarFFT2.pair_x_symbols (:1270). Bound: one read and one write of the
+    field (67 MB at 2048^2, 0.020 ms at 3.35 TB/s). Why a cluster:
+    pair_x_kernel holds whole columns of C = 4 slot pairs at M = 2048, so a
+    warp moves 16-byte runs a row, half a sector. Here the G blocks of a
+    cluster share an own tile of Cw slots and its mirror tile: K4's cluster
+    forward half into shared memory, K5's symbol stage there, and K5's
+    cluster inverse half (design in the source)."""
+    _, M, P = Zy.shape
+    layout = tuple(layout or pair_x_cluster_launched(M))
+    _cuda_field("pair_x_cluster", Zy, kernels_take, M, P)
+    if not pair_x_cluster_takes(M, layout, a_tiles):
+        raise ValueError(f"pair_x_cluster: M = {M} must be 128 * 2^a with "
+                         f"M / 128 >= 2 G and the layout {layout} (G, Cw) "
+                         f"fit shared memory")
+    vals = check_consts("pair_x_cluster", consts, M, P)
+    G, Cw = layout
+    device = Zy.device.index if Zy.device.index is not None else \
+        torch.cuda.current_device()
+    if pair_x_cluster_occupancy(M, layout, device, a_tiles) == 0:
+        raise RuntimeError(f"pair_x_cluster: the card cannot schedule a "
+                           f"cluster of layout {layout} at M = {M}")
+    own, mirror = _device_cluster_tiles(P, Cw, Zy.device)
+    out = torch.empty_like(Zy)
+    code = _lib().qg_pair_x_cluster_launch(
+        Zy.data_ptr(), out.data_ptr(), own.data_ptr(), mirror.data_ptr(),
+        own.shape[0], P, (M // _N1).bit_length() - 1, G.bit_length() - 1,
+        Cw.bit_length() - 1, a_tiles, split_factor(P)[0], vals,
+        _twiddles(M, M, Zy.device).data_ptr(),
+        torch.cuda.current_stream(Zy.device).cuda_stream)
+    _build.check(code, f"pair_x_cluster (K3) {layout}")
+    return out
+
+
+def pair_x_symbols(Zy: torch.Tensor, consts) -> torch.Tensor:
+    """K3 on CUDA tensors (one launch), the plain version on CPU tensors.
+    Two hand-written kernels chosen by shape: the cluster kernel
+    (pair_x_cluster, layout pair_x_cluster_launched(M)) where
+    pair_x_cluster_takes(M), counted also in
+    ``pair_x_symbols.cluster_launches``; pair_x_kernel
+    (pair_x_whole_columns) on the rest (mixed extents M = 128 * n, and
+    M < 256 G)."""
+    if Zy.device.type == "cpu":
+        return pair_x_symbols_plain(Zy, consts)
+    if pair_x_cluster_takes(Zy.shape[1]):
+        out = pair_x_cluster(Zy, consts)
+        pair_x_symbols.cluster_launches += 1
+    else:
+        out = pair_x_whole_columns(Zy, consts)
+    pair_x_symbols.launches += 1
+    return out
+
+
+pair_x_symbols.launches = 0
+pair_x_symbols.cluster_launches = 0
 
 
 # ---------------------------------------------------------------------------

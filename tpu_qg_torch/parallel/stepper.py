@@ -34,7 +34,7 @@ alignment, ``_H``); the stencil reads 2 rows of psi and 1 of zeta, and this
 stepper exchanges 2 rows. That changes the traffic, not the values.
 
 The multigrid inversion (``elliptic_impl="multigrid"``, ``mg_seed``) is
-not ported yet (ROADMAP.md queue 1, item 14's remainder).
+not ported yet (ROADMAP.md queue 1, item 2: the distributed multigrid).
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ from .paired import PairedDistributedInverter, paired_supported
 
 _MULTIGRID = ("the distributed multigrid inversion (elliptic_impl="
               "'multigrid', mg_seed) is not ported yet (ROADMAP.md queue 1, "
-              "item 14's remainder)")
+              "item 2: the distributed multigrid)")
 
 
 def _tend_window(cfg: ModelConfig, zeta_w: torch.Tensor, psi_w: torch.Tensor,

@@ -52,7 +52,8 @@ from .parallel import gather_state, make_halo_run_fn, make_mesh, shard_state
 from .parallel.collectives import all_gather_scalars
 from .utils.diagnostics import diagnostics, sharded_diagnostics
 
-_NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item 14's remainder)"
+_SHARDED_IO = "not ported yet (ROADMAP.md queue 1, item 3: sharded I/O)"
+_GSPMD = "not ported yet (ROADMAP.md queue 1, item 6: parallel/gspmd.py)"
 
 
 def log_model_params(cfg: ModelConfig) -> None:
@@ -100,7 +101,7 @@ def run_model(
     them); ``checkpoint_mode`` "auto" and "gathered" write through rank 0
     (one device: one file); "sharded" is not ported and raises."""
     if checkpoint_mode == "sharded":
-        raise NotImplementedError(f"checkpoint_mode='sharded' is {_NOT_PORTED}")
+        raise NotImplementedError(f"checkpoint_mode='sharded' is {_SHARDED_IO}")
     if checkpoint_mode not in ("auto", "gathered"):
         raise ValueError(f"unknown checkpoint_mode {checkpoint_mode!r}")
     if mesh is None:
@@ -108,7 +109,7 @@ def run_model(
     else:
         if parallel_impl == "gspmd":
             raise NotImplementedError(
-                f"parallel_impl='gspmd' is {_NOT_PORTED}")
+                f"parallel_impl='gspmd' is {_GSPMD}")
         if parallel_impl != "halo":
             raise ValueError(f"unknown parallel_impl {parallel_impl!r}")
         device = mesh.device
