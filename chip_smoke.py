@@ -10,7 +10,15 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 3. kernels — each kernel against its plain torch version on the card, on
    inputs made from a numpy seed: K1 (step), K2 (y-DFT), K3 (mirror-pair
    x-kernel), K16 (the inversion in one launch), K17 (the step in one
-   launch) and K15 (the y-fused chain's step) at (2, 2048, 2048); K8 (step +
+   launch) and K15 (the y-fused chain's step) at (2, 2048, 2048); K3 also
+   at (2, 1024, 1024) and (2, 2048, 384) (its cluster kernel, counted) and
+   at (2, 2432, 2048) and (2, 384, 256) (pair_x_kernel); K3's cluster
+   kernel in every layout (G, Cw) at 1024^2 and 2048^2, with the clusters
+   the card holds and ms in turns beside pair_x_kernel, K4's and K5's
+   cluster kernels in turn at 2048^2 (the four-pass x-stage), one
+   torch.fft.fft and torch.fft.ifft along x (a
+   yardstick: not K3's function) and a copy, host-launched and replayed
+   from a CUDA graph (k3_sweep); K8 (step +
    modes) at (2, 2048, 2048) with the pin gauge and (1, 2048, 2048) single
    layer; K2 on (2, 333, P) at P = 256 ... 8192 (its factored kernel, a
    ragged last block in every layout with Rb > 1, the factored count
@@ -50,9 +58,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    route QGModel resolves, a finite state with CFL < 1, and the same steps
    on the plain route (fft_impl="xla", use_pallas=False) from the same psi:
    turbulence-2048 (100 steps: K1, K2, K3; every K2 launch, here and on
-   every path below, by its factored kernel), with the pin gauge (100: K8),
-   with fft_mono="on" (100: K1, K16), step_full="on" (100: K17) and
-   step_chain="on" (100: K15, K3, K2 at the ends of each run call);
+   every path below, by its factored kernel, every K3 launch by its
+   cluster kernel), with the pin gauge (100: K8), with fft_mono="on" (100:
+   K1, K16), step_full="on" (100: K17) and step_chain="on" (100: K15, K3,
+   K2 at the ends of each run call; the same);
    pod-8192 (50 steps: K1, K2, K4, K5, every K4 and K5 launch by its
    cluster kernel) and with step_chain="on" (20: K15, K4, K5, K2; the same).
    Then, with the counts set to 0 again each time, two
@@ -79,9 +88,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    (..., mesh=...), the launch counts set to 0 just before each slice and
    read just after, zeta against the single-device route of the same
    config from the same psi: a one-rank NCCL mesh on cuda:0,
-   turbulence-2048 (100 steps: K12, K2, K3), pod-8192 (20: K12, K2, K4,
-   K5, every K4 and K5 launch by its cluster kernel) and turbulence-2048
-   with step_chain="on" (20: K15 sharded, K3, K2
+   turbulence-2048 (100 steps: K12, K2, K3, every K3 launch by its cluster
+   kernel), pod-8192 (20: K12, K2, K4, K5, every K4 and K5 launch by its
+   cluster kernel) and turbulence-2048 with step_chain="on" (20: K15
+   sharded, K3 (the same), K2
    at the ends), zeta within 1e-6; then four spawned ranks sharing cuda:0
    on gloo (the kernels built once, here, before they start): (4, 1)
    turbulence-2048 (10 steps: K12, K2, K14), its chain (10: K15 sharded,
@@ -902,17 +912,18 @@ def phase_k5_sweep(dev, pod, card, sizes=(4096, 8192), reps=20) -> dict:
     return out
 
 
-def phase_k3_sweep(dev, turb, card, sizes=(1024, 2048), timed=(2048,),
-                   reps=20) -> dict:
+def phase_k3_sweep(dev, turb, card, sizes=(1024, 2048),
+                   timed=(1024, 2048), reps=20) -> dict:
     """K3's cluster kernel in every layout (G blocks a cluster, Cw y slots a
-    tile; buffer A holding one tile or both) that fits shared memory, at
+    tile) that fits shared memory, at
     n^2: its bytes of shared memory, the clusters the card holds at once
     (cudaOccupancyMaxActiveClusters) and its largest error against the
     plain version; at the sizes in ``timed`` also ms a launch, the layouts
     in turns (in order, then in reverse), beside pair_x_kernel (whole
     columns, the kernel it replaces there), K4's cluster kernel then K5's
-    (the four-pass route's x-stage, two launches, the spectrum through
-    device memory), one torch.fft.fft and one torch.fft.ifft along x of the
+    where both take n (the four-pass route's x-stage, two launches, the
+    spectrum through device memory), one torch.fft.fft and one torch.fft.ifft
+    along x of the
     same complex64 field (a yardstick only: not K3's function) and a torch
     copy of the field: host-launched (time_ms) and replayed from a CUDA
     graph (graph_ms). Returns the entries by grid."""
@@ -926,31 +937,30 @@ def phase_k3_sweep(dev, turb, card, sizes=(1024, 2048), timed=(2048,),
         rows, calls = {}, {}
         for lay in ((g, c) for g in dft_kernels.PAIR_X_CLUSTER_SIZES
                     for c in dft_kernels.PAIR_X_CLUSTER_WIDTHS):
-            for a_tiles in (1, 2):
-                if not pair_x_cluster_takes(n, lay, a_tiles):
-                    continue
-                key = "G={} Cw={} A={}".format(*lay, a_tiles)
-                occ = pair_x_cluster_occupancy(n, lay, dev.index, a_tiles)
-                rows[key] = dict(
-                    smem=pair_x_cluster_layout(n, *lay, a_tiles).smem,
-                    max_active_clusters=occ)
-                if occ == 0:             # the card cannot schedule it
-                    continue
-                err = rel_err(pair_x_cluster(x, consts, lay, a_tiles),
-                              want)[1]
-                rows[key]["rel_err"] = err
-                if not err <= TOL["K3"]:
-                    raise AssertionError(f"K3 cluster {key} at {n}^2: rel "
-                                         f"err {err} > {TOL['K3']}")
-                calls[key] = (lambda lay=lay, a_tiles=a_tiles:
-                              pair_x_cluster(x, consts, lay, a_tiles))
+            if not pair_x_cluster_takes(n, lay):
+                continue
+            key = "G={} Cw={}".format(*lay)
+            occ = pair_x_cluster_occupancy(n, lay, dev.index)
+            rows[key] = dict(smem=pair_x_cluster_layout(n, *lay).smem,
+                             max_active_clusters=occ)
+            if occ == 0:                 # the card cannot schedule it
+                continue
+            err = rel_err(pair_x_cluster(x, consts, lay), want)[1]
+            rows[key]["rel_err"] = err
+            if not err <= TOL["K3"]:
+                raise AssertionError(f"K3 cluster {key} at {n}^2: rel err "
+                                     f"{err} > {TOL['K3']}")
+            calls[key] = lambda lay=lay: pair_x_cluster(x, consts, lay)
         refs = {}
         if n in timed:
-            pair = lambda: x_symbols_cluster(x_dft_cluster(x, False), consts)
-            refs["K4 cluster + K5 cluster rel_err"] = rel_err(pair(), want)[1]
             c64 = torch.complex(x[0], x[1])
             calls["pair_x_kernel"] = lambda: pair_x_whole_columns(x, consts)
-            calls["K4 cluster + K5 cluster"] = pair
+            if x_symbols_cluster_takes(n):
+                pair = lambda: x_symbols_cluster(x_dft_cluster(x, False),
+                                                 consts)
+                refs["K4 cluster + K5 cluster rel_err"] = rel_err(
+                    pair(), want)[1]
+                calls["K4 cluster + K5 cluster"] = pair
             calls["library fft + ifft along x"] = (
                 lambda: torch.fft.ifft(torch.fft.fft(c64, dim=0), dim=0))
             calls["copy"] = lambda: x.clone()
@@ -968,9 +978,8 @@ def phase_k3_sweep(dev, turb, card, sizes=(1024, 2048), timed=(2048,),
             del c64
         del want
         emit("k3_sweep", card=card, grid=[n, n],
-             launched="G={} Cw={} A={}".format(
-                 *dft_kernels.pair_x_cluster_launched(n),
-                 dft_kernels.PAIR_X_CLUSTER_A_TILES),
+             launched="G={} Cw={}".format(
+                 *dft_kernels.pair_x_cluster_launched(n)),
              layouts=rows, reference_ms=refs, bound_ms=bound("K3", n, n)[0])
         out[n] = dict(layouts=rows, reference_ms=refs)
         del x, calls

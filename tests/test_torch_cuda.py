@@ -125,12 +125,9 @@ def test_pair_x_cluster_kernel(dev, M, P):
             pair_x_symbols.cluster_launches) == (n[0] + 1, n[1] + 1)
     for layout in ((G, Cw) for G in dft_kernels.PAIR_X_CLUSTER_SIZES
                    for Cw in dft_kernels.PAIR_X_CLUSTER_WIDTHS):
-        for a_tiles in (1, 2):
-            if (pair_x_cluster_takes(M, layout, a_tiles) and
-                    dft_kernels.pair_x_cluster_occupancy(M, layout, 0,
-                                                         a_tiles)):
-                assert _rel(pair_x_cluster(x, consts, layout, a_tiles),
-                            want) <= 1e-4
+        if (pair_x_cluster_takes(M, layout) and
+                dft_kernels.pair_x_cluster_occupancy(M, layout, 0)):
+            assert _rel(pair_x_cluster(x, consts, layout), want) <= 1e-4
     torch.cuda.synchronize()
     assert pair_x_symbols.cluster_launches == n[1] + 1   # counts none
 

@@ -133,11 +133,14 @@ def test_layouts_fit_shared_memory_and_the_table_is_taken():
 
 
 def test_layout_at_2048():
-    """At M = 2048, (G, Cw) = (8, 8): B 32 KB (both tiles), A 16 KB (one
-    tile), the 0.56 KB of radix-2 tables and 16 slots."""
-    lay = pair_x_cluster_layout(2048, 8, 8)
-    assert (lay.n2, lay.l1, lay.l2, lay.tile) == (16, 16, 2, 2048)
-    assert lay.smem == 8 * (3 * 2048 + 8 + 64) + 4 * 16 == 49792
+    """The launched layout at M = 2048 is (8, 16): K5's buffers, B 64 KB
+    (both tiles), A 32 KB (one tile), the 0.56 KB of radix-2 tables and 32
+    slots; two blocks fit an SM."""
+    assert pair_x_cluster_launched(2048) == (8, 16)
+    lay = pair_x_cluster_layout(2048, 8, 16)
+    assert (lay.n2, lay.l1, lay.l2, lay.tile) == (16, 16, 2, 4096)
+    assert lay.smem == 8 * (3 * 4096 + 8 + 64) + 4 * 32 == 99008
+    assert 2 * (lay.smem + 1024) <= 228 * 1024
 
 
 def test_wrapper_takes_the_plain_version_on_cpu():

@@ -857,12 +857,11 @@ constexpr int kSymBatch = 8;
 
 // Steps 2 and 3 below, which K3's cluster kernel shares: stage B^-1 in
 // place on B (both tiles; k1 at row bitrev7(k1), the k2 rows of block r in
-// the sym_k2 order), a cluster barrier, then stage A^-1 of the own and the
-// mirror tile through A, kTiles tiles at a time (A holds kTiles), and the
-// stores of rows N1 n2 + n1 (a padding slot, and a self-mirror slot's
-// mirror column, are not stored); a split cluster barrier around the last
-// pull. The tile's slots (own cw, then mirror cw) are in `slot`.
-template <int kTiles>
+// the sym_k2 order), a cluster barrier, then stage A^-1 of the own and then
+// the mirror tile through A (one tile) and the stores of rows N1 n2 + n1 (a
+// padding slot, and a self-mirror slot's mirror column, are not stored); a
+// split cluster barrier around the last pull. The tile's slots (own cw,
+// then mirror cw) are in `slot`.
 __device__ __forceinline__ void sym_inverse_half(
     float2* B, float2* A, const float2* twa, const float2* twb,
     const int* slot, const float2* __restrict__ wm, float* __restrict__ out,
@@ -871,7 +870,7 @@ __device__ __forceinline__ void sym_inverse_half(
   const int n2 = 1 << logn2, cw = 1 << logcw, M = n2 << 7;
   const int logl1 = 7 - logg, logl2 = logn2 - logg;
   const int logtb = logl2 + logcw, lognb = logtb + 1;
-  const int logna = logl1 + logcw, logta = logna + (kTiles - 1);
+  const int logna = logl1 + logcw;
   const size_t plane = (size_t)M * P;
   const int r1 = r << logl1;
 
@@ -881,17 +880,14 @@ __device__ __forceinline__ void sym_inverse_half(
   il_fft<true>(B, lognb, 1 << lognb, 7, twb, rd_b, wr_b, [] {});
   cg::this_cluster().sync();
 
-  // 3. Stage A^-1, tiles g0 .. g0 + kTiles - 1 (0 own, 1 mirror) at a time:
-  // column c of A is tile g = g0 + (c >> logna), and a = c mod 2^logna is
-  // n1 = r1 + (a >> logcw), column (a mod cw) of the tile; row p <- the
-  // owner of k2 = bitrev(p) (row i = sym_row(k2) of the ordering), times
+  // 3. Stage A^-1, tile g (0 own, 1 mirror) in turn: column a of A is n1 =
+  // r1 + (a >> logcw), column (a mod cw) of the tile; row p <- the owner of
+  // k2 = bitrev(p) (row i = sym_row(k2) of the ordering), times
   // conj(W_M^(n1 k2)); DIT, then row n2 -> x row N1 n2 + n1, scaled 1/M.
   const float scale = 1.0f / static_cast<float>(M);    // exact: M = 2^k
-  for (int g0 = 0; g0 < 2; g0 += kTiles) {
-    il_fft<true>(A, logta, 1 << logta, logn2, twa,
-        [=](int p, int c) {
-          const int g = kTiles == 1 ? g0 : c >> logna;
-          const int a = kTiles == 1 ? c : c & ((1 << logna) - 1);
+  for (int g = 0; g < 2; ++g) {
+    il_fft<true>(A, logna, 1 << logna, logn2, twa,
+        [=](int p, int a) {
           const int n1 = r1 + (a >> logcw);
           const int k2 = bitrev(p, logn2), i = sym_row(k2, n2);
           const int b = (g << logtb) + ((i & ((1 << logl2) - 1)) << logcw) +
@@ -900,9 +896,7 @@ __device__ __forceinline__ void sym_inverse_half(
               static_cast<const float2*>(B), i >> logl2)[(n1 << lognb) + b];
           return cmul(v, __ldg(wm + n1 * k2), true);
         },
-        [=](int row, int c, float2 v) {
-          const int g = kTiles == 1 ? g0 : c >> logna;
-          const int a = kTiles == 1 ? c : c & ((1 << logna) - 1);
+        [=](int row, int a, float2 v) {
           const int s = slot[(g << logcw) + (a & (cw - 1))];
           if (s < 0 || (g == 1 && s == slot[a & (cw - 1)])) return;
           const size_t off = (size_t)((row << 7) + r1 + (a >> logcw)) * P + s;
@@ -910,10 +904,9 @@ __device__ __forceinline__ void sym_inverse_half(
           out[off + plane] = v.y * scale;
         },
         [=] {
-          if (g0 + kTiles == 2)
-            asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+          if (g == 1) asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
         });
-    if (g0 + kTiles < 2) __syncthreads();   // the mirror tile reuses A
+    if (g == 0) __syncthreads();            // the mirror tile reuses A
   }
   // No block leaves while a peer may still read its buffer.
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
@@ -1002,7 +995,7 @@ x_symbols_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
   __syncthreads();
 
   // 2 and 3.
-  sym_inverse_half<1>(B, A, twa, twb, slot, wm, out, P, logn2, logg, logcw, r);
+  sym_inverse_half(B, A, twa, twb, slot, wm, out, P, logn2, logg, logcw, r);
 }
 
 // ---------------------------------------------------------------------------
@@ -1033,23 +1026,25 @@ x_symbols_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
 //      pulls row bitrev(k2) of every peer's A times W_M^(n1 k2) into buffer
 //      B (row n1) and runs the 128-point DIF along n1: row p' then holds
 //      k1 = bitrev7(p'), which is where K5's step 1 puts the spectrum, so
-//      no reorder pass is needed. The own tile and then the mirror tile
-//      through A (kTiles = 1: a split cluster barrier, arrive after the own
-//      tile's pull, wait before A is written again), or both at once
-//      (kTiles = 2: A holds both tiles);
+//      no reorder pass is needed. Steps 1 and 2 run for the own tile and
+//      then for the mirror tile through A, with a split cluster barrier
+//      between them (arrive after the own tile's pull, wait before A is
+//      written again);
 //   3. the symbol stage in place on B: K5's items, an own value and its
 //      partner in the mirror tile (a self-mirror slot's rows paired within
 //      its own column), through sym_apply;
 //   4. K5's steps 2 and 3 (sym_inverse_half): stage B^-1, cluster barrier,
-//      stage A^-1 through A and the stores of rows N1 n2 + n1, kTiles tiles
-//      at a time, a split cluster barrier before exit.
+//      stage A^-1 of each tile through A and the stores of rows N1 n2 + n1,
+//      a split cluster barrier before exit.
 // Each input value is loaded once and each output value stored once.
-// Shared memory: B (2 M Cw / G float2), A (kTiles M Cw / G), the N2/2- and
-// 64-entry tables and the tile's 2 Cw slots: 48.6 KB at M = 2048, (G, Cw) =
-// (8, 8), kTiles = 1 (dft_kernels.pair_x_cluster_layout). The grid is G
+// Shared memory: K5's, B (2 M Cw / G float2), A (M Cw / G), the N2/2- and
+// 64-entry tables and the tile's 2 Cw slots: 96.7 KB at M = 2048, (G, Cw) =
+// (8, 16), two blocks an SM (dft_kernels.pair_x_cluster_layout). A holding
+// both tiles, so that steps 1 and 2 and stage A^-1 take both at once
+// (tried: faster at (8, 8), slower at (4, 8) and (8, 16)), was in no layout
+// faster than (8, 16) with one tile at M = 2048 (PERF.md). The grid is G
 // blocks a tile of the table.
 // ---------------------------------------------------------------------------
-template <int kTiles>
 __global__ void __launch_bounds__(kClusterThreads, 2)
 pair_x_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
                       const int* __restrict__ own_slots,
@@ -1062,10 +1057,10 @@ pair_x_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
   const int n2 = 1 << logn2, cw = 1 << logcw, M = n2 << 7;
   const int logl1 = 7 - logg, logl2 = logn2 - logg;
   const int logtb = logl2 + logcw, lognb = logtb + 1;    // B: both tiles
-  const int logna = logl1 + logcw, logta = logna + (kTiles - 1);
+  const int logna = logl1 + logcw;                       // A: one tile
   float2* B = reinterpret_cast<float2*>(smem);      // 128 rows of 2^lognb
-  float2* A = B + (128 << lognb);                   // n2 rows of 2^logta
-  float2* twa = A + (n2 << logta);                  // W_N2^k, k < n2 / 2
+  float2* A = B + (128 << lognb);                   // n2 rows of 2^logna
+  float2* twa = A + (n2 << logna);                  // W_N2^k, k < n2 / 2
   float2* twb = twa + n2 / 2;                       // W_128^k, k < 64
   int* slot = reinterpret_cast<int*>(twb + 64);     // own cw, then mirror cw
   const int tile = blockIdx.x >> logg;
@@ -1078,40 +1073,34 @@ pair_x_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
   const int n2y = P / n1y;
   const int r1 = r << logl1, r2 = r << logl2;
 
-  // 1 and 2, tiles g0 .. g0 + kTiles - 1 (0 own, 1 mirror): column c of A
-  // is tile g = g0 + (c >> logna), and a = c mod 2^logna is n1 = r1 + (a >>
-  // logcw), column (a mod cw) of the tile; column b of B is tile b >>
-  // logtb, row i = r2 + ((b >> logcw) mod L2) of the ordering, column (b
-  // mod cw).
-  for (int g0 = 0; g0 < 2; g0 += kTiles) {
+  // 1 and 2, tile g (0 own, 1 mirror) in turn: column a of A is n1 = r1 +
+  // (a >> logcw), column (a mod cw) of the tile; column b of tile g's half
+  // of B is row i = r2 + (b >> logcw) of the ordering, column (b mod cw).
+  for (int g = 0; g < 2; ++g) {
     // A is free again once every peer has pulled the own tile.
-    if (g0 > 0) asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-    il_fft<false>(A, logta, 1 << logta, logn2, twa,
-        [=](int row, int ca) {
-          const int g = kTiles == 1 ? g0 : ca >> logna;
-          const int a = kTiles == 1 ? ca : ca & ((1 << logna) - 1);
+    if (g == 1) asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+    il_fft<false>(A, logna, 1 << logna, logn2, twa,
+        [=](int row, int a) {
           const int col = a & (cw - 1), s = slot[(g << logcw) + col];
           if (s < 0 || (g == 1 && s == slot[col])) return make_float2(0.f, 0.f);
           const size_t off = (size_t)((row << 7) + r1 + (a >> logcw)) * P + s;
           return make_float2(__ldg(in + off), __ldg(in + off + plane));
         },
-        [=](int row, int ca, float2 v) { A[(row << logta) + ca] = v; }, [] {});
+        [=](int row, int a, float2 v) { A[(row << logna) + a] = v; }, [] {});
     cg::this_cluster().sync();
-    float2* Bg = B + (g0 << logtb);
-    il_fft<false>(Bg, logtb + (kTiles - 1), 1 << lognb, 7, twb,
+    float2* Bg = B + (g << logtb);
+    il_fft<false>(Bg, logtb, 1 << lognb, 7, twb,
         [=](int n1, int b) {
-          const int t = kTiles == 1 ? 0 : b >> logtb;
-          const int k2 = sym_k2(r2 + ((b >> logcw) & ((1 << logl2) - 1)), n2);
+          const int k2 = sym_k2(r2 + (b >> logcw), n2);
           const float2 v = cg::this_cluster().map_shared_rank(
               static_cast<const float2*>(A), n1 >> logl1)[
-                  (bitrev(k2, logn2) << logta) + (t << logna) +
+                  (bitrev(k2, logn2) << logna) +
                   ((n1 & ((1 << logl1) - 1)) << logcw) + (b & (cw - 1))];
           return cmul(v, __ldg(wm + n1 * k2), false);
         },
         [=](int pp, int b, float2 v) { Bg[(pp << lognb) + b] = v; },
         [=] {
-          if (g0 + kTiles < 2)
-            asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+          if (g == 0) asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
         });
   }
   __syncthreads();
@@ -1143,8 +1132,7 @@ pair_x_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
   __syncthreads();
 
   // 4.
-  sym_inverse_half<kTiles>(B, A, twa, twb, slot, wm, out, P, logn2, logg,
-                           logcw, r);
+  sym_inverse_half(B, A, twa, twb, slot, wm, out, P, logn2, logg, logcw, r);
 }
 
 // ---------------------------------------------------------------------------
@@ -1495,29 +1483,16 @@ extern "C" int qg_x_symbols_cluster_launch(const float* in, float* out,
 
 namespace {
 
-// K5's cluster kernel's buffers with A holding `tiles` tiles.
-int pair_x_cluster_smem(int logn2, int logg, int logcw, int tiles) {
-  const int tile = 1 << (logn2 + 7 - logg + logcw);
-  return x_symbols_cluster_smem(logn2, logg, logcw) +
-         (tiles - 1) * tile * static_cast<int>(sizeof(float2));
-}
-
-using PairXClusterFn = void (*)(const float*, float*, const int*, const int*,
-                                int, int, int, int, int, SymConsts,
-                                const float2*);
-
-// K3's cluster kernel's launch: G = 2^logg in {4, 8, 16}, L2 = N2 / G >= 2,
-// A holding `tiles` (1 or 2) tiles.
+// K3's cluster kernel's launch: K5's layouts and buffers.
 int pair_x_cluster_config(int logn2, int logg, int logcw, int tiles,
-                          int clusters, cudaStream_t stream,
-                          cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
-                          PairXClusterFn* fn) {
-  if (logg < 2 || logg > 4 || logn2 < logg + 1 || tiles < 1 || tiles > 2)
+                          cudaStream_t stream, cudaLaunchConfig_t& cfg,
+                          cudaLaunchAttribute& attr) {
+  if (logg < 2 || logg > 4 || logn2 < logg + 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  *fn = tiles == 2 ? pair_x_cluster_kernel<2> : pair_x_cluster_kernel<1>;
-  return fill_cluster_launch(reinterpret_cast<const void*>(*fn),
-                             pair_x_cluster_smem(logn2, logg, logcw, tiles),
-                             logg, clusters, stream, cfg, attr);
+  return fill_cluster_launch(
+      reinterpret_cast<const void*>(pair_x_cluster_kernel),
+      x_symbols_cluster_smem(logn2, logg, logcw), logg, tiles, stream, cfg,
+      attr);
 }
 
 }  // namespace
@@ -1525,39 +1500,38 @@ int pair_x_cluster_config(int logn2, int logg, int logcw, int tiles,
 // The most clusters of K3's cluster kernel's layout that the card holds at
 // once (cudaOccupancyMaxActiveClusters): 0 means the layout cannot run.
 extern "C" int qg_pair_x_cluster_occupancy(int logn2, int logg, int logcw,
-                                           int tiles, int* max_clusters) {
+                                           int* max_clusters) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  PairXClusterFn fn;
-  if (int err = pair_x_cluster_config(logn2, logg, logcw, tiles, 1, nullptr,
-                                      cfg, attr, &fn))
+  if (int err = pair_x_cluster_config(logn2, logg, logcw, 1, nullptr, cfg,
+                                      attr))
     return err;
   return static_cast<int>(cudaOccupancyMaxActiveClusters(
-      max_clusters, reinterpret_cast<const void*>(fn), &cfg));
+      max_clusters, reinterpret_cast<const void*>(pair_x_cluster_kernel),
+      &cfg));
 }
 
-// K3's cluster kernel on a planar (2, 128 * 2^logn2, P) y-spectral field:
-// a cluster of 2^logg blocks a tile of the (ntiles, 2^logcw) device tables
+// K3's cluster kernel on a planar (2, 128 * 2^logn2, P) y-spectral field: a
+// cluster of 2^logg blocks a tile of the (tiles, 2^logcw) device tables
 // own_slots and mirror_slots (K5's, -1 padding); consts: host array of
 // kNumSymConsts floats in SymConsts order; wm: the M-entry float2 table of
 // W_M^j.
 extern "C" int qg_pair_x_cluster_launch(const float* in, float* out,
                                         const int* own_slots,
-                                        const int* mirror_slots, int ntiles,
+                                        const int* mirror_slots, int tiles,
                                         int P, int logn2, int logg, int logcw,
-                                        int tiles, int n1y,
-                                        const float* consts, const void* wm,
-                                        void* stream) {
+                                        int n1y, const float* consts,
+                                        const void* wm, void* stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  PairXClusterFn fn;
-  if (int err = pair_x_cluster_config(logn2, logg, logcw, tiles, ntiles,
+  if (int err = pair_x_cluster_config(logn2, logg, logcw, tiles,
                                       static_cast<cudaStream_t>(stream), cfg,
-                                      attr, &fn))
+                                      attr))
     return err;
   if (cudaError_t err = cudaLaunchKernelEx(
-          &cfg, fn, in, out, own_slots, mirror_slots, P, logn2, logg, logcw,
-          n1y, sym_consts(consts), static_cast<const float2*>(wm)))
+          &cfg, pair_x_cluster_kernel, in, out, own_slots, mirror_slots, P,
+          logn2, logg, logcw, n1y, sym_consts(consts),
+          static_cast<const float2*>(wm)))
     return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

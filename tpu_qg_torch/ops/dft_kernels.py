@@ -423,9 +423,9 @@ def _lib():
         _build.declare(lib.qg_x_symbols_cluster_occupancy,
                        [i, i, i, ctypes.POINTER(ctypes.c_int)])
         _build.declare(lib.qg_pair_x_cluster_launch,
-                       [p] * 4 + [i] * 7 + [p, p, p])
+                       [p] * 4 + [i] * 6 + [p, p, p])
         _build.declare(lib.qg_pair_x_cluster_occupancy,
-                       [i, i, i, i, ctypes.POINTER(ctypes.c_int)])
+                       [i, i, i, ctypes.POINTER(ctypes.c_int)])
         lib.qg_pair_x_num_consts.restype = ctypes.c_int
         lib.qg_coop_plan_size.restype = ctypes.c_int
     return lib
@@ -1351,39 +1351,21 @@ x_symbols_inverse.cluster_launches = 0
 
 # K3's cluster kernel (csrc pair_x_cluster_kernel) on M = 128 * 2^a with
 # N2 = M / 128 >= 2 G: K4's cluster forward half in front of K5's cluster
-# kernel, on K5's tile table (x_symbols_cluster_tiles) and K5's k2 rows a
-# block (sym_k2), the spectrum kept in shared memory between them; buffer A
-# holds one tile (the own tile, then the mirror tile) or both
-# (PAIR_X_CLUSTER_A_TILES). The layout pair_x_symbols launches, (G, Cw), is
-# at each extent of PAIR_X_CLUSTER_BY_M the one of chip_smoke.py's k3_sweep
-# with the least device time (PERF.md), else PAIR_X_CLUSTER.
+# kernel, on K5's tile table (x_symbols_cluster_tiles), K5's k2 rows a block
+# (sym_k2) and K5's buffers, the spectrum kept in shared memory between
+# them. The layout pair_x_symbols launches, (G, Cw), is at each extent of
+# PAIR_X_CLUSTER_BY_M the one of chip_smoke.py's k3_sweep with the least
+# device time (PERF.md), else PAIR_X_CLUSTER.
 PAIR_X_CLUSTER_SIZES = X_SYMBOLS_CLUSTER_SIZES
 PAIR_X_CLUSTER_WIDTHS = X_SYMBOLS_CLUSTER_WIDTHS
-PAIR_X_CLUSTER_A_TILES = 1
 PAIR_X_CLUSTER = (8, 8)
-PAIR_X_CLUSTER_BY_M = {1024: (4, 8), 2048: (8, 8)}
+PAIR_X_CLUSTER_BY_M = {1024: (4, 8), 2048: (8, 16)}
 
 
-class PairXClusterLayout(NamedTuple):
-    """K3's cluster kernel's shared memory for M = 128 * N2 (csrc
-    pair_x_cluster_smem): buffer B (128 rows of 2 L2 Cw float2: both
-    tiles), buffer A (N2 rows of L1 Cw float2 a tile, a_tiles tiles), a
-    tile's share being M Cw / G float2, then the N2/2- and 64-entry radix-2
-    tables and the tile's 2 Cw int slots."""
-    n2: int
-    l1: int
-    l2: int
-    tile: int
-    smem: int
-
-
-def pair_x_cluster_layout(M: int, G: int, Cw: int,
-                          a_tiles: int = PAIR_X_CLUSTER_A_TILES
-                          ) -> PairXClusterLayout:
-    n2 = M // _N1
-    tile = M * Cw // G
-    smem = 8 * ((2 + a_tiles) * tile + n2 // 2 + _N1 // 2) + 4 * 2 * Cw
-    return PairXClusterLayout(n2, _N1 // G, n2 // G, tile, smem)
+def pair_x_cluster_layout(M: int, G: int, Cw: int) -> SymbolsClusterLayout:
+    """K3's cluster kernel's shared memory: K5's (x_symbols_cluster_layout),
+    buffer B holding both tiles, buffer A one."""
+    return x_symbols_cluster_layout(M, G, Cw)
 
 
 def pair_x_cluster_launched(M: int) -> tuple[int, int]:
@@ -1391,19 +1373,13 @@ def pair_x_cluster_launched(M: int) -> tuple[int, int]:
     return PAIR_X_CLUSTER_BY_M.get(M, PAIR_X_CLUSTER)
 
 
-def pair_x_cluster_takes(M: int, layout: tuple | None = None,
-                         a_tiles: int = PAIR_X_CLUSTER_A_TILES) -> bool:
+def pair_x_cluster_takes(M: int, layout: tuple | None = None) -> bool:
     """True iff K3's cluster kernel takes extent M at ``layout`` = (G, Cw)
-    (by default the launched one): M = 128 * 2^a with N2 = M / 128 >= 2 G
-    (every block holds whole pairs of k2 rows, as in K5's), within one
-    block's shared memory. The y extent does not matter: the tile table
-    takes any."""
-    G, Cw = layout or pair_x_cluster_launched(M)
-    n2 = M // _N1
-    return (G in PAIR_X_CLUSTER_SIZES and Cw in PAIR_X_CLUSTER_WIDTHS
-            and a_tiles in (1, 2)
-            and M == _N1 * n2 and n2 & (n2 - 1) == 0 and n2 >= 2 * G
-            and pair_x_cluster_layout(M, G, Cw, a_tiles).smem <= SMEM_LIMIT)
+    (by default the launched one): where K5's cluster kernel takes it, M =
+    128 * 2^a with N2 = M / 128 >= 2 G (every block holds whole pairs of k2
+    rows), within one block's shared memory. The y extent does not matter:
+    the tile table takes any."""
+    return x_symbols_cluster_takes(M, layout or pair_x_cluster_launched(M))
 
 
 def pair_x_cluster_emulated(Zy: torch.Tensor, consts, G: int, Cw: int):
@@ -1469,8 +1445,7 @@ def pair_x_cluster_emulated(Zy: torch.Tensor, consts, G: int, Cw: int):
 
 
 @functools.lru_cache(maxsize=32)
-def pair_x_cluster_occupancy(M: int, layout: tuple, device: int,
-                             a_tiles: int = PAIR_X_CLUSTER_A_TILES) -> int:
+def pair_x_cluster_occupancy(M: int, layout: tuple, device: int) -> int:
     """The most clusters of K3's cluster layout = (G, Cw) at extent M that
     card ``device`` holds at once (cudaOccupancyMaxActiveClusters); 0: the
     layout cannot be scheduled."""
@@ -1479,13 +1454,13 @@ def pair_x_cluster_occupancy(M: int, layout: tuple, device: int,
     with torch.cuda.device(device):
         code = _lib().qg_pair_x_cluster_occupancy(
             (M // _N1).bit_length() - 1, G.bit_length() - 1,
-            Cw.bit_length() - 1, a_tiles, ctypes.byref(count))
+            Cw.bit_length() - 1, ctypes.byref(count))
     _build.check(code, f"pair_x cluster occupancy {layout} at M = {M}")
     return count.value
 
 
-def pair_x_cluster(Zy: torch.Tensor, consts, layout: tuple | None = None,
-                   a_tiles: int = PAIR_X_CLUSTER_A_TILES) -> torch.Tensor:
+def pair_x_cluster(Zy: torch.Tensor, consts,
+                   layout: tuple | None = None) -> torch.Tensor:
     """One launch of K3's cluster kernel (csrc pair_x_cluster_kernel) on a
     CUDA (2, M, P) float32 y-spectral field, M = 128 * 2^a, with ``layout``
     = (G, Cw), by default pair_x_cluster_launched(M): pair_x_symbols's
@@ -1504,7 +1479,7 @@ def pair_x_cluster(Zy: torch.Tensor, consts, layout: tuple | None = None,
     _, M, P = Zy.shape
     layout = tuple(layout or pair_x_cluster_launched(M))
     _cuda_field("pair_x_cluster", Zy, kernels_take, M, P)
-    if not pair_x_cluster_takes(M, layout, a_tiles):
+    if not pair_x_cluster_takes(M, layout):
         raise ValueError(f"pair_x_cluster: M = {M} must be 128 * 2^a with "
                          f"M / 128 >= 2 G and the layout {layout} (G, Cw) "
                          f"fit shared memory")
@@ -1512,7 +1487,7 @@ def pair_x_cluster(Zy: torch.Tensor, consts, layout: tuple | None = None,
     G, Cw = layout
     device = Zy.device.index if Zy.device.index is not None else \
         torch.cuda.current_device()
-    if pair_x_cluster_occupancy(M, layout, device, a_tiles) == 0:
+    if pair_x_cluster_occupancy(M, layout, device) == 0:
         raise RuntimeError(f"pair_x_cluster: the card cannot schedule a "
                            f"cluster of layout {layout} at M = {M}")
     own, mirror = _device_cluster_tiles(P, Cw, Zy.device)
@@ -1520,7 +1495,7 @@ def pair_x_cluster(Zy: torch.Tensor, consts, layout: tuple | None = None,
     code = _lib().qg_pair_x_cluster_launch(
         Zy.data_ptr(), out.data_ptr(), own.data_ptr(), mirror.data_ptr(),
         own.shape[0], P, (M // _N1).bit_length() - 1, G.bit_length() - 1,
-        Cw.bit_length() - 1, a_tiles, split_factor(P)[0], vals,
+        Cw.bit_length() - 1, split_factor(P)[0], vals,
         _twiddles(M, M, Zy.device).data_ptr(),
         torch.cuda.current_stream(Zy.device).cuda_stream)
     _build.check(code, f"pair_x_cluster (K3) {layout}")
