@@ -1359,7 +1359,7 @@ x_symbols_inverse.cluster_launches = 0
 PAIR_X_CLUSTER_SIZES = X_SYMBOLS_CLUSTER_SIZES
 PAIR_X_CLUSTER_WIDTHS = X_SYMBOLS_CLUSTER_WIDTHS
 PAIR_X_CLUSTER = (8, 8)
-PAIR_X_CLUSTER_BY_M = {1024: (4, 8), 2048: (8, 16)}
+PAIR_X_CLUSTER_BY_M = {1024: (4, 16), 2048: (8, 16)}
 
 
 def pair_x_cluster_layout(M: int, G: int, Cw: int) -> SymbolsClusterLayout:
