@@ -16,9 +16,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    kernel in every layout (G, Cw) at 1024^2 and 2048^2, with the clusters
    the card holds and ms in turns beside pair_x_kernel, K4's and K5's
    cluster kernels in turn at 2048^2 (the four-pass x-stage), one
-   torch.fft.fft and torch.fft.ifft along x (a
-   yardstick: not K3's function) and a copy, host-launched and replayed
-   from a CUDA graph (k3_sweep); K8 (step +
+   torch.fft.fft and torch.fft.ifft along x (a yardstick: not K3's
+   function) and a copy, host-launched and replayed from a CUDA graph
+   (k3_sweep); K8 (step +
    modes) at (2, 2048, 2048) with the pin gauge and (1, 2048, 2048) single
    layer; K2 on (2, 333, P) at P = 256 ... 8192 (its factored kernel, a
    ragged last block in every layout with Rb > 1, the factored count
@@ -915,18 +915,17 @@ def phase_k5_sweep(dev, pod, card, sizes=(4096, 8192), reps=20) -> dict:
 def phase_k3_sweep(dev, turb, card, sizes=(1024, 2048),
                    timed=(1024, 2048), reps=20) -> dict:
     """K3's cluster kernel in every layout (G blocks a cluster, Cw y slots a
-    tile) that fits shared memory, at
-    n^2: its bytes of shared memory, the clusters the card holds at once
-    (cudaOccupancyMaxActiveClusters) and its largest error against the
-    plain version; at the sizes in ``timed`` also ms a launch, the layouts
-    in turns (in order, then in reverse), beside pair_x_kernel (whole
-    columns, the kernel it replaces there), K4's cluster kernel then K5's
-    where both take n (the four-pass route's x-stage, two launches, the
-    spectrum through device memory), one torch.fft.fft and one torch.fft.ifft
-    along x of the
-    same complex64 field (a yardstick only: not K3's function) and a torch
-    copy of the field: host-launched (time_ms) and replayed from a CUDA
-    graph (graph_ms). Returns the entries by grid."""
+    tile) that fits shared memory, at n^2: its bytes of shared memory, the
+    clusters the card holds at once (cudaOccupancyMaxActiveClusters) and
+    its largest error against the plain version; at the sizes in ``timed``
+    also ms a launch, the layouts in turns (in order, then in reverse),
+    beside pair_x_kernel (whole columns, the kernel it replaces there),
+    K4's cluster kernel then K5's where both take n (the four-pass route's
+    x-stage, two launches, the spectrum through device memory), one
+    torch.fft.fft and one torch.fft.ifft along x of the same complex64
+    field (a yardstick only: not K3's function) and a torch copy of the
+    field: host-launched (time_ms) and replayed from a CUDA graph
+    (graph_ms). Returns the entries by grid."""
     rng = np.random.default_rng(SEED + 14)
     out = {}
     for n in sizes:

@@ -1085,8 +1085,8 @@ def _sym_rows(n2: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _sym_stage_emulated(M: int, P: int, consts, G: int, Cw: int, own, mir,
-                        real: torch.dtype, read, buf: torch.Tensor,
-                        zero_mirror: bool) -> torch.Tensor:
+                        real: torch.dtype, read,
+                        buf: torch.Tensor) -> torch.Tensor:
     """The symbol stage of K5's and K3's cluster kernels, for all tiles
     (dim 0) and blocks (dim 1) at once: item e of block r is column cc, row
     i of the ordering, k1; its partner row ip (k2 -> (N2 - k2) mod N2), k1p
@@ -1095,8 +1095,9 @@ def _sym_stage_emulated(M: int, P: int, consts, G: int, Cw: int, own, mir,
     b, own_pos, mir_pos, self_, skip)`` gives each item's (w, wn); V = A w +
     B conj(wn) goes to own_pos and Vn = A wn + B conj(w) to mir_pos of
     ``buf`` ((T, G, 128 nb), k1 at row bitrev7(k1)), with symbol_stage's
-    symbols in ``real`` precision; ``zero_mirror``: a self-mirror slot's
-    mirror column is written zero (K5; K3's holds zeros already)."""
+    symbols in ``real`` precision. A self-mirror slot's mirror column must
+    hold zeros in ``buf`` (K5's kernel writes them there, K3's loads
+    them)."""
     n2, l2 = M // _N1, M // _N1 // G
     T, nb = own.shape[0], 2 * l2 * Cw
     n1y, n2y = split_factor(P)
@@ -1141,9 +1142,6 @@ def _sym_stage_emulated(M: int, P: int, consts, G: int, Cw: int, own, mir,
         idx = [torch.broadcast_to(x, mask.shape)[mask] for x in (tt, r, pos)]
         buf[idx[0], idx[1], idx[2]] = torch.broadcast_to(val, mask.shape)[mask]
 
-    if zero_mirror:
-        put(self_, brb[k1p] * nb + l2 * Cw + (ip - r * l2) * Cw + cc,
-            torch.zeros((), dtype=buf.dtype))
     put(~skip, own_pos, v)
     put(~skip, mir_pos, vn)
     return buf
@@ -1239,7 +1237,7 @@ def x_symbols_cluster_emulated(W: torch.Tensor, consts, G: int, Cw: int):
     l2 = M // _N1 // G
     buf = torch.zeros((own.shape[0], G, _N1 * 2 * l2 * Cw), dtype=c.dtype)
     buf = _sym_stage_emulated(M, P, consts, G, Cw, own, mir, W.dtype, read,
-                              buf, zero_mirror=True)
+                              buf)
     out, stores = _sym_inverse_emulated(buf, own, mir, M, P, G, Cw)
     return _planar(out, W.dtype), loads, stores
 
@@ -1439,7 +1437,7 @@ def pair_x_cluster_emulated(Zy: torch.Tensor, consts, G: int, Cw: int):
         return fwd[tt, rr, own_pos], fwd[tt, rr, mir_pos]
 
     buf = _sym_stage_emulated(M, P, consts, G, Cw, own, mir, Zy.dtype, read,
-                              fwd.clone(), zero_mirror=False)
+                              fwd.clone())
     out, stores = _sym_inverse_emulated(buf, own, mir, M, P, G, Cw)
     return _planar(out, Zy.dtype), loads, stores
 
