@@ -17,7 +17,9 @@
 // y_dft_factored_kernel, the same factoring along the rows, for P = 128 *
 // 2^b (256 <= P <= 8192), and y_dft_kernel for the rest. So has K5:
 // x_symbols_cluster_kernel, K4's cluster inverse behind the symbol stage,
-// for M = 128 * 2^a, and x_symbols_inverse_kernel for the rest.
+// for M = 128 * 2^a, and x_symbols_inverse_kernel for the rest. So has K3:
+// pair_x_cluster_kernel, K4's cluster forward half in front of K5's
+// cluster kernel, for M = 128 * 2^a, and pair_x_kernel for the rest.
 //
 // Every kernel transforms with an in-place radix-2 FFT in shared memory:
 // the forward pass is decimation in frequency (natural order in, bit-reversed
@@ -103,7 +105,9 @@ y_dft_kernel(const float* __restrict__ in, float* __restrict__ out, int rows,
 // sub-transforms are joined into a second buffer in natural x order, the
 // symbol stage pairs natural positions there, and the split back into
 // sub-columns precedes the inverse passes; the wrapper halves C until
-// both buffers fit.
+// both buffers fit. Since the cluster kernel below took the power-of-two
+// extents M >= 256 G, this one runs the mixed extents M = 128 * n (n not a
+// power of two) and smaller M.
 // ---------------------------------------------------------------------------
 
 // 512 threads of at most 128 registers: the 4-stage register passes fit.
