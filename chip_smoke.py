@@ -6,9 +6,11 @@
 Phases, each printing one JSON line; any failure raises (non-zero exit):
 
 1. device  — the card's name and power limit (nvidia-smi); no CUDA -> error.
-2. build   — compiles the CUDA kernels of tpu_qg_torch/csrc at first use.
+2. build   — compiles the CUDA kernels of tpu_qg_torch/csrc at first use;
+   the ptxas lines of the kernels that form a step point.
 3. kernels — each kernel against its plain torch version on the card, on
-   inputs made from a numpy seed: K1 (step), K2 (y-DFT), K3 (mirror-pair
+   inputs made from a numpy seed: K1 (step, each launch by its
+   row-streaming kernel, counted), K2 (y-DFT), K3 (mirror-pair
    x-kernel), K16 (the inversion in one launch), K17 (the step in one
    launch) and K15 (the y-fused chain's step) at (2, 2048, 2048); K3 also
    at (2, 1024, 1024) and (2, 2048, 384) (its cluster kernel, counted) and
@@ -43,7 +45,13 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    fits at 4096^2 and 8192^2, with the clusters the card holds and ms in
    turns beside x_symbols_inverse_kernel, torch.fft.ifft along x (a
    yardstick: not K5's function) and a copy, host-launched and replayed
-   from a CUDA graph; K1 and K15 at (2, 8192, 8192), K17
+   from a CUDA graph; K1 (bitwise K18 base on one step case) and K15 at
+   (2, 8192, 8192); K1's row-streaming kernel in every layout (W, R, D, NT)
+   at 2048^2 and 8192^2, bitwise the tile kernel, with its registers,
+   spills and blocks an SM, graph-replayed in turns beside the tile kernel
+   (step_kernel), K18 base and a copy of three fields, and K12's
+   row-streaming kernel on the one-rank block (2, n, n) beside its tile
+   kernel, bitwise K1 (k1_sweep); K17
    at (2, 6272, 128) (the x-stage's sequential groups). On
    the real zeta of a grid-noise psi the inversions (K3; K16; K5; the
    four-pass K2 -> K4 -> K5 -> K2^-1) are held against float64. K10 (the
@@ -59,8 +67,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    on the plain route (fft_impl="xla", use_pallas=False) from the same psi:
    turbulence-2048 (100 steps: K1, K2, K3; every K2 launch, here and on
    every path below, by its factored kernel, every K3 launch by its
-   cluster kernel), with the pin gauge (100: K8), with fft_mono="on" (100:
-   K1, K16), step_full="on" (100: K17) and step_chain="on" (100: K15, K3,
+   cluster kernel, every K1 launch, here and below, by its row-streaming
+   kernel, "K1 rows" = K1), with the pin gauge (100: K8), with
+   fft_mono="on" (100: K1, K16), step_full="on" (100: K17) and step_chain="on" (100: K15, K3,
    K2 at the ends of each run call; the same);
    pod-8192 (50 steps: K1, K2, K4, K5, every K4 and K5 launch by its
    cluster kernel) and with step_chain="on" (20: K15, K4, K5, K2; the same).
@@ -87,7 +96,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 4b. mesh   — the halo stepper (tpu_qg_torch.parallel) through run_model
    (..., mesh=...), the launch counts set to 0 just before each slice and
    read just after, zeta against the single-device route of the same
-   config from the same psi: a one-rank NCCL mesh on cuda:0,
+   config from the same psi, every K12 launch by its row-streaming kernel
+   ("K12 rows" = K12, on every rank): a one-rank NCCL mesh on cuda:0,
    turbulence-2048 (100 steps: K12, K2, K3, every K3 launch by its cluster
    kernel), pod-8192 (20: K12, K2, K4, K5, every K4 and K5 launch by its
    cluster kernel) and turbulence-2048 with step_chain="on" (20: K15
@@ -114,7 +124,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    call, and (8192^2) the busy share over one traced MG call. The mesh: ms per step of the one-rank mesh against the
    single-device route at 2048^2 and 8192^2, in turns; K12, K13, K14, K15's
    sharded form and K7 per launch beside their plain versions at the
-   mesh slices' shapes; ms per step of each four-rank slice (host-staged
+   mesh slices' shapes (K12 beside its tile kernel); ms per step of each
+   four-rank slice (host-staged
    gloo transport on one card: not a scaling result). The lab: ms per
    launch of each K18 variant beside K1 in turns, each beside its plain
    version, and the lab path's own ms per step.
@@ -169,19 +180,25 @@ from tpu_qg_torch.ops._stencil_lab import lab_step, lab_step_plain
 from tpu_qg_torch.ops.multigrid import MultigridModalInverter
 from tpu_qg_torch.ops.spectral import (PackedModalInverter,
                                        PackedModalInverterKernels)
+from tpu_qg_torch.ops import step_kernel
 from tpu_qg_torch.ops.step_kernel import (HALO_ROWS, fused_pre_inversion,
                                           fused_pre_inversion_plain,
                                           fused_step, fused_step_full,
                                           fused_step_full_plain,
-                                          fused_step_plain,
+                                          fused_step_plain, fused_step_rows,
                                           fused_step_sharded,
                                           fused_step_sharded_plain,
+                                          fused_step_sharded_tile,
+                                          fused_step_tile,
                                           fused_step_yspec,
                                           fused_step_yspec_plain,
                                           fused_step_yspec_sharded,
                                           fused_step_yspec_sharded_plain,
                                           fused_tendency,
-                                          fused_tendency_plain)
+                                          fused_tendency_plain,
+                                          step_rows_attributes,
+                                          step_rows_launched,
+                                          step_rows_layouts)
 from tpu_qg_torch.parallel import (gather_state, make_halo_run_fn, make_mesh,
                                    shard_state)
 from tpu_qg_torch.parallel.paired import strip_pair_order
@@ -245,7 +262,9 @@ class KernelCount:
     (x_dft.cluster_launches: K4's cluster kernel;
     x_symbols_inverse.cluster_launches: K5's;
     pair_x_symbols.cluster_launches: K3's; y_dft.factored_launches: K2's
-    factored kernel), as a counter with a ``launches`` field."""
+    factored kernel; fused_step.rows_launches and
+    fused_step_sharded.rows_launches: K1's and K12's row-streaming kernel),
+    as a counter with a ``launches`` field."""
 
     def __init__(self, wrapper, attr: str):
         self.wrapper, self.attr = wrapper, attr
@@ -270,12 +289,17 @@ COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
             "K4 cluster": KernelCount(x_dft, "cluster_launches"),
             "K5 cluster": KernelCount(x_symbols_inverse, "cluster_launches"),
             "K3 cluster": KernelCount(pair_x_symbols, "cluster_launches"),
-            "K2 factored": KernelCount(y_dft, "factored_launches")}
-# Kernel names in a profiler trace, the one-launch kernels, K8, K9, K12 and
-# K18 before K1: a mangled K8, K9 or K12 name holds the source file's name,
+            "K2 factored": KernelCount(y_dft, "factored_launches"),
+            "K1 rows": KernelCount(fused_step, "rows_launches"),
+            "K12 rows": KernelCount(fused_step_sharded, "rows_launches")}
+# Kernel names in a profiler trace, the one-launch kernels, the
+# row-streaming K1 and K12, K8, K9, K12 and K18 before K1's tile kernel: a
+# mangled name of any kernel of step_kernel.cu holds the source file's name,
 # step_kernel, and K18's lab_step_kernel holds it too. K7, K13 and K14 are
 # one kernel, pair_cols_kernel.
-TRACE_NAMES = (("K17", "coop_fullstep_kernel"), ("K16", "coop_mono_kernel"),
+TRACE_NAMES = (("K12", "step_rows_sharded_kernel"),
+               ("K1", "step_rows_kernel"),
+               ("K17", "coop_fullstep_kernel"), ("K16", "coop_mono_kernel"),
                ("K15s", "coop_yspec_sharded_kernel"),
                ("K15", "coop_yspec_kernel"), ("K12", "step_sharded_kernel"),
                ("K7/K13/K14", "pair_cols_kernel"),
@@ -441,7 +465,34 @@ def phase_build() -> None:
          k4_cluster_ptxas=named["x_dft_cluster_kernel"],
          k5_cluster_ptxas=named["x_symbols_cluster_kernel"],
          k3_cluster_ptxas=named["pair_x_cluster_kernel"],
-         k2_factored_ptxas=named["y_dft_factored_kernel"])
+         k2_factored_ptxas=named["y_dft_factored_kernel"],
+         step_ptxas=step_ptxas(lines))
+
+
+# The kernels that form a step point (step_device.cuh's body): the
+# row-streaming K1 and K12, and the tile design's users.
+STEP_KERNEL_NAMES = ("step_rows_kernel", "step_rows_sharded_kernel",
+                     "step_kernel", "step_sharded_kernel",
+                     "pre_inversion_kernel", "tendency_kernel",
+                     "lab_step_kernel", "coop_yspec_kernel",
+                     "coop_yspec_sharded_kernel", "coop_fullstep_kernel")
+
+
+def step_ptxas(lines) -> dict:
+    """ptxas's registers, spills and shared memory of every instance of
+    STEP_KERNEL_NAMES, by kernel and mangled name (a name matches as its
+    mangled length-prefixed form, so step_kernel is not every kernel of
+    step_kernel.cu)."""
+    out, entry = {}, None
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            entry = next((k for k in STEP_KERNEL_NAMES
+                          if f"{len(k)}{k}" in name), None)
+        elif entry and ("registers" in ln or "spill" in ln):
+            out.setdefault(entry, {}).setdefault(name, []).append(
+                ln.split(":", 1)[-1].strip())
+    return out
 
 
 class Errors:
@@ -505,14 +556,31 @@ STEP_CASES = (("euler_ab3 step 0", {}, 0), ("euler_ab3 step 5", {}, 5),
                dict(time_scheme="leapfrog_ra", wind_tau0=0.1), 3))
 
 
-def check_step_kernel(errs, cfg, dev, rng, tag="") -> None:
+def check_step_kernel(errs, cfg, dev, rng, tag="", bitwise=()) -> None:
+    """K1 against its plain version on the step cases, each launch by its
+    row-streaming kernel (counted); on the cases named in ``bitwise`` also
+    bitwise K18 base, the tile design's body (the lab phase holds the rest
+    at 2048^2)."""
     zeta, psi, f1, f2 = step_inputs(cfg, dev, rng)
     for case, over, step in STEP_CASES:
         c = cfg.replace(**over)
+        n = fused_step.rows_launches
         got = fused_step(c, zeta, psi, f1, f2, step)
+        if fused_step.rows_launches != n + 1:
+            raise AssertionError(f"K1 {tag}{case}: not the row-streaming "
+                                 "kernel")
         want = fused_step_plain(c, zeta, psi, f1, f2, step)
         errs.record("K1", tag + case + " zeta_new", got[0], want[0])
         errs.record("K1", tag + case + " carry", got[1], want[1])
+        del want
+        if case in bitwise:
+            base = lab_step(c, zeta, psi, f1, f2, step, "base")
+            if not all(torch.equal(g, b) for g, b in zip(got, base)):
+                raise AssertionError(f"K1 {tag}{case}: not bitwise K18 base")
+            emit("kernels", kernel="K1", case=tag + case,
+                 bitwise_k18_base=True)
+            del base
+        del got
 
 
 def check_fullstep_kernel(errs, cfg, operands, consts, tag="") -> None:
@@ -755,7 +823,8 @@ def phase_x_kernels(errs, pod, dev, sizes=(4096, 8192)) -> None:
     del zeta
     free_memory()
     tag = f"{pod.M}x{pod.P} "
-    check_step_kernel(errs, pod, dev, rng, tag=tag)
+    check_step_kernel(errs, pod, dev, rng, tag=tag,
+                      bitwise=(STEP_CASES[1][0],))
     free_memory()
     check_yspec_kernel(errs, pod, step_inputs(pod, dev, rng),
                        STEP_CASES[1:2], tag=tag)
@@ -982,6 +1051,90 @@ def phase_k3_sweep(dev, turb, card, sizes=(1024, 2048),
              layouts=rows, reference_ms=refs, bound_ms=bound("K3", n, n)[0])
         out[n] = dict(layouts=rows, reference_ms=refs)
         del x, calls
+        free_memory()
+    return out
+
+
+def k1_layout_name(layout) -> str:
+    return "W={} R={} D={} NT={}".format(*layout)
+
+
+def phase_k1_sweep(dev, card, sizes=(2048, 8192), reps=(20, 5)) -> dict:
+    """K1's row-streaming kernel in every layout (W, R, D, NT) the source
+    instantiates, on K1's (2, n, n) fields: its registers, spill bytes,
+    shared memory and blocks an SM (cudaFuncGetAttributes,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor), its outputs bitwise
+    the tile design's (step_kernel, the kernel it replaces), and ms a launch
+    replayed from a CUDA graph, the layouts in turns (in order, then in
+    reverse), beside the tile kernel, K18 base (the tile design's body in
+    the lab kernel) and a torch copy of three (2, n, n) fields (a read and
+    a write of K1's six fields' bytes); then K12 on the one-rank block
+    (2, n, n) with its wrap rows as slabs, in its launched layout, beside
+    its tile kernel (step_sharded_kernel), bitwise K1. Returns the entries
+    by grid."""
+    rng = np.random.default_rng(SEED + 15)
+    turb = preset("turbulence-2048")
+    out = {}
+    for n, r in zip(sizes, reps):
+        cfg = turb.replace(M=n, P=n)
+        zeta, psi, f1, f2 = step_inputs(cfg, dev, rng)
+        tile = fused_step_tile(cfg, zeta, psi, f1, f2, 5)
+        rows, calls = {}, {}
+        for lay in step_rows_layouts():
+            key = k1_layout_name(lay)
+            rows[key] = dict(step_rows_attributes(lay, False, dev.index or 0))
+            got = fused_step_rows(cfg, zeta, psi, f1, f2, 5, lay)
+            if not all(torch.equal(g, t) for g, t in zip(got, tile)):
+                raise AssertionError(f"K1 rows {key} at {n}^2: not bitwise "
+                                     "the tile kernel")
+            del got
+            calls[key] = lambda lay=lay: fused_step_rows(cfg, zeta, psi, f1,
+                                                         f2, 5, lay)
+        src = torch.empty((3, 2, n, n), device=dev)
+        dst = torch.empty_like(src)
+        calls.update({
+            "step_kernel (tile)": lambda: fused_step_tile(cfg, zeta, psi, f1,
+                                                          f2, 5),
+            "K18 base": lambda: lab_step(cfg, zeta, psi, f1, f2, 5, "base"),
+            "copy": lambda: dst.copy_(src)})
+        runs = {k: [] for k in calls}
+        for k in list(calls) + list(calls)[::-1]:
+            runs[k].append(graph_ms(calls[k], r))
+        for key, v in runs.items():
+            rows.setdefault(key, {}).update(graph_ms=sum(v) / 2,
+                                            graph_runs_ms=v)
+        del src, dst, calls, tile
+        free_memory()
+        # K12 on the one-rank block: its wrap rows are its slabs.
+        (zt, zb), (pt, pb) = slabs((zeta, psi), 0, n)
+        k12 = {"K12 rows": lambda: fused_step_sharded(
+                   cfg, zeta, psi, f1, f2, 5, zt, zb, pt, pb),
+               "K12 step_sharded_kernel (tile)": lambda: fused_step_sharded_tile(
+                   cfg, zeta, psi, f1, f2, 5, zt, zb, pt, pb)}
+        k1 = fused_step(cfg, zeta, psi, f1, f2, 5)
+        if not all(torch.equal(g, t) for g, t in zip(k12["K12 rows"](), k1)):
+            raise AssertionError(f"K12 rows at {n}^2: not bitwise K1")
+        del k1
+        k12_runs = {k: [] for k in k12}
+        for k in list(k12) + list(k12)[::-1]:
+            k12_runs[k].append(graph_ms(k12[k], r))
+        k12_ms = {k: sum(v) / 2 for k, v in k12_runs.items()}
+        launched = k1_layout_name(step_rows_launched(n))
+        least = min((k for k in rows if k.startswith("W=")),
+                    key=lambda k: rows[k]["graph_ms"])
+        emit("k1_sweep", card=card, grid=[2, n, n], launched=launched,
+             least=least, layouts=rows, bound_ms=bound("K1", n, n)[0],
+             k12_graph_ms=k12_ms, k12_graph_runs_ms=k12_runs,
+             k12_layout=launched)
+        out[n] = dict(launched=launched, least=least,
+                      launched_ms=rows[launched]["graph_ms"],
+                      least_ms=rows[least]["graph_ms"],
+                      tile_ms=rows["step_kernel (tile)"]["graph_ms"],
+                      k18_base_ms=rows["K18 base"]["graph_ms"],
+                      copy_ms=rows["copy"]["graph_ms"],
+                      k12_ms=k12_ms["K12 rows"],
+                      k12_tile_ms=k12_ms["K12 step_sharded_kernel (tile)"])
+        del zeta, psi, f1, f2, zt, zb, pt, pb, k12
         free_memory()
     return out
 
@@ -1561,11 +1714,13 @@ def phase_mesh_one_rank(turb, pod, dev, card) -> tuple[dict, dict]:
         launches = {}
         for name, cfg, steps, expect, route in (
                 ("turbulence-2048 mesh (1, 1)", turb, 100,
-                 {"K12": 100, "K2": 200, "K2 factored": 200, "K3": 100,
-                  "K3 cluster": 100}, "fused"),
+                 {"K12": 100, "K12 rows": 100, "K2": 200,
+                  "K2 factored": 200, "K3": 100, "K3 cluster": 100},
+                 "fused"),
                 ("pod-8192 mesh (1, 1)", pod, 20,
-                 {"K12": 20, "K2": 40, "K2 factored": 40, "K4": 20, "K5": 20,
-                  "K4 cluster": 20, "K5 cluster": 20}, "fused"),
+                 {"K12": 20, "K12 rows": 20, "K2": 40, "K2 factored": 40,
+                  "K4": 20, "K5": 20, "K4 cluster": 20, "K5 cluster": 20},
+                 "fused"),
                 ("turbulence-2048 step_chain=on mesh (1, 1)", chain, 20,
                  {"K15s": 20, "K3": 20, "K3 cluster": 20,
                   "K2": 2 * run_chunks(chain, 20),
@@ -1637,14 +1792,17 @@ def run_k7_path(pod, dev, calls: int) -> dict:
 FOUR_RANK_SLICES = (
     # name, preset, step_chain, mesh, steps, expected counts on every rank
     ("turbulence-2048 mesh (4, 1)", "turbulence-2048", "auto", (4, 1), 10,
-     {"K12": 10, "K2": 20, "K2 factored": 20, "K14": 10}, "fused"),
+     {"K12": 10, "K12 rows": 10, "K2": 20, "K2 factored": 20, "K14": 10},
+     "fused"),
     ("turbulence-2048 step_chain=on mesh (4, 1)", "turbulence-2048", "on",
      (4, 1), 10, {"K15s": 10, "K14": 10, "K2": 2, "K2 factored": 2},
      "chain"),
     ("turbulence-2048 mesh (2, 2)", "turbulence-2048", "auto", (2, 2), 10,
-     {"K12": 10, "K2": 20, "K2 factored": 20, "K13": 10}, "fused-2d"),
+     {"K12": 10, "K12 rows": 10, "K2": 20, "K2 factored": 20, "K13": 10},
+     "fused-2d"),
     ("pod-8192 mesh (4, 1)", "pod-8192", "auto", (4, 1), 5,
-     {"K12": 5, "K2": 10, "K2 factored": 10, "K13": 5}, "fused"),
+     {"K12": 5, "K12 rows": 5, "K2": 10, "K2 factored": 10, "K13": 5},
+     "fused"),
 )
 
 
@@ -1770,6 +1928,10 @@ def time_sharded_kernels(turb, pod, dev, card) -> dict:
         50, 10))
     for k in ("K12", "K15s"):
         out[k]["shape"] = [2, turb.M, turb.P]
+    # K12's tile kernel (step_sharded_kernel) on the same block, in turns.
+    tile = [time_ms(lambda: fused_step_sharded_tile(
+        turb, zeta, psi, f1, f2, 5, zt, zb, pt, pb), 50) for _ in range(2)]
+    out["K12"].update(tile_ms=sum(tile) / 2, tile_runs_ms=tile)
     del zeta, psi, f1, f2, psi_ys
     consts = inverter(turb)._sym_consts
     x = torch.as_tensor(rng.standard_normal((2, turb.M, turb.P // 4)),
@@ -2179,6 +2341,7 @@ def main() -> None:
     k4_sweep = phase_k4_sweep(dev, card)
     k5_sweep = phase_k5_sweep(dev, pod, card)
     k3_sweep = phase_k3_sweep(dev, turb, card)
+    k1_sweep = phase_k1_sweep(dev, card)
     k2_sweep = phase_k2_sweep(dev, card)
     k2_mixed = time_k2_mixed(dev, card)
     phase_mg_kernels(errs, turb, pod_mg, dev)
@@ -2187,21 +2350,22 @@ def main() -> None:
 
     slices = (
         ("turbulence-2048", turb, 100,
-         {"K1": 100, "K2": 200, "K2 factored": 200, "K3": 100,
-          "K3 cluster": 100}, "default"),
+         {"K1": 100, "K1 rows": 100, "K2": 200, "K2 factored": 200,
+          "K3": 100, "K3 cluster": 100}, "default"),
         ("turbulence-2048 pin", turb.replace(poisson_gauge="pin"), 100,
          {"K8": 100}, "default"),
         ("turbulence-2048 fft_mono=on", forms["mono"], 100,
-         {"K1": 100, "K16": 100}, "mono"),
+         {"K1": 100, "K1 rows": 100, "K16": 100}, "mono"),
         ("turbulence-2048 step_full=on", forms["fullstep"], 100,
          {"K17": 100}, "fullstep"),
         ("turbulence-2048 step_chain=on", forms["chain"], 100,
          {"K15": 100, "K3": 100, "K3 cluster": 100,
           "K2": 2 * run_chunks(forms["chain"], 100),
           "K2 factored": 2 * run_chunks(forms["chain"], 100)}, "chain"),
-        ("pod-8192", pod, 50, {"K1": 50, "K2": 100, "K2 factored": 100,
-                               "K4": 50, "K5": 50, "K4 cluster": 50,
-                               "K5 cluster": 50}, "default"),
+        ("pod-8192", pod, 50, {"K1": 50, "K1 rows": 50, "K2": 100,
+                               "K2 factored": 100, "K4": 50, "K5": 50,
+                               "K4 cluster": 50, "K5 cluster": 50},
+         "default"),
         ("pod-8192 step_chain=on", pod_chain, 20,
          {"K15": 20, "K4": 20, "K5": 20, "K2": 2 * run_chunks(pod_chain, 20),
           "K2 factored": 2 * run_chunks(pod_chain, 20), "K4 cluster": 20,
@@ -2294,8 +2458,22 @@ def main() -> None:
                         dft_kernels.Y_FACTORED_RB_BY_P),
                     "y_dft_kernel": "every other extent"},
         "sweep_8192": k2_sweep[8192], "mixed": k2_mixed}
+    extra["K1"] = {
+        "rows_launches": sum(run["K1 rows"] for run in launches.values()),
+        "kernels": {"step_rows_kernel": "P % 4 == 0, operands 16-byte "
+                    "aligned (layouts (W, R, D, NT): {}, else {})".format(
+                        step_kernel.STEP_ROWS_BY_M, step_kernel.STEP_ROWS),
+                    "step_kernel": "every other shape (the tile design)"},
+        "sweep": k1_sweep}
     sharded_ms = time_sharded_kernels(turb, pod, dev, card)
-    extra["K12"] = {"mesh_step_ms": mesh_ms}
+    extra["K12"] = {
+        "mesh_step_ms": mesh_ms,
+        "rows_launches": sum(run["K12 rows"] for run in launches.values()),
+        "kernels": {"step_rows_sharded_kernel": "as K1's step_rows_kernel, "
+                    "with the block's slabs (H >= 2)",
+                    "step_sharded_kernel": "every other shape (the tile "
+                    "design)"},
+        "tile_ms": sharded_ms["K12"]["tile_ms"]}
     lab = time_lab(dev, card, lab_jobs)
     ms_2048["K18"] = {"ms": lab.pop("ms"), "plain_ms": lab.pop("plain_ms")}
     extra["K18"] = lab

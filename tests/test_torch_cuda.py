@@ -16,7 +16,9 @@ K9 1e-6 (K1's tile); K10 and K11 1e-6 (tests/test_multigrid.py's kernel
 tolerance), and the multigrid solves on the card 1e-5 from the CPU's. The
 sharded kernels as the kernels they extend: K12 1e-6, K15's sharded form
 1e-6 (zeta_new, carry) and 1e-5 (zeta_ys), K13, K14 and K7 1e-4. K18 (the
-stencil lab's step) 1e-6, its base instance bitwise K1.
+stencil lab's step) 1e-6, its base instance bitwise K1. K1's and K12's
+row-streaming kernel bitwise the tile design (K18 base, step_kernel), K12
+bitwise K1, with both rows_launches counters.
 """
 
 import numpy as np
@@ -46,9 +48,11 @@ from tpu_qg_torch.ops.step_kernel import (fused_pre_inversion,
                                           fused_pre_inversion_plain,
                                           fused_step, fused_step_full,
                                           fused_step_full_plain,
-                                          fused_step_plain,
+                                          fused_step_plain, fused_step_rows,
                                           fused_step_sharded,
                                           fused_step_sharded_plain,
+                                          fused_step_tile,
+                                          step_rows_layouts,
                                           fused_step_yspec,
                                           fused_step_yspec_plain,
                                           fused_step_yspec_sharded,
@@ -95,6 +99,57 @@ def test_step_kernel(dev, M, P, scheme, tau0, step):
     assert fused_step.launches == n + 1
     for g, w in zip(got, want):
         assert _rel(g, w) <= 1e-6
+
+
+@pytest.mark.parametrize("M,P", SHAPES)
+@pytest.mark.parametrize("scheme,tau0,step", [
+    ("euler_ab3", 0.0, 0), ("euler_ab3", 0.0, 5), ("leapfrog_ra", 0.1, 0),
+    ("leapfrog_ra", 0.1, 3)])
+def test_step_rows_kernel_bitwise_tile_design(dev, M, P, scheme, tau0, step):
+    """K1 by its row-streaming kernel (counted in rows_launches) gives the
+    bits of K18 base, the tile design's body."""
+    cfg = preset("turbulence-2048").replace(M=M, P=P, time_scheme=scheme,
+                                            wind_tau0=tau0)
+    z, p, f1, f2 = _fields(M, P, dev)
+    n = fused_step.rows_launches
+    got = fused_step(cfg, z, p, f1, f2, step)
+    base = lab_step(cfg, z, p, f1, f2, step, "base")
+    torch.cuda.synchronize()
+    assert fused_step.rows_launches == n + 1
+    assert all(torch.equal(g, b) for g, b in zip(got, base))
+
+
+@pytest.mark.parametrize("M,P", [(384, 640), (2432, 8064)])
+def test_step_rows_every_layout(dev, M, P):
+    """Every layout the source instantiates, bitwise the tile kernel, on a
+    ragged last strip (640 and 8064 for W = 256) and ragged runs."""
+    cfg = preset("turbulence-2048").replace(M=M, P=P)
+    z, p, f1, f2 = _fields(M, P, dev)
+    tile = fused_step_tile(cfg, z, p, f1, f2, 5)
+    for layout in step_rows_layouts():
+        got = fused_step_rows(cfg, z, p, f1, f2, 5, layout)
+        assert all(torch.equal(g, t) for g, t in zip(got, tile)), layout
+
+
+def test_step_rows_routing(dev):
+    """P % 4 != 0 and a misaligned operand take the tile kernel: launches
+    counts them, rows_launches does not."""
+    cfg = preset("turbulence-2048").replace(M=256, P=258)
+    z, p, f1, f2 = _fields(256, 258, dev)
+    n, n_rows = fused_step.launches, fused_step.rows_launches
+    got = fused_step(cfg, z, p, f1, f2, 5)
+    assert (fused_step.launches, fused_step.rows_launches) == (n + 1, n_rows)
+    for g, w in zip(got, fused_step_plain(cfg, z, p, f1, f2, 5)):
+        assert _rel(g, w) <= 1e-6
+    cfg = preset("turbulence-2048").replace(M=256, P=256)
+    z, p, f1, f2 = _fields(256, 256, dev)
+    shifted = torch.empty(2 * 256 * 256 + 1, device=dev)[1:].view(2, 256, 256)
+    shifted.copy_(z)
+    got = fused_step(cfg, shifted, p, f1, f2, 5)
+    torch.cuda.synchronize()
+    assert (fused_step.launches, fused_step.rows_launches) == (n + 2, n_rows)
+    assert all(torch.equal(g, t) for g, t in zip(
+        got, fused_step_rows(cfg, z, p, f1, f2, 5)))
 
 
 @pytest.mark.parametrize("M,P", SHAPES)
@@ -562,6 +617,25 @@ def test_sharded_step_kernel(dev, M, P, nx, H, scheme, tau0, step):
             assert _rel(g, w_all[:, rows]) <= 1e-6
     torch.cuda.synchronize()
     assert fused_step_sharded.launches == n + 2
+
+
+@pytest.mark.parametrize("M,P", [(256, 256), (384, 640), (2048, 2048)])
+@pytest.mark.parametrize("scheme,tau0,step", [
+    ("euler_ab3", 0.0, 5), ("leapfrog_ra", 0.1, 3)])
+def test_sharded_rows_kernel_bitwise_k1(dev, M, P, scheme, tau0, step):
+    """K12 on the whole field with its wrap rows as slabs (a one-rank
+    mesh's block) by its row-streaming kernel (counted in rows_launches)
+    gives K1's bits."""
+    cfg = preset("turbulence-2048").replace(M=M, P=P, time_scheme=scheme,
+                                            wind_tau0=tau0)
+    z, p, f1, f2 = _fields(M, P, dev)
+    (zt, zb), (pt, pb) = _slabs((z, p), 0, M, 2)
+    n = fused_step_sharded.rows_launches
+    got = fused_step_sharded(cfg, z, p, f1, f2, step, zt, zb, pt, pb)
+    k1 = fused_step(cfg, z, p, f1, f2, step)
+    torch.cuda.synchronize()
+    assert fused_step_sharded.rows_launches == n + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, k1))
 
 
 @pytest.mark.parametrize("M,P,nx", [(1024, 384, 4), (2048, 2048, 4)])

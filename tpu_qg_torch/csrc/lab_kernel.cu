@@ -11,10 +11,12 @@
 // Arakawa term). norot and noslice read no neighbour, or no x neighbour,
 // from shared memory; nojac skips the Jacobian's arithmetic.
 //
-// Bound and design: K1's (step_kernel.cu). Six (L, M, P) fields cross device
-// memory once, 201 MB at (2, 2048, 2048); one block per 32 x 64 tile with
-// psi (halo 2) and zeta (halo 1) in shared memory. Base's two-layer
-// instance runs K1's code and gives K1's bits.
+// Bound: K1's (step_kernel.cu). Six (L, M, P) fields cross device memory
+// once, 201 MB at (2, 2048, 2048). Design: the tile design (step_tile in
+// step_device.cuh), one block per 32 x 64 tile with psi (halo 2) and zeta
+// (halo 1) in shared memory. Base's two-layer instance runs the tile
+// design's code with K1's body; it gives K1's bits, since K1's
+// row-streaming kernel forms every point with the same body.
 
 #include <cuda_runtime.h>
 

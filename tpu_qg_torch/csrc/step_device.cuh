@@ -1,6 +1,11 @@
-// The step's tile body, shared by K1, K8, K9 and K12 (step_kernel.cu) and the
-// one-launch kernels K15, K15's sharded form and K17 (fused_kernels.cu).
-// Design notes in step_kernel.cu.
+// The step's point body (step_lap, step_tendency, step_update), shared by
+// every step kernel, and the tile design that runs it (step_tile): K8, K9,
+// and K1 and K12 on the shapes the row-streaming design does not take
+// (step_kernel.cu), K18 (lab_kernel.cu) and the one-launch kernels K15,
+// K15's sharded form and K17 (fused_kernels.cu). K1 and K12 run the same
+// body in the row-streaming design (step_rows in step_kernel.cu), so every
+// step kernel gives the same bits for the same point. Design notes in
+// step_kernel.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,6 +35,120 @@ struct StepConsts {
   float c5;           // 5/12
 };
 constexpr int kNumConsts = sizeof(StepConsts) / sizeof(float);
+
+// The point body. Every step kernel forms each point from these three
+// functions, in this order of operations, so that the compiler contracts
+// the same products into the same FMAs in each of them.
+
+// lap at a point from its centre and its four neighbours.
+__device__ __forceinline__ float step_lap(float c, float xm, float xp, float ym,
+                                          float yp, float inv_dx2) {
+  return ((((xm + xp) - 4.0f * c) + ym) + yp) * inv_dx2;
+}
+
+// K18's tendency bodies (lab_kernel.cu; tpu_qg/ops/_stencil_lab.py BODIES):
+// K1's body (also the lab's legacy and aligned variants), every neighbour
+// read as the centre, the x neighbours read as the centre, no Jacobian.
+constexpr int kBodyBase = 0;
+constexpr int kBodyNorot = 1;
+constexpr int kBodyNoslice = 2;
+constexpr int kBodyNojac = 3;
+
+// Layer l's tendency at a point of an L-layer step. lap(a, b), zeta(a, b)
+// and psi(a, b) read lap(psi), zeta and psi at x + a, y + b (a, b in -1, 0,
+// 1; lap at the point and its four neighbours only), beta() reads c.beta[l]
+// and wind() F(y), added on layer 0 when `wind_on`: the body reads each
+// where K1's first tile body read it, so the tile kernels keep their
+// schedule. kBody as in step_tile: nojac drops the Jacobian, nojac and
+// noslice drop one layer's U term, as tpu_qg's bodies do.
+template <int L, int kBody = kBodyBase, class Lap, class Zeta, class Psi,
+          class Beta, class Wind>
+__device__ __forceinline__ float step_tendency(const StepConsts& c, int l,
+                                               Lap lap, Zeta zeta, Psi psi,
+                                               Beta beta, bool wind_on,
+                                               Wind wind) {
+  constexpr bool kOneLayerU = kBody == kBodyBase || kBody == kBodyNorot;
+  const float lap_c = lap(0, 0);
+  const float visc_term =
+      c.visc * step_lap(lap_c, lap(-1, 0), lap(1, 0), lap(0, -1), lap(0, 1),
+                        c.inv_dx2);
+
+  const float z_xp = zeta(1, 0), z_xm = zeta(-1, 0);
+  const float z_yp = zeta(0, 1), z_ym = zeta(0, -1);
+  const float z_xpyp = zeta(1, 1), z_xpym = zeta(1, -1);
+  const float z_xmyp = zeta(-1, 1), z_xmym = zeta(-1, -1);
+  const float p_xp = psi(1, 0), p_xm = psi(-1, 0);
+  const float p_yp = psi(0, 1), p_ym = psi(0, -1);
+  const float p_xpyp = psi(1, 1), p_xpym = psi(1, -1);
+  const float p_xmyp = psi(-1, 1), p_xmym = psi(-1, -1);
+
+  float tend = visc_term;
+  if constexpr (kBody != kBodyNojac) {
+    const float j_pp = (z_xp - z_xm) * (p_yp - p_ym)
+                       - (z_yp - z_ym) * (p_xp - p_xm);
+    const float j_pt = ((z_xp * (p_xpyp - p_xpym) - z_xm * (p_xmyp - p_xmym))
+                        - z_yp * (p_xpyp - p_xmyp))
+                       + z_ym * (p_xpym - p_xmym);
+    const float j_tp = ((z_xpyp * (p_yp - p_xp) - z_xmym * (p_xm - p_ym))
+                        - z_xmyp * (p_yp - p_xm))
+                       + z_xpym * (p_xp - p_ym);
+    tend = tend - ((j_pp + j_pt) + j_tp) / c.jac_den;
+  }
+  const float dpsi_dx = c.half_inv_dx * (p_xp - p_xm);
+
+  tend = tend - beta() * dpsi_dx;
+  if (l == 0) {
+    if (L == 2 || kOneLayerU) {
+      tend = tend - c.U * (c.half_inv_dx * (z_xp - z_xm));
+    }
+    if (L == 1) tend = tend - c.r * lap_c;
+    if (wind_on) tend = tend + wind();
+  } else {
+    tend = tend - c.r * lap_c;
+  }
+  return tend;
+}
+
+// Whether the update reads f1 and f2: leapfrog reads f1 (the filtered
+// previous level) from step 1 on, AB3 reads both from step 2 on.
+__device__ __forceinline__ bool step_reads_f1(int leapfrog, int step) {
+  return leapfrog ? step != 0 : step >= 2;
+}
+__device__ __forceinline__ bool step_reads_f2(int leapfrog, int step) {
+  return !leapfrog && step >= 2;
+}
+
+// The time update of a point with centre zeta zc: zeta_new and the carry
+// (the tendency under Euler/AB3, the filtered current level under
+// leapfrog-RA). f1v() and f2v() read the history fields, only where
+// step_reads_f1/f2 say.
+template <class F1, class F2>
+__device__ __forceinline__ void step_update(const StepConsts& c, int leapfrog,
+                                            int step, float zc, float tend,
+                                            F1 f1v, F2 f2v, float& zn,
+                                            float& out) {
+  if (leapfrog) {
+    const float zpf = (step == 0) ? zc : f1v();
+    zn = (step == 0) ? zc + c.dt * tend : zpf + c.two_dt * tend;
+    out = zc + c.ra * ((zpf - 2.0f * zc) + zn);
+  } else {
+    if (step < 2) {
+      zn = zc + c.dt * tend;
+    } else {
+      zn = zc + c.dt * ((c.c23 * tend - c.c16 * f1v()) + c.c5 * f2v());
+    }
+    out = tend;
+  }
+}
+
+// v, opaque to the compiler. A thread that forms several points passes
+// through this an operand of each product two of its points would share:
+// a shared product is formed once and not contracted into an FMA, and the
+// points would not give the bits of a kernel that forms one at a time.
+__device__ __forceinline__ float opaque(float v) {
+  asm volatile("" : "+f"(v));
+  return v;
+}
 
 // K8's modal projection P^-1 = [[q11, q12], [q21, q22]].
 struct ModalConsts {
@@ -76,15 +195,7 @@ __device__ __forceinline__ float slab_ld(const float* layer, const float* top,
   return ld<kL2>(layer + (size_t)gx * P + gy);
 }
 
-// K18's tendency bodies (lab_kernel.cu; tpu_qg/ops/_stencil_lab.py BODIES):
-// K1's body (also the lab's legacy and aligned variants), every neighbour
-// read as the centre, the x neighbours read as the centre, no Jacobian.
-constexpr int kBodyBase = 0;
-constexpr int kBodyNorot = 1;
-constexpr int kBodyNoslice = 2;
-constexpr int kBodyNojac = 3;
-
-// K1's and K8's tiles in static shared memory (zn0 only where the modes need
+// K8's and K9's tiles in static shared memory (zn0 only where the modes need
 // it).
 #define STATIC_STEP_TILES(kModes)                      \
   __shared__ float ps[TX + 4][TY + 4];                 \
@@ -125,7 +236,6 @@ __device__ __forceinline__ void step_tile(
     int y0, const StepTiles& t, Slabs sl = Slabs{}) {
   constexpr int DX = kBody == kBodyNorot || kBody == kBodyNoslice ? 0 : 1;
   constexpr int DY = kBody == kBodyNorot ? 0 : 1;
-  constexpr bool kOneLayerU = kBody == kBodyBase || kBody == kBodyNorot;
   float (*ps)[TY + 4] = t.ps;
   float (*zs)[TY + 2] = t.zs;
   float (*lp)[TY + 2] = t.lp;
@@ -160,9 +270,9 @@ __device__ __forceinline__ void step_tile(
     // lap(psi) on the tile plus a ring of 1: lp[i][j] sits at ps[i+1][j+1].
     for (int idx = threadIdx.x; idx < (TX + 2) * (TY + 2); idx += NT) {
       const int i = idx / (TY + 2), j = idx % (TY + 2);
-      lp[i][j] = ((((ps[i + 1 - DX][j + 1] + ps[i + 1 + DX][j + 1])
-                    - 4.0f * ps[i + 1][j + 1])
-                   + ps[i + 1][j + 1 - DY]) + ps[i + 1][j + 1 + DY]) * c.inv_dx2;
+      lp[i][j] = step_lap(ps[i + 1][j + 1], ps[i + 1 - DX][j + 1],
+                          ps[i + 1 + DX][j + 1], ps[i + 1][j + 1 - DY],
+                          ps[i + 1][j + 1 + DY], c.inv_dx2);
     }
     __syncthreads();
 
@@ -172,44 +282,13 @@ __device__ __forceinline__ void step_tile(
       if (gx >= M || gy >= P) continue;
       // Centres: psi at ps[i+2][j+2], zeta and lap at [i+1][j+1].
       const int pi = i + 2, pj = j + 2, zi = i + 1, zj = j + 1;
-      const float lap_c = lp[zi][zj];
-      const float visc_term =
-          c.visc * (((((lp[zi - DX][zj] + lp[zi + DX][zj]) - 4.0f * lap_c)
-                      + lp[zi][zj - DY]) + lp[zi][zj + DY]) * c.inv_dx2);
-
-      const float z_xp = zs[zi + DX][zj], z_xm = zs[zi - DX][zj];
-      const float z_yp = zs[zi][zj + DY], z_ym = zs[zi][zj - DY];
-      const float z_xpyp = zs[zi + DX][zj + DY], z_xpym = zs[zi + DX][zj - DY];
-      const float z_xmyp = zs[zi - DX][zj + DY], z_xmym = zs[zi - DX][zj - DY];
-      const float p_xp = ps[pi + DX][pj], p_xm = ps[pi - DX][pj];
-      const float p_yp = ps[pi][pj + DY], p_ym = ps[pi][pj - DY];
-      const float p_xpyp = ps[pi + DX][pj + DY], p_xpym = ps[pi + DX][pj - DY];
-      const float p_xmyp = ps[pi - DX][pj + DY], p_xmym = ps[pi - DX][pj - DY];
-
-      float tend = visc_term;
-      if constexpr (kBody != kBodyNojac) {
-        const float j_pp = (z_xp - z_xm) * (p_yp - p_ym)
-                           - (z_yp - z_ym) * (p_xp - p_xm);
-        const float j_pt = ((z_xp * (p_xpyp - p_xpym) - z_xm * (p_xmyp - p_xmym))
-                            - z_yp * (p_xpyp - p_xmyp))
-                           + z_ym * (p_xpym - p_xmym);
-        const float j_tp = ((z_xpyp * (p_yp - p_xp) - z_xmym * (p_xm - p_ym))
-                            - z_xmyp * (p_yp - p_xm))
-                           + z_xpym * (p_xp - p_ym);
-        tend = tend - ((j_pp + j_pt) + j_tp) / c.jac_den;
-      }
-      const float dpsi_dx = c.half_inv_dx * (p_xp - p_xm);
-
-      tend = tend - c.beta[l] * dpsi_dx;
-      if (l == 0) {
-        if (L == 2 || kOneLayerU) {
-          tend = tend - c.U * (c.half_inv_dx * (z_xp - z_xm));
-        }
-        if (L == 1) tend = tend - c.r * lap_c;
-        if (wind != nullptr) tend = tend + wind[gy];
-      } else {
-        tend = tend - c.r * lap_c;
-      }
+      // DX and DY stand in for the neighbour offsets (0: the centre).
+      const float tend = step_tendency<L, kBody>(
+          c, l, [&](int a, int b) { return lp[zi + a * DX][zj + b * DY]; },
+          [&](int a, int b) { return zs[zi + a * DX][zj + b * DY]; },
+          [&](int a, int b) { return ps[pi + a * DX][pj + b * DY]; },
+          [&] { return c.beta[l]; }, wind != nullptr,
+          [&] { return wind[gy]; });
 
       const size_t at = (size_t)gx * P + gy;
       const size_t off = l * plane + at;
@@ -217,20 +296,10 @@ __device__ __forceinline__ void step_tile(
         zeta_new[off] = tend;
         continue;
       }
-      const float zc = zs[zi][zj];
       float zn, out;
-      if (leapfrog) {
-        const float zpf = (step == 0) ? zc : ld<kL2>(f1 + off);
-        zn = (step == 0) ? zc + c.dt * tend : zpf + c.two_dt * tend;
-        out = zc + c.ra * ((zpf - 2.0f * zc) + zn);
-      } else {
-        if (step < 2) {
-          zn = zc + c.dt * tend;
-        } else {
-          zn = zc + c.dt * ((c.c23 * tend - c.c16 * ld<kL2>(f1 + off)) + c.c5 * ld<kL2>(f2 + off));
-        }
-        out = tend;
-      }
+      step_update(c, leapfrog, step, zs[zi][zj], tend,
+                  [&] { return ld<kL2>(f1 + off); },
+                  [&] { return ld<kL2>(f2 + off); }, zn, out);
       zeta_new[off] = zn;
       carry[off] = out;
       if constexpr (kModes) {

@@ -3,11 +3,6 @@
 // third output, K9: the tendency alone, and K12: K1 on one rank's row block
 // of a sharded grid.
 //
-// K1 replaces tpu_qg/ops/pallas_tendency.py fused_step_streamed (v4,
-// _streamed_kernel) and its single-tile form fused_step_pre_fft (v3,
-// _step_pre_fft_kernel): one Hopper kernel covers both, since the TPU forms
-// differ only in how they pipeline row tiles through VMEM.
-//
 // Per layer l of the (L, M, P) fields (axis 1 = x, axis 2 = y, y contiguous):
 //   tend = visc*lap(lap(psi)) - J(zeta, psi) - beta_l*d(psi)/dx
 //          - {U*d(zeta)/dx (l = 0) | r*lap(psi) (l = 1)} (+ F(y) on l = 0)
@@ -15,20 +10,69 @@
 // Euler/AB3 update (carry = tend) or the leapfrog/Robert-Asselin update
 // (carry = the filtered current level). The term grouping follows
 // tpu_qg/ops/stencils.py:92-111 and models/core.py:57-92, as does the plain
-// version (tpu_qg_torch.ops.step_kernel.fused_step_plain).
+// version (tpu_qg_torch.ops.step_kernel.fused_step_plain). Every kernel here
+// forms a point with the same three functions (step_lap, step_tendency,
+// step_update in step_device.cuh), so all of them give the same bits.
 //
-// Bound: device-memory bandwidth. Per step the kernel reads zeta, psi, f1, f2
-// and writes zeta_new and the carry — six (2, M, P) fields, 6 x 33.5 MB at
-// 2048^2 — and does ~60 flops per point. Design (step_tile in
-// step_device.cuh): one block per 32 x 64 tile, the layers in turn; psi
-// (halo 2) and zeta (halo 1) land in shared memory with the periodic wrap
-// done in the load index, lap(psi) is formed once on the tile plus a ring
-// of 1, and every stencil neighbour is then a
-// shared-memory read. Threads walk the tile with y fastest, so each warp's
-// global loads and stores are 128-byte contiguous runs along the contiguous
-// axis.
+// K1 and K12: the row-streaming step (step_rows_kernel and
+// step_rows_sharded_kernel). K1 replaces tpu_qg/ops/pallas_tendency.py:555
+// fused_step_streamed (v4, _streamed_kernel) and :997 fused_step_pre_fft
+// (v3, its single-tile form); K12 replaces :608
+// fused_step_streamed_sharded. The TPU kernel is itself a double-buffered
+// pipeline of row tiles through VMEM; this is that idea at the size of one
+// SM, not a block-by-block copy of it.
+//
+// Bound: device-memory bandwidth. A step reads zeta, psi, f1 and f2 and
+// writes zeta_new and the carry: six (2, M, P) fields, 201 MB at 2048^2 and
+// 3216 MB at 8192^2 (0.060 and 0.960 ms at 3.35 TB/s), ~63 float32
+// operations a point, far below the float32 rate. A block also reads the
+// halo of its strip and run again: (W + 8)/W x (R + 4)/R of a field on psi
+// and (W + 8)/W x (R + 2)/R on zeta (1.13 and 1.09 at W = 128, R = 64),
+// most of it from L2, where the neighbouring blocks of the launch order
+// (strips fastest) read the same rows.
+//
+// Design. A block takes one layer, one strip of W contiguous y columns and
+// one run of R consecutive x rows (R = M: one block marches down all of
+// them), and walks its run G = 4 NT / W rows at a time, each of its NT
+// threads owning 4 consecutive columns of one row. Shared memory holds
+// three rings of rows of W + 8 floats (4 halo columns a side, so every
+// piece is 16-byte aligned): psi and zeta (S = G + 3 + D slots: the rows
+// x-1 .. x+G+1 a group reads, and D rows ahead), and lap(psi) (G + 2
+// slots: rows x-1 .. x+G, each formed once). One thread fills the psi and
+// zeta rings: per row three 1-D cp.async.bulk copies a field (the strip,
+// and the two 16-byte halo pieces at (y0 - 4) mod P and (y0 + w) mod P, the
+// only place the y wrap is taken), completing on the slot's mbarrier; the
+// row's source is picked once a row: (x + M) mod M for K1, for K12 the top
+// slab above the block, the bottom slab below it. The producer keeps D rows
+// beyond the next group's in flight, so the card has loads in flight while
+// the block forms lap(psi) and the body. A group: every thread issues its
+// 16-byte loads of f1 and f2 (only where the scheme reads them), waits on
+// the slots of the rows it newly needs (the mbarrier phase of the row's
+// fill), forms its lap(psi) row, a block barrier, the body of its row
+// (float4 reads of the rings, 16-byte stores of zeta_new and the carry), a
+// block barrier, and the producer refills the slots the group freed. The
+// wind row is read once, 16 bytes a thread. The layout (W, R, D, NT) comes
+// from the host by shape (tpu_qg_torch.ops.step_kernel.STEP_ROWS_BY_M, from
+// chip_smoke.py's k1_sweep). Shapes with P % 4 != 0, or operands not
+// 16-byte aligned, take the tile design below (step_kernel,
+// step_sharded_kernel).
+//
+// Bits: a thread forms four points from the same registers, and a product
+// that two of them share would be formed once and not contracted into an
+// FMA; opaque() keeps that product each point's own, so K1 and K12 give
+// the tile design's bits (chip_smoke.py holds K1 bitwise against K18 base,
+// the tile design's body).
+//
+// The tile design (step_tile in step_device.cuh; K8, K9, and K1 and K12 on
+// the shapes above): one 256-thread block per 32 x 64 tile, the layers in
+// turn; psi (halo 2) and zeta (halo 1) land in shared memory with the
+// periodic wrap done in the load index, lap(psi) is formed once on the tile
+// plus a ring of 1, and every stencil neighbour is then a shared-memory
+// read.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "step_device.cuh"
 
@@ -108,6 +152,328 @@ step_sharded_kernel(const float* __restrict__ zeta,
       sl);
 }
 
+// ---------------------------------------------------------------------------
+// The row-streaming step (K1, K12): design in the header.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// An mbarrier that completes a phase on one arrival and the bytes of the
+// copies it was told to expect.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n\t"
+               "fence.mbarrier_init.release.cluster;"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  unsigned long long state;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 %0, [%1], %2;"
+               : "=l"(state) : "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  asm volatile("{\n\t.reg .pred done;\n\t"
+               "WAIT_%=:\n\t"
+               "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n\t"
+               "@!done bra WAIT_%=;\n\t}"
+               :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// Orders this block's earlier shared-memory reads (behind a block barrier)
+// before the bulk copies that follow.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// A 1-D bulk copy (the TMA engine, no tensor map) of `bytes` (a multiple of
+// 16, both ends 16-byte aligned) from device memory to shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Six values of a ring row around 4 columns: p[-1] .. p[4].
+__device__ __forceinline__ void lds6(const float* p, float v[6]) {
+  const float4 m = lds4(p);
+  v[0] = p[-1];
+  v[1] = m.x;
+  v[2] = m.y;
+  v[3] = m.z;
+  v[4] = m.w;
+  v[5] = p[4];
+}
+
+// The block of a layout (W columns a strip, NT threads, D rows ahead): G
+// rows a group, S ring slots of psi and zeta, kRow floats a ring row, and
+// the bytes of shared memory (the S mbarriers padded to 16 bytes, the psi
+// and zeta rings, the G + 2 lap rows).
+template <int W, int NT, int D>
+struct RowsLayout {
+  static_assert(W % 4 == 0 && NT % (W / 4) == 0, "threads must cover rows");
+  static constexpr int kTpr = W / 4;
+  static constexpr int G = NT / kTpr;
+  static constexpr int S = G + 3 + D;
+  static constexpr int kRow = W + 8;
+  static constexpr int kBarBytes = (S * 8 + 15) / 16 * 16;
+  static constexpr int kSmem = kBarBytes + (2 * S + G + 2) * kRow * 4;
+};
+
+// Row x (x0 - 2 <= x <= x_end + 1) of layer l of a field: K1 wraps it
+// periodically, K12 reads it from the block, or the top slab above it, or
+// the bottom slab below it (H >= 2 rows each; no run reads past row M + 1).
+template <bool kSharded>
+__device__ __forceinline__ const float* rows_src(const float* field,
+                                                 const float* top,
+                                                 const float* bot, int l,
+                                                 int x, int M, int P, int H) {
+  if constexpr (kSharded) {
+    if (x < 0) return top + ((size_t)l * H + H + x) * P;
+    if (x >= M) return bot + ((size_t)l * H + x - M) * P;
+    return field + ((size_t)l * M + x) * P;
+  } else {
+    return field + ((size_t)l * M + ((x % M) + M) % M) * P;
+  }
+}
+
+// The step of the block (blockIdx.x: strip, .y: run of R rows, .z: layer).
+template <int W, int NT, int D, bool kSharded>
+__device__ __forceinline__ void step_rows(
+    const float* __restrict__ zeta, const float* __restrict__ psi,
+    const float* __restrict__ f1, const float* __restrict__ f2,
+    const float* __restrict__ wind, float* __restrict__ zeta_new,
+    float* __restrict__ carry, int M, int P, int R, const StepConsts& c,
+    int leapfrog, int step, const Slabs& sl) {
+  using Lay = RowsLayout<W, NT, D>;
+  constexpr int G = Lay::G, S = Lay::S, kRow = Lay::kRow;
+  extern __shared__ __align__(16) unsigned char rows_smem[];
+  auto* bar = reinterpret_cast<unsigned long long*>(rows_smem);
+  float* pring = reinterpret_cast<float*>(rows_smem + Lay::kBarBytes);
+  float* zring = pring + S * kRow;
+  float* lring = zring + S * kRow;
+
+  const int l = blockIdx.z;
+  const int y0 = blockIdx.x * W;
+  const int w = min(W, P - y0);
+  const int x0 = blockIdx.y * R;
+  const int x_end = min(x0 + R, M);
+  const int last = x_end + 1;          // the last psi row the run reads
+  const int left = (y0 - 4 + P) % P, right = (y0 + w) % P;
+  const size_t plane = (size_t)M * P;
+  // Row r lives in ring slot (r - x0 + 2) mod S, filled for the
+  // ((r - x0 + 2) / S)-th time (the phase parity its wait reads); its
+  // lap(psi) in lap slot (r - x0 + 1) mod (G + 2).
+  auto slot = [&](int r) { return (r - x0 + 2) % S; };
+  auto lap_row = [&](int r) {
+    return lring + ((r - x0 + 1) % (G + 2)) * kRow + 4;
+  };
+
+  // Thread 0 fills row r's slot: psi, and zeta on rows x0 - 1 .. x_end.
+  auto fill = [&](int r) {
+    const int s = slot(r);
+    const bool with_zeta = r >= x0 - 1 && r <= x_end;
+    const unsigned bytes = static_cast<unsigned>(w + 8) * 4u;
+    mbar_expect(&bar[s], with_zeta ? 2u * bytes : bytes);
+    const float* src = rows_src<kSharded>(psi, sl.psi_top, sl.psi_bot, l, r,
+                                          M, P, sl.H);
+    float* dst = pring + s * kRow;
+    bulk_copy(dst, src + left, 16u, &bar[s]);
+    bulk_copy(dst + 4, src + y0, bytes - 32u, &bar[s]);
+    bulk_copy(dst + 4 + w, src + right, 16u, &bar[s]);
+    if (with_zeta) {
+      src = rows_src<kSharded>(zeta, sl.zeta_top, sl.zeta_bot, l, r, M, P,
+                               sl.H);
+      dst = zring + s * kRow;
+      bulk_copy(dst, src + left, 16u, &bar[s]);
+      bulk_copy(dst + 4, src + y0, bytes - 32u, &bar[s]);
+      bulk_copy(dst + 4 + w, src + right, 16u, &bar[s]);
+    }
+  };
+
+  int next = x0 - 2;                   // thread 0: the next row to fill
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(&bar[s]);
+    for (; next <= min(x0 - 3 + S, last); ++next) fill(next);
+  }
+  __syncthreads();
+
+  const int tx = threadIdx.x % Lay::kTpr, ty = threadIdx.x / Lay::kTpr;
+  const int col = 4 * tx;
+  const bool col_ok = col < w;
+  const bool wind_on = wind != nullptr && l == 0;
+  const float beta_l = l == 0 ? c.beta[0] : c.beta[1];
+  const bool rd1 = step_reads_f1(leapfrog, step);
+  const bool rd2 = step_reads_f2(leapfrog, step);
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 wv = wind_on && col_ok
+      ? __ldg(reinterpret_cast<const float4*>(wind + y0 + col)) : zero4;
+  int ready = x0 - 3;                  // rows through `ready` waited on
+  for (int x = x0; x < x_end; x += G) {
+    const int xi = x + ty;
+    const bool out_ok = col_ok && xi < x_end;
+    const size_t at = l * plane + (size_t)xi * P + y0 + col;
+    // f1 and f2 of the thread's row, in flight while it waits and forms
+    // lap(psi).
+    float4 f1v = zero4, f2v = zero4;
+    if (out_ok) {
+      if (rd1) f1v = __ldg(reinterpret_cast<const float4*>(f1 + at));
+      if (rd2) f2v = __ldg(reinterpret_cast<const float4*>(f2 + at));
+    }
+    const int need = min(x + G + 1, last);
+    for (int r = ready + 1; r <= need; ++r) {
+      mbar_wait(&bar[slot(r)], static_cast<unsigned>(((r - x0 + 2) / S) & 1));
+    }
+    ready = need;
+
+    // lap(psi): rows x0 - 1 .. x0 + G in the first group, x + 1 .. x + G
+    // after it, at columns -1 .. w.
+    if (col_ok) {
+      const int hi = min(x + G, x_end);
+      for (int r = (x == x0 ? x0 - 1 : x + 1) + ty; r <= hi; r += G) {
+        const float* pc = pring + slot(r) * kRow + 4;
+        const float* pm = pring + slot(r - 1) * kRow + 4;
+        const float* pp = pring + slot(r + 1) * kRow + 4;
+        float* lr = lap_row(r);
+        const float4 c4 = lds4(pc + col), m4 = lds4(pm + col),
+                     p4 = lds4(pp + col);
+        float4 o;
+        o.x = step_lap(c4.x, m4.x, p4.x, pc[col - 1], c4.y, c.inv_dx2);
+        o.y = step_lap(c4.y, m4.y, p4.y, c4.x, c4.z, c.inv_dx2);
+        o.z = step_lap(c4.z, m4.z, p4.z, c4.y, c4.w, c.inv_dx2);
+        o.w = step_lap(c4.w, m4.w, p4.w, c4.z, pc[col + 4], c.inv_dx2);
+        *reinterpret_cast<float4*>(lr + col) = o;
+        if (tx == 0) {
+          lr[-1] = step_lap(pc[-1], pm[-1], pp[-1], pc[-2], pc[0], c.inv_dx2);
+        }
+        if (col + 4 == w) {
+          lr[w] = step_lap(pc[w], pm[w], pp[w], pc[w - 1], pc[w + 1],
+                           c.inv_dx2);
+        }
+      }
+    }
+    __syncthreads();
+
+    if (out_ok) {
+      // Row a of each ring around the thread's columns: rows xi - 1, xi,
+      // xi + 1, columns col - 1 .. col + 4.
+      float Z[3][6], Ps[3][6], Lc[6];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        lds6(zring + slot(xi - 1 + a) * kRow + 4 + col, Z[a]);
+        lds6(pring + slot(xi - 1 + a) * kRow + 4 + col, Ps[a]);
+      }
+      lds6(lap_row(xi) + col, Lc);
+      const float4 lm = lds4(lap_row(xi - 1) + col);
+      const float4 lp = lds4(lap_row(xi + 1) + col);
+      const float Lm[4] = {lm.x, lm.y, lm.z, lm.w};
+      const float Lp[4] = {lp.x, lp.y, lp.z, lp.w};
+      const float F1[4] = {f1v.x, f1v.y, f1v.z, f1v.w};
+      const float F2[4] = {f2v.x, f2v.y, f2v.z, f2v.w};
+      const float Wd[4] = {wv.x, wv.y, wv.z, wv.w};
+      float zn[4], out[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = k + 1;       // the point's column in Z, Ps and Lc
+        const float tend = step_tendency<2>(
+            c, l,
+            [&](int a, int b) {
+              return a < 0 ? Lm[k] : a > 0 ? Lp[k] : Lc[j + b];
+            },
+            [&](int a, int b) {
+              // z(0, +-1) times a psi difference is the one product two
+              // points of a thread share (point j's z_yp term is point
+              // j + 2's z_ym term): opaque keeps it each point's own.
+              return a == 0 ? opaque(Z[1][j + b]) : Z[a + 1][j + b];
+            },
+            [&](int a, int b) { return Ps[a + 1][j + b]; },
+            [&] { return beta_l; }, wind_on, [&] { return Wd[k]; });
+        step_update(c, leapfrog, step, Z[1][j], tend,
+                    [&] { return F1[k]; }, [&] { return F2[k]; }, zn[k],
+                    out[k]);
+      }
+      *reinterpret_cast<float4*>(zeta_new + at) =
+          make_float4(zn[0], zn[1], zn[2], zn[3]);
+      *reinterpret_cast<float4*>(carry + at) =
+          make_float4(out[0], out[1], out[2], out[3]);
+    }
+    __syncthreads();   // the group's slots and lap rows may be refilled
+
+    if (threadIdx.x == 0) {
+      const int upto = min(x + 2 * G + 1 + D, last);
+      if (next <= upto) {
+        fence_proxy_async();
+        for (; next <= upto; ++next) fill(next);
+      }
+    }
+  }
+}
+
+// K1 in the row-streaming design.
+template <int W, int NT, int D>
+__global__ void __launch_bounds__(NT)
+step_rows_kernel(const float* __restrict__ zeta, const float* __restrict__ psi,
+                 const float* __restrict__ f1, const float* __restrict__ f2,
+                 const float* __restrict__ wind, float* __restrict__ zeta_new,
+                 float* __restrict__ carry, int M, int P, int R, StepConsts c,
+                 int leapfrog, int step) {
+  step_rows<W, NT, D, false>(zeta, psi, f1, f2, wind, zeta_new, carry, M, P,
+                             R, c, leapfrog, step, Slabs{});
+}
+
+// K12 in the row-streaming design: the rows outside [0, M) from the slabs.
+template <int W, int NT, int D>
+__global__ void __launch_bounds__(NT)
+step_rows_sharded_kernel(const float* __restrict__ zeta,
+                         const float* __restrict__ psi,
+                         const float* __restrict__ f1,
+                         const float* __restrict__ f2,
+                         const float* __restrict__ wind,
+                         float* __restrict__ zeta_new,
+                         float* __restrict__ carry, int M, int P, int R,
+                         StepConsts c, int leapfrog, int step, Slabs sl) {
+  step_rows<W, NT, D, true>(zeta, psi, f1, f2, wind, zeta_new, carry, M, P,
+                            R, c, leapfrog, step, sl);
+}
+
+template <int W, int NT, int D>
+struct RowsTag {
+  static constexpr int kW = W, kNT = NT, kD = D;
+};
+
+// Calls f(RowsTag<W, NT, D>{}) for a layout of the sweep: W in {64, 128,
+// 256}, NT in {128, 256}, D in {2, 4, 8}; cudaErrorInvalidValue for any
+// other.
+template <class F>
+int rows_dispatch(int W, int NT, int D, F&& f) {
+#define QG_ROWS_CASE(w, nt, d) \
+  if (W == w && NT == nt && D == d) return f(RowsTag<w, nt, d>{});
+#define QG_ROWS_D(w, nt) \
+  QG_ROWS_CASE(w, nt, 2) QG_ROWS_CASE(w, nt, 4) QG_ROWS_CASE(w, nt, 8)
+  QG_ROWS_D(64, 128) QG_ROWS_D(64, 256) QG_ROWS_D(128, 128)
+  QG_ROWS_D(128, 256) QG_ROWS_D(256, 128) QG_ROWS_D(256, 256)
+#undef QG_ROWS_D
+#undef QG_ROWS_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 }  // namespace
 
 extern "C" int qg_step_num_consts() { return kNumConsts; }
@@ -177,4 +543,72 @@ extern "C" int qg_step_sharded_launch(const float* zeta, const float* psi,
       zeta, psi, f1, f2, wind, zeta_new, carry, M, P, step_consts(consts),
       leapfrog, step, Slabs{zeta_top, zeta_bot, psi_top, psi_bot, H});
   return static_cast<int>(cudaGetLastError());
+}
+
+// K1 (sharded = 0) and K12 (sharded = 1) in the row-streaming design, in
+// the layout (W, R, D, NT): W columns a strip, R rows a run (R = M: one
+// run), D rows ahead, NT threads. P % 4 == 0 and every operand 16-byte
+// aligned; for K12 zeta_top .. psi_bot are (2, H, P) device slabs, H >= 2
+// (null for K1).
+extern "C" int qg_step_rows_launch(const float* zeta, const float* psi,
+                                   const float* f1, const float* f2,
+                                   const float* wind, float* zeta_new,
+                                   float* carry, int M, int P,
+                                   const float* consts, int leapfrog,
+                                   int step, int W, int R, int D, int NT,
+                                   int sharded, const float* zeta_top,
+                                   const float* zeta_bot,
+                                   const float* psi_top, const float* psi_bot,
+                                   int H, void* stream) {
+  const bool ok =
+      M >= 1 && P >= 4 && P % 4 == 0 && R >= 1 && aligned16(zeta) &&
+      aligned16(psi) && aligned16(f1) && aligned16(f2) && aligned16(wind) &&
+      aligned16(zeta_new) && aligned16(carry) &&
+      (!sharded || (H >= 2 && aligned16(zeta_top) && aligned16(zeta_bot) &&
+                    aligned16(psi_top) && aligned16(psi_bot)));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const StepConsts c = step_consts(consts);
+  const Slabs sl{zeta_top, zeta_bot, psi_top, psi_bot, H};
+  auto st = static_cast<cudaStream_t>(stream);
+  return rows_dispatch(W, NT, D, [&](auto tag) {
+    using T = decltype(tag);
+    constexpr int smem = RowsLayout<T::kW, T::kNT, T::kD>::kSmem;
+    dim3 grid((P + T::kW - 1) / T::kW, (M + R - 1) / R, 2);
+    if (sharded) {
+      step_rows_sharded_kernel<T::kW, T::kNT, T::kD><<<grid, T::kNT, smem, st>>>(
+          zeta, psi, f1, f2, wind, zeta_new, carry, M, P, R, c, leapfrog,
+          step, sl);
+    } else {
+      step_rows_kernel<T::kW, T::kNT, T::kD><<<grid, T::kNT, smem, st>>>(
+          zeta, psi, f1, f2, wind, zeta_new, carry, M, P, R, c, leapfrog,
+          step);
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// A layout's compiled kernel: registers a thread, local memory (spills) in
+// bytes a thread, dynamic shared memory in bytes a block, and the most
+// blocks one SM of the current device holds.
+extern "C" int qg_step_rows_attributes(int W, int D, int NT, int sharded,
+                                       int* regs, int* local_bytes, int* smem,
+                                       int* blocks_per_sm) {
+  return rows_dispatch(W, NT, D, [&](auto tag) {
+    using T = decltype(tag);
+    constexpr int bytes = RowsLayout<T::kW, T::kNT, T::kD>::kSmem;
+    const void* fn =
+        sharded ? reinterpret_cast<const void*>(
+                      step_rows_sharded_kernel<T::kW, T::kNT, T::kD>)
+                : reinterpret_cast<const void*>(
+                      step_rows_kernel<T::kW, T::kNT, T::kD>);
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *regs = attr.numRegs;
+    *local_bytes = static_cast<int>(attr.localSizeBytes);
+    *smem = bytes;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
+                                                        T::kNT, bytes);
+    return static_cast<int>(err);
+  });
 }

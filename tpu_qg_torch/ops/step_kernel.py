@@ -7,10 +7,16 @@ block.
 K1 replaces ``tpu_qg/ops/pallas_tendency.py`` ``fused_step_streamed`` (v4)
 and its single-tile form ``fused_step_pre_fft`` (v3); K8 replaces its
 ``fused_pre_inversion`` (v2), the step of the single-layer and pin-gauge
-configurations. Both are one hand-written CUDA kernel each on a shared tile
-body, ``csrc/step_kernel.cu`` (design and bound in its header: they are
+configurations. Both are hand-written CUDA kernels of
+``csrc/step_kernel.cu`` (design and bound in its header: they are
 bandwidth-bound, 6 x 33.5 MB per step at 2048^2, and keep every stencil
-neighbour in shared memory). K15 replaces ``fused_step_streamed_yspec``
+neighbour in shared memory), every one on the same point body. K1 and K12
+are the row-streaming design (``fused_step_rows``: a block marches down a
+run of rows of one strip, its psi and zeta rows brought in ahead by bulk
+copies) on P % 4 == 0 with 16-byte aligned operands, counted also in
+``fused_step.rows_launches`` and ``fused_step_sharded.rows_launches``, and
+the tile design of K8 (``fused_step_tile``, ``fused_step_sharded_tile``)
+on any other shape. K15 replaces ``fused_step_streamed_yspec``
 (v5): K1 with psi in, and zeta_new also out, as permuted y-spectra — one
 cooperative launch of ``csrc/fused_kernels.cu`` (inverse-y, the step, and
 forward-y as stages; design there). K17 replaces
@@ -39,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -194,6 +201,10 @@ def _lib():
         _build.declare(lib.qg_tendency_launch, [p, p, p, p, i, i, i, p, p])
         _build.declare(lib.qg_step_sharded_launch,
                        [p] * 7 + [i, i, p, i, i] + [p] * 4 + [i, p])
+        _build.declare(lib.qg_step_rows_launch,
+                       [p] * 7 + [i, i, p, i, i, i, i, i, i, i] + [p] * 4
+                       + [i, p])
+        _build.declare(lib.qg_step_rows_attributes, [i] * 4 + [p] * 4)
         _build.declare(lib.qg_yspec_sharded_launch,
                        [p] * 9 + [i, i, p, p, p] + [p] * 4
                        + [i, p, p, i, p, p])
@@ -239,15 +250,365 @@ def _checked_consts(cfg: ModelConfig, lib, what: str) -> ctypes.Array:
     return consts
 
 
-def fused_step(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
-               f1: torch.Tensor, f2: torch.Tensor, step: int):
-    """Both layers' tendency + time update in one kernel pass on CUDA
-    tensors; the plain version on CPU tensors. Returns (zeta_new, carry)."""
-    if zeta.device.type == "cpu":
-        return fused_step_plain(cfg, zeta, psi, f1, f2, step)
-    _check_two_layer_step("fused_step", cfg, zeta, psi, f1, f2)
+# ---------------------------------------------------------------------------
+# K1 and K12 in the row-streaming design (csrc step_rows_kernel,
+# step_rows_sharded_kernel).
+# ---------------------------------------------------------------------------
+
+# The layouts (W, R, D, NT) the source instantiates: W columns a strip, R
+# rows a run (0: the whole of M, one block marching down every row of its
+# strip), D rows ahead, NT threads; each thread owns 4 columns of a row, so
+# a group is G = 4 NT / W rows. fused_step and fused_step_sharded launch
+# STEP_ROWS_BY_M[M] (the layout of chip_smoke.py's k1_sweep with the least
+# device time at that M, PERF.md), else STEP_ROWS.
+STEP_ROWS_WIDTHS = (64, 128, 256)
+STEP_ROWS_RUNS = (32, 64, 128, 0)
+STEP_ROWS_AHEAD = (2, 4, 8)
+STEP_ROWS_THREADS = (128, 256)
+STEP_ROWS = (256, 64, 4, 128)
+STEP_ROWS_BY_M = {2048: (256, 64, 8, 128), 8192: (256, 32, 4, 128)}
+
+
+class RowsLayout(NamedTuple):
+    """A row-streaming block (csrc RowsLayout): W columns, R rows a run (0:
+    all), D rows ahead, NT threads, G rows a group, S ring slots of psi and
+    zeta (G + 3 + D), and bytes of shared memory (the S mbarriers padded to
+    16 bytes, the two rings and the G + 2 lap(psi) rows of W + 8 floats)."""
+    W: int
+    R: int
+    D: int
+    NT: int
+    G: int
+    S: int
+    smem: int
+
+
+def step_rows_layout(layout: tuple) -> RowsLayout:
+    W, R, D, NT = layout
+    G = 4 * NT // W
+    S = G + 3 + D
+    smem = -(-8 * S // 16) * 16 + (2 * S + G + 2) * (W + 8) * 4
+    return RowsLayout(W, R, D, NT, G, S, smem)
+
+
+def step_rows_layouts() -> list:
+    """Every layout the source instantiates, in sweep order."""
+    return [(W, R, D, NT) for W in STEP_ROWS_WIDTHS for NT in STEP_ROWS_THREADS
+            for D in STEP_ROWS_AHEAD for R in STEP_ROWS_RUNS]
+
+
+def step_rows_launched(M: int) -> tuple:
+    """The layout fused_step and fused_step_sharded launch at M rows."""
+    return STEP_ROWS_BY_M.get(M, STEP_ROWS)
+
+
+def step_rows_takes(P: int, *tensors: torch.Tensor) -> bool:
+    """True iff the row-streaming kernels take a block P wide with these
+    operands: P a multiple of 4 (a row is whole 16-byte pieces) and every
+    operand 16-byte aligned (the bulk copies and float4 accesses)."""
+    return (P >= 4 and P % 4 == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _check_rows_layout(what: str, layout: tuple) -> None:
+    W, R, D, NT = layout
+    if (W not in STEP_ROWS_WIDTHS or D not in STEP_ROWS_AHEAD
+            or NT not in STEP_ROWS_THREADS or R < 0):
+        raise ValueError(f"{what}: layout {layout} (W, R, D, NT) is not one "
+                         f"the source instantiates")
+
+
+def _row_source(field: torch.Tensor, slab, M: int):
+    """Row x of every layer of ``field`` as the producer picks it: wrapped
+    periodically (slab None: K1), else from the block, the top slab above
+    it or the bottom slab below it (K12). None past the bottom slab."""
+    if slab is None:
+        return lambda x: field[:, x % M]
+    top, bot = slab
+    H = top.shape[1]
+
+    def row(x):
+        if x < 0:
+            return top[:, H + x]
+        if x >= M:
+            return bot[:, x - M] if x - M < H else None
+        return field[:, x]
+    return row
+
+
+def fused_step_rows_emulated(cfg: ModelConfig, zeta: torch.Tensor,
+                             psi: torch.Tensor, f1: torch.Tensor,
+                             f2: torch.Tensor, step: int, layout: tuple,
+                             slabs=None, slots: int | None = None):
+    """The row-streaming kernel's index maps in plain torch: every block
+    of ``layout`` (W, R, D, NT), all layers and strips of a run at once and
+    the runs in turn, through the same schedule as csrc step_rows: the
+    prologue fill of the psi and zeta rings, then per group the waits on
+    the rows it newly needs, lap(psi) into the lap ring, the body of its G
+    rows from the rings and from f1 and f2 (read where the scheme reads
+    them), and the producer's refills. A ring row holds the columns
+    (y0 - 4 + k) mod P, k < w + 8 (the strip and its two 4-column halo
+    pieces); every unfilled entry is NaN. ``slabs`` = (zeta_top,
+    zeta_bot, psi_top, psi_bot) makes it K12's (rows outside [0, M) from
+    the slabs), None K1's (the periodic wrap); ``slots`` overrides the ring
+    size S (to show that a short ring is caught).
+
+    Returns (zeta_new, carry, stores, bad_reads): ``stores`` counts the
+    stores of each output element; ``bad_reads`` counts the ring reads and
+    waits that did not find their row filled and waited on, and the fills
+    of a slot whose previous row was never waited on."""
+    lay = step_rows_layout(layout)
+    W, D, G = lay.W, lay.D, lay.G
+    S = slots or lay.S
+    L, M, P = zeta.shape
+    R = lay.R or M
+    dev, dt = zeta.device, zeta.dtype
+    nan = float("nan")
+    strips = -(-P // W)
+    y0 = torch.arange(strips, device=dev) * W
+    w = torch.clamp(P - y0, max=W)
+    k = torch.arange(W + 8, device=dev)
+    ring_cols = (y0[:, None] - 4 + k) % P                     # (strips, W+8)
+    ring_ok = k < w[:, None] + 8
+    src_p = _row_source(psi, None if slabs is None else slabs[2:], M)
+    src_z = _row_source(zeta, None if slabs is None else slabs[:2], M)
+    rd1 = (step != 0) if cfg.time_scheme == "leapfrog_ra" else step >= 2
+    rd2 = cfg.time_scheme != "leapfrog_ra" and step >= 2
+    wind = None
+    if cfg.wind_tau0 != 0.0:
+        from ..models.core import _wind_forcing
+        wind = _wind_forcing(cfg, dt, dev)[0]
+    zeta_new = torch.full_like(zeta, nan)
+    carry = torch.full_like(zeta, nan)
+    stores = torch.zeros(zeta.shape, dtype=torch.int64, device=dev)
+    bad = 0
+    j = torch.arange(W, device=dev)
+    col_ok = j < w[:, None]                                    # (strips, W)
+    inv = 1.0 / (cfg.dx * cfg.dx)
+
+    def lap(c, xm, xp, ym, yp):
+        return ((((xm + xp) - 4.0 * c) + ym) + yp) * inv
+
+    def as_ring(row):
+        """(L, P) row -> (L, strips, W + 8) ring rows, NaN where unfilled."""
+        r = row[:, ring_cols]
+        return torch.where(ring_ok, r, torch.full_like(r, nan))
+
+    for x0 in range(0, M, R):
+        x_end = min(x0 + R, M)
+        last = x_end + 1
+        pring = torch.full((L, strips, S, W + 8), nan, dtype=dt, device=dev)
+        zring = torch.full_like(pring, nan)
+        lring = torch.full((L, strips, G + 2, W + 8), nan, dtype=dt,
+                           device=dev)
+        filled = [None] * S       # the row each slot was last filled with
+        seen = [None] * S         # the row visible after its wait
+        lap_held = [None] * (G + 2)
+
+        def slot(r):
+            return (r - x0 + 2) % S
+
+        def fill(r):
+            nonlocal bad
+            s = slot(r)
+            if filled[s] is not None and seen[s] != filled[s]:
+                bad += 1
+            filled[s], seen[s] = r, None
+            prow = src_p(r)
+            if prow is None:
+                bad += 1
+                return
+            pring[:, :, s] = as_ring(prow)
+            zrow = src_z(r) if x0 - 1 <= r <= x_end else None
+            zring[:, :, s] = nan if zrow is None else as_ring(zrow)
+
+        def slots_of(rows, held, kind):
+            """Ring slots of ``rows``, counting reads that miss their row."""
+            nonlocal bad
+            out = []
+            for r in rows:
+                s = slot(r) if kind == "ring" else (r - x0 + 1) % (G + 2)
+                if held[s] != r:
+                    bad += 1
+                out.append(s)
+            return torch.tensor(out, device=dev)
+
+        nxt = x0 - 2
+        while nxt <= min(x0 - 3 + S, last):
+            fill(nxt)
+            nxt += 1
+        ready = x0 - 3
+        for x in range(x0, x_end, G):
+            for r in range(ready + 1, min(x + G + 1, last) + 1):
+                s = slot(r)
+                if filled[s] != r:
+                    bad += 1
+                seen[s] = r
+            ready = min(x + G + 1, last)
+
+            lap_rows = list(range(x0 - 1 if x == x0 else x + 1,
+                                  min(x + G, x_end) + 1))
+            pc = pring[:, :, slots_of(lap_rows, seen, "ring")]
+            pm = pring[:, :, slots_of([r - 1 for r in lap_rows], seen, "ring")]
+            pp = pring[:, :, slots_of([r + 1 for r in lap_rows], seen, "ring")]
+            ls = torch.tensor([(r - x0 + 1) % (G + 2) for r in lap_rows],
+                              device=dev)
+            # columns -1 .. W of the strip: ring entries 3 .. W + 4
+            lring[:, :, ls, 3:W + 5] = lap(pc[..., 3:W + 5], pm[..., 3:W + 5],
+                                           pp[..., 3:W + 5], pc[..., 2:W + 4],
+                                           pc[..., 4:W + 6])
+            for r in lap_rows:
+                lap_held[(r - x0 + 1) % (G + 2)] = r
+
+            rows = [xi for xi in range(x, x + G) if xi < x_end]
+            zm, zc, zp = (zring[:, :, slots_of([r + d for r in rows], seen,
+                                               "ring")]
+                          for d in (-1, 0, 1))
+            p_m, p_c, p_p = (pring[:, :, slots_of([r + d for r in rows], seen,
+                                                  "ring")]
+                             for d in (-1, 0, 1))
+            lm, lc, lp = (lring[:, :, slots_of([r + d for r in rows],
+                                               lap_held, "lap")]
+                          for d in (-1, 0, 1))
+            C, Ym, Yp = slice(4, W + 4), slice(3, W + 3), slice(5, W + 5)
+            visc = cfg.visc * lap(lc[..., C], lm[..., C], lp[..., C],
+                                  lc[..., Ym], lc[..., Yp])
+            z_xp, z_xm = zp[..., C], zm[..., C]
+            z_yp, z_ym = zc[..., Yp], zc[..., Ym]
+            z_xpyp, z_xpym = zp[..., Yp], zp[..., Ym]
+            z_xmyp, z_xmym = zm[..., Yp], zm[..., Ym]
+            p_xp, p_xm = p_p[..., C], p_m[..., C]
+            p_yp, p_ym = p_c[..., Yp], p_c[..., Ym]
+            p_xpyp, p_xpym = p_p[..., Yp], p_p[..., Ym]
+            p_xmyp, p_xmym = p_m[..., Yp], p_m[..., Ym]
+            j_pp = (z_xp - z_xm) * (p_yp - p_ym) - (z_yp - z_ym) * (p_xp - p_xm)
+            j_pt = (((z_xp * (p_xpyp - p_xpym) - z_xm * (p_xmyp - p_xmym))
+                     - z_yp * (p_xpyp - p_xmyp)) + z_ym * (p_xpym - p_xmym))
+            j_tp = (((z_xpyp * (p_yp - p_xp) - z_xmym * (p_xm - p_ym))
+                     - z_xmyp * (p_yp - p_xm)) + z_xpym * (p_xp - p_ym))
+            tend = visc - ((j_pp + j_pt) + j_tp) / (12.0 * cfg.dx * cfg.dx)
+            dpsi_dx = (0.5 / cfg.dx) * (p_xp - p_xm)
+            t0 = (tend[0] - cfg.beta_1 * dpsi_dx[0]) - cfg.U * (
+                (0.5 / cfg.dx) * (z_xp[0] - z_xm[0]))
+            if wind is not None:
+                t0 = t0 + wind[(y0[:, None] + j) % P][:, None, :]
+            t1 = (tend[1] - cfg.beta_2 * dpsi_dx[1]) - cfg.r * lc[1][..., C]
+            tend = torch.stack([t0, t1])
+
+            xi = torch.tensor(rows, device=dev)
+            at = ((torch.arange(L, device=dev)[:, None, None, None] * M
+                   + xi[None, None, :, None]) * P
+                  + (y0[:, None] + j)[None, :, None, :])
+            ok = col_ok[None, :, None, :].expand_as(at)
+            at = torch.where(ok, at, torch.zeros_like(at))
+            z_c = zc[..., C]
+            zero = torch.zeros((), dtype=dt, device=dev)
+            fv1 = f1.reshape(-1)[at] if rd1 else zero
+            fv2 = f2.reshape(-1)[at] if rd2 else zero
+            zn, out = _update_point(cfg, step, z_c, tend, fv1, fv2)
+            flat = at[ok]
+            zeta_new.view(-1)[flat] = zn.expand_as(at)[ok]
+            carry.view(-1)[flat] = out.expand_as(at)[ok]
+            stores.view(-1).index_add_(0, flat, torch.ones_like(flat))
+
+            upto = min(x + 2 * G + 1 + D, last)
+            while nxt <= upto:
+                fill(nxt)
+                nxt += 1
+    return zeta_new, carry, stores, bad
+
+
+def _update_point(cfg: ModelConfig, step: int, zc, tend, f1v, f2v):
+    """csrc step_update on tensors: (zeta_new, carry)."""
+    dt = cfg.dt
+    if cfg.time_scheme == "leapfrog_ra":
+        zpf = zc if step == 0 else f1v
+        zn = zc + dt * tend if step == 0 else zpf + (2.0 * dt) * tend
+        return zn, zc + cfg.ra_filter * ((zpf - 2.0 * zc) + zn)
+    if step < 2:
+        return zc + dt * tend, tend
+    return zc + dt * (((23.0 / 12.0) * tend - (16.0 / 12.0) * f1v)
+                      + (5.0 / 12.0) * f2v), tend
+
+
+@functools.lru_cache(maxsize=64)
+def step_rows_attributes(layout: tuple, sharded: bool, device: int) -> dict:
+    """The compiled kernel of ``layout`` (K12's with ``sharded``) on card
+    ``device``: registers a thread, local memory (spill) bytes a thread,
+    shared memory a block and the most blocks an SM holds."""
+    W, _, D, NT = layout
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    with torch.cuda.device(device):
+        code = _lib().qg_step_rows_attributes(
+            W, D, NT, int(sharded), *(ctypes.byref(v) for v in vals))
+    _build.check(code, f"step rows attributes {layout}")
+    return dict(zip(("regs", "local_bytes", "smem", "blocks_per_sm"),
+                    (v.value for v in vals)))
+
+
+def fused_step_rows(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
+                    f1: torch.Tensor, f2: torch.Tensor, step: int,
+                    layout: tuple | None = None, slabs=None):
+    """One launch of the row-streaming step on CUDA tensors: K1's
+    (step_rows_kernel) on the (2, M, P) fields, or with ``slabs`` =
+    (zeta_top, zeta_bot, psi_top, psi_bot) K12's
+    (step_rows_sharded_kernel) on a (2, m, P) row block, in ``layout``
+    (W, R, D, NT), by default step_rows_launched(M). Returns (zeta_new,
+    carry). Raises on a shape or layout the kernel does not take and on a
+    launch error. Counts nothing: the counting wrappers are fused_step and
+    fused_step_sharded.
+
+    Replaces ``tpu_qg/ops/pallas_tendency.py:555`` fused_step_streamed and
+    ``:997`` fused_step_pre_fft (K1), ``:608`` fused_step_streamed_sharded
+    (K12). Bound: six (2, M, P) fields through device memory (201 MB at
+    2048^2, 0.060 ms at 3.35 TB/s). Why rows: the tile design loads its
+    halo'd tile with one 4-byte load per element behind an integer division,
+    and no block has a load in flight while it computes. Here one thread a
+    block keeps D rows ahead of the block's group in flight with 1-D bulk
+    copies, and the threads read the rings and move f1, f2, zeta_new and
+    the carry 16 bytes at a time (design in csrc/step_kernel.cu)."""
+    what = "fused_step_rows"
+    _, M, P = zeta.shape
+    layout = tuple(layout or step_rows_launched(M))
+    _check_rows_layout(what, layout)
+    if slabs is None:
+        _check_two_layer_step(what, cfg, zeta, psi, f1, f2)
+        wind = _wind_row(cfg, zeta.device)
+        slab_ptrs, H = [None] * 4, 0
+    else:
+        wind = _check_sharded(what, cfg, (("zeta", zeta), ("psi", psi),
+                                          ("f1", f1), ("f2", f2)),
+                              tuple(zip(("zeta_top", "zeta_bot", "psi_top",
+                                         "psi_bot"), slabs)))
+        slab_ptrs, H = [t.data_ptr() for t in slabs], slabs[0].shape[1]
+    extra = () if wind is None else (wind,)
+    if not step_rows_takes(P, zeta, psi, f1, f2, *extra, *(slabs or ())):
+        raise ValueError(f"{what}: P = {P} must be a multiple of 4 and "
+                         f"every operand 16-byte aligned")
     lib = _lib()
-    consts = _checked_consts(cfg, lib, "fused_step")
+    consts = _checked_consts(cfg, lib, what)
+    W, R, D, NT = layout
+    zeta_new = torch.empty_like(zeta)
+    carry = torch.empty_like(zeta)
+    code = lib.qg_step_rows_launch(
+        zeta.data_ptr(), psi.data_ptr(), f1.data_ptr(), f2.data_ptr(),
+        None if wind is None else wind.data_ptr(), zeta_new.data_ptr(),
+        carry.data_ptr(), M, P, consts, int(cfg.time_scheme == "leapfrog_ra"),
+        int(step), W, R or M, D, NT, int(slabs is not None), *slab_ptrs, H,
+        torch.cuda.current_stream(zeta.device).cuda_stream)
+    _build.check(code, f"{what} {'(K12)' if slabs else '(K1)'} {layout}")
+    return zeta_new, carry
+
+
+def fused_step_tile(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
+                    f1: torch.Tensor, f2: torch.Tensor, step: int):
+    """One launch of K1 in the tile design (csrc step_kernel, one block a
+    32 x 64 tile) on CUDA tensors: fused_step's kernel on the shapes the
+    row-streaming design does not take. Returns (zeta_new, carry); counts
+    nothing."""
+    _check_two_layer_step("fused_step_tile", cfg, zeta, psi, f1, f2)
+    lib = _lib()
+    consts = _checked_consts(cfg, lib, "fused_step_tile")
     wind = _wind_row(cfg, zeta.device)
     zeta_new = torch.empty_like(zeta)
     carry = torch.empty_like(zeta)
@@ -257,12 +618,33 @@ def fused_step(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
         None if wind is None else wind.data_ptr(),
         zeta_new.data_ptr(), carry.data_ptr(), cfg.M, cfg.P, consts,
         int(cfg.time_scheme == "leapfrog_ra"), int(step), stream)
-    _build.check(code, "fused_step (K1)")
-    fused_step.launches += 1
+    _build.check(code, "fused_step_tile (K1)")
     return zeta_new, carry
 
 
+def fused_step(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
+               f1: torch.Tensor, f2: torch.Tensor, step: int):
+    """K1: both layers' tendency + time update in one kernel pass on CUDA
+    tensors, the plain version on CPU tensors. Returns (zeta_new, carry).
+    Two hand-written kernels chosen by shape: the row-streaming kernel
+    (fused_step_rows, layout step_rows_launched(M)) where step_rows_takes,
+    counted also in ``fused_step.rows_launches``; the tile kernel
+    (fused_step_tile) on the rest."""
+    if zeta.device.type == "cpu":
+        return fused_step_plain(cfg, zeta, psi, f1, f2, step)
+    wind = _wind_row(cfg, zeta.device)
+    if step_rows_takes(cfg.P, zeta, psi, f1, f2,
+                       *(() if wind is None else (wind,))):
+        out = fused_step_rows(cfg, zeta, psi, f1, f2, step)
+        fused_step.rows_launches += 1
+    else:
+        out = fused_step_tile(cfg, zeta, psi, f1, f2, step)
+    fused_step.launches += 1
+    return out
+
+
 fused_step.launches = 0
+fused_step.rows_launches = 0
 
 
 def fused_tendency_plain(cfg: ModelConfig, zeta: torch.Tensor,
@@ -405,19 +787,16 @@ def _check_sharded(what: str, cfg: ModelConfig, fields, slabs):
     return _wind_row(cfg, zeta.device)
 
 
-def fused_step_sharded(cfg: ModelConfig, zeta: torch.Tensor,
-                       psi: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
-                       step: int, zeta_top: torch.Tensor,
-                       zeta_bot: torch.Tensor, psi_top: torch.Tensor,
-                       psi_bot: torch.Tensor):
-    """K12: K1 on one rank's (2, m, P) row block with its (2, H, P) slabs,
-    one kernel pass on CUDA tensors; the plain version on CPU tensors.
-    Replaces ``tpu_qg/ops/pallas_tendency.py:608``. Returns (zeta_new,
-    carry)."""
-    if zeta.device.type == "cpu":
-        return fused_step_sharded_plain(cfg, zeta, psi, f1, f2, step,
-                                        zeta_top, zeta_bot, psi_top, psi_bot)
-    what = "fused_step_sharded (K12)"
+def fused_step_sharded_tile(cfg: ModelConfig, zeta: torch.Tensor,
+                            psi: torch.Tensor, f1: torch.Tensor,
+                            f2: torch.Tensor, step: int,
+                            zeta_top: torch.Tensor, zeta_bot: torch.Tensor,
+                            psi_top: torch.Tensor, psi_bot: torch.Tensor):
+    """One launch of K12 in the tile design (csrc step_sharded_kernel) on
+    CUDA tensors: fused_step_sharded's kernel on the shapes the
+    row-streaming design does not take. Returns (zeta_new, carry); counts
+    nothing."""
+    what = "fused_step_sharded_tile (K12)"
     wind = _check_sharded(what, cfg, (("zeta", zeta), ("psi", psi),
                                       ("f1", f1), ("f2", f2)),
                           (("zeta_top", zeta_top), ("zeta_bot", zeta_bot),
@@ -435,11 +814,38 @@ def fused_step_sharded(cfg: ModelConfig, zeta: torch.Tensor,
         psi_top.data_ptr(), psi_bot.data_ptr(), zeta_top.shape[1],
         torch.cuda.current_stream(zeta.device).cuda_stream)
     _build.check(code, what)
-    fused_step_sharded.launches += 1
     return zeta_new, carry
 
 
+def fused_step_sharded(cfg: ModelConfig, zeta: torch.Tensor,
+                       psi: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
+                       step: int, zeta_top: torch.Tensor,
+                       zeta_bot: torch.Tensor, psi_top: torch.Tensor,
+                       psi_bot: torch.Tensor):
+    """K12: K1 on one rank's (2, m, P) row block with its (2, H, P) slabs,
+    one kernel pass on CUDA tensors; the plain version on CPU tensors.
+    Replaces ``tpu_qg/ops/pallas_tendency.py:608``. Returns (zeta_new,
+    carry). Two hand-written kernels chosen by shape, as fused_step's: the
+    row-streaming kernel (fused_step_rows with the slabs) where
+    step_rows_takes, counted also in ``fused_step_sharded.rows_launches``;
+    the tile kernel (fused_step_sharded_tile) on the rest."""
+    if zeta.device.type == "cpu":
+        return fused_step_sharded_plain(cfg, zeta, psi, f1, f2, step,
+                                        zeta_top, zeta_bot, psi_top, psi_bot)
+    slabs = (zeta_top, zeta_bot, psi_top, psi_bot)
+    wind = _wind_row(cfg, zeta.device)
+    if step_rows_takes(zeta.shape[-1], zeta, psi, f1, f2, *slabs,
+                       *(() if wind is None else (wind,))):
+        out = fused_step_rows(cfg, zeta, psi, f1, f2, step, slabs=slabs)
+        fused_step_sharded.rows_launches += 1
+    else:
+        out = fused_step_sharded_tile(cfg, zeta, psi, f1, f2, step, *slabs)
+    fused_step_sharded.launches += 1
+    return out
+
+
 fused_step_sharded.launches = 0
+fused_step_sharded.rows_launches = 0
 
 
 def fused_step_yspec_sharded(cfg: ModelConfig, zeta: torch.Tensor,
