@@ -1070,8 +1070,8 @@ def phase_k1_sweep(dev, card, sizes=(2048, 8192), reps=(20, 5)) -> dict:
     the lab kernel) and a torch copy of three (2, n, n) fields (a read and
     a write of K1's six fields' bytes); then K12 on the one-rank block
     (2, n, n) with its wrap rows as slabs, in its launched layout, beside
-    its tile kernel (step_sharded_kernel), bitwise K1. Returns the entries
-    by grid."""
+    its tile kernel (step_sharded_kernel), both bitwise K1. Returns the
+    entries by grid."""
     rng = np.random.default_rng(SEED + 15)
     turb = preset("turbulence-2048")
     out = {}
@@ -1112,8 +1112,9 @@ def phase_k1_sweep(dev, card, sizes=(2048, 8192), reps=(20, 5)) -> dict:
                "K12 step_sharded_kernel (tile)": lambda: fused_step_sharded_tile(
                    cfg, zeta, psi, f1, f2, 5, zt, zb, pt, pb)}
         k1 = fused_step(cfg, zeta, psi, f1, f2, 5)
-        if not all(torch.equal(g, t) for g, t in zip(k12["K12 rows"](), k1)):
-            raise AssertionError(f"K12 rows at {n}^2: not bitwise K1")
+        for key, fn in k12.items():
+            if not all(torch.equal(g, t) for g, t in zip(fn(), k1)):
+                raise AssertionError(f"{key} at {n}^2: not bitwise K1")
         del k1
         k12_runs = {k: [] for k in k12}
         for k in list(k12) + list(k12)[::-1]:
@@ -1292,18 +1293,23 @@ def sharded_inputs(cfg, dev, rng, nx: int, k: int):
 
 def check_sharded_step(errs, cfg, dev, rng, nx, k, cases, tag="") -> None:
     """K12 on rank k's block against its plain version and against K1's
-    rows of the whole field, 1e-6."""
+    rows of the whole field, 1e-6; its tile kernel (step_sharded_kernel,
+    the route of P % 4 != 0 and misaligned operands) against the plain
+    version too."""
     block, ((zt, zb), (pt, pb)), whole, rows = sharded_inputs(cfg, dev, rng,
                                                               nx, k)
     for case, over, step in cases:
         c = cfg.replace(**over)
         got = fused_step_sharded(c, *block, step, zt, zb, pt, pb)
+        tile = fused_step_sharded_tile(c, *block, step, zt, zb, pt, pb)
         want = fused_step_sharded_plain(c, *block, step, zt, zb, pt, pb)
         k1 = fused_step(c, *whole, step)
-        for part, g, w, w1 in zip(("zeta_new", "carry"), got, want, k1):
+        for part, g, t, w, w1 in zip(("zeta_new", "carry"), got, tile, want,
+                                     k1):
             errs.record("K12", f"{tag}{case} {part}", g, w)
             errs.record("K12", f"{tag}{case} {part} vs K1's rows", g,
                         w1[:, rows])
+            errs.record("K12", f"{tag}{case} {part} tile kernel", t, w)
 
 
 def phase_sharded_kernels(errs, turb, pod, dev) -> None:

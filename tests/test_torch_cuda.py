@@ -18,7 +18,9 @@ sharded kernels as the kernels they extend: K12 1e-6, K15's sharded form
 1e-6 (zeta_new, carry) and 1e-5 (zeta_ys), K13, K14 and K7 1e-4. K18 (the
 stencil lab's step) 1e-6, its base instance bitwise K1. K1's and K12's
 row-streaming kernel bitwise the tile design (K18 base, step_kernel), K12
-bitwise K1, with both rows_launches counters.
+bitwise K1, with both rows_launches counters; their tile kernels
+(step_kernel, step_sharded_kernel) on P % 4 != 0 and misaligned operands,
+1e-6 from plain and bitwise the row kernel.
 """
 
 import numpy as np
@@ -636,6 +638,41 @@ def test_sharded_rows_kernel_bitwise_k1(dev, M, P, scheme, tau0, step):
     torch.cuda.synchronize()
     assert fused_step_sharded.rows_launches == n + 1
     assert all(torch.equal(g, w) for g, w in zip(got, k1))
+
+
+def test_sharded_rows_routing(dev):
+    """K12 on P % 4 != 0 and with a misaligned slab takes its tile kernel
+    (step_sharded_kernel): launches counts it, rows_launches does not, and
+    it agrees with the plain version and bitwise with the row kernel."""
+    cfg = preset("turbulence-2048").replace(M=256, P=258)
+    z, p, f1, f2 = _fields(256, 258, dev)
+    rows = slice(64, 128)
+    block = [a[:, rows].contiguous() for a in (z, p, f1, f2)]
+    (zt, zb), (pt, pb) = _slabs((z, p), 64, 64, 2)
+    n, n_rows = fused_step_sharded.launches, fused_step_sharded.rows_launches
+    got = fused_step_sharded(cfg, *block, 5, zt, zb, pt, pb)
+    assert (fused_step_sharded.launches,
+            fused_step_sharded.rows_launches) == (n + 1, n_rows)
+    want = fused_step_sharded_plain(cfg, *block, 5, zt, zb, pt, pb)
+    k1 = fused_step(cfg, z, p, f1, f2, 5)
+    for g, w, w1 in zip(got, want, k1):
+        assert _rel(g, w) <= 1e-6
+        assert torch.equal(g, w1[:, rows])
+    cfg = preset("turbulence-2048").replace(M=256, P=256)
+    z, p, f1, f2 = _fields(256, 256, dev)
+    block = [a[:, rows].contiguous() for a in (z, p, f1, f2)]
+    (zt, zb), (pt, pb) = _slabs((z, p), 64, 64, 2)
+    shifted = torch.empty(zt.numel() + 1, device=dev)[1:].view_as(zt)
+    shifted.copy_(zt)
+    got = fused_step_sharded(cfg, *block, 5, shifted, zb, pt, pb)
+    torch.cuda.synchronize()
+    assert (fused_step_sharded.launches,
+            fused_step_sharded.rows_launches) == (n + 2, n_rows)
+    want = fused_step_sharded_plain(cfg, *block, 5, zt, zb, pt, pb)
+    by_rows = fused_step_rows(cfg, *block, 5, slabs=(zt, zb, pt, pb))
+    for g, w, r in zip(got, want, by_rows):
+        assert _rel(g, w) <= 1e-6
+        assert torch.equal(g, r)
 
 
 @pytest.mark.parametrize("M,P,nx", [(1024, 384, 4), (2048, 2048, 4)])

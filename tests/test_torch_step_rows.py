@@ -3,9 +3,9 @@ step_rows_sharded_kernel) through their CPU emulation,
 ``fused_step_rows_emulated``: the CUDA source's blocks, rings, per-row x
 wrap, y halo pieces and K12's slab rows in plain torch.
 
-- Every layout (W, R, D, NT) the source instantiates, on a ragged shape
-  (100 x 196: a ragged last run for every R, a ragged last strip for W = 64
-  and 128, one strip narrower than W = 256), against fused_step_plain (K1)
+- Every layout (W, R, D, NT) of the sweep, on a ragged shape (100 x 196:
+  a ragged last run for every R, a ragged last strip for W = 128, one
+  strip narrower than W = 256), against fused_step_plain (K1)
   and fused_step_sharded_plain (K12, a 48-row block with 3-row slabs) in
   float64 at 1e-12 of max|plain|; every output element stored exactly once
   and every ring read finding its row filled and waited on.
@@ -106,8 +106,8 @@ def test_emulated_k12_matches_plain(layout):
             w.abs().max())
 
 
-@pytest.mark.parametrize("layout", [(64, 32, 2, 128), (256, 0, 8, 256)],
-                         ids=["W64-R32-D2-NT128", "W256-R0-D8-NT256"])
+@pytest.mark.parametrize("layout", [(128, 32, 2, 128), (256, 128, 8, 128)],
+                         ids=["W128-R32-D2-NT128", "W256-R128-D8-NT128"])
 def test_emulation_catches_a_short_ring(layout):
     """With one ring slot fewer than G + 3 + D, a slot is refilled while a
     group still reads it: the emulation counts the bad reads."""

@@ -32,11 +32,11 @@
 // (strips fastest) read the same rows.
 //
 // Design. A block takes one layer, one strip of W contiguous y columns and
-// one run of R consecutive x rows (R = M: one block marches down all of
-// them), and walks its run G = 4 NT / W rows at a time, each of its NT
-// threads owning 4 consecutive columns of one row. Shared memory holds
-// three rings of rows of W + 8 floats (4 halo columns a side, so every
-// piece is 16-byte aligned): psi and zeta (S = G + 3 + D slots: the rows
+// one run of R consecutive x rows, and walks its run G = 4 NT / W rows at
+// a time, each of its NT threads owning 4 consecutive columns of one row.
+// Shared memory holds three rings of rows of W + 8 floats (4 halo columns
+// a side, so every piece is 16-byte aligned): psi and zeta (S = G + 3 + D
+// slots: the rows
 // x-1 .. x+G+1 a group reads, and D rows ahead), and lap(psi) (G + 2
 // slots: rows x-1 .. x+G, each formed once). One thread fills the psi and
 // zeta rings: per row three 1-D cp.async.bulk copies a field (the strip,
@@ -454,17 +454,15 @@ struct RowsTag {
   static constexpr int kW = W, kNT = NT, kD = D;
 };
 
-// Calls f(RowsTag<W, NT, D>{}) for a layout of the sweep: W in {64, 128,
-// 256}, NT in {128, 256}, D in {2, 4, 8}; cudaErrorInvalidValue for any
-// other.
+// Calls f(RowsTag<W, NT, D>{}) for a layout of the sweep: W in {128, 256},
+// NT = 128, D in {2, 4, 8}; cudaErrorInvalidValue for any other.
 template <class F>
 int rows_dispatch(int W, int NT, int D, F&& f) {
 #define QG_ROWS_CASE(w, nt, d) \
   if (W == w && NT == nt && D == d) return f(RowsTag<w, nt, d>{});
 #define QG_ROWS_D(w, nt) \
   QG_ROWS_CASE(w, nt, 2) QG_ROWS_CASE(w, nt, 4) QG_ROWS_CASE(w, nt, 8)
-  QG_ROWS_D(64, 128) QG_ROWS_D(64, 256) QG_ROWS_D(128, 128)
-  QG_ROWS_D(128, 256) QG_ROWS_D(256, 128) QG_ROWS_D(256, 256)
+  QG_ROWS_D(128, 128) QG_ROWS_D(256, 128)
 #undef QG_ROWS_D
 #undef QG_ROWS_CASE
   return static_cast<int>(cudaErrorInvalidValue);
@@ -546,8 +544,8 @@ extern "C" int qg_step_sharded_launch(const float* zeta, const float* psi,
 }
 
 // K1 (sharded = 0) and K12 (sharded = 1) in the row-streaming design, in
-// the layout (W, R, D, NT): W columns a strip, R rows a run (R = M: one
-// run), D rows ahead, NT threads. P % 4 == 0 and every operand 16-byte
+// the layout (W, R, D, NT): W columns a strip, R rows a run, D rows
+// ahead, NT threads. P % 4 == 0 and every operand 16-byte
 // aligned; for K12 zeta_top .. psi_bot are (2, H, P) device slabs, H >= 2
 // (null for K1).
 extern "C" int qg_step_rows_launch(const float* zeta, const float* psi,

@@ -255,23 +255,23 @@ def _checked_consts(cfg: ModelConfig, lib, what: str) -> ctypes.Array:
 # step_rows_sharded_kernel).
 # ---------------------------------------------------------------------------
 
-# The layouts (W, R, D, NT) the source instantiates: W columns a strip, R
-# rows a run (0: the whole of M, one block marching down every row of its
-# strip), D rows ahead, NT threads; each thread owns 4 columns of a row, so
-# a group is G = 4 NT / W rows. fused_step and fused_step_sharded launch
+# The layouts (W, R, D, NT) of the sweep: W columns a strip, R rows a run,
+# D rows ahead, NT threads; each thread owns 4 columns of a row, so a group
+# is G = 4 NT / W rows. The source instantiates every (W, D, NT); R is a
+# launch argument (any R >= 1). fused_step and fused_step_sharded launch
 # STEP_ROWS_BY_M[M] (the layout of chip_smoke.py's k1_sweep with the least
 # device time at that M, PERF.md), else STEP_ROWS.
-STEP_ROWS_WIDTHS = (64, 128, 256)
-STEP_ROWS_RUNS = (32, 64, 128, 0)
+STEP_ROWS_WIDTHS = (128, 256)
+STEP_ROWS_RUNS = (32, 64, 128)
 STEP_ROWS_AHEAD = (2, 4, 8)
-STEP_ROWS_THREADS = (128, 256)
+STEP_ROWS_THREADS = (128,)
 STEP_ROWS = (256, 64, 4, 128)
 STEP_ROWS_BY_M = {2048: (256, 64, 8, 128), 8192: (256, 32, 4, 128)}
 
 
 class RowsLayout(NamedTuple):
-    """A row-streaming block (csrc RowsLayout): W columns, R rows a run (0:
-    all), D rows ahead, NT threads, G rows a group, S ring slots of psi and
+    """A row-streaming block (csrc RowsLayout): W columns, R rows a run, D
+    rows ahead, NT threads, G rows a group, S ring slots of psi and
     zeta (G + 3 + D), and bytes of shared memory (the S mbarriers padded to
     16 bytes, the two rings and the G + 2 lap(psi) rows of W + 8 floats)."""
     W: int
@@ -292,7 +292,7 @@ def step_rows_layout(layout: tuple) -> RowsLayout:
 
 
 def step_rows_layouts() -> list:
-    """Every layout the source instantiates, in sweep order."""
+    """Every layout of the sweep, in sweep order."""
     return [(W, R, D, NT) for W in STEP_ROWS_WIDTHS for NT in STEP_ROWS_THREADS
             for D in STEP_ROWS_AHEAD for R in STEP_ROWS_RUNS]
 
@@ -305,7 +305,10 @@ def step_rows_launched(M: int) -> tuple:
 def step_rows_takes(P: int, *tensors: torch.Tensor) -> bool:
     """True iff the row-streaming kernels take a block P wide with these
     operands: P a multiple of 4 (a row is whole 16-byte pieces) and every
-    operand 16-byte aligned (the bulk copies and float4 accesses)."""
+    operand 16-byte aligned (the bulk copies and float4 accesses). A
+    tensor that torch allocates is aligned; a view that starts part way
+    into a 16-byte piece is not, and sends the call to the tile kernel
+    (1.4-1.8x slower, PERF.md), which rows_launches shows."""
     return (P >= 4 and P % 4 == 0
             and all(t.data_ptr() % 16 == 0 for t in tensors))
 
@@ -313,7 +316,7 @@ def step_rows_takes(P: int, *tensors: torch.Tensor) -> bool:
 def _check_rows_layout(what: str, layout: tuple) -> None:
     W, R, D, NT = layout
     if (W not in STEP_ROWS_WIDTHS or D not in STEP_ROWS_AHEAD
-            or NT not in STEP_ROWS_THREADS or R < 0):
+            or NT not in STEP_ROWS_THREADS or R < 1):
         raise ValueError(f"{what}: layout {layout} (W, R, D, NT) is not one "
                          f"the source instantiates")
 
@@ -361,7 +364,7 @@ def fused_step_rows_emulated(cfg: ModelConfig, zeta: torch.Tensor,
     W, D, G = lay.W, lay.D, lay.G
     S = slots or lay.S
     L, M, P = zeta.shape
-    R = lay.R or M
+    R = lay.R
     dev, dt = zeta.device, zeta.dtype
     nan = float("nan")
     strips = -(-P // W)
@@ -594,7 +597,7 @@ def fused_step_rows(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
         zeta.data_ptr(), psi.data_ptr(), f1.data_ptr(), f2.data_ptr(),
         None if wind is None else wind.data_ptr(), zeta_new.data_ptr(),
         carry.data_ptr(), M, P, consts, int(cfg.time_scheme == "leapfrog_ra"),
-        int(step), W, R or M, D, NT, int(slabs is not None), *slab_ptrs, H,
+        int(step), W, R, D, NT, int(slabs is not None), *slab_ptrs, H,
         torch.cuda.current_stream(zeta.device).cuda_stream)
     _build.check(code, f"{what} {'(K12)' if slabs else '(K1)'} {layout}")
     return zeta_new, carry
@@ -629,7 +632,8 @@ def fused_step(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
     Two hand-written kernels chosen by shape: the row-streaming kernel
     (fused_step_rows, layout step_rows_launched(M)) where step_rows_takes,
     counted also in ``fused_step.rows_launches``; the tile kernel
-    (fused_step_tile) on the rest."""
+    (fused_step_tile) on the rest: P % 4 != 0, or an operand that is not
+    16-byte aligned (a view part way into a 16-byte piece)."""
     if zeta.device.type == "cpu":
         return fused_step_plain(cfg, zeta, psi, f1, f2, step)
     wind = _wind_row(cfg, zeta.device)
@@ -828,7 +832,8 @@ def fused_step_sharded(cfg: ModelConfig, zeta: torch.Tensor,
     carry). Two hand-written kernels chosen by shape, as fused_step's: the
     row-streaming kernel (fused_step_rows with the slabs) where
     step_rows_takes, counted also in ``fused_step_sharded.rows_launches``;
-    the tile kernel (fused_step_sharded_tile) on the rest."""
+    the tile kernel (fused_step_sharded_tile) on the rest: P % 4 != 0, or
+    an operand or slab that is not 16-byte aligned."""
     if zeta.device.type == "cpu":
         return fused_step_sharded_plain(cfg, zeta, psi, f1, f2, step,
                                         zeta_top, zeta_bot, psi_top, psi_bot)
