@@ -15,12 +15,19 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    launch) and K15 (the y-fused chain's step) at (2, 2048, 2048); K3 also
    at (2, 1024, 1024) and (2, 2048, 384) (its cluster kernel, counted) and
    at (2, 2432, 2048) and (2, 384, 256) (pair_x_kernel); K3's cluster
-   kernel in every layout (G, Cw) at 1024^2 and 2048^2, with the clusters
-   the card holds and ms in turns beside pair_x_kernel, K4's and K5's
-   cluster kernels in turn at 2048^2 (the four-pass x-stage), one
-   torch.fft.fft and torch.fft.ifft along x (a yardstick: not K3's
-   function) and a copy, host-launched and replayed from a CUDA graph
-   (k3_sweep); K8 (step +
+   kernel in every layout (G, Cw) at 1024^2 and 2048^2, and in six at
+   4096^2 and 8192^2 (K7's grids), with the clusters the card holds and ms
+   in turns beside pair_x_kernel (at 4096 and 8192 pair_cols_kernel on
+   K7's self table), K4's and K5's cluster kernels in turn (the four-pass
+   x-stage), one torch.fft.fft and torch.fft.ifft along x (a yardstick:
+   not K3's function) and a copy, host-launched and replayed from a CUDA
+   graph (k3_sweep); the block kernel (pair_cols_cluster_kernel) in every
+   layout (G, Cw) for K13 at (2, 8192, 2048) and (2, 2048, 512) and K14 at
+   (2, 2048, 512), with the clusters the card holds, its error and
+   pair_cols_kernel's against plain, and ms in turns beside
+   pair_cols_kernel, one torch.fft.fft of the own and mirror blocks and
+   one torch.fft.ifft along x (a yardstick) and a copy, both ways of
+   timing (k13_sweep); K8 (step +
    modes) at (2, 2048, 2048) with the pin gauge and (1, 2048, 2048) single
    layer; K2 on (2, 333, P) at P = 256 ... 8192 (its factored kernel, a
    ragged last block in every layout with Rb > 1, the factored count
@@ -88,11 +95,15 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    2048^2 state with its 2-row slabs sliced from the global field (and
    against K1's rows of the whole field) and on (2, 2048, 8192) of an
    8192^2 state; K15's sharded form on the 2048^2 block; K13 on
-   (2, 2048, 512) at strip offsets 0 and 12 and on (2, 8192, 2048) at 32;
-   K14 on (2, 2048, 512) with the group indices of ranks 0 and 3 of
-   strip_pair_order(16); K7 on (2, 4096, 4096) and (2, 8192, 8192), and on
-   the real zeta of pod-8192's grid-noise psi against float64 (no worse
-   than 2 x plain).
+   (2, 2048, 512) at strip offsets 0 and 12 and on (2, 8192, 2048) at 32
+   (the block kernel), and on (2, 2432, 512) at 0 and 12
+   (pair_cols_kernel); K14 on (2, 2048, 512) with the group indices of
+   ranks 0 and 3 of strip_pair_order(16) (the block kernel) and on
+   (2, 2432, 512) with rank 0's (pair_cols_kernel); K7 on (2, 4096, 4096)
+   and (2, 8192, 8192) (K3's cluster kernel) and (2, 2432, 2048)
+   (pair_cols_kernel), each with its cluster count checked, and on the
+   real zeta of pod-8192's grid-noise psi against float64 (no worse than
+   2 x plain).
 4b. mesh   — the halo stepper (tpu_qg_torch.parallel) through run_model
    (..., mesh=...), the launch counts set to 0 just before each slice and
    read just after, zeta against the single-device route of the same
@@ -108,8 +119,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    K14), (2, 2) turbulence-2048 (10: K12, K2, K13) and (4, 1) pod-8192 (5:
    K12, K2, K13), the counts checked on every rank, zeta and psi gathered
    to rank 0 and zeta held within 1e-4 of the single-device route (else
-   the float64 rule); K7's path: 20 pod-8192 inversions with the
-   inverter's pair_stream pinned on (K2, K7), psi against float64. Each
+   the float64 rule), every K13 and K14 launch by the block kernel ("K13
+   cluster" = K13, "K14 cluster" = K14); K7's path: 20 pod-8192 inversions
+   with the inverter's pair_stream pinned on (K2, K7, every K7 launch by
+   K3's cluster kernel, "K7 cluster" = K7, K3 = 0), psi against float64.
+   Each
    rank's process group and the parent's join have time limits; a rank
    that fails fails the script.
 5. timing  — CUDA-event ms per step of each route by QGModel.run, in turns
@@ -124,7 +138,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    call, and (8192^2) the busy share over one traced MG call. The mesh: ms per step of the one-rank mesh against the
    single-device route at 2048^2 and 8192^2, in turns; K12, K13, K14, K15's
    sharded form and K7 per launch beside their plain versions at the
-   mesh slices' shapes (K12 beside its tile kernel); ms per step of each
+   mesh slices' shapes (K12 beside its tile kernel; K13, K14 and K7 beside
+   pair_cols_kernel); the kernels of a (4, 1) pod-8192 rank's step at its
+   shapes (K12, K2 both ways, K13 by each kernel) and their sum; ms per
+   step of each
    four-rank slice (host-staged
    gloo transport on one card: not a scaling result). The lab: ms per
    launch of each K18 variant beside K1 in turns, each beside its plain
@@ -161,10 +178,13 @@ from tpu_qg_torch.constants import DAY
 from tpu_qg_torch.models.core import QGModel, State, init_state
 from tpu_qg_torch.ops import _build, dft_kernels
 from tpu_qg_torch.ops.dft_kernels import (
-    mirror_companion, mono_invert, mono_invert_plain, pair_x_cluster,
-    pair_x_cluster_layout, pair_x_cluster_occupancy, pair_x_cluster_takes,
-    pair_x_symbols, pair_x_symbols_plain, pair_x_whole_columns,
-    paired_x_symbols, paired_x_symbols_plain,
+    mirror_companion, mono_invert, mono_invert_plain, pair_cols_cluster,
+    pair_cols_cluster_launched, pair_cols_cluster_layout,
+    pair_cols_cluster_occupancy, pair_cols_cluster_takes,
+    pair_cols_whole_columns, pair_x_cluster, pair_x_cluster_layout,
+    pair_x_cluster_occupancy, pair_x_cluster_takes, pair_x_symbols,
+    pair_x_symbols_plain, pair_x_whole_columns, paired_x_symbols,
+    paired_x_symbols_plain,
     stream_pair_symbols, stream_pair_symbols_plain, x_dft, x_dft_cluster,
     x_dft_cluster_layout, x_dft_cluster_occupancy, x_dft_cluster_takes,
     x_dft_plain, x_dft_stage_a, x_dft_stage_a_plain, x_fwd_symbols_offset,
@@ -261,10 +281,14 @@ class KernelCount:
     """A wrapper's count of the launches that took one of its two kernels
     (x_dft.cluster_launches: K4's cluster kernel;
     x_symbols_inverse.cluster_launches: K5's;
-    pair_x_symbols.cluster_launches: K3's; y_dft.factored_launches: K2's
-    factored kernel; fused_step.rows_launches and
-    fused_step_sharded.rows_launches: K1's and K12's row-streaming kernel),
-    as a counter with a ``launches`` field."""
+    pair_x_symbols.cluster_launches: K3's;
+    x_fwd_symbols_offset.cluster_launches and
+    paired_x_symbols.cluster_launches: K13's and K14's,
+    pair_cols_cluster_kernel; stream_pair_symbols.cluster_launches: K7's
+    launches of K3's cluster kernel; y_dft.factored_launches: K2's factored
+    kernel; fused_step.rows_launches and fused_step_sharded.rows_launches:
+    K1's and K12's row-streaming kernel), as a counter with a ``launches``
+    field."""
 
     def __init__(self, wrapper, attr: str):
         self.wrapper, self.attr = wrapper, attr
@@ -289,19 +313,27 @@ COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
             "K4 cluster": KernelCount(x_dft, "cluster_launches"),
             "K5 cluster": KernelCount(x_symbols_inverse, "cluster_launches"),
             "K3 cluster": KernelCount(pair_x_symbols, "cluster_launches"),
+            "K13 cluster": KernelCount(x_fwd_symbols_offset,
+                                       "cluster_launches"),
+            "K14 cluster": KernelCount(paired_x_symbols, "cluster_launches"),
+            "K7 cluster": KernelCount(stream_pair_symbols,
+                                      "cluster_launches"),
             "K2 factored": KernelCount(y_dft, "factored_launches"),
             "K1 rows": KernelCount(fused_step, "rows_launches"),
             "K12 rows": KernelCount(fused_step_sharded, "rows_launches")}
 # Kernel names in a profiler trace, the one-launch kernels, the
 # row-streaming K1 and K12, K8, K9, K12 and K18 before K1's tile kernel: a
 # mangled name of any kernel of step_kernel.cu holds the source file's name,
-# step_kernel, and K18's lab_step_kernel holds it too. K7, K13 and K14 are
-# one kernel, pair_cols_kernel.
+# step_kernel, and K18's lab_step_kernel holds it too. K13 and K14 are one
+# kernel, pair_cols_cluster_kernel (before pair_cols_kernel, which serves
+# K7, K13 and K14 at other extents); K7's launches of K3's cluster kernel
+# carry K3's name (the counters tell them apart).
 TRACE_NAMES = (("K12", "step_rows_sharded_kernel"),
                ("K1", "step_rows_kernel"),
                ("K17", "coop_fullstep_kernel"), ("K16", "coop_mono_kernel"),
                ("K15s", "coop_yspec_sharded_kernel"),
                ("K15", "coop_yspec_kernel"), ("K12", "step_sharded_kernel"),
+               ("K13/K14", "pair_cols_cluster_kernel"),
                ("K7/K13/K14", "pair_cols_kernel"),
                ("K11", "mg_prolong_kernel"),
                ("K10", "mg_smooth_kernel"), ("K9", "tendency_kernel"),
@@ -397,8 +429,9 @@ def bound(name: str, M: int, P: int) -> tuple[float, str, float]:
     """(bound ms, "bytes" or "operations", bytes) of one launch of kernel
     ``name`` on a two-layer (M, P) grid or block: each input field read once
     and each output written once, against 5 N log2 N operations per complex
-    transform of length N and STEP_OPS per point and layer (K7 and K13
-    transform two columns forward and one back per output column)."""
+    transform of length N and STEP_OPS per point and layer (K13 transforms
+    two columns forward and one back per output column; K7 is K3's
+    function)."""
     field = 2 * M * P * 4
 
     def ffts(n: int, count: int) -> float:
@@ -416,7 +449,7 @@ def bound(name: str, M: int, P: int) -> tuple[float, str, float]:
         "K10 residual": (4, sweeps + residual), "K10 smooth": (3, sweeps),
         "K11": (3.25, sweeps + 2 * MG_PROLONG_OPS * M * P),
         "K15": (7, step + 2 * ffts(P, M)), "K16": (2, mono),
-        "K17": (7, step + mono), "K7": (2, ffts(M, 3 * P)),
+        "K17": (7, step + mono), "K7": (2, ffts(M, 2 * P)),
         "K12": (6, step), "K13": (3, ffts(M, 3 * P)),
         "K14": (2, ffts(M, 2 * P)), "K15s": (7, step + 2 * ffts(P, M)),
         "K18": (6, step)}[name]
@@ -448,10 +481,11 @@ def phase_build() -> None:
     info = _build.build_info()
     lines = info["ptxas"].splitlines()
     regs = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
-    # K4's, K5's and K3's cluster kernels and K2's factored kernel: each
-    # instance's registers, shared memory, spills.
+    # K4's, K5's, K3's and K13/K14's cluster kernels and K2's factored
+    # kernel: each instance's registers, shared memory, spills.
     named = {"x_dft_cluster_kernel": {}, "x_symbols_cluster_kernel": {},
-             "pair_x_cluster_kernel": {}, "y_dft_factored_kernel": {}}
+             "pair_x_cluster_kernel": {}, "pair_cols_cluster_kernel": {},
+             "y_dft_factored_kernel": {}}
     entry = None
     for ln in lines:
         if "Compiling entry function" in ln:
@@ -465,6 +499,7 @@ def phase_build() -> None:
          k4_cluster_ptxas=named["x_dft_cluster_kernel"],
          k5_cluster_ptxas=named["x_symbols_cluster_kernel"],
          k3_cluster_ptxas=named["pair_x_cluster_kernel"],
+         k13_k14_cluster_ptxas=named["pair_cols_cluster_kernel"],
          k2_factored_ptxas=named["y_dft_factored_kernel"],
          step_ptxas=step_ptxas(lines))
 
@@ -981,20 +1016,29 @@ def phase_k5_sweep(dev, pod, card, sizes=(4096, 8192), reps=20) -> dict:
     return out
 
 
-def phase_k3_sweep(dev, turb, card, sizes=(1024, 2048),
-                   timed=(1024, 2048), reps=20) -> dict:
+# K3's cluster kernel at 4096^2 and 8192^2, where K7 launches it: six
+# layouts each (at 4096 the two of Cw = 4 with G < 16 left out: 16-byte
+# runs a row, as K5's narrowest).
+K3_SWEEP_LARGE = {4096: ((4, 8), (8, 8), (8, 16), (16, 4), (16, 8), (16, 16)),
+                  8192: ((4, 4), (8, 4), (8, 8), (16, 4), (16, 8), (16, 16))}
+
+
+def phase_k3_sweep(dev, turb, card, sizes=(1024, 2048, 4096, 8192),
+                   reps=20) -> dict:
     """K3's cluster kernel in every layout (G blocks a cluster, Cw y slots a
-    tile) that fits shared memory, at n^2: its bytes of shared memory, the
-    clusters the card holds at once (cudaOccupancyMaxActiveClusters) and
-    its largest error against the plain version; at the sizes in ``timed``
-    also ms a launch, the layouts in turns (in order, then in reverse),
-    beside pair_x_kernel (whole columns, the kernel it replaces there),
-    K4's cluster kernel then K5's where both take n (the four-pass route's
-    x-stage, two launches, the spectrum through device memory), one
-    torch.fft.fft and one torch.fft.ifft along x of the same complex64
-    field (a yardstick only: not K3's function) and a torch copy of the
-    field: host-launched (time_ms) and replayed from a CUDA graph
-    (graph_ms). Returns the entries by grid."""
+    tile) that fits shared memory at n^2 (at 4096 and 8192 those of
+    K3_SWEEP_LARGE): its bytes of shared memory, the clusters the card
+    holds at once (cudaOccupancyMaxActiveClusters), its largest error
+    against the plain version and ms a launch, the layouts in turns (in
+    order, then in reverse), beside the kernel it replaces there
+    (pair_x_kernel, whole columns; at 4096 and 8192 K7's, pair_cols_kernel
+    on the whole field's self table, half the reps), K4's cluster kernel
+    then K5's where both take n (the four-pass route's x-stage, two
+    launches, the spectrum through device memory), one torch.fft.fft and
+    one torch.fft.ifft along x of the same complex64 field (a yardstick
+    only: not K3's function) and a torch copy of the field: host-launched
+    (time_ms) and replayed from a CUDA graph (graph_ms). Returns the
+    entries by grid."""
     rng = np.random.default_rng(SEED + 14)
     out = {}
     for n in sizes:
@@ -1002,9 +1046,11 @@ def phase_k3_sweep(dev, turb, card, sizes=(1024, 2048),
                             dtype=torch.float32, device=dev)
         consts = inverter(turb.replace(M=n, P=n))._sym_consts
         want = pair_x_symbols_plain(x, consts)
-        rows, calls = {}, {}
-        for lay in ((g, c) for g in dft_kernels.PAIR_X_CLUSTER_SIZES
-                    for c in dft_kernels.PAIR_X_CLUSTER_WIDTHS):
+        rows, calls, refs = {}, {}, {}
+        large = n in K3_SWEEP_LARGE
+        for lay in K3_SWEEP_LARGE.get(n) or (
+                (g, c) for g in dft_kernels.PAIR_X_CLUSTER_SIZES
+                for c in dft_kernels.PAIR_X_CLUSTER_WIDTHS):
             if not pair_x_cluster_takes(n, lay):
                 continue
             key = "G={} Cw={}".format(*lay)
@@ -1019,38 +1065,131 @@ def phase_k3_sweep(dev, turb, card, sizes=(1024, 2048),
                 raise AssertionError(f"K3 cluster {key} at {n}^2: rel err "
                                      f"{err} > {TOL['K3']}")
             calls[key] = lambda lay=lay: pair_x_cluster(x, consts, lay)
-        refs = {}
-        if n in timed:
-            c64 = torch.complex(x[0], x[1])
+        c64 = torch.complex(x[0], x[1])
+        if large:
+            old = "pair_cols_kernel (K7's self table)"
+            calls[old] = lambda: pair_cols_whole_columns(x, x, "self", (n,),
+                                                         consts)
+            refs[old + " rel_err"] = rel_err(calls[old](), want)[1]
+        else:
             calls["pair_x_kernel"] = lambda: pair_x_whole_columns(x, consts)
-            if x_symbols_cluster_takes(n):
-                pair = lambda: x_symbols_cluster(x_dft_cluster(x, False),
-                                                 consts)
-                refs["K4 cluster + K5 cluster rel_err"] = rel_err(
-                    pair(), want)[1]
-                calls["K4 cluster + K5 cluster"] = pair
-            calls["library fft + ifft along x"] = (
-                lambda: torch.fft.ifft(torch.fft.fft(c64, dim=0), dim=0))
-            calls["copy"] = lambda: x.clone()
-            runs = {k: ([], []) for k in calls}
-            for k in list(calls) + list(calls)[::-1]:
-                runs[k][0].append(time_ms(calls[k], reps))
-                runs[k][1].append(graph_ms(calls[k], reps))
-            for key, (r, g) in runs.items():
-                if key in rows:
-                    rows[key].update(ms=sum(r) / 2, graph_ms=sum(g) / 2,
-                                     runs_ms=r, graph_runs_ms=g)
-                else:
-                    refs[key] = sum(r) / 2
-                    refs[key + " graph"] = sum(g) / 2
-            del c64
-        del want
+        if x_symbols_cluster_takes(n):
+            pair = lambda: x_symbols_cluster(x_dft_cluster(x, False), consts)
+            refs["K4 cluster + K5 cluster rel_err"] = rel_err(pair(), want)[1]
+            calls["K4 cluster + K5 cluster"] = pair
+        calls["library fft + ifft along x"] = (
+            lambda: torch.fft.ifft(torch.fft.fft(c64, dim=0), dim=0))
+        calls["copy"] = lambda: x.clone()
+        r = reps // 2 if large else reps
+        runs = {k: ([], []) for k in calls}
+        for k in list(calls) + list(calls)[::-1]:
+            runs[k][0].append(time_ms(calls[k], r))
+            runs[k][1].append(graph_ms(calls[k], r))
+        for key, (t, g) in runs.items():
+            if key in rows:
+                rows[key].update(ms=sum(t) / 2, graph_ms=sum(g) / 2,
+                                 runs_ms=t, graph_runs_ms=g)
+            else:
+                refs[key] = sum(t) / 2
+                refs[key + " graph"] = sum(g) / 2
+        del want, c64
         emit("k3_sweep", card=card, grid=[n, n],
              launched="G={} Cw={}".format(
                  *dft_kernels.pair_x_cluster_launched(n)),
              layouts=rows, reference_ms=refs, bound_ms=bound("K3", n, n)[0])
         out[n] = dict(layouts=rows, reference_ms=refs)
         del x, calls
+        free_memory()
+    return out
+
+
+# The block kernel's sweep, at the four-rank slices' blocks: K13 on the
+# (4, 1) pod-8192 rank's (2, 8192, 2048) at strip offset 16 and the (2, 2)
+# turbulence-2048 rank's (2, 2048, 512) at 4; K14 on the (4, 1)
+# turbulence-2048 rank 0's (2, 2048, 512), the self-mirror group's.
+K13_SWEEP = (("K13", "offset", 8192, 2048, 16),
+             ("K13", "offset", 2048, 512, 4),
+             ("K14", "paired", 2048, 512, 0))
+
+
+def phase_k13_sweep(dev, turb, pod, card, reps=20) -> dict:
+    """The block kernel (pair_cols_cluster_kernel) in every layout (G, Cw)
+    that fits shared memory, for each entry of K13_SWEEP: its bytes of
+    shared memory, the clusters the card holds at once, its largest error
+    against the plain version and ms a launch, the layouts in turns (in
+    order, then in reverse), beside pair_cols_kernel (the kernel it
+    replaces there; its error too), one torch.fft.fft along x of the own
+    and mirror blocks then one torch.fft.ifft along x of a block (a
+    yardstick only: not the function) and a torch copy of the block:
+    host-launched (time_ms) and replayed from a CUDA graph (graph_ms).
+    Returns the entries by kernel and shape."""
+    rng = np.random.default_rng(SEED + 15)
+    out = {}
+    for name, kind, M, W, at in K13_SWEEP:
+        cfg = pod if M == pod.M else turb
+        consts = inverter(cfg)._sym_consts
+        x = torch.as_tensor(rng.standard_normal((2, M, W)),
+                            dtype=torch.float32, device=dev)
+        if kind == "offset":
+            xm = torch.as_tensor(rng.standard_normal((2, M, W)),
+                                 dtype=torch.float32, device=dev)
+            key = (W, at)
+            want = x_fwd_symbols_offset_plain(x, xm, consts, at)
+        else:
+            xm, s = x, W // 128
+            idx = strip_pair_order(cfg.P // 128)[at * s:(at + 1) * s]
+            key = (tuple(int(i) for i in idx), cfg.P // 128)
+            want = paired_x_symbols_plain(x, idx, consts)
+        rows, calls = {}, {}
+        for lay in ((g, c) for g in dft_kernels.PAIR_X_CLUSTER_SIZES
+                    for c in dft_kernels.PAIR_X_CLUSTER_WIDTHS):
+            if not pair_cols_cluster_takes(M, W, lay):
+                continue
+            lkey = "G={} Cw={}".format(*lay)
+            occ = pair_cols_cluster_occupancy(M, lay, kind == "offset",
+                                              dev.index)
+            rows[lkey] = dict(smem=pair_cols_cluster_layout(M, *lay).smem,
+                              max_active_clusters=occ)
+            if occ == 0:                 # the card cannot schedule it
+                continue
+            err = rel_err(pair_cols_cluster(x, xm, kind, key, consts, lay),
+                          want)[1]
+            rows[lkey]["rel_err"] = err
+            if not err <= TOL[name]:
+                raise AssertionError(f"{name} cluster {lkey} at {(M, W)}: "
+                                     f"rel err {err} > {TOL[name]}")
+            calls[lkey] = lambda lay=lay: pair_cols_cluster(x, xm, kind, key,
+                                                            consts, lay)
+        calls["pair_cols_kernel"] = lambda: pair_cols_whole_columns(
+            x, xm, kind, key, consts)
+        refs = {"pair_cols_kernel rel_err": rel_err(calls["pair_cols_kernel"](),
+                                                    want)[1]}
+        del want
+        c64 = torch.complex(x[0], x[1])
+        both = torch.stack([c64, torch.complex(xm[0], xm[1])]) \
+            if kind == "offset" else c64[None]
+        calls["library fft + ifft along x"] = (
+            lambda: torch.fft.ifft(torch.fft.fft(both, dim=1)[0], dim=0))
+        calls["copy"] = lambda: x.clone()
+        runs = {k: ([], []) for k in calls}
+        for k in list(calls) + list(calls)[::-1]:
+            runs[k][0].append(time_ms(calls[k], reps))
+            runs[k][1].append(graph_ms(calls[k], reps))
+        for lkey, (t, g) in runs.items():
+            if lkey in rows:
+                rows[lkey].update(ms=sum(t) / 2, graph_ms=sum(g) / 2,
+                                  runs_ms=t, graph_runs_ms=g)
+            else:
+                refs[lkey] = sum(t) / 2
+                refs[lkey + " graph"] = sum(g) / 2
+        emit("k13_sweep", card=card, kernel=name, shape=[2, M, W],
+             block=dict(strip_offset=at) if kind == "offset" else
+             dict(groups_idx=list(key[0])),
+             launched="G={} Cw={}".format(
+                 *pair_cols_cluster_launched(M, W)),
+             layouts=rows, reference_ms=refs, bound_ms=bound(name, M, W)[0])
+        out[f"{name} {M}x{W}"] = dict(layouts=rows, reference_ms=refs)
+        del x, xm, c64, both, calls
         free_memory()
     return out
 
@@ -1312,6 +1451,20 @@ def check_sharded_step(errs, cfg, dev, rng, nx, k, cases, tag="") -> None:
             errs.record("K12", f"{tag}{case} {part} tile kernel", t, w)
 
 
+def check_cols(errs, name, case, kern, plain, cluster: bool) -> None:
+    """A column x-stage (K13, K14 or K7) against its plain version, with its
+    cluster count ("K13 cluster", ...) rising by 1 exactly where
+    ``cluster`` (the block kernel's shapes; K3's cluster kernel's for
+    K7)."""
+    counter = COUNTERS[f"{name} cluster"]
+    n = counter.launches
+    errs.record(name, case, kern(), plain())
+    torch.cuda.synchronize()
+    if counter.launches - n != int(cluster):
+        raise AssertionError(f"{name} {case}: {counter.launches - n} "
+                             f"cluster launches")
+
+
 def phase_sharded_kernels(errs, turb, pod, dev) -> None:
     """K12, K15's sharded form, K13, K14 and K7 against their plain
     versions at the mesh slices' shapes (see the module docstring)."""
@@ -1337,8 +1490,11 @@ def phase_sharded_kernels(errs, turb, pod, dev) -> None:
                        "(2, 2048, 8192) of 8192^2 ")
     free_memory()
 
-    # K13 on random y-spectra: a rank's column block and its companion.
-    for cfg, nx, offs in ((turb, 4, (0, 3)), (pod, 4, (2,))):
+    # K13 on random y-spectra: a rank's column block and its companion, by
+    # the block kernel (pair_cols_cluster_kernel) at the slices' shapes and
+    # by pair_cols_kernel at the mixed extent 2432 = 128 * 19.
+    for cfg, nx, offs in ((turb, 4, (0, 3)), (pod, 4, (2,)),
+                          (turb.replace(M=2432), 4, (0, 3))):
         consts = inverter(cfg)._sym_consts
         x = torch.as_tensor(rng.standard_normal((2, cfg.M, cfg.P)),
                             dtype=torch.float32, device=dev)
@@ -1348,34 +1504,42 @@ def phase_sharded_kernels(errs, turb, pod, dev) -> None:
             cols = slice(k * w, (k + 1) * w)
             a, b = x[..., cols].contiguous(), xm[..., cols].contiguous()
             off = k * w // 128
-            errs.record("K13", f"({cfg.M}, {w}) strip offset {off}",
-                        x_fwd_symbols_offset(a, b, consts, off),
-                        x_fwd_symbols_offset_plain(a, b, consts, off))
+            check_cols(errs, "K13", f"({cfg.M}, {w}) strip offset {off}",
+                       lambda: x_fwd_symbols_offset(a, b, consts, off),
+                       lambda: x_fwd_symbols_offset_plain(a, b, consts, off),
+                       pair_cols_cluster_takes(cfg.M, w))
         del x, xm
         free_memory()
 
-    # K14: ranks 0 (the self-mirror group) and 3 of 4 at 2048^2.
-    consts = inverter(turb)._sym_consts
+    # K14: ranks 0 (the self-mirror group) and 3 of 4 at 2048^2 (the block
+    # kernel) and rank 0 at 2432 x 2048 (pair_cols_kernel).
     order = strip_pair_order(turb.P // 128)
-    x = torch.as_tensor(rng.standard_normal((2, turb.M, turb.P)),
-                        dtype=torch.float32, device=dev)
     w, strips = turb.P // 4, turb.P // 4 // 128
-    for k in (0, 3):
-        blk = x[..., k * w:(k + 1) * w].contiguous()
-        idx = order[k * strips:(k + 1) * strips]
-        errs.record("K14", f"(2048, 512) rank {k} of 4, groups {list(idx)}",
-                    paired_x_symbols(blk, idx, consts),
-                    paired_x_symbols_plain(blk, idx, consts))
-
-    # K7 on random y-spectra, then on pod-8192's zeta against float64.
-    for n in (4096, 8192):
-        cfg = pod.replace(M=n, P=n)
+    for cfg, ranks in ((turb, (0, 3)), (turb.replace(M=2432), (0,))):
         consts = inverter(cfg)._sym_consts
-        x = torch.as_tensor(rng.standard_normal((2, n, n)),
+        x = torch.as_tensor(rng.standard_normal((2, cfg.M, cfg.P)),
                             dtype=torch.float32, device=dev)
-        errs.record("K7", f"random y-spectrum {n}^2",
-                    stream_pair_symbols(x, consts),
-                    stream_pair_symbols_plain(x, consts))
+        for k in ranks:
+            blk = x[..., k * w:(k + 1) * w].contiguous()
+            idx = order[k * strips:(k + 1) * strips]
+            check_cols(errs, "K14",
+                       f"({cfg.M}, {w}) rank {k} of 4, groups {list(idx)}",
+                       lambda: paired_x_symbols(blk, idx, consts),
+                       lambda: paired_x_symbols_plain(blk, idx, consts),
+                       pair_cols_cluster_takes(cfg.M, w))
+
+    # K7 on random y-spectra (K3's cluster kernel at 4096^2 and 8192^2,
+    # pair_cols_kernel at 2432 x 2048), then on pod-8192's zeta against
+    # float64.
+    for M, P in ((4096, 4096), (8192, 8192), (2432, 2048)):
+        cfg = pod.replace(M=M, P=P)
+        consts = inverter(cfg)._sym_consts
+        x = torch.as_tensor(rng.standard_normal((2, M, P)),
+                            dtype=torch.float32, device=dev)
+        check_cols(errs, "K7", f"random y-spectrum {M}x{P}",
+                   lambda: stream_pair_symbols(x, consts),
+                   lambda: stream_pair_symbols_plain(x, consts),
+                   pair_x_cluster_takes(M))
         del x
         free_memory()
     consts = inverter(pod)._sym_consts
@@ -1762,8 +1926,9 @@ def phase_mesh_one_rank(turb, pod, dev, card) -> tuple[dict, dict]:
 def run_k7_path(pod, dev, calls: int) -> dict:
     """``calls`` pod-8192 inversions through PackedModalInverterKernels with
     pair_stream pinned on, the counts set to 0 just before and read just
-    after (K2 = 2 calls, K7 = calls); psi against a float64 inversion, no
-    worse than 2 x the plain versions' route."""
+    after (K2 = 2 calls, K7 = calls, each K7 launch by K3's cluster kernel,
+    "K7 cluster" = K7, K3 = 0); psi against a float64 inversion, no worse
+    than 2 x the plain versions' route."""
     inv = inverter(pod)
     inv.pair_stream = True
     zeta = init_state(pod, dev).zeta
@@ -1773,7 +1938,8 @@ def run_k7_path(pod, dev, calls: int) -> dict:
     torch.cuda.synchronize()
     launches = counts()
     want = {k: 0 for k in COUNTERS}
-    want.update({"K2": 2 * calls, "K2 factored": 2 * calls, "K7": calls})
+    want.update({"K2": 2 * calls, "K2 factored": 2 * calls, "K7": calls,
+                 "K7 cluster": calls})
     if launches != want:
         raise AssertionError(f"K7 path: launch counts {launches} != {want}")
     consts = inv._sym_consts
@@ -1798,17 +1964,17 @@ def run_k7_path(pod, dev, calls: int) -> dict:
 FOUR_RANK_SLICES = (
     # name, preset, step_chain, mesh, steps, expected counts on every rank
     ("turbulence-2048 mesh (4, 1)", "turbulence-2048", "auto", (4, 1), 10,
-     {"K12": 10, "K12 rows": 10, "K2": 20, "K2 factored": 20, "K14": 10},
-     "fused"),
+     {"K12": 10, "K12 rows": 10, "K2": 20, "K2 factored": 20, "K14": 10,
+      "K14 cluster": 10}, "fused"),
     ("turbulence-2048 step_chain=on mesh (4, 1)", "turbulence-2048", "on",
-     (4, 1), 10, {"K15s": 10, "K14": 10, "K2": 2, "K2 factored": 2},
-     "chain"),
+     (4, 1), 10, {"K15s": 10, "K14": 10, "K14 cluster": 10, "K2": 2,
+                  "K2 factored": 2}, "chain"),
     ("turbulence-2048 mesh (2, 2)", "turbulence-2048", "auto", (2, 2), 10,
-     {"K12": 10, "K12 rows": 10, "K2": 20, "K2 factored": 20, "K13": 10},
-     "fused-2d"),
+     {"K12": 10, "K12 rows": 10, "K2": 20, "K2 factored": 20, "K13": 10,
+      "K13 cluster": 10}, "fused-2d"),
     ("pod-8192 mesh (4, 1)", "pod-8192", "auto", (4, 1), 5,
-     {"K12": 5, "K12 rows": 5, "K2": 10, "K2 factored": 10, "K13": 5},
-     "fused"),
+     {"K12": 5, "K12 rows": 5, "K2": 10, "K2 factored": 10, "K13": 5,
+      "K13 cluster": 5}, "fused"),
 )
 
 
@@ -1914,8 +2080,13 @@ def time_sharded_kernels(turb, pod, dev, card) -> dict:
     """K12, K13, K14, K15's sharded form and K7 per launch beside their plain
     versions, in turns, at the mesh slices' shapes: K12 and K15s on the
     one-rank 2048^2 block (2, 2048, 2048), K13 on the (4, 1) pod-8192
-    block (2, 8192, 2048), K14 on the (4, 1) turbulence-2048 block
-    (2, 2048, 512), K7 on (2, 8192, 8192). Each entry carries its shape."""
+    block (2, 8192, 2048) and the (2, 2) turbulence-2048 block (2, 2048,
+    512), K14 on the (4, 1) turbulence-2048 block (2, 2048, 512), K7 on
+    (2, 8192, 8192); K13, K14 and K7 also by pair_cols_kernel, twice after
+    the turns on the same inputs (whole_columns_ms); on the 2048 blocks
+    also the host's enqueue ms a call and the graph-replayed ms. Each entry
+    carries its shape. Then the kernels of a (4, 1) pod-8192 rank
+    (time_pod_rank)."""
     rng = np.random.default_rng(SEED + 6)
     out = {}
     zeta, psi, f1, f2 = step_inputs(turb, dev, rng)
@@ -1943,10 +2114,26 @@ def time_sharded_kernels(turb, pod, dev, card) -> dict:
     x = torch.as_tensor(rng.standard_normal((2, turb.M, turb.P // 4)),
                         dtype=torch.float32, device=dev)
     idx = strip_pair_order(turb.P // 128)[:4]
-    out.update(time_kernels({"K14": (
-        lambda: paired_x_symbols(x, idx, consts),
-        lambda: paired_x_symbols_plain(x, idx, consts), 1)}, 100, 20))
-    out["K14"]["shape"] = list(x.shape)
+    key14 = (tuple(int(i) for i in idx), turb.P // 128)
+    xm = torch.as_tensor(rng.standard_normal((2, turb.M, turb.P // 4)),
+                         dtype=torch.float32, device=dev)
+    out.update(time_kernels({
+        "K14": (lambda: paired_x_symbols(x, idx, consts),
+                lambda: paired_x_symbols_plain(x, idx, consts), 1),
+        "K13 2048": (lambda: x_fwd_symbols_offset(x, xm, consts, 4),
+                     lambda: x_fwd_symbols_offset_plain(x, xm, consts, 4),
+                     1)}, 100, 20))
+    whole = {"K14": lambda: pair_cols_whole_columns(x, x, "paired", key14,
+                                                    consts),
+             "K13 2048": lambda: pair_cols_whole_columns(
+                 x, xm, "offset", (turb.P // 4, 4), consts)}
+    routed = {"K14": lambda: paired_x_symbols(x, idx, consts),
+              "K13 2048": lambda: x_fwd_symbols_offset(x, xm, consts, 4)}
+    for k, fn in whole.items():
+        out[k]["shape"] = list(x.shape)
+        out[k].update(whole_columns(fn, 100))
+        out[k]["host_enqueue_ms"] = host_enqueue(routed[k], 100)
+        out[k]["graph_ms"] = graph_ms(routed[k], 100)
     consts = inverter(pod)._sym_consts
     x = torch.as_tensor(rng.standard_normal((2, pod.M, pod.P // 4)),
                         dtype=torch.float32, device=dev)
@@ -1956,6 +2143,8 @@ def time_sharded_kernels(turb, pod, dev, card) -> dict:
         lambda: x_fwd_symbols_offset(x, xm, consts, 16),
         lambda: x_fwd_symbols_offset_plain(x, xm, consts, 16), 1)}, 20, 5))
     out["K13"]["shape"] = list(x.shape)
+    out["K13"].update(whole_columns(lambda: pair_cols_whole_columns(
+        x, xm, "offset", (pod.P // 4, 16), consts), 20))
     del x, xm
     free_memory()
     x = torch.as_tensor(rng.standard_normal((2, pod.M, pod.P)),
@@ -1964,12 +2153,79 @@ def time_sharded_kernels(turb, pod, dev, card) -> dict:
         lambda: stream_pair_symbols(x, consts),
         lambda: stream_pair_symbols_plain(x, consts), 1)}, 10, 3))
     out["K7"]["shape"] = list(x.shape)
+    out["K7"].update(whole_columns(lambda: pair_cols_whole_columns(
+        x, x, "self", (pod.P,), consts), 10))
     del x
     free_memory()
     for name, t in out.items():
-        t["bound_ms"] = bound(name, t["shape"][1], t["shape"][2])[0]
+        t["bound_ms"] = bound(name.split()[0], t["shape"][1],
+                              t["shape"][2])[0]
+    out["K13"]["at_2048"] = out.pop("K13 2048")
+    out["pod-8192 (4, 1) rank"] = time_pod_rank(pod, dev, rng)
     emit("timing", card=card, kernel_ms=out, at="the mesh slices' shapes")
     return out
+
+
+def host_enqueue(fn, calls: int) -> float:
+    """Host ms to enqueue one call of ``fn`` (wrapper and launch) into an
+    idle queue: ``calls`` calls after a synchronize, the host clock stopped
+    before the device finishes. Where it reaches the kernel's device time,
+    time_ms reads the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
+def whole_columns(fn, reps: int) -> dict:
+    """pair_cols_kernel's ms (the kernel K7, K13 and K14 ran before the
+    cluster forms took their power-of-two extents), twice."""
+    runs = [time_ms(fn, reps) for _ in range(2)]
+    return {"whole_columns_ms": sum(runs) / 2, "whole_columns_runs_ms": runs}
+
+
+def time_pod_rank(pod, dev, rng) -> dict:
+    """The kernels of one (4, 1) pod-8192 rank's step at its shapes, ms per
+    launch by CUDA events, in turns: K12 on its (2, 2048, 8192) row block
+    with its slabs, K2 forward and inverse on the same rows, and K13 on the
+    (2, 8192, 2048) column block by the block kernel and by
+    pair_cols_kernel; their sums with each K13 kernel."""
+    block, ((zt, zb), (pt, pb)), whole, _ = sharded_inputs(pod, dev, rng, 4,
+                                                           1)
+    del whole
+    free_memory()
+    z, p, f1, f2 = block
+    consts = inverter(pod)._sym_consts
+    x = torch.as_tensor(rng.standard_normal((2, pod.M, pod.P // 4)),
+                        dtype=torch.float32, device=dev)
+    xm = torch.as_tensor(rng.standard_normal((2, pod.M, pod.P // 4)),
+                         dtype=torch.float32, device=dev)
+    calls = {
+        "K12": lambda: fused_step_sharded(pod, z, p, f1, f2, 5, zt, zb, pt,
+                                          pb),
+        "K2 forward": lambda: y_dft(z, False),
+        "K2 inverse": lambda: y_dft(z, True),
+        "K13 cluster": lambda: x_fwd_symbols_offset(x, xm, consts, 16),
+        "K13 pair_cols_kernel": lambda: pair_cols_whole_columns(
+            x, xm, "offset", (pod.P // 4, 16), consts)}
+    runs = {k: [] for k in calls}
+    for k in list(calls) + list(calls)[::-1]:
+        runs[k].append(time_ms(calls[k], 10))
+    ms = {k: sum(v) / 2 for k, v in runs.items()}
+    rest = ms["K12"] + ms["K2 forward"] + ms["K2 inverse"]
+    del block, z, p, f1, f2, x, xm
+    free_memory()
+    return {"ms": ms, "runs_ms": runs,
+            "kernel_sum_ms": rest + ms["K13 cluster"],
+            "kernel_sum_with_pair_cols_kernel_ms":
+                rest + ms["K13 pair_cols_kernel"],
+            "shapes": {"K12": [2, pod.M // 4, pod.P],
+                       "K2": [2, pod.M // 4, pod.P],
+                       "K13": [2, pod.M, pod.P // 4]}}
 
 
 def run_chunks(cfg, steps: int) -> int:
@@ -2347,6 +2603,7 @@ def main() -> None:
     k4_sweep = phase_k4_sweep(dev, card)
     k5_sweep = phase_k5_sweep(dev, pod, card)
     k3_sweep = phase_k3_sweep(dev, turb, card)
+    k13_sweep = phase_k13_sweep(dev, turb, pod, card)
     k1_sweep = phase_k1_sweep(dev, card)
     k2_sweep = phase_k2_sweep(dev, card)
     k2_mixed = time_k2_mixed(dev, card)
@@ -2472,6 +2729,26 @@ def main() -> None:
                     "step_kernel": "every other shape (the tile design)"},
         "sweep": k1_sweep}
     sharded_ms = time_sharded_kernels(turb, pod, dev, card)
+    cols = "M = 128 * 2^a, M >= 256 G, whole 128-column strips (layouts: {}, " \
+        "else K3's at M)".format(dft_kernels.PAIR_COLS_CLUSTER_BY_MW)
+    for name in ("K13", "K14"):
+        extra[name] = {
+            "cluster_launches": sum(run[f"{name} cluster"]
+                                    for run in launches.values()),
+            "kernels": {"pair_cols_cluster_kernel": cols,
+                        "pair_cols_kernel": "mixed extents, M < 256 G"},
+            "whole_columns_ms": sharded_ms[name]["whole_columns_ms"],
+            "sweep": {k: v for k, v in k13_sweep.items()
+                      if k.startswith(name)}}
+    extra["K13"].update(at_2048=sharded_ms["K13"]["at_2048"],
+                        pod_8192_rank=sharded_ms["pod-8192 (4, 1) rank"])
+    extra["K7"] = {
+        "cluster_launches": sum(run["K7 cluster"] for run in launches.values()),
+        "kernels": {"pair_x_cluster_kernel": "K3's cluster kernel where "
+                    "pair_x_cluster_takes(M)",
+                    "pair_cols_kernel": "mixed extents, M < 256 G"},
+        "whole_columns_ms": sharded_ms["K7"]["whole_columns_ms"],
+        "sweep_8192": k3_sweep[8192]}
     extra["K12"] = {
         "mesh_step_ms": mesh_ms,
         "rows_launches": sum(run["K12 rows"] for run in launches.values()),

@@ -15,7 +15,9 @@ carry) and 1e-4 (psi_new), K15 1e-6 (zeta_new, carry) and 1e-5 (zeta_ys);
 K9 1e-6 (K1's tile); K10 and K11 1e-6 (tests/test_multigrid.py's kernel
 tolerance), and the multigrid solves on the card 1e-5 from the CPU's. The
 sharded kernels as the kernels they extend: K12 1e-6, K15's sharded form
-1e-6 (zeta_new, carry) and 1e-5 (zeta_ys), K13, K14 and K7 1e-4. K18 (the
+1e-6 (zeta_new, carry) and 1e-5 (zeta_ys), K13, K14 and K7 1e-4 (K13's
+and K14's cluster kernel in every layout, K7 on K3's cluster kernel, with
+their cluster counts; pair_cols_kernel at the other extents). K18 (the
 stencil lab's step) 1e-6, its base instance bitwise K1. K1's and K12's
 row-streaming kernel bitwise the tile design (K18 base, step_kernel), K12
 bitwise K1, with both rows_launches counters; their tile kernels
@@ -30,7 +32,8 @@ import torch
 from tpu_qg_torch import preset
 from tpu_qg_torch.models.core import QGModel, init_state
 from tpu_qg_torch.ops.dft_kernels import (
-    mirror_companion, mono_invert, mono_invert_plain, pair_x_cluster,
+    mirror_companion, mono_invert, mono_invert_plain, pair_cols_cluster,
+    pair_cols_cluster_takes, pair_cols_whole_columns, pair_x_cluster,
     pair_x_cluster_takes, pair_x_symbols, pair_x_symbols_plain,
     paired_x_symbols, paired_x_symbols_plain,
     stream_pair_symbols, stream_pair_symbols_plain, x_dft,
@@ -760,6 +763,126 @@ def test_stream_pair_kernel(dev, M, P):
     assert _rel(inv(zeta), want) <= 1e-5
     torch.cuda.synchronize()
     assert stream_pair_symbols.launches == n + 2
+
+
+def _column_blocks(kind, M, P, nx, dev):
+    """Every rank's (block, mirror operand, table key, plain result) of K13
+    ("offset": a column block and its companion) or K14 ("paired": strips
+    in mirror-pair order) on a random (2, M, P) y-spectrum over nx ranks."""
+    from tpu_qg_torch.parallel.paired import strip_pair_order
+    consts = _consts(M, P)
+    Zy = _spectrum(M, P, dev, M + P + nx)
+    w, s = P // nx, P // nx // 128
+    if kind == "paired":
+        order = strip_pair_order(P // 128)
+        Zy = Zy.unflatten(-1, (P // 128, 128))[..., order, :].flatten(-2)
+    Zm = mirror_companion(Zy)
+    out = []
+    for k in range(nx):
+        cols = slice(k * w, (k + 1) * w)
+        a = Zy[..., cols].contiguous()
+        if kind == "offset":
+            b = Zm[..., cols].contiguous()
+            key = (w, k * s)
+            want = x_fwd_symbols_offset_plain(a, b, consts, k * s)
+        else:
+            b, idx = a, order[k * s:(k + 1) * s]
+            key = (tuple(int(i) for i in idx), P // 128)
+            want = paired_x_symbols_plain(a, idx, consts)
+        out.append((a, b, key, want))
+    return consts, out
+
+
+# K13's and K14's cluster kernel on every rank: the path blocks (2048, 512)
+# and (8192, 2048), and (1024, 256); K13 on (1024, 384) (P = 1536: an odd
+# strip count a rank), K14 on (1024, 768) (three pair groups a rank);
+# every layout on each.
+@pytest.mark.parametrize("kind,M,P,nx", [
+    (kind, M, P, 4) for kind in ("offset", "paired")
+    for M, P in ((2048, 2048), (8192, 8192), (1024, 1024))] + [
+    ("offset", 1024, 1536, 4), ("paired", 1024, 1536, 2)])
+def test_pair_cols_cluster_kernel(dev, kind, M, P, nx):
+    consts, blocks = _column_blocks(kind, M, P, nx, dev)
+    wrapper = x_fwd_symbols_offset if kind == "offset" else paired_x_symbols
+    n = (wrapper.launches, wrapper.cluster_launches)
+    for a, b, key, want in blocks:
+        got = (x_fwd_symbols_offset(a, b, consts, key[1]) if kind == "offset"
+               else paired_x_symbols(a, key[0], consts))
+        assert _rel(got, want) <= 1e-4
+        for layout in ((G, Cw) for G in dft_kernels.PAIR_X_CLUSTER_SIZES
+                       for Cw in dft_kernels.PAIR_X_CLUSTER_WIDTHS):
+            if (pair_cols_cluster_takes(M, a.shape[2], layout) and
+                    dft_kernels.pair_cols_cluster_occupancy(
+                        M, layout, kind == "offset", 0)):
+                assert _rel(pair_cols_cluster(a, b, kind, key, consts,
+                                              layout), want) <= 1e-4
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.cluster_launches) == (
+        n[0] + nx, n[1] + nx)
+
+
+# pair_cols_kernel keeps K13, K14 and K7 at the mixed extents (2432 = 128 *
+# 19, 384) and M < 256 G (512); on a power of two it computes the same.
+@pytest.mark.parametrize("M,P", [(2432, 2048), (384, 1024), (512, 1024),
+                                 (2048, 1024)])
+def test_pair_cols_kernel_keeps_the_other_extents(dev, M, P):
+    routed = not pair_cols_cluster_takes(M, P // 4)
+    assert routed == (not pair_x_cluster_takes(M))
+    counters = (x_fwd_symbols_offset, paired_x_symbols, stream_pair_symbols)
+    n = [f.cluster_launches for f in counters]
+    for kind in ("offset", "paired"):
+        consts, blocks = _column_blocks(kind, M, P, 4, dev)
+        for a, b, key, want in blocks[:2]:
+            if routed:
+                got = (x_fwd_symbols_offset(a, b, consts, key[1])
+                       if kind == "offset"
+                       else paired_x_symbols(a, key[0], consts))
+                assert _rel(got, want) <= 1e-4
+            assert _rel(pair_cols_whole_columns(a, b, kind, key, consts),
+                        want) <= 1e-4
+    Zy = _spectrum(M, P, dev, 5)
+    want = stream_pair_symbols_plain(Zy, consts)
+    if routed:
+        assert _rel(stream_pair_symbols(Zy, consts), want) <= 1e-4
+    assert _rel(pair_cols_whole_columns(Zy, Zy, "self", (P,), consts),
+                want) <= 1e-4
+    torch.cuda.synchronize()
+    assert [f.cluster_launches for f in counters] == n
+
+
+# K7 computes K3's function: on power-of-two extents it launches K3's
+# cluster kernel, counted by stream_pair_symbols alone.
+@pytest.mark.parametrize("M,P", [(1024, 1024), (4096, 4096), (2048, 384)])
+def test_stream_pair_takes_k3s_cluster_kernel(dev, M, P):
+    consts = _consts(M, P)
+    Zy = _spectrum(M, P, dev, 3)
+    k3 = (pair_x_symbols.launches, pair_x_symbols.cluster_launches)
+    n = (stream_pair_symbols.launches, stream_pair_symbols.cluster_launches)
+    assert _rel(stream_pair_symbols(Zy, consts),
+                stream_pair_symbols_plain(Zy, consts)) <= 1e-4
+    torch.cuda.synchronize()
+    assert (stream_pair_symbols.launches,
+            stream_pair_symbols.cluster_launches) == (n[0] + 1, n[1] + 1)
+    assert (pair_x_symbols.launches, pair_x_symbols.cluster_launches) == k3
+
+
+def test_pair_cols_cluster_refuses_what_it_does_not_take(dev):
+    consts = _consts(1024, 1024)
+    x = torch.zeros((2, 1024, 256), device=dev)
+    with pytest.raises(ValueError):                 # N2 = 8 < 2 G
+        pair_cols_cluster(x, x, "offset", (256, 0), consts, (8, 8))
+    with pytest.raises(ValueError):                 # past the y extent
+        pair_cols_cluster(x, x, "offset", (256, 7), consts)
+    with pytest.raises(ValueError):                 # a ragged width
+        y = torch.zeros((2, 1024, 200), device=dev)
+        pair_cols_cluster(y, y, "offset", (200, 0), consts)
+    with pytest.raises(ValueError):                 # K14 reads mirrors from X
+        pair_cols_cluster(x, x.clone(), "paired", ((0, 4), 8), consts)
+    with pytest.raises(ValueError):                 # a mixed extent
+        z = torch.zeros((2, 1536, 256), device=dev)
+        pair_cols_cluster(z, z, "offset", (256, 0), _consts(1536, 1024))
+    with pytest.raises(TypeError):
+        pair_cols_cluster(x.double(), x.double(), "offset", (256, 0), consts)
 
 
 LAB_VARIANTS = ("base", "legacy", "aligned", "norot", "noslice", "nojac")

@@ -1,7 +1,7 @@
 // K2 (the y-DFT), K3 (the mirror-pair x-kernel), K4 (the x-DFT) and K5
 // (symbols + inverse x-DFT) of the packed modal inversion, and K7, K13 and
-// K14, the x-stages of the sharded inversions (K3's task on local columns,
-// pair_cols_kernel below). Two routes:
+// K14, the x-stages of the sharded inversions (K3's function on local
+// columns, below). Two routes:
 // psi = K2^-1(K3(K2(zeta))), three passes over device memory, and the
 // four-pass psi = K2^-1(K5(K4(K2(zeta)))) that tpu_qg takes for M > 2432.
 //
@@ -19,7 +19,11 @@
 // x_symbols_cluster_kernel, K4's cluster inverse behind the symbol stage,
 // for M = 128 * 2^a, and x_symbols_inverse_kernel for the rest. So has K3:
 // pair_x_cluster_kernel, K4's cluster forward half in front of K5's
-// cluster kernel, for M = 128 * 2^a, and pair_x_kernel for the rest.
+// cluster kernel, for M = 128 * 2^a, and pair_x_kernel for the rest. So
+// have K13 and K14: pair_cols_cluster_kernel, K3's cluster kernel on the
+// columns of a block, for M = 128 * 2^a and whole 128-column strips, and
+// pair_cols_kernel for the rest; K7 takes K3's pair_x_cluster_kernel for M
+// = 128 * 2^a and pair_cols_kernel for the rest.
 //
 // Every kernel transforms with an in-place radix-2 FFT in shared memory:
 // the forward pass is decimation in frequency (natural order in, bit-reversed
@@ -859,29 +863,34 @@ __device__ __forceinline__ void sym_apply(int kx, int fy, float sy, int M,
 // complex loads in flight.
 constexpr int kSymBatch = 8;
 
-// Steps 2 and 3 below, which K3's cluster kernel shares: stage B^-1 in
-// place on B (both tiles; k1 at row bitrev7(k1), the k2 rows of block r in
-// the sym_k2 order), a cluster barrier, then stage A^-1 of the own and then
-// the mirror tile through A (one tile) and the stores of rows N1 n2 + n1 (a
-// padding slot, and a self-mirror slot's mirror column, are not stored); a
-// split cluster barrier around the last pull. The tile's slots (own cw,
-// then mirror cw) are in `slot`.
+// Steps 2 and 3 below, which K3's, K13's and K14's cluster kernels share:
+// stage B^-1 in place on B (both tiles; k1 at row bitrev7(k1), the k2 rows
+// of block r in the sym_k2 order), a cluster barrier, then stage A^-1 of
+// the own and then the mirror tile through A (one tile) and the stores of
+// rows N1 n2 + n1, row stride W (a padding slot, and a self-mirror slot's
+// mirror column, are not stored); a split cluster barrier around the last
+// pull. kOwnOnly (K13): stage B^-1 and A^-1 of the own tile alone, the same
+// barriers on every block. The tile's columns (own cw, then mirror cw) are
+// in `slot`.
+template <bool kOwnOnly = false>
 __device__ __forceinline__ void sym_inverse_half(
     float2* B, float2* A, const float2* twa, const float2* twb,
     const int* slot, const float2* __restrict__ wm, float* __restrict__ out,
-    int P, int logn2, int logg, int logcw, int r) {
+    int W, int logn2, int logg, int logcw, int r) {
   namespace cg = cooperative_groups;
   const int n2 = 1 << logn2, cw = 1 << logcw, M = n2 << 7;
   const int logl1 = 7 - logg, logl2 = logn2 - logg;
   const int logtb = logl2 + logcw, lognb = logtb + 1;
   const int logna = logl1 + logcw;
-  const size_t plane = (size_t)M * P;
+  const size_t plane = (size_t)M * W;
   const int r1 = r << logl1;
+  constexpr int ng = kOwnOnly ? 1 : 2;                 // tiles inverted
 
   // 2. Stage B^-1 in place: row q (k1 = bitrev7(q)) -> row n1.
   auto rd_b = [=](int q, int b) { return B[(q << lognb) + b]; };
   auto wr_b = [=](int q, int b, float2 v) { B[(q << lognb) + b] = v; };
-  il_fft<true>(B, lognb, 1 << lognb, 7, twb, rd_b, wr_b, [] {});
+  il_fft<true>(B, kOwnOnly ? logtb : lognb, 1 << lognb, 7, twb, rd_b, wr_b,
+               [] {});
   cg::this_cluster().sync();
 
   // 3. Stage A^-1, tile g (0 own, 1 mirror) in turn: column a of A is n1 =
@@ -889,7 +898,7 @@ __device__ __forceinline__ void sym_inverse_half(
   // k2 = bitrev(p) (row i = sym_row(k2) of the ordering), times
   // conj(W_M^(n1 k2)); DIT, then row n2 -> x row N1 n2 + n1, scaled 1/M.
   const float scale = 1.0f / static_cast<float>(M);    // exact: M = 2^k
-  for (int g = 0; g < 2; ++g) {
+  for (int g = 0; g < ng; ++g) {
     il_fft<true>(A, logna, 1 << logna, logn2, twa,
         [=](int p, int a) {
           const int n1 = r1 + (a >> logcw);
@@ -903,14 +912,14 @@ __device__ __forceinline__ void sym_inverse_half(
         [=](int row, int a, float2 v) {
           const int s = slot[(g << logcw) + (a & (cw - 1))];
           if (s < 0 || (g == 1 && s == slot[a & (cw - 1)])) return;
-          const size_t off = (size_t)((row << 7) + r1 + (a >> logcw)) * P + s;
+          const size_t off = (size_t)((row << 7) + r1 + (a >> logcw)) * W + s;
           out[off] = v.x * scale;
           out[off + plane] = v.y * scale;
         },
         [=] {
-          if (g == 1) asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+          if (g == ng - 1) asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
         });
-    if (g == 0) __syncthreads();            // the mirror tile reuses A
+    if (g + 1 < ng) __syncthreads();        // the mirror tile reuses A
   }
   // No block leaves while a peer may still read its buffer.
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
@@ -1049,14 +1058,28 @@ x_symbols_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
 // faster than (8, 16) with one tile at M = 2048 (PERF.md). The grid is G
 // blocks a tile of the table.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kClusterThreads, 2)
-pair_x_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
-                      const int* __restrict__ own_slots,
-                      const int* __restrict__ mirror_slots, int P, int logn2,
-                      int logg, int logcw, int n1y, SymConsts c,
-                      const float2* __restrict__ wm) {
+// The three forms of the mirror-pair cluster tile (pair_cluster_tile):
+//   kPairWhole      K3: the whole (2, M, P) field; a tile's slots are the
+//                   columns loaded and stored and the symbols' y slots;
+//   kPairBlock      K14: a (2, M, W) block of local columns (row stride W),
+//                   the symbols at each own column's global y slot in P
+//                   (a third table); both tiles stored, as K3;
+//   kPairCompanion  K13: as kPairBlock, the mirror tile read from a second
+//                   operand (the companion), so no column is its own mirror
+//                   and a padding-free tile pairs distinct values; only the
+//                   own tile inverted and stored.
+enum PairForm { kPairWhole, kPairBlock, kPairCompanion };
+
+template <int kForm>
+__device__ __forceinline__ void pair_cluster_tile(
+    const float* __restrict__ in, const float* __restrict__ inm,
+    float* __restrict__ out, const int* __restrict__ own_slots,
+    const int* __restrict__ mirror_slots, const int* __restrict__ global_slots,
+    int W, int P, int logn2, int logg, int logcw, int n1y, const SymConsts& c,
+    const float2* __restrict__ wm, float* smem) {
   namespace cg = cooperative_groups;
-  extern __shared__ float smem[];
+  constexpr bool kBlock = kForm != kPairWhole;
+  constexpr bool kCompanion = kForm == kPairCompanion;
   const int r = static_cast<int>(cg::this_cluster().block_rank());
   const int n2 = 1 << logn2, cw = 1 << logcw, M = n2 << 7;
   const int logl1 = 7 - logg, logl2 = logn2 - logg;
@@ -1067,13 +1090,18 @@ pair_x_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
   float2* twa = A + (n2 << logna);                  // W_N2^k, k < n2 / 2
   float2* twb = twa + n2 / 2;                       // W_128^k, k < 64
   int* slot = reinterpret_cast<int*>(twb + 64);     // own cw, then mirror cw
+  int* gsl = kBlock ? slot + 2 * cw : slot;         // own columns' y slots
   const int tile = blockIdx.x >> logg;
   for (int k = threadIdx.x; k < n2 / 2; k += kClusterThreads) twa[k] = wm[k << 7];
   for (int k = threadIdx.x; k < 64; k += kClusterThreads) twb[k] = wm[k << logn2];
   for (int k = threadIdx.x; k < 2 * cw; k += kClusterThreads)
     slot[k] = (k < cw ? own_slots : mirror_slots)[(tile << logcw) + (k & (cw - 1))];
+  if constexpr (kBlock) {
+    for (int k = threadIdx.x; k < cw; k += kClusterThreads)
+      gsl[k] = global_slots[(tile << logcw) + k];
+  }
   __syncthreads();
-  const size_t plane = (size_t)M * P;
+  const size_t plane = (size_t)M * W;
   const int n2y = P / n1y;
   const int r1 = r << logl1, r2 = r << logl2;
 
@@ -1083,12 +1111,14 @@ pair_x_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
   for (int g = 0; g < 2; ++g) {
     // A is free again once every peer has pulled the own tile.
     if (g == 1) asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+    const float* src = kCompanion && g == 1 ? inm : in;
     il_fft<false>(A, logna, 1 << logna, logn2, twa,
         [=](int row, int a) {
           const int col = a & (cw - 1), s = slot[(g << logcw) + col];
-          if (s < 0 || (g == 1 && s == slot[col])) return make_float2(0.f, 0.f);
-          const size_t off = (size_t)((row << 7) + r1 + (a >> logcw)) * P + s;
-          return make_float2(__ldg(in + off), __ldg(in + off + plane));
+          if (s < 0 || (!kCompanion && g == 1 && s == slot[col]))
+            return make_float2(0.f, 0.f);
+          const size_t off = (size_t)((row << 7) + r1 + (a >> logcw)) * W + s;
+          return make_float2(__ldg(src + off), __ldg(src + off + plane));
         },
         [=](int row, int a, float2 v) { A[(row << logna) + a] = v; }, [] {});
     cg::this_cluster().sync();
@@ -1113,64 +1143,121 @@ pair_x_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
   // the ordering, k1 (at B row bitrev7(k1)); its partner row i' (k2' = (N2 -
   // k2) mod N2) and k1' in the mirror tile, or in the own column for a
   // self-mirror slot (or padding), whose lower row's item takes both. A
-  // thread's items share their column (cw divides kClusterThreads).
+  // thread's items share their column (cw divides kClusterThreads). The
+  // companion form keeps only V: its mirror tile is not inverted.
   const int count = 128 << logtb;
   const int cc = threadIdx.x & (cw - 1), a = slot[cc], b = slot[cw + cc];
-  const int fy = a >= 0 ? slot_freq(a, n1y, n2y) : 0;
+  const bool self = !kCompanion && a == b;
+  const int fy = a >= 0 ? slot_freq(kBlock ? gsl[cc] : a, n1y, n2y) : 0;
   const float sy = sym_sin(fy, P);
-  const int moff = a == b ? 0 : 1 << logtb;
+  const int moff = self ? 0 : 1 << logtb;
   for (int e = threadIdx.x; e < count; e += kClusterThreads) {
     const int il = (e >> logcw) & ((1 << logl2) - 1);
     const int i = r2 + il, ip = i < 2 ? i : i ^ 1;
     const int k1 = e >> logtb, k2 = sym_k2(i, n2);
     const int k1p = k2 == 0 ? (128 - k1) & 127 : 127 - k1;
     const int s = (k2 << 7) + k1, sp = (sym_k2(ip, n2) << 7) + k1p;
-    if (a == b && s > sp) continue;
+    if (self && s > sp) continue;
     const int own = (bitrev(k1, 7) << lognb) + (il << logcw) + cc;
     const int mir = (bitrev(k1p, 7) << lognb) + moff + ((ip - r2) << logcw) + cc;
     float2 v, vn;
     sym_apply(k2 + (k1 << logn2), fy, sy, M, c, B[own], B[mir], &v, &vn);
     B[own] = v;
-    B[mir] = vn;                          // the same word when s = sp
+    if constexpr (!kCompanion) B[mir] = vn;   // the same word when s = sp
   }
   __syncthreads();
 
   // 4.
-  sym_inverse_half(B, A, twa, twb, slot, wm, out, P, logn2, logg, logcw, r);
+  sym_inverse_half<kCompanion>(B, A, twa, twb, slot, wm, out, W, logn2, logg,
+                               logcw, r);
+}
+
+__global__ void __launch_bounds__(kClusterThreads, 2)
+pair_x_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
+                      const int* __restrict__ own_slots,
+                      const int* __restrict__ mirror_slots, int P, int logn2,
+                      int logg, int logcw, int n1y, SymConsts c,
+                      const float2* __restrict__ wm) {
+  extern __shared__ float smem[];
+  pair_cluster_tile<kPairWhole>(in, in, out, own_slots, mirror_slots,
+                                own_slots, P, P, logn2, logg, logcw, n1y, c,
+                                wm, smem);
 }
 
 // ---------------------------------------------------------------------------
-// K13, K7 and K14: K3's mirror-pair task (pair_cols_task) on the columns of a
-// planar (2, M, W) block, W <= P, with the symbols at each column's global
-// permuted y slot `gsl` in the y extent P. One kernel, three task tables
-// (built by tpu_qg_torch/ops/dft_kernels.py):
+// K13, K7 and K14, the x-stages of the sharded inversions: K3's function on
+// the columns of a planar (2, M, W) block, W <= P, with the symbols at each
+// column's global permuted y slot in the y extent P.
 //
 //   * K13 replaces tpu_qg/ops/pallas_fft.py
 //     PlanarFFT2._call_x_fwd_symbols_offset (:1204): its BlockSpec kernel
 //     (_build_fwd_symbol_inv_x_kernel_offset, :739) and its manual-DMA
 //     streaming form (_build_streaming_fwd_sym_inv_x_pair, :819), which
 //     exists only because (2, M, 128) strips at M = 8192 outgrow a TPU
-//     core's VMEM; on Hopper one column of M = 8192 is 64 KB of shared
-//     memory, so one kernel covers both. The block holds global strips
-//     offset .. offset + W/128 - 1 of the y-spectrum (in) and, column by
-//     column, their mirror strips (inm, the companion); own_only: only the
+//     core's VMEM; on Hopper one kernel covers both. The block holds global
+//     strips offset .. offset + W/128 - 1 of the y-spectrum (in) and,
+//     column by column, their mirror strips (inm, the companion); only the
 //     own columns are inverted and written.
 //   * K7 replaces PlanarFFT2.stream_pair_symbols (:1304), the same builder
 //     with mirror_from_self=True: K13 at offset 0 on the whole field with
-//     the mirror read from the same operand (inm = in).
+//     the mirror read from the same operand, which is K3's function.
 //   * K14 replaces tpu_qg/parallel/paired.py
 //     PairedDistributedInverter._call_paired_kernel (:226; BlockSpec form
 //     _build_paired_kernel :131, streaming form :154): the block's strips in
-//     mirror-pair order with their global indices `groups_idx`; each task
-//     pairs columns of one group (the self-mirror group 0 pairs each strip
-//     with itself), both groups written (inm = in).
+//     mirror-pair order with their global indices `groups_idx`; each pair of
+//     columns lies in one group (the self-mirror group 0 pairs each strip
+//     with itself), both columns written.
 //
-// Bound: device-memory bandwidth, as K3: K13 reads two blocks and writes
-// one (3 x 8 M W bytes), K7 and K14 read one and write one. Design: K3's
-// (see above); K13 and K7 forward-transform each mirror column once per own
-// column, as the TPU kernels do, because the mirror lives in another array
-// (K13) or that is what K7 computes.
+// Kernels by shape, as K3's: on M = 128 * 2^a (N2 = M / 128 >= 2 G) with W
+// whole 128-column strips, pair_cols_cluster_kernel takes K13 (kCompanion)
+// and K14, and K7 is K3's pair_x_cluster_kernel on the whole field (K3's
+// canonical tiles: each column read once and written once); pair_cols_kernel
+// keeps all three at the mixed extents M = 128 * n (n not a power of two)
+// and M < 256 G.
+//
+// Bound: device-memory bandwidth: K13 reads two blocks and writes one (3 x
+// 8 M W bytes: 0.120 ms at (2, 8192, 2048) at 3.35 TB/s), K7 and K14 read
+// one and write one. pair_cols_kernel is pair_x_kernel's whole-column
+// design: at M = 8192 one slot pair fits a block, so a warp reads one
+// scattered 4-byte word a row and plane, and K13 and K7 forward-transform
+// each mirror column once per own column. pair_cols_cluster_kernel is K3's cluster
+// kernel (pair_cluster_tile above) on a tile table of the block's local
+// columns, built by tpu_qg_torch/ops/dft_kernels.py: the loads and stores
+// run at row stride W, a third table holds each own column's global y slot
+// for the symbols, and
+//   * K14 (paired_cluster_tiles): every unordered pair {c, mirror(c)} of
+//     local columns once, strip by strip, as K3's x_symbols_cluster_tiles; a self-mirror slot (global y-frequency 0 or
+//     P/2, lanes 0 and 64 of global strip 0) is its own mirror column;
+//   * K13 (offset_cluster_tiles): every column of the block in tiles of Cw
+//     adjacent columns, the mirror tile their companion columns (reversed
+//     runs within a strip; lane 0 of strip 0 its own lane) read from inm.
+//     The companion's column holds the mirror's value even where it is the
+//     own value, so every item pairs an own row with a mirror row and
+//     computes V once; the mirror tile is forward-transformed for the
+//     symbols and dropped (stage B^-1 and A^-1 of the own tile alone, the
+//     same cluster barriers on every block).
+// Shared memory: K3's, and the Cw global slots. The grid is G blocks a tile.
 // ---------------------------------------------------------------------------
+template <bool kCompanion>
+__global__ void __launch_bounds__(kClusterThreads, 2)
+pair_cols_cluster_kernel(const float* __restrict__ in,
+                         const float* __restrict__ inm,
+                         float* __restrict__ out,
+                         const int* __restrict__ own_cols,
+                         const int* __restrict__ mirror_cols,
+                         const int* __restrict__ global_slots, int W, int P,
+                         int logn2, int logg, int logcw, int n1y, SymConsts c,
+                         const float2* __restrict__ wm) {
+  extern __shared__ float smem[];
+  pair_cluster_tile<kCompanion ? kPairCompanion : kPairBlock>(
+      in, inm, out, own_cols, mirror_cols, global_slots, W, P, logn2, logg,
+      logcw, n1y, c, wm, smem);
+}
+
+// pair_cols_kernel: the pair task (pair_cols_task) a block, C pairs of
+// whole columns from a task table (own column, its mirror's column in inm,
+// own column's global slot); own_only (K13, K7): only the own columns are
+// inverted and written.
 template <bool kMixed>
 __global__ void __launch_bounds__(512)
 pair_cols_kernel(const float* __restrict__ in, const float* __restrict__ inm,
@@ -1540,9 +1627,86 @@ extern "C" int qg_pair_x_cluster_launch(const float* in, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K13, K7, K14. in, inm, out: planar (2, M, W) fields (inm may be in); the
-// task tables are (ntasks, ncols) device ints, -1 padding; consts: host
-// array of kNumSymConsts floats in SymConsts order.
+namespace {
+
+// K13's and K14's cluster kernel: K3's buffers and the tile's Cw global
+// slots.
+int pair_cols_cluster_smem(int logn2, int logg, int logcw) {
+  return x_symbols_cluster_smem(logn2, logg, logcw) +
+         (1 << logcw) * static_cast<int>(sizeof(int));
+}
+
+using PairColsClusterFn = void (*)(const float*, const float*, float*,
+                                   const int*, const int*, const int*, int,
+                                   int, int, int, int, int, SymConsts,
+                                   const float2*);
+
+// The instance: own_only (K13, the mirror tile from the companion) or both
+// tiles stored (K14).
+PairColsClusterFn pair_cols_cluster_fn(int own_only) {
+  return own_only ? pair_cols_cluster_kernel<true>
+                  : pair_cols_cluster_kernel<false>;
+}
+
+// The launch: K3's layouts, G = 2^logg in {4, 8, 16}, L2 = N2 / G >= 2.
+int pair_cols_cluster_config(int logn2, int logg, int logcw, int own_only,
+                             int tiles, cudaStream_t stream,
+                             cudaLaunchConfig_t& cfg,
+                             cudaLaunchAttribute& attr) {
+  if (logg < 2 || logg > 4 || logn2 < logg + 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return fill_cluster_launch(
+      reinterpret_cast<const void*>(pair_cols_cluster_fn(own_only)),
+      pair_cols_cluster_smem(logn2, logg, logcw), logg, tiles, stream, cfg,
+      attr);
+}
+
+}  // namespace
+
+// The most clusters of the K13 (own_only) or K14 instance of
+// pair_cols_cluster_kernel in a layout that the card holds at once
+// (cudaOccupancyMaxActiveClusters): 0 means the layout cannot run.
+extern "C" int qg_pair_cols_cluster_occupancy(int logn2, int logg, int logcw,
+                                              int own_only,
+                                              int* max_clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (int err = pair_cols_cluster_config(logn2, logg, logcw, own_only, 1,
+                                         nullptr, cfg, attr))
+    return err;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      max_clusters,
+      reinterpret_cast<const void*>(pair_cols_cluster_fn(own_only)), &cfg));
+}
+
+// K13 (own_only: the mirror tile from inm) or K14 (inm = in) on a planar
+// (2, 128 * 2^logn2, W) block of a y extent P: a cluster of 2^logg blocks a
+// tile of the (tiles, 2^logcw) device tables own_cols, mirror_cols (local
+// columns, -1 padding) and global_slots (each own column's permuted y slot
+// in P); consts: host array of kNumSymConsts floats in SymConsts order; wm:
+// the M-entry float2 table of W_M^j.
+extern "C" int qg_pair_cols_cluster_launch(
+    const float* in, const float* inm, float* out, const int* own_cols,
+    const int* mirror_cols, const int* global_slots, int tiles, int W, int P,
+    int logn2, int logg, int logcw, int n1y, int own_only,
+    const float* consts, const void* wm, void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (int err = pair_cols_cluster_config(logn2, logg, logcw, own_only, tiles,
+                                         static_cast<cudaStream_t>(stream),
+                                         cfg, attr))
+    return err;
+  if (cudaError_t err = cudaLaunchKernelEx(
+          &cfg, pair_cols_cluster_fn(own_only), in, inm, out, own_cols,
+          mirror_cols, global_slots, W, P, logn2, logg, logcw, n1y,
+          sym_consts(consts), static_cast<const float2*>(wm)))
+    return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pair_cols_kernel: K13, K7, K14. in, inm, out: planar (2, M, W) fields
+// (inm may be in); the task tables are (ntasks, ncols) device ints, -1
+// padding; consts: host array of kNumSymConsts floats in SymConsts order.
 extern "C" int qg_pair_cols_launch(const float* in, const float* inm,
                                    float* out, const int* own_cols,
                                    const int* mirror_cols,

@@ -14,9 +14,11 @@ comments: all are bandwidth-bound passes that keep each transform in shared
 memory). ``PlanarFFT2.mono_invert`` becomes the cooperative kernel K16 of
 ``csrc/fused_kernels.cu``: K2, K3 and K2^-1 as stages of one launch.
 ``PlanarFFT2._call_x_fwd_symbols_offset`` (K13), ``stream_pair_symbols``
-(K7) and ``tpu_qg.parallel.paired``'s ``_call_paired_kernel`` (K14) are one
-kernel of ``csrc/dft_kernels.cu``, K3's mirror-pair task on local columns,
-with three task tables built here.
+(K7) and ``tpu_qg.parallel.paired``'s ``_call_paired_kernel`` (K14) compute
+K3's function on local columns: on power-of-two extents K13 and K14 run
+K3's cluster design on a block (``pair_cols_cluster_kernel``) and K7 runs
+K3's cluster kernel itself; elsewhere all three run ``pair_cols_kernel``,
+K3's whole-column task, on task tables built here.
 
 The y-spectrum is cut into 128-slot strips (``STRIP``): slot j * 128 + l
 holds frequency j + (P/128) l, so the mirror (negated frequency) of strip j
@@ -426,6 +428,10 @@ def _lib():
                        [p] * 4 + [i] * 6 + [p, p, p])
         _build.declare(lib.qg_pair_x_cluster_occupancy,
                        [i, i, i, ctypes.POINTER(ctypes.c_int)])
+        _build.declare(lib.qg_pair_cols_cluster_launch,
+                       [p] * 6 + [i] * 8 + [p, p, p])
+        _build.declare(lib.qg_pair_cols_cluster_occupancy,
+                       [i, i, i, i, ctypes.POINTER(ctypes.c_int)])
         lib.qg_pair_x_num_consts.restype = ctypes.c_int
         lib.qg_coop_plan_size.restype = ctypes.c_int
     return lib
@@ -1085,19 +1091,22 @@ def _sym_rows(n2: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _sym_stage_emulated(M: int, P: int, consts, G: int, Cw: int, own, mir,
-                        real: torch.dtype, read,
-                        buf: torch.Tensor) -> torch.Tensor:
-    """The symbol stage of K5's and K3's cluster kernels, for all tiles
-    (dim 0) and blocks (dim 1) at once: item e of block r is column cc, row
-    i of the ordering, k1; its partner row ip (k2 -> (N2 - k2) mod N2), k1p
-    in the mirror tile, or in the own column for a self-mirror slot (or
-    padding), whose lower row's item (s <= sp) takes both. ``read(s, sp, a,
-    b, own_pos, mir_pos, self_, skip)`` gives each item's (w, wn); V = A w +
-    B conj(wn) goes to own_pos and Vn = A wn + B conj(w) to mir_pos of
-    ``buf`` ((T, G, 128 nb), k1 at row bitrev7(k1)), with symbol_stage's
-    symbols in ``real`` precision. A self-mirror slot's mirror column must
-    hold zeros in ``buf`` (K5's kernel writes them there, K3's loads
-    them)."""
+                        real: torch.dtype, read, buf: torch.Tensor,
+                        gsl=None, companion: bool = False) -> torch.Tensor:
+    """The symbol stage of K5's, K3's, K13's and K14's cluster kernels, for
+    all tiles (dim 0) and blocks (dim 1) at once: item e of block r is
+    column cc, row i of the ordering, k1; its partner row ip (k2 -> (N2 -
+    k2) mod N2), k1p in the mirror tile, or in the own column for a
+    self-mirror slot (or padding), whose lower row's item (s <= sp) takes
+    both. ``read(s, sp, a, b, own_pos, mir_pos, self_, skip)`` gives each
+    item's (w, wn); V = A w + B conj(wn) goes to own_pos and Vn = A wn + B
+    conj(w) to mir_pos of ``buf`` ((T, G, 128 nb), k1 at row bitrev7(k1)),
+    with symbol_stage's symbols in ``real`` precision at the y slots ``gsl``
+    (T, Cw) of the own columns (default: ``own``). A self-mirror slot's
+    mirror column must hold zeros in ``buf`` (K5's kernel writes them there,
+    K3's loads them). ``companion`` (K13): no column is its own mirror and
+    only V is written."""
+    gsl = own if gsl is None else gsl
     n2, l2 = M // _N1, M // _N1 // G
     T, nb = own.shape[0], 2 * l2 * Cw
     n1y, n2y = split_factor(P)
@@ -1113,14 +1122,15 @@ def _sym_stage_emulated(M: int, P: int, consts, G: int, Cw: int, own, mir,
     k1p = torch.where(k2 == 0, (_N1 - k1) % _N1, _N1 - 1 - k1)
     s, sp = _N1 * k2 + k1, _N1 * k2p + k1p                   # (G, E)
     a, b = own[:, None, cc], mir[:, None, cc]                # (T, 1, E)
-    self_ = a == b
+    self_ = (a == b) & (not companion)
     skip = self_ & (s > sp)
     own_pos = brb[k1] * nb + il * Cw + cc
     mir_pos = (brb[k1p] * nb + torch.where(self_, 0, l2 * Cw)
                + (ip - r * l2) * Cw + cc)
     w, wn = read(s, sp, a, b, own_pos, mir_pos, self_, skip)
     kx = k2 + n2 * k1
-    fy = torch.where(a >= 0, a // n1y + n2y * (a % n1y), 0)
+    gs = gsl[:, None, cc]
+    fy = torch.where(a >= 0, gs // n1y + n2y * (gs % n1y), 0)
     sx = torch.sin(np.pi * torch.minimum(kx, M - kx).to(real) / M)
     sy = torch.sin(np.pi * torch.minimum(fy, P - fy).to(real) / P)
     lam = (-4.0 * inv_dx2) * (sx * sx + sy * sy)
@@ -1143,18 +1153,21 @@ def _sym_stage_emulated(M: int, P: int, consts, G: int, Cw: int, own, mir,
         buf[idx[0], idx[1], idx[2]] = torch.broadcast_to(val, mask.shape)[mask]
 
     put(~skip, own_pos, v)
-    put(~skip, mir_pos, vn)
+    if not companion:
+        put(~skip, mir_pos, vn)
     return buf
 
 
-def _sym_inverse_emulated(buf: torch.Tensor, own, mir, M: int, P: int,
-                          G: int, Cw: int):
+def _sym_inverse_emulated(buf: torch.Tensor, own, mir, M: int, W: int,
+                          G: int, Cw: int, own_only: bool = False):
     """K5's steps 2 and 3 (csrc sym_inverse_half) on ``buf`` ((T, G, 128
     nb)) for all tiles and blocks at once: the 128-point inverse DIT
     (torch.fft from the bit-reversed rows), the pull of each block's n1 rows
     from every block's B through sym_row with conj(W_M^(n1 k2)), the N2-point
-    inverse DIT and the stores. Returns (out, stores): the complex (M, P)
-    result and how many times each (row, slot) was stored."""
+    inverse DIT and the stores into W columns (``own_only``: of the own tile
+    alone). Returns (out, stores): the complex (M, W) result and how many
+    times each (row, column) was stored by an own tile (stores[0]) and by a
+    mirror tile (stores[1])."""
     n2, l1, l2 = M // _N1, _N1 // G, M // _N1 // G
     T, nb = own.shape[0], 2 * l2 * Cw
     wm = torch.as_tensor(np.exp(-2j * np.pi * np.arange(M) / M)).to(buf.dtype)
@@ -1179,14 +1192,15 @@ def _sym_inverse_emulated(buf: torch.Tensor, own, mir, M: int, P: int,
     slot = torch.where(g == 0, own[:, None, None, col[0]],
                        mir[:, None, None, col[0]])          # (T, 1, 1, NA)
     dup = (g == 1) & (slot == own[:, None, None, col[0]])
-    ok = (slot >= 0) & ~dup
+    ok = (slot >= 0) & ~dup & ((g == 0) | (not own_only))
     xrow = _N1 * torch.arange(n2)[None, None, :, None] + n1[None]
-    ok, xrow, slot = (torch.broadcast_to(x, nat.shape)
-                      for x in (ok, xrow, slot))
-    out = torch.zeros((M, P), dtype=buf.dtype)
+    ok, xrow, slot, g = (torch.broadcast_to(x, nat.shape)
+                         for x in (ok, xrow, slot, g))
+    out = torch.zeros((M, W), dtype=buf.dtype)
     out[xrow[ok], slot[ok]] = nat[ok]
-    stores = torch.zeros((M, P), dtype=torch.int64)
-    _count(stores, ok, xrow, slot)
+    stores = torch.zeros((2, M, W), dtype=torch.int64)
+    for h in (0, 1):
+        _count(stores[h], ok & (g == h), xrow, slot)
     return out, stores
 
 
@@ -1239,7 +1253,7 @@ def x_symbols_cluster_emulated(W: torch.Tensor, consts, G: int, Cw: int):
     buf = _sym_stage_emulated(M, P, consts, G, Cw, own, mir, W.dtype, read,
                               buf)
     out, stores = _sym_inverse_emulated(buf, own, mir, M, P, G, Cw)
-    return _planar(out, W.dtype), loads, stores
+    return _planar(out, W.dtype), loads, stores.sum(0)
 
 
 @functools.lru_cache(maxsize=32)
@@ -1351,13 +1365,15 @@ x_symbols_inverse.cluster_launches = 0
 # N2 = M / 128 >= 2 G: K4's cluster forward half in front of K5's cluster
 # kernel, on K5's tile table (x_symbols_cluster_tiles), K5's k2 rows a block
 # (sym_k2) and K5's buffers, the spectrum kept in shared memory between
-# them. The layout pair_x_symbols launches, (G, Cw), is at each extent of
-# PAIR_X_CLUSTER_BY_M the one of chip_smoke.py's k3_sweep with the least
-# device time (PERF.md), else PAIR_X_CLUSTER.
+# them. The layout pair_x_symbols (and K7, stream_pair_symbols, at 4096 and
+# 8192) launches, (G, Cw), is at each extent of PAIR_X_CLUSTER_BY_M the one
+# of chip_smoke.py's k3_sweep with the least device time (PERF.md), else
+# PAIR_X_CLUSTER.
 PAIR_X_CLUSTER_SIZES = X_SYMBOLS_CLUSTER_SIZES
 PAIR_X_CLUSTER_WIDTHS = X_SYMBOLS_CLUSTER_WIDTHS
 PAIR_X_CLUSTER = (8, 8)
-PAIR_X_CLUSTER_BY_M = {1024: (4, 16), 2048: (8, 16)}
+PAIR_X_CLUSTER_BY_M = {1024: (4, 16), 2048: (8, 16), 4096: (8, 8),
+                       8192: (16, 8)}
 
 
 def pair_x_cluster_layout(M: int, G: int, Cw: int) -> SymbolsClusterLayout:
@@ -1382,44 +1398,66 @@ def pair_x_cluster_takes(M: int, layout: tuple | None = None) -> bool:
 
 def pair_x_cluster_emulated(Zy: torch.Tensor, consts, G: int, Cw: int):
     """What K3's cluster kernel does at (G, Cw), for all tiles and blocks at
-    once, in plain torch: K4's cluster forward half on K5's tiles and rows
-    (each block's loads of rows N1 n2 + n1 of its n1 into buffer A, a
-    padding slot and a self-mirror slot's mirror column reading zeros; the
-    N2-point DIF, torch.fft then rows in bit-reversed order; the pull of
-    its k2 = sym_k2(i) rows from every block's A at DIF position
-    bitrev(k2) times W_M^(n1 k2); the 128-point DIF into buffer B, k1 at
-    row bitrev7(k1)), then K5's symbol stage in place on B and K5's steps 2
-    and 3 (x_symbols_cluster_emulated's), with the CUDA source's index
-    arithmetic. Returns (out, loads, stores): pair_x_symbols_plain's result
-    and how many times each (row, slot) of the input was loaded and of the
-    output stored."""
+    once, in plain torch (pair_cluster_emulated on the whole field with
+    K5's tile table). Returns (out, loads, stores): pair_x_symbols_plain's
+    result and how many times each (row, slot) of the input was loaded and
+    of the output stored."""
     _, M, P = Zy.shape
     if not pair_x_cluster_takes(M, (G, Cw)):
         raise ValueError(f"K3's cluster kernel does not take M = {M} at "
                          f"G = {G}, Cw = {Cw}")
+    own, mir = _cluster_tiles(P, Cw)
+    out, loads, stores = pair_cluster_emulated(Zy, Zy, own, mir, own, P,
+                                               consts, G, Cw, False)
+    return out, loads[0], stores.sum(0)
+
+
+def pair_cluster_emulated(X: torch.Tensor, Xm: torch.Tensor, own, mir, gsl,
+                          P: int, consts, G: int, Cw: int, companion: bool):
+    """What K3's cluster tile (csrc pair_cluster_tile) does at (G, Cw) on a
+    (2, M, W) block of a y extent P, for all tiles and blocks at once, in
+    plain torch, on the tile table ``own``, ``mir`` (local columns, -1
+    padding) and ``gsl`` (each own column's global y slot): K4's cluster
+    forward half on K5's rows (each block's loads of rows N1 n2 + n1 of its
+    n1 into buffer A, a padding slot and, unless ``companion``, a
+    self-mirror slot's mirror column reading zeros; the N2-point DIF,
+    torch.fft then rows in bit-reversed order; the pull of its k2 =
+    sym_k2(i) rows from every block's A at DIF position bitrev(k2) times
+    W_M^(n1 k2); the 128-point DIF into buffer B, k1 at row bitrev7(k1)),
+    then K5's symbol stage in place on B and K5's steps 2 and 3, with the
+    CUDA source's index arithmetic. The mirror tile is read from Xm with
+    ``companion`` (K13: only the own tile stored), else from X. Returns
+    (out, loads, stores): the planar result, how many times each (row,
+    column) of X (loads[0]) and of Xm (loads[1]) was loaded, and how many
+    times each of the output was stored by an own tile (stores[0]) and by a
+    mirror tile (stores[1])."""
+    _, M, W = X.shape
     n2, l1, l2 = M // _N1, _N1 // G, M // _N1 // G
     na = l1 * Cw
-    c = torch.complex(Zy[0], Zy[1])
-    wm = torch.as_tensor(np.exp(-2j * np.pi * np.arange(M) / M)).to(c.dtype)
+    srcs = [torch.complex(X[0], X[1]), torch.complex(Xm[0], Xm[1])]
+    wm = torch.as_tensor(np.exp(-2j * np.pi * np.arange(M) / M)).to(
+        srcs[0].dtype)
     bra, brb = _bitrev(n2.bit_length() - 1), _bitrev(7)
     k2_of, _ = _sym_rows(n2)
-    own, mir = _cluster_tiles(P, Cw)
     T = own.shape[0]
-    loads = torch.zeros((M, P), dtype=torch.int64)
+    loads = torch.zeros((2, M, W), dtype=torch.int64)
     halves = []
     for g, slots in enumerate((own, mir)):
+        src = 1 if companion and g == 1 else 0
+        c = srcs[src]
         # 1. Stage A: block r's A row n2, column a = (n1 - r1) Cw + col.
         col = torch.arange(na) % Cw
         n1 = torch.arange(G)[:, None] * l1 + torch.arange(na) // Cw  # (G, na)
         s = slots[:, col]                                            # (T, na)
         ok = s >= 0
-        if g == 1:
+        if g == 1 and not companion:
             ok &= s != own[:, col]
         rows = _N1 * torch.arange(n2)[:, None, None] + n1            # (n2, G, na)
         A = torch.where(ok[:, None, None, :],
                         c[rows[None], s.clamp(min=0)[:, None, None, :]],
                         torch.zeros((), dtype=c.dtype))              # (T, n2, G, na)
-        _count(loads, ok[:, None, None, :], rows[None], s[:, None, None, :])
+        _count(loads[src], ok[:, None, None, :], rows[None],
+               s[:, None, None, :])
         A = torch.fft.fft(A, dim=1)[:, bra]          # row p: k2 = bitrev(p)
         # 2. Stage B: block r's B column il Cw + cc of this tile, row n1.
         b = torch.arange(l2 * Cw)
@@ -1436,10 +1474,10 @@ def pair_x_cluster_emulated(Zy: torch.Tensor, consts, G: int, Cw: int):
         tt, rr = torch.arange(T)[:, None, None], torch.arange(G)[:, None]
         return fwd[tt, rr, own_pos], fwd[tt, rr, mir_pos]
 
-    buf = _sym_stage_emulated(M, P, consts, G, Cw, own, mir, Zy.dtype, read,
-                              fwd.clone())
-    out, stores = _sym_inverse_emulated(buf, own, mir, M, P, G, Cw)
-    return _planar(out, Zy.dtype), loads, stores
+    buf = _sym_stage_emulated(M, P, consts, G, Cw, own, mir, X.dtype, read,
+                              fwd.clone(), gsl, companion)
+    out, stores = _sym_inverse_emulated(buf, own, mir, M, W, G, Cw, companion)
+    return _planar(out, X.dtype), loads, stores
 
 
 @functools.lru_cache(maxsize=32)
@@ -1524,9 +1562,13 @@ pair_x_symbols.cluster_launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K13, K7 and K14: K3's task on the columns of a block (csrc pair_cols_kernel),
-# each with its task table: (own column, its mirror's column, own column's
-# global slot), C pairs a task, -1 padding.
+# K13, K7 and K14, the x-stages of the sharded inversions: K3's function on
+# the columns of a (2, M, W) block. Two kernels chosen by shape, as K3's:
+# pair_cols_cluster_kernel (K13 and K14) on M = 128 * 2^a, M >= 256 G, W
+# whole 128-column strips, with K7 on K3's cluster kernel there; and
+# pair_cols_kernel (K3's whole-column task on a table of (own column, its
+# mirror's column, own column's global slot), C pairs a task, -1 padding)
+# on the rest.
 # ---------------------------------------------------------------------------
 
 def _chunk_tasks(own, mirror, slots, C: int) -> tuple[np.ndarray, ...]:
@@ -1566,6 +1608,52 @@ def paired_tasks(groups_idx, n2y: int, C: int):
     return _chunk_tasks(own, mirror[own], slots, C)
 
 
+def offset_cluster_tiles(width: int, strip_offset: int, Cw: int):
+    """K13's cluster tile table: every column of a block of ``width``
+    columns at global ``strip_offset`` in tiles of Cw adjacent columns, the
+    mirror tile their companion columns (companion_columns: Cw adjacent
+    columns in reverse, or in strip 0 off by one with lane 0 its own lane),
+    and each own column's global y slot. Returns (own, mirror, slots), each
+    (width / Cw, Cw) int32; no padding."""
+    cols = np.arange(width)
+    mirror = companion_columns(block_strips(width, strip_offset))
+    return tuple(a.reshape(-1, Cw).astype(np.int32)
+                 for a in (cols, mirror, STRIP * strip_offset + cols))
+
+
+def paired_cluster_tiles(groups_idx, n2y: int, Cw: int):
+    """K14's cluster tile table, as K3's x_symbols_cluster_tiles on the
+    block's local columns: every unordered pair {c, mirror(c)}
+    (pair_columns) once, strip by strip, the canonical columns of each strip
+    (c <= mirror(c): all of the first strip of a mirror pair, the lower half
+    of a strip that is its own mirror) cut into tiles of Cw adjacent
+    columns, -1 padding a strip's last tile. Returns (own, mirror, slots),
+    each (tiles, Cw) int32: mirror = mirror(own), slots each own column's
+    global y slot. A self-mirror slot (lanes 0 and 64 of global strip 0) is
+    its own mirror."""
+    idx = np.asarray(groups_idx)
+    mirror = pair_columns(idx, n2y)
+    tiles = []
+    for j in range(len(idx)):
+        cols = j * STRIP + np.arange(STRIP)
+        cols = cols[cols <= mirror[cols]]
+        for k in range(0, len(cols), Cw):
+            t = np.full(Cw, -1, np.int64)
+            t[:len(cols[k:k + Cw])] = cols[k:k + Cw]
+            tiles.append(t)
+    own = np.stack(tiles)
+    ok = own >= 0
+    safe = np.maximum(own, 0)
+    mir = np.where(ok, mirror[safe], -1)
+    slots = np.where(ok, STRIP * idx[safe // STRIP] + safe % STRIP, -1)
+    return tuple(a.astype(np.int32) for a in (own, mir, slots))
+
+
+_COL_KERNELS = {"offset": "x_fwd_symbols_offset (K13)",
+                "self": "stream_pair_symbols (K7)",
+                "paired": "paired_x_symbols (K14)"}
+
+
 @functools.lru_cache(maxsize=16)
 def _device_col_tasks(kind: str, key: tuple, C: int, device: torch.device):
     build = {"offset": offset_tasks, "self": self_tasks,
@@ -1573,10 +1661,19 @@ def _device_col_tasks(kind: str, key: tuple, C: int, device: torch.device):
     return tuple(torch.as_tensor(t, device=device) for t in build(*key, C))
 
 
-def _pair_cols(what: str, X: torch.Tensor, Xm: torch.Tensor, kind: str,
-               key: tuple, consts, own_only: bool) -> torch.Tensor:
-    """Launch pair_cols_kernel on the (2, M, W) block X (mirrors read from
-    Xm) with the task table ``kind``/``key``."""
+@functools.lru_cache(maxsize=16)
+def _device_col_tiles(kind: str, key: tuple, Cw: int, device: torch.device):
+    build = {"offset": offset_cluster_tiles,
+             "paired": paired_cluster_tiles}[kind]
+    return tuple(torch.as_tensor(t, device=device) for t in build(*key, Cw))
+
+
+def _check_block(what: str, X: torch.Tensor, Xm: torch.Tensor, consts,
+                 kind: str, key: tuple) -> tuple[int, int, int]:
+    """(M, W, P) of a CUDA (2, M, W) block and its mirror operand; raises
+    unless both are float32 planar fields of one shape on one card, W whole
+    128-column strips of the y extent P = 128 consts[1], and an offset
+    block within P."""
     if X.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {X.device}")
     _check_field(what, X)
@@ -1587,11 +1684,30 @@ def _pair_cols(what: str, X: torch.Tensor, Xm: torch.Tensor, kind: str,
         raise ValueError(f"{what}: the mirror operand has shape "
                          f"{tuple(Xm.shape)} on {Xm.device}, the block "
                          f"{tuple(X.shape)} on {X.device}")
-    if not (_radix_ok(M) and pair_x_layout(M)[3] <= SMEM_LIMIT
-            and W % STRIP == 0 and W <= P):
+    if W % STRIP or not 0 < W <= P:
+        raise ValueError(f"{what}: the width {W} must be whole 128-column "
+                         f"strips of P = {P}")
+    if kind == "offset" and (key[0] != W or key[1] < 0
+                             or STRIP * key[1] + W > P):
+        raise ValueError(f"{what}: a block of {W} columns at strip offset "
+                         f"{key[1]} does not lie within P = {P}")
+    return M, W, P
+
+
+def pair_cols_whole_columns(X: torch.Tensor, Xm: torch.Tensor, kind: str,
+                            key: tuple, consts) -> torch.Tensor:
+    """One launch of pair_cols_kernel (a block whole columns of C pairs) on
+    the CUDA (2, M, W) block X, mirrors read from Xm, with the task table
+    ``kind``/``key`` ("offset": K13, (W, strip_offset); "self": K7, (P,);
+    "paired": K14, (groups_idx, n2y)), at any extent it takes: the result
+    of the wrapper of ``kind``. Raises on a shape it does not take and a
+    launch error. Counts nothing: the counting wrappers are
+    x_fwd_symbols_offset, stream_pair_symbols and paired_x_symbols."""
+    what = _COL_KERNELS[kind]
+    M, W, P = _check_block(what, X, Xm, consts, kind, key)
+    if not (_radix_ok(M) and pair_x_layout(M)[3] <= SMEM_LIMIT):
         raise ValueError(f"{what}: M = {M} must be R * m (R a power of two, "
-                         f"m odd <= {MAX_ODD}) within shared memory and the "
-                         f"width {W} whole 128-column strips of P = {P}")
+                         f"m odd <= {MAX_ODD}) within shared memory")
     vals = check_consts(what, consts, M, P)
     C, sub, bstride, _ = pair_x_layout(M)
     own, mirror, slots = _device_col_tasks(kind, key, C, X.device)
@@ -1600,59 +1716,241 @@ def _pair_cols(what: str, X: torch.Tensor, Xm: torch.Tensor, kind: str,
     code = _lib().qg_pair_cols_launch(
         X.data_ptr(), Xm.data_ptr(), out.data_ptr(), own.data_ptr(),
         mirror.data_ptr(), slots.data_ptr(), own.shape[0], M, W, P, logr, m,
-        split_factor(P)[0], C, sub, bstride, int(own_only), vals, tw, twn,
-        _threads(C, M), torch.cuda.current_stream(X.device).cuda_stream)
+        split_factor(P)[0], C, sub, bstride, int(kind != "paired"), vals, tw,
+        twn, _threads(C, M), torch.cuda.current_stream(X.device).cuda_stream)
     _build.check(code, what)
     return out
+
+
+# K13's and K14's cluster kernel (csrc pair_cols_cluster_kernel): K3's
+# cluster kernel on a tile table of the block's local columns
+# (offset_cluster_tiles, paired_cluster_tiles), K3's layouts (G, Cw) and
+# buffers beside the tile's Cw global slots. The layout K13 and K14 launch
+# on a block (M, W) is, at the blocks of PAIR_COLS_CLUSTER_BY_MW (the
+# four-rank slices'), the one of chip_smoke.py's k13_sweep with the least
+# device time for both (PERF.md), else K3's launched layout at M
+# (pair_x_cluster_launched).
+PAIR_COLS_CLUSTER_BY_MW = {(2048, 512): (8, 16), (8192, 2048): (16, 8)}
+
+
+def pair_cols_cluster_layout(M: int, G: int, Cw: int) -> SymbolsClusterLayout:
+    """The block kernel's shared memory: K3's (pair_x_cluster_layout) and
+    the tile's Cw int global slots."""
+    lay = pair_x_cluster_layout(M, G, Cw)
+    return lay._replace(smem=lay.smem + 4 * Cw)
+
+
+def pair_cols_cluster_launched(M: int, W: int) -> tuple[int, int]:
+    """The layout (G, Cw) that K13 and K14 launch on a (2, M, W) block."""
+    return PAIR_COLS_CLUSTER_BY_MW.get((M, W), pair_x_cluster_launched(M))
+
+
+@functools.lru_cache(maxsize=64)
+def pair_cols_cluster_takes(M: int, W: int,
+                            layout: tuple | None = None) -> bool:
+    """True iff the block kernel takes a (2, M, W) block at ``layout`` = (G,
+    Cw) (by default the launched one): where K3's cluster kernel takes M
+    (M = 128 * 2^a, N2 = M / 128 >= 2 G), W whole 128-column strips, within
+    one block's shared memory. Cached: K13 and K14 ask twice a launch (see
+    _cols_cluster_launch)."""
+    G, Cw = layout or pair_cols_cluster_launched(M, W)
+    return (pair_x_cluster_takes(M, (G, Cw)) and W > 0 and W % STRIP == 0
+            and pair_cols_cluster_layout(M, G, Cw).smem <= SMEM_LIMIT)
+
+
+def pair_cols_cluster_emulated(kind: str, X: torch.Tensor, Xm: torch.Tensor,
+                               key: tuple, consts, G: int, Cw: int):
+    """What the block kernel does at (G, Cw) on the tile table of ``kind``
+    ("offset": K13, key (W, strip_offset), the mirror tile from Xm, the own
+    tile alone stored; "paired": K14, key (groups_idx, n2y), Xm = X), for
+    all tiles and blocks at once, in plain torch (pair_cluster_emulated).
+    Returns (out, loads, stores): x_fwd_symbols_offset_plain's or
+    paired_x_symbols_plain's result, how many times each (row, column) of X
+    and of Xm was loaded (2, M, W), and how many times each of the output
+    was stored by an own tile and by a mirror tile (2, M, W)."""
+    _, M, W = X.shape
+    if not pair_cols_cluster_takes(M, W, (G, Cw)):
+        raise ValueError(f"the block kernel does not take ({M}, {W}) at "
+                         f"G = {G}, Cw = {Cw}")
+    build = {"offset": offset_cluster_tiles,
+             "paired": paired_cluster_tiles}[kind]
+    own, mir, gsl = (torch.as_tensor(t, dtype=torch.int64)
+                     for t in build(*key, Cw))
+    return pair_cluster_emulated(X, Xm, own, mir, gsl, STRIP * consts[1],
+                                 consts, G, Cw, kind == "offset")
+
+
+@functools.lru_cache(maxsize=32)
+def pair_cols_cluster_occupancy(M: int, layout: tuple, own_only: bool,
+                                device: int) -> int:
+    """The most clusters of the block kernel's K13 (``own_only``) or K14
+    instance in ``layout`` = (G, Cw) at extent M that card ``device`` holds
+    at once (cudaOccupancyMaxActiveClusters); 0: the layout cannot be
+    scheduled."""
+    G, Cw = layout
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = _lib().qg_pair_cols_cluster_occupancy(
+            (M // _N1).bit_length() - 1, G.bit_length() - 1,
+            Cw.bit_length() - 1, int(own_only), ctypes.byref(count))
+    _build.check(code, f"pair_cols cluster occupancy {layout} at M = {M}")
+    return count.value
+
+
+def pair_cols_cluster(X: torch.Tensor, Xm: torch.Tensor, kind: str,
+                      key: tuple, consts,
+                      layout: tuple | None = None) -> torch.Tensor:
+    """One launch of the block kernel (csrc pair_cols_cluster_kernel) on the
+    CUDA (2, M, W) float32 block X, M = 128 * 2^a, with the tile table of
+    ``kind`` ("offset": K13, key (W, strip_offset), mirrors from the
+    companion Xm, own columns written; "paired": K14, key (groups_idx,
+    n2y), Xm = X) and ``layout`` = (G, Cw), by default
+    pair_cols_cluster_launched(M, W): the result of the wrapper of
+    ``kind``. Raises on a shape or layout the kernel does not take, a layout
+    the card cannot schedule and a launch error. Counts nothing: the
+    counting wrappers are x_fwd_symbols_offset and paired_x_symbols.
+
+    Replaces, as pair_cols_kernel does, tpu_qg/ops/pallas_fft.py
+    PlanarFFT2._call_x_fwd_symbols_offset (:1204) and tpu_qg/parallel/
+    paired.py PairedDistributedInverter._call_paired_kernel (:226). Bound:
+    K13 reads two blocks and writes one (403 MB at (2, 8192, 2048), 0.120
+    ms at 3.35 TB/s), K14 reads one and writes one. Why a cluster:
+    pair_cols_kernel holds whole columns (one slot pair a block at M =
+    8192, a warp reading one scattered word a row) and transforms K13's
+    mirror columns once per own column; here K3's cluster kernel runs on
+    tiles of Cw adjacent local columns (design in the source)."""
+    what = f"pair_cols_cluster ({_COL_KERNELS[kind]})"
+    M, W, P = _check_block(what, X, Xm, consts, kind, key)
+    layout = tuple(layout or pair_cols_cluster_launched(M, W))
+    if not pair_cols_cluster_takes(M, W, layout):
+        raise ValueError(f"{what}: M = {M} must be 128 * 2^a with M / 128 >= "
+                         f"2 G and the layout {layout} (G, Cw) fit shared "
+                         f"memory")
+    if kind == "paired" and Xm.data_ptr() != X.data_ptr():
+        raise ValueError(f"{what}: the paired table reads mirrors from X")
+    *_, args = _cols_cluster_launch(kind, key, M, W, P, layout, consts,
+                                    X.device)
+    out = torch.empty_like(X)
+    code = _lib().qg_pair_cols_cluster_launch(
+        X.data_ptr(), Xm.data_ptr(), out.data_ptr(), *args,
+        torch.cuda.current_stream(X.device).cuda_stream)
+    _build.check(code, f"{what} {layout}")
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def _cols_cluster_launch(kind: str, key: tuple, M: int, W: int, P: int,
+                         layout: tuple, consts, device: torch.device):
+    """What a launch of the block kernel takes besides its operands and
+    stream, built once a table, shape and layout: (the tile tables and
+    the twiddle table on ``device``, held here so that their pointers stay
+    valid; the launch's arguments from the tables' pointers on). Raises
+    where consts were built for another shape or the card cannot schedule
+    the layout. At (2, 2048, 512) the kernel takes ~0.04 ms on the card,
+    about what a launch costs the host, so the host's work a launch is
+    kept short."""
+    what = f"pair_cols_cluster ({_COL_KERNELS[kind]})"
+    vals = check_consts(what, consts, M, P)
+    G, Cw = layout
+    own_only = kind == "offset"
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if pair_cols_cluster_occupancy(M, layout, own_only, index) == 0:
+        raise RuntimeError(f"{what}: the card cannot schedule a cluster of "
+                           f"layout {layout} at M = {M}")
+    tables = _device_col_tiles(kind, key, Cw, device)
+    wm = _twiddles(M, M, device)
+    args = (*(t.data_ptr() for t in tables), tables[0].shape[0], W, P,
+            (M // _N1).bit_length() - 1, G.bit_length() - 1,
+            Cw.bit_length() - 1, split_factor(P)[0], int(own_only), vals,
+            wm.data_ptr())
+    return tables, wm, args
 
 
 def x_fwd_symbols_offset(Zy: torch.Tensor, Zm: torch.Tensor, consts,
                          strip_offset: int) -> torch.Tensor:
     """K13 on CUDA tensors (one launch), the plain version on CPU tensors:
     the sharded inversion's x-stage on a (2, M, w) column block of the
-    y-spectrum at global ``strip_offset`` and its mirror companion Zm."""
+    y-spectrum at global ``strip_offset`` and its mirror companion Zm.
+    Two hand-written kernels chosen by shape: the block kernel
+    (pair_cols_cluster, K3's cluster design, layout
+    pair_cols_cluster_launched(M, w)) where pair_cols_cluster_takes(M, w),
+    counted also in
+    ``x_fwd_symbols_offset.cluster_launches``; pair_cols_kernel
+    (pair_cols_whole_columns) on the rest (mixed extents M = 128 * n, and
+    M < 256 G). Both replace tpu_qg/ops/pallas_fft.py
+    PlanarFFT2._call_x_fwd_symbols_offset (:1204)."""
     if Zy.device.type == "cpu":
         return x_fwd_symbols_offset_plain(Zy, Zm, consts, strip_offset)
-    out = _pair_cols("x_fwd_symbols_offset (K13)", Zy, Zm, "offset",
-                     (Zy.shape[2], int(strip_offset)), consts, True)
+    _, M, W = Zy.shape
+    key = (W, int(strip_offset))
+    if pair_cols_cluster_takes(M, W):
+        out = pair_cols_cluster(Zy, Zm, "offset", key, consts)
+        x_fwd_symbols_offset.cluster_launches += 1
+    else:
+        out = pair_cols_whole_columns(Zy, Zm, "offset", key, consts)
     x_fwd_symbols_offset.launches += 1
     return out
 
 
 x_fwd_symbols_offset.launches = 0
+x_fwd_symbols_offset.cluster_launches = 0
 
 
 def stream_pair_symbols(Zy: torch.Tensor, consts) -> torch.Tensor:
-    """K7 on CUDA tensors (one launch of K13's kernel on the whole field,
-    the mirror from the same operand), the plain version on CPU tensors."""
+    """K7 on CUDA tensors (one launch), the plain version on CPU tensors.
+    K7 computes K3's function on the whole field, so two hand-written
+    kernels chosen by shape: K3's cluster kernel (pair_x_cluster, layout
+    pair_x_cluster_launched(M), K3's canonical tiles: each column read and
+    written once) where pair_x_cluster_takes(M), counted also in
+    ``stream_pair_symbols.cluster_launches`` (not in pair_x_symbols's
+    counts); pair_cols_kernel on the "self" table (pair_cols_whole_columns,
+    the mirror read from the same field) on the rest (mixed extents M = 128
+    * n, and M < 256 G). Both replace tpu_qg/ops/pallas_fft.py
+    PlanarFFT2.stream_pair_symbols (:1304)."""
     if Zy.device.type == "cpu":
         return stream_pair_symbols_plain(Zy, consts)
-    out = _pair_cols("stream_pair_symbols (K7)", Zy, Zy, "self",
-                     (Zy.shape[2],), consts, True)
+    if pair_x_cluster_takes(Zy.shape[1]):
+        out = pair_x_cluster(Zy, consts)
+        stream_pair_symbols.cluster_launches += 1
+    else:
+        out = pair_cols_whole_columns(Zy, Zy, "self", (Zy.shape[2],), consts)
     stream_pair_symbols.launches += 1
     return out
 
 
 stream_pair_symbols.launches = 0
+stream_pair_symbols.cluster_launches = 0
 
 
 def paired_x_symbols(X: torch.Tensor, groups_idx, consts) -> torch.Tensor:
     """K14 on CUDA tensors (one launch), the plain version on CPU tensors:
     the x-stage of a (2, M, w) block of strips in mirror-pair order whose
-    global indices are ``groups_idx``."""
+    global indices are ``groups_idx``. Two hand-written kernels chosen by
+    shape: the block kernel (pair_cols_cluster, layout
+    pair_cols_cluster_launched(M, w)) where pair_cols_cluster_takes(M, w),
+    counted also in
+    ``paired_x_symbols.cluster_launches``; pair_cols_kernel
+    (pair_cols_whole_columns) on the rest (mixed extents M = 128 * n, and
+    M < 256 G). Both replace tpu_qg/parallel/paired.py
+    PairedDistributedInverter._call_paired_kernel (:226)."""
     if X.device.type == "cpu":
         return paired_x_symbols_plain(X, groups_idx, consts)
     key = (tuple(int(i) for i in np.asarray(groups_idx)), consts[1])
     if len(key[0]) * STRIP != X.shape[2]:
         raise ValueError(f"paired_x_symbols: {len(key[0])} strip indices "
                          f"for a block of {X.shape[2]} columns")
-    out = _pair_cols("paired_x_symbols (K14)", X, X, "paired", key, consts,
-                     False)
+    if pair_cols_cluster_takes(X.shape[1], X.shape[2]):
+        out = pair_cols_cluster(X, X, "paired", key, consts)
+        paired_x_symbols.cluster_launches += 1
+    else:
+        out = pair_cols_whole_columns(X, X, "paired", key, consts)
     paired_x_symbols.launches += 1
     return out
 
 
 paired_x_symbols.launches = 0
+paired_x_symbols.cluster_launches = 0
 
 
 # ---------------------------------------------------------------------------
