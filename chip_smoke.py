@@ -31,13 +31,21 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    modes) at (2, 2048, 2048) with the pin gauge and (1, 2048, 2048) single
    layer; K2 on (2, 333, P) at P = 256 ... 8192 (its factored kernel, a
    ragged last block in every layout with Rb > 1, the factored count
-   checked) and P = 384, 2432 (y_dft_kernel); K2's factored kernel in each
+   checked) and at P = 384, 768, 1536, 2432, 3072, 6144, 7808 and 8064 (its
+   mixed-radix form, y_dft_mixed_kernel, as "K2 mixed", the mixed count
+   checked) and at P = 96 and 128 (y_dft_kernel, neither count moving);
+   K2's factored kernel in each
    layout (Rb rows, threads) of K2_SWEEP at n^2, n = 256 ... 8192, with the
    blocks an SM holds and ms each way in turns beside y_dft_kernel (the
-   kernel it replaces there), torch.fft.fft along y and a copy of the
-   field, host-launched and replayed from a CUDA graph; K2's mixed extents
-   (y_dft_kernel) on (2, 333, 384), (2, 333, 2432) and (2, 2432, 2432),
-   ms each way beside torch.fft.fft along y and a copy, both ways of timing;
+   kernel it replaces there, checked), torch.fft.fft along y and a copy of
+   the field, host-launched and replayed from a CUDA graph; K2's mixed extents
+   on (2, 333, 384), (2, 333, 2432) and (2, n, n), n = 2432, 1536, 3072,
+   6144 and 7808: the mixed-radix kernel in its launched layout (and at
+   1536, 2432, 3072 and 6144 in each layout of K2_MIXED_SWEEP, checked),
+   ms each way beside
+   y_dft_kernel (the kernel it replaces, checked), torch.fft.fft along y and a copy,
+   in turns, both ways of timing (k2_mixed); the mixed instances' ptxas
+   lines in the build phase;
    K2, K4 (x-DFT, both ways,
    and its cluster kernel's first half, stage A) and K5 (symbols + inverse
    x-DFT) at (2, 4096, 4096) and
@@ -79,7 +87,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    fft_mono="on" (100: K1, K16), step_full="on" (100: K17) and step_chain="on" (100: K15, K3,
    K2 at the ends of each run call; the same);
    pod-8192 (50 steps: K1, K2, K4, K5, every K4 and K5 launch by its
-   cluster kernel) and with step_chain="on" (20: K15, K4, K5, K2; the same).
+   cluster kernel) and with step_chain="on" (20: K15, K4, K5, K2; the same);
+   turbulence-2048's configuration at 1536^2 (100 steps: K1, K2, K3, every
+   K2 launch by the mixed-radix kernel, "K2 mixed" = K2, K3 by pair_x_kernel)
+   and at 3072^2 (50: K1, K2, K4, K5; the same, K4 and K5 by their
+   whole-column kernels).
    Then, with the counts set to 0 again each time, two
    multigrid paths: 20 warm-started MultigridModalInverter calls on the zeta
    one default step after the pod-8192 slice (pod-8192-mg: 2 cycles a call,
@@ -131,7 +143,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    and, for K2 and K4, beside one torch.fft call on the same complex64
    field, at 2048^2 (every route; K8 too) and 8192^2 (default and plain);
    host enqueue ms per step; the device's busy share over CUDA-only traces
-   of the default route (both grids) and the fullstep route (2048^2). For
+   of the default route (both grids) and the fullstep route (2048^2); ms per
+   step of the default and plain routes at 1536^2 and 3072^2, in turns. For
    each multigrid path: ms per MG call on the kernel and plain routes
    beside the spectral inversion of the same zeta, K10/K11 per launch at
    each kernel level and K9 beside their plain versions, host enqueue ms per
@@ -148,7 +161,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    version, and the lab path's own ms per step.
 
 The line before the last is {"kernels": [...]}, every kernel with its
-launches in phase 4, its largest error, its ms, its plain version's ms
+launches in phase 4 (K2 mixed a row of its own, at (2, 2432, 2432), its
+launches not in K2's), its largest error, its ms, its plain version's ms
 (K10/K11: at the 8192 level, with every level of both solvers beside),
 its bound (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
 the larger) and its library call's ms; the last is {"ok": true, "device":
@@ -227,13 +241,17 @@ from tpu_qg_torch.scripts import stencil_lab
 from tpu_qg_torch.utils.diagnostics import diagnostics
 
 SEED = 1234
+# turbulence-2048's configuration on two grids whose extents are mixed (128
+# n, n not a power of two): 1536^2 (n = 12) takes the three-pass inversion,
+# 3072^2 (n = 24) the four-pass one.
+MIXED_PATHS = ("turbulence-2048 at 1536^2", "turbulence-2048 at 3072^2")
 # Relative to max|plain|: the 1/lambda symbol amplifies low-k float32
 # rounding in K3/K5/K16 and K17's psi; K15's zeta_ys is a y-DFT (K2's
 # gate); the slices' zeta after many steps on two routes.
 # K9 is K1's tile; K10/K11 carry tests/test_multigrid.py's kernel gate; an
 # MG path's psi the dryrun multigrid gate (commit 26d1ffc) against the
 # plain MG route.
-TOL = {"K1": 1e-6, "K2": 1e-5, "K3": 1e-4, "K4": 1e-5, "K5": 1e-4,
+TOL = {"K1": 1e-6, "K2": 1e-5, "K2 mixed": 1e-5, "K3": 1e-4, "K4": 1e-5, "K5": 1e-4,
        "K7": 1e-4, "K8": 1e-6, "K9": 1e-6, "K10": 1e-6, "K11": 1e-6,
        "K12": 1e-6, "K13": 1e-4, "K14": 1e-4, "K15": 1e-6,
        "K15 zeta_ys": 1e-5, "K15s": 1e-6, "K16": 1e-4, "K17": 1e-6,
@@ -286,7 +304,7 @@ class KernelCount:
     paired_x_symbols.cluster_launches: K13's and K14's,
     pair_cols_cluster_kernel; stream_pair_symbols.cluster_launches: K7's
     launches of K3's cluster kernel; y_dft.factored_launches: K2's factored
-    kernel; fused_step.rows_launches and fused_step_sharded.rows_launches:
+    kernel; y_dft.mixed_launches: its mixed-radix form; fused_step.rows_launches and fused_step_sharded.rows_launches:
     K1's and K12's row-streaming kernel), as a counter with a ``launches``
     field."""
 
@@ -319,6 +337,7 @@ COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
             "K7 cluster": KernelCount(stream_pair_symbols,
                                       "cluster_launches"),
             "K2 factored": KernelCount(y_dft, "factored_launches"),
+            "K2 mixed": KernelCount(y_dft, "mixed_launches"),
             "K1 rows": KernelCount(fused_step, "rows_launches"),
             "K12 rows": KernelCount(fused_step_sharded, "rows_launches")}
 # Kernel names in a profiler trace, the one-launch kernels, the
@@ -343,6 +362,7 @@ TRACE_NAMES = (("K12", "step_rows_sharded_kernel"),
                ("K4", "x_dft_cluster_kernel"), ("K4", "x_dft_kernel"),
                ("K3", "pair_x_cluster_kernel"), ("K3", "pair_x_kernel"),
                ("K2", "y_dft_factored_kernel"),
+               ("K2 mixed", "y_dft_mixed_kernel"),
                ("K2", "y_dft_kernel"),
                ("K18", "lab_step_kernel"), ("K1", "step_kernel"))
 
@@ -482,10 +502,11 @@ def phase_build() -> None:
     lines = info["ptxas"].splitlines()
     regs = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
     # K4's, K5's, K3's and K13/K14's cluster kernels and K2's factored
-    # kernel: each instance's registers, shared memory, spills.
+    # kernel and its mixed-radix form: each instance's registers, shared
+    # memory, spills.
     named = {"x_dft_cluster_kernel": {}, "x_symbols_cluster_kernel": {},
              "pair_x_cluster_kernel": {}, "pair_cols_cluster_kernel": {},
-             "y_dft_factored_kernel": {}}
+             "y_dft_factored_kernel": {}, "y_dft_mixed_kernel": {}}
     entry = None
     for ln in lines:
         if "Compiling entry function" in ln:
@@ -501,7 +522,9 @@ def phase_build() -> None:
          k3_cluster_ptxas=named["pair_x_cluster_kernel"],
          k13_k14_cluster_ptxas=named["pair_cols_cluster_kernel"],
          k2_factored_ptxas=named["y_dft_factored_kernel"],
+         k2_mixed_ptxas=named["y_dft_mixed_kernel"],
          step_ptxas=step_ptxas(lines))
+    return named
 
 
 # The kernels that form a step point (step_device.cuh's body): the
@@ -726,59 +749,121 @@ def phase_kernels(errs, cfg, dev) -> None:
 
 
 # K2's extents beside the slices' grids: the factored kernel's powers of two
-# on a row count that leaves every launched Rb a ragged last block, and
-# y_dft_kernel's mixed extents 384 = 128 * 3 and 2432 = 128 * 19.
-K2_EXTENTS = (256, 512, 1024, 2048, 4096, 8192, 384, 2432)
+# on a row count that leaves every launched Rb a ragged last block, its
+# mixed-radix form's extents 384 = 128 * 3, 768, 1536 = 128 * 12 (the
+# 1536^2 path), 2432 = 128 * 19, 3072 = 128 * 24 (the 3072^2 path), 6144,
+# 7808 = 128 * 61 (the largest prime pass) and 8064 = 128 * 63, and
+# y_dft_kernel's 96 = 32 * 3 and 128 (K2_WHOLE_ROW: no factored form).
+K2_POWERS = (256, 512, 1024, 2048, 4096, 8192)
+K2_WHOLE_ROW = (96, 128)
+K2_EXTENTS = K2_POWERS + (384, 768, 1536, 2432, 3072, 6144, 7808, 8064
+                          ) + K2_WHOLE_ROW
 K2_RAGGED_ROWS = 333
 
 
 def check_k2_extents(errs, dev, rng) -> None:
-    """K2 against its plain version both ways at each of K2_EXTENTS, with
-    the factored kernel's count rising by 2 exactly where y_dft launches
-    it (dft_kernels.Y_FACTORED_RB_BY_P)."""
+    """K2 against its plain version both ways at each of K2_EXTENTS (the
+    mixed extents as "K2 mixed"), with y_dft's count rising by 2 at each,
+    the factored kernel's exactly at the powers of two, the mixed count
+    exactly at the mixed extents, and neither at K2_WHOLE_ROW's (y_dft_kernel
+    launched)."""
     for P in K2_EXTENTS:
         x = torch.as_tensor(rng.standard_normal((2, K2_RAGGED_ROWS, P)),
                             dtype=torch.float32, device=dev)
-        n = y_dft.factored_launches
+        n = (y_dft.launches, y_dft.factored_launches, y_dft.mixed_launches)
+        mixed = P not in K2_POWERS + K2_WHOLE_ROW
         for inverse in (False, True):
-            errs.record("K2", f"{K2_RAGGED_ROWS}x{P} " + (
-                "inverse" if inverse else "forward"),
-                y_dft(x, inverse), y_dft_plain(x, inverse))
+            errs.record("K2 mixed" if mixed else "K2",
+                        f"{K2_RAGGED_ROWS}x{P} " + (
+                            "inverse" if inverse else "forward"),
+                        y_dft(x, inverse), y_dft_plain(x, inverse))
         torch.cuda.synchronize()
-        if y_dft.factored_launches - n != 2 * (
-                P in dft_kernels.Y_FACTORED_RB_BY_P):
-            raise AssertionError(f"K2 at P = {P}: {y_dft.factored_launches - n}"
-                                 f" factored launches")
+        got = (y_dft.launches - n[0], y_dft.factored_launches - n[1],
+               y_dft.mixed_launches - n[2])
+        if got != (2, 2 * (P in K2_POWERS), 2 * mixed):
+            raise AssertionError(f"K2 at P = {P}: (all, factored, mixed) "
+                                 f"launches {got}")
 
 
-# K2's mixed extents timed: the fields check_k2_extents checks, and the
-# largest grid of the pair-x route, 2432^2 (2432 = 128 * 19).
-K2_MIXED_SHAPES = ((K2_RAGGED_ROWS, 384), (K2_RAGGED_ROWS, 2432), (2432, 2432))
+# K2's mixed extents timed: the fields check_k2_extents checks at 384 and
+# 2432, the largest grid of the pair-x route, 2432^2 (N2 = 19, a prime
+# pass), the mixed paths' grids and 6144^2 (N2 = 12, 24, 48: radix 2^c and
+# 3), and 7808^2 (the 61-point prime pass). K2_MIXED_SWEEP: the layouts
+# (Rb, threads) timed at four of them, the launched one among them.
+K2_MIXED_SHAPES = ((K2_RAGGED_ROWS, 384), (K2_RAGGED_ROWS, 2432),
+                   (2432, 2432), (1536, 1536), (3072, 3072), (6144, 6144),
+                   (7808, 7808))
+K2_MIXED_SWEEP = {1536: ((2, 256), (4, 256), (8, 256), (4, 512)),
+                  2432: ((1, 256), (2, 256), (4, 256), (2, 512)),
+                  3072: ((1, 256), (2, 256), (4, 256), (2, 512)),
+                  6144: ((1, 256), (2, 256))}
 
 
-def time_k2_mixed(dev, card, reps=20) -> dict:
-    """y_dft_kernel (K2 on a mixed extent) on (2, rows, P) of
-    K2_MIXED_SHAPES, ms a launch each way beside one torch.fft.fft along y
-    of the same complex64 field and a torch copy, in turns, host-launched
-    (time_ms) and replayed from a CUDA graph (graph_ms); the plain version
-    host-launched, ms a launch over both ways, twice; the bound of each
-    shape. Returns the entries by shape."""
+def time_k2_mixed(errs, dev, card, reps=20) -> dict:
+    """K2 on a mixed extent, (2, rows, P) of K2_MIXED_SHAPES: its
+    mixed-radix factored kernel (y_dft_mixed_kernel) in the launched layout
+    and, at the grids of K2_MIXED_SWEEP, in each layout there (its error
+    against the plain version both ways, the blocks an SM holds), ms a launch
+    each way beside y_dft_kernel (the kernel it replaces, its error both
+    ways recorded as K2's), one torch.fft.fft
+    along y of the same complex64 field and a torch copy, in turns (in
+    order, then in reverse), host-launched (time_ms) and replayed from a
+    CUDA graph (graph_ms); the plain version host-launched, ms a launch over
+    both ways, twice; the bound. Returns the entries by shape."""
     rng = np.random.default_rng(SEED + 12)
     out = {}
     for rows, P in K2_MIXED_SHAPES:
         x = torch.as_tensor(rng.standard_normal((2, rows, P)),
                             dtype=torch.float32, device=dev)
         c64 = torch.complex(x[0], x[1])
-        calls = {"forward": lambda: y_dft_whole_row(x, False),
-                 "inverse": lambda: y_dft_whole_row(x, True),
-                 "library": lambda: torch.fft.fft(c64, dim=1),
-                 "copy": lambda: x.clone()}
+        launched = dft_kernels.y_dft_factored_launched(P)
+        layouts = K2_MIXED_SWEEP.get(P, ()) if rows == P else ()
+        layouts = (launched,) + tuple(v for v in layouts if v != launched)
+        want = [y_dft_plain(x, inverse) for inverse in (False, True)]
+        sweep, calls = {}, {}
+        for lay in layouts:
+            key = k2_layout_name(lay)
+            occ = y_dft_factored_occupancy(P, lay, dev.index)
+            sweep[key] = dict(smem=y_dft_factored_layout(P, *lay).smem,
+                              blocks_per_sm=occ)
+            if occ == 0:
+                continue
+            err = max(rel_err(y_dft_factored(x, inverse, lay), w)[1]
+                      for inverse, w in enumerate(want))
+            sweep[key]["rel_err"] = err
+            if not err <= TOL["K2 mixed"]:
+                raise AssertionError(f"K2 mixed {key} at {rows}x{P}: rel "
+                                     f"err {err} > {TOL['K2 mixed']}")
+            for inverse in (False, True):
+                calls[(key, inverse)] = (
+                    lambda lay=lay, inverse=inverse:
+                    y_dft_factored(x, inverse, lay))
+        for inverse, w in zip((False, True), want):
+            errs.record("K2", f"y_dft_kernel {rows}x{P} " + (
+                "inverse" if inverse else "forward"),
+                y_dft_whole_row(x, inverse), w)
+            calls[("y_dft_kernel", inverse)] = (
+                lambda inverse=inverse: y_dft_whole_row(x, inverse))
+        del want
+        calls[("library", False)] = lambda: torch.fft.fft(c64, dim=1)
+        calls[("copy", False)] = lambda: x.clone()
         runs = {k: ([], []) for k in calls}
         for k in list(calls) + list(calls)[::-1]:
             runs[k][0].append(time_ms(calls[k], reps))
             runs[k][1].append(graph_ms(calls[k], reps))
-        entry = {k: {"ms": sum(r) / 2, "graph_ms": sum(g) / 2, "runs_ms": r,
-                     "graph_runs_ms": g} for k, (r, g) in runs.items()}
+        entry = {}
+        for (key, inverse), (r, g) in runs.items():
+            way = "inverse_" if inverse else ""
+            fields = {f"{way}ms": sum(r) / 2, f"{way}graph_ms": sum(g) / 2,
+                      f"{way}runs_ms": r, f"{way}graph_runs_ms": g}
+            if key in sweep:
+                sweep[key].update(fields)
+            else:
+                entry.setdefault(key, {}).update(fields)
+        entry["mixed"] = sweep[k2_layout_name(launched)]
+        entry["layouts"] = sweep
+        entry["launched"] = k2_layout_name(launched)
+        entry["plan"] = dft_kernels.y_dft_mixed_plan(P // 128)
         entry["plain_runs_ms"] = [time_ms(lambda: (
             y_dft_plain(x, False), y_dft_plain(x, True)), reps) / 2
             for _ in range(2)]
@@ -1293,13 +1378,14 @@ def k2_layout_name(layout) -> str:
     return "Rb={} threads={}".format(*layout)
 
 
-def phase_k2_sweep(dev, card, reps=20) -> dict:
+def phase_k2_sweep(errs, dev, card, reps=20) -> dict:
     """K2's factored kernel in each layout of K2_SWEEP at n^2: its bytes of
     shared memory, the blocks an SM holds at once
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), its largest error
     against the plain version both ways, and ms a launch each way, the
     layouts in turns (in order, then in reverse), beside y_dft_kernel (a
-    block a whole row, the kernel it replaces), one torch.fft.fft along y
+    block a whole row, the kernel it replaces, its error both ways recorded
+    as K2's), one torch.fft.fft along y
     of the same complex64 field and a torch copy of the field: host-launched
     (time_ms) and replayed from a CUDA graph (graph_ms). Returns the entries
     by grid."""
@@ -1327,7 +1413,10 @@ def phase_k2_sweep(dev, card, reps=20) -> dict:
                 calls[(key, inverse)] = (
                     lambda lay=lay, inverse=inverse:
                     y_dft_factored(x, inverse, lay))
-        for inverse in (False, True):
+        for inverse, w in zip((False, True), want):
+            errs.record("K2", f"y_dft_kernel {n}x{n} " + (
+                "inverse" if inverse else "forward"),
+                y_dft_whole_row(x, inverse), w)
             calls[("y_dft_kernel", inverse)] = (
                 lambda inverse=inverse: y_dft_whole_row(x, inverse))
         del want
@@ -2528,6 +2617,10 @@ def kernel_rows(errs, launches, ms_2048, ms_8192, extra, sharded) -> list:
     solver), and at the mesh slices' shapes in ``sharded`` for K7, K12-K14
     and K15's sharded form; ``extra`` adds fields to a kernel's entry."""
     rows = []
+    # K2's row counts y_dft_factored_kernel's and y_dft_kernel's launches;
+    # y_dft_mixed_kernel's (also in y_dft's count) have a row of their own.
+    launches = {p: dict(run, K2=run["K2"] - run["K2 mixed"])
+                for p, run in launches.items()}
     for name, (fn, source, replaces) in KERNELS.items():
         if name in sharded:
             at, (_, rows_, cols) = sharded, sharded[name]["shape"]
@@ -2573,6 +2666,27 @@ def kernel_rows(errs, launches, ms_2048, ms_8192, extra, sharded) -> list:
                  "bound_ms": k4["bound_ms"] + k5["bound_ms"],
                  "bound_by": "bytes", "library_ms": None,
                  "grid": [8192, 8192]})
+    # K2 on the mixed extents: its mixed-radix factored kernel, timed at
+    # (2, 2432, 2432) (time_k2_mixed), ms a launch over both ways.
+    m = extra["K2 mixed"]
+    at = m["by_shape"]["2432x2432"]
+    bound_ms, bound_by, nbytes = bound("K2", 2432, 2432)
+    rows.append({
+        "name": "K2 mixed y_dft (y_dft_mixed_kernel)", "route": "cuda",
+        "source": "tpu_qg_torch/csrc/dft_kernels.cu",
+        "replaces": KERNELS["K2"][2],
+        "launches": sum(run["K2 mixed"] for run in launches.values()),
+        "launches_by_path": {p: run["K2 mixed"] for p, run in launches.items()
+                             if run["K2 mixed"]},
+        "max_abs_err": errs.by_kernel["K2 mixed"][0],
+        "rel_err": errs.by_kernel["K2 mixed"][1],
+        "ms": (at["mixed"]["ms"] + at["mixed"]["inverse_ms"]) / 2,
+        "plain_ms": sum(at["plain_runs_ms"]) / 2,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+        "library_ms": at["library"]["ms"], "grid": [2432, 2432],
+        "y_dft_kernel_ms": (at["y_dft_kernel"]["ms"]
+                            + at["y_dft_kernel"]["inverse_ms"]) / 2,
+        **m})
     return rows
 
 
@@ -2589,7 +2703,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build()
+    named_ptxas = phase_build()
     turb = preset("turbulence-2048")
     pod = preset("pod-8192")
     pod_mg = preset("pod-8192-mg")
@@ -2597,6 +2711,8 @@ def main() -> None:
              "fullstep": turb.replace(step_full="on"),
              "chain": turb.replace(step_chain="on")}
     pod_chain = pod.replace(step_chain="on")
+    mixed_cfgs = {name: turb.replace(M=n, P=n)
+                  for name, n in zip(MIXED_PATHS, (1536, 3072))}
     errs = Errors()
     phase_kernels(errs, turb, dev)
     phase_x_kernels(errs, pod, dev)
@@ -2605,8 +2721,8 @@ def main() -> None:
     k3_sweep = phase_k3_sweep(dev, turb, card)
     k13_sweep = phase_k13_sweep(dev, turb, pod, card)
     k1_sweep = phase_k1_sweep(dev, card)
-    k2_sweep = phase_k2_sweep(dev, card)
-    k2_mixed = time_k2_mixed(dev, card)
+    k2_sweep = phase_k2_sweep(errs, dev, card)
+    k2_mixed = time_k2_mixed(errs, dev, card)
     phase_mg_kernels(errs, turb, pod_mg, dev)
     phase_sharded_kernels(errs, turb, pod, dev)
     phase_lab_kernels(errs, dev)
@@ -2633,6 +2749,14 @@ def main() -> None:
          {"K15": 20, "K4": 20, "K5": 20, "K2": 2 * run_chunks(pod_chain, 20),
           "K2 factored": 2 * run_chunks(pod_chain, 20), "K4 cluster": 20,
           "K5 cluster": 20}, "chain"),
+        # The mixed extents' paths: every K2 launch by the mixed-radix
+        # factored kernel; K3, K4 and K5 by their whole-column kernels.
+        (MIXED_PATHS[0], mixed_cfgs[MIXED_PATHS[0]], 100,
+         {"K1": 100, "K1 rows": 100, "K2": 200, "K2 mixed": 200, "K3": 100},
+         "default"),
+        (MIXED_PATHS[1], mixed_cfgs[MIXED_PATHS[1]], 50,
+         {"K1": 50, "K1 rows": 50, "K2": 100, "K2 mixed": 100, "K4": 50,
+          "K5": 50}, "default"),
     )
     launches, finals = {}, {}
     for name, cfg, steps, expect, route in slices:
@@ -2676,6 +2800,14 @@ def main() -> None:
     ms_8192 = phase_timing({"default": pod, "plain": pod.replace(**plain)},
                            dev, card, 20, 10, 3,
                            ("K1", "K2", "K4", "K4 inverse", "K5"))
+    mixed_steps = {}
+    for (name, cfg), steps in zip(mixed_cfgs.items(), (100, 50)):
+        routes, _, _ = time_routes(
+            {"default": cfg, "plain": cfg.replace(**plain)}, dev, steps)
+        emit("timing", card=card, path=name, grid=[cfg.M, cfg.P],
+             steps_per_run=steps, **routes)
+        mixed_steps[name] = routes["step_ms"]
+        free_memory()
     mg_ms = {}
     for (name, cfg, state, cycles), (reps, plain_reps, trace) in zip(
             mg_paths, ((10, 2, True), (20, 3, False))):
@@ -2719,8 +2851,19 @@ def main() -> None:
                     "threads): {})".format(
                         sorted(dft_kernels.Y_FACTORED_RB_BY_P),
                         dft_kernels.Y_FACTORED_RB_BY_P),
-                    "y_dft_kernel": "every other extent"},
-        "sweep_8192": k2_sweep[8192], "mixed": k2_mixed}
+                    "y_dft_mixed_kernel": "the other P = 128 N2 (the K2 "
+                    "mixed row)",
+                    "y_dft_kernel": "P <= 128, P not a multiple of 128"},
+        "sweep_8192": k2_sweep[8192]}
+    extra["K2 mixed"] = {
+        "mixed_launches": sum(run["K2 mixed"] for run in launches.values()),
+        "kernels": {"y_dft_mixed_kernel": "P = 128 N2, 3 <= N2 <= 63 not a "
+                    "power of two (layout: Rb the least power of two with "
+                    "Rb N2 >= {}, 256 threads)".format(
+                        dft_kernels.Y_MIXED_PROWS),
+                    "y_dft_kernel": "P <= 128, P not a multiple of 128"},
+        "ptxas": named_ptxas["y_dft_mixed_kernel"], "by_shape": k2_mixed,
+        "path_step_ms": mixed_steps}
     extra["K1"] = {
         "rows_launches": sum(run["K1 rows"] for run in launches.values()),
         "kernels": {"step_rows_kernel": "P % 4 == 0, operands 16-byte "

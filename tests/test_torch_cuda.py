@@ -345,30 +345,34 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         y_dft(torch.zeros((2, 8, 130), device=dev), False)
 
 
-# K2's factored kernel on P = 128 * 2^b, on 37 rows (a ragged last block
-# for every Rb > 1) and 64; y_dft_kernel keeps 384 = 128 * 3 and 2432 =
-# 128 * 19.
-@pytest.mark.parametrize("P", [256, 512, 1024, 2048, 4096, 8192, 384, 2432])
+# K2's factored kernel on P = 128 * 2^b, its mixed-radix form on 384 =
+# 128 * 3, 1536 = 128 * 12, 2432 = 128 * 19 and 7808 = 128 * 61 (the
+# largest prime pass), and y_dft_kernel on 96 = 32 * 3 and 128 (no factored
+# form), on 37 rows (a ragged last block for every Rb > 1) and 64.
+@pytest.mark.parametrize("P", [256, 512, 1024, 2048, 4096, 8192, 384, 1536,
+                               2432, 7808, 96, 128])
 @pytest.mark.parametrize("rows", [37, 64])
 def test_y_dft_routes_and_factored_kernel(dev, P, rows):
     x = _fields(rows, P, dev, seed=P + rows)[1]
     factored = P in dft_kernels.Y_FACTORED_RB_BY_P
-    n = (y_dft.launches, y_dft.factored_launches)
+    mixed = not factored and y_dft_factored_takes(P)
+    n = (y_dft.launches, y_dft.factored_launches, y_dft.mixed_launches)
     for inverse in (False, True):
         assert _rel(y_dft(x, inverse), y_dft_plain(x, inverse)) <= 1e-5
     torch.cuda.synchronize()
-    assert (y_dft.launches, y_dft.factored_launches) == (
-        n[0] + 2, n[1] + 2 * factored)
-    if not factored:
-        return
+    assert (y_dft.launches, y_dft.factored_launches,
+            y_dft.mixed_launches) == (n[0] + 2, n[1] + 2 * factored,
+                                      n[2] + 2 * mixed)
     for layout in {(1, 256), (2, 256), (4, 256), (8, 256), (1, 512),
-                   (2, 512), dft_kernels.Y_FACTORED_RB_BY_P[P]}:
+                   (2, 512), dft_kernels.y_dft_factored_launched(P)}:
         if y_dft_factored_takes(P, layout):
             for inverse in (False, True):
                 assert _rel(y_dft_factored(x, inverse, layout),
                             y_dft_plain(x, inverse)) <= 1e-5
     torch.cuda.synchronize()
-    assert y_dft.factored_launches == n[1] + 2      # y_dft_factored counts none
+    # y_dft_factored counts none.
+    assert (y_dft.factored_launches, y_dft.mixed_launches) == (
+        n[1] + 2 * factored, n[2] + 2 * mixed)
 
 
 def test_factored_wrapper_refuses_what_it_does_not_take(dev):
@@ -379,12 +383,15 @@ def test_factored_wrapper_refuses_what_it_does_not_take(dev):
         y_dft_factored(x[:, :, ::2], False)
     with pytest.raises(ValueError):
         y_dft(x[:, :, ::2], False)
-    with pytest.raises(ValueError):                 # a mixed extent
-        y_dft_factored(torch.zeros((2, 8, 384), device=dev), False)
+    for P in (128, 128 * 65):                       # N2 outside 2 ... 64
+        with pytest.raises(ValueError):
+            y_dft_factored(torch.zeros((2, 8, P), device=dev), False)
     with pytest.raises(ValueError):                 # Rb not a power of two
         y_dft_factored(x, False, (3, 256))
     with pytest.raises(ValueError):                 # no such block size
         y_dft_factored(x, False, (2, 128))
+    with pytest.raises(ValueError):                 # mixed: no such block size
+        y_dft_factored(torch.zeros((2, 8, 384), device=dev), False, (8, 128))
 
 
 COUNTED = (fused_step, y_dft, pair_x_symbols, x_dft, x_symbols_inverse,

@@ -13,9 +13,11 @@
 //
 // K4 has two kernels chosen by shape: x_dft_cluster_kernel, a thread-block
 // cluster that runs the factored transform in one pass over the field, for
-// M = 128 * 2^a, and x_dft_kernel for the rest. So has K2:
+// M = 128 * 2^a, and x_dft_kernel for the rest. K2 has three:
 // y_dft_factored_kernel, the same factoring along the rows, for P = 128 *
-// 2^b (256 <= P <= 8192), and y_dft_kernel for the rest. So has K5:
+// 2^b (256 <= P <= 8192), its mixed-radix form y_dft_mixed_kernel for the
+// other P = 128 * n (3 <= n <= 63), and y_dft_kernel for the rest (P <= 128
+// and P not a multiple of 128). K5 has two:
 // x_symbols_cluster_kernel, K4's cluster inverse behind the symbol stage,
 // for M = 128 * 2^a, and x_symbols_inverse_kernel for the rest. So has K3:
 // pair_x_cluster_kernel, K4's cluster forward half in front of K5's
@@ -33,12 +35,15 @@
 // 2048-point transform takes 3 barriers instead of 11. Twiddles come from a
 // float32 table of exp(-2 pi i k/R), k < R/2, built in float64 on the host.
 //
-// An extent N = R * m with R = 2^logr and m odd (the reference's 128 * n,
-// e.g. 384 = 128 * 3 or 1536 = 512 * 3) runs the radix-2 passes on m
-// sub-columns of length R, sub-column q holding x[m r + q] at q * sub +
-// pad(r), and joins them with an m-point DFT (mixed_fwd / mixed_inv, on a
-// second float32 table of exp(-2 pi i j/N), j < N). The power-of-two case
-// (m = 1) is a separate template instance with no joining stage.
+// In the whole-row and whole-column kernels, an extent N = R * m with R =
+// 2^logr and m odd (the reference's 128 * n, e.g. 384 = 128 * 3 or 1536 =
+// 512 * 3) runs the radix-2 passes on m sub-columns of length R, sub-column
+// q holding x[m r + q] at q * sub + pad(r), and joins them with an m-point
+// DFT (mixed_fwd / mixed_inv, on a second float32 table of exp(-2 pi i j/N),
+// j < N). The power-of-two case (m = 1) is a separate template instance
+// with no joining stage. K2's mixed-radix factored kernel instead runs a
+// mixed-radix sweep of register butterflies (radix 2^c, 3, 5, 7) and one
+// direct prime pass, so an element pays about the sum of n's prime factors.
 //
 // K2's and K3's bodies (y_rows, pair_x_task) and the FFT building blocks
 // live in fft_device.cuh, which the one-launch kernels of fused_kernels.cu
@@ -59,8 +64,9 @@ namespace {
 // Inverse: permuted -> natural order, scaled 1/P.
 //
 // Bound: device-memory bandwidth (one read and one write of the field,
-// 2 x 33.5 MB at 2048^2, against ~5 P log2 P flops per row). Design: one
-// block per row; the row's P complex values (16 KB at P = 2048) sit in
+// 2 x 33.5 MB at 2048^2, against ~5 P log2 P flops per row). Since the
+// factored kernels below took every P = 128 * n, 2 <= n <= 64, this one
+// runs P <= 128 and P not a multiple of 128. Design: one block per row; the row's P complex values (16 KB at P = 2048) sit in
 // shared memory for all log2 P stages, the reorder into permuted order is a
 // gather from shared memory, and global reads and writes are contiguous
 // along the row. For P = R * m (m odd > 1) the forward pass joins the m
@@ -306,9 +312,26 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b, bool conj_b) {
                 : make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
+// The columns of a pass: 2^lognc of them (an int, shift and mask), or any
+// count (NCols: the mixed-extent K2's stage B over Rb N2 p-rows). t is
+// column t mod count of group t / count.
+struct NCols {
+  int n;
+};
+__device__ __forceinline__ int cols_times(int lognc, int x) { return x << lognc; }
+__device__ __forceinline__ int cols_times(NCols c, int x) { return x * c.n; }
+__device__ __forceinline__ int cols_group(int lognc, int t) { return t >> lognc; }
+__device__ __forceinline__ int cols_group(NCols c, int t) { return t / c.n; }
+__device__ __forceinline__ int cols_col(int lognc, int t, int) {
+  return t & ((1 << lognc) - 1);
+}
+__device__ __forceinline__ int cols_col(NCols c, int t, int g) {
+  return t - g * c.n;
+}
+
 // One radix-2^K pass (K consecutive radix-2 stages, spans 2^(lo+K-1) ..
-// 2^lo) over 2^lognc columns of length 2^logn by a block of kThreads
-// threads: thread t takes column t mod 2^lognc and a group of 2^K
+// 2^lo) over `cols` columns of length 2^logn by a block of kThreads
+// threads: thread t takes column t mod (column count) and a group of 2^K
 // elements, read through in(pos, col) into registers and written through
 // out(pos, col, value), so that a pass can read device memory or a peer's
 // shared memory and write either. A warp takes consecutive columns of a
@@ -316,14 +339,14 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b, bool conj_b) {
 // element j's twiddle index at stage q is written as (g mod 2^lo) +
 // (j mod 2^q) 2^lo, so that the compiler loads each of a group's 2^K - 1
 // distinct twiddles once, not once a butterfly.
-template <int K, bool kInverse, int kThreads, class In, class Out>
-__device__ __forceinline__ void il_pass(int lognc, int logn, int lo,
+template <int K, bool kInverse, int kThreads, class Cols, class In, class Out>
+__device__ __forceinline__ void il_pass(Cols cols, int logn, int lo,
                                         const float2* tw, In in, Out out) {
   constexpr int GS = 1 << K;
   const int s = 1 << lo;
-  const int count = (1 << (logn - K)) << lognc;   // groups x columns
+  const int count = cols_times(cols, 1 << (logn - K));   // groups x columns
   for (int t = threadIdx.x; t < count; t += kThreads) {
-    const int g = t >> lognc, col = t & ((1 << lognc) - 1);
+    const int g = cols_group(cols, t), col = cols_col(cols, t, g);
     const int base = ((g >> lo) << (lo + K)) + (g & (s - 1));
     float2 x[GS];
 #pragma unroll
@@ -355,8 +378,8 @@ __device__ __forceinline__ void il_pass(int lognc, int logn, int lo,
   }
 }
 
-template <bool kInverse, int kThreads, class In, class Out>
-__device__ __forceinline__ void il_pass_k(int k, int lognc, int logn, int lo,
+template <bool kInverse, int kThreads, class Cols, class In, class Out>
+__device__ __forceinline__ void il_pass_k(int k, Cols lognc, int logn, int lo,
                                           const float2* tw, In in, Out out) {
   switch (k) {
     case 4: return il_pass<4, kInverse, kThreads>(lognc, logn, lo, tw, in, out);
@@ -368,17 +391,18 @@ __device__ __forceinline__ void il_pass_k(int k, int lognc, int logn, int lo,
 }
 
 // Radix-2 DIF (forward: natural in, bit-reversed out) or inverse DIT
-// (bit-reversed in, natural out, unscaled) of 2^lognc columns of length
-// 2^logn by a block of kThreads threads (il_pass), in passes of at most
-// kGroupStages stages: the first as long as leaves the rest at least 2
+// (bit-reversed in, natural out, unscaled) of columns of length 2^logn
+// (2^lognc of them, or an NCols count) by a block of kThreads threads
+// (il_pass), in passes of at most kGroupStages stages: the first as long
+// as leaves the rest at least 2
 // each (64 points: 4 + 2, 128: 4 + 3, 32: 3 + 2), so its loads are few,
 // long batches. The first pass reads through in(pos, col), the last writes
 // through out(pos, col, value); between passes element (pos, col) sits in
 // shared memory at at(pos, col), with a barrier after each write.
 // after_first() runs after the first pass. No barrier after the last pass.
-template <int kThreads, bool kInverse, class In, class Out, class At,
-          class Mid>
-__device__ void il_fft_at(int lognc, int logn, const float2* tw, In in,
+template <int kThreads, bool kInverse, class Cols, class In, class Out,
+          class At, class Mid>
+__device__ void il_fft_at(Cols lognc, int logn, const float2* tw, In in,
                           Out out, At at, Mid after_first) {
   auto rd = [=](int pos, int col) { return *at(pos, col); };
   auto wr = [=](int pos, int col, float2 v) { *at(pos, col) = v; };
@@ -530,8 +554,8 @@ x_dft_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
 // K2 on power-of-two extents, P = 128 * 2^b (1 <= b <= 6): the factored row
 // kernel. It computes what y_dft_kernel computes, and so replaces the same
 // TPU function, tpu_qg/ops/pallas_fft.py PlanarFFT2._call_y (:1100);
-// y_dft_kernel keeps the mixed extents P = R * m (m odd > 1) and P <= 128,
-// and y_rows stays the one-launch kernels' row task.
+// y_dft_mixed_kernel (below) takes the other P = 128 * n, y_dft_kernel keeps
+// P <= 128, and y_rows stays the one-launch kernels' row task.
 //
 // Bound: device-memory bandwidth, one read and one write of the field (2 x
 // 537 MB at 8192^2: 0.321 ms at 3.35 TB/s). y_dft_kernel holds a whole row
@@ -676,6 +700,502 @@ y_dft_factored_kernel(const float* __restrict__ in, float* __restrict__ out,
           out[off] = v.x * scale;
           out[off + plane] = v.y * scale;
         }, at_a, none);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2 on the mixed extents, P = 128 * N2 with N2 = 2^c m, m odd > 1 (3 <=
+// N2 <= 63): the factored row kernel with a mixed-radix stage A. It
+// computes what y_dft_kernel computes, and so replaces the same TPU
+// function, tpu_qg/ops/pallas_fft.py PlanarFFT2._call_y (:1100), on the
+// extents 384, 640, 768, ..., 2432, ..., 8064.
+//
+// Bound: device-memory bandwidth, one read and one write of the field
+// (2 x 47.3 MB at (2, 2432, 2432): 0.0282 ms at 3.35 TB/s; 0.0113 at
+// 1536^2, 0.0451 at 3072^2, 0.180 at 6144^2). y_dft_kernel joins the m
+// radix-2 sub-transforms of a row with an m-point DFT per output element
+// (mixed_fwd: m complex MACs, m reads of each plane and of the P-entry
+// table, 19 at 2432; the inverse the same over a second row buffer), and
+// loads, transforms and gathers one after another in a block per row.
+//
+// The design is y_dft_factored_kernel's (N1 = 128, slot k2 N1 + k1 holding
+// frequency k2 + N2 k1, the same p-row layout, stage B and sweeps); only
+// stage A, the N2-point DFT along n2, changes. It runs as a mixed-radix
+// Sande-Tukey sweep over the pass plan r_0 r_1 ... (dft_kernels.
+// y_dft_mixed_plan: 2^c as one radix-2^c register pass, then 3s, 5, 7,
+// and at most one prime p >= 11, last), so each element pays about the
+// sum of N2's prime factors, as tpu_qg's _chunk_dft does:
+//   pass t, span L = N2 / (r_0 ... r_t): for each column, block b and j <
+//   L, the r_t values at b r_t L + j + a L (a < r_t) are transformed and
+//   output k is multiplied by W_(r_t L)^(j k);
+//   radix 2, 4, 8, 16: radix-2 DIF in registers on constant weights;
+//   radix 3, 5, 7: the paired butterfly (x_j + x_(r-j), x_j - x_(r-j)) on
+//   constant weights; a prime p >= 11: the same paired form read from
+//   shared memory, each thread taking up to kPrimeOutputs output pairs of
+//   one column and reading the weights W_p^(ik) from a (p-1)/2 x (p+1)/2
+//   table built once a block (a warp's lanes share k: a broadcast), with a
+//   barrier between its reads and its in-place writes.
+// After stage A p-row p holds k2 = rho(p), the digit reversal of the plan
+// (rho = bitrev when every radix is 2), which both sweeps read from a
+// table in shared memory; the last pass multiplies by W_P^(n1 k2) from
+// the thi/tlo split (P / 64 = 2 N2 is whole). The inverse is the mirror
+// image: the load sweep by rho, the 128-point inverse DIT times
+// conj(W_P^(n1 k2)), then the passes in reverse order as DIT passes
+// (conj(W) on the inputs, the inverse butterfly), the last writing x / P to
+// device memory (1/P a float32 product, not exact for m > 1). Where N2 is
+// itself a prime >= 11, the forward loads the rows into shared memory
+// first, so that the prime pass reads only shared memory. Index maps go
+// through a multiply-shift division by N2 and by each span (exact for the
+// small quotients here) in place of y_dft_factored_kernel's shifts.
+// Shared memory: Rb N2 p-rows, the N2-, 64-, 64- and 2 N2-entry tables,
+// the two N2-entry maps and the prime pass's weights
+// (dft_kernels.y_dft_factored_layout), at most 74.5 KB (N2 = 61, Rb = 1):
+// three blocks an SM. dft_kernels.y_dft_factored_launched takes Rb N2 >= 32
+// (the bank argument above needs 16; 32 was the fastest layout measured).
+// ---------------------------------------------------------------------------
+
+// cos and sin of 2 pi k / R for the register radices, 0 <= k <= R / 2
+// (R = 16 serves 2, 4 and 8): literals, so that a butterfly unrolled over
+// compile-time k multiplies by constants.
+__host__ __device__ constexpr float rad_cos(int R, int k) {
+  return R == 3   ? (k == 0 ? 1.0f : -0.5f)
+         : R == 5 ? (k == 0 ? 1.0f : k == 1 ? 0.309016994f : -0.809016994f)
+         : R == 7 ? (k == 0   ? 1.0f
+                     : k == 1 ? 0.623489802f
+                     : k == 2 ? -0.222520934f
+                              : -0.900968868f)
+                  : (k == 0   ? 1.0f
+                     : k == 1 ? 0.923879533f
+                     : k == 2 ? 0.707106781f
+                     : k == 3 ? 0.382683432f
+                     : k == 4 ? 0.0f
+                     : k == 5 ? -0.382683432f
+                     : k == 6 ? -0.707106781f
+                     : k == 7 ? -0.923879533f
+                              : -1.0f);
+}
+__host__ __device__ constexpr float rad_sin(int R, int k) {
+  return R == 3   ? (k == 0 ? 0.0f : 0.866025404f)
+         : R == 5 ? (k == 0 ? 0.0f : k == 1 ? 0.951056516f : 0.587785252f)
+         : R == 7 ? (k == 0   ? 0.0f
+                     : k == 1 ? 0.781831482f
+                     : k == 2 ? 0.974927912f
+                              : 0.433883739f)
+                  : (k == 0 || k == 8 ? 0.0f
+                     : k == 1 || k == 7 ? 0.382683432f
+                     : k == 2 || k == 6 ? 0.707106781f
+                     : k == 3 || k == 5 ? 0.923879533f
+                                        : 1.0f);
+}
+
+__host__ __device__ constexpr int bitrev_c(int v, int bits) {
+  return bits == 0 ? 0 : ((v & 1) << (bits - 1)) | bitrev_c(v >> 1, bits - 1);
+}
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+
+// In-place R-point DFT (R = 2, 4, 8, 16; inverse: conjugate weights,
+// unscaled) of x in registers, natural order in and out: radix-2 DIF on
+// W_R^e = W_16^(e 16 / R), then the bit-reversed outputs put in order
+// (register renaming).
+template <int R, bool kInverse>
+__device__ __forceinline__ void dft_pow2(float2 (&x)[R]) {
+  constexpr int kLog = R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : 4;
+#pragma unroll
+  for (int h = R / 2; h >= 1; h /= 2) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (j & h) continue;
+      const int k = j + h;
+      const int e = (j & (h - 1)) * (8 / h);        // W_2h^(j mod h) = W_16^e
+      const float2 d = csub(x[j], x[k]);
+      x[j] = cadd(x[j], x[k]);
+      if (e == 0) {
+        x[k] = d;
+      } else if (e == 4) {                        // times -i (inverse: +i)
+        x[k] = kInverse ? make_float2(-d.y, d.x) : make_float2(d.y, -d.x);
+      } else {
+        const float c = rad_cos(16, e);
+        const float s = kInverse ? rad_sin(16, e) : -rad_sin(16, e);
+        x[k] = make_float2(d.x * c - d.y * s, d.x * s + d.y * c);
+      }
+    }
+  }
+  float2 y[R];
+#pragma unroll
+  for (int b = 0; b < R; ++b) y[b] = x[bitrev_c(b, kLog)];
+#pragma unroll
+  for (int b = 0; b < R; ++b) x[b] = y[b];
+}
+
+// In-place R-point DFT (R = 3, 5, 7; inverse: conjugate weights,
+// unscaled) of x in registers, in the paired form: with s_j = x_j +
+// x_(R-j), d_j = x_j - x_(R-j), A_k = x_0 + sum_j cos(2 pi jk/R) s_j and
+// B_k = sum_j sin(2 pi jk/R) d_j, X_k = A_k -+ i B_k and X_(R-k) = A_k +- i
+// B_k (forward upper sign), so a pair of outputs costs (R-1)/2 multiplies
+// of each kind.
+template <int R, bool kInverse>
+__device__ __forceinline__ void dft_odd(float2 (&x)[R]) {
+  constexpr int H = R / 2;
+  float2 s[H], d[H];
+  float2 sum = x[0];
+#pragma unroll
+  for (int j = 1; j <= H; ++j) {
+    s[j - 1] = cadd(x[j], x[R - j]);
+    d[j - 1] = csub(x[j], x[R - j]);
+    sum = cadd(sum, s[j - 1]);
+  }
+#pragma unroll
+  for (int k = 1; k <= H; ++k) {
+    float2 a = x[0], b = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int j = 1; j <= H; ++j) {
+      const int t = (j * k) % R;
+      const float c = rad_cos(R, t <= H ? t : R - t);
+      const float sn = t <= H ? rad_sin(R, t) : -rad_sin(R, R - t);
+      a = make_float2(a.x + c * s[j - 1].x, a.y + c * s[j - 1].y);
+      b = make_float2(b.x + sn * d[j - 1].x, b.y + sn * d[j - 1].y);
+    }
+    const float2 lo = make_float2(a.x + b.y, a.y - b.x);   // A - i B
+    const float2 hi = make_float2(a.x - b.y, a.y + b.x);   // A + i B
+    x[k] = kInverse ? hi : lo;
+    x[R - k] = kInverse ? lo : hi;
+  }
+  x[0] = sum;
+}
+
+template <int R, bool kInverse>
+__device__ __forceinline__ void dft_reg(float2 (&x)[R]) {
+  if constexpr ((R & (R - 1)) == 0) {
+    dft_pow2<R, kInverse>(x);
+  } else {
+    dft_odd<R, kInverse>(x);
+  }
+}
+
+// Radix t of a pass plan packed one byte a radix (0: no more passes).
+__host__ __device__ __forceinline__ int plan_radix(int plan, int t) {
+  return (plan >> (8 * t)) & 255;
+}
+__host__ __device__ __forceinline__ bool reg_radix(int r) {
+  return r == 2 || r == 3 || r == 4 || r == 5 || r == 7 || r == 8 || r == 16;
+}
+// The prime >= 11 of N2 <= 63 (what is left after 2, 3, 5 and 7), or 0.
+__host__ __device__ __forceinline__ int y_mixed_prime(int n2) {
+  const int small[4] = {2, 3, 5, 7};
+  for (int t = 0; t < 4; ++t)
+    while (n2 % small[t] == 0) n2 /= small[t];
+  return n2 > 1 ? n2 : 0;
+}
+// x / d for 0 <= x < 65536 / d: (x * div_magic(d)) >> 16.
+__host__ __device__ __forceinline__ int div_magic(int d) {
+  return (65536 + d - 1) / d;
+}
+
+// One register pass of radix R of the mixed-radix sweep over 2^lognc
+// columns of length n, span L (see y_dft_mixed_kernel): thread t takes
+// column t mod 2^lognc and butterfly g = t / 2^lognc, block g / L, j = g
+// mod L, its R values read through in(pos, col) and written through
+// out(pos, col, value). Forward (DIF): the DFT, then output k times W_(R
+// L)^(j k) = tw[j k n / (R L)] (tw: W_n^e, e < n). Inverse (DIT): input k
+// times its conjugate, then the inverse DFT. The 2^c factor runs here, not
+// in il_pass: il_pass addresses a group as base + j 2^lo with shifts and
+// takes its per-stage twiddles from a 2^(logn-1)-entry table, but the 2^c
+// pass's span L is the odd cofactor of n and its twiddles are W_(R L)^(j k)
+// on the n-entry table, applied once after the whole R-point DFT.
+template <int R, bool kInverse, int kThreads, class In, class Out>
+__device__ __forceinline__ void radix_pass(int lognc, int n, int L,
+                                           const float2* tw, In in, Out out) {
+  const int NR = R * L, stride = n / NR, magic = div_magic(L);
+  const int count = (n / R) << lognc;
+  for (int t = threadIdx.x; t < count; t += kThreads) {
+    const int g = t >> lognc, col = t & ((1 << lognc) - 1);
+    const int blk = (g * magic) >> 16, j = g - blk * L;
+    const int base = blk * NR + j, js = j * stride;
+    float2 x[R];
+    if constexpr (!kInverse) {
+#pragma unroll
+      for (int a = 0; a < R; ++a) x[a] = in(base + a * L, col);
+      dft_reg<R, false>(x);
+#pragma unroll
+      for (int k = 0; k < R; ++k)
+        out(base + k * L, col,
+            k && js ? cmul(x[k], tw[js * k], false) : x[k]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const float2 v = in(base + k * L, col);
+        x[k] = k && js ? cmul(v, tw[js * k], true) : v;
+      }
+      dft_reg<R, true>(x);
+#pragma unroll
+      for (int a = 0; a < R; ++a) out(base + a * L, col, x[a]);
+    }
+  }
+}
+
+// Output pairs of a prime pass a thread keeps in registers (4 floats each):
+// 4 leaves the kernel fewer spills than 8, and ran faster at 2432^2 and
+// 7808^2 on an H100.
+constexpr int kPrimeOutputs = 4;
+
+// The prime pass (p >= 11) of the mixed-radix sweep: radix_pass's function,
+// in dft_odd's paired form with the weights W_p^(ik) read from the table
+// wp[(i - 1) (p + 1) / 2 + k], 1 <= i, k <= (p - 1) / 2 (k = 0 too), built
+// once a block. The (p + 1) / 2 output pairs k, p - k of a column's
+// butterfly are cut into nch chunks (a power of two) of at most
+// kPrimeOutputs; a round takes kThreads / nch butterflies, thread t chunk t
+// / (kThreads / nch), and each thread reads its butterfly's p inputs
+// through rd (shared memory), then, after a barrier that every thread
+// reaches, writes its outputs through out, so that a pass may run in
+// place: distinct butterflies touch distinct elements.
+template <bool kInverse, int kThreads, class Rd, class Out>
+__device__ __forceinline__ void prime_pass(int p, int lognc, int n, int L,
+                                           const float2* tw, const float2* wp,
+                                           Rd rd, Out out) {
+  constexpr int T = kPrimeOutputs;
+  const int NR = p * L, stride = n / NR, magic = div_magic(L);
+  const int half = (p + 1) / 2;
+  int nch = 1;
+  while (nch * T < half) nch *= 2;
+  const int tc = (half + nch - 1) / nch;
+  const int per = kThreads / nch;
+  const int ch = threadIdx.x / per, ul = threadIdx.x - ch * per;
+  const int k0 = ch * tc, nk = min(tc, half - k0);
+  const int units = (n / p) << lognc;
+  for (int u0 = 0; u0 < units; u0 += per) {
+    const int u = u0 + ul;
+    const bool active = u < units;
+    const int g = u >> lognc, col = u & ((1 << lognc) - 1);
+    const int blk = (g * magic) >> 16, j = g - blk * L;
+    const int base = blk * NR + j, js = j * stride;
+    float2 x0 = make_float2(0.0f, 0.0f);
+    float2 A[T], B[T];
+#pragma unroll
+    for (int v = 0; v < T; ++v) A[v] = B[v] = make_float2(0.0f, 0.0f);
+    if (active) {
+      x0 = rd(base, col);
+      for (int i = 1; i < half; ++i) {
+        float2 xa = rd(base + i * L, col), xb = rd(base + (p - i) * L, col);
+        if (kInverse && js) {
+          xa = cmul(xa, tw[js * i], true);
+          xb = cmul(xb, tw[js * (p - i)], true);
+        }
+        const float2 s = cadd(xa, xb), d = csub(xa, xb);
+        const float2* wrow = wp + (i - 1) * half + k0;
+#pragma unroll
+        for (int v = 0; v < T; ++v) {
+          if (v < nk) {
+            const float2 w = wrow[v];        // (cos, -sin)(2 pi i k / p)
+            A[v] = make_float2(A[v].x + w.x * s.x, A[v].y + w.x * s.y);
+            B[v] = make_float2(B[v].x + w.y * d.x, B[v].y + w.y * d.y);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (!active) continue;
+#pragma unroll
+    for (int v = 0; v < T; ++v) {
+      if (v >= nk) continue;
+      const int k = k0 + v;
+      const float2 a = cadd(x0, A[v]), b = B[v];   // b = -sum sin d
+      const float2 lo = make_float2(a.x - b.y, a.y + b.x);   // A + i b
+      const float2 hi = make_float2(a.x + b.y, a.y - b.x);   // A - i b
+      float2 xk = kInverse ? hi : lo, xm = kInverse ? lo : hi;
+      if (!kInverse && js) {
+        xk = cmul(xk, tw[js * k], false);
+        xm = cmul(xm, tw[js * (p - k)], false);
+      }
+      out(base + k * L, col, xk);
+      if (k) out(base + (p - k) * L, col, xm);
+    }
+  }
+}
+
+template <bool kInverse, int kThreads, class In, class Out>
+__device__ __forceinline__ void mixed_pass(int r, int lognc, int n, int L,
+                                           const float2* tw, In in, Out out) {
+  switch (r) {
+    case 2: return radix_pass<2, kInverse, kThreads>(lognc, n, L, tw, in, out);
+    case 4: return radix_pass<4, kInverse, kThreads>(lognc, n, L, tw, in, out);
+    case 8: return radix_pass<8, kInverse, kThreads>(lognc, n, L, tw, in, out);
+    case 16: return radix_pass<16, kInverse, kThreads>(lognc, n, L, tw, in, out);
+    case 3: return radix_pass<3, kInverse, kThreads>(lognc, n, L, tw, in, out);
+    case 5: return radix_pass<5, kInverse, kThreads>(lognc, n, L, tw, in, out);
+    default: return radix_pass<7, kInverse, kThreads>(lognc, n, L, tw, in, out);
+  }
+}
+
+// The mixed-radix sweep over 2^lognc columns of length n (the plan's
+// product): forward the passes in plan order (DIF), inverse in reverse
+// order (DIT), wp the prime pass's weights. As il_fft_at: the first pass
+// reads through in, the last
+// writes through out, and between passes element (pos, col) sits at
+// at(pos, col) with a barrier after each pass but the last; a prime pass
+// reads at() even when it comes first (the caller puts the data there).
+template <int kThreads, bool kInverse, class In, class Out, class At>
+__device__ void mixed_fft_at(int lognc, int n, int plan, const float2* tw,
+                             const float2* wp, In in, Out out, At at) {
+  auto rd = [=](int pos, int col) { return *at(pos, col); };
+  auto wr = [=](int pos, int col, float2 v) { *at(pos, col) = v; };
+  int npass = 0;
+  while (npass < 4 && plan_radix(plan, npass)) ++npass;
+  for (int i = 0; i < npass; ++i) {
+    const int t = kInverse ? npass - 1 - i : i;
+    int L = n;
+    for (int u = 0; u <= t; ++u) L /= plan_radix(plan, u);
+    const int r = plan_radix(plan, t);
+    const bool first = i == 0, last = i == npass - 1;
+    if (!reg_radix(r)) {
+      if (last) {
+        prime_pass<kInverse, kThreads>(r, lognc, n, L, tw, wp, rd, out);
+      } else {
+        prime_pass<kInverse, kThreads>(r, lognc, n, L, tw, wp, rd, wr);
+      }
+    } else if (first && last) {
+      mixed_pass<kInverse, kThreads>(r, lognc, n, L, tw, in, out);
+    } else if (first) {
+      mixed_pass<kInverse, kThreads>(r, lognc, n, L, tw, in, wr);
+    } else if (last) {
+      mixed_pass<kInverse, kThreads>(r, lognc, n, L, tw, rd, out);
+    } else {
+      mixed_pass<kInverse, kThreads>(r, lognc, n, L, tw, rd, wr);
+    }
+    if (!last) __syncthreads();
+  }
+}
+
+template <int kThreads, bool kInverse>
+__global__ void __launch_bounds__(kThreads, y_min_blocks(kThreads))
+y_dft_mixed_kernel(const float* __restrict__ in, float* __restrict__ out,
+                   int rows, int n2, int logrb, int plan,
+                   const float2* __restrict__ wm) {
+  extern __shared__ float smem[];
+  float2* S = reinterpret_cast<float2*>(smem);
+  const int P = n2 << 7, rb = 1 << logrb;
+  float2* twa = S + rb * n2 * kYRowStride;           // W_N2^k, k < N2
+  float2* twb = twa + n2;                            // W_128^k, k < 64
+  float2* tlo = twb + 64;                            // W_P^j, j < 64
+  float2* thi = tlo + 64;                            // W_P^(64 j), j < P / 64
+  int* rho = reinterpret_cast<int*>(thi + 2 * n2);   // p-row -> k2
+  int* pos = rho + n2;                               // k2 -> p-row
+  // The prime pass's weights W_p^(ik), i = 1 .. (p - 1) / 2, k = 0 ..
+  // (p - 1) / 2, from the P-entry table at stride P / p.
+  float2* wp = reinterpret_cast<float2*>(pos + n2);
+  const int prime = y_mixed_prime(n2), half = (prime + 1) / 2;
+  for (int e = threadIdx.x; e < (half - 1) * half; e += kThreads) {
+    const int i = e / half + 1, k = e - (i - 1) * half;
+    wp[e] = wm[(i * k % prime) * (P / prime)];
+  }
+  for (int k = threadIdx.x; k < n2; k += kThreads) {
+    twa[k] = wm[k << 7];
+    // Digit reversal: p = sum_t b_t L_t -> k2 = sum_t b_t r_0 ... r_(t-1).
+    int rem = k, k2 = 0, mul = 1, span = n2;
+    for (int t = 0; t < 4 && plan_radix(plan, t); ++t) {
+      const int r = plan_radix(plan, t);
+      span /= r;
+      const int b = rem / span;
+      rem -= b * span;
+      k2 += b * mul;
+      mul *= r;
+    }
+    rho[k] = k2;
+    pos[k2] = k;
+  }
+  for (int k = threadIdx.x; k < 64; k += kThreads) {
+    twb[k] = wm[k * n2];
+    tlo[k] = wm[k];
+  }
+  for (int k = threadIdx.x; k < 2 * n2; k += kThreads) thi[k] = wm[k << 6];
+  __syncthreads();
+
+  const size_t plane = (size_t)rows * P;
+  const int row0 = blockIdx.x << logrb;
+  const int nrow = min(rb, rows - row0);
+  const size_t first = (size_t)row0 * P;
+  const int magic = div_magic(n2);        // c / N2 for c < Rb N2
+  auto ld = [=](int e) {                   // element e of the block's rows
+    return make_float2(__ldg(in + first + e), __ldg(in + first + e + plane));
+  };
+  auto twiddle = [=](int n1, int k2) {
+    const int j = n1 * k2;
+    return cmul(thi[j >> 6], tlo[j & 63], false);
+  };
+  // As y_dft_factored_kernel's, with row r's p-rows at r N2.
+  auto at_a = [=](int p, int col) {
+    return S + y_fac_at((col >> 7) * n2 + p, col & 127);
+  };
+  auto at_b = [=](int q, int col) { return S + y_fac_at(col, q); };
+  auto at_slot = [=](int i) {
+    const int c = i >> 7, r = (c * magic) >> 16;
+    return S + y_fac_at(r * n2 + pos[c - r * n2], bitrev(i & 127, 7));
+  };
+  auto at_elem = [=](int i) {              // element n2 N1 + n1 of row r
+    const int c = i >> 7, r = (c * magic) >> 16;
+    return at_a(c - r * n2, (r << 7) + (i & 127));
+  };
+  // Loads the block's rows to at(i), kBatch loads a thread in flight.
+  auto load_rows = [=](auto at) {
+    const int count = nrow * P;
+    for (int i0 = threadIdx.x; i0 < count; i0 += kBatch * kThreads) {
+      float2 v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        v[u] = ld(min(i0 + u * kThreads, count - 1));
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (i0 + u * kThreads < count) *at(i0 + u * kThreads) = v[u];
+      }
+    }
+    __syncthreads();
+  };
+  auto rd_b = [=](int q, int col) { return *at_b(q, col); };
+  auto none = [] {};
+  const int lognc_a = logrb + 7;
+  const NCols cols_b{rb * n2};
+
+  if constexpr (!kInverse) {
+    if (!reg_radix(plan_radix(plan, 0))) load_rows(at_elem);
+    mixed_fft_at<kThreads, false>(lognc_a, n2, plan, twa, wp,
+        [=](int n, int col) {     // a row past the field reads the last
+          return ld(min(col >> 7, nrow - 1) * P + (n << 7) + (col & 127));
+        },
+        [=](int p, int col, float2 v) {
+          *at_a(p, col) = cmul(v, twiddle(col & 127, rho[p]), false);
+        }, at_a);
+    __syncthreads();
+    il_fft_at<kThreads, false>(cols_b, 7, twb, rd_b,
+        [=](int q, int col, float2 v) { *at_b(q, col) = v; }, at_b, none);
+    __syncthreads();
+    for (int i = threadIdx.x; i < nrow * P; i += kThreads) {
+      const float2 v = *at_slot(i);
+      out[first + i] = v.x;
+      out[first + i + plane] = v.y;
+    }
+  } else {
+    load_rows(at_slot);
+    il_fft_at<kThreads, true>(cols_b, 7, twb, rd_b,
+        [=](int q, int col, float2 v) {
+          const int p = col - ((col * magic) >> 16) * n2;
+          *at_b(q, col) = cmul(v, twiddle(q, rho[p]), true);
+        }, at_b, none);
+    __syncthreads();
+    const float scale = 1.0f / static_cast<float>(P);
+    mixed_fft_at<kThreads, true>(lognc_a, n2, plan, twa, wp,
+        [=](int p, int col) { return *at_a(p, col); },
+        [=](int n, int col, float2 v) {
+          if ((col >> 7) >= nrow) return;
+          const size_t off = first + (size_t)(col >> 7) * P + (n << 7) +
+                             (col & 127);
+          out[off] = v.x * scale;
+          out[off + plane] = v.y * scale;
+        }, at_a);
   }
 }
 
@@ -1480,6 +2000,81 @@ extern "C" int qg_y_dft_factored_launch(const float* in, float* out, int rows,
        y_factored_smem(logn2, logrb),
        static_cast<cudaStream_t>(cuda_stream)>>>(
       in, out, rows, logn2, logrb, static_cast<const float2*>(wm));
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// Rb N2 p-rows, the four tables (N2, 64, 64 and 2 N2 float2), the two
+// N2-entry maps (int) and the prime pass's (p - 1) / 2 x (p + 1) / 2
+// weights (float2).
+int y_mixed_smem(int n2, int logrb) {
+  const int h = y_mixed_prime(n2) / 2;
+  return ((n2 << logrb) * kYRowStride + 3 * n2 + 128 + h * (h + 1)) *
+             static_cast<int>(sizeof(float2)) +
+         2 * n2 * static_cast<int>(sizeof(int));
+}
+
+using YMixedFn = void (*)(const float*, float*, int, int, int, int,
+                          const float2*);
+
+template <int kThreads>
+YMixedFn y_mixed_instance(int inverse) {
+  return inverse ? y_dft_mixed_kernel<kThreads, true>
+                 : y_dft_mixed_kernel<kThreads, false>;
+}
+
+// The mixed instance of a block size and direction (nullptr: no such
+// instance), its shared memory attribute set.
+YMixedFn y_mixed_fn(int n2, int logrb, int threads, int inverse, int* err) {
+  YMixedFn fn = threads == 256   ? y_mixed_instance<256>(inverse)
+                : threads == 512 ? y_mixed_instance<512>(inverse)
+                                 : nullptr;
+  *err = fn == nullptr || n2 < 3 || n2 > 63 || (n2 & (n2 - 1)) == 0 ||
+                 logrb < 0
+             ? static_cast<int>(cudaErrorInvalidValue)
+             : set_smem(reinterpret_cast<const void*>(fn),
+                        y_mixed_smem(n2, logrb));
+  return fn;
+}
+
+}  // namespace
+
+// The most blocks of the mixed K2's layout (P = 128 * n2, 2^logrb rows a
+// block, `threads` threads) that one SM holds, the instance of direction
+// `inverse`: 0 means the layout cannot run.
+extern "C" int qg_y_dft_mixed_occupancy(int n2, int logrb, int threads,
+                                        int inverse, int* blocks) {
+  int err = 0;
+  YMixedFn fn = y_mixed_fn(n2, logrb, threads, inverse, &err);
+  if (err) return err;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, reinterpret_cast<const void*>(fn), threads,
+      y_mixed_smem(n2, logrb)));
+}
+
+// The mixed K2 on a planar (2, rows, 128 * n2) field; plan: the radices of
+// stage A in DIF order, one byte each (dft_kernels.y_dft_mixed_plan),
+// whose product must be n2; wm: the P-entry float2 table of W_P^j.
+extern "C" int qg_y_dft_mixed_launch(const float* in, float* out, int rows,
+                                     int n2, int logrb, int threads,
+                                     int inverse, int plan, const void* wm,
+                                     void* cuda_stream) {
+  // Radices whose product is n2, each a register radix or n2's prime.
+  int prod = 1;
+  for (int t = 0; t < 4 && plan_radix(plan, t); ++t) {
+    const int r = plan_radix(plan, t);
+    if (!reg_radix(r) && r != y_mixed_prime(n2))
+      return static_cast<int>(cudaErrorInvalidValue);
+    prod *= r;
+  }
+  if (prod != n2) return static_cast<int>(cudaErrorInvalidValue);
+  int err = 0;
+  YMixedFn fn = y_mixed_fn(n2, logrb, threads, inverse, &err);
+  if (err) return err;
+  fn<<<(rows + (1 << logrb) - 1) >> logrb, threads, y_mixed_smem(n2, logrb),
+       static_cast<cudaStream_t>(cuda_stream)>>>(
+      in, out, rows, n2, logrb, plan, static_cast<const float2*>(wm));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -420,6 +420,10 @@ def _lib():
                        [p, p, i, i, i, i, i, p, p])
         _build.declare(lib.qg_y_dft_factored_occupancy,
                        [i, i, i, i, ctypes.POINTER(ctypes.c_int)])
+        _build.declare(lib.qg_y_dft_mixed_launch,
+                       [p, p, i, i, i, i, i, i, p, p])
+        _build.declare(lib.qg_y_dft_mixed_occupancy,
+                       [i, i, i, i, ctypes.POINTER(ctypes.c_int)])
         _build.declare(lib.qg_x_symbols_cluster_launch,
                        [p] * 4 + [i] * 6 + [p, p, p])
         _build.declare(lib.qg_x_symbols_cluster_occupancy,
@@ -492,17 +496,103 @@ def _check_field(name: str, t: torch.Tensor) -> None:
 # Y_FACTORED_RB_BY_P, in the layout given there: at each, the layout of
 # chip_smoke.py's k2_sweep with the least device time both ways (graph_ms),
 # which was also less than y_dft_kernel's both ways in the same run
-# (PERF.md).
+# (PERF.md). Its mixed-radix form (csrc y_dft_mixed_kernel) takes the other
+# P = 128 * N2, 3 <= N2 <= 63, in the same layouts: y_dft launches Rb the
+# least power of two with Rb N2 >= Y_MIXED_PROWS, 256 threads. 32 p-rows
+# give stage B's warps a whole row of lanes (the source note's bank argument
+# needs 16), and were the fastest of chip_smoke.py's k2_mixed layouts at
+# N2 = 12, 19 and 24 (Rb = 4, 2, 2; PERF.md).
 Y_FACTORED_THREADS = (256, 512)
 Y_ROW_STRIDE = 135
 Y_FACTORED_RB_BY_P = {256: (1, 256), 512: (2, 256), 1024: (4, 256),
                       2048: (2, 256), 4096: (2, 256), 8192: (1, 256)}
+Y_MIXED_PROWS = 32
+Y_REG_RADICES = (2, 3, 4, 5, 7, 8, 16)   # csrc reg_radix
+
+
+def _is_pow2(n: int) -> bool:
+    return n >= 1 and n & (n - 1) == 0
+
+
+@functools.lru_cache(maxsize=128)
+def y_dft_mixed_plan(n: int) -> tuple[int, ...]:
+    """The radices of the factored K2's stage A, the N2 = n point DFT, in
+    DIF order (csrc y_dft_mixed_kernel): for n = 2^c m, m odd > 1, 2^c as
+    one radix-2^c register pass (c <= 4 for n <= 64), then the factors 3,
+    5 and 7 of m, then what is left of m (1 or a prime >= 11 for n < 121).
+    For a power of two, log2 n radix-2 stages (the power-of-two kernel's
+    il_pass groups them, which changes no index)."""
+    if _is_pow2(n):
+        return (2,) * (n.bit_length() - 1)
+    c = (n & -n).bit_length() - 1
+    m = n >> c
+    plan = [1 << c] if c else []
+    for r in (3, 5, 7):
+        while m % r == 0:
+            plan.append(r)
+            m //= r
+    if m > 1:
+        plan.append(m)
+    return tuple(plan)
+
+
+def y_dft_mixed_rho(plan) -> np.ndarray:
+    """rho[p] = the frequency k2 that position p holds after stage A's
+    passes over ``plan`` (DIF order): with spans L_t = n / (r_0 ... r_t)
+    and p = sum_t b_t L_t (b_t < r_t), k2 = sum_t b_t r_0 ... r_(t-1), the
+    digit reversal (csrc y_dft_mixed_kernel; bitrev when every radix is
+    2)."""
+    n = int(np.prod(plan, dtype=np.int64))
+    p = np.arange(n)
+    rho = np.zeros(n, np.int64)
+    span, mul = n, 1
+    for r in plan:
+        span //= r
+        rho += (p // span % r) * mul
+        mul *= r
+    return rho
+
+
+def _y_mixed_prime(n: int) -> int:
+    """The prime >= 11 of y_dft_mixed_plan(n), or 0 (csrc y_mixed_prime)."""
+    last = y_dft_mixed_plan(n)[-1] if n > 1 else 1
+    return last if last not in Y_REG_RADICES and last > 1 else 0
+
+
+@functools.lru_cache(maxsize=128)
+def _packed_plan(n: int) -> int:
+    """y_dft_mixed_plan(n) as the kernel takes it: one byte a radix, the
+    first lowest."""
+    return sum(r << (8 * t) for t, r in enumerate(y_dft_mixed_plan(n)))
+
+
+def _y_mixed(P: int) -> bool:
+    """True iff P = 128 * N2 with 3 <= N2 <= 63 not a power of two."""
+    n2 = P // _N1
+    return P == _N1 * n2 and 3 <= n2 <= 63 and not _is_pow2(n2)
+
+
+@functools.lru_cache(maxsize=128)
+def y_dft_factored_launched(P: int) -> tuple[int, int]:
+    """The layout (Rb, threads) y_dft launches at extent P: power-of-two
+    extents from Y_FACTORED_RB_BY_P (else (1, 256)), mixed ones the least
+    power-of-two Rb with Rb N2 >= Y_MIXED_PROWS that fits, 256 threads."""
+    if not _y_mixed(P):
+        return Y_FACTORED_RB_BY_P.get(P, (1, 256))
+    rb = 1
+    while (rb * (P // _N1) < Y_MIXED_PROWS and y_dft_factored_layout(
+            P, 2 * rb).smem <= SMEM_LIMIT):
+        rb *= 2
+    return rb, 256
 
 
 class YFactoredLayout(NamedTuple):
-    """The factored K2's block (csrc y_factored_smem): N2, Rb rows,
-    threads, and bytes of shared memory: Rb N2 p-rows of Y_ROW_STRIDE
-    float2 and the N2/2-, 64-, 64- and 2 N2-entry tables."""
+    """The factored K2's block (csrc y_factored_smem, y_mixed_smem): N2, Rb
+    rows, threads, and bytes of shared memory: Rb N2 p-rows of
+    Y_ROW_STRIDE float2, the stage-A table (N2/2 float2 for a power of
+    two, N2 for a mixed N2), the 64- and 64-entry tables, the 2 N2-entry
+    one and, for a mixed N2, the two N2-entry int maps of the digit
+    reversal and the prime pass's (p-1)/2 x (p+1)/2 float2 weights."""
     n2: int
     rb: int
     threads: int
@@ -512,36 +602,50 @@ class YFactoredLayout(NamedTuple):
 def y_dft_factored_layout(P: int, rb: int,
                           threads: int = 256) -> YFactoredLayout:
     n2 = P // _N1
-    smem = 8 * (rb * n2 * Y_ROW_STRIDE + n2 // 2 + 2 * 64 + 2 * n2)
+    if _y_mixed(P):
+        h = _y_mixed_prime(n2) // 2
+        smem = (8 * (rb * n2 * Y_ROW_STRIDE + 3 * n2 + 2 * 64 + h * (h + 1))
+                + 4 * 2 * n2)
+    else:
+        smem = 8 * (rb * n2 * Y_ROW_STRIDE + n2 // 2 + 2 * 64 + 2 * n2)
     return YFactoredLayout(n2, rb, threads, smem)
 
 
+@functools.lru_cache(maxsize=256)
 def y_dft_factored_takes(P: int, layout: tuple | None = None) -> bool:
     """True iff the factored kernel takes extent P at ``layout`` = (Rb,
-    threads) (by default the launched one, else (1, 256)): P = 128 * 2^b,
-    1 <= b <= 6, Rb a power of two, within one block's shared memory."""
+    threads) (by default the launched one, y_dft_factored_launched): P =
+    128 * N2 with 2 <= N2 <= 64 (a power of two: y_dft_factored_kernel;
+    else its mixed-radix form), Rb a power of two, within one block's
+    shared memory."""
     n2 = P // _N1
-    if P != _N1 * n2 or not 2 <= n2 <= 64 or n2 & (n2 - 1):
+    if P != _N1 * n2 or not 2 <= n2 <= 64:
         return False
-    rb, threads = layout or Y_FACTORED_RB_BY_P.get(P, (1, 256))
-    return (rb >= 1 and rb & (rb - 1) == 0 and threads in Y_FACTORED_THREADS
+    rb, threads = layout or y_dft_factored_launched(P)
+    return (rb >= 1 and _is_pow2(rb) and threads in Y_FACTORED_THREADS
             and y_dft_factored_layout(P, rb, threads).smem <= SMEM_LIMIT)
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=64)
 def y_dft_factored_occupancy(P: int, layout: tuple, device: int) -> int:
     """The most blocks of ``layout`` = (Rb, threads) at extent P that one
     SM of card ``device`` holds, in both directions
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor); 0: the layout cannot
     run."""
     rb, threads = layout
+    n2 = P // _N1
     counts = []
     with torch.cuda.device(device):
         for inverse in (0, 1):
             count = ctypes.c_int(0)
-            code = _lib().qg_y_dft_factored_occupancy(
-                (P // _N1).bit_length() - 1, rb.bit_length() - 1, threads,
-                inverse, ctypes.byref(count))
+            if _y_mixed(P):
+                code = _lib().qg_y_dft_mixed_occupancy(
+                    n2, rb.bit_length() - 1, threads, inverse,
+                    ctypes.byref(count))
+            else:
+                code = _lib().qg_y_dft_factored_occupancy(
+                    n2.bit_length() - 1, rb.bit_length() - 1, threads,
+                    inverse, ctypes.byref(count))
             _build.check(code, f"y_dft factored occupancy {layout} at P = {P}")
             counts.append(count.value)
     return min(counts)
@@ -549,31 +653,35 @@ def y_dft_factored_occupancy(P: int, layout: tuple, device: int) -> int:
 
 def y_dft_factored(z: torch.Tensor, inverse: bool,
                    layout: tuple | None = None) -> torch.Tensor:
-    """One launch of K2's factored kernel (csrc y_dft_factored_kernel) on a
-    CUDA (2, rows, P) float32 field, P = 128 * 2^b (1 <= b <= 6), with
-    ``layout`` = (Rb rows a block, threads), by default
-    Y_FACTORED_RB_BY_P[P]: y_dft's result. Raises on a shape or layout the
-    kernel does not take, a layout the card cannot schedule and a launch
-    error. Counts nothing: the counting wrapper is y_dft.
+    """One launch of K2's factored kernel on a CUDA (2, rows, P) float32
+    field, P = 128 * N2 (2 <= N2 <= 64): y_dft_factored_kernel for a power
+    of two, y_dft_mixed_kernel (stage A over y_dft_mixed_plan(N2)) for the
+    rest, with ``layout`` = (Rb rows a block, threads), by default
+    y_dft_factored_launched(P): y_dft's result. Raises on a shape or layout
+    the kernel does not take, a layout the card cannot schedule and a
+    launch error. Counts nothing: the counting wrapper is y_dft.
 
     Replaces, as y_dft_kernel does, tpu_qg/ops/pallas_fft.py
     PlanarFFT2._call_y (:1100). Bound: one read and one write of the field
-    (1074 MB at 8192^2, 0.321 ms at 3.35 TB/s). Why factored: y_dft_kernel
-    holds a row and its own copy of the twiddle table (98 KB a block at P =
-    8192, 16 warps an SM) and loads, transforms in four barrier-separated
-    passes and gathers one after another. This kernel runs
-    matmul_fft.FactoredFFT's factoring (y_dft_factored_plain): stage A's
-    first pass reads the row straight into registers, stage B leaves whole
-    128-slot runs of the permuted spectrum, and its tables are 2.25 KB a
-    block (design in the source)."""
+    (1074 MB at 8192^2, 0.321 ms at 3.35 TB/s; 94.6 MB at 2432^2, 0.0282
+    ms). Why factored: y_dft_kernel holds a row and its own copy of the
+    twiddle table (98 KB a block at P = 8192, 16 warps an SM) and loads,
+    transforms in four barrier-separated passes and gathers one after
+    another; on a mixed extent it joins its sub-transforms with an m-term
+    sum per element. This kernel runs matmul_fft.FactoredFFT's factoring
+    (y_dft_factored_plain; y_dft_factored_emulated runs the mixed form's
+    index maps): stage A's first pass reads the row straight into
+    registers, stage B leaves whole 128-slot runs of the permuted spectrum,
+    its tables are a few KB a block, and a mixed N2 pays about the sum of
+    its prime factors per element (design in the source)."""
     _, rows, P = z.shape
-    layout = tuple(layout or Y_FACTORED_RB_BY_P.get(P, (1, 256)))
+    layout = tuple(layout or y_dft_factored_launched(P))
     if z.device.type != "cuda":
         raise ValueError(f"y_dft_factored: unsupported device {z.device}")
     _check_field("y_dft_factored", z)
     if not y_dft_factored_takes(P, layout):
-        raise ValueError(f"y_dft_factored: P = {P} must be 128 * 2^b "
-                         f"(1 <= b <= 6) and the layout {layout} (Rb, "
+        raise ValueError(f"y_dft_factored: P = {P} must be 128 * N2 "
+                         f"(2 <= N2 <= 64) and the layout {layout} (Rb, "
                          f"threads) fit shared memory")
     rb, threads = layout
     device = z.device.index if z.device.index is not None else \
@@ -582,13 +690,85 @@ def y_dft_factored(z: torch.Tensor, inverse: bool,
         raise RuntimeError(f"y_dft_factored: the card cannot schedule "
                            f"layout {layout} at P = {P}")
     out = torch.empty_like(z)
-    code = _lib().qg_y_dft_factored_launch(
-        z.data_ptr(), out.data_ptr(), rows, (P // _N1).bit_length() - 1,
-        rb.bit_length() - 1, threads, int(inverse),
-        _twiddles(P, P, z.device).data_ptr(),
-        torch.cuda.current_stream(z.device).cuda_stream)
+    wm = _twiddles(P, P, z.device).data_ptr()
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    n2 = P // _N1
+    if _y_mixed(P):
+        code = _lib().qg_y_dft_mixed_launch(
+            z.data_ptr(), out.data_ptr(), rows, n2, rb.bit_length() - 1,
+            threads, int(inverse), _packed_plan(n2), wm, stream)
+    else:
+        code = _lib().qg_y_dft_factored_launch(
+            z.data_ptr(), out.data_ptr(), rows, n2.bit_length() - 1,
+            rb.bit_length() - 1, threads, int(inverse), wm, stream)
     _build.check(code, f"y_dft_factored (K2) {layout}")
     return out
+
+
+def y_dft_factored_emulated(z: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """What the factored kernel does on a (2, rows, P) field, P = 128 *
+    N2, with the CUDA source's index maps (y_dft_mixed_kernel's; for a
+    power of two y_dft_factored_kernel's, whose radix-2 stages are the
+    plan (2, ..., 2)), in plain torch: stage A as the passes of
+    y_dft_mixed_plan(N2), each butterfly's r-point DFT on the weights
+    W_r^(ab) and the twiddles W_(rL)^(jk) read from the kernel's N2-entry
+    table; p-row p then holds k2 = rho[p] (y_dft_mixed_rho), times
+    W_P^(n1 k2) from the thi/tlo split; stage B along n1 (torch.fft); the
+    sweep reads slot k2 N1 + k1 from p-row pos[k2]. The inverse mirrors
+    it: the sweep by rho, the inverse 128-point DFT times conj(W_P^(n1
+    k2)), the passes in reverse order as DIT passes, scaled 1/P. Returns
+    the planar result, y_dft_plain's."""
+    _, rows, P = z.shape
+    n2 = P // _N1
+    if P != _N1 * n2 or not 2 <= n2 <= 64:
+        raise ValueError(f"the factored kernel does not take P = {P}")
+    plan = y_dft_mixed_plan(n2)
+    rho = torch.as_tensor(y_dft_mixed_rho(plan), device=z.device)
+    cdt = _complex_dtype(z.dtype)
+    wm = torch.as_tensor(np.exp(-2j * np.pi * np.arange(P) / P),
+                         device=z.device).to(cdt)
+    twa = wm[::_N1]                                  # W_N2^k, k < N2
+    n1 = torch.arange(_N1, device=z.device)
+    j = n1[None, :] * rho[:, None]                   # (p, n1): n1 k2
+    twiddle = wm[(j >> 6) << 6] * wm[j & 63]         # thi[j >> 6] tlo[j & 63]
+    passes, span = [], n2
+    for r in plan:
+        span //= r
+        passes.append((r, span))
+
+    def dft_weights(r: int, conj: bool) -> torch.Tensor:
+        e = (np.outer(np.arange(r), np.arange(r)) % r) * (n2 // r)
+        w = twa[torch.as_tensor(e, device=z.device)]
+        return w.conj() if conj else w
+
+    def stage_twiddles(r: int, L: int, conj: bool) -> torch.Tensor:
+        # (r, L): W_(rL)^(j k) = twa[j k N2 / (r L)], output k, offset j.
+        e = np.outer(np.arange(r), np.arange(L)) * (n2 // (r * L))
+        w = twa[torch.as_tensor(e, device=z.device)]
+        return w.conj() if conj else w
+
+    c = torch.complex(z[0], z[1])
+    if not inverse:
+        y = c.reshape(rows, n2, _N1)
+        for r, L in passes:            # position blk r L + a L + j
+            y = y.reshape(rows, n2 // (r * L), r, L, _N1)
+            y = torch.einsum("xbajc,ak->xbkjc", y, dft_weights(r, False))
+            y = (y * stage_twiddles(r, L, False)[None, None, :, :, None]
+                 ).reshape(rows, n2, _N1)
+        y = torch.fft.fft(y * twiddle, dim=2)      # (p, k1): k2 = rho[p]
+        out = torch.empty_like(y)
+        out[:, rho, :] = y
+        out = out.reshape(rows, P)
+    else:
+        y = c.reshape(rows, n2, _N1)[:, rho, :]     # p-row p <- slot k2 = rho[p]
+        y = torch.fft.ifft(y, dim=2, norm="forward") * twiddle.conj()
+        for r, L in reversed(passes):
+            y = y.reshape(rows, n2 // (r * L), r, L, _N1)
+            y = y * stage_twiddles(r, L, True)[None, None, :, :, None]
+            y = torch.einsum("xbkjc,ka->xbajc", y, dft_weights(r, True))
+            y = y.reshape(rows, n2, _N1)
+        out = y.reshape(rows, P) * (1.0 / P)
+    return _planar(out, z.dtype)
 
 
 def y_dft_whole_row(z: torch.Tensor, inverse: bool) -> torch.Tensor:
@@ -615,15 +795,21 @@ def y_dft_whole_row(z: torch.Tensor, inverse: bool) -> torch.Tensor:
 
 def y_dft(z: torch.Tensor, inverse: bool) -> torch.Tensor:
     """K2 on CUDA tensors (one launch), the plain version on CPU tensors.
-    Two hand-written kernels chosen by shape: the factored kernel
-    (y_dft_factored) at the extents of Y_FACTORED_RB_BY_P, counted also in
-    ``y_dft.factored_launches``; y_dft_kernel (y_dft_whole_row) on the rest
-    (mixed extents P = R * m, m odd > 1, and P <= 128)."""
+    Hand-written kernels chosen by shape, all counted in ``y_dft.launches``:
+    on P = 128 * N2, 2 <= N2 <= 64, the factored kernel (y_dft_factored):
+    y_dft_factored_kernel for a power of two, counted also in
+    ``y_dft.factored_launches``, y_dft_mixed_kernel for the rest, counted
+    also in ``y_dft.mixed_launches``; y_dft_kernel (y_dft_whole_row) on
+    every other extent it takes (P <= 128, P not a multiple of 128)."""
     if z.device.type == "cpu":
         return y_dft_plain(z, inverse)
-    if z.shape[-1] in Y_FACTORED_RB_BY_P:
+    P = z.shape[-1]
+    if y_dft_factored_takes(P):
         out = y_dft_factored(z, inverse)
-        y_dft.factored_launches += 1
+        if _y_mixed(P):
+            y_dft.mixed_launches += 1
+        else:
+            y_dft.factored_launches += 1
     else:
         out = y_dft_whole_row(z, inverse)
     y_dft.launches += 1
@@ -632,6 +818,7 @@ def y_dft(z: torch.Tensor, inverse: bool) -> torch.Tensor:
 
 y_dft.launches = 0
 y_dft.factored_launches = 0
+y_dft.mixed_launches = 0
 
 
 def pair_x_stride(n: int) -> int:
