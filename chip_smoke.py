@@ -45,12 +45,21 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    ms each way beside
    y_dft_kernel (the kernel it replaces, checked), torch.fft.fft along y and a copy,
    in turns, both ways of timing (k2_mixed); the mixed instances' ptxas
-   lines in the build phase;
+   lines in the build phase; K4's mixed extents on (2, n, n), n = 2560,
+   3072, 4224, 6144 and 7808: the mixed cluster kernel
+   (x_dft_cluster_mixed_kernel) in every layout (G, Cw) that fits, checked,
+   with the clusters the card holds, ms each way beside x_dft_kernel (the
+   kernel it replaces, checked), one torch.fft.fft along x and a copy, in
+   turns, both ways of timing (k4_mixed); its ptxas line in the build
+   phase;
    K2, K4 (x-DFT, both ways,
    and its cluster kernel's first half, stage A) and K5 (symbols + inverse
    x-DFT) at (2, 4096, 4096) and
-   (2, 8192, 8192), K4 also at (2, 8192, 252) (a ragged last cluster tile)
-   and (2, 6144, 2048) (x_dft_kernel's mixed extent), K5 also at
+   (2, 8192, 8192), K4 also at (2, 8192, 252) (a ragged last cluster tile),
+   as "K4 mixed" at (2, n, n), n = 2560, 3072, 4224 and 6144, (2, 7808,
+   512) and (2, 6144, 2048) (its mixed cluster kernel, both ways and stage
+   A, the mixed count checked) and at (2, 768, 384) (x_dft_kernel, M < 128
+   G, neither cluster count moving), K5 also at
    (2, 8192, 384) (strip 0's ragged tile, an odd strip count; K5 by its
    cluster kernel at each of these, counted) and (2, 6144, 384)
    (x_symbols_inverse_kernel's mixed extent); K4's cluster kernel
@@ -90,8 +99,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    cluster kernel) and with step_chain="on" (20: K15, K4, K5, K2; the same);
    turbulence-2048's configuration at 1536^2 (100 steps: K1, K2, K3, every
    K2 launch by the mixed-radix kernel, "K2 mixed" = K2, K3 by pair_x_kernel)
-   and at 3072^2 (50: K1, K2, K4, K5; the same, K4 and K5 by their
-   whole-column kernels).
+   and at 3072^2 (50: K1, K2, K4, K5; the same, every K4 launch by the
+   mixed cluster kernel, "K4 mixed" = K4, K5 by its whole-column kernel).
    Then, with the counts set to 0 again each time, two
    multigrid paths: 20 warm-started MultigridModalInverter calls on the zeta
    one default step after the pod-8192 slice (pod-8192-mg: 2 cycles a call,
@@ -162,7 +171,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 
 The line before the last is {"kernels": [...]}, every kernel with its
 launches in phase 4 (K2 mixed a row of its own, at (2, 2432, 2432), its
-launches not in K2's), its largest error, its ms, its plain version's ms
+launches not in K2's; K4 mixed likewise, at (2, 3072, 3072)), its largest error, its ms, its plain version's ms
 (K10/K11: at the 8192 level, with every level of both solvers beside),
 its bound (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
 the larger) and its library call's ms; the last is {"ok": true, "device":
@@ -201,7 +210,8 @@ from tpu_qg_torch.ops.dft_kernels import (
     paired_x_symbols_plain,
     stream_pair_symbols, stream_pair_symbols_plain, x_dft, x_dft_cluster,
     x_dft_cluster_layout, x_dft_cluster_occupancy, x_dft_cluster_takes,
-    x_dft_plain, x_dft_stage_a, x_dft_stage_a_plain, x_fwd_symbols_offset,
+    x_dft_plain, x_dft_stage_a, x_dft_stage_a_plain, x_dft_whole_columns,
+    x_fwd_symbols_offset,
     x_fwd_symbols_offset_plain, x_symbols_cluster, x_symbols_cluster_layout,
     x_symbols_cluster_occupancy, x_symbols_cluster_takes, x_symbols_inverse,
     x_symbols_inverse_plain, x_symbols_whole_columns, y_dft, y_dft_factored,
@@ -251,7 +261,8 @@ MIXED_PATHS = ("turbulence-2048 at 1536^2", "turbulence-2048 at 3072^2")
 # K9 is K1's tile; K10/K11 carry tests/test_multigrid.py's kernel gate; an
 # MG path's psi the dryrun multigrid gate (commit 26d1ffc) against the
 # plain MG route.
-TOL = {"K1": 1e-6, "K2": 1e-5, "K2 mixed": 1e-5, "K3": 1e-4, "K4": 1e-5, "K5": 1e-4,
+TOL = {"K1": 1e-6, "K2": 1e-5, "K2 mixed": 1e-5, "K3": 1e-4, "K4": 1e-5,
+       "K4 mixed": 1e-5, "K5": 1e-4,
        "K7": 1e-4, "K8": 1e-6, "K9": 1e-6, "K10": 1e-6, "K11": 1e-6,
        "K12": 1e-6, "K13": 1e-4, "K14": 1e-4, "K15": 1e-6,
        "K15 zeta_ys": 1e-5, "K15s": 1e-6, "K16": 1e-4, "K17": 1e-6,
@@ -297,7 +308,8 @@ KERNELS = {
 
 class KernelCount:
     """A wrapper's count of the launches that took one of its two kernels
-    (x_dft.cluster_launches: K4's cluster kernel;
+    (x_dft.cluster_launches: K4's cluster kernel; x_dft.mixed_launches:
+    its mixed-radix form;
     x_symbols_inverse.cluster_launches: K5's;
     pair_x_symbols.cluster_launches: K3's;
     x_fwd_symbols_offset.cluster_launches and
@@ -329,6 +341,7 @@ COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
             "K13": x_fwd_symbols_offset, "K14": paired_x_symbols,
             "K15s": fused_step_yspec_sharded, "K18": lab_step,
             "K4 cluster": KernelCount(x_dft, "cluster_launches"),
+            "K4 mixed": KernelCount(x_dft, "mixed_launches"),
             "K5 cluster": KernelCount(x_symbols_inverse, "cluster_launches"),
             "K3 cluster": KernelCount(pair_x_symbols, "cluster_launches"),
             "K13 cluster": KernelCount(x_fwd_symbols_offset,
@@ -359,6 +372,7 @@ TRACE_NAMES = (("K12", "step_rows_sharded_kernel"),
                ("K8", "pre_inversion_kernel"),
                ("K5", "x_symbols_cluster_kernel"),
                ("K5", "x_symbols_inverse_kernel"),
+               ("K4 mixed", "x_dft_cluster_mixed_kernel"),
                ("K4", "x_dft_cluster_kernel"), ("K4", "x_dft_kernel"),
                ("K3", "pair_x_cluster_kernel"), ("K3", "pair_x_kernel"),
                ("K2", "y_dft_factored_kernel"),
@@ -501,10 +515,11 @@ def phase_build() -> None:
     info = _build.build_info()
     lines = info["ptxas"].splitlines()
     regs = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
-    # K4's, K5's, K3's and K13/K14's cluster kernels and K2's factored
-    # kernel and its mixed-radix form: each instance's registers, shared
-    # memory, spills.
-    named = {"x_dft_cluster_kernel": {}, "x_symbols_cluster_kernel": {},
+    # K4's, K5's, K3's and K13/K14's cluster kernels, K4's mixed-radix
+    # cluster kernel and K2's factored kernel and its mixed-radix form: each
+    # instance's registers, shared memory, spills.
+    named = {"x_dft_cluster_kernel": {}, "x_dft_cluster_mixed_kernel": {},
+             "x_symbols_cluster_kernel": {},
              "pair_x_cluster_kernel": {}, "pair_cols_cluster_kernel": {},
              "y_dft_factored_kernel": {}, "y_dft_mixed_kernel": {}}
     entry = None
@@ -518,6 +533,7 @@ def phase_build() -> None:
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=info["seconds"], library=info["path"], ptxas=regs,
          k4_cluster_ptxas=named["x_dft_cluster_kernel"],
+         k4_mixed_ptxas=named["x_dft_cluster_mixed_kernel"],
          k5_cluster_ptxas=named["x_symbols_cluster_kernel"],
          k3_cluster_ptxas=named["pair_x_cluster_kernel"],
          k13_k14_cluster_ptxas=named["pair_cols_cluster_kernel"],
@@ -799,6 +815,27 @@ K2_MIXED_SWEEP = {1536: ((2, 256), (4, 256), (8, 256), (4, 512)),
                   6144: ((1, 256), (2, 256))}
 
 
+def timed_in_turns(calls: dict, reps: int, sweep: dict) -> dict:
+    """ms a launch of each call keyed (name, inverse), in turns (in order,
+    then in reverse), host-launched (time_ms) and replayed from a CUDA graph
+    (graph_ms): the fields of a name in ``sweep`` go into its entry there,
+    the others into the returned dict, by name."""
+    runs = {k: ([], []) for k in calls}
+    for k in list(calls) + list(calls)[::-1]:
+        runs[k][0].append(time_ms(calls[k], reps))
+        runs[k][1].append(graph_ms(calls[k], reps))
+    entry = {}
+    for (key, inverse), (r, g) in runs.items():
+        way = "inverse_" if inverse else ""
+        fields = {f"{way}ms": sum(r) / 2, f"{way}graph_ms": sum(g) / 2,
+                  f"{way}runs_ms": r, f"{way}graph_runs_ms": g}
+        if key in sweep:
+            sweep[key].update(fields)
+        else:
+            entry.setdefault(key, {}).update(fields)
+    return entry
+
+
 def time_k2_mixed(errs, dev, card, reps=20) -> dict:
     """K2 on a mixed extent, (2, rows, P) of K2_MIXED_SHAPES: its
     mixed-radix factored kernel (y_dft_mixed_kernel) in the launched layout
@@ -847,19 +884,7 @@ def time_k2_mixed(errs, dev, card, reps=20) -> dict:
         del want
         calls[("library", False)] = lambda: torch.fft.fft(c64, dim=1)
         calls[("copy", False)] = lambda: x.clone()
-        runs = {k: ([], []) for k in calls}
-        for k in list(calls) + list(calls)[::-1]:
-            runs[k][0].append(time_ms(calls[k], reps))
-            runs[k][1].append(graph_ms(calls[k], reps))
-        entry = {}
-        for (key, inverse), (r, g) in runs.items():
-            way = "inverse_" if inverse else ""
-            fields = {f"{way}ms": sum(r) / 2, f"{way}graph_ms": sum(g) / 2,
-                      f"{way}runs_ms": r, f"{way}graph_runs_ms": g}
-            if key in sweep:
-                sweep[key].update(fields)
-            else:
-                entry.setdefault(key, {}).update(fields)
+        entry = timed_in_turns(calls, reps, sweep)
         entry["mixed"] = sweep[k2_layout_name(launched)]
         entry["layouts"] = sweep
         entry["launched"] = k2_layout_name(launched)
@@ -870,6 +895,76 @@ def time_k2_mixed(errs, dev, card, reps=20) -> dict:
         entry["bound_ms"] = bound("K2", rows, P)[0]
         emit("k2_mixed", card=card, shape=[2, rows, P], **entry)
         out[f"{rows}x{P}"] = entry
+        del x, c64, calls
+        free_memory()
+    return out
+
+
+# K4's mixed extents timed: the square grids check_k4_extents checks and
+# 7808^2 (the 61-point prime pass); every layout (G, Cw) that fits at each,
+# the launched one among them.
+K4_MIXED_GRIDS = (2560, 3072, 4224, 6144, 7808)
+
+
+def time_k4_mixed(errs, dev, card, reps=20) -> dict:
+    """K4 on a mixed extent, (2, n, n) of K4_MIXED_GRIDS: its mixed cluster
+    kernel (x_dft_cluster_mixed_kernel) in every layout (G, Cw) that fits
+    (its error against the plain version both ways, the clusters the card
+    holds at once), ms a launch each way beside x_dft_kernel (the kernel it
+    replaces, its error both ways recorded as K4's), one torch.fft.fft
+    along x of the same complex64 field and a torch copy, in turns (in
+    order, then in reverse), host-launched (time_ms) and replayed from a
+    CUDA graph (graph_ms); the plain version host-launched, ms a launch
+    over both ways, twice; the bound. Returns the entries by grid."""
+    rng = np.random.default_rng(SEED + 13)
+    out = {}
+    for n in K4_MIXED_GRIDS:
+        x = torch.as_tensor(rng.standard_normal((2, n, n)),
+                            dtype=torch.float32, device=dev)
+        c64 = torch.complex(x[0], x[1])
+        launched = k5_layout_name(dft_kernels.x_dft_cluster_launched(n))
+        want = [x_dft_plain(x, inverse) for inverse in (False, True)]
+        sweep, calls = {}, {}
+        for lay in ((g, c) for g in dft_kernels.CLUSTER_SIZES
+                    for c in dft_kernels.CLUSTER_WIDTHS):
+            if not x_dft_cluster_takes(n, *lay):
+                continue
+            key = k5_layout_name(lay)
+            occ = x_dft_cluster_occupancy(n, lay, dev.index)
+            sweep[key] = dict(smem=x_dft_cluster_layout(n, *lay).smem,
+                              max_active_clusters=occ)
+            if occ == 0:                 # the card cannot schedule it
+                continue
+            err = max(rel_err(x_dft_cluster(x, inverse, lay), w)[1]
+                      for inverse, w in enumerate(want))
+            sweep[key]["rel_err"] = err
+            if not err <= TOL["K4 mixed"]:
+                raise AssertionError(f"K4 mixed {key} at {n}^2: rel err "
+                                     f"{err} > {TOL['K4 mixed']}")
+            for inverse in (False, True):
+                calls[(key, inverse)] = (
+                    lambda lay=lay, inverse=inverse:
+                    x_dft_cluster(x, inverse, lay))
+        for inverse, w in zip((False, True), want):
+            errs.record("K4", f"x_dft_kernel {n}x{n} " + (
+                "inverse" if inverse else "forward"),
+                x_dft_whole_columns(x, inverse), w)
+            calls[("x_dft_kernel", inverse)] = (
+                lambda inverse=inverse: x_dft_whole_columns(x, inverse))
+        del want
+        calls[("library", False)] = lambda: torch.fft.fft(c64, dim=0)
+        calls[("copy", False)] = lambda: x.clone()
+        entry = timed_in_turns(calls, reps, sweep)
+        entry["mixed"] = sweep[launched]
+        entry["layouts"] = sweep
+        entry["launched"] = launched
+        entry["plan"] = dft_kernels.y_dft_mixed_plan(n // 128)
+        entry["plain_runs_ms"] = [time_ms(lambda: (
+            x_dft_plain(x, False), x_dft_plain(x, True)), reps) / 2
+            for _ in range(2)]
+        entry["bound_ms"] = bound("K4", n, n)[0]
+        emit("k4_mixed", card=card, grid=[n, n], **entry)
+        out[n] = entry
         del x, c64, calls
         free_memory()
     return out
@@ -888,10 +983,51 @@ def check_k5(errs, cfg, x, case) -> None:
         raise AssertionError(f"K5 {case}: {n} cluster launches")
 
 
+# K4's mixed extents checked (check_k4_extents), each by the mixed cluster
+# kernel: the grids K4_MIXED_GRIDS times (2560^2, the 3072^2 path's grid,
+# the unfused route's 4224^2, 6144^2), 7808 x 512 (the 61-point prime pass)
+# and 6144 x 2048; K4_WHOLE_COLUMNS: x_dft_kernel's extents (M < 128 G).
+K4_MIXED_CHECKS = ((2560, 2560), (3072, 3072), (4224, 4224), (6144, 6144),
+                   (7808, 512), (6144, 2048))
+K4_WHOLE_COLUMNS = ((768, 384),)
+
+
+def check_k4_extents(errs, dev, rng) -> None:
+    """K4 against its plain version both ways at each of K4_MIXED_CHECKS
+    (as "K4 mixed", its cluster kernel's first half, stage A, too) and
+    K4_WHOLE_COLUMNS (as "K4"), with x_dft's count rising by 2 at each, the
+    mixed count exactly at the mixed extents and the power-of-two cluster
+    count at none."""
+    for M, P in K4_MIXED_CHECKS + K4_WHOLE_COLUMNS:
+        x = torch.as_tensor(rng.standard_normal((2, M, P)),
+                            dtype=torch.float32, device=dev)
+        mixed = (M, P) in K4_MIXED_CHECKS
+        name = "K4 mixed" if mixed else "K4"
+        n = (x_dft.launches, x_dft.mixed_launches, x_dft.cluster_launches)
+        for inverse in (False, True):
+            way = "inverse" if inverse else "forward"
+            errs.record(name, f"{M}x{P} {way}", x_dft(x, inverse),
+                        x_dft_plain(x, inverse))
+            if mixed:
+                errs.record(name, f"{M}x{P} {way} stage A (cluster kernel's "
+                            "first half)", x_dft_stage_a(x, inverse),
+                            x_dft_stage_a_plain(x, inverse))
+        torch.cuda.synchronize()
+        got = (x_dft.launches - n[0], x_dft.mixed_launches - n[1],
+               x_dft.cluster_launches - n[2])
+        if got != (2, 2 * mixed, 0):
+            raise AssertionError(f"K4 at {M}x{P}: (all, mixed, cluster) "
+                                 f"launches {got}")
+        del x
+        free_memory()
+
+
 def phase_x_kernels(errs, pod, dev, sizes=(4096, 8192)) -> None:
     """K2 at K2_EXTENTS; K2, K4 and K5 at each n^2 of ``sizes`` on random
-    input, K5 also on a ragged P (8192 x 384: strip 0's ragged tile, an odd
-    strip count) and at a mixed extent (6144 x 384, x_symbols_inverse_kernel);
+    input, K4 also on a ragged tile (8192 x 252) and at its mixed extents
+    (check_k4_extents), K5 also on a ragged P (8192 x 384: strip 0's ragged
+    tile, an odd strip count) and at a mixed extent (6144 x 384,
+    x_symbols_inverse_kernel);
     K5 and the whole four-pass inversion on pod-8192's zeta against float64;
     K1 and K15 at pod's grid; K17 at 6272 x 128."""
     rng = np.random.default_rng(SEED + 2)
@@ -915,16 +1051,15 @@ def phase_x_kernels(errs, pod, dev, sizes=(4096, 8192)) -> None:
         check_k5(errs, pod, x, f"{M}x{P} random spectrum")
         del x
         free_memory()
-    # K4 on a ragged last cluster tile, and x_dft_kernel on a mixed extent.
-    for M, P in ((8192, 252), (6144, 2048)):
-        x = torch.as_tensor(rng.standard_normal((2, M, P)),
-                            dtype=torch.float32, device=dev)
-        for inverse in (False, True):
-            errs.record("K4", f"{M}x{P} " + ("inverse" if inverse else
-                                              "forward"),
-                        x_dft(x, inverse), x_dft_plain(x, inverse))
-        del x
-        free_memory()
+    # K4 on a ragged last cluster tile (the power-of-two cluster kernel).
+    x = torch.as_tensor(rng.standard_normal((2, 8192, 252)),
+                        dtype=torch.float32, device=dev)
+    for inverse in (False, True):
+        errs.record("K4", "8192x252 " + ("inverse" if inverse else "forward"),
+                    x_dft(x, inverse), x_dft_plain(x, inverse))
+    del x
+    free_memory()
+    check_k4_extents(errs, dev, rng)
 
     inv = inverter(pod)
     if inv.route != "four-pass":
@@ -2617,9 +2752,12 @@ def kernel_rows(errs, launches, ms_2048, ms_8192, extra, sharded) -> list:
     solver), and at the mesh slices' shapes in ``sharded`` for K7, K12-K14
     and K15's sharded form; ``extra`` adds fields to a kernel's entry."""
     rows = []
-    # K2's row counts y_dft_factored_kernel's and y_dft_kernel's launches;
-    # y_dft_mixed_kernel's (also in y_dft's count) have a row of their own.
-    launches = {p: dict(run, K2=run["K2"] - run["K2 mixed"])
+    # K2's row counts y_dft_factored_kernel's and y_dft_kernel's launches,
+    # K4's x_dft_cluster_kernel's and x_dft_kernel's; y_dft_mixed_kernel's
+    # and x_dft_cluster_mixed_kernel's (also in y_dft's and x_dft's counts)
+    # have rows of their own.
+    launches = {p: dict(run, K2=run["K2"] - run["K2 mixed"],
+                        K4=run["K4"] - run["K4 mixed"])
                 for p, run in launches.items()}
     for name, (fn, source, replaces) in KERNELS.items():
         if name in sharded:
@@ -2687,6 +2825,26 @@ def kernel_rows(errs, launches, ms_2048, ms_8192, extra, sharded) -> list:
         "y_dft_kernel_ms": (at["y_dft_kernel"]["ms"]
                             + at["y_dft_kernel"]["inverse_ms"]) / 2,
         **m})
+    # K4 on the mixed extents: its mixed cluster kernel, timed at (2, 3072,
+    # 3072) (time_k4_mixed), ms a launch forward and inverse.
+    m = extra["K4 mixed"]
+    at = m["by_grid"][3072]
+    bound_ms, bound_by, nbytes = bound("K4", 3072, 3072)
+    rows.append({
+        "name": "K4 mixed x_dft (x_dft_cluster_mixed_kernel)",
+        "route": "cuda", "source": "tpu_qg_torch/csrc/dft_kernels.cu",
+        "replaces": KERNELS["K4"][2],
+        "launches": sum(run["K4 mixed"] for run in launches.values()),
+        "launches_by_path": {p: run["K4 mixed"] for p, run in launches.items()
+                             if run["K4 mixed"]},
+        "max_abs_err": errs.by_kernel["K4 mixed"][0],
+        "rel_err": errs.by_kernel["K4 mixed"][1],
+        "ms": at["mixed"]["ms"], "ms_inverse": at["mixed"]["inverse_ms"],
+        "plain_ms": sum(at["plain_runs_ms"]) / 2,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+        "library_ms": at["library"]["ms"], "grid": [3072, 3072],
+        "x_dft_kernel_ms": at["x_dft_kernel"]["ms"],
+        "x_dft_kernel_ms_inverse": at["x_dft_kernel"]["inverse_ms"], **m})
     return rows
 
 
@@ -2723,6 +2881,7 @@ def main() -> None:
     k1_sweep = phase_k1_sweep(dev, card)
     k2_sweep = phase_k2_sweep(errs, dev, card)
     k2_mixed = time_k2_mixed(errs, dev, card)
+    k4_mixed = time_k4_mixed(errs, dev, card)
     phase_mg_kernels(errs, turb, pod_mg, dev)
     phase_sharded_kernels(errs, turb, pod, dev)
     phase_lab_kernels(errs, dev)
@@ -2750,13 +2909,14 @@ def main() -> None:
           "K2 factored": 2 * run_chunks(pod_chain, 20), "K4 cluster": 20,
           "K5 cluster": 20}, "chain"),
         # The mixed extents' paths: every K2 launch by the mixed-radix
-        # factored kernel; K3, K4 and K5 by their whole-column kernels.
+        # factored kernel, every K4 launch by the mixed cluster kernel; K3
+        # and K5 by their whole-column kernels.
         (MIXED_PATHS[0], mixed_cfgs[MIXED_PATHS[0]], 100,
          {"K1": 100, "K1 rows": 100, "K2": 200, "K2 mixed": 200, "K3": 100},
          "default"),
         (MIXED_PATHS[1], mixed_cfgs[MIXED_PATHS[1]], 50,
          {"K1": 50, "K1 rows": 50, "K2": 100, "K2 mixed": 100, "K4": 50,
-          "K5": 50}, "default"),
+          "K4 mixed": 50, "K5": 50}, "default"),
     )
     launches, finals = {}, {}
     for name, cfg, steps, expect, route in slices:
@@ -2825,8 +2985,18 @@ def main() -> None:
         "kernels": {"x_dft_cluster_kernel": "M = 128 * 2^a, M >= 128 G "
                     "(layout at 8192: G={} Cw={})".format(
                         *dft_kernels.x_dft_cluster_launched(8192)),
-                    "x_dft_kernel": "mixed extents, M < 128 G"},
+                    "x_dft_cluster_mixed_kernel": "the other M = 128 n, "
+                    "G <= n <= 63 (the K4 mixed row)",
+                    "x_dft_kernel": "M < 128 G"},
         "sweep_8192": k4_sweep[8192]}
+    extra["K4 mixed"] = {
+        "mixed_launches": sum(run["K4 mixed"] for run in launches.values()),
+        "kernels": {"x_dft_cluster_mixed_kernel": "M = 128 n, G <= n <= 63 "
+                    "not a power of two (layouts: {}, else {})".format(
+                        dft_kernels.X_CLUSTER_BY_M, dft_kernels.X_CLUSTER),
+                    "x_dft_kernel": "M < 128 G"},
+        "ptxas": named_ptxas["x_dft_cluster_mixed_kernel"],
+        "by_grid": k4_mixed}
     extra["K5"] = {
         "cluster_launches": sum(run["K5 cluster"]
                                 for run in launches.values()),

@@ -220,7 +220,8 @@ def test_pair_x_cluster_refuses_what_it_does_not_take(dev):
 # Four-pass extents: powers of two, and the mixed radix 2560 = 512 * 5,
 # 4224 = 128 * 33 (the unfused route), 6144 = 2048 * 3, 8064 = 128 * 63.
 # K4's cluster kernel takes the powers of two from 128 G (ragged last tiles
-# at P = 252 and 100), the older kernel the rest.
+# at P = 252 and 100), its mixed form the other 128 n from 128 G, the older
+# kernel the rest (256).
 X_SHAPES = [(256, 384), (2560, 256), (4224, 256), (6144, 384), (8064, 256),
             (8192, 128), (4096, 4096), (8192, 8192), (8192, 252),
             (2048, 100)]
@@ -237,11 +238,12 @@ def _consts(M, P):
 def test_x_dft_kernels(dev, M, P):
     x = _fields(M, P, dev, seed=2)[1]
     n = (x_dft.launches, x_symbols_inverse.launches, x_dft.cluster_launches,
-         x_symbols_inverse.cluster_launches)
-    cluster = x_dft_cluster_takes(M)
+         x_symbols_inverse.cluster_launches, x_dft.mixed_launches)
+    mixed = x_dft_cluster_takes(M) and dft_kernels._mixed(M)
+    cluster = x_dft_cluster_takes(M) and not mixed
     for inverse in (False, True):
         assert _rel(x_dft(x, inverse), x_dft_plain(x, inverse)) <= 1e-5
-        if cluster:
+        if cluster or mixed:
             assert _rel(x_dft_stage_a(x, inverse),
                         x_dft_stage_a_plain(x, inverse)) <= 1e-5
     k5 = P % 128 == 0            # K5 (and its symbols) take P = 128 n
@@ -251,9 +253,39 @@ def test_x_dft_kernels(dev, M, P):
                     x_symbols_inverse_plain(x, consts)) <= 1e-4
     torch.cuda.synchronize()
     assert (x_dft.launches, x_symbols_inverse.launches,
-            x_dft.cluster_launches, x_symbols_inverse.cluster_launches) == (
+            x_dft.cluster_launches, x_symbols_inverse.cluster_launches,
+            x_dft.mixed_launches) == (
                 n[0] + 2, n[1] + k5, n[2] + 2 * cluster,
-                n[3] + (k5 and x_symbols_cluster_takes(M)))
+                n[3] + (k5 and x_symbols_cluster_takes(M)),
+                n[4] + 2 * mixed)
+
+
+# K4's mixed cluster kernel (x_dft_cluster_mixed_kernel): 2560 = 128 * 20,
+# the 3072^2 path's grid (128 * 24), the unfused route's 4352 = 128 * 34
+# (its plan ends in the prime 17) and 7808 = 128 * 61 (one prime pass), in
+# the launched layout and every other that fits, both ways and stage A.
+@pytest.mark.parametrize("M,P", [(2560, 512), (3072, 3072), (4352, 256),
+                                 (7808, 384)])
+def test_x_dft_mixed_cluster_kernel(dev, M, P):
+    x = _fields(M, P, dev, seed=M + 3)[1]
+    want = [x_dft_plain(x, inverse) for inverse in (False, True)]
+    n = (x_dft.launches, x_dft.mixed_launches, x_dft.cluster_launches)
+    for inverse in (False, True):
+        assert _rel(x_dft(x, inverse), want[inverse]) <= 1e-5
+        assert _rel(x_dft_stage_a(x, inverse),
+                    x_dft_stage_a_plain(x, inverse)) <= 1e-5
+    torch.cuda.synchronize()
+    assert (x_dft.launches, x_dft.mixed_launches,
+            x_dft.cluster_launches) == (n[0] + 2, n[1] + 2, n[2])
+    for layout in ((G, Cw) for G in dft_kernels.CLUSTER_SIZES
+                   for Cw in dft_kernels.CLUSTER_WIDTHS):
+        if (x_dft_cluster_takes(M, *layout) and
+                dft_kernels.x_dft_cluster_occupancy(M, layout, 0)):
+            for inverse in (False, True):
+                assert _rel(dft_kernels.x_dft_cluster(x, inverse, layout),
+                            want[inverse]) <= 1e-5
+    torch.cuda.synchronize()
+    assert x_dft.mixed_launches == n[1] + 2     # x_dft_cluster counts none
 
 
 # K5's cluster kernel: 4096^2 and 8192^2, a ragged P (strip 0's last tile,

@@ -100,7 +100,8 @@ def test_cluster_layouts_fit_shared_memory():
         assert x_dft_cluster_takes(M, *x_dft_cluster_launched(M))
         assert x_dft_cluster_takes(M)
     assert not x_dft_cluster_takes(128 * X_CLUSTER[0] // 2)   # below 128 G
-    assert not x_dft_cluster_takes(6144)             # mixed: 2048 * 3
+    assert x_dft_cluster_takes(6144)                 # mixed: its mixed form
+    assert not x_dft_cluster_takes(128 * 7)          # mixed below 128 G
 
 
 def test_layout_matches_the_kernel_at_8192():

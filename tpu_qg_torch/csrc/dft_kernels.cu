@@ -11,9 +11,11 @@
 //     largest divisor <= 128), slot k2*N1 + k1 holds frequency k2 + N2*k1;
 //     so is the x-spectrum between K4 and K5.
 //
-// K4 has two kernels chosen by shape: x_dft_cluster_kernel, a thread-block
-// cluster that runs the factored transform in one pass over the field, for
-// M = 128 * 2^a, and x_dft_kernel for the rest. K2 has three:
+// K4 has three kernels chosen by shape: x_dft_cluster_kernel, a
+// thread-block cluster that runs the factored transform in one pass over
+// the field, for M = 128 * 2^a, its mixed-radix form
+// x_dft_cluster_mixed_kernel for the other M = 128 * n (n <= 63), both for
+// M >= 128 G, and x_dft_kernel for the rest. K2 has three:
 // y_dft_factored_kernel, the same factoring along the rows, for P = 128 *
 // 2^b (256 <= P <= 8192), its mixed-radix form y_dft_mixed_kernel for the
 // other P = 128 * n (3 <= n <= 63), and y_dft_kernel for the rest (P <= 128
@@ -149,8 +151,8 @@ pair_x_kernel(const float* __restrict__ in, float* __restrict__ out,
 // (2, M, 128) strips at M >= 4608 outgrow a TPU core's scoped VMEM; it
 // computes what the BlockSpec form computes, and on Hopper one kernel serves
 // every M: a column of M = 8192 values is 64 KB of shared memory. Since the
-// cluster kernel below took the power-of-two extents M >= 128 * G, this one
-// runs the mixed extents M = 128 * n (n not a power of two) and M < 128 * G.
+// cluster kernels below took every M = 128 * n >= 128 * G (n <= 63 or a
+// power of two), this one runs M < 128 * G.
 //
 // Bound: device-memory bandwidth (one read and one write of the field,
 // 2 x 537 MB at 8192^2, against ~5 M log2 M flops per column), with the
@@ -161,7 +163,8 @@ pair_x_kernel(const float* __restrict__ in, float* __restrict__ out,
 // (forward) or scatter (inverse) in shared memory, as in K2. A mixed extent
 // M = R * m joins the m sub-transforms while it writes the spectrum
 // (forward) and splits the spectrum in a second buffer before its radix-2
-// passes (inverse).
+// passes (inverse). Timed beside the mixed cluster kernel by chip_smoke.py's
+// k4_mixed (PERF.md).
 // ---------------------------------------------------------------------------
 template <bool kMixed>
 __global__ void __launch_bounds__(512)
@@ -234,73 +237,6 @@ x_dft_kernel(const float* __restrict__ in, float* __restrict__ out, int M,
     out[off + plane] = im[p] * scale;
   }
 }
-
-// ---------------------------------------------------------------------------
-// K4 on power-of-two extents, M = 128 * 2^a (N2 = M / 128 >= G): the one-pass
-// cluster kernel. It computes what x_dft_kernel computes, and so replaces the
-// same TPU functions, tpu_qg/ops/pallas_fft.py PlanarFFT2._call_x (:1153)
-// and _call_x_stream(z, inverse) with no consts (:1122); x_dft_kernel keeps
-// the mixed extents M = 128 * n (n not a power of two) and M < 128 * G.
-//
-// Bound: device-memory bandwidth, one read and one write of the field (2 x
-// 537 MB at 8192^2: 0.321 ms at 3.35 TB/s). x_dft_kernel reaches 11% of it:
-// a block holds whole columns of M values (64 KB each at M = 8192), so at
-// most C = 2 fit and a warp reads and writes runs of 8 bytes a row, a
-// quarter of a 32-byte sector. A tile wide enough to fill sectors (Cw >= 8
-// columns) of whole columns would need 512 KB; a cluster of G blocks on
-// neighbouring SMs holds it, each block 1/G of it, and the blocks trade
-// their halves of the transform through distributed shared memory (the
-// SM-to-SM network, not device memory).
-//
-// The transform is factored as tpu_qg/ops/matmul_fft.py FactoredFFT (N1 =
-// 128, N2 = M / 128; x = N1 n2 + n1, permuted slot k2 N1 + k1 holding
-// frequency k2 + N2 k1):
-//   X[k2 N1 + k1] = sum_n1 W_N1^(n1 k1) W_M^(n1 k2) sum_n2 W_N2^(n2 k2) x[N1 n2 + n1]
-// so the permuted spectrum comes out of stage B as whole rows, no gather.
-// A cluster takes a tile of Cw adjacent y slots (all M rows of them) at a
-// time; block r:
-//   forward  1. loads rows N1 n2 + n1 for its n1 in [r L1, (r+1) L1), L1 =
-//               N1 / G: runs of Cw floats, natural n2 at row n2 of buffer A;
-//            2. stage A: N2-point DIF along n2 (row p then holds k2 =
-//               bitrev(p));
-//            3. cluster barrier; pulls rows p in [r L2, (r+1) L2), L2 = N2 /
-//               G, of every block's A, times W_M^(n1 k2), into buffer B (row
-//               n1, natural): block r owns k2 = bitrev(p) for its p, so it
-//               reads the same rows [r L2, (r+1) L2) of every peer's A;
-//            4. stage B: 128-point DIF along n1 (row p' holds k1 =
-//               bitrev(p')), then writes rows k2 N1 + bitrev(p');
-//   inverse  the mirror image: loads rows k2 N1 + k1 of its k2 into B at row
-//            bitrev(k1), 128-point inverse DIT, cluster barrier, pulls its
-//            n1 rows of every block's B times conj(W_M^(n1 k2)) into A at the
-//            bit-reversed position of k2, N2-point inverse DIT, scales 1/M
-//            and writes rows N1 n2 + n1.
-// The bit reversal of each DIF output is absorbed into the indices of the
-// pull and of the store, never a reorder pass. Buffers hold float2, element
-// (row, column) at row * columns + column, and a warp's loads, pulls and
-// butterfly passes touch consecutive words. Radix-2 passes of up to 4
-// stages run in registers, with group_pass's butterflies and twiddle
-// tables (N2/2 and 64 entries, read from the M-entry float32 table of W_M^j
-// built in float64 on the host, which also gives the inter-stage twiddle,
-// n1 k2 < M). The first pass of a stage reads straight from device memory
-// or the peers' buffers, the last pass of stage 2 writes device memory, so
-// a stage of two passes makes one round trip through shared memory and a
-// thread has up to 16 loads in flight.
-// Cluster barriers: one after stage 1 (the peers' buffers are ready), one
-// split around stage 2 (arrive after the pull, wait before exit), so no
-// block leaves while a peer may still read its buffer. stage_a: writes the
-// twiddled intermediate Y[k2, n1] (forward) or conj(W_M^(n1 k2)) sum_k1
-// W_N1^(-n1 k1) X[k2 N1 + k1] (inverse, unscaled) at row k2 N1 + n1 and
-// stops, so that the first half can be checked alone
-// (dft_kernels.x_dft_stage_a_plain). Shared memory: A and B, M Cw / G
-// float2 each, and the tables, 64.75 KB at M = 8192, G = 16, Cw = 8
-// (dft_kernels.x_dft_cluster_layout). The grid is G ceil(P / Cw) blocks.
-//
-// Measured (chip_smoke.py, PERF.md): stage A alone takes most of the
-// kernel's time, against a plain copy of the field at 0.36 ms; nor did
-// persistent clusters loading the next tile by cp.async beside the
-// transforms (tried) speed it up: the narrow column tiles' device-memory
-// access, 32-byte runs over all M rows, is what holds it.
-// ---------------------------------------------------------------------------
 
 // The cluster kernel's block: 256 threads of at most 128 registers, so that
 // two blocks share an SM where their shared memory fits.
@@ -427,127 +363,15 @@ __device__ void il_fft_at(Cols lognc, int logn, const float2* tw, In in,
   }
 }
 
-// il_fft_at for the cluster kernel's block, the columns interleaved in buf:
-// element (pos, col) at buf[pos * stride + col].
-template <bool kInverse, class In, class Out, class Mid>
-__device__ void il_fft(float2* buf, int lognc, int stride, int logn,
+// il_fft_at for the cluster kernel's block, the columns (2^lognc, or an
+// NCols count) interleaved in buf: element (pos, col) at buf[pos * stride +
+// col].
+template <bool kInverse, class Cols, class In, class Out, class Mid>
+__device__ void il_fft(float2* buf, Cols lognc, int stride, int logn,
                        const float2* tw, In in, Out out, Mid after_first) {
   il_fft_at<kClusterThreads, kInverse>(
       lognc, logn, tw, in, out,
       [=](int pos, int col) { return buf + pos * stride + col; }, after_first);
-}
-
-__global__ void __launch_bounds__(kClusterThreads, 2)
-x_dft_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
-                     int P, int logn2, int logg, int logcw, int inverse,
-                     int stage_a, const float2* __restrict__ wm) {
-  namespace cg = cooperative_groups;
-  extern __shared__ float smem[];
-  const int r = static_cast<int>(cg::this_cluster().block_rank());
-  const int n2 = 1 << logn2, cw = 1 << logcw, M = n2 << 7;
-  const int logl1 = 7 - logg, logl2 = logn2 - logg;
-  const int logna = logl1 + logcw, lognb = logl2 + logcw;
-  const int na = 1 << logna, nb = 1 << lognb;
-  float2* A = reinterpret_cast<float2*>(smem);      // n2 rows of na columns
-  float2* B = A + (n2 << logna);                    // 128 rows of nb columns
-  float2* twa = B + (128 << lognb);                 // W_N2^k, k < n2 / 2
-  float2* twb = twa + n2 / 2;                       // W_128^k, k < 64
-  for (int k = threadIdx.x; k < n2 / 2; k += kClusterThreads) twa[k] = wm[k << 7];
-  for (int k = threadIdx.x; k < 64; k += kClusterThreads) twb[k] = wm[k << logn2];
-  __syncthreads();
-  const size_t plane = (size_t)M * P;
-  const int c0 = (blockIdx.x >> logg) << logcw;     // the cluster's y slots
-  const int ncol = min(cw, P - c0);                 // ragged last tile
-  const int r1 = r << logl1, r2 = r << logl2;       // first n1, first k2 row
-  // Element (row, y slot c0 + col) of a planar field: a zero (read) or
-  // nothing (write) for a slot past P.
-  auto get = [=](int row, int col) {
-    const size_t off = (size_t)row * P + c0 + min(col, ncol - 1);
-    return col < ncol ? make_float2(__ldg(in + off), __ldg(in + off + plane))
-                      : make_float2(0.f, 0.f);
-  };
-  auto put = [=](int row, int col, float2 v) {
-    if (col >= ncol) return;
-    const size_t off = (size_t)row * P + c0 + col;
-    out[off] = v.x;
-    out[off + plane] = v.y;
-  };
-  auto none = [] {};
-  auto arrive = [] { asm volatile("barrier.cluster.arrive.aligned;" ::: "memory"); };
-  // Column a of A is (n1 - r1) cw + col, column b of B is (p - r2) cw + col,
-  // p the DIF position of k2 (k2 = bitrev(p)).
-  auto wr_a = [=](int row, int a, float2 v) { A[(row << logna) + a] = v; };
-  auto wr_b = [=](int row, int b, float2 v) { B[(row << lognb) + b] = v; };
-
-  if (!inverse) {
-    // Stage A: A row n2 <- x[N1 n2 + n1]; DIF leaves k2 = bitrev(row).
-    il_fft<false>(A, logna, na, logn2, twa,
-        [=](int row, int a) {
-          return get((row << 7) + r1 + (a >> logcw), a & (cw - 1));
-        }, wr_a, none);
-    if (stage_a) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < n2 << logna; i += kClusterThreads) {
-        const int a = i & (na - 1);
-        const int n1 = r1 + (a >> logcw), k2 = bitrev(i >> logna, logn2);
-        put((k2 << 7) + n1, a & (cw - 1), cmul(A[i], wm[n1 * k2], false));
-      }
-      return;
-    }
-    cg::this_cluster().sync();
-    // Stage B: row n1 <- block n1 / L1's A at row p (k2 = bitrev(p)),
-    // times W_M^(n1 k2); DIF, then row p' (k1 = bitrev(p')) -> slot row
-    // k2 N1 + k1.
-    il_fft<false>(B, lognb, nb, 7, twb,
-        [=](int n1, int b) {
-          const int p = r2 + (b >> logcw);
-          const float2 v = cg::this_cluster().map_shared_rank(
-              static_cast<const float2*>(A), n1 >> logl1)[
-                  (p << logna) + ((n1 & ((1 << logl1) - 1)) << logcw) +
-                  (b & (cw - 1))];
-          return cmul(v, __ldg(wm + n1 * bitrev(p, logn2)), false);
-        },
-        [=](int pp, int b, float2 v) {
-          put((bitrev(r2 + (b >> logcw), logn2) << 7) + bitrev(pp, 7),
-              b & (cw - 1), v);
-        }, arrive);
-  } else {
-    // Stage B^-1: B row p' <- X[k2 N1 + k1], k1 = bitrev(p'); DIT leaves
-    // n1 = row.
-    il_fft<true>(B, lognb, nb, 7, twb,
-        [=](int pp, int b) {
-          return get((bitrev(r2 + (b >> logcw), logn2) << 7) + bitrev(pp, 7),
-                     b & (cw - 1));
-        }, wr_b, none);
-    if (stage_a) {
-      __syncthreads();
-      for (int e = threadIdx.x; e < 128 << lognb; e += kClusterThreads) {
-        const int n1 = e >> lognb, b = e & (nb - 1);
-        const int k2 = bitrev(r2 + (b >> logcw), logn2);
-        put((k2 << 7) + n1, b & (cw - 1), cmul(B[e], wm[n1 * k2], true));
-      }
-      return;
-    }
-    cg::this_cluster().sync();
-    // Stage A^-1: row p <- block p / L2's B at row n1, times
-    // conj(W_M^(n1 k2)); DIT, then row n2 -> x row N1 n2 + n1, scaled 1/M.
-    const float scale = 1.0f / static_cast<float>(M);    // exact: M = 2^k
-    il_fft<true>(A, logna, na, logn2, twa,
-        [=](int p, int a) {
-          const int n1 = r1 + (a >> logcw);
-          const float2 v = cg::this_cluster().map_shared_rank(
-              static_cast<const float2*>(B), p >> logl2)[
-                  (n1 << lognb) + ((p & ((1 << logl2) - 1)) << logcw) +
-                  (a & (cw - 1))];
-          return cmul(v, __ldg(wm + n1 * bitrev(p, logn2)), true);
-        },
-        [=](int row, int a, float2 v) {
-          put((row << 7) + r1 + (a >> logcw), a & (cw - 1),
-              make_float2(v.x * scale, v.y * scale));
-        }, arrive);
-  }
-  // No block leaves while a peer may still read its buffer.
-  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -1035,13 +859,15 @@ __device__ __forceinline__ void mixed_pass(int r, int lognc, int n, int L,
 // The mixed-radix sweep over 2^lognc columns of length n (the plan's
 // product): forward the passes in plan order (DIF), inverse in reverse
 // order (DIT), wp the prime pass's weights. As il_fft_at: the first pass
-// reads through in, the last
-// writes through out, and between passes element (pos, col) sits at
-// at(pos, col) with a barrier after each pass but the last; a prime pass
+// reads through in, the last writes through out, and between passes
+// element (pos, col) sits at at(pos, col) with a barrier after each pass
+// but the last; after_first() runs after the first pass. A prime pass
 // reads at() even when it comes first (the caller puts the data there).
-template <int kThreads, bool kInverse, class In, class Out, class At>
+template <int kThreads, bool kInverse, class In, class Out, class At,
+          class Mid>
 __device__ void mixed_fft_at(int lognc, int n, int plan, const float2* tw,
-                             const float2* wp, In in, Out out, At at) {
+                             const float2* wp, In in, Out out, At at,
+                             Mid after_first) {
   auto rd = [=](int pos, int col) { return *at(pos, col); };
   auto wr = [=](int pos, int col, float2 v) { *at(pos, col) = v; };
   int npass = 0;
@@ -1067,8 +893,25 @@ __device__ void mixed_fft_at(int lognc, int n, int plan, const float2* tw,
     } else {
       mixed_pass<kInverse, kThreads>(r, lognc, n, L, tw, rd, wr);
     }
+    if (first) after_first();
     if (!last) __syncthreads();
   }
+}
+
+// The digit reversal of a pass plan over n points: after the plan's DIF
+// passes position p = sum_t b_t L_t (L_t = n / (r_0 ... r_t), b_t < r_t)
+// holds k = sum_t b_t r_0 ... r_(t-1) (bitrev when every radix is 2).
+__device__ __forceinline__ int plan_rho(int plan, int n, int p) {
+  int rem = p, k = 0, mul = 1, span = n;
+  for (int t = 0; t < 4 && plan_radix(plan, t); ++t) {
+    const int r = plan_radix(plan, t);
+    span /= r;
+    const int b = rem / span;
+    rem -= b * span;
+    k += b * mul;
+    mul *= r;
+  }
+  return k;
 }
 
 template <int kThreads, bool kInverse>
@@ -1095,16 +938,7 @@ y_dft_mixed_kernel(const float* __restrict__ in, float* __restrict__ out,
   }
   for (int k = threadIdx.x; k < n2; k += kThreads) {
     twa[k] = wm[k << 7];
-    // Digit reversal: p = sum_t b_t L_t -> k2 = sum_t b_t r_0 ... r_(t-1).
-    int rem = k, k2 = 0, mul = 1, span = n2;
-    for (int t = 0; t < 4 && plan_radix(plan, t); ++t) {
-      const int r = plan_radix(plan, t);
-      span /= r;
-      const int b = rem / span;
-      rem -= b * span;
-      k2 += b * mul;
-      mul *= r;
-    }
+    const int k2 = plan_rho(plan, n2, k);
     rho[k] = k2;
     pos[k2] = k;
   }
@@ -1168,7 +1002,7 @@ y_dft_mixed_kernel(const float* __restrict__ in, float* __restrict__ out,
         },
         [=](int p, int col, float2 v) {
           *at_a(p, col) = cmul(v, twiddle(col & 127, rho[p]), false);
-        }, at_a);
+        }, at_a, none);
     __syncthreads();
     il_fft_at<kThreads, false>(cols_b, 7, twb, rd_b,
         [=](int q, int col, float2 v) { *at_b(q, col) = v; }, at_b, none);
@@ -1195,8 +1029,329 @@ y_dft_mixed_kernel(const float* __restrict__ in, float* __restrict__ out,
                              (col & 127);
           out[off] = v.x * scale;
           out[off + plane] = v.y * scale;
-        }, at_a);
+        }, at_a, none);
   }
+}
+
+// ---------------------------------------------------------------------------
+// K4 on M = 128 * N2 with N2 >= G: the one-pass cluster kernel, two instances
+// of one body (x_cluster_tile): x_dft_cluster_kernel for N2 = 2^a and
+// x_dft_cluster_mixed_kernel for N2 not a power of two (N2 <= 63). It
+// computes what x_dft_kernel computes, and so replaces the same TPU
+// functions, tpu_qg/ops/pallas_fft.py PlanarFFT2._call_x (:1153) and
+// _call_x_stream(z, inverse) with no consts (:1122); x_dft_kernel keeps
+// M < 128 * G.
+//
+// Bound: device-memory bandwidth, one read and one write of the field (2 x
+// 537 MB at 8192^2: 0.321 ms at 3.35 TB/s; 2 x 37.7 MB at 3072^2, 0.045
+// ms). x_dft_kernel reaches 11% of it at 8192^2: a block holds whole
+// columns of M values (64 KB each at M = 8192), so at most C = 2 fit and a
+// warp reads and writes runs of 8 bytes a row, a quarter of a 32-byte
+// sector; on a mixed extent it also joins its m radix-2 sub-transforms with
+// an m-point DFT per output element. A tile wide enough to fill sectors (Cw
+// >= 8 columns) of whole columns would need 512 KB; a cluster of G blocks on
+// neighbouring SMs holds it, each block 1/G of it, and the blocks trade
+// their halves of the transform through distributed shared memory (the
+// SM-to-SM network, not device memory).
+//
+// The transform is factored as tpu_qg/ops/matmul_fft.py FactoredFFT (N1 =
+// 128, N2 = M / 128; x = N1 n2 + n1, permuted slot k2 N1 + k1 holding
+// frequency k2 + N2 k1):
+//   X[k2 N1 + k1] = sum_n1 W_N1^(n1 k1) W_M^(n1 k2) sum_n2 W_N2^(n2 k2) x[N1 n2 + n1]
+// so the permuted spectrum comes out of stage B as whole rows, no gather.
+// A cluster takes a tile of Cw adjacent y slots (all M rows of them) at a
+// time; block r:
+//   forward  1. loads rows N1 n2 + n1 for its n1 in [r L1, (r+1) L1), L1 =
+//               N1 / G: runs of Cw floats, natural n2 at row n2 of buffer A;
+//            2. stage A: N2-point DIF along n2 (row p then holds k2 =
+//               rho(p), below);
+//            3. cluster barrier; pulls its p-rows [s_r, s_(r+1)) of every
+//               block's A, times W_M^(n1 k2), into buffer B (row n1,
+//               natural): block r owns k2 = rho(p) for its p, so it reads
+//               the same rows of every peer's A;
+//            4. stage B: 128-point DIF along n1 (row p' holds k1 =
+//               bitrev(p')), then writes rows k2 N1 + bitrev(p');
+//   inverse  the mirror image: loads rows k2 N1 + k1 of its k2 into B at row
+//            bitrev(k1), 128-point inverse DIT, cluster barrier, pulls its
+//            n1 rows of every block's B times conj(W_M^(n1 k2)) into A at the
+//            position p of k2 (from the block that owns p), N2-point inverse
+//            DIT, scales 1/M and writes rows N1 n2 + n1.
+// The reordering of each DIF output is absorbed into the indices of the
+// pull and of the store, never a reorder pass. Buffers hold float2, element
+// (row, column) at row * columns + column, and a warp's loads, pulls and
+// butterfly passes touch consecutive words. The inter-stage twiddle comes
+// from the M-entry float32 table of W_M^j built in float64 on the host (n1
+// k2 < M), as do the stage tables. The first pass of a stage reads straight
+// from device memory or the peers' buffers, the last pass of stage 2 writes
+// device memory, so a stage of two passes makes one round trip through
+// shared memory and a thread has up to 16 loads in flight.
+//
+// The power-of-two instance: stages of radix-2 passes of up to 4 stages in
+// registers (il_fft, group_pass's butterflies, tables of N2/2 and 64
+// entries); rho = bitrev; block r owns p-rows [r L2, (r+1) L2), L2 = N2 / G,
+// all index maps shifts.
+// The mixed instance (N2 = 2^c m, m odd > 1): stage A is y_dft_mixed_kernel's
+// sweep over the plan dft_kernels.y_dft_mixed_plan(N2) (mixed_fft_at:
+// radix 2^c, 3, 5 and 7 register passes and at most one prime pass, its
+// weights from a table built once a block), so p-row p holds k2 = rho(p),
+// the plan's digit reversal (plan_rho, a table in shared memory). N2 is a
+// multiple of G only for a few N2 (24, 40, 48 and 56 of G = 8; N2 is prime
+// for 23, 29, 31, ...), so stage B's split rounds: block r owns p-rows
+// [s_r, s_(r+1)), s_r = floor(r N2 / G), floor(N2 / G) or ceil(N2 / G) of
+// them (at least one, N2 >= G); it runs the 128-point pass over that count
+// of Cw columns (NCols) and keeps buffer B at a row stride of ceil(N2 / G)
+// Cw. The inverse's pull finds p-row p's block and local row in an N2-entry
+// map. A pass's barriers depend on its length alone, never on its column
+// count, so blocks that own different counts reach the same barriers. A
+// prime pass reads only shared memory: where the plan is one prime (N2 a
+// prime), the forward loads the block's rows into A before it; where the
+// plan ends in a prime (its DIT order runs that pass first), the inverse
+// pulls its rows from the peers into A first. 1/M is a float32 product,
+// not exact for m > 1.
+//
+// Cluster barriers: one after stage 1 (the peers' buffers are ready), one
+// split around stage 2 (arrive after the pull, wait before exit), so no
+// block leaves while a peer may still read its buffer. stage_a: writes the
+// twiddled intermediate Y[k2, n1] (forward) or conj(W_M^(n1 k2)) sum_k1
+// W_N1^(-n1 k1) X[k2 N1 + k1] (inverse, unscaled) at row k2 N1 + n1 and
+// stops, so that the first half can be checked alone
+// (dft_kernels.x_dft_stage_a_plain). Shared memory: A (M Cw / G float2), B
+// (128 ceil(N2 / G) Cw float2) and the tables, 64.75 KB at M = 8192, G =
+// 16, Cw = 8, 48.9 KB at M = 3072, G = 8, Cw = 8
+// (dft_kernels.x_dft_cluster_layout). The grid is G ceil(P / Cw) blocks.
+//
+// Measured (chip_smoke.py, PERF.md): stage A alone takes most of the
+// power-of-two kernel's time, against a plain copy of the field at 0.36 ms;
+// nor did persistent clusters loading the next tile by cp.async beside the
+// transforms (tried) speed it up: the narrow column tiles' device-memory
+// access, 32-byte runs over all M rows, is what holds it. The mixed
+// instance runs at 20-32% of its bound, 1.6-5.1 times faster than
+// x_dft_kernel at M = 2560 ... 7808 (chip_smoke.py's k4_mixed).
+// ---------------------------------------------------------------------------
+
+// The cluster kernels' body (see above): kMixed selects the mixed instance,
+// which takes N2 = n2m and the plan; the power-of-two one takes N2 =
+// 2^logn2.
+template <bool kMixed>
+__device__ __forceinline__ void x_cluster_tile(
+    const float* __restrict__ in, float* __restrict__ out, int P, int logn2,
+    int n2m, int logg, int logcw, int inverse, int stage_a, int plan,
+    const float2* __restrict__ wm) {
+  namespace cg = cooperative_groups;
+  extern __shared__ float smem[];
+  const int r = static_cast<int>(cg::this_cluster().block_rank());
+  const int n2 = kMixed ? n2m : 1 << logn2, cw = 1 << logcw, M = n2 << 7;
+  const int logl1 = 7 - logg, logl2 = kMixed ? 0 : logn2 - logg;
+  const int logna = logl1 + logcw, lognb = logl2 + logcw;
+  const int na = 1 << logna, nb = 1 << lognb;
+  // Stage B: block r's first p-row, its column count (p-rows times Cw) and
+  // buffer B's row stride.
+  const int s0 = kMixed ? (r * n2) >> logg : r << logl2;
+  const int cnt = kMixed ? ((((r + 1) * n2) >> logg) - s0) << logcw : nb;
+  const int bs = kMixed ? ((n2 + (1 << logg) - 1) >> logg) << logcw : nb;
+  float2* A = reinterpret_cast<float2*>(smem);      // n2 rows of na columns
+  float2* B = A + (n2 << logna);                    // 128 rows of bs columns
+  // W_N2^k, k < N2 / 2 (mixed: k < N2); W_128^k, k < 64.
+  float2* twa = B + (kMixed ? 128 * bs : 128 << lognb);
+  float2* twb = twa + (kMixed ? n2 : n2 / 2);
+  // Mixed: the prime pass's weights W_p^(ik), i = 1 .. (p - 1) / 2, k = 0
+  // .. (p - 1) / 2; rho; p-row -> (block << 8) | its row in the block.
+  const int prime = kMixed ? y_mixed_prime(n2) : 0, half = (prime + 1) / 2;
+  float2* wp = twb + 64;
+  int* rho = reinterpret_cast<int*>(wp + (half - 1) * half);
+  int* own = rho + n2;
+  if constexpr (kMixed) {
+    for (int e = threadIdx.x; e < (half - 1) * half; e += kClusterThreads) {
+      const int i = e / half + 1, k = e - (i - 1) * half;
+      wp[e] = wm[(i * k % prime) * (M / prime)];
+    }
+    for (int k = threadIdx.x; k < n2; k += kClusterThreads) {
+      twa[k] = wm[k << 7];
+      rho[k] = plan_rho(plan, n2, k);
+      const int b = (((k + 1) << logg) - 1) / n2;  // the b with s_b <= k < s_(b+1)
+      own[k] = (b << 8) | (k - ((b * n2) >> logg));
+    }
+  } else {
+    for (int k = threadIdx.x; k < n2 / 2; k += kClusterThreads) twa[k] = wm[k << 7];
+  }
+  for (int k = threadIdx.x; k < 64; k += kClusterThreads)
+    twb[k] = wm[kMixed ? k * n2 : k << logn2];
+  __syncthreads();
+  const size_t plane = (size_t)M * P;
+  const int c0 = (blockIdx.x >> logg) << logcw;     // the cluster's y slots
+  const int ncol = min(cw, P - c0);                 // ragged last tile
+  const int r1 = r << logl1;                        // first n1
+  // Element (row, y slot c0 + col) of a planar field: a zero (read) or
+  // nothing (write) for a slot past P.
+  auto get = [=](int row, int col) {
+    const size_t off = (size_t)row * P + c0 + min(col, ncol - 1);
+    return col < ncol ? make_float2(__ldg(in + off), __ldg(in + off + plane))
+                      : make_float2(0.f, 0.f);
+  };
+  auto put = [=](int row, int col, float2 v) {
+    if (col >= ncol) return;
+    const size_t off = (size_t)row * P + c0 + col;
+    out[off] = v.x;
+    out[off + plane] = v.y;
+  };
+  auto none = [] {};
+  auto arrive = [] { asm volatile("barrier.cluster.arrive.aligned;" ::: "memory"); };
+  // k2 of p-row p, and the block that owns p-row p in stage B and its row
+  // there.
+  auto k2_of = [=](int p) { return kMixed ? rho[p] : bitrev(p, logn2); };
+  auto owner = [=](int p) { return kMixed ? own[p] >> 8 : p >> logl2; };
+  auto local = [=](int p) {
+    return kMixed ? own[p] & 255 : p & ((1 << logl2) - 1);
+  };
+  auto brow = [=](int row) { return kMixed ? row * bs : row << lognb; };
+  const auto bcols = [=] {
+    if constexpr (kMixed) {
+      return NCols{cnt};
+    } else {
+      return lognb;
+    }
+  }();
+  // Column a of A is (n1 - r1) cw + col, column b of B is (p - s0) cw + col.
+  auto wr_a = [=](int row, int a, float2 v) { A[(row << logna) + a] = v; };
+  auto wr_b = [=](int row, int b, float2 v) { B[brow(row) + b] = v; };
+  auto at_a = [=](int row, int a) { return A + (row << logna) + a; };
+  // Copies n2 na elements into A, kBatch reads a thread in flight: the
+  // block's rows where a prime pass comes first.
+  auto fill_a = [=](auto ld) {
+    const int count = n2 << logna;
+    for (int i0 = threadIdx.x; i0 < count; i0 += kBatch * kClusterThreads) {
+      float2 v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = min(i0 + u * kClusterThreads, count - 1);
+        v[u] = ld(i >> logna, i & (na - 1));
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (i0 + u * kClusterThreads < count) A[i0 + u * kClusterThreads] = v[u];
+      }
+    }
+  };
+
+  if (!inverse) {
+    // Stage A: A row n2 <- x[N1 n2 + n1]; DIF leaves k2 = rho(row).
+    auto ld_a = [=](int row, int a) {
+      return get((row << 7) + r1 + (a >> logcw), a & (cw - 1));
+    };
+    if constexpr (kMixed) {
+      if (!reg_radix(plan_radix(plan, 0))) {
+        fill_a(ld_a);
+        __syncthreads();
+      }
+      mixed_fft_at<kClusterThreads, false>(logna, n2, plan, twa, wp, ld_a,
+                                           wr_a, at_a, none);
+    } else {
+      il_fft<false>(A, logna, na, logn2, twa, ld_a, wr_a, none);
+    }
+    if (stage_a) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < n2 << logna; i += kClusterThreads) {
+        const int a = i & (na - 1);
+        const int n1 = r1 + (a >> logcw), k2 = k2_of(i >> logna);
+        put((k2 << 7) + n1, a & (cw - 1), cmul(A[i], wm[n1 * k2], false));
+      }
+      return;
+    }
+    cg::this_cluster().sync();
+    // Stage B: row n1 <- block n1 / L1's A at row p (k2 = rho(p)), times
+    // W_M^(n1 k2); DIF, then row p' (k1 = bitrev(p')) -> slot row
+    // k2 N1 + k1.
+    il_fft<false>(B, bcols, bs, 7, twb,
+        [=](int n1, int b) {
+          const int p = s0 + (b >> logcw);
+          const float2 v = cg::this_cluster().map_shared_rank(
+              static_cast<const float2*>(A), n1 >> logl1)[
+                  (p << logna) + ((n1 & ((1 << logl1) - 1)) << logcw) +
+                  (b & (cw - 1))];
+          return cmul(v, __ldg(wm + n1 * k2_of(p)), false);
+        },
+        [=](int pp, int b, float2 v) {
+          put((k2_of(s0 + (b >> logcw)) << 7) + bitrev(pp, 7), b & (cw - 1),
+              v);
+        }, arrive);
+  } else {
+    // Stage B^-1: B row p' <- X[k2 N1 + k1], k1 = bitrev(p'); DIT leaves
+    // n1 = row.
+    il_fft<true>(B, bcols, bs, 7, twb,
+        [=](int pp, int b) {
+          return get((k2_of(s0 + (b >> logcw)) << 7) + bitrev(pp, 7),
+                     b & (cw - 1));
+        }, wr_b, none);
+    if (stage_a) {
+      __syncthreads();
+      if constexpr (kMixed) {
+        for (int e = threadIdx.x; e < 128 * cnt; e += kClusterThreads) {
+          const int n1 = e / cnt, b = e - n1 * cnt;
+          const int k2 = k2_of(s0 + (b >> logcw));
+          put((k2 << 7) + n1, b & (cw - 1),
+              cmul(B[brow(n1) + b], wm[n1 * k2], true));
+        }
+      } else {
+        for (int e = threadIdx.x; e < 128 << lognb; e += kClusterThreads) {
+          const int n1 = e >> lognb, b = e & (nb - 1);
+          const int k2 = bitrev(s0 + (b >> logcw), logn2);
+          put((k2 << 7) + n1, b & (cw - 1), cmul(B[e], wm[n1 * k2], true));
+        }
+      }
+      return;
+    }
+    cg::this_cluster().sync();
+    // Stage A^-1: row p <- its owner's B at row n1, times conj(W_M^(n1
+    // k2)); DIT, then row n2 -> x row N1 n2 + n1, scaled 1/M.
+    const float scale = 1.0f / static_cast<float>(M);   // exact when M = 2^k
+    auto pull = [=](int p, int a) {
+      const int n1 = r1 + (a >> logcw);
+      const float2 v = cg::this_cluster().map_shared_rank(
+          static_cast<const float2*>(B), owner(p))[
+              brow(n1) + (local(p) << logcw) + (a & (cw - 1))];
+      return cmul(v, __ldg(wm + n1 * k2_of(p)), true);
+    };
+    auto st = [=](int row, int a, float2 v) {
+      put((row << 7) + r1 + (a >> logcw), a & (cw - 1),
+          make_float2(v.x * scale, v.y * scale));
+    };
+    if constexpr (kMixed) {
+      int last = 0;
+      for (int t = 0; t < 4 && plan_radix(plan, t); ++t)
+        last = plan_radix(plan, t);
+      if (!reg_radix(last)) {
+        fill_a(pull);
+        arrive();
+        __syncthreads();
+        mixed_fft_at<kClusterThreads, true>(logna, n2, plan, twa, wp, pull,
+                                            st, at_a, none);
+      } else {
+        mixed_fft_at<kClusterThreads, true>(logna, n2, plan, twa, wp, pull,
+                                            st, at_a, arrive);
+      }
+    } else {
+      il_fft<true>(A, logna, na, logn2, twa, pull, st, arrive);
+    }
+  }
+  // No block leaves while a peer may still read its buffer.
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kClusterThreads, 2)
+x_dft_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
+                     int P, int logn2, int logg, int logcw, int inverse,
+                     int stage_a, const float2* __restrict__ wm) {
+  x_cluster_tile<false>(in, out, P, logn2, 0, logg, logcw, inverse, stage_a,
+                        0, wm);
+}
+
+__global__ void __launch_bounds__(kClusterThreads, 2)
+x_dft_cluster_mixed_kernel(const float* __restrict__ in,
+                           float* __restrict__ out, int P, int n2, int logg,
+                           int logcw, int inverse, int stage_a, int plan,
+                           const float2* __restrict__ wm) {
+  x_cluster_tile<true>(in, out, P, 0, n2, logg, logcw, inverse, stage_a, plan,
+                       wm);
 }
 
 // ---------------------------------------------------------------------------
@@ -1905,6 +2060,42 @@ int cluster_config(int logn2, int logg, int logcw, int clusters,
       cluster_smem(logn2, logg, logcw), logg, clusters, stream, cfg, attr);
 }
 
+// The mixed instance's shared memory: buffer A (N2 rows of 128 Cw / G
+// float2), buffer B (128 rows of ceil(N2 / G) Cw float2), the N2- and
+// 64-entry tables and the prime pass's (p - 1) / 2 x (p + 1) / 2 weights
+// (float2), then rho and the p-row map (N2 int each).
+int cluster_mixed_smem(int n2, int logg, int logcw) {
+  const int h = y_mixed_prime(n2) / 2;
+  const int rows_b = (n2 + (1 << logg) - 1) >> logg;
+  return ((n2 << (7 - logg + logcw)) + ((128 * rows_b) << logcw) + n2 + 64 +
+          h * (h + 1)) * static_cast<int>(sizeof(float2)) +
+         2 * n2 * static_cast<int>(sizeof(int));
+}
+
+// K4's mixed cluster kernel's launch: N2 not a power of two, G <= N2 <= 63.
+int cluster_mixed_config(int n2, int logg, int logcw, int clusters,
+                         cudaStream_t stream, cudaLaunchConfig_t& cfg,
+                         cudaLaunchAttribute& attr) {
+  if (logg < 3 || logg > 4 || n2 < (1 << logg) || n2 > 63 ||
+      (n2 & (n2 - 1)) == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return fill_cluster_launch(
+      reinterpret_cast<const void*>(x_dft_cluster_mixed_kernel),
+      cluster_mixed_smem(n2, logg, logcw), logg, clusters, stream, cfg, attr);
+}
+
+// True iff the radices of a packed plan multiply out to n, each a register
+// radix or n's prime (dft_kernels.y_dft_mixed_plan).
+bool plan_fits(int plan, int n) {
+  int prod = 1;
+  for (int t = 0; t < 4 && plan_radix(plan, t); ++t) {
+    const int r = plan_radix(plan, t);
+    if (!reg_radix(r) && r != y_mixed_prime(n)) return false;
+    prod *= r;
+  }
+  return prod == n;
+}
+
 }  // namespace
 
 // The most clusters of the cluster kernel's layout that the card holds at
@@ -1935,6 +2126,42 @@ extern "C" int qg_x_dft_cluster_launch(const float* in, float* out, int P,
   if (cudaError_t err = cudaLaunchKernelEx(
           &cfg, x_dft_cluster_kernel, in, out, P, logn2, logg, logcw, inverse,
           stage_a, static_cast<const float2*>(wm)))
+    return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The most clusters of the mixed cluster kernel's layout (M = 128 n2) that
+// the card holds at once: 0 means the layout cannot run.
+extern "C" int qg_x_dft_cluster_mixed_occupancy(int n2, int logg, int logcw,
+                                                int* max_clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (int err = cluster_mixed_config(n2, logg, logcw, 1, nullptr, cfg, attr))
+    return err;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      max_clusters, reinterpret_cast<const void*>(x_dft_cluster_mixed_kernel),
+      &cfg));
+}
+
+// K4's mixed cluster kernel on a planar (2, 128 n2, P) field; plan: the
+// radices of stage A in DIF order, one byte each (dft_kernels.
+// y_dft_mixed_plan), whose product must be n2; wm: the M-entry float2 table.
+extern "C" int qg_x_dft_cluster_mixed_launch(const float* in, float* out,
+                                             int P, int n2, int logg,
+                                             int logcw, int inverse,
+                                             int stage_a, int plan,
+                                             const void* wm, void* stream) {
+  if (!plan_fits(plan, n2)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const int clusters = (P + (1 << logcw) - 1) >> logcw;
+  if (int err = cluster_mixed_config(n2, logg, logcw, clusters,
+                                     static_cast<cudaStream_t>(stream), cfg,
+                                     attr))
+    return err;
+  if (cudaError_t err = cudaLaunchKernelEx(
+          &cfg, x_dft_cluster_mixed_kernel, in, out, P, n2, logg, logcw,
+          inverse, stage_a, plan, static_cast<const float2*>(wm)))
     return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -2060,15 +2287,7 @@ extern "C" int qg_y_dft_mixed_launch(const float* in, float* out, int rows,
                                      int n2, int logrb, int threads,
                                      int inverse, int plan, const void* wm,
                                      void* cuda_stream) {
-  // Radices whose product is n2, each a register radix or n2's prime.
-  int prod = 1;
-  for (int t = 0; t < 4 && plan_radix(plan, t); ++t) {
-    const int r = plan_radix(plan, t);
-    if (!reg_radix(r) && r != y_mixed_prime(n2))
-      return static_cast<int>(cudaErrorInvalidValue);
-    prod *= r;
-  }
-  if (prod != n2) return static_cast<int>(cudaErrorInvalidValue);
+  if (!plan_fits(plan, n2)) return static_cast<int>(cudaErrorInvalidValue);
   int err = 0;
   YMixedFn fn = y_mixed_fn(n2, logrb, threads, inverse, &err);
   if (err) return err;

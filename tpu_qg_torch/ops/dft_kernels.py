@@ -416,6 +416,10 @@ def _lib():
                        [p, p, i, i, i, i, i, i, p, p])
         _build.declare(lib.qg_x_dft_cluster_occupancy,
                        [i, i, i, ctypes.POINTER(ctypes.c_int)])
+        _build.declare(lib.qg_x_dft_cluster_mixed_launch,
+                       [p, p, i, i, i, i, i, i, i, p, p])
+        _build.declare(lib.qg_x_dft_cluster_mixed_occupancy,
+                       [i, i, i, ctypes.POINTER(ctypes.c_int)])
         _build.declare(lib.qg_y_dft_factored_launch,
                        [p, p, i, i, i, i, i, p, p])
         _build.declare(lib.qg_y_dft_factored_occupancy,
@@ -566,10 +570,12 @@ def _packed_plan(n: int) -> int:
     return sum(r << (8 * t) for t, r in enumerate(y_dft_mixed_plan(n)))
 
 
-def _y_mixed(P: int) -> bool:
-    """True iff P = 128 * N2 with 3 <= N2 <= 63 not a power of two."""
-    n2 = P // _N1
-    return P == _N1 * n2 and 3 <= n2 <= 63 and not _is_pow2(n2)
+def _mixed(N: int) -> bool:
+    """True iff N = 128 * N2 with 3 <= N2 <= 63 not a power of two: an
+    extent of the mixed-radix factored kernels (K2's along y, K4's along
+    x)."""
+    n2 = N // _N1
+    return N == _N1 * n2 and 3 <= n2 <= 63 and not _is_pow2(n2)
 
 
 @functools.lru_cache(maxsize=128)
@@ -577,7 +583,7 @@ def y_dft_factored_launched(P: int) -> tuple[int, int]:
     """The layout (Rb, threads) y_dft launches at extent P: power-of-two
     extents from Y_FACTORED_RB_BY_P (else (1, 256)), mixed ones the least
     power-of-two Rb with Rb N2 >= Y_MIXED_PROWS that fits, 256 threads."""
-    if not _y_mixed(P):
+    if not _mixed(P):
         return Y_FACTORED_RB_BY_P.get(P, (1, 256))
     rb = 1
     while (rb * (P // _N1) < Y_MIXED_PROWS and y_dft_factored_layout(
@@ -602,7 +608,7 @@ class YFactoredLayout(NamedTuple):
 def y_dft_factored_layout(P: int, rb: int,
                           threads: int = 256) -> YFactoredLayout:
     n2 = P // _N1
-    if _y_mixed(P):
+    if _mixed(P):
         h = _y_mixed_prime(n2) // 2
         smem = (8 * (rb * n2 * Y_ROW_STRIDE + 3 * n2 + 2 * 64 + h * (h + 1))
                 + 4 * 2 * n2)
@@ -638,7 +644,7 @@ def y_dft_factored_occupancy(P: int, layout: tuple, device: int) -> int:
     with torch.cuda.device(device):
         for inverse in (0, 1):
             count = ctypes.c_int(0)
-            if _y_mixed(P):
+            if _mixed(P):
                 code = _lib().qg_y_dft_mixed_occupancy(
                     n2, rb.bit_length() - 1, threads, inverse,
                     ctypes.byref(count))
@@ -693,7 +699,7 @@ def y_dft_factored(z: torch.Tensor, inverse: bool,
     wm = _twiddles(P, P, z.device).data_ptr()
     stream = torch.cuda.current_stream(z.device).cuda_stream
     n2 = P // _N1
-    if _y_mixed(P):
+    if _mixed(P):
         code = _lib().qg_y_dft_mixed_launch(
             z.data_ptr(), out.data_ptr(), rows, n2, rb.bit_length() - 1,
             threads, int(inverse), _packed_plan(n2), wm, stream)
@@ -731,30 +737,9 @@ def y_dft_factored_emulated(z: torch.Tensor, inverse: bool) -> torch.Tensor:
     n1 = torch.arange(_N1, device=z.device)
     j = n1[None, :] * rho[:, None]                   # (p, n1): n1 k2
     twiddle = wm[(j >> 6) << 6] * wm[j & 63]         # thi[j >> 6] tlo[j & 63]
-    passes, span = [], n2
-    for r in plan:
-        span //= r
-        passes.append((r, span))
-
-    def dft_weights(r: int, conj: bool) -> torch.Tensor:
-        e = (np.outer(np.arange(r), np.arange(r)) % r) * (n2 // r)
-        w = twa[torch.as_tensor(e, device=z.device)]
-        return w.conj() if conj else w
-
-    def stage_twiddles(r: int, L: int, conj: bool) -> torch.Tensor:
-        # (r, L): W_(rL)^(j k) = twa[j k N2 / (r L)], output k, offset j.
-        e = np.outer(np.arange(r), np.arange(L)) * (n2 // (r * L))
-        w = twa[torch.as_tensor(e, device=z.device)]
-        return w.conj() if conj else w
-
     c = torch.complex(z[0], z[1])
     if not inverse:
-        y = c.reshape(rows, n2, _N1)
-        for r, L in passes:            # position blk r L + a L + j
-            y = y.reshape(rows, n2 // (r * L), r, L, _N1)
-            y = torch.einsum("xbajc,ak->xbkjc", y, dft_weights(r, False))
-            y = (y * stage_twiddles(r, L, False)[None, None, :, :, None]
-                 ).reshape(rows, n2, _N1)
+        y = _plan_passes_emulated(c.reshape(rows, n2, _N1), twa, False)
         y = torch.fft.fft(y * twiddle, dim=2)      # (p, k1): k2 = rho[p]
         out = torch.empty_like(y)
         out[:, rho, :] = y
@@ -762,13 +747,48 @@ def y_dft_factored_emulated(z: torch.Tensor, inverse: bool) -> torch.Tensor:
     else:
         y = c.reshape(rows, n2, _N1)[:, rho, :]     # p-row p <- slot k2 = rho[p]
         y = torch.fft.ifft(y, dim=2, norm="forward") * twiddle.conj()
-        for r, L in reversed(passes):
-            y = y.reshape(rows, n2 // (r * L), r, L, _N1)
-            y = y * stage_twiddles(r, L, True)[None, None, :, :, None]
-            y = torch.einsum("xbkjc,ka->xbajc", y, dft_weights(r, True))
-            y = y.reshape(rows, n2, _N1)
+        y = _plan_passes_emulated(y, twa, True)
         out = y.reshape(rows, P) * (1.0 / P)
     return _planar(out, z.dtype)
+
+
+def _plan_passes_emulated(y: torch.Tensor, twa: torch.Tensor,
+                          inverse: bool) -> torch.Tensor:
+    """The factored kernels' mixed-radix stage A (csrc mixed_fft_at) along
+    dim 1 of a complex (batch, N2, cols) tensor, with the CUDA source's
+    index maps: the passes of y_dft_mixed_plan(N2), each butterfly's r-point
+    DFT on the weights W_r^(ab) and output k of offset j times W_(rL)^(jk)
+    (span L), both read from ``twa``, the kernel's table of W_N2^k (k <
+    N2). Forward (DIF, the plan's order): natural order in, p-row p holding
+    k2 = y_dft_mixed_rho(plan)[p] out; inverse (DIT, the passes in reverse
+    order with conjugate weights, unscaled): the mirror image."""
+    batch, n2, cols = y.shape
+    passes, span = [], n2
+    for r in y_dft_mixed_plan(n2):
+        span //= r
+        passes.append((r, span))
+
+    def dft_weights(r: int, conj: bool) -> torch.Tensor:
+        e = (np.outer(np.arange(r), np.arange(r)) % r) * (n2 // r)
+        w = twa[torch.as_tensor(e, device=y.device)]
+        return w.conj() if conj else w
+
+    def stage_twiddles(r: int, L: int, conj: bool) -> torch.Tensor:
+        # (r, L): W_(rL)^(j k) = twa[j k N2 / (r L)], output k, offset j.
+        e = np.outer(np.arange(r), np.arange(L)) * (n2 // (r * L))
+        w = twa[torch.as_tensor(e, device=y.device)]
+        return w.conj() if conj else w
+
+    for r, L in (reversed(passes) if inverse else passes):
+        y = y.reshape(batch, n2 // (r * L), r, L, cols)   # blk r L + a L + j
+        if not inverse:
+            y = torch.einsum("xbajc,ak->xbkjc", y, dft_weights(r, False))
+            y = y * stage_twiddles(r, L, False)[None, None, :, :, None]
+        else:
+            y = y * stage_twiddles(r, L, True)[None, None, :, :, None]
+            y = torch.einsum("xbkjc,ka->xbajc", y, dft_weights(r, True))
+        y = y.reshape(batch, n2, cols)
+    return y
 
 
 def y_dft_whole_row(z: torch.Tensor, inverse: bool) -> torch.Tensor:
@@ -806,7 +826,7 @@ def y_dft(z: torch.Tensor, inverse: bool) -> torch.Tensor:
     P = z.shape[-1]
     if y_dft_factored_takes(P):
         out = y_dft_factored(z, inverse)
-        if _y_mixed(P):
+        if _mixed(P):
             y_dft.mixed_launches += 1
         else:
             y_dft.factored_launches += 1
@@ -867,17 +887,22 @@ def x_dft_layout(M: int, inverse: bool) -> tuple[int, int, int, int]:
         M, lambda C, cs, b: 2 * C * (cs + (b if inverse else 0)), SMEM_LIMIT)
 
 
-# K4's cluster kernel (csrc x_dft_cluster_kernel) on M = 128 * 2^a: a cluster
-# of G blocks takes Cw adjacent y slots, block r stage A of n1 in [r L1,
-# (r+1) L1), L1 = 128 / G, then stage B of the k2 at DIF positions [r L2,
-# (r+1) L2), L2 = N2 / G (k2 = bitrev(position)). The layout x_dft launches,
-# (G, Cw), is the fastest at each extent of the sweep that chip_smoke.py
-# prints (PERF.md): X_CLUSTER_BY_M, else X_CLUSTER.
+# K4's cluster kernels on M = 128 * N2 with N2 >= G (csrc
+# x_dft_cluster_kernel for N2 = 2^a, x_dft_cluster_mixed_kernel for the other
+# N2 <= 63): a cluster of G blocks takes Cw adjacent y slots, block r stage A
+# of n1 in [r L1, (r+1) L1), L1 = 128 / G, then stage B of the p-rows
+# [floor(r N2 / G), floor((r+1) N2 / G)) (p-row p holding k2 = rho(p): the
+# bit reversal for a power of two, else the digit reversal of
+# y_dft_mixed_plan(N2)). The layout x_dft launches, (G, Cw), is at each
+# extent of X_CLUSTER_BY_M the one with the least device time both ways in
+# chip_smoke.py's k4_sweep (powers of two) or k4_mixed (mixed extents)
+# (PERF.md), else X_CLUSTER, which fits shared memory at every N2 <= 63.
 CLUSTER_SIZES = (8, 16)
 CLUSTER_WIDTHS = (8, 16)
 X_CLUSTER = (8, 8)
-X_CLUSTER_BY_M = {8192: (16, 8)}
-_N1 = 128        # N1 of the factored kernels (split_factor on 128 * 2^a)
+X_CLUSTER_BY_M = {2560: (8, 16), 3072: (8, 16), 6144: (16, 16),
+                  7808: (16, 8), 8192: (16, 8)}
+_N1 = 128        # N1 of the factored kernels (split_factor on 128 * n)
 
 
 def x_dft_cluster_launched(M: int) -> tuple[int, int]:
@@ -887,9 +912,12 @@ def x_dft_cluster_launched(M: int) -> tuple[int, int]:
 
 class ClusterLayout(NamedTuple):
     """The cluster kernel's shared memory for M = 128 * N2 (csrc
-    cluster_smem): buffer A (N2 rows of L1 Cw float2) and buffer B (128
-    rows of L2 Cw), a tile of M Cw / G float2 each, then the N2/2- and
-    64-entry radix-2 tables."""
+    cluster_smem, cluster_mixed_smem): buffer A (N2 rows of L1 Cw float2, a
+    tile of M Cw / G), buffer B (128 rows of L2 Cw float2, L2 = ceil(N2 /
+    G), the most p-rows a block owns), then the tables: for a power of two
+    the N2/2- and 64-entry radix-2 ones; for a mixed N2 the N2- and
+    64-entry ones, the prime pass's (p-1)/2 x (p+1)/2 float2 weights and
+    two N2-entry int maps (rho, and p-row -> block and row)."""
     n2: int
     l1: int
     l2: int
@@ -899,22 +927,35 @@ class ClusterLayout(NamedTuple):
 
 def x_dft_cluster_layout(M: int, G: int, Cw: int) -> ClusterLayout:
     n2 = M // _N1
+    l2 = -(-n2 // G)
     tile = M * Cw // G
-    smem = 8 * (2 * tile + n2 // 2 + _N1 // 2)
-    return ClusterLayout(n2, _N1 // G, n2 // G, tile, smem)
+    if _mixed(M):
+        h = _y_mixed_prime(n2) // 2
+        smem = (8 * (tile + _N1 * l2 * Cw + n2 + _N1 // 2 + h * (h + 1))
+                + 4 * 2 * n2)
+    else:
+        smem = 8 * (2 * tile + n2 // 2 + _N1 // 2)
+    return ClusterLayout(n2, _N1 // G, l2, tile, smem)
 
 
 def x_dft_cluster_takes(M: int, G: int | None = None,
                         Cw: int | None = None) -> bool:
-    """True iff the cluster kernel takes extent M at (G, Cw) (by default
-    the launched layout's): M = 128 * 2^a with N2 = M / 128 >= G, within
-    one block's shared memory."""
+    """True iff a cluster kernel takes extent M at (G, Cw) (by default the
+    launched layout's): M = 128 * N2 with N2 >= G, N2 a power of two
+    (x_dft_cluster_kernel) or 3 <= N2 <= 63 (x_dft_cluster_mixed_kernel),
+    within one block's shared memory."""
     if G is None or Cw is None:
         G, Cw = x_dft_cluster_launched(M)
     n2 = M // _N1
     return (G in CLUSTER_SIZES and Cw in CLUSTER_WIDTHS
-            and M == _N1 * n2 and n2 >= G and n2 & (n2 - 1) == 0
+            and M == _N1 * n2 and n2 >= G and (_is_pow2(n2) or _mixed(M))
             and x_dft_cluster_layout(M, G, Cw).smem <= SMEM_LIMIT)
+
+
+def x_dft_cluster_split(M: int, G: int) -> np.ndarray:
+    """Stage B's split of the N2 p-rows (csrc x_cluster_tile): block r owns
+    p-rows [s[r], s[r + 1]), s[r] = floor(r N2 / G)."""
+    return np.arange(G + 1) * (M // _N1) // G
 
 
 def _bitrev(bits: int) -> torch.Tensor:
@@ -928,28 +969,37 @@ def _bitrev(bits: int) -> torch.Tensor:
 
 def x_dft_cluster_emulated(z: torch.Tensor, inverse: bool, G: int, Cw: int,
                            stage_a: bool = False):
-    """What the cluster kernel does at (G, Cw), tile by tile and block by
+    """What a cluster kernel does at (G, Cw), tile by tile and block by
     block, in plain torch: each block's loads into its first-stage buffer,
-    its radix-2 transform (torch.fft, then rows in the DIF output's
-    bit-reversed order, or from the DIT input's), its pulls from every
-    block's buffer with the inter-stage twiddle and its stores, with the
-    CUDA source's index arithmetic. Returns (out, loads, stores): the
-    planar result (x_dft_plain's, or with ``stage_a`` x_dft_stage_a_plain's)
-    and how many times each (row, slot) of the input was loaded and of the
-    output stored."""
+    its stage along n2 (the passes of y_dft_mixed_plan(N2) with the
+    kernel's weights and twiddles, _plan_passes_emulated: p-row p then
+    holds k2 = rho[p]) or along n1 (torch.fft, then rows in the DIF
+    output's bit-reversed order, or from the DIT input's), stage B's split
+    of the p-rows (x_dft_cluster_split) and the owner of each p-row, its
+    pulls from every block's buffer with the inter-stage twiddle and its
+    stores, with the CUDA source's index arithmetic. A power of two runs
+    the same maps (its plan is radix 2 throughout, rho the bit reversal).
+    Returns (out, loads, stores): the planar result (x_dft_plain's, or with
+    ``stage_a`` x_dft_stage_a_plain's) and how many times each (row, slot)
+    of the input was loaded and of the output stored."""
     _, M, P = z.shape
     if not x_dft_cluster_takes(M, G, Cw):
         raise ValueError(f"the cluster kernel does not take M = {M} at "
                          f"G = {G}, Cw = {Cw}")
     n2, l1, l2, _, _ = x_dft_cluster_layout(M, G, Cw)
-    na, nb = l1 * Cw, l2 * Cw
+    na = l1 * Cw
     c = torch.complex(z[0], z[1])
     wm = torch.as_tensor(np.exp(-2j * np.pi * np.arange(M) / M)).to(c.dtype)
-    bra, brb = _bitrev(n2.bit_length() - 1), _bitrev(7)
+    twa = wm[::_N1]                                  # W_N2^k, k < N2
+    rho = torch.as_tensor(y_dft_mixed_rho(y_dft_mixed_plan(n2)))
+    brb = _bitrev(7)
+    s = x_dft_cluster_split(M, G)
+    owner = torch.as_tensor(np.repeat(np.arange(G), np.diff(s)))
+    start = torch.as_tensor(s)
     out = torch.zeros_like(c)
     loads = torch.zeros((M, P), dtype=torch.int64)
     stores = torch.zeros((M, P), dtype=torch.int64)
-    ia, ib = torch.arange(n2 * na), torch.arange(_N1 * nb)
+    ia = torch.arange(n2 * na)
 
     def load(buf, brow, bcol, grow, col, c0):
         ok = c0 + col < P
@@ -965,31 +1015,30 @@ def x_dft_cluster_emulated(z: torch.Tensor, inverse: bool, G: int, Cw: int,
                           torch.ones(int(ok.sum()), dtype=torch.int64),
                           accumulate=True)
 
-    def dif(buf, br):              # natural in, row p holds bitrev(p)
-        buf[:] = torch.fft.fft(buf, dim=0)[br]
-
-    def dit(buf, br):              # row p holds bitrev(p) in, natural out
-        buf[:] = torch.fft.ifft(buf[br], dim=0, norm="forward")
+    def block_b(r):                # stage B's elements (row, column) of block r
+        cnt = int(s[r + 1] - s[r]) * Cw
+        e = torch.arange(_N1 * cnt)
+        return e // cnt, e % cnt
 
     for c0 in range(0, P, Cw):
         first = []
         for r in range(G):
-            r1, r2 = r * l1, r * l2
+            r1, s0 = r * l1, int(s[r])
             if not inverse:
                 buf = torch.zeros((n2, na), dtype=c.dtype)
                 p, a = ia // na, ia % na
                 load(buf, p, a, _N1 * p + r1 + a // Cw, a % Cw, c0)
-                dif(buf, bra)
+                buf = _plan_passes_emulated(buf[None], twa, False)[0]
                 if stage_a:
-                    n1, k2 = r1 + a // Cw, bra[p]
+                    n1, k2 = r1 + a // Cw, rho[p]
                     store(buf[p, a] * wm[n1 * k2], _N1 * k2 + n1,
                           a % Cw, c0)
             else:
-                buf = torch.zeros((_N1, nb), dtype=c.dtype)
-                pp, b = ib // nb, ib % nb
-                k2 = bra[r2 + b // Cw]
+                buf = torch.zeros((_N1, l2 * Cw), dtype=c.dtype)
+                pp, b = block_b(r)
+                k2 = rho[s0 + b // Cw]
                 load(buf, pp, b, _N1 * k2 + brb[pp], b % Cw, c0)
-                dit(buf, brb)
+                buf = torch.fft.ifft(buf[brb], dim=0, norm="forward")
                 if stage_a:
                     store(buf[pp, b] * wm[pp * k2].conj(),
                           _N1 * k2 + pp, b % Cw, c0)
@@ -998,28 +1047,26 @@ def x_dft_cluster_emulated(z: torch.Tensor, inverse: bool, G: int, Cw: int,
             continue
         first = torch.stack(first)
         for r in range(G):
-            r1, r2 = r * l1, r * l2
-            j = ia                 # the pull: n2 * na elements either way
+            r1, s0 = r * l1, int(s[r])
             if not inverse:
-                rank, pl, a = j // (l2 * na), (j // na) % l2, j % na
-                n1 = rank * l1 + a // Cw
-                v = first[rank, r2 + pl, a] * wm[n1 * bra[r2 + pl]]
-                buf = torch.zeros((_N1, nb), dtype=c.dtype)
-                buf[n1, pl * Cw + a % Cw] = v
-                dif(buf, brb)
-                pp, b = ib // nb, ib % nb
-                store(buf[pp, b], _N1 * bra[r2 + b // Cw] + brb[pp],
-                      b % Cw, c0)
+                n1, b = block_b(r)     # the pull, then DIF along n1
+                p = s0 + b // Cw
+                v = first[n1 // l1, p, (n1 % l1) * Cw + b % Cw] * wm[
+                    n1 * rho[p]]
+                buf = torch.zeros((_N1, l2 * Cw), dtype=c.dtype)
+                buf[n1, b] = v
+                buf = torch.fft.fft(buf, dim=0)[brb]
+                store(buf[n1, b], _N1 * rho[p] + brb[n1], b % Cw, c0)
             else:
-                rank, nl, b = j // (l1 * nb), (j // nb) % l1, j % nb
-                p = rank * l2 + b // Cw
-                v = first[rank, r1 + nl, b] * wm[(r1 + nl) * bra[p]].conj()
+                p, a = ia // na, ia % na   # the pull from p-row p's owner
+                n1 = r1 + a // Cw
+                rank = owner[p]
+                v = first[rank, n1, (p - start[rank]) * Cw + a % Cw] * wm[
+                    n1 * rho[p]].conj()
                 buf = torch.zeros((n2, na), dtype=c.dtype)
-                buf[p, nl * Cw + b % Cw] = v
-                dit(buf, bra)
-                p, a = ia // na, ia % na
-                store(buf[p, a] / M, _N1 * p + r1 + a // Cw, a % Cw,
-                      c0)
+                buf[p, a] = v
+                buf = _plan_passes_emulated(buf[None], twa, True)[0]
+                store(buf[p, a] / M, _N1 * p + r1 + a // Cw, a % Cw, c0)
     return _planar(out, z.dtype), loads, stores
 
 
@@ -1084,24 +1131,32 @@ def pair_x_whole_columns(Zy: torch.Tensor, consts) -> torch.Tensor:
 @functools.lru_cache(maxsize=32)
 def x_dft_cluster_occupancy(M: int, layout: tuple, device: int) -> int:
     """The most clusters of ``layout`` = (G, Cw) at extent M that card
-    ``device`` holds at once (cudaOccupancyMaxActiveClusters); 0: the
-    layout cannot be scheduled."""
+    ``device`` holds at once (cudaOccupancyMaxActiveClusters, the power-of-
+    two or the mixed instance); 0: the layout cannot be scheduled."""
     G, Cw = layout
+    n2 = M // _N1
     count = ctypes.c_int(0)
     with torch.cuda.device(device):
-        code = _lib().qg_x_dft_cluster_occupancy(
-            (M // _N1).bit_length() - 1, G.bit_length() - 1,
-            Cw.bit_length() - 1, ctypes.byref(count))
+        if _mixed(M):
+            code = _lib().qg_x_dft_cluster_mixed_occupancy(
+                n2, G.bit_length() - 1, Cw.bit_length() - 1,
+                ctypes.byref(count))
+        else:
+            code = _lib().qg_x_dft_cluster_occupancy(
+                n2.bit_length() - 1, G.bit_length() - 1,
+                Cw.bit_length() - 1, ctypes.byref(count))
     _build.check(code, f"x_dft cluster occupancy {layout} at M = {M}")
     return count.value
 
 
 def x_dft_cluster(z: torch.Tensor, inverse: bool, layout: tuple | None = None,
                   stage_a: bool = False) -> torch.Tensor:
-    """One launch of K4's cluster kernel (csrc x_dft_cluster_kernel) on a
-    CUDA (2, M, P) float32 field, M = 128 * 2^a, with ``layout`` = (G, Cw),
-    by default x_dft_cluster_launched(M): x_dft's result, or with
-    ``stage_a`` x_dft_stage_a_plain's.
+    """One launch of K4's cluster kernel on a CUDA (2, M, P) float32 field,
+    M = 128 * N2 (csrc x_dft_cluster_kernel for N2 = 2^a,
+    x_dft_cluster_mixed_kernel, stage A over y_dft_mixed_plan(N2), for the
+    other N2 <= 63), with ``layout`` = (G, Cw), by default
+    x_dft_cluster_launched(M): x_dft's result, or with ``stage_a``
+    x_dft_stage_a_plain's.
     Raises on a shape or layout the kernel does not take, a layout the card
     cannot schedule and a launch error. Counts nothing: the counting
     wrappers are x_dft and x_dft_stage_a.
@@ -1109,12 +1164,14 @@ def x_dft_cluster(z: torch.Tensor, inverse: bool, layout: tuple | None = None,
     Replaces, as x_dft_kernel does, tpu_qg/ops/pallas_fft.py
     PlanarFFT2._call_x (:1153) and _call_x_stream(z, inverse) without
     consts (:1122). Bound: one read and one write of the field (1074 MB at
-    8192^2, 0.321 ms at 3.35 TB/s). Why a cluster: x_dft_kernel's blocks
-    hold whole columns (64 KB each at M = 8192), so two fit and a warp
-    moves 8-byte runs a row, a quarter of a sector; a tile of whole columns
-    wide enough for full sectors (8) would need 512 KB. The cluster's G
-    blocks share it: each runs 1/G of stage A, then pulls its part of stage
-    B from its peers' shared memory (design in the source)."""
+    8192^2, 0.321 ms at 3.35 TB/s; 151 MB at 3072^2, 0.045 ms). Why a
+    cluster: x_dft_kernel's blocks hold whole columns (64 KB each at M =
+    8192), so two fit and a warp moves 8-byte runs a row, a quarter of a
+    sector, and on a mixed extent it joins its sub-transforms with an
+    m-term sum per element; a tile of whole columns wide enough for full
+    sectors (8) would need 512 KB. The cluster's G blocks share it: each
+    runs 1/G of stage A, then pulls its part of stage B from its peers'
+    shared memory (design in the source)."""
     _, M, P = z.shape
     G, Cw = layout or x_dft_cluster_launched(M)
     _cuda_field("x_dft_cluster", z,
@@ -1125,31 +1182,30 @@ def x_dft_cluster(z: torch.Tensor, inverse: bool, layout: tuple | None = None,
         raise RuntimeError(f"x_dft_cluster: the card cannot schedule a "
                            f"cluster of layout {(G, Cw)} at M = {M}")
     out = torch.empty_like(z)
-    code = _lib().qg_x_dft_cluster_launch(
-        z.data_ptr(), out.data_ptr(), P, (M // _N1).bit_length() - 1,
-        G.bit_length() - 1, Cw.bit_length() - 1, int(inverse), int(stage_a),
-        _twiddles(M, M, z.device).data_ptr(),
-        torch.cuda.current_stream(z.device).cuda_stream)
+    n2 = M // _N1
+    args = (G.bit_length() - 1, Cw.bit_length() - 1, int(inverse),
+            int(stage_a))
+    wm = _twiddles(M, M, z.device).data_ptr()
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    if _mixed(M):
+        code = _lib().qg_x_dft_cluster_mixed_launch(
+            z.data_ptr(), out.data_ptr(), P, n2, *args, _packed_plan(n2), wm,
+            stream)
+    else:
+        code = _lib().qg_x_dft_cluster_launch(
+            z.data_ptr(), out.data_ptr(), P, n2.bit_length() - 1, *args, wm,
+            stream)
     _build.check(code, f"x_dft_cluster (K4) {(G, Cw)}")
     return out
 
 
-def x_dft(z: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """K4 on CUDA tensors (one launch), the plain version on CPU tensors.
-    Two hand-written kernels chosen by shape: the cluster kernel
-    (x_dft_cluster, layout x_dft_cluster_launched(M)) on M = 128 * 2^a with
-    M / 128 >= G, counted
-    also in ``x_dft.cluster_launches``; x_dft_kernel on the rest (mixed
-    extents M = 128 * n, and M < 128 * G)."""
-    if z.device.type == "cpu":
-        return x_dft_plain(z, inverse)
+def x_dft_whole_columns(z: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """One launch of x_dft_kernel (a block whole columns of C y slots) on a
+    CUDA (2, M, P) float32 field at any extent the four-pass kernels take:
+    x_dft's result. Raises on a shape it does not take and a launch error.
+    Counts nothing: the counting wrapper is x_dft."""
     _, M, P = z.shape
     _cuda_field("x_dft", z, x_kernels_take, M, P)
-    if x_dft_cluster_takes(M):
-        out = x_dft_cluster(z, inverse)
-        x_dft.cluster_launches += 1
-        x_dft.launches += 1
-        return out
     C, sub, bstride, _ = x_dft_layout(M, inverse)
     out = torch.empty_like(z)
     logr, m, tw, twn = _tables(M, z.device)
@@ -1158,18 +1214,44 @@ def x_dft(z: torch.Tensor, inverse: bool) -> torch.Tensor:
         int(inverse), C, sub, bstride, tw, twn, _threads(C, M),
         torch.cuda.current_stream(z.device).cuda_stream)
     _build.check(code, "x_dft (K4)")
+    return out
+
+
+def x_dft(z: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """K4 on CUDA tensors (one launch), the plain version on CPU tensors.
+    Hand-written kernels chosen by shape, all counted in ``x_dft.launches``:
+    on M = 128 * N2 with N2 >= G of the launched layout
+    (x_dft_cluster_launched(M)) a cluster kernel (x_dft_cluster):
+    x_dft_cluster_kernel for a power of two, counted also in
+    ``x_dft.cluster_launches``, x_dft_cluster_mixed_kernel for the other N2
+    <= 63, counted also in ``x_dft.mixed_launches``; x_dft_kernel
+    (x_dft_whole_columns) on the rest (M < 128 G)."""
+    if z.device.type == "cpu":
+        return x_dft_plain(z, inverse)
+    _, M, P = z.shape
+    _cuda_field("x_dft", z, x_kernels_take, M, P)
+    if x_dft_cluster_takes(M):
+        out = x_dft_cluster(z, inverse)
+        if _mixed(M):
+            x_dft.mixed_launches += 1
+        else:
+            x_dft.cluster_launches += 1
+    else:
+        out = x_dft_whole_columns(z, inverse)
     x_dft.launches += 1
     return out
 
 
 x_dft.launches = 0
 x_dft.cluster_launches = 0
+x_dft.mixed_launches = 0
 
 
 def x_dft_stage_a(z: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """The cluster kernel's first half alone (one launch with ``stage_a``)
-    on CUDA tensors, x_dft_stage_a_plain on CPU tensors: for checking stage
-    A against its plain version on the card."""
+    """A cluster kernel's first half alone (one launch with ``stage_a``, at
+    every extent x_dft_cluster takes) on CUDA tensors, x_dft_stage_a_plain
+    on CPU tensors: for checking stage A against its plain version on the
+    card."""
     if z.device.type == "cpu":
         return x_dft_stage_a_plain(z, inverse)
     out = x_dft_cluster(z, inverse, stage_a=True)
