@@ -51,7 +51,16 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    with the clusters the card holds, ms each way beside x_dft_kernel (the
    kernel it replaces, checked), one torch.fft.fft along x and a copy, in
    turns, both ways of timing (k4_mixed); its ptxas line in the build
-   phase;
+   phase; K5's mixed extents on (2, n, n), n = 2560, 3072, 6144 and 7808:
+   the mixed cluster kernel (x_symbols_cluster_mixed_kernel) in every
+   layout (G, Cw) that fits, checked, with the clusters the card holds, ms
+   beside x_symbols_inverse_kernel (the kernel it replaces, checked), one
+   torch.fft.ifft along x (a yardstick: not K5's function) and a copy, in
+   turns, both ways of timing (k5_mixed); its ptxas line in the build
+   phase; K3's whole-column kernel (pair_x_kernel, the mixed extents' K3)
+   at 1536^2 and 2432^2, checked, ms beside one torch.fft.fft and
+   torch.fft.ifft along x and a copy, in turns, both ways of timing
+   (k3_mixed);
    K2, K4 (x-DFT, both ways,
    and its cluster kernel's first half, stage A) and K5 (symbols + inverse
    x-DFT) at (2, 4096, 4096) and
@@ -61,8 +70,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    A, the mixed count checked) and at (2, 768, 384) (x_dft_kernel, M < 128
    G, neither cluster count moving), K5 also at
    (2, 8192, 384) (strip 0's ragged tile, an odd strip count; K5 by its
-   cluster kernel at each of these, counted) and (2, 6144, 384)
-   (x_symbols_inverse_kernel's mixed extent); K4's cluster kernel
+   cluster kernel at each of these, counted), as "K5 mixed" at (2, 2816,
+   384), (2, 2944, 384) and (2, 6144, 384) (its mixed cluster kernel, the
+   mixed count checked, the cluster count not moving) and at (2, 1536,
+   384) (x_symbols_inverse_kernel, neither count moving); K4's cluster kernel
    in every layout (G, Cw) that fits at 4096^2 and 8192^2, with
    the clusters the card holds at once and ms each way in turns beside
    torch.fft.fft; K5's cluster kernel in every layout (G, Cw) that
@@ -99,8 +110,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    cluster kernel) and with step_chain="on" (20: K15, K4, K5, K2; the same);
    turbulence-2048's configuration at 1536^2 (100 steps: K1, K2, K3, every
    K2 launch by the mixed-radix kernel, "K2 mixed" = K2, K3 by pair_x_kernel)
-   and at 3072^2 (50: K1, K2, K4, K5; the same, every K4 launch by the
-   mixed cluster kernel, "K4 mixed" = K4, K5 by its whole-column kernel).
+   and at 3072^2 (50: K1, K2, K4, K5; the same, every K4 and K5 launch by
+   its mixed cluster kernel, "K4 mixed" = K4, "K5 mixed" = K5).
    Then, with the counts set to 0 again each time, two
    multigrid paths: 20 warm-started MultigridModalInverter calls on the zeta
    one default step after the pod-8192 slice (pod-8192-mg: 2 cycles a call,
@@ -171,7 +182,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 
 The line before the last is {"kernels": [...]}, every kernel with its
 launches in phase 4 (K2 mixed a row of its own, at (2, 2432, 2432), its
-launches not in K2's; K4 mixed likewise, at (2, 3072, 3072)), its largest error, its ms, its plain version's ms
+launches not in K2's; K4 mixed and K5 mixed likewise, at (2, 3072,
+3072)), its largest error, its ms, its plain version's ms
 (K10/K11: at the 8192 level, with every level of both solvers beside),
 its bound (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
 the larger) and its library call's ms; the last is {"ok": true, "device":
@@ -262,7 +274,7 @@ MIXED_PATHS = ("turbulence-2048 at 1536^2", "turbulence-2048 at 3072^2")
 # MG path's psi the dryrun multigrid gate (commit 26d1ffc) against the
 # plain MG route.
 TOL = {"K1": 1e-6, "K2": 1e-5, "K2 mixed": 1e-5, "K3": 1e-4, "K4": 1e-5,
-       "K4 mixed": 1e-5, "K5": 1e-4,
+       "K4 mixed": 1e-5, "K5": 1e-4, "K5 mixed": 1e-4,
        "K7": 1e-4, "K8": 1e-6, "K9": 1e-6, "K10": 1e-6, "K11": 1e-6,
        "K12": 1e-6, "K13": 1e-4, "K14": 1e-4, "K15": 1e-6,
        "K15 zeta_ys": 1e-5, "K15s": 1e-6, "K16": 1e-4, "K17": 1e-6,
@@ -310,7 +322,8 @@ class KernelCount:
     """A wrapper's count of the launches that took one of its two kernels
     (x_dft.cluster_launches: K4's cluster kernel; x_dft.mixed_launches:
     its mixed-radix form;
-    x_symbols_inverse.cluster_launches: K5's;
+    x_symbols_inverse.cluster_launches: K5's cluster kernel;
+    x_symbols_inverse.mixed_launches: its mixed-radix form;
     pair_x_symbols.cluster_launches: K3's;
     x_fwd_symbols_offset.cluster_launches and
     paired_x_symbols.cluster_launches: K13's and K14's,
@@ -343,6 +356,7 @@ COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
             "K4 cluster": KernelCount(x_dft, "cluster_launches"),
             "K4 mixed": KernelCount(x_dft, "mixed_launches"),
             "K5 cluster": KernelCount(x_symbols_inverse, "cluster_launches"),
+            "K5 mixed": KernelCount(x_symbols_inverse, "mixed_launches"),
             "K3 cluster": KernelCount(pair_x_symbols, "cluster_launches"),
             "K13 cluster": KernelCount(x_fwd_symbols_offset,
                                        "cluster_launches"),
@@ -370,6 +384,7 @@ TRACE_NAMES = (("K12", "step_rows_sharded_kernel"),
                ("K11", "mg_prolong_kernel"),
                ("K10", "mg_smooth_kernel"), ("K9", "tendency_kernel"),
                ("K8", "pre_inversion_kernel"),
+               ("K5 mixed", "x_symbols_cluster_mixed_kernel"),
                ("K5", "x_symbols_cluster_kernel"),
                ("K5", "x_symbols_inverse_kernel"),
                ("K4 mixed", "x_dft_cluster_mixed_kernel"),
@@ -515,11 +530,12 @@ def phase_build() -> None:
     info = _build.build_info()
     lines = info["ptxas"].splitlines()
     regs = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
-    # K4's, K5's, K3's and K13/K14's cluster kernels, K4's mixed-radix
-    # cluster kernel and K2's factored kernel and its mixed-radix form: each
-    # instance's registers, shared memory, spills.
+    # K4's, K5's, K3's and K13/K14's cluster kernels, K4's and K5's
+    # mixed-radix cluster kernels and K2's factored kernel and its
+    # mixed-radix form: each instance's registers, shared memory, spills.
     named = {"x_dft_cluster_kernel": {}, "x_dft_cluster_mixed_kernel": {},
              "x_symbols_cluster_kernel": {},
+             "x_symbols_cluster_mixed_kernel": {},
              "pair_x_cluster_kernel": {}, "pair_cols_cluster_kernel": {},
              "y_dft_factored_kernel": {}, "y_dft_mixed_kernel": {}}
     entry = None
@@ -535,6 +551,7 @@ def phase_build() -> None:
          k4_cluster_ptxas=named["x_dft_cluster_kernel"],
          k4_mixed_ptxas=named["x_dft_cluster_mixed_kernel"],
          k5_cluster_ptxas=named["x_symbols_cluster_kernel"],
+         k5_mixed_ptxas=named["x_symbols_cluster_mixed_kernel"],
          k3_cluster_ptxas=named["pair_x_cluster_kernel"],
          k13_k14_cluster_ptxas=named["pair_cols_cluster_kernel"],
          k2_factored_ptxas=named["y_dft_factored_kernel"],
@@ -970,17 +987,142 @@ def time_k4_mixed(errs, dev, card, reps=20) -> dict:
     return out
 
 
+# K5's mixed extents timed: the 3072^2 path's grid and the grids around it
+# that K4 mixed was timed at (2560^2, 6144^2, 7808^2: N2 = 20, 48, 61);
+# every layout (G, Cw) that fits at each, the launched one among them.
+K5_MIXED_GRIDS = (2560, 3072, 6144, 7808)
+
+
+def time_k5_mixed(errs, dev, card, cfg, reps=20) -> dict:
+    """K5 on a mixed extent, (2, n, n) of K5_MIXED_GRIDS with ``cfg``'s
+    symbols at n^2: its mixed cluster kernel (x_symbols_cluster_mixed_
+    kernel) in every layout (G, Cw) that fits (its error against the plain
+    version, the clusters the card holds at once), ms a launch beside
+    x_symbols_inverse_kernel (the kernel it replaces, its error recorded as
+    K5's), one torch.fft.ifft along x of the same complex64 field (a
+    yardstick only: it does not compute K5's function) and a torch copy,
+    in turns (in order, then in reverse), host-launched (time_ms) and
+    replayed from a CUDA graph (graph_ms); the plain version host-launched,
+    twice; the bound. Returns the entries by grid."""
+    rng = np.random.default_rng(SEED + 15)
+    out = {}
+    for n in K5_MIXED_GRIDS:
+        x = torch.as_tensor(rng.standard_normal((2, n, n)),
+                            dtype=torch.float32, device=dev)
+        c64 = torch.complex(x[0], x[1])
+        consts = inverter(cfg.replace(M=n, P=n))._sym_consts
+        launched = k5_layout_name(dft_kernels.x_symbols_cluster_launched(n))
+        want = x_symbols_inverse_plain(x, consts)
+        sweep, calls = {}, {}
+        for lay in ((g, c) for g in dft_kernels.X_SYMBOLS_CLUSTER_SIZES
+                    for c in dft_kernels.X_SYMBOLS_CLUSTER_WIDTHS):
+            if not x_symbols_cluster_takes(n, lay):
+                continue
+            key = k5_layout_name(lay)
+            occ = x_symbols_cluster_occupancy(n, lay, dev.index)
+            sweep[key] = dict(smem=x_symbols_cluster_layout(n, *lay).smem,
+                              max_active_clusters=occ)
+            if occ == 0:                 # the card cannot schedule it
+                continue
+            err = rel_err(x_symbols_cluster(x, consts, lay), want)[1]
+            sweep[key]["rel_err"] = err
+            if not err <= TOL["K5 mixed"]:
+                raise AssertionError(f"K5 mixed {key} at {n}^2: rel err "
+                                     f"{err} > {TOL['K5 mixed']}")
+            calls[(key, False)] = (
+                lambda lay=lay: x_symbols_cluster(x, consts, lay))
+        errs.record("K5", f"x_symbols_inverse_kernel {n}x{n}",
+                    x_symbols_whole_columns(x, consts), want)
+        del want
+        calls[("x_symbols_inverse_kernel", False)] = (
+            lambda: x_symbols_whole_columns(x, consts))
+        calls[("library ifft along x", False)] = (
+            lambda: torch.fft.ifft(c64, dim=0))
+        calls[("copy", False)] = lambda: x.clone()
+        entry = timed_in_turns(calls, reps, sweep)
+        entry["mixed"] = sweep[launched]
+        entry["layouts"] = sweep
+        entry["launched"] = launched
+        entry["plan"] = dft_kernels.y_dft_mixed_plan(n // 128)
+        entry["plain_runs_ms"] = [time_ms(
+            lambda: x_symbols_inverse_plain(x, consts), reps)
+            for _ in range(2)]
+        entry["bound_ms"] = bound("K5", n, n)[0]
+        emit("k5_mixed", card=card, grid=[n, n], **entry)
+        out[n] = entry
+        del x, c64, calls
+        free_memory()
+    return out
+
+
+# K3's whole-column kernel (pair_x_kernel, K3 mixed) timed where it runs:
+# the 1536^2 path's grid and 2432^2, the largest grid of the pair-x route.
+K3_MIXED_GRIDS = (1536, 2432)
+
+
+def time_k3_mixed(errs, dev, card, cfg, reps=20) -> dict:
+    """K3 on a mixed extent, (2, n, n) of K3_MIXED_GRIDS with ``cfg``'s
+    symbols at n^2: pair_x_kernel (its error against the plain version
+    recorded as K3's), ms a launch beside one torch.fft.fft and one
+    torch.fft.ifft along x of the same complex64 field (a yardstick only:
+    not K3's function) and a torch copy, in turns (in order, then in
+    reverse), host-launched (time_ms) and replayed from a CUDA graph
+    (graph_ms); the plain version host-launched, twice; the bound. Measures
+    only. Returns the entries by grid."""
+    rng = np.random.default_rng(SEED + 16)
+    out = {}
+    for n in K3_MIXED_GRIDS:
+        x = torch.as_tensor(rng.standard_normal((2, n, n)),
+                            dtype=torch.float32, device=dev)
+        c64 = torch.complex(x[0], x[1])
+        consts = inverter(cfg.replace(M=n, P=n))._sym_consts
+        if pair_x_cluster_takes(n):
+            raise AssertionError(f"K3 at {n}^2 takes its cluster kernel")
+        errs.record("K3", f"pair_x_kernel {n}x{n}",
+                    pair_x_whole_columns(x, consts),
+                    pair_x_symbols_plain(x, consts))
+        calls = {("pair_x_kernel", False):
+                 lambda: pair_x_whole_columns(x, consts),
+                 ("library fft + ifft along x", False):
+                 lambda: torch.fft.ifft(torch.fft.fft(c64, dim=0), dim=0),
+                 ("copy", False): lambda: x.clone()}
+        entry = timed_in_turns(calls, reps, {})
+        entry["plain_runs_ms"] = [time_ms(
+            lambda: pair_x_symbols_plain(x, consts), reps) for _ in range(2)]
+        entry["bound_ms"] = bound("K3", n, n)[0]
+        emit("k3_mixed", card=card, grid=[n, n], **entry)
+        out[n] = entry
+        del x, c64, calls
+        free_memory()
+    return out
+
+
 def check_k5(errs, cfg, x, case) -> None:
-    """K5 against its plain version on ``x``, with the cluster count rising
-    by 1 exactly where x_symbols_inverse launches the cluster kernel."""
-    consts = inverter(cfg.replace(M=x.shape[1], P=x.shape[2]))._sym_consts
-    n = x_symbols_inverse.cluster_launches
-    errs.record("K5", case, x_symbols_inverse(x, consts),
+    """K5 against its plain version on ``x`` (as "K5 mixed" where the mixed
+    cluster kernel takes it), with the cluster count rising by 1 exactly
+    where x_symbols_inverse launches the power-of-two cluster kernel and the
+    mixed count exactly where it launches the mixed one."""
+    M = x.shape[1]
+    consts = inverter(cfg.replace(M=M, P=x.shape[2]))._sym_consts
+    mixed = x_symbols_cluster_takes(M) and dft_kernels._mixed(M)
+    n = (x_symbols_inverse.cluster_launches, x_symbols_inverse.mixed_launches)
+    errs.record("K5 mixed" if mixed else "K5", case,
+                x_symbols_inverse(x, consts),
                 x_symbols_inverse_plain(x, consts))
     torch.cuda.synchronize()
-    n = x_symbols_inverse.cluster_launches - n
-    if n != int(x_symbols_cluster_takes(x.shape[1])):
-        raise AssertionError(f"K5 {case}: {n} cluster launches")
+    got = (x_symbols_inverse.cluster_launches - n[0],
+           x_symbols_inverse.mixed_launches - n[1])
+    if got != (int(x_symbols_cluster_takes(M) and not mixed), int(mixed)):
+        raise AssertionError(f"K5 {case}: (cluster, mixed) launches {got}")
+
+
+# K5's mixed extents checked (check_k5), each by the mixed cluster kernel on
+# strip 0's ragged tile and an odd strip count: 2816 = 128 * 22 (the plan
+# (2, 11): the inverse runs the prime pass first), 2944 = 128 * 23 (one
+# prime pass, odd N2) and 6144 = 128 * 48; K5_WHOLE_COLUMNS:
+# x_symbols_inverse_kernel's extent 1536 = 128 * 12 (ceil(12 / 2) < G).
+K5_MIXED_CHECKS = ((2816, 384), (2944, 384), (6144, 384))
+K5_WHOLE_COLUMNS = ((1536, 384),)
 
 
 # K4's mixed extents checked (check_k4_extents), each by the mixed cluster
@@ -1026,8 +1168,9 @@ def phase_x_kernels(errs, pod, dev, sizes=(4096, 8192)) -> None:
     """K2 at K2_EXTENTS; K2, K4 and K5 at each n^2 of ``sizes`` on random
     input, K4 also on a ragged tile (8192 x 252) and at its mixed extents
     (check_k4_extents), K5 also on a ragged P (8192 x 384: strip 0's ragged
-    tile, an odd strip count) and at a mixed extent (6144 x 384,
-    x_symbols_inverse_kernel);
+    tile, an odd strip count), at K5_MIXED_CHECKS (its mixed cluster
+    kernel, as "K5 mixed") and at K5_WHOLE_COLUMNS
+    (x_symbols_inverse_kernel);
     K5 and the whole four-pass inversion on pod-8192's zeta against float64;
     K1 and K15 at pod's grid; K17 at 6272 x 128."""
     rng = np.random.default_rng(SEED + 2)
@@ -1045,7 +1188,7 @@ def phase_x_kernels(errs, pod, dev, sizes=(4096, 8192)) -> None:
         check_k5(errs, pod, x, f"{n}x{n} random spectrum")
         del x
         free_memory()
-    for M, P in ((8192, 384), (6144, 384)):
+    for M, P in ((8192, 384),) + K5_MIXED_CHECKS + K5_WHOLE_COLUMNS:
         x = torch.as_tensor(rng.standard_normal((2, M, P)),
                             dtype=torch.float32, device=dev)
         check_k5(errs, pod, x, f"{M}x{P} random spectrum")
@@ -2753,11 +2896,14 @@ def kernel_rows(errs, launches, ms_2048, ms_8192, extra, sharded) -> list:
     and K15's sharded form; ``extra`` adds fields to a kernel's entry."""
     rows = []
     # K2's row counts y_dft_factored_kernel's and y_dft_kernel's launches,
-    # K4's x_dft_cluster_kernel's and x_dft_kernel's; y_dft_mixed_kernel's
-    # and x_dft_cluster_mixed_kernel's (also in y_dft's and x_dft's counts)
-    # have rows of their own.
+    # K4's x_dft_cluster_kernel's and x_dft_kernel's, K5's
+    # x_symbols_cluster_kernel's and x_symbols_inverse_kernel's;
+    # y_dft_mixed_kernel's, x_dft_cluster_mixed_kernel's and
+    # x_symbols_cluster_mixed_kernel's (also in y_dft's, x_dft's and
+    # x_symbols_inverse's counts) have rows of their own.
     launches = {p: dict(run, K2=run["K2"] - run["K2 mixed"],
-                        K4=run["K4"] - run["K4 mixed"])
+                        K4=run["K4"] - run["K4 mixed"],
+                        K5=run["K5"] - run["K5 mixed"])
                 for p, run in launches.items()}
     for name, (fn, source, replaces) in KERNELS.items():
         if name in sharded:
@@ -2845,6 +2991,28 @@ def kernel_rows(errs, launches, ms_2048, ms_8192, extra, sharded) -> list:
         "library_ms": at["library"]["ms"], "grid": [3072, 3072],
         "x_dft_kernel_ms": at["x_dft_kernel"]["ms"],
         "x_dft_kernel_ms_inverse": at["x_dft_kernel"]["inverse_ms"], **m})
+    # K5 on the mixed extents: its mixed cluster kernel, timed at (2, 3072,
+    # 3072) (time_k5_mixed). No library call computes K5's function; one
+    # torch.fft.ifft along x stands beside it as a yardstick.
+    m = extra["K5 mixed"]
+    at = m["by_grid"][3072]
+    bound_ms, bound_by, nbytes = bound("K5", 3072, 3072)
+    rows.append({
+        "name": "K5 mixed x_symbols_inverse (x_symbols_cluster_mixed_kernel)",
+        "route": "cuda", "source": "tpu_qg_torch/csrc/dft_kernels.cu",
+        "replaces": KERNELS["K5"][2],
+        "launches": sum(run["K5 mixed"] for run in launches.values()),
+        "launches_by_path": {p: run["K5 mixed"] for p, run in launches.items()
+                             if run["K5 mixed"]},
+        "max_abs_err": errs.by_kernel["K5 mixed"][0],
+        "rel_err": errs.by_kernel["K5 mixed"][1],
+        "ms": at["mixed"]["ms"], "graph_ms": at["mixed"]["graph_ms"],
+        "plain_ms": sum(at["plain_runs_ms"]) / 2,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+        "library_ms": None, "grid": [3072, 3072],
+        "yardstick_ifft_ms": at["library ifft along x"]["ms"],
+        "x_symbols_inverse_kernel_ms": at["x_symbols_inverse_kernel"]["ms"],
+        **m})
     return rows
 
 
@@ -2882,6 +3050,8 @@ def main() -> None:
     k2_sweep = phase_k2_sweep(errs, dev, card)
     k2_mixed = time_k2_mixed(errs, dev, card)
     k4_mixed = time_k4_mixed(errs, dev, card)
+    k5_mixed = time_k5_mixed(errs, dev, card, turb)
+    k3_mixed = time_k3_mixed(errs, dev, card, turb)
     phase_mg_kernels(errs, turb, pod_mg, dev)
     phase_sharded_kernels(errs, turb, pod, dev)
     phase_lab_kernels(errs, dev)
@@ -2909,14 +3079,14 @@ def main() -> None:
           "K2 factored": 2 * run_chunks(pod_chain, 20), "K4 cluster": 20,
           "K5 cluster": 20}, "chain"),
         # The mixed extents' paths: every K2 launch by the mixed-radix
-        # factored kernel, every K4 launch by the mixed cluster kernel; K3
-        # and K5 by their whole-column kernels.
+        # factored kernel, every K4 and K5 launch by its mixed cluster
+        # kernel; K3 by its whole-column kernel.
         (MIXED_PATHS[0], mixed_cfgs[MIXED_PATHS[0]], 100,
          {"K1": 100, "K1 rows": 100, "K2": 200, "K2 mixed": 200, "K3": 100},
          "default"),
         (MIXED_PATHS[1], mixed_cfgs[MIXED_PATHS[1]], 50,
          {"K1": 50, "K1 rows": 50, "K2": 100, "K2 mixed": 100, "K4": 50,
-          "K4 mixed": 50, "K5": 50}, "default"),
+          "K4 mixed": 50, "K5": 50, "K5 mixed": 50}, "default"),
     )
     launches, finals = {}, {}
     for name, cfg, steps, expect, route in slices:
@@ -3003,8 +3173,19 @@ def main() -> None:
         "kernels": {"x_symbols_cluster_kernel": "M = 128 * 2^a, M >= 256 G "
                     "(layout at 8192: G={} Cw={})".format(
                         *dft_kernels.x_symbols_cluster_launched(8192)),
-                    "x_symbols_inverse_kernel": "mixed extents, M < 256 G"},
+                    "x_symbols_cluster_mixed_kernel": "the other M = 128 n, "
+                    "ceil(n / 2) >= G (the K5 mixed row)",
+                    "x_symbols_inverse_kernel": "smaller M"},
         "sweep_8192": k5_sweep[8192]}
+    extra["K5 mixed"] = {
+        "mixed_launches": sum(run["K5 mixed"] for run in launches.values()),
+        "kernels": {"x_symbols_cluster_mixed_kernel": "M = 128 n, n <= 63 "
+                    "not a power of two, ceil(n / 2) >= G (layouts: {}, "
+                    "else {})".format(dft_kernels.X_SYMBOLS_CLUSTER_BY_M,
+                                      dft_kernels.X_SYMBOLS_CLUSTER),
+                    "x_symbols_inverse_kernel": "smaller M"},
+        "ptxas": named_ptxas["x_symbols_cluster_mixed_kernel"],
+        "by_grid": k5_mixed}
     extra["K3"] = {
         "cluster_launches": sum(run["K3 cluster"]
                                 for run in launches.values()),
@@ -3013,7 +3194,7 @@ def main() -> None:
                         dft_kernels.PAIR_X_CLUSTER_BY_M,
                         dft_kernels.PAIR_X_CLUSTER),
                     "pair_x_kernel": "mixed extents, M < 256 G"},
-        "sweep_2048": k3_sweep[2048]}
+        "sweep_2048": k3_sweep[2048], "pair_x_kernel_by_grid": k3_mixed}
     extra["K2"] = {
         "factored_launches": sum(run["K2 factored"]
                                  for run in launches.values()),

@@ -8,7 +8,7 @@ Tolerances relative to max|plain|: K1 and K8 1e-6, K2 and K4 1e-5 (K2's
 factored kernel in every layout, K4's cluster kernel's first half, stage
 A, too), K3 and
 K5 1e-4 (the 1/lambda symbol amplifies low-k float32 rounding; K3's and
-K5's cluster kernels in every layout too), a four-pass inversion on a smooth
+K5's cluster kernels, K5's mixed one too, in every layout), a four-pass inversion on a smooth
 zeta no less accurate against float64 than twice the plain versions'; the
 one-launch kernels as the kernels they fuse: K16 1e-4, K17 1e-6 (zeta_new,
 carry) and 1e-4 (psi_new), K15 1e-6 (zeta_new, carry) and 1e-5 (zeta_ys);
@@ -238,7 +238,8 @@ def _consts(M, P):
 def test_x_dft_kernels(dev, M, P):
     x = _fields(M, P, dev, seed=2)[1]
     n = (x_dft.launches, x_symbols_inverse.launches, x_dft.cluster_launches,
-         x_symbols_inverse.cluster_launches, x_dft.mixed_launches)
+         x_symbols_inverse.cluster_launches, x_dft.mixed_launches,
+         x_symbols_inverse.mixed_launches)
     mixed = x_dft_cluster_takes(M) and dft_kernels._mixed(M)
     cluster = x_dft_cluster_takes(M) and not mixed
     for inverse in (False, True):
@@ -247,6 +248,8 @@ def test_x_dft_kernels(dev, M, P):
             assert _rel(x_dft_stage_a(x, inverse),
                         x_dft_stage_a_plain(x, inverse)) <= 1e-5
     k5 = P % 128 == 0            # K5 (and its symbols) take P = 128 n
+    k5_cluster = k5 and x_symbols_cluster_takes(M)
+    k5_mixed = k5_cluster and dft_kernels._mixed(M)
     if k5:
         consts = _consts(M, P)
         assert _rel(x_symbols_inverse(x, consts),
@@ -254,10 +257,10 @@ def test_x_dft_kernels(dev, M, P):
     torch.cuda.synchronize()
     assert (x_dft.launches, x_symbols_inverse.launches,
             x_dft.cluster_launches, x_symbols_inverse.cluster_launches,
-            x_dft.mixed_launches) == (
+            x_dft.mixed_launches, x_symbols_inverse.mixed_launches) == (
                 n[0] + 2, n[1] + k5, n[2] + 2 * cluster,
-                n[3] + (k5 and x_symbols_cluster_takes(M)),
-                n[4] + 2 * mixed)
+                n[3] + (k5_cluster and not k5_mixed), n[4] + 2 * mixed,
+                n[5] + k5_mixed)
 
 
 # K4's mixed cluster kernel (x_dft_cluster_mixed_kernel): 2560 = 128 * 20,
@@ -312,6 +315,33 @@ def test_x_symbols_cluster_kernel(dev, M, P):
     assert x_symbols_inverse.cluster_launches == n[1] + 1   # counts none
 
 
+# K5's mixed cluster kernel (x_symbols_cluster_mixed_kernel): 2560 = 128 *
+# 20, 2816 = 128 * 22 (its plan ends in the prime 11, which the inverse runs
+# first), the 3072^2 path's grid (128 * 24), 6144 = 128 * 48 and 7808 = 128
+# * 61 (one prime pass, blocks of unequal row counts), on P with strip 0's
+# ragged tile and an odd strip count, in the launched layout and every
+# other that fits.
+@pytest.mark.parametrize("M,P", [(2560, 512), (2816, 384), (3072, 3072),
+                                 (6144, 256), (7808, 384)])
+def test_x_symbols_mixed_cluster_kernel(dev, M, P):
+    x = _fields(M, P, dev, seed=M + P + 1)[1]
+    consts = _consts(M, P)
+    want = x_symbols_inverse_plain(x, consts)
+    n = (x_symbols_inverse.launches, x_symbols_inverse.mixed_launches,
+         x_symbols_inverse.cluster_launches)
+    assert _rel(x_symbols_inverse(x, consts), want) <= 1e-4
+    torch.cuda.synchronize()
+    assert (x_symbols_inverse.launches, x_symbols_inverse.mixed_launches,
+            x_symbols_inverse.cluster_launches) == (n[0] + 1, n[1] + 1, n[2])
+    for layout in ((G, Cw) for G in dft_kernels.X_SYMBOLS_CLUSTER_SIZES
+                   for Cw in dft_kernels.X_SYMBOLS_CLUSTER_WIDTHS):
+        if (x_symbols_cluster_takes(M, layout) and
+                dft_kernels.x_symbols_cluster_occupancy(M, layout, 0)):
+            assert _rel(x_symbols_cluster(x, consts, layout), want) <= 1e-4
+    torch.cuda.synchronize()
+    assert x_symbols_inverse.mixed_launches == n[1] + 1   # counts none
+
+
 def test_four_pass_inversion_takes_the_cluster_k5(dev):
     """pod-8192's inversion at 4096^2 (K2, K4, K5, K2^-1): every K4 and K5
     launch by its cluster kernel; psi against float64 no worse than twice
@@ -345,9 +375,9 @@ def test_x_symbols_cluster_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):                 # N2 = 8 < 2 G
         x_symbols_cluster(torch.zeros((2, 1024, 256), device=dev),
                           _consts(1024, 256), (8, 8))
-    with pytest.raises(ValueError):                 # a mixed extent
-        x_symbols_cluster(torch.zeros((2, 6144, 256), device=dev),
-                          _consts(6144, 256))
+    with pytest.raises(ValueError):                 # mixed, U = 6 < G = 8
+        x_symbols_cluster(torch.zeros((2, 1536, 256), device=dev),
+                          _consts(1536, 256), (8, 8))
     with pytest.raises(TypeError):
         x_symbols_cluster(x.double(), consts)
 

@@ -145,8 +145,10 @@ def test_tiles_cover_every_pair_once(P, Cw):
 
 def test_layouts_fit_shared_memory_and_the_table_is_taken():
     """Every layout the kernel takes fits one block's shared memory; the
-    launched layouts are taken; below M = 256 G, at mixed extents and past
-    the shared-memory limit the kernel is not taken."""
+    launched layouts are taken; below M = 256 G and past the shared-memory
+    limit the kernel is not taken; a mixed extent goes to the mixed
+    instance where ceil(N2 / 2) >= G (tests/test_torch_x_symbols_mixed.py),
+    not below."""
     for a in range(3, 7):
         M = 128 << a
         for G in X_SYMBOLS_CLUSTER_SIZES:
@@ -158,7 +160,8 @@ def test_layouts_fit_shared_memory_and_the_table_is_taken():
         assert x_symbols_cluster_launched(M) == layout
         assert x_symbols_cluster_takes(M) and x_kernels_take(M, M)
     assert x_symbols_cluster_launched(2048) == X_SYMBOLS_CLUSTER
-    assert not x_symbols_cluster_takes(6144)           # mixed: 2048 * 3
+    assert x_symbols_cluster_takes(6144)               # mixed: 2048 * 3
+    assert not x_symbols_cluster_takes(1536)           # mixed, U = 6 < G = 8
     assert not x_symbols_cluster_takes(1024, (8, 8))      # N2 = 8 < 2 G
     assert not x_symbols_cluster_takes(8192, (4, 8))      # 385 KB
 

@@ -19,9 +19,11 @@
 // y_dft_factored_kernel, the same factoring along the rows, for P = 128 *
 // 2^b (256 <= P <= 8192), its mixed-radix form y_dft_mixed_kernel for the
 // other P = 128 * n (3 <= n <= 63), and y_dft_kernel for the rest (P <= 128
-// and P not a multiple of 128). K5 has two:
+// and P not a multiple of 128). K5 has three:
 // x_symbols_cluster_kernel, K4's cluster inverse behind the symbol stage,
-// for M = 128 * 2^a, and x_symbols_inverse_kernel for the rest. So has K3:
+// for M = 128 * 2^a, its mixed-radix form x_symbols_cluster_mixed_kernel
+// for the other M = 128 * n (n <= 63), both for ceil(n / 2) >= G, and
+// x_symbols_inverse_kernel for the rest. K3 has two:
 // pair_x_cluster_kernel, K4's cluster forward half in front of K5's
 // cluster kernel, for M = 128 * 2^a, and pair_x_kernel for the rest. So
 // have K13 and K14: pair_cols_cluster_kernel, K3's cluster kernel on the
@@ -1129,6 +1131,27 @@ y_dft_mixed_kernel(const float* __restrict__ in, float* __restrict__ out,
 // x_dft_kernel at M = 2560 ... 7808 (chip_smoke.py's k4_mixed).
 // ---------------------------------------------------------------------------
 
+// Copies count elements into buf, element i read as ld(i >> lognc, i mod
+// 2^lognc) (row and column of 2^lognc columns), kBatch reads a thread in
+// flight: the rows that a prime pass, which reads only shared memory,
+// finds there when it comes first.
+template <class Ld>
+__device__ __forceinline__ void fill_rows(float2* buf, int count, int lognc,
+                                          Ld ld) {
+  for (int i0 = threadIdx.x; i0 < count; i0 += kBatch * kClusterThreads) {
+    float2 v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = min(i0 + u * kClusterThreads, count - 1);
+      v[u] = ld(i >> lognc, i & ((1 << lognc) - 1));
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (i0 + u * kClusterThreads < count) buf[i0 + u * kClusterThreads] = v[u];
+    }
+  }
+}
+
 // The cluster kernels' body (see above): kMixed selects the mixed instance,
 // which takes N2 = n2m and the plan; the power-of-two one takes N2 =
 // 2^logn2.
@@ -1215,23 +1238,8 @@ __device__ __forceinline__ void x_cluster_tile(
   auto wr_a = [=](int row, int a, float2 v) { A[(row << logna) + a] = v; };
   auto wr_b = [=](int row, int b, float2 v) { B[brow(row) + b] = v; };
   auto at_a = [=](int row, int a) { return A + (row << logna) + a; };
-  // Copies n2 na elements into A, kBatch reads a thread in flight: the
-  // block's rows where a prime pass comes first.
-  auto fill_a = [=](auto ld) {
-    const int count = n2 << logna;
-    for (int i0 = threadIdx.x; i0 < count; i0 += kBatch * kClusterThreads) {
-      float2 v[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = min(i0 + u * kClusterThreads, count - 1);
-        v[u] = ld(i >> logna, i & (na - 1));
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        if (i0 + u * kClusterThreads < count) A[i0 + u * kClusterThreads] = v[u];
-      }
-    }
-  };
+  // The block's rows into A where a prime pass comes first.
+  auto fill_a = [=](auto ld) { fill_rows(A, n2 << logna, logna, ld); };
 
   if (!inverse) {
     // Stage A: A row n2 <- x[N1 n2 + n1]; DIF leaves k2 = rho(row).
@@ -1374,9 +1382,9 @@ x_dft_cluster_mixed_kernel(const float* __restrict__ in,
 // it after its forward pass, so the symbol stage is K3's. A mixed extent
 // splits and inverts the own group and then the mirror group through one
 // set of sub-column buffers, so that 2C spectra and C sub-column columns fit
-// shared memory up to M = 128 * 63. Since the cluster kernel below took the
-// power-of-two extents M >= 256 G, this one runs the mixed extents M = 128 *
-// n (n not a power of two) and smaller M.
+// shared memory up to M = 128 * 63. Since the cluster kernels below took
+// M = 128 * n with ceil(n / 2) >= G (the power-of-two extents M >= 256 G
+// and the mixed ones), this one runs the smaller M.
 // ---------------------------------------------------------------------------
 template <bool kMixed>
 __global__ void __launch_bounds__(512)
@@ -1435,13 +1443,14 @@ x_symbols_inverse_kernel(const float* __restrict__ in, float* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// K5 on power-of-two extents, M = 128 * 2^a (N2 = M / 128 >= 2 G): the
-// one-pass cluster kernel. It computes what x_symbols_inverse_kernel
-// computes, and so replaces the same TPU functions,
-// tpu_qg/ops/pallas_fft.py PlanarFFT2._call_x_symbols (:1176; builder
-// _build_symbol_inv_x_kernel, :429) and _call_x_stream(Z, True, consts)
-// (:1122; _build_streaming_x, :922); x_symbols_inverse_kernel keeps the
-// mixed extents M = 128 * n (n not a power of two) and M < 256 G.
+// K5 on M = 128 * N2 with ceil(N2 / 2) >= G: the one-pass cluster kernels,
+// x_symbols_cluster_kernel for N2 = 2^a and x_symbols_cluster_mixed_kernel
+// for the other N2 <= 63 (one body, x_symbols_tile<kMixed>). They compute
+// what x_symbols_inverse_kernel computes, and so replace the same TPU
+// functions, tpu_qg/ops/pallas_fft.py PlanarFFT2._call_x_symbols (:1176;
+// builder _build_symbol_inv_x_kernel, :429) and _call_x_stream(Z, True,
+// consts) (:1122; _build_streaming_x, :922); x_symbols_inverse_kernel keeps
+// the smaller M.
 //
 // Bound: device-memory bandwidth, one read and one write of the field (2 x
 // 537 MB at 8192^2: 0.321 ms at 3.35 TB/s). x_symbols_inverse_kernel holds
@@ -1494,6 +1503,34 @@ x_symbols_inverse_kernel(const float* __restrict__ in, float* __restrict__ out,
 // terms are computed once a thread; a per-block table of the rows'
 // sin^2(pi kx'/M) (tried) was slower. The grid is G blocks a tile of the
 // table.
+//
+// The mixed instance (N2 = 2^c m, m odd > 1; the 3072^2 path's N2 = 24):
+// stage A^-1 is K4's mixed one, the inverse sweep over the plan
+// dft_kernels.y_dft_mixed_plan(N2) (mixed_fft_at: radix 2^c, 3, 5 and 7
+// register passes and at most one prime pass on a weight table built once a
+// block), DIT position p holding k2 = rho(p) (plan_rho). The ordering is
+// sym_k2_any's: k2 = 0, for even N2 then N2/2, then each pair m, N2 - m side
+// by side (odd N2 has no N2/2). Its units, the rows {0, N2/2} (even N2) or
+// {0} (odd) and each pair, U = ceil(N2 / 2) of them, split over the blocks
+// as K4 mixed's p-rows do: block r owns units [floor(r U / G), floor((r+1)
+// U / G)), at least one (U >= G), so a pair never straddles two blocks and
+// step 1 stays each thread's own pair of loads. A block owns nr rows, nr
+// between 1 and L = 2 ceil(U / G): buffer B keeps a row stride of 2 L Cw,
+// the own tile's nr rows in its first nr Cw columns and the mirror tile's
+// in the next nr Cw, and stage B^-1 runs over those 2 nr Cw columns (NCols);
+// step 1 splits an item's index by nr with div_magic (exact: nr <= 16 for G
+// >= 4, N2 <= 63). The pull of stage A^-1 finds DIT position p's owner
+// block and its own- and mirror-tile rows there in an N2-entry map, so
+// blocks of unequal row counts pull from each other; a pass's barriers
+// depend on its length alone, so they meet the same barriers. Where the plan
+// ends in a prime (its DIT runs that pass first, from shared memory), each
+// tile's pull fills A before the first pass, and the mirror tile's arrives
+// at the split cluster barrier after it, as K4 mixed's inverse does. 1/M is
+// a float32 product, not exact for m > 1. Shared memory: B (128 rows of 2 L
+// Cw float2), A (M Cw / G), the N2- and 64-entry tables, the prime pass's
+// weights, the 2 Cw slots and three N2-entry maps (k2 of a row, rho and the
+// owner map): 88.8 KB at M = 3072, G = 8, Cw = 8
+// (dft_kernels.x_symbols_cluster_layout).
 // ---------------------------------------------------------------------------
 
 // Rows i of a cluster's ordering and their k2: 0, N2/2, then 1, N2 - 1, 2,
@@ -1600,42 +1637,194 @@ __device__ __forceinline__ void sym_inverse_half(
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
-__global__ void __launch_bounds__(kClusterThreads, 2)
-x_symbols_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
-                         const int* __restrict__ own_slots,
-                         const int* __restrict__ mirror_slots, int P,
-                         int logn2, int logg, int logcw, int n1y,
-                         SymConsts c, const float2* __restrict__ wm) {
+// The mixed instance's ordering for any N2 (sym_k2's for a power of two):
+// row 0 holds k2 = 0, for even N2 row 1 holds N2/2, then rows 2m - odd and
+// 2m + 1 - odd hold the pair m, N2 - m (odd = N2 mod 2, m >= 1).
+__device__ __forceinline__ int sym_k2_any(int i, int n2) {
+  const int j = i + (n2 & 1);
+  return i == 0 ? 0 : j == 1 ? n2 >> 1 : (j & 1) ? n2 - (j >> 1) : j >> 1;
+}
+
+// The row of k2 in sym_k2_any's ordering.
+__device__ __forceinline__ int sym_row_any(int k2, int n2) {
+  return k2 == 0       ? 0
+         : 2 * k2 == n2 ? 1
+                        : (2 * k2 < n2 ? 2 * k2 : 2 * (n2 - k2) + 1) - (n2 & 1);
+}
+
+// The row of the partner of row i (k2 -> (N2 - k2) mod N2): i itself for
+// k2 = 0 and N2/2.
+__device__ __forceinline__ int sym_partner(int i, int n2) {
+  const int odd = n2 & 1, j = i + odd;
+  return (j < 2 ? j : j ^ 1) - odd;
+}
+
+// The first row of unit u of the ordering: unit 0 is the rows {0, 1}
+// (k2 = 0 and N2/2) for even N2 and the row {0} for odd N2, unit u >= 1 a
+// pair; unit (N2 + 1) / 2 starts past the last row.
+__device__ __forceinline__ int sym_unit_row(int u, int n2) {
+  return u == 0 ? 0 : 2 * u - (n2 & 1);
+}
+
+// Steps 2 and 3 of K5's mixed cluster kernel: sym_inverse_half's, on block
+// r's nr rows of the ordering (see above): stage B^-1 in place on the 2 nr
+// Cw columns of B (row stride bs: the own tile's rows, then the mirror
+// tile's), a cluster barrier, then stage A^-1 of the own and then the mirror
+// tile through A, the inverse sweep over the plan with DIT position p
+// pulled from block own[p] >> 16 (k2 = kpos[p]; its own-tile row own[p] &
+// 255, its mirror-tile row (own[p] >> 8) & 255) times conj(W_M^(n1 k2)),
+// and the stores of rows N1 n2 + n1 (a padding slot, and a self-mirror
+// slot's mirror column, are not stored); a split cluster barrier around the
+// last pull.
+__device__ __forceinline__ void sym_inverse_mixed(
+    float2* B, float2* A, const float2* twa, const float2* twb,
+    const float2* wp, const int* slot, const int* kpos, const int* own,
+    const float2* __restrict__ wm, float* __restrict__ out, int W, int n2,
+    int plan, int logg, int logcw, int r, int nr, int bs) {
+  namespace cg = cooperative_groups;
+  const int cw = 1 << logcw, M = n2 << 7;
+  const int logl1 = 7 - logg, logna = logl1 + logcw;
+  const size_t plane = (size_t)M * W;
+  const int r1 = r << logl1;
+
+  // 2. Stage B^-1 in place: row q (k1 = bitrev7(q)) -> row n1.
+  auto rd_b = [=](int q, int b) { return B[q * bs + b]; };
+  auto wr_b = [=](int q, int b, float2 v) { B[q * bs + b] = v; };
+  il_fft<true>(B, NCols{(2 * nr) << logcw}, bs, 7, twb, rd_b, wr_b, [] {});
+  cg::this_cluster().sync();
+
+  // 3. Stage A^-1, tile g (0 own, 1 mirror) in turn: column a of A is n1 =
+  // r1 + (a >> logcw), column (a mod cw) of the tile; DIT, then row n2 -> x
+  // row N1 n2 + n1, scaled 1/M.
+  int last = 0;
+  for (int t = 0; t < 4 && plan_radix(plan, t); ++t) last = plan_radix(plan, t);
+  const float scale = 1.0f / static_cast<float>(M);
+  auto arrive = [] { asm volatile("barrier.cluster.arrive.aligned;" ::: "memory"); };
+  auto at_a = [=](int row, int a) { return A + (row << logna) + a; };
+  for (int g = 0; g < 2; ++g) {
+    auto pull = [=](int p, int a) {
+      const int n1 = r1 + (a >> logcw), o = own[p];
+      const int row = g ? (o >> 8) & 255 : o & 255;
+      const float2 v = cg::this_cluster().map_shared_rank(
+          static_cast<const float2*>(B), o >> 16)[
+              n1 * bs + (row << logcw) + (a & (cw - 1))];
+      return cmul(v, __ldg(wm + n1 * kpos[p]), true);
+    };
+    auto st = [=](int row, int a, float2 v) {
+      const int s = slot[(g << logcw) + (a & (cw - 1))];
+      if (s < 0 || (g == 1 && s == slot[a & (cw - 1)])) return;
+      const size_t off = (size_t)((row << 7) + r1 + (a >> logcw)) * W + s;
+      out[off] = v.x * scale;
+      out[off + plane] = v.y * scale;
+    };
+    if (!reg_radix(last)) {      // the DIT's first pass is the prime pass
+      fill_rows(A, n2 << logna, logna, pull);
+      if (g == 1) arrive();
+      __syncthreads();
+      mixed_fft_at<kClusterThreads, true>(logna, n2, plan, twa, wp, pull, st,
+                                          at_a, [] {});
+    } else {
+      mixed_fft_at<kClusterThreads, true>(logna, n2, plan, twa, wp, pull, st,
+                                          at_a, [=] {
+                                            if (g == 1) arrive();
+                                          });
+    }
+    if (g == 0) __syncthreads();        // the mirror tile reuses A
+  }
+  // No block leaves while a peer may still read its buffer.
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// The cluster kernels' body (see above): kMixed selects the mixed instance,
+// which takes N2 = n2m and the plan; the power-of-two one takes N2 =
+// 2^logn2.
+template <bool kMixed>
+__device__ __forceinline__ void x_symbols_tile(
+    const float* __restrict__ in, float* __restrict__ out,
+    const int* __restrict__ own_slots, const int* __restrict__ mirror_slots,
+    int P, int logn2, int n2m, int logg, int logcw, int n1y,
+    const SymConsts& c, int plan, const float2* __restrict__ wm) {
   namespace cg = cooperative_groups;
   extern __shared__ float smem[];
   const int r = static_cast<int>(cg::this_cluster().block_rank());
-  const int n2 = 1 << logn2, cw = 1 << logcw, M = n2 << 7;
-  const int logl1 = 7 - logg, logl2 = logn2 - logg;
+  const int n2 = kMixed ? n2m : 1 << logn2, cw = 1 << logcw, M = n2 << 7;
+  const int logl1 = 7 - logg, logl2 = kMixed ? 0 : logn2 - logg;
   const int logtb = logl2 + logcw, lognb = logtb + 1;    // B: one tile, both
   const int logna = logl1 + logcw;                       // A: one tile
-  float2* B = reinterpret_cast<float2*>(smem);      // 128 rows of 2^lognb
-  float2* A = B + (128 << lognb);                   // n2 rows of 2^logna
-  float2* twa = A + (n2 << logna);                  // W_N2^k, k < n2 / 2
-  float2* twb = twa + n2 / 2;                       // W_128^k, k < 64
-  int* slot = reinterpret_cast<int*>(twb + 64);     // own cw, then mirror cw
+  // Block r's rows [r2, r2 + nr) of the ordering (mixed: those of its units
+  // [floor(r U / G), floor((r+1) U / G))) and B's row stride bs (mixed: 2 L
+  // Cw, L = 2 ceil(U / G) the most rows a block owns).
+  const int units = (n2 + 1) >> 1;
+  const int r2 = kMixed ? sym_unit_row((r * units) >> logg, n2) : r << logl2;
+  const int nr =
+      kMixed ? sym_unit_row(((r + 1) * units) >> logg, n2) - r2 : 1 << logl2;
+  const int bs =
+      kMixed ? ((units + (1 << logg) - 1) >> logg) << (logcw + 2) : 1 << lognb;
+  float2* B = reinterpret_cast<float2*>(smem);      // 128 rows of bs
+  float2* A = B + (kMixed ? 128 * bs : 128 << lognb);   // n2 rows of 2^logna
+  // W_N2^k, k < N2 / 2 (mixed: k < N2); W_128^k, k < 64.
+  float2* twa = A + (n2 << logna);
+  float2* twb = twa + (kMixed ? n2 : n2 / 2);
+  // Mixed: the prime pass's weights W_p^(ik), i = 1 .. (p - 1) / 2, k = 0
+  // .. (p - 1) / 2.
+  const int prime = kMixed ? y_mixed_prime(n2) : 0, half = (prime + 1) / 2;
+  float2* wp = twb + 64;
+  int* slot = reinterpret_cast<int*>(wp + (half - 1) * half);   // own cw, then mirror cw
+  // Mixed: k2 of each row of the ordering; k2 = rho(p) of DIT position p;
+  // p -> (owner block << 16) | (its mirror-tile row << 8) | its own-tile row.
+  int* krow = slot + 2 * cw;
+  int* kpos = krow + n2;
+  int* own = kpos + n2;
   const int tile = blockIdx.x >> logg;
-  for (int k = threadIdx.x; k < n2 / 2; k += kClusterThreads) twa[k] = wm[k << 7];
-  for (int k = threadIdx.x; k < 64; k += kClusterThreads) twb[k] = wm[k << logn2];
+  if constexpr (kMixed) {
+    for (int e = threadIdx.x; e < (half - 1) * half; e += kClusterThreads) {
+      const int i = e / half + 1, k = e - (i - 1) * half;
+      wp[e] = wm[(i * k % prime) * (M / prime)];
+    }
+    for (int k = threadIdx.x; k < n2; k += kClusterThreads) {
+      twa[k] = wm[k << 7];
+      krow[k] = sym_k2_any(k, n2);
+      const int k2 = plan_rho(plan, n2, k), i = sym_row_any(k2, n2);
+      const int u = (i + (n2 & 1)) >> 1;                // i's unit
+      const int b = (((u + 1) << logg) - 1) / units;    // the block that owns u
+      const int b0 = sym_unit_row((b * units) >> logg, n2);
+      const int b1 = sym_unit_row(((b + 1) * units) >> logg, n2);
+      kpos[k] = k2;
+      own[k] = (b << 16) | ((i - b0 + b1 - b0) << 8) | (i - b0);
+    }
+  } else {
+    for (int k = threadIdx.x; k < n2 / 2; k += kClusterThreads) twa[k] = wm[k << 7];
+  }
+  for (int k = threadIdx.x; k < 64; k += kClusterThreads)
+    twb[k] = wm[kMixed ? k * n2 : k << logn2];
   for (int k = threadIdx.x; k < 2 * cw; k += kClusterThreads)
     slot[k] = (k < cw ? own_slots : mirror_slots)[(tile << logcw) + (k & (cw - 1))];
   __syncthreads();
   const size_t plane = (size_t)M * P;
   const int n2y = P / n1y;
-  const int r2 = r << logl2;
   auto ld2 = [=](int row, int a) {
     const size_t off = (size_t)row * P + a;
     return make_float2(__ldg(in + off), __ldg(in + off + plane));
+  };
+  // Item e's k1 and its row il of the block: e = (k1 nr + il) Cw + cc.
+  const int magic = kMixed ? div_magic(nr) : 0;
+  auto k1_of = [=](int e) {
+    return kMixed ? ((e >> logcw) * magic) >> 16 : e >> logtb;
+  };
+  auto il_of = [=](int e, int k1) {
+    return kMixed ? (e >> logcw) - k1 * nr : (e >> logcw) & ((1 << logl2) - 1);
+  };
+  // The k2 of row i and the row of its partner.
+  auto k2_of = [=](int i) { return kMixed ? krow[i] : sym_k2(i, n2); };
+  auto partner = [=](int i) {
+    return kMixed ? sym_partner(i, n2) : i < 2 ? i : i ^ 1;
   };
 
   // 1. Item e: column cc, row i = r2 + il of the ordering, k1; its partner
   // row i' (k2' = (N2 - k2) mod N2) and k1' in the mirror tile. A thread's
   // items share their column (cw divides kClusterThreads).
-  const int count = 128 << logtb;
+  const int count = kMixed ? (nr << 7) << logcw : 128 << logtb;
+  const int mo = kMixed ? nr << logcw : 1 << logtb;    // the mirror tile's column 0
   const int cc = threadIdx.x & (cw - 1), a = slot[cc], b = slot[cw + cc];
   const int fy = a >= 0 ? slot_freq(a, n1y, n2y) : 0;
   const float sy = sym_sin(fy, P);
@@ -1646,9 +1835,10 @@ x_symbols_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
       const int e = e0 + u * kClusterThreads;
       w[u] = wn[u] = make_float2(0.f, 0.f);
       if (e >= count) continue;
-      const int i = r2 + ((e >> logcw) & ((1 << logl2) - 1));
-      const int k1 = e >> logtb, k2 = sym_k2(i, n2);
-      const int k2p = sym_k2(i < 2 ? i : i ^ 1, n2);
+      const int k1 = k1_of(e);
+      const int i = r2 + il_of(e, k1);
+      const int k2 = k2_of(i);
+      const int k2p = k2_of(partner(i));
       const int k1p = k2 == 0 ? (128 - k1) & 127 : 127 - k1;
       const int s = (k2 << 7) + k1, sp = (k2p << 7) + k1p;
       if (a == b && s > sp) continue;     // self-mirror: the lower row's item
@@ -1659,20 +1849,22 @@ x_symbols_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
     for (int u = 0; u < kSymBatch; ++u) {
       const int e = e0 + u * kClusterThreads;
       if (e >= count) continue;
-      const int il = (e >> logcw) & ((1 << logl2) - 1);
-      const int i = r2 + il, ip = i < 2 ? i : i ^ 1;
-      const int k1 = e >> logtb, k2 = sym_k2(i, n2);
+      const int k1 = k1_of(e), il = il_of(e, k1);
+      const int i = r2 + il, ip = partner(i);
+      const int k2 = k2_of(i);
       const int k1p = k2 == 0 ? (128 - k1) & 127 : 127 - k1;
-      const int s = (k2 << 7) + k1, sp = (sym_k2(ip, n2) << 7) + k1p;
-      const int q = bitrev(k1, 7) << lognb, qp = bitrev(k1p, 7) << lognb;
+      const int s = (k2 << 7) + k1, sp = (k2_of(ip) << 7) + k1p;
+      const int q = kMixed ? bitrev(k1, 7) * bs : bitrev(k1, 7) << lognb;
+      const int qp = kMixed ? bitrev(k1p, 7) * bs : bitrev(k1p, 7) << lognb;
       const int own_i = (il << logcw) + cc, own_ip = ((ip - r2) << logcw) + cc;
       float2 v, vn;
-      sym_apply(k2 + (k1 << logn2), fy, sy, M, c, w[u], wn[u], &v, &vn);
+      sym_apply(k2 + (kMixed ? k1 * n2 : k1 << logn2), fy, sy, M, c, w[u],
+                wn[u], &v, &vn);
       if (a != b) {
         B[q + own_i] = v;
-        B[qp + (1 << logtb) + own_ip] = vn;
+        B[qp + mo + own_ip] = vn;
       } else {                            // self-mirror or padding
-        B[qp + (1 << logtb) + own_ip] = make_float2(0.f, 0.f);
+        B[qp + mo + own_ip] = make_float2(0.f, 0.f);
         if (s <= sp) {
           B[q + own_i] = v;
           B[qp + own_ip] = vn;
@@ -1683,7 +1875,34 @@ x_symbols_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
   __syncthreads();
 
   // 2 and 3.
-  sym_inverse_half(B, A, twa, twb, slot, wm, out, P, logn2, logg, logcw, r);
+  if constexpr (kMixed) {
+    sym_inverse_mixed(B, A, twa, twb, wp, slot, kpos, own, wm, out, P, n2,
+                      plan, logg, logcw, r, nr, bs);
+  } else {
+    sym_inverse_half(B, A, twa, twb, slot, wm, out, P, logn2, logg, logcw, r);
+  }
+}
+
+__global__ void __launch_bounds__(kClusterThreads, 2)
+x_symbols_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
+                         const int* __restrict__ own_slots,
+                         const int* __restrict__ mirror_slots, int P,
+                         int logn2, int logg, int logcw, int n1y,
+                         SymConsts c, const float2* __restrict__ wm) {
+  x_symbols_tile<false>(in, out, own_slots, mirror_slots, P, logn2, 0, logg,
+                        logcw, n1y, c, 0, wm);
+}
+
+__global__ void __launch_bounds__(kClusterThreads, 2)
+x_symbols_cluster_mixed_kernel(const float* __restrict__ in,
+                               float* __restrict__ out,
+                               const int* __restrict__ own_slots,
+                               const int* __restrict__ mirror_slots, int P,
+                               int n2, int logg, int logcw, int n1y,
+                               SymConsts c, int plan,
+                               const float2* __restrict__ wm) {
+  x_symbols_tile<true>(in, out, own_slots, mirror_slots, P, 0, n2, logg,
+                       logcw, n1y, c, plan, wm);
 }
 
 // ---------------------------------------------------------------------------
@@ -2381,6 +2600,77 @@ extern "C" int qg_x_symbols_cluster_launch(const float* in, float* out,
   if (cudaError_t err = cudaLaunchKernelEx(
           &cfg, x_symbols_cluster_kernel, in, out, own_slots, mirror_slots, P,
           logn2, logg, logcw, n1y, sym_consts(consts),
+          static_cast<const float2*>(wm)))
+    return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// The mixed instance's shared memory: B (128 rows of 2 L Cw float2, L = 2
+// ceil(U / G) the most rows a block owns, U = ceil(N2 / 2) units), A (N2
+// rows of 128 Cw / G), the N2- and 64-entry tables, the prime pass's (p -
+// 1) / 2 x (p + 1) / 2 weights (float2), then the tile's 2 Cw slots and
+// three N2-entry maps (int).
+int x_symbols_cluster_mixed_smem(int n2, int logg, int logcw) {
+  const int h = y_mixed_prime(n2) / 2, units = (n2 + 1) / 2;
+  const int lb = (units + (1 << logg) - 1) >> logg;     // ceil(U / G)
+  return ((128 * lb << (logcw + 2)) + (n2 << (7 - logg + logcw)) + n2 + 64 +
+          h * (h + 1)) * static_cast<int>(sizeof(float2)) +
+         ((2 << logcw) + 3 * n2) * static_cast<int>(sizeof(int));
+}
+
+// K5's mixed cluster kernel's launch: N2 not a power of two, 3 <= N2 <= 63,
+// G = 2^logg in {4, 8, 16} with U = ceil(N2 / 2) >= G (every block owns a
+// unit; a block then owns at most 16 rows, which step 1's div_magic takes).
+int x_symbols_cluster_mixed_config(int n2, int logg, int logcw, int tiles,
+                                   cudaStream_t stream,
+                                   cudaLaunchConfig_t& cfg,
+                                   cudaLaunchAttribute& attr) {
+  if (logg < 2 || logg > 4 || n2 < 3 || n2 > 63 || (n2 & (n2 - 1)) == 0 ||
+      (n2 + 1) / 2 < (1 << logg))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return fill_cluster_launch(
+      reinterpret_cast<const void*>(x_symbols_cluster_mixed_kernel),
+      x_symbols_cluster_mixed_smem(n2, logg, logcw), logg, tiles, stream, cfg,
+      attr);
+}
+
+}  // namespace
+
+// The most clusters of K5's mixed cluster kernel's layout (M = 128 n2) that
+// the card holds at once: 0 means the layout cannot run.
+extern "C" int qg_x_symbols_cluster_mixed_occupancy(int n2, int logg,
+                                                    int logcw,
+                                                    int* max_clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (int err = x_symbols_cluster_mixed_config(n2, logg, logcw, 1, nullptr,
+                                               cfg, attr))
+    return err;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      max_clusters,
+      reinterpret_cast<const void*>(x_symbols_cluster_mixed_kernel), &cfg));
+}
+
+// K5's mixed cluster kernel on a planar (2, 128 n2, P) spectrum, the tile
+// tables and consts as qg_x_symbols_cluster_launch's; plan: the radices of
+// stage A in DIF order, one byte each (dft_kernels.y_dft_mixed_plan), whose
+// product must be n2; wm: the M-entry float2 table of W_M^j.
+extern "C" int qg_x_symbols_cluster_mixed_launch(
+    const float* in, float* out, const int* own_slots, const int* mirror_slots,
+    int tiles, int P, int n2, int logg, int logcw, int n1y,
+    const float* consts, int plan, const void* wm, void* stream) {
+  if (!plan_fits(plan, n2)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (int err = x_symbols_cluster_mixed_config(
+          n2, logg, logcw, tiles, static_cast<cudaStream_t>(stream), cfg,
+          attr))
+    return err;
+  if (cudaError_t err = cudaLaunchKernelEx(
+          &cfg, x_symbols_cluster_mixed_kernel, in, out, own_slots,
+          mirror_slots, P, n2, logg, logcw, n1y, sym_consts(consts), plan,
           static_cast<const float2*>(wm)))
     return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

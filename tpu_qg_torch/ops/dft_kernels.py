@@ -432,6 +432,10 @@ def _lib():
                        [p] * 4 + [i] * 6 + [p, p, p])
         _build.declare(lib.qg_x_symbols_cluster_occupancy,
                        [i, i, i, ctypes.POINTER(ctypes.c_int)])
+        _build.declare(lib.qg_x_symbols_cluster_mixed_launch,
+                       [p] * 4 + [i] * 6 + [p, i, p, p])
+        _build.declare(lib.qg_x_symbols_cluster_mixed_occupancy,
+                       [i, i, i, ctypes.POINTER(ctypes.c_int)])
         _build.declare(lib.qg_pair_x_cluster_launch,
                        [p] * 4 + [i] * 6 + [p, p, p])
         _build.declare(lib.qg_pair_x_cluster_occupancy,
@@ -1262,26 +1266,33 @@ def x_dft_stage_a(z: torch.Tensor, inverse: bool) -> torch.Tensor:
 x_dft_stage_a.launches = 0
 
 
-# K5's cluster kernel (csrc x_symbols_cluster_kernel) on M = 128 * 2^a with
-# N2 = M / 128 >= 2 G: a cluster of G blocks takes an own tile of Cw y slots
-# and its mirror tile (x_symbols_cluster_tiles), block r the k2 rows
-# sym_k2(i), i in [r L2, (r+1) L2), L2 = N2 / G, of both tiles, each k2 row
-# beside its mirror row. The layout x_symbols_inverse launches, (G, Cw), is
-# at each extent of X_SYMBOLS_CLUSTER_BY_M the one of chip_smoke.py's
-# k5_sweep with the least device time (PERF.md), else X_SYMBOLS_CLUSTER
-# (4096's).
+# K5's cluster kernels on M = 128 * N2 with U = ceil(N2 / 2) >= G (csrc
+# x_symbols_cluster_kernel for N2 = 2^a, x_symbols_cluster_mixed_kernel for
+# the other N2 <= 63): a cluster of G blocks takes an own tile of Cw y slots
+# and its mirror tile (x_symbols_cluster_tiles), block r the k2 rows of
+# both tiles of its units of an ordering that keeps each k2 row beside its
+# mirror row (x_symbols_cluster_rows: for a power of two the rows [r L2,
+# (r+1) L2), L2 = N2 / G). The layout x_symbols_inverse launches, (G, Cw),
+# is at each extent of X_SYMBOLS_CLUSTER_BY_M the one of chip_smoke.py's
+# k5_sweep (powers of two) or k5_mixed (mixed extents) with the least
+# device time (PERF.md), else X_SYMBOLS_CLUSTER (4096's).
 X_SYMBOLS_CLUSTER_SIZES = (4, 8, 16)
 X_SYMBOLS_CLUSTER_WIDTHS = (4, 8, 16)
 X_SYMBOLS_CLUSTER = (8, 8)
-X_SYMBOLS_CLUSTER_BY_M = {4096: (8, 8), 8192: (16, 8)}
+X_SYMBOLS_CLUSTER_BY_M = {4096: (8, 8), 6144: (16, 8), 7808: (16, 8),
+                          8192: (16, 8)}
 
 
 class SymbolsClusterLayout(NamedTuple):
     """K5's cluster kernel's shared memory for M = 128 * N2 (csrc
-    x_symbols_cluster_smem): buffer B (128 rows of 2 L2 Cw float2: both
-    tiles) and buffer A (N2 rows of L1 Cw: one tile), a tile's share being
-    M Cw / G float2, then the N2/2- and 64-entry radix-2 tables and the
-    tile's 2 Cw int slots."""
+    x_symbols_cluster_smem, x_symbols_cluster_mixed_smem): buffer B (128
+    rows of 2 L2 Cw float2: both tiles, L2 = 2 ceil(U / G) the most rows a
+    block owns, N2 / G for a power of two) and buffer A (N2 rows of L1 Cw:
+    one tile, M Cw / G float2), then for a power of two the N2/2- and
+    64-entry radix-2 tables and the tile's 2 Cw int slots; for a mixed N2
+    the N2- and 64-entry tables, the prime pass's (p-1)/2 x (p+1)/2 float2
+    weights, the 2 Cw slots and three N2-entry int maps (k2 of a row, rho
+    and the owner map)."""
     n2: int
     l1: int
     l2: int
@@ -1291,9 +1302,15 @@ class SymbolsClusterLayout(NamedTuple):
 
 def x_symbols_cluster_layout(M: int, G: int, Cw: int) -> SymbolsClusterLayout:
     n2 = M // _N1
+    l2 = 2 * -(-((n2 + 1) // 2) // G)
     tile = M * Cw // G
-    smem = 8 * (3 * tile + n2 // 2 + _N1 // 2) + 4 * 2 * Cw
-    return SymbolsClusterLayout(n2, _N1 // G, n2 // G, tile, smem)
+    if _mixed(M):
+        h = _y_mixed_prime(n2) // 2
+        smem = (8 * (2 * _N1 * l2 * Cw + tile + n2 + _N1 // 2 + h * (h + 1))
+                + 4 * (2 * Cw + 3 * n2))
+    else:
+        smem = 8 * (3 * tile + n2 // 2 + _N1 // 2) + 4 * 2 * Cw
+    return SymbolsClusterLayout(n2, _N1 // G, l2, tile, smem)
 
 
 def x_symbols_cluster_launched(M: int) -> tuple[int, int]:
@@ -1302,14 +1319,18 @@ def x_symbols_cluster_launched(M: int) -> tuple[int, int]:
 
 
 def x_symbols_cluster_takes(M: int, layout: tuple | None = None) -> bool:
-    """True iff K5's cluster kernel takes extent M at ``layout`` = (G, Cw)
-    (by default the launched one): M = 128 * 2^a with N2 = M / 128 >= 2 G
-    (every block holds whole pairs of k2 rows), within one block's shared
-    memory. The y extent does not matter: the tile table takes any."""
+    """True iff a K5 cluster kernel takes extent M at ``layout`` = (G, Cw)
+    (by default the launched one): M = 128 * N2, N2 a power of two
+    (x_symbols_cluster_kernel) or 3 <= N2 <= 63 (x_symbols_cluster_mixed_
+    kernel), with U = ceil(N2 / 2) >= G (every block owns a unit: whole
+    pairs of k2 rows; N2 >= 2 G for a power of two), within one block's
+    shared memory. The y extent does not matter: the tile table takes
+    any."""
     G, Cw = layout or x_symbols_cluster_launched(M)
     n2 = M // _N1
     return (G in X_SYMBOLS_CLUSTER_SIZES and Cw in X_SYMBOLS_CLUSTER_WIDTHS
-            and M == _N1 * n2 and n2 & (n2 - 1) == 0 and n2 >= 2 * G
+            and M == _N1 * n2 and (_is_pow2(n2) or _mixed(M))
+            and (n2 + 1) // 2 >= G
             and x_symbols_cluster_layout(M, G, Cw).smem <= SMEM_LIMIT)
 
 
@@ -1347,16 +1368,40 @@ def _device_cluster_tiles(P: int, Cw: int, device: torch.device):
                  for t in x_symbols_cluster_tiles(P, Cw))
 
 
-def _sym_rows(n2: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(k2 of each row i of a cluster's ordering, row of each k2): csrc
-    sym_k2 and sym_row. Rows 0 and 1 hold k2 = 0 and N2/2, rows 2m and 2m + 1
-    the pair m, N2 - m."""
-    i = torch.arange(n2)
-    k2 = torch.where(i < 2, i * (n2 // 2),
-                     torch.where(i % 2 == 1, n2 - i // 2, i // 2))
-    row = torch.empty_like(k2)
-    row[k2] = i
-    return k2, row
+def x_symbols_cluster_rows(n2: int, G: int) -> tuple[np.ndarray, np.ndarray]:
+    """K5's cluster ordering of the N2 k2 rows and its split over G blocks
+    (csrc sym_k2_any and sym_unit_row; sym_k2 for a power of two): (k2 of
+    each row i, each block's first row, G + 1 entries, the last N2). Row 0
+    holds k2 = 0, for even N2 row 1 holds N2/2, then each pair m, N2 - m
+    (m = 1, 2, ...) takes two rows side by side. The units, the rows {0, 1}
+    (even N2) or {0} (odd N2) and each pair, U = ceil(N2 / 2) of them, split
+    as block r owning units [floor(r U / G), floor((r + 1) U / G)), so that
+    no pair straddles two blocks (x_dft_cluster_split's rule, on units): for
+    a power of two block r owns the rows [r L2, (r + 1) L2), L2 = N2 / G."""
+    odd = n2 & 1
+    i = np.arange(n2)
+    j = i + odd
+    k2 = np.where(i == 0, 0, np.where(j == 1, n2 // 2,
+                                      np.where(j & 1, n2 - (j >> 1), j >> 1)))
+    u = np.arange(G + 1) * ((n2 + 1) // 2) // G
+    return k2, np.where(u == 0, 0, 2 * u - odd)
+
+
+def x_symbols_cluster_owner(n2: int, G: int) -> tuple[np.ndarray, ...]:
+    """The mixed kernel's N2-entry owner map for stage A^-1's pull, by the
+    CUDA source's formula (csrc x_symbols_tile): DIT position p holds k2 =
+    rho[p] (y_dft_mixed_rho of y_dft_mixed_plan(N2); bitrev for a power of
+    two), the row i of k2 in the ordering (x_symbols_cluster_rows) is in
+    unit u = (i + N2 mod 2) // 2, which block b = ((u + 1) G - 1) // U owns.
+    Returns (b, i's row in b's own tile, its row in b's mirror tile: the
+    own-tile row plus b's row count), N2 entries each."""
+    k2_of, start = x_symbols_cluster_rows(n2, G)
+    row_of = np.empty(n2, np.int64)
+    row_of[k2_of] = np.arange(n2)
+    i = row_of[y_dft_mixed_rho(y_dft_mixed_plan(n2))]
+    b = (((i + (n2 & 1)) // 2 + 1) * G - 1) // ((n2 + 1) // 2)
+    local = i - start[b]
+    return b, local, local + start[b + 1] - start[b]
 
 
 def _sym_stage_emulated(M: int, P: int, consts, G: int, Cw: int, own, mir,
@@ -1364,38 +1409,43 @@ def _sym_stage_emulated(M: int, P: int, consts, G: int, Cw: int, own, mir,
                         gsl=None, companion: bool = False) -> torch.Tensor:
     """The symbol stage of K5's, K3's, K13's and K14's cluster kernels, for
     all tiles (dim 0) and blocks (dim 1) at once: item e of block r is
-    column cc, row i of the ordering, k1; its partner row ip (k2 -> (N2 -
-    k2) mod N2), k1p in the mirror tile, or in the own column for a
-    self-mirror slot (or padding), whose lower row's item (s <= sp) takes
-    both. ``read(s, sp, a, b, own_pos, mir_pos, self_, skip)`` gives each
-    item's (w, wn); V = A w + B conj(wn) goes to own_pos and Vn = A wn + B
-    conj(w) to mir_pos of ``buf`` ((T, G, 128 nb), k1 at row bitrev7(k1)),
-    with symbol_stage's symbols in ``real`` precision at the y slots ``gsl``
-    (T, Cw) of the own columns (default: ``own``). A self-mirror slot's
-    mirror column must hold zeros in ``buf`` (K5's kernel writes them there,
-    K3's loads them). ``companion`` (K13): no column is its own mirror and
-    only V is written."""
+    column cc, row i of the ordering (block r's rows x_symbols_cluster_rows,
+    at most L2 of them, items past its count skipped), k1; its partner row
+    ip (k2 -> (N2 - k2) mod N2), k1p in the mirror tile, or in the own
+    column for a self-mirror slot (or padding), whose lower row's item (s
+    <= sp) takes both. ``read(s, sp, a, b, own_pos, mir_pos, self_, skip)``
+    gives each item's (w, wn); V = A w + B conj(wn) goes to own_pos and Vn
+    = A wn + B conj(w) to mir_pos of ``buf`` ((T, G, 128 bs), bs = 2 L2
+    Cw, k1 at row bitrev7(k1), block r's own-tile rows in its first nr Cw
+    columns, its mirror-tile rows in the next nr Cw), with symbol_stage's
+    symbols in ``real`` precision at the y slots ``gsl`` (T, Cw) of the own
+    columns (default: ``own``). A self-mirror slot's mirror column must
+    hold zeros in ``buf`` (K5's kernel writes them there, K3's loads them).
+    ``companion`` (K13): no column is its own mirror and only V is
+    written."""
     gsl = own if gsl is None else gsl
-    n2, l2 = M // _N1, M // _N1 // G
+    n2, l2 = M // _N1, x_symbols_cluster_layout(M, G, Cw).l2
     T, nb = own.shape[0], 2 * l2 * Cw
     n1y, n2y = split_factor(P)
-    k2_of, _ = _sym_rows(n2)
+    k2_of, start = (torch.as_tensor(t) for t in x_symbols_cluster_rows(n2, G))
     brb = _bitrev(7)
     _, _, inv_dx2, alpha2, a1, a2, b1, b2 = consts
     e = torch.arange(_N1 * l2 * Cw)
     cc, il, k1 = e % Cw, (e // Cw) % l2, e // (Cw * l2)
-    r = torch.arange(G)[:, None]
-    i = r * l2 + il
-    ip = torch.where(i < 2, i, i ^ 1)
+    r2, nr = start[:-1, None], (start[1:] - start[:-1])[:, None]   # (G, 1)
+    valid = il < nr
+    i = torch.clamp(r2 + il, max=n2 - 1)
+    odd = n2 & 1
+    ip = torch.where(i + odd < 2, i + odd, (i + odd) ^ 1) - odd
     k2, k2p = k2_of[i], k2_of[ip]
     k1p = torch.where(k2 == 0, (_N1 - k1) % _N1, _N1 - 1 - k1)
     s, sp = _N1 * k2 + k1, _N1 * k2p + k1p                   # (G, E)
     a, b = own[:, None, cc], mir[:, None, cc]                # (T, 1, E)
     self_ = (a == b) & (not companion)
-    skip = self_ & (s > sp)
-    own_pos = brb[k1] * nb + il * Cw + cc
-    mir_pos = (brb[k1p] * nb + torch.where(self_, 0, l2 * Cw)
-               + (ip - r * l2) * Cw + cc)
+    skip = (self_ & (s > sp)) | ~valid
+    own_pos = torch.where(valid, brb[k1] * nb + il * Cw + cc, 0)
+    mir_pos = torch.where(valid, brb[k1p] * nb + torch.where(self_, 0, nr * Cw)
+                          + (ip - r2) * Cw + cc, 0)
     w, wn = read(s, sp, a, b, own_pos, mir_pos, self_, skip)
     kx = k2 + n2 * k1
     gs = gsl[:, None, cc]
@@ -1414,7 +1464,7 @@ def _sym_stage_emulated(M: int, P: int, consts, G: int, Cw: int, own, mir,
     sa, sb = symbol(a1, a2), symbol(b1, b2)
     v = sa * w + sb * wn.conj()
     vn = sa * wn + sb * w.conj()
-    tt = torch.arange(T)[:, None, None]
+    tt, r = torch.arange(T)[:, None, None], torch.arange(G)[:, None]
 
     def put(mask, pos, val):
         mask = torch.broadcast_to(mask, (T, G, len(e)))
@@ -1429,34 +1479,39 @@ def _sym_stage_emulated(M: int, P: int, consts, G: int, Cw: int, own, mir,
 
 def _sym_inverse_emulated(buf: torch.Tensor, own, mir, M: int, W: int,
                           G: int, Cw: int, own_only: bool = False):
-    """K5's steps 2 and 3 (csrc sym_inverse_half) on ``buf`` ((T, G, 128
-    nb)) for all tiles and blocks at once: the 128-point inverse DIT
-    (torch.fft from the bit-reversed rows), the pull of each block's n1 rows
-    from every block's B through sym_row with conj(W_M^(n1 k2)), the N2-point
-    inverse DIT and the stores into W columns (``own_only``: of the own tile
-    alone). Returns (out, stores): the complex (M, W) result and how many
-    times each (row, column) was stored by an own tile (stores[0]) and by a
-    mirror tile (stores[1])."""
-    n2, l1, l2 = M // _N1, _N1 // G, M // _N1 // G
-    T, nb = own.shape[0], 2 * l2 * Cw
+    """K5's steps 2 and 3 (csrc sym_inverse_half, sym_inverse_mixed) on
+    ``buf`` ((T, G, 128 bs), _sym_stage_emulated's) for all tiles and
+    blocks at once: the 128-point inverse DIT (torch.fft from the
+    bit-reversed rows), the pull of each block's n1 rows from every block's
+    B through the owner map (x_symbols_cluster_owner) with conj(W_M^(n1
+    k2)), the N2-point inverse DIT as the passes of y_dft_mixed_plan(N2)
+    (_plan_passes_emulated; radix 2 throughout for a power of two) and the
+    stores into W columns (``own_only``: of the own tile alone). Returns
+    (out, stores): the complex (M, W) result and how many times each (row,
+    column) was stored by an own tile (stores[0]) and by a mirror tile
+    (stores[1])."""
+    n2, l1 = M // _N1, _N1 // G
+    T, nb = own.shape[0], 2 * x_symbols_cluster_layout(M, G, Cw).l2 * Cw
     wm = torch.as_tensor(np.exp(-2j * np.pi * np.arange(M) / M)).to(buf.dtype)
-    bra, brb = _bitrev(n2.bit_length() - 1), _bitrev(7)
-    _, row_of = _sym_rows(n2)
+    brb = _bitrev(7)
+    rho = torch.as_tensor(y_dft_mixed_rho(y_dft_mixed_plan(n2)))
+    owner, own_row, mir_row = (torch.as_tensor(t)
+                               for t in x_symbols_cluster_owner(n2, G))
     r = torch.arange(G)[:, None]
     # 2. Stage B^-1: row p holds k1 = bitrev7(p) in, row n1 natural out.
     buf = buf.reshape(T, G, _N1, nb)
     first = torch.fft.ifft(buf[:, :, brb], dim=2, norm="forward")
     # 3. Stage A^-1: block r's column a (tile g, n1, column col) at DIT
-    # position p (k2 = bitrev(p)) from the owner of row sym_row(k2).
+    # position p (k2 = rho[p]) from its owner's row of tile g.
     pa = torch.arange(n2)[:, None]
     fa = torch.arange(2 * l1 * Cw)[None, :]
     g, col = fa // (l1 * Cw), fa % Cw
     n1 = r[:, :, None] * l1 + (fa // Cw) % l1                # (G, 1, NA)
-    kk = bra[pa]
-    ii = row_of[kk]                                          # (n2, 1)
-    bcol = g * l2 * Cw + (ii % l2) * Cw + col                # (n2, NA)
-    pulled = first[:, ii // l2, n1, bcol] * wm[n1 * kk].conj()
-    nat = torch.fft.ifft(pulled[:, :, bra], dim=2, norm="forward") / M
+    kk = rho[pa]                                             # (n2, 1)
+    bcol = torch.where(g == 0, own_row[pa], mir_row[pa]) * Cw + col
+    pulled = first[:, owner[pa], n1, bcol] * wm[n1 * kk].conj()
+    nat = _plan_passes_emulated(pulled.reshape(T * G, n2, -1), wm[::_N1],
+                                True).reshape(pulled.shape) / M
     # nat[t, r, n2, a]: x row N1 n2 + n1, the slot of tile g's column col.
     slot = torch.where(g == 0, own[:, None, None, col[0]],
                        mir[:, None, None, col[0]])          # (T, 1, 1, NA)
@@ -1475,7 +1530,7 @@ def _sym_inverse_emulated(buf: torch.Tensor, own, mir, M: int, W: int,
 
 def _count(counter: torch.Tensor, mask, row, col) -> None:
     """Adds 1 to counter[row, col] wherever ``mask`` holds (broadcast)."""
-    shape = torch.broadcast_shapes(mask.shape, row.shape, col.shape)
+    shape = np.broadcast_shapes(mask.shape, row.shape, col.shape)
     mask = torch.broadcast_to(mask, shape)
     row, col = (torch.broadcast_to(x, shape)[mask] for x in (row, col))
     counter.index_put_((row, col), torch.ones_like(row), accumulate=True)
@@ -1487,20 +1542,24 @@ def _cluster_tiles(P: int, Cw: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def x_symbols_cluster_emulated(W: torch.Tensor, consts, G: int, Cw: int):
-    """What K5's cluster kernel does at (G, Cw), for all tiles and blocks at
-    once, in plain torch: each block's loads of its k2 rows and their
-    mirror rows with the symbol stage into buffer B (k1 at row bitrev7(k1);
-    a self-mirror slot's lower rows load and write both rows of a pair),
-    the 128-point inverse DIT (torch.fft from the bit-reversed rows), the
-    pull of its n1 rows from every block's B through sym_row with
-    conj(W_M^(n1 k2)), the N2-point inverse DIT and the stores, with the CUDA
-    source's index arithmetic. The symbols are symbol_stage's formula in W's
-    precision. Returns (out, loads, stores): x_symbols_inverse_plain's
+    """What a K5 cluster kernel does at (G, Cw), for all tiles and blocks at
+    once, in plain torch: each block's loads of its k2 rows (the ordering
+    and split of x_symbols_cluster_rows) and their mirror rows with the
+    symbol stage into buffer B (k1 at row bitrev7(k1); a self-mirror slot's
+    lower rows load and write both rows of a pair), the 128-point inverse
+    DIT (torch.fft from the bit-reversed rows), the pull of its n1 rows from
+    every block's B through the owner map (x_symbols_cluster_owner) with
+    conj(W_M^(n1 k2)), the N2-point inverse DIT as the passes of
+    y_dft_mixed_plan(N2) with the kernel's weights and twiddles
+    (_plan_passes_emulated) and the stores, with the CUDA source's index
+    arithmetic; a power of two runs the same maps (radix 2 throughout, rho
+    the bit reversal, an even split). The symbols are symbol_stage's formula
+    in W's precision. Returns (out, loads, stores): x_symbols_inverse_plain's
     result and how many times each (row, slot) of the input was loaded and
     of the output stored."""
     _, M, P = W.shape
     if not x_symbols_cluster_takes(M, (G, Cw)):
-        raise ValueError(f"K5's cluster kernel does not take M = {M} at "
+        raise ValueError(f"K5's cluster kernels do not take M = {M} at "
                          f"G = {G}, Cw = {Cw}")
     c = torch.complex(W[0], W[1])
     own, mir = _cluster_tiles(P, Cw)
@@ -1517,7 +1576,7 @@ def x_symbols_cluster_emulated(W: torch.Tensor, consts, G: int, Cw: int):
         _count(loads, load_wn, sp, b)
         return w, wn
 
-    l2 = M // _N1 // G
+    l2 = x_symbols_cluster_layout(M, G, Cw).l2
     buf = torch.zeros((own.shape[0], G, _N1 * 2 * l2 * Cw), dtype=c.dtype)
     buf = _sym_stage_emulated(M, P, consts, G, Cw, own, mir, W.dtype, read,
                               buf)
@@ -1528,44 +1587,51 @@ def x_symbols_cluster_emulated(W: torch.Tensor, consts, G: int, Cw: int):
 @functools.lru_cache(maxsize=32)
 def x_symbols_cluster_occupancy(M: int, layout: tuple, device: int) -> int:
     """The most clusters of K5's cluster layout = (G, Cw) at extent M that
-    card ``device`` holds at once (cudaOccupancyMaxActiveClusters); 0: the
-    layout cannot be scheduled."""
+    card ``device`` holds at once (cudaOccupancyMaxActiveClusters, the
+    power-of-two or the mixed instance); 0: the layout cannot be
+    scheduled."""
     G, Cw = layout
+    n2 = M // _N1
     count = ctypes.c_int(0)
     with torch.cuda.device(device):
-        code = _lib().qg_x_symbols_cluster_occupancy(
-            (M // _N1).bit_length() - 1, G.bit_length() - 1,
-            Cw.bit_length() - 1, ctypes.byref(count))
+        fn = (_lib().qg_x_symbols_cluster_mixed_occupancy if _mixed(M) else
+              _lib().qg_x_symbols_cluster_occupancy)
+        code = fn(n2 if _mixed(M) else n2.bit_length() - 1,
+                  G.bit_length() - 1, Cw.bit_length() - 1,
+                  ctypes.byref(count))
     _build.check(code, f"x_symbols cluster occupancy {layout} at M = {M}")
     return count.value
 
 
 def x_symbols_cluster(W: torch.Tensor, consts,
                       layout: tuple | None = None) -> torch.Tensor:
-    """One launch of K5's cluster kernel (csrc x_symbols_cluster_kernel) on a
-    CUDA (2, M, P) float32 spectrum, M = 128 * 2^a, with ``layout`` = (G,
-    Cw), by default x_symbols_cluster_launched(M): x_symbols_inverse's
-    result. Raises on a shape or layout the kernel does not take, a layout
-    the card cannot schedule and a launch error. Counts nothing: the
-    counting wrapper is x_symbols_inverse.
+    """One launch of a K5 cluster kernel on a CUDA (2, M, P) float32
+    spectrum, M = 128 * N2 (csrc x_symbols_cluster_kernel for N2 = 2^a,
+    x_symbols_cluster_mixed_kernel, stage A^-1 over y_dft_mixed_plan(N2),
+    for the other N2 <= 63), with ``layout`` = (G, Cw), by default
+    x_symbols_cluster_launched(M): x_symbols_inverse's result. Raises on a
+    shape or layout the kernel does not take, a layout the card cannot
+    schedule and a launch error. Counts nothing: the counting wrapper is
+    x_symbols_inverse.
 
     Replaces, as x_symbols_inverse_kernel does, tpu_qg/ops/pallas_fft.py
     PlanarFFT2._call_x_symbols (:1176) and _call_x_stream(Z, True, consts)
     (:1122). Bound: one read and one write of the field (1074 MB at
-    8192^2, 0.321 ms at 3.35 TB/s). Why a cluster: x_symbols_inverse_kernel
-    holds whole columns (64 KB each at M = 8192), so one slot pair fits a
-    block and a warp moves 4-byte runs a row. Here the G blocks of a
-    cluster share an own tile of Cw slots and its mirror tile, each block
-    the symbol stage and stage B^-1 on its k2 rows (each beside its mirror
-    row), then its part of stage A^-1 pulled from its peers' shared memory
-    (design in the source)."""
+    8192^2, 0.321 ms at 3.35 TB/s; 151 MB at 3072^2, 0.045 ms). Why a
+    cluster: x_symbols_inverse_kernel holds whole columns (64 KB each at M
+    = 8192), so one slot pair fits a block and a warp moves 4-byte runs a
+    row. Here the G blocks of a cluster share an own tile of Cw slots and
+    its mirror tile, each block the symbol stage and stage B^-1 on its k2
+    rows (each beside its mirror row), then its part of stage A^-1 pulled
+    from its peers' shared memory (design in the source)."""
     _, M, P = W.shape
     layout = tuple(layout or x_symbols_cluster_launched(M))
     _cuda_field("x_symbols_cluster", W, x_kernels_take, M, P)
     if not x_symbols_cluster_takes(M, layout):
-        raise ValueError(f"x_symbols_cluster: M = {M} must be 128 * 2^a with "
-                         f"M / 128 >= 2 G and the layout {layout} (G, Cw) "
-                         f"fit shared memory")
+        raise ValueError(f"x_symbols_cluster: M = {M} must be 128 * N2 (N2 "
+                         f"a power of two or 3 <= N2 <= 63) with ceil(N2 / "
+                         f"2) >= G and the layout {layout} (G, Cw) fit "
+                         f"shared memory")
     vals = check_consts("x_symbols_cluster", consts, M, P)
     G, Cw = layout
     device = W.device.index if W.device.index is not None else \
@@ -1575,12 +1641,19 @@ def x_symbols_cluster(W: torch.Tensor, consts,
                            f"cluster of layout {layout} at M = {M}")
     own, mirror = _device_cluster_tiles(P, Cw, W.device)
     out = torch.empty_like(W)
-    code = _lib().qg_x_symbols_cluster_launch(
-        W.data_ptr(), out.data_ptr(), own.data_ptr(), mirror.data_ptr(),
-        own.shape[0], P, (M // _N1).bit_length() - 1, G.bit_length() - 1,
-        Cw.bit_length() - 1, split_factor(P)[0], vals,
-        _twiddles(M, M, W.device).data_ptr(),
-        torch.cuda.current_stream(W.device).cuda_stream)
+    n2 = M // _N1
+    args = (W.data_ptr(), out.data_ptr(), own.data_ptr(), mirror.data_ptr(),
+            own.shape[0], P)
+    layout_args = (G.bit_length() - 1, Cw.bit_length() - 1,
+                   split_factor(P)[0], vals)
+    wm = _twiddles(M, M, W.device).data_ptr()
+    stream = torch.cuda.current_stream(W.device).cuda_stream
+    if _mixed(M):
+        code = _lib().qg_x_symbols_cluster_mixed_launch(
+            *args, n2, *layout_args, _packed_plan(n2), wm, stream)
+    else:
+        code = _lib().qg_x_symbols_cluster_launch(
+            *args, n2.bit_length() - 1, *layout_args, wm, stream)
     _build.check(code, f"x_symbols_cluster (K5) {layout}")
     return out
 
@@ -1609,17 +1682,24 @@ def x_symbols_whole_columns(W: torch.Tensor, consts) -> torch.Tensor:
 
 def x_symbols_inverse(W: torch.Tensor, consts) -> torch.Tensor:
     """K5 on CUDA tensors (one launch), the plain version on CPU tensors.
-    Two hand-written kernels chosen by shape: the cluster kernel
-    (x_symbols_cluster, layout x_symbols_cluster_launched(M)) where
-    x_symbols_cluster_takes(M), counted also in
-    ``x_symbols_inverse.cluster_launches``; x_symbols_inverse_kernel
-    (x_symbols_whole_columns) on the rest (mixed extents M = 128 * n, and
-    M < 256 G)."""
+    Hand-written kernels chosen by shape, all counted in
+    ``x_symbols_inverse.launches``: where x_symbols_cluster_takes(M) (M =
+    128 * N2, ceil(N2 / 2) >= G of the launched layout
+    x_symbols_cluster_launched(M)) a cluster kernel (x_symbols_cluster):
+    x_symbols_cluster_kernel for a power of two, counted also in
+    ``x_symbols_inverse.cluster_launches``, x_symbols_cluster_mixed_kernel
+    for the other N2 <= 63, counted also in
+    ``x_symbols_inverse.mixed_launches``; x_symbols_inverse_kernel
+    (x_symbols_whole_columns) on the rest (smaller M)."""
     if W.device.type == "cpu":
         return x_symbols_inverse_plain(W, consts)
-    if x_symbols_cluster_takes(W.shape[1]):
+    M = W.shape[1]
+    if x_symbols_cluster_takes(M):
         out = x_symbols_cluster(W, consts)
-        x_symbols_inverse.cluster_launches += 1
+        if _mixed(M):
+            x_symbols_inverse.mixed_launches += 1
+        else:
+            x_symbols_inverse.cluster_launches += 1
     else:
         out = x_symbols_whole_columns(W, consts)
     x_symbols_inverse.launches += 1
@@ -1628,6 +1708,7 @@ def x_symbols_inverse(W: torch.Tensor, consts) -> torch.Tensor:
 
 x_symbols_inverse.launches = 0
 x_symbols_inverse.cluster_launches = 0
+x_symbols_inverse.mixed_launches = 0
 
 
 # K3's cluster kernel (csrc pair_x_cluster_kernel) on M = 128 * 2^a with
@@ -1658,11 +1739,12 @@ def pair_x_cluster_launched(M: int) -> tuple[int, int]:
 
 def pair_x_cluster_takes(M: int, layout: tuple | None = None) -> bool:
     """True iff K3's cluster kernel takes extent M at ``layout`` = (G, Cw)
-    (by default the launched one): where K5's cluster kernel takes it, M =
-    128 * 2^a with N2 = M / 128 >= 2 G (every block holds whole pairs of k2
-    rows), within one block's shared memory. The y extent does not matter:
-    the tile table takes any."""
-    return x_symbols_cluster_takes(M, layout or pair_x_cluster_launched(M))
+    (by default the launched one): where K5's power-of-two cluster kernel
+    takes it, M = 128 * 2^a with N2 = M / 128 >= 2 G (every block holds
+    whole pairs of k2 rows), within one block's shared memory. The y extent
+    does not matter: the tile table takes any."""
+    return _is_pow2(M // _N1) and x_symbols_cluster_takes(
+        M, layout or pair_x_cluster_launched(M))
 
 
 def pair_x_cluster_emulated(Zy: torch.Tensor, consts, G: int, Cw: int):
@@ -1707,7 +1789,7 @@ def pair_cluster_emulated(X: torch.Tensor, Xm: torch.Tensor, own, mir, gsl,
     wm = torch.as_tensor(np.exp(-2j * np.pi * np.arange(M) / M)).to(
         srcs[0].dtype)
     bra, brb = _bitrev(n2.bit_length() - 1), _bitrev(7)
-    k2_of, _ = _sym_rows(n2)
+    k2_of = torch.as_tensor(x_symbols_cluster_rows(n2, G)[0])
     T = own.shape[0]
     loads = torch.zeros((2, M, W), dtype=torch.int64)
     halves = []
