@@ -13,8 +13,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    row-streaming kernel, counted), K2 (y-DFT), K3 (mirror-pair
    x-kernel), K16 (the inversion in one launch), K17 (the step in one
    launch) and K15 (the y-fused chain's step) at (2, 2048, 2048); K3 also
-   at (2, 1024, 1024) and (2, 2048, 384) (its cluster kernel, counted) and
-   at (2, 2432, 2048) and (2, 384, 256) (pair_x_kernel); K3's cluster
+   at (2, 1024, 1024) and (2, 2048, 384) (its cluster kernel, counted), as
+   "K3 mixed" at (2, 2432, 2048), (2, 1664, 256), (2, 896, 256) and (2,
+   2304, 384) (its mixed cluster kernel, the mixed count checked) and at
+   (2, 768, 256) and (2, 384, 256) (pair_x_kernel); K3's cluster
    kernel in every layout (G, Cw) at 1024^2 and 2048^2, and in six at
    4096^2 and 8192^2 (K7's grids), with the clusters the card holds and ms
    in turns beside pair_x_kernel (at 4096 and 8192 pair_cols_kernel on
@@ -57,10 +59,12 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    beside x_symbols_inverse_kernel (the kernel it replaces, checked), one
    torch.fft.ifft along x (a yardstick: not K5's function) and a copy, in
    turns, both ways of timing (k5_mixed); its ptxas line in the build
-   phase; K3's whole-column kernel (pair_x_kernel, the mixed extents' K3)
-   at 1536^2 and 2432^2, checked, ms beside one torch.fft.fft and
-   torch.fft.ifft along x and a copy, in turns, both ways of timing
-   (k3_mixed);
+   phase; K3's mixed extents on (2, n, n), n = 1536, 1920 and 2432: the
+   mixed cluster kernel (pair_x_cluster_mixed_kernel) in every layout (G,
+   Cw) that fits, checked, with the clusters the card holds, ms beside
+   pair_x_kernel (the kernel it replaces, checked), one torch.fft.fft and
+   torch.fft.ifft along x (a yardstick) and a copy, in turns, both ways of
+   timing (k3_mixed); its ptxas line in the build phase;
    K2, K4 (x-DFT, both ways,
    and its cluster kernel's first half, stage A) and K5 (symbols + inverse
    x-DFT) at (2, 4096, 4096) and
@@ -109,7 +113,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    pod-8192 (50 steps: K1, K2, K4, K5, every K4 and K5 launch by its
    cluster kernel) and with step_chain="on" (20: K15, K4, K5, K2; the same);
    turbulence-2048's configuration at 1536^2 (100 steps: K1, K2, K3, every
-   K2 launch by the mixed-radix kernel, "K2 mixed" = K2, K3 by pair_x_kernel)
+   K2 launch by the mixed-radix kernel, "K2 mixed" = K2, every K3 launch by
+   its mixed cluster kernel, "K3 mixed" = K3)
    and at 3072^2 (50: K1, K2, K4, K5; the same, every K4 and K5 launch by
    its mixed cluster kernel, "K4 mixed" = K4, "K5 mixed" = K5).
    Then, with the counts set to 0 again each time, two
@@ -182,8 +187,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 
 The line before the last is {"kernels": [...]}, every kernel with its
 launches in phase 4 (K2 mixed a row of its own, at (2, 2432, 2432), its
-launches not in K2's; K4 mixed and K5 mixed likewise, at (2, 3072,
-3072)), its largest error, its ms, its plain version's ms
+launches not in K2's; K3 mixed likewise, at (2, 1536, 1536); K4 mixed and
+K5 mixed at (2, 3072, 3072)), its largest error, its ms, its plain version's ms
 (K10/K11: at the 8192 level, with every level of both solvers beside),
 its bound (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
 the larger) and its library call's ms; the last is {"ok": true, "device":
@@ -219,7 +224,7 @@ from tpu_qg_torch.ops.dft_kernels import (
     pair_cols_whole_columns, pair_x_cluster, pair_x_cluster_layout,
     pair_x_cluster_occupancy, pair_x_cluster_takes, pair_x_symbols,
     pair_x_symbols_plain, pair_x_whole_columns, paired_x_symbols,
-    paired_x_symbols_plain,
+    paired_x_symbols_plain, stream_pair_cluster_takes,
     stream_pair_symbols, stream_pair_symbols_plain, x_dft, x_dft_cluster,
     x_dft_cluster_layout, x_dft_cluster_occupancy, x_dft_cluster_takes,
     x_dft_plain, x_dft_stage_a, x_dft_stage_a_plain, x_dft_whole_columns,
@@ -273,7 +278,8 @@ MIXED_PATHS = ("turbulence-2048 at 1536^2", "turbulence-2048 at 3072^2")
 # K9 is K1's tile; K10/K11 carry tests/test_multigrid.py's kernel gate; an
 # MG path's psi the dryrun multigrid gate (commit 26d1ffc) against the
 # plain MG route.
-TOL = {"K1": 1e-6, "K2": 1e-5, "K2 mixed": 1e-5, "K3": 1e-4, "K4": 1e-5,
+TOL = {"K1": 1e-6, "K2": 1e-5, "K2 mixed": 1e-5, "K3": 1e-4,
+       "K3 mixed": 1e-4, "K4": 1e-5,
        "K4 mixed": 1e-5, "K5": 1e-4, "K5 mixed": 1e-4,
        "K7": 1e-4, "K8": 1e-6, "K9": 1e-6, "K10": 1e-6, "K11": 1e-6,
        "K12": 1e-6, "K13": 1e-4, "K14": 1e-4, "K15": 1e-6,
@@ -325,6 +331,7 @@ class KernelCount:
     x_symbols_inverse.cluster_launches: K5's cluster kernel;
     x_symbols_inverse.mixed_launches: its mixed-radix form;
     pair_x_symbols.cluster_launches: K3's;
+    pair_x_symbols.mixed_launches: its mixed-radix form;
     x_fwd_symbols_offset.cluster_launches and
     paired_x_symbols.cluster_launches: K13's and K14's,
     pair_cols_cluster_kernel; stream_pair_symbols.cluster_launches: K7's
@@ -358,6 +365,7 @@ COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
             "K5 cluster": KernelCount(x_symbols_inverse, "cluster_launches"),
             "K5 mixed": KernelCount(x_symbols_inverse, "mixed_launches"),
             "K3 cluster": KernelCount(pair_x_symbols, "cluster_launches"),
+            "K3 mixed": KernelCount(pair_x_symbols, "mixed_launches"),
             "K13 cluster": KernelCount(x_fwd_symbols_offset,
                                        "cluster_launches"),
             "K14 cluster": KernelCount(paired_x_symbols, "cluster_launches"),
@@ -389,6 +397,7 @@ TRACE_NAMES = (("K12", "step_rows_sharded_kernel"),
                ("K5", "x_symbols_inverse_kernel"),
                ("K4 mixed", "x_dft_cluster_mixed_kernel"),
                ("K4", "x_dft_cluster_kernel"), ("K4", "x_dft_kernel"),
+               ("K3 mixed", "pair_x_cluster_mixed_kernel"),
                ("K3", "pair_x_cluster_kernel"), ("K3", "pair_x_kernel"),
                ("K2", "y_dft_factored_kernel"),
                ("K2 mixed", "y_dft_mixed_kernel"),
@@ -530,13 +539,14 @@ def phase_build() -> None:
     info = _build.build_info()
     lines = info["ptxas"].splitlines()
     regs = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
-    # K4's, K5's, K3's and K13/K14's cluster kernels, K4's and K5's
+    # K4's, K5's, K3's and K13/K14's cluster kernels, K4's, K5's and K3's
     # mixed-radix cluster kernels and K2's factored kernel and its
     # mixed-radix form: each instance's registers, shared memory, spills.
     named = {"x_dft_cluster_kernel": {}, "x_dft_cluster_mixed_kernel": {},
              "x_symbols_cluster_kernel": {},
              "x_symbols_cluster_mixed_kernel": {},
-             "pair_x_cluster_kernel": {}, "pair_cols_cluster_kernel": {},
+             "pair_x_cluster_kernel": {}, "pair_x_cluster_mixed_kernel": {},
+             "pair_cols_cluster_kernel": {},
              "y_dft_factored_kernel": {}, "y_dft_mixed_kernel": {}}
     entry = None
     for ln in lines:
@@ -553,6 +563,7 @@ def phase_build() -> None:
          k5_cluster_ptxas=named["x_symbols_cluster_kernel"],
          k5_mixed_ptxas=named["x_symbols_cluster_mixed_kernel"],
          k3_cluster_ptxas=named["pair_x_cluster_kernel"],
+         k3_mixed_ptxas=named["pair_x_cluster_mixed_kernel"],
          k13_k14_cluster_ptxas=named["pair_cols_cluster_kernel"],
          k2_factored_ptxas=named["y_dft_factored_kernel"],
          k2_mixed_ptxas=named["y_dft_mixed_kernel"],
@@ -709,22 +720,31 @@ def check_yspec_kernel(errs, cfg, operands, step_cases, tag="") -> None:
 
 
 def check_k3(errs, cfg, x, case) -> None:
-    """K3 against its plain version on ``x``, with the cluster count rising
-    by 1 exactly where pair_x_symbols launches the cluster kernel."""
-    consts = inverter(cfg.replace(M=x.shape[1], P=x.shape[2]))._sym_consts
-    n = pair_x_symbols.cluster_launches
-    errs.record("K3", case, pair_x_symbols(x, consts),
-                pair_x_symbols_plain(x, consts))
+    """K3 against its plain version on ``x`` (as "K3 mixed" where the mixed
+    cluster kernel takes it), with the cluster count rising by 1 exactly
+    where pair_x_symbols launches the power-of-two cluster kernel and the
+    mixed count exactly where it launches the mixed one."""
+    M = x.shape[1]
+    consts = inverter(cfg.replace(M=M, P=x.shape[2]))._sym_consts
+    mixed = pair_x_cluster_takes(M) and dft_kernels._mixed(M)
+    n = (pair_x_symbols.cluster_launches, pair_x_symbols.mixed_launches)
+    errs.record("K3 mixed" if mixed else "K3", case,
+                pair_x_symbols(x, consts), pair_x_symbols_plain(x, consts))
     torch.cuda.synchronize()
-    n = pair_x_symbols.cluster_launches - n
-    if n != int(pair_x_cluster_takes(x.shape[1])):
-        raise AssertionError(f"K3 {case}: {n} cluster launches")
+    got = (pair_x_symbols.cluster_launches - n[0],
+           pair_x_symbols.mixed_launches - n[1])
+    if got != (int(pair_x_cluster_takes(M) and not mixed), int(mixed)):
+        raise AssertionError(f"K3 {case}: (cluster, mixed) launches {got}")
 
 
 # K3 beside the 2048^2 slices' field: the cluster kernel at 1024^2 and on a
-# P with strip 0's ragged tile and an odd strip count, pair_x_kernel at a
-# mixed extent (2432 = 128 * 19) and below M = 256 G.
-K3_SHAPES = ((1024, 1024), (2048, 384), (2432, 2048), (384, 256))
+# P with strip 0's ragged tile and an odd strip count; its mixed instance
+# at 2432 = 128 * 19 and 1664 = 128 * 13 (plans that start with a prime
+# pass), 896 = 128 * 7 (U = G = 4, the smallest extent it takes) and 2304
+# = 128 * 18 (plan (2, 3, 3)); pair_x_kernel at 768 = 128 * 6 (U = 3 < 4)
+# and below M = 256 G.
+K3_SHAPES = ((1024, 1024), (2048, 384), (2432, 2048), (1664, 256),
+             (896, 256), (2304, 384), (768, 256), (384, 256))
 
 
 def phase_kernels(errs, cfg, dev) -> None:
@@ -1055,20 +1075,24 @@ def time_k5_mixed(errs, dev, card, cfg, reps=20) -> dict:
     return out
 
 
-# K3's whole-column kernel (pair_x_kernel, K3 mixed) timed where it runs:
-# the 1536^2 path's grid and 2432^2, the largest grid of the pair-x route.
-K3_MIXED_GRIDS = (1536, 2432)
+# K3's mixed extents timed: the 1536^2 path's grid (N2 = 12, G = 4 only),
+# 1920^2 (N2 = 15, the least taken by G = 8) and 2432^2 (N2 = 19, a prime
+# pass; the largest grid of the pair-x route); every layout (G, Cw) that
+# fits at each, the launched one among them.
+K3_MIXED_GRIDS = (1536, 1920, 2432)
 
 
 def time_k3_mixed(errs, dev, card, cfg, reps=20) -> dict:
     """K3 on a mixed extent, (2, n, n) of K3_MIXED_GRIDS with ``cfg``'s
-    symbols at n^2: pair_x_kernel (its error against the plain version
-    recorded as K3's), ms a launch beside one torch.fft.fft and one
-    torch.fft.ifft along x of the same complex64 field (a yardstick only:
-    not K3's function) and a torch copy, in turns (in order, then in
+    symbols at n^2: its mixed cluster kernel (pair_x_cluster_mixed_kernel)
+    in every layout (G, Cw) that fits (its error against the plain version,
+    the clusters the card holds at once), ms a launch beside pair_x_kernel
+    (the kernel it replaces, its error recorded as K3's), one torch.fft.fft
+    and one torch.fft.ifft along x of the same complex64 field (a yardstick
+    only: not K3's function) and a torch copy, in turns (in order, then in
     reverse), host-launched (time_ms) and replayed from a CUDA graph
-    (graph_ms); the plain version host-launched, twice; the bound. Measures
-    only. Returns the entries by grid."""
+    (graph_ms); the plain version host-launched, twice; the bound. Returns
+    the entries by grid."""
     rng = np.random.default_rng(SEED + 16)
     out = {}
     for n in K3_MIXED_GRIDS:
@@ -1076,17 +1100,39 @@ def time_k3_mixed(errs, dev, card, cfg, reps=20) -> dict:
                             dtype=torch.float32, device=dev)
         c64 = torch.complex(x[0], x[1])
         consts = inverter(cfg.replace(M=n, P=n))._sym_consts
-        if pair_x_cluster_takes(n):
-            raise AssertionError(f"K3 at {n}^2 takes its cluster kernel")
+        launched = k5_layout_name(dft_kernels.pair_x_cluster_launched(n))
+        want = pair_x_symbols_plain(x, consts)
+        sweep, calls = {}, {}
+        for lay in ((g, c) for g in dft_kernels.PAIR_X_CLUSTER_SIZES
+                    for c in dft_kernels.PAIR_X_CLUSTER_WIDTHS):
+            if not pair_x_cluster_takes(n, lay):
+                continue
+            key = k5_layout_name(lay)
+            occ = pair_x_cluster_occupancy(n, lay, dev.index)
+            sweep[key] = dict(smem=pair_x_cluster_layout(n, *lay).smem,
+                              max_active_clusters=occ)
+            if occ == 0:                 # the card cannot schedule it
+                continue
+            err = rel_err(pair_x_cluster(x, consts, lay), want)[1]
+            sweep[key]["rel_err"] = err
+            if not err <= TOL["K3 mixed"]:
+                raise AssertionError(f"K3 mixed {key} at {n}^2: rel err "
+                                     f"{err} > {TOL['K3 mixed']}")
+            calls[(key, False)] = (
+                lambda lay=lay: pair_x_cluster(x, consts, lay))
         errs.record("K3", f"pair_x_kernel {n}x{n}",
-                    pair_x_whole_columns(x, consts),
-                    pair_x_symbols_plain(x, consts))
-        calls = {("pair_x_kernel", False):
-                 lambda: pair_x_whole_columns(x, consts),
-                 ("library fft + ifft along x", False):
-                 lambda: torch.fft.ifft(torch.fft.fft(c64, dim=0), dim=0),
-                 ("copy", False): lambda: x.clone()}
-        entry = timed_in_turns(calls, reps, {})
+                    pair_x_whole_columns(x, consts), want)
+        del want
+        calls[("pair_x_kernel", False)] = (
+            lambda: pair_x_whole_columns(x, consts))
+        calls[("library fft + ifft along x", False)] = (
+            lambda: torch.fft.ifft(torch.fft.fft(c64, dim=0), dim=0))
+        calls[("copy", False)] = lambda: x.clone()
+        entry = timed_in_turns(calls, reps, sweep)
+        entry["mixed"] = sweep[launched]
+        entry["layouts"] = sweep
+        entry["launched"] = launched
+        entry["plan"] = dft_kernels.y_dft_mixed_plan(n // 128)
         entry["plain_runs_ms"] = [time_ms(
             lambda: pair_x_symbols_plain(x, consts), reps) for _ in range(2)]
         entry["bound_ms"] = bound("K3", n, n)[0]
@@ -1906,7 +1952,7 @@ def phase_sharded_kernels(errs, turb, pod, dev) -> None:
         check_cols(errs, "K7", f"random y-spectrum {M}x{P}",
                    lambda: stream_pair_symbols(x, consts),
                    lambda: stream_pair_symbols_plain(x, consts),
-                   pair_x_cluster_takes(M))
+                   stream_pair_cluster_takes(M))
         del x
         free_memory()
     consts = inverter(pod)._sym_consts
@@ -2896,12 +2942,15 @@ def kernel_rows(errs, launches, ms_2048, ms_8192, extra, sharded) -> list:
     and K15's sharded form; ``extra`` adds fields to a kernel's entry."""
     rows = []
     # K2's row counts y_dft_factored_kernel's and y_dft_kernel's launches,
-    # K4's x_dft_cluster_kernel's and x_dft_kernel's, K5's
+    # K3's pair_x_cluster_kernel's and pair_x_kernel's, K4's
+    # x_dft_cluster_kernel's and x_dft_kernel's, K5's
     # x_symbols_cluster_kernel's and x_symbols_inverse_kernel's;
-    # y_dft_mixed_kernel's, x_dft_cluster_mixed_kernel's and
-    # x_symbols_cluster_mixed_kernel's (also in y_dft's, x_dft's and
-    # x_symbols_inverse's counts) have rows of their own.
+    # y_dft_mixed_kernel's, pair_x_cluster_mixed_kernel's,
+    # x_dft_cluster_mixed_kernel's and x_symbols_cluster_mixed_kernel's
+    # (also in y_dft's, pair_x_symbols's, x_dft's and x_symbols_inverse's
+    # counts) have rows of their own.
     launches = {p: dict(run, K2=run["K2"] - run["K2 mixed"],
+                        K3=run["K3"] - run["K3 mixed"],
                         K4=run["K4"] - run["K4 mixed"],
                         K5=run["K5"] - run["K5 mixed"])
                 for p, run in launches.items()}
@@ -3013,6 +3062,28 @@ def kernel_rows(errs, launches, ms_2048, ms_8192, extra, sharded) -> list:
         "yardstick_ifft_ms": at["library ifft along x"]["ms"],
         "x_symbols_inverse_kernel_ms": at["x_symbols_inverse_kernel"]["ms"],
         **m})
+    # K3 on the mixed extents: its mixed cluster kernel, timed at (2, 1536,
+    # 1536), the 1536^2 path's grid (time_k3_mixed). No library call
+    # computes K3's function; one torch.fft.fft and one torch.fft.ifft along
+    # x stand beside it as a yardstick.
+    m = extra["K3 mixed"]
+    at = m["by_grid"][1536]
+    bound_ms, bound_by, nbytes = bound("K3", 1536, 1536)
+    rows.append({
+        "name": "K3 mixed pair_x_symbols (pair_x_cluster_mixed_kernel)",
+        "route": "cuda", "source": "tpu_qg_torch/csrc/dft_kernels.cu",
+        "replaces": KERNELS["K3"][2],
+        "launches": sum(run["K3 mixed"] for run in launches.values()),
+        "launches_by_path": {p: run["K3 mixed"] for p, run in launches.items()
+                             if run["K3 mixed"]},
+        "max_abs_err": errs.by_kernel["K3 mixed"][0],
+        "rel_err": errs.by_kernel["K3 mixed"][1],
+        "ms": at["mixed"]["ms"], "graph_ms": at["mixed"]["graph_ms"],
+        "plain_ms": sum(at["plain_runs_ms"]) / 2,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+        "library_ms": None, "grid": [1536, 1536],
+        "yardstick_fft_ifft_ms": at["library fft + ifft along x"]["ms"],
+        "pair_x_kernel_ms": at["pair_x_kernel"]["ms"], **m})
     return rows
 
 
@@ -3079,11 +3150,11 @@ def main() -> None:
           "K2 factored": 2 * run_chunks(pod_chain, 20), "K4 cluster": 20,
           "K5 cluster": 20}, "chain"),
         # The mixed extents' paths: every K2 launch by the mixed-radix
-        # factored kernel, every K4 and K5 launch by its mixed cluster
-        # kernel; K3 by its whole-column kernel.
+        # factored kernel, every K3, K4 and K5 launch by its mixed cluster
+        # kernel.
         (MIXED_PATHS[0], mixed_cfgs[MIXED_PATHS[0]], 100,
-         {"K1": 100, "K1 rows": 100, "K2": 200, "K2 mixed": 200, "K3": 100},
-         "default"),
+         {"K1": 100, "K1 rows": 100, "K2": 200, "K2 mixed": 200, "K3": 100,
+          "K3 mixed": 100}, "default"),
         (MIXED_PATHS[1], mixed_cfgs[MIXED_PATHS[1]], 50,
          {"K1": 50, "K1 rows": 50, "K2": 100, "K2 mixed": 100, "K4": 50,
           "K4 mixed": 50, "K5": 50, "K5 mixed": 50}, "default"),
@@ -3186,15 +3257,24 @@ def main() -> None:
                     "x_symbols_inverse_kernel": "smaller M"},
         "ptxas": named_ptxas["x_symbols_cluster_mixed_kernel"],
         "by_grid": k5_mixed}
+    k3_kernels = {
+        "pair_x_cluster_kernel": "M = 128 * 2^a, M >= 256 G (layouts: {}, "
+        "else {})".format(dft_kernels.PAIR_X_CLUSTER_BY_M,
+                          dft_kernels.PAIR_X_CLUSTER),
+        "pair_x_cluster_mixed_kernel": "the other M = 128 n, n <= 63, "
+        "ceil(n / 2) >= G: 896 ... 2432 on the pair-x route (the K3 mixed "
+        "row; launched as above, else {} if it fits, else {})".format(
+            dft_kernels.PAIR_X_CLUSTER, dft_kernels.PAIR_X_CLUSTER_SMALL),
+        "pair_x_kernel": "384, 640, 768 and M < 256 G"}
     extra["K3"] = {
         "cluster_launches": sum(run["K3 cluster"]
                                 for run in launches.values()),
-        "kernels": {"pair_x_cluster_kernel": "M = 128 * 2^a, M >= 256 G "
-                    "(layouts: {}, else {})".format(
-                        dft_kernels.PAIR_X_CLUSTER_BY_M,
-                        dft_kernels.PAIR_X_CLUSTER),
-                    "pair_x_kernel": "mixed extents, M < 256 G"},
-        "sweep_2048": k3_sweep[2048], "pair_x_kernel_by_grid": k3_mixed}
+        "kernels": k3_kernels, "sweep_2048": k3_sweep[2048]}
+    extra["K3 mixed"] = {
+        "mixed_launches": sum(run["K3 mixed"] for run in launches.values()),
+        "kernels": k3_kernels,
+        "ptxas": named_ptxas["pair_x_cluster_mixed_kernel"],
+        "by_grid": k3_mixed}
     extra["K2"] = {
         "factored_launches": sum(run["K2 factored"]
                                  for run in launches.values()),
@@ -3239,7 +3319,7 @@ def main() -> None:
     extra["K7"] = {
         "cluster_launches": sum(run["K7 cluster"] for run in launches.values()),
         "kernels": {"pair_x_cluster_kernel": "K3's cluster kernel where "
-                    "pair_x_cluster_takes(M)",
+                    "stream_pair_cluster_takes(M) (M = 128 * 2^a)",
                     "pair_cols_kernel": "mixed extents, M < 256 G"},
         "whole_columns_ms": sharded_ms["K7"]["whole_columns_ms"],
         "sweep_8192": k3_sweep[8192]}

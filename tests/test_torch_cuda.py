@@ -8,7 +8,7 @@ Tolerances relative to max|plain|: K1 and K8 1e-6, K2 and K4 1e-5 (K2's
 factored kernel in every layout, K4's cluster kernel's first half, stage
 A, too), K3 and
 K5 1e-4 (the 1/lambda symbol amplifies low-k float32 rounding; K3's and
-K5's cluster kernels, K5's mixed one too, in every layout), a four-pass inversion on a smooth
+K5's cluster kernels, their mixed ones too, in every layout), a four-pass inversion on a smooth
 zeta no less accurate against float64 than twice the plain versions'; the
 one-launch kernels as the kernels they fuse: K16 1e-4, K17 1e-6 (zeta_new,
 carry) and 1e-4 (psi_new), K15 1e-6 (zeta_new, carry) and 1e-5 (zeta_ys);
@@ -35,7 +35,7 @@ from tpu_qg_torch.ops.dft_kernels import (
     mirror_companion, mono_invert, mono_invert_plain, pair_cols_cluster,
     pair_cols_cluster_takes, pair_cols_whole_columns, pair_x_cluster,
     pair_x_cluster_takes, pair_x_symbols, pair_x_symbols_plain,
-    paired_x_symbols, paired_x_symbols_plain,
+    paired_x_symbols, paired_x_symbols_plain, stream_pair_cluster_takes,
     stream_pair_symbols, stream_pair_symbols_plain, x_dft,
     x_dft_cluster_takes, x_dft_plain, x_dft_stage_a, x_dft_stage_a_plain,
     x_fwd_symbols_offset, x_fwd_symbols_offset_plain, x_symbols_cluster,
@@ -192,17 +192,43 @@ def test_pair_x_cluster_kernel(dev, M, P):
     assert pair_x_symbols.cluster_launches == n[1] + 1   # counts none
 
 
-# pair_x_kernel keeps the mixed extents (2432 = 128 * 19) and M < 256 G.
-@pytest.mark.parametrize("M,P", [(2432, 2048), (384, 256), (512, 512)])
+# K3's mixed cluster kernel (pair_x_cluster_mixed_kernel): the 1536^2
+# path's extent (128 * 12, plan (4, 3)) and 2432 = 128 * 19 (one prime
+# pass, the largest extent of the pair-x route) on an odd strip count, in
+# the launched layout and every other that fits.
+@pytest.mark.parametrize("M,P", [(1536, 256), (2432, 384)])
+def test_pair_x_mixed_cluster_kernel(dev, M, P):
+    x = _fields(M, P, dev, seed=M + P)[1]
+    consts = _consts(M, P)
+    want = pair_x_symbols_plain(x, consts)
+    n = (pair_x_symbols.launches, pair_x_symbols.cluster_launches,
+         pair_x_symbols.mixed_launches)
+    assert _rel(pair_x_symbols(x, consts), want) <= 1e-4
+    torch.cuda.synchronize()
+    assert (pair_x_symbols.launches, pair_x_symbols.cluster_launches,
+            pair_x_symbols.mixed_launches) == (n[0] + 1, n[1], n[2] + 1)
+    for layout in ((G, Cw) for G in dft_kernels.PAIR_X_CLUSTER_SIZES
+                   for Cw in dft_kernels.PAIR_X_CLUSTER_WIDTHS):
+        if (pair_x_cluster_takes(M, layout) and
+                dft_kernels.pair_x_cluster_occupancy(M, layout, 0)):
+            assert _rel(pair_x_cluster(x, consts, layout), want) <= 1e-4
+    torch.cuda.synchronize()
+    assert pair_x_symbols.mixed_launches == n[2] + 1   # counts none
+
+
+# pair_x_kernel keeps the mixed extents with ceil(n / 2) < 4 (768 = 128 *
+# 6) and M < 256 G.
+@pytest.mark.parametrize("M,P", [(768, 256), (384, 256), (512, 512)])
 def test_pair_x_kernel_keeps_the_other_extents(dev, M, P):
     x = _fields(M, P, dev, seed=M + P)[1]
     consts = _consts(M, P)
-    n = (pair_x_symbols.launches, pair_x_symbols.cluster_launches)
+    n = (pair_x_symbols.launches, pair_x_symbols.cluster_launches,
+         pair_x_symbols.mixed_launches)
     assert _rel(pair_x_symbols(x, consts),
                 pair_x_symbols_plain(x, consts)) <= 1e-4
     torch.cuda.synchronize()
-    assert (pair_x_symbols.launches,
-            pair_x_symbols.cluster_launches) == (n[0] + 1, n[1])
+    assert (pair_x_symbols.launches, pair_x_symbols.cluster_launches,
+            pair_x_symbols.mixed_launches) == (n[0] + 1, n[1], n[2])
 
 
 def test_pair_x_cluster_refuses_what_it_does_not_take(dev):
@@ -210,9 +236,12 @@ def test_pair_x_cluster_refuses_what_it_does_not_take(dev):
     consts = _consts(1024, 256)
     with pytest.raises(ValueError):                 # N2 = 8 < 2 G
         pair_x_cluster(x, consts, (8, 8))
-    with pytest.raises(ValueError):                 # a mixed extent
+    with pytest.raises(ValueError):                 # ceil(12 / 2) < G = 8
         pair_x_cluster(torch.zeros((2, 1536, 256), device=dev),
-                       _consts(1536, 256))
+                       _consts(1536, 256), (8, 8))
+    with pytest.raises(ValueError):                 # ceil(6 / 2) < 4
+        pair_x_cluster(torch.zeros((2, 768, 256), device=dev),
+                       _consts(768, 256))
     with pytest.raises(TypeError):
         pair_x_cluster(x.double(), consts)
 
@@ -896,7 +925,7 @@ def test_pair_cols_cluster_kernel(dev, kind, M, P, nx):
                                  (2048, 1024)])
 def test_pair_cols_kernel_keeps_the_other_extents(dev, M, P):
     routed = not pair_cols_cluster_takes(M, P // 4)
-    assert routed == (not pair_x_cluster_takes(M))
+    assert routed == (not stream_pair_cluster_takes(M))
     counters = (x_fwd_symbols_offset, paired_x_symbols, stream_pair_symbols)
     n = [f.cluster_launches for f in counters]
     for kind in ("offset", "paired"):

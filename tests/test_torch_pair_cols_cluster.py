@@ -36,8 +36,8 @@ from tpu_qg_torch.ops.dft_kernels import (
     pair_cols_cluster_launched, pair_cols_cluster_layout,
     pair_cols_cluster_takes, pair_x_cluster_launched, pair_x_cluster_takes,
     paired_cluster_tiles, paired_x_symbols, paired_x_symbols_plain,
-    stream_pair_symbols, stream_pair_symbols_plain, x_fwd_symbols_offset,
-    x_fwd_symbols_offset_plain)
+    stream_pair_cluster_takes, stream_pair_symbols, stream_pair_symbols_plain,
+    x_fwd_symbols_offset, x_fwd_symbols_offset_plain)
 from tpu_qg_torch.ops.step_kernel import packed_symbol_consts
 from tpu_qg_torch.parallel.paired import strip_pair_order
 
@@ -256,13 +256,18 @@ def test_the_layout_gate():
 
 
 def test_k7_takes_k3s_cluster_kernel_by_shape():
-    """K7 computes K3's function: where K3's cluster kernel takes M (the
-    powers of two M >= 256 G, 4096 and 8192 among them) stream_pair_symbols
-    launches it; mixed extents and small M keep pair_cols_kernel."""
+    """K7 computes K3's function: where K3's power-of-two cluster kernel
+    takes M (the powers of two M >= 256 G, 4096 and 8192 among them)
+    stream_pair_symbols launches it; small M and the mixed extents, which
+    K3's mixed cluster kernel takes but K7 does not, keep
+    pair_cols_kernel."""
     for M in (1024, 2048, 4096, 8192):
-        assert pair_x_cluster_takes(M)
-    for M in (256, 384, 2432, 6144):
+        assert pair_x_cluster_takes(M) and stream_pair_cluster_takes(M)
+    for M in (256, 384):
         assert not pair_x_cluster_takes(M)
+    for M in (256, 384, 2432, 6144):
+        assert not stream_pair_cluster_takes(M)
+    assert pair_x_cluster_takes(2432) and pair_x_cluster_takes(6144)
 
 
 def test_wrappers_take_the_plain_versions_on_cpu():

@@ -113,8 +113,10 @@ def test_emulated_float32_matches_pallas():
 
 def test_layouts_fit_shared_memory_and_the_table_is_taken():
     """Every layout the kernel takes fits one block's shared memory; the
-    launched layouts are taken; below M = 256 G, at mixed extents and past
-    the shared-memory limit the kernel is not taken."""
+    launched layouts are taken; the mixed extents 1536 and 2432 are taken
+    at their launched layouts (the mixed instance,
+    tests/test_torch_pair_x_mixed.py); below M = 256 G, at 384 (U < G)
+    and past the shared-memory limit the kernel is not taken."""
     for a in range(1, 7):
         M = 128 << a
         for G in PAIR_X_CLUSTER_SIZES:
@@ -126,7 +128,10 @@ def test_layouts_fit_shared_memory_and_the_table_is_taken():
         assert pair_x_cluster_launched(M) == layout
         assert pair_x_cluster_takes(M) and kernels_take(M, M)
     assert pair_x_cluster_launched(4096) == PAIR_X_CLUSTER
-    for M in (256, 512, 384, 1536, 2432):      # M < 256 G, mixed extents
+    for M in (1536, 2432):                     # mixed extents
+        assert pair_x_cluster_launched(M) == PAIR_X_CLUSTER_BY_M[M]
+        assert pair_x_cluster_takes(M)
+    for M in (256, 512, 384):                  # M < 256 G, U = 2 < G
         assert not pair_x_cluster_takes(M)
     assert not pair_x_cluster_takes(1024, (8, 8))        # N2 = 8 < 2 G
     assert not pair_x_cluster_takes(8192, (4, 16))       # 769 KB

@@ -23,10 +23,12 @@
 // x_symbols_cluster_kernel, K4's cluster inverse behind the symbol stage,
 // for M = 128 * 2^a, its mixed-radix form x_symbols_cluster_mixed_kernel
 // for the other M = 128 * n (n <= 63), both for ceil(n / 2) >= G, and
-// x_symbols_inverse_kernel for the rest. K3 has two:
+// x_symbols_inverse_kernel for the rest. K3 has three:
 // pair_x_cluster_kernel, K4's cluster forward half in front of K5's
-// cluster kernel, for M = 128 * 2^a, and pair_x_kernel for the rest. So
-// have K13 and K14: pair_cols_cluster_kernel, K3's cluster kernel on the
+// cluster kernel, for M = 128 * 2^a, its mixed-radix form
+// pair_x_cluster_mixed_kernel for the other M = 128 * n (n <= 63), both for
+// ceil(n / 2) >= G, and pair_x_kernel for the rest. K13 and K14 have two:
+// pair_cols_cluster_kernel, K3's cluster kernel on the
 // columns of a block, for M = 128 * 2^a and whole 128-column strips, and
 // pair_cols_kernel for the rest; K7 takes K3's pair_x_cluster_kernel for M
 // = 128 * 2^a and pair_cols_kernel for the rest.
@@ -119,9 +121,9 @@ y_dft_kernel(const float* __restrict__ in, float* __restrict__ out, int rows,
 // sub-transforms are joined into a second buffer in natural x order, the
 // symbol stage pairs natural positions there, and the split back into
 // sub-columns precedes the inverse passes; the wrapper halves C until
-// both buffers fit. Since the cluster kernel below took the power-of-two
-// extents M >= 256 G, this one runs the mixed extents M = 128 * n (n not a
-// power of two) and smaller M.
+// both buffers fit. Since the cluster kernels below took M = 128 * n
+// with ceil(n / 2) >= G (the power-of-two extents M >= 256 G and the mixed
+// ones), this one runs the smaller M.
 // ---------------------------------------------------------------------------
 
 // 512 threads of at most 128 registers: the 4-stage register passes fit.
@@ -1666,6 +1668,35 @@ __device__ __forceinline__ int sym_unit_row(int u, int n2) {
   return u == 0 ? 0 : 2 * u - (n2 & 1);
 }
 
+// The mixed cluster kernels' tables (x_symbols_tile's, pair_cluster_tile's),
+// built once a block: the prime pass's weights W_p^(ik) (wp), W_N2^k, k <
+// N2 (twa); k2 of each row of the ordering (krow); for DIT position p, k2 =
+// rho(p) (kpos) and (owner block << 16) | (its mirror-tile row << 8) | its
+// own-tile row (own); and, where kinv is given, the DIF position
+// rho^-1(k2) of each k2.
+__device__ __forceinline__ void sym_mixed_tables(
+    const float2* __restrict__ wm, int n2, int plan, int logg, float2* twa,
+    float2* wp, int* krow, int* kpos, int* own, int* kinv) {
+  const int M = n2 << 7, units = (n2 + 1) >> 1;
+  const int prime = y_mixed_prime(n2), half = (prime + 1) / 2;
+  for (int e = threadIdx.x; e < (half - 1) * half; e += kClusterThreads) {
+    const int i = e / half + 1, k = e - (i - 1) * half;
+    wp[e] = wm[(i * k % prime) * (M / prime)];
+  }
+  for (int k = threadIdx.x; k < n2; k += kClusterThreads) {
+    twa[k] = wm[k << 7];
+    krow[k] = sym_k2_any(k, n2);
+    const int k2 = plan_rho(plan, n2, k), i = sym_row_any(k2, n2);
+    const int u = (i + (n2 & 1)) >> 1;                // i's unit
+    const int b = (((u + 1) << logg) - 1) / units;    // the block that owns u
+    const int b0 = sym_unit_row((b * units) >> logg, n2);
+    const int b1 = sym_unit_row(((b + 1) * units) >> logg, n2);
+    kpos[k] = k2;
+    own[k] = (b << 16) | ((i - b0 + b1 - b0) << 8) | (i - b0);
+    if (kinv) kinv[k2] = k;
+  }
+}
+
 // Steps 2 and 3 of K5's mixed cluster kernel: sym_inverse_half's, on block
 // r's nr rows of the ordering (see above): stage B^-1 in place on the 2 nr
 // Cw columns of B (row stride bs: the own tile's rows, then the mirror
@@ -1777,21 +1808,7 @@ __device__ __forceinline__ void x_symbols_tile(
   int* own = kpos + n2;
   const int tile = blockIdx.x >> logg;
   if constexpr (kMixed) {
-    for (int e = threadIdx.x; e < (half - 1) * half; e += kClusterThreads) {
-      const int i = e / half + 1, k = e - (i - 1) * half;
-      wp[e] = wm[(i * k % prime) * (M / prime)];
-    }
-    for (int k = threadIdx.x; k < n2; k += kClusterThreads) {
-      twa[k] = wm[k << 7];
-      krow[k] = sym_k2_any(k, n2);
-      const int k2 = plan_rho(plan, n2, k), i = sym_row_any(k2, n2);
-      const int u = (i + (n2 & 1)) >> 1;                // i's unit
-      const int b = (((u + 1) << logg) - 1) / units;    // the block that owns u
-      const int b0 = sym_unit_row((b * units) >> logg, n2);
-      const int b1 = sym_unit_row(((b + 1) * units) >> logg, n2);
-      kpos[k] = k2;
-      own[k] = (b << 16) | ((i - b0 + b1 - b0) << 8) | (i - b0);
-    }
+    sym_mixed_tables(wm, n2, plan, logg, twa, wp, krow, kpos, own, nullptr);
   } else {
     for (int k = threadIdx.x; k < n2 / 2; k += kClusterThreads) twa[k] = wm[k << 7];
   }
@@ -1906,14 +1923,15 @@ x_symbols_cluster_mixed_kernel(const float* __restrict__ in,
 }
 
 // ---------------------------------------------------------------------------
-// K3 on power-of-two extents, M = 128 * 2^a (N2 = M / 128 >= 2 G): the
-// one-launch cluster kernel. It computes what pair_x_kernel computes, per y
-// slot a, W = fft_x(Zy[:, a]), V = A W + B conj(W(-k)), out[:, a] =
-// ifft_x(V) (natural x order, the y-spectrum still permuted), and so
-// replaces the same TPU function, tpu_qg/ops/pallas_fft.py
+// K3 on M = 128 * N2 with ceil(N2 / 2) >= G: the one-launch cluster
+// kernels, pair_x_cluster_kernel for N2 = 2^a and
+// pair_x_cluster_mixed_kernel for the other N2 <= 63 (one body,
+// pair_cluster_tile<kPairWhole, kMixed>). They compute what pair_x_kernel
+// computes, per y slot a, W = fft_x(Zy[:, a]), V = A W + B conj(W(-k)),
+// out[:, a] = ifft_x(V) (natural x order, the y-spectrum still permuted),
+// and so replace the same TPU function, tpu_qg/ops/pallas_fft.py
 // PlanarFFT2.pair_x_symbols (:1270; builder _build_pair_x_kernel, :498);
-// pair_x_kernel keeps the mixed extents M = 128 * n (n not a power of two)
-// and M < 256 G.
+// pair_x_kernel keeps the smaller M (384, 640, 768; 256 and 512).
 //
 // Bound: device-memory bandwidth, one read and one write of the field (2 x
 // 33.5 MB at 2048^2: 0.020 ms at 3.35 TB/s). pair_x_kernel holds whole
@@ -1951,6 +1969,24 @@ x_symbols_cluster_mixed_kernel(const float* __restrict__ in,
 // (tried: faster at (8, 8), slower at (4, 8) and (8, 16)), was in no layout
 // faster than (8, 16) with one tile at M = 2048 (PERF.md). The grid is G
 // blocks a tile of the table.
+//
+// The mixed instance (N2 = 2^c m, m odd > 1; the 1536^2 path's N2 = 12) is
+// K4 mixed's forward half in front of K5 mixed's symbol stage and inverse
+// half. Stage A is K4 mixed's, the DIF sweep over the plan
+// dft_kernels.y_dft_mixed_plan(N2) (mixed_fft_at; a plan that starts with a
+// prime pass, which reads only shared memory, loads A first), after which A
+// row p holds k2 = rho(p). Block r owns K5 mixed's rows: those of its units
+// of the ordering sym_k2_any, [floor(r U / G), floor((r+1) U / G)), U =
+// ceil(N2 / 2), nr rows; stage B pulls, for row i with k2 = sym_k2_any(i),
+// the A row p = rho^-1(k2) of every peer (an N2-entry map built once a
+// block beside x_symbols_tile's three), times W_M^(n1 k2), and runs the
+// 128-point DIF over its nr Cw columns (NCols) into B at K5 mixed's row
+// stride 2 L Cw (L = 2 ceil(U / G)), the own tile at column 0 and the
+// mirror tile at column nr Cw, k1 at row bitrev7(k1): where K5 mixed's step
+// 1 writes, so its symbol stage (here in place, items split by div_magic)
+// and steps 2 and 3 (sym_inverse_mixed) run unchanged. The barriers are the
+// power-of-two instance's. Shared memory: K5 mixed's and the N2-entry map,
+// 91.0 KB at M = 1536, (G, Cw) = (4, 8) (dft_kernels.pair_x_cluster_layout).
 // ---------------------------------------------------------------------------
 // The three forms of the mirror-pair cluster tile (pair_cluster_tile):
 //   kPairWhole      K3: the whole (2, M, P) field; a tile's slots are the
@@ -1964,30 +2000,58 @@ x_symbols_cluster_mixed_kernel(const float* __restrict__ in,
 //                   own tile inverted and stored.
 enum PairForm { kPairWhole, kPairBlock, kPairCompanion };
 
-template <int kForm>
+template <int kForm, bool kMixed = false>
 __device__ __forceinline__ void pair_cluster_tile(
     const float* __restrict__ in, const float* __restrict__ inm,
     float* __restrict__ out, const int* __restrict__ own_slots,
     const int* __restrict__ mirror_slots, const int* __restrict__ global_slots,
     int W, int P, int logn2, int logg, int logcw, int n1y, const SymConsts& c,
-    const float2* __restrict__ wm, float* smem) {
+    const float2* __restrict__ wm, float* smem, int n2m = 0, int plan = 0) {
   namespace cg = cooperative_groups;
+  static_assert(!kMixed || kForm == kPairWhole, "the mixed instance is K3's");
   constexpr bool kBlock = kForm != kPairWhole;
   constexpr bool kCompanion = kForm == kPairCompanion;
   const int r = static_cast<int>(cg::this_cluster().block_rank());
-  const int n2 = 1 << logn2, cw = 1 << logcw, M = n2 << 7;
-  const int logl1 = 7 - logg, logl2 = logn2 - logg;
+  const int n2 = kMixed ? n2m : 1 << logn2, cw = 1 << logcw, M = n2 << 7;
+  const int logl1 = 7 - logg, logl2 = kMixed ? 0 : logn2 - logg;
   const int logtb = logl2 + logcw, lognb = logtb + 1;    // B: both tiles
   const int logna = logl1 + logcw;                       // A: one tile
-  float2* B = reinterpret_cast<float2*>(smem);      // 128 rows of 2^lognb
-  float2* A = B + (128 << lognb);                   // n2 rows of 2^logna
-  float2* twa = A + (n2 << logna);                  // W_N2^k, k < n2 / 2
-  float2* twb = twa + n2 / 2;                       // W_128^k, k < 64
-  int* slot = reinterpret_cast<int*>(twb + 64);     // own cw, then mirror cw
+  // Mixed: block r's rows [r2, r2 + nr) of the ordering, those of its
+  // units [floor(r U / G), floor((r+1) U / G)), and B's row stride bs = 2 L
+  // Cw, L = 2 ceil(U / G), as in x_symbols_tile.
+  const int units = (n2 + 1) >> 1;
+  const int r2m = kMixed ? sym_unit_row((r * units) >> logg, n2) : 0;
+  const int nr = kMixed ? sym_unit_row(((r + 1) * units) >> logg, n2) - r2m
+                        : 1 << logl2;
+  const int bs =
+      kMixed ? ((units + (1 << logg) - 1) >> logg) << (logcw + 2) : 1 << lognb;
+  float2* B = reinterpret_cast<float2*>(smem);      // 128 rows of bs
+  float2* A = B + (kMixed ? 128 * bs : 128 << lognb);   // n2 rows of 2^logna
+  // W_N2^k, k < N2 / 2 (mixed: k < N2); W_128^k, k < 64.
+  float2* twa = A + (n2 << logna);
+  float2* twb = twa + (kMixed ? n2 : n2 / 2);
+  // Mixed: the prime pass's weights W_p^(ik), i = 1 .. (p - 1) / 2, k = 0
+  // .. (p - 1) / 2.
+  const int prime = kMixed ? y_mixed_prime(n2) : 0, half = (prime + 1) / 2;
+  float2* wp = twb + 64;
+  int* slot = reinterpret_cast<int*>(wp + (half - 1) * half);   // own cw, then mirror cw
   int* gsl = kBlock ? slot + 2 * cw : slot;         // own columns' y slots
+  // Mixed: x_symbols_tile's three maps (k2 of each row of the ordering; k2
+  // = rho(p) of DIT position p; p -> (owner block << 16) | (its mirror-tile
+  // row << 8) | its own-tile row) and the forward pull's: the DIF position
+  // p = rho^-1(k2) at which a peer's A holds k2.
+  int* krow = slot + 2 * cw;
+  int* kpos = krow + n2;
+  int* owner = kpos + n2;
+  int* kinv = owner + n2;
   const int tile = blockIdx.x >> logg;
-  for (int k = threadIdx.x; k < n2 / 2; k += kClusterThreads) twa[k] = wm[k << 7];
-  for (int k = threadIdx.x; k < 64; k += kClusterThreads) twb[k] = wm[k << logn2];
+  if constexpr (kMixed) {
+    sym_mixed_tables(wm, n2, plan, logg, twa, wp, krow, kpos, owner, kinv);
+  } else {
+    for (int k = threadIdx.x; k < n2 / 2; k += kClusterThreads) twa[k] = wm[k << 7];
+  }
+  for (int k = threadIdx.x; k < 64; k += kClusterThreads)
+    twb[k] = wm[kMixed ? k * n2 : k << logn2];
   for (int k = threadIdx.x; k < 2 * cw; k += kClusterThreads)
     slot[k] = (k < cw ? own_slots : mirror_slots)[(tile << logcw) + (k & (cw - 1))];
   if constexpr (kBlock) {
@@ -1997,7 +2061,7 @@ __device__ __forceinline__ void pair_cluster_tile(
   __syncthreads();
   const size_t plane = (size_t)M * W;
   const int n2y = P / n1y;
-  const int r1 = r << logl1, r2 = r << logl2;
+  const int r1 = r << logl1, r2 = kMixed ? r2m : r << logl2;
 
   // 1 and 2, tile g (0 own, 1 mirror) in turn: column a of A is n1 = r1 +
   // (a >> logcw), column (a mod cw) of the tile; column b of tile g's half
@@ -2006,64 +2070,107 @@ __device__ __forceinline__ void pair_cluster_tile(
     // A is free again once every peer has pulled the own tile.
     if (g == 1) asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
     const float* src = kCompanion && g == 1 ? inm : in;
-    il_fft<false>(A, logna, 1 << logna, logn2, twa,
-        [=](int row, int a) {
-          const int col = a & (cw - 1), s = slot[(g << logcw) + col];
-          if (s < 0 || (!kCompanion && g == 1 && s == slot[col]))
-            return make_float2(0.f, 0.f);
-          const size_t off = (size_t)((row << 7) + r1 + (a >> logcw)) * W + s;
-          return make_float2(__ldg(src + off), __ldg(src + off + plane));
-        },
-        [=](int row, int a, float2 v) { A[(row << logna) + a] = v; }, [] {});
-    cg::this_cluster().sync();
-    float2* Bg = B + (g << logtb);
-    il_fft<false>(Bg, logtb, 1 << lognb, 7, twb,
-        [=](int n1, int b) {
-          const int k2 = sym_k2(r2 + (b >> logcw), n2);
-          const float2 v = cg::this_cluster().map_shared_rank(
-              static_cast<const float2*>(A), n1 >> logl1)[
-                  (bitrev(k2, logn2) << logna) +
-                  ((n1 & ((1 << logl1) - 1)) << logcw) + (b & (cw - 1))];
-          return cmul(v, __ldg(wm + n1 * k2), false);
-        },
-        [=](int pp, int b, float2 v) { Bg[(pp << lognb) + b] = v; },
-        [=] {
-          if (g == 0) asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
-        });
+    auto ld_a = [=](int row, int a) {
+      const int col = a & (cw - 1), s = slot[(g << logcw) + col];
+      if (s < 0 || (!kCompanion && g == 1 && s == slot[col]))
+        return make_float2(0.f, 0.f);
+      const size_t off = (size_t)((row << 7) + r1 + (a >> logcw)) * W + s;
+      return make_float2(__ldg(src + off), __ldg(src + off + plane));
+    };
+    auto wr_a = [=](int row, int a, float2 v) { A[(row << logna) + a] = v; };
+    auto arrive_own = [=] {
+      if (g == 0) asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+    };
+    if constexpr (kMixed) {
+      // Stage A over the plan, row p then holding k2 = rho(p); a plan that
+      // starts with a prime pass (which reads only shared memory) first
+      // finds the rows in A.
+      if (!reg_radix(plan_radix(plan, 0))) {
+        fill_rows(A, n2 << logna, logna, ld_a);
+        __syncthreads();
+      }
+      mixed_fft_at<kClusterThreads, false>(
+          logna, n2, plan, twa, wp, ld_a, wr_a,
+          [=](int row, int a) { return A + (row << logna) + a; }, [] {});
+      cg::this_cluster().sync();
+      float2* Bg = B + (g ? nr << logcw : 0);   // the mirror tile at nr Cw
+      // Stage B over the block's nr Cw columns: row n1 <- block n1 / L1's A
+      // at row rho^-1(k2), k2 that of row i, times W_M^(n1 k2).
+      il_fft<false>(Bg, NCols{nr << logcw}, bs, 7, twb,
+          [=](int n1, int b) {
+            const int k2 = krow[r2 + (b >> logcw)];
+            const float2 v = cg::this_cluster().map_shared_rank(
+                static_cast<const float2*>(A), n1 >> logl1)[
+                    (kinv[k2] << logna) +
+                    ((n1 & ((1 << logl1) - 1)) << logcw) + (b & (cw - 1))];
+            return cmul(v, __ldg(wm + n1 * k2), false);
+          },
+          [=](int pp, int b, float2 v) { Bg[pp * bs + b] = v; }, arrive_own);
+    } else {
+      il_fft<false>(A, logna, 1 << logna, logn2, twa, ld_a, wr_a, [] {});
+      cg::this_cluster().sync();
+      float2* Bg = B + (g << logtb);
+      il_fft<false>(Bg, logtb, 1 << lognb, 7, twb,
+          [=](int n1, int b) {
+            const int k2 = sym_k2(r2 + (b >> logcw), n2);
+            const float2 v = cg::this_cluster().map_shared_rank(
+                static_cast<const float2*>(A), n1 >> logl1)[
+                    (bitrev(k2, logn2) << logna) +
+                    ((n1 & ((1 << logl1) - 1)) << logcw) + (b & (cw - 1))];
+            return cmul(v, __ldg(wm + n1 * k2), false);
+          },
+          [=](int pp, int b, float2 v) { Bg[(pp << lognb) + b] = v; },
+          arrive_own);
+    }
   }
   __syncthreads();
 
   // 3. The symbol stage in place: item e is column cc, row i = r2 + il of
-  // the ordering, k1 (at B row bitrev7(k1)); its partner row i' (k2' = (N2 -
-  // k2) mod N2) and k1' in the mirror tile, or in the own column for a
-  // self-mirror slot (or padding), whose lower row's item takes both. A
-  // thread's items share their column (cw divides kClusterThreads). The
-  // companion form keeps only V: its mirror tile is not inverted.
-  const int count = 128 << logtb;
+  // the ordering, k1 (at B row bitrev7(k1); mixed: e = (k1 nr + il) Cw + cc,
+  // split by div_magic as in x_symbols_tile); its partner row i' (k2' = (N2
+  // - k2) mod N2) and k1' in the mirror tile, or in the own column for a
+  // self-mirror slot (or padding), whose lower row's item takes both: the
+  // words K5's step 1 writes for the same spectrum. A thread's items share
+  // their column (cw divides kClusterThreads). The companion form keeps
+  // only V: its mirror tile is not inverted.
+  const int count = kMixed ? (nr << 7) << logcw : 128 << logtb;
   const int cc = threadIdx.x & (cw - 1), a = slot[cc], b = slot[cw + cc];
   const bool self = !kCompanion && a == b;
   const int fy = a >= 0 ? slot_freq(kBlock ? gsl[cc] : a, n1y, n2y) : 0;
   const float sy = sym_sin(fy, P);
-  const int moff = self ? 0 : 1 << logtb;
+  const int moff = self ? 0 : kMixed ? nr << logcw : 1 << logtb;
+  const int magic = kMixed ? div_magic(nr) : 0;
   for (int e = threadIdx.x; e < count; e += kClusterThreads) {
-    const int il = (e >> logcw) & ((1 << logl2) - 1);
-    const int i = r2 + il, ip = i < 2 ? i : i ^ 1;
-    const int k1 = e >> logtb, k2 = sym_k2(i, n2);
+    const int k1 = kMixed ? ((e >> logcw) * magic) >> 16 : e >> logtb;
+    const int il =
+        kMixed ? (e >> logcw) - k1 * nr : (e >> logcw) & ((1 << logl2) - 1);
+    const int i = r2 + il;
+    const int ip = kMixed ? sym_partner(i, n2) : i < 2 ? i : i ^ 1;
+    const int k2 = kMixed ? krow[i] : sym_k2(i, n2);
     const int k1p = k2 == 0 ? (128 - k1) & 127 : 127 - k1;
-    const int s = (k2 << 7) + k1, sp = (sym_k2(ip, n2) << 7) + k1p;
+    const int s = (k2 << 7) + k1;
+    const int sp = ((kMixed ? krow[ip] : sym_k2(ip, n2)) << 7) + k1p;
     if (self && s > sp) continue;
-    const int own = (bitrev(k1, 7) << lognb) + (il << logcw) + cc;
-    const int mir = (bitrev(k1p, 7) << lognb) + moff + ((ip - r2) << logcw) + cc;
+    const int own = (kMixed ? bitrev(k1, 7) * bs : bitrev(k1, 7) << lognb) +
+                    (il << logcw) + cc;
+    const int mir = (kMixed ? bitrev(k1p, 7) * bs : bitrev(k1p, 7) << lognb) +
+                    moff + ((ip - r2) << logcw) + cc;
     float2 v, vn;
-    sym_apply(k2 + (k1 << logn2), fy, sy, M, c, B[own], B[mir], &v, &vn);
+    sym_apply(k2 + (kMixed ? k1 * n2 : k1 << logn2), fy, sy, M, c, B[own],
+              B[mir], &v, &vn);
     B[own] = v;
     if constexpr (!kCompanion) B[mir] = vn;   // the same word when s = sp
   }
   __syncthreads();
 
   // 4.
-  sym_inverse_half<kCompanion>(B, A, twa, twb, slot, wm, out, W, logn2, logg,
-                               logcw, r);
+  if constexpr (kMixed) {
+    sym_inverse_mixed(B, A, twa, twb, wp, slot, kpos, owner, wm, out, W, n2,
+                      plan, logg, logcw, r, nr, bs);
+  } else {
+    sym_inverse_half<kCompanion>(B, A, twa, twb, slot, wm, out, W, logn2,
+                                 logg, logcw, r);
+  }
 }
 
 __global__ void __launch_bounds__(kClusterThreads, 2)
@@ -2076,6 +2183,19 @@ pair_x_cluster_kernel(const float* __restrict__ in, float* __restrict__ out,
   pair_cluster_tile<kPairWhole>(in, in, out, own_slots, mirror_slots,
                                 own_slots, P, P, logn2, logg, logcw, n1y, c,
                                 wm, smem);
+}
+
+__global__ void __launch_bounds__(kClusterThreads, 2)
+pair_x_cluster_mixed_kernel(const float* __restrict__ in,
+                            float* __restrict__ out,
+                            const int* __restrict__ own_slots,
+                            const int* __restrict__ mirror_slots, int P,
+                            int n2, int logg, int logcw, int n1y, SymConsts c,
+                            int plan, const float2* __restrict__ wm) {
+  extern __shared__ float smem[];
+  pair_cluster_tile<kPairWhole, true>(in, in, out, own_slots, mirror_slots,
+                                      own_slots, P, P, 0, logg, logcw, n1y, c,
+                                      wm, smem, n2, plan);
 }
 
 // ---------------------------------------------------------------------------
@@ -2726,6 +2846,69 @@ extern "C" int qg_pair_x_cluster_launch(const float* in, float* out,
   if (cudaError_t err = cudaLaunchKernelEx(
           &cfg, pair_x_cluster_kernel, in, out, own_slots, mirror_slots, P,
           logn2, logg, logcw, n1y, sym_consts(consts),
+          static_cast<const float2*>(wm)))
+    return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// K3's mixed cluster kernel's shared memory: K5 mixed's and the N2-entry
+// map k2 -> rho^-1(k2) of the forward pull (int).
+int pair_x_cluster_mixed_smem(int n2, int logg, int logcw) {
+  return x_symbols_cluster_mixed_smem(n2, logg, logcw) +
+         n2 * static_cast<int>(sizeof(int));
+}
+
+// K3's mixed cluster kernel's launch: K5 mixed's layouts (N2 not a power
+// of two, 3 <= N2 <= 63, G = 2^logg in {4, 8, 16}, U = ceil(N2 / 2) >= G).
+int pair_x_cluster_mixed_config(int n2, int logg, int logcw, int tiles,
+                                cudaStream_t stream, cudaLaunchConfig_t& cfg,
+                                cudaLaunchAttribute& attr) {
+  if (logg < 2 || logg > 4 || n2 < 3 || n2 > 63 || (n2 & (n2 - 1)) == 0 ||
+      (n2 + 1) / 2 < (1 << logg))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return fill_cluster_launch(
+      reinterpret_cast<const void*>(pair_x_cluster_mixed_kernel),
+      pair_x_cluster_mixed_smem(n2, logg, logcw), logg, tiles, stream, cfg,
+      attr);
+}
+
+}  // namespace
+
+// The most clusters of K3's mixed cluster kernel's layout (M = 128 n2) that
+// the card holds at once: 0 means the layout cannot run.
+extern "C" int qg_pair_x_cluster_mixed_occupancy(int n2, int logg, int logcw,
+                                                 int* max_clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (int err = pair_x_cluster_mixed_config(n2, logg, logcw, 1, nullptr, cfg,
+                                            attr))
+    return err;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      max_clusters,
+      reinterpret_cast<const void*>(pair_x_cluster_mixed_kernel), &cfg));
+}
+
+// K3's mixed cluster kernel on a planar (2, 128 n2, P) y-spectral field,
+// the tile tables and consts as qg_pair_x_cluster_launch's; plan: the
+// radices of stage A in DIF order, one byte each
+// (dft_kernels.y_dft_mixed_plan), whose product must be n2; wm: the
+// M-entry float2 table of W_M^j.
+extern "C" int qg_pair_x_cluster_mixed_launch(
+    const float* in, float* out, const int* own_slots, const int* mirror_slots,
+    int tiles, int P, int n2, int logg, int logcw, int n1y,
+    const float* consts, int plan, const void* wm, void* stream) {
+  if (!plan_fits(plan, n2)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (int err = pair_x_cluster_mixed_config(n2, logg, logcw, tiles,
+                                            static_cast<cudaStream_t>(stream),
+                                            cfg, attr))
+    return err;
+  if (cudaError_t err = cudaLaunchKernelEx(
+          &cfg, pair_x_cluster_mixed_kernel, in, out, own_slots, mirror_slots,
+          P, n2, logg, logcw, n1y, sym_consts(consts), plan,
           static_cast<const float2*>(wm)))
     return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

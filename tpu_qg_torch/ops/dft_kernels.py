@@ -440,6 +440,10 @@ def _lib():
                        [p] * 4 + [i] * 6 + [p, p, p])
         _build.declare(lib.qg_pair_x_cluster_occupancy,
                        [i, i, i, ctypes.POINTER(ctypes.c_int)])
+        _build.declare(lib.qg_pair_x_cluster_mixed_launch,
+                       [p] * 4 + [i] * 6 + [p, i, p, p])
+        _build.declare(lib.qg_pair_x_cluster_mixed_occupancy,
+                       [i, i, i, ctypes.POINTER(ctypes.c_int)])
         _build.declare(lib.qg_pair_cols_cluster_launch,
                        [p] * 6 + [i] * 8 + [p, p, p])
         _build.declare(lib.qg_pair_cols_cluster_occupancy,
@@ -1711,51 +1715,78 @@ x_symbols_inverse.cluster_launches = 0
 x_symbols_inverse.mixed_launches = 0
 
 
-# K3's cluster kernel (csrc pair_x_cluster_kernel) on M = 128 * 2^a with
-# N2 = M / 128 >= 2 G: K4's cluster forward half in front of K5's cluster
-# kernel, on K5's tile table (x_symbols_cluster_tiles), K5's k2 rows a block
-# (sym_k2) and K5's buffers, the spectrum kept in shared memory between
-# them. The layout pair_x_symbols (and K7, stream_pair_symbols, at 4096 and
-# 8192) launches, (G, Cw), is at each extent of PAIR_X_CLUSTER_BY_M the one
-# of chip_smoke.py's k3_sweep with the least device time (PERF.md), else
-# PAIR_X_CLUSTER.
+# K3's cluster kernels on M = 128 * N2 with U = ceil(N2 / 2) >= G (csrc
+# pair_x_cluster_kernel for N2 = 2^a, pair_x_cluster_mixed_kernel for the
+# other N2 <= 63): K4's cluster forward half (K4 mixed's for a mixed N2) in
+# front of K5's cluster kernel (K5 mixed's), on K5's tile table
+# (x_symbols_cluster_tiles), K5's k2 rows a block (x_symbols_cluster_rows)
+# and K5's buffers, the spectrum kept in shared memory between them. The
+# layout pair_x_symbols (and K7, stream_pair_symbols, at 4096 and 8192)
+# launches, (G, Cw), is at each extent of PAIR_X_CLUSTER_BY_M the one of
+# chip_smoke.py's k3_sweep (powers of two) or k3_mixed (mixed extents) with
+# the least device time (PERF.md); else PAIR_X_CLUSTER, or
+# PAIR_X_CLUSTER_SMALL at a mixed extent with U < 8 (G = 4 takes 896 ...
+# 1792, G = 8 from 1920 on).
 PAIR_X_CLUSTER_SIZES = X_SYMBOLS_CLUSTER_SIZES
 PAIR_X_CLUSTER_WIDTHS = X_SYMBOLS_CLUSTER_WIDTHS
 PAIR_X_CLUSTER = (8, 8)
-PAIR_X_CLUSTER_BY_M = {1024: (4, 16), 2048: (8, 16), 4096: (8, 8),
+PAIR_X_CLUSTER_SMALL = (4, 8)
+PAIR_X_CLUSTER_BY_M = {1024: (4, 16), 1536: (4, 8), 1920: (4, 8),
+                       2048: (8, 16), 2432: (4, 4), 4096: (8, 8),
                        8192: (16, 8)}
 
 
 def pair_x_cluster_layout(M: int, G: int, Cw: int) -> SymbolsClusterLayout:
     """K3's cluster kernel's shared memory: K5's (x_symbols_cluster_layout),
-    buffer B holding both tiles, buffer A one."""
-    return x_symbols_cluster_layout(M, G, Cw)
+    buffer B holding both tiles, buffer A one; a mixed N2 adds the
+    N2-entry int map of stage B's pull (pair_x_cluster_pull)."""
+    lay = x_symbols_cluster_layout(M, G, Cw)
+    return lay._replace(smem=lay.smem + 4 * lay.n2) if _mixed(M) else lay
 
 
 def pair_x_cluster_launched(M: int) -> tuple[int, int]:
     """The layout (G, Cw) pair_x_symbols launches at extent M."""
-    return PAIR_X_CLUSTER_BY_M.get(M, PAIR_X_CLUSTER)
+    if M in PAIR_X_CLUSTER_BY_M:
+        return PAIR_X_CLUSTER_BY_M[M]
+    if _mixed(M) and not pair_x_cluster_takes(M, PAIR_X_CLUSTER):
+        return PAIR_X_CLUSTER_SMALL
+    return PAIR_X_CLUSTER
 
 
 def pair_x_cluster_takes(M: int, layout: tuple | None = None) -> bool:
-    """True iff K3's cluster kernel takes extent M at ``layout`` = (G, Cw)
-    (by default the launched one): where K5's power-of-two cluster kernel
-    takes it, M = 128 * 2^a with N2 = M / 128 >= 2 G (every block holds
-    whole pairs of k2 rows), within one block's shared memory. The y extent
-    does not matter: the tile table takes any."""
-    return _is_pow2(M // _N1) and x_symbols_cluster_takes(
-        M, layout or pair_x_cluster_launched(M))
+    """True iff a K3 cluster kernel takes extent M at ``layout`` = (G, Cw)
+    (by default the launched one): where K5's cluster kernels take it
+    (x_symbols_cluster_takes: M = 128 * N2, N2 a power of two or 3 <= N2 <=
+    63, with U = ceil(N2 / 2) >= G; N2 >= 2 G for a power of two), within
+    one block's shared memory (pair_x_cluster_layout). So the mixed
+    extents from 896 = 128 * 7 on are taken, and 384, 640 and 768 (U < 4)
+    and the powers of two M < 256 G are not. The y extent does not matter:
+    the tile table takes any."""
+    G, Cw = layout or pair_x_cluster_launched(M)
+    return (x_symbols_cluster_takes(M, (G, Cw))
+            and pair_x_cluster_layout(M, G, Cw).smem <= SMEM_LIMIT)
+
+
+def pair_x_cluster_pull(n2: int) -> np.ndarray:
+    """The mixed kernel's N2-entry map k2 -> p of stage B's pull, by the
+    CUDA source's formula (csrc pair_cluster_tile's kinv, kinv[rho[p]] =
+    p): the row p of a peer's buffer A that holds k2 after stage A, rho =
+    y_dft_mixed_rho(y_dft_mixed_plan(N2)) (the bit reversal for a power of
+    two)."""
+    kinv = np.empty(n2, np.int64)
+    kinv[y_dft_mixed_rho(y_dft_mixed_plan(n2))] = np.arange(n2)
+    return kinv
 
 
 def pair_x_cluster_emulated(Zy: torch.Tensor, consts, G: int, Cw: int):
-    """What K3's cluster kernel does at (G, Cw), for all tiles and blocks at
+    """What a K3 cluster kernel does at (G, Cw), for all tiles and blocks at
     once, in plain torch (pair_cluster_emulated on the whole field with
     K5's tile table). Returns (out, loads, stores): pair_x_symbols_plain's
     result and how many times each (row, slot) of the input was loaded and
     of the output stored."""
     _, M, P = Zy.shape
     if not pair_x_cluster_takes(M, (G, Cw)):
-        raise ValueError(f"K3's cluster kernel does not take M = {M} at "
+        raise ValueError(f"K3's cluster kernels do not take M = {M} at "
                          f"G = {G}, Cw = {Cw}")
     own, mir = _cluster_tiles(P, Cw)
     out, loads, stores = pair_cluster_emulated(Zy, Zy, own, mir, own, P,
@@ -1771,28 +1802,41 @@ def pair_cluster_emulated(X: torch.Tensor, Xm: torch.Tensor, own, mir, gsl,
     padding) and ``gsl`` (each own column's global y slot): K4's cluster
     forward half on K5's rows (each block's loads of rows N1 n2 + n1 of its
     n1 into buffer A, a padding slot and, unless ``companion``, a
-    self-mirror slot's mirror column reading zeros; the N2-point DIF,
-    torch.fft then rows in bit-reversed order; the pull of its k2 =
-    sym_k2(i) rows from every block's A at DIF position bitrev(k2) times
-    W_M^(n1 k2); the 128-point DIF into buffer B, k1 at row bitrev7(k1)),
-    then K5's symbol stage in place on B and K5's steps 2 and 3, with the
-    CUDA source's index arithmetic. The mirror tile is read from Xm with
+    self-mirror slot's mirror column reading zeros; the N2-point DIF as the
+    passes of y_dft_mixed_plan(N2), _plan_passes_emulated, after which row
+    p holds k2 = rho[p]; the pull of the k2 of its rows of the ordering
+    (x_symbols_cluster_rows: its units' rows for a mixed N2) from every
+    block's A at row pair_x_cluster_pull(N2)[k2] times W_M^(n1 k2); the
+    128-point DIF into buffer B at K5's row stride 2 L2 Cw, k1 at row
+    bitrev7(k1), the own tile's rows in the block's first nr Cw columns and
+    the mirror tile's in the next nr Cw), then K5's symbol stage in place on
+    B and K5's steps 2 and 3, with the CUDA source's index arithmetic; a
+    power of two runs the same maps (radix 2 throughout, rho the bit
+    reversal, an even split). The mirror tile is read from Xm with
     ``companion`` (K13: only the own tile stored), else from X. Returns
     (out, loads, stores): the planar result, how many times each (row,
     column) of X (loads[0]) and of Xm (loads[1]) was loaded, and how many
     times each of the output was stored by an own tile (stores[0]) and by a
     mirror tile (stores[1])."""
     _, M, W = X.shape
-    n2, l1, l2 = M // _N1, _N1 // G, M // _N1 // G
+    n2, l1 = M // _N1, _N1 // G
+    l2 = x_symbols_cluster_layout(M, G, Cw).l2      # the most rows a block owns
     na = l1 * Cw
     srcs = [torch.complex(X[0], X[1]), torch.complex(Xm[0], Xm[1])]
     wm = torch.as_tensor(np.exp(-2j * np.pi * np.arange(M) / M)).to(
         srcs[0].dtype)
-    bra, brb = _bitrev(n2.bit_length() - 1), _bitrev(7)
-    k2_of = torch.as_tensor(x_symbols_cluster_rows(n2, G)[0])
+    brb = _bitrev(7)
+    k2_of, start = (torch.as_tensor(t) for t in x_symbols_cluster_rows(n2, G))
+    nr = start[1:] - start[:-1]                                  # (G,)
+    kinv = torch.as_tensor(pair_x_cluster_pull(n2))
+    # Column b of a block's tile half: row start[r] + b // Cw, if it owns it.
+    b = torch.arange(l2 * Cw)
+    valid = (b // Cw)[None, :] < nr[:, None]                     # (G, l2 Cw)
+    k2 = k2_of[torch.clamp(start[:-1, None] + b // Cw, max=n2 - 1)]
+    rr, bb = valid.nonzero(as_tuple=True)
     T = own.shape[0]
     loads = torch.zeros((2, M, W), dtype=torch.int64)
-    halves = []
+    fwd = torch.zeros((T, G, _N1, 2 * l2 * Cw), dtype=srcs[0].dtype)
     for g, slots in enumerate((own, mir)):
         src = 1 if companion and g == 1 else 0
         c = srcs[src]
@@ -1809,15 +1853,14 @@ def pair_cluster_emulated(X: torch.Tensor, Xm: torch.Tensor, own, mir, gsl,
                         torch.zeros((), dtype=c.dtype))              # (T, n2, G, na)
         _count(loads[src], ok[:, None, None, :], rows[None],
                s[:, None, None, :])
-        A = torch.fft.fft(A, dim=1)[:, bra]          # row p: k2 = bitrev(p)
-        # 2. Stage B: block r's B column il Cw + cc of this tile, row n1.
-        b = torch.arange(l2 * Cw)
-        k2 = k2_of[torch.arange(G)[:, None] * l2 + b // Cw]          # (G, nbt)
+        A = _plan_passes_emulated(A.reshape(T, n2, G * na), wm[::_N1],
+                                  False).reshape(T, n2, G, na)   # k2 = rho[p]
+        # 2. Stage B: block r's B column b of this tile, row n1.
         n1 = torch.arange(_N1)[:, None, None]                        # (128, 1, 1)
-        v = A[:, bra[k2], n1 // l1, (n1 % l1) * Cw + b % Cw] * wm[n1 * k2]
-        v = v.permute(0, 2, 1, 3)                                    # (T, G, 128, nbt)
-        halves.append(torch.fft.fft(v, dim=2)[:, :, brb])   # row p': bitrev7
-    fwd = torch.cat(halves, dim=3).reshape(T, G, -1)
+        v = A[:, kinv[k2], n1 // l1, (n1 % l1) * Cw + b % Cw] * wm[n1 * k2]
+        v = torch.fft.fft(v.permute(0, 2, 1, 3), dim=2)[:, :, brb]   # row p': bitrev7
+        fwd[:, rr, :, g * nr[rr] * Cw + bb] = v[:, rr, :, bb]
+    fwd = fwd.reshape(T, G, -1)
 
     # 3. The symbol stage in place: each item reads and writes its own two
     # words of B.
@@ -1834,42 +1877,50 @@ def pair_cluster_emulated(X: torch.Tensor, Xm: torch.Tensor, own, mir, gsl,
 @functools.lru_cache(maxsize=32)
 def pair_x_cluster_occupancy(M: int, layout: tuple, device: int) -> int:
     """The most clusters of K3's cluster layout = (G, Cw) at extent M that
-    card ``device`` holds at once (cudaOccupancyMaxActiveClusters); 0: the
-    layout cannot be scheduled."""
+    card ``device`` holds at once (cudaOccupancyMaxActiveClusters, the
+    power-of-two or the mixed instance); 0: the layout cannot be
+    scheduled."""
     G, Cw = layout
+    n2 = M // _N1
     count = ctypes.c_int(0)
     with torch.cuda.device(device):
-        code = _lib().qg_pair_x_cluster_occupancy(
-            (M // _N1).bit_length() - 1, G.bit_length() - 1,
-            Cw.bit_length() - 1, ctypes.byref(count))
+        fn = (_lib().qg_pair_x_cluster_mixed_occupancy if _mixed(M) else
+              _lib().qg_pair_x_cluster_occupancy)
+        code = fn(n2 if _mixed(M) else n2.bit_length() - 1,
+                  G.bit_length() - 1, Cw.bit_length() - 1,
+                  ctypes.byref(count))
     _build.check(code, f"pair_x cluster occupancy {layout} at M = {M}")
     return count.value
 
 
 def pair_x_cluster(Zy: torch.Tensor, consts,
                    layout: tuple | None = None) -> torch.Tensor:
-    """One launch of K3's cluster kernel (csrc pair_x_cluster_kernel) on a
-    CUDA (2, M, P) float32 y-spectral field, M = 128 * 2^a, with ``layout``
-    = (G, Cw), by default pair_x_cluster_launched(M): pair_x_symbols's
-    result. Raises on a shape or layout the kernel does not take, a layout
-    the card cannot schedule and a launch error. Counts nothing: the
-    counting wrapper is pair_x_symbols.
+    """One launch of a K3 cluster kernel on a CUDA (2, M, P) float32
+    y-spectral field, M = 128 * N2 (csrc pair_x_cluster_kernel for N2 =
+    2^a, pair_x_cluster_mixed_kernel, stages A and A^-1 over
+    y_dft_mixed_plan(N2), for the other N2 <= 63), with ``layout`` = (G,
+    Cw), by default pair_x_cluster_launched(M): pair_x_symbols's result.
+    Raises on a shape or layout the kernel does not take, a layout the card
+    cannot schedule and a launch error. Counts nothing: the counting
+    wrapper is pair_x_symbols.
 
     Replaces, as pair_x_kernel does, tpu_qg/ops/pallas_fft.py
     PlanarFFT2.pair_x_symbols (:1270). Bound: one read and one write of the
-    field (67 MB at 2048^2, 0.020 ms at 3.35 TB/s). Why a cluster:
-    pair_x_kernel holds whole columns of C = 4 slot pairs at M = 2048, so a
-    warp moves 16-byte runs a row, half a sector. Here the G blocks of a
-    cluster share an own tile of Cw slots and its mirror tile: K4's cluster
-    forward half into shared memory, K5's symbol stage there, and K5's
-    cluster inverse half (design in the source)."""
+    field (67 MB at 2048^2, 0.020 ms at 3.35 TB/s; 37.7 MB at 1536^2,
+    0.0113 ms). Why a cluster: pair_x_kernel holds whole columns of C slot
+    pairs (C = 4 at M = 2048), so a warp moves 16-byte runs a row, half a
+    sector. Here the G blocks of a cluster share an own tile of Cw slots
+    and its mirror tile: K4's cluster forward half into shared memory, K5's
+    symbol stage there, and K5's cluster inverse half (design in the
+    source)."""
     _, M, P = Zy.shape
     layout = tuple(layout or pair_x_cluster_launched(M))
     _cuda_field("pair_x_cluster", Zy, kernels_take, M, P)
     if not pair_x_cluster_takes(M, layout):
-        raise ValueError(f"pair_x_cluster: M = {M} must be 128 * 2^a with "
-                         f"M / 128 >= 2 G and the layout {layout} (G, Cw) "
-                         f"fit shared memory")
+        raise ValueError(f"pair_x_cluster: M = {M} must be 128 * N2 (N2 a "
+                         f"power of two or 3 <= N2 <= 63) with ceil(N2 / 2) "
+                         f">= G and the layout {layout} (G, Cw) fit shared "
+                         f"memory")
     vals = check_consts("pair_x_cluster", consts, M, P)
     G, Cw = layout
     device = Zy.device.index if Zy.device.index is not None else \
@@ -1879,29 +1930,42 @@ def pair_x_cluster(Zy: torch.Tensor, consts,
                            f"cluster of layout {layout} at M = {M}")
     own, mirror = _device_cluster_tiles(P, Cw, Zy.device)
     out = torch.empty_like(Zy)
-    code = _lib().qg_pair_x_cluster_launch(
-        Zy.data_ptr(), out.data_ptr(), own.data_ptr(), mirror.data_ptr(),
-        own.shape[0], P, (M // _N1).bit_length() - 1, G.bit_length() - 1,
-        Cw.bit_length() - 1, split_factor(P)[0], vals,
-        _twiddles(M, M, Zy.device).data_ptr(),
-        torch.cuda.current_stream(Zy.device).cuda_stream)
+    n2 = M // _N1
+    args = (Zy.data_ptr(), out.data_ptr(), own.data_ptr(), mirror.data_ptr(),
+            own.shape[0], P)
+    layout_args = (G.bit_length() - 1, Cw.bit_length() - 1,
+                   split_factor(P)[0], vals)
+    wm = _twiddles(M, M, Zy.device).data_ptr()
+    stream = torch.cuda.current_stream(Zy.device).cuda_stream
+    if _mixed(M):
+        code = _lib().qg_pair_x_cluster_mixed_launch(
+            *args, n2, *layout_args, _packed_plan(n2), wm, stream)
+    else:
+        code = _lib().qg_pair_x_cluster_launch(
+            *args, n2.bit_length() - 1, *layout_args, wm, stream)
     _build.check(code, f"pair_x_cluster (K3) {layout}")
     return out
 
 
 def pair_x_symbols(Zy: torch.Tensor, consts) -> torch.Tensor:
     """K3 on CUDA tensors (one launch), the plain version on CPU tensors.
-    Two hand-written kernels chosen by shape: the cluster kernel
-    (pair_x_cluster, layout pair_x_cluster_launched(M)) where
-    pair_x_cluster_takes(M), counted also in
-    ``pair_x_symbols.cluster_launches``; pair_x_kernel
-    (pair_x_whole_columns) on the rest (mixed extents M = 128 * n, and
-    M < 256 G)."""
+    Hand-written kernels chosen by shape, all counted in
+    ``pair_x_symbols.launches``: where pair_x_cluster_takes(M) (M = 128 *
+    N2, ceil(N2 / 2) >= G of the launched layout pair_x_cluster_launched(M))
+    a cluster kernel (pair_x_cluster): pair_x_cluster_kernel for a power of
+    two, counted also in ``pair_x_symbols.cluster_launches``,
+    pair_x_cluster_mixed_kernel for the other N2 <= 63, counted also in
+    ``pair_x_symbols.mixed_launches``; pair_x_kernel (pair_x_whole_columns)
+    on the rest (384, 640, 768 and M < 256 G)."""
     if Zy.device.type == "cpu":
         return pair_x_symbols_plain(Zy, consts)
-    if pair_x_cluster_takes(Zy.shape[1]):
+    M = Zy.shape[1]
+    if pair_x_cluster_takes(M):
         out = pair_x_cluster(Zy, consts)
-        pair_x_symbols.cluster_launches += 1
+        if _mixed(M):
+            pair_x_symbols.mixed_launches += 1
+        else:
+            pair_x_symbols.cluster_launches += 1
     else:
         out = pair_x_whole_columns(Zy, consts)
     pair_x_symbols.launches += 1
@@ -1910,6 +1974,7 @@ def pair_x_symbols(Zy: torch.Tensor, consts) -> torch.Tensor:
 
 pair_x_symbols.launches = 0
 pair_x_symbols.cluster_launches = 0
+pair_x_symbols.mixed_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -2105,7 +2170,8 @@ def pair_cols_cluster_takes(M: int, W: int,
     one block's shared memory. Cached: K13 and K14 ask twice a launch (see
     _cols_cluster_launch)."""
     G, Cw = layout or pair_cols_cluster_launched(M, W)
-    return (pair_x_cluster_takes(M, (G, Cw)) and W > 0 and W % STRIP == 0
+    return (_is_pow2(M // _N1) and pair_x_cluster_takes(M, (G, Cw))
+            and W > 0 and W % STRIP == 0
             and pair_cols_cluster_layout(M, G, Cw).smem <= SMEM_LIMIT)
 
 
@@ -2248,12 +2314,19 @@ x_fwd_symbols_offset.launches = 0
 x_fwd_symbols_offset.cluster_launches = 0
 
 
+def stream_pair_cluster_takes(M: int) -> bool:
+    """True iff K7 launches K3's power-of-two cluster kernel at extent M
+    (pair_x_cluster_takes(M), M = 128 * 2^a); the mixed extents keep
+    pair_cols_kernel."""
+    return _is_pow2(M // _N1) and pair_x_cluster_takes(M)
+
+
 def stream_pair_symbols(Zy: torch.Tensor, consts) -> torch.Tensor:
     """K7 on CUDA tensors (one launch), the plain version on CPU tensors.
     K7 computes K3's function on the whole field, so two hand-written
     kernels chosen by shape: K3's cluster kernel (pair_x_cluster, layout
     pair_x_cluster_launched(M), K3's canonical tiles: each column read and
-    written once) where pair_x_cluster_takes(M), counted also in
+    written once) where stream_pair_cluster_takes(M), counted also in
     ``stream_pair_symbols.cluster_launches`` (not in pair_x_symbols's
     counts); pair_cols_kernel on the "self" table (pair_cols_whole_columns,
     the mirror read from the same field) on the rest (mixed extents M = 128
@@ -2261,7 +2334,7 @@ def stream_pair_symbols(Zy: torch.Tensor, consts) -> torch.Tensor:
     PlanarFFT2.stream_pair_symbols (:1304)."""
     if Zy.device.type == "cpu":
         return stream_pair_symbols_plain(Zy, consts)
-    if pair_x_cluster_takes(Zy.shape[1]):
+    if stream_pair_cluster_takes(Zy.shape[1]):
         out = pair_x_cluster(Zy, consts)
         stream_pair_symbols.cluster_launches += 1
     else:
