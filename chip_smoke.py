@@ -95,8 +95,16 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    the real zeta of a grid-noise psi the inversions (K3; K16; K5; the
    four-pass K2 -> K4 -> K5 -> K2^-1) are held against float64. K10 (the
    multigrid smoother: restrict, residual and smooth-only forms) and K11
-   (prolongation + smoother) at (2, n, n), n = 2048 and 8192, with alpha =
-   (0, S_eig) and nu = 2; K9 (the tendency) at (2, 2048, 2048),
+   (prolongation + smoother) at every level of the pod-8192-mg solver
+   (8192^2 .. 64^2), turbulence-2048's (2048^2 .. 64^2) and its 1536^2
+   grid's (1536^2 .. 48^2), with the level's spacing, alpha = (0, S_eig)
+   and nu = 2: the row-streaming kernel (mg_rows_kernel) bitwise the tile
+   kernel (mg_smooth_kernel, mg_prolong_kernel) and within TOL of the plain
+   version, one line a solver; the row kernel's restrict form and K11 in
+   every layout (R, D, NT) at the 8192^2 .. 512^2 and 64^2 levels,
+   bitwise the tile kernel, with registers, spills and blocks an SM,
+   graph-replayed in turns beside the tile kernel and a copy of the same
+   bytes (mg_sweep); K9 (the tendency) at (2, 2048, 2048),
    (1, 2048, 2048) with the wind and (2, 8192, 8192). K18 (the stencil
    lab's step) in each of its six variants on the step cases at the lab's
    (2, 2048, 2048), and base, legacy and aligned bitwise K1.
@@ -120,7 +128,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    Then, with the counts set to 0 again each time, two
    multigrid paths: 20 warm-started MultigridModalInverter calls on the zeta
    one default step after the pod-8192 slice (pod-8192-mg: 2 cycles a call,
-   K10 = K11 = 120) and after the turbulence-2048 slice (4 cycles, 240),
+   its 5 levels of extent >= 512 kernel levels, K10 = K11 = 200) and after
+   the turbulence-2048 slice (4 cycles, 3 kernel levels, 240), every K10
+   and K11 launch by the row-streaming kernel ("K10 rows" = K10, "K11
+   rows" = K11),
    each against the plain MG route and a float64 spectral solve; and the
    tendency path (20 K9 calls on the turbulence-2048 state). The stencil
    lab's path through its own function (tpu_qg_torch.scripts.stencil_lab
@@ -171,9 +182,12 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    of the default route (both grids) and the fullstep route (2048^2); ms per
    step of the default and plain routes at 1536^2 and 3072^2, in turns. For
    each multigrid path: ms per MG call on the kernel and plain routes
-   beside the spectral inversion of the same zeta, K10/K11 per launch at
-   each kernel level and K9 beside their plain versions, host enqueue ms per
-   call, and (8192^2) the busy share over one traced MG call. The mesh: ms per step of the one-rank mesh against the
+   beside the spectral inversion of the same zeta, the kernel route's call
+   also replayed from a CUDA graph (its device time), K10/K11 per launch at
+   every level and K9 beside their plain versions, K10's restrict form and
+   K11 at every level graph-replayed in turns beside the tile kernels and a
+   copy of the same bytes, host enqueue ms per call, and (8192^2) the busy
+   share over one traced MG call. The mesh: ms per step of the one-rank mesh against the
    single-device route at 2048^2 and 8192^2, in turns; K12, K13, K14, K15's
    sharded form and K7 per launch beside their plain versions at the
    mesh slices' shapes (K12 beside its tile kernel; K13, K14 and K7 beside
@@ -234,11 +248,15 @@ from tpu_qg_torch.ops.dft_kernels import (
     x_symbols_inverse_plain, x_symbols_whole_columns, y_dft, y_dft_factored,
     y_dft_factored_layout, y_dft_factored_occupancy, y_dft_plain,
     y_dft_whole_row)
+from tpu_qg_torch.ops import mg_kernels
 from tpu_qg_torch.ops.mg_kernels import (mg_prolong_smooth,
-                                         mg_prolong_smooth_plain, mg_smooth,
-                                         mg_smooth_plain)
+                                         mg_prolong_smooth_plain,
+                                         mg_prolong_tile, mg_rows,
+                                         mg_rows_attributes, mg_rows_launched,
+                                         mg_rows_layouts, mg_smooth,
+                                         mg_smooth_plain, mg_smooth_tile)
 from tpu_qg_torch.ops._stencil_lab import lab_step, lab_step_plain
-from tpu_qg_torch.ops.multigrid import MultigridModalInverter
+from tpu_qg_torch.ops.multigrid import MultigridModalInverter, MultigridSolver
 from tpu_qg_torch.ops.spectral import (PackedModalInverter,
                                        PackedModalInverterKernels)
 from tpu_qg_torch.ops import step_kernel
@@ -337,8 +355,9 @@ class KernelCount:
     pair_cols_cluster_kernel; stream_pair_symbols.cluster_launches: K7's
     launches of K3's cluster kernel; y_dft.factored_launches: K2's factored
     kernel; y_dft.mixed_launches: its mixed-radix form; fused_step.rows_launches and fused_step_sharded.rows_launches:
-    K1's and K12's row-streaming kernel), as a counter with a ``launches``
-    field."""
+    K1's and K12's row-streaming kernel; mg_smooth.rows_launches and
+    mg_prolong_smooth.rows_launches: K10's and K11's, mg_rows_kernel), as a
+    counter with a ``launches`` field."""
 
     def __init__(self, wrapper, attr: str):
         self.wrapper, self.attr = wrapper, attr
@@ -374,7 +393,9 @@ COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
             "K2 factored": KernelCount(y_dft, "factored_launches"),
             "K2 mixed": KernelCount(y_dft, "mixed_launches"),
             "K1 rows": KernelCount(fused_step, "rows_launches"),
-            "K12 rows": KernelCount(fused_step_sharded, "rows_launches")}
+            "K12 rows": KernelCount(fused_step_sharded, "rows_launches"),
+            "K10 rows": KernelCount(mg_smooth, "rows_launches"),
+            "K11 rows": KernelCount(mg_prolong_smooth, "rows_launches")}
 # Kernel names in a profiler trace, the one-launch kernels, the
 # row-streaming K1 and K12, K8, K9, K12 and K18 before K1's tile kernel: a
 # mangled name of any kernel of step_kernel.cu holds the source file's name,
@@ -389,6 +410,7 @@ TRACE_NAMES = (("K12", "step_rows_sharded_kernel"),
                ("K15", "coop_yspec_kernel"), ("K12", "step_sharded_kernel"),
                ("K13/K14", "pair_cols_cluster_kernel"),
                ("K7/K13/K14", "pair_cols_kernel"),
+               ("K10/K11 rows", "mg_rows_kernel"),
                ("K11", "mg_prolong_kernel"),
                ("K10", "mg_smooth_kernel"), ("K9", "tendency_kernel"),
                ("K8", "pre_inversion_kernel"),
@@ -540,14 +562,17 @@ def phase_build() -> None:
     lines = info["ptxas"].splitlines()
     regs = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
     # K4's, K5's, K3's and K13/K14's cluster kernels, K4's, K5's and K3's
-    # mixed-radix cluster kernels and K2's factored kernel and its
-    # mixed-radix form: each instance's registers, shared memory, spills.
+    # mixed-radix cluster kernels, K2's factored kernel and its mixed-radix
+    # form, and K10/K11's row-streaming and tile kernels: each instance's
+    # registers, shared memory, spills.
     named = {"x_dft_cluster_kernel": {}, "x_dft_cluster_mixed_kernel": {},
              "x_symbols_cluster_kernel": {},
              "x_symbols_cluster_mixed_kernel": {},
              "pair_x_cluster_kernel": {}, "pair_x_cluster_mixed_kernel": {},
              "pair_cols_cluster_kernel": {},
-             "y_dft_factored_kernel": {}, "y_dft_mixed_kernel": {}}
+             "y_dft_factored_kernel": {}, "y_dft_mixed_kernel": {},
+             "mg_rows_kernel": {}, "mg_smooth_kernel": {},
+             "mg_prolong_kernel": {}}
     entry = None
     for ln in lines:
         if "Compiling entry function" in ln:
@@ -567,6 +592,9 @@ def phase_build() -> None:
          k13_k14_cluster_ptxas=named["pair_cols_cluster_kernel"],
          k2_factored_ptxas=named["y_dft_factored_kernel"],
          k2_mixed_ptxas=named["y_dft_mixed_kernel"],
+         mg_ptxas={k: named[k] for k in ("mg_rows_kernel",
+                                         "mg_smooth_kernel",
+                                         "mg_prolong_kernel")},
          step_ptxas=step_ptxas(lines))
     return named
 
@@ -603,14 +631,18 @@ class Errors:
     def __init__(self):
         self.by_kernel = {}
 
-    def record(self, name, case, got, want, tol=None, scale=0.0):
+    def record(self, name, case, got, want, tol=None, scale=0.0,
+               quiet=False):
         """``scale`` floors max|want| where the plain output is zero by
-        construction (K18's norot tendency)."""
+        construction (K18's norot tendency); ``quiet`` prints no line (the
+        caller prints a summary)."""
         tol = TOL[name] if tol is None else tol
         a = float((got - want).abs().max())
         r = a / max(float(want.abs().max()), scale)
-        emit("kernels", kernel=name, case=case, shape=list(got.shape),
-             max_abs_err=a, rel_err=r, tol=tol)
+        self.last_rel = r
+        if not quiet:
+            emit("kernels", kernel=name, case=case, shape=list(got.shape),
+                 max_abs_err=a, rel_err=r, tol=tol)
         if not r <= tol:
             raise AssertionError(f"{name} {case}: rel err {r} > {tol}")
         prev = self.by_kernel.get(name, (0.0, 0.0))
@@ -1786,31 +1818,74 @@ def mg_inputs(n: int, dev, seed: int):
                                  (1e-3, (2, n // 2, n // 2)))]
 
 
-MG_FORMS = (("K10", "restrict", True, True), ("K10", "residual", True, False),
-            ("K10", "smooth only", False, False))
+# The row-streaming kernel's forms, K10's three and K11's.
+MG_ROW_FORMS = (("K10", "restrict"), ("K10", "residual"), ("K10", "smooth"),
+                ("K11", "prolong"))
 
 
-def phase_mg_kernels(errs, turb, pod_mg, dev) -> None:
-    """K10 in its three forms and K11 at (2, n, n), n = 2048 and 8192, with
-    alpha = (0, S_eig) and nu = 2 on random inputs; K9 on the model's
-    initial state at (2, 2048, 2048), (1, 2048, 2048) with the wind, and
-    (2, 8192, 8192)."""
-    for cfg in (turb, pod_mg):
-        n, alphas = cfg.M, (0.0, cfg.S_eig)
-        u, f, ec = mg_inputs(n, dev, SEED + n)
-        for name, form, residual, restrict in MG_FORMS:
-            got = mg_smooth(u, f, cfg.dx, alphas, MG_NU, residual, 0.8,
-                            restrict)
-            want = mg_smooth_plain(u, f, cfg.dx, alphas, MG_NU, residual,
-                                   0.8, restrict)
-            errs.record(name, f"{n}^2 {form} u", got[0], want[0])
-            if residual:
-                errs.record(name, f"{n}^2 {form} r", got[1], want[1])
-        errs.record("K11", f"{n}^2", mg_prolong_smooth(
-            u, ec, f, cfg.dx, alphas, MG_NU), mg_prolong_smooth_plain(
-                u, ec, f, cfg.dx, alphas, MG_NU))
-        del u, f, ec
+def mg_levels(cfg) -> list:
+    """(m, p, h) of every level of cfg's MG solver (V(2, 2), cutoff 32)."""
+    return MultigridSolver(cfg.M, cfg.P, cfg.dx, (0.0, cfg.S_eig)).levels
+
+
+def mg_form_calls(form, u, f, ec, h, alphas, layout=None):
+    """(row kernel, tile kernel, plain version) of ``form`` at a level,
+    each returning (u, r | rc | None)."""
+    if form == "prolong":
+        return (lambda: mg_rows(form, u, f, ec, h, alphas, MG_NU, 0.8,
+                                layout),
+                lambda: (mg_prolong_tile(u, ec, f, h, alphas, MG_NU), None),
+                lambda: (mg_prolong_smooth_plain(u, ec, f, h, alphas, MG_NU),
+                         None))
+    res, rst = form != "smooth", form == "restrict"
+    return (lambda: mg_rows(form, u, f, None, h, alphas, MG_NU, 0.8, layout),
+            lambda: mg_smooth_tile(u, f, h, alphas, MG_NU, res, 0.8, rst),
+            lambda: mg_smooth_plain(u, f, h, alphas, MG_NU, res, 0.8, rst))
+
+
+def same_bits(a, b) -> bool:
+    return all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
+def phase_mg_kernels(errs, turb, pod_mg, dev, card) -> None:
+    """K10 in its three forms and K11 at every level of the pod-8192-mg
+    solver (8192^2 .. 64^2), of turbulence-2048's (2048^2 .. 64^2) and of
+    its 1536^2 grid's (1536^2 .. 48^2), with the level's spacing, alpha =
+    (0, S_eig) and nu = 2 on random inputs: the row-streaming kernel in its
+    launched layout bitwise the tile kernel, and against the plain version
+    under TOL; one line a solver. K9 on the model's initial state at
+    (2, 2048, 2048), (1, 2048, 2048) with the wind, and (2, 8192, 8192)."""
+    for name, cfg in (("pod-8192-mg", pod_mg), ("turbulence-2048", turb),
+                      ("turbulence-2048 at 1536^2",
+                       turb.replace(M=1536, P=1536))):
+        alphas = (0.0, cfg.S_eig)
+        worst = {}
+        for m, _, h in mg_levels(cfg):
+            u, f, ec = mg_inputs(m, dev, SEED + m)
+            for kernel, form in MG_ROW_FORMS:
+                rows, tile, plain = mg_form_calls(form, u, f, ec, h, alphas)
+                got, ref, want = rows(), tile(), plain()
+                if not same_bits(got, ref):
+                    raise AssertionError(f"{kernel} rows {form} at {name} "
+                                         f"level {m}^2: not bitwise the tile "
+                                         "kernel")
+                for part, g, w in zip(("u", "r"), got, want):
+                    if w is None:
+                        continue
+                    errs.record(kernel, f"{name} level {m}^2 {form} {part}",
+                                g, w, quiet=True)
+                    worst[kernel] = max(worst.get(kernel, 0.0),
+                                        errs.last_rel)
+                del got, ref, want
+            del u, f, ec
         free_memory()
+        emit("mg_kernels", card=card, solver=name, grid=[cfg.M, cfg.P],
+             levels=[lvl[0] for lvl in mg_levels(cfg)],
+             forms=[f for _, f in MG_ROW_FORMS],
+             layouts={m: mg_rows_launched(m) for m, _, _ in mg_levels(cfg)},
+             bitwise_tile="every form at every level",
+             max_rel_err_vs_plain=worst, tol={k: TOL[k] for k in worst})
     for case, cfg in (("two layers", turb),
                       ("one layer + wind",
                        turb.replace(n_layers=1, wind_tau0=0.1)),
@@ -1822,6 +1897,62 @@ def phase_mg_kernels(errs, turb, pod_mg, dev) -> None:
         del state
         free_memory()
     torch.cuda.synchronize()
+
+
+def mg_layout_name(layout) -> str:
+    return "R={} D={} NT={}".format(*layout)
+
+
+def phase_mg_sweep(dev, card, pod_mg, sizes=(8192, 4096, 2048, 1024, 512,
+                                             64),
+                   reps=(5, 10, 20, 40, 50, 50)) -> dict:
+    """The row-streaming kernel's restrict form (K10 on the V-cycle) and
+    K11 in every layout (R, D, NT) of mg_rows_layouts at the pod-8192-mg
+    solver's levels of ``sizes``: registers, spills, shared memory and
+    blocks an SM, outputs bitwise the tile kernel's, and ms a launch
+    replayed from a CUDA graph in turns (in order, then in reverse) beside
+    the tile kernel and a copy of the same bytes (3.25 (2, n, n) fields,
+    a read and a write). Returns the entries by level."""
+    levels = {m: h for m, _, h in mg_levels(pod_mg)}
+    alphas = (0.0, pod_mg.S_eig)
+    out = {}
+    for n, r in zip(sizes, reps):
+        u, f, ec = mg_inputs(n, dev, SEED + n + 2)
+        h = levels[n]
+        rows, calls = {}, {}
+        for kernel, form in (("K10", "restrict"), ("K11", "prolong")):
+            ref = mg_form_calls(form, u, f, ec, h, alphas)[1]()
+            for lay in mg_rows_layouts():
+                key = f"{kernel} {mg_layout_name(lay)}"
+                rows[key] = mg_rows_attributes(form, MG_NU, lay,
+                                               dev.index or 0)
+                fn = mg_form_calls(form, u, f, ec, h, alphas, lay)[0]
+                if not same_bits(fn(), ref):
+                    raise AssertionError(f"{key} at {n}^2: not bitwise the "
+                                         "tile kernel")
+                calls[key] = fn
+            calls[f"{kernel} tile"] = mg_form_calls(form, u, f, ec, h,
+                                                    alphas)[1]
+            del ref
+        src = torch.empty(int(3.25 * n * n), device=dev)
+        dst = torch.empty_like(src)
+        calls["copy"] = lambda: dst.copy_(src)
+        runs = {k: [] for k in calls}
+        for k in list(calls) + list(calls)[::-1]:
+            runs[k].append(graph_ms(calls[k], r))
+        for key, v in runs.items():
+            rows.setdefault(key, {}).update(graph_ms=sum(v) / 2,
+                                            graph_runs_ms=v)
+        least = {k: min((key for key in rows if key.startswith(f"{k} R=")),
+                        key=lambda key: rows[key]["graph_ms"])
+                 for k in ("K10", "K11")}
+        emit("mg_sweep", card=card, level=[2, n, n],
+             launched=mg_layout_name(mg_rows_launched(n)), least=least,
+             layouts=rows, bound_ms=bound("K10", n, n)[0])
+        out[n] = dict(least=least, layouts=rows)
+        del u, f, ec, src, dst, calls
+        free_memory()
+    return out
 
 
 def slabs(fields, r0: int, m: int, h: int = HALO_ROWS):
@@ -1981,13 +2112,18 @@ def mg_problem(cfg, state, dev):
     return nxt.zeta, state.psi
 
 
-def run_mg_path(name, cfg, dev, zeta, seed, cycles, calls) -> dict:
+def run_mg_path(name, cfg, dev, zeta, seed, cycles, calls,
+                kernel_levels) -> dict:
     """``calls`` warm-started MultigridModalInverter calls on the same zeta,
     each seeded with the previous call's psi (scripts/decomp_r4.py's mg@C
     job), with every launch count set to 0 just before and read just after;
     then the plain MG route (use_pallas="off") the same way, and a float64
-    spectral inversion of zeta. Gates: exact K10/K11 counts (3 kernel
-    levels a cycle); the kernel route's float64 error no more than twice
+    spectral inversion of zeta. Gates: ``kernel_levels`` kernel levels
+    (the port's gate, MultigridSolver._kernel_level: every level of extent
+    >= 512, 5 at 8192^2, 3 at 2048^2) and exact K10/K11 counts (one each a
+    kernel level a cycle), every launch by the row-streaming kernel ("K10
+    rows" = K10, "K11 rows" = K11); the kernel route's float64 error no
+    more than twice
     the plain route's or 1e-6 of max|psi|; and psi within TOL["mg_psi"] of
     the plain route, unless both routes sit at the float32 floor of this
     zeta: on a grid-noise state the low-k part of the residual's rounding
@@ -1996,7 +2132,7 @@ def run_mg_path(name, cfg, dev, zeta, seed, cycles, calls) -> dict:
     float32 routes differ by about that and only the float64 rule can tell
     them apart (as for K3 and the slices)."""
     kern = mg_inverter(cfg, cycles)
-    levels = sum(kern.solver._pallas_level(i)
+    levels = sum(kern.solver._kernel_level(i)
                  for i in range(len(kern.solver.levels)))
     for counter in COUNTERS.values():
         counter.launches = 0
@@ -2006,8 +2142,9 @@ def run_mg_path(name, cfg, dev, zeta, seed, cycles, calls) -> dict:
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in COUNTERS.items()}
     want = {k: 0 for k in COUNTERS}
-    want.update(K10=calls * cycles * 3, K11=calls * cycles * 3)
-    if levels != 3 or launches != want:
+    n = calls * cycles * kernel_levels
+    want.update({"K10": n, "K11": n, "K10 rows": n, "K11 rows": n})
+    if levels != kernel_levels or launches != want:
         raise AssertionError(f"{name}: {levels} kernel levels, launch "
                              f"counts {launches} != {want}")
     plain = mg_inverter(cfg, cycles, "off")
@@ -2029,7 +2166,8 @@ def run_mg_path(name, cfg, dev, zeta, seed, cycles, calls) -> dict:
     free_memory()
     floor = 0.5 * cfg.M * float(torch.finfo(torch.float32).eps) / 5.0
     emit("mg_path", path=name, grid=[cfg.M, cfg.P], calls=calls,
-         cycles_per_call=cycles, kernel_levels=levels, launches=launches,
+         cycles_per_call=cycles, kernel_levels=levels,
+         levels=[lvl[0] for lvl in kern.solver.levels], launches=launches,
          psi_rel_diff_vs_plain_mg=d_plain, tol=TOL["mg_psi"],
          float32_floor_estimate=floor,
          psi_rel_err_vs_float64={"kernel": e_kern, "plain": e_plain,
@@ -2877,11 +3015,15 @@ def time_mg(name, cfg, dev, card, zeta, seed, state, cycles, reps,
     """At cfg's grid: ms per MG inversion call (warm-started from ``seed``)
     on the kernel route and the plain route beside the spectral inversion
     of the same zeta (PackedModalInverterKernels, the model's route), in
-    turns; K10 (restrict form) and K11 per launch at each kernel level
-    beside their plain versions; K9 on ``state`` beside its plain version;
-    host enqueue ms per MG call; with ``trace``, the busy share over one
-    traced MG call. Returns the per-kernel times at the top level, with the
-    levels' times under "levels"."""
+    turns, host-launched; the kernel route's call replayed from a CUDA graph
+    (its device time: measurement only, the port captures no graph); host
+    enqueue ms per call; at every level K10 (restrict form) and K11 per
+    launch by their wrappers beside their plain versions, and replayed from
+    a CUDA graph in turns: the row-streaming kernel (launched layout), the
+    tile kernel and a copy of the same bytes (3.25 (2, m, m) fields); K9 on
+    ``state`` beside its plain version; with ``trace``, the busy share over
+    one traced MG call. Returns the per-kernel times at the top level, with
+    the levels' times under "levels"."""
     kern, plain = mg_inverter(cfg, cycles), mg_inverter(cfg, cycles, "off")
     spectral = inverter(cfg)
     calls = {"mg_kernels": (lambda: kern(zeta, psi_prev=seed), reps),
@@ -2892,6 +3034,7 @@ def time_mg(name, cfg, dev, card, zeta, seed, state, cycles, reps,
         fn, n = calls[k]
         runs[k].append(time_ms(fn, n, warmup=1))
     call_ms = {k: sum(v) / len(v) for k, v in runs.items()}
+    graph_runs = [graph_ms(calls["mg_kernels"][0], reps) for _ in range(2)]
     # Host time to enqueue one call into an idle queue (best of 3).
     host = []
     for _ in range(3):
@@ -2902,20 +3045,31 @@ def time_mg(name, cfg, dev, card, zeta, seed, state, cycles, reps,
     torch.cuda.synchronize()
     alphas = kern.solver.alphas
     levels = {}
-    for m, p, h in kern.solver.levels[:3]:
+    for m, p, h in kern.solver.levels:
         u, f, ec = mg_inputs(m, dev, SEED + m + 1)
+        k10 = mg_form_calls("restrict", u, f, ec, h, alphas)
+        k11 = mg_form_calls("prolong", u, f, ec, h, alphas)
         levels[m] = time_kernels({
             "K10": (lambda: mg_smooth(u, f, h, alphas, MG_NU, True, 0.8,
-                                      True),
-                    lambda: mg_smooth_plain(u, f, h, alphas, MG_NU, True,
-                                            0.8, True), 1),
+                                      True), k10[2], 1),
             "K11": (lambda: mg_prolong_smooth(u, ec, f, h, alphas, MG_NU),
-                    lambda: mg_prolong_smooth_plain(u, ec, f, h, alphas,
-                                                    MG_NU), 1)},
-            5 * reps, plain_reps)
+                    k11[2], 1)}, 5 * reps, plain_reps)
+        src = torch.empty(int(3.25 * m * p), device=dev)
+        dst = torch.empty_like(src)
+        turns = {"K10 rows": k10[0], "K10 tile": k10[1], "K11 rows": k11[0],
+                 "K11 tile": k11[1], "copy": lambda: dst.copy_(src)}
+        g = {k: [] for k in turns}
+        for k in list(turns) + list(turns)[::-1]:
+            g[k].append(graph_ms(turns[k], 5 * reps))
         for k in ("K10", "K11"):
-            levels[m][k]["bound_ms"] = bound(k, m, p)[0]
-        del u, f, ec
+            levels[m][k].update(
+                bound_ms=bound(k, m, p)[0],
+                graph_ms=sum(g[f"{k} rows"]) / 2,
+                tile_graph_ms=sum(g[f"{k} tile"]) / 2,
+                copy_graph_ms=sum(g["copy"]) / 2,
+                graph_runs_ms={t: g[f"{k} {t}"] for t in ("rows", "tile")},
+                layout=mg_layout_name(mg_rows_launched(m)))
+        del u, f, ec, src, dst, turns, k10, k11
     tend = time_kernels({"K9": (
         lambda: fused_tendency(cfg, state.zeta, state.psi),
         lambda: fused_tendency_plain(cfg, state.zeta, state.psi), 1)},
@@ -2924,13 +3078,17 @@ def time_mg(name, cfg, dev, card, zeta, seed, state, cycles, reps,
               if trace else None)
     emit("timing", card=card, path=name, grid=[cfg.M, cfg.P],
          cycles_per_call=cycles, call_ms=call_ms, call_ms_runs=runs,
+         mg_kernels_graph_ms=sum(graph_runs) / 2,
+         mg_kernels_graph_runs_ms=graph_runs,
          mg_kernels_vs_spectral=call_ms["mg_kernels"] / call_ms["spectral"],
          host_enqueue_ms_per_call=min(host), host_enqueue_runs_ms=host,
          kernel_ms_by_level=levels, kernel_ms=tend, trace_per_call=traced)
     free_memory()
     top = levels[cfg.M]
     return {"K9": tend["K9"], "K10": top["K10"], "K11": top["K11"],
-            "levels": levels, "call_ms": call_ms}
+            "levels": levels, "call_ms": call_ms,
+            "call_graph_ms": sum(graph_runs) / 2,
+            "host_enqueue_ms": min(host)}
 
 
 def kernel_rows(errs, launches, ms_2048, ms_8192, extra, sharded) -> list:
@@ -3088,10 +3246,14 @@ def kernel_rows(errs, launches, ms_2048, ms_8192, extra, sharded) -> list:
 
 
 def mg_level_fields(times: dict) -> dict:
-    """K10's and K11's per-level ms, plain ms and bound ms of one solver, by
-    level extent."""
+    """K10's and K11's per-level ms (by the wrapper, host-launched), plain
+    ms, bound ms, and graph-replayed ms of the row-streaming kernel, the
+    tile kernel and a copy of the same bytes, of one solver, by level
+    extent."""
+    keys = ("ms", "plain_ms", "bound_ms", "graph_ms", "tile_graph_ms",
+            "copy_graph_ms", "layout")
     return {name: {key: {m: t[name][key] for m, t in times["levels"].items()}
-                   for key in ("ms", "plain_ms", "bound_ms")}
+                   for key in keys}
             for name in ("K10", "K11")}
 
 
@@ -3123,7 +3285,8 @@ def main() -> None:
     k4_mixed = time_k4_mixed(errs, dev, card)
     k5_mixed = time_k5_mixed(errs, dev, card, turb)
     k3_mixed = time_k3_mixed(errs, dev, card, turb)
-    phase_mg_kernels(errs, turb, pod_mg, dev)
+    phase_mg_kernels(errs, turb, pod_mg, dev, card)
+    mg_sweep = phase_mg_sweep(dev, card, pod_mg)
     phase_sharded_kernels(errs, turb, pod, dev)
     phase_lab_kernels(errs, dev)
 
@@ -3174,10 +3337,10 @@ def main() -> None:
                 ("turbulence-2048 MG inversion", turb,
                  finals["turbulence-2048"], 4))
     problems = {}
-    for name, cfg, state, cycles in mg_paths:
+    for (name, cfg, state, cycles), kernel_levels in zip(mg_paths, (5, 3)):
         problems[name] = mg_problem(cfg, state, dev)
         launches[name] = run_mg_path(name, cfg, dev, *problems[name], cycles,
-                                     20)
+                                     20, kernel_levels)
     launches["turbulence-2048 tendency"] = run_tendency_path(
         turb, finals["turbulence-2048"], 20)
     free_memory()
@@ -3217,9 +3380,26 @@ def main() -> None:
     ms_2048["K9"], ms_8192["K9"] = mg_ms[2048]["K9"], mg_ms[8192]["K9"]
     ms_8192["K10"], ms_8192["K11"] = mg_ms[8192]["K10"], mg_ms[8192]["K11"]
     levels = {n: mg_level_fields(t) for n, t in mg_ms.items()}
-    extra = {k: {"by_level_8192_solver": levels[8192][k],
-                 "by_level_2048_solver": levels[2048][k]}
-             for k in ("K10", "K11")}
+    rows_kernel = "P % 4 == 0 (P % 8 == 0 for the restrict and prolong " \
+        "forms), nu in {}, operands 16-byte aligned (layouts (R, D, NT): " \
+        "{}, else {})".format(mg_kernels.MG_ROWS_NUS, mg_kernels.MG_ROWS_BY_M,
+                              mg_kernels.MG_ROWS)
+    extra = {k: {"rows_launches": sum(run[f"{k} rows"]
+                                      for run in launches.values()),
+                 "tile_launches": sum(run[k] - run[f"{k} rows"]
+                                      for run in launches.values()),
+                 "kernels": {"mg_rows_kernel": rows_kernel,
+                             tile: "every other shape (the tile design)"},
+                 "by_level_8192_solver": levels[8192][k],
+                 "by_level_2048_solver": levels[2048][k],
+                 "call_ms": {n: dict(t["call_ms"],
+                                     mg_kernels_graph=t["call_graph_ms"],
+                                     host_enqueue=t["host_enqueue_ms"])
+                             for n, t in mg_ms.items()},
+                 "sweep_least": {n: v["least"][k]
+                                 for n, v in mg_sweep.items()}}
+             for k, tile in (("K10", "mg_smooth_kernel"),
+                             ("K11", "mg_prolong_kernel"))}
 
     extra["K4"] = {
         "cluster_launches": sum(run["K4 cluster"] for run in launches.values()),

@@ -22,7 +22,10 @@ stencil lab's step) 1e-6, its base instance bitwise K1. K1's and K12's
 row-streaming kernel bitwise the tile design (K18 base, step_kernel), K12
 bitwise K1, with both rows_launches counters; their tile kernels
 (step_kernel, step_sharded_kernel) on P % 4 != 0 and misaligned operands,
-1e-6 from plain and bitwise the row kernel.
+1e-6 from plain and bitwise the row kernel. K10's and K11's row-streaming
+kernel (mg_rows_kernel) bitwise their tile kernels in every form, with
+both rows_launches counters; the tile kernels on the shapes, sweep counts
+and misaligned operands the row kernel does not take.
 """
 
 import numpy as np
@@ -666,23 +669,100 @@ def test_mg_kernels(dev, M, P, nu):
 @pytest.mark.parametrize("M,cycles", [(512, 2), (1024, 3)])
 def test_multigrid_inverter_on_card_matches_cpu(dev, M, cycles):
     """Warm-started MG inversions on the card (K10, K11 on the kernel
-    levels: 1 at 512^2, 2 at 1024^2) against the CPU's plain route, on the
-    smooth vortex state: on grid noise two float32 routes differ by the
-    float32 floor of the inversion (~eps M / 5 of max|psi|, 2e-5 here)."""
+    levels, extent >= 512: 1 at 512^2, 2 at 1024^2, each launch by the
+    row-streaming kernel) against the CPU's plain route, on the smooth
+    vortex state: on grid noise two float32 routes differ by the float32
+    floor of the inversion (~eps M / 5 of max|psi|, 2e-5 here)."""
     cfg = preset("pod-8192-mg").replace(M=M, P=M, ic_type="vortex")
     args = (M, M, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
             cfg.back_projection_matrix())
     state = init_state(cfg, "cpu")
-    levels = 1 if M == 512 else 2
-    n = (mg_smooth.launches, mg_prolong_smooth.launches)
-    got = MultigridModalInverter(*args, n_cycles=cycles)(
-        state.zeta.to(dev), psi_prev=state.psi.to(dev) * 0.99)
+    inv = MultigridModalInverter(*args, n_cycles=cycles)
+    levels = sum(inv.solver._kernel_level(lvl)
+                 for lvl in range(len(inv.solver.levels)))
+    assert levels == (1 if M == 512 else 2)
+    n = _mg_counts()
+    got = inv(state.zeta.to(dev), psi_prev=state.psi.to(dev) * 0.99)
     want = MultigridModalInverter(*args, n_cycles=cycles, use_pallas="off")(
         state.zeta, psi_prev=state.psi * 0.99)
     torch.cuda.synchronize()
-    assert (mg_smooth.launches, mg_prolong_smooth.launches) == (
-        n[0] + cycles * levels, n[1] + cycles * levels)
+    assert _mg_counts() == tuple(c + cycles * levels for c in n)
     assert _rel(got.cpu(), want) <= 1e-5
+
+
+def _mg_counts():
+    return (mg_smooth.launches, mg_prolong_smooth.launches,
+            mg_smooth.rows_launches, mg_prolong_smooth.rows_launches)
+
+
+def _mg_form_pair(form, u, f, ec, dx, alphas, nu, layout=None):
+    """(row kernel's, tile kernel's) outputs of ``form``, (u, r | None)."""
+    if form == "prolong":
+        return (mg_kernels.mg_rows(form, u, f, ec, dx, alphas, nu, 0.8,
+                                   layout)[0],
+                mg_kernels.mg_prolong_tile(u, ec, f, dx, alphas, nu))
+    res, rst = form != "smooth", form == "restrict"
+    return (mg_kernels.mg_rows(form, u, f, None, dx, alphas, nu, 0.8,
+                               layout),
+            mg_kernels.mg_smooth_tile(u, f, dx, alphas, nu, res, 0.8, rst))
+
+
+def _same(a, b):
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
+# The row-streaming kernel's shapes: whole strips and runs (512^2), a
+# ragged last run for R = 64 (2064 x 512), strips narrower than 120 (48^2,
+# 136 x 384's last), a ragged last strip (248^2, one mode), and 8192^2.
+@pytest.mark.parametrize("K,M,P", [(2, 512, 512), (2, 2064, 512),
+                                   (2, 48, 48), (2, 136, 384),
+                                   (1, 248, 248), (2, 8192, 8192)])
+@pytest.mark.parametrize("nu", [1, 2])
+@pytest.mark.parametrize("form", mg_kernels.MG_FORMS)
+def test_mg_rows_bitwise_tile(dev, form, K, M, P, nu):
+    """The row-streaming kernel in its launched layout and two others gives
+    the tile kernel's bits in every form."""
+    dx, alphas = _mg_alphas(M)
+    u, f, ec = (t[:K].contiguous() for t in _mg_fields(M, P, dev, nu))
+    alphas = alphas[:K]
+    for layout in (None, (8, 1, 64), (128, 4, 256)):
+        got, want = _mg_form_pair(form, u, f, ec, dx, alphas, nu, layout)
+        torch.cuda.synchronize()
+        assert _same(got, want), layout
+
+
+def test_mg_rows_routing(dev):
+    """mg_smooth and mg_prolong_smooth launch the row kernel where
+    mg_rows_takes (rows_launches counts it) and the tile kernel on the rest:
+    P % 8 == 4 for the restrict and prolong forms, nu = 3, a misaligned
+    view; the tile route within 1e-6 of plain, the row route bitwise the
+    tile kernel."""
+    dx, alphas = _mg_alphas(512)
+    u, f, ec = _mg_fields(512, 132, dev, 7)
+    n = _mg_counts()
+    got = mg_smooth(u, f, dx, alphas, 2, True, 0.8)          # rows
+    assert _same(got, mg_kernels.mg_smooth_tile(u, f, dx, alphas, 2))
+    rc = mg_smooth(u, f, dx, alphas, 2, True, 0.8, True)     # tile: P % 8
+    assert _rel(rc[1], mg_smooth_plain(u, f, dx, alphas, 2, True, 0.8,
+                                       True)[1]) <= 1e-6
+    mg_prolong_smooth(u, ec, f, dx, alphas, 2)               # tile: P % 8
+    torch.cuda.synchronize()
+    assert _mg_counts() == (n[0] + 2, n[1] + 1, n[2] + 1, n[3])
+    u, f, ec = _mg_fields(512, 512, dev, 8)
+    whole = torch.empty(u.numel() + 1, device=dev)
+    shifted = whole[1:].view_as(u)
+    shifted.copy_(u)
+    n = _mg_counts()
+    got = mg_smooth(shifted, f, dx, alphas, 2, True, 0.8, True)   # tile
+    assert _same(got, mg_smooth(u, f, dx, alphas, 2, True, 0.8, True))
+    got = mg_prolong_smooth(shifted, ec, f, dx, alphas, 3)        # tile: nu
+    assert _rel(got, mg_prolong_smooth_plain(u, ec, f, dx, alphas,
+                                             3)) <= 1e-6
+    torch.cuda.synchronize()
+    assert _mg_counts() == (n[0] + 2, n[1] + 1, n[2] + 1, n[3])
 
 
 def _slabs(fields, r0, m, H):

@@ -193,17 +193,22 @@ ROUTE_SHAPES = [(512, 512), (1024, 512), (512, 1024), (2048, 2048),
 @pytest.mark.parametrize("M,P", ROUTE_SHAPES)
 @pytest.mark.parametrize("nu1,nu2", [(2, 2), (6, 7), (7, 2)])
 def test_kernel_levels_match_tpu_qg(M, P, nu1, nu2):
-    """The same levels take the kernels as in tpu_qg (use_pallas="on"),
-    under "auto" and "on"; none under "off"."""
+    """The port's own gate on tpu_qg's levels: under "auto" and "on" every
+    level of extent >= 512 takes the kernels, a superset of tpu_qg's kernel
+    levels (its gate also caps them at the top 3 and takes fewer sweep
+    counts); under "off" none."""
     ref = jmg.MultigridSolver(M, P, 1.0, ALPHAS, nu1=nu1, nu2=nu2,
                               use_pallas="on", interpret=True)
-    want = [ref._pallas_level(lvl) for lvl in range(len(ref.levels))]
+    ref_levels = [ref._pallas_level(lvl) for lvl in range(len(ref.levels))]
     for mode in ("auto", "on"):
         mg = multigrid.MultigridSolver(M, P, 1.0, ALPHAS, nu1=nu1, nu2=nu2,
                                        use_pallas=mode)
-        assert [mg._pallas_level(lvl) for lvl in range(len(mg.levels))] == want
+        assert mg.levels == ref.levels and mg.coarse == ref.coarse
+        got = [mg._kernel_level(lvl) for lvl in range(len(mg.levels))]
+        assert got == [min(m, p) >= 512 for m, p, _ in mg.levels]
+        assert all(g or not r for g, r in zip(got, ref_levels))
     off = multigrid.MultigridSolver(M, P, 1.0, ALPHAS, use_pallas="off")
-    assert not any(off._pallas_level(lvl) for lvl in range(len(off.levels)))
+    assert not any(off._kernel_level(lvl) for lvl in range(len(off.levels)))
 
 
 def test_unknown_use_pallas_raises():
@@ -222,7 +227,7 @@ def test_kernel_routed_solve_matches_tpu_qg_interpret_float32():
     counts = (mg_kernels.mg_smooth.launches,
               mg_kernels.mg_prolong_smooth.launches)
     mg = multigrid.MultigridSolver(512, 512, cfg.dx, ALPHAS, n_cycles=1)
-    assert mg._pallas_level(0) and not mg._pallas_level(1)
+    assert mg._kernel_level(0) and not mg._kernel_level(1)
     got = mg(torch.from_numpy(f), x0=torch.from_numpy(x0))
     want = jmg.MultigridSolver(512, 512, cfg.dx, ALPHAS, n_cycles=1,
                                use_pallas="on", interpret=True)(

@@ -74,6 +74,7 @@
 
 #include <cstdint>
 
+#include "bulk_copy.cuh"
 #include "step_device.cuh"
 
 namespace {
@@ -155,57 +156,6 @@ step_sharded_kernel(const float* __restrict__ zeta,
 // ---------------------------------------------------------------------------
 // The row-streaming step (K1, K12): design in the header.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// An mbarrier that completes a phase on one arrival and the bytes of the
-// copies it was told to expect.
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n\t"
-               "fence.mbarrier_init.release.cluster;"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
-                                            unsigned bytes) {
-  unsigned long long state;
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 %0, [%1], %2;"
-               : "=l"(state) : "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  asm volatile("{\n\t.reg .pred done;\n\t"
-               "WAIT_%=:\n\t"
-               "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n\t"
-               "@!done bra WAIT_%=;\n\t}"
-               :: "r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-
-// Orders this block's earlier shared-memory reads (behind a block barrier)
-// before the bulk copies that follow.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// A 1-D bulk copy (the TMA engine, no tensor map) of `bytes` (a multiple of
-// 16, both ends 16-byte aligned) from device memory to shared memory,
-// completing on `bar`.
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
-                                          unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
 
 // Six values of a ring row around 4 columns: p[-1] .. p[4].
 __device__ __forceinline__ void lds6(const float* p, float v[6]) {

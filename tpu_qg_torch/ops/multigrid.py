@@ -24,13 +24,22 @@ TPU lane-layout device with exact values; the slices here give the same
 values and, unlike the reference (``tpu_qg/ops/multigrid.py:100-127``), take
 extents that are not multiples of 128 (a 192^2 solve works).
 
-Kernel levels: ``MultigridSolver`` routes the reference's kernel levels
-(the top 3, extent >= 512, where ``mg_kernels.mg_smooth_supported`` and
-``mg_prolong_supported`` admit the shape) through K10/K11
-(``ops/mg_kernels.py``) under ``use_pallas="auto"`` or ``"on"``; the
-wrappers launch the CUDA kernels on CUDA tensors (float32 only) and run
-their plain versions on CPU tensors. ``"off"`` runs the level-op chain on
-every level.
+Kernel levels: ``MultigridSolver`` routes every level of extent >= 512
+through K10/K11 (``ops/mg_kernels.py``) under ``use_pallas="auto"`` or
+``"on"``, and none under ``"off"`` (the level-op chain). The reference also
+caps its kernels at the top 3 levels (``tpu_qg/ops/multigrid.py:287-296``):
+on a TPU each kernel level cost a Mosaic compile. On the card a level's
+cost is its launches, one kernel against the chain's dozens of ops, so the
+port drops the cap (``_kernel_level``; 5 kernel levels at 8192^2). It keeps
+the extent: with the kernels on every level, the 2048^2 MG path's psi on
+an H100 moved 1.3e-5 of max|psi| from the level-op route's, above
+``chip_smoke.py``'s 1e-5 gate, where two float32 routes that round their
+coarse levels differently differ by the float32 floor of the inversion
+(PERF.md).
+A pre-smoother whose restricted halo exceeds the kernels' (nu1 + 2 > 8)
+takes K10's residual form and the restriction op. The wrappers launch the
+CUDA kernels on CUDA tensors (float32 only) and run their plain versions
+on CPU tensors.
 """
 
 from __future__ import annotations
@@ -134,11 +143,6 @@ class MultigridSolver:
     ("auto", "on" or "off") routes the kernel levels (module docstring).
     """
 
-    # The reference's kernel-level gate (tpu_qg/ops/multigrid.py:296-313):
-    # the top 3 levels of extent >= 512, where the shape gates admit them.
-    _PALLAS_MAX_LEVELS = 3
-    _PALLAS_MIN_EXTENT = 512
-
     def __init__(self, M: int, P: int, dx: float, alphas: Sequence[float],
                  n_cycles: int = 8, nu1: int = 2, nu2: int = 2,
                  omega: float = 0.8, coarse_cutoff: int = 32,
@@ -166,23 +170,25 @@ class MultigridSolver:
             [a == 0.0 for a in self.alphas], dtype=dtype,
             device=device).reshape(-1, 1, 1))
 
-    def _pallas_level(self, lvl: int) -> bool:
-        """Whether level ``lvl`` runs K10/K11 (the reference's rule)."""
-        if self.use_pallas == "off" or lvl >= self._PALLAS_MAX_LEVELS:
-            return False
+    # The port's kernel-level gate (module docstring): every level of
+    # extent >= 512, with no cap on their number.
+    _KERNEL_MIN_EXTENT = 512
+
+    def _kernel_level(self, lvl: int) -> bool:
+        """Whether level ``lvl`` runs K10/K11: under "auto" and "on" every
+        level of extent >= 512, where the kernels' halo holds nu1 + 1 and
+        nu2; none under "off"."""
         m, p, _ = self.levels[lvl]
-        if min(m, p) < self._PALLAS_MIN_EXTENT:
-            return False
-        K = len(self.alphas)
-        return (mg_kernels.mg_smooth_supported(K, m, p, self.nu1, True)
-                and mg_kernels.mg_smooth_supported(K, m, p, self.nu2, False))
+        return (self.use_pallas != "off"
+                and min(m, p) >= self._KERNEL_MIN_EXTENT
+                and max(self.nu1 + 1, self.nu2) <= mg_kernels.MG_MAX_HALO)
 
     def _smooth_block(self, lvl: int, u: torch.Tensor, f: torch.Tensor,
                       nu: int, residual: bool):
         """nu Jacobi sweeps (+ optional residual) at a level: one K10 launch
         on a kernel level, the level-op chain elsewhere."""
         _, _, h = self.levels[lvl]
-        if self._pallas_level(lvl):
+        if self._kernel_level(lvl):
             return mg_kernels.mg_smooth(u, f, h, self.alphas, nu, residual,
                                         self.omega)
         a = self._alpha.get(u.dtype, u.device)
@@ -193,10 +199,10 @@ class MultigridSolver:
 
     def _smooth_restrict(self, lvl: int, u: torch.Tensor, f: torch.Tensor):
         """Pre-smooth + residual + restriction: one K10 launch (restrict
-        form) where the gate admits it."""
-        m, p, h = self.levels[lvl]
-        if self._pallas_level(lvl) and mg_kernels.mg_smooth_supported(
-                len(self.alphas), m, p, self.nu1, True, restrict=True):
+        form) on a kernel level where the kernels' halo holds nu1 + 2."""
+        _, _, h = self.levels[lvl]
+        if (self._kernel_level(lvl)
+                and self.nu1 + 2 <= mg_kernels.MG_MAX_HALO):
             return mg_kernels.mg_smooth(u, f, h, self.alphas, self.nu1, True,
                                         self.omega, restrict=True)
         u, r = self._smooth_block(lvl, u, f, self.nu1, True)
@@ -208,9 +214,8 @@ class MultigridSolver:
             return self._coarse_solve(f)
         u, rc = self._smooth_restrict(lvl, u, f)
         ec = self._vcycle(lvl + 1, torch.zeros_like(rc), rc)
-        m, p, h = self.levels[lvl]
-        if self._pallas_level(lvl) and mg_kernels.mg_prolong_supported(
-                len(self.alphas), m, p, self.nu2):
+        _, _, h = self.levels[lvl]
+        if self._kernel_level(lvl):
             # Coarse correction + post-smooth in one K11 launch.
             return mg_kernels.mg_prolong_smooth(u, ec, f, h, self.alphas,
                                                 self.nu2, self.omega)
