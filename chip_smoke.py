@@ -91,7 +91,16 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    (step_kernel), K18 base and a copy of three fields, and K12's
    row-streaming kernel on the one-rank block (2, n, n) beside its tile
    kernel, bitwise K1 (k1_sweep); K17
-   at (2, 6272, 128) (the x-stage's sequential groups). On
+   at (2, 6272, 128) (the x-stage's sequential groups, its first form). K17
+   and K15 by their persistent kernels (csrc/coop_rows.cuh) at COOP_SWEEP's
+   grids (K17 2048^2, 1536^2, 2560^2; K15 2048^2, 3072^2, 8192^2): bitwise
+   the separate routes (K1 -> K2 -> K3 -> K2^-1; K2^-1 -> K1 -> K2), within
+   TOL of the first forms and the plain versions (psi_new against float64
+   where 1/lambda lifts it past TOL), the launch grid (blocks, clusters,
+   blocks an SM, the step units' rows), the grid barrier and the ptxas
+   lines, graph-replayed in
+   turns beside the first form, the separate route and a copy of the same
+   bytes (coop_sweep). On
    the real zeta of a grid-noise psi the inversions (K3; K16; K5; the
    four-pass K2 -> K4 -> K5 -> K2^-1) are held against float64. K10 (the
    multigrid smoother: restrict, residual and smooth-only forms) and K11
@@ -116,10 +125,13 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    every path below, by its factored kernel, every K3 launch by its
    cluster kernel, every K1 launch, here and below, by its row-streaming
    kernel, "K1 rows" = K1), with the pin gauge (100: K8), with
-   fft_mono="on" (100: K1, K16), step_full="on" (100: K17) and step_chain="on" (100: K15, K3,
+   fft_mono="on" (100: K1, K16), step_full="on" (100: K17, every launch
+   by its persistent kernel, "K17 rows" = K17) and step_chain="on" (100:
+   K15, the same, "K15 rows" = K15, K3,
    K2 at the ends of each run call; the same);
    pod-8192 (50 steps: K1, K2, K4, K5, every K4 and K5 launch by its
-   cluster kernel) and with step_chain="on" (20: K15, K4, K5, K2; the same);
+   cluster kernel) and with step_chain="on" (20: K15, "K15 rows" = K15,
+   K4, K5, K2; the same);
    turbulence-2048's configuration at 1536^2 (100 steps: K1, K2, K3, every
    K2 launch by the mixed-radix kernel, "K2 mixed" = K2, every K3 launch by
    its mixed cluster kernel, "K3 mixed" = K3)
@@ -177,7 +189,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 5. timing  — CUDA-event ms per step of each route by QGModel.run, in turns
    (the routes, then again in reverse), per kernel beside its plain version
    and, for K2 and K4, beside one torch.fft call on the same complex64
-   field, at 2048^2 (every route; K8 too) and 8192^2 (default and plain);
+   field, at 2048^2 (every route; K8 too) and 8192^2 (default, chain and
+   plain; K15 too);
    host enqueue ms per step; the device's busy share over CUDA-only traces
    of the default route (both grids) and the fullstep route (2048^2); ms per
    step of the default and plain routes at 1536^2 and 3072^2, in turns. For
@@ -262,15 +275,20 @@ from tpu_qg_torch.ops.spectral import (PackedModalInverter,
 from tpu_qg_torch.ops import step_kernel
 from tpu_qg_torch.ops.step_kernel import (HALO_ROWS, fused_pre_inversion,
                                           fused_pre_inversion_plain,
+                                          coop_rows_plan, coop_rows_takes,
                                           fused_step, fused_step_full,
+                                          fused_step_full_coop,
                                           fused_step_full_plain,
+                                          fused_step_full_rows,
                                           fused_step_plain, fused_step_rows,
                                           fused_step_sharded,
                                           fused_step_sharded_plain,
                                           fused_step_sharded_tile,
                                           fused_step_tile,
                                           fused_step_yspec,
+                                          fused_step_yspec_coop,
                                           fused_step_yspec_plain,
+                                          fused_step_yspec_rows,
                                           fused_step_yspec_sharded,
                                           fused_step_yspec_sharded_plain,
                                           fused_tendency,
@@ -306,6 +324,7 @@ TOL = {"K1": 1e-6, "K2": 1e-5, "K2 mixed": 1e-5, "K3": 1e-4,
        "K17 psi_new": 1e-4, "slice_zeta": 1e-4, "mesh1_zeta": 1e-6,
        "mg_psi": 1e-5}
 FUSED = "tpu_qg_torch/csrc/fused_kernels.cu"
+COOP = "tpu_qg_torch/csrc/coop_rows.cuh"
 MG = "tpu_qg_torch/csrc/mg_kernels.cu"
 KERNELS = {
     "K1": ("fused_step", "tpu_qg_torch/csrc/step_kernel.cu",
@@ -324,9 +343,9 @@ KERNELS = {
            "tpu_qg/ops/pallas_tendency.py:181"),
     "K10": ("mg_smooth", MG, "tpu_qg/ops/pallas_mg.py:340"),
     "K11": ("mg_prolong_smooth", MG, "tpu_qg/ops/pallas_mg.py:298"),
-    "K15": ("fused_step_yspec", FUSED, "tpu_qg/ops/pallas_tendency.py:839"),
+    "K15": ("fused_step_yspec", COOP, "tpu_qg/ops/pallas_tendency.py:839"),
     "K16": ("mono_invert", FUSED, "tpu_qg/ops/pallas_fft.py:1342"),
-    "K17": ("fused_step_full", FUSED, "tpu_qg/ops/pallas_fullstep.py:308"),
+    "K17": ("fused_step_full", COOP, "tpu_qg/ops/pallas_fullstep.py:308"),
     "K7": ("stream_pair_symbols", "tpu_qg_torch/csrc/dft_kernels.cu",
            "tpu_qg/ops/pallas_fft.py:1304"),
     "K12": ("fused_step_sharded", "tpu_qg_torch/csrc/step_kernel.cu",
@@ -356,8 +375,10 @@ class KernelCount:
     launches of K3's cluster kernel; y_dft.factored_launches: K2's factored
     kernel; y_dft.mixed_launches: its mixed-radix form; fused_step.rows_launches and fused_step_sharded.rows_launches:
     K1's and K12's row-streaming kernel; mg_smooth.rows_launches and
-    mg_prolong_smooth.rows_launches: K10's and K11's, mg_rows_kernel), as a
-    counter with a ``launches`` field."""
+    mg_prolong_smooth.rows_launches: K10's and K11's, mg_rows_kernel;
+    fused_step_yspec.rows_launches and fused_step_full.rows_launches: K15's
+    and K17's persistent kernels, coop_yspec_rows_kernel and
+    coop_fullstep_rows_kernel), as a counter with a ``launches`` field."""
 
     def __init__(self, wrapper, attr: str):
         self.wrapper, self.attr = wrapper, attr
@@ -395,7 +416,9 @@ COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
             "K1 rows": KernelCount(fused_step, "rows_launches"),
             "K12 rows": KernelCount(fused_step_sharded, "rows_launches"),
             "K10 rows": KernelCount(mg_smooth, "rows_launches"),
-            "K11 rows": KernelCount(mg_prolong_smooth, "rows_launches")}
+            "K11 rows": KernelCount(mg_prolong_smooth, "rows_launches"),
+            "K15 rows": KernelCount(fused_step_yspec, "rows_launches"),
+            "K17 rows": KernelCount(fused_step_full, "rows_launches")}
 # Kernel names in a profiler trace, the one-launch kernels, the
 # row-streaming K1 and K12, K8, K9, K12 and K18 before K1's tile kernel: a
 # mangled name of any kernel of step_kernel.cu holds the source file's name,
@@ -405,6 +428,8 @@ COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
 # carry K3's name (the counters tell them apart).
 TRACE_NAMES = (("K12", "step_rows_sharded_kernel"),
                ("K1", "step_rows_kernel"),
+               ("K17 rows", "coop_fullstep_rows_kernel"),
+               ("K15 rows", "coop_yspec_rows_kernel"),
                ("K17", "coop_fullstep_kernel"), ("K16", "coop_mono_kernel"),
                ("K15s", "coop_yspec_sharded_kernel"),
                ("K15", "coop_yspec_kernel"), ("K12", "step_sharded_kernel"),
@@ -572,7 +597,8 @@ def phase_build() -> None:
              "pair_cols_cluster_kernel": {},
              "y_dft_factored_kernel": {}, "y_dft_mixed_kernel": {},
              "mg_rows_kernel": {}, "mg_smooth_kernel": {},
-             "mg_prolong_kernel": {}}
+             "mg_prolong_kernel": {}, "coop_yspec_rows_kernel": {},
+             "coop_fullstep_rows_kernel": {}}
     entry = None
     for ln in lines:
         if "Compiling entry function" in ln:
@@ -595,6 +621,8 @@ def phase_build() -> None:
          mg_ptxas={k: named[k] for k in ("mg_rows_kernel",
                                          "mg_smooth_kernel",
                                          "mg_prolong_kernel")},
+         coop_rows_ptxas={k: named[k] for k in ("coop_yspec_rows_kernel",
+                                                "coop_fullstep_rows_kernel")},
          step_ptxas=step_ptxas(lines))
     return named
 
@@ -605,7 +633,8 @@ STEP_KERNEL_NAMES = ("step_rows_kernel", "step_rows_sharded_kernel",
                      "step_kernel", "step_sharded_kernel",
                      "pre_inversion_kernel", "tendency_kernel",
                      "lab_step_kernel", "coop_yspec_kernel",
-                     "coop_yspec_sharded_kernel", "coop_fullstep_kernel")
+                     "coop_yspec_sharded_kernel", "coop_fullstep_kernel",
+                     "coop_yspec_rows_kernel", "coop_fullstep_rows_kernel")
 
 
 def step_ptxas(lines) -> dict:
@@ -826,10 +855,11 @@ def phase_kernels(errs, cfg, dev) -> None:
             want = fused_pre_inversion_plain(c, zeta, psi, f1, f2, step)
             for part, g, w in zip(("zeta_new", "carry", "modes"), got, want):
                 errs.record("K8", f"L={layers} {case} {part}", g, w)
-    emit("kernels", grids={"K15": fused_step_yspec.grid,
+    emit("kernels", grids={"K15": fused_step_yspec.rows_grid,
                            "K16": mono_invert.grid,
-                           "K17": fused_step_full.grid},
-         grid_is="(blocks, blocks per SM) of the cooperative launches")
+                           "K17": fused_step_full.rows_grid},
+         grid_is="(blocks, clusters, blocks an SM, the step units' rows) of "
+         "K15's and K17's persistent kernels, (blocks, blocks an SM) of K16")
     torch.cuda.synchronize()
 
 
@@ -1716,6 +1746,144 @@ def phase_k1_sweep(dev, card, sizes=(2048, 8192), reps=(20, 5)) -> dict:
                       k12_ms=k12_ms["K12 rows"],
                       k12_tile_ms=k12_ms["K12 step_sharded_kernel (tile)"])
         del zeta, psi, f1, f2, zt, zb, pt, pb, k12
+        free_memory()
+    return out
+
+
+# The persistent K17 and K15 (csrc/coop_rows.cuh) and the grids coop_sweep
+# holds them at: K17 at the slices' 2048^2 and the mixed 1536^2 and 2560^2
+# (the largest square its route gate admits); K15 at 2048^2, the mixed
+# 3072^2 and pod-8192's 8192^2 (its chain).
+COOP_SWEEP = (("K17", 2048), ("K17", 1536), ("K17", 2560), ("K15", 2048),
+              ("K15", 3072), ("K15", 8192))
+COOP_BARRIER = ("cooperative_groups this_grid().sync() in a cudaLaunchKernelEx "
+                "launch with the cooperative attribute (K17: and a cluster "
+                "dimension of G), every block co-resident")
+
+
+def separate_route(name, cfg, zeta, psi, f1, f2, step):
+    """The separate redesigned kernels that K17 (K1 -> K2 -> K3 -> K2^-1)
+    or K15 (K2^-1 -> K1 -> K2; psi as its y-spectrum) fuses, each by its
+    counting wrapper."""
+    if name == "K17":
+        zn, carry = fused_step(cfg, zeta, psi, f1, f2, step)
+        consts = step_kernel.packed_symbol_consts(cfg)
+        return zn, carry, y_dft(pair_x_symbols(y_dft(zn, False), consts),
+                                True)
+    zn, carry = fused_step(cfg, zeta, y_dft(psi, True), f1, f2, step)
+    return zn, carry, y_dft(zn, False)
+
+
+def phase_coop_sweep(errs, turb, dev, card, named_ptxas, reps=20) -> dict:
+    """K17 and K15 by their persistent kernels at COOP_SWEEP's grids, on
+    step_inputs (psi as its y-spectrum for K15): bitwise the separate
+    routes (separate_route), on every step case at 2048^2 and on one past
+    the Euler start elsewhere; against the first form (fused_step_full_coop,
+    fused_step_yspec_coop) and the plain version: zeta_new and carry 1e-6,
+    zeta_ys 1e-5, psi_new 1e-4 or, where 1/lambda lifts float32 rounding
+    past that, no less accurate against float64 than twice the first
+    form; the grid (blocks, clusters, blocks an SM), the barrier and the
+    ptxas lines; and ms a launch replayed from a CUDA graph, in turns (in
+    order, then in reverse), beside the first form, the separate route and
+    a copy of the same bytes (a torch copy of 3.5 (2, n, n) fields: seven
+    fields read or written), and at 2048^2 the persistent kernel cut after
+    each of its first stages (its ``stages`` argument). Returns the entries
+    by "name at n^2"."""
+    rng = np.random.default_rng(SEED + 21)
+    out = {}
+    for name, n in COOP_SWEEP:
+        cfg = turb.replace(M=n, P=n)
+        zeta, psi, f1, f2 = step_inputs(cfg, dev, rng)
+        x = name == "K17"
+        if not x:
+            psi = y_dft_plain(psi, False)
+        if not coop_rows_takes(n, n, x, zeta, psi, f1, f2):
+            raise AssertionError(f"{name} at {n}^2: the persistent kernel "
+                                 "does not take the grid")
+        new_fn = fused_step_full_rows if x else fused_step_yspec_rows
+        old_fn = fused_step_full_coop if x else fused_step_yspec_coop
+        plain_fn = fused_step_full_plain if x else fused_step_yspec_plain
+        consts = step_kernel.packed_symbol_consts(cfg)
+        parts = ("zeta_new", "carry", "psi_new" if x else "zeta_ys")
+        cases = STEP_CASES if n == 2048 else STEP_CASES[1:2]
+        checks = []
+        for case, over, step in cases:
+            c = cfg.replace(**over)
+            got = new_fn(c, zeta, psi, f1, f2, step)
+            sep = separate_route(name, c, zeta, psi, f1, f2, step)
+            bitwise = [bool(torch.equal(g, w)) for g, w in zip(got, sep)]
+            if not all(bitwise):
+                raise AssertionError(f"{name} at {n}^2 {case}: not bitwise "
+                                     f"the separate route ({bitwise})")
+            del sep
+            old = old_fn(c, zeta, psi, f1, f2, step)
+            plain = plain_fn(c, zeta, psi, f1, f2, step)
+            rec = {"case": case, "bitwise_separate": bitwise}
+            for part, g, o, w in zip(parts, got, old, plain):
+                tol = (TOL["K17 psi_new"] if part == "psi_new" else
+                       TOL["K15 zeta_ys"] if part == "zeta_ys" else TOL[name])
+                rel_old, rel_plain = rel_err(g, o)[1], rel_err(g, w)[1]
+                rec[part] = {"rel_vs_first_form": rel_old,
+                             "rel_vs_plain": rel_plain, "tol": tol}
+                if part != "psi_new":
+                    errs.record(name, f"{case} {part} at {n}^2 (persistent)",
+                                g, w, tol, quiet=True)
+                    if not rel_old <= tol:
+                        raise AssertionError(f"{name} at {n}^2 {case} {part}: "
+                                             f"{rel_old} from the first form")
+                elif not (rel_old <= tol and rel_plain <= tol):
+                    # Both float32; hold both against float64.
+                    ref = mono_invert_plain(plain[0].double(), consts)
+                    e_new = rel_err(g.double(), ref)[1]
+                    e_old = rel_err(
+                        mono_invert_plain(plain[0], consts).double(), ref)[1]
+                    rec[part].update(rel_float64=e_new,
+                                     rel_float64_plain_version=e_old)
+                    if not e_new <= 2.0 * e_old:
+                        raise AssertionError(
+                            f"{name} at {n}^2 {case} psi_new: float64 error "
+                            f"{e_new} exceeds twice the plain version's "
+                            f"{e_old}")
+                    del ref
+            checks.append(rec)
+            del got, old, plain
+        grid = (fused_step_full if x else fused_step_yspec).rows_grid
+        src = torch.empty((7, n, n), device=dev)
+        dst = torch.empty_like(src)
+        calls = {
+            "persistent": lambda: new_fn(cfg, zeta, psi, f1, f2, 5),
+            "first form": lambda: old_fn(cfg, zeta, psi, f1, f2, 5),
+            "separate route": lambda: separate_route(name, cfg, zeta, psi,
+                                                     f1, f2, 5),
+            "copy": lambda: dst.copy_(src)}
+        if n == 2048:
+            # The first k stages alone (the plan's stage count), so that
+            # the differences read each stage and its grid barrier.
+            for k in range(1, len(parts) + (1 if x else 0)):
+                calls[f"stages 1-{k}"] = (
+                    lambda k=k: new_fn(cfg, zeta, psi, f1, f2, 5, stages=k))
+        r = reps if n <= 3072 else 5
+        runs = {k: [] for k in calls}
+        for k in list(calls) + list(calls)[::-1]:
+            runs[k].append(graph_ms(calls[k], r))
+        ms = {k: sum(v) / 2 for k, v in runs.items()}
+        plan = coop_rows_plan(n, n, x)
+        b = bound(name, n, n)[0]
+        entry = dict(kernel=name, grid=[2, n, n], card=card, checks=checks,
+                     launch_grid=dict(zip(("blocks", "clusters",
+                                           "blocks_per_sm", "step_rows"),
+                                          grid)),
+                     barrier=COOP_BARRIER,
+                     layouts={"step (W, R, D, NT)": plan.step,
+                              "y (Rb, threads)": plan.y,
+                              "x (G, Cw)": plan.x},
+                     smem=plan.smem, graph_ms=ms, graph_runs_ms=runs,
+                     bound_ms=b, share=b / ms["persistent"],
+                     ptxas=named_ptxas["coop_fullstep_rows_kernel" if x else
+                                       "coop_yspec_rows_kernel"])
+        emit("coop_sweep", **entry)
+        out[f"{name} at {n}^2"] = entry
+        del zeta, psi, f1, f2, src, dst, calls
         free_memory()
     return out
 
@@ -3280,6 +3448,7 @@ def main() -> None:
     k3_sweep = phase_k3_sweep(dev, turb, card)
     k13_sweep = phase_k13_sweep(dev, turb, pod, card)
     k1_sweep = phase_k1_sweep(dev, card)
+    coop_sweep = phase_coop_sweep(errs, turb, dev, card, named_ptxas)
     k2_sweep = phase_k2_sweep(errs, dev, card)
     k2_mixed = time_k2_mixed(errs, dev, card)
     k4_mixed = time_k4_mixed(errs, dev, card)
@@ -3299,9 +3468,9 @@ def main() -> None:
         ("turbulence-2048 fft_mono=on", forms["mono"], 100,
          {"K1": 100, "K1 rows": 100, "K16": 100}, "mono"),
         ("turbulence-2048 step_full=on", forms["fullstep"], 100,
-         {"K17": 100}, "fullstep"),
+         {"K17": 100, "K17 rows": 100}, "fullstep"),
         ("turbulence-2048 step_chain=on", forms["chain"], 100,
-         {"K15": 100, "K3": 100, "K3 cluster": 100,
+         {"K15": 100, "K15 rows": 100, "K3": 100, "K3 cluster": 100,
           "K2": 2 * run_chunks(forms["chain"], 100),
           "K2 factored": 2 * run_chunks(forms["chain"], 100)}, "chain"),
         ("pod-8192", pod, 50, {"K1": 50, "K1 rows": 50, "K2": 100,
@@ -3309,7 +3478,7 @@ def main() -> None:
                                "K4 cluster": 50, "K5 cluster": 50},
          "default"),
         ("pod-8192 step_chain=on", pod_chain, 20,
-         {"K15": 20, "K4": 20, "K5": 20, "K2": 2 * run_chunks(pod_chain, 20),
+         {"K15": 20, "K15 rows": 20, "K4": 20, "K5": 20, "K2": 2 * run_chunks(pod_chain, 20),
           "K2 factored": 2 * run_chunks(pod_chain, 20), "K4 cluster": 20,
           "K5 cluster": 20}, "chain"),
         # The mixed extents' paths: every K2 launch by the mixed-radix
@@ -3361,9 +3530,10 @@ def main() -> None:
         100, 50, 20, ("K1", "K2", "K3", "K15", "K16", "K17"))
     ms_2048["K8"] = time_pre_inversion(turb.replace(poisson_gauge="pin"), dev,
                                        card)
-    ms_8192 = phase_timing({"default": pod, "plain": pod.replace(**plain)},
+    ms_8192 = phase_timing({"default": pod, "chain": pod_chain,
+                            "plain": pod.replace(**plain)},
                            dev, card, 20, 10, 3,
-                           ("K1", "K2", "K4", "K4 inverse", "K5"))
+                           ("K1", "K2", "K4", "K4 inverse", "K5", "K15"))
     mixed_steps = {}
     for (name, cfg), steps in zip(mixed_cfgs.items(), (100, 50)):
         routes, _, _ = time_routes(
@@ -3475,6 +3645,27 @@ def main() -> None:
                     "y_dft_kernel": "P <= 128, P not a multiple of 128"},
         "ptxas": named_ptxas["y_dft_mixed_kernel"], "by_shape": k2_mixed,
         "path_step_ms": mixed_steps}
+    for name, kernel in (("K15", "coop_yspec_rows_kernel"),
+                         ("K17", "coop_fullstep_rows_kernel")):
+        sweep = {k: v for k, v in coop_sweep.items() if k.startswith(name)}
+        extra[name] = {
+            "rows_launches": sum(run[f"{name} rows"]
+                                 for run in launches.values()),
+            "first_form_launches": sum(run[name] - run[f"{name} rows"]
+                                       for run in launches.values()),
+            "kernels": {kernel: "where coop_rows_takes: K1's row kernel, K2's "
+                        "factored kernel{} take the grid (layouts: the "
+                        "separate kernels' launched ones, the step's D = "
+                        "8)".format(", K3's cluster kernel" if name == "K17"
+                                    else ""),
+                        kernel.replace("_rows", ""): "the first form, on "
+                        "every other grid"},
+            "graph_ms_2048": sweep[f"{name} at 2048^2"]["graph_ms"],
+            "launch_grid_2048": sweep[f"{name} at 2048^2"]["launch_grid"],
+            "coop_sweep": sweep}
+    extra["K15"].update(ms_8192=ms_8192["K15"]["ms"],
+                        plain_ms_8192=ms_8192["K15"]["plain_ms"],
+                        bound_ms_8192=bound("K15", 8192, 8192)[0])
     extra["K1"] = {
         "rows_launches": sum(run["K1 rows"] for run in launches.values()),
         "kernels": {"step_rows_kernel": "P % 4 == 0, operands 16-byte "

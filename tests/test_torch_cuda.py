@@ -13,7 +13,9 @@ zeta no less accurate against float64 than twice the plain versions'; the
 one-launch kernels as the kernels they fuse: K16 1e-4, K17 1e-6 (zeta_new,
 carry) and 1e-4 (psi_new), K15 1e-6 (zeta_new, carry) and 1e-5 (zeta_ys);
 K9 1e-6 (K1's tile); K10 and K11 1e-6 (tests/test_multigrid.py's kernel
-tolerance), and the multigrid solves on the card 1e-5 from the CPU's. The
+tolerance), and the multigrid solves on the card 1e-5 from the CPU's (a
+float64 solve under "auto", on the level-op chain, 1e-12 from the float64
+spectral inversion). The
 sharded kernels as the kernels they extend: K12 1e-6, K15's sharded form
 1e-6 (zeta_new, carry) and 1e-5 (zeta_ys), K13, K14 and K7 1e-4 (K13's
 and K14's cluster kernel in every layout, K7 on K3's cluster kernel, with
@@ -33,7 +35,8 @@ import pytest
 import torch
 
 from tpu_qg_torch import preset
-from tpu_qg_torch.models.core import QGModel, init_state
+from tpu_qg_torch.models.core import (QGModel, _build_solvers, _invert_psi,
+                                      init_state)
 from tpu_qg_torch.ops.dft_kernels import (
     mirror_companion, mono_invert, mono_invert_plain, pair_cols_cluster,
     pair_cols_cluster_takes, pair_cols_whole_columns, pair_x_cluster,
@@ -66,7 +69,8 @@ from tpu_qg_torch.ops.step_kernel import (fused_pre_inversion,
                                           fused_step_yspec_sharded,
                                           fused_step_yspec_sharded_plain,
                                           fused_tendency,
-                                          fused_tendency_plain)
+                                          fused_tendency_plain,
+                                          packed_symbol_consts)
 
 pytestmark = pytest.mark.cuda
 # Powers of two, and 128 * n extents that the kernels take in mixed radix.
@@ -577,6 +581,75 @@ def test_yspec_kernel(dev, M, P, scheme, tau0, step):
         assert _rel(g, w) <= tol
 
 
+def _separate_route(k, cfg, z, p, f1, f2, step):
+    """The separate redesigned kernels K17 (K1 -> K2 -> K3 -> K2^-1) or K15
+    (K2^-1 -> K1 -> K2; p a y-spectrum) fuses."""
+    if k == "K17":
+        zn, carry = fused_step(cfg, z, p, f1, f2, step)
+        return zn, carry, y_dft(pair_x_symbols(y_dft(zn, False),
+                                               packed_symbol_consts(cfg)),
+                                True)
+    zn, carry = fused_step(cfg, z, y_dft(p, True), f1, f2, step)
+    return zn, carry, y_dft(zn, False)
+
+
+# The persistent K17 at the 2048^2 slices' grid, K3's mixed instance
+# (1536), the smallest M K3's cluster kernels take (896 = 128 * 7, 1024)
+# and a rectangle whose x and y stages take different instances; K15 at
+# 2048^2, the mixed 3072^2 and 256 x 384.
+@pytest.mark.parametrize("k,M,P", [
+    ("K17", 2048, 2048), ("K17", 1536, 1536), ("K17", 896, 256),
+    ("K17", 1024, 256), ("K17", 2048, 1536), ("K15", 2048, 2048),
+    ("K15", 3072, 3072), ("K15", 256, 384)])
+@pytest.mark.parametrize("scheme,tau0,step", ONE_LAUNCH_STEPS)
+def test_persistent_one_launch_bitwise_separate_route(dev, k, M, P, scheme,
+                                                      tau0, step):
+    """K17's and K15's persistent kernels (csrc/coop_rows.cuh), each stage
+    in its separate kernel's layout, give the separate route's bits, and
+    each launch counts in rows_launches."""
+    cfg = preset("turbulence-2048").replace(M=M, P=P, time_scheme=scheme,
+                                            wind_tau0=tau0)
+    z, p, f1, f2 = _fields(M, P, dev)
+    if k == "K15":
+        p = y_dft_plain(p, False)
+    wrapper = fused_step_full if k == "K17" else fused_step_yspec
+    n = (wrapper.launches, wrapper.rows_launches)
+    got = wrapper(cfg, z, p, f1, f2, step)
+    want = _separate_route(k, cfg, z, p, f1, f2, step)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.rows_launches) == (n[0] + 1, n[1] + 1)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_persistent_one_launch_routing(dev):
+    """The first forms keep what the persistent kernels do not take: P =
+    128 (no factored K2), M = 256 for K17 (below K3's cluster kernels) and
+    an operand view that is not 16-byte aligned; there rows_launches stays
+    put."""
+    cfg = preset("turbulence-2048").replace(M=256, P=128)
+    z, p, f1, f2 = _fields(256, 128, dev)
+    for wrapper in (fused_step_full, fused_step_yspec):
+        n = (wrapper.launches, wrapper.rows_launches)
+        wrapper(cfg, z, p, f1, f2, 5)
+        torch.cuda.synchronize()
+        assert (wrapper.launches, wrapper.rows_launches) == (n[0] + 1, n[1])
+    cfg = cfg.replace(P=256)
+    z, p, f1, f2 = _fields(256, 256, dev)
+    n = fused_step_full.rows_launches
+    fused_step_full(cfg, z, p, f1, f2, 5)
+    assert fused_step_full.rows_launches == n
+    big = torch.empty(2 * 256 * 256 + 1, device=dev)
+    view = big[1:].view(2, 256, 256)
+    view.copy_(p)
+    n = fused_step_yspec.rows_launches
+    got = fused_step_yspec(cfg, z, view, f1, f2, 5)
+    want = fused_step_yspec_plain(cfg, z, view, f1, f2, 5)
+    torch.cuda.synchronize()
+    assert fused_step_yspec.rows_launches == n
+    for g, w, tol in zip(got, want, (1e-6, 1e-6, 1e-5)):
+        assert _rel(g, w) <= tol
+
+
 ALL_COUNTED = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
                "K4": x_dft, "K5": x_symbols_inverse, "K8": fused_pre_inversion,
                "K15": fused_step_yspec, "K16": mono_invert,
@@ -688,6 +761,28 @@ def test_multigrid_inverter_on_card_matches_cpu(dev, M, cycles):
     torch.cuda.synchronize()
     assert _mg_counts() == tuple(c + cycles * levels for c in n)
     assert _rel(got.cpu(), want) <= 1e-5
+
+
+def test_multigrid_inverter_float64_on_card_auto(dev):
+    """A float64 MultigridModalInverter call on the card under "auto": the
+    kernels take float32 alone, so every level takes the level-op chain
+    (no K10/K11 launch) and the call matches the float64 spectral
+    inversion within 1e-12 (16 V-cycles on the smooth vortex state)."""
+    M = 512
+    cfg = preset("pod-8192-mg").replace(M=M, P=M, ic_type="vortex",
+                                        dtype="float64")
+    args = (M, M, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
+            cfg.back_projection_matrix())
+    state = init_state(cfg, dev)
+    assert state.zeta.dtype == torch.float64
+    inv = MultigridModalInverter(*args, n_cycles=16)
+    n = _mg_counts()
+    got = inv(state.zeta)
+    want = _invert_psi(cfg, _build_solvers(cfg), state.zeta)
+    torch.cuda.synchronize()
+    assert _mg_counts() == n
+    assert got.dtype == torch.float64
+    assert _rel(got, want) <= 1e-12
 
 
 def _mg_counts():

@@ -211,6 +211,48 @@ def test_kernel_levels_match_tpu_qg(M, P, nu1, nu2):
     assert not any(off._kernel_level(lvl) for lvl in range(len(off.levels)))
 
 
+@pytest.mark.parametrize("M,P", [(512, 512), (2048, 2048), (8192, 8192),
+                                 (1024, 384)])
+def test_kernel_levels_by_dtype(M, P):
+    """The gate by dtype: under "auto" a float64 solve routes no level to
+    K10/K11 (the kernels take float32 alone), float32 the levels of extent
+    >= 512 as before; under "on" both dtypes route those levels (a float64
+    CUDA solve then raises in the kernels); under "off" neither."""
+    want = [min(m, p) >= 512 for m, p, _ in
+            multigrid.MultigridSolver(M, P, 1.0, ALPHAS).levels]
+    for mode, f32, f64 in (("auto", want, [False] * len(want)),
+                           ("on", want, want),
+                           ("off", [False] * len(want), [False] * len(want))):
+        mg = multigrid.MultigridSolver(M, P, 1.0, ALPHAS, use_pallas=mode)
+        lv = range(len(mg.levels))
+        assert [mg._kernel_level(l, torch.float32) for l in lv] == f32
+        assert [mg._kernel_level(l) for l in lv] == f32
+        assert [mg._kernel_level(l, torch.float64) for l in lv] == f64
+
+
+def test_float64_auto_solve_launches_no_kernel():
+    """A float64 512^2 solve under "auto" takes the level-op chain on every
+    level (no K10/K11 call, counted or plain) and stays 1e-12 from the
+    reference's V-cycle."""
+    cfg = _jcfg(512, 512)
+    f = _field((2, 512, 512), 11, 1e-5)
+    calls = []
+    real = (mg_kernels.mg_smooth, mg_kernels.mg_prolong_smooth)
+    try:
+        mg_kernels.mg_smooth = lambda *a, **k: calls.append(1) or real[0](
+            *a, **k)
+        mg_kernels.mg_prolong_smooth = lambda *a, **k: calls.append(2) or \
+            real[1](*a, **k)
+        got = multigrid.MultigridSolver(512, 512, cfg.dx, ALPHAS,
+                                        n_cycles=1)(torch.from_numpy(f))
+    finally:
+        mg_kernels.mg_smooth, mg_kernels.mg_prolong_smooth = real
+    assert calls == [] and got.dtype == torch.float64
+    want = jmg.MultigridSolver(512, 512, cfg.dx, ALPHAS, n_cycles=1)(
+        jnp.asarray(f))
+    _close(got, want, 1e-12)
+
+
 def test_unknown_use_pallas_raises():
     with pytest.raises(ValueError, match="use_pallas"):
         multigrid.MultigridSolver(128, 128, 1.0, ALPHAS, use_pallas="yes")

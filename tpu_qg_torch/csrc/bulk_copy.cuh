@@ -20,6 +20,13 @@ __device__ __forceinline__ void mbar_init(unsigned long long* bar) {
                :: "r"(smem_addr(bar)) : "memory");
 }
 
+// Invalidates an mbarrier whose phases are all complete, before its memory
+// holds anything else (or another init).
+__device__ __forceinline__ void mbar_inval(unsigned long long* bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
 __device__ __forceinline__ void mbar_expect(unsigned long long* bar,
                                             unsigned bytes) {
   unsigned long long state;

@@ -18,6 +18,19 @@ __device__ __forceinline__ float ld(const float* p) {
   }
 }
 
+// A read of a field by a kernel body: the read-only path (__ldg) for a
+// kernel's own input, or, with kL2, through L2 only, where a one-launch
+// kernel (coop_rows.cuh) runs the body on a field written earlier in its
+// launch.
+template <bool kL2>
+__device__ __forceinline__ float ldg(const float* p) {
+  if constexpr (kL2) {
+    return __ldcg(p);
+  } else {
+    return __ldg(p);
+  }
+}
+
 inline int set_smem(const void* kernel, int smem) {
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));

@@ -1,0 +1,40 @@
+// K15's persistent kernel (coop_yspec_rows_kernel): design and body in
+// coop_rows.cuh; K17's entry points in coop_fullstep.cu and
+// coop_fullstep_mixed.cu.
+
+#include "coop_rows.cuh"
+
+extern "C" int qg_coop_rows_plan_size() { return kNumRowsPlan; }
+
+// K15. psi_ys: psi's permuted y-spectrum; step_c: kNumConsts floats
+// (StepConsts); wind: a (P,) row or null; plan: kNumRowsPlan ints
+// (RowsPlan); wmy: the P-entry float2 table of W_P^j; smem: bytes of the
+// largest stage; info: 4 ints (rows_config's three, and the step units'
+// rows, unit_rows).
+extern "C" int qg_yspec_rows_launch(const float* zeta, const float* psi_ys,
+                                    const float* f1, const float* f2,
+                                    const float* wind, float* zeta_new,
+                                    float* carry, float* zeta_ys,
+                                    const float* step_c, int leapfrog,
+                                    int step, const int* plan, const void* wmy,
+                                    int smem, int* info, void* stream) {
+  const RowsPlan p = rows_plan(plan);
+  const RowsOperands s{zeta, psi_ys, f1, f2, wind, zeta_new, carry, leapfrog,
+                       step};
+  if (!plan_ok(p, false) || !operands_ok(s) || !aligned16(zeta_ys) ||
+      (p.yplan != 0 && !plan_fits(p.yplan, p.yn2)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = p.yplan ? coop_yspec_rows_kernel<true>
+                        : coop_yspec_rows_kernel<false>;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[2];
+  if (int err = rows_config(kernel, smem, 0, stream, cfg, attr, info))
+    return err;
+  RowsPlan q = p;
+  q.R = info[3] = unit_rows(p, info[0]);
+  if (int err = cudaLaunchKernelEx(&cfg, kernel, s, step_consts(step_c),
+                                   zeta_ys, q,
+                                   static_cast<const float2*>(wmy)))
+    return err;
+  return static_cast<int>(cudaGetLastError());
+}

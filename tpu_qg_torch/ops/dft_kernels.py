@@ -2380,7 +2380,9 @@ paired_x_symbols.cluster_launches = 0
 # ---------------------------------------------------------------------------
 # The one-launch kernels K15-K17 (csrc/fused_kernels.cu): cooperative
 # launches of 512-thread blocks whose stages reuse K2's row task, K3's
-# mirror-pair task and K1's tile.
+# mirror-pair task and K1's tile. K15 and K17 run them only where their
+# persistent kernels (csrc/coop_rows.cuh, step_kernel.coop_rows_plan) do not
+# take the shape.
 # ---------------------------------------------------------------------------
 
 # Floats of step_tile's buffers (csrc kStepTileFloats) in K15 and K17: psi

@@ -25,8 +25,10 @@ values and, unlike the reference (``tpu_qg/ops/multigrid.py:100-127``), take
 extents that are not multiples of 128 (a 192^2 solve works).
 
 Kernel levels: ``MultigridSolver`` routes every level of extent >= 512
-through K10/K11 (``ops/mg_kernels.py``) under ``use_pallas="auto"`` or
-``"on"``, and none under ``"off"`` (the level-op chain). The reference also
+through K10/K11 (``ops/mg_kernels.py``) under ``use_pallas="on"``, under
+``"auto"`` in float32 only (the kernels take float32; a float64 solve takes
+the level-op chain, as the reference's "auto" does off its TPU), and none
+under ``"off"`` (the level-op chain). The reference also
 caps its kernels at the top 3 levels (``tpu_qg/ops/multigrid.py:287-296``):
 on a TPU each kernel level cost a Mosaic compile. On the card a level's
 cost is its launches, one kernel against the chain's dozens of ops, so the
@@ -174,12 +176,18 @@ class MultigridSolver:
     # extent >= 512, with no cap on their number.
     _KERNEL_MIN_EXTENT = 512
 
-    def _kernel_level(self, lvl: int) -> bool:
-        """Whether level ``lvl`` runs K10/K11: under "auto" and "on" every
+    def _kernel_level(self, lvl: int,
+                      dtype: torch.dtype = torch.float32) -> bool:
+        """Whether level ``lvl`` runs K10/K11 on fields of ``dtype``: every
         level of extent >= 512, where the kernels' halo holds nu1 + 1 and
-        nu2; none under "off"."""
+        nu2, under "on", and under "auto" only in float32 (the kernels take
+        float32 alone; the reference's "auto" likewise keeps its kernels
+        off where they cannot run, ``tpu_qg/ops/multigrid.py:299-304``);
+        none under "off". A float64 solve under "on" reaches the kernels,
+        which refuse it on a CUDA device."""
         m, p, _ = self.levels[lvl]
         return (self.use_pallas != "off"
+                and (self.use_pallas == "on" or dtype == torch.float32)
                 and min(m, p) >= self._KERNEL_MIN_EXTENT
                 and max(self.nu1 + 1, self.nu2) <= mg_kernels.MG_MAX_HALO)
 
@@ -188,7 +196,7 @@ class MultigridSolver:
         """nu Jacobi sweeps (+ optional residual) at a level: one K10 launch
         on a kernel level, the level-op chain elsewhere."""
         _, _, h = self.levels[lvl]
-        if self._kernel_level(lvl):
+        if self._kernel_level(lvl, u.dtype):
             return mg_kernels.mg_smooth(u, f, h, self.alphas, nu, residual,
                                         self.omega)
         a = self._alpha.get(u.dtype, u.device)
@@ -201,7 +209,7 @@ class MultigridSolver:
         """Pre-smooth + residual + restriction: one K10 launch (restrict
         form) on a kernel level where the kernels' halo holds nu1 + 2."""
         _, _, h = self.levels[lvl]
-        if (self._kernel_level(lvl)
+        if (self._kernel_level(lvl, u.dtype)
                 and self.nu1 + 2 <= mg_kernels.MG_MAX_HALO):
             return mg_kernels.mg_smooth(u, f, h, self.alphas, self.nu1, True,
                                         self.omega, restrict=True)
@@ -215,7 +223,7 @@ class MultigridSolver:
         u, rc = self._smooth_restrict(lvl, u, f)
         ec = self._vcycle(lvl + 1, torch.zeros_like(rc), rc)
         _, _, h = self.levels[lvl]
-        if self._kernel_level(lvl):
+        if self._kernel_level(lvl, u.dtype):
             # Coarse correction + post-smooth in one K11 launch.
             return mg_kernels.mg_prolong_smooth(u, ec, f, h, self.alphas,
                                                 self.nu2, self.omega)

@@ -17,12 +17,16 @@ copies) on P % 4 == 0 with 16-byte aligned operands, counted also in
 ``fused_step.rows_launches`` and ``fused_step_sharded.rows_launches``, and
 the tile design of K8 (``fused_step_tile``, ``fused_step_sharded_tile``)
 on any other shape. K15 replaces ``fused_step_streamed_yspec``
-(v5): K1 with psi in, and zeta_new also out, as permuted y-spectra — one
-cooperative launch of ``csrc/fused_kernels.cu`` (inverse-y, the step, and
-forward-y as stages; design there). K17 replaces
-``tpu_qg/ops/pallas_fullstep.py`` ``fused_step_full``: the step, then the
-whole packed inversion of zeta_new (K16's stages), in one cooperative launch
-of the same source.
+(v5): K1 with psi in, and zeta_new also out, as permuted y-spectra, in one
+cooperative launch (inverse-y, the step, and forward-y as stages). K17
+replaces ``tpu_qg/ops/pallas_fullstep.py`` ``fused_step_full``: the step,
+then the whole packed inversion of zeta_new, in one cooperative launch. Each
+has two kernels chosen by shape: the persistent kernel of
+``csrc/coop_rows.cuh`` (``fused_step_yspec_rows``, ``fused_step_full_rows``),
+whose stages loop over the units of the redesigned K1, K2 and K3, where
+``coop_rows_takes``, counted also in ``rows_launches``; and the first form of
+``csrc/fused_kernels.cu`` (``fused_step_yspec_coop``,
+``fused_step_full_coop``) on the rest.
 
 K12 (``fused_step_sharded``) replaces ``fused_step_streamed_sharded``
 and K15's sharded form (``fused_step_yspec_sharded``)
@@ -51,6 +55,7 @@ import torch
 
 from ..config import ModelConfig
 from . import _build
+from . import dft_kernels
 from .dft_kernels import (check_consts, coop_launch_args,
                           mono_invert_plain, y_dft_plain)
 from .spectral import symbol_consts
@@ -208,6 +213,11 @@ def _lib():
         _build.declare(lib.qg_yspec_sharded_launch,
                        [p] * 9 + [i, i, p, p, p] + [p] * 4
                        + [i, p, p, i, p, p])
+        _build.declare(lib.qg_yspec_rows_launch,
+                       [p] * 9 + [i, i, p, p, i, p, p])
+        _build.declare(lib.qg_fullstep_rows_launch,
+                       [p] * 9 + [i, i] + [p] * 6 + [i, p, p])
+        lib.qg_coop_rows_plan_size.restype = ctypes.c_int
         lib.qg_step_num_consts.restype = ctypes.c_int
         lib.qg_modal_num_consts.restype = ctypes.c_int
     return lib
@@ -735,16 +745,15 @@ def fused_pre_inversion(cfg: ModelConfig, zeta: torch.Tensor,
 fused_pre_inversion.launches = 0
 
 
-def fused_step_yspec(cfg: ModelConfig, zeta: torch.Tensor,
-                     psi_ys: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
-                     step: int):
-    """K15 on CUDA tensors (one cooperative launch), the plain version on
-    CPU tensors. ``psi_ys`` is the permuted y-spectrum of the packed
-    psi_1 + i psi_2 (what K3 or K5 writes). Returns (zeta_new, carry,
-    zeta_ys), zeta_ys the permuted y-spectrum of the packed zeta_new (what
-    K2 forward writes)."""
-    if zeta.device.type == "cpu":
-        return fused_step_yspec_plain(cfg, zeta, psi_ys, f1, f2, step)
+def fused_step_yspec_coop(cfg: ModelConfig, zeta: torch.Tensor,
+                          psi_ys: torch.Tensor, f1: torch.Tensor,
+                          f2: torch.Tensor, step: int):
+    """One launch of K15's first form (csrc/fused_kernels.cu
+    coop_yspec_kernel: the first stage bodies in 512-thread blocks) on CUDA
+    tensors: fused_step_yspec's kernel on the shapes coop_rows_takes
+    refuses.
+    Returns (zeta_new, carry, zeta_ys); counts nothing, records its grid in
+    ``fused_step_yspec.grid``."""
     _check_two_layer_step("fused_step_yspec", cfg, zeta, psi_ys, f1, f2)
     lib = _lib()
     consts = _checked_consts(cfg, lib, "fused_step_yspec")
@@ -759,13 +768,37 @@ def fused_step_yspec(cfg: ModelConfig, zeta: torch.Tensor,
         int(cfg.time_scheme == "leapfrog_ra"), int(step), plan, twy, twny,
         smem, info, torch.cuda.current_stream(zeta.device).cuda_stream)
     _build.check(code, "fused_step_yspec (K15)")
-    fused_step_yspec.launches += 1
     fused_step_yspec.grid = tuple(info)
     return zeta_new, carry, zeta_ys
 
 
+def fused_step_yspec(cfg: ModelConfig, zeta: torch.Tensor,
+                     psi_ys: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
+                     step: int):
+    """K15 on CUDA tensors (one cooperative launch), the plain version on
+    CPU tensors. ``psi_ys`` is the permuted y-spectrum of the packed
+    psi_1 + i psi_2 (what K3 or K5 writes). Returns (zeta_new, carry,
+    zeta_ys), zeta_ys the permuted y-spectrum of the packed zeta_new (what
+    K2 forward writes). Two hand-written kernels chosen by shape: the
+    persistent kernel on the redesigned stages (fused_step_yspec_rows)
+    where coop_rows_takes, counted also in ``fused_step_yspec.rows_launches``;
+    the first form (fused_step_yspec_coop) on the rest."""
+    if zeta.device.type == "cpu":
+        return fused_step_yspec_plain(cfg, zeta, psi_ys, f1, f2, step)
+    if coop_rows_takes(cfg.M, cfg.P, False, zeta, psi_ys, f1, f2,
+                       *_wind_operand(cfg, zeta)):
+        out = fused_step_yspec_rows(cfg, zeta, psi_ys, f1, f2, step)
+        fused_step_yspec.rows_launches += 1
+    else:
+        out = fused_step_yspec_coop(cfg, zeta, psi_ys, f1, f2, step)
+    fused_step_yspec.launches += 1
+    return out
+
+
 fused_step_yspec.launches = 0
+fused_step_yspec.rows_launches = 0
 fused_step_yspec.grid = None
+fused_step_yspec.rows_grid = None
 
 
 def _check_sharded(what: str, cfg: ModelConfig, fields, slabs):
@@ -920,19 +953,19 @@ def fused_step_full_plain(cfg: ModelConfig, zeta: torch.Tensor,
                                               packed_symbol_consts(cfg))
 
 
-def fused_step_full(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
-                    f1: torch.Tensor, f2: torch.Tensor, step: int):
-    """K17 on CUDA tensors (one cooperative launch: K1's tendency and update
-    on every tile, then K16's three stages on the packed zeta_new), the plain
-    version on CPU tensors. Replaces ``tpu_qg/ops/pallas_fullstep.py``
-    ``fused_step_full``. Returns (zeta_new, carry, psi_new)."""
-    if zeta.device.type == "cpu":
-        return fused_step_full_plain(cfg, zeta, psi, f1, f2, step)
+def fused_step_full_coop(cfg: ModelConfig, zeta: torch.Tensor,
+                         psi: torch.Tensor, f1: torch.Tensor,
+                         f2: torch.Tensor, step: int):
+    """One launch of K17's first form (csrc/fused_kernels.cu
+    coop_fullstep_kernel: the first stage bodies in 512-thread blocks) on CUDA
+    tensors: fused_step_full's kernel on the shapes coop_rows_takes refuses.
+    Returns (zeta_new, carry, psi_new); counts nothing, records its grid in
+    ``fused_step_full.grid``."""
     _check_two_layer_step("fused_step_full", cfg, zeta, psi, f1, f2)
     lib = _lib()
     consts = _checked_consts(cfg, lib, "fused_step_full")
     sym = check_consts("fused_step_full", packed_symbol_consts(cfg), cfg.M,
-                        cfg.P)
+                       cfg.P)
     plan, smem, tw, (own, mirror), info = coop_launch_args(
         "fused_step_full", cfg.M, cfg.P, True, zeta.device)
     wind = _wind_row(cfg, zeta.device)
@@ -945,10 +978,316 @@ def fused_step_full(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
         own.data_ptr(), mirror.data_ptr(), smem, info,
         torch.cuda.current_stream(zeta.device).cuda_stream)
     _build.check(code, "fused_step_full (K17)")
-    fused_step_full.launches += 1
     fused_step_full.grid = tuple(info)
     return zeta_new, carry, psi_new
 
 
+def fused_step_full(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
+                    f1: torch.Tensor, f2: torch.Tensor, step: int):
+    """K17 on CUDA tensors (one cooperative launch: the step, then the
+    packed inversion of zeta_new), the plain version on CPU tensors.
+    Replaces ``tpu_qg/ops/pallas_fullstep.py`` ``fused_step_full``.
+    Returns (zeta_new, carry, psi_new). Two hand-written kernels chosen by
+    shape: the persistent cluster kernel on the redesigned stages
+    (fused_step_full_rows) where coop_rows_takes, counted also in
+    ``fused_step_full.rows_launches``; the first form
+    (fused_step_full_coop) on the rest."""
+    if zeta.device.type == "cpu":
+        return fused_step_full_plain(cfg, zeta, psi, f1, f2, step)
+    if coop_rows_takes(cfg.M, cfg.P, True, zeta, psi, f1, f2,
+                       *_wind_operand(cfg, zeta)):
+        out = fused_step_full_rows(cfg, zeta, psi, f1, f2, step)
+        fused_step_full.rows_launches += 1
+    else:
+        out = fused_step_full_coop(cfg, zeta, psi, f1, f2, step)
+    fused_step_full.launches += 1
+    return out
+
+
 fused_step_full.launches = 0
+fused_step_full.rows_launches = 0
 fused_step_full.grid = None
+fused_step_full.rows_grid = None
+
+
+# ---------------------------------------------------------------------------
+# K15 and K17 on the redesigned stages (csrc/coop_rows.cuh): persistent
+# cooperative kernels whose stages loop over K1's row units, K2's factored
+# row groups and (K17) K3's cluster tile pairs.
+# ---------------------------------------------------------------------------
+
+# The step stage's units: K1's row-streaming layout (W, R, D, NT) with W =
+# 256, D = 8 (K1's launched layout at 2048^2) and R that of K1's launched
+# layout at M; two 128-thread units a 256-thread block, each with its own
+# ring (csrc coop_rows.cuh). The source instantiates this (W, D, NT) alone.
+COOP_ROWS_STEP = (256, 8, 128)
+COOP_ROWS_THREADS = 256
+
+
+class CoopRowsPlan(NamedTuple):
+    """A persistent one-launch kernel's plan (csrc RowsPlan): ``ints`` in
+    RowsPlan order (M, P, R, y N2, log2 Rb, y's packed mixed plan or 0, x
+    N2, log2 G, log2 Cw, tile pairs, x's packed plan or 0, the y-spectrum's
+    N1, the stages run: all, 4 or 3); each stage's layout (``step`` (W, R, D, NT), ``y`` K2's (Rb,
+    threads), ``x`` K3's (G, Cw) or None) and bytes of shared memory for
+    the largest stage."""
+    ints: tuple
+    step: tuple
+    y: tuple
+    x: tuple | None
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def coop_rows_plan(M: int, P: int, x_stage: bool) -> CoopRowsPlan:
+    """The plan of K17 (``x_stage``) or K15 at (M, P): every stage in its
+    separate kernel's launched layout (K1's R, K2's y_dft_factored_launched,
+    K3's pair_x_cluster_launched), shared memory the largest of two step
+    units' rings, K2's block and K3's block. Raises where a stage's kernel
+    does not take the shape (coop_rows_takes says where)."""
+    if not coop_rows_shape(M, P, x_stage):
+        raise ValueError(f"the persistent one-launch kernels do not take "
+                         f"({M}, {P}) (x stage: {x_stage})")
+    W, D, NT = COOP_ROWS_STEP
+    step = (W, step_rows_launched(M)[1], D, NT)
+    rb, threads = dft_kernels.y_dft_factored_launched(P)
+    n2y = P // 128
+    smem = max(2 * step_rows_layout(step).smem,
+               dft_kernels.y_dft_factored_layout(P, rb, threads).smem)
+    yplan = dft_kernels._packed_plan(n2y) if dft_kernels._mixed(P) else 0
+    x, xints = None, (0, 0, 0, 0, 0)
+    if x_stage:
+        G, Cw = dft_kernels.pair_x_cluster_launched(M)
+        n2x = M // 128
+        tiles = dft_kernels.x_symbols_cluster_tiles(P, Cw)[0].shape[0]
+        smem = max(smem, dft_kernels.pair_x_cluster_layout(M, G, Cw).smem)
+        x = (G, Cw)
+        xints = (n2x, G.bit_length() - 1, Cw.bit_length() - 1, tiles,
+                 dft_kernels._packed_plan(n2x) if dft_kernels._mixed(M)
+                 else 0)
+    ints = (M, P, step[1], n2y, rb.bit_length() - 1, yplan, *xints,
+            dft_kernels.split_factor(P)[0], 4 if x_stage else 3)
+    return CoopRowsPlan(ints, step, (rb, threads), x, smem)
+
+
+@functools.lru_cache(maxsize=1024)
+def coop_rows_shape(M: int, P: int, x_stage: bool) -> bool:
+    """True iff every stage's redesigned kernel takes (M, P): K1's row
+    kernel (P % 4 == 0), K2's factored or mixed-radix kernel at P in its
+    256-thread layout, and, with the x stage, K3's cluster or mixed cluster
+    kernel at M; and the largest stage's shared memory fits a block."""
+    if not (P % 4 == 0 and dft_kernels.y_dft_factored_takes(P)
+            and dft_kernels.y_dft_factored_launched(P)[1] == COOP_ROWS_THREADS):
+        return False
+    if x_stage and not dft_kernels.pair_x_cluster_takes(M):
+        return False
+    W, D, NT = COOP_ROWS_STEP
+    smem = max(2 * step_rows_layout((W, 1, D, NT)).smem,
+               dft_kernels.y_dft_factored_layout(
+                   P, *dft_kernels.y_dft_factored_launched(P)).smem)
+    if x_stage:
+        smem = max(smem, dft_kernels.pair_x_cluster_layout(
+            M, *dft_kernels.pair_x_cluster_launched(M)).smem)
+    return smem <= dft_kernels.SMEM_LIMIT
+
+
+def coop_rows_takes(M: int, P: int, x_stage: bool,
+                    *tensors: torch.Tensor) -> bool:
+    """True iff K17's (``x_stage``) or K15's persistent kernel takes an
+    (M, P) step with these operands: the shape (coop_rows_shape) and K1's
+    row kernel's operands (step_rows_takes: every operand 16-byte
+    aligned); the first forms keep the rest."""
+    return (coop_rows_shape(M, P, x_stage)
+            and step_rows_takes(P, *tensors))
+
+
+def coop_rows_schedule(M: int, P: int, x_stage: bool, blocks: int) -> dict:
+    """The units each stage's loop runs on ``blocks`` blocks, as csrc
+    coop_rows.cuh's loops take them: "step" maps (block, half) to its K1
+    units (strip, run, layer), unit u = strip + strips (run + runs layer)
+    taken by half u mod 2 of block u div 2 mod blocks, ... (R from
+    coop_rows_unit_rows, so that every unit runs in one round); "y" maps a
+    block to its K2 row groups (group g by block g mod blocks); "x" (K17)
+    maps a cluster (blocks / G of them) to its K3 tile pairs. Each stage's
+    ``units`` lists its separate kernel's units in launch order."""
+    plan = coop_rows_plan(M, P, x_stage)
+    W, _, _, NT = plan.step
+    per = COOP_ROWS_THREADS // NT
+    strips = -(-P // W)
+    R = coop_rows_unit_rows(plan, blocks)
+    runs = -(-M // R)
+    step_units = [(u % strips, (u // strips) % runs, u // (strips * runs))
+                  for u in range(2 * strips * runs)]
+    step = {}
+    for b in range(blocks):
+        for h in range(per):
+            step[(b, h)] = [step_units[u] for u in
+                            range(b * per + h, len(step_units), blocks * per)]
+    groups = -(-M // plan.y[0])
+    out = {"step": step, "step_units": step_units,
+           "y": {b: list(range(b, groups, blocks)) for b in range(blocks)},
+           "y_units": list(range(groups))}
+    if x_stage:
+        G = plan.x[0]
+        clusters = blocks // G
+        tiles = plan.ints[9]
+        out["x"] = {k: list(range(k, tiles, clusters))
+                    for k in range(clusters)}
+        out["x_units"] = list(range(tiles))
+    return out
+
+
+def coop_rows_unit_rows(plan: CoopRowsPlan, blocks: int) -> int:
+    """The rows of a step unit on ``blocks`` blocks (csrc unit_rows): K1's
+    launched R, or more, so that the units, two a block, all run in one
+    round."""
+    M, P, R = plan.ints[:3]
+    W, _, _, NT = plan.step
+    runs = max(1, blocks * (COOP_ROWS_THREADS // NT) // (2 * -(-P // W)))
+    return max(R, -(-M // runs))
+
+
+def _wind_operand(cfg: ModelConfig, zeta: torch.Tensor) -> tuple:
+    wind = _wind_row(cfg, zeta.device)
+    return () if wind is None else (wind,)
+
+
+def _rows_plan_array(lib, what: str, plan: CoopRowsPlan,
+                     stages: int | None) -> ctypes.Array:
+    if len(plan.ints) != lib.qg_coop_rows_plan_size():
+        raise RuntimeError(f"{what}: plan does not match the compiled kernel")
+    ints = plan.ints if stages is None else plan.ints[:-1] + (stages,)
+    return (ctypes.c_int * len(ints))(*ints)
+
+
+def fused_step_yspec_rows(cfg: ModelConfig, zeta: torch.Tensor,
+                          psi_ys: torch.Tensor, f1: torch.Tensor,
+                          f2: torch.Tensor, step: int,
+                          stages: int | None = None):
+    """One launch of the persistent K15 (csrc coop_yspec_rows_kernel) on
+    CUDA tensors: inverse-y by K2's factored body, the step by K1's row
+    units, forward-y by K2's factored body, grid barriers between them.
+    Returns (zeta_new, carry, zeta_ys): fused_step_yspec's result. Raises
+    on a shape or operand the kernel does not take (coop_rows_takes) and on
+    a launch the card refuses; counts nothing, records (blocks, clusters,
+    blocks an SM, the step units' rows R) in ``fused_step_yspec.rows_grid``. ``stages`` < 3 stops
+    after that many stages (1: zeta_ys holds natural psi; 2: zeta_new and
+    the carry are final), to check a stage alone.
+
+    Replaces ``tpu_qg/ops/pallas_tendency.py:839``
+    fused_step_streamed_yspec. Bound: seven (2, M, P) fields (235 MB at
+    2048^2, 0.070 ms; 3758 MB at 8192^2, 1.122 ms). Why: the first form
+    runs the first stage bodies and loses to the redesigned kernels it
+    fuses (PERF.md)."""
+    what = "fused_step_yspec_rows (K15)"
+    _check_two_layer_step(what, cfg, zeta, psi_ys, f1, f2)
+    wind = _wind_row(cfg, zeta.device)
+    if not coop_rows_takes(cfg.M, cfg.P, False, zeta, psi_ys, f1, f2,
+                           *_wind_operand(cfg, zeta)):
+        raise ValueError(f"{what}: ({cfg.M}, {cfg.P}) or its operands are "
+                         f"not taken (coop_rows_takes)")
+    lib = _lib()
+    consts = _checked_consts(cfg, lib, what)
+    plan = coop_rows_plan(cfg.M, cfg.P, False)
+    zeta_new, carry, zeta_ys = (torch.empty_like(zeta) for _ in range(3))
+    info = (ctypes.c_int * 4)()
+    code = lib.qg_yspec_rows_launch(
+        zeta.data_ptr(), psi_ys.data_ptr(), f1.data_ptr(), f2.data_ptr(),
+        None if wind is None else wind.data_ptr(), zeta_new.data_ptr(),
+        carry.data_ptr(), zeta_ys.data_ptr(), consts,
+        int(cfg.time_scheme == "leapfrog_ra"), int(step),
+        _rows_plan_array(lib, what, plan, stages),
+        dft_kernels._twiddles(cfg.P, cfg.P, zeta.device).data_ptr(),
+        plan.smem, info, torch.cuda.current_stream(zeta.device).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code} at launch")
+    fused_step_yspec.rows_grid = tuple(info)
+    return zeta_new, carry, zeta_ys
+
+
+def fused_step_full_rows(cfg: ModelConfig, zeta: torch.Tensor,
+                         psi: torch.Tensor, f1: torch.Tensor,
+                         f2: torch.Tensor, step: int,
+                         stages: int | None = None):
+    """One launch of the persistent K17 (csrc coop_fullstep_rows_kernel) on
+    CUDA tensors, clustered by K3's G: the step by K1's row units,
+    forward-y by K2's factored body, the x stage by K3's cluster tile
+    pairs, inverse-y, grid barriers between them. Returns (zeta_new, carry,
+    psi_new): fused_step_full's result. Raises on a shape or operand the
+    kernel does not take (coop_rows_takes), on a layout with no resident
+    cluster and on a launch the card refuses; counts nothing, records
+    (blocks, clusters, blocks an SM, the step units' rows R) in
+    ``fused_step_full.rows_grid``.
+    ``stages`` < 4 stops after that many stages (psi_new then holds the
+    y-spectrum of zeta_new (2) or the x stage's output (3)), to check a
+    stage alone.
+
+    Replaces ``tpu_qg/ops/pallas_fullstep.py:308`` fused_step_full. Bound:
+    seven (2, M, P) fields (235 MB at 2048^2, 0.070 ms). Why: the first
+    form runs the first stage bodies and loses to the four redesigned
+    kernels it fuses (PERF.md)."""
+    what = "fused_step_full_rows (K17)"
+    _check_two_layer_step(what, cfg, zeta, psi, f1, f2)
+    wind = _wind_row(cfg, zeta.device)
+    if not coop_rows_takes(cfg.M, cfg.P, True, zeta, psi, f1, f2,
+                           *_wind_operand(cfg, zeta)):
+        raise ValueError(f"{what}: ({cfg.M}, {cfg.P}) or its operands are "
+                         f"not taken (coop_rows_takes)")
+    lib = _lib()
+    consts = _checked_consts(cfg, lib, what)
+    sym = check_consts(what, packed_symbol_consts(cfg), cfg.M, cfg.P)
+    plan = coop_rows_plan(cfg.M, cfg.P, True)
+    own, mirror = dft_kernels._device_cluster_tiles(cfg.P, plan.x[1],
+                                                    zeta.device)
+    zeta_new, carry, psi_new = (torch.empty_like(zeta) for _ in range(3))
+    info = (ctypes.c_int * 4)()
+    code = lib.qg_fullstep_rows_launch(
+        zeta.data_ptr(), psi.data_ptr(), f1.data_ptr(), f2.data_ptr(),
+        None if wind is None else wind.data_ptr(), zeta_new.data_ptr(),
+        carry.data_ptr(), psi_new.data_ptr(), consts,
+        int(cfg.time_scheme == "leapfrog_ra"), int(step),
+        _rows_plan_array(lib, what, plan, stages), sym,
+        dft_kernels._twiddles(cfg.P, cfg.P, zeta.device).data_ptr(),
+        dft_kernels._twiddles(cfg.M, cfg.M, zeta.device).data_ptr(),
+        own.data_ptr(), mirror.data_ptr(), plan.smem, info,
+        torch.cuda.current_stream(zeta.device).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code} at launch")
+    fused_step_full.rows_grid = tuple(info)
+    return zeta_new, carry, psi_new
+
+
+def fused_step_yspec_rows_emulated(cfg: ModelConfig, zeta: torch.Tensor,
+                                   psi_ys: torch.Tensor, f1: torch.Tensor,
+                                   f2: torch.Tensor, step: int):
+    """What the persistent K15 computes, stage by stage, in plain torch
+    with each stage's index maps: y_dft_factored_emulated's inverse, the
+    row kernel's emulation (fused_step_rows_emulated) in the step stage's
+    layout, y_dft_factored_emulated's forward. Returns (zeta_new, carry,
+    zeta_ys, bad_reads) (bad_reads: the step emulation's count of ring
+    reads that missed their row)."""
+    plan = coop_rows_plan(cfg.M, cfg.P, False)
+    psi = dft_kernels.y_dft_factored_emulated(psi_ys, True)
+    zeta_new, carry, _, bad = fused_step_rows_emulated(
+        cfg, zeta, psi, f1, f2, step, plan.step)
+    return (zeta_new, carry,
+            dft_kernels.y_dft_factored_emulated(zeta_new, False), bad)
+
+
+def fused_step_full_rows_emulated(cfg: ModelConfig, zeta: torch.Tensor,
+                                  psi: torch.Tensor, f1: torch.Tensor,
+                                  f2: torch.Tensor, step: int):
+    """What the persistent K17 computes, stage by stage, in plain torch
+    with each stage's index maps: the row kernel's emulation in the step
+    stage's layout, y_dft_factored_emulated's forward, K3's cluster
+    emulation (pair_x_cluster_emulated) in the x stage's layout (G, Cw), and
+    y_dft_factored_emulated's inverse. Returns (zeta_new, carry, psi_new,
+    bad_reads)."""
+    plan = coop_rows_plan(cfg.M, cfg.P, True)
+    zeta_new, carry, _, bad = fused_step_rows_emulated(
+        cfg, zeta, psi, f1, f2, step, plan.step)
+    zy = dft_kernels.y_dft_factored_emulated(zeta_new, False)
+    x, _, _ = dft_kernels.pair_x_cluster_emulated(
+        zy, packed_symbol_consts(cfg), *plan.x)
+    return (zeta_new, carry, dft_kernels.y_dft_factored_emulated(x, True),
+            bad)
