@@ -11,8 +11,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 3. kernels — each kernel against its plain torch version on the card, on
    inputs made from a numpy seed: K1 (step, each launch by its
    row-streaming kernel, counted), K2 (y-DFT), K3 (mirror-pair
-   x-kernel), K16 (the inversion in one launch), K17 (the step in one
-   launch) and K15 (the y-fused chain's step) at (2, 2048, 2048); K3 also
+   x-kernel), K16 (the inversion in one launch, by its persistent
+   kernel), K17 (the step in one launch) and K15 (the y-fused chain's
+   step) at (2, 2048, 2048); K3 also
    at (2, 1024, 1024) and (2, 2048, 384) (its cluster kernel, counted), as
    "K3 mixed" at (2, 2432, 2048), (2, 1664, 256), (2, 896, 256) and (2,
    2304, 384) (its mixed cluster kernel, the mixed count checked) and at
@@ -91,16 +92,19 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    (step_kernel), K18 base and a copy of three fields, and K12's
    row-streaming kernel on the one-rank block (2, n, n) beside its tile
    kernel, bitwise K1 (k1_sweep); K17
-   at (2, 6272, 128) (the x-stage's sequential groups, its first form). K17
-   and K15 by their persistent kernels (csrc/coop_rows.cuh) at COOP_SWEEP's
-   grids (K17 2048^2, 1536^2, 2560^2; K15 2048^2, 3072^2, 8192^2): bitwise
-   the separate routes (K1 -> K2 -> K3 -> K2^-1; K2^-1 -> K1 -> K2), within
-   TOL of the first forms and the plain versions (psi_new against float64
-   where 1/lambda lifts it past TOL), the launch grid (blocks, clusters,
-   blocks an SM, the step units' rows), the grid barrier and the ptxas
-   lines, graph-replayed in
+   at (2, 6272, 128) (the x-stage's sequential groups, its first form). K17,
+   K15, K16 and K15's sharded form by their persistent kernels
+   (csrc/coop_rows.cuh) at COOP_SWEEP's grids (K17 2048^2, 1536^2, 2560^2;
+   K15 2048^2, 3072^2, 8192^2; K16 2048^2, 1536^2; K15s on the blocks
+   (2, 2048, 2048) and (2, 512, 2048)): bitwise the separate routes (K1 ->
+   K2 -> K3 -> K2^-1; K2^-1 -> K1 -> K2; K2 -> K3 -> K2^-1; K2^-1 of the
+   block and of each psi slab -> K12 -> K2), within TOL of the first forms
+   and the plain versions (psi against float64 where 1/lambda lifts it
+   past TOL), the launch grid (blocks, clusters, blocks an SM, the step
+   units' rows), the grid barrier and the ptxas lines, graph-replayed in
    turns beside the first form, the separate route and a copy of the same
-   bytes (coop_sweep). On
+   bytes (K15s on (2, 512, 2048) also host-launched and its host enqueue
+   ms: coop_sweep). On
    the real zeta of a grid-noise psi the inversions (K3; K16; K5; the
    four-pass K2 -> K4 -> K5 -> K2^-1) are held against float64. K10 (the
    multigrid smoother: restrict, residual and smooth-only forms) and K11
@@ -125,7 +129,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    every path below, by its factored kernel, every K3 launch by its
    cluster kernel, every K1 launch, here and below, by its row-streaming
    kernel, "K1 rows" = K1), with the pin gauge (100: K8), with
-   fft_mono="on" (100: K1, K16), step_full="on" (100: K17, every launch
+   fft_mono="on" (100: K1, K16, every K16 launch by its persistent kernel,
+   "K16 rows" = K16), step_full="on" (100: K17, every launch
    by its persistent kernel, "K17 rows" = K17) and step_chain="on" (100:
    K15, the same, "K15 rows" = K15, K3,
    K2 at the ends of each run call; the same);
@@ -172,11 +177,12 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    turbulence-2048 (100 steps: K12, K2, K3, every K3 launch by its cluster
    kernel), pod-8192 (20: K12, K2, K4, K5, every K4 and K5 launch by its
    cluster kernel) and turbulence-2048 with step_chain="on" (20: K15
-   sharded, K3 (the same), K2
+   sharded, every launch by its persistent kernel, "K15s rows" = K15s, K3
+   (the same), K2
    at the ends), zeta within 1e-6; then four spawned ranks sharing cuda:0
    on gloo (the kernels built once, here, before they start): (4, 1)
    turbulence-2048 (10 steps: K12, K2, K14), its chain (10: K15 sharded,
-   K14), (2, 2) turbulence-2048 (10: K12, K2, K13) and (4, 1) pod-8192 (5:
+   "K15s rows" = K15s, K14), (2, 2) turbulence-2048 (10: K12, K2, K13) and (4, 1) pod-8192 (5:
    K12, K2, K13), the counts checked on every rank, zeta and psi gathered
    to rank 0 and zeta held within 1e-4 of the single-device route (else
    the float64 rule), every K13 and K14 launch by the block kernel ("K13
@@ -245,7 +251,8 @@ from tpu_qg_torch.constants import DAY
 from tpu_qg_torch.models.core import QGModel, State, init_state
 from tpu_qg_torch.ops import _build, dft_kernels
 from tpu_qg_torch.ops.dft_kernels import (
-    mirror_companion, mono_invert, mono_invert_plain, pair_cols_cluster,
+    mirror_companion, mono_invert, mono_invert_coop, mono_invert_plain,
+    mono_invert_rows, mono_rows_plan, mono_rows_takes, pair_cols_cluster,
     pair_cols_cluster_launched, pair_cols_cluster_layout,
     pair_cols_cluster_occupancy, pair_cols_cluster_takes,
     pair_cols_whole_columns, pair_x_cluster, pair_x_cluster_layout,
@@ -290,7 +297,9 @@ from tpu_qg_torch.ops.step_kernel import (HALO_ROWS, fused_pre_inversion,
                                           fused_step_yspec_plain,
                                           fused_step_yspec_rows,
                                           fused_step_yspec_sharded,
+                                          fused_step_yspec_sharded_coop,
                                           fused_step_yspec_sharded_plain,
+                                          fused_step_yspec_sharded_rows,
                                           fused_tendency,
                                           fused_tendency_plain,
                                           step_rows_attributes,
@@ -344,7 +353,7 @@ KERNELS = {
     "K10": ("mg_smooth", MG, "tpu_qg/ops/pallas_mg.py:340"),
     "K11": ("mg_prolong_smooth", MG, "tpu_qg/ops/pallas_mg.py:298"),
     "K15": ("fused_step_yspec", COOP, "tpu_qg/ops/pallas_tendency.py:839"),
-    "K16": ("mono_invert", FUSED, "tpu_qg/ops/pallas_fft.py:1342"),
+    "K16": ("mono_invert", COOP, "tpu_qg/ops/pallas_fft.py:1342"),
     "K17": ("fused_step_full", COOP, "tpu_qg/ops/pallas_fullstep.py:308"),
     "K7": ("stream_pair_symbols", "tpu_qg_torch/csrc/dft_kernels.cu",
            "tpu_qg/ops/pallas_fft.py:1304"),
@@ -354,7 +363,7 @@ KERNELS = {
             "tpu_qg/ops/pallas_fft.py:1204"),
     "K14": ("paired_x_symbols", "tpu_qg_torch/csrc/dft_kernels.cu",
             "tpu_qg/parallel/paired.py:226"),
-    "K15s": ("fused_step_yspec_sharded (K15's sharded form)", FUSED,
+    "K15s": ("fused_step_yspec_sharded (K15's sharded form)", COOP,
              "tpu_qg/ops/pallas_tendency.py:913"),
     "K18": ("lab_step", "tpu_qg_torch/csrc/lab_kernel.cu",
             "tpu_qg/ops/_stencil_lab.py:325"),
@@ -376,9 +385,12 @@ class KernelCount:
     kernel; y_dft.mixed_launches: its mixed-radix form; fused_step.rows_launches and fused_step_sharded.rows_launches:
     K1's and K12's row-streaming kernel; mg_smooth.rows_launches and
     mg_prolong_smooth.rows_launches: K10's and K11's, mg_rows_kernel;
-    fused_step_yspec.rows_launches and fused_step_full.rows_launches: K15's
-    and K17's persistent kernels, coop_yspec_rows_kernel and
-    coop_fullstep_rows_kernel), as a counter with a ``launches`` field."""
+    fused_step_yspec.rows_launches, fused_step_full.rows_launches,
+    mono_invert.rows_launches and fused_step_yspec_sharded.rows_launches:
+    K15's, K17's, K16's and K15's sharded persistent kernels,
+    coop_yspec_rows_kernel, coop_fullstep_rows_kernel,
+    coop_mono_rows_kernel and coop_yspec_sharded_rows_kernel), as a counter
+    with a ``launches`` field."""
 
     def __init__(self, wrapper, attr: str):
         self.wrapper, self.attr = wrapper, attr
@@ -418,7 +430,10 @@ COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
             "K10 rows": KernelCount(mg_smooth, "rows_launches"),
             "K11 rows": KernelCount(mg_prolong_smooth, "rows_launches"),
             "K15 rows": KernelCount(fused_step_yspec, "rows_launches"),
-            "K17 rows": KernelCount(fused_step_full, "rows_launches")}
+            "K17 rows": KernelCount(fused_step_full, "rows_launches"),
+            "K16 rows": KernelCount(mono_invert, "rows_launches"),
+            "K15s rows": KernelCount(fused_step_yspec_sharded,
+                                     "rows_launches")}
 # Kernel names in a profiler trace, the one-launch kernels, the
 # row-streaming K1 and K12, K8, K9, K12 and K18 before K1's tile kernel: a
 # mangled name of any kernel of step_kernel.cu holds the source file's name,
@@ -430,6 +445,8 @@ TRACE_NAMES = (("K12", "step_rows_sharded_kernel"),
                ("K1", "step_rows_kernel"),
                ("K17 rows", "coop_fullstep_rows_kernel"),
                ("K15 rows", "coop_yspec_rows_kernel"),
+               ("K16 rows", "coop_mono_rows_kernel"),
+               ("K15s rows", "coop_yspec_sharded_rows_kernel"),
                ("K17", "coop_fullstep_kernel"), ("K16", "coop_mono_kernel"),
                ("K15s", "coop_yspec_sharded_kernel"),
                ("K15", "coop_yspec_kernel"), ("K12", "step_sharded_kernel"),
@@ -598,7 +615,8 @@ def phase_build() -> None:
              "y_dft_factored_kernel": {}, "y_dft_mixed_kernel": {},
              "mg_rows_kernel": {}, "mg_smooth_kernel": {},
              "mg_prolong_kernel": {}, "coop_yspec_rows_kernel": {},
-             "coop_fullstep_rows_kernel": {}}
+             "coop_fullstep_rows_kernel": {}, "coop_mono_rows_kernel": {},
+             "coop_yspec_sharded_rows_kernel": {}}
     entry = None
     for ln in lines:
         if "Compiling entry function" in ln:
@@ -621,8 +639,9 @@ def phase_build() -> None:
          mg_ptxas={k: named[k] for k in ("mg_rows_kernel",
                                          "mg_smooth_kernel",
                                          "mg_prolong_kernel")},
-         coop_rows_ptxas={k: named[k] for k in ("coop_yspec_rows_kernel",
-                                                "coop_fullstep_rows_kernel")},
+         coop_rows_ptxas={k: named[k] for k in (
+             "coop_yspec_rows_kernel", "coop_fullstep_rows_kernel",
+             "coop_mono_rows_kernel", "coop_yspec_sharded_rows_kernel")},
          step_ptxas=step_ptxas(lines))
     return named
 
@@ -634,7 +653,8 @@ STEP_KERNEL_NAMES = ("step_rows_kernel", "step_rows_sharded_kernel",
                      "pre_inversion_kernel", "tendency_kernel",
                      "lab_step_kernel", "coop_yspec_kernel",
                      "coop_yspec_sharded_kernel", "coop_fullstep_kernel",
-                     "coop_yspec_rows_kernel", "coop_fullstep_rows_kernel")
+                     "coop_yspec_rows_kernel", "coop_fullstep_rows_kernel",
+                     "coop_yspec_sharded_rows_kernel")
 
 
 def step_ptxas(lines) -> dict:
@@ -856,10 +876,11 @@ def phase_kernels(errs, cfg, dev) -> None:
             for part, g, w in zip(("zeta_new", "carry", "modes"), got, want):
                 errs.record("K8", f"L={layers} {case} {part}", g, w)
     emit("kernels", grids={"K15": fused_step_yspec.rows_grid,
-                           "K16": mono_invert.grid,
+                           "K16": mono_invert.rows_grid,
                            "K17": fused_step_full.rows_grid},
          grid_is="(blocks, clusters, blocks an SM, the step units' rows) of "
-         "K15's and K17's persistent kernels, (blocks, blocks an SM) of K16")
+         "K15's and K17's persistent kernels, (blocks, clusters, blocks an "
+         "SM) of K16's")
     torch.cuda.synchronize()
 
 
@@ -1750,140 +1771,246 @@ def phase_k1_sweep(dev, card, sizes=(2048, 8192), reps=(20, 5)) -> dict:
     return out
 
 
-# The persistent K17 and K15 (csrc/coop_rows.cuh) and the grids coop_sweep
-# holds them at: K17 at the slices' 2048^2 and the mixed 1536^2 and 2560^2
-# (the largest square its route gate admits); K15 at 2048^2, the mixed
-# 3072^2 and pod-8192's 8192^2 (its chain).
+# The persistent K17, K15, K16 and K15's sharded form (csrc/coop_rows.cuh)
+# and the grids coop_sweep holds them at: K17 at the slices' 2048^2 and the
+# mixed 1536^2 and 2560^2 (the largest square its route gate admits); K15
+# at 2048^2, the mixed 3072^2 and pod-8192's 8192^2 (its chain); K16 at the
+# mono slice's 2048^2 and the mixed 1536^2; K15s on the row blocks of the
+# 2048^2 mesh chain slices, the one rank's (2, 2048, 2048) and rank 0 of
+# (4, 1)'s (2, 512, 2048) (n: the block's rows).
 COOP_SWEEP = (("K17", 2048), ("K17", 1536), ("K17", 2560), ("K15", 2048),
-              ("K15", 3072), ("K15", 8192))
+              ("K15", 3072), ("K15", 8192), ("K16", 2048), ("K16", 1536),
+              ("K15s", 2048), ("K15s", 512))
 COOP_BARRIER = ("cooperative_groups this_grid().sync() in a cudaLaunchKernelEx "
-                "launch with the cooperative attribute (K17: and a cluster "
-                "dimension of G), every block co-resident")
+                "launch with the cooperative attribute (K17, K16: and a "
+                "cluster dimension of G), every block co-resident")
+# Each persistent kernel's wrapper (its rows_grid), ptxas name and stages.
+COOP_KERNELS = {"K17": (fused_step_full, "coop_fullstep_rows_kernel", 4),
+                "K15": (fused_step_yspec, "coop_yspec_rows_kernel", 3),
+                "K16": (mono_invert, "coop_mono_rows_kernel", 3),
+                "K15s": (fused_step_yspec_sharded,
+                         "coop_yspec_sharded_rows_kernel", 3)}
 
 
-def separate_route(name, cfg, zeta, psi, f1, f2, step):
-    """The separate redesigned kernels that K17 (K1 -> K2 -> K3 -> K2^-1)
-    or K15 (K2^-1 -> K1 -> K2; psi as its y-spectrum) fuses, each by its
-    counting wrapper."""
+def separate_route(name, cfg, zeta, psi, f1, f2, step, sl=None):
+    """The separate redesigned kernels that K17 (K1 -> K2 -> K3 -> K2^-1),
+    K15 (K2^-1 -> K1 -> K2; psi as its y-spectrum) or K15's sharded form
+    (K2^-1 of the block and of the psi slabs of sl -> K12 -> K2) fuses, each
+    by its counting wrapper."""
     if name == "K17":
         zn, carry = fused_step(cfg, zeta, psi, f1, f2, step)
         consts = step_kernel.packed_symbol_consts(cfg)
         return zn, carry, y_dft(pair_x_symbols(y_dft(zn, False), consts),
                                 True)
-    zn, carry = fused_step(cfg, zeta, y_dft(psi, True), f1, f2, step)
+    if name == "K15s":
+        zt, zb, pt, pb = sl
+        zn, carry = fused_step_sharded(cfg, zeta, y_dft(psi, True), f1, f2,
+                                       step, zt, zb, y_dft(pt, True),
+                                       y_dft(pb, True))
+    else:
+        zn, carry = fused_step(cfg, zeta, y_dft(psi, True), f1, f2, step)
     return zn, carry, y_dft(zn, False)
 
 
+def coop_entry(name, n, turb, dev, rng) -> dict:
+    """One COOP_SWEEP entry: ``call(kind, case, **kw)`` runs the persistent
+    kernel ("new"), its first form ("old"), the plain version ("plain") or
+    the separate route ("separate") on a case (a step case of STEP_CASES;
+    K16: a field), returning a tuple of outputs; "cases" the cases checked,
+    "timed" the one timed, "parts" the outputs' names, "shape" the
+    operands', "psi64" (case, plain outputs) -> (float64 psi, the plain
+    version's float32 psi) for a psi part, "plan" the layouts, "takes" the
+    take rule on these operands."""
+    cases = {c: (over, step) for c, over, step in STEP_CASES}
+    if name == "K16":
+        cfg = turb.replace(M=n, P=n)
+        consts = step_kernel.packed_symbol_consts(cfg)
+        fields = {"zeta of a grid-noise psi": init_state(cfg, dev).zeta,
+                  "random field": torch.as_tensor(
+                      rng.standard_normal((2, n, n)), dtype=torch.float32,
+                      device=dev)}
+        fns = {"new": mono_invert_rows, "old": mono_invert_coop,
+               "plain": mono_invert_plain,
+               "separate": lambda z, c: y_dft(pair_x_symbols(
+                   y_dft(z, False), c), True)}
+        plan = mono_rows_plan(n, n)
+        return dict(
+            call=lambda kind, case, **kw: (fns[kind](fields[case], consts,
+                                                     **kw),),
+            cases=list(fields), timed=next(iter(fields)), parts=("psi",),
+            shape=[2, n, n], plan={"y (Rb, threads)": plan.y,
+                                   "x (G, Cw)": plan.x}, smem=plan.smem,
+            psi64=lambda case, plain: (mono_invert_plain(
+                fields[case].double(), consts), plain[0]),
+            takes=mono_rows_takes(n, n, fields["random field"]),
+            operands=fields)
+    x = name == "K17"
+    if name == "K15s":
+        nx = turb.M // n
+        block, ((zt, zb), (pt, pb)), _, _ = sharded_inputs(turb, dev, rng,
+                                                           nx, 0)
+        cfg = turb
+        block[1] = y_dft_plain(block[1], False)
+        sl = (zt, zb, y_dft_plain(pt, False), y_dft_plain(pb, False))
+        M, P = n, turb.P
+        fns = {"new": fused_step_yspec_sharded_rows,
+               "old": fused_step_yspec_sharded_coop,
+               "plain": fused_step_yspec_sharded_plain,
+               "separate": lambda c, *a: separate_route(name, c, *a, sl=sl)}
+        take = coop_rows_takes(M, P, False, *block, *sl)
+
+        def call(kind, case, **kw):
+            over, step = cases[case]
+            extra = () if kind == "separate" else sl
+            return fns[kind](cfg.replace(**over), *block, step, *extra, **kw)
+    else:
+        cfg = turb.replace(M=n, P=n)
+        block = list(step_inputs(cfg, dev, rng))
+        if not x:
+            block[1] = y_dft_plain(block[1], False)
+        M = P = n
+        fns = {"new": fused_step_full_rows if x else fused_step_yspec_rows,
+               "old": fused_step_full_coop if x else fused_step_yspec_coop,
+               "plain": fused_step_full_plain if x else
+               fused_step_yspec_plain,
+               "separate": lambda c, *a: separate_route(name, c, *a)}
+        take = coop_rows_takes(n, n, x, *block)
+
+        def call(kind, case, **kw):
+            over, step = cases[case]
+            return fns[kind](cfg.replace(**over), *block, step, **kw)
+    consts = step_kernel.packed_symbol_consts(cfg)
+    plan = coop_rows_plan(M, P, x)
+    return dict(
+        call=call, timed=STEP_CASES[1][0],
+        cases=[c for c, _, _ in (STEP_CASES if n == 2048 or name == "K15s"
+                                 else STEP_CASES[1:2])],
+        parts=("zeta_new", "carry", "psi_new" if x else "zeta_ys"),
+        shape=[2, M, P], plan={"step (W, R, D, NT)": plan.step,
+                               "y (Rb, threads)": plan.y, "x (G, Cw)": plan.x},
+        smem=plan.smem,
+        psi64=lambda case, plain: (mono_invert_plain(plain[0].double(),
+                                                     consts),
+                                   mono_invert_plain(plain[0], consts)),
+        takes=take, operands=block)
+
+
 def phase_coop_sweep(errs, turb, dev, card, named_ptxas, reps=20) -> dict:
-    """K17 and K15 by their persistent kernels at COOP_SWEEP's grids, on
-    step_inputs (psi as its y-spectrum for K15): bitwise the separate
-    routes (separate_route), on every step case at 2048^2 and on one past
-    the Euler start elsewhere; against the first form (fused_step_full_coop,
-    fused_step_yspec_coop) and the plain version: zeta_new and carry 1e-6,
-    zeta_ys 1e-5, psi_new 1e-4 or, where 1/lambda lifts float32 rounding
-    past that, no less accurate against float64 than twice the first
-    form; the grid (blocks, clusters, blocks an SM), the barrier and the
-    ptxas lines; and ms a launch replayed from a CUDA graph, in turns (in
-    order, then in reverse), beside the first form, the separate route and
-    a copy of the same bytes (a torch copy of 3.5 (2, n, n) fields: seven
-    fields read or written), and at 2048^2 the persistent kernel cut after
-    each of its first stages (its ``stages`` argument). Returns the entries
-    by "name at n^2"."""
+    """K17, K15, K16 and K15's sharded form by their persistent kernels at
+    COOP_SWEEP's grids (coop_entry: step_inputs, psi as its y-spectrum for
+    K15 and K15s, K15s's slabs sliced from the whole fields; K16 on a
+    grid-noise zeta and a random field): bitwise the separate routes
+    (separate_route), on every step case at 2048^2 and on K15s's blocks and
+    on one past the Euler start elsewhere; against the first form
+    (fused_step_full_coop, fused_step_yspec_coop, mono_invert_coop,
+    fused_step_yspec_sharded_coop) and the plain version: zeta_new and carry
+    1e-6, zeta_ys 1e-5, psi_new and K16's psi 1e-4 or, where 1/lambda lifts
+    float32 rounding past that, no less accurate against float64 than
+    twice the plain version; the grid (blocks, clusters, blocks an SM), the
+    barrier and the ptxas lines; and ms a launch replayed from a CUDA graph,
+    in turns (in order, then in reverse), beside the first form, the
+    separate route and a copy of the same bytes (a torch copy of 3.5 (2, M,
+    P) fields, seven fields read or written; K16 one field, two), at 2048^2
+    the persistent kernel cut after each of its first stages (its
+    ``stages`` argument), and on K15s's (2, 512, 2048) block also ms
+    host-launched (CUDA events) and the host's enqueue ms. Returns the
+    entries by "name at n^2" ("K15s at (2, m, P)")."""
     rng = np.random.default_rng(SEED + 21)
     out = {}
     for name, n in COOP_SWEEP:
-        cfg = turb.replace(M=n, P=n)
-        zeta, psi, f1, f2 = step_inputs(cfg, dev, rng)
-        x = name == "K17"
-        if not x:
-            psi = y_dft_plain(psi, False)
-        if not coop_rows_takes(n, n, x, zeta, psi, f1, f2):
-            raise AssertionError(f"{name} at {n}^2: the persistent kernel "
-                                 "does not take the grid")
-        new_fn = fused_step_full_rows if x else fused_step_yspec_rows
-        old_fn = fused_step_full_coop if x else fused_step_yspec_coop
-        plain_fn = fused_step_full_plain if x else fused_step_yspec_plain
-        consts = step_kernel.packed_symbol_consts(cfg)
-        parts = ("zeta_new", "carry", "psi_new" if x else "zeta_ys")
-        cases = STEP_CASES if n == 2048 else STEP_CASES[1:2]
+        e = coop_entry(name, n, turb, dev, rng)
+        call, shape = e["call"], e["shape"]
+        label = (f"{name} at {tuple(shape)}" if name == "K15s"
+                 else f"{name} at {n}^2")
+        if not e["takes"]:
+            raise AssertionError(f"{label}: the persistent kernel does not "
+                                 "take the grid")
+        wrapper, kernel, stages = COOP_KERNELS[name]
         checks = []
-        for case, over, step in cases:
-            c = cfg.replace(**over)
-            got = new_fn(c, zeta, psi, f1, f2, step)
-            sep = separate_route(name, c, zeta, psi, f1, f2, step)
+        for case in e["cases"]:
+            got = call("new", case)
+            sep = call("separate", case)
             bitwise = [bool(torch.equal(g, w)) for g, w in zip(got, sep)]
             if not all(bitwise):
-                raise AssertionError(f"{name} at {n}^2 {case}: not bitwise "
-                                     f"the separate route ({bitwise})")
+                raise AssertionError(f"{label} {case}: not bitwise the "
+                                     f"separate route ({bitwise})")
             del sep
-            old = old_fn(c, zeta, psi, f1, f2, step)
-            plain = plain_fn(c, zeta, psi, f1, f2, step)
+            old = call("old", case)
+            plain = call("plain", case)
             rec = {"case": case, "bitwise_separate": bitwise}
-            for part, g, o, w in zip(parts, got, old, plain):
+            for part, g, o, w in zip(e["parts"], got, old, plain):
                 tol = (TOL["K17 psi_new"] if part == "psi_new" else
                        TOL["K15 zeta_ys"] if part == "zeta_ys" else TOL[name])
                 rel_old, rel_plain = rel_err(g, o)[1], rel_err(g, w)[1]
                 rec[part] = {"rel_vs_first_form": rel_old,
                              "rel_vs_plain": rel_plain, "tol": tol}
-                if part != "psi_new":
-                    errs.record(name, f"{case} {part} at {n}^2 (persistent)",
-                                g, w, tol, quiet=True)
+                if part not in ("psi_new", "psi"):
+                    errs.record(name, f"{case} {part} at {tuple(shape)} "
+                                "(persistent)", g, w, tol, quiet=True)
                     if not rel_old <= tol:
-                        raise AssertionError(f"{name} at {n}^2 {case} {part}: "
+                        raise AssertionError(f"{label} {case} {part}: "
                                              f"{rel_old} from the first form")
                 elif not (rel_old <= tol and rel_plain <= tol):
                     # Both float32; hold both against float64.
-                    ref = mono_invert_plain(plain[0].double(), consts)
+                    ref, p32 = e["psi64"](case, plain)
                     e_new = rel_err(g.double(), ref)[1]
-                    e_old = rel_err(
-                        mono_invert_plain(plain[0], consts).double(), ref)[1]
+                    e_old = rel_err(p32.double(), ref)[1]
                     rec[part].update(rel_float64=e_new,
                                      rel_float64_plain_version=e_old)
                     if not e_new <= 2.0 * e_old:
                         raise AssertionError(
-                            f"{name} at {n}^2 {case} psi_new: float64 error "
-                            f"{e_new} exceeds twice the plain version's "
-                            f"{e_old}")
-                    del ref
+                            f"{label} {case} {part}: float64 error {e_new} "
+                            f"exceeds twice the plain version's {e_old}")
+                    del ref, p32
             checks.append(rec)
             del got, old, plain
-        grid = (fused_step_full if x else fused_step_yspec).rows_grid
-        src = torch.empty((7, n, n), device=dev)
+        grid = wrapper.rows_grid
+        copy_fields = 1 if name == "K16" else 3.5
+        src = torch.empty((int(2 * copy_fields), *shape[1:]), device=dev)
         dst = torch.empty_like(src)
+        case = e["timed"]
         calls = {
-            "persistent": lambda: new_fn(cfg, zeta, psi, f1, f2, 5),
-            "first form": lambda: old_fn(cfg, zeta, psi, f1, f2, 5),
-            "separate route": lambda: separate_route(name, cfg, zeta, psi,
-                                                     f1, f2, 5),
+            "persistent": lambda: call("new", case),
+            "first form": lambda: call("old", case),
+            "separate route": lambda: call("separate", case),
             "copy": lambda: dst.copy_(src)}
         if n == 2048:
             # The first k stages alone (the plan's stage count), so that
             # the differences read each stage and its grid barrier.
-            for k in range(1, len(parts) + (1 if x else 0)):
+            for k in range(1, stages):
                 calls[f"stages 1-{k}"] = (
-                    lambda k=k: new_fn(cfg, zeta, psi, f1, f2, 5, stages=k))
-        r = reps if n <= 3072 else 5
+                    lambda k=k: call("new", case, stages=k))
+        r = reps if shape[1] * shape[2] <= 3072 ** 2 else 5
         runs = {k: [] for k in calls}
         for k in list(calls) + list(calls)[::-1]:
             runs[k].append(graph_ms(calls[k], r))
         ms = {k: sum(v) / 2 for k, v in runs.items()}
-        plan = coop_rows_plan(n, n, x)
-        b = bound(name, n, n)[0]
-        entry = dict(kernel=name, grid=[2, n, n], card=card, checks=checks,
+        b = bound(name, shape[1], shape[2])[0]
+        entry = dict(kernel=name, grid=shape, card=card, checks=checks,
                      launch_grid=dict(zip(("blocks", "clusters",
                                            "blocks_per_sm", "step_rows"),
                                           grid)),
-                     barrier=COOP_BARRIER,
-                     layouts={"step (W, R, D, NT)": plan.step,
-                              "y (Rb, threads)": plan.y,
-                              "x (G, Cw)": plan.x},
-                     smem=plan.smem, graph_ms=ms, graph_runs_ms=runs,
-                     bound_ms=b, share=b / ms["persistent"],
-                     ptxas=named_ptxas["coop_fullstep_rows_kernel" if x else
-                                       "coop_yspec_rows_kernel"])
+                     barrier=COOP_BARRIER, layouts=e["plan"], smem=e["smem"],
+                     graph_ms=ms, graph_runs_ms=runs, bound_ms=b,
+                     share=b / ms["persistent"], ptxas=named_ptxas[kernel])
+        if name == "K16":
+            entry["x_tile_pairs"] = mono_rows_plan(n, n).ints[9]
+        if name == "K15s" and n != turb.M:
+            # A small block: the host's cost of a launch may pass the
+            # device's time.
+            host = {k: [] for k in ("persistent", "first form",
+                                    "separate route")}
+            events = {k: [] for k in host}
+            for k in list(host) + list(host)[::-1]:
+                events[k].append(time_ms(calls[k], 2 * reps))
+                host[k].append(host_enqueue(calls[k], 2 * reps))
+            entry.update(host_launched_ms={k: sum(v) / 2
+                                           for k, v in events.items()},
+                         host_enqueue_ms={k: sum(v) / 2
+                                          for k, v in host.items()})
         emit("coop_sweep", **entry)
-        out[f"{name} at {n}^2"] = entry
-        del zeta, psi, f1, f2, src, dst, calls
+        out[label] = entry
+        del e, call, src, dst, calls
         free_memory()
     return out
 
@@ -2260,8 +2387,9 @@ def phase_sharded_kernels(errs, turb, pod, dev) -> None:
                lambda z: stream_pair_symbols(z, consts),
                lambda z: stream_pair_symbols_plain(z, consts), zy)
     del zy
-    emit("kernels", grids={"K15s": fused_step_yspec_sharded.grid},
-         grid_is="(blocks, blocks per SM) of the cooperative launch")
+    emit("kernels", grids={"K15s": fused_step_yspec_sharded.rows_grid},
+         grid_is="(blocks, clusters, blocks an SM, the step units' rows) of "
+         "its persistent kernel")
     free_memory()
 
 
@@ -2611,7 +2739,7 @@ def phase_mesh_one_rank(turb, pod, dev, card) -> tuple[dict, dict]:
                   "K4": 20, "K5": 20, "K4 cluster": 20, "K5 cluster": 20},
                  "fused"),
                 ("turbulence-2048 step_chain=on mesh (1, 1)", chain, 20,
-                 {"K15s": 20, "K3": 20, "K3 cluster": 20,
+                 {"K15s": 20, "K15s rows": 20, "K3": 20, "K3 cluster": 20,
                   "K2": 2 * run_chunks(chain, 20),
                   "K2 factored": 2 * run_chunks(chain, 20)}, "chain")):
             launches[name] = run_mesh_slice(name, cfg, mesh, dev, steps,
@@ -2686,8 +2814,8 @@ FOUR_RANK_SLICES = (
      {"K12": 10, "K12 rows": 10, "K2": 20, "K2 factored": 20, "K14": 10,
       "K14 cluster": 10}, "fused"),
     ("turbulence-2048 step_chain=on mesh (4, 1)", "turbulence-2048", "on",
-     (4, 1), 10, {"K15s": 10, "K14": 10, "K14 cluster": 10, "K2": 2,
-                  "K2 factored": 2}, "chain"),
+     (4, 1), 10, {"K15s": 10, "K15s rows": 10, "K14": 10,
+                  "K14 cluster": 10, "K2": 2, "K2 factored": 2}, "chain"),
     ("turbulence-2048 mesh (2, 2)", "turbulence-2048", "auto", (2, 2), 10,
      {"K12": 10, "K12 rows": 10, "K2": 20, "K2 factored": 20, "K13": 10,
       "K13 cluster": 10}, "fused-2d"),
@@ -3466,7 +3594,7 @@ def main() -> None:
         ("turbulence-2048 pin", turb.replace(poisson_gauge="pin"), 100,
          {"K8": 100}, "default"),
         ("turbulence-2048 fft_mono=on", forms["mono"], 100,
-         {"K1": 100, "K1 rows": 100, "K16": 100}, "mono"),
+         {"K1": 100, "K1 rows": 100, "K16": 100, "K16 rows": 100}, "mono"),
         ("turbulence-2048 step_full=on", forms["fullstep"], 100,
          {"K17": 100, "K17 rows": 100}, "fullstep"),
         ("turbulence-2048 step_chain=on", forms["chain"], 100,
@@ -3645,23 +3773,31 @@ def main() -> None:
                     "y_dft_kernel": "P <= 128, P not a multiple of 128"},
         "ptxas": named_ptxas["y_dft_mixed_kernel"], "by_shape": k2_mixed,
         "path_step_ms": mixed_steps}
-    for name, kernel in (("K15", "coop_yspec_rows_kernel"),
-                         ("K17", "coop_fullstep_rows_kernel")):
-        sweep = {k: v for k, v in coop_sweep.items() if k.startswith(name)}
+    takes = {"K15": "where coop_rows_takes: K1's row kernel and K2's "
+             "factored kernel take the grid",
+             "K17": "where coop_rows_takes: K1's row kernel, K2's factored "
+             "kernel and K3's cluster kernel take the grid",
+             "K16": "where mono_rows_takes: K2's factored kernel and K3's "
+             "cluster kernel take the grid, z 16-byte aligned",
+             "K15s": "where coop_rows_takes over the block's operands and "
+             "its slabs: K1's row kernel and K2's factored kernel take the "
+             "block"}
+    for name, (_, kernel, _) in COOP_KERNELS.items():
+        sweep = {k: v for k, v in coop_sweep.items()
+                 if k.split()[0] == name}
+        at = sweep["K15s at (2, 2048, 2048)" if name == "K15s"
+                   else f"{name} at 2048^2"]
         extra[name] = {
             "rows_launches": sum(run[f"{name} rows"]
                                  for run in launches.values()),
             "first_form_launches": sum(run[name] - run[f"{name} rows"]
                                        for run in launches.values()),
-            "kernels": {kernel: "where coop_rows_takes: K1's row kernel, K2's "
-                        "factored kernel{} take the grid (layouts: the "
-                        "separate kernels' launched ones, the step's D = "
-                        "8)".format(", K3's cluster kernel" if name == "K17"
-                                    else ""),
+            "kernels": {kernel: takes[name] + " (layouts: the separate "
+                        "kernels' launched ones, the step's D = 8)",
                         kernel.replace("_rows", ""): "the first form, on "
                         "every other grid"},
-            "graph_ms_2048": sweep[f"{name} at 2048^2"]["graph_ms"],
-            "launch_grid_2048": sweep[f"{name} at 2048^2"]["launch_grid"],
+            "graph_ms_2048": at["graph_ms"],
+            "launch_grid_2048": at["launch_grid"],
             "coop_sweep": sweep}
     extra["K15"].update(ms_8192=ms_8192["K15"]["ms"],
                         plain_ms_8192=ms_8192["K15"]["plain_ms"],

@@ -12,6 +12,9 @@ K5's cluster kernels, their mixed ones too, in every layout), a four-pass invers
 zeta no less accurate against float64 than twice the plain versions'; the
 one-launch kernels as the kernels they fuse: K16 1e-4, K17 1e-6 (zeta_new,
 carry) and 1e-4 (psi_new), K15 1e-6 (zeta_new, carry) and 1e-5 (zeta_ys);
+their persistent kernels (K15, K16, K17 and K15's sharded form) bitwise
+the separate kernels they fuse, each launch in rows_launches, and the first
+forms on the shapes and operands the persistent kernels do not take;
 K9 1e-6 (K1's tile); K10 and K11 1e-6 (tests/test_multigrid.py's kernel
 tolerance), and the multigrid solves on the card 1e-5 from the CPU's (a
 float64 solve under "auto", on the level-op chain, 1e-12 from the float64
@@ -38,7 +41,8 @@ from tpu_qg_torch import preset
 from tpu_qg_torch.models.core import (QGModel, _build_solvers, _invert_psi,
                                       init_state)
 from tpu_qg_torch.ops.dft_kernels import (
-    mirror_companion, mono_invert, mono_invert_plain, pair_cols_cluster,
+    mirror_companion, mono_invert, mono_invert_plain, mono_invert_rows,
+    pair_cols_cluster,
     pair_cols_cluster_takes, pair_cols_whole_columns, pair_x_cluster,
     pair_x_cluster_takes, pair_x_symbols, pair_x_symbols_plain,
     paired_x_symbols, paired_x_symbols_plain, stream_pair_cluster_takes,
@@ -970,6 +974,98 @@ def test_sharded_yspec_kernel(dev, M, P, nx):
             assert _rel(g, w) <= (1e-5 if part == "zeta_ys" else 1e-6), part
     torch.cuda.synchronize()
     assert fused_step_yspec_sharded.launches == n + 2
+
+
+# K16's persistent kernel at the mono slice's 2048^2, the mixed 1536^2, the
+# smallest power-of-two square it takes (1024), the largest square of the
+# mono gate (2176 = 128 * 17, mixed), and rectangles whose x stage takes
+# K3's (4, 4) mixed layout (2432 x 256) and its smallest mixed extent (896).
+@pytest.mark.parametrize("M,P", [(1024, 1024), (1536, 1536), (2048, 2048),
+                                 (2176, 2176), (2432, 256), (896, 256)])
+def test_mono_rows_bitwise_separate_route(dev, M, P):
+    """K16's persistent kernel (csrc coop_mono_rows_kernel) gives K2 -> K3
+    -> K2^-1's bits, each launch counted in rows_launches; cut after one or
+    two stages it gives K2's and K3's."""
+    consts = _consts(M, P)
+    x = _fields(M, P, dev, seed=7)[1]
+    n = (mono_invert.launches, mono_invert.rows_launches)
+    got = mono_invert(x, consts)
+    ys = y_dft(x, False)
+    xs = pair_x_symbols(ys, consts)
+    want = y_dft(xs, True)
+    torch.cuda.synchronize()
+    assert (mono_invert.launches, mono_invert.rows_launches) == (n[0] + 1,
+                                                                 n[1] + 1)
+    assert torch.equal(got, want)
+    assert torch.equal(mono_invert_rows(x, consts, stages=1), ys)
+    assert torch.equal(mono_invert_rows(x, consts, stages=2), xs)
+
+
+# K15's sharded form's persistent kernel on the one-rank mesh chain's block
+# (2, 2048, 2048), rank 0 of the (4, 1) chain's (2, 512, 2048) and a mixed
+# P = 384 block with tpu_qg's 8-row slabs.
+@pytest.mark.parametrize("M,P,nx,H", [(2048, 2048, 1, 2), (2048, 2048, 4, 2),
+                                      (1024, 384, 4, 8)])
+@pytest.mark.parametrize("scheme,tau0,step", ONE_LAUNCH_STEPS)
+def test_sharded_yspec_rows_bitwise_separate_route(dev, M, P, nx, H, scheme,
+                                                   tau0, step):
+    """K15's sharded form by its persistent kernel (csrc
+    coop_yspec_sharded_rows_kernel) gives the bits of K2^-1 on the block and
+    on each psi slab, K12 with the natural slabs, then K2 on zeta_new; each
+    launch counted in rows_launches."""
+    cfg = preset("turbulence-2048").replace(M=M, P=P, time_scheme=scheme,
+                                            wind_tau0=tau0)
+    z, p, f1, f2 = _fields(M, P, dev)
+    p_ys = y_dft_plain(p, False)
+    m = M // nx
+    (zt, zb), (pt, pb) = _slabs((z, p_ys), 0, m, H)
+    block = [a[:, :m].contiguous() for a in (z, p_ys, f1, f2)]
+    n = (fused_step_yspec_sharded.launches,
+         fused_step_yspec_sharded.rows_launches)
+    got = fused_step_yspec_sharded(cfg, *block, step, zt, zb, pt, pb)
+    zn, carry = fused_step_sharded(cfg, block[0], y_dft(block[1], True),
+                                   *block[2:], step, zt, zb, y_dft(pt, True),
+                                   y_dft(pb, True))
+    want = (zn, carry, y_dft(zn, False))
+    torch.cuda.synchronize()
+    assert (fused_step_yspec_sharded.launches,
+            fused_step_yspec_sharded.rows_launches) == (n[0] + 1, n[1] + 1)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_mono_and_sharded_rows_routing(dev):
+    """The first forms keep what the persistent kernels do not take: K16
+    at 256 x 8192 (M < 256 G) and 256 x 384 and on a misaligned view of
+    its field, K15's sharded form with a misaligned slab; there
+    rows_launches stays put and each agrees with its plain version."""
+    for M, P in ((256, 8192), (256, 384), (1024, 1024)):
+        x = _fields(M, P, dev, seed=8)[1]
+        if M == 1024:
+            whole = torch.empty(x.numel() + 1, device=dev)
+            x = whole[1:].view_as(x).copy_(x)
+        consts = _consts(M, P)
+        n = (mono_invert.launches, mono_invert.rows_launches)
+        got = mono_invert(x, consts)
+        torch.cuda.synchronize()
+        assert (mono_invert.launches, mono_invert.rows_launches) == (n[0] + 1,
+                                                                     n[1])
+        assert _rel(got, mono_invert_plain(x, consts)) <= 1e-4
+    cfg = preset("turbulence-2048").replace(M=1024, P=256)
+    z, p, f1, f2 = _fields(1024, 256, dev)
+    p_ys = y_dft_plain(p, False)
+    (zt, zb), (pt, pb) = _slabs((z, p_ys), 256, 256, 2)
+    block = [a[:, 256:512].contiguous() for a in (z, p_ys, f1, f2)]
+    shifted = torch.empty(pt.numel() + 1, device=dev)[1:].view_as(pt)
+    shifted.copy_(pt)
+    n = (fused_step_yspec_sharded.launches,
+         fused_step_yspec_sharded.rows_launches)
+    got = fused_step_yspec_sharded(cfg, *block, 5, zt, zb, shifted, pb)
+    want = fused_step_yspec_sharded_plain(cfg, *block, 5, zt, zb, pt, pb)
+    torch.cuda.synchronize()
+    assert (fused_step_yspec_sharded.launches,
+            fused_step_yspec_sharded.rows_launches) == (n[0] + 1, n[1])
+    for part, g, w in zip(("zeta_new", "carry", "zeta_ys"), got, want):
+        assert _rel(g, w) <= (1e-5 if part == "zeta_ys" else 1e-6), part
 
 
 def _spectrum(M, P, dev, seed=0):

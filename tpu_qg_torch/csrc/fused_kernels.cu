@@ -1,12 +1,13 @@
-// K15, K16 and K17: the one-launch forms of tpu_qg's opt-in single-device
-// routes, each one cooperative kernel whose stages are separated by
-// grid-wide barriers. K15 and K17 here are their first forms: the
-// persistent kernels of coop_rows.cuh, on the redesigned stages, take every
-// shape where K1's row kernel, K2's factored kernels and (K17) K3's cluster
-// kernels all take it (tpu_qg_torch/ops/step_kernel.py coop_rows_takes),
-// and these keep the rest (P <= 128; for K17 also M in {384, 640, 768} or
-// M < 256 G; misaligned operand views). K16 and K15's sharded form run
-// these stages on every shape.
+// K15, K16, K17 and K15's sharded form: the one-launch forms of tpu_qg's
+// opt-in routes, each one cooperative kernel whose stages are separated by
+// grid-wide barriers. All four here are their first forms: the persistent
+// kernels of coop_rows.cuh, on the redesigned stages, take every shape where
+// K1's row kernel (not K16), K2's factored kernels and (K17, K16) K3's
+// cluster kernels all take it and the operands are 16-byte aligned
+// (tpu_qg_torch/ops/step_kernel.py coop_rows_takes, dft_kernels.py
+// mono_rows_takes), and these keep the rest: P <= 128; with the x stage
+// also M in {384, 640, 768} or M < 256 G (K16's squares 128 .. 768 of its
+// route gate); misaligned operand or slab views.
 //
 // K16 replaces tpu_qg/ops/pallas_fft.py PlanarFFT2.mono_invert
 // (_build_mono_kernel): the packed inversion zeta -> psi of a planar

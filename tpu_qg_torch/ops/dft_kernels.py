@@ -11,8 +11,11 @@ Replace ``tpu_qg/ops/pallas_fft.py`` ``PlanarFFT2._call_y``,
 computes what the last two compute where a TPU core's VMEM runs short — with
 hand-written CUDA kernels, ``csrc/dft_kernels.cu`` (design and bounds in its
 comments: all are bandwidth-bound passes that keep each transform in shared
-memory). ``PlanarFFT2.mono_invert`` becomes the cooperative kernel K16 of
-``csrc/fused_kernels.cu``: K2, K3 and K2^-1 as stages of one launch.
+memory). ``PlanarFFT2.mono_invert`` becomes the cooperative kernel K16:
+K2, K3 and K2^-1 as stages of one launch, the persistent kernel of
+``csrc/coop_rows.cuh`` (``mono_invert_rows``) where K2's factored and K3's
+cluster kernels take the shape, its first form of ``csrc/fused_kernels.cu``
+(``mono_invert_coop``) on the rest.
 ``PlanarFFT2._call_x_fwd_symbols_offset`` (K13), ``stream_pair_symbols``
 (K7) and ``tpu_qg.parallel.paired``'s ``_call_paired_kernel`` (K14) compute
 K3's function on local columns: on power-of-two extents K13 and K14 run
@@ -410,6 +413,7 @@ def _lib():
                         p])
         _build.declare(lib.qg_mono_launch,
                        [p, p, p, p, p, p, p, p, p, p, i, p, p])
+        _build.declare(lib.qg_mono_rows_launch, [p] * 8 + [i, p, p])
         _build.declare(lib.qg_pair_cols_launch,
                        [p] * 6 + [i] * 11 + [p] * 3 + [i, p])
         _build.declare(lib.qg_x_dft_cluster_launch,
@@ -450,6 +454,7 @@ def _lib():
                        [i, i, i, i, ctypes.POINTER(ctypes.c_int)])
         lib.qg_pair_x_num_consts.restype = ctypes.c_int
         lib.qg_coop_plan_size.restype = ctypes.c_int
+        lib.qg_coop_rows_plan_size.restype = ctypes.c_int
     return lib
 
 
@@ -2378,11 +2383,196 @@ paired_x_symbols.cluster_launches = 0
 
 
 # ---------------------------------------------------------------------------
-# The one-launch kernels K15-K17 (csrc/fused_kernels.cu): cooperative
-# launches of 512-thread blocks whose stages reuse K2's row task, K3's
-# mirror-pair task and K1's tile. K15 and K17 run them only where their
-# persistent kernels (csrc/coop_rows.cuh, step_kernel.coop_rows_plan) do not
-# take the shape.
+# The transform stages of the persistent one-launch kernels
+# (csrc/coop_rows.cuh): K2's factored row groups and K3's cluster tile pairs
+# in their separate kernels' launched layouts, 256-thread blocks. K16 runs
+# them alone (mono_rows_plan); K15, K17 and K15's sharded form add K1's step
+# units (step_kernel.coop_rows_plan).
+# ---------------------------------------------------------------------------
+
+COOP_ROWS_THREADS = 256      # csrc kRowsThreads
+
+
+class RowsTransforms(NamedTuple):
+    """The transform stages' part of a persistent kernel's plan (csrc
+    RowsPlan): ``y`` its fields (N2, log2 Rb, the packed mixed plan or 0),
+    ``x`` its x fields (N2, log2 G, log2 Cw, tile pairs, packed plan or 0;
+    zeros without the x stage), ``n1y`` the y-spectrum's N1, the layouts
+    ``y_layout`` K2's (Rb, threads) and ``x_layout`` K3's (G, Cw) or None,
+    and ``smem`` the larger stage's bytes of shared memory."""
+    y: tuple
+    x: tuple
+    n1y: int
+    y_layout: tuple
+    x_layout: tuple | None
+    smem: int
+
+
+@functools.lru_cache(maxsize=1024)
+def coop_rows_transforms_shape(M: int, P: int, x_stage: bool) -> bool:
+    """True iff K2's factored or mixed-radix kernel takes P in its
+    256-thread layout and, with the x stage, K3's cluster or mixed cluster
+    kernel takes M (each rule includes its block's shared memory)."""
+    return (y_dft_factored_takes(P)
+            and y_dft_factored_launched(P)[1] == COOP_ROWS_THREADS
+            and (not x_stage or pair_x_cluster_takes(M)))
+
+
+@functools.lru_cache(maxsize=256)
+def coop_rows_transforms(M: int, P: int, x_stage: bool) -> RowsTransforms:
+    """The transform stages at (M, P): K2's layout y_dft_factored_launched
+    and, with the x stage, K3's pair_x_cluster_launched. Raises where
+    coop_rows_transforms_shape refuses the shape."""
+    if not coop_rows_transforms_shape(M, P, x_stage):
+        raise ValueError(f"the persistent kernels' transform stages do not "
+                         f"take ({M}, {P}) (x stage: {x_stage})")
+    rb, threads = y_dft_factored_launched(P)
+    n2y = P // _N1
+    smem = y_dft_factored_layout(P, rb, threads).smem
+    y = (n2y, rb.bit_length() - 1, _packed_plan(n2y) if _mixed(P) else 0)
+    x, x_layout = (0, 0, 0, 0, 0), None
+    if x_stage:
+        G, Cw = pair_x_cluster_launched(M)
+        n2x = M // _N1
+        tiles = x_symbols_cluster_tiles(P, Cw)[0].shape[0]
+        smem = max(smem, pair_x_cluster_layout(M, G, Cw).smem)
+        x = (n2x, G.bit_length() - 1, Cw.bit_length() - 1, tiles,
+             _packed_plan(n2x) if _mixed(M) else 0)
+        x_layout = (G, Cw)
+    return RowsTransforms(y, x, split_factor(P)[0], (rb, threads), x_layout,
+                          smem)
+
+
+def coop_rows_transforms_schedule(M: int, P: int, x_stage: bool,
+                                  blocks: int, slab_rows: int = 0) -> dict:
+    """The units the transform stages' loops run on ``blocks`` blocks, as
+    csrc coop_rows.cuh's loops take them: "y" maps a block to its K2 row
+    groups (group g by block g mod blocks); with ``slab_rows`` = H > 0,
+    "y_slabs" maps a block to the units of K15's sharded first stage, the
+    block's groups ("block", g), then each slab's as an H-row field ("top",
+    k) and ("bot", k), unit u of that list by block u mod blocks; with the
+    x stage, "x" maps a cluster (blocks // G of them) to its K3 tile pairs.
+    Each "<stage>_units" lists the stage's units in launch order."""
+    t = coop_rows_transforms(M, P, x_stage)
+    rb = t.y_layout[0]
+    units = list(range(-(-M // rb)))
+    out = {"y": {b: units[b::blocks] for b in range(blocks)},
+           "y_units": units}
+    if slab_rows:
+        slab = range(-(-slab_rows // rb))
+        units = ([("block", g) for g in units] + [("top", k) for k in slab]
+                 + [("bot", k) for k in slab])
+        out["y_slabs"] = {b: units[b::blocks] for b in range(blocks)}
+        out["y_slabs_units"] = units
+    if x_stage:
+        clusters = blocks // t.x_layout[0]
+        tiles = list(range(t.x[3]))
+        out["x"] = {k: tiles[k::clusters] for k in range(clusters)}
+        out["x_units"] = tiles
+    return out
+
+
+def _rows_plan_array(lib, what: str, plan, stages: int | None
+                     ) -> ctypes.Array:
+    """``plan.ints`` (a RowsPlan) as the kernel's int table, its stage
+    count replaced by ``stages`` where given."""
+    if len(plan.ints) != lib.qg_coop_rows_plan_size():
+        raise RuntimeError(f"{what}: plan does not match the compiled kernel")
+    ints = plan.ints if stages is None else plan.ints[:-1] + (stages,)
+    return (ctypes.c_int * len(ints))(*ints)
+
+
+class MonoRowsPlan(NamedTuple):
+    """K16's persistent plan: ``ints`` in RowsPlan order (R = 0: no step
+    stage; 3 stages), K2's layout ``y`` (Rb, threads), K3's ``x`` (G, Cw)
+    and bytes of shared memory for the larger stage."""
+    ints: tuple
+    y: tuple
+    x: tuple
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def mono_rows_plan(M: int, P: int) -> MonoRowsPlan:
+    """K16's persistent plan at (M, P): K17's transform stages
+    (coop_rows_transforms with the x stage), no step's rings. Raises where
+    mono_rows_takes refuses the shape."""
+    t = coop_rows_transforms(M, P, True)
+    return MonoRowsPlan((M, P, 0, *t.y, *t.x, t.n1y, 3), t.y_layout,
+                        t.x_layout, t.smem)
+
+
+def mono_rows_takes(M: int, P: int, *tensors: torch.Tensor) -> bool:
+    """True iff K16's persistent kernel takes (M, P) with these operands:
+    K2's factored or mixed kernel at 256 threads and K3's cluster or mixed
+    cluster kernel take the shape (coop_rows_shape(M, P, True) without the
+    step's terms; of the mono route's squares, 128 .. 2176, it takes 896 ..
+    2176), and every operand is 16-byte aligned; the first form keeps the
+    rest."""
+    return (coop_rows_transforms_shape(M, P, True)
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def mono_rows_emulated(z: torch.Tensor, consts) -> torch.Tensor:
+    """What K16's persistent kernel computes, stage by stage, in plain
+    torch with each stage's index maps: y_dft_factored_emulated forward,
+    K3's cluster emulation in the x stage's layout (G, Cw), and
+    y_dft_factored_emulated inverse."""
+    _, M, P = z.shape
+    x, _, _ = pair_x_cluster_emulated(y_dft_factored_emulated(z, False),
+                                      consts, *mono_rows_plan(M, P).x)
+    return y_dft_factored_emulated(x, True)
+
+
+def mono_invert_rows(z: torch.Tensor, consts,
+                     stages: int | None = None) -> torch.Tensor:
+    """One launch of the persistent K16 (csrc coop_mono_rows_kernel) on a
+    CUDA tensor, clustered by K3's G: forward-y by K2's factored body, the
+    x stage by K3's cluster tile pairs in place, inverse-y in place, grid
+    barriers between them. Returns psi: mono_invert's result. Raises on a
+    shape or operand the kernel does not take (mono_rows_takes), on a layout
+    with no resident cluster and on a launch the card refuses; counts
+    nothing, records (blocks, clusters, blocks an SM) in
+    ``mono_invert.rows_grid``. ``stages`` < 3 stops after that many stages
+    (the y-spectrum of z (1) or the x stage's output (2)), to check a stage
+    alone.
+
+    Replaces ``tpu_qg/ops/pallas_fft.py:1342`` PlanarFFT2.mono_invert.
+    Bound: two (2, M, P) fields (67 MB at 2048^2, 0.020 ms). Why: the first
+    form runs the first stage bodies in 512-thread blocks and loses to the
+    redesigned kernels it fuses (PERF.md)."""
+    what = "mono_invert_rows (K16)"
+    if z.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {z.device}")
+    _check_field(what, z)
+    _, M, P = z.shape
+    if not mono_rows_takes(M, P, z):
+        raise ValueError(f"{what}: ({M}, {P}) or its operand is not taken "
+                         f"(mono_rows_takes)")
+    lib = _lib()
+    vals = check_consts(what, consts, M, P)
+    plan = mono_rows_plan(M, P)
+    own, mirror = _device_cluster_tiles(P, plan.x[1], z.device)
+    out = torch.empty_like(z)
+    info = (ctypes.c_int * 3)()
+    code = lib.qg_mono_rows_launch(
+        z.data_ptr(), out.data_ptr(),
+        _rows_plan_array(lib, what, plan, stages), vals,
+        _twiddles(P, P, z.device).data_ptr(),
+        _twiddles(M, M, z.device).data_ptr(), own.data_ptr(),
+        mirror.data_ptr(), plan.smem, info,
+        torch.cuda.current_stream(z.device).cuda_stream)
+    _build.check(code, what)
+    mono_invert.rows_grid = tuple(info)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The first forms of the one-launch kernels K15-K17 and K15's sharded form
+# (csrc/fused_kernels.cu): cooperative launches of 512-thread blocks whose
+# stages reuse K2's row task, K3's mirror-pair task and K1's tile. Each runs
+# only where its persistent kernel (csrc/coop_rows.cuh) does not take the
+# shape or operands.
 # ---------------------------------------------------------------------------
 
 # Floats of step_tile's buffers (csrc kStepTileFloats) in K15 and K17: psi
@@ -2465,11 +2655,12 @@ def coop_launch_args(what: str, M: int, P: int, x_stage: bool,
             tasks, (ctypes.c_int * 2)())
 
 
-def mono_invert(z: torch.Tensor, consts) -> torch.Tensor:
-    """K16 on CUDA tensors (one cooperative launch), the plain version on
-    CPU tensors: packed natural-order (2, M, P) field -> psi."""
-    if z.device.type == "cpu":
-        return mono_invert_plain(z, consts)
+def mono_invert_coop(z: torch.Tensor, consts) -> torch.Tensor:
+    """One launch of K16's first form (csrc/fused_kernels.cu
+    coop_mono_kernel: the first stage bodies in 512-thread blocks) on a
+    CUDA tensor: mono_invert's kernel on the shapes and operands
+    mono_rows_takes refuses. Counts nothing, records (blocks, blocks an SM)
+    in ``mono_invert.grid``."""
     _, M, P = z.shape
     _cuda_field("mono_invert", z, lambda m, p: coop_takes(m, p, True), M, P)
     vals = check_consts("mono_invert", consts, M, P)
@@ -2481,10 +2672,30 @@ def mono_invert(z: torch.Tensor, consts) -> torch.Tensor:
         mirror.data_ptr(), smem, info,
         torch.cuda.current_stream(z.device).cuda_stream)
     _build.check(code, "mono_invert (K16)")
-    mono_invert.launches += 1
     mono_invert.grid = tuple(info)
     return out
 
 
+def mono_invert(z: torch.Tensor, consts) -> torch.Tensor:
+    """K16 on CUDA tensors (one cooperative launch), the plain version on
+    CPU tensors: packed natural-order (2, M, P) field -> psi. Two
+    hand-written kernels chosen by shape and operand: the persistent
+    cluster kernel on the redesigned stages (mono_invert_rows) where
+    mono_rows_takes, counted also in ``mono_invert.rows_launches``; the
+    first form (mono_invert_coop) on the rest."""
+    if z.device.type == "cpu":
+        return mono_invert_plain(z, consts)
+    if (z.device.type == "cuda" and z.dim() == 3
+            and mono_rows_takes(z.shape[1], z.shape[2], z)):
+        out = mono_invert_rows(z, consts)
+        mono_invert.rows_launches += 1
+    else:
+        out = mono_invert_coop(z, consts)
+    mono_invert.launches += 1
+    return out
+
+
 mono_invert.launches = 0
+mono_invert.rows_launches = 0
 mono_invert.grid = None
+mono_invert.rows_grid = None

@@ -35,7 +35,10 @@ block with the rows above and below it from (2, H, P) slabs the caller
 exchanged with its x-neighbours (top = the previous rank's last H rows,
 bottom = the next rank's first H rows). The TPU kernels take H = 8, their
 sublane alignment; the stencil reads 2 rows of psi and 1 of zeta, and
-these take any H >= 2.
+these take any H >= 2. K15's sharded form, as K15, runs its persistent
+kernel (``fused_step_yspec_sharded_rows``) where coop_rows_takes over the
+block's operands and slabs, its first form
+(``fused_step_yspec_sharded_coop``) on the rest.
 
 ``fused_step``/``fused_pre_inversion``/``fused_tendency``/
 ``fused_step_yspec``/``fused_step_full`` and the sharded forms launch their
@@ -217,6 +220,9 @@ def _lib():
                        [p] * 9 + [i, i, p, p, i, p, p])
         _build.declare(lib.qg_fullstep_rows_launch,
                        [p] * 9 + [i, i] + [p] * 6 + [i, p, p])
+        _build.declare(lib.qg_yspec_sharded_rows_launch,
+                       [p] * 9 + [i, i, p, p] + [p] * 4
+                       + [i, p, p, i, p, p])
         lib.qg_coop_rows_plan_size.restype = ctypes.c_int
         lib.qg_step_num_consts.restype = ctypes.c_int
         lib.qg_modal_num_consts.restype = ctypes.c_int
@@ -886,20 +892,19 @@ fused_step_sharded.launches = 0
 fused_step_sharded.rows_launches = 0
 
 
-def fused_step_yspec_sharded(cfg: ModelConfig, zeta: torch.Tensor,
-                             psi_ys: torch.Tensor, f1: torch.Tensor,
-                             f2: torch.Tensor, step: int,
-                             zeta_top: torch.Tensor, zeta_bot: torch.Tensor,
-                             psi_top: torch.Tensor, psi_bot: torch.Tensor):
-    """K15's sharded form on CUDA tensors (one cooperative launch), the
-    plain version on CPU tensors: K15 on one rank's (2, m, P) row block,
-    zeta's slabs natural and psi's rows of its permuted y-spectrum.
-    Replaces ``tpu_qg/ops/pallas_tendency.py:913``. Returns (zeta_new,
-    carry, zeta_ys)."""
-    if zeta.device.type == "cpu":
-        return fused_step_yspec_sharded_plain(cfg, zeta, psi_ys, f1, f2,
-                                              step, zeta_top, zeta_bot,
-                                              psi_top, psi_bot)
+def fused_step_yspec_sharded_coop(cfg: ModelConfig, zeta: torch.Tensor,
+                                  psi_ys: torch.Tensor, f1: torch.Tensor,
+                                  f2: torch.Tensor, step: int,
+                                  zeta_top: torch.Tensor,
+                                  zeta_bot: torch.Tensor,
+                                  psi_top: torch.Tensor,
+                                  psi_bot: torch.Tensor):
+    """One launch of the first form of K15's sharded form
+    (csrc/fused_kernels.cu coop_yspec_sharded_kernel: the first stage
+    bodies in 512-thread blocks) on CUDA tensors: fused_step_yspec_sharded's
+    kernel on the blocks and operands coop_rows_takes refuses. Returns
+    (zeta_new, carry, zeta_ys); counts nothing, records its grid in
+    ``fused_step_yspec_sharded.grid``."""
     what = "fused_step_yspec_sharded (K15 sharded)"
     wind = _check_sharded(what, cfg, (("zeta", zeta), ("psi_ys", psi_ys),
                                       ("f1", f1), ("f2", f2)),
@@ -922,13 +927,47 @@ def fused_step_yspec_sharded(cfg: ModelConfig, zeta: torch.Tensor,
         bot_nat.data_ptr(), smem, info,
         torch.cuda.current_stream(zeta.device).cuda_stream)
     _build.check(code, what)
-    fused_step_yspec_sharded.launches += 1
     fused_step_yspec_sharded.grid = tuple(info)
     return zeta_new, carry, zeta_ys
 
 
+def fused_step_yspec_sharded(cfg: ModelConfig, zeta: torch.Tensor,
+                             psi_ys: torch.Tensor, f1: torch.Tensor,
+                             f2: torch.Tensor, step: int,
+                             zeta_top: torch.Tensor, zeta_bot: torch.Tensor,
+                             psi_top: torch.Tensor, psi_bot: torch.Tensor):
+    """K15's sharded form on CUDA tensors (one cooperative launch), the
+    plain version on CPU tensors: K15 on one rank's (2, m, P) row block,
+    zeta's slabs natural and psi's rows of its permuted y-spectrum.
+    Replaces ``tpu_qg/ops/pallas_tendency.py:913``. Returns (zeta_new,
+    carry, zeta_ys). Two hand-written kernels chosen by shape and operands:
+    the persistent kernel on the redesigned stages
+    (fused_step_yspec_sharded_rows) where coop_rows_takes over the block's
+    operands and its four slabs, counted also in
+    ``fused_step_yspec_sharded.rows_launches``; the first form
+    (fused_step_yspec_sharded_coop) on the rest, a misaligned slab view
+    among them."""
+    if zeta.device.type == "cpu":
+        return fused_step_yspec_sharded_plain(cfg, zeta, psi_ys, f1, f2,
+                                              step, zeta_top, zeta_bot,
+                                              psi_top, psi_bot)
+    slabs = (zeta_top, zeta_bot, psi_top, psi_bot)
+    if coop_rows_takes(zeta.shape[-2], zeta.shape[-1], False, zeta, psi_ys,
+                       f1, f2, *_wind_operand(cfg, zeta), *slabs):
+        out = fused_step_yspec_sharded_rows(cfg, zeta, psi_ys, f1, f2, step,
+                                            *slabs)
+        fused_step_yspec_sharded.rows_launches += 1
+    else:
+        out = fused_step_yspec_sharded_coop(cfg, zeta, psi_ys, f1, f2, step,
+                                            *slabs)
+    fused_step_yspec_sharded.launches += 1
+    return out
+
+
 fused_step_yspec_sharded.launches = 0
+fused_step_yspec_sharded.rows_launches = 0
 fused_step_yspec_sharded.grid = None
+fused_step_yspec_sharded.rows_grid = None
 
 
 # ---------------------------------------------------------------------------
@@ -1011,9 +1050,10 @@ fused_step_full.rows_grid = None
 
 
 # ---------------------------------------------------------------------------
-# K15 and K17 on the redesigned stages (csrc/coop_rows.cuh): persistent
-# cooperative kernels whose stages loop over K1's row units, K2's factored
-# row groups and (K17) K3's cluster tile pairs.
+# K15, its sharded form and K17 on the redesigned stages
+# (csrc/coop_rows.cuh): persistent cooperative kernels whose stages loop
+# over K1's (K12's) row units, K2's factored row groups and (K17) K3's
+# cluster tile pairs.
 # ---------------------------------------------------------------------------
 
 # The step stage's units: K1's row-streaming layout (W, R, D, NT) with W =
@@ -1021,7 +1061,7 @@ fused_step_full.rows_grid = None
 # layout at M; two 128-thread units a 256-thread block, each with its own
 # ring (csrc coop_rows.cuh). The source instantiates this (W, D, NT) alone.
 COOP_ROWS_STEP = (256, 8, 128)
-COOP_ROWS_THREADS = 256
+COOP_ROWS_THREADS = dft_kernels.COOP_ROWS_THREADS
 
 
 class CoopRowsPlan(NamedTuple):
@@ -1040,34 +1080,22 @@ class CoopRowsPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def coop_rows_plan(M: int, P: int, x_stage: bool) -> CoopRowsPlan:
-    """The plan of K17 (``x_stage``) or K15 at (M, P): every stage in its
-    separate kernel's launched layout (K1's R, K2's y_dft_factored_launched,
-    K3's pair_x_cluster_launched), shared memory the largest of two step
-    units' rings, K2's block and K3's block. Raises where a stage's kernel
-    does not take the shape (coop_rows_takes says where)."""
+    """The plan of K17 (``x_stage``) or K15 and its sharded form (M the
+    block's rows) at (M, P): every stage in its separate kernel's launched
+    layout (K1's R, K2's y_dft_factored_launched, K3's
+    pair_x_cluster_launched: dft_kernels.coop_rows_transforms), shared
+    memory the largest of two step units' rings, K2's block and K3's block.
+    Raises where a stage's kernel does not take the shape (coop_rows_takes
+    says where)."""
     if not coop_rows_shape(M, P, x_stage):
         raise ValueError(f"the persistent one-launch kernels do not take "
                          f"({M}, {P}) (x stage: {x_stage})")
     W, D, NT = COOP_ROWS_STEP
     step = (W, step_rows_launched(M)[1], D, NT)
-    rb, threads = dft_kernels.y_dft_factored_launched(P)
-    n2y = P // 128
-    smem = max(2 * step_rows_layout(step).smem,
-               dft_kernels.y_dft_factored_layout(P, rb, threads).smem)
-    yplan = dft_kernels._packed_plan(n2y) if dft_kernels._mixed(P) else 0
-    x, xints = None, (0, 0, 0, 0, 0)
-    if x_stage:
-        G, Cw = dft_kernels.pair_x_cluster_launched(M)
-        n2x = M // 128
-        tiles = dft_kernels.x_symbols_cluster_tiles(P, Cw)[0].shape[0]
-        smem = max(smem, dft_kernels.pair_x_cluster_layout(M, G, Cw).smem)
-        x = (G, Cw)
-        xints = (n2x, G.bit_length() - 1, Cw.bit_length() - 1, tiles,
-                 dft_kernels._packed_plan(n2x) if dft_kernels._mixed(M)
-                 else 0)
-    ints = (M, P, step[1], n2y, rb.bit_length() - 1, yplan, *xints,
-            dft_kernels.split_factor(P)[0], 4 if x_stage else 3)
-    return CoopRowsPlan(ints, step, (rb, threads), x, smem)
+    t = dft_kernels.coop_rows_transforms(M, P, x_stage)
+    ints = (M, P, step[1], *t.y, *t.x, t.n1y, 4 if x_stage else 3)
+    return CoopRowsPlan(ints, step, t.y_layout, t.x_layout,
+                        max(2 * step_rows_layout(step).smem, t.smem))
 
 
 @functools.lru_cache(maxsize=1024)
@@ -1075,40 +1103,37 @@ def coop_rows_shape(M: int, P: int, x_stage: bool) -> bool:
     """True iff every stage's redesigned kernel takes (M, P): K1's row
     kernel (P % 4 == 0), K2's factored or mixed-radix kernel at P in its
     256-thread layout, and, with the x stage, K3's cluster or mixed cluster
-    kernel at M; and the largest stage's shared memory fits a block."""
-    if not (P % 4 == 0 and dft_kernels.y_dft_factored_takes(P)
-            and dft_kernels.y_dft_factored_launched(P)[1] == COOP_ROWS_THREADS):
-        return False
-    if x_stage and not dft_kernels.pair_x_cluster_takes(M):
+    kernel at M (dft_kernels.coop_rows_transforms_shape); and the largest
+    stage's shared memory fits a block."""
+    if not (P % 4 == 0
+            and dft_kernels.coop_rows_transforms_shape(M, P, x_stage)):
         return False
     W, D, NT = COOP_ROWS_STEP
-    smem = max(2 * step_rows_layout((W, 1, D, NT)).smem,
-               dft_kernels.y_dft_factored_layout(
-                   P, *dft_kernels.y_dft_factored_launched(P)).smem)
-    if x_stage:
-        smem = max(smem, dft_kernels.pair_x_cluster_layout(
-            M, *dft_kernels.pair_x_cluster_launched(M)).smem)
-    return smem <= dft_kernels.SMEM_LIMIT
+    return max(2 * step_rows_layout((W, 1, D, NT)).smem,
+               dft_kernels.coop_rows_transforms(M, P, x_stage).smem
+               ) <= dft_kernels.SMEM_LIMIT
 
 
 def coop_rows_takes(M: int, P: int, x_stage: bool,
                     *tensors: torch.Tensor) -> bool:
-    """True iff K17's (``x_stage``) or K15's persistent kernel takes an
-    (M, P) step with these operands: the shape (coop_rows_shape) and K1's
-    row kernel's operands (step_rows_takes: every operand 16-byte
-    aligned); the first forms keep the rest."""
+    """True iff K17's (``x_stage``), K15's or (with the slabs among the
+    tensors) K15's sharded persistent kernel takes an (M, P) step with
+    these operands: the shape (coop_rows_shape) and K1's row kernel's
+    operands (step_rows_takes: every operand 16-byte aligned); the first
+    forms keep the rest."""
     return (coop_rows_shape(M, P, x_stage)
             and step_rows_takes(P, *tensors))
 
 
-def coop_rows_schedule(M: int, P: int, x_stage: bool, blocks: int) -> dict:
+def coop_rows_schedule(M: int, P: int, x_stage: bool, blocks: int,
+                       slab_rows: int = 0) -> dict:
     """The units each stage's loop runs on ``blocks`` blocks, as csrc
     coop_rows.cuh's loops take them: "step" maps (block, half) to its K1
     units (strip, run, layer), unit u = strip + strips (run + runs layer)
     taken by half u mod 2 of block u div 2 mod blocks, ... (R from
-    coop_rows_unit_rows, so that every unit runs in one round); "y" maps a
-    block to its K2 row groups (group g by block g mod blocks); "x" (K17)
-    maps a cluster (blocks / G of them) to its K3 tile pairs. Each stage's
+    coop_rows_unit_rows, so that every unit runs in one round); "y" (and,
+    with ``slab_rows`` = H, K15's sharded first stage "y_slabs") and, for
+    K17, "x": dft_kernels.coop_rows_transforms_schedule. Each stage's
     ``units`` lists its separate kernel's units in launch order."""
     plan = coop_rows_plan(M, P, x_stage)
     W, _, _, NT = plan.step
@@ -1123,18 +1148,9 @@ def coop_rows_schedule(M: int, P: int, x_stage: bool, blocks: int) -> dict:
         for h in range(per):
             step[(b, h)] = [step_units[u] for u in
                             range(b * per + h, len(step_units), blocks * per)]
-    groups = -(-M // plan.y[0])
-    out = {"step": step, "step_units": step_units,
-           "y": {b: list(range(b, groups, blocks)) for b in range(blocks)},
-           "y_units": list(range(groups))}
-    if x_stage:
-        G = plan.x[0]
-        clusters = blocks // G
-        tiles = plan.ints[9]
-        out["x"] = {k: list(range(k, tiles, clusters))
-                    for k in range(clusters)}
-        out["x_units"] = list(range(tiles))
-    return out
+    return {"step": step, "step_units": step_units,
+            **dft_kernels.coop_rows_transforms_schedule(M, P, x_stage, blocks,
+                                                        slab_rows)}
 
 
 def coop_rows_unit_rows(plan: CoopRowsPlan, blocks: int) -> int:
@@ -1150,14 +1166,6 @@ def coop_rows_unit_rows(plan: CoopRowsPlan, blocks: int) -> int:
 def _wind_operand(cfg: ModelConfig, zeta: torch.Tensor) -> tuple:
     wind = _wind_row(cfg, zeta.device)
     return () if wind is None else (wind,)
-
-
-def _rows_plan_array(lib, what: str, plan: CoopRowsPlan,
-                     stages: int | None) -> ctypes.Array:
-    if len(plan.ints) != lib.qg_coop_rows_plan_size():
-        raise RuntimeError(f"{what}: plan does not match the compiled kernel")
-    ints = plan.ints if stages is None else plan.ints[:-1] + (stages,)
-    return (ctypes.c_int * len(ints))(*ints)
 
 
 def fused_step_yspec_rows(cfg: ModelConfig, zeta: torch.Tensor,
@@ -1196,7 +1204,7 @@ def fused_step_yspec_rows(cfg: ModelConfig, zeta: torch.Tensor,
         None if wind is None else wind.data_ptr(), zeta_new.data_ptr(),
         carry.data_ptr(), zeta_ys.data_ptr(), consts,
         int(cfg.time_scheme == "leapfrog_ra"), int(step),
-        _rows_plan_array(lib, what, plan, stages),
+        dft_kernels._rows_plan_array(lib, what, plan, stages),
         dft_kernels._twiddles(cfg.P, cfg.P, zeta.device).data_ptr(),
         plan.smem, info, torch.cuda.current_stream(zeta.device).cuda_stream)
     if code != 0:
@@ -1246,7 +1254,7 @@ def fused_step_full_rows(cfg: ModelConfig, zeta: torch.Tensor,
         None if wind is None else wind.data_ptr(), zeta_new.data_ptr(),
         carry.data_ptr(), psi_new.data_ptr(), consts,
         int(cfg.time_scheme == "leapfrog_ra"), int(step),
-        _rows_plan_array(lib, what, plan, stages), sym,
+        dft_kernels._rows_plan_array(lib, what, plan, stages), sym,
         dft_kernels._twiddles(cfg.P, cfg.P, zeta.device).data_ptr(),
         dft_kernels._twiddles(cfg.M, cfg.M, zeta.device).data_ptr(),
         own.data_ptr(), mirror.data_ptr(), plan.smem, info,
@@ -1255,6 +1263,63 @@ def fused_step_full_rows(cfg: ModelConfig, zeta: torch.Tensor,
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
     fused_step_full.rows_grid = tuple(info)
     return zeta_new, carry, psi_new
+
+
+def fused_step_yspec_sharded_rows(cfg: ModelConfig, zeta: torch.Tensor,
+                                  psi_ys: torch.Tensor, f1: torch.Tensor,
+                                  f2: torch.Tensor, step: int,
+                                  zeta_top: torch.Tensor,
+                                  zeta_bot: torch.Tensor,
+                                  psi_top: torch.Tensor,
+                                  psi_bot: torch.Tensor,
+                                  stages: int | None = None):
+    """One launch of the persistent K15 sharded form (csrc
+    coop_yspec_sharded_rows_kernel) on a CUDA (2, m, P) row block and its
+    (2, H, P) slabs: inverse-y of the block and of each psi slab (whole, as
+    an H-row field, into scratch) by K2's factored body, the step by K12's
+    row units, forward-y by K2's factored body, grid barriers between them.
+    Returns (zeta_new, carry, zeta_ys): fused_step_yspec_sharded's result.
+    Raises on a shape or operand the kernel does not take (coop_rows_takes
+    over the block's operands and the slabs) and on a launch the card
+    refuses; counts nothing, records (blocks, clusters, blocks an SM, the
+    step units' rows R) in ``fused_step_yspec_sharded.rows_grid``.
+    ``stages`` < 3 stops after that many stages, as fused_step_yspec_rows.
+
+    Replaces ``tpu_qg/ops/pallas_tendency.py:913``
+    fused_step_streamed_yspec_sharded. Bound: seven (2, m, P) fields (235 MB
+    on (2, 2048, 2048), 0.070 ms; 58.7 MB on (2, 512, 2048)). Why: the first
+    form runs the first stage bodies and loses to the redesigned kernels it
+    fuses (PERF.md)."""
+    what = "fused_step_yspec_sharded_rows (K15 sharded)"
+    slabs = (zeta_top, zeta_bot, psi_top, psi_bot)
+    wind = _check_sharded(what, cfg, (("zeta", zeta), ("psi_ys", psi_ys),
+                                      ("f1", f1), ("f2", f2)),
+                          tuple(zip(("zeta_top", "zeta_bot", "psi_top",
+                                     "psi_bot"), slabs)))
+    _, m, P = zeta.shape
+    if not coop_rows_takes(m, P, False, zeta, psi_ys, f1, f2,
+                           *_wind_operand(cfg, zeta), *slabs):
+        raise ValueError(f"{what}: ({m}, {P}) or its operands are not taken "
+                         f"(coop_rows_takes)")
+    lib = _lib()
+    consts = _checked_consts(cfg, lib, what)
+    plan = coop_rows_plan(m, P, False)
+    zeta_new, carry, zeta_ys = (torch.empty_like(zeta) for _ in range(3))
+    top_nat, bot_nat = torch.empty_like(psi_top), torch.empty_like(psi_bot)
+    info = (ctypes.c_int * 4)()
+    code = lib.qg_yspec_sharded_rows_launch(
+        zeta.data_ptr(), psi_ys.data_ptr(), f1.data_ptr(), f2.data_ptr(),
+        None if wind is None else wind.data_ptr(), zeta_new.data_ptr(),
+        carry.data_ptr(), zeta_ys.data_ptr(), consts,
+        int(cfg.time_scheme == "leapfrog_ra"), int(step),
+        dft_kernels._rows_plan_array(lib, what, plan, stages),
+        dft_kernels._twiddles(P, P, zeta.device).data_ptr(),
+        *(t.data_ptr() for t in slabs), zeta_top.shape[1],
+        top_nat.data_ptr(), bot_nat.data_ptr(), plan.smem, info,
+        torch.cuda.current_stream(zeta.device).cuda_stream)
+    _build.check(code, what)
+    fused_step_yspec_sharded.rows_grid = tuple(info)
+    return zeta_new, carry, zeta_ys
 
 
 def fused_step_yspec_rows_emulated(cfg: ModelConfig, zeta: torch.Tensor,
@@ -1291,3 +1356,26 @@ def fused_step_full_rows_emulated(cfg: ModelConfig, zeta: torch.Tensor,
         zy, packed_symbol_consts(cfg), *plan.x)
     return (zeta_new, carry, dft_kernels.y_dft_factored_emulated(x, True),
             bad)
+
+
+def fused_step_yspec_sharded_rows_emulated(cfg: ModelConfig,
+                                           zeta: torch.Tensor,
+                                           psi_ys: torch.Tensor,
+                                           f1: torch.Tensor, f2: torch.Tensor,
+                                           step: int, zeta_top: torch.Tensor,
+                                           zeta_bot: torch.Tensor,
+                                           psi_top: torch.Tensor,
+                                           psi_bot: torch.Tensor):
+    """What the persistent K15 sharded form computes, stage by stage, in
+    plain torch with each stage's index maps: y_dft_factored_emulated's
+    inverse of the block and of each whole psi slab, the row kernel's
+    emulation with the slabs (K12's) in the step stage's layout,
+    y_dft_factored_emulated's forward. Returns (zeta_new, carry, zeta_ys,
+    bad_reads)."""
+    plan = coop_rows_plan(zeta.shape[1], zeta.shape[2], False)
+    inv = functools.partial(dft_kernels.y_dft_factored_emulated, inverse=True)
+    zeta_new, carry, _, bad = fused_step_rows_emulated(
+        cfg, zeta, inv(psi_ys), f1, f2, step, plan.step,
+        slabs=(zeta_top, zeta_bot, inv(psi_top), inv(psi_bot)))
+    return (zeta_new, carry,
+            dft_kernels.y_dft_factored_emulated(zeta_new, False), bad)
