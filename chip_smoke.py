@@ -85,8 +85,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    fits at 4096^2 and 8192^2, with the clusters the card holds and ms in
    turns beside x_symbols_inverse_kernel, torch.fft.ifft along x (a
    yardstick: not K5's function) and a copy, host-launched and replayed
-   from a CUDA graph; K1 (bitwise K18 base on one step case) and K15 at
-   (2, 8192, 8192); K1's row-streaming kernel in every layout (W, R, D, NT)
+   from a CUDA graph; K1 (bitwise the tile kernel on one step case) and
+   K15 at (2, 8192, 8192); K1's row-streaming kernel in every layout (W, R,
+   D, NT)
    at 2048^2 and 8192^2, bitwise the tile kernel, with its registers,
    spills and blocks an SM, graph-replayed in turns beside the tile kernel
    (step_kernel), K18 base and a copy of three fields, and K12's
@@ -118,9 +119,16 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    bitwise the tile kernel, with registers, spills and blocks an SM,
    graph-replayed in turns beside the tile kernel and a copy of the same
    bytes (mg_sweep); K9 (the tendency) at (2, 2048, 2048),
-   (1, 2048, 2048) with the wind and (2, 8192, 8192). K18 (the stencil
-   lab's step) in each of its six variants on the step cases at the lab's
-   (2, 2048, 2048), and base, legacy and aligned bitwise K1.
+   (1, 2048, 2048) with the wind and (2, 8192, 8192); K9's row-streaming
+   kernel in every layout at 2048^2 and 8192^2, bitwise across layouts and
+   the tile kernel, with its registers, spills and blocks an SM,
+   graph-replayed in turns beside the tile kernel and a copy of its bytes,
+   and its two-layer tendency bitwise K1's euler_ab3 step-0 carry
+   (k9_sweep). K18 (the stencil lab's step) in each of its six variants on
+   the step cases at the lab's (2, 2048, 2048) by its row kernel, base,
+   legacy and aligned bitwise K1, and every body, one and two layers, on
+   the row kernel bitwise the tile kernel at (2, 2048, 2048) and
+   (1, 256, 256).
 4. slices  — through the normal entry point run_model, each with the
    kernels' launch counts set to 0 just before and read just after, the
    route QGModel resolves, a finite state with CFL < 1, and the same steps
@@ -150,10 +158,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    and K11 launch by the row-streaming kernel ("K10 rows" = K10, "K11
    rows" = K11),
    each against the plain MG route and a float64 spectral solve; and the
-   tendency path (20 K9 calls on the turbulence-2048 state). The stencil
-   lab's path through its own function (tpu_qg_torch.scripts.stencil_lab
-   run_lab) at 2048^2, chunk 50, reps 4, all six variants: K18 = 6 x 50 x 5
-   = 1500, every other count 0; each variant's final zeta against a loop of
+   tendency path (20 K9 calls on the turbulence-2048 state, every one by
+   the row-streaming kernel, "K9 rows" = K9). The stencil lab's path
+   through its own function (tpu_qg_torch.scripts.stencil_lab run_lab) at
+   2048^2, chunk 50, reps 4, all six variants: K18 = "K18 rows" = 6 x 50 x
+   5 = 1500, every other count 0; each variant's final zeta against a loop of
    its plain version from the same state.
    The sharded kernels against their plain versions, inputs from numpy
    seeds, relative to max|plain|: K12 on the row block (2, 512, 2048) of a
@@ -215,8 +224,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    step of each
    four-rank slice (host-staged
    gloo transport on one card: not a scaling result). The lab: ms per
-   launch of each K18 variant beside K1 in turns, each beside its plain
-   version, and the lab path's own ms per step.
+   launch of each K18 variant (the row kernel) beside K1 and each body's
+   tile kernel in turns, host-launched and graph-replayed, each beside its
+   plain version, and the lab path's own ms per step.
 
 The line before the last is {"kernels": [...]}, every kernel with its
 launches in phase 4 (K2 mixed a row of its own, at (2, 2432, 2432), its
@@ -275,7 +285,9 @@ from tpu_qg_torch.ops.mg_kernels import (mg_prolong_smooth,
                                          mg_rows_attributes, mg_rows_launched,
                                          mg_rows_layouts, mg_smooth,
                                          mg_smooth_plain, mg_smooth_tile)
-from tpu_qg_torch.ops._stencil_lab import lab_step, lab_step_plain
+from tpu_qg_torch.ops._stencil_lab import (lab_rows_attributes, lab_step,
+                                           lab_step_plain, lab_step_rows,
+                                           lab_step_tile)
 from tpu_qg_torch.ops.multigrid import MultigridModalInverter, MultigridSolver
 from tpu_qg_torch.ops.spectral import (PackedModalInverter,
                                        PackedModalInverterKernels)
@@ -302,9 +314,13 @@ from tpu_qg_torch.ops.step_kernel import (HALO_ROWS, fused_pre_inversion,
                                           fused_step_yspec_sharded_rows,
                                           fused_tendency,
                                           fused_tendency_plain,
+                                          fused_tendency_rows,
+                                          fused_tendency_tile,
                                           step_rows_attributes,
                                           step_rows_launched,
-                                          step_rows_layouts)
+                                          step_rows_layouts,
+                                          tendency_rows_attributes,
+                                          tendency_rows_launched)
 from tpu_qg_torch.parallel import (gather_state, make_halo_run_fn, make_mesh,
                                    shard_state)
 from tpu_qg_torch.parallel.paired import strip_pair_order
@@ -320,7 +336,7 @@ MIXED_PATHS = ("turbulence-2048 at 1536^2", "turbulence-2048 at 3072^2")
 # Relative to max|plain|: the 1/lambda symbol amplifies low-k float32
 # rounding in K3/K5/K16 and K17's psi; K15's zeta_ys is a y-DFT (K2's
 # gate); the slices' zeta after many steps on two routes.
-# K9 is K1's tile; K10/K11 carry tests/test_multigrid.py's kernel gate; an
+# K9 is K1's body; K10/K11 carry tests/test_multigrid.py's kernel gate; an
 # MG path's psi the dryrun multigrid gate (commit 26d1ffc) against the
 # plain MG route.
 TOL = {"K1": 1e-6, "K2": 1e-5, "K2 mixed": 1e-5, "K3": 1e-4,
@@ -389,8 +405,10 @@ class KernelCount:
     mono_invert.rows_launches and fused_step_yspec_sharded.rows_launches:
     K15's, K17's, K16's and K15's sharded persistent kernels,
     coop_yspec_rows_kernel, coop_fullstep_rows_kernel,
-    coop_mono_rows_kernel and coop_yspec_sharded_rows_kernel), as a counter
-    with a ``launches`` field."""
+    coop_mono_rows_kernel and coop_yspec_sharded_rows_kernel;
+    fused_tendency.rows_launches and lab_step.rows_launches: K9's and K18's
+    row-streaming kernels, tendency_rows_kernel and lab_rows_kernel), as a
+    counter with a ``launches`` field."""
 
     def __init__(self, wrapper, attr: str):
         self.wrapper, self.attr = wrapper, attr
@@ -433,15 +451,19 @@ COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
             "K17 rows": KernelCount(fused_step_full, "rows_launches"),
             "K16 rows": KernelCount(mono_invert, "rows_launches"),
             "K15s rows": KernelCount(fused_step_yspec_sharded,
-                                     "rows_launches")}
+                                     "rows_launches"),
+            "K9 rows": KernelCount(fused_tendency, "rows_launches"),
+            "K18 rows": KernelCount(lab_step, "rows_launches")}
 # Kernel names in a profiler trace, the one-launch kernels, the
-# row-streaming K1 and K12, K8, K9, K12 and K18 before K1's tile kernel: a
-# mangled name of any kernel of step_kernel.cu holds the source file's name,
-# step_kernel, and K18's lab_step_kernel holds it too. K13 and K14 are one
+# row-streaming K9, K18, K1 and K12, K8, K9, K12 and K18 before K1's tile
+# kernel: a mangled name of any kernel of step_kernel.cu holds the source
+# file's name, step_kernel, and K18's lab_step_kernel holds it too. K13 and K14 are one
 # kernel, pair_cols_cluster_kernel (before pair_cols_kernel, which serves
 # K7, K13 and K14 at other extents); K7's launches of K3's cluster kernel
 # carry K3's name (the counters tell them apart).
-TRACE_NAMES = (("K12", "step_rows_sharded_kernel"),
+TRACE_NAMES = (("K9 rows", "tendency_rows_kernel"),
+               ("K18 rows", "lab_rows_kernel"),
+               ("K12", "step_rows_sharded_kernel"),
                ("K1", "step_rows_kernel"),
                ("K17 rows", "coop_fullstep_rows_kernel"),
                ("K15 rows", "coop_yspec_rows_kernel"),
@@ -605,8 +627,9 @@ def phase_build() -> None:
     regs = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
     # K4's, K5's, K3's and K13/K14's cluster kernels, K4's, K5's and K3's
     # mixed-radix cluster kernels, K2's factored kernel and its mixed-radix
-    # form, and K10/K11's row-streaming and tile kernels: each instance's
-    # registers, shared memory, spills.
+    # form, K10/K11's row-streaming and tile kernels, the persistent kernels
+    # and K9's and K18's row-streaming kernels: each instance's registers,
+    # shared memory, spills.
     named = {"x_dft_cluster_kernel": {}, "x_dft_cluster_mixed_kernel": {},
              "x_symbols_cluster_kernel": {},
              "x_symbols_cluster_mixed_kernel": {},
@@ -616,7 +639,8 @@ def phase_build() -> None:
              "mg_rows_kernel": {}, "mg_smooth_kernel": {},
              "mg_prolong_kernel": {}, "coop_yspec_rows_kernel": {},
              "coop_fullstep_rows_kernel": {}, "coop_mono_rows_kernel": {},
-             "coop_yspec_sharded_rows_kernel": {}}
+             "coop_yspec_sharded_rows_kernel": {},
+             "tendency_rows_kernel": {}, "lab_rows_kernel": {}}
     entry = None
     for ln in lines:
         if "Compiling entry function" in ln:
@@ -642,6 +666,8 @@ def phase_build() -> None:
          coop_rows_ptxas={k: named[k] for k in (
              "coop_yspec_rows_kernel", "coop_fullstep_rows_kernel",
              "coop_mono_rows_kernel", "coop_yspec_sharded_rows_kernel")},
+         k9_rows_ptxas=named["tendency_rows_kernel"],
+         k18_rows_ptxas=named["lab_rows_kernel"],
          step_ptxas=step_ptxas(lines))
     return named
 
@@ -649,6 +675,7 @@ def phase_build() -> None:
 # The kernels that form a step point (step_device.cuh's body): the
 # row-streaming K1 and K12, and the tile design's users.
 STEP_KERNEL_NAMES = ("step_rows_kernel", "step_rows_sharded_kernel",
+                     "tendency_rows_kernel", "lab_rows_kernel",
                      "step_kernel", "step_sharded_kernel",
                      "pre_inversion_kernel", "tendency_kernel",
                      "lab_step_kernel", "coop_yspec_kernel",
@@ -742,8 +769,8 @@ STEP_CASES = (("euler_ab3 step 0", {}, 0), ("euler_ab3 step 5", {}, 5),
 def check_step_kernel(errs, cfg, dev, rng, tag="", bitwise=()) -> None:
     """K1 against its plain version on the step cases, each launch by its
     row-streaming kernel (counted); on the cases named in ``bitwise`` also
-    bitwise K18 base, the tile design's body (the lab phase holds the rest
-    at 2048^2)."""
+    bitwise the tile design (fused_step_tile; k1_sweep holds every layout
+    at 2048^2 and 8192^2)."""
     zeta, psi, f1, f2 = step_inputs(cfg, dev, rng)
     for case, over, step in STEP_CASES:
         c = cfg.replace(**over)
@@ -757,12 +784,13 @@ def check_step_kernel(errs, cfg, dev, rng, tag="", bitwise=()) -> None:
         errs.record("K1", tag + case + " carry", got[1], want[1])
         del want
         if case in bitwise:
-            base = lab_step(c, zeta, psi, f1, f2, step, "base")
-            if not all(torch.equal(g, b) for g, b in zip(got, base)):
-                raise AssertionError(f"K1 {tag}{case}: not bitwise K18 base")
+            tile = fused_step_tile(c, zeta, psi, f1, f2, step)
+            if not all(torch.equal(g, b) for g, b in zip(got, tile)):
+                raise AssertionError(f"K1 {tag}{case}: not bitwise the tile "
+                                     "kernel")
             emit("kernels", kernel="K1", case=tag + case,
-                 bitwise_k18_base=True)
-            del base
+                 bitwise_tile_kernel=True)
+            del tile
         del got
 
 
@@ -1697,12 +1725,12 @@ def phase_k1_sweep(dev, card, sizes=(2048, 8192), reps=(20, 5)) -> dict:
     cudaOccupancyMaxActiveBlocksPerMultiprocessor), its outputs bitwise
     the tile design's (step_kernel, the kernel it replaces), and ms a launch
     replayed from a CUDA graph, the layouts in turns (in order, then in
-    reverse), beside the tile kernel, K18 base (the tile design's body in
-    the lab kernel) and a torch copy of three (2, n, n) fields (a read and
-    a write of K1's six fields' bytes); then K12 on the one-rank block
-    (2, n, n) with its wrap rows as slabs, in its launched layout, beside
-    its tile kernel (step_sharded_kernel), both bitwise K1. Returns the
-    entries by grid."""
+    reverse), beside the tile kernel, K18 base (K1's row code in K1's
+    launched layout in the lab kernel) and a torch copy of three (2, n, n)
+    fields (a read and a write of K1's six fields' bytes); then K12 on the
+    one-rank block (2, n, n) with its wrap rows as slabs, in its launched
+    layout, beside its tile kernel (step_sharded_kernel), both bitwise K1.
+    Returns the entries by grid."""
     rng = np.random.default_rng(SEED + 15)
     turb = preset("turbulence-2048")
     out = {}
@@ -1767,6 +1795,96 @@ def phase_k1_sweep(dev, card, sizes=(2048, 8192), reps=(20, 5)) -> dict:
                       k12_ms=k12_ms["K12 rows"],
                       k12_tile_ms=k12_ms["K12 step_sharded_kernel (tile)"])
         del zeta, psi, f1, f2, zt, zb, pt, pb, k12
+        free_memory()
+    return out
+
+
+def phase_k9_sweep(dev, card, sizes=(2048, 8192), reps=(20, 5)) -> dict:
+    """K9's row-streaming kernel (tendency_rows_kernel) in every layout
+    (W, R, D, NT) of K1's sweep on two-layer (2, n, n) fields: registers,
+    spill bytes, shared memory and blocks an SM; outputs bitwise across
+    layouts and the tile kernel (tendency_kernel, the kernel it replaces);
+    ms a launch replayed from a CUDA graph, the layouts in turns (in order,
+    then in reverse), beside the tile kernel and a torch copy of K9's bytes
+    (a (3, n, n) field read and written: zeta and psi read, the tendency
+    written). At 2048^2 also one layer with the wind (its launched layout
+    bitwise the tile kernel, both against plain) and the two-layer
+    tendency, on rows and on the tile kernel, bitwise K1's carry under
+    euler_ab3 at step 0 (the carry is the tendency there). Returns the
+    entries by grid."""
+    rng = np.random.default_rng(SEED + 23)
+    turb = preset("turbulence-2048")
+    out = {}
+    for n, r in zip(sizes, reps):
+        cfg = turb.replace(M=n, P=n)
+        zeta, psi, f1, f2 = step_inputs(cfg, dev, rng)
+        tile = fused_tendency_tile(cfg, zeta, psi)
+        rows, calls = {}, {}
+        for lay in step_rows_layouts():
+            key = k1_layout_name(lay)
+            rows[key] = dict(tendency_rows_attributes(lay, 2, dev.index or 0))
+            got = fused_tendency_rows(cfg, zeta, psi, lay)
+            if not torch.equal(got, tile):
+                raise AssertionError(f"K9 rows {key} at {n}^2: not bitwise "
+                                     "the tile kernel")
+            del got
+            calls[key] = lambda lay=lay: fused_tendency_rows(cfg, zeta, psi,
+                                                             lay)
+        extra = {}
+        if n == 2048:
+            k1_tile = fused_step_tile(cfg, zeta, psi, f1, f2, 0)[1]
+            k1 = fused_step(cfg, zeta, psi, f1, f2, 0)[1]
+            rows_now = fused_tendency_rows(cfg, zeta, psi)
+            extra["bitwise_k1_carry"] = {"rows": torch.equal(rows_now, k1),
+                                         "tile": torch.equal(tile, k1_tile)}
+            if not all(extra["bitwise_k1_carry"].values()):
+                raise AssertionError(f"K9 at {n}^2: not bitwise K1's "
+                                     f"euler_ab3 carry {extra}")
+            del k1_tile, k1, rows_now
+            one = turb.replace(M=n, P=n, n_layers=1, wind_tau0=0.1)
+            z1, p1 = zeta[:1].contiguous(), psi[:1].contiguous()
+            got, t1 = (fused_tendency_rows(one, z1, p1),
+                       fused_tendency_tile(one, z1, p1))
+            if not torch.equal(got, t1):
+                raise AssertionError(f"K9 rows one layer at {n}^2: not "
+                                     "bitwise the tile kernel")
+            _, rel = rel_err(got, fused_tendency_plain(one, z1, p1))
+            if not rel <= TOL["K9"]:
+                raise AssertionError(f"K9 rows one layer: rel err {rel}")
+            extra["one_layer_wind"] = {
+                "layout": k1_layout_name(tendency_rows_launched(n)),
+                "bitwise_tile": True, "rel_err_vs_plain": rel,
+                "attributes": tendency_rows_attributes(
+                    tendency_rows_launched(n), 1, dev.index or 0)}
+            del z1, p1, got, t1
+        src = torch.empty((3, n, n), device=dev)
+        dst = torch.empty_like(src)
+        calls.update({
+            "tendency_kernel (tile)": lambda: fused_tendency_tile(cfg, zeta,
+                                                                  psi),
+            "copy": lambda: dst.copy_(src)})
+        runs = {k: [] for k in calls}
+        for k in list(calls) + list(calls)[::-1]:
+            runs[k].append(graph_ms(calls[k], r))
+        for key, v in runs.items():
+            rows.setdefault(key, {}).update(graph_ms=sum(v) / 2,
+                                            graph_runs_ms=v)
+        launched = k1_layout_name(tendency_rows_launched(n))
+        least = min((k for k in rows if k.startswith("W=")),
+                    key=lambda k: rows[k]["graph_ms"])
+        emit("k9_sweep", card=card, grid=[2, n, n], launched=launched,
+             least=least, layouts=rows, bound_ms=bound("K9", n, n)[0],
+             **extra)
+        out[n] = dict(launched=launched, least=least,
+                      launched_ms=rows[launched]["graph_ms"],
+                      least_ms=rows[least]["graph_ms"],
+                      tile_ms=rows["tendency_kernel (tile)"]["graph_ms"],
+                      copy_ms=rows["copy"]["graph_ms"],
+                      launched_attributes={
+                          k: rows[launched][k]
+                          for k in ("regs", "local_bytes", "smem",
+                                    "blocks_per_sm")}, **extra)
+        del zeta, psi, f1, f2, tile, src, dst, calls
         free_memory()
     return out
 
@@ -2480,8 +2598,9 @@ def run_mg_path(name, cfg, dev, zeta, seed, cycles, calls,
 
 
 def run_tendency_path(cfg, state, calls) -> dict:
-    """``calls`` K9 calls on ``state`` with the counts set to 0 just before;
-    the last held against _tendencies."""
+    """``calls`` K9 calls on ``state`` with the counts set to 0 just before,
+    each by the row-streaming kernel (K9 = K9 rows = calls, every other
+    count 0); the last held against _tendencies."""
     for counter in COUNTERS.values():
         counter.launches = 0
     for _ in range(calls):
@@ -2489,7 +2608,7 @@ def run_tendency_path(cfg, state, calls) -> dict:
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in COUNTERS.items()}
     want = {k: 0 for k in COUNTERS}
-    want["K9"] = calls
+    want["K9"] = want["K9 rows"] = calls
     if launches != want:
         raise AssertionError(f"tendency path: launch counts {launches} != "
                              f"{want}")
@@ -2508,11 +2627,21 @@ LAB_K1_BITS = ("base", "legacy", "aligned")    # K1's instance
 LAB_M, LAB_CHUNK, LAB_REPS = 2048, 50, 4
 
 
+LAB_BODIES = ("base", "norot", "noslice", "nojac")    # the kernel bodies
+LAB_BIT_SHAPES = ((2, 2048, 2048), (1, 256, 256))
+
+
 def phase_lab_kernels(errs, dev) -> None:
     """K18 in every variant against its plain version on the step cases at
-    the lab's (2, 2048, 2048), relative to max|plain| (norot's euler_ab3
-    carry, its tendency, is zero apart from the wind: held against base's
-    carry scale); base, legacy and aligned bitwise K1."""
+    the lab's (2, 2048, 2048), each launch by the row-streaming kernel
+    (counted), relative to max|plain| (norot's euler_ab3 carry, its
+    tendency, is zero apart from the wind: held against base's carry
+    scale); base, legacy and aligned bitwise K1. Then every body on the
+    row kernel bitwise the same body on the tile kernel (lab_step_tile),
+    every step case, at (2, 2048, 2048) and (1, 256, 256) (the lab's
+    configuration, one layer: the two-layer inputs' first layer), the
+    one-layer outputs also against plain; and the row instances'
+    registers, spills and blocks an SM."""
     cfg = stencil_lab.lab_config(LAB_M)
     zeta, psi, f1, f2 = step_inputs(cfg, dev, np.random.default_rng(SEED + 7))
     for case, over, step in STEP_CASES:
@@ -2520,7 +2649,11 @@ def phase_lab_kernels(errs, dev) -> None:
         k1 = fused_step(c, zeta, psi, f1, f2, step)
         scale = float(lab_step_plain(c, zeta, psi, f1, f2, step)[1].abs().max())
         for variant in LAB_VARIANTS:
+            n = lab_step.rows_launches
             got = lab_step(c, zeta, psi, f1, f2, step, variant)
+            if lab_step.rows_launches != n + 1:
+                raise AssertionError(f"K18 {variant} {case}: not the "
+                                     "row-streaming kernel")
             want = lab_step_plain(c, zeta, psi, f1, f2, step, variant)
             for part, g, w, w1 in zip(("zeta_new", "carry"), got, want, k1):
                 errs.record("K18", f"{variant} {case} {part}", g, w,
@@ -2532,6 +2665,46 @@ def phase_lab_kernels(errs, dev) -> None:
                                          "bitwise K1")
     emit("kernels", kernel="K18", bitwise_k1=list(LAB_K1_BITS),
          cases=[case for case, _, _ in STEP_CASES])
+    differ = []
+    for L, M, P in LAB_BIT_SHAPES:
+        c0 = stencil_lab.lab_config(M).replace(n_layers=L)
+        if M != LAB_M:
+            del zeta, psi, f1, f2
+            free_memory()
+            zeta, psi, f1, f2 = (t[:L].contiguous() for t in step_inputs(
+                stencil_lab.lab_config(M), dev,
+                np.random.default_rng(SEED + 9)))
+        for case, over, step in STEP_CASES:
+            c = c0.replace(**over)
+            scale = float(lab_step_plain(c, zeta, psi, f1, f2,
+                                         step)[1].abs().max())
+            for body in LAB_BODIES:
+                rows = lab_step_rows(c, zeta, psi, f1, f2, step, body)
+                tile = lab_step_tile(c, zeta, psi, f1, f2, step, body)
+                for part, g, t in zip(("zeta_new", "carry"), rows, tile):
+                    if not torch.equal(g, t):
+                        differ.append(f"{body} L={L} {M}^2 {case} {part}: "
+                                      f"{float((g - t).abs().max())}")
+                if L == 1:
+                    want = lab_step_plain(c, zeta, psi, f1, f2, step, body)
+                    for part, g, w in zip(("zeta_new", "carry"), rows, want):
+                        errs.record("K18", f"{body} one layer {M}^2 {case} "
+                                    f"{part}", g, w, quiet=True,
+                                    scale=scale if (body, part) == (
+                                        "norot", "carry") else 0.0)
+                del rows, tile
+    layout = step_rows_launched(LAB_M)
+    attrs = {f"{body} L={L}": lab_rows_attributes(L, body, layout,
+                                                   dev.index or 0)
+             for L in (1, 2) for body in LAB_BODIES}
+    emit("kernels", kernel="K18", bitwise_tile_kernel=not differ,
+         differ=differ, bodies=list(LAB_BODIES),
+         shapes=[list(sh) for sh in LAB_BIT_SHAPES],
+         cases=[case for case, _, _ in STEP_CASES],
+         rows_layout=k1_layout_name(layout), rows_attributes=attrs)
+    if differ:
+        raise AssertionError(f"K18 rows not bitwise the tile kernel: "
+                             f"{differ}")
     del zeta, psi, f1, f2
     free_memory()
 
@@ -2549,7 +2722,7 @@ def lab_plain_run(cfg, state, steps: int, variant: str) -> State:
 def run_lab_path(dev) -> tuple[dict, dict]:
     """The lab's protocol through its own function (run_lab) at 2048^2,
     chunk 50, reps 4, all six variants, the counts set to 0 just before and
-    read just after: K18 = 6 x 50 x 5, every other count 0. Each variant's
+    read just after: K18 = K18 rows = 6 x 50 x 5, every other count 0. Each variant's
     final zeta (250 steps, psi fixed) against a loop of its plain version
     from the same state within TOL["slice_zeta"], else both against a
     float64 loop (kernel <= 2 x plain). Returns (counts, the lab's jobs)."""
@@ -2560,7 +2733,7 @@ def run_lab_path(dev) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     launches = counts()
     want = {k: 0 for k in COUNTERS}
-    want["K18"] = len(LAB_VARIANTS) * steps
+    want["K18"] = want["K18 rows"] = len(LAB_VARIANTS) * steps
     if launches != want:
         raise AssertionError(f"stencil lab: launch counts {launches} != "
                              f"{want}")
@@ -2602,32 +2775,47 @@ def run_lab_path(dev) -> tuple[dict, dict]:
 
 
 def time_lab(dev, card, jobs) -> dict:
-    """CUDA-event ms per launch of K1 and each K18 variant on the lab's
-    (2, 2048, 2048) inputs, in turns (in order, then in reverse), each
-    variant beside its plain version; the lab path's own ms per step (host
-    clock, best of its reps) beside. Returns K18's row fields."""
+    """CUDA-event ms per launch of K1 and each K18 variant (the row kernel,
+    as lab_step routes it) and each body on the tile kernel, on the lab's
+    (2, 2048, 2048) inputs, host-launched and replayed from a CUDA graph
+    (the device's time where the host's launch cost nears the kernel's), in
+    turns (in order, then in reverse), each variant beside its plain
+    version; the lab path's own ms per step (host clock, best of its reps)
+    beside. Returns K18's row fields."""
     cfg = stencil_lab.lab_config(LAB_M)
     zeta, psi, f1, f2 = step_inputs(cfg, dev, np.random.default_rng(SEED + 8))
     calls = {"K1": lambda: fused_step(cfg, zeta, psi, f1, f2, 5)}
     for variant in LAB_VARIANTS:
         calls[variant] = lambda v=variant: lab_step(cfg, zeta, psi, f1, f2, 5,
                                                     v)
+    for body in LAB_BODIES:
+        calls[f"{body} (tile)"] = lambda b=body: lab_step_tile(
+            cfg, zeta, psi, f1, f2, 5, b)
     runs = {k: [] for k in calls}
+    graph_runs = {k: [] for k in calls}
     for k in list(calls) + list(calls)[::-1]:
         runs[k].append(time_ms(calls[k], 50, warmup=5))
+        graph_runs[k].append(graph_ms(calls[k], 20))
     ms = {k: sum(v) / len(v) for k, v in runs.items()}
+    graph = {k: sum(v) / len(v) for k, v in graph_runs.items()}
     plain = {v: time_ms(lambda v=v: lab_step_plain(cfg, zeta, psi, f1, f2, 5,
                                                    v), 10)
              for v in LAB_VARIANTS}
     lab_ms = {v: jobs[v]["ms_per_iter"] for v in LAB_VARIANTS}
+    bound_ms = bound("K18", LAB_M, LAB_M)[0]
     emit("timing", card=card, path="stencil lab", grid=[LAB_M, LAB_M],
-         launch_ms=ms, launch_ms_runs=runs, plain_ms=plain,
-         bound_ms=bound("K18", LAB_M, LAB_M)[0], lab_ms_per_iter=lab_ms,
+         launch_ms=ms, launch_ms_runs=runs, graph_ms=graph,
+         graph_ms_runs=graph_runs, plain_ms=plain, bound_ms=bound_ms,
+         lab_ms_per_iter=lab_ms,
+         vs_base={v: ms[v] / ms["base"] for v in LAB_VARIANTS},
+         vs_base_graph={v: graph[v] / graph["base"] for v in LAB_VARIANTS},
          first_call_s={v: jobs[v]["first_call_s"] for v in LAB_VARIANTS})
     del zeta, psi, f1, f2
     free_memory()
     return {"ms": ms["base"], "plain_ms": plain["base"],
             "variants_ms": {v: ms[v] for v in LAB_VARIANTS},
+            "tile_ms": {b: ms[f"{b} (tile)"] for b in LAB_BODIES},
+            "graph_ms": graph,
             "variants_plain_ms": plain, "k1_ms_same_turns": ms["K1"],
             "lab_ms_per_iter": lab_ms}
 
@@ -3576,6 +3764,7 @@ def main() -> None:
     k3_sweep = phase_k3_sweep(dev, turb, card)
     k13_sweep = phase_k13_sweep(dev, turb, pod, card)
     k1_sweep = phase_k1_sweep(dev, card)
+    k9_sweep = phase_k9_sweep(dev, card)
     coop_sweep = phase_coop_sweep(errs, turb, dev, card, named_ptxas)
     k2_sweep = phase_k2_sweep(errs, dev, card)
     k2_mixed = time_k2_mixed(errs, dev, card)
@@ -3840,7 +4029,25 @@ def main() -> None:
         "tile_ms": sharded_ms["K12"]["tile_ms"]}
     lab = time_lab(dev, card, lab_jobs)
     ms_2048["K18"] = {"ms": lab.pop("ms"), "plain_ms": lab.pop("plain_ms")}
-    extra["K18"] = lab
+    extra["K18"] = dict(
+        lab, rows_launches=sum(run["K18 rows"] for run in launches.values()),
+        tile_launches=sum(run["K18"] - run["K18 rows"]
+                          for run in launches.values()),
+        kernels={"lab_rows_kernel": "P % 4 == 0, operands 16-byte aligned "
+                 "(K1's launched layout at M)",
+                 "lab_step_kernel": "every other shape (the tile design)"},
+        rows_ptxas=named_ptxas["lab_rows_kernel"])
+    extra["K9"] = {
+        "rows_launches": sum(run["K9 rows"] for run in launches.values()),
+        "tile_launches": sum(run["K9"] - run["K9 rows"]
+                             for run in launches.values()),
+        "kernels": {"tendency_rows_kernel": "P % 4 == 0, operands 16-byte "
+                    "aligned (layouts (W, R, D, NT): {}, else K1's)".format(
+                        step_kernel.TENDENCY_ROWS_BY_M),
+                    "tendency_kernel": "every other shape (the tile "
+                    "design)"},
+        "rows_ptxas": named_ptxas["tendency_rows_kernel"],
+        "sweep": k9_sweep}
 
     print(json.dumps({"kernels": kernel_rows(errs, launches, ms_2048,
                                              ms_8192, extra, sharded_ms)}),

@@ -15,7 +15,7 @@ carry) and 1e-4 (psi_new), K15 1e-6 (zeta_new, carry) and 1e-5 (zeta_ys);
 their persistent kernels (K15, K16, K17 and K15's sharded form) bitwise
 the separate kernels they fuse, each launch in rows_launches, and the first
 forms on the shapes and operands the persistent kernels do not take;
-K9 1e-6 (K1's tile); K10 and K11 1e-6 (tests/test_multigrid.py's kernel
+K9 1e-6 (K1's body); K10 and K11 1e-6 (tests/test_multigrid.py's kernel
 tolerance), and the multigrid solves on the card 1e-5 from the CPU's (a
 float64 solve under "auto", on the level-op chain, 1e-12 from the float64
 spectral inversion). The
@@ -23,11 +23,13 @@ sharded kernels as the kernels they extend: K12 1e-6, K15's sharded form
 1e-6 (zeta_new, carry) and 1e-5 (zeta_ys), K13, K14 and K7 1e-4 (K13's
 and K14's cluster kernel in every layout, K7 on K3's cluster kernel, with
 their cluster counts; pair_cols_kernel at the other extents). K18 (the
-stencil lab's step) 1e-6, its base instance bitwise K1. K1's and K12's
-row-streaming kernel bitwise the tile design (K18 base, step_kernel), K12
-bitwise K1, with both rows_launches counters; their tile kernels
-(step_kernel, step_sharded_kernel) on P % 4 != 0 and misaligned operands,
-1e-6 from plain and bitwise the row kernel. K10's and K11's row-streaming
+stencil lab's step) 1e-6, its base instance bitwise K1. K1's, K9's,
+K12's and K18's row-streaming kernels bitwise the tile design (step_kernel,
+tendency_kernel, lab_step_kernel: every K18 body, one and two layers), K12
+bitwise K1, K9's two-layer tendency bitwise K1's euler_ab3 step-0 carry,
+with the rows_launches counters; their tile kernels (step_kernel,
+step_sharded_kernel, tendency_kernel, lab_step_kernel) on P % 4 != 0 and
+misaligned operands, 1e-6 from plain and bitwise the row kernel. K10's and K11's row-streaming
 kernel (mg_rows_kernel) bitwise their tile kernels in every form, with
 both rows_launches counters; the tile kernels on the shapes, sweep counts
 and misaligned operands the row kernel does not take.
@@ -52,7 +54,8 @@ from tpu_qg_torch.ops.dft_kernels import (
     x_symbols_cluster_takes, x_symbols_inverse, x_symbols_inverse_plain,
     y_dft, y_dft_factored, y_dft_factored_takes, y_dft_plain)
 from tpu_qg_torch.ops import dft_kernels, mg_kernels
-from tpu_qg_torch.ops._stencil_lab import lab_step, lab_step_plain
+from tpu_qg_torch.ops._stencil_lab import (lab_step, lab_step_plain,
+                                           lab_step_rows, lab_step_tile)
 from tpu_qg_torch.ops.mg_kernels import (mg_prolong_smooth,
                                          mg_prolong_smooth_plain, mg_smooth,
                                          mg_smooth_plain)
@@ -74,6 +77,8 @@ from tpu_qg_torch.ops.step_kernel import (fused_pre_inversion,
                                           fused_step_yspec_sharded_plain,
                                           fused_tendency,
                                           fused_tendency_plain,
+                                          fused_tendency_rows,
+                                          fused_tendency_tile,
                                           packed_symbol_consts)
 
 pytestmark = pytest.mark.cuda
@@ -123,13 +128,13 @@ def test_step_kernel(dev, M, P, scheme, tau0, step):
     ("leapfrog_ra", 0.1, 3)])
 def test_step_rows_kernel_bitwise_tile_design(dev, M, P, scheme, tau0, step):
     """K1 by its row-streaming kernel (counted in rows_launches) gives the
-    bits of K18 base, the tile design's body."""
+    bits of the tile design (step_kernel)."""
     cfg = preset("turbulence-2048").replace(M=M, P=P, time_scheme=scheme,
                                             wind_tau0=tau0)
     z, p, f1, f2 = _fields(M, P, dev)
     n = fused_step.rows_launches
     got = fused_step(cfg, z, p, f1, f2, step)
-    base = lab_step(cfg, z, p, f1, f2, step, "base")
+    base = fused_step_tile(cfg, z, p, f1, f2, step)
     torch.cuda.synchronize()
     assert fused_step.rows_launches == n + 1
     assert all(torch.equal(g, b) for g, b in zip(got, base))
@@ -690,13 +695,59 @@ def test_tendency_kernel(dev, M, P, layers, tau0):
     cfg = preset("turbulence-2048").replace(M=M, P=P, n_layers=layers,
                                             wind_tau0=tau0)
     z, p = (t[:layers].contiguous() for t in _fields(M, P, dev)[:2])
-    n = fused_tendency.launches
+    n = (fused_tendency.launches, fused_tendency.rows_launches)
     got = fused_tendency(cfg, z, p)
     want = fused_tendency_plain(cfg, z, p)
     torch.cuda.synchronize()
-    assert fused_tendency.launches == n + 1
+    assert (fused_tendency.launches,
+            fused_tendency.rows_launches) == (n[0] + 1, n[1] + 1)
     assert got.shape == (layers, M, P)
     assert _rel(got, want) <= 1e-6
+
+
+# K9's row kernel bitwise its tile kernel, one and two layers, with and
+# without the wind, on a ragged last run and strip (M = 200, P = 1000).
+@pytest.mark.parametrize("M,P", [(200, 1000), (2048, 2048)])
+@pytest.mark.parametrize("layers,tau0", [(2, 0.0), (2, 0.1), (1, 0.1),
+                                         (1, 0.0)])
+def test_tendency_rows_bitwise_tile_kernel(dev, M, P, layers, tau0):
+    cfg = preset("turbulence-2048").replace(M=M, P=P, n_layers=layers,
+                                            wind_tau0=tau0)
+    z, p = (t[:layers].contiguous() for t in _fields(M, P, dev)[:2])
+    assert torch.equal(fused_tendency_rows(cfg, z, p),
+                       fused_tendency_tile(cfg, z, p))
+
+
+@pytest.mark.parametrize("M,P", [(200, 1000), (2048, 2048)])
+@pytest.mark.parametrize("tau0", [0.0, 0.1])
+def test_tendency_is_k1_carry(dev, M, P, tau0):
+    """K9's two-layer tendency is bitwise K1's carry under euler_ab3 at step
+    0 (the update stores the tendency as the carry), on both designs."""
+    cfg = preset("turbulence-2048").replace(M=M, P=P, wind_tau0=tau0)
+    z, p, f1, f2 = _fields(M, P, dev)
+    assert torch.equal(fused_tendency_rows(cfg, z, p),
+                       fused_step(cfg, z, p, f1, f2, 0)[1])
+    assert torch.equal(fused_tendency_tile(cfg, z, p),
+                       fused_step_tile(cfg, z, p, f1, f2, 0)[1])
+
+
+def test_tendency_rows_routing(dev):
+    """P % 4 != 0 and a misaligned operand take the tile kernel: launches
+    counts them, rows_launches does not."""
+    cfg = preset("turbulence-2048").replace(M=256, P=258)
+    z, p = _fields(256, 258, dev)[:2]
+    n, n_rows = fused_tendency.launches, fused_tendency.rows_launches
+    got = fused_tendency(cfg, z, p)
+    assert _rel(got, fused_tendency_plain(cfg, z, p)) <= 1e-6
+    cfg = preset("turbulence-2048").replace(M=256, P=256)
+    z, p = _fields(256, 256, dev)[:2]
+    shifted = torch.empty(2 * 256 * 256 + 1, device=dev)[1:].view(2, 256, 256)
+    shifted.copy_(z)
+    got = fused_tendency(cfg, shifted, p)
+    torch.cuda.synchronize()
+    assert (fused_tendency.launches,
+            fused_tendency.rows_launches) == (n + 2, n_rows)
+    assert torch.equal(got, fused_tendency_rows(cfg, z, p))
 
 
 def _mg_fields(M, P, dev, seed):
@@ -1268,7 +1319,7 @@ def test_lab_kernel(dev, L, M, P, scheme, tau0, step):
                                             time_scheme=scheme,
                                             wind_tau0=tau0)
     z, p, f1, f2 = (t[:L].contiguous() for t in _fields(M, P, dev))
-    n = lab_step.launches
+    n, n_rows = lab_step.launches, lab_step.rows_launches
     scale = float(lab_step_plain(cfg, z, p, f1, f2, step)[1].abs().max())
     k1 = fused_step(cfg, z, p, f1, f2, step) if L == 2 else None
     for variant in LAB_VARIANTS:
@@ -1283,6 +1334,46 @@ def test_lab_kernel(dev, L, M, P, scheme, tau0, step):
             assert all(torch.equal(g, w) for g, w in zip(got, k1)), variant
     torch.cuda.synchronize()
     assert lab_step.launches == n + len(LAB_VARIANTS)
+    assert lab_step.rows_launches == n_rows + len(LAB_VARIANTS)
+
+
+# Every K18 body on the row kernel bitwise the same body on the tile
+# kernel, one and two layers, every scheme case, on a ragged last run and
+# strip (M = 200, P = 1000) and at the lab's 2048^2.
+@pytest.mark.parametrize("L,M,P", [(2, 2048, 2048), (1, 2048, 2048),
+                                   (2, 200, 1000), (1, 200, 1000)])
+@pytest.mark.parametrize("scheme,tau0,step", [
+    ("euler_ab3", 0.0, 0), ("euler_ab3", 0.0, 5), ("leapfrog_ra", 0.1, 0),
+    ("leapfrog_ra", 0.1, 3)])
+def test_lab_rows_bitwise_tile_kernel(dev, L, M, P, scheme, tau0, step):
+    cfg = preset("turbulence-2048").replace(M=M, P=P, n_layers=L,
+                                            time_scheme=scheme,
+                                            wind_tau0=tau0)
+    z, p, f1, f2 = (t[:L].contiguous() for t in _fields(M, P, dev))
+    for body in ("base", "norot", "noslice", "nojac"):
+        rows = lab_step_rows(cfg, z, p, f1, f2, step, body)
+        tile = lab_step_tile(cfg, z, p, f1, f2, step, body)
+        assert all(torch.equal(r, t) for r, t in zip(rows, tile)), body
+
+
+def test_lab_rows_routing(dev):
+    """P % 4 != 0 and a misaligned operand take K18's tile kernel: launches
+    counts them, rows_launches does not."""
+    cfg = preset("turbulence-2048").replace(M=256, P=258)
+    z, p, f1, f2 = _fields(256, 258, dev)
+    n, n_rows = lab_step.launches, lab_step.rows_launches
+    got = lab_step(cfg, z, p, f1, f2, 5, "noslice")
+    for g, w in zip(got, lab_step_plain(cfg, z, p, f1, f2, 5, "noslice")):
+        assert _rel(g, w) <= 1e-6
+    cfg = preset("turbulence-2048").replace(M=256, P=256)
+    z, p, f1, f2 = _fields(256, 256, dev)
+    shifted = torch.empty(2 * 256 * 256 + 1, device=dev)[1:].view(2, 256, 256)
+    shifted.copy_(f1)
+    got = lab_step(cfg, z, p, shifted, f2, 5, "nojac")
+    torch.cuda.synchronize()
+    assert (lab_step.launches, lab_step.rows_launches) == (n + 2, n_rows)
+    assert all(torch.equal(g, t) for g, t in zip(
+        got, lab_step_rows(cfg, z, p, f1, f2, 5, "nojac")))
 
 
 def test_lab_wrapper_refuses_an_unknown_variant(dev):

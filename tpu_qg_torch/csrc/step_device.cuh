@@ -1,11 +1,11 @@
 // The step's point body (step_lap, step_tendency, step_update), shared by
-// every step kernel, and the tile design that runs it (step_tile): K8, K9,
-// and K1 and K12 on the shapes the row-streaming design does not take
-// (step_kernel.cu), K18 (lab_kernel.cu) and the one-launch kernels K15,
-// K15's sharded form and K17 (fused_kernels.cu). K1 and K12 run the same
-// body in the row-streaming design (step_rows in step_kernel.cu), so every
-// step kernel gives the same bits for the same point. Design notes in
-// step_kernel.cu.
+// every step kernel, and the tile design that runs it (step_tile): K8, and
+// K1, K9, K12 and K18 on the shapes the row-streaming design does not take
+// (step_kernel.cu, lab_kernel.cu), and the first one-launch kernels K15,
+// K15's sharded form and K17 (fused_kernels.cu). K1, K9, K12 and K18 run
+// the same body in the row-streaming design (step_rows in step_rows.cuh),
+// so every step kernel gives the same bits for the same point. Design
+// notes in step_kernel.cu.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -15,7 +15,8 @@
 // step_update in step_device.cuh), so all of them give the same bits.
 //
 // K1 and K12: the row-streaming step (step_rows_kernel and
-// step_rows_sharded_kernel). K1 replaces tpu_qg/ops/pallas_tendency.py:555
+// step_rows_sharded_kernel; K9 runs it too, tendency_rows_kernel, with the
+// f1/f2 loads, the update and the carry cut). K1 replaces tpu_qg/ops/pallas_tendency.py:555
 // fused_step_streamed (v4, _streamed_kernel) and :997 fused_step_pre_fft
 // (v3, its single-tile form); K12 replaces :608
 // fused_step_streamed_sharded. The TPU kernel is itself a double-buffered
@@ -60,10 +61,10 @@
 // Bits: a thread forms four points from the same registers, and a product
 // that two of them share would be formed once and not contracted into an
 // FMA; opaque() keeps that product each point's own, so K1 and K12 give
-// the tile design's bits (chip_smoke.py holds K1 bitwise against K18 base,
-// the tile design's body).
+// the tile design's bits (chip_smoke.py holds K1 bitwise against the tile
+// kernel, step_kernel).
 //
-// The tile design (step_tile in step_device.cuh; K8, K9, and K1 and K12 on
+// The tile design (step_tile in step_device.cuh; K8, and K1, K9 and K12 on
 // the shapes above): one 256-thread block per 32 x 64 tile, the layers in
 // turn; psi (halo 2) and zeta (halo 1) land in shared memory with the
 // periodic wrap done in the load index, lap(psi) is formed once on the tile
@@ -115,10 +116,13 @@ pre_inversion_kernel(const float* __restrict__ zeta, const float* __restrict__ p
 
 // K9: replaces tpu_qg/ops/pallas_tendency.py fused_tendency (:181, v1,
 // _tendency_kernel), the tendency alone, a drop-in for models.core's
-// _tendencies. K1's tile body with the update cut off (kTendOnly): it reads
-// zeta and psi and writes the tendency, three (L, M, P) fields, 101 MB at
-// 2048^2 and 1611 MB at 8192^2 for two layers; the same tile and halos as
-// K1, so the same bandwidth bound.
+// _tendencies. K1's body with the update cut off (kTendOnly): it reads zeta
+// and psi and writes the tendency, three (L, M, P) fields, 101 MB at 2048^2
+// and 1611 MB at 8192^2 for two layers (0.030 and 0.481 ms at 3.35 TB/s).
+// Two kernels: K1's row-streaming design (tendency_rows_kernel, below; the
+// f1/f2 loads and the carry cut, one 16-byte tendency store a thread a row)
+// on P % 4 == 0 with 16-byte aligned operands, and this tile kernel on the
+// rest; both give the same bits.
 template <int L>
 __global__ void __launch_bounds__(THREADS)
 tendency_kernel(const float* __restrict__ zeta, const float* __restrict__ psi,
@@ -183,6 +187,18 @@ step_rows_sharded_kernel(const float* __restrict__ zeta,
                          StepConsts c, int leapfrog, int step, Slabs sl) {
   step_rows<W, NT, D, true>(zeta, psi, f1, f2, wind, zeta_new, carry, M, P,
                             R, c, leapfrog, step, sl, BlockUnit{});
+}
+
+// K9 in the row-streaming design: K1's step_rows with the update cut off.
+template <int L, int W, int NT, int D>
+__global__ void __launch_bounds__(NT)
+tendency_rows_kernel(const float* __restrict__ zeta,
+                     const float* __restrict__ psi,
+                     const float* __restrict__ wind, float* __restrict__ tend,
+                     int M, int P, int R, StepConsts c) {
+  step_rows<W, NT, D, false, L, kBodyBase, true>(
+      zeta, psi, nullptr, nullptr, wind, tend, nullptr, M, P, R, c, 0, 0,
+      Slabs{}, BlockUnit{});
 }
 
 template <int W, int NT, int D>
@@ -335,6 +351,56 @@ extern "C" int qg_step_rows_attributes(int W, int D, int NT, int sharded,
                       step_rows_sharded_kernel<T::kW, T::kNT, T::kD>)
                 : reinterpret_cast<const void*>(
                       step_rows_kernel<T::kW, T::kNT, T::kD>);
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *regs = attr.numRegs;
+    *local_bytes = static_cast<int>(attr.localSizeBytes);
+    *smem = bytes;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
+                                                        T::kNT, bytes);
+    return static_cast<int>(err);
+  });
+}
+
+// K9 in the row-streaming design, L layers (1 or 2), in the layout (W, R, D,
+// NT) of the sweep. P % 4 == 0 and every operand 16-byte aligned; wind and
+// tend as qg_tendency_launch.
+extern "C" int qg_tendency_rows_launch(const float* zeta, const float* psi,
+                                       const float* wind, float* tend, int L,
+                                       int M, int P, const float* consts,
+                                       int W, int R, int D, int NT,
+                                       void* stream) {
+  const bool ok = (L == 1 || L == 2) && M >= 1 && P >= 4 && P % 4 == 0 &&
+                  R >= 1 && aligned16(zeta) && aligned16(psi) &&
+                  aligned16(wind) && aligned16(tend);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const StepConsts c = step_consts(consts);
+  auto st = static_cast<cudaStream_t>(stream);
+  return rows_dispatch(W, NT, D, [&](auto tag) {
+    using T = decltype(tag);
+    constexpr int smem = RowsLayout<T::kW, T::kNT, T::kD>::kSmem;
+    dim3 grid((P + T::kW - 1) / T::kW, (M + R - 1) / R, L);
+    auto kernel = L == 2 ? tendency_rows_kernel<2, T::kW, T::kNT, T::kD>
+                         : tendency_rows_kernel<1, T::kW, T::kNT, T::kD>;
+    kernel<<<grid, T::kNT, smem, st>>>(zeta, psi, wind, tend, M, P, R, c);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// K9's row kernel for L layers in a layout: as qg_step_rows_attributes.
+extern "C" int qg_tendency_rows_attributes(int L, int W, int D, int NT,
+                                           int* regs, int* local_bytes,
+                                           int* smem, int* blocks_per_sm) {
+  if (L != 1 && L != 2) return static_cast<int>(cudaErrorInvalidValue);
+  return rows_dispatch(W, NT, D, [&](auto tag) {
+    using T = decltype(tag);
+    constexpr int bytes = RowsLayout<T::kW, T::kNT, T::kD>::kSmem;
+    const void* fn =
+        L == 2 ? reinterpret_cast<const void*>(
+                     tendency_rows_kernel<2, T::kW, T::kNT, T::kD>)
+               : reinterpret_cast<const void*>(
+                     tendency_rows_kernel<1, T::kW, T::kNT, T::kD>);
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, fn);
     if (err != cudaSuccess) return static_cast<int>(err);

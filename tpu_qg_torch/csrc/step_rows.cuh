@@ -1,7 +1,9 @@
 // The row-streaming step (step_rows): K1's and K12's body (step_kernel.cu,
-// design in its header), and the step stage of the persistent one-launch
-// kernels (coop_rows.cuh), which run it on a unit index and with barriers of
-// their own in place of blockIdx and __syncthreads.
+// design in its header), K9's (the tendency alone, step_kernel.cu) and
+// K18's (the stencil lab's bodies, lab_kernel.cu), and the step stage of the
+// persistent one-launch kernels (coop_rows.cuh), which run it on a unit
+// index and with barriers of their own in place of blockIdx and
+// __syncthreads.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -77,7 +79,15 @@ struct BlockUnit {
 // bulk copy it issued waited on; a caller that runs another unit in the
 // same shared memory puts a barrier of the NT threads and a proxy fence by
 // thread 0 between them.
-template <int W, int NT, int D, bool kSharded, class Unit>
+//
+// L is the step's layer count (layer u.layer() of L), kBody the tendency
+// body as in step_tile (K18: DX and DY the x and y neighbour offsets, 0
+// where the body reads the centre in their place, in lap(psi) too, so each
+// body gives step_tile's bits), and kTendOnly (K9) stores the tendency to
+// zeta_new with no f1/f2 reads, no update and no carry. The defaults are
+// K1's step, which K12 and the one-launch kernels also run.
+template <int W, int NT, int D, bool kSharded, int L = 2,
+          int kBody = kBodyBase, bool kTendOnly = false, class Unit>
 __device__ __forceinline__ void step_rows(
     const float* __restrict__ zeta, const float* __restrict__ psi,
     const float* __restrict__ f1, const float* __restrict__ f2,
@@ -86,6 +96,8 @@ __device__ __forceinline__ void step_rows(
     int leapfrog, int step, const Slabs& sl, const Unit& u) {
   using Lay = RowsLayout<W, NT, D>;
   constexpr int G = Lay::G, S = Lay::S, kRow = Lay::kRow;
+  constexpr int DX = kBody == kBodyNorot || kBody == kBodyNoslice ? 0 : 1;
+  constexpr int DY = kBody == kBodyNorot ? 0 : 1;
   unsigned char* smem = u.smem();
   auto* bar = reinterpret_cast<unsigned long long*>(smem);
   float* pring = reinterpret_cast<float*>(smem + Lay::kBarBytes);
@@ -155,9 +167,11 @@ __device__ __forceinline__ void step_rows(
     // f1 and f2 of the thread's row, in flight while it waits and forms
     // lap(psi).
     float4 f1v = zero4, f2v = zero4;
-    if (out_ok) {
-      if (rd1) f1v = __ldg(reinterpret_cast<const float4*>(f1 + at));
-      if (rd2) f2v = __ldg(reinterpret_cast<const float4*>(f2 + at));
+    if constexpr (!kTendOnly) {
+      if (out_ok) {
+        if (rd1) f1v = __ldg(reinterpret_cast<const float4*>(f1 + at));
+        if (rd2) f2v = __ldg(reinterpret_cast<const float4*>(f2 + at));
+      }
     }
     const int need = min(x + G + 1, last);
     for (int r = ready + 1; r <= need; ++r) {
@@ -174,20 +188,50 @@ __device__ __forceinline__ void step_rows(
         const float* pm = pring + slot(r - 1) * kRow + 4;
         const float* pp = pring + slot(r + 1) * kRow + 4;
         float* lr = lap_row(r);
-        const float4 c4 = lds4(pc + col), m4 = lds4(pm + col),
-                     p4 = lds4(pp + col);
-        float4 o;
-        o.x = step_lap(c4.x, m4.x, p4.x, pc[col - 1], c4.y, c.inv_dx2);
-        o.y = step_lap(c4.y, m4.y, p4.y, c4.x, c4.z, c.inv_dx2);
-        o.z = step_lap(c4.z, m4.z, p4.z, c4.y, c4.w, c.inv_dx2);
-        o.w = step_lap(c4.w, m4.w, p4.w, c4.z, pc[col + 4], c.inv_dx2);
-        *reinterpret_cast<float4*>(lr + col) = o;
-        if (tx == 0) {
-          lr[-1] = step_lap(pc[-1], pm[-1], pp[-1], pc[-2], pc[0], c.inv_dx2);
-        }
-        if (col + 4 == w) {
-          lr[w] = step_lap(pc[w], pm[w], pp[w], pc[w - 1], pc[w + 1],
-                           c.inv_dx2);
+        // K1's lap(psi) (base's, nojac's) stays its own code, so that K1's
+        // instances compile as they did.
+        if constexpr (DX == 1 && DY == 1) {
+          const float4 c4 = lds4(pc + col), m4 = lds4(pm + col),
+                       p4 = lds4(pp + col);
+          float4 o;
+          o.x = step_lap(c4.x, m4.x, p4.x, pc[col - 1], c4.y, c.inv_dx2);
+          o.y = step_lap(c4.y, m4.y, p4.y, c4.x, c4.z, c.inv_dx2);
+          o.z = step_lap(c4.z, m4.z, p4.z, c4.y, c4.w, c.inv_dx2);
+          o.w = step_lap(c4.w, m4.w, p4.w, c4.z, pc[col + 4], c.inv_dx2);
+          *reinterpret_cast<float4*>(lr + col) = o;
+          if (tx == 0) {
+            lr[-1] = step_lap(pc[-1], pm[-1], pp[-1], pc[-2], pc[0],
+                              c.inv_dx2);
+          }
+          if (col + 4 == w) {
+            lr[w] = step_lap(pc[w], pm[w], pp[w], pc[w - 1], pc[w + 1],
+                             c.inv_dx2);
+          }
+        } else {
+          // step_tile's lap(psi) of the body: with DX = 0 the x neighbours
+          // are the centre row, with DY = 0 the y neighbours the centre.
+          const float* qm = DX ? pm : pc;
+          const float* qp = DX ? pp : pc;
+          const float4 c4 = lds4(pc + col), m4 = lds4(qm + col),
+                       p4 = lds4(qp + col);
+          float4 o;
+          o.x = step_lap(c4.x, m4.x, p4.x, DY ? pc[col - 1] : c4.x,
+                         DY ? c4.y : c4.x, c.inv_dx2);
+          o.y = step_lap(c4.y, m4.y, p4.y, DY ? c4.x : c4.y, DY ? c4.z : c4.y,
+                         c.inv_dx2);
+          o.z = step_lap(c4.z, m4.z, p4.z, DY ? c4.y : c4.z, DY ? c4.w : c4.z,
+                         c.inv_dx2);
+          o.w = step_lap(c4.w, m4.w, p4.w, DY ? c4.z : c4.w,
+                         DY ? pc[col + 4] : c4.w, c.inv_dx2);
+          *reinterpret_cast<float4*>(lr + col) = o;
+          if (tx == 0) {
+            lr[-1] = step_lap(pc[-1], qm[-1], qp[-1], pc[-1 - DY],
+                              pc[-1 + DY], c.inv_dx2);
+          }
+          if (col + 4 == w) {
+            lr[w] = step_lap(pc[w], qm[w], qp[w], pc[w - DY], pc[w + DY],
+                             c.inv_dx2);
+          }
         }
       }
     }
@@ -214,27 +258,62 @@ __device__ __forceinline__ void step_rows(
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int j = k + 1;       // the point's column in Z, Ps and Lc
-        const float tend = step_tendency<2>(
-            c, l,
-            [&](int a, int b) {
-              return a < 0 ? Lm[k] : a > 0 ? Lp[k] : Lc[j + b];
-            },
-            [&](int a, int b) {
-              // z(0, +-1) times a psi difference is the one product two
-              // points of a thread share (point j's z_yp term is point
-              // j + 2's z_ym term): opaque keeps it each point's own.
-              return a == 0 ? opaque(Z[1][j + b]) : Z[a + 1][j + b];
-            },
-            [&](int a, int b) { return Ps[a + 1][j + b]; },
-            [&] { return beta_l; }, wind_on, [&] { return Wd[k]; });
-        step_update(c, leapfrog, step, Z[1][j], tend,
-                    [&] { return F1[k]; }, [&] { return F2[k]; }, zn[k],
-                    out[k]);
+        float tend;
+        if constexpr (kBody == kBodyBase) {   // K1's body, as it was
+          tend = step_tendency<L>(
+              c, l,
+              [&](int a, int b) {
+                return a < 0 ? Lm[k] : a > 0 ? Lp[k] : Lc[j + b];
+              },
+              [&](int a, int b) {
+                // z(0, +-1) times a psi difference is the one product two
+                // points of a thread share (point j's z_yp term is point
+                // j + 2's z_ym term): opaque keeps it each point's own.
+                return a == 0 ? opaque(Z[1][j + b]) : Z[a + 1][j + b];
+              },
+              [&](int a, int b) { return Ps[a + 1][j + b]; },
+              [&] { return beta_l; }, wind_on, [&] { return Wd[k]; });
+        } else {
+          // noslice reads z(a, +-1) as z(0, +-1) for every a, so point j
+          // shares z(0, +1) times a psi difference with point j + 2 as
+          // base does: one opaque copy a point keeps it each point's own
+          // and still one value within the point, as the tile's one
+          // shared-memory read. norot reads only the centre, nojac has no
+          // Jacobian: neither shares a product.
+          float zo[2] = {0.f, 0.f};
+          if constexpr (kBody == kBodyNoslice) {
+            zo[0] = opaque(Z[1][j - 1]);
+            zo[1] = opaque(Z[1][j + 1]);
+          }
+          tend = step_tendency<L, kBody>(
+              c, l,
+              [&](int a, int b) {
+                return a * DX < 0 ? Lm[k]
+                       : a * DX > 0 ? Lp[k] : Lc[j + b * DY];
+              },
+              [&](int a, int b) {
+                if constexpr (kBody == kBodyNoslice) {
+                  if (b != 0) return zo[b > 0];
+                }
+                return Z[a * DX + 1][j + b * DY];
+              },
+              [&](int a, int b) { return Ps[a * DX + 1][j + b * DY]; },
+              [&] { return beta_l; }, wind_on, [&] { return Wd[k]; });
+        }
+        if constexpr (kTendOnly) {
+          zn[k] = tend;
+        } else {
+          step_update(c, leapfrog, step, Z[1][j], tend,
+                      [&] { return F1[k]; }, [&] { return F2[k]; }, zn[k],
+                      out[k]);
+        }
       }
       *reinterpret_cast<float4*>(zeta_new + at) =
           make_float4(zn[0], zn[1], zn[2], zn[3]);
-      *reinterpret_cast<float4*>(carry + at) =
-          make_float4(out[0], out[1], out[2], out[3]);
+      if constexpr (!kTendOnly) {
+        *reinterpret_cast<float4*>(carry + at) =
+            make_float4(out[0], out[1], out[2], out[3]);
+      }
     }
     u.sync();   // the group's slots and lap rows may be refilled
 

@@ -23,15 +23,23 @@ plain function and base's kernel instance. On Hopper, ``norot`` and
 arithmetic.
 
 Design and bound: K1's (``csrc/step_kernel.cu``): six (L, M, P) fields cross
-device memory once, 201 MB at (2, 2048, 2048). The kernel,
-``lab_step_kernel<L, kBody>`` in ``csrc/lab_kernel.cu``, is K1's
-``step_tile`` with a compile-time body selector; base's instance runs K1's
-code and gives K1's bits.
+device memory once, 201 MB at (2, 2048, 2048), 0.060 ms at 3.35 TB/s. Two
+kernels in ``csrc/lab_kernel.cu``, chosen by shape as K1 chooses:
+``lab_rows_kernel<L, kBody, W, NT, D>`` (``lab_step_rows``), K1's
+row-streaming step (``step_rows``) with a compile-time body selector, in
+K1's launched layout for M (``step_rows_launched``), so the lab ablates the
+kernel that ships (base's two-layer instance is K1's code and gives K1's
+bits), where ``step_rows_takes``, counted also in
+``lab_step.rows_launches``; and ``lab_step_kernel<L, kBody>``
+(``lab_step_tile``), the tile design's ``step_tile`` with the same
+selector, on P % 4 != 0 and misaligned views. Each body reads its
+neighbours as the tile does, in lap(psi) too, so both give the same bits.
 
-``lab_step`` launches it for CUDA tensors and uses ``lab_step_plain`` only
-for CPU tensors. ``tpu_qg``'s ``interpret`` and ``tile`` are TPU knobs (the
-Pallas interpreter, and the row tile that must fit VMEM) and are dropped:
-the kernel's 32 x 64 tile is fixed, and there is no interpreter on the card.
+``lab_step`` launches them for CUDA tensors and uses ``lab_step_plain``
+only for CPU tensors. ``tpu_qg``'s ``interpret`` and ``tile`` are TPU knobs
+(the Pallas interpreter, and the row tile that must fit VMEM) and are
+dropped: the kernels' layouts are K1's, and there is no interpreter on the
+card.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ from ..config import ModelConfig
 from . import _build
 from .stencils import roll_shift
 from .step_kernel import (_check_operands, _checked_consts, _wind_row,
-                          update_plain)
+                          step_rows_launched, step_rows_takes, update_plain)
 
 
 def _centre(u: torch.Tensor, di: int, dj: int) -> torch.Tensor:
@@ -142,24 +150,58 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         _build.declare(lib.qg_lab_step_launch,
                        [p] * 7 + [i, i, i, p, i, i, i, p])
+        _build.declare(lib.qg_lab_rows_launch,
+                       [p] * 7 + [i, i, i, p, i, i, i, i, i, i, i, p])
+        _build.declare(lib.qg_lab_rows_attributes, [i] * 5 + [p] * 4)
     return lib
 
 
-def lab_step(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
-             f1: torch.Tensor, f2: torch.Tensor, step: int,
-             variant: str = "base"):
-    """K18 on CUDA tensors (one or two layers), the plain version on CPU
-    tensors. Returns (zeta_new, carry); an unknown variant raises
-    ``KeyError``."""
-    body = KERNEL_BODY[variant]
-    if zeta.device.type == "cpu":
-        return lab_step_plain(cfg, zeta, psi, f1, f2, step, variant)
-    what = "lab_step (K18)"
+def _operands(what: str, cfg: ModelConfig, zeta, psi, f1, f2) -> None:
     if zeta.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {zeta.device}")
-    L = cfg.n_layers
     _check_operands(what, zeta, (("zeta", zeta), ("psi", psi), ("f1", f1),
-                                 ("f2", f2)), (L, cfg.M, cfg.P))
+                                 ("f2", f2)), (cfg.n_layers, cfg.M, cfg.P))
+
+
+def lab_step_rows(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
+                  f1: torch.Tensor, f2: torch.Tensor, step: int,
+                  variant: str = "base"):
+    """One launch of K18's row-streaming kernel on CUDA tensors (one or two
+    layers), in K1's launched layout step_rows_launched(M). Returns
+    (zeta_new, carry); raises on a shape it does not take and on a launch
+    error; counts nothing (lab_step counts)."""
+    what = "lab_step_rows (K18)"
+    body = KERNEL_BODY[variant]
+    _operands(what, cfg, zeta, psi, f1, f2)
+    wind = _wind_row(cfg, zeta.device)
+    if not step_rows_takes(cfg.P, zeta, psi, f1, f2,
+                           *(() if wind is None else (wind,))):
+        raise ValueError(f"{what}: P = {cfg.P} must be a multiple of 4 and "
+                         f"every operand 16-byte aligned")
+    lib = _lib()
+    consts = _checked_consts(cfg, lib, what)
+    W, R, D, NT = step_rows_launched(cfg.M)
+    zeta_new = torch.empty_like(zeta)
+    carry = torch.empty_like(zeta)
+    code = lib.qg_lab_rows_launch(
+        zeta.data_ptr(), psi.data_ptr(), f1.data_ptr(), f2.data_ptr(),
+        None if wind is None else wind.data_ptr(), zeta_new.data_ptr(),
+        carry.data_ptr(), cfg.n_layers, cfg.M, cfg.P, consts, body,
+        int(cfg.time_scheme == "leapfrog_ra"), int(step), W, R, D, NT,
+        torch.cuda.current_stream(zeta.device).cuda_stream)
+    _build.check(code, f"{what} {variant} {(W, R, D, NT)}")
+    return zeta_new, carry
+
+
+def lab_step_tile(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
+                  f1: torch.Tensor, f2: torch.Tensor, step: int,
+                  variant: str = "base"):
+    """One launch of K18's tile kernel (one block a 32 x 64 tile) on CUDA
+    tensors: lab_step's kernel on the shapes the row kernel does not take.
+    Returns (zeta_new, carry); counts nothing."""
+    what = "lab_step_tile (K18)"
+    body = KERNEL_BODY[variant]
+    _operands(what, cfg, zeta, psi, f1, f2)
     lib = _lib()
     consts = _checked_consts(cfg, lib, what)
     wind = _wind_row(cfg, zeta.device)
@@ -168,12 +210,52 @@ def lab_step(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
     code = lib.qg_lab_step_launch(
         zeta.data_ptr(), psi.data_ptr(), f1.data_ptr(), f2.data_ptr(),
         None if wind is None else wind.data_ptr(), zeta_new.data_ptr(),
-        carry.data_ptr(), L, cfg.M, cfg.P, consts, body,
+        carry.data_ptr(), cfg.n_layers, cfg.M, cfg.P, consts, body,
         int(cfg.time_scheme == "leapfrog_ra"), int(step),
         torch.cuda.current_stream(zeta.device).cuda_stream)
     _build.check(code, what)
-    lab_step.launches += 1
     return zeta_new, carry
 
 
+def lab_step(cfg: ModelConfig, zeta: torch.Tensor, psi: torch.Tensor,
+             f1: torch.Tensor, f2: torch.Tensor, step: int,
+             variant: str = "base"):
+    """K18 on CUDA tensors (one or two layers), the plain version on CPU
+    tensors. Returns (zeta_new, carry); an unknown variant raises
+    ``KeyError``. The row kernel (lab_step_rows) where step_rows_takes,
+    counted also in ``lab_step.rows_launches``; the tile kernel
+    (lab_step_tile) on the rest."""
+    if zeta.device.type == "cpu":
+        return lab_step_plain(cfg, zeta, psi, f1, f2, step, variant)
+    _operands("lab_step (K18)", cfg, zeta, psi, f1, f2)
+    wind = _wind_row(cfg, zeta.device)
+    if step_rows_takes(cfg.P, zeta, psi, f1, f2,
+                       *(() if wind is None else (wind,))):
+        out = lab_step_rows(cfg, zeta, psi, f1, f2, step, variant)
+        lab_step.rows_launches += 1
+    else:
+        out = lab_step_tile(cfg, zeta, psi, f1, f2, step, variant)
+    lab_step.launches += 1
+    return out
+
+
 lab_step.launches = 0
+lab_step.rows_launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def lab_rows_attributes(layers: int, variant: str, layout: tuple,
+                        device: int) -> dict:
+    """K18's row kernel for ``layers`` layers and ``variant`` in ``layout``
+    (W, R, D, NT) on card ``device``: registers a thread, local memory
+    (spill) bytes a thread, shared memory a block and the most blocks an SM
+    holds."""
+    W, _, D, NT = layout
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    with torch.cuda.device(device):
+        code = _lib().qg_lab_rows_attributes(
+            layers, KERNEL_BODY[variant], W, D, NT,
+            *(ctypes.byref(v) for v in vals))
+    _build.check(code, f"lab rows attributes {variant} {layout}")
+    return dict(zip(("regs", "local_bytes", "smem", "blocks_per_sm"),
+                    (v.value for v in vals)))

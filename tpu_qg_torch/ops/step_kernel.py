@@ -7,16 +7,18 @@ block.
 K1 replaces ``tpu_qg/ops/pallas_tendency.py`` ``fused_step_streamed`` (v4)
 and its single-tile form ``fused_step_pre_fft`` (v3); K8 replaces its
 ``fused_pre_inversion`` (v2), the step of the single-layer and pin-gauge
-configurations. Both are hand-written CUDA kernels of
-``csrc/step_kernel.cu`` (design and bound in its header: they are
-bandwidth-bound, 6 x 33.5 MB per step at 2048^2, and keep every stencil
-neighbour in shared memory), every one on the same point body. K1 and K12
-are the row-streaming design (``fused_step_rows``: a block marches down a
-run of rows of one strip, its psi and zeta rows brought in ahead by bulk
-copies) on P % 4 == 0 with 16-byte aligned operands, counted also in
-``fused_step.rows_launches`` and ``fused_step_sharded.rows_launches``, and
-the tile design of K8 (``fused_step_tile``, ``fused_step_sharded_tile``)
-on any other shape. K15 replaces ``fused_step_streamed_yspec``
+configurations; K9 its ``fused_tendency`` (v1). All are hand-written CUDA
+kernels of ``csrc/step_kernel.cu`` (design and bound in its header: they
+are bandwidth-bound, 6 x 33.5 MB per step at 2048^2, and keep every stencil
+neighbour in shared memory), every one on the same point body. K1, K9 and
+K12 are the row-streaming design (``fused_step_rows``,
+``fused_tendency_rows``: a block marches down a run of rows of one strip,
+its psi and zeta rows brought in ahead by bulk copies; K9 with the update
+cut off) on P % 4 == 0 with 16-byte aligned operands, counted also in
+``fused_step.rows_launches``, ``fused_tendency.rows_launches`` and
+``fused_step_sharded.rows_launches``, and the tile design of K8
+(``fused_step_tile``, ``fused_tendency_tile``,
+``fused_step_sharded_tile``) on any other shape. K15 replaces ``fused_step_streamed_yspec``
 (v5): K1 with psi in, and zeta_new also out, as permuted y-spectra, in one
 cooperative launch (inverse-y, the step, and forward-y as stages). K17
 replaces ``tpu_qg/ops/pallas_fullstep.py`` ``fused_step_full``: the step,
@@ -207,6 +209,9 @@ def _lib():
         _build.declare(lib.qg_fullstep_launch,
                        [p] * 9 + [i, i] + [p] * 8 + [i, p, p])
         _build.declare(lib.qg_tendency_launch, [p, p, p, p, i, i, i, p, p])
+        _build.declare(lib.qg_tendency_rows_launch,
+                       [p, p, p, p, i, i, i, p, i, i, i, i, p])
+        _build.declare(lib.qg_tendency_rows_attributes, [i] * 4 + [p] * 4)
         _build.declare(lib.qg_step_sharded_launch,
                        [p] * 7 + [i, i, p, i, i] + [p] * 4 + [i, p])
         _build.declare(lib.qg_step_rows_launch,
@@ -355,10 +360,18 @@ def _row_source(field: torch.Tensor, slab, M: int):
     return row
 
 
+# csrc step_device.cuh's tendency bodies (kBody): K1's, every neighbour read
+# as the centre, the x neighbours read as the centre, no Jacobian (K18's
+# norot, noslice and nojac; ops/_stencil_lab.py KERNEL_BODY names them).
+BODY_BASE, BODY_NOROT, BODY_NOSLICE, BODY_NOJAC = 0, 1, 2, 3
+
+
 def fused_step_rows_emulated(cfg: ModelConfig, zeta: torch.Tensor,
-                             psi: torch.Tensor, f1: torch.Tensor,
-                             f2: torch.Tensor, step: int, layout: tuple,
-                             slabs=None, slots: int | None = None):
+                             psi: torch.Tensor, f1: torch.Tensor | None,
+                             f2: torch.Tensor | None, step: int,
+                             layout: tuple, slabs=None,
+                             slots: int | None = None, body: int = BODY_BASE,
+                             tend_only: bool = False):
     """The row-streaming kernel's index maps in plain torch: every block
     of ``layout`` (W, R, D, NT), all layers and strips of a run at once and
     the runs in turn, through the same schedule as csrc step_rows: the
@@ -370,16 +383,23 @@ def fused_step_rows_emulated(cfg: ModelConfig, zeta: torch.Tensor,
     pieces); every unfilled entry is NaN. ``slabs`` = (zeta_top,
     zeta_bot, psi_top, psi_bot) makes it K12's (rows outside [0, M) from
     the slabs), None K1's (the periodic wrap); ``slots`` overrides the ring
-    size S (to show that a short ring is caught).
+    size S (to show that a short ring is caught). The layer count L is the
+    fields' first extent; ``body`` is the tendency body (BODY_*: K18's,
+    with lap(psi) and the body reading the centre for the neighbours it
+    drops); ``tend_only`` is K9's (the tendency into the first output, no
+    f1/f2 reads, no update, no carry: f1 and f2 may be None).
 
-    Returns (zeta_new, carry, stores, bad_reads): ``stores`` counts the
-    stores of each output element; ``bad_reads`` counts the ring reads and
-    waits that did not find their row filled and waited on, and the fills
-    of a slot whose previous row was never waited on."""
+    Returns (zeta_new, carry, stores, bad_reads), zeta_new the tendency and
+    carry None with ``tend_only``: ``stores`` counts the stores of each
+    output element; ``bad_reads`` counts the ring reads and waits that did
+    not find their row filled and waited on, and the fills of a slot whose
+    previous row was never waited on."""
     lay = step_rows_layout(layout)
     W, D, G = lay.W, lay.D, lay.G
     S = slots or lay.S
     L, M, P = zeta.shape
+    DX = 0 if body in (BODY_NOROT, BODY_NOSLICE) else 1
+    DY = 0 if body == BODY_NOROT else 1
     R = lay.R
     dev, dt = zeta.device, zeta.dtype
     nan = float("nan")
@@ -391,14 +411,15 @@ def fused_step_rows_emulated(cfg: ModelConfig, zeta: torch.Tensor,
     ring_ok = k < w[:, None] + 8
     src_p = _row_source(psi, None if slabs is None else slabs[2:], M)
     src_z = _row_source(zeta, None if slabs is None else slabs[:2], M)
-    rd1 = (step != 0) if cfg.time_scheme == "leapfrog_ra" else step >= 2
-    rd2 = cfg.time_scheme != "leapfrog_ra" and step >= 2
+    rd1 = not tend_only and ((step != 0) if cfg.time_scheme == "leapfrog_ra"
+                             else step >= 2)
+    rd2 = not tend_only and cfg.time_scheme != "leapfrog_ra" and step >= 2
     wind = None
     if cfg.wind_tau0 != 0.0:
         from ..models.core import _wind_forcing
         wind = _wind_forcing(cfg, dt, dev)[0]
     zeta_new = torch.full_like(zeta, nan)
-    carry = torch.full_like(zeta, nan)
+    carry = None if tend_only else torch.full_like(zeta, nan)
     stores = torch.zeros(zeta.shape, dtype=torch.int64, device=dev)
     bad = 0
     j = torch.arange(W, device=dev)
@@ -472,10 +493,14 @@ def fused_step_rows_emulated(cfg: ModelConfig, zeta: torch.Tensor,
             pp = pring[:, :, slots_of([r + 1 for r in lap_rows], seen, "ring")]
             ls = torch.tensor([(r - x0 + 1) % (G + 2) for r in lap_rows],
                               device=dev)
-            # columns -1 .. W of the strip: ring entries 3 .. W + 4
-            lring[:, :, ls, 3:W + 5] = lap(pc[..., 3:W + 5], pm[..., 3:W + 5],
-                                           pp[..., 3:W + 5], pc[..., 2:W + 4],
-                                           pc[..., 4:W + 6])
+            # columns -1 .. W of the strip: ring entries 3 .. W + 4; the
+            # body's dropped neighbours read as the centre
+            cc = slice(3, W + 5)
+            qm, qp = (pm, pp) if DX else (pc, pc)
+            ym, yp = ((slice(2, W + 4), slice(4, W + 6)) if DY
+                      else (cc, cc))
+            lring[:, :, ls, cc] = lap(pc[..., cc], qm[..., cc], qp[..., cc],
+                                      pc[..., ym], pc[..., yp])
             for r in lap_rows:
                 lap_held[(r - x0 + 1) % (G + 2)] = r
 
@@ -489,7 +514,10 @@ def fused_step_rows_emulated(cfg: ModelConfig, zeta: torch.Tensor,
             lm, lc, lp = (lring[:, :, slots_of([r + d for r in rows],
                                                lap_held, "lap")]
                           for d in (-1, 0, 1))
-            C, Ym, Yp = slice(4, W + 4), slice(3, W + 3), slice(5, W + 5)
+            C = slice(4, W + 4)
+            Ym, Yp = (slice(3, W + 3), slice(5, W + 5)) if DY else (C, C)
+            if not DX:
+                zm, zp, p_m, p_p, lm, lp = zc, zc, p_c, p_c, lc, lc
             visc = cfg.visc * lap(lc[..., C], lm[..., C], lp[..., C],
                                   lc[..., Ym], lc[..., Yp])
             z_xp, z_xm = zp[..., C], zm[..., C]
@@ -505,14 +533,24 @@ def fused_step_rows_emulated(cfg: ModelConfig, zeta: torch.Tensor,
                      - z_yp * (p_xpyp - p_xmyp)) + z_ym * (p_xpym - p_xmym))
             j_tp = (((z_xpyp * (p_yp - p_xp) - z_xmym * (p_xm - p_ym))
                      - z_xmyp * (p_yp - p_xm)) + z_xpym * (p_xp - p_ym))
-            tend = visc - ((j_pp + j_pt) + j_tp) / (12.0 * cfg.dx * cfg.dx)
+            tend = visc
+            if body != BODY_NOJAC:
+                tend = tend - ((j_pp + j_pt) + j_tp) / (12.0 * cfg.dx
+                                                        * cfg.dx)
             dpsi_dx = (0.5 / cfg.dx) * (p_xp - p_xm)
-            t0 = (tend[0] - cfg.beta_1 * dpsi_dx[0]) - cfg.U * (
-                (0.5 / cfg.dx) * (z_xp[0] - z_xm[0]))
+            betas = (cfg.beta,) if L == 1 else (cfg.beta_1, cfg.beta_2)
+            t0 = tend[0] - betas[0] * dpsi_dx[0]
+            if L == 2 or body in (BODY_BASE, BODY_NOROT):
+                t0 = t0 - cfg.U * ((0.5 / cfg.dx) * (z_xp[0] - z_xm[0]))
+            if L == 1:
+                t0 = t0 - cfg.r * lc[0][..., C]
             if wind is not None:
                 t0 = t0 + wind[(y0[:, None] + j) % P][:, None, :]
-            t1 = (tend[1] - cfg.beta_2 * dpsi_dx[1]) - cfg.r * lc[1][..., C]
-            tend = torch.stack([t0, t1])
+            layers = [t0]
+            if L == 2:
+                layers.append((tend[1] - betas[1] * dpsi_dx[1])
+                              - cfg.r * lc[1][..., C])
+            tend = torch.stack(layers)
 
             xi = torch.tensor(rows, device=dev)
             at = ((torch.arange(L, device=dev)[:, None, None, None] * M
@@ -520,14 +558,17 @@ def fused_step_rows_emulated(cfg: ModelConfig, zeta: torch.Tensor,
                   + (y0[:, None] + j)[None, :, None, :])
             ok = col_ok[None, :, None, :].expand_as(at)
             at = torch.where(ok, at, torch.zeros_like(at))
-            z_c = zc[..., C]
-            zero = torch.zeros((), dtype=dt, device=dev)
-            fv1 = f1.reshape(-1)[at] if rd1 else zero
-            fv2 = f2.reshape(-1)[at] if rd2 else zero
-            zn, out = _update_point(cfg, step, z_c, tend, fv1, fv2)
             flat = at[ok]
-            zeta_new.view(-1)[flat] = zn.expand_as(at)[ok]
-            carry.view(-1)[flat] = out.expand_as(at)[ok]
+            if tend_only:
+                zeta_new.view(-1)[flat] = tend.expand_as(at)[ok]
+            else:
+                zero = torch.zeros((), dtype=dt, device=dev)
+                fv1 = f1.reshape(-1)[at] if rd1 else zero
+                fv2 = f2.reshape(-1)[at] if rd2 else zero
+                zn, out = _update_point(cfg, step, zc[..., C], tend, fv1,
+                                        fv2)
+                zeta_new.view(-1)[flat] = zn.expand_as(at)[ok]
+                carry.view(-1)[flat] = out.expand_as(at)[ok]
             stores.view(-1).index_add_(0, flat, torch.ones_like(flat))
 
             upto = min(x + 2 * G + 1 + D, last)
@@ -674,6 +715,75 @@ def fused_tendency_plain(cfg: ModelConfig, zeta: torch.Tensor,
     return _tendencies(cfg, zeta, psi)
 
 
+# K9's row-streaming kernel (csrc tendency_rows_kernel<L, W, NT, D>): the
+# source instantiates L in {1, 2} over every (W, D, NT) of K1's sweep, R a
+# launch argument. fused_tendency launches TENDENCY_ROWS_BY_M[M] (the layout
+# of chip_smoke.py's k9_sweep with the least device time at that M,
+# PERF.md), else step_rows_launched(M).
+TENDENCY_ROWS_BY_M = {2048: (256, 64, 8, 128), 8192: (256, 32, 8, 128)}
+
+
+def tendency_rows_launched(M: int) -> tuple:
+    """The layout fused_tendency launches at M rows."""
+    return TENDENCY_ROWS_BY_M.get(M, step_rows_launched(M))
+
+
+def _check_tendency(what: str, cfg: ModelConfig, zeta: torch.Tensor,
+                    psi: torch.Tensor) -> None:
+    if zeta.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {zeta.device}")
+    _check_operands(what, zeta, (("zeta", zeta), ("psi", psi)),
+                    (cfg.n_layers, cfg.M, cfg.P))
+
+
+def fused_tendency_rows(cfg: ModelConfig, zeta: torch.Tensor,
+                        psi: torch.Tensor,
+                        layout: tuple | None = None) -> torch.Tensor:
+    """One launch of K9's row-streaming kernel on CUDA tensors (one or two
+    layers), in ``layout`` (W, R, D, NT), by default
+    tendency_rows_launched(M). Raises on a shape or layout it does not take
+    and on a launch error; counts nothing (fused_tendency counts)."""
+    what = "fused_tendency_rows"
+    _check_tendency(what, cfg, zeta, psi)
+    layout = tuple(layout or tendency_rows_launched(cfg.M))
+    _check_rows_layout(what, layout)
+    wind = _wind_row(cfg, zeta.device)
+    if not step_rows_takes(cfg.P, zeta, psi,
+                           *(() if wind is None else (wind,))):
+        raise ValueError(f"{what}: P = {cfg.P} must be a multiple of 4 and "
+                         f"every operand 16-byte aligned")
+    lib = _lib()
+    consts = _checked_consts(cfg, lib, what)
+    W, R, D, NT = layout
+    tend = torch.empty_like(zeta)
+    code = lib.qg_tendency_rows_launch(
+        zeta.data_ptr(), psi.data_ptr(),
+        None if wind is None else wind.data_ptr(), tend.data_ptr(),
+        cfg.n_layers, cfg.M, cfg.P, consts, W, R, D, NT,
+        torch.cuda.current_stream(zeta.device).cuda_stream)
+    _build.check(code, f"{what} (K9) {layout}")
+    return tend
+
+
+def fused_tendency_tile(cfg: ModelConfig, zeta: torch.Tensor,
+                        psi: torch.Tensor) -> torch.Tensor:
+    """One launch of K9's tile kernel (csrc tendency_kernel<L>, one block a
+    32 x 64 tile) on CUDA tensors: fused_tendency's kernel on the shapes
+    the row-streaming kernel does not take. Counts nothing."""
+    _check_tendency("fused_tendency_tile", cfg, zeta, psi)
+    lib = _lib()
+    consts = _checked_consts(cfg, lib, "fused_tendency_tile")
+    wind = _wind_row(cfg, zeta.device)
+    tend = torch.empty_like(zeta)
+    code = lib.qg_tendency_launch(
+        zeta.data_ptr(), psi.data_ptr(),
+        None if wind is None else wind.data_ptr(), tend.data_ptr(),
+        cfg.n_layers, cfg.M, cfg.P, consts,
+        torch.cuda.current_stream(zeta.device).cuda_stream)
+    _build.check(code, "fused_tendency_tile (K9)")
+    return tend
+
+
 def fused_tendency(cfg: ModelConfig, zeta: torch.Tensor,
                    psi: torch.Tensor) -> torch.Tensor:
     """K9: every layer's tendency (with the wind forcing) in one kernel pass
@@ -682,32 +792,46 @@ def fused_tendency(cfg: ModelConfig, zeta: torch.Tensor,
     ``fused_tendency``; no step route runs it (the reference's tests and
     ``scripts/bench_variants.py`` call it). Bound: device-memory bandwidth;
     it reads zeta and psi and writes the tendency, three (L, M, P) fields,
-    101 MB at 2048^2 and 1611 MB at 8192^2 for two layers. Design: K1's
-    32 x 64 tile (``tendency_kernel<L>`` in ``csrc/step_kernel.cu``) with
-    psi (halo 2) and zeta (halo 1) in shared memory, the periodic wrap in
-    the load index, and the update cut off, so each field crosses device
-    memory once."""
+    101 MB at 2048^2 and 1611 MB at 8192^2 for two layers (0.030 and 0.481
+    ms at 3.35 TB/s). Two hand-written kernels, chosen by shape, giving the
+    same bits: K1's row-streaming design with the f1/f2 loads, the update
+    and the carry cut (fused_tendency_rows, ``tendency_rows_kernel`` in
+    ``csrc/step_kernel.cu``: one thread a block keeps D rows of psi and
+    zeta ahead in shared-memory rings by bulk copies, every thread stores
+    its 4 points of the tendency with one 16-byte store) where
+    step_rows_takes, counted also in ``fused_tendency.rows_launches``; K1's
+    32 x 64 tile (fused_tendency_tile, ``tendency_kernel<L>``) on the rest:
+    P % 4 != 0, or an operand that is not 16-byte aligned."""
     if zeta.device.type == "cpu":
         return fused_tendency_plain(cfg, zeta, psi)
-    if zeta.device.type != "cuda":
-        raise ValueError(f"fused_tendency: unsupported device {zeta.device}")
-    _check_operands("fused_tendency", zeta, (("zeta", zeta), ("psi", psi)),
-                    (cfg.n_layers, cfg.M, cfg.P))
-    lib = _lib()
-    consts = _checked_consts(cfg, lib, "fused_tendency")
+    _check_tendency("fused_tendency", cfg, zeta, psi)
     wind = _wind_row(cfg, zeta.device)
-    tend = torch.empty_like(zeta)
-    code = lib.qg_tendency_launch(
-        zeta.data_ptr(), psi.data_ptr(),
-        None if wind is None else wind.data_ptr(), tend.data_ptr(),
-        cfg.n_layers, cfg.M, cfg.P, consts,
-        torch.cuda.current_stream(zeta.device).cuda_stream)
-    _build.check(code, "fused_tendency (K9)")
+    if step_rows_takes(cfg.P, zeta, psi, *(() if wind is None else (wind,))):
+        tend = fused_tendency_rows(cfg, zeta, psi)
+        fused_tendency.rows_launches += 1
+    else:
+        tend = fused_tendency_tile(cfg, zeta, psi)
     fused_tendency.launches += 1
     return tend
 
 
 fused_tendency.launches = 0
+fused_tendency.rows_launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def tendency_rows_attributes(layout: tuple, layers: int, device: int) -> dict:
+    """K9's row kernel of ``layout`` for ``layers`` layers on card
+    ``device``: registers a thread, local memory (spill) bytes a thread,
+    shared memory a block and the most blocks an SM holds."""
+    W, _, D, NT = layout
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    with torch.cuda.device(device):
+        code = _lib().qg_tendency_rows_attributes(
+            layers, W, D, NT, *(ctypes.byref(v) for v in vals))
+    _build.check(code, f"tendency rows attributes {layout}")
+    return dict(zip(("regs", "local_bytes", "smem", "blocks_per_sm"),
+                    (v.value for v in vals)))
 
 
 def fused_pre_inversion(cfg: ModelConfig, zeta: torch.Tensor,

@@ -4,7 +4,8 @@ flags (``ops/_build.py``), one process a source, all started together; an
 instance is named by its mangled name with the anonymous namespace's
 per-source hash removed, so that two checkouts' names match. With
 ``--compare ROOT`` it builds both checkouts at once and prints the
-instances whose lines differ and those only one has:
+instances whose lines differ, those only this checkout has with their
+lines, and those only the other has:
 
     python3 -m tpu_qg_torch.scripts.ptxas_lines                  # this checkout
     python3 -m tpu_qg_torch.scripts.ptxas_lines --compare runs/parent
@@ -71,7 +72,7 @@ def main() -> None:
         "instances": len(lines), "compared_instances": len(theirs),
         "differ": {k: {"this": lines[k], "other": v}
                    for k, v in theirs.items() if k in lines and lines[k] != v},
-        "only_this": sorted(set(lines) - set(theirs)),
+        "only_this": {k: lines[k] for k in sorted(set(lines) - set(theirs))},
         "only_other": sorted(set(theirs) - set(lines))}))
 
 
