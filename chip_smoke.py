@@ -26,7 +26,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    not K3's function) and a copy, host-launched and replayed from a CUDA
    graph (k3_sweep); the block kernel (pair_cols_cluster_kernel) in every
    layout (G, Cw) for K13 at (2, 8192, 2048) and (2, 2048, 512) and K14 at
-   (2, 2048, 512), with the clusters the card holds, its error and
+   (2, 2048, 512), and its mixed instance (pair_cols_cluster_mixed_kernel)
+   for K13 at (2, 3072, 768) and K14 at (2, 1536, 512), with the clusters
+   the card holds, its error and
    pair_cols_kernel's against plain, and ms in turns beside
    pair_cols_kernel, one torch.fft.fft of the own and mirror blocks and
    one torch.fft.ifft along x (a yardstick) and a copy, both ways of
@@ -170,14 +172,18 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    against K1's rows of the whole field) and on (2, 2048, 8192) of an
    8192^2 state; K15's sharded form on the 2048^2 block; K13 on
    (2, 2048, 512) at strip offsets 0 and 12 and on (2, 8192, 2048) at 32
-   (the block kernel), and on (2, 2432, 512) at 0 and 12
-   (pair_cols_kernel); K14 on (2, 2048, 512) with the group indices of
-   ranks 0 and 3 of strip_pair_order(16) (the block kernel) and on
-   (2, 2432, 512) with rank 0's (pair_cols_kernel); K7 on (2, 4096, 4096)
-   and (2, 8192, 8192) (K3's cluster kernel) and (2, 2432, 2048)
-   (pair_cols_kernel), each with its cluster count checked, and on the
-   real zeta of pod-8192's grid-noise psi against float64 (no worse than
-   2 x plain).
+   (the block kernel), as "K13 mixed" on (2, 3072, 768) at 0 and 6 and on
+   (2, 2432, 512) at 0 and 12 (its mixed instance), and on (2, 768, 256)
+   at 0 and 6 (pair_cols_kernel); K14 on (2, 2048, 512) with the group
+   indices of ranks 0 and 3 of strip_pair_order(16) (the block kernel), as
+   "K14 mixed" on (2, 1536, 512) with ranks 0's and 2's and on
+   (2, 2432, 512) with rank 0's (its mixed instance), and on (2, 768, 256)
+   with ranks 0's and 3's of strip_pair_order(8) (pair_cols_kernel); K7 on
+   (2, 4096, 4096) and (2, 8192, 8192) (K3's cluster kernel), as "K7
+   mixed" on (2, 3072, 3072) and (2, 2432, 2048) (K3's mixed cluster
+   kernel) and on (2, 768, 256) (pair_cols_kernel), each with its cluster
+   and mixed counts checked, and on the real zeta of pod-8192's grid-noise
+   psi against float64 (no worse than 2 x plain).
 4b. mesh   — the halo stepper (tpu_qg_torch.parallel) through run_model
    (..., mesh=...), the launch counts set to 0 just before each slice and
    read just after, zeta against the single-device route of the same
@@ -191,13 +197,19 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    at the ends), zeta within 1e-6; then four spawned ranks sharing cuda:0
    on gloo (the kernels built once, here, before they start): (4, 1)
    turbulence-2048 (10 steps: K12, K2, K14), its chain (10: K15 sharded,
-   "K15s rows" = K15s, K14), (2, 2) turbulence-2048 (10: K12, K2, K13) and (4, 1) pod-8192 (5:
-   K12, K2, K13), the counts checked on every rank, zeta and psi gathered
-   to rank 0 and zeta held within 1e-4 of the single-device route (else
-   the float64 rule), every K13 and K14 launch by the block kernel ("K13
-   cluster" = K13, "K14 cluster" = K14); K7's path: 20 pod-8192 inversions
-   with the inverter's pair_stream pinned on (K2, K7, every K7 launch by
-   K3's cluster kernel, "K7 cluster" = K7, K3 = 0), psi against float64.
+   "K15s rows" = K15s, K14), (2, 2) turbulence-2048 (10: K12, K2, K13), (4, 1) pod-8192 (5:
+   K12, K2, K13), (4, 1) turbulence-2048 at 3072^2 (10: K12, K2 by its
+   mixed-radix form, K13 on (2, 3072, 768)) and at 1536 x 2048 (10: K12,
+   K2, K14 on (2, 1536, 512)), the counts checked on every rank, zeta and
+   psi gathered to rank 0 and zeta held within 1e-4 of the single-device
+   route (else the float64 rule), every K13 and K14 launch by the block
+   kernel ("K13 cluster" = K13, "K14 cluster" = K14), at the mixed extents
+   by its mixed instance ("K13 mixed" = K13, "K14 mixed" = K14); K7's
+   paths: 20 inversions with the inverter's pair_stream pinned on, of
+   pod-8192's zeta (K2, K7, every K7 launch by K3's cluster kernel, "K7
+   cluster" = K7, K3 = 0) and of the 3072^2 slice's (K2 by its mixed-radix
+   form, K7, every K7 launch by K3's mixed cluster kernel, "K7 cluster" =
+   "K7 mixed" = K7, K3 = 0), psi against float64.
    Each
    rank's process group and the parent's join have time limits; a rank
    that fails fails the script.
@@ -219,7 +231,12 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    single-device route at 2048^2 and 8192^2, in turns; K12, K13, K14, K15's
    sharded form and K7 per launch beside their plain versions at the
    mesh slices' shapes (K12 beside its tile kernel; K13, K14 and K7 beside
-   pair_cols_kernel); the kernels of a (4, 1) pod-8192 rank's step at its
+   pair_cols_kernel), and K13, K14 and K7 mixed at (2, 3072, 768),
+   (2, 1536, 512) and (2, 3072, 3072), host-launched and graph-replayed
+   beside pair_cols_kernel, the plain version and a yardstick (one
+   torch.fft.fft and one torch.fft.ifft along x), and at (2, 768, 256) by
+   pair_cols_kernel, which keeps that extent; the kernels of a (4, 1)
+   pod-8192 rank's step at its
    shapes (K12, K2 both ways, K13 by each kernel) and their sum; ms per
    step of each
    four-rank slice (host-staged
@@ -231,7 +248,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 The line before the last is {"kernels": [...]}, every kernel with its
 launches in phase 4 (K2 mixed a row of its own, at (2, 2432, 2432), its
 launches not in K2's; K3 mixed likewise, at (2, 1536, 1536); K4 mixed and
-K5 mixed at (2, 3072, 3072)), its largest error, its ms, its plain version's ms
+K5 mixed at (2, 3072, 3072); K13 mixed, K14 mixed and K7 mixed at
+(2, 3072, 768), (2, 1536, 512) and (2, 3072, 3072), each with its
+yardstick's ms), its largest error, its ms, its plain version's ms
 (K10/K11: at the 8192 level, with every level of both solvers beside),
 its bound (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
 the larger) and its library call's ms; the last is {"ok": true, "device":
@@ -342,8 +361,10 @@ MIXED_PATHS = ("turbulence-2048 at 1536^2", "turbulence-2048 at 3072^2")
 TOL = {"K1": 1e-6, "K2": 1e-5, "K2 mixed": 1e-5, "K3": 1e-4,
        "K3 mixed": 1e-4, "K4": 1e-5,
        "K4 mixed": 1e-5, "K5": 1e-4, "K5 mixed": 1e-4,
-       "K7": 1e-4, "K8": 1e-6, "K9": 1e-6, "K10": 1e-6, "K11": 1e-6,
-       "K12": 1e-6, "K13": 1e-4, "K14": 1e-4, "K15": 1e-6,
+       "K7": 1e-4, "K7 mixed": 1e-4, "K8": 1e-6, "K9": 1e-6, "K10": 1e-6,
+       "K11": 1e-6,
+       "K12": 1e-6, "K13": 1e-4, "K13 mixed": 1e-4, "K14": 1e-4,
+       "K14 mixed": 1e-4, "K15": 1e-6,
        "K15 zeta_ys": 1e-5, "K15s": 1e-6, "K16": 1e-4, "K17": 1e-6,
        "K18": 1e-6,
        "K17 psi_new": 1e-4, "slice_zeta": 1e-4, "mesh1_zeta": 1e-6,
@@ -395,9 +416,12 @@ class KernelCount:
     pair_x_symbols.cluster_launches: K3's;
     pair_x_symbols.mixed_launches: its mixed-radix form;
     x_fwd_symbols_offset.cluster_launches and
-    paired_x_symbols.cluster_launches: K13's and K14's,
-    pair_cols_cluster_kernel; stream_pair_symbols.cluster_launches: K7's
-    launches of K3's cluster kernel; y_dft.factored_launches: K2's factored
+    paired_x_symbols.cluster_launches: K13's and K14's block kernel, both
+    instances; x_fwd_symbols_offset.mixed_launches and
+    paired_x_symbols.mixed_launches: its mixed instance,
+    pair_cols_cluster_mixed_kernel; stream_pair_symbols.cluster_launches:
+    K7's launches of K3's cluster kernels; stream_pair_symbols.mixed_launches:
+    of K3's mixed cluster kernel; y_dft.factored_launches: K2's factored
     kernel; y_dft.mixed_launches: its mixed-radix form; fused_step.rows_launches and fused_step_sharded.rows_launches:
     K1's and K12's row-streaming kernel; mg_smooth.rows_launches and
     mg_prolong_smooth.rows_launches: K10's and K11's, mg_rows_kernel;
@@ -438,9 +462,12 @@ COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
             "K3 mixed": KernelCount(pair_x_symbols, "mixed_launches"),
             "K13 cluster": KernelCount(x_fwd_symbols_offset,
                                        "cluster_launches"),
+            "K13 mixed": KernelCount(x_fwd_symbols_offset, "mixed_launches"),
             "K14 cluster": KernelCount(paired_x_symbols, "cluster_launches"),
+            "K14 mixed": KernelCount(paired_x_symbols, "mixed_launches"),
             "K7 cluster": KernelCount(stream_pair_symbols,
                                       "cluster_launches"),
+            "K7 mixed": KernelCount(stream_pair_symbols, "mixed_launches"),
             "K2 factored": KernelCount(y_dft, "factored_launches"),
             "K2 mixed": KernelCount(y_dft, "mixed_launches"),
             "K1 rows": KernelCount(fused_step, "rows_launches"),
@@ -458,9 +485,10 @@ COUNTERS = {"K1": fused_step, "K2": y_dft, "K3": pair_x_symbols,
 # row-streaming K9, K18, K1 and K12, K8, K9, K12 and K18 before K1's tile
 # kernel: a mangled name of any kernel of step_kernel.cu holds the source
 # file's name, step_kernel, and K18's lab_step_kernel holds it too. K13 and K14 are one
-# kernel, pair_cols_cluster_kernel (before pair_cols_kernel, which serves
-# K7, K13 and K14 at other extents); K7's launches of K3's cluster kernel
-# carry K3's name (the counters tell them apart).
+# kernel, pair_cols_cluster_kernel, and its mixed instance
+# pair_cols_cluster_mixed_kernel (before pair_cols_kernel, which serves
+# K7, K13 and K14 at other extents); K7's launches of K3's cluster kernels
+# carry K3's names (the counters tell them apart).
 TRACE_NAMES = (("K9 rows", "tendency_rows_kernel"),
                ("K18 rows", "lab_rows_kernel"),
                ("K12", "step_rows_sharded_kernel"),
@@ -472,6 +500,7 @@ TRACE_NAMES = (("K9 rows", "tendency_rows_kernel"),
                ("K17", "coop_fullstep_kernel"), ("K16", "coop_mono_kernel"),
                ("K15s", "coop_yspec_sharded_kernel"),
                ("K15", "coop_yspec_kernel"), ("K12", "step_sharded_kernel"),
+               ("K13/K14 mixed", "pair_cols_cluster_mixed_kernel"),
                ("K13/K14", "pair_cols_cluster_kernel"),
                ("K7/K13/K14", "pair_cols_kernel"),
                ("K10/K11 rows", "mg_rows_kernel"),
@@ -625,9 +654,9 @@ def phase_build() -> None:
     info = _build.build_info()
     lines = info["ptxas"].splitlines()
     regs = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
-    # K4's, K5's, K3's and K13/K14's cluster kernels, K4's, K5's and K3's
-    # mixed-radix cluster kernels, K2's factored kernel and its mixed-radix
-    # form, K10/K11's row-streaming and tile kernels, the persistent kernels
+    # K4's, K5's, K3's and K13/K14's cluster kernels, K4's, K5's, K3's and
+    # K13/K14's mixed-radix cluster kernels, K2's factored kernel and its
+    # mixed-radix form, K10/K11's row-streaming and tile kernels, the persistent kernels
     # and K9's and K18's row-streaming kernels: each instance's registers,
     # shared memory, spills.
     named = {"x_dft_cluster_kernel": {}, "x_dft_cluster_mixed_kernel": {},
@@ -635,6 +664,7 @@ def phase_build() -> None:
              "x_symbols_cluster_mixed_kernel": {},
              "pair_x_cluster_kernel": {}, "pair_x_cluster_mixed_kernel": {},
              "pair_cols_cluster_kernel": {},
+             "pair_cols_cluster_mixed_kernel": {},
              "y_dft_factored_kernel": {}, "y_dft_mixed_kernel": {},
              "mg_rows_kernel": {}, "mg_smooth_kernel": {},
              "mg_prolong_kernel": {}, "coop_yspec_rows_kernel": {},
@@ -658,6 +688,7 @@ def phase_build() -> None:
          k3_cluster_ptxas=named["pair_x_cluster_kernel"],
          k3_mixed_ptxas=named["pair_x_cluster_mixed_kernel"],
          k13_k14_cluster_ptxas=named["pair_cols_cluster_kernel"],
+         k13_k14_mixed_ptxas=named["pair_cols_cluster_mixed_kernel"],
          k2_factored_ptxas=named["y_dft_factored_kernel"],
          k2_mixed_ptxas=named["y_dft_mixed_kernel"],
          mg_ptxas={k: named[k] for k in ("mg_rows_kernel",
@@ -1623,18 +1654,25 @@ def phase_k3_sweep(dev, turb, card, sizes=(1024, 2048, 4096, 8192),
     return out
 
 
-# The block kernel's sweep, at the four-rank slices' blocks: K13 on the
-# (4, 1) pod-8192 rank's (2, 8192, 2048) at strip offset 16 and the (2, 2)
-# turbulence-2048 rank's (2, 2048, 512) at 4; K14 on the (4, 1)
-# turbulence-2048 rank 0's (2, 2048, 512), the self-mirror group's.
-K13_SWEEP = (("K13", "offset", 8192, 2048, 16),
-             ("K13", "offset", 2048, 512, 4),
-             ("K14", "paired", 2048, 512, 0))
+# The block kernel's sweep, at the four-rank slices' blocks (name, table,
+# M, W, strip offset or rank, the y extent P): K13 on the (4, 1) pod-8192
+# rank's (2, 8192, 2048) at strip offset 16 and the (2, 2) turbulence-2048
+# rank's (2, 2048, 512) at 4; K14 on the (4, 1) turbulence-2048 rank 0's
+# (2, 2048, 512), the self-mirror group's; the mixed instance's: K13 on the
+# (4, 1) 3072^2 rank 1's (2, 3072, 768) at 6, K14 on the (4, 1) 1536 x
+# 2048 rank 0's (2, 1536, 512).
+K13_SWEEP = (("K13", "offset", 8192, 2048, 16, 8192),
+             ("K13", "offset", 2048, 512, 4, 2048),
+             ("K14", "paired", 2048, 512, 0, 2048),
+             ("K13 mixed", "offset", 3072, 768, 6, 3072),
+             ("K14 mixed", "paired", 1536, 512, 0, 2048))
 
 
 def phase_k13_sweep(dev, turb, pod, card, reps=20) -> dict:
-    """The block kernel (pair_cols_cluster_kernel) in every layout (G, Cw)
-    that fits shared memory, for each entry of K13_SWEEP: its bytes of
+    """The block kernel (pair_cols_cluster_kernel, at the mixed extents
+    pair_cols_cluster_mixed_kernel) in every layout (G, Cw) that fits
+    shared memory, for each entry of K13_SWEEP (``pod``'s symbols at 8192,
+    ``turb``'s configuration at (M, P) elsewhere): its bytes of
     shared memory, the clusters the card holds at once, its largest error
     against the plain version and ms a launch, the layouts in turns (in
     order, then in reverse), beside pair_cols_kernel (the kernel it
@@ -1645,8 +1683,8 @@ def phase_k13_sweep(dev, turb, pod, card, reps=20) -> dict:
     Returns the entries by kernel and shape."""
     rng = np.random.default_rng(SEED + 15)
     out = {}
-    for name, kind, M, W, at in K13_SWEEP:
-        cfg = pod if M == pod.M else turb
+    for name, kind, M, W, at, P in K13_SWEEP:
+        cfg = (pod if M == pod.M else turb).replace(M=M, P=P)
         consts = inverter(cfg)._sym_consts
         x = torch.as_tensor(rng.standard_normal((2, M, W)),
                             dtype=torch.float32, device=dev)
@@ -1707,7 +1745,8 @@ def phase_k13_sweep(dev, turb, pod, card, reps=20) -> dict:
              dict(groups_idx=list(key[0])),
              launched="G={} Cw={}".format(
                  *pair_cols_cluster_launched(M, W)),
-             layouts=rows, reference_ms=refs, bound_ms=bound(name, M, W)[0])
+             layouts=rows, reference_ms=refs,
+             bound_ms=bound(name.split()[0], M, W)[0])
         out[f"{name} {M}x{W}"] = dict(layouts=rows, reference_ms=refs)
         del x, xm, c64, both, calls
         free_memory()
@@ -2408,18 +2447,21 @@ def check_sharded_step(errs, cfg, dev, rng, nx, k, cases, tag="") -> None:
             errs.record("K12", f"{tag}{case} {part} tile kernel", t, w)
 
 
-def check_cols(errs, name, case, kern, plain, cluster: bool) -> None:
-    """A column x-stage (K13, K14 or K7) against its plain version, with its
-    cluster count ("K13 cluster", ...) rising by 1 exactly where
-    ``cluster`` (the block kernel's shapes; K3's cluster kernel's for
-    K7)."""
-    counter = COUNTERS[f"{name} cluster"]
-    n = counter.launches
-    errs.record(name, case, kern(), plain())
+def check_cols(errs, name, case, kern, plain, cluster: bool,
+               mixed: bool = False) -> None:
+    """A column x-stage (K13, K14 or K7) against its plain version, recorded
+    as "K13 mixed" (...) where ``mixed``, with its cluster count ("K13
+    cluster", ...) rising by 1 exactly where ``cluster`` (the block kernel's
+    shapes; K3's cluster kernels' for K7) and its mixed count ("K13 mixed",
+    ...) exactly where ``mixed`` (the mixed instance's)."""
+    counters = [COUNTERS[f"{name} {kind}"] for kind in ("cluster", "mixed")]
+    n = [c.launches for c in counters]
+    errs.record(f"{name} mixed" if mixed else name, case, kern(), plain())
     torch.cuda.synchronize()
-    if counter.launches - n != int(cluster):
-        raise AssertionError(f"{name} {case}: {counter.launches - n} "
-                             f"cluster launches")
+    moved = [c.launches - k for c, k in zip(counters, n)]
+    if moved != [int(cluster), int(mixed)]:
+        raise AssertionError(f"{name} {case}: {moved} cluster and mixed "
+                             f"launches")
 
 
 def phase_sharded_kernels(errs, turb, pod, dev) -> None:
@@ -2448,10 +2490,14 @@ def phase_sharded_kernels(errs, turb, pod, dev) -> None:
     free_memory()
 
     # K13 on random y-spectra: a rank's column block and its companion, by
-    # the block kernel (pair_cols_cluster_kernel) at the slices' shapes and
-    # by pair_cols_kernel at the mixed extent 2432 = 128 * 19.
+    # the block kernel (pair_cols_cluster_kernel) at the power-of-two
+    # slices' shapes, by its mixed instance (pair_cols_cluster_mixed_kernel)
+    # at the 3072^2 slice's (2, 3072, 768) and at 2432 = 128 * 19, and by
+    # pair_cols_kernel at 768 = 128 * 6 (U = 3 < G).
     for cfg, nx, offs in ((turb, 4, (0, 3)), (pod, 4, (2,)),
-                          (turb.replace(M=2432), 4, (0, 3))):
+                          (turb.replace(M=3072, P=3072), 4, (0, 1)),
+                          (turb.replace(M=2432), 4, (0, 3)),
+                          (turb.replace(M=768, P=1024), 4, (0, 3))):
         consts = inverter(cfg)._sym_consts
         x = torch.as_tensor(rng.standard_normal((2, cfg.M, cfg.P)),
                             dtype=torch.float32, device=dev)
@@ -2461,42 +2507,50 @@ def phase_sharded_kernels(errs, turb, pod, dev) -> None:
             cols = slice(k * w, (k + 1) * w)
             a, b = x[..., cols].contiguous(), xm[..., cols].contiguous()
             off = k * w // 128
+            takes = pair_cols_cluster_takes(cfg.M, w)
             check_cols(errs, "K13", f"({cfg.M}, {w}) strip offset {off}",
                        lambda: x_fwd_symbols_offset(a, b, consts, off),
                        lambda: x_fwd_symbols_offset_plain(a, b, consts, off),
-                       pair_cols_cluster_takes(cfg.M, w))
+                       takes, takes and dft_kernels._mixed(cfg.M))
         del x, xm
         free_memory()
 
     # K14: ranks 0 (the self-mirror group) and 3 of 4 at 2048^2 (the block
-    # kernel) and rank 0 at 2432 x 2048 (pair_cols_kernel).
-    order = strip_pair_order(turb.P // 128)
-    w, strips = turb.P // 4, turb.P // 4 // 128
-    for cfg, ranks in ((turb, (0, 3)), (turb.replace(M=2432), (0,))):
+    # kernel), ranks 0 and 2 at the 1536 x 2048 slice's (2, 1536, 512) and
+    # rank 0 at 2432 x 2048 (its mixed instance), ranks 0 and 3 at 768 x
+    # 1024 (pair_cols_kernel).
+    for cfg, ranks in ((turb, (0, 3)), (turb.replace(M=1536), (0, 2)),
+                       (turb.replace(M=2432), (0,)),
+                       (turb.replace(M=768, P=1024), (0, 3))):
         consts = inverter(cfg)._sym_consts
+        order = strip_pair_order(cfg.P // 128)
+        w, strips = cfg.P // 4, cfg.P // 4 // 128
         x = torch.as_tensor(rng.standard_normal((2, cfg.M, cfg.P)),
                             dtype=torch.float32, device=dev)
         for k in ranks:
             blk = x[..., k * w:(k + 1) * w].contiguous()
             idx = order[k * strips:(k + 1) * strips]
+            takes = pair_cols_cluster_takes(cfg.M, w)
             check_cols(errs, "K14",
                        f"({cfg.M}, {w}) rank {k} of 4, groups {list(idx)}",
                        lambda: paired_x_symbols(blk, idx, consts),
                        lambda: paired_x_symbols_plain(blk, idx, consts),
-                       pair_cols_cluster_takes(cfg.M, w))
+                       takes, takes and dft_kernels._mixed(cfg.M))
 
-    # K7 on random y-spectra (K3's cluster kernel at 4096^2 and 8192^2,
-    # pair_cols_kernel at 2432 x 2048), then on pod-8192's zeta against
-    # float64.
-    for M, P in ((4096, 4096), (8192, 8192), (2432, 2048)):
+    # K7 on random y-spectra (K3's cluster kernel at 4096^2 and 8192^2, its
+    # mixed cluster kernel at 3072^2 and 2432 x 2048, pair_cols_kernel at
+    # 768 x 256), then on pod-8192's zeta against float64.
+    for M, P in ((4096, 4096), (8192, 8192), (3072, 3072), (2432, 2048),
+                 (768, 256)):
         cfg = pod.replace(M=M, P=P)
         consts = inverter(cfg)._sym_consts
         x = torch.as_tensor(rng.standard_normal((2, M, P)),
                             dtype=torch.float32, device=dev)
+        takes = stream_pair_cluster_takes(M)
         check_cols(errs, "K7", f"random y-spectrum {M}x{P}",
                    lambda: stream_pair_symbols(x, consts),
                    lambda: stream_pair_symbols_plain(x, consts),
-                   stream_pair_cluster_takes(M))
+                   takes, takes and dft_kernels._mixed(M))
         del x
         free_memory()
     consts = inverter(pod)._sym_consts
@@ -2958,58 +3012,80 @@ def phase_mesh_one_rank(turb, pod, dev, card) -> tuple[dict, dict]:
         dist.destroy_process_group()
 
 
-def run_k7_path(pod, dev, calls: int) -> dict:
-    """``calls`` pod-8192 inversions through PackedModalInverterKernels with
-    pair_stream pinned on, the counts set to 0 just before and read just
-    after (K2 = 2 calls, K7 = calls, each K7 launch by K3's cluster kernel,
-    "K7 cluster" = K7, K3 = 0); psi against a float64 inversion, no worse
-    than 2 x the plain versions' route."""
-    inv = inverter(pod)
+def run_k7_path(cfg, dev, calls: int) -> dict:
+    """``calls`` inversions of ``cfg``'s initial zeta through
+    PackedModalInverterKernels with pair_stream pinned on, the counts set to
+    0 just before and read just after (K2 = 2 calls by its factored kernel,
+    or at a mixed P by its mixed-radix form, "K2 mixed" = K2; K7 = calls,
+    each K7 launch by K3's cluster kernel, "K7 cluster" = K7, at a mixed M
+    by its mixed cluster kernel, "K7 mixed" = K7; K3 = 0); psi against a
+    float64 inversion, no worse than 2 x the plain versions' route."""
+    inv = inverter(cfg)
     inv.pair_stream = True
-    zeta = init_state(pod, dev).zeta
+    zeta = init_state(cfg, dev).zeta
     reset_counts()
     for _ in range(calls):
         psi = inv(zeta)
     torch.cuda.synchronize()
     launches = counts()
     want = {k: 0 for k in COUNTERS}
-    want.update({"K2": 2 * calls, "K2 factored": 2 * calls, "K7": calls,
-                 "K7 cluster": calls})
+    want.update({"K2": 2 * calls, "K7": calls, "K7 cluster": calls,
+                 "K2 mixed" if dft_kernels._mixed(cfg.P) else "K2 factored":
+                 2 * calls})
+    if dft_kernels._mixed(cfg.M):
+        want["K7 mixed"] = calls
     if launches != want:
-        raise AssertionError(f"K7 path: launch counts {launches} != {want}")
+        raise AssertionError(f"K7 path at {cfg.M}^2: launch counts "
+                             f"{launches} != {want}")
     consts = inv._sym_consts
     plain = y_dft_plain(stream_pair_symbols_plain(y_dft_plain(zeta, False),
                                                   consts), True)
-    psi64 = PackedModalInverter(pod.M, pod.P, pod.dx, pod.S_eig,
-                                pod.P_inv_matrix(),
-                                pod.back_projection_matrix())(zeta.double())
+    psi64 = PackedModalInverter(cfg.M, cfg.P, cfg.dx, cfg.S_eig,
+                                cfg.P_inv_matrix(),
+                                cfg.back_projection_matrix())(zeta.double())
     _, e_kern = rel_err(psi.double(), psi64)
     _, e_plain = rel_err(plain.double(), psi64)
-    emit("k7_path", grid=[pod.M, pod.P], calls=calls, launches=launches,
+    emit("k7_path", grid=[cfg.M, cfg.P], calls=calls, launches=launches,
          psi_rel_err_vs_float64={"kernel": e_kern, "plain": e_plain},
          rule="kernel <= 2 x plain")
     del psi64, plain, psi, zeta
     free_memory()
     if not e_kern <= 2.0 * e_plain:
-        raise AssertionError(f"K7 path: psi float64 error {e_kern} exceeds "
-                             f"twice the plain route's {e_plain}")
+        raise AssertionError(f"K7 path at {cfg.M}^2: psi float64 error "
+                             f"{e_kern} exceeds twice the plain route's "
+                             f"{e_plain}")
     return launches
 
 
 FOUR_RANK_SLICES = (
-    # name, preset, step_chain, mesh, steps, expected counts on every rank
-    ("turbulence-2048 mesh (4, 1)", "turbulence-2048", "auto", (4, 1), 10,
+    # name, preset, overrides, mesh, steps, expected counts on every rank,
+    # route
+    ("turbulence-2048 mesh (4, 1)", "turbulence-2048", {}, (4, 1), 10,
      {"K12": 10, "K12 rows": 10, "K2": 20, "K2 factored": 20, "K14": 10,
       "K14 cluster": 10}, "fused"),
-    ("turbulence-2048 step_chain=on mesh (4, 1)", "turbulence-2048", "on",
+    ("turbulence-2048 step_chain=on mesh (4, 1)", "turbulence-2048",
+     {"step_chain": "on"},
      (4, 1), 10, {"K15s": 10, "K15s rows": 10, "K14": 10,
                   "K14 cluster": 10, "K2": 2, "K2 factored": 2}, "chain"),
-    ("turbulence-2048 mesh (2, 2)", "turbulence-2048", "auto", (2, 2), 10,
+    ("turbulence-2048 mesh (2, 2)", "turbulence-2048", {}, (2, 2), 10,
      {"K12": 10, "K12 rows": 10, "K2": 20, "K2 factored": 20, "K13": 10,
       "K13 cluster": 10}, "fused-2d"),
-    ("pod-8192 mesh (4, 1)", "pod-8192", "auto", (4, 1), 5,
+    ("pod-8192 mesh (4, 1)", "pod-8192", {}, (4, 1), 5,
      {"K12": 5, "K12 rows": 5, "K2": 10, "K2 factored": 10, "K13": 5,
       "K13 cluster": 5}, "fused"),
+    # The mixed extents: turbulence-2048's configuration with M and P
+    # changed. At 3072^2 the paired gate is off (the companion scheme, K13
+    # on (2, 3072, 768), N2 = 24); at 1536 x 2048 it is on (K14 on (2,
+    # 1536, 512), N2 = 12); every launch by the block kernel's mixed
+    # instance, K2 by its mixed-radix form at P = 3072.
+    ("turbulence-2048 at 3072^2 mesh (4, 1)", "turbulence-2048",
+     {"M": 3072, "P": 3072}, (4, 1), 10,
+     {"K12": 10, "K12 rows": 10, "K2": 20, "K2 mixed": 20, "K13": 10,
+      "K13 cluster": 10, "K13 mixed": 10}, "fused"),
+    ("turbulence-2048 at 1536x2048 mesh (4, 1)", "turbulence-2048",
+     {"M": 1536, "P": 2048}, (4, 1), 10,
+     {"K12": 10, "K12 rows": 10, "K2": 20, "K2 factored": 20, "K14": 10,
+      "K14 cluster": 10, "K14 mixed": 10}, "fused"),
 )
 
 
@@ -3029,9 +3105,9 @@ def mesh_rank(rank: int, world: int, rendezvous: str, out: str) -> None:
     try:
         _build.load()
         report = []
-        for name, preset_name, chain, shape, steps, expect, route in \
+        for name, preset_name, over, shape, steps, expect, route in \
                 FOUR_RANK_SLICES:
-            cfg = preset(preset_name).replace(step_chain=chain)
+            cfg = preset(preset_name).replace(**over)
             mesh = make_mesh(shape, device=dev, backend="gloo")
             got_route = make_halo_run_fn(cfg, mesh).route
             if got_route != route:
@@ -3119,8 +3195,9 @@ def time_sharded_kernels(turb, pod, dev, card) -> dict:
     512), K14 on the (4, 1) turbulence-2048 block (2, 2048, 512), K7 on
     (2, 8192, 8192); K13, K14 and K7 also by pair_cols_kernel, twice after
     the turns on the same inputs (whole_columns_ms); on the 2048 blocks
-    also the host's enqueue ms a call and the graph-replayed ms. Each entry
-    carries its shape. Then the kernels of a (4, 1) pod-8192 rank
+    also the host's enqueue ms a call and the graph-replayed ms; K13, K14
+    and K7 at the mixed slices' shapes and at 768 (time_mixed_cols). Each
+    entry carries its shape. Then the kernels of a (4, 1) pod-8192 rank
     (time_pod_rank)."""
     rng = np.random.default_rng(SEED + 6)
     out = {}
@@ -3192,12 +3269,78 @@ def time_sharded_kernels(turb, pod, dev, card) -> dict:
         x, x, "self", (pod.P,), consts), 10))
     del x
     free_memory()
+    out.update(time_mixed_cols(turb, dev, rng))
     for name, t in out.items():
         t["bound_ms"] = bound(name.split()[0], t["shape"][1],
                               t["shape"][2])[0]
     out["K13"]["at_2048"] = out.pop("K13 2048")
     out["pod-8192 (4, 1) rank"] = time_pod_rank(pod, dev, rng)
     emit("timing", card=card, kernel_ms=out, at="the mesh slices' shapes")
+    return out
+
+
+# K13, K14 and K7 where the mixed extents' paths run them, then at a shape
+# pair_cols_kernel keeps (768 = 128 * 6): name, table, M, W, the y extent
+# P, strip offset or rank, reps.
+MIXED_COLS = (("K13 mixed", "offset", 3072, 768, 3072, 6, 50),
+              ("K14 mixed", "paired", 1536, 512, 2048, 0, 100),
+              ("K7 mixed", "self", 3072, 3072, 3072, 0, 20),
+              ("K13 at 768", "offset", 768, 256, 1024, 2, 100),
+              ("K14 at 768", "paired", 768, 256, 1024, 0, 100),
+              ("K7 at 768", "self", 768, 256, 256, 0, 100))
+
+
+def time_mixed_cols(turb, dev, rng) -> dict:
+    """K13, K14 and K7 at each shape of MIXED_COLS (turb's configuration at
+    (M, P)), ms per launch beside the plain version in turns
+    (time_kernels), replayed from a CUDA graph (graph_ms, the device time:
+    K14's host launch costs about its device time) with the host's enqueue
+    ms a call, and beside its yardstick (not its function): one
+    torch.fft.fft along x of the own and mirror blocks (K14, K7: of the
+    block) then one torch.fft.ifft along x of a block (yardstick_ms,
+    yardstick_graph_ms); where the mixed kernels run, also
+    pair_cols_kernel twice after the turns (whole_columns_ms) and replayed
+    from a graph."""
+    out = {}
+    for name, kind, M, W, P, at, reps in MIXED_COLS:
+        consts = inverter(turb.replace(M=M, P=P))._sym_consts
+        x = torch.as_tensor(rng.standard_normal((2, M, W)),
+                            dtype=torch.float32, device=dev)
+        if kind == "offset":
+            xm = torch.as_tensor(rng.standard_normal((2, M, W)),
+                                 dtype=torch.float32, device=dev)
+            key = (W, at)
+            routed = lambda: x_fwd_symbols_offset(x, xm, consts, at)
+            plain = lambda: x_fwd_symbols_offset_plain(x, xm, consts, at)
+        elif kind == "paired":
+            xm, s = x, W // 128
+            idx = strip_pair_order(P // 128)[at * s:(at + 1) * s]
+            key = (tuple(int(i) for i in idx), P // 128)
+            routed = lambda: paired_x_symbols(x, idx, consts)
+            plain = lambda: paired_x_symbols_plain(x, idx, consts)
+        else:
+            xm, key = x, (P,)
+            routed = lambda: stream_pair_symbols(x, consts)
+            plain = lambda: stream_pair_symbols_plain(x, consts)
+        blocks = torch.stack([torch.complex(x[0], x[1]),
+                              torch.complex(xm[0], xm[1])]) \
+            if kind == "offset" else torch.complex(x[0], x[1])[None]
+        yardstick = lambda: torch.fft.ifft(torch.fft.fft(blocks, dim=1)[0],
+                                           dim=0)
+        out.update(time_kernels({name: (routed, plain, 1)}, reps,
+                                max(reps // 10, 3)))
+        t = out[name]
+        t["shape"] = [2, M, W]
+        t["graph_ms"] = graph_ms(routed, reps)
+        t["host_enqueue_ms"] = host_enqueue(routed, reps)
+        t["yardstick_ms"] = time_ms(yardstick, reps)
+        t["yardstick_graph_ms"] = graph_ms(yardstick, reps)
+        if "mixed" in name:
+            whole = lambda: pair_cols_whole_columns(x, xm, kind, key, consts)
+            t.update(whole_columns(whole, reps))
+            t["whole_columns_graph_ms"] = graph_ms(whole, reps)
+        del x, xm, blocks
+        free_memory()
     return out
 
 
@@ -3590,11 +3733,16 @@ def kernel_rows(errs, launches, ms_2048, ms_8192, extra, sharded) -> list:
     # y_dft_mixed_kernel's, pair_x_cluster_mixed_kernel's,
     # x_dft_cluster_mixed_kernel's and x_symbols_cluster_mixed_kernel's
     # (also in y_dft's, pair_x_symbols's, x_dft's and x_symbols_inverse's
-    # counts) have rows of their own.
+    # counts) have rows of their own, as have K13's and K14's
+    # pair_cols_cluster_mixed_kernel's and K7's launches of K3's mixed
+    # cluster kernel (also in their wrappers' counts).
     launches = {p: dict(run, K2=run["K2"] - run["K2 mixed"],
                         K3=run["K3"] - run["K3 mixed"],
                         K4=run["K4"] - run["K4 mixed"],
-                        K5=run["K5"] - run["K5 mixed"])
+                        K5=run["K5"] - run["K5 mixed"],
+                        K7=run["K7"] - run["K7 mixed"],
+                        K13=run["K13"] - run["K13 mixed"],
+                        K14=run["K14"] - run["K14 mixed"])
                 for p, run in launches.items()}
     for name, (fn, source, replaces) in KERNELS.items():
         if name in sharded:
@@ -3726,6 +3874,37 @@ def kernel_rows(errs, launches, ms_2048, ms_8192, extra, sharded) -> list:
         "library_ms": None, "grid": [1536, 1536],
         "yardstick_fft_ifft_ms": at["library fft + ifft along x"]["ms"],
         "pair_x_kernel_ms": at["pair_x_kernel"]["ms"], **m})
+    # K13, K14 and K7 on the mixed extents: the block kernel's mixed
+    # instance (K13, K14) and K3's mixed cluster kernel (K7), timed at the
+    # mixed slices' shapes (time_mixed_cols). No library call computes their
+    # function; one torch.fft.fft and one torch.fft.ifft along x stand
+    # beside each as a yardstick.
+    cols_mixed = "tpu_qg_torch/csrc/pair_cols_mixed.cu"
+    for name, kernel, source in (
+            ("K13 mixed", "pair_cols_cluster_mixed_kernel", cols_mixed),
+            ("K14 mixed", "pair_cols_cluster_mixed_kernel", cols_mixed),
+            ("K7 mixed", "pair_x_cluster_mixed_kernel", KERNELS["K7"][1])):
+        base = name.split()[0]
+        at = sharded[name]
+        _, rows_, cols = at["shape"]
+        bound_ms, bound_by, nbytes = bound(base, rows_, cols)
+        rows.append({
+            "name": f"{name} {KERNELS[base][0]} ({kernel})", "route": "cuda",
+            "source": source, "replaces": KERNELS[base][2],
+            "launches": sum(run[name] for run in launches.values()),
+            "launches_by_path": {p: run[name] for p, run in launches.items()
+                                 if run[name]},
+            "max_abs_err": errs.by_kernel[name][0],
+            "rel_err": errs.by_kernel[name][1],
+            "ms": at["ms"], "graph_ms": at["graph_ms"],
+            "plain_ms": at["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "library_ms": None,
+            "grid": [rows_, cols],
+            "yardstick_fft_ifft_ms": at["yardstick_ms"],
+            "yardstick_fft_ifft_graph_ms": at["yardstick_graph_ms"],
+            "pair_cols_kernel_ms": at["whole_columns_ms"],
+            "pair_cols_kernel_graph_ms": at["whole_columns_graph_ms"],
+            **extra.get(name, {})})
     return rows
 
 
@@ -3836,6 +4015,8 @@ def main() -> None:
     mesh_launches, mesh_ms = phase_mesh_one_rank(turb, pod, dev, card)
     launches.update(mesh_launches)
     launches["pod-8192 K7 path (pair_stream on)"] = run_k7_path(pod, dev, 20)
+    launches[f"{MIXED_PATHS[1]} K7 path (pair_stream on)"] = run_k7_path(
+        mixed_cfgs[MIXED_PATHS[1]], dev, 20)
     free_memory()
     for row in phase_mesh_four_ranks(card):
         launches[f"{row['preset']} (rank 0 of 4)"] = {
@@ -3999,26 +4180,53 @@ def main() -> None:
                     "step_kernel": "every other shape (the tile design)"},
         "sweep": k1_sweep}
     sharded_ms = time_sharded_kernels(turb, pod, dev, card)
-    cols = "M = 128 * 2^a, M >= 256 G, whole 128-column strips (layouts: {}, " \
-        "else K3's at M)".format(dft_kernels.PAIR_COLS_CLUSTER_BY_MW)
+    cols = {"pair_cols_cluster_kernel": "M = 128 * 2^a, M >= 256 G, whole "
+            "128-column strips (layouts: {}, else K3's at M)".format(
+                dft_kernels.PAIR_COLS_CLUSTER_BY_MW),
+            "pair_cols_cluster_mixed_kernel": "the other M = 128 n, n <= "
+            "63, ceil(n / 2) >= G, whole 128-column strips (the K13 mixed "
+            "and K14 mixed rows)",
+            "pair_cols_kernel": "384, 640, 768, M < 256 G"}
     for name in ("K13", "K14"):
         extra[name] = {
             "cluster_launches": sum(run[f"{name} cluster"]
                                     for run in launches.values()),
-            "kernels": {"pair_cols_cluster_kernel": cols,
-                        "pair_cols_kernel": "mixed extents, M < 256 G"},
+            "kernels": cols,
             "whole_columns_ms": sharded_ms[name]["whole_columns_ms"],
+            "pair_cols_kernel_at_768": sharded_ms[f"{name} at 768"],
             "sweep": {k: v for k, v in k13_sweep.items()
-                      if k.startswith(name)}}
+                      if k.split()[0] == name and "mixed" not in k}}
+        extra[f"{name} mixed"] = {
+            "mixed_launches": sum(run[f"{name} mixed"]
+                                  for run in launches.values()),
+            "kernels": cols,
+            "ptxas": named_ptxas["pair_cols_cluster_mixed_kernel"],
+            "sweep": {k: v for k, v in k13_sweep.items()
+                      if k.startswith(f"{name} mixed")}}
     extra["K13"].update(at_2048=sharded_ms["K13"]["at_2048"],
                         pod_8192_rank=sharded_ms["pod-8192 (4, 1) rank"])
+    k7_kernels = {"pair_x_cluster_kernel": "K3's cluster kernel where "
+                  "stream_pair_cluster_takes(M), M = 128 * 2^a",
+                  "pair_x_cluster_mixed_kernel": "K3's mixed cluster kernel "
+                  "where stream_pair_cluster_takes(M), the other M = 128 n "
+                  "(the K7 mixed row)",
+                  "pair_cols_kernel": "384, 640, 768, M < 256 G"}
     extra["K7"] = {
         "cluster_launches": sum(run["K7 cluster"] for run in launches.values()),
-        "kernels": {"pair_x_cluster_kernel": "K3's cluster kernel where "
-                    "stream_pair_cluster_takes(M) (M = 128 * 2^a)",
-                    "pair_cols_kernel": "mixed extents, M < 256 G"},
+        "kernels": k7_kernels,
         "whole_columns_ms": sharded_ms["K7"]["whole_columns_ms"],
+        "pair_cols_kernel_at_768": sharded_ms["K7 at 768"],
         "sweep_8192": k3_sweep[8192]}
+    # K7 at 3072^2 beside the four-pass x-stage there: K4 mixed forward then
+    # K5 mixed, each timed at (2, 3072, 3072) in its own sweep.
+    extra["K7 mixed"] = {
+        "mixed_launches": sum(run["K7 mixed"] for run in launches.values()),
+        "kernels": k7_kernels,
+        "k4_mixed_plus_k5_mixed_ms_3072": k4_mixed[3072]["mixed"]["ms"]
+        + k5_mixed[3072]["mixed"]["ms"],
+        "k4_mixed_plus_k5_mixed_graph_ms_3072":
+        k4_mixed[3072]["mixed"]["graph_ms"]
+        + k5_mixed[3072]["mixed"]["graph_ms"]}
     extra["K12"] = {
         "mesh_step_ms": mesh_ms,
         "rows_launches": sum(run["K12 rows"] for run in launches.values()),

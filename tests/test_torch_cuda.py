@@ -1241,9 +1241,56 @@ def test_pair_cols_cluster_kernel(dev, kind, M, P, nx):
         n[0] + nx, n[1] + nx)
 
 
-# pair_cols_kernel keeps K13, K14 and K7 at the mixed extents (2432 = 128 *
-# 19, 384) and M < 256 G (512); on a power of two it computes the same.
-@pytest.mark.parametrize("M,P", [(2432, 2048), (384, 1024), (512, 1024),
+# The block kernel's mixed instance on every rank: the four-rank slices'
+# blocks, K13 on (3072, 768) and K14 on (1536, 512), and both at 2432 x
+# 2048 (N2 = 19, a prime pass); every layout on each, the mixed count
+# rising with the cluster count.
+@pytest.mark.parametrize("kind,M,P,nx", [
+    ("offset", 3072, 3072, 4), ("paired", 1536, 2048, 4),
+    ("offset", 2432, 2048, 4), ("paired", 2432, 2048, 4)])
+def test_pair_cols_cluster_mixed_kernel(dev, kind, M, P, nx):
+    consts, blocks = _column_blocks(kind, M, P, nx, dev)
+    wrapper = x_fwd_symbols_offset if kind == "offset" else paired_x_symbols
+    n = (wrapper.launches, wrapper.cluster_launches, wrapper.mixed_launches)
+    for a, b, key, want in blocks:
+        got = (x_fwd_symbols_offset(a, b, consts, key[1]) if kind == "offset"
+               else paired_x_symbols(a, key[0], consts))
+        assert _rel(got, want) <= 1e-4
+        for layout in ((G, Cw) for G in dft_kernels.PAIR_X_CLUSTER_SIZES
+                       for Cw in dft_kernels.PAIR_X_CLUSTER_WIDTHS):
+            if (pair_cols_cluster_takes(M, a.shape[2], layout) and
+                    dft_kernels.pair_cols_cluster_occupancy(
+                        M, layout, kind == "offset", 0)):
+                assert _rel(pair_cols_cluster(a, b, kind, key, consts,
+                                              layout), want) <= 1e-4
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.cluster_launches,
+            wrapper.mixed_launches) == (n[0] + nx, n[1] + nx, n[2] + nx)
+
+
+# K7 at a mixed extent launches K3's mixed cluster kernel, counted by
+# stream_pair_symbols alone.
+@pytest.mark.parametrize("M,P", [(3072, 3072), (1536, 1536), (2432, 2048)])
+def test_stream_pair_takes_k3s_mixed_cluster_kernel(dev, M, P):
+    consts = _consts(M, P)
+    Zy = _spectrum(M, P, dev, 4)
+    k3 = (pair_x_symbols.launches, pair_x_symbols.mixed_launches)
+    n = (stream_pair_symbols.launches, stream_pair_symbols.cluster_launches,
+         stream_pair_symbols.mixed_launches)
+    assert _rel(stream_pair_symbols(Zy, consts),
+                stream_pair_symbols_plain(Zy, consts)) <= 1e-4
+    torch.cuda.synchronize()
+    assert (stream_pair_symbols.launches,
+            stream_pair_symbols.cluster_launches,
+            stream_pair_symbols.mixed_launches) == (n[0] + 1, n[1] + 1,
+                                                    n[2] + 1)
+    assert (pair_x_symbols.launches, pair_x_symbols.mixed_launches) == k3
+
+
+# pair_cols_kernel keeps K13, K14 and K7 at the extents no cluster kernel
+# takes (768 = 128 * 6 and 384: U < 4) and M < 256 G (512); on a power of
+# two it computes the same.
+@pytest.mark.parametrize("M,P", [(768, 1024), (384, 1024), (512, 1024),
                                  (2048, 1024)])
 def test_pair_cols_kernel_keeps_the_other_extents(dev, M, P):
     routed = not pair_cols_cluster_takes(M, P // 4)
@@ -1298,9 +1345,9 @@ def test_pair_cols_cluster_refuses_what_it_does_not_take(dev):
         pair_cols_cluster(y, y, "offset", (200, 0), consts)
     with pytest.raises(ValueError):                 # K14 reads mirrors from X
         pair_cols_cluster(x, x.clone(), "paired", ((0, 4), 8), consts)
-    with pytest.raises(ValueError):                 # a mixed extent
-        z = torch.zeros((2, 1536, 256), device=dev)
-        pair_cols_cluster(z, z, "offset", (256, 0), _consts(1536, 1024))
+    with pytest.raises(ValueError):                 # 768: U = 3 < 4
+        z = torch.zeros((2, 768, 256), device=dev)
+        pair_cols_cluster(z, z, "offset", (256, 0), _consts(768, 1024))
     with pytest.raises(TypeError):
         pair_cols_cluster(x.double(), x.double(), "offset", (256, 0), consts)
 

@@ -227,10 +227,11 @@ def test_paired_tiles_hold_every_pair_once(rank):
 
 
 def test_the_layout_gate():
-    """The block kernel takes M = 128 * 2^a with M / 128 >= 2 G and whole
-    128-column strips, within shared memory: the launched layouts at the
-    path shapes, K3's launched layout elsewhere; mixed extents, M < 256 G
-    and ragged widths go to pair_cols_kernel."""
+    """The block kernel takes M = 128 * 2^a with M / 128 >= 2 G, and the
+    mixed extents M = 128 * n with ceil(n / 2) >= G, whole 128-column
+    strips, within shared memory: the launched layouts at the path shapes,
+    K3's launched layout elsewhere; 384, 640, 768, M < 256 G and ragged
+    widths go to pair_cols_kernel."""
     for (M, W), layout in PAIR_COLS_CLUSTER_BY_MW.items():
         assert pair_cols_cluster_launched(M, W) == layout
         assert pair_cols_cluster_takes(M, W)
@@ -238,8 +239,10 @@ def test_the_layout_gate():
         pair_x_cluster_launched(1024)
     assert pair_cols_cluster_takes(1024, 256)
     assert pair_cols_cluster_takes(8192, 4096)
-    for M, W in ((256, 256), (512, 128), (384, 256), (2432, 512),
-                 (1536, 512), (1024, 200), (1024, 0)):
+    assert pair_cols_cluster_takes(2432, 512)
+    assert pair_cols_cluster_takes(1536, 512)
+    for M, W in ((256, 256), (512, 128), (384, 256), (768, 512),
+                 (640, 512), (1024, 200), (1024, 0)):
         assert not pair_cols_cluster_takes(M, W), (M, W)
     assert not pair_cols_cluster_takes(1024, 256, (8, 8))     # N2 < 2 G
     assert not pair_cols_cluster_takes(8192, 2048, (4, 16))   # 769 KB
@@ -256,18 +259,19 @@ def test_the_layout_gate():
 
 
 def test_k7_takes_k3s_cluster_kernel_by_shape():
-    """K7 computes K3's function: where K3's power-of-two cluster kernel
-    takes M (the powers of two M >= 256 G, 4096 and 8192 among them)
-    stream_pair_symbols launches it; small M and the mixed extents, which
-    K3's mixed cluster kernel takes but K7 does not, keep
-    pair_cols_kernel."""
+    """K7 computes K3's function: where K3's cluster kernels take M (the
+    powers of two M >= 256 G, 4096 and 8192 among them, and the mixed
+    extents with ceil(n / 2) >= G, 2432, 3072 and 6144 among them)
+    stream_pair_symbols launches them; small M and 384, 640 and 768, which
+    no cluster kernel takes, keep pair_cols_kernel."""
     for M in (1024, 2048, 4096, 8192):
         assert pair_x_cluster_takes(M) and stream_pair_cluster_takes(M)
     for M in (256, 384):
         assert not pair_x_cluster_takes(M)
-    for M in (256, 384, 2432, 6144):
+    for M in (256, 384, 640, 768):
         assert not stream_pair_cluster_takes(M)
-    assert pair_x_cluster_takes(2432) and pair_x_cluster_takes(6144)
+    for M in (2432, 3072, 6144):
+        assert pair_x_cluster_takes(M) and stream_pair_cluster_takes(M)
 
 
 def test_wrappers_take_the_plain_versions_on_cpu():

@@ -1421,7 +1421,11 @@ __device__ __forceinline__ void sym_mixed_tables(
 // 255, its mirror-tile row (own[p] >> 8) & 255) times conj(W_M^(n1 k2)),
 // and the stores of rows N1 n2 + n1 (a padding slot, and a self-mirror
 // slot's mirror column, are not stored); a split cluster barrier around the
-// last pull.
+// last pull. kOwnOnly (K13 mixed), as sym_inverse_half's: stage B^-1 and
+// A^-1 of the own tile alone (its nr Cw columns of B), the split barrier's
+// arrive in the own tile's pass, so that every block meets the same
+// barriers.
+template <bool kOwnOnly = false>
 __device__ __forceinline__ void sym_inverse_mixed(
     float2* B, float2* A, const float2* twa, const float2* twb,
     const float2* wp, const int* slot, const int* kpos, const int* own,
@@ -1432,11 +1436,12 @@ __device__ __forceinline__ void sym_inverse_mixed(
   const int logl1 = 7 - logg, logna = logl1 + logcw;
   const size_t plane = (size_t)M * W;
   const int r1 = r << logl1;
+  constexpr int ng = kOwnOnly ? 1 : 2;                 // tiles inverted
 
   // 2. Stage B^-1 in place: row q (k1 = bitrev7(q)) -> row n1.
   auto rd_b = [=](int q, int b) { return B[q * bs + b]; };
   auto wr_b = [=](int q, int b, float2 v) { B[q * bs + b] = v; };
-  il_fft<true>(B, NCols{(2 * nr) << logcw}, bs, 7, twb, rd_b, wr_b, [] {});
+  il_fft<true>(B, NCols{(ng * nr) << logcw}, bs, 7, twb, rd_b, wr_b, [] {});
   cg::this_cluster().sync();
 
   // 3. Stage A^-1, tile g (0 own, 1 mirror) in turn: column a of A is n1 =
@@ -1447,7 +1452,7 @@ __device__ __forceinline__ void sym_inverse_mixed(
   const float scale = 1.0f / static_cast<float>(M);
   auto arrive = [] { asm volatile("barrier.cluster.arrive.aligned;" ::: "memory"); };
   auto at_a = [=](int row, int a) { return A + (row << logna) + a; };
-  for (int g = 0; g < 2; ++g) {
+  for (int g = 0; g < ng; ++g) {
     auto pull = [=](int p, int a) {
       const int n1 = r1 + (a >> logcw), o = own[p];
       const int row = g ? (o >> 8) & 255 : o & 255;
@@ -1458,24 +1463,24 @@ __device__ __forceinline__ void sym_inverse_mixed(
     };
     auto st = [=](int row, int a, float2 v) {
       const int s = slot[(g << logcw) + (a & (cw - 1))];
-      if (s < 0 || (g == 1 && s == slot[a & (cw - 1)])) return;
+      if (s < 0 || (!kOwnOnly && g == 1 && s == slot[a & (cw - 1)])) return;
       const size_t off = (size_t)((row << 7) + r1 + (a >> logcw)) * W + s;
       out[off] = v.x * scale;
       out[off + plane] = v.y * scale;
     };
     if (!reg_radix(last)) {      // the DIT's first pass is the prime pass
       fill_rows(A, n2 << logna, logna, pull);
-      if (g == 1) arrive();
+      if (g == ng - 1) arrive();
       __syncthreads();
       mixed_fft_at<kClusterThreads, true>(logna, n2, plan, twa, wp, pull, st,
                                           at_a, [] {});
     } else {
       mixed_fft_at<kClusterThreads, true>(logna, n2, plan, twa, wp, pull, st,
                                           at_a, [=] {
-                                            if (g == 1) arrive();
+                                            if (g == ng - 1) arrive();
                                           });
     }
-    if (g == 0) __syncthreads();        // the mirror tile reuses A
+    if (g + 1 < ng) __syncthreads();    // the mirror tile reuses A
   }
   // No block leaves while a peer may still read its buffer.
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
@@ -1691,6 +1696,9 @@ __device__ __forceinline__ void x_symbols_tile(
 //                   operand (the companion), so no column is its own mirror
 //                   and a padding-free tile pairs distinct values; only the
 //                   own tile inverted and stored.
+// Each form has a mixed instance (kMixed): K3 mixed's body on the form's
+// tile table; the block forms' int maps follow their Cw global slots, and
+// K13's inverse half is sym_inverse_mixed<true>.
 enum PairForm { kPairWhole, kPairBlock, kPairCompanion };
 
 // The cluster's tile pair is row blockIdx.x / G of the tables, or, in the
@@ -1709,7 +1717,6 @@ __device__ __forceinline__ void pair_cluster_tile(
     const float2* __restrict__ wm, float* smem, int n2m = 0, int plan = 0,
     int tile_arg = 0) {
   namespace cg = cooperative_groups;
-  static_assert(!kMixed || kForm == kPairWhole, "the mixed instance is K3's");
   constexpr bool kBlock = kForm != kPairWhole;
   constexpr bool kCompanion = kForm == kPairCompanion;
   const int r = static_cast<int>(cg::this_cluster().block_rank());
@@ -1740,8 +1747,9 @@ __device__ __forceinline__ void pair_cluster_tile(
   // Mixed: x_symbols_tile's three maps (k2 of each row of the ordering; k2
   // = rho(p) of DIT position p; p -> (owner block << 16) | (its mirror-tile
   // row << 8) | its own-tile row) and the forward pull's: the DIF position
-  // p = rho^-1(k2) at which a peer's A holds k2.
-  int* krow = slot + 2 * cw;
+  // p = rho^-1(k2) at which a peer's A holds k2; the block forms' after the
+  // Cw global slots.
+  int* krow = slot + 2 * cw + (kBlock && kMixed ? cw : 0);
   int* kpos = krow + n2;
   int* owner = kpos + n2;
   int* kinv = owner + n2;
@@ -1867,12 +1875,62 @@ __device__ __forceinline__ void pair_cluster_tile(
 
   // 4.
   if constexpr (kMixed) {
-    sym_inverse_mixed(B, A, twa, twb, wp, slot, kpos, owner, wm, out, W, n2,
-                      plan, logg, logcw, r, nr, bs);
+    sym_inverse_mixed<kCompanion>(B, A, twa, twb, wp, slot, kpos, owner, wm,
+                                  out, W, n2, plan, logg, logcw, r, nr, bs);
   } else {
     sym_inverse_half<kCompanion>(B, A, twa, twb, slot, wm, out, W, logn2,
                                  logg, logcw, r);
   }
+}
+
+// Host side of the cluster kernels' launches (dft_kernels.cu,
+// pair_cols_mixed.cu).
+
+// Sets a cluster kernel's attributes (shared memory; a cluster of more
+// than 8 is non-portable) and fills a launch of `clusters` clusters of
+// 2^logg blocks of kClusterThreads.
+inline int fill_cluster_launch(const void* fn, int smem, int logg,
+                               int clusters, cudaStream_t stream,
+                               cudaLaunchConfig_t& cfg,
+                               cudaLaunchAttribute& attr) {
+  if (int err = set_smem(fn, smem)) return err;
+  if (logg > 3) {
+    if (int err = static_cast<int>(cudaFuncSetAttribute(
+            fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)))
+      return err;
+  }
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(clusters << logg);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1 << logg;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return 0;
+}
+
+// K5's mixed cluster kernel's shared memory: B (128 rows of 2 L Cw float2,
+// L = 2 ceil(U / G) the most rows a block owns, U = ceil(N2 / 2) units), A
+// (N2 rows of 128 Cw / G), the N2- and 64-entry tables, the prime pass's
+// (p - 1) / 2 x (p + 1) / 2 weights (float2), then the tile's 2 Cw slots
+// and three N2-entry maps (int).
+inline int x_symbols_cluster_mixed_smem(int n2, int logg, int logcw) {
+  const int h = y_mixed_prime(n2) / 2, units = (n2 + 1) / 2;
+  const int lb = (units + (1 << logg) - 1) >> logg;     // ceil(U / G)
+  return ((128 * lb << (logcw + 2)) + (n2 << (7 - logg + logcw)) + n2 + 64 +
+          h * (h + 1)) * static_cast<int>(sizeof(float2)) +
+         ((2 << logcw) + 3 * n2) * static_cast<int>(sizeof(int));
+}
+
+// K3's mixed cluster kernel's shared memory: K5 mixed's and the N2-entry
+// map k2 -> rho^-1(k2) of the forward pull (int).
+inline int pair_x_cluster_mixed_smem(int n2, int logg, int logcw) {
+  return x_symbols_cluster_mixed_smem(n2, logg, logcw) +
+         n2 * static_cast<int>(sizeof(int));
 }
 
 }  // namespace

@@ -27,11 +27,13 @@
 // pair_x_cluster_kernel, K4's cluster forward half in front of K5's
 // cluster kernel, for M = 128 * 2^a, its mixed-radix form
 // pair_x_cluster_mixed_kernel for the other M = 128 * n (n <= 63), both for
-// ceil(n / 2) >= G, and pair_x_kernel for the rest. K13 and K14 have two:
-// pair_cols_cluster_kernel, K3's cluster kernel on the
-// columns of a block, for M = 128 * 2^a and whole 128-column strips, and
-// pair_cols_kernel for the rest; K7 takes K3's pair_x_cluster_kernel for M
-// = 128 * 2^a and pair_cols_kernel for the rest.
+// ceil(n / 2) >= G, and pair_x_kernel for the rest. K13 and K14 have three:
+// pair_cols_cluster_kernel, K3's cluster kernel on the columns of a block,
+// for M = 128 * 2^a, its mixed-radix form pair_cols_cluster_mixed_kernel
+// for the other M = 128 * n (n <= 63), both for ceil(n / 2) >= G and whole
+// 128-column strips, and pair_cols_kernel for the rest; K7 takes K3's
+// cluster kernels (pair_x_cluster_kernel, pair_x_cluster_mixed_kernel)
+// where they take M and pair_cols_kernel for the rest.
 //
 // Every kernel transforms with an in-place radix-2 FFT in shared memory:
 // the forward pass is decimation in frequency (natural order in, bit-reversed
@@ -454,10 +456,11 @@ pair_x_cluster_mixed_kernel(const float* __restrict__ in,
 //
 // Kernels by shape, as K3's: on M = 128 * 2^a (N2 = M / 128 >= 2 G) with W
 // whole 128-column strips, pair_cols_cluster_kernel takes K13 (kCompanion)
-// and K14, and K7 is K3's pair_x_cluster_kernel on the whole field (K3's
-// canonical tiles: each column read once and written once); pair_cols_kernel
-// keeps all three at the mixed extents M = 128 * n (n not a power of two)
-// and M < 256 G.
+// and K14, on the other M = 128 * n (n <= 63, ceil(n / 2) >= G) its mixed
+// instance pair_cols_cluster_mixed_kernel, and K7 is K3's cluster kernel
+// (pair_x_cluster_kernel or pair_x_cluster_mixed_kernel) on the whole field
+// (K3's canonical tiles: each column read once and written once);
+// pair_cols_kernel keeps all three at 384, 640, 768 and M < 256 G.
 //
 // Bound: device-memory bandwidth: K13 reads two blocks and writes one (3 x
 // 8 M W bytes: 0.120 ms at (2, 8192, 2048) at 3.35 TB/s), K7 and K14 read
@@ -481,6 +484,10 @@ pair_x_cluster_mixed_kernel(const float* __restrict__ in,
 //     symbols and dropped (stage B^-1 and A^-1 of the own tile alone, the
 //     same cluster barriers on every block).
 // Shared memory: K3's, and the Cw global slots. The grid is G blocks a tile.
+//
+// The mixed instance, pair_cols_cluster_mixed_kernel, is in
+// pair_cols_mixed.cu, a source of its own so that it compiles beside this
+// one.
 // ---------------------------------------------------------------------------
 template <bool kCompanion>
 __global__ void __launch_bounds__(kClusterThreads, 2)
@@ -590,32 +597,6 @@ namespace {
 int cluster_smem(int logn2, int logg, int logcw) {
   const int tile = 1 << (logn2 + 7 - logg + logcw);
   return (2 * tile + (1 << logn2) / 2 + 64) * static_cast<int>(sizeof(float2));
-}
-
-// Sets a cluster kernel's attributes (shared memory; a cluster of more
-// than 8 is non-portable) and fills a launch of `clusters` clusters of
-// 2^logg blocks of kClusterThreads.
-int fill_cluster_launch(const void* fn, int smem, int logg, int clusters,
-                        cudaStream_t stream, cudaLaunchConfig_t& cfg,
-                        cudaLaunchAttribute& attr) {
-  if (int err = set_smem(fn, smem)) return err;
-  if (logg > 3) {
-    if (int err = static_cast<int>(cudaFuncSetAttribute(
-            fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)))
-      return err;
-  }
-  cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3(clusters << logg);
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = 1 << logg;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return 0;
 }
 
 // K4's cluster kernel's launch.
@@ -945,19 +926,6 @@ extern "C" int qg_x_symbols_cluster_launch(const float* in, float* out,
 
 namespace {
 
-// The mixed instance's shared memory: B (128 rows of 2 L Cw float2, L = 2
-// ceil(U / G) the most rows a block owns, U = ceil(N2 / 2) units), A (N2
-// rows of 128 Cw / G), the N2- and 64-entry tables, the prime pass's (p -
-// 1) / 2 x (p + 1) / 2 weights (float2), then the tile's 2 Cw slots and
-// three N2-entry maps (int).
-int x_symbols_cluster_mixed_smem(int n2, int logg, int logcw) {
-  const int h = y_mixed_prime(n2) / 2, units = (n2 + 1) / 2;
-  const int lb = (units + (1 << logg) - 1) >> logg;     // ceil(U / G)
-  return ((128 * lb << (logcw + 2)) + (n2 << (7 - logg + logcw)) + n2 + 64 +
-          h * (h + 1)) * static_cast<int>(sizeof(float2)) +
-         ((2 << logcw) + 3 * n2) * static_cast<int>(sizeof(int));
-}
-
 // K5's mixed cluster kernel's launch: N2 not a power of two, 3 <= N2 <= 63,
 // G = 2^logg in {4, 8, 16} with U = ceil(N2 / 2) >= G (every block owns a
 // unit; a block then owns at most 16 rows, which step 1's div_magic takes).
@@ -1070,13 +1038,6 @@ extern "C" int qg_pair_x_cluster_launch(const float* in, float* out,
 }
 
 namespace {
-
-// K3's mixed cluster kernel's shared memory: K5 mixed's and the N2-entry
-// map k2 -> rho^-1(k2) of the forward pull (int).
-int pair_x_cluster_mixed_smem(int n2, int logg, int logcw) {
-  return x_symbols_cluster_mixed_smem(n2, logg, logcw) +
-         n2 * static_cast<int>(sizeof(int));
-}
 
 // K3's mixed cluster kernel's launch: K5 mixed's layouts (N2 not a power
 // of two, 3 <= N2 <= 63, G = 2^logg in {4, 8, 16}, U = ceil(N2 / 2) >= G).

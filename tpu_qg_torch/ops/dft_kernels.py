@@ -452,6 +452,10 @@ def _lib():
                        [p] * 6 + [i] * 8 + [p, p, p])
         _build.declare(lib.qg_pair_cols_cluster_occupancy,
                        [i, i, i, i, ctypes.POINTER(ctypes.c_int)])
+        _build.declare(lib.qg_pair_cols_cluster_mixed_launch,
+                       [p] * 6 + [i] * 8 + [p, i, p, p])
+        _build.declare(lib.qg_pair_cols_cluster_mixed_occupancy,
+                       [i, i, i, i, ctypes.POINTER(ctypes.c_int)])
         lib.qg_pair_x_num_consts.restype = ctypes.c_int
         lib.qg_coop_plan_size.restype = ctypes.c_int
         lib.qg_coop_rows_plan_size.restype = ctypes.c_int
@@ -1984,12 +1988,14 @@ pair_x_symbols.mixed_launches = 0
 
 # ---------------------------------------------------------------------------
 # K13, K7 and K14, the x-stages of the sharded inversions: K3's function on
-# the columns of a (2, M, W) block. Two kernels chosen by shape, as K3's:
-# pair_cols_cluster_kernel (K13 and K14) on M = 128 * 2^a, M >= 256 G, W
-# whole 128-column strips, with K7 on K3's cluster kernel there; and
-# pair_cols_kernel (K3's whole-column task on a table of (own column, its
-# mirror's column, own column's global slot), C pairs a task, -1 padding)
-# on the rest.
+# the columns of a (2, M, W) block. Kernels chosen by shape, as K3's: the
+# block kernel (K13 and K14; csrc pair_cols_cluster_kernel on M = 128 *
+# 2^a, pair_cols_cluster_mixed_kernel on the other M = 128 * N2, N2 <= 63)
+# where K3's cluster kernels take M and W is whole 128-column strips, with
+# K7 on K3's cluster kernels there; and pair_cols_kernel (K3's whole-column
+# task on a table of (own column, its mirror's column, own column's global
+# slot), C pairs a task, -1 padding) on the rest (384, 640, 768, M < 256
+# G).
 # ---------------------------------------------------------------------------
 
 def _chunk_tasks(own, mirror, slots, C: int) -> tuple[np.ndarray, ...]:
@@ -2143,20 +2149,23 @@ def pair_cols_whole_columns(X: torch.Tensor, Xm: torch.Tensor, kind: str,
     return out
 
 
-# K13's and K14's cluster kernel (csrc pair_cols_cluster_kernel): K3's
+# K13's and K14's cluster kernel (csrc pair_cols_cluster_kernel, and its
+# mixed instance pair_cols_cluster_mixed_kernel for a mixed N2): K3's
 # cluster kernel on a tile table of the block's local columns
 # (offset_cluster_tiles, paired_cluster_tiles), K3's layouts (G, Cw) and
 # buffers beside the tile's Cw global slots. The layout K13 and K14 launch
 # on a block (M, W) is, at the blocks of PAIR_COLS_CLUSTER_BY_MW (the
 # four-rank slices'), the one of chip_smoke.py's k13_sweep with the least
-# device time for both (PERF.md), else K3's launched layout at M
+# device time for the kernels swept there (PERF.md), else K3's launched
+# layout at M
 # (pair_x_cluster_launched).
-PAIR_COLS_CLUSTER_BY_MW = {(2048, 512): (8, 16), (8192, 2048): (16, 8)}
+PAIR_COLS_CLUSTER_BY_MW = {(2048, 512): (8, 16), (8192, 2048): (16, 8),
+                           (3072, 768): (8, 8), (1536, 512): (4, 8)}
 
 
 def pair_cols_cluster_layout(M: int, G: int, Cw: int) -> SymbolsClusterLayout:
-    """The block kernel's shared memory: K3's (pair_x_cluster_layout) and
-    the tile's Cw int global slots."""
+    """The block kernel's shared memory: K3's (pair_x_cluster_layout; a
+    mixed N2 adds K3 mixed's maps) and the tile's Cw int global slots."""
     lay = pair_x_cluster_layout(M, G, Cw)
     return lay._replace(smem=lay.smem + 4 * Cw)
 
@@ -2170,12 +2179,13 @@ def pair_cols_cluster_launched(M: int, W: int) -> tuple[int, int]:
 def pair_cols_cluster_takes(M: int, W: int,
                             layout: tuple | None = None) -> bool:
     """True iff the block kernel takes a (2, M, W) block at ``layout`` = (G,
-    Cw) (by default the launched one): where K3's cluster kernel takes M
-    (M = 128 * 2^a, N2 = M / 128 >= 2 G), W whole 128-column strips, within
-    one block's shared memory. Cached: K13 and K14 ask twice a launch (see
-    _cols_cluster_launch)."""
+    Cw) (by default the launched one): where K3's cluster kernels take M
+    (pair_x_cluster_takes: M = 128 * N2, N2 a power of two or 3 <= N2 <= 63,
+    ceil(N2 / 2) >= G; so not 384, 640, 768 nor the powers of two M < 256
+    G), W whole 128-column strips, within one block's shared memory.
+    Cached: K13 and K14 ask twice a launch (see _cols_cluster_launch)."""
     G, Cw = layout or pair_cols_cluster_launched(M, W)
-    return (_is_pow2(M // _N1) and pair_x_cluster_takes(M, (G, Cw))
+    return (pair_x_cluster_takes(M, (G, Cw))
             and W > 0 and W % STRIP == 0
             and pair_cols_cluster_layout(M, G, Cw).smem <= SMEM_LIMIT)
 
@@ -2206,15 +2216,18 @@ def pair_cols_cluster_emulated(kind: str, X: torch.Tensor, Xm: torch.Tensor,
 def pair_cols_cluster_occupancy(M: int, layout: tuple, own_only: bool,
                                 device: int) -> int:
     """The most clusters of the block kernel's K13 (``own_only``) or K14
-    instance in ``layout`` = (G, Cw) at extent M that card ``device`` holds
-    at once (cudaOccupancyMaxActiveClusters); 0: the layout cannot be
-    scheduled."""
+    instance in ``layout`` = (G, Cw) at extent M (the power-of-two or the
+    mixed instance) that card ``device`` holds at once
+    (cudaOccupancyMaxActiveClusters); 0: the layout cannot be scheduled."""
     G, Cw = layout
+    n2 = M // _N1
     count = ctypes.c_int(0)
     with torch.cuda.device(device):
-        code = _lib().qg_pair_cols_cluster_occupancy(
-            (M // _N1).bit_length() - 1, G.bit_length() - 1,
-            Cw.bit_length() - 1, int(own_only), ctypes.byref(count))
+        fn = (_lib().qg_pair_cols_cluster_mixed_occupancy if _mixed(M) else
+              _lib().qg_pair_cols_cluster_occupancy)
+        code = fn(n2 if _mixed(M) else n2.bit_length() - 1,
+                  G.bit_length() - 1, Cw.bit_length() - 1, int(own_only),
+                  ctypes.byref(count))
     _build.check(code, f"pair_cols cluster occupancy {layout} at M = {M}")
     return count.value
 
@@ -2222,8 +2235,10 @@ def pair_cols_cluster_occupancy(M: int, layout: tuple, own_only: bool,
 def pair_cols_cluster(X: torch.Tensor, Xm: torch.Tensor, kind: str,
                       key: tuple, consts,
                       layout: tuple | None = None) -> torch.Tensor:
-    """One launch of the block kernel (csrc pair_cols_cluster_kernel) on the
-    CUDA (2, M, W) float32 block X, M = 128 * 2^a, with the tile table of
+    """One launch of the block kernel (csrc pair_cols_cluster_kernel for M
+    = 128 * 2^a, pair_cols_cluster_mixed_kernel, stages A and A^-1 over
+    y_dft_mixed_plan(N2), for the other M = 128 * N2, N2 <= 63) on the CUDA
+    (2, M, W) float32 block X, with the tile table of
     ``kind`` ("offset": K13, key (W, strip_offset), mirrors from the
     companion Xm, own columns written; "paired": K14, key (groups_idx,
     n2y), Xm = X) and ``layout`` = (G, Cw), by default
@@ -2236,7 +2251,8 @@ def pair_cols_cluster(X: torch.Tensor, Xm: torch.Tensor, kind: str,
     PlanarFFT2._call_x_fwd_symbols_offset (:1204) and tpu_qg/parallel/
     paired.py PairedDistributedInverter._call_paired_kernel (:226). Bound:
     K13 reads two blocks and writes one (403 MB at (2, 8192, 2048), 0.120
-    ms at 3.35 TB/s), K14 reads one and writes one. Why a cluster:
+    ms at 3.35 TB/s; 56.6 MB at (2, 3072, 768), 0.0169 ms), K14 reads one
+    and writes one (12.6 MB at (2, 1536, 512), 0.0038 ms). Why a cluster:
     pair_cols_kernel holds whole columns (one slot pair a block at M =
     8192, a warp reading one scattered word a row) and transforms K13's
     mirror columns once per own column; here K3's cluster kernel runs on
@@ -2245,17 +2261,18 @@ def pair_cols_cluster(X: torch.Tensor, Xm: torch.Tensor, kind: str,
     M, W, P = _check_block(what, X, Xm, consts, kind, key)
     layout = tuple(layout or pair_cols_cluster_launched(M, W))
     if not pair_cols_cluster_takes(M, W, layout):
-        raise ValueError(f"{what}: M = {M} must be 128 * 2^a with M / 128 >= "
-                         f"2 G and the layout {layout} (G, Cw) fit shared "
-                         f"memory")
+        raise ValueError(f"{what}: M = {M} must be 128 * N2 (N2 a power of "
+                         f"two or 3 <= N2 <= 63) with ceil(N2 / 2) >= G and "
+                         f"the layout {layout} (G, Cw) fit shared memory")
     if kind == "paired" and Xm.data_ptr() != X.data_ptr():
         raise ValueError(f"{what}: the paired table reads mirrors from X")
     *_, args = _cols_cluster_launch(kind, key, M, W, P, layout, consts,
                                     X.device)
     out = torch.empty_like(X)
-    code = _lib().qg_pair_cols_cluster_launch(
-        X.data_ptr(), Xm.data_ptr(), out.data_ptr(), *args,
-        torch.cuda.current_stream(X.device).cuda_stream)
+    fn = (_lib().qg_pair_cols_cluster_mixed_launch if _mixed(M) else
+          _lib().qg_pair_cols_cluster_launch)
+    code = fn(X.data_ptr(), Xm.data_ptr(), out.data_ptr(), *args,
+              torch.cuda.current_stream(X.device).cuda_stream)
     _build.check(code, f"{what} {layout}")
     return out
 
@@ -2282,10 +2299,12 @@ def _cols_cluster_launch(kind: str, key: tuple, M: int, W: int, P: int,
                            f"layout {layout} at M = {M}")
     tables = _device_col_tiles(kind, key, Cw, device)
     wm = _twiddles(M, M, device)
+    n2 = M // _N1
+    mixed = _mixed(M)
     args = (*(t.data_ptr() for t in tables), tables[0].shape[0], W, P,
-            (M // _N1).bit_length() - 1, G.bit_length() - 1,
+            n2 if mixed else n2.bit_length() - 1, G.bit_length() - 1,
             Cw.bit_length() - 1, split_factor(P)[0], int(own_only), vals,
-            wm.data_ptr())
+            *((_packed_plan(n2),) if mixed else ()), wm.data_ptr())
     return tables, wm, args
 
 
@@ -2294,13 +2313,14 @@ def x_fwd_symbols_offset(Zy: torch.Tensor, Zm: torch.Tensor, consts,
     """K13 on CUDA tensors (one launch), the plain version on CPU tensors:
     the sharded inversion's x-stage on a (2, M, w) column block of the
     y-spectrum at global ``strip_offset`` and its mirror companion Zm.
-    Two hand-written kernels chosen by shape: the block kernel
+    Hand-written kernels chosen by shape: the block kernel
     (pair_cols_cluster, K3's cluster design, layout
     pair_cols_cluster_launched(M, w)) where pair_cols_cluster_takes(M, w),
-    counted also in
-    ``x_fwd_symbols_offset.cluster_launches``; pair_cols_kernel
-    (pair_cols_whole_columns) on the rest (mixed extents M = 128 * n, and
-    M < 256 G). Both replace tpu_qg/ops/pallas_fft.py
+    counted also in ``x_fwd_symbols_offset.cluster_launches`` and, its
+    mixed instance (M = 128 * N2, N2 not a power of two), in
+    ``x_fwd_symbols_offset.mixed_launches``; pair_cols_kernel
+    (pair_cols_whole_columns) on the rest (384, 640, 768 and M < 256 G).
+    All replace tpu_qg/ops/pallas_fft.py
     PlanarFFT2._call_x_fwd_symbols_offset (:1204)."""
     if Zy.device.type == "cpu":
         return x_fwd_symbols_offset_plain(Zy, Zm, consts, strip_offset)
@@ -2309,6 +2329,7 @@ def x_fwd_symbols_offset(Zy: torch.Tensor, Zm: torch.Tensor, consts,
     if pair_cols_cluster_takes(M, W):
         out = pair_cols_cluster(Zy, Zm, "offset", key, consts)
         x_fwd_symbols_offset.cluster_launches += 1
+        x_fwd_symbols_offset.mixed_launches += _mixed(M)
     else:
         out = pair_cols_whole_columns(Zy, Zm, "offset", key, consts)
     x_fwd_symbols_offset.launches += 1
@@ -2317,31 +2338,37 @@ def x_fwd_symbols_offset(Zy: torch.Tensor, Zm: torch.Tensor, consts,
 
 x_fwd_symbols_offset.launches = 0
 x_fwd_symbols_offset.cluster_launches = 0
+x_fwd_symbols_offset.mixed_launches = 0
 
 
 def stream_pair_cluster_takes(M: int) -> bool:
-    """True iff K7 launches K3's power-of-two cluster kernel at extent M
-    (pair_x_cluster_takes(M), M = 128 * 2^a); the mixed extents keep
-    pair_cols_kernel."""
-    return _is_pow2(M // _N1) and pair_x_cluster_takes(M)
+    """True iff K7 launches one of K3's cluster kernels at extent M
+    (pair_x_cluster_takes(M): the powers of two M >= 256 G and the mixed
+    extents 128 * N2 with ceil(N2 / 2) >= G); 384, 640, 768 and the smaller
+    powers of two keep pair_cols_kernel."""
+    return pair_x_cluster_takes(M)
 
 
 def stream_pair_symbols(Zy: torch.Tensor, consts) -> torch.Tensor:
     """K7 on CUDA tensors (one launch), the plain version on CPU tensors.
-    K7 computes K3's function on the whole field, so two hand-written
-    kernels chosen by shape: K3's cluster kernel (pair_x_cluster, layout
+    K7 computes K3's function on the whole field, so hand-written kernels
+    chosen by shape: K3's cluster kernels (pair_x_cluster, layout
     pair_x_cluster_launched(M), K3's canonical tiles: each column read and
     written once) where stream_pair_cluster_takes(M), counted also in
-    ``stream_pair_symbols.cluster_launches`` (not in pair_x_symbols's
+    ``stream_pair_symbols.cluster_launches`` and, K3's mixed cluster kernel
+    (M = 128 * N2, N2 not a power of two), in
+    ``stream_pair_symbols.mixed_launches`` (not in pair_x_symbols's
     counts); pair_cols_kernel on the "self" table (pair_cols_whole_columns,
-    the mirror read from the same field) on the rest (mixed extents M = 128
-    * n, and M < 256 G). Both replace tpu_qg/ops/pallas_fft.py
+    the mirror read from the same field) on the rest (384, 640, 768 and M <
+    256 G). All replace tpu_qg/ops/pallas_fft.py
     PlanarFFT2.stream_pair_symbols (:1304)."""
     if Zy.device.type == "cpu":
         return stream_pair_symbols_plain(Zy, consts)
-    if stream_pair_cluster_takes(Zy.shape[1]):
+    M = Zy.shape[1]
+    if stream_pair_cluster_takes(M):
         out = pair_x_cluster(Zy, consts)
         stream_pair_symbols.cluster_launches += 1
+        stream_pair_symbols.mixed_launches += _mixed(M)
     else:
         out = pair_cols_whole_columns(Zy, Zy, "self", (Zy.shape[2],), consts)
     stream_pair_symbols.launches += 1
@@ -2350,18 +2377,20 @@ def stream_pair_symbols(Zy: torch.Tensor, consts) -> torch.Tensor:
 
 stream_pair_symbols.launches = 0
 stream_pair_symbols.cluster_launches = 0
+stream_pair_symbols.mixed_launches = 0
 
 
 def paired_x_symbols(X: torch.Tensor, groups_idx, consts) -> torch.Tensor:
     """K14 on CUDA tensors (one launch), the plain version on CPU tensors:
     the x-stage of a (2, M, w) block of strips in mirror-pair order whose
-    global indices are ``groups_idx``. Two hand-written kernels chosen by
+    global indices are ``groups_idx``. Hand-written kernels chosen by
     shape: the block kernel (pair_cols_cluster, layout
     pair_cols_cluster_launched(M, w)) where pair_cols_cluster_takes(M, w),
-    counted also in
-    ``paired_x_symbols.cluster_launches``; pair_cols_kernel
-    (pair_cols_whole_columns) on the rest (mixed extents M = 128 * n, and
-    M < 256 G). Both replace tpu_qg/parallel/paired.py
+    counted also in ``paired_x_symbols.cluster_launches`` and, its mixed
+    instance (M = 128 * N2, N2 not a power of two), in
+    ``paired_x_symbols.mixed_launches``; pair_cols_kernel
+    (pair_cols_whole_columns) on the rest (384, 640, 768 and M < 256 G).
+    All replace tpu_qg/parallel/paired.py
     PairedDistributedInverter._call_paired_kernel (:226)."""
     if X.device.type == "cpu":
         return paired_x_symbols_plain(X, groups_idx, consts)
@@ -2372,6 +2401,7 @@ def paired_x_symbols(X: torch.Tensor, groups_idx, consts) -> torch.Tensor:
     if pair_cols_cluster_takes(X.shape[1], X.shape[2]):
         out = pair_cols_cluster(X, X, "paired", key, consts)
         paired_x_symbols.cluster_launches += 1
+        paired_x_symbols.mixed_launches += _mixed(X.shape[1])
     else:
         out = pair_cols_whole_columns(X, X, "paired", key, consts)
     paired_x_symbols.launches += 1
@@ -2380,6 +2410,7 @@ def paired_x_symbols(X: torch.Tensor, groups_idx, consts) -> torch.Tensor:
 
 paired_x_symbols.launches = 0
 paired_x_symbols.cluster_launches = 0
+paired_x_symbols.mixed_launches = 0
 
 
 # ---------------------------------------------------------------------------
