@@ -194,13 +194,23 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    cluster kernel) and turbulence-2048 with step_chain="on" (20: K15
    sharded, every launch by its persistent kernel, "K15s rows" = K15s, K3
    (the same), K2
-   at the ends), zeta within 1e-6; then four spawned ranks sharing cuda:0
+   at the ends), zeta within 1e-6, and pod-8192-mg (20 steps of the
+   distributed multigrid, route "generic-mg", every count 0, zeta within
+   1e-4 of a plain single-device MG reference and of the spectral route,
+   else the float64 rule; run_model's checkpoint_mode="auto" writes its
+   snapshots every 10 steps and its checkpoint as shard files, which
+   load_checkpoint_sharded and load_checkpoint read back bit for bit; a 10-cycle
+   DistributedMultigridInverter of the final zeta within 1e-5 of the
+   spectral inversion, else the float64 rule); then four spawned ranks sharing cuda:0
    on gloo (the kernels built once, here, before they start): (4, 1)
    turbulence-2048 (10 steps: K12, K2, K14), its chain (10: K15 sharded,
    "K15s rows" = K15s, K14), (2, 2) turbulence-2048 (10: K12, K2, K13), (4, 1) pod-8192 (5:
    K12, K2, K13), (4, 1) turbulence-2048 at 3072^2 (10: K12, K2 by its
    mixed-radix form, K13 on (2, 3072, 768)) and at 1536 x 2048 (10: K12,
-   K2, K14 on (2, 1536, 512)), the counts checked on every rank, zeta and
+   K2, K14 on (2, 1536, 512)) and (2, 2) pod-8192-mg at 2048^2 (10 steps,
+   every count 0, each rank writing its shard file, which rank 0's
+   RunReader.load_checkpoint assembles bit for bit into the gathered
+   state), the counts checked on every rank, zeta and
    psi gathered to rank 0 and zeta held within 1e-4 of the single-device
    route (else the float64 rule), every K13 and K14 launch by the block
    kernel ("K13 cluster" = K13, "K14 cluster" = K14), at the mixed extents
@@ -228,7 +238,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    K11 at every level graph-replayed in turns beside the tile kernels and a
    copy of the same bytes, host enqueue ms per call, and (8192^2) the busy
    share over one traced MG call. The mesh: ms per step of the one-rank mesh against the
-   single-device route at 2048^2 and 8192^2, in turns; K12, K13, K14, K15's
+   single-device route at 2048^2 and 8192^2, in turns; pod-8192-mg's ms per
+   step on the one-rank mesh beside pod-8192's, in turns, with host enqueue
+   ms per step and the calls that wait for the device in a step beside
+   each, and the sharded checkpoint write (seconds, bytes) in phase 4b; K12, K13, K14, K15's
    sharded form and K7 per launch beside their plain versions at the
    mesh slices' shapes (K12 beside its tile kernel; K13, K14 and K7 beside
    pair_cols_kernel), and K13, K14 and K7 mixed at (2, 3072, 768),
@@ -268,6 +281,8 @@ import socket
 import subprocess
 import tempfile
 import time
+import warnings
+from collections import Counter
 
 import numpy as np
 import torch
@@ -277,7 +292,8 @@ import torch.multiprocessing as mp
 import tpu_qg_torch
 from tpu_qg_torch import preset
 from tpu_qg_torch.constants import DAY
-from tpu_qg_torch.models.core import QGModel, State, init_state
+from tpu_qg_torch.io import RunReader, RunWriter
+from tpu_qg_torch.models.core import QGModel, State, _next_state, init_state
 from tpu_qg_torch.ops import _build, dft_kernels
 from tpu_qg_torch.ops.dft_kernels import (
     mirror_companion, mono_invert, mono_invert_coop, mono_invert_plain,
@@ -342,6 +358,7 @@ from tpu_qg_torch.ops.step_kernel import (HALO_ROWS, fused_pre_inversion,
                                           tendency_rows_launched)
 from tpu_qg_torch.parallel import (gather_state, make_halo_run_fn, make_mesh,
                                    shard_state)
+from tpu_qg_torch.parallel.multigrid import DistributedMultigridInverter
 from tpu_qg_torch.parallel.paired import strip_pair_order
 from tpu_qg_torch.run import run_model
 from tpu_qg_torch.scripts import stencil_lab
@@ -2960,10 +2977,284 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def phase_mesh_one_rank(turb, pod, dev, card) -> tuple[dict, dict]:
-    """The one-rank NCCL mesh on ``dev``: the three slices, then ms per step
-    of the mesh against the single-device route in turns, at 2048^2 and
-    8192^2. Returns (launches by path, ms by grid)."""
+MG_MESH_STEPS = 20
+MG_CHECK_CYCLES = 10    # the dry run's inversion (__graft_entry__.py:196-210)
+
+
+def shard_set_bytes(run_dir: str, kind: str, step: int) -> int:
+    return sum(os.path.getsize(os.path.join(run_dir, f))
+               for f in os.listdir(run_dir)
+               if f.startswith(f"{kind}_{step:09d}-shard"))
+
+
+def plain_mg_run(cfg, state, steps: int, levels) -> State:
+    """The multigrid route's plain single-device reference: ``steps`` steps
+    of the plain tendencies and time update (fused_step_plain), each
+    inverted by MultigridSolver on the level-op chain (use_pallas="off")
+    with the distributed solver's ``levels`` (coarse cutoff 64), seeded as
+    make_halo_run_fn seeds it: psi_n at the first step, then 2 psi_n -
+    psi_{n-1} under mg_extrapolate. Independent of tpu_qg_torch.parallel."""
+    solver = MultigridSolver(cfg.M, cfg.P, cfg.dx, (0.0, cfg.S_eig),
+                             n_cycles=cfg.mg_cycles, coarse_cutoff=64,
+                             use_pallas="off")
+    if solver.levels != levels:
+        raise AssertionError(f"plain MG levels {solver.levels} != the "
+                             f"distributed solver's {levels}")
+    p_back = np.asarray(cfg.back_projection_matrix(), np.float64)
+    q, b, bi = (torch.as_tensor(m, dtype=state.zeta.dtype,
+                                device=state.zeta.device)
+                for m in (np.asarray(cfg.P_inv_matrix(), np.float64), p_back,
+                          np.linalg.inv(p_back)))
+    prev = None
+    for _ in range(steps):
+        zeta_new, carry = fused_step_plain(cfg, state.zeta, state.psi,
+                                           state.f1, state.f2, state.step)
+        seed = (state.psi if prev is None or not cfg.mg_extrapolate
+                else 2.0 * state.psi - prev)
+        modes = solver(torch.einsum("ab,bmp->amp", q, zeta_new),
+                       x0=torch.einsum("ab,bmp->amp", bi, seed))
+        prev, state = state.psi, _next_state(
+            cfg, state, zeta_new, torch.einsum("ab,bmp->amp", b, modes),
+            carry)
+    return state
+
+
+def mg_zeta_checks(name, cfg, dev, out_zeta, state0, steps, levels) -> dict:
+    """A multigrid mesh run's gathered zeta against (1) the plain
+    single-device MG reference of the same steps (plain_mg_run, float32:
+    the same algorithm, within TOL["slice_zeta"]) and (2) the single-device
+    spectral route: within TOL["slice_zeta"], or else the float64 rule for
+    an algorithm whose lag is its own: the mesh run's error against a
+    float64 spectral run no more than twice the float64 MG reference's
+    distance from it. Two V-cycles a step lag the exact inversion by more
+    than 1e-4 of zeta in 20 steps from a grid-noise state at 8192^2, in
+    float64 too, and so does tpu_qg's route (PERF.md, PR 25). Returns the
+    emitted fields."""
+    ref = plain_mg_run(cfg, state0, steps, levels)
+    _, d_plain = rel_err(out_zeta, ref.zeta)
+    del ref
+    free_memory()
+    if not d_plain <= TOL["slice_zeta"]:
+        raise AssertionError(f"{name}: zeta differs from the plain "
+                             f"single-device MG reference by {d_plain}")
+    spec = run_model(cfg, save_results=False, n_steps=steps, device=dev,
+                     state=state0, verbose=False)
+    _, d_spec = rel_err(out_zeta, spec.zeta)
+    del spec
+    free_memory()
+    fields = dict(zeta_rel_diff_vs_plain_mg=d_plain,
+                  zeta_rel_diff_vs_single_device=d_spec,
+                  tol_zeta=TOL["slice_zeta"])
+    if d_spec <= TOL["slice_zeta"]:
+        return fields
+    state64 = state0._replace(**{k: getattr(state0, k).double()
+                                 for k in ("zeta", "psi", "f1", "f2")})
+    spec64 = run_model(cfg.replace(dtype="float64", fft_impl="xla",
+                                   use_pallas=False),
+                       save_results=False, n_steps=steps, device=dev,
+                       state=state64, verbose=False).zeta
+    free_memory()
+    mg64 = plain_mg_run(cfg.replace(dtype="float64"), state64, steps,
+                        levels).zeta
+    del state64
+    _, e_mesh = rel_err(out_zeta.double(), spec64)
+    _, e_alg = rel_err(mg64, spec64)
+    del spec64, mg64
+    free_memory()
+    fields["float64_adjudication"] = dict(
+        zeta_rel_err_mesh=e_mesh, zeta_rel_diff_mg_float64=e_alg,
+        rule="mesh <= 2 x the float64 MG reference's distance from the "
+             "float64 spectral run")
+    if not e_mesh <= 2.0 * e_alg:
+        raise AssertionError(f"{name}: zeta differs from the single-device "
+                             f"route by {d_spec}; its float64 error {e_mesh} "
+                             f"exceeds twice the float64 MG reference's "
+                             f"{e_alg}")
+    return fields
+
+
+def check_mg_inversion(name, cfg, mesh, zeta) -> dict:
+    """A MG_CHECK_CYCLES-cycle DistributedMultigridInverter of the one-rank
+    mesh's ``zeta`` (cold) against the spectral inversion (the
+    single-device route's kernels): within TOL["mg_psi"], else both against
+    a float64 inversion (MG no worse than 2 x spectral: on a grid-noise
+    state every float32 inversion sits near eps n / 5 of max|psi|, ~1e-4 at
+    8192^2, see run_mg_path). Returns the emitted fields."""
+    inv = DistributedMultigridInverter(
+        cfg.M, cfg.P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
+        cfg.back_projection_matrix(), mesh, n_cycles=MG_CHECK_CYCLES)
+    psi_mg = inv(zeta)
+    psi_sp = inverter(cfg)(zeta)
+    _, d = rel_err(psi_mg, psi_sp)
+    fields = dict(cycles=MG_CHECK_CYCLES, psi_rel_diff_vs_spectral=d,
+                  tol_psi=TOL["mg_psi"])
+    if d <= TOL["mg_psi"]:
+        return fields
+    psi64 = PackedModalInverter(cfg.M, cfg.P, cfg.dx, cfg.S_eig,
+                                cfg.P_inv_matrix(),
+                                cfg.back_projection_matrix())(zeta.double())
+    _, e_mg = rel_err(psi_mg.double(), psi64)
+    _, e_sp = rel_err(psi_sp.double(), psi64)
+    fields["float64_adjudication"] = dict(
+        psi_rel_err_mg=e_mg, psi_rel_err_spectral=e_sp,
+        rule="mg <= 2 x spectral")
+    del psi64
+    if not e_mg <= 2.0 * e_sp:
+        raise AssertionError(f"{name}: the {MG_CHECK_CYCLES}-cycle MG psi "
+                             f"differs from the spectral inversion by {d} "
+                             f"and its float64 error {e_mg} exceeds twice "
+                             f"the spectral one's {e_sp}")
+    return fields
+
+
+def run_mg_mesh_slice(name, cfg, mesh, dev, card) -> dict:
+    """pod-8192-mg on the one-rank mesh: MG_MESH_STEPS steps through
+    run_model into a temporary run_dir under checkpoint_mode="auto" (shard
+    files at 8192^2), snapshots every 10 steps and a checkpoint at the end,
+    the launch
+    counts set to 0 just before and read just after (every count 0: the
+    route runs the generic tendencies and the MG level ops, as tpu_qg's);
+    zeta against the single-device route (TOL["slice_zeta"]); the MG
+    inversion check; the shard set read back bit for bit by
+    load_checkpoint_sharded and load_checkpoint; then the sharded checkpoint
+    write timed (the page cache takes it: no fsync). Returns the counts."""
+    route = make_halo_run_fn(cfg, mesh).route
+    if route != "generic-mg":
+        raise AssertionError(f"{name}: route {route} != generic-mg")
+    levels = DistributedMultigridInverter(
+        cfg.M, cfg.P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
+        cfg.back_projection_matrix(), mesh).solver.levels
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_mg_")
+    try:
+        state0 = init_state(cfg, dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run_model(cfg, run_dir=run_dir, n_steps=MG_MESH_STEPS,
+                        sample_interval=10 * cfg.dt, state=state0,
+                        verbose=False, mesh=mesh, checkpoint_mode="auto")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = counts()
+        if any(launches.values()):
+            raise AssertionError(f"{name}: launch counts {launches}, every "
+                                 "count should be 0")
+        finite = all(bool(torch.isfinite(getattr(out, k)).all())
+                     for k in ("zeta", "psi", "f1", "f2"))
+        if (not finite or tuple(out.zeta.shape) != (2, cfg.M, cfg.P)
+                or out.step != MG_MESH_STEPS):
+            raise AssertionError(f"{name}: final state finite={finite} shape "
+                                 f"{tuple(out.zeta.shape)} step {out.step}")
+        fields = mg_zeta_checks(name, cfg, dev, out.zeta, state0,
+                                MG_MESH_STEPS, levels)
+        del state0
+        free_memory()
+        files = sorted(os.listdir(run_dir))
+        want_files = sorted(
+            ["metadata.json"] + [f"{kind}_{step:09d}-shard00000.{ext}"
+                                 for kind, step in (
+                                     ("snap", 10), ("snap", MG_MESH_STEPS),
+                                     ("checkpoint", MG_MESH_STEPS))
+                                 for ext in ("npz", "index.json")])
+        if files != want_files:
+            raise AssertionError(f"{name}: run_dir holds {files}, not "
+                                 f"{want_files}")
+        reader = RunReader(run_dir)
+        names = ("zeta", "psi", "f1", "f2")
+        back = reader.load_checkpoint_sharded(mesh)
+        same_blocks = back.step == out.step and all(
+            torch.equal(getattr(back, k), getattr(out, k)) for k in names)
+        del back
+        whole = reader.load_checkpoint(device=dev)
+        full = gather_state(out, mesh)
+        same_whole = whole.step == out.step and all(
+            torch.equal(getattr(whole, k), getattr(full, k)) for k in names)
+        del whole, full
+        free_memory()
+        if not (same_blocks and same_whole):
+            raise AssertionError(f"{name}: the shard set reads back "
+                                 f"blocks={same_blocks} whole={same_whole}")
+        inversion = check_mg_inversion(name, cfg, mesh, out.zeta)
+        free_memory()
+        writer = RunWriter(run_dir, cfg, write_metadata=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        writer.write_checkpoint_sharded(out, mesh)
+        write_s = time.perf_counter() - t0
+        nbytes = shard_set_bytes(run_dir, "checkpoint", out.step)
+        emit("mesh_slice", card=card, preset=name, mesh=list(mesh.shape),
+             ranks=mesh.size, backend=mesh.backend, route=route,
+             steps=MG_MESH_STEPS, launches=launches, checkpoint_mode="auto",
+             run_model_s=run_s,
+             files=files, shard_set_bitwise={"load_checkpoint_sharded":
+                                             same_blocks,
+                                             "load_checkpoint": same_whole},
+             mg_inversion=inversion,
+             sharded_checkpoint_write={"s": write_s, "bytes": nbytes,
+                                       "GB_per_s": nbytes / write_s / 1e9,
+                                       "is": "device-to-host copy and "
+                                             "np.savez into the page cache "
+                                             "(no fsync), one rank"},
+             **fields)
+        return launches
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
+def count_syncs(fn) -> dict:
+    """The calls that wait for the device during one call of ``fn``
+    (torch.cuda's sync debug mode), by the source line that made each."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    lines = Counter(f"{os.path.relpath(w.filename)}:{w.lineno}"
+                    for w in caught
+                    if "synchronizing CUDA operation" in str(w.message))
+    return dict(lines)
+
+
+def time_mg_mesh(pod, pod_mg, mesh, dev, card, steps=5) -> dict:
+    """ms per step of pod-8192-mg and pod-8192 on the one-rank mesh by CUDA
+    events around one run of ``steps`` steps from the state after 3
+    steps, in turns (in order, then in reverse), and host enqueue ms per
+    step beside each (one step into an idle queue, 3 times), with the
+    calls that wait for the device in one step."""
+    model = QGModel(pod, dev)
+    local = shard_state(model.run(model.init_state(), 3), mesh)
+    del model
+    runs = {"pod-8192-mg": make_halo_run_fn(pod_mg, mesh),
+            "pod-8192": make_halo_run_fn(pod, mesh)}
+    step_ms = {k: [] for k in runs}
+    for k in list(runs) + list(runs)[::-1]:
+        step_ms[k].append(time_ms(lambda r=runs[k]: r(local, steps), 1,
+                                  warmup=1) / steps)
+    enqueue = {k: host_enqueue(lambda r=r: r(local, 1), 3)
+               for k, r in runs.items()}
+    syncs = {k: count_syncs(lambda r=r: r(local, 1)) for k, r in runs.items()}
+    mean = {k: sum(v) / len(v) for k, v in step_ms.items()}
+    fields = dict(card=card, grid=[pod.M, pod.P], mesh=list(mesh.shape),
+                  backend=mesh.backend, steps_per_run=steps, step_ms=mean,
+                  step_ms_runs=step_ms, host_enqueue_ms_per_step=enqueue,
+                  syncs_per_step=syncs,
+                  routes={k: r.route for k, r in runs.items()},
+                  mg_over_spectral=mean["pod-8192-mg"] / mean["pod-8192"])
+    emit("timing", path="pod-8192-mg mesh (1, 1)", **fields)
+    del local, runs
+    free_memory()
+    return fields
+
+
+def phase_mesh_one_rank(turb, pod, pod_mg, dev, card) -> tuple[dict, dict]:
+    """The one-rank NCCL mesh on ``dev``: the three slices and pod-8192-mg's
+    (run_mg_mesh_slice), then ms per step of the mesh against the
+    single-device route in turns, at 2048^2 and 8192^2, and pod-8192-mg's
+    beside pod-8192's (time_mg_mesh). Returns (launches by path, ms by
+    grid and "multigrid")."""
     dist.init_process_group(
         "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
         world_size=1, timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
@@ -2987,6 +3278,9 @@ def phase_mesh_one_rank(turb, pod, dev, card) -> tuple[dict, dict]:
             launches[name] = run_mesh_slice(name, cfg, mesh, dev, steps,
                                             expect, route)
             free_memory()
+        name = "pod-8192-mg mesh (1, 1)"
+        launches[name] = run_mg_mesh_slice(name, pod_mg, mesh, dev, card)
+        free_memory()
         ms = {}
         for cfg, steps in ((turb, 100), (pod, 20)):
             model = QGModel(cfg, dev)
@@ -3007,6 +3301,7 @@ def phase_mesh_one_rank(turb, pod, dev, card) -> tuple[dict, dict]:
                  / ms[cfg.M]["single_device"])
             del model, run, state0, local, calls
             free_memory()
+        ms["multigrid"] = time_mg_mesh(pod, pod_mg, mesh, dev, card)
         return launches, ms
     finally:
         dist.destroy_process_group()
@@ -3086,7 +3381,16 @@ FOUR_RANK_SLICES = (
      {"M": 1536, "P": 2048}, (4, 1), 10,
      {"K12": 10, "K12 rows": 10, "K2": 20, "K2 factored": 20, "K14": 10,
       "K14 cluster": 10, "K14 mixed": 10}, "fused"),
+    # The distributed multigrid on a 2-D mesh, a shape the paired spectral
+    # route cannot take: the generic tendencies and the MG level ops, no
+    # kernel.
+    ("pod-8192-mg at 2048^2 mesh (2, 2)", "pod-8192-mg",
+     {"M": 2048, "P": 2048}, (2, 2), 10, {}, "generic-mg"),
 )
+# The four-rank slices that run_model saves: each rank writes its shard
+# files ("auto" at 2048^2 on a mesh), and rank 0 checks that
+# RunReader.load_checkpoint assembles the gathered state bit for bit.
+SHARDED_SLICES = ("pod-8192-mg at 2048^2 mesh (2, 2)",)
 
 
 def mesh_rank(rank: int, world: int, rendezvous: str, out: str) -> None:
@@ -3105,24 +3409,43 @@ def mesh_rank(rank: int, world: int, rendezvous: str, out: str) -> None:
     try:
         _build.load()
         report = []
-        for name, preset_name, over, shape, steps, expect, route in \
-                FOUR_RANK_SLICES:
+        for row in FOUR_RANK_SLICES:
+            name, preset_name, over, shape, steps, expect, route = row
             cfg = preset(preset_name).replace(**over)
             mesh = make_mesh(shape, device=dev, backend="gloo")
             got_route = make_halo_run_fn(cfg, mesh).route
             if got_route != route:
                 raise AssertionError(f"{name}: route {got_route} != {route}")
             state0 = init_state(cfg, dev)
+            sharded = name in SHARDED_SLICES
+            run_dir = os.path.join(os.path.dirname(rendezvous),
+                                   f"run_{FOUR_RANK_SLICES.index(row)}")
             reset_counts()
-            out_state = run_model(cfg, save_results=False, n_steps=steps,
-                                  state=state0, verbose=False, mesh=mesh)
+            out_state = run_model(cfg, run_dir=run_dir if sharded else None,
+                                  save_results=sharded, n_steps=steps,
+                                  state=state0, verbose=False, mesh=mesh,
+                                  checkpoint_mode="auto")
             torch.cuda.synchronize()
             launches = counts()
             want = {k: expect.get(k, 0) for k in COUNTERS}
             if launches != want:
                 raise AssertionError(f"{name}: rank {rank} launch counts "
                                      f"{launches} != {want}")
-            full = gather_state(out_state, mesh, ("zeta", "psi"))
+            full = gather_state(out_state, mesh,
+                                ("zeta", "psi", "f1", "f2") if sharded
+                                else ("zeta", "psi"))
+            shard_io = {}
+            if sharded and rank == 0:
+                files = sorted(os.listdir(run_dir))
+                back = RunReader(run_dir).load_checkpoint(device=dev)
+                same = back.step == steps and all(
+                    torch.equal(getattr(back, k), getattr(full, k))
+                    for k in ("zeta", "psi", "f1", "f2"))
+                shard_io = dict(files=files, shard_set_bitwise=same)
+                if not same or len(files) != 9:
+                    raise AssertionError(f"{name}: the shard set {files} "
+                                         f"reads back bitwise={same}")
+                del back
             run = make_halo_run_fn(cfg, mesh)
             local = shard_state(state0, mesh)
             run(local, 1)                          # allocations warm
@@ -3138,14 +3461,21 @@ def mesh_rank(rank: int, world: int, rendezvous: str, out: str) -> None:
                               and torch.isfinite(full.psi).all())
                 if not finite:
                     raise AssertionError(f"{name}: non-finite state")
-                fields = zeta_vs_single_device(name, cfg, dev, full.zeta,
-                                               state0, steps,
-                                               TOL["slice_zeta"])
+                if route == "generic-mg":
+                    levels = DistributedMultigridInverter(
+                        cfg.M, cfg.P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
+                        cfg.back_projection_matrix(), mesh).solver.levels
+                    fields = mg_zeta_checks(name, cfg, dev, full.zeta,
+                                            state0, steps, levels)
+                else:
+                    fields = zeta_vs_single_device(name, cfg, dev, full.zeta,
+                                                   state0, steps,
+                                                   TOL["slice_zeta"])
                 report.append(dict(preset=name, mesh=list(shape), ranks=world,
                                    backend="gloo (host-staged, one card)",
                                    route=route, steps=steps,
                                    launches_per_rank=launches,
-                                   step_ms=step_ms, **fields))
+                                   step_ms=step_ms, **shard_io, **fields))
             del state0, out_state, full, local, run
             free_memory()
             dist.barrier()
@@ -4012,7 +4342,8 @@ def main() -> None:
     launches["stencil lab (6 variants)"], lab_jobs = run_lab_path(dev)
 
     # The mesh: one rank on NCCL, K7's path, then four ranks on gloo.
-    mesh_launches, mesh_ms = phase_mesh_one_rank(turb, pod, dev, card)
+    mesh_launches, mesh_ms = phase_mesh_one_rank(turb, pod, pod_mg, dev,
+                                                 card)
     launches.update(mesh_launches)
     launches["pod-8192 K7 path (pair_stream on)"] = run_k7_path(pod, dev, 20)
     launches[f"{MIXED_PATHS[1]} K7 path (pair_stream on)"] = run_k7_path(

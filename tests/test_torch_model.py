@@ -220,11 +220,11 @@ def test_cli_runs_on_cpu_with_checkpoints_and_resume(tmp_path, capsys):
     assert z.shape == (2, 32, 32) and np.isfinite(p).all()
 
 
-def test_cli_no_save_and_sharded_flags(monkeypatch, capsys):
+def test_cli_no_save_and_sharded_flags(monkeypatch, capsys, tmp_path):
     """--no-save on one device; then the sharded flags in a one-rank gloo
     group from torchrun's environment (a free port): --mesh 1,1 runs the
-    halo stepper, while the forms not ported yet (--parallel gspmd,
-    --checkpoint-mode sharded) raise."""
+    halo stepper, --checkpoint-mode sharded writes the rank's shard files,
+    and --parallel gspmd, not ported yet, raises."""
     import socket
     trun.main(["--device", "cpu", "--preset", "turbulence-2048", "--steps",
                "2", "--no-save", "--set", "M=64", "P=64"])
@@ -235,15 +235,21 @@ def test_cli_no_save_and_sharded_flags(monkeypatch, capsys):
                      WORLD_SIZE="1", LOCAL_RANK="0").items():
         monkeypatch.setenv(k, v)
     small = ["--device", "cpu", "--preset", "turbulence-2048", "--steps", "2",
-             "--no-save", "--set", "M=64", "P=64"]
-    trun.main(small + ["--mesh", "1,1"])
+             "--set", "M=64", "P=64"]
+    trun.main(small + ["--no-save", "--mesh", "1,1"])
     assert "step 2/2" in capsys.readouterr().out
-    for flags, item in ((["--mesh", "1,1", "--parallel", "gspmd"], "item 6"),
-                        (["--distributed", "--checkpoint-mode", "sharded"],
-                         "item 3")):
-        with pytest.raises(NotImplementedError,
-                           match=rf"ROADMAP\.md queue 1, {item}:"):
-            trun.main(small + flags)
+    run_dir = tmp_path / "sharded"
+    trun.main(small + ["--run-dir", str(run_dir), "--distributed",
+                       "--checkpoint-mode", "sharded"])
+    assert "step 2/2" in capsys.readouterr().out
+    assert sorted(p.name for p in run_dir.glob("checkpoint_*")) == [
+        "checkpoint_000000002-shard00000.index.json",
+        "checkpoint_000000002-shard00000.npz"]
+    assert jio.RunReader(run_dir).load_checkpoint().zeta.shape == (2, 64, 64)
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md queue 1, item 6:"):
+        trun.main(small + ["--no-save", "--mesh", "1,1", "--parallel",
+                           "gspmd"])
 
 
 @pytest.mark.parametrize("preset,sets", [

@@ -60,6 +60,7 @@ def _level_cases():
     """(name, port call, tpu_qg call) on (2, 128, 256) float64 inputs."""
     u = _field((2, 128, 256), 0, 1e-2)
     f = _field((2, 128, 256), 1, 1e-5)
+    padded = _field((2, 130, 258), 2, 1e-2)     # a block with its 1-halo
     U, F = torch.from_numpy(u), torch.from_numpy(f)
     ju, jf = jnp.asarray(u), jnp.asarray(f)
     at = torch.tensor(ALPHAS, dtype=torch.float64).reshape(-1, 1, 1)
@@ -78,6 +79,10 @@ def _level_cases():
             lambda: jmg.restrict_full_weighting(ju)),
         "prolong_bilinear": (lambda: multigrid.prolong_bilinear(U),
                              lambda: jmg.prolong_bilinear(ju)),
+        "restrict_full_weighting_padded": (
+            lambda: multigrid.restrict_full_weighting_padded(
+                torch.from_numpy(padded)),
+            lambda: jmg.restrict_full_weighting_padded(jnp.asarray(padded))),
         "restrict_9_point": (
             lambda: multigrid.restrict_full_weighting(U, other_t),
             lambda: jmg.restrict_full_weighting(ju, other_j)),
@@ -96,6 +101,7 @@ def test_level_op_matches_tpu_qg_float64(name):
 
 
 @pytest.mark.parametrize("name", ["restrict_full_weighting",
+                                  "restrict_full_weighting_padded",
                                   "prolong_bilinear", "restrict_9_point",
                                   "prolong_4_point"])
 def test_transfer_ops_are_exact(name):

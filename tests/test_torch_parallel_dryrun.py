@@ -15,10 +15,10 @@ inverters against tpu_qg's single-device fused inversion.
     error against a float64 inversion no more than twice tpu_qg's (two
     float32 algorithms, torch.fft and tpu_qg's matmul DFT, differ there by
     the rounding 1/lambda lifts at low k, ~5e-5 of max|psi|);
-  * the fused 2-D step on (4, 2): zeta 1e-5, psi 5e-5.
-
-The dry run's distributed multigrid check has no counterpart yet (not
-ported: ROADMAP.md queue 1, item 2, the distributed multigrid)."""
+  * the fused 2-D step on (4, 2): zeta 1e-5, psi 5e-5;
+  * the distributed multigrid inversion of the (2, 4) config's initial
+    zeta, 10 cycles on (2, 4), against tpu_qg's single-device spectral
+    inversion: psi 1e-5."""
 
 import jax
 import numpy as np
@@ -27,7 +27,8 @@ import torch
 
 from tpu_qg.config import ModelConfig
 from tpu_qg.constants import KM, MINUTES
-from tpu_qg.models.core import init_state, make_step_fn
+from tpu_qg.models.core import (_build_solvers, _invert_psi, init_state,
+                                make_step_fn)
 from tpu_qg.ops.spectral import PackedModalInverterPallasFFT
 from tpu_qg_torch.interop import config_from_jax
 from tpu_qg_torch.ops.spectral import (PackedModalInverter,
@@ -68,6 +69,10 @@ def _zeta_in():
     return _reference(FUSED)[0]
 
 
+def _generic_zeta():
+    return np.asarray(init_state(GENERIC, key=jax.random.PRNGKey(0)).zeta)
+
+
 STEP_CASES = {
     "default mesh (2, 4) generic": (GENERIC, None, {}, "generic",
                                     {"zeta": 1e-6, "psi": 1e-4}),
@@ -99,6 +104,8 @@ def results(tmp_path_factory):
              shape=(N, 1), cfg=config_from_jax(FUSED), zeta=zeta),
         dict(name="paired inversion", kind="inverter", cls="paired",
              shape=(N, 1), cfg=config_from_jax(PAIRED), zeta=paired_zeta),
+        dict(name="multigrid inversion", kind="mg_inverter", shape=(2, 4),
+             cfg=config_from_jax(GENERIC), zeta=_generic_zeta(), cycles=10),
     ]
     return ranks.spawn(N, tmp_path_factory.mktemp("dryrun8"), cases)
 
@@ -130,3 +137,10 @@ def test_dryrun_inversions(results, name, cfg, zeta):
     scale = np.abs(psi64).max()
     err, err_tpu = (np.abs(a - psi64).max() / scale for a in (got, tpu))
     assert err <= 2.0 * err_tpu, (name, err, err_tpu)
+
+
+def test_dryrun_multigrid_inversion(results):
+    """The dry run's multigrid check (__graft_entry__.py:196-210)."""
+    zeta = jax.numpy.asarray(_generic_zeta())
+    want = _invert_psi(GENERIC, _build_solvers(GENERIC), zeta)
+    _close(results["multigrid inversion"], want, 1e-5, "multigrid psi")

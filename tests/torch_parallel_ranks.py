@@ -171,5 +171,164 @@ def run_model_case(case, workdir):
     return result
 
 
+def _block(mesh, a):
+    """This rank's (K, m, p) block of a (K, M, P) array, as a tensor."""
+    a = torch.as_tensor(a)
+    nx, ny = mesh.shape
+    m, p = a.shape[-2] // nx, a.shape[-1] // ny
+    return a[:, mesh.ix * m:(mesh.ix + 1) * m,
+             mesh.iy * p:(mesh.iy + 1) * p].contiguous()
+
+
+def mg_solver(case, workdir):
+    """DistributedMultigridSolver on a (K, M, P) right-hand side; the
+    answer gathered."""
+    from tpu_qg_torch.parallel.collectives import all_gather_blocks
+    from tpu_qg_torch.parallel.multigrid import DistributedMultigridSolver
+    mesh = _mesh(case)
+    f = case["rhs"]
+    solve = DistributedMultigridSolver(f.shape[1], f.shape[2], case["dx"],
+                                       case["alphas"], mesh,
+                                       n_cycles=case["cycles"])
+    return all_gather_blocks(solve(_block(mesh, f)), mesh).numpy()
+
+
+def mg_inverter(case, workdir):
+    """DistributedMultigridInverter on zeta's blocks, cold, or seeded with
+    ``psi_prev``'s blocks; psi gathered."""
+    from tpu_qg_torch.parallel.collectives import all_gather_blocks
+    from tpu_qg_torch.parallel.multigrid import DistributedMultigridInverter
+    mesh = _mesh(case)
+    cfg = case["cfg"]
+    inv = DistributedMultigridInverter(
+        cfg.M, cfg.P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
+        cfg.back_projection_matrix(), mesh, n_cycles=case["cycles"])
+    prev = case.get("psi_prev")
+    psi = inv(_block(mesh, case["zeta"]),
+              psi_prev=None if prev is None else _block(mesh, prev))
+    return all_gather_blocks(psi, mesh).numpy()
+
+
+def mg_extrapolated(case, workdir):
+    """make_halo_run_fn under mg_extrapolate: ``steps`` steps in one call;
+    the same steps cut into two calls (``split``), the second from the
+    state the first returned; and the second call from a copy of that
+    state (the plain seed). Each gathered, with the route."""
+    from tpu_qg_torch.models.core import init_state
+    from tpu_qg_torch.parallel import (gather_state, make_halo_run_fn,
+                                       shard_state)
+    mesh = _mesh(case)
+    cfg = case["cfg"]
+    a, steps = case["split"], case["steps"]
+
+    def start():
+        return shard_state(init_state(cfg, "cpu", psi_init=case["psi0"]),
+                           mesh)
+
+    run = make_halo_run_fn(cfg, mesh)
+    whole = run(start(), steps)
+    run = make_halo_run_fn(cfg, mesh)
+    first = run(start(), a)
+    copy = first._replace(psi=first.psi.clone())
+    split = run(first, steps - a)
+    restarted = make_halo_run_fn(cfg, mesh)(copy, steps - a)
+    return {"route": run.route,
+            **{k: _numpy(gather_state(v, mesh)) for k, v in (
+                ("whole", whole), ("split", split),
+                ("restarted", restarted))}}
+
+
+def _count_loads():
+    """A patch of numpy.load inside tpu_qg_torch.io that records the names
+    of the files it opens."""
+    from unittest import mock
+
+    import tpu_qg_torch.io as tio
+    seen = []
+    real = np.load
+
+    def load(path, *args, **kwargs):
+        seen.append(os.path.basename(str(path)))
+        return real(path, *args, **kwargs)
+
+    return mock.patch.object(tio.np, "load", load), seen
+
+
+def io_sharded(case, workdir):
+    """On each mesh of ``shapes``: this rank's blocks of ``state`` written
+    as a checkpoint and a snapshot shard set (the port's writer) under
+    ``workdir/name/shape``, read back with load_checkpoint_sharded on the
+    same mesh (the files it opens recorded), then tpu_qg's 8-device shard
+    set in ``jax_dir`` read with load_checkpoint_sharded. Returns, by
+    shape, every rank's largest difference from the expected block, and
+    rank 0's opened files."""
+    from tpu_qg_torch.io import RunReader, RunWriter
+    from tpu_qg_torch.models.core import State
+    from tpu_qg_torch.parallel import make_mesh, shard_state
+    from tpu_qg_torch.parallel.collectives import all_gather_scalars
+    cfg = case["cfg"]
+    full = State(*(torch.as_tensor(case["state"][k])
+                   for k in ("zeta", "psi", "f1", "f2")),
+                 case["state"]["step"])
+    jax_full = {k: torch.as_tensor(v) for k, v in case["jax_state"].items()}
+    out = {}
+    for shape in case["shapes"]:
+        mesh = make_mesh(shape, device="cpu")
+        run_dir = os.path.join(workdir, case["name"], "x".join(map(str,
+                                                                   shape)))
+        mine = shard_state(full, mesh)
+        writer = RunWriter(run_dir, cfg, write_metadata=mesh.rank == 0)
+        writer.write_checkpoint_sharded(mine, mesh)
+        writer.write_snapshot_sharded(mine.step, mine.zeta, mine.psi, mesh)
+        dist.barrier()
+        patch, seen = _count_loads()
+        with patch:
+            back = RunReader(run_dir).load_checkpoint_sharded(mesh)
+        jax_back = RunReader(case["jax_dir"]).load_checkpoint_sharded(mesh)
+        want_jax = shard_state(full._replace(**{
+            k: jax_full[k] for k in ("zeta", "psi", "f1", "f2")}), mesh)
+        diff = torch.tensor([
+            max(float((getattr(back, k) - getattr(mine, k)).abs().max()),
+                float((getattr(jax_back, k)
+                       - getattr(want_jax, k)).abs().max()))
+            for k in ("zeta", "psi", "f1", "f2")]
+            + [float(back.step != mine.step),
+               float(jax_back.step != case["jax_step"])], dtype=torch.float64)
+        out[shape] = {"run_dir": run_dir, "opened": seen,
+                      "diff": all_gather_scalars(diff, mesh).numpy()}
+        dist.barrier()
+    return out
+
+
+def io_resume(case, workdir):
+    """run_model on the mesh with shard-file checkpoints every 2 steps to
+    ``steps``, a resume to ``steps + 2``, and an uninterrupted run of
+    ``steps + 2``; both final states gathered, and rank 0's listing of the
+    run directory."""
+    from tpu_qg_torch.models.core import init_state
+    from tpu_qg_torch.parallel import gather_state
+    from tpu_qg_torch.run import run_model
+    mesh = _mesh(case)
+    cfg = case["cfg"]
+    run_dir = os.path.join(workdir, case["name"])
+    state0 = init_state(cfg, "cpu", psi_init=case["psi0"])
+    run_model(cfg, run_dir=run_dir, n_steps=case["steps"], checkpoint_every=2,
+              verbose=False, state=state0, mesh=mesh, sample_interval=cfg.dt,
+              checkpoint_mode="sharded")
+    resumed = run_model(cfg, run_dir=run_dir, n_steps=case["steps"] + 2,
+                        resume=True, verbose=False, mesh=mesh,
+                        sample_interval=cfg.dt, checkpoint_mode="sharded")
+    whole = run_model(cfg, save_results=False, n_steps=case["steps"] + 2,
+                      verbose=False, state=state0, mesh=mesh)
+    result = {"resumed": _numpy(gather_state(resumed, mesh)),
+              "whole": _numpy(gather_state(whole, mesh))}
+    dist.barrier()
+    result["files"] = sorted(os.listdir(run_dir))
+    return result
+
+
 RUNNERS = {"run": run_steps, "halo": halo, "solver": solver,
-           "inverter": inverter, "run_model": run_model_case}
+           "inverter": inverter, "run_model": run_model_case,
+           "mg_solver": mg_solver, "mg_inverter": mg_inverter,
+           "mg_extrapolated": mg_extrapolated, "io_sharded": io_sharded,
+           "io_resume": io_resume}

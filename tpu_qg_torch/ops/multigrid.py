@@ -100,6 +100,17 @@ def restrict_full_weighting(r: torch.Tensor,
     return w[..., ::2, ::2]
 
 
+def restrict_full_weighting_padded(r_pad: torch.Tensor) -> torch.Tensor:
+    """Full-weighting restriction of a 1-halo-padded (..., m+2, p+2) block
+    (the sharded form, ``tpu_qg/ops/multigrid.py:155-164``): the row filter
+    over the whole padded column extent, so that the column filter sees its
+    y-halo, then the column filter, then the even-index subsample."""
+    cy = r_pad[..., 1:-1, :]
+    wxy = 0.25 * (r_pad[..., 2:, :] + r_pad[..., :-2, :]) + 0.5 * cy
+    w = 0.25 * (wxy[..., 2:] + wxy[..., :-2]) + 0.5 * wxy[..., 1:-1]
+    return w[..., ::2, ::2]
+
+
 def prolong_bilinear(uc: torch.Tensor, shift=roll_shift) -> torch.Tensor:
     """Bilinear prolongation to the double-resolution grid (the transpose of
     full weighting up to the standard factor): columns (centre, average

@@ -1,8 +1,9 @@
 """The mesh's collectives, all on one primitive, ``dist.all_to_all_single``.
 
 Counterparts of ``lax.ppermute`` (a ring shift), ``lax.all_to_all`` with
-``tiled=True``, and an all-gather of row/column blocks; ``lax.axis_index``
-and ``lax.axis_size`` are the ``Mesh``'s coordinates and shape. Both
+``tiled=True``, an all-gather of row/column blocks and ``lax.psum`` (a sum
+of the gathered values); ``lax.axis_index`` and ``lax.axis_size`` are the
+``Mesh``'s coordinates and shape. Both
 backends take ``all_to_all_single`` for their tensors (NCCL for CUDA ones;
 gloo for CPU ones, and for CUDA ones through the host), so one code path
 serves a mesh of cards and ranks that share one card or the CPU:
@@ -126,3 +127,13 @@ def all_gather_scalars(values: torch.Tensor, mesh) -> torch.Tensor:
     recv = torch.empty_like(send)
     _exchange(send, recv, mesh.group, None, None, lambda: recv, False)
     return recv
+
+
+def all_reduce_sum(values: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of every rank's ``values`` over ``mesh`` (``lax.psum`` over
+    both axes), the same bits on every rank: each rank gathers every rank's
+    values and adds them in rank order."""
+    if mesh.size == 1:
+        return values
+    return all_gather_scalars(values.reshape(-1), mesh).sum(0).reshape(
+        values.shape)

@@ -20,6 +20,11 @@ Routes (``step.route``), as ``tpu_qg`` takes them:
     ``DistributedPackedInverter2D`` (K13);
   * "generic": torch stencils on halo-padded tiles (blocking, or the
     interior overlapped with the exchanges) and ``DistributedHelmholtzSolver``;
+  * "generic-mg" (``elliptic_impl="multigrid"``, which the fused gates
+    refuse): the generic tendencies and the distributed multigrid
+    (``parallel/multigrid.py``), warm-started from the previous psi, or
+    under ``mg_extrapolate`` in ``make_halo_run_fn`` from 2 psi_n -
+    psi_{n-1};
   * "chain" (``make_halo_run_fn`` with ``step_chain="on"``): psi rides as
     its y-spectrum between steps; one step is K15's sharded form, then the
     inversion's x-stage.
@@ -33,8 +38,11 @@ Deliberate deviation: the TPU kernels exchange 8-row slabs (their sublane
 alignment, ``_H``); the stencil reads 2 rows of psi and 1 of zeta, and this
 stepper exchanges 2 rows. That changes the traffic, not the values.
 
-The multigrid inversion (``elliptic_impl="multigrid"``, ``mg_seed``) is
-not ported yet (ROADMAP.md queue 1, item 2: the distributed multigrid).
+Deliberate deviation: ``tpu_qg``'s extrapolated run seeds the first step of
+every call with psi itself (it passes a copy of psi as psi_{n-1},
+``tpu_qg/parallel/stepper.py:597-623``), so its trajectory depends on how a
+run is cut into calls. The run function here carries psi_{n-1} from one
+call to the next: ``run(run(s, a), b)`` equals ``run(s, a + b)``.
 """
 
 from __future__ import annotations
@@ -53,14 +61,12 @@ from .collectives import ring_shift
 from .distributed_fft import DistributedHelmholtzSolver
 from .halo import HaloExchange, exchange_halo, make_padded_shift
 from .mesh import Mesh
+from .multigrid import (DistributedMultigridInverter,
+                        DistributedMultigridSolver)
 from .packed import (DistributedPackedInverter, DistributedPackedInverter2D,
                      distributed_packed_2d_supported,
                      distributed_packed_supported)
 from .paired import PairedDistributedInverter, paired_supported
-
-_MULTIGRID = ("the distributed multigrid inversion (elliptic_impl="
-              "'multigrid', mg_seed) is not ported yet (ROADMAP.md queue 1, "
-              "item 2: the distributed multigrid)")
 
 
 def _tend_window(cfg: ModelConfig, zeta_w: torch.Tensor, psi_w: torch.Tensor,
@@ -272,20 +278,40 @@ def _make_fused_local_step_2d(cfg: ModelConfig, mesh: Mesh):
 
 
 def _make_generic_local_step(cfg: ModelConfig, mesh: Mesh, overlap: bool):
-    """Torch stencils on halo-padded tiles and the transposed-FFT solve."""
+    """Torch stencils on halo-padded tiles and the transposed-FFT solve, or
+    under ``elliptic_impl="multigrid"`` the distributed multigrid: the
+    solver for one layer, the inverter for two
+    (tpu_qg/parallel/stepper.py:403-418), seeded with ``seed`` or else the
+    state's psi. The step is ``step(state, seed=None)``."""
     tendencies = (_local_tendencies_overlapped if overlap
                   else _local_tendencies)
-    alphas = (0.0,) if cfg.n_layers == 1 else (0.0, cfg.S_eig)
-    solver = DistributedHelmholtzSolver(cfg.M, cfg.P, cfg.dx, alphas, mesh)
+    mg_solver = mg_inv = solver = None
+    if cfg.elliptic_impl == "multigrid":
+        if cfg.n_layers == 1:
+            mg_solver = DistributedMultigridSolver(
+                cfg.M, cfg.P, cfg.dx, (0.0,), mesh, n_cycles=cfg.mg_cycles)
+        else:
+            mg_inv = DistributedMultigridInverter(
+                cfg.M, cfg.P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
+                cfg.back_projection_matrix(), mesh, n_cycles=cfg.mg_cycles)
+    else:
+        alphas = (0.0,) if cfg.n_layers == 1 else (0.0, cfg.S_eig)
+        solver = DistributedHelmholtzSolver(cfg.M, cfg.P, cfg.dx, alphas,
+                                            mesh)
     if cfg.n_layers == 2:
         (pi11, pi12), (pi21, pi22) = cfg.P_inv_matrix()
         (b11, b12), (b21, b22) = cfg.back_projection_matrix()
 
-    def step(state: State) -> State:
+    def step(state: State, seed=None) -> State:
         tend = tendencies(cfg, state.zeta, state.psi, mesh)
         zeta_new, carry = update_plain(cfg, state.step, tend, state.zeta,
                                        state.f1, state.f2)
-        if cfg.n_layers == 1:
+        seed = state.psi if seed is None else seed
+        if mg_inv is not None:
+            psi_new = mg_inv(zeta_new, psi_prev=seed)
+        elif mg_solver is not None:
+            psi_new = mg_solver(zeta_new, x0=seed)
+        elif cfg.n_layers == 1:
             psi_new = solver(zeta_new)
         else:
             modes = torch.stack([pi11 * zeta_new[0] + pi12 * zeta_new[1],
@@ -302,9 +328,14 @@ def make_halo_step_fn(cfg: ModelConfig, mesh: Mesh, overlap: bool = True,
                       fused="auto", mg_seed: bool = False):
     """The sharded step ``state -> state`` on this rank's blocks (see the
     module docstring for the routes; ``step.route`` names the one taken).
-    ``overlap`` selects the generic route's overlapped tendencies."""
-    if mg_seed or cfg.elliptic_impl == "multigrid":
-        raise NotImplementedError(_MULTIGRID)
+    ``overlap`` selects the generic routes' overlapped tendencies.
+    ``mg_seed=True`` returns the multigrid route's two-argument form
+    ``step(state, seed)``, the caller giving the V-cycles' seed
+    (tpu_qg/parallel/stepper.py:474-482); it needs
+    ``elliptic_impl="multigrid"``."""
+    multigrid = cfg.elliptic_impl == "multigrid"
+    if mg_seed and not multigrid:
+        raise ValueError("mg_seed=True requires elliptic_impl='multigrid'")
     nx, ny = mesh.shape
     if cfg.M % nx or cfg.P % ny:
         raise ValueError(f"grid ({cfg.M}, {cfg.P}) does not divide over "
@@ -323,8 +354,13 @@ def make_halo_step_fn(cfg: ModelConfig, mesh: Mesh, overlap: bool = True,
         step = _make_fused_local_step(cfg, mesh)
         step.route = "fused"
     else:
-        step = _make_generic_local_step(cfg, mesh, overlap)
-        step.route = "generic"
+        generic = _make_generic_local_step(cfg, mesh, overlap)
+        if mg_seed:
+            step = generic
+        else:
+            def step(state: State) -> State:
+                return generic(state)
+        step.route = "generic-mg" if multigrid else "generic"
     return step
 
 
@@ -360,14 +396,48 @@ def make_halo_chain_fns(cfg: ModelConfig, mesh: Mesh):
     return to_internal, step, to_external
 
 
+def _same_state(state: State, ref) -> bool:
+    """Whether ``state`` is the State ``ref`` holds, with no field changed in
+    place since (``ref``: the state and its fields' version counters)."""
+    if ref is None or state is not ref[0]:
+        return False
+    return all(getattr(state, f)._version == v
+               for f, v in zip(("zeta", "psi", "f1", "f2"), ref[1]))
+
+
+def _extrapolated_run(step2):
+    """``run(state, n)`` seeding each V-cycle solve with 2 psi_n - psi_{n-1}
+    (tpu_qg/parallel/stepper.py:597-623): the solve's lag error follows
+    the seed's, and the O(dt^2) curvature is ~10x smaller than the O(dt)
+    step change. psi_{n-1} is carried across calls: a call from the state
+    the previous call returned continues with it; any other state (fresh,
+    resumed, replaced or changed in place) starts with the plain seed psi_n,
+    as ``tpu_qg``'s first step of a call does."""
+    carried = {"ref": None, "prev": None}
+
+    def run(state: State, n: int) -> State:
+        prev = (carried["prev"] if _same_state(state, carried["ref"])
+                else None)
+        for _ in range(n):
+            seed = state.psi if prev is None else 2.0 * state.psi - prev
+            prev, state = state.psi, step2(state, seed)
+        carried["prev"] = prev
+        carried["ref"] = (state, tuple(getattr(state, f)._version for f in
+                                       ("zeta", "psi", "f1", "f2")))
+        return state
+
+    return run
+
+
 def make_halo_run_fn(cfg: ModelConfig, mesh: Mesh, overlap: bool = True,
                      fused="auto", chain=None):
     """``run(state, n) -> state``: n sharded steps in a host loop.
     ``chain=None`` takes the chain where ``step_chain="on"``, the fused
     route resolves on and the chain engages; True/False force the choice.
     The chain converts psi to its internal form once per call and back at
-    the end, so states outside it always hold natural psi. ``run.route``
-    names the route."""
+    the end, so states outside it always hold natural psi. The multigrid
+    route under ``mg_extrapolate`` seeds each solve with 2 psi_n - psi_{n-1}
+    (``_extrapolated_run``). ``run.route`` names the route."""
     want_chain = cfg.step_chain == "on" if chain is None else bool(chain)
     if want_chain and _resolve_fused(cfg, mesh, fused):
         fns = make_halo_chain_fns(cfg, mesh)
@@ -382,6 +452,12 @@ def make_halo_run_fn(cfg: ModelConfig, mesh: Mesh, overlap: bool = True,
 
             run_chain.route = "chain"
             return run_chain
+    if cfg.elliptic_impl == "multigrid" and cfg.mg_extrapolate:
+        step2 = make_halo_step_fn(cfg, mesh, overlap=overlap, fused=fused,
+                                  mg_seed=True)
+        run = _extrapolated_run(step2)
+        run.route = step2.route
+        return run
     step = make_halo_step_fn(cfg, mesh, overlap=overlap, fused=fused)
 
     def run(state: State, n: int) -> State:

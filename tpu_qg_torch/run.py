@@ -13,13 +13,18 @@ is present instead of running on the CPU; ``--device cpu`` is the CPU route.
 
 With ``mesh`` (``--mesh nx,ny`` under ``torchrun``, one rank per mesh
 point) the grid is domain-decomposed over the ranks by the halo stepper
-(``tpu_qg_torch.parallel``); every rank runs this driver, and rank 0 writes
-snapshots and checkpoints gathered from every rank (``tpu_qg``'s
-"gathered" mode; the sharded files and ``parallel_impl="gspmd"`` are not
-ported):
+(``tpu_qg_torch.parallel``); every rank runs this driver. Snapshots and
+checkpoints are written as ``tpu_qg`` writes them (``--checkpoint-mode``):
+"gathered" through rank 0 as whole fields, "sharded" as shard files, each
+rank its own blocks, and "auto" sharded on a mesh at 2048^2 or more,
+else gathered. A mesh resumes from a shard set by loading each rank's own
+blocks. (``parallel_impl="gspmd"`` is not ported.)
 
     python3 -m torch.distributed.run --nproc-per-node 1 -m tpu_qg_torch.run \
         --preset pod-8192 --mesh 1,1 --steps 20 --no-save
+    python3 -m torch.distributed.run --nproc-per-node 1 -m tpu_qg_torch.run \
+        --preset pod-8192-mg --mesh 1,1 --steps 20 --run-dir RUN \
+        --checkpoint-every 10      # multigrid, shard files under "auto"
     python3 -m torch.distributed.run --nproc-per-node 4 -m tpu_qg_torch.run \
         --preset turbulence-2048 --mesh 4,1 --backend gloo --device cuda:0 \
         --steps 10 --no-save     # four ranks sharing one card (gloo)
@@ -29,7 +34,7 @@ The opt-in one-launch forms run where pinned: add ``--set fft_mono=on``,
 
 On one device ``elliptic_impl`` does not change the route (``pod-8192-mg``
 runs the spectral inversion, as in ``tpu_qg``): it selects the sharded
-stepper's elliptic solver only.
+stepper's elliptic solver, the distributed multigrid on a mesh.
 """
 
 from __future__ import annotations
@@ -52,7 +57,6 @@ from .parallel import gather_state, make_halo_run_fn, make_mesh, shard_state
 from .parallel.collectives import all_gather_scalars
 from .utils.diagnostics import diagnostics, sharded_diagnostics
 
-_SHARDED_IO = "not ported yet (ROADMAP.md queue 1, item 3: sharded I/O)"
 _GSPMD = "not ported yet (ROADMAP.md queue 1, item 6: parallel/gspmd.py)"
 
 
@@ -98,11 +102,12 @@ def run_model(
 
     On a mesh, ``state`` (if given) is the full state, and the result is
     this rank's blocks of the final state (``parallel.gather_state`` joins
-    them); ``checkpoint_mode`` "auto" and "gathered" write through rank 0
-    (one device: one file); "sharded" is not ported and raises."""
-    if checkpoint_mode == "sharded":
-        raise NotImplementedError(f"checkpoint_mode='sharded' is {_SHARDED_IO}")
-    if checkpoint_mode not in ("auto", "gathered"):
+    them). ``checkpoint_mode``: "gathered" writes whole fields through
+    rank 0; "sharded" writes shard files, each rank its own blocks (one
+    file on one device); "auto" is sharded on a mesh at M * P >= 2048^2,
+    else gathered (tpu_qg/run.py:122-124). A resume on a mesh from a shard
+    set loads each rank's own blocks."""
+    if checkpoint_mode not in ("auto", "gathered", "sharded"):
         raise ValueError(f"unknown checkpoint_mode {checkpoint_mode!r}")
     if mesh is None:
         device = resolve_device(device)
@@ -117,6 +122,9 @@ def run_model(
     verbose = verbose and primary
     if verbose:
         log_model_params(cfg)
+    sharded_io = checkpoint_mode == "sharded" or (
+        checkpoint_mode == "auto" and mesh is not None
+        and cfg.M * cfg.P >= 2048 * 2048)
 
     total = cfg.total_steps if n_steps is None else n_steps
     sample_steps = max(int(sample_interval // cfg.dt), 1)
@@ -128,26 +136,47 @@ def run_model(
         where = f"mesh {mesh.shape} ({advance.route}, {mesh.backend})"
 
     writer = None
+    sharded_state = False
     if save_results:
         if run_dir is None:
             raise ValueError("save_results=True requires run_dir")
         if resume:
-            state = RunReader(run_dir).load_checkpoint(device=device)
+            reader = RunReader(run_dir)
+            steps = reader.checkpoint_steps()
+            if (mesh is not None and steps
+                    and reader.shard_files("checkpoint", steps[-1])):
+                state = reader.load_checkpoint_sharded(mesh)
+                sharded_state = True
+            else:
+                state = reader.load_checkpoint(device=device)
             if verbose:
                 print(f"Resumed from step {state.step}")
-        if primary:
-            writer = RunWriter(run_dir, cfg, sample_interval)
+        if primary or sharded_io:
+            writer = RunWriter(run_dir, cfg, sample_interval,
+                               write_metadata=primary)
 
     if state is None:
         state = init_state(cfg, device)
-        if writer is not None:
+        if writer is not None and primary:
             writer.write_snapshot(0, state.zeta, state.psi)
-    if mesh is not None:
+    if mesh is not None and not sharded_state:
         state = shard_state(state, mesh)
 
+    def barrier() -> None:
+        """Every rank returns once every rank's files are in place."""
+        if mesh is not None:
+            all_gather_scalars(torch.zeros(1, device=device), mesh)
+
     def save(s: State, snapshot: bool) -> None:
-        """Write a snapshot or checkpoint; on a mesh, gathered and written
-        through rank 0, every rank returning once the file is in place."""
+        """Write a snapshot or checkpoint: each rank's shard file, or on a
+        mesh the fields gathered and written through rank 0."""
+        if sharded_io:
+            if snapshot:
+                writer.write_snapshot_sharded(s.step, s.zeta, s.psi, mesh)
+            else:
+                writer.write_checkpoint_sharded(s, mesh)
+            barrier()
+            return
         full = s
         if mesh is not None:
             full = gather_state(s, mesh, ("zeta", "psi") if snapshot
@@ -157,8 +186,7 @@ def run_model(
                 writer.write_snapshot(s.step, full.zeta, full.psi)
             else:
                 writer.write_checkpoint(full)
-        if mesh is not None:
-            all_gather_scalars(torch.zeros(1, device=device), mesh)
+        barrier()
 
     start_step = state.step
     if verbose:
@@ -240,8 +268,9 @@ def main(argv=None) -> None:
                         help="sharded implementation (gspmd is not ported)")
     parser.add_argument("--checkpoint-mode", default="auto",
                         choices=["auto", "gathered", "sharded"],
-                        help="mesh runs: gathered through rank 0 (auto); "
-                             "sharded is not ported")
+                        help="gathered: whole fields through rank 0; "
+                             "sharded: a shard file a rank; auto: sharded "
+                             "on a mesh at 2048^2 or more")
     args = parser.parse_args(argv)
 
     cfg = parse_overrides(preset(args.preset), args.set)
