@@ -151,7 +151,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    K2 launch by the mixed-radix kernel, "K2 mixed" = K2, every K3 launch by
    its mixed cluster kernel, "K3 mixed" = K3)
    and at 3072^2 (50: K1, K2, K4, K5; the same, every K4 and K5 launch by
-   its mixed cluster kernel, "K4 mixed" = K4, "K5 mixed" = K5).
+   its mixed cluster kernel, "K4 mixed" = K4, "K5 mixed" = K5);
+   turbulence-2048 with fft_impl="matmul" (100: K1, every other count 0:
+   the inversion is the matmul-factorized DFT on torch.matmul).
    Then, with the counts set to 0 again each time, two
    multigrid paths: 20 warm-started MultigridModalInverter calls on the zeta
    one default step after the pod-8192 slice (pod-8192-mg: 2 cycles a call,
@@ -257,6 +259,24 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    launch of each K18 variant (the row kernel) beside K1 and each body's
    tile kernel in turns, host-launched and graph-replayed, each beside its
    plain version, and the lab path's own ms per step.
+6. accuracy — the float64 checks (tpu_qg_torch.scripts and
+   tpu_qg_torch.validation) on the card, one line each; a failed gate
+   fails the script after every line is printed. At 2048^2 and 8192^2
+   (the checks' configuration, Lx = Ly = 4000 km, float32): one packed
+   inversion of a seeded zeta under the torch_fft, matmul and kernels tiers
+   against the float64 inversion (inv_f64_check: matmul and kernels within
+   2x torch_fft's error), the matmul inversion again with
+   torch.backends.cuda.matmul.allow_tf32 = True (bitwise the same; beside
+   it whether TF32 moves a plain complex64 matmul), ms per inversion of
+   each tier in turns, and ms per step of the default route (the kernels),
+   use_pallas with fft_impl="matmul" (K1 and the matmul inversion) and the
+   plain route (torch.fft), in turns (time_routes); step_f64_check (10
+   steps under each tier against float64, each within 2x torch_fft's
+   error). allclose at 256^2, 500 steps, float64 on the card against the
+   float64 NumPy twin on the host: rel_err below 1e-5 on zeta and psi.
+   accuracy_drift at 2048^2, 1000 steps in chunks of 100, the kernels tier
+   against the torch_fft tier: the largest relative energy and enstrophy
+   differences and the final spectra's, printed, not gated.
 
 The line before the last is {"kernels": [...]}, every kernel with its
 launches in phase 4 (K2 mixed a row of its own, at (2, 2432, 2432), its
@@ -361,14 +381,19 @@ from tpu_qg_torch.parallel import (gather_state, make_halo_run_fn, make_mesh,
 from tpu_qg_torch.parallel.multigrid import DistributedMultigridInverter
 from tpu_qg_torch.parallel.paired import strip_pair_order
 from tpu_qg_torch.run import run_model
-from tpu_qg_torch.scripts import stencil_lab
+from tpu_qg_torch.scripts import (accuracy_drift, inv_f64_check,
+                                  stencil_lab, step_f64_check)
 from tpu_qg_torch.utils.diagnostics import diagnostics
+from tpu_qg_torch.validation import allclose
 
 SEED = 1234
 # turbulence-2048's configuration on two grids whose extents are mixed (128
 # n, n not a power of two): 1536^2 (n = 12) takes the three-pass inversion,
 # 3072^2 (n = 24) the four-pass one.
 MIXED_PATHS = ("turbulence-2048 at 1536^2", "turbulence-2048 at 3072^2")
+# Phase 6's allclose (grid, steps) and drift (grid, steps, chunk).
+ACCURACY = dict(allclose_M=256, allclose_steps=500, drift_M=2048,
+                drift_steps=1000, drift_chunk=100)
 # Relative to max|plain|: the 1/lambda symbol amplifies low-k float32
 # rounding in K3/K5/K16 and K17's psi; K15's zeta_ys is a y-DFT (K2's
 # gate); the slices' zeta after many steps on two routes.
@@ -3827,6 +3852,100 @@ def time_routes(cfgs: dict, dev, steps) -> tuple[dict, object, dict]:
             state0, models)
 
 
+def inversions_vs_float64(n: int, dev, reps: int) -> dict:
+    """inv_f64_check's inversion at n^2 on the card, each float32 tier's
+    error against float64; the matmul tier again with TF32 allowed; ms per
+    inversion of each tier in turns (in order, then in reverse)."""
+    cfg = inv_f64_check.check_config(n, n)
+    zeta = init_state(cfg, dev, seed=inv_f64_check.SEED).zeta
+    tiers = inv_f64_check.inverters(cfg)
+    errs = inv_f64_check.errors_vs_float64(tiers, zeta)
+    free_memory()
+    psi_mm = tiers["matmul"](zeta)
+    w = torch.complex(zeta[0, :1024, :1024], zeta[1, :1024, :1024])
+    probe = w @ w
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        psi_tf32 = tiers["matmul"](zeta)
+        probe_tf32 = w @ w
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    names = list(tiers)
+    runs = {k: [] for k in names}
+    for k in names + names[::-1]:
+        runs[k].append(time_ms(lambda inv=tiers[k]: inv(zeta), reps))
+    return {"err_vs_f64": errs,
+            "matmul_tf32_bitwise": torch.equal(psi_mm, psi_tf32),
+            "tf32_moves_a_plain_complex64_matmul":
+            not torch.equal(probe, probe_tf32),
+            "inversion_ms": {k: sum(v) / len(v) for k, v in runs.items()},
+            "inversion_runs_ms": runs}
+
+
+def phase_accuracy(dev, card: str, turb, pod) -> None:
+    """Phase 6 (see the module docstring): the float64 accuracy checks and
+    the matmul tier's times, on turb's and pod's grids (2048^2, 8192^2).
+    Raises after every line if a gate failed."""
+    failed = []
+    plain = dict(fft_impl="xla", use_pallas=False)
+    for name, cfg, steps, reps in (("turbulence-2048", turb, 100, 50),
+                                   ("pod-8192", pod, 20, 10)):
+        n = cfg.M
+        inv = inversions_vs_float64(n, dev, reps)
+        free_memory()
+        routes, _, _ = time_routes(
+            {"default": cfg, "matmul": cfg.replace(fft_impl="matmul"),
+             "plain": cfg.replace(**plain)}, dev, steps)
+        free_memory()
+        step = step_f64_check.step_f64_check(n, n, dev)
+        free_memory()
+        errs = inv["err_vs_f64"]
+        limit = 2.0 * errs["torch_fft"]
+        emit("accuracy", card=card, check="inversion and steps vs float64",
+             grid=[n, n], **inv, inversion_limit=limit,
+             rule="each tier within 2 x torch_fft's error vs float64",
+             step_preset=name, step_ms=routes["step_ms"],
+             step_ms_runs=routes["step_ms_runs"],
+             step_routes=routes["routes"], step_f64_check=step)
+        for tier in ("matmul", "kernels"):
+            if not errs[tier] <= limit:
+                failed.append(f"{n}^2 {tier} inversion error {errs[tier]} "
+                              f"> 2 x torch_fft's {errs['torch_fft']}")
+        if not inv["matmul_tf32_bitwise"]:
+            failed.append(f"{n}^2 matmul inversion moved with TF32 allowed")
+        if not step["passed"]:
+            failed.append(f"{n}^2 step_f64_check: {step['tier_passed']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "allclose.json")
+        rc = allclose.main(["--device", str(dev), "--M",
+                            str(ACCURACY["allclose_M"]), "--steps",
+                            str(ACCURACY["allclose_steps"]), "--check-every",
+                            str(ACCURACY["allclose_steps"]), "--out", out])
+        with open(out) as f:
+            verdict = json.load(f)
+    emit("accuracy", card=card, check="allclose vs the float64 twin",
+         rc=rc, **verdict)
+    if rc != 0:
+        failed.append(f"allclose: {verdict}")
+    M, steps, chunk = (ACCURACY[k] for k in ("drift_M", "drift_steps",
+                                              "drift_chunk"))
+    drift = accuracy_drift.accuracy_drift(M, steps, chunk,
+                                          ["torch_fft", "kernels"], dev)
+    spectra = [np.asarray(r["spectrum"]).sum(axis=0)
+               for r in drift["records"]]
+    emit("accuracy", card=card, check="drift of the kernels tier",
+         grid=[M, M], steps=steps, chunk=chunk,
+         vs_torch_fft=drift["vs_torch_fft"],
+         spectrum_rel_l2_diff=float(np.linalg.norm(spectra[1] - spectra[0])
+                                    / np.linalg.norm(spectra[0])),
+         series={r["tier"]: r["series"] for r in drift["records"]},
+         wall_s={r["tier"]: r["wall_s"] for r in drift["records"]})
+    free_memory()
+    if failed:
+        raise AssertionError("accuracy: " + "; ".join(failed))
+
+
 def time_kernels(calls: dict, reps: int, plain_reps: int) -> dict:
     """Per-kernel ms beside the plain version's, in turns."""
     out = {}
@@ -4316,6 +4435,9 @@ def main() -> None:
         (MIXED_PATHS[1], mixed_cfgs[MIXED_PATHS[1]], 50,
          {"K1": 50, "K1 rows": 50, "K2": 100, "K2 mixed": 100, "K4": 50,
           "K4 mixed": 50, "K5": 50, "K5 mixed": 50}, "default"),
+        # The matmul-DFT tier: K1, then the inversion on torch.matmul.
+        ("turbulence-2048 fft_impl=matmul", turb.replace(fft_impl="matmul"),
+         100, {"K1": 100, "K1 rows": 100}, "default"),
     )
     launches, finals = {}, {}
     for name, cfg, steps, expect, route in slices:
@@ -4588,9 +4710,10 @@ def main() -> None:
         "rows_ptxas": named_ptxas["tendency_rows_kernel"],
         "sweep": k9_sweep}
 
-    print(json.dumps({"kernels": kernel_rows(errs, launches, ms_2048,
-                                             ms_8192, extra, sharded_ms)}),
-          flush=True)
+    rows = kernel_rows(errs, launches, ms_2048, ms_8192, extra, sharded_ms)
+    free_memory()
+    phase_accuracy(dev, card, turb, pod)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -310,7 +310,15 @@ def test_import_pulls_in_no_jax():
             "tpu_qg_torch.ops.multigrid, tpu_qg_torch.ops.mg_kernels, "
             "tpu_qg_torch.parallel, tpu_qg_torch.parallel.stepper, "
             "tpu_qg_torch.ops._stencil_lab, "
-            "tpu_qg_torch.scripts.stencil_lab; "
+            "tpu_qg_torch.scripts.stencil_lab, "
+            "tpu_qg_torch.ops.operators, tpu_qg_torch.ops.boundary, "
+            "tpu_qg_torch.ops.matmul_fft, tpu_qg_torch.validation, "
+            "tpu_qg_torch.validation.twin, "
+            "tpu_qg_torch.validation.linear_theory, "
+            "tpu_qg_torch.validation.allclose, "
+            "tpu_qg_torch.scripts.inv_f64_check, "
+            "tpu_qg_torch.scripts.step_f64_check, "
+            "tpu_qg_torch.scripts.accuracy_drift; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'tpu_qg.')) or m == 'tpu_qg']; "
             "assert not bad, bad")
@@ -319,7 +327,7 @@ def test_import_pulls_in_no_jax():
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (dict(fft_impl="matmul"), "matmul"), (dict(fft_mxu="bf16x3"), "bf16x3"),
+    (dict(fft_mxu="bf16x3"), "bf16x3"),
 ])
 def test_unported_kernels_raise(overrides, match):
     cfg = tpu_qg_torch.preset("turbulence-2048").replace(M=256, P=256)

@@ -3,7 +3,8 @@ tpu_qg's single-device trajectory in float64 (1e-12 of the largest value,
 as tests/test_parallel.py holds tpu_qg's halo stepper): the blocking and
 overlapped steps on (2, 2), (4, 1) and (1, 4) meshes with wind, one layer,
 leapfrog; the halo exchange; DistributedHelmholtzSolver; run_model on a
-mesh with gathered checkpoints and resume. Then, with no process group:
+mesh with gathered checkpoints and resume; sharded_diagnostics on each
+mesh at 128^2 against diagnostics and tpu_qg's. Then, with no process group:
 the copied shape gates against tpu_qg's, and NCCL's shared-device check.
 
 All mesh cases run in one spawn of four ranks (tests/torch_parallel_ranks.py)."""
@@ -22,12 +23,15 @@ from tpu_qg.ops.spectral import HelmholtzSolver
 from tpu_qg.parallel import packed as j_packed
 from tpu_qg.parallel import paired as j_paired
 from tpu_qg.parallel import stepper as j_stepper
+from tpu_qg.utils.diagnostics import diagnostics as j_diagnostics
 from tpu_qg_torch.interop import config_from_jax
+from tpu_qg_torch.models.core import init_state as t_init_state
 from tpu_qg_torch.ops import spectral as t_spectral
 from tpu_qg_torch.parallel import mesh as t_mesh
 from tpu_qg_torch.parallel import packed as t_packed
 from tpu_qg_torch.parallel import paired as t_paired
 from tpu_qg_torch.parallel import stepper as t_stepper
+from tpu_qg_torch.utils.diagnostics import diagnostics as t_diagnostics
 
 import torch_parallel_ranks as ranks
 
@@ -78,6 +82,8 @@ STEP_CASES = {
 HALO_FIELD = np.random.default_rng(0).standard_normal((16, 16))
 SOLVER_RHS = np.random.default_rng(1).standard_normal((2, 64, 64))
 RUN_STEPS = 4
+DIAG = small_cfg(M=128, P=128)
+DIAG_STEP = 7
 
 
 @pytest.fixture(scope="module")
@@ -93,6 +99,10 @@ def results(tmp_path_factory):
         dict(name="run_model", kind="run_model", shape=(2, 2),
              cfg=config_from_jax(WIND), psi0=_psi0(WIND), steps=RUN_STEPS),
     ]
+    cases += [dict(name=f"diagnostics {nx}x{ny}", kind="sharded_diagnostics",
+                   shape=(nx, ny), cfg=config_from_jax(DIAG),
+                   psi0=_psi0(DIAG, seed=3), step=DIAG_STEP)
+              for nx, ny in MESHES]
     return ranks.spawn(4, tmp_path_factory.mktemp("mesh4"), cases)
 
 
@@ -146,6 +156,26 @@ def test_run_model_on_mesh_gathered_io(results):
     want = _reference(WIND, _psi0(WIND), steps)
     for f in ("zeta", "psi", "f1"):
         _close(got[f], want[f], TOL, f)
+
+
+@pytest.mark.parametrize("nx,ny", MESHES)
+def test_sharded_diagnostics_matches(results, nx, ny):
+    """sharded_diagnostics (what run_model logs at every sample on a mesh)
+    on each mesh's blocks against diagnostics of the whole state and
+    against tpu_qg's, 128^2 float64, 1e-12."""
+    got = results[f"diagnostics {nx}x{ny}"]
+    psi0 = _psi0(DIAG, seed=3)
+    whole = t_init_state(config_from_jax(DIAG), "cpu", psi_init=psi0)
+    ours = t_diagnostics(config_from_jax(DIAG),
+                         whole._replace(step=DIAG_STEP))
+    ref = j_diagnostics(
+        DIAG, j_init_state(DIAG, psi_init=psi0)._replace(step=DIAG_STEP))
+    assert set(got) == set(ours) == set(ref)
+    assert got["step"] == ours["step"] == ref["step"] == DIAG_STEP
+    for key in ref:
+        for want in (ours[key], ref[key]):
+            np.testing.assert_allclose(got[key], want, rtol=TOL, atol=0,
+                                       err_msg=f"{nx}x{ny} {key}")
 
 
 GATE_SHAPES = [(M, P) for M in (128, 256, 2048, 4096, 4352, 8192)

@@ -27,6 +27,14 @@ LAYOUTS = [(M, G, Cw) for M in (1024, 2048, 4096) for G in CLUSTER_SIZES
            for Cw in CLUSTER_WIDTHS if M // 128 >= G]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _field(M, P, seed):
     return torch.from_numpy(
         np.random.default_rng(seed).standard_normal((2, M, P)))

@@ -39,6 +39,14 @@ LAYOUTS = [(n2, G, Cw) for n2 in MIXED_N2 for G in CLUSTER_SIZES
            for Cw in CLUSTER_WIDTHS if x_dft_cluster_takes(128 * n2, G, Cw)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _field(M, P, seed, dtype=np.float64):
     return np.random.default_rng(seed).standard_normal((2, M, P)).astype(
         dtype)

@@ -25,6 +25,14 @@ from tpu_qg_torch.ops.dft_kernels import (SMEM_LIMIT, SM_SMEM, SMEM_RESERVED,
 POWERS = (256, 512, 1024, 2048, 4096, 8192)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _field(rows, P, seed, dtype=np.float64):
     return np.random.default_rng(seed).standard_normal((2, rows, P)).astype(
         dtype)

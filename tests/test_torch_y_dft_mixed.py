@@ -31,6 +31,14 @@ MIXED_N2 = (3, 5, 6, 7, 9, 12, 15, 19, 24, 48, 61, 63)
 FORMS = {"emulated": y_dft_factored_emulated, "plain": y_dft_factored_plain}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _field(rows, P, seed, dtype=np.float64):
     return np.random.default_rng(seed).standard_normal((2, rows, P)).astype(
         dtype)

@@ -171,6 +171,17 @@ def run_model_case(case, workdir):
     return result
 
 
+def sharded_diagnostics_case(case, workdir):
+    """sharded_diagnostics of a state held as the mesh's blocks."""
+    from tpu_qg_torch.models.core import init_state
+    from tpu_qg_torch.parallel import shard_state
+    from tpu_qg_torch.utils.diagnostics import sharded_diagnostics
+    mesh = _mesh(case)
+    cfg = case["cfg"]
+    state = shard_state(init_state(cfg, "cpu", psi_init=case["psi0"]), mesh)
+    return sharded_diagnostics(cfg, state._replace(step=case["step"]), mesh)
+
+
 def _block(mesh, a):
     """This rank's (K, m, p) block of a (K, M, P) array, as a tensor."""
     a = torch.as_tensor(a)
@@ -331,4 +342,5 @@ RUNNERS = {"run": run_steps, "halo": halo, "solver": solver,
            "inverter": inverter, "run_model": run_model_case,
            "mg_solver": mg_solver, "mg_inverter": mg_inverter,
            "mg_extrapolated": mg_extrapolated, "io_sharded": io_sharded,
-           "io_resume": io_resume}
+           "io_resume": io_resume,
+           "sharded_diagnostics": sharded_diagnostics_case}

@@ -27,8 +27,10 @@ the reference's route for the shape (``spectral.inversion_route``):
   * 4224 <= M <= 4480: K2 -> K4 -> torch symbol stage -> K4^-1 -> K2^-1.
 
 Elsewhere the plain torch route runs, where the reference takes XLA. A
-configuration on which the reference would run a kernel this package has
-not ported raises ``NotImplementedError`` naming it, instead of running
+pinned ``fft_impl="matmul"`` runs the matmul-factorized DFT
+(``PackedModalInverterMXU``) after K1 or the plain step; "auto" never picks
+it. A configuration on which the reference would run a kernel this package
+has not ported raises ``NotImplementedError`` naming it, instead of running
 something else.
 
 The opt-in one-launch forms take over where they are pinned "on" and the
@@ -65,8 +67,8 @@ from ..device import resolve_device
 from ..ops.dft_kernels import y_dft
 from ..ops.spectral import (BatchedModalSolver, HelmholtzSolver,
                             PackedModalInverter, PackedModalInverterKernels,
-                            reference_dft_kernels, reference_fullstep,
-                            reference_yfused)
+                            PackedModalInverterMXU, reference_dft_kernels,
+                            reference_fullstep, reference_yfused)
 from ..ops.step_kernel import (fused_pre_inversion, fused_step,
                                fused_step_full, fused_step_plain,
                                fused_step_yspec)
@@ -202,15 +204,13 @@ def use_step_kernel(cfg: ModelConfig) -> bool:
 
 def resolve_fft_impl(cfg: ModelConfig) -> str:
     """The packed inversion's transform tier: "kernels" (the DFT kernels, by
-    the route of ``spectral.inversion_route``) or "xla" (torch.fft, the
-    oracle tier). Raises NotImplementedError where the reference would run a
-    transform this package has not ported."""
-    if cfg.fft_impl == "matmul":
-        raise NotImplementedError(
-            "fft_impl='matmul' (the FactoredFFT einsum transforms) is not "
-            "ported yet")
-    if cfg.fft_impl == "xla":
-        return "xla"
+    the route of ``spectral.inversion_route``), "matmul" (the
+    matmul-factorized DFT, only where pinned: the reference picks it under
+    "auto" on a TPU alone, tpu_qg/models/core.py:318-341) or "xla"
+    (torch.fft, the oracle tier). Raises NotImplementedError where the
+    reference would run a transform this package has not ported."""
+    if cfg.fft_impl in ("xla", "matmul"):
+        return cfg.fft_impl
     if cfg.fft_impl == "auto" and not (
             cfg.dtype == "float32" and cfg.use_pallas
             and reference_dft_kernels(cfg.M, cfg.P)):
@@ -228,7 +228,10 @@ def resolve_fft_impl(cfg: ModelConfig) -> str:
 def _build_packed_inverter(cfg: ModelConfig) -> PackedModalInverter:
     args = (cfg.M, cfg.P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
             cfg.back_projection_matrix())
-    if resolve_fft_impl(cfg) != "kernels":
+    impl = resolve_fft_impl(cfg)
+    if impl == "matmul":
+        return PackedModalInverterMXU(*args)
+    if impl != "kernels":
         return PackedModalInverter(*args)
     inv = PackedModalInverterKernels(
         *args, pair_x=cfg.fft_pairx != "off",

@@ -22,6 +22,9 @@ launch of K16. The reference's shape gates of its one-launch forms
 (``reference_mono``, ``reference_fullstep``, ``reference_yfused``) are
 copied here.
 
+``PackedModalInverterMXU`` runs the same inversion on the matmul-factorized
+DFT of ``ops/matmul_fft.py`` (``fft_impl="matmul"``).
+
 Symbol tables are built on the host once per solver and moved to a field's
 device and dtype at first use there.
 """
@@ -37,7 +40,8 @@ import torch
 from ..device import resolve_device
 from .dft_kernels import (mono_invert, pair_x_symbols, stream_pair_symbols,
                           x_dft, x_symbols_inverse, y_dft)
-from .matmul_fft import freq_order, negate_spectrum, split_factor
+from .matmul_fft import (MatmulFFT2, freq_order, negate_spectrum,
+                         split_factor)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,6 +224,32 @@ class PackedModalInverter:
         W_rev = torch.roll(torch.flip(torch.conj(W), dims=(-2, -1)), (1, 1),
                            dims=(-2, -1))
         v = torch.fft.ifft2(A * W + B * W_rev, dim=(-2, -1))
+        return torch.stack([v.real, v.imag]).to(zeta.dtype)
+
+
+class PackedModalInverterMXU(PackedModalInverter):
+    """PackedModalInverter with the fft2/ifft2 pair replaced by the
+    matmul-factorized DFT (``ops.matmul_fft``), the counterpart of
+    ``tpu_qg``'s ``PackedModalInverterMXU`` (tpu_qg/ops/spectral.py:214-237):
+    the transforms become batched GEMMs and twiddles, and the spectral order
+    stays permuted end to end — the symbols A, B are evaluated at the
+    permuted frequencies, and conj(W(-k)) is the permuted negation. Same
+    math and gauge as the parent (``fft_impl="matmul"``)."""
+
+    def __init__(self, M: int, P: int, dx: float, alpha2: float,
+                 P_inv, P_back):
+        super().__init__(M, P, dx, alpha2, P_inv, P_back)
+        self._fft2 = MatmulFFT2(M, P)
+        # Permute the 1-D eigenvalue factors into the transform's slot order.
+        self.lam_x = self.lam_x[freq_order(M)]
+        self.lam_y = self.lam_y[freq_order(P)]
+
+    def __call__(self, zeta: torch.Tensor) -> torch.Tensor:
+        """(2, M, P) real zeta -> (2, M, P) real psi."""
+        W = self._fft2.forward(torch.complex(zeta[0], zeta[1]))
+        A, B = self._sym.get(zeta.dtype, zeta.device)
+        W_rev = torch.conj(self._fft2.negate_spectrum(W))
+        v = self._fft2.inverse(A * W + B * W_rev)
         return torch.stack([v.real, v.imag]).to(zeta.dtype)
 
 

@@ -3,7 +3,9 @@
 Counterpart of ``tpu_qg.run`` (reference: src/run_model.jl:55-95): named
 presets, snapshots every ``sample_interval`` of model time, checkpoints,
 resume, and a NaN check that writes an emergency checkpoint before it
-raises.
+raises. ``--debug-nans`` (``debug_nans=True``) makes that check after every
+step and names the first non-finite field, where ``tpu_qg`` turns on
+``jax_debug_nans``: it waits on the device every step and is slow.
 
 The device is explicit: ``device="cuda"`` (the default) raises when no GPU
 is present instead of running on the CPU; ``--device cpu`` is the CPU route.
@@ -58,6 +60,7 @@ from .parallel.collectives import all_gather_scalars
 from .utils.diagnostics import diagnostics, sharded_diagnostics
 
 _GSPMD = "not ported yet (ROADMAP.md queue 1, item 6: parallel/gspmd.py)"
+_CHECKED_FIELDS = ("zeta", "psi", "f1", "f2")
 
 
 def log_model_params(cfg: ModelConfig) -> None:
@@ -79,6 +82,19 @@ def log_model_params(cfg: ModelConfig) -> None:
     print(f"Total steps = {cfg.total_steps}\n")
 
 
+def first_nonfinite(state: State, mesh=None) -> Optional[str]:
+    """The first of zeta, psi, f1 and f2 that holds a non-finite value, else
+    None. On a mesh each rank checks its own blocks and the ranks exchange
+    their flags (a collective: call on every rank), so all agree."""
+    bad = torch.stack([~torch.isfinite(getattr(state, name)).all()
+                       for name in _CHECKED_FIELDS]).double()
+    if mesh is not None:
+        bad = all_gather_scalars(bad, mesh).amax(dim=0)
+    flags = bad.cpu().tolist()
+    return next((name for name, flag in zip(_CHECKED_FIELDS, flags) if flag),
+                None)
+
+
 def run_model(
     cfg: ModelConfig,
     run_dir: Optional[str] = None,
@@ -93,6 +109,7 @@ def run_model(
     device: torch.device | str = "cuda",
     parallel_impl: str = "halo",
     checkpoint_mode: str = "auto",
+    debug_nans: bool = False,
 ) -> State:
     """Run the simulation on one device, or on ``mesh`` (a
     ``parallel.Mesh``: the device is the mesh's; every rank calls this),
@@ -106,7 +123,13 @@ def run_model(
     rank 0; "sharded" writes shard files, each rank its own blocks (one
     file on one device); "auto" is sharded on a mesh at M * P >= 2048^2,
     else gathered (tpu_qg/run.py:122-124). A resume on a mesh from a shard
-    set loads each rank's own blocks."""
+    set loads each rank's own blocks.
+
+    ``debug_nans`` advances one step at a time and checks ``torch.isfinite``
+    on zeta, psi, f1 and f2 after each (``first_nonfinite``); at the first
+    non-finite step it writes the emergency checkpoint (when saving) and
+    raises ``FloatingPointError`` naming the step and the field. It waits on
+    the device every step."""
     if checkpoint_mode not in ("auto", "gathered", "sharded"):
         raise ValueError(f"unknown checkpoint_mode {checkpoint_mode!r}")
     if mesh is None:
@@ -187,6 +210,22 @@ def run_model(
             else:
                 writer.write_checkpoint(full)
         barrier()
+
+    if debug_nans:
+        advance_chunk = advance
+
+        def advance(s: State, n: int) -> State:
+            for _ in range(n):
+                s = advance_chunk(s, 1)
+                field = first_nonfinite(s, mesh)
+                if field is not None:
+                    if save_results:
+                        save(s, False)
+                    raise FloatingPointError(
+                        f"non-finite {field} at step {s.step} (debug_nans)"
+                        + (" — emergency checkpoint written" if save_results
+                           else ""))
+            return s
 
     start_step = state.step
     if verbose:
@@ -271,6 +310,11 @@ def main(argv=None) -> None:
                         help="gathered: whole fields through rank 0; "
                              "sharded: a shard file a rank; auto: sharded "
                              "on a mesh at 2048^2 or more")
+    parser.add_argument("--debug-nans", action="store_true",
+                        help="check zeta, psi, f1 and f2 for NaN/Inf after "
+                             "every step and stop at the first non-finite "
+                             "one, naming it (waits on the device every "
+                             "step; slow)")
     args = parser.parse_args(argv)
 
     cfg = parse_overrides(preset(args.preset), args.set)
@@ -293,6 +337,7 @@ def main(argv=None) -> None:
             device=args.device,
             parallel_impl=args.parallel,
             checkpoint_mode=args.checkpoint_mode,
+            debug_nans=args.debug_nans,
         )
     finally:
         if mesh is not None:
