@@ -221,8 +221,15 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    pod-8192's zeta (K2, K7, every K7 launch by K3's cluster kernel, "K7
    cluster" = K7, K3 = 0) and of the 3072^2 slice's (K2 by its mixed-radix
    form, K7, every K7 launch by K3's mixed cluster kernel, "K7 cluster" =
-   "K7 mixed" = K7, K3 = 0), psi against float64.
-   Each
+   "K7 mixed" = K7, K3 = 0), psi against float64. The gspmd route
+   (tpu_qg_torch.parallel.gspmd: the single-device per-mode step on
+   DTensors; route "gspmd", no kernel) through run_model(...,
+   parallel_impl="gspmd"): turbulence-2048 on the one-rank mesh (20
+   steps) and on the four ranks' (2, 2) mesh (5 steps), every count 0 on
+   every rank, zeta within 1e-6 and psi within 1e-4 of the single-device
+   per-mode step (make_step_fn(cfg, batched_fft=False)) on the card; the
+   collectives of one step by type (CommDebugMode) and the bytes a rank
+   sends in it, by kind. Each
    rank's process group and the parent's join have time limits; a rank
    that fails fails the script.
 5. timing  — CUDA-event ms per step of each route by QGModel.run, in turns
@@ -255,7 +262,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    shapes (K12, K2 both ways, K13 by each kernel) and their sum; ms per
    step of each
    four-rank slice (host-staged
-   gloo transport on one card: not a scaling result). The lab: ms per
+   gloo transport on one card: not a scaling result); ms per step of the
+   gspmd route beside the halo route's, in turns, on the one-rank mesh at
+   2048^2 and on the four ranks' (2, 2) mesh. The lab: ms per
    launch of each K18 variant (the row kernel) beside K1 and each body's
    tile kernel in turns, host-launched and graph-replayed, each beside its
    plain version, and the lab path's own ms per step.
@@ -313,7 +322,8 @@ import tpu_qg_torch
 from tpu_qg_torch import preset
 from tpu_qg_torch.constants import DAY
 from tpu_qg_torch.io import RunReader, RunWriter
-from tpu_qg_torch.models.core import QGModel, State, _next_state, init_state
+from tpu_qg_torch.models.core import (QGModel, State, _next_state, init_state,
+                                     make_step_fn)
 from tpu_qg_torch.ops import _build, dft_kernels
 from tpu_qg_torch.ops.dft_kernels import (
     mirror_companion, mono_invert, mono_invert_coop, mono_invert_plain,
@@ -376,14 +386,15 @@ from tpu_qg_torch.ops.step_kernel import (HALO_ROWS, fused_pre_inversion,
                                           step_rows_layouts,
                                           tendency_rows_attributes,
                                           tendency_rows_launched)
-from tpu_qg_torch.parallel import (gather_state, make_halo_run_fn, make_mesh,
-                                   shard_state)
+from tpu_qg_torch.parallel import (gather_state, gspmd, make_halo_run_fn,
+                                   make_mesh, shard_state)
 from tpu_qg_torch.parallel.multigrid import DistributedMultigridInverter
 from tpu_qg_torch.parallel.paired import strip_pair_order
-from tpu_qg_torch.run import run_model
+from tpu_qg_torch.run import make_gspmd_blocks_run_fn, run_model
 from tpu_qg_torch.scripts import (accuracy_drift, inv_f64_check,
                                   stencil_lab, step_f64_check)
 from tpu_qg_torch.utils.diagnostics import diagnostics
+from tpu_qg_torch.utils.profiling import HBM_BANDWIDTH
 from tpu_qg_torch.validation import allclose
 
 SEED = 1234
@@ -410,7 +421,7 @@ TOL = {"K1": 1e-6, "K2": 1e-5, "K2 mixed": 1e-5, "K3": 1e-4,
        "K15 zeta_ys": 1e-5, "K15s": 1e-6, "K16": 1e-4, "K17": 1e-6,
        "K18": 1e-6,
        "K17 psi_new": 1e-4, "slice_zeta": 1e-4, "mesh1_zeta": 1e-6,
-       "mg_psi": 1e-5}
+       "mg_psi": 1e-5, "gspmd_zeta": 1e-6, "gspmd_psi": 1e-4}
 FUSED = "tpu_qg_torch/csrc/fused_kernels.cu"
 COOP = "tpu_qg_torch/csrc/coop_rows.cuh"
 MG = "tpu_qg_torch/csrc/mg_kernels.cu"
@@ -562,8 +573,9 @@ TRACE_NAMES = (("K9 rows", "tendency_rows_kernel"),
                ("K18", "lab_step_kernel"), ("K1", "step_kernel"))
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): device
-# memory bandwidth and the float32 rate without tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
+# memory bandwidth (the port's one table, utils/profiling.py) and the
+# float32 rate without tensor cores.
+PEAK_BYTES_PER_S = HBM_BANDWIDTH["NVIDIA H100 80GB HBM3"]
 PEAK_F32_PER_S = 67e12
 # Operations of the step per point and layer (step_tile: lap(psi) 6,
 # del^4 7, the Arakawa Jacobian 32, d/dx terms and drag ~9, the AB3
@@ -2996,6 +3008,112 @@ def run_mesh_slice(name, cfg, mesh, dev, steps, expect, route) -> dict:
     return launches
 
 
+GSPMD_STEPS = 20          # the one-rank gspmd slice
+
+
+def gspmd_vs_generic(name, cfg, dev, full, state0, steps) -> dict:
+    """A gspmd run's gathered zeta and psi against the single-device
+    per-mode step (make_step_fn(cfg, batched_fft=False), the step the
+    route runs) from the same state on the card: zeta within
+    TOL["gspmd_zeta"], psi within TOL["gspmd_psi"] of max|ref| (the dry
+    run's gates, __graft_entry__.py:82-88)."""
+    step = make_step_fn(cfg, batched_fft=False)
+    ref = state0
+    for _ in range(steps):
+        ref = step(ref)
+    _, dz = rel_err(full.zeta, ref.zeta)
+    _, dp = rel_err(full.psi, ref.psi)
+    del ref
+    free_memory()
+    if not (dz <= TOL["gspmd_zeta"] and dp <= TOL["gspmd_psi"]):
+        raise AssertionError(f"{name}: zeta {dz} / psi {dp} from the "
+                             f"single-device per-mode step")
+    return dict(zeta_rel_diff_vs_per_mode_step=dz,
+                psi_rel_diff_vs_per_mode_step=dp,
+                tol_zeta=TOL["gspmd_zeta"], tol_psi=TOL["gspmd_psi"])
+
+
+def gspmd_step_comms(cfg, mesh, local) -> dict:
+    """The collectives of one gspmd step from this rank's blocks ``local``:
+    CommDebugMode's count by op, and the bytes this rank sends, by kind
+    (ring shifts of the rolls' slabs; the gathers of the per-mode solve,
+    (n - 1) blocks each). A collective: call on every rank."""
+    from unittest import mock
+
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    step = gspmd.make_sharded_step_fn(cfg, mesh)
+    state = gspmd.from_blocks(local, mesh)
+    sent = {"ring_shift": 0, "all_gather_blocks": 0, "ring_shifts": 0,
+            "gathers": 0}
+    real_shift, real_gather = gspmd.ring_shift, gspmd.all_gather_blocks
+
+    def shift(t, group, index, size, s, **kwargs):
+        if size > 1:
+            sent["ring_shift"] += t.numel() * t.element_size()
+            sent["ring_shifts"] += 1
+        return real_shift(t, group, index, size, s, **kwargs)
+
+    def gather(t, m):
+        if m.size > 1:
+            sent["all_gather_blocks"] += (m.size - 1) * t.numel() \
+                * t.element_size()
+            sent["gathers"] += 1
+        return real_gather(t, m)
+
+    with CommDebugMode() as comm, \
+            mock.patch.object(gspmd, "ring_shift", shift), \
+            mock.patch.object(gspmd, "all_gather_blocks", gather):
+        step(state)
+    torch.cuda.synchronize()
+    return {"by_op": {str(k): v for k, v in comm.get_comm_counts().items()},
+            "bytes_sent_by_rank": sent}
+
+
+def run_gspmd_slice(name, cfg, mesh, dev, card, steps) -> dict:
+    """``steps`` steps through run_model(parallel_impl="gspmd") on the
+    one-rank ``mesh``, the counts set to 0 just before and read just after
+    (every count 0: the route launches no kernel); zeta and psi against the
+    single-device per-mode step; then ms per step of the gspmd and halo
+    routes in turns and one step's collectives. Returns the counts."""
+    state0 = init_state(cfg, dev)
+    reset_counts()
+    out = run_model(cfg, save_results=False, n_steps=steps, state=state0,
+                    verbose=False, mesh=mesh, parallel_impl="gspmd")
+    torch.cuda.synchronize()
+    launches = counts()
+    if any(launches.values()):
+        raise AssertionError(f"{name}: launch counts {launches} != 0")
+    full = gather_state(out, mesh, ("zeta", "psi"))
+    if not (torch.isfinite(full.zeta).all() and torch.isfinite(full.psi).all()
+            and tuple(full.zeta.shape) == (2, cfg.M, cfg.P)):
+        raise AssertionError(f"{name}: final state not finite or shaped "
+                             f"{tuple(full.zeta.shape)}")
+    fields = gspmd_vs_generic(name, cfg, dev, full, state0, steps)
+    emit("mesh_slice", preset=name, mesh=list(mesh.shape), ranks=mesh.size,
+         backend=mesh.backend, route="gspmd", steps=steps, launches=launches,
+         **fields)
+    del out, full
+    local = shard_state(state0, mesh)
+    runs = {"gspmd": make_gspmd_blocks_run_fn(cfg, mesh),
+            "halo": make_halo_run_fn(cfg, mesh)}
+    step_ms = {k: [] for k in runs}
+    for k in list(runs) + list(runs)[::-1]:
+        step_ms[k].append(time_ms(lambda r=runs[k]: r(local, steps), 1,
+                                  warmup=1) / steps)
+    mean = {k: sum(v) / len(v) for k, v in step_ms.items()}
+    emit("timing", path=name, card=card, grid=[cfg.M, cfg.P],
+         mesh=list(mesh.shape), backend=mesh.backend, steps_per_run=steps,
+         step_ms=mean, step_ms_runs=step_ms,
+         routes={k: r.route for k, r in runs.items()},
+         gspmd_over_halo=mean["gspmd"] / mean["halo"])
+    emit("gspmd_comms", path=name, mesh=list(mesh.shape),
+         **gspmd_step_comms(cfg, mesh, local))
+    del local, runs, state0
+    free_memory()
+    return launches
+
+
 def free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -3275,10 +3393,11 @@ def time_mg_mesh(pod, pod_mg, mesh, dev, card, steps=5) -> dict:
 
 
 def phase_mesh_one_rank(turb, pod, pod_mg, dev, card) -> tuple[dict, dict]:
-    """The one-rank NCCL mesh on ``dev``: the three slices and pod-8192-mg's
-    (run_mg_mesh_slice), then ms per step of the mesh against the
-    single-device route in turns, at 2048^2 and 8192^2, and pod-8192-mg's
-    beside pod-8192's (time_mg_mesh). Returns (launches by path, ms by
+    """The one-rank NCCL mesh on ``dev``: the three slices, pod-8192-mg's
+    (run_mg_mesh_slice) and the gspmd route's (run_gspmd_slice), then ms
+    per step of the mesh against the single-device route in turns, at
+    2048^2 and 8192^2, and pod-8192-mg's beside pod-8192's
+    (time_mg_mesh). Returns (launches by path, ms by
     grid and "multigrid")."""
     dist.init_process_group(
         "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
@@ -3306,6 +3425,9 @@ def phase_mesh_one_rank(turb, pod, pod_mg, dev, card) -> tuple[dict, dict]:
         name = "pod-8192-mg mesh (1, 1)"
         launches[name] = run_mg_mesh_slice(name, pod_mg, mesh, dev, card)
         free_memory()
+        name = "turbulence-2048 gspmd (1, 1)"
+        launches[name] = run_gspmd_slice(name, turb, mesh, dev, card,
+                                         GSPMD_STEPS)
         ms = {}
         for cfg, steps in ((turb, 100), (pod, 20)):
             model = QGModel(cfg, dev)
@@ -3411,6 +3533,10 @@ FOUR_RANK_SLICES = (
     # kernel.
     ("pod-8192-mg at 2048^2 mesh (2, 2)", "pod-8192-mg",
      {"M": 2048, "P": 2048}, (2, 2), 10, {}, "generic-mg"),
+    # The gspmd route (run_model(parallel_impl="gspmd")): the per-mode step
+    # on DTensors, no kernel; timed beside the halo route in turns.
+    ("turbulence-2048 gspmd mesh (2, 2)", "turbulence-2048", {}, (2, 2), 5,
+     {}, "gspmd"),
 )
 # The four-rank slices that run_model saves: each rank writes its shard
 # files ("auto" at 2048^2 on a mesh), and rank 0 checks that
@@ -3422,9 +3548,11 @@ def mesh_rank(rank: int, world: int, rendezvous: str, out: str) -> None:
     """One of the four ranks sharing cuda:0 on gloo: every slice of
     FOUR_RANK_SLICES through run_model with the counts set to 0 just before
     and checked just after on this rank, zeta and psi gathered; rank 0
-    holds zeta against the single-device route; then ms per step of the
-    same steps by the halo run function (host clock, both ends behind a
-    barrier). Rank 0 writes its report to ``out``."""
+    holds zeta against the single-device route (a gspmd slice zeta and psi
+    against the per-mode step); then ms per step of the same steps by the
+    slice's run function (host clock, both ends behind a barrier), a gspmd
+    slice's in turns with the halo route's, with one step's collectives.
+    Rank 0 writes its report to ``out``."""
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.set_num_threads(2)
@@ -3438,7 +3566,10 @@ def mesh_rank(rank: int, world: int, rendezvous: str, out: str) -> None:
             name, preset_name, over, shape, steps, expect, route = row
             cfg = preset(preset_name).replace(**over)
             mesh = make_mesh(shape, device=dev, backend="gloo")
-            got_route = make_halo_run_fn(cfg, mesh).route
+            impl = "gspmd" if route == "gspmd" else "halo"
+            make_run = (make_gspmd_blocks_run_fn if impl == "gspmd"
+                        else make_halo_run_fn)
+            got_route = make_run(cfg, mesh).route
             if got_route != route:
                 raise AssertionError(f"{name}: route {got_route} != {route}")
             state0 = init_state(cfg, dev)
@@ -3449,7 +3580,8 @@ def mesh_rank(rank: int, world: int, rendezvous: str, out: str) -> None:
             out_state = run_model(cfg, run_dir=run_dir if sharded else None,
                                   save_results=sharded, n_steps=steps,
                                   state=state0, verbose=False, mesh=mesh,
-                                  checkpoint_mode="auto")
+                                  checkpoint_mode="auto",
+                                  parallel_impl=impl)
             torch.cuda.synchronize()
             launches = counts()
             want = {k: expect.get(k, 0) for k in COUNTERS}
@@ -3471,22 +3603,40 @@ def mesh_rank(rank: int, world: int, rendezvous: str, out: str) -> None:
                     raise AssertionError(f"{name}: the shard set {files} "
                                          f"reads back bitwise={same}")
                 del back
-            run = make_halo_run_fn(cfg, mesh)
             local = shard_state(state0, mesh)
-            run(local, 1)                          # allocations warm
-            torch.cuda.synchronize()
-            dist.barrier()
-            t0 = time.perf_counter()
-            run(local, steps)
-            torch.cuda.synchronize()
-            dist.barrier()
-            step_ms = (time.perf_counter() - t0) * 1e3 / steps
+            # ms per step by the host clock, both ends behind a barrier; the
+            # gspmd route in turns with the halo route.
+            runs = {impl: make_run(cfg, mesh)}
+            if impl == "gspmd":
+                runs["halo"] = make_halo_run_fn(cfg, mesh)
+            runs_ms = {k: [] for k in runs}
+            order = (["gspmd", "halo", "halo", "gspmd"] if impl == "gspmd"
+                     else ["halo"])
+            for k in order:
+                runs[k](local, 1)                  # allocations warm
+                torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                runs[k](local, steps)
+                torch.cuda.synchronize()
+                dist.barrier()
+                runs_ms[k].append((time.perf_counter() - t0) * 1e3 / steps)
+            step_ms = sum(runs_ms[impl]) / len(runs_ms[impl])
+            gspmd_fields = {}
+            if impl == "gspmd":
+                gspmd_fields = dict(
+                    halo_step_ms=sum(runs_ms["halo"]) / len(runs_ms["halo"]),
+                    step_ms_runs=runs_ms,
+                    comms=gspmd_step_comms(cfg, mesh, local))
             if rank == 0:
                 finite = bool(torch.isfinite(full.zeta).all()
                               and torch.isfinite(full.psi).all())
                 if not finite:
                     raise AssertionError(f"{name}: non-finite state")
-                if route == "generic-mg":
+                if impl == "gspmd":
+                    fields = gspmd_vs_generic(name, cfg, dev, full, state0,
+                                              steps)
+                elif route == "generic-mg":
                     levels = DistributedMultigridInverter(
                         cfg.M, cfg.P, cfg.dx, cfg.S_eig, cfg.P_inv_matrix(),
                         cfg.back_projection_matrix(), mesh).solver.levels
@@ -3500,8 +3650,9 @@ def mesh_rank(rank: int, world: int, rendezvous: str, out: str) -> None:
                                    backend="gloo (host-staged, one card)",
                                    route=route, steps=steps,
                                    launches_per_rank=launches,
-                                   step_ms=step_ms, **shard_io, **fields))
-            del state0, out_state, full, local, run
+                                   step_ms=step_ms, **gspmd_fields,
+                                   **shard_io, **fields))
+            del state0, out_state, full, local, runs
             free_memory()
             dist.barrier()
         if rank == 0:

@@ -224,7 +224,8 @@ def test_cli_no_save_and_sharded_flags(monkeypatch, capsys, tmp_path):
     """--no-save on one device; then the sharded flags in a one-rank gloo
     group from torchrun's environment (a free port): --mesh 1,1 runs the
     halo stepper, --checkpoint-mode sharded writes the rank's shard files,
-    and --parallel gspmd, not ported yet, raises."""
+    and --parallel gspmd runs with shard-file checkpoints and resumes from
+    them, on the single-device per-mode step's trajectory."""
     import socket
     trun.main(["--device", "cpu", "--preset", "turbulence-2048", "--steps",
                "2", "--no-save", "--set", "M=64", "P=64"])
@@ -246,10 +247,27 @@ def test_cli_no_save_and_sharded_flags(monkeypatch, capsys, tmp_path):
         "checkpoint_000000002-shard00000.index.json",
         "checkpoint_000000002-shard00000.npz"]
     assert jio.RunReader(run_dir).load_checkpoint().zeta.shape == (2, 64, 64)
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue 1, item 6:"):
-        trun.main(small + ["--no-save", "--mesh", "1,1", "--parallel",
-                           "gspmd"])
+    gspmd_dir = tmp_path / "gspmd"
+    gspmd = ["--run-dir", str(gspmd_dir), "--mesh", "1,1", "--parallel",
+             "gspmd", "--checkpoint-mode", "sharded", "--checkpoint-every",
+             "1"]
+    trun.main(small + gspmd)
+    assert "step 2/2" in capsys.readouterr().out
+    trun.main(small + gspmd + ["--steps", "3", "--resume"])
+    out = capsys.readouterr().out
+    assert "Resumed from step 2" in out and "step 3/3" in out
+    assert "gspmd" in out
+    reader = tio.RunReader(gspmd_dir)
+    assert reader.checkpoint_steps() == [2, 3]
+    assert reader.shard_files("checkpoint", 3)
+    cfg = tpu_qg_torch.preset("turbulence-2048").replace(M=64, P=64)
+    step = core.make_step_fn(cfg, batched_fft=False)
+    want = core.init_state(cfg, "cpu")
+    for _ in range(3):
+        want = step(want)
+    got = reader.load_checkpoint(device="cpu")
+    for f in ("zeta", "psi", "f1", "f2"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 @pytest.mark.parametrize("preset,sets", [
@@ -318,7 +336,9 @@ def test_import_pulls_in_no_jax():
             "tpu_qg_torch.validation.allclose, "
             "tpu_qg_torch.scripts.inv_f64_check, "
             "tpu_qg_torch.scripts.step_f64_check, "
-            "tpu_qg_torch.scripts.accuracy_drift; "
+            "tpu_qg_torch.scripts.accuracy_drift, "
+            "tpu_qg_torch.parallel.gspmd, tpu_qg_torch.utils.profiling, "
+            "tpu_qg_torch.plotting; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'tpu_qg.')) or m == 'tpu_qg']; "
             "assert not bad, bad")

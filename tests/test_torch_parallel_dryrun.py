@@ -6,6 +6,8 @@ inverters against tpu_qg's single-device fused inversion.
 
   * the default mesh of 8 ranks, (2, 4), the generic route: zeta 1e-6,
     psi 1e-4;
+  * the gspmd step (DTensor, parallel.gspmd) on the same config and mesh:
+    zeta 1e-6, psi 1e-4 (__graft_entry__.py:82-88);
   * the fused (8, 1) step (companion inverter, K13): zeta 1e-5, psi 1e-4;
   * the sharded chain on (8, 1): zeta 1e-5, psi 2e-4;
   * the companion and the paired (K14) inversions of a grid-noise zeta
@@ -76,6 +78,8 @@ def _generic_zeta():
 STEP_CASES = {
     "default mesh (2, 4) generic": (GENERIC, None, {}, "generic",
                                     {"zeta": 1e-6, "psi": 1e-4}),
+    "gspmd (2, 4)": (GENERIC, (2, 4), dict(gspmd=True), "gspmd",
+                     {"zeta": 1e-6, "psi": 1e-4}),
     "fused (8, 1)": (FUSED, (N, 1), dict(fused=True), "fused",
                      {"zeta": 1e-5, "psi": 1e-4}),
     "chain (8, 1)": (FUSED, (N, 1), dict(fused=True, chain=True), "chain",

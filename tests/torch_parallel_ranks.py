@@ -70,8 +70,9 @@ def _numpy(state, fields=("zeta", "psi", "f1")) -> dict:
 
 def run_steps(case, workdir):
     """``case["steps"]`` steps of the halo stepper from ``psi0`` (one
-    make_halo_step_fn call a step, or make_halo_run_fn with ``chain``);
-    returns the gathered state and the route."""
+    make_halo_step_fn call a step, or make_halo_run_fn with ``chain``), or
+    of gspmd.make_sharded_step_fn with ``gspmd``; returns the gathered state
+    and the route."""
     from tpu_qg_torch.models.core import init_state
     from tpu_qg_torch.parallel import (gather_state, make_halo_run_fn,
                                        make_halo_step_fn, shard_state)
@@ -79,7 +80,14 @@ def run_steps(case, workdir):
     cfg = case["cfg"]
     state = shard_state(init_state(cfg, "cpu", psi_init=case["psi0"]), mesh)
     opts = case.get("opts", {})
-    if "chain" in opts:
+    if opts.get("gspmd"):
+        from tpu_qg_torch.parallel import gspmd
+        step = gspmd.make_sharded_step_fn(cfg, mesh)
+        state = gspmd.from_blocks(state, mesh)
+        for _ in range(case["steps"]):
+            state = step(state)
+        state, route = gspmd.to_blocks(state), step.route
+    elif "chain" in opts:
         run = make_halo_run_fn(cfg, mesh, **opts)
         state, route = run(state, case["steps"]), run.route
     else:
@@ -147,8 +155,9 @@ def inverter(case, workdir):
 
 
 def run_model_case(case, workdir):
-    """run_model on the mesh with gathered checkpoints every 2 steps, then a
-    resume to ``steps + 2``; returns rank 0's checkpoint steps and the final
+    """run_model on the mesh (``run_opts``: more of its arguments) with
+    gathered checkpoints every 2 steps, then a resume to ``steps + 2``;
+    returns rank 0's checkpoint steps and the final
     gathered state."""
     from tpu_qg_torch.io import RunReader
     from tpu_qg_torch.models.core import init_state
@@ -158,11 +167,13 @@ def run_model_case(case, workdir):
     cfg = case["cfg"]
     run_dir = os.path.join(workdir, case["name"])
     state0 = init_state(cfg, "cpu", psi_init=case["psi0"])
+    opts = case.get("run_opts", {})
     run_model(cfg, run_dir=run_dir, n_steps=case["steps"], checkpoint_every=2,
-              verbose=False, state=state0, mesh=mesh, sample_interval=cfg.dt)
+              verbose=False, state=state0, mesh=mesh, sample_interval=cfg.dt,
+              **opts)
     out = run_model(cfg, run_dir=run_dir, n_steps=case["steps"] + 2,
                     resume=True, verbose=False, mesh=mesh,
-                    sample_interval=cfg.dt)
+                    sample_interval=cfg.dt, **opts)
     result = _numpy(gather_state(out, mesh))
     dist.barrier()
     reader = RunReader(run_dir)
@@ -312,10 +323,10 @@ def io_sharded(case, workdir):
 
 
 def io_resume(case, workdir):
-    """run_model on the mesh with shard-file checkpoints every 2 steps to
-    ``steps``, a resume to ``steps + 2``, and an uninterrupted run of
-    ``steps + 2``; both final states gathered, and rank 0's listing of the
-    run directory."""
+    """run_model on the mesh (``run_opts``: more of its arguments) with
+    shard-file checkpoints every 2 steps to ``steps``, a resume to
+    ``steps + 2``, and an uninterrupted run of ``steps + 2``; both final
+    states gathered, and rank 0's listing of the run directory."""
     from tpu_qg_torch.models.core import init_state
     from tpu_qg_torch.parallel import gather_state
     from tpu_qg_torch.run import run_model
@@ -323,14 +334,16 @@ def io_resume(case, workdir):
     cfg = case["cfg"]
     run_dir = os.path.join(workdir, case["name"])
     state0 = init_state(cfg, "cpu", psi_init=case["psi0"])
+    opts = case.get("run_opts", {})
     run_model(cfg, run_dir=run_dir, n_steps=case["steps"], checkpoint_every=2,
               verbose=False, state=state0, mesh=mesh, sample_interval=cfg.dt,
-              checkpoint_mode="sharded")
+              checkpoint_mode="sharded", **opts)
     resumed = run_model(cfg, run_dir=run_dir, n_steps=case["steps"] + 2,
                         resume=True, verbose=False, mesh=mesh,
-                        sample_interval=cfg.dt, checkpoint_mode="sharded")
+                        sample_interval=cfg.dt, checkpoint_mode="sharded",
+                        **opts)
     whole = run_model(cfg, save_results=False, n_steps=case["steps"] + 2,
-                      verbose=False, state=state0, mesh=mesh)
+                      verbose=False, state=state0, mesh=mesh, **opts)
     result = {"resumed": _numpy(gather_state(resumed, mesh)),
               "whole": _numpy(gather_state(whole, mesh))}
     dist.barrier()
@@ -338,9 +351,133 @@ def io_resume(case, workdir):
     return result
 
 
+def _placements(t) -> dict:
+    """A DTensor's layout: placements, mesh dims and shape, local shape."""
+    return {"placements": [(type(p).__name__, getattr(p, "dim", None))
+                           for p in t.placements],
+            "mesh_dims": t.device_mesh.mesh_dim_names,
+            "mesh_shape": tuple(t.device_mesh.shape),
+            "mesh_ranks": t.device_mesh.mesh.tolist(),
+            "local_shape": tuple(t.to_local().shape)}
+
+
+def gspmd_run(case, workdir):
+    """gspmd.make_sharded_run_fn, ``steps`` steps of the DTensor state from
+    ``psi0`` (or make_sharded_step_fn, one call a step, with ``one_step``:
+    the step counter after the first); the result gathered by
+    ``full_tensor``, with each field's layout."""
+    from tpu_qg_torch.models.core import init_state
+    from tpu_qg_torch.parallel import gspmd
+    mesh = _mesh(case)
+    cfg = case["cfg"]
+    state = gspmd.shard_state(init_state(cfg, "cpu", psi_init=case["psi0"]),
+                              mesh)
+    out = {}
+    if case.get("one_step"):
+        step = gspmd.make_sharded_step_fn(cfg, mesh, donate=False)
+        state = step(state)
+        out["first_step"] = state.step
+        for _ in range(case["steps"] - 1):
+            state = step(state)
+        out["route"] = step.route
+    else:
+        run = gspmd.make_sharded_run_fn(cfg, mesh)
+        state = run(state, case["steps"])
+        out["route"] = run.route
+    out.update({f: getattr(state, f).full_tensor().numpy()
+                for f in ("zeta", "psi", "f1")})
+    out["step"] = state.step
+    out["layout"] = {f: _placements(getattr(state, f))
+                     for f in ("zeta", "psi", "f1", "f2")}
+    return out
+
+
+def gspmd_comms(case, workdir):
+    """CommDebugMode's collectives, by op, over ``_tendencies`` of the
+    DTensor state inside ``gspmd.sharded_ops``, and over one sharded step;
+    the bytes this rank sends in that step (ring shifts, gathers); the
+    sharded tendencies gathered, and the tendencies of the full plain
+    fields inside and outside the mode; the error of a grid that does not
+    divide over the mesh."""
+    from unittest import mock
+
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from tpu_qg_torch.models.core import _tendencies, init_state
+    from tpu_qg_torch.parallel import gspmd
+    mesh = _mesh(case)
+    cfg = case["cfg"]
+    state = gspmd.shard_state(init_state(cfg, "cpu", psi_init=case["psi0"]),
+                              mesh)
+    step = gspmd.make_sharded_step_fn(cfg, mesh)
+    with CommDebugMode() as tend:
+        with gspmd.sharded_ops(mesh):
+            sharded = _tendencies(cfg, state.zeta, state.psi)
+    full = init_state(cfg, "cpu", psi_init=case["psi0"])
+    with CommDebugMode() as plain_comm:
+        with gspmd.sharded_ops(mesh):
+            plain = _tendencies(cfg, full.zeta, full.psi)
+    try:
+        gspmd.make_sharded_step_fn(cfg.replace(P=cfg.P + 2), mesh)
+        bad_grid = None
+    except ValueError as e:
+        bad_grid = str(e)
+    sent = {"ring_shift": 0, "all_gather_blocks": 0, "slabs": {}}
+
+    def shift(t, group, index, size, s, **kwargs):
+        if size > 1:
+            sent["ring_shift"] += t.numel() * t.element_size()
+            key = str(tuple(t.shape))
+            sent["slabs"][key] = sent["slabs"].get(key, 0) + 1
+        return real_shift(t, group, index, size, s, **kwargs)
+
+    def gather(t, m):
+        sent["all_gather_blocks"] += (m.size - 1) * t.numel() \
+            * t.element_size()
+        return real_gather(t, m)
+
+    real_shift, real_gather = gspmd.ring_shift, gspmd.all_gather_blocks
+    with CommDebugMode() as whole, \
+            mock.patch.object(gspmd, "ring_shift", shift), \
+            mock.patch.object(gspmd, "all_gather_blocks", gather):
+        step(state)
+    return {"tendencies": {str(k): v for k, v in
+                           tend.get_comm_counts().items()},
+            "tendencies_sharded": sharded.full_tensor().numpy(),
+            "tendencies_plain": plain.numpy(),
+            "tendencies_reference": _tendencies(cfg, full.zeta,
+                                                full.psi).numpy(),
+            "plain_comms": dict(plain_comm.get_comm_counts()),
+            "plain_type": type(plain).__name__, "bad_grid": bad_grid,
+            "step": {str(k): v for k, v in whole.get_comm_counts().items()},
+            "bytes_sent": sent}
+
+
+def debug_nans_case(case, workdir):
+    """run_model with debug_nans on the mesh (``run_opts``) from a state
+    with a NaN at ``nan_at`` of ``field``: the error's message."""
+    from tpu_qg_torch.models.core import init_state
+    from tpu_qg_torch.run import run_model
+    mesh = _mesh(case)
+    cfg = case["cfg"]
+    state = init_state(cfg, "cpu", psi_init=case["psi0"])
+    seeded = getattr(state, case["field"]).clone()
+    seeded[case["nan_at"]] = float("nan")
+    try:
+        run_model(cfg, save_results=False, n_steps=case["steps"],
+                  verbose=False, state=state._replace(**{case["field"]:
+                                                         seeded}),
+                  mesh=mesh, debug_nans=True, **case.get("run_opts", {}))
+    except FloatingPointError as e:
+        return str(e)
+    return None
+
+
 RUNNERS = {"run": run_steps, "halo": halo, "solver": solver,
            "inverter": inverter, "run_model": run_model_case,
            "mg_solver": mg_solver, "mg_inverter": mg_inverter,
            "mg_extrapolated": mg_extrapolated, "io_sharded": io_sharded,
            "io_resume": io_resume,
-           "sharded_diagnostics": sharded_diagnostics_case}
+           "sharded_diagnostics": sharded_diagnostics_case,
+           "gspmd_run": gspmd_run, "gspmd_comms": gspmd_comms,
+           "debug_nans": debug_nans_case}

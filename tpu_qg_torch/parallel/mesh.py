@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import functools
 import os
 import socket
 from typing import Optional, Sequence, Tuple
@@ -72,6 +73,17 @@ class Mesh:
     @property
     def size(self) -> int:
         return self.shape[0] * self.shape[1]
+
+    @functools.cached_property
+    def device_mesh(self):
+        """The (nx, ny) ``DeviceMesh`` over these ranks in this order, dims
+        ("x", "y"), for the DTensor route (``gspmd``). Made at first use,
+        which creates process groups: first use it on every rank, in the
+        same order."""
+        from torch.distributed.device_mesh import DeviceMesh
+
+        ranks = torch.arange(self.size).reshape(self.shape)
+        return DeviceMesh(self.device.type, ranks, mesh_dim_names=("x", "y"))
 
 
 def check_nccl_devices(backend: str, devices: Sequence[str]) -> None:

@@ -14,13 +14,18 @@ is present instead of running on the CPU; ``--device cpu`` is the CPU route.
     python -m tpu_qg_torch.run --preset pod-8192 --steps 50 --no-save
 
 With ``mesh`` (``--mesh nx,ny`` under ``torchrun``, one rank per mesh
-point) the grid is domain-decomposed over the ranks by the halo stepper
-(``tpu_qg_torch.parallel``); every rank runs this driver. Snapshots and
+point) the grid is domain-decomposed over the ranks
+(``tpu_qg_torch.parallel``); every rank runs this driver.
+``parallel_impl`` (``--parallel``) picks the implementation: "halo", the
+halo stepper, or "gspmd", the single-device step on DTensors of the global
+fields (``parallel.gspmd``). Between chunks of steps both hold the state as
+each rank's blocks, so snapshots, checkpoints, diagnostics and
+``--debug-nans`` take the same path on either. Snapshots and
 checkpoints are written as ``tpu_qg`` writes them (``--checkpoint-mode``):
 "gathered" through rank 0 as whole fields, "sharded" as shard files, each
 rank its own blocks, and "auto" sharded on a mesh at 2048^2 or more,
 else gathered. A mesh resumes from a shard set by loading each rank's own
-blocks. (``parallel_impl="gspmd"`` is not ported.)
+blocks.
 
     python3 -m torch.distributed.run --nproc-per-node 1 -m tpu_qg_torch.run \
         --preset pod-8192 --mesh 1,1 --steps 20 --no-save
@@ -30,6 +35,9 @@ blocks. (``parallel_impl="gspmd"`` is not ported.)
     python3 -m torch.distributed.run --nproc-per-node 4 -m tpu_qg_torch.run \
         --preset turbulence-2048 --mesh 4,1 --backend gloo --device cuda:0 \
         --steps 10 --no-save     # four ranks sharing one card (gloo)
+    python3 -m torch.distributed.run --nproc-per-node 4 -m tpu_qg_torch.run \
+        --preset turbulence-2048 --set M=256 P=256 --mesh 2,2 --device cpu \
+        --parallel gspmd --steps 10 --no-save   # DTensor, four CPU ranks
 
 The opt-in one-launch forms run where pinned: add ``--set fft_mono=on``,
 ``--set step_full=on`` or ``--set step_chain=on``.
@@ -56,10 +64,10 @@ from .device import resolve_device
 from .io import RunReader, RunWriter
 from .models.core import QGModel, State, init_state
 from .parallel import gather_state, make_halo_run_fn, make_mesh, shard_state
+from .parallel import gspmd
 from .parallel.collectives import all_gather_scalars
 from .utils.diagnostics import diagnostics, sharded_diagnostics
 
-_GSPMD = "not ported yet (ROADMAP.md queue 1, item 6: parallel/gspmd.py)"
 _CHECKED_FIELDS = ("zeta", "psi", "f1", "f2")
 
 
@@ -95,6 +103,19 @@ def first_nonfinite(state: State, mesh=None) -> Optional[str]:
                 None)
 
 
+def make_gspmd_blocks_run_fn(cfg: ModelConfig, mesh):
+    """``gspmd.make_sharded_run_fn`` on a state held as this rank's blocks,
+    the loop's form on a mesh: each call wraps the blocks as DTensors and
+    returns the blocks of the result (neither moves data)."""
+    run = gspmd.make_sharded_run_fn(cfg, mesh)
+
+    def advance(state: State, n: int) -> State:
+        return gspmd.to_blocks(run(gspmd.from_blocks(state, mesh), n))
+
+    advance.route = run.route
+    return advance
+
+
 def run_model(
     cfg: ModelConfig,
     run_dir: Optional[str] = None,
@@ -112,7 +133,8 @@ def run_model(
     debug_nans: bool = False,
 ) -> State:
     """Run the simulation on one device, or on ``mesh`` (a
-    ``parallel.Mesh``: the device is the mesh's; every rank calls this),
+    ``parallel.Mesh``: the device is the mesh's; every rank calls this) by
+    ``parallel_impl``, "halo" or "gspmd" (tpu_qg/run.py:111-119),
     optionally streaming snapshots and checkpoints to ``run_dir``.
     Snapshots go every ``sample_interval`` seconds of model time, as the
     metadata says.
@@ -135,10 +157,7 @@ def run_model(
     if mesh is None:
         device = resolve_device(device)
     else:
-        if parallel_impl == "gspmd":
-            raise NotImplementedError(
-                f"parallel_impl='gspmd' is {_GSPMD}")
-        if parallel_impl != "halo":
+        if parallel_impl not in ("halo", "gspmd"):
             raise ValueError(f"unknown parallel_impl {parallel_impl!r}")
         device = mesh.device
     primary = mesh is None or mesh.rank == 0
@@ -155,7 +174,8 @@ def run_model(
         advance = QGModel(cfg, device=device).run
         where = str(device)
     else:
-        advance = make_halo_run_fn(cfg, mesh)
+        advance = (make_halo_run_fn(cfg, mesh) if parallel_impl == "halo"
+                   else make_gspmd_blocks_run_fn(cfg, mesh))
         where = f"mesh {mesh.shape} ({advance.route}, {mesh.backend})"
 
     writer = None
@@ -304,7 +324,8 @@ def main(argv=None) -> None:
                              "gloo on cpu; gloo for ranks sharing a card)")
     parser.add_argument("--parallel", default="halo",
                         choices=["halo", "gspmd"],
-                        help="sharded implementation (gspmd is not ported)")
+                        help="sharded implementation: halo exchange, or "
+                             "the single-device step on DTensors (gspmd)")
     parser.add_argument("--checkpoint-mode", default="auto",
                         choices=["auto", "gathered", "sharded"],
                         help="gathered: whole fields through rank 0; "
